@@ -1,0 +1,405 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``diffsci_tpu_torch``) on one GPU.
+
+Run from the repository root, with one NVIDIA Hopper card (H100):
+
+    python3 chip_smoke.py
+
+Phases (any failure raises, so the exit code is non-zero):
+
+1. Kernels: build every kernel from ``diffsci_tpu_torch/csrc`` (one nvcc
+   per source, in parallel), check each against its plain PyTorch version
+   on the card at the main path's shapes in float32 and bfloat16, and time
+   the kernel, its plain version, the least time the card could take
+   (``bound_ms``) and, where one PyTorch call computes the same function,
+   that call (``library_ms``).
+2. Card vs CPU: a small configuration-A-shaped net (3D 32³, flash
+   attention over 4096 tokens) samples a few Heun steps from the same
+   weights and the same numpy noise on the CPU (plain versions) and on
+   the card (kernels), TF32 off; the results must agree.
+3. Serving, configuration A (3D 32³ porous-media volume, bf16, flash
+   attention) through ``SamplerService``, kernel launch counts reset
+   before and read after.
+4. Serving, configuration B (MNIST 28x28, bf16) likewise.
+5. The launch counts of the main path (phases 3 and 4) must be those of
+   an 18-step Heun sample for every kernel; one JSON line lists every
+   kernel; the card's name and power limit; then the result line.
+
+The last line of standard output is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+``python3 chip_smoke.py --profile`` adds, after phase 5, one profiled
+request per configuration (torch.profiler): wall time, device kernel time,
+the device's idle share and the kernels that take the most time.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a
+# kernel is the larger of its bytes over the memory rate and its
+# operations over the peak rate for their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+NSTEPS = 18
+NFE = 2 * NSTEPS - 1       # Heun with the EDM endpoint rule
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of one call, CUDA events around ``iters`` calls
+    after a warm-up (L2 warm)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def randn(shape, dtype, gen, scale=1.0, shift=0.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale
+            + shift).to(dtype)
+
+
+def within(out, ref, dtype, f32_limit):
+    """max |out - ref| and whether it is inside the stated tolerance:
+    f32_limit in float32; |Δ| <= 2e-2 + 2e-2·|ref| in bfloat16."""
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    if dtype == torch.float32:
+        return err, err <= f32_limit
+    return err, bool((diff <= 2e-2 + 2e-2 * ref.float().abs()).all())
+
+
+# ---------------------------------------------------------------------------
+# phase 1: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def phase_kernels():
+    from diffsci_tpu_torch import kernels
+    from diffsci_tpu_torch.kernels import (flash_attention as fa,
+                                           fused_norm as fn,
+                                           fused_precondition as fp)
+
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[kernels] built {len(kernels.SOURCES)} libraries in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator("cuda").manual_seed(0)
+    failures = []
+    errs = {"fused_axby": 0.0, "norm_silu": 0.0, "flash_attention": 0.0}
+
+    def record(name, label, dtype, err, ok, limit):
+        errs[name] = max(errs[name], err)
+        log(f"[kernels] {name} {label} {str(dtype)[6:]}: max_abs_err "
+            f"{err:.3e} (limit {limit}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} {label} {dtype}")
+
+    for shape in ((64, 28, 28, 1), (4, 32, 32, 32, 1), (3, 1001)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(shape, dtype, gen, 40.0)
+            f = randn(shape, dtype, gen)
+            a = torch.rand(shape[0], generator=gen, device="cuda")
+            b = randn(shape[0], torch.float32, gen)
+            err, ok = within(fp.fused_axby(x, f, a, b),
+                             fp.fused_axby_plain(x, f, a, b), dtype, 1e-5)
+            record("fused_axby", list(shape), dtype, err, ok,
+                   "1e-5" if dtype == torch.float32 else "2e-2+2e-2|ref|")
+
+    norm_shapes = [(4, 32, 32, 32, 32), (4, 64, 16, 16, 16),     # config A
+                   (64, 64, 28, 28), (64, 128, 14, 14),         # config B
+                   (64, 256, 7, 7)]
+    for shape in norm_shapes:
+        for kind in ("ln", "rms"):
+            for dtype in (torch.float32, torch.bfloat16):
+                C = shape[1]
+                x = randn(shape, dtype, gen, 2.0, 0.3)
+                w = randn((C,), dtype, gen, 0.2, 1.0)
+                b = randn((C,), dtype, gen, 0.1)
+                y, mean, rstd = fn.norm_silu_fwd(x, w, b, kind)
+                ry, rmean, rrstd = fn.norm_silu_plain(x, w, b, kind)
+                err, ok = within(y, ry, dtype, 1e-4)
+                serr = float(torch.maximum(
+                    (mean - rmean).abs().max(),
+                    ((rstd - rrstd).abs() / rrstd).max()))
+                ok = ok and serr <= 1e-4
+                record("norm_silu", f"{list(shape)} {kind} (stats "
+                       f"{serr:.1e})", dtype, err, ok,
+                       "1e-4" if dtype == torch.float32 else
+                       "2e-2+2e-2|ref|")
+
+    for shape in ((4, 2, 4096, 32), (2, 4, 4096, 16), (1, 2, 4097, 32)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (randn(shape, dtype, gen) for _ in range(3))
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            ro, rlse = fa.flash_attention_plain(q, k, v)
+            err, ok = within(o, ro, dtype, 1e-4)
+            lerr = float((lse - rlse).abs().max())
+            ok = ok and lerr <= 1e-3
+            record("flash_attention", f"{list(shape)} (lse {lerr:.1e})",
+                   dtype, err, ok,
+                   "1e-4" if dtype == torch.float32 else "2e-2+2e-2|ref|")
+    if failures:
+        raise AssertionError(f"kernel checks failed: {failures}")
+
+    # -- timings at the main path's shapes --------------------------------
+    records = {}
+    x = randn((64, 28, 28, 1), torch.float32, gen, 40.0)
+    f = randn((64, 28, 28, 1), torch.float32, gen)
+    a = torch.rand(64, generator=gen, device="cuda")
+    b = randn(64, torch.float32, gen)
+    n = x.numel()
+    bms, bby = bound(3 * 4 * n + 2 * 4 * 64, 3 * n, torch.float32)
+    records["fused_axby"] = dict(
+        shape="x, f [64, 28, 28, 1] float32 (config B, bucket 64)",
+        ms=cuda_ms(lambda: fp.fused_axby(x, f, a, b), 200),
+        plain_ms=cuda_ms(lambda: fp.fused_axby_plain(x, f, a, b), 200),
+        library_ms=None, bound_ms=bms, bound_by=bby)
+
+    shape = (4, 32, 32, 32, 32)
+    x = randn(shape, torch.bfloat16, gen, 2.0, 0.3)
+    w = randn((32,), torch.bfloat16, gen, 0.2, 1.0)
+    b = randn((32,), torch.bfloat16, gen, 0.1)
+    n = x.numel()
+    # 10 flops per element: mean, centred square, normalise, affine, SiLU
+    bms, bby = bound(2 * 2 * n + 2 * 2 * 32 + 2 * 4 * 4 * 32, 10 * n,
+                     torch.float32)
+    records["norm_silu"] = dict(
+        shape="x [4, 32, 32, 32, 32] bf16 'ln' (config A, bucket 4)",
+        ms=cuda_ms(lambda: fn.norm_silu(x, w, b, "ln"), 50),
+        plain_ms=cuda_ms(lambda: fn.norm_silu_plain(x, w, b, "ln"), 50),
+        library_ms=None, bound_ms=bms, bound_by=bby)
+
+    shape = (4, 2, 4096, 32)
+    q, k, v = (randn(shape, torch.bfloat16, gen) for _ in range(3))
+    BH, T, d = 8, 4096, 32
+    bms, bby = bound(4 * 2 * BH * T * d + 4 * BH * T, 4 * BH * T * T * d,
+                     torch.bfloat16)
+    records["flash_attention"] = dict(
+        shape="q, k, v [4, 2, 4096, 32] bf16 (config A, bucket 4)",
+        ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), 20),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 20),
+        library_ms=cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v), 20),
+        bound_ms=bms, bound_by=bby)
+    for name, rec in records.items():
+        rec["max_abs_err"] = errs[name]
+        lib = ("" if rec["library_ms"] is None
+               else f", library {rec['library_ms']:.4f} ms")
+        log(f"[kernels] time {name} at {rec['shape']}: {rec['ms']:.4f} ms, "
+            f"plain {rec['plain_ms']:.4f} ms{lib}, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phase 2: card against CPU, end to end
+# ---------------------------------------------------------------------------
+def phase_card_vs_cpu():
+    from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
+                                   PUNetGConfig, kernels)
+
+    cfg = PUNetGConfig(dimension=3, model_channels=8, channel_expansion=[2],
+                       number_resnet_downward_block=1,
+                       number_resnet_upward_block=1,
+                       number_resnet_attn_block=2,
+                       number_resnet_before_attn_block=1,
+                       number_resnet_after_attn_block=1, num_heads=2,
+                       attn_backend="flash")
+    cpu = KarrasModel(PUNetG(cfg, device="cpu"), KarrasModelConfig.from_edm(),
+                      device="cpu")
+    state = cpu.init(seed=1)
+    gpu = KarrasModel(PUNetG(cfg), KarrasModelConfig.from_edm())
+    gpu.net.load_state_dict(state, strict=True)
+    noise = np.random.default_rng(0).standard_normal(
+        (2, 32, 32, 32, 1)).astype(np.float32)
+    nsteps = 3
+    t0 = time.perf_counter()
+    ref = cpu.propagate_white_noise(torch.from_numpy(noise), nsteps=nsteps)
+    t_cpu = time.perf_counter() - t0
+    kernels.reset_launches()
+    out = gpu.propagate_white_noise(torch.from_numpy(noise).cuda(),
+                                    nsteps=nsteps).cpu()
+    counts = dict(kernels.LAUNCHES)
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    ok = bool(torch.isfinite(out).all()) and np.allclose(
+        out.numpy(), ref.numpy(), rtol=1e-3, atol=1e-3)
+    log(f"[card-vs-cpu] 3D 32^3 mc=8 flash (4096 tokens, head dim 8), "
+        f"{nsteps} Heun steps: max|card - cpu| {err:.3e} (max|cpu| "
+        f"{scale:.3f}; tolerance rtol 1e-3 + atol 1e-3) "
+        f"{'ok' if ok else 'FAIL'}; cpu {t_cpu:.1f} s; launches {counts}")
+    if not ok or min(counts.values()) == 0:
+        raise AssertionError("card and CPU disagree, or a kernel was not "
+                             "launched")
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: serving
+# ---------------------------------------------------------------------------
+def serve(label, cfg, shape, buckets, requests, same_seed_n):
+    """Drive one configuration through SamplerService; returns the launch
+    counts, the number of bucket runs and the service."""
+    from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
+                                   SamplerService, kernels)
+
+    model = KarrasModel(PUNetG(cfg), KarrasModelConfig.from_edm(),
+                        compute_dtype=torch.bfloat16)
+    model.init(seed=0)
+    nparams = sum(p.numel() for p in model.net.parameters())
+    kernels.reset_launches()
+    svc = SamplerService(model, shape, batch_buckets=buckets, nsteps=NSTEPS,
+                         seed=0)
+    warm = svc.warmup()
+    runs = len(buckets)
+    log(f"[{label}] {nparams} parameters; warmup seconds per bucket "
+        f"{ {b: round(s, 3) for b, s in warm.items()} }")
+    for n in requests:
+        t0 = time.perf_counter()
+        out = svc.sample(n)
+        dt = time.perf_counter() - t0
+        nchunks = -(-n // buckets[-1])
+        runs += nchunks
+        if out.shape != (n,) + tuple(shape) or not np.isfinite(out).all():
+            raise AssertionError(f"{label}: request of {n} gave shape "
+                                 f"{out.shape} or non-finite values")
+        log(f"[{label}] request {n}: {dt:.4f} s, {n / dt:.2f} samples/s, "
+            f"{nchunks} chunk(s), std {out.std():.4f}")
+    first = svc.sample(same_seed_n, generator=1234)
+    second = svc.sample(same_seed_n, generator=1234)
+    runs += 2 * -(-same_seed_n // buckets[-1])
+    if not np.array_equal(first, second):
+        raise AssertionError(f"{label}: one seed gave two different sets of "
+                             "samples")
+    counts = dict(kernels.LAUNCHES)
+    log(f"[{label}] same seed, same samples: ok; stats {svc.stats}; "
+        f"throughput {svc.throughput():.2f} samples/s; launches {counts}")
+    return counts, runs, svc
+
+
+def profile_request(label, svc, n, top=8):
+    """One request of ``n`` samples under torch.profiler: wall time, summed
+    device kernel time, idle share and the heaviest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    svc.sample(n)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.sample(n)
+        wall = time.perf_counter() - t0
+
+    def device_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    busy = sum(device_us(e) for e in kernels) / 1e6
+    log(f"[profile {label}] request {n}: wall {wall:.4f} s, device kernels "
+        f"{busy:.4f} s, idle share {1 - busy / wall:.3f}, "
+        f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=device_us, reverse=True)[:top]:
+        log(f"[profile {label}]   {device_us(e) / 1e3:9.3f} ms "
+            f"{device_us(e) / 1e6 / busy:6.1%} x{e.count:<6} {e.key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs on the "
+              "GPU only", file=sys.stderr)
+        return 2
+    from diffsci_tpu_torch import PUNetGConfig
+
+    t_start = time.perf_counter()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+    # the float32 checks of phases 1 and 2 compare full-f32 arithmetic
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    records = phase_kernels()
+    phase_card_vs_cpu()
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's default again
+
+    cfg_a = PUNetGConfig(dimension=3, model_channels=32,
+                         channel_expansion=[2], num_heads=2,
+                         attn_backend="flash")
+    counts_a, runs_a, svc_a = serve("config A", cfg_a, (32, 32, 32, 1), (1, 4),
+                                (1, 3, 6), 3)
+    cfg_b = PUNetGConfig(model_channels=64, channel_expansion=[2, 4])
+    counts_b, runs_b, svc_b = serve("config B", cfg_b, (28, 28, 1), (1, 8, 64),
+                                (1, 64, 70), 8)
+
+    # every bucket run is one 18-step Heun sample: 35 network calls, each
+    # one combine (K1), two norms per ResnetBlockC (K2: 10 blocks in A,
+    # 14 in B) and, in A, one bottleneck attention (K4)
+    expected_a = {"fused_axby": NFE * runs_a, "norm_silu": 20 * NFE * runs_a,
+                  "flash_attention": NFE * runs_a}
+    expected_b = {"fused_axby": NFE * runs_b, "norm_silu": 28 * NFE * runs_b,
+                  "flash_attention": 0}
+    if counts_a != expected_a or counts_b != expected_b:
+        raise AssertionError(f"launch counts {counts_a} / {counts_b}, "
+                             f"expected {expected_a} / {expected_b}")
+    log(f"[counts] main path went through every kernel: config A "
+        f"{counts_a}, config B {counts_b}")
+    if "--profile" in sys.argv[1:]:
+        profile_request("config A", svc_a, 4)
+        profile_request("config B", svc_b, 64)
+
+    sources = {
+        "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
+                       "diffsci_tpu/kernels/fused_precondition.py:129"),
+        "norm_silu": ("diffsci_tpu_torch/csrc/fused_norm.cu",
+                      "diffsci_tpu/kernels/fused_norm.py:140"),
+        "flash_attention": ("diffsci_tpu_torch/csrc/flash_attention.cu",
+                            "diffsci_tpu/kernels/flash_attention.py:82"),
+    }
+    line = []
+    for name, (source, replaces) in sources.items():
+        rec = records[name]
+        line.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=counts_a[name] + counts_b[name],
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": line}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

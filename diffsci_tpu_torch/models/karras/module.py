@@ -1,0 +1,220 @@
+"""KarrasModel: the EDM denoiser runtime for sampling.
+
+Port of the serving part of ``diffsci_tpu/models/karras/module.py``:
+``KarrasModelConfig.from_edm``, ``KarrasNet``, and ``KarrasModel``'s
+``init``, ``decode``, ``get_denoiser`` (with ``compute_dtype``, CFG and the
+``fused_precondition`` policy), ``get_score``, ``sample``,
+``propagate_white_noise`` and ``propagate_toward_sample``.
+
+The network's weights live in the module, so the methods take no
+``variables``. Randomness is an explicit ``torch.Generator``. Sample shapes
+and samples are channels-last ([B, *spatial, C]) as in the JAX package;
+``KarrasNet`` moves the channel axis at the network boundary (a reshape
+for C = 1).
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+import torch.nn as nn
+
+from diffsci_tpu_torch.kernels import fused_precondition
+from diffsci_tpu_torch.models.nets.layers import init_parameters
+from diffsci_tpu_torch.ops import noise_samplers, preconditioners, schedulers
+from diffsci_tpu_torch.utils import (bcast_right, dict_expand_dims, dict_map,
+                                     get_minibatch_sizes, resolve_device)
+
+
+class KarrasModelConfig:
+    """The math configuration: preconditioner, training noise sampler and
+    sampling scheduler."""
+
+    def __init__(self, preconditioner: preconditioners.KarrasPreconditioner,
+                 noisesampler: noise_samplers.NoiseSampler,
+                 noisescheduler: schedulers.Scheduler):
+        self.preconditioner = preconditioner
+        self.noisesampler = noisesampler
+        self.noisescheduler = noisescheduler
+
+    @classmethod
+    def from_edm(cls, sigma_data: float = 0.5, prior_mean: float = -1.2,
+                 prior_std: float = 1.2):
+        return cls(
+            preconditioner=preconditioners.EDMPreconditioner(sigma_data),
+            noisesampler=noise_samplers.EDMNoiseSampler(
+                sigma_data, prior_mean, prior_std),
+            noisescheduler=schedulers.EDMScheduler())
+
+
+class KarrasNet(nn.Module):
+    """Wraps the score network (state-dict prefix ``model.``) and moves
+    the channel axis: channels-last in and out, NC* inside."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x, cnoise, y=None):
+        out = self.model(x.movedim(-1, 1), cnoise, y)
+        return out.movedim(1, -1).contiguous()
+
+
+def _needs_unsqueeze(y, x) -> bool:
+    """Sample-time conditions without the batch dim get one, so they
+    broadcast over the batch."""
+    if y is None:
+        return False
+    probe = y["y"] if isinstance(y, dict) and "y" in y else (
+        next(iter(y.values())) if isinstance(y, dict) else y)
+    return hasattr(probe, "shape") and (probe.ndim == 0 or
+                                        probe.shape[0] != x.shape[0])
+
+
+class KarrasModel:
+    """The denoiser runtime around a score network
+    ``net(x, t, y=None)`` on [B, C, *spatial]."""
+
+    def __init__(self, model: nn.Module, config: KarrasModelConfig,
+                 conditional: bool = False,
+                 compute_dtype: torch.dtype | None = None,
+                 fused_precondition: bool | str = "sample",
+                 device: torch.device | str | None = None):
+        """``compute_dtype`` (e.g. ``torch.bfloat16``): the network runs
+        with its parameters and input cast to this dtype, while the
+        preconditioning, the combine and the sampler state stay float32.
+
+        ``fused_precondition``: route the combine D = c_skip·x + c_out·F
+        through kernel K1 — "sample" (default) when ``train`` is False,
+        True always, False never."""
+        self.device = resolve_device(device)
+        self.config = config
+        self.conditional = conditional
+        self.compute_dtype = compute_dtype
+        self.fused_precondition = fused_precondition
+        self.net = KarrasNet(model).to(self.device).eval()
+        self._cast_net = None
+        self._cast_key = None
+
+    def to(self, device) -> "KarrasModel":
+        self.device = resolve_device(device)
+        self.net.to(self.device)
+        return self
+
+    def init(self, seed: int = 0) -> dict:
+        """Draw every weight from ``seed`` (device-independent); returns
+        the state dict."""
+        init_parameters(self.net, seed)
+        return self.net.state_dict()
+
+    def decode(self, x):
+        """Identity: a pixel-space model without EDM batch norm."""
+        return x
+
+    # ------------------------------------------------------------------
+    def _compute_net(self) -> nn.Module:
+        """The network with parameters and buffers in ``compute_dtype``.
+        The cast copy is rebuilt whenever a master tensor changes (its
+        storage or its in-place version counter), so a load_state_dict or
+        init is always seen."""
+        if self.compute_dtype is None:
+            return self.net
+        tensors = list(self.net.parameters()) + list(self.net.buffers())
+        key = tuple((t.data_ptr(), t._version, t.device) for t in tensors)
+        if key != self._cast_key:
+            # built outside inference mode so that the copy holds ordinary
+            # tensors whichever context first asks for it
+            with torch.inference_mode(False), torch.no_grad():
+                self._cast_net = copy.deepcopy(self.net).to(
+                    self.compute_dtype).requires_grad_(False)
+            self._cast_key = key
+        return self._cast_net
+
+    def get_denoiser(self, x, sigma, y=None, guidance: float = 1.0,
+                     train: bool = False):
+        """D(x; sigma) = c_skip x + c_out F(c_in x, c_noise, y), with
+        classifier-free guidance when guidance != 1. x is channels-last,
+        sigma [B]. Returns (denoiser, c_noise)."""
+        pre = self.config.preconditioner
+        c_skip_vec = pre.skip_scaling(sigma)
+        c_out_vec = pre.output_scaling(sigma)
+        c_in = bcast_right(pre.input_scaling(sigma), x)
+        cnoise = pre.noise_conditioner(sigma)
+        scaled = c_in * x
+
+        net = self._compute_net()
+        cd = self.compute_dtype
+        if cd is not None:
+            scaled = scaled.to(cd)
+            cnoise_in = cnoise.to(cd)
+            y = dict_map(lambda v: v.to(cd) if v.is_floating_point() else v,
+                         y)
+        else:
+            cnoise_in = cnoise
+
+        def net_fwd(yy):
+            out = net(scaled, cnoise_in, yy)
+            return out.float() if cd is not None else out
+
+        if self.conditional and guidance != 0.0:
+            base = net_fwd(y)
+            if guidance != 1.0:
+                uncond = net_fwd(None)
+                base = (1.0 - guidance) * uncond + guidance * base
+        else:
+            base = net_fwd(None)
+        use_fused = (self.fused_precondition is True
+                     or (self.fused_precondition == "sample" and not train))
+        if use_fused:
+            return fused_precondition.denoise_combine(
+                x, base, c_skip_vec, c_out_vec), cnoise
+        return (bcast_right(c_out_vec, x) * base
+                + bcast_right(c_skip_vec, x) * x), cnoise
+
+    def get_score(self, x, sigma, y=None, guidance: float = 1.0):
+        denoiser, _ = self.get_denoiser(x, sigma, y, guidance)
+        return (denoiser - x) / bcast_right(sigma, x) ** 2
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def sample(self, nsamples: int, shape, generator=None, y=None,
+               guidance: float = 1.0, nsteps: int = 100,
+               record_history: bool = False,
+               maximum_batch_size: int | None = None):
+        """Generate samples from white noise drawn on the model's device
+        with ``generator``. ``shape`` is channels-last without the batch
+        dim, e.g. (28, 28, 1)."""
+        if maximum_batch_size is not None:
+            outs = [self.sample(n, shape, generator, y, guidance, nsteps,
+                                record_history)
+                    for n in get_minibatch_sizes(nsamples,
+                                                 maximum_batch_size)]
+            return torch.cat(outs, dim=1 if record_history else 0)
+        x = torch.randn((nsamples,) + tuple(shape), generator=generator,
+                        device=self.device)
+        return self.propagate_white_noise(x, y, guidance, nsteps,
+                                          record_history)
+
+    @torch.inference_mode()
+    def propagate_white_noise(self, x, y=None, guidance: float = 1.0,
+                              nsteps: int = 100,
+                              record_history: bool = False):
+        """x is unit white noise (channels-last); scaled to sigma_max and
+        integrated to a sample."""
+        x = x * self.config.noisescheduler.maximum_scale
+        return self.decode(self.propagate_toward_sample(
+            x, y, guidance, nsteps, record_history))
+
+    @torch.inference_mode()
+    def propagate_toward_sample(self, x, y=None, guidance: float = 1.0,
+                                nsteps: int = 100,
+                                record_history: bool = False):
+        """Backward propagation with the learned score."""
+        y = dict_expand_dims(y, 0) if _needs_unsqueeze(y, x) else y
+
+        def score_fn(xx, sigma):
+            return self.get_score(xx, sigma, y, guidance)
+
+        return self.config.noisescheduler.propagate_backward(
+            x, score_fn, nsteps, record_history=record_history)

@@ -1,0 +1,107 @@
+"""Sampling service: shape-bucketed, chunked, one device.
+
+Port of ``diffsci_tpu/serving.py:SamplerService`` without the
+cross-request dispatcher (``batch_window_ms``), ``mesh``, ``picard``,
+``from_checkpoint`` and the HTTP server. Requests are padded up to the
+nearest batch bucket and the padding rows dropped; requests above the
+largest bucket are split into chunks. ``warmup()`` runs every bucket once,
+which builds and loads the kernels, so the first request pays no build.
+Requests are served one at a time (a lock), the service being one stream
+on one card.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from diffsci_tpu_torch.utils import resolve_device
+
+
+class SamplerService:
+    """Front end for a ``KarrasModel``-like runtime with
+    ``.sample(nsamples, shape, generator=..., nsteps=...)``."""
+
+    def __init__(self, model, shape: Sequence[int],
+                 batch_buckets: Sequence[int] = (1, 8, 64),
+                 nsteps: int = 18, seed: int = 0,
+                 device: torch.device | str | None = None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.shape = tuple(shape)
+        self.batch_buckets = tuple(sorted(batch_buckets))
+        self.nsteps = nsteps
+        self._generator = torch.Generator(self.device).manual_seed(seed)
+        self._lock = threading.Lock()
+        self._warm: set[int] = set()
+        self.stats = {"requests": 0, "samples": 0, "padded": 0,
+                      "chunks": 0, "wall_seconds": 0.0}
+
+    def _run(self, batch: int, generator: torch.Generator) -> torch.Tensor:
+        out = self.model.sample(batch, self.shape, generator=generator,
+                                nsteps=self.nsteps)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return out
+
+    def warmup(self) -> dict[int, float]:
+        """Run every bucket once (discarded, with a generator of its own so
+        the service's stream of noise is untouched). Returns seconds per
+        bucket."""
+        times = {}
+        with self._lock:
+            for b in self.batch_buckets:
+                t0 = time.perf_counter()
+                self._run(b, torch.Generator(self.device).manual_seed(0))
+                times[b] = time.perf_counter() - t0
+                self._warm.add(b)
+        return times
+
+    def _bucket(self, n: int) -> int:
+        for b in self.batch_buckets:
+            if b >= n:
+                return b
+        return self.batch_buckets[-1]
+
+    def sample(self, nsamples: int, generator=None) -> np.ndarray:
+        """Generate ``nsamples`` samples, channels-last, as a float32 numpy
+        array. ``generator``: a ``torch.Generator`` on the service's
+        device, or an int seed; the same seed gives the same samples
+        whatever the chunking. None draws from the service's own
+        generator."""
+        if self._warm != set(self.batch_buckets):
+            self.warmup()
+        sizes = []
+        remaining = nsamples
+        while remaining > 0:
+            n = min(remaining, self.batch_buckets[-1])
+            sizes.append(n)
+            remaining -= n
+        if not sizes:
+            return np.zeros((0,) + self.shape, np.float32)
+        if isinstance(generator, int):
+            generator = torch.Generator(self.device).manual_seed(generator)
+        out = []
+        with self._lock:
+            gen = self._generator if generator is None else generator
+            t0 = time.perf_counter()
+            for n in sizes:
+                b = self._bucket(n)
+                chunk = self._run(b, gen)
+                out.append(chunk[:n].cpu().numpy())
+                self.stats["chunks"] += 1
+                self.stats["padded"] += b - n
+            self.stats["requests"] += 1
+            self.stats["samples"] += nsamples
+            self.stats["wall_seconds"] += time.perf_counter() - t0
+        return np.concatenate(out, axis=0)
+
+    def throughput(self) -> float:
+        """Lifetime samples per wall-second spent inside sample()."""
+        if self.stats["wall_seconds"] == 0:
+            return 0.0
+        return self.stats["samples"] / self.stats["wall_seconds"]
