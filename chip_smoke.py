@@ -9,28 +9,39 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. Kernels: build every kernel from ``diffsci_tpu_torch/csrc`` (one nvcc
    per source, in parallel), check each against its plain PyTorch version
-   on the card at the main path's shapes in float32 and bfloat16, and time
-   the kernel, its plain version, the least time the card could take
-   (``bound_ms``) and, where one PyTorch call computes the same function,
-   that call (``library_ms``).
-2. Card vs CPU: a small configuration-A-shaped net (3D 32³, flash
-   attention over 4096 tokens) samples a few Heun steps from the same
-   weights and the same numpy noise on the CPU (plain versions) and on
-   the card (kernels), TF32 off; the results must agree.
-3. Serving, configuration A (3D 32³ porous-media volume, bf16, flash
+   on the card at the main path's shapes in float32 and bfloat16 (the
+   backward kernels K3, K5 and K6 on the forward kernels' own saved
+   statistics), and time the kernel, its plain version, the least time
+   the card could take (``bound_ms``) and, where one PyTorch call computes
+   the same function, that call (``library_ms``).
+2. Card vs CPU, sampling: a small configuration-A-shaped net (3D 32³,
+   flash attention over 4096 tokens) samples a few Heun steps from the
+   same weights and the same numpy noise on the CPU (plain versions) and
+   on the card (kernels), TF32 off; the results must agree.
+3. Card vs CPU, training: the same net takes three f32 train steps from
+   the same weights, batch and σ/ε draws on both; losses, grad norms,
+   parameters and EMA shadows must agree.
+4. Serving, configuration A (3D 32³ porous-media volume, bf16, flash
    attention) through ``SamplerService``, kernel launch counts reset
    before and read after.
-4. Serving, configuration B (MNIST 28x28, bf16) likewise.
-5. The launch counts of the main path (phases 3 and 4) must be those of
-   an 18-step Heun sample for every kernel; one JSON line lists every
-   kernel; the card's name and power limit; then the result line.
+5. Serving, configuration B (MNIST 28x28, bf16) likewise. The counts of
+   phases 4 and 5 must be those of 18-step Heun samples.
+6. Training, configuration A (batch 4 of 32³, bf16 over f32 masters,
+   AdamW, power EMA every 4 steps) through ``make_train_step``: warm-up,
+   then timed steps with the counts reset before and read after; the
+   counts must be exactly those of one forward and one backward per step,
+   the loss finite and lower after training on its fixed batch.
+7. Training, configuration B (batch 256 of 28x28) likewise.
+8. One JSON line lists every kernel with its launches over phases 4 to 7;
+   the card's name and power limit; then the result line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-``python3 chip_smoke.py --profile`` adds, after phase 5, one profiled
-request per configuration (torch.profiler): wall time, device kernel time,
-the device's idle share and the kernels that take the most time.
+``python3 chip_smoke.py --profile`` adds, after phase 7, one profiled
+request and one profiled train step per configuration (torch.profiler):
+wall time, device kernel time, the device's idle share and the kernels
+that take the most time.
 """
 
 from __future__ import annotations
@@ -52,6 +63,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 NSTEPS = 18
 NFE = 2 * NSTEPS - 1       # Heun with the EDM endpoint rule
+# the kernels a sample runs, and those a train step runs (its combine is
+# the plain expression, as in the JAX package)
+FORWARD = ("fused_axby", "norm_silu", "flash_attention")
+TRAIN = ("norm_silu", "norm_silu_bwd", "flash_attention",
+         "flash_attention_dq", "flash_attention_dkv")
 
 
 def log(msg: str) -> None:
@@ -95,6 +111,27 @@ def within(out, ref, dtype, f32_limit):
     return err, bool((diff <= 2e-2 + 2e-2 * ref.float().abs()).all())
 
 
+# the backward kernels' tolerance, relative to the largest entry of the
+# plain version's output: its sums run over up to 256·784 = 200704
+# elements (dw, db) or 4097 keys and queries (dQ, dK, dV), in another order
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+GRAD_LIMIT = "1e-4 max|ref| (f32), 1e-2 max|ref| (bf16)"
+
+
+def within_grad(outs, refs, dtype):
+    """max |out - ref| over the outputs, whether each output is inside
+    GRAD_TOL of its plain version's largest entry, and the largest ratio
+    max |out - ref| / max |ref| (the quantity GRAD_TOL bounds)."""
+    err, ok, ratio = 0.0, True, 0.0
+    for out, ref in zip(outs, refs):
+        e = float((out.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        err = max(err, e)
+        ratio = max(ratio, e / scale if scale > 0 else float(e > 0))
+        ok = ok and e <= GRAD_TOL[dtype] * scale
+    return err, ok, ratio
+
+
 # ---------------------------------------------------------------------------
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -110,7 +147,7 @@ def phase_kernels():
         f"{time.perf_counter() - t0:.1f} s")
     gen = torch.Generator("cuda").manual_seed(0)
     failures = []
-    errs = {"fused_axby": 0.0, "norm_silu": 0.0, "flash_attention": 0.0}
+    errs = dict.fromkeys(kernels.LAUNCHES, 0.0)
 
     def record(name, label, dtype, err, ok, limit):
         errs[name] = max(errs[name], err)
@@ -130,9 +167,11 @@ def phase_kernels():
             record("fused_axby", list(shape), dtype, err, ok,
                    "1e-5" if dtype == torch.float32 else "2e-2+2e-2|ref|")
 
-    norm_shapes = [(4, 32, 32, 32, 32), (4, 64, 16, 16, 16),     # config A
-                   (64, 64, 28, 28), (64, 128, 14, 14),         # config B
-                   (64, 256, 7, 7)]
+    # config A serves and trains at batch 4; config B serves at bucket 64
+    # and trains at batch 256
+    norm_shapes = [(4, 32, 32, 32, 32), (4, 64, 16, 16, 16),
+                   (64, 64, 28, 28), (64, 128, 14, 14), (64, 256, 7, 7),
+                   (256, 64, 28, 28), (256, 128, 14, 14), (256, 256, 7, 7)]
     for shape in norm_shapes:
         for kind in ("ln", "rms"):
             for dtype in (torch.float32, torch.bfloat16):
@@ -151,6 +190,15 @@ def phase_kernels():
                        f"{serr:.1e})", dtype, err, ok,
                        "1e-4" if dtype == torch.float32 else
                        "2e-2+2e-2|ref|")
+                # K3 on the forward's own statistics
+                g = randn(shape, dtype, gen)
+                err, ok, ratio = within_grad(
+                    fn.norm_silu_bwd(g, x, mean, rstd, w, b, kind),
+                    fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b, kind),
+                    dtype)
+                record("norm_silu_bwd", f"{list(shape)} {kind} (dx, dw, db; "
+                       f"max|Δ|/max|ref| {ratio:.1e})", dtype, err, ok,
+                       GRAD_LIMIT)
 
     for shape in ((4, 2, 4096, 32), (2, 4, 4096, 16), (1, 2, 4097, 32)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -163,6 +211,21 @@ def phase_kernels():
             record("flash_attention", f"{list(shape)} (lse {lerr:.1e})",
                    dtype, err, ok,
                    "1e-4" if dtype == torch.float32 else "2e-2+2e-2|ref|")
+            # K5 and K6 on the forward's own O and lse
+            do = randn(shape, dtype, gen)
+            delta = (do.float() * o.float()).sum(-1)
+            err, ok, ratio = within_grad(
+                [fa.flash_attention_dq(q, k, v, do, lse, delta)],
+                [fa.flash_attention_dq_plain(q, k, v, do, lse, delta)], dtype)
+            record("flash_attention_dq", f"{list(shape)} (dQ; "
+                   f"max|Δ|/max|ref| {ratio:.1e})", dtype, err, ok,
+                   GRAD_LIMIT)
+            err, ok, ratio = within_grad(
+                fa.flash_attention_dkv(q, k, v, do, lse, delta),
+                fa.flash_attention_dkv_plain(q, k, v, do, lse, delta), dtype)
+            record("flash_attention_dkv", f"{list(shape)} (dK, dV; "
+                   f"max|Δ|/max|ref| {ratio:.1e})", dtype, err, ok,
+                   GRAD_LIMIT)
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
 
@@ -206,6 +269,62 @@ def phase_kernels():
         library_ms=cuda_ms(
             lambda: F.scaled_dot_product_attention(q, k, v), 20),
         bound_ms=bms, bound_by=bby)
+
+    # K3 at config A's largest norm: reads g, x, the [B, C] statistics, w
+    # and b, writes dx, dw and db; ~20 flops per element
+    shape = (4, 32, 32, 32, 32)
+    x, g = (randn(shape, torch.bfloat16, gen, 2.0, 0.3) for _ in range(2))
+    w = randn((32,), torch.bfloat16, gen, 0.2, 1.0)
+    b = randn((32,), torch.bfloat16, gen, 0.1)
+    _, mean, rstd = fn.norm_silu_fwd(x, w, b, "ln")
+    n = x.numel()
+    bms, bby = bound(3 * 2 * n + 2 * 4 * 4 * 32 + 4 * 2 * 32, 20 * n,
+                     torch.float32)
+    records["norm_silu_bwd"] = dict(
+        shape="g, x [4, 32, 32, 32, 32] bf16 'ln' (config A, train batch 4)",
+        ms=cuda_ms(lambda: fn.norm_silu_bwd(g, x, mean, rstd, w, b, "ln"),
+                   50),
+        plain_ms=cuda_ms(
+            lambda: fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b, "ln"), 50),
+        library_ms=None, bound_ms=bms, bound_by=bby)
+
+    # K5 and K6 at config A's bottleneck: each reads q, k, v, dO, lse and
+    # delta; K5 writes dQ (S, dP, dQ: 6·BH·T²·d flops), K6 dK and dV
+    # (S, dP, dV, dK: 8·BH·T²·d). The library yardstick is the backward of
+    # scaled_dot_product_attention asked for the same gradients.
+    shape = (4, 2, 4096, 32)
+    q, k, v, do = (randn(shape, torch.bfloat16, gen) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    reads = 4 * 2 * BH * T * d + 2 * 4 * BH * T
+
+    def sdpa_bwd_ms(wrt):
+        leaves = [t.detach().requires_grad_(i in wrt)
+                  for i, t in enumerate((q, k, v))]
+        out = F.scaled_dot_product_attention(*leaves)
+        inputs = [leaves[i] for i in wrt]
+        return cuda_ms(lambda: torch.autograd.grad(out, inputs, do,
+                                                   retain_graph=True), 20)
+
+    bms, bby = bound(reads + 2 * BH * T * d, 6 * BH * T * T * d,
+                     torch.bfloat16)
+    records["flash_attention_dq"] = dict(
+        shape="q, k, v, dO [4, 2, 4096, 32] bf16 (config A, train batch 4)",
+        ms=cuda_ms(lambda: fa.flash_attention_dq(q, k, v, do, lse, delta),
+                   20),
+        plain_ms=cuda_ms(
+            lambda: fa.flash_attention_dq_plain(q, k, v, do, lse, delta), 20),
+        library_ms=sdpa_bwd_ms((0,)), bound_ms=bms, bound_by=bby)
+    bms, bby = bound(reads + 2 * 2 * BH * T * d, 8 * BH * T * T * d,
+                     torch.bfloat16)
+    records["flash_attention_dkv"] = dict(
+        shape="q, k, v, dO [4, 2, 4096, 32] bf16 (config A, train batch 4)",
+        ms=cuda_ms(lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta),
+                   20),
+        plain_ms=cuda_ms(
+            lambda: fa.flash_attention_dkv_plain(q, k, v, do, lse, delta),
+            20),
+        library_ms=sdpa_bwd_ms((1, 2)), bound_ms=bms, bound_by=bby)
     for name, rec in records.items():
         rec["max_abs_err"] = errs[name]
         lib = ("" if rec["library_ms"] is None
@@ -219,17 +338,25 @@ def phase_kernels():
 # ---------------------------------------------------------------------------
 # phase 2: card against CPU, end to end
 # ---------------------------------------------------------------------------
+def small_3d_config():
+    """Configuration A's shape at a cut width and depth: 3D 32³ input,
+    flash attention over the 16³ = 4096-token bottleneck, head dim 8."""
+    from diffsci_tpu_torch import PUNetGConfig
+
+    return PUNetGConfig(dimension=3, model_channels=8, channel_expansion=[2],
+                        number_resnet_downward_block=1,
+                        number_resnet_upward_block=1,
+                        number_resnet_attn_block=2,
+                        number_resnet_before_attn_block=1,
+                        number_resnet_after_attn_block=1, num_heads=2,
+                        attn_backend="flash")
+
+
 def phase_card_vs_cpu():
     from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
-                                   PUNetGConfig, kernels)
+                                   kernels)
 
-    cfg = PUNetGConfig(dimension=3, model_channels=8, channel_expansion=[2],
-                       number_resnet_downward_block=1,
-                       number_resnet_upward_block=1,
-                       number_resnet_attn_block=2,
-                       number_resnet_before_attn_block=1,
-                       number_resnet_after_attn_block=1, num_heads=2,
-                       attn_backend="flash")
+    cfg = small_3d_config()
     cpu = KarrasModel(PUNetG(cfg, device="cpu"), KarrasModelConfig.from_edm(),
                       device="cpu")
     state = cpu.init(seed=1)
@@ -253,13 +380,84 @@ def phase_card_vs_cpu():
         f"{nsteps} Heun steps: max|card - cpu| {err:.3e} (max|cpu| "
         f"{scale:.3f}; tolerance rtol 1e-3 + atol 1e-3) "
         f"{'ok' if ok else 'FAIL'}; cpu {t_cpu:.1f} s; launches {counts}")
-    if not ok or min(counts.values()) == 0:
+    if not ok or min(counts[k] for k in FORWARD) == 0:
         raise AssertionError("card and CPU disagree, or a kernel was not "
                              "launched")
 
 
+def phase_train_card_vs_cpu():
+    """Three f32 train steps of the small 3D flash net on the CPU (plain
+    versions) and on the card (kernels), from the same weights, batch and
+    σ/ε draws. Loss and grad_norm within rtol 1e-3 per step (f32 sums in
+    another order, cuDNN's convolutions against the CPU's); parameters and
+    EMA shadows: AdamW moves an entry by ±lr wherever its gradient is
+    clear of rounding noise, and by up to 2·lr per step where rounding
+    flips a near-zero gradient, so 99.9% of entries within 0.05·lr and
+    every entry within 2·k·lr after k steps."""
+    from diffsci_tpu_torch import (EMATracker, KarrasModel, KarrasModelConfig,
+                                   PUNetG, create_train_state,
+                                   default_optimizer, kernels,
+                                   make_train_step)
+
+    lr, nsteps = 1e-3, 3
+    x_shape = (2, 32, 32, 32, 1)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(x_shape).astype(np.float32)
+    draws = [(np.exp(rng.standard_normal(2) * 1.2 - 1.2).astype(np.float32),
+              rng.standard_normal(x_shape).astype(np.float32))
+             for _ in range(nsteps)]
+    weights = None
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = KarrasModel(PUNetG(small_3d_config(), device=dev),
+                            KarrasModelConfig.from_edm(), device=dev)
+        if weights is None:
+            # copies: the state dict aliases the parameters, which train
+            weights = {k: v.clone() for k, v in model.init(seed=2).items()}
+        else:
+            model.net.load_state_dict(weights, strict=True)
+        tracker = EMATracker(ema_type="power", power_function_stds=[0.05])
+        state, tx = create_train_state(model, x_shape, seed=None,
+                                       optimizer=default_optimizer(lr),
+                                       ema=tracker)
+        step = make_train_step(model, tx, ema=tracker)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        metrics = []
+        for sigma, eps in draws:
+            state, met = step(state, torch.from_numpy(x).to(dev),
+                              sigma=torch.from_numpy(sigma).to(dev),
+                              eps=torch.from_numpy(eps).to(dev))
+            metrics.append((float(met["train_loss"]),
+                            float(met["grad_norm"])))
+        runs[dev] = (metrics, state, time.perf_counter() - t0,
+                     dict(kernels.LAUNCHES))
+    (m_cpu, s_cpu, t_cpu, _), (m_card, s_card, t_card, counts) = \
+        runs["cpu"], runs["cuda"]
+    ok = all(np.isfinite(m).all() for m in m_card) and np.allclose(
+        m_card, m_cpu, rtol=1e-3, atol=0)
+    for label, ours, ref in (("params", s_card.params, s_cpu.params),
+                             ("ema", s_card.ema.profiles[0],
+                              s_cpu.ema.profiles[0])):
+        diff = np.concatenate([(ours[n].detach().cpu() - ref[n].detach())
+                               .abs().flatten().numpy() for n in ref])
+        q999, worst = float(np.quantile(diff, 0.999)), float(diff.max())
+        ok = ok and q999 <= 0.05 * lr and worst <= 2 * nsteps * lr
+        log(f"[train card-vs-cpu] {label}: |card - cpu| 99.9% "
+            f"{q999:.3e}, max {worst:.3e} (limits {0.05 * lr:.0e}, "
+            f"{2 * nsteps * lr:.0e})")
+    log(f"[train card-vs-cpu] 3D 32^3 mc=8 flash, {nsteps} f32 steps: "
+        f"(loss, grad_norm) card {m_card} cpu {m_cpu} (rtol 1e-3) "
+        f"{'ok' if ok else 'FAIL'}; cpu {t_cpu:.1f} s, card {t_card:.1f} s; "
+        f"launches {counts}")
+    if not ok or counts["fused_axby"] != 0 or \
+            min(counts[k] for k in TRAIN) == 0:
+        raise AssertionError("card and CPU training disagree, or the "
+                             "kernels of a train step were not launched")
+
+
 # ---------------------------------------------------------------------------
-# phases 3 and 4: serving
+# phases 4 to 7: serving and training at full width
 # ---------------------------------------------------------------------------
 def serve(label, cfg, shape, buckets, requests, same_seed_n):
     """Drive one configuration through SamplerService; returns the launch
@@ -301,27 +499,100 @@ def serve(label, cfg, shape, buckets, requests, same_seed_n):
     return counts, runs, svc
 
 
-def profile_request(label, svc, n, top=8):
-    """One request of ``n`` samples under torch.profiler: wall time, summed
-    device kernel time, idle share and the heaviest kernels."""
+def train(label, cfg, x_shape, steps, per_step, warmup=3):
+    """Train one configuration at full width: bf16 compute over f32 masters,
+    AdamW with clip 0.5, power EMA every 4 steps, on one fixed batch.
+    ``warmup`` steps, then ``steps`` timed with the host clock and a sync
+    on the loss, the launch counts reset just before and read just after
+    (they must be ``per_step`` times ``steps``). A fixed draw of σ and ε
+    probes the loss before training and after it: it must go down.
+    Returns the launch counts and a callable that takes one step."""
+    from diffsci_tpu_torch import (EMATracker, KarrasModel, KarrasModelConfig,
+                                   PUNetG, create_train_state, kernels,
+                                   make_train_step)
+
+    model = KarrasModel(PUNetG(cfg), KarrasModelConfig.from_edm(),
+                        compute_dtype=torch.bfloat16)
+    tracker = EMATracker(ema_type="power", power_function_stds=[0.05],
+                         update_every=4)
+    state, tx = create_train_state(model, x_shape, seed=0, ema=tracker)
+    step = make_train_step(model, tx, ema=tracker)
+    nparams = sum(p.numel() for p in state.params.values())
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(x_shape, generator=gen, device="cuda")
+    probe_sigma = model.config.noisesampler.sample((x_shape[0],), gen)
+    probe_eps = torch.randn(x_shape, generator=gen, device="cuda")
+
+    def probe():
+        with torch.no_grad():
+            return float(model.loss_fn(x, probe_sigma, eps=probe_eps,
+                                       train=False))
+
+    def one_step():
+        return step(state, x, generator=gen)[1]
+
+    before = probe()
+    for _ in range(warmup):
+        one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        met = one_step()
+        losses.append(met["train_loss"])
+    last = float(met["train_loss"])            # the sync
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = probe()
+    losses = [float(v) for v in losses]
+    norm = float(met["grad_norm"])
+    log(f"[train {label}] {nparams} parameters, batch {x_shape}: {steps} "
+        f"steps in {dt:.4f} s, {dt / steps * 1e3:.2f} ms/step, "
+        f"{x_shape[0] * steps / dt:.2f} items/s; peak memory {peak:.3f} GiB")
+    log(f"[train {label}] loss first {losses[0]:.5f} last {last:.5f}, "
+        f"grad_norm {norm:.4f}; fixed-draw loss {before:.5f} before "
+        f"training, {after:.5f} after; launches {counts}")
+    expected = {k: n * steps for k, n in per_step.items()}
+    if not (np.isfinite(losses).all() and np.isfinite(norm)
+            and after < before):
+        raise AssertionError(f"{label}: training gave a non-finite loss or "
+                             "grad_norm, or the loss did not go down")
+    if counts != expected:
+        raise AssertionError(f"{label}: launch counts {counts}, expected "
+                             f"{expected}")
+    return counts, one_step
+
+
+def profile_call(label, what, fn, top=8):
+    """One call of ``fn`` under torch.profiler, after one call to warm up:
+    wall time, summed device kernel time, idle share and the heaviest
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    svc.sample(n)
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.sample(n)
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
     def device_us(evt):
         return getattr(evt, "self_device_time_total",
                        getattr(evt, "self_cuda_time_total", 0.0))
 
+    # a range annotated on the device (the optimizer's step) spans kernels
+    # that are counted on their own
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+               if e.device_type == DeviceType.CUDA and device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(device_us(e) for e in kernels) / 1e6
-    log(f"[profile {label}] request {n}: wall {wall:.4f} s, device kernels "
+    log(f"[profile {label}] {what}: wall {wall:.4f} s, device kernels "
         f"{busy:.4f} s, idle share {1 - busy / wall:.3f}, "
         f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=device_us, reverse=True)[:top]:
@@ -339,11 +610,12 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    # the float32 checks of phases 1 and 2 compare full-f32 arithmetic
+    # the float32 checks of phases 1 to 3 compare full-f32 arithmetic
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     records = phase_kernels()
     phase_card_vs_cpu()
+    phase_train_card_vs_cpu()
     torch.backends.cudnn.allow_tf32 = True     # PyTorch's default again
 
     cfg_a = PUNetGConfig(dimension=3, model_channels=32,
@@ -358,33 +630,55 @@ def main() -> int:
     # every bucket run is one 18-step Heun sample: 35 network calls, each
     # one combine (K1), two norms per ResnetBlockC (K2: 10 blocks in A,
     # 14 in B) and, in A, one bottleneck attention (K4)
-    expected_a = {"fused_axby": NFE * runs_a, "norm_silu": 20 * NFE * runs_a,
-                  "flash_attention": NFE * runs_a}
-    expected_b = {"fused_axby": NFE * runs_b, "norm_silu": 28 * NFE * runs_b,
-                  "flash_attention": 0}
+    zero = dict.fromkeys(records, 0)
+    expected_a = dict(zero, fused_axby=NFE * runs_a,
+                      norm_silu=20 * NFE * runs_a,
+                      flash_attention=NFE * runs_a)
+    expected_b = dict(zero, fused_axby=NFE * runs_b,
+                      norm_silu=28 * NFE * runs_b)
     if counts_a != expected_a or counts_b != expected_b:
         raise AssertionError(f"launch counts {counts_a} / {counts_b}, "
                              f"expected {expected_a} / {expected_b}")
-    log(f"[counts] main path went through every kernel: config A "
+    log(f"[counts] serving went through every forward kernel: config A "
         f"{counts_a}, config B {counts_b}")
+
+    # a train step is one forward and one backward of the network: K2 and
+    # K3 once per norm, K4, K5 and K6 once per bottleneck attention (in A)
+    # and no K1 (the training combine is the plain expression)
+    train_a, step_a = train(
+        "config A", cfg_a, (4, 32, 32, 32, 1), 20,
+        dict(zero, norm_silu=20, norm_silu_bwd=20, flash_attention=1,
+             flash_attention_dq=1, flash_attention_dkv=1))
+    train_b, step_b = train("config B", cfg_b, (256, 28, 28, 1), 20,
+                            dict(zero, norm_silu=28, norm_silu_bwd=28))
     if "--profile" in sys.argv[1:]:
-        profile_request("config A", svc_a, 4)
-        profile_request("config B", svc_b, 64)
+        profile_call("config A", "request 4", lambda: svc_a.sample(4))
+        profile_call("config B", "request 64", lambda: svc_b.sample(64))
+        profile_call("train config A", "one train step, batch 4", step_a)
+        profile_call("train config B", "one train step, batch 256", step_b)
 
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
                        "diffsci_tpu/kernels/fused_precondition.py:129"),
         "norm_silu": ("diffsci_tpu_torch/csrc/fused_norm.cu",
                       "diffsci_tpu/kernels/fused_norm.py:140"),
+        "norm_silu_bwd": ("diffsci_tpu_torch/csrc/fused_norm.cu",
+                          "diffsci_tpu/kernels/fused_norm.py:191"),
         "flash_attention": ("diffsci_tpu_torch/csrc/flash_attention.cu",
                             "diffsci_tpu/kernels/flash_attention.py:82"),
+        "flash_attention_dq": ("diffsci_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "diffsci_tpu/kernels/flash_attention.py:161"),
+        "flash_attention_dkv": (
+            "diffsci_tpu_torch/csrc/flash_attention_bwd.cu",
+            "diffsci_tpu/kernels/flash_attention.py:188"),
     }
     line = []
     for name, (source, replaces) in sources.items():
         rec = records[name]
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts_a[name] + counts_b[name],
+            launches=sum(c[name] for c in (counts_a, counts_b, train_a,
+                                           train_b)),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

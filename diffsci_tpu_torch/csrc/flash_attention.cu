@@ -12,34 +12,17 @@
 // (never stored) and on keys (score -inf); head dims below the template's D
 // are zero-padded in shared memory only.
 //
-// Plain C interface, built with nvcc and loaded with ctypes.
+// Tile constants, conversions and dispatch: flash_common.cuh, shared with
+// K5/K6. Plain C interface, built with nvcc and loaded with ctypes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
-
-constexpr int kBQ = 64;                // query rows per block
-constexpr int kBK = 64;                // keys per shared-memory tile
-constexpr int kTPR = 4;                // threads per query row
-constexpr int kThreads = kBQ * kTPR;   // 256
-constexpr int kKPT = kBK / kTPR;       // keys scored per thread per tile
-constexpr int kLDP = kBK + 4;          // row stride of the P tile (floats)
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -100,14 +83,14 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // scores of keys t, t + 4, t + 8, ... of this tile
-    float s[kKPT];
+    float s[kPT];
 #pragma unroll
-    for (int jj = 0; jj < kKPT; ++jj) s[jj] = 0.f;
+    for (int jj = 0; jj < kPT; ++jj) s[jj] = 0.f;
 #pragma unroll 4
     for (int c = 0; c < D; c += 4) {
       const float4 qv = *reinterpret_cast<const float4*>(Qs + r * LD + c);
 #pragma unroll
-      for (int jj = 0; jj < kKPT; ++jj) {
+      for (int jj = 0; jj < kPT; ++jj) {
         const float4 kv = *reinterpret_cast<const float4*>(
             Ks + (t + kTPR * jj) * LD + c);
         s[jj] += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
@@ -115,7 +98,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     float tile_max = -CUDART_INF_F;
 #pragma unroll
-    for (int jj = 0; jj < kKPT; ++jj) {
+    for (int jj = 0; jj < kPT; ++jj) {
       if (k0 + t + kTPR * jj >= seq_len) s[jj] = -CUDART_INF_F;
       tile_max = fmaxf(tile_max, s[jj]);
     }
@@ -126,7 +109,7 @@ __global__ void __launch_bounds__(kThreads)
     const float alpha = exp2f(m - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < kKPT; ++jj) {
+    for (int jj = 0; jj < kPT; ++jj) {
       const float p = exp2f(s[jj] - m_new);
       Ps[r * kLDP + t + kTPR * jj] = p;
       psum += p;
@@ -196,25 +179,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int bh, int seq_len, int head_dim,
-                       float scale_log2, cudaStream_t stream) {
-  if (head_dim <= 16)
-    return launch<T, 16>(q, k, v, o, lse, bh, seq_len, head_dim, scale_log2,
-                         stream);
-  if (head_dim <= 32)
-    return launch<T, 32>(q, k, v, o, lse, bh, seq_len, head_dim, scale_log2,
-                         stream);
-  if (head_dim <= 64)
-    return launch<T, 64>(q, k, v, o, lse, bh, seq_len, head_dim, scale_log2,
-                         stream);
-  if (head_dim <= 128)
-    return launch<T, 128>(q, k, v, o, lse, bh, seq_len, head_dim, scale_log2,
-                          stream);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and o share it); lse is
@@ -223,14 +187,11 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int bh, int seq_len,
                                 int head_dim, float scale_log2, int dtype,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_dim<float>(q, k, v, o, lse, bh, seq_len, head_dim,
-                                  scale_log2, s);
-  if (dtype == 1)
-    return (int)launch_dim<__nv_bfloat16>(q, k, v, o, lse, bh, seq_len,
-                                          head_dim, scale_log2, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch(dtype, head_dim, [&](auto type, auto dim) {
+    return launch<typename decltype(type)::type, decltype(dim)::value>(
+        q, k, v, o, lse, bh, seq_len, head_dim, scale_log2,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 extern "C" const char* error_string(int err) {

@@ -1,8 +1,10 @@
 // K2: y = SiLU(norm(x) * w + b), per (batch, channel) over the spatial
-// extent, on the NC* layout where each (b, c) is one contiguous row.
+// extent, on the NC* layout where each (b, c) is one contiguous row; and
+// K3, its backward.
 //
-// Replaces diffsci_tpu/kernels/fused_norm.py:_fwd_kernel (forward only).
-// See diffsci_tpu_torch/kernels/fused_norm.py for the design note.
+// Replaces diffsci_tpu/kernels/fused_norm.py:_fwd_kernel (K2) and
+// _bwd_kernel (K3). See diffsci_tpu_torch/kernels/fused_norm.py for the
+// design note.
 //
 // Plain C interface, built with nvcc and loaded with ctypes.
 
@@ -87,6 +89,64 @@ __global__ void norm_silu_fwd_kernel(const T* __restrict__ x,
   }
 }
 
+// K3: one block per row, reading the forward's mean and rstd. With
+// n = (x - mean) * rstd, u = n * w + b and gu = g * SiLU'(u), dn = gu * w:
+// pass 1 sums dn, dn * n, gu * n and gu over the row; pass 2 writes
+// dx = rstd * (dn - mean(dn) - n * mean(dn * n)) ('rms' drops mean(dn)).
+// The row's sums of gu * n and gu are its partials of dw and db; the sum
+// over the batch is taken outside (one writer per output, no atomics).
+template <typename T>
+__global__ void norm_silu_bwd_kernel(const T* __restrict__ g,
+                                     const T* __restrict__ x,
+                                     const float* __restrict__ mean_in,
+                                     const float* __restrict__ rstd_in,
+                                     const T* __restrict__ w,
+                                     const T* __restrict__ b,
+                                     T* __restrict__ dx,
+                                     float* __restrict__ dw_part,
+                                     float* __restrict__ db_part,
+                                     int channels, int64_t row_len,
+                                     int subtract_mean) {
+  __shared__ float red[32];
+  const int64_t row = blockIdx.x;
+  const T* gr = g + row * row_len;
+  const T* xr = x + row * row_len;
+  T* dxr = dx + row * row_len;
+  const float inv_n = 1.f / (float)row_len;
+  const float mean = mean_in[row], rstd = rstd_in[row];
+  const int c = (int)(row % channels);
+  const float wc = to_f32(w[c]), bc = to_f32(b[c]);
+
+  float s_dn = 0.f, s_dnn = 0.f, s_gun = 0.f, s_gu = 0.f;
+  for (int64_t i = threadIdx.x; i < row_len; i += blockDim.x) {
+    const float n = (to_f32(xr[i]) - mean) * rstd;
+    const float u = n * wc + bc;
+    const float sg = 1.f / (1.f + expf(-u));
+    const float gu = to_f32(gr[i]) * (sg * (1.f + u * (1.f - sg)));
+    const float dn = gu * wc;
+    s_dn += dn;
+    s_dnn += dn * n;
+    s_gun += gu * n;
+    s_gu += gu;
+  }
+  const float m_dn = subtract_mean ? block_sum(s_dn, red) * inv_n : 0.f;
+  const float m_dnn = block_sum(s_dnn, red) * inv_n;
+  const float t_gun = block_sum(s_gun, red);
+  const float t_gu = block_sum(s_gu, red);
+
+  for (int64_t i = threadIdx.x; i < row_len; i += blockDim.x) {
+    const float n = (to_f32(xr[i]) - mean) * rstd;
+    const float u = n * wc + bc;
+    const float sg = 1.f / (1.f + expf(-u));
+    const float dn = to_f32(gr[i]) * (sg * (1.f + u * (1.f - sg))) * wc;
+    dxr[i] = from_f32<T>(rstd * (dn - m_dn - n * m_dnn));
+  }
+  if (threadIdx.x == 0) {
+    dw_part[row] = t_gun;
+    db_part[row] = t_gu;
+  }
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* b, void* y,
                    void* mean, void* rstd, int64_t rows, int channels,
@@ -96,6 +156,21 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y,
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(b), static_cast<T*>(y), static_cast<float*>(mean),
       static_cast<float*>(rstd), channels, row_len, subtract_mean, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* g, const void* x, const void* mean,
+                       const void* rstd, const void* w, const void* b,
+                       void* dx, void* dw_part, void* db_part, int64_t rows,
+                       int channels, int64_t row_len, int subtract_mean,
+                       int threads, cudaStream_t stream) {
+  norm_silu_bwd_kernel<T><<<(unsigned)rows, threads, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x),
+      static_cast<const float*>(mean), static_cast<const float*>(rstd),
+      static_cast<const T*>(w), static_cast<const T*>(b), static_cast<T*>(dx),
+      static_cast<float*>(dw_part), static_cast<float*>(db_part), channels,
+      row_len, subtract_mean);
   return cudaGetLastError();
 }
 
@@ -118,6 +193,29 @@ extern "C" int norm_silu_fwd_launch(const void* x, const void* w,
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, w, b, y, mean, rstd, rows, channels,
                                  row_len, subtract_mean, eps, threads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3. g, x, w, b and dx share the dtype code; mean, rstd, dw_part and
+// db_part are f32 [rows]. Returns a cudaError_t.
+extern "C" int norm_silu_bwd_launch(const void* g, const void* x,
+                                    const void* mean, const void* rstd,
+                                    const void* w, const void* b, void* dx,
+                                    void* dw_part, void* db_part,
+                                    long long rows, int channels,
+                                    long long row_len, int subtract_mean,
+                                    int dtype, int threads, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (threads < 32 || threads > 1024 || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_bwd<float>(g, x, mean, rstd, w, b, dx, dw_part, db_part,
+                             rows, channels, row_len, subtract_mean, threads,
+                             s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(g, x, mean, rstd, w, b, dx, dw_part,
+                                     db_part, rows, channels, row_len,
+                                     subtract_mean, threads, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface under ``_build/`` (git-ignored) at first
 use, and loaded with ``ctypes``. The library's file name carries a hash of
-its source and flags, so an edited source is rebuilt and a stale library is
-never loaded. ``build()`` starts one ``nvcc`` per missing source, all at
+its source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. ``build()`` starts one ``nvcc`` per missing source, all at
 once, and waits for every one of them.
 """
 
@@ -21,7 +21,8 @@ import threading
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_precondition", "fused_norm", "flash_attention")
+SOURCES = ("fused_precondition", "fused_norm", "flash_attention",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -41,10 +42,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library's path; its hash covers the source, every shared header
+    of ``csrc/`` and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> None:

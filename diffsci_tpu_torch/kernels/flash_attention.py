@@ -1,9 +1,12 @@
-"""K4: flash-attention forward (online softmax), O and the row logsumexp.
+"""K4, K5 and K6: flash attention (online softmax), forward and backward,
+joined by ``FlashAttention``.
 
-Kernel note. Replaces ``diffsci_tpu/kernels/flash_attention.py:
-_fwd_kernel`` (through ``flash_attention``), the PUNetG bottleneck
-attention with ``attn_backend='flash'`` at T ≥ 2048 tokens (config A: 16³ =
-4096 tokens, head dim 32). Source: ``csrc/flash_attention.cu`` (CUDA C++).
+Kernel note. K4 replaces ``diffsci_tpu/kernels/flash_attention.py:
+_fwd_kernel``, K5 ``_dq_kernel`` and K6 ``_dkv_kernel`` (through
+``flash_attention``, a custom VJP there): the PUNetG bottleneck attention
+with ``attn_backend='flash'`` at T ≥ 2048 tokens (config A: 16³ = 4096
+tokens, head dim 32). Sources: ``csrc/flash_attention.cu`` (K4) and
+``csrc/flash_attention_bwd.cu`` (K5, K6), CUDA C++.
 
 - What bounds it on the H100: operations. 4·T²·d flops against
   (4·T·d + T) elements moved: at T = 4096, d = 32 that is ~1000 flops per
@@ -20,6 +23,17 @@ attention with ``attn_backend='flash'`` at T ≥ 2048 tokens (config A: 16³ =
   tuning are later work. Ragged T is masked inside the kernel on query
   rows and keys, with no padding copies; head dims up to 128 are taken by
   zero-padding in shared memory to the next of 16, 32, 64, 128.
+- K5 and K6 are bound by operations as well: 6·T²·d (K5: S, dP, dQ) and
+  8·T²·d (K6: S, dP, dV, dK) flops per head against O(T·d) bytes. The
+  forward saves O and the natural-log lse; delta = rowsum(dO∘O) is one
+  plain f32 reduction outside the kernels, as in the JAX package. P is
+  recomputed tile by tile from lse, so no [T, T] matrix is stored. The
+  TPU kernels carry their sums across a sequential grid axis; here that
+  axis is a loop inside the block: K5's block owns 64 query rows and
+  loops over key tiles, K6's block owns 64 key rows and loops over query
+  tiles. Each output tile has one writer and no atomics, so one input
+  gives one result. Same thread layout, padding, masking, head-dim
+  templates and FP32 pipes as K4.
 """
 
 from __future__ import annotations
@@ -43,6 +57,11 @@ _SIGNATURES = {"flash_fwd_launch": (ctypes.c_int, [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p])}
+_BWD_TAIL = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_int, ctypes.c_void_p]
+_BWD_SIGNATURES = {
+    "flash_dq_launch": (ctypes.c_int, [ctypes.c_void_p] * 7 + _BWD_TAIL),
+    "flash_dkv_launch": (ctypes.c_int, [ctypes.c_void_p] * 8 + _BWD_TAIL)}
 
 
 def dot_product_attention(q, k, v):
@@ -61,30 +80,43 @@ def flash_attention_plain(q, k, v):
     return o.to(q.dtype), lse
 
 
+def _check(what, q, *others):
+    """The kernels' contract: one CUDA device, one [B, H, T, d] shape with
+    d ≤ 128 and B·H ≤ 65535, float32 or bfloat16, contiguous."""
+    tensors = (q,) + others
+    if q.device.type != "cuda" or any(t.device != q.device
+                                       for t in others):
+        raise ValueError(f"{what}: inputs must be on one CUDA device")
+    if q.ndim != 4 or any(t.shape != q.shape for t in others):
+        raise ValueError(f"{what}: inputs must share one [B, H, T, d] "
+                         f"shape, got {[tuple(t.shape) for t in tensors]}")
+    B, H, T, d = q.shape
+    if d > MAX_HEAD_DIM or B * H > 65535:
+        raise ValueError(f"{what}: head dim {d} (max {MAX_HEAD_DIM}) or "
+                         f"B*H {B * H} (max 65535) out of range")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in others):
+        raise TypeError(f"{what}: dtypes {[t.dtype for t in tensors]}; one "
+                        "of float32 or bfloat16")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: inputs must be contiguous")
+
+
+def _check_rows(what, q, *rows):
+    """lse / delta: f32 [B, H, T] on q's device, contiguous."""
+    if any(r.shape != q.shape[:3] or r.dtype != torch.float32
+           or r.device != q.device or not r.is_contiguous() for r in rows):
+        raise ValueError(f"{what}: lse and delta must be contiguous float32 "
+                         f"{tuple(q.shape[:3])} on {q.device}")
+
+
 def flash_attention_fwd(q, k, v):
     """Self-attention forward on q, k, v [B, H, T, d] -> (O [B, H, T, d],
     lse [B, H, T] f32). On CPU tensors this is the plain version; on CUDA
     tensors it launches the kernel."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
-    if q.device.type != "cuda" or k.device != q.device or \
-            v.device != q.device:
-        raise ValueError("flash_attention: q, k, v must be on one CUDA "
-                         "device")
-    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_attention: q, k, v must share one "
-                         f"[B, H, T, d] shape, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _check("flash_attention", q, k, v)
     B, H, T, d = q.shape
-    if d > MAX_HEAD_DIM or B * H > 65535:
-        raise ValueError(f"flash_attention: head dim {d} (max "
-                         f"{MAX_HEAD_DIM}) or B*H {B * H} (max 65535) out "
-                         "of range")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}; one of float32 or bfloat16")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
@@ -99,10 +131,113 @@ def flash_attention_fwd(q, k, v):
     return o, lse
 
 
+def _probs_and_ds(q, k, v, do, lse, delta):
+    """f32 P = exp(q kᵀ/√d − lse) and dS = P∘(dO vᵀ − delta), recomputed
+    from the forward's lse as the kernels do."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(torch.matmul(q.float(), k.float().transpose(-1, -2))
+                  * scale - lse.unsqueeze(-1))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta.unsqueeze(-1)), scale
+
+
+def flash_attention_dq_plain(q, k, v, do, lse, delta):
+    """The plain PyTorch version of K5: dQ = dS K/√d, f32 math, in
+    q.dtype."""
+    _, ds, scale = _probs_and_ds(q, k, v, do, lse, delta)
+    return (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+
+
+def flash_attention_dkv_plain(q, k, v, do, lse, delta):
+    """The plain PyTorch version of K6: (dK = dSᵀ Q/√d, dV = Pᵀ dO), f32
+    math, in q.dtype."""
+    p, ds, scale = _probs_and_ds(q, k, v, do, lse, delta)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(p.transpose(-1, -2), do.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do):
+    """The plain PyTorch version of the backward, from the forward's saved
+    O and lse: delta = rowsum(dO∘O) in f32, then K5's and K6's plain
+    versions -> (dQ, dK, dV) in q.dtype."""
+    delta = (do.float() * o.float()).sum(-1)
+    return (flash_attention_dq_plain(q, k, v, do, lse, delta),
+            *flash_attention_dkv_plain(q, k, v, do, lse, delta))
+
+
+def _launch_bwd(fn, name, q, k, v, do, lse, delta, outs):
+    B, H, T, d = q.shape
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    err = getattr(lib, fn)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+        B * H, T, d, 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.LAUNCHES[name] += 1
+    _build.check(lib, err, name)
+
+
+def flash_attention_dq(q, k, v, do, lse, delta):
+    """K5: dQ [B, H, T, d] from q, k, v, dO and the f32 [B, H, T] lse and
+    delta = rowsum(dO∘O). CUDA tensors only."""
+    _check("flash_attention_dq", q, k, v, do)
+    _check_rows("flash_attention_dq", q, lse, delta)
+    dq = torch.empty_like(q)
+    if q.numel():
+        _launch_bwd("flash_dq_launch", "flash_attention_dq", q, k, v, do,
+                    lse, delta, (dq,))
+    return dq
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta):
+    """K6: (dK, dV) [B, H, T, d] from the same inputs as K5. CUDA tensors
+    only."""
+    _check("flash_attention_dkv", q, k, v, do)
+    _check_rows("flash_attention_dkv", q, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.numel():
+        _launch_bwd("flash_dkv_launch", "flash_attention_dkv", q, k, v, do,
+                    lse, delta, (dk, dv))
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do):
+    """Backward of ``flash_attention_fwd`` -> (dQ, dK, dV). On CPU tensors
+    this is the plain version; on CUDA tensors delta = rowsum(dO∘O) is one
+    f32 reduction and K5 and K6 are launched."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do)
+    do = do.to(q.dtype).contiguous()
+    delta = (do.float() * o.float()).sum(-1)
+    dq = flash_attention_dq(q, k, v, do, lse, delta)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """softmax(q kᵀ/√d) v with K4 as its forward and K5/K6 as its backward
+    (their plain versions on CPU tensors). Saves q, k, v, O and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_attention_bwd(*ctx.saved_tensors, do)
+
+
 def flash_attention(q, k, v):
-    """Self-attention [B, H, T, d] -> [B, H, T, d]: the flash kernel path
-    for T ≥ ``MIN_TOKENS`` (2048), ``dot_product_attention`` below it. The
-    gate depends on the shape only."""
+    """Self-attention [B, H, T, d] -> [B, H, T, d], differentiable: the
+    flash kernels (``FlashAttention``) for T ≥ ``MIN_TOKENS`` (2048),
+    ``dot_product_attention`` below it. The gate depends on the shape
+    only. Where autograd records nothing (sampling) the forward is called
+    directly, without the Function's host time."""
     if q.shape[-2] < MIN_TOKENS:
         return dot_product_attention(q, k, v)
-    return flash_attention_fwd(q, k, v)[0]
+    if not torch.is_grad_enabled():
+        return flash_attention_fwd(q, k, v)[0]
+    return FlashAttention.apply(q, k, v)

@@ -1,7 +1,9 @@
-"""K2: fused per-channel norm + SiLU forward, y = SiLU(norm(x)·w + b).
+"""K2 and K3: fused per-channel norm + SiLU, y = SiLU(norm(x)·w + b),
+forward (K2) and backward (K3), joined by ``NormSiLU``.
 
-Kernel note. Replaces ``diffsci_tpu/kernels/fused_norm.py:_fwd_kernel``
-(through ``norm_silu``), the two norm+SiLU pairs of every ResnetBlockC.
+Kernel note. K2 replaces ``diffsci_tpu/kernels/fused_norm.py:_fwd_kernel``
+and K3 ``_bwd_kernel`` (through ``norm_silu``, a custom VJP there), the
+two norm+SiLU pairs of every ResnetBlockC.
 Source: ``csrc/fused_norm.cu`` (CUDA C++; Triton would do for a row
 reduction plus an elementwise pass, but one build route serves all the
 port's kernels). The JAX package keeps its kernel opt-in because Pallas
@@ -20,7 +22,15 @@ here, so in the port this kernel is the norm on the card.
   Rows of any length are streamed, so the TPU's 1 MB slab cap has no
   counterpart (config A's 32³ rows are 32768 long). The block size grows
   with S, from 32 threads (S = 49) to 1024 (S ≥ 4096). Mean and rstd are
-  written as [B, C] f32 for the backward of the training slice.
+  written as [B, C] f32 for K3.
+- K3 is bound by bytes too: it reads g and x and writes dx (~20 flops per
+  element), and reuses the forward's [B, C] statistics. Same layout: one
+  block per row; pass 1 reduces the row's sums of dn, dn·n, gu·n and gu,
+  pass 2 (L2 serving the re-read) writes dx. Each block writes its row's
+  partials of dw and db to [B, C] f32; their sum over the batch is a
+  plain ``.sum(0)`` outside the kernel, as the JAX package sums its
+  kernel's partials outside it. One writer per output and no atomics, so
+  one input gives one result.
 """
 
 from __future__ import annotations
@@ -34,11 +44,15 @@ from diffsci_tpu_torch import kernels
 from diffsci_tpu_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURES = {"norm_silu_fwd_launch": (ctypes.c_int, [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p])}
+_SIGNATURES = {
+    "norm_silu_fwd_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]),
+    "norm_silu_bwd_launch": (ctypes.c_int, [ctypes.c_void_p] * 9 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
 _KINDS = ("ln", "rms")
 
 
@@ -111,6 +125,100 @@ def norm_silu_fwd(x, w, b, kind: str = "ln", eps: float = 1e-5):
     return y, mean, rstd
 
 
+def norm_silu_bwd_plain(g, x, mean, rstd, w, b, kind: str = "ln"):
+    """The plain PyTorch version of K3: (dx in x.dtype, dw and db in
+    w.dtype) from the cotangent g and the forward's saved tensors."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
+    B, C = x.shape[:2]
+    dims = tuple(range(2, x.ndim))
+    stat = (B, C) + (1,) * len(dims)
+    shape = (1, C) + (1,) * len(dims)
+    wf = w.float().view(shape)
+    n = (x.float() - mean.view(stat)) * rstd.view(stat)
+    u = n * wf + b.float().view(shape)
+    s = torch.sigmoid(u)
+    gu = g.float() * (s * (1.0 + u * (1.0 - s)))
+    dn = gu * wf
+    dx = dn - n * (dn * n).mean(dim=dims, keepdim=True)
+    if kind == "ln":
+        dx = dx - dn.mean(dim=dims, keepdim=True)
+    dx = rstd.view(stat) * dx
+    red = (0,) + dims
+    return (dx.to(x.dtype), (gu * n).sum(dim=red).to(w.dtype),
+            gu.sum(dim=red).to(b.dtype))
+
+
+def norm_silu_bwd(g, x, mean, rstd, w, b, kind: str = "ln"):
+    """K3: the backward of ``norm_silu_fwd``; returns (dx, dw, db). On CPU
+    tensors this is the plain version; on CUDA tensors it launches the
+    kernel (per-(b, c) partials of dw and db, summed over the batch
+    here)."""
+    if x.device.type == "cpu":
+        return norm_silu_bwd_plain(g, x, mean, rstd, w, b, kind)
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
+    B, C = x.shape[:2]
+    tensors = (g, x, mean, rstd, w, b)
+    if any(t.device != x.device for t in tensors) or \
+            x.device.type != "cuda":
+        raise ValueError("norm_silu_bwd: all tensors must be on one CUDA "
+                         "device")
+    if g.shape != x.shape or mean.shape != (B, C) or \
+            rstd.shape != (B, C) or w.shape != (C,) or b.shape != (C,):
+        raise ValueError(f"norm_silu_bwd: shapes g {tuple(g.shape)}, x "
+                         f"{tuple(x.shape)}, mean/rstd [{B}, {C}], w/b "
+                         f"[{C}] expected")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in
+                                     (g, w, b)) or \
+            mean.dtype != torch.float32 or rstd.dtype != torch.float32:
+        raise TypeError("norm_silu_bwd: g, x, w, b share float32 or "
+                        "bfloat16; mean and rstd are float32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("norm_silu_bwd: inputs must be contiguous")
+    if x.numel() == 0:
+        return torch.zeros_like(x), torch.zeros_like(w), torch.zeros_like(b)
+    row_len = x.numel() // (B * C)
+    dx = torch.empty_like(x)
+    dw_part = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    db_part = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    lib = _build.load("fused_norm", _SIGNATURES)
+    err = lib.norm_silu_bwd_launch(
+        g.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        w.data_ptr(), b.data_ptr(), dx.data_ptr(), dw_part.data_ptr(),
+        db_part.data_ptr(), B * C, C, row_len, int(kind == "ln"),
+        _DTYPES[x.dtype], _threads(row_len),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.LAUNCHES["norm_silu_bwd"] += 1
+    _build.check(lib, err, "norm_silu_bwd")
+    return dx, dw_part.sum(0).to(w.dtype), db_part.sum(0).to(b.dtype)
+
+
+class NormSiLU(torch.autograd.Function):
+    """SiLU(norm(x)·w + b) with K2 as its forward and K3 as its backward
+    (their plain versions on CPU tensors). Saves x, w, b and the [B, C]
+    f32 statistics."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, kind, eps):
+        y, mean, rstd = norm_silu_fwd(x, w, b, kind, eps)
+        ctx.save_for_backward(x, mean, rstd, w, b)
+        ctx.kind = kind
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd, w, b = ctx.saved_tensors
+        dx, dw, db = norm_silu_bwd(g.contiguous(), x, mean, rstd, w, b,
+                                   ctx.kind)
+        return dx, dw, db, None, None
+
+
 def norm_silu(x, w, b, kind: str = "ln", eps: float = 1e-5):
-    """``norm_silu_fwd`` without the statistics."""
-    return norm_silu_fwd(x, w, b, kind, eps)[0]
+    """SiLU(norm(x)·w + b), differentiable in x, w and b (``NormSiLU``).
+    Where autograd records nothing (sampling runs under
+    ``torch.inference_mode``) it calls the forward directly and spares
+    every call the Function's host time."""
+    if not torch.is_grad_enabled():
+        return norm_silu_fwd(x, w, b, kind, eps)[0]
+    return NormSiLU.apply(x, w, b, kind, eps)

@@ -18,6 +18,11 @@ kernels).
   XLA fallback have no counterpart: the pass takes any N. Products and the
   sum are rounded separately (no FMA), so on f32 inputs the kernel equals
   the plain version bit for bit.
+- Gradient: ``FusedAxby``, whose forward is the kernel and whose
+  backward is the plain expression of the JAX package's custom VJP
+  (``fused_precondition.py:159-168``): dx = a·g, df = b·g, and each
+  coefficient's gradient summed against x and f. The JAX package leaves
+  that backward to XLA, so here it is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ def fused_axby_plain(x, f, a, b):
     return (a * x.float() + b * f.float()).to(x.dtype)
 
 
-def fused_axby(x, f, a, b):
+def fused_axby_fwd(x, f, a, b):
     """out = a[batch]·x + b[batch]·f, f32 math, output in x.dtype.
 
     x, f: [B, ...] float32 or bfloat16 of one shape; a, b: scalar, [1] or
@@ -85,6 +90,54 @@ def fused_axby(x, f, a, b):
     kernels.LAUNCHES["fused_axby"] += 1
     _build.check(lib, err, "fused_axby")
     return out
+
+
+def _coeff_grad(g32, val, coeff, batch: int):
+    """Gradient of a per-batch coefficient: the cotangent summed against
+    the tensor, folded back to the coefficient's own shape (a scalar or
+    [1] coefficient was broadcast over the batch)."""
+    d = (g32 * val.float()).reshape(batch, -1).sum(1)
+    if coeff.numel() != batch:
+        d = d.sum()
+    return d.reshape(coeff.shape).to(coeff.dtype)
+
+
+class FusedAxby(torch.autograd.Function):
+    """out = a·x + b·f with K1 as its forward (its plain version on CPU
+    tensors) and the plain backward of the JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, x, f, a, b):
+        ctx.save_for_backward(x, f, a, b)
+        return fused_axby_fwd(x, f, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, f, a, b = ctx.saved_tensors
+        B = x.shape[0]
+        shape = (B,) + (1,) * (x.ndim - 1)
+        g32 = g.float()
+        need = ctx.needs_input_grad
+        dx = (_coeff(a, B, x.device).view(shape) * g32).to(x.dtype) \
+            if need[0] else None
+        df = (_coeff(b, B, x.device).view(shape) * g32).to(f.dtype) \
+            if need[1] else None
+        da = _coeff_grad(g32, x, a, B) if need[2] else None
+        db = _coeff_grad(g32, f, b, B) if need[3] else None
+        return dx, df, da, db
+
+
+def fused_axby(x, f, a, b):
+    """``fused_axby_fwd``, differentiable in all four arguments
+    (``FusedAxby``). a, b: scalars or tensors (scalar, [1] or [B]). Where
+    autograd records nothing (sampling) the forward is called directly,
+    without the Function's host time."""
+    if not torch.is_grad_enabled():
+        return fused_axby_fwd(x, f, a, b)
+    device = x.device
+    a = a if torch.is_tensor(a) else torch.tensor(float(a), device=device)
+    b = b if torch.is_tensor(b) else torch.tensor(float(b), device=device)
+    return FusedAxby.apply(x, f, a, b)
 
 
 def denoise_combine(x, f, c_skip, c_out):

@@ -1,5 +1,18 @@
+from diffsci_tpu_torch.models.karras.ema import (EMAState, EMATracker,
+                                                 power_function_beta,
+                                                 power_function_exp_from_std)
 from diffsci_tpu_torch.models.karras.module import (KarrasModel,
                                                     KarrasModelConfig,
                                                     KarrasNet)
+from diffsci_tpu_torch.models.karras.train import (AdamWClip, TrainState,
+                                                   create_train_state,
+                                                   default_optimizer,
+                                                   make_eval_step,
+                                                   make_train_step,
+                                                   nan_to_zero_grads)
 
-__all__ = ["KarrasModel", "KarrasModelConfig", "KarrasNet"]
+__all__ = ["AdamWClip", "EMAState", "EMATracker", "KarrasModel",
+           "KarrasModelConfig", "KarrasNet", "TrainState",
+           "create_train_state", "default_optimizer", "make_eval_step",
+           "make_train_step", "nan_to_zero_grads", "power_function_beta",
+           "power_function_exp_from_std"]

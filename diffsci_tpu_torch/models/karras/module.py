@@ -1,16 +1,18 @@
-"""KarrasModel: the EDM denoiser runtime for sampling.
+"""KarrasModel: the EDM denoiser runtime for training and sampling.
 
-Port of the serving part of ``diffsci_tpu/models/karras/module.py``:
-``KarrasModelConfig.from_edm``, ``KarrasNet``, and ``KarrasModel``'s
-``init``, ``decode``, ``get_denoiser`` (with ``compute_dtype``, CFG and the
-``fused_precondition`` policy), ``get_score``, ``sample``,
-``propagate_white_noise`` and ``propagate_toward_sample``.
+Port of ``diffsci_tpu/models/karras/module.py``'s EDM path:
+``KarrasModelConfig.from_edm`` (with ``loss_metric``), ``KarrasNet``, and
+``KarrasModel``'s ``init``, ``decode``, ``get_denoiser`` (with
+``compute_dtype``, CFG and the ``fused_precondition`` policy),
+``loss_fn``, ``get_score``, ``sample``, ``propagate_white_noise`` and
+``propagate_toward_sample``.
 
 The network's weights live in the module, so the methods take no
-``variables``. Randomness is an explicit ``torch.Generator``. Sample shapes
-and samples are channels-last ([B, *spatial, C]) as in the JAX package;
-``KarrasNet`` moves the channel axis at the network boundary (a reshape
-for C = 1).
+``variables`` unless the caller swaps other weights in (``variables=``, a
+state dict, e.g. EMA shadows). Randomness is an explicit
+``torch.Generator``. Sample shapes and samples are channels-last
+([B, *spatial, C]) as in the JAX package; ``KarrasNet`` moves the channel
+axis at the network boundary (a reshape for C = 1).
 """
 
 from __future__ import annotations
@@ -22,30 +24,35 @@ import torch.nn as nn
 
 from diffsci_tpu_torch.kernels import fused_precondition
 from diffsci_tpu_torch.models.nets.layers import init_parameters
-from diffsci_tpu_torch.ops import noise_samplers, preconditioners, schedulers
+from diffsci_tpu_torch.ops import (losses, noise_samplers, preconditioners,
+                                   schedulers)
 from diffsci_tpu_torch.utils import (bcast_right, dict_expand_dims, dict_map,
                                      get_minibatch_sizes, resolve_device)
 
 
 class KarrasModelConfig:
-    """The math configuration: preconditioner, training noise sampler and
-    sampling scheduler."""
+    """The math configuration: preconditioner, training noise sampler,
+    sampling scheduler and the training loss metric ("huber", "mse" or
+    ``{"huber": {"delta": ...}}``)."""
 
     def __init__(self, preconditioner: preconditioners.KarrasPreconditioner,
                  noisesampler: noise_samplers.NoiseSampler,
-                 noisescheduler: schedulers.Scheduler):
+                 noisescheduler: schedulers.Scheduler,
+                 loss_metric="huber"):
         self.preconditioner = preconditioner
         self.noisesampler = noisesampler
         self.noisescheduler = noisescheduler
+        self.loss_metric = loss_metric
 
     @classmethod
     def from_edm(cls, sigma_data: float = 0.5, prior_mean: float = -1.2,
-                 prior_std: float = 1.2):
+                 prior_std: float = 1.2, loss_metric="huber"):
         return cls(
             preconditioner=preconditioners.EDMPreconditioner(sigma_data),
             noisesampler=noise_samplers.EDMNoiseSampler(
                 sigma_data, prior_mean, prior_std),
-            noisescheduler=schedulers.EDMScheduler())
+            noisescheduler=schedulers.EDMScheduler(),
+            loss_metric=loss_metric)
 
 
 class KarrasNet(nn.Module):
@@ -94,6 +101,7 @@ class KarrasModel:
         self.compute_dtype = compute_dtype
         self.fused_precondition = fused_precondition
         self.net = KarrasNet(model).to(self.device).eval()
+        self._loss_metric = losses.make_loss_metric(config.loss_metric)
         self._cast_net = None
         self._cast_key = None
 
@@ -113,13 +121,12 @@ class KarrasModel:
         return x
 
     # ------------------------------------------------------------------
-    def _compute_net(self) -> nn.Module:
-        """The network with parameters and buffers in ``compute_dtype``.
-        The cast copy is rebuilt whenever a master tensor changes (its
-        storage or its in-place version counter), so a load_state_dict or
-        init is always seen."""
-        if self.compute_dtype is None:
-            return self.net
+    def _cast_copy(self) -> nn.Module:
+        """A copy of the network with parameters and buffers in
+        ``compute_dtype``, for calls that ask no gradient (sampling). It is
+        rebuilt whenever a master tensor changes (its storage or its
+        in-place version counter, which every optimizer step moves), so a
+        load_state_dict, an init or training is always seen."""
         tensors = list(self.net.parameters()) + list(self.net.buffers())
         key = tuple((t.data_ptr(), t._version, t.device) for t in tensors)
         if key != self._cast_key:
@@ -131,11 +138,40 @@ class KarrasModel:
             self._cast_key = key
         return self._cast_net
 
+    def _network(self, train: bool, variables=None):
+        """The callable ``net(x, cnoise, y)`` that get_denoiser runs, in
+        training mode when ``train`` (dropout on) and eval mode otherwise.
+
+        With ``compute_dtype``, the parameters go through ``.to(cd)``
+        inside the autograd graph (``functional_call`` over cast tensors)
+        whenever gradients are on, so gradients land on the f32 masters,
+        as autodiff through the JAX package's cast does; calls without
+        gradients use the cached cast copy. ``variables`` (tensors by
+        state-dict name) stand in for the module's own."""
+        cd = self.compute_dtype
+        if variables is None and (cd is None or not torch.is_grad_enabled()):
+            net = self.net if cd is None else self._cast_copy()
+            if net.training != train:
+                net.train(train)
+            return net
+        if self.net.training != train:
+            self.net.train(train)
+        tensors = dict(self.net.named_parameters())
+        tensors.update(self.net.named_buffers())
+        tensors.update(variables or {})
+        if cd is not None:
+            tensors = {k: v.to(cd) if v.is_floating_point() else v
+                       for k, v in tensors.items()}
+        return lambda *args: torch.func.functional_call(self.net, tensors,
+                                                        args)
+
     def get_denoiser(self, x, sigma, y=None, guidance: float = 1.0,
-                     train: bool = False):
+                     train: bool = False, variables=None):
         """D(x; sigma) = c_skip x + c_out F(c_in x, c_noise, y), with
         classifier-free guidance when guidance != 1. x is channels-last,
-        sigma [B]. Returns (denoiser, c_noise)."""
+        sigma [B]. ``train`` runs the network in training mode (dropout)
+        and takes the plain combine under the default
+        ``fused_precondition="sample"``. Returns (denoiser, c_noise)."""
         pre = self.config.preconditioner
         c_skip_vec = pre.skip_scaling(sigma)
         c_out_vec = pre.output_scaling(sigma)
@@ -143,7 +179,7 @@ class KarrasModel:
         cnoise = pre.noise_conditioner(sigma)
         scaled = c_in * x
 
-        net = self._compute_net()
+        net = self._network(train, variables)
         cd = self.compute_dtype
         if cd is not None:
             scaled = scaled.to(cd)
@@ -171,6 +207,36 @@ class KarrasModel:
                 x, base, c_skip_vec, c_out_vec), cnoise
         return (bcast_right(c_out_vec, x) * base
                 + bcast_right(c_skip_vec, x) * x), cnoise
+
+    # ------------------------------------------------------------------
+    def loss_fn(self, x, sigma, y=None, mask=None, train: bool = True,
+                eps=None, generator=None, variables=None):
+        """The EDM training loss: mean over elements of
+        lambda(sigma) · metric(D(x + sigma·eps; sigma), x), masked elements
+        (mask == 1) weighted 0. x is channels-last, sigma [B]. ``eps``
+        replays a fixed unit-noise draw in place of one from
+        ``generator`` (the cross-framework tests feed the same noise to
+        both packages). Dropout, when the network has any, draws from
+        torch's default generator of the device. Returns the scalar loss
+        (the JAX package also returns batch-norm updates, which the port's
+        networks do not have)."""
+        sigma_b = bcast_right(sigma, x)
+        if eps is None:
+            eps = torch.randn(x.shape, generator=generator, device=x.device,
+                              dtype=x.dtype)
+        denoiser, _ = self.get_denoiser(x + sigma_b * eps, sigma, y,
+                                        train=train, variables=variables)
+        weight = self.config.noisesampler.loss_weighting(sigma_b)
+        return self._apply_mask_weight(self._loss_metric(denoiser, x),
+                                       weight, mask)
+
+    @staticmethod
+    def _apply_mask_weight(loss, weight, mask):
+        """mean(weight · loss) with masked elements zeroed (the JAX
+        package's form without its dynamic-loss-weight bias)."""
+        if mask is not None:
+            loss = loss * (1.0 - mask.expand_as(loss))
+        return (weight * loss).mean()
 
     def get_score(self, x, sigma, y=None, guidance: float = 1.0):
         denoiser, _ = self.get_denoiser(x, sigma, y, guidance)

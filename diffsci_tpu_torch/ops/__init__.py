@@ -1,3 +1,4 @@
+from diffsci_tpu_torch.ops import losses
 from diffsci_tpu_torch.ops.integrators import (EulerIntegrator,
                                                HeunIntegrator, Integrator)
 from diffsci_tpu_torch.ops.noise_samplers import EDMNoiseSampler, NoiseSampler
@@ -10,4 +11,4 @@ from diffsci_tpu_torch.ops.scheduling import (EDMSchedulingFunctions,
 __all__ = ["EDMNoiseSampler", "EDMPreconditioner", "EDMScheduler",
            "EDMSchedulingFunctions", "EulerIntegrator", "HeunIntegrator",
            "Integrator", "KarrasPreconditioner", "NoiseSampler", "Scheduler",
-           "SchedulingFunctions"]
+           "SchedulingFunctions", "losses"]

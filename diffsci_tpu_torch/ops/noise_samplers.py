@@ -1,18 +1,23 @@
 """Training-time noise-level sampler and loss weight lambda(sigma).
 
 Port of ``diffsci_tpu/ops/noise_samplers.py:16-48``: the EDM sampler's
-parameters and loss weight, which ``KarrasModelConfig.from_edm`` holds.
-The log-normal sigma draw arrives with the training slice.
+log-normal sigma draw and loss weight. The draw takes an explicit
+``torch.Generator`` in place of a JAX key.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class NoiseSampler:
     def loss_weighting(self, sigma):
+        raise NotImplementedError
+
+    def sample(self, shape, generator=None, device=None):
         raise NotImplementedError
 
 
@@ -27,3 +32,12 @@ class EDMNoiseSampler(NoiseSampler):
     def loss_weighting(self, sigma):
         return (sigma ** 2 + self.sigma_data ** 2) / (
             (sigma * self.sigma_data) ** 2)
+
+    def sample(self, shape, generator=None, device=None):
+        """sigma = exp(N(prior_mean, prior_std^2)) of ``shape``, drawn with
+        ``generator`` on ``device`` (the generator's device by default)."""
+        if device is None and generator is not None:
+            device = generator.device
+        logsigma = torch.randn(shape, generator=generator, device=device) \
+            * self.prior_std + self.prior_mean
+        return torch.exp(logsigma)

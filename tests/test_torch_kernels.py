@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from diffsci_tpu.kernels import flash_attention as jfa
@@ -160,6 +161,177 @@ def test_flash_attention_shape_gate():
 
 
 # ---------------------------------------------------------------------------
+# backward: K1's plain VJP, K3, K5/K6
+# ---------------------------------------------------------------------------
+def _jax_grads(fn, args, g):
+    """jax.grad of sum(fn(*args) * g) in every argument."""
+    def loss(*a):
+        return jnp.sum(fn(*a) * g)
+    return [np.asarray(r) for r in jax.grad(loss, argnums=tuple(
+        range(len(args))))(*(jnp.asarray(a) for a in args))]
+
+
+def _torch_grads(fn, args, g):
+    leaves = [torch.from_numpy(np.asarray(a)).requires_grad_() for a in args]
+    fn(*leaves).backward(g)
+    return [t.grad.numpy() for t in leaves]
+
+
+@pytest.mark.parametrize("coeff", ["scalar", "one", "batch"])
+def test_fused_axby_grads_match_jax(coeff):
+    """FusedAxby's backward (the plain expression of the JAX package's
+    custom VJP) in all four arguments, f32, rtol 1e-5."""
+    rng = np.random.default_rng(5)
+    B = 3
+    x = rng.standard_normal((B, 6, 7, 1)).astype(np.float32) * 40
+    f, g = (rng.standard_normal((B, 6, 7, 1)).astype(np.float32)
+            for _ in range(2))
+    a, b = {"scalar": (np.float32(0.7), np.float32(-1.3)),
+            "one": (np.array([0.7], np.float32),
+                    np.array([-1.3], np.float32)),
+            "batch": (rng.random(B).astype(np.float32),
+                      rng.standard_normal(B).astype(np.float32))}[coeff]
+    ref = _jax_grads(lambda *t: jfp.fused_axby(*t, True), (x, f, a, b), g)
+    got = _torch_grads(fp.fused_axby, (x, f, a, b), torch.from_numpy(g))
+    for r, o, name in zip(ref, got, ("x", "f", "a", "b")):
+        assert o.shape == r.shape, name
+        np.testing.assert_allclose(o, r, rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 7, 16), (2, 4, 5, 4, 8)])
+@pytest.mark.parametrize("kind", ["ln", "rms"])
+def test_norm_silu_backward_matches_jax_kernel(shape, kind):
+    """NormSiLU's backward (K3's plain version here) against jax.grad
+    through the JAX kernel's custom VJP, its Pallas kernels in interpret
+    mode; channels-last at the JAX boundary. f32: dx, dw and db within
+    1e-5 of their largest entry."""
+    rng = np.random.default_rng(len(shape) + len(kind))
+    C = shape[-1]
+    x = (rng.standard_normal(shape) * 2 + 0.3).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    w = (rng.standard_normal(C) * 0.2 + 1).astype(np.float32)
+    b = (rng.standard_normal(C) * 0.1).astype(np.float32)
+    ref = _jax_grads(lambda x, w, b: jfn.norm_silu(x, w, b, kind,
+                                                   interpret=True),
+                     (x, w, b), g)
+    got = _torch_grads(lambda x, w, b: fn.norm_silu(x, w, b, kind),
+                       (np.moveaxis(x, -1, 1).copy(), w, b), _nc(g))
+    got[0] = np.moveaxis(got[0], 1, -1)
+    for r, o, name in zip(ref, got, ("dx", "dw", "db")):
+        np.testing.assert_allclose(o, r, rtol=1e-5,
+                                   atol=1e-5 * np.abs(r).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("T", [2048, 2111])          # 2111: ragged
+@pytest.mark.parametrize("d", [8, 16])
+def test_flash_attention_backward_matches_jax_kernel(T, d):
+    """FlashAttention's backward (the plain version of K5/K6 and delta
+    here) against jax.grad through the JAX flash kernel's custom VJP in
+    interpret mode. f32: dQ, dK, dV within 1e-5 of their largest entry."""
+    rng = np.random.default_rng(T + d)
+    q, k, v, g = (rng.standard_normal((1, 2, T, d)).astype(np.float32)
+                  for _ in range(4))
+    ref = _jax_grads(lambda q, k, v: jfa.flash_attention(q, k, v,
+                                                         interpret=True),
+                     (q, k, v), g)
+    got = _torch_grads(fa.flash_attention, (q, k, v), torch.from_numpy(g))
+    for r, o, name in zip(ref, got, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(o, r, rtol=1e-5,
+                                   atol=1e-5 * np.abs(r).max(), err_msg=name)
+
+
+def test_backward_plain_versions_match_autograd():
+    """The plain backward functions, called on the forward's saved tensors,
+    equal autograd through the plain forwards (f32, 1e-5), in f32 and with
+    bf16 inputs (2e-2)."""
+    gen = torch.Generator().manual_seed(0)
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        x = (torch.randn(2, 4, 9, 10, generator=gen) * 2).to(dt)
+        w = (torch.randn(4, generator=gen) * 0.2 + 1).to(dt)
+        b = (torch.randn(4, generator=gen) * 0.1).to(dt)
+        g = torch.randn(x.shape, generator=gen).to(dt)
+        for kind in ("ln", "rms"):
+            leaves = [t.detach().float().requires_grad_() for t in (x, w, b)]
+            fn.norm_silu_plain(*leaves, kind)[0].backward(g.float())
+            _, mean, rstd = fn.norm_silu_fwd(x, w, b, kind)
+            got = fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b, kind)
+            for o, t in zip(got, leaves):
+                assert o.dtype == dt
+                torch.testing.assert_close(o.float(), t.grad, rtol=tol,
+                                           atol=tol)
+        q, k, v, do = (torch.randn(1, 2, 77, 16, generator=gen).to(dt)
+                       for _ in range(4))
+        leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        fa.dot_product_attention(*leaves).backward(do.float())
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        for got, t in zip(fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+                          leaves):
+            assert got.dtype == dt
+            torch.testing.assert_close(got.float(), t.grad, rtol=tol,
+                                       atol=tol)
+
+
+def test_kernel_wrappers_stay_in_the_graph():
+    """The wrappers go through their autograd.Functions (the forward
+    kernel joined to its backward), so their outputs carry a grad_fn and
+    gradients reach what lies upstream of them; on the card the same
+    Functions launch the kernels."""
+    x = torch.randn(2, 4, 6, 6, requires_grad=True)
+    w = torch.ones(4, requires_grad=True)
+    b = torch.zeros(4, requires_grad=True)
+    y = fn.norm_silu(x * 2, w, b)
+    assert type(y.grad_fn).__name__ == "NormSiLUBackward"
+    q = torch.randn(1, 1, 2048, 8, requires_grad=True)
+    o = fa.flash_attention(q * 1.0, q * 0.5, q * 2.0)
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+    c = torch.tensor([0.5, 2.0], requires_grad=True)
+    z = fp.fused_axby(x, y, c, 3.0)
+    assert type(z.grad_fn).__name__ == "FusedAxbyBackward"
+    (z.sum() + o.sum()).backward()
+    for t in (x, w, b, q, c):
+        assert t.grad is not None and float(t.grad.abs().max()) > 0
+
+
+def test_library_name_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A library is rebuilt when its source or a shared header of csrc/
+    (``flash_common.cuh``) changes: both enter the hash in its name."""
+    from diffsci_tpu_torch.kernels import _build
+    assert (_build.CSRC_DIR / "flash_common.cuh").exists()
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// 1\n")
+    first = _build.library_path("k")
+    assert first == _build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// 2\n")
+    second = _build.library_path("k")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"  \n')
+    assert len({first, second, _build.library_path("k")}) == 3
+
+
+@pytest.mark.parametrize("context", ["inference_mode", "no_grad"])
+def test_kernel_wrappers_call_the_forward_without_autograd(context):
+    """Where autograd records nothing (sampling) the wrappers give the
+    forward's own output, bit for bit, with no grad_fn."""
+    ctx = getattr(torch, context)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 4, 6, 6, generator=gen)
+    w, b = torch.rand(4, generator=gen) + 0.5, torch.randn(4, generator=gen)
+    q, k, v = (torch.randn(1, 2, 2048, 8, generator=gen) for _ in range(3))
+    c = torch.tensor([0.5, 2.0])
+    with ctx():
+        y = fn.norm_silu(x, w, b, "rms")
+        o = fa.flash_attention(q, k, v)
+        z = fp.fused_axby(x, y, c, 3.0)
+    assert y.grad_fn is None and o.grad_fn is None and z.grad_fn is None
+    torch.testing.assert_close(y, fn.norm_silu_fwd(x, w, b, "rms")[0],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(o, fa.flash_attention_fwd(q, k, v)[0],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(z, fp.fused_axby_fwd(x, y, c, 3.0), rtol=0,
+                               atol=0)
+
+
+# ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
@@ -193,4 +365,45 @@ def test_kernel_matches_plain_on_card(dtype):
         torch.testing.assert_close(got.float(), ref.float(), **tol)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"fused_axby": 1, "norm_silu": 2,
-                                "flash_attention": 1}
+                                "norm_silu_bwd": 0, "flash_attention": 1,
+                                "flash_attention_dq": 0,
+                                "flash_attention_dkv": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_match_plain_on_card(dtype):
+    """K3, K5 and K6 against their plain versions on the same saved
+    tensors, with ragged T and head dims that are not a template's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernels are CUDA only")
+    from diffsci_tpu_torch import kernels
+    dt = getattr(torch, dtype)
+    tol = dict(rtol=0, atol=1e-4) if dt == torch.float32 else \
+        dict(rtol=2e-2, atol=2e-2)
+    gen = torch.Generator("cuda").manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    x, g = randn(2, 8, 9, 10, 11), randn(2, 8, 9, 10, 11)
+    w, b = randn(8), randn(8)
+    for kind in ("ln", "rms"):
+        _, mean, rstd = fn.norm_silu_fwd(x, w, b, kind)
+        kernels.reset_launches()
+        got = fn.norm_silu_bwd(g, x, mean, rstd, w, b, kind)
+        assert kernels.LAUNCHES["norm_silu_bwd"] == 1
+        for o, r in zip(got, fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b,
+                                                    kind)):
+            torch.testing.assert_close(o.float(), r.float(), **tol)
+    for shape in ((1, 2, 333, 40), (2, 1, 4097, 16)):
+        q, k, v, do = (randn(*shape) * 0.5 for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        kernels.reset_launches()
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+        assert kernels.LAUNCHES["flash_attention_dq"] == 1
+        assert kernels.LAUNCHES["flash_attention_dkv"] == 1
+        for o_, r in zip(got, fa.flash_attention_bwd_plain(q, k, v, o, lse,
+                                                           do)):
+            torch.testing.assert_close(o_.float(), r.float(), **tol)
+    torch.cuda.synchronize()
