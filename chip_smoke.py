@@ -9,9 +9,10 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. Kernels: build every kernel from ``diffsci_tpu_torch/csrc`` (one nvcc
    per source, in parallel), check each against its plain PyTorch version
-   on the card at the main path's shapes in float32 and bfloat16 (the
+   on the card at the main paths' shapes in float32 and bfloat16 (the
    backward kernels K3, K5 and K6 on the forward kernels' own saved
-   statistics), and time the kernel, its plain version, the least time
+   statistics; K7 in every dtype combination of its three inputs, bit for
+   bit in float32), and time the kernel, its plain version, the least time
    the card could take (``bound_ms``) and, where one PyTorch call computes
    the same function, that call (``library_ms``).
 2. Card vs CPU, sampling: a small configuration-A-shaped net (3D 32³,
@@ -21,27 +22,36 @@ Phases (any failure raises, so the exit code is non-zero):
 3. Card vs CPU, training: the same net takes three f32 train steps from
    the same weights, batch and σ/ε draws on both; losses, grad norms,
    parameters and EMA shadows must agree.
-4. Serving, configuration A (3D 32³ porous-media volume, bf16, flash
+4. Card vs CPU, DDPM: a small HFNet (configuration C's family) runs 25
+   DDPM and 25 DDIM steps and 25 forward (noising) steps with replayed
+   noise, and loss_fn with its gradient norm, on both; they must agree,
+   with exactly 25 launches of K7 and of K1 per arm.
+5. Serving, configuration A (3D 32³ porous-media volume, bf16, flash
    attention) through ``SamplerService``, kernel launch counts reset
    before and read after.
-5. Serving, configuration B (MNIST 28x28, bf16) likewise. The counts of
-   phases 4 and 5 must be those of 18-step Heun samples.
-6. Training, configuration A (batch 4 of 32³, bf16 over f32 masters,
+6. Serving, configuration B (MNIST 28x28, bf16) likewise. The counts of
+   phases 5 and 6 must be those of 18-step Heun samples.
+7. Training, configuration A (batch 4 of 32³, bf16 over f32 masters,
    AdamW, power EMA every 4 steps) through ``make_train_step``: warm-up,
    then timed steps with the counts reset before and read after; the
    counts must be exactly those of one forward and one backward per step,
    the loss finite and lower after training on its fixed batch.
-7. Training, configuration B (batch 256 of 28x28) likewise.
-8. One JSON line lists every kernel with its launches over phases 4 to 7;
-   the card's name and power limit; then the result line.
+8. Training, configuration B (batch 256 of 28x28) likewise.
+9. Serving, configuration C (HFNet at the DDPM CIFAR-10 UNet's widths,
+   32x32x3, bf16) through ``SamplerService``: DDIM at 100 steps (buckets
+   1 and 16, with the same-seed check) and ancestral DDPM at 1000 steps
+   (bucket 16, one warm-up and one request); K7 must be launched once per
+   step of every bucket run, and no other kernel.
+10. One JSON line lists every kernel with its launches over phases 5 to
+    9; the card's name and power limit; then the result line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-``python3 chip_smoke.py --profile`` adds, after phase 7, one profiled
-request and one profiled train step per configuration (torch.profiler):
-wall time, device kernel time, the device's idle share and the kernels
-that take the most time.
+``python3 chip_smoke.py --profile`` adds, after phase 9, one profiled
+request per serving configuration (C by DDIM) and one profiled train step
+per training configuration (torch.profiler): wall time, device kernel
+time, the device's idle share and the kernels that take the most time.
 """
 
 from __future__ import annotations
@@ -63,6 +73,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 NSTEPS = 18
 NFE = 2 * NSTEPS - 1       # Heun with the EDM endpoint rule
+DDIM_STEPS = 100           # configuration C's two serving arms
+DDPM_STEPS = 1000          # the classical schedule's own T
 # the kernels a sample runs, and those a train step runs (its combine is
 # the plain expression, as in the JAX package)
 FORWARD = ("fused_axby", "norm_silu", "flash_attention")
@@ -167,6 +179,23 @@ def phase_kernels():
             record("fused_axby", list(shape), dtype, err, ok,
                    "1e-5" if dtype == torch.float32 else "2e-2+2e-2|ref|")
 
+    # K7 at config C's sampler state (buckets 1 and 16; 64 as well) and a
+    # ragged shape; f32 bit for bit, and each mixed dtype combination
+    dts = (torch.float32, torch.bfloat16)
+    for shape in ((16, 32, 32, 3), (64, 32, 32, 3), (3, 1001)):
+        a, b, c = (randn(shape[0], torch.float32, gen) for _ in range(3))
+        for dx, df, dg in ((dx, df, dg) for dx in dts for df in dts
+                           for dg in dts):
+            x = randn(shape, dx, gen, 40.0)
+            f, g = randn(shape, df, gen), randn(shape, dg, gen)
+            err, ok = within(fp.fused_lincomb3(x, f, g, a, b, c),
+                             fp.fused_lincomb3_plain(x, f, g, a, b, c), dx,
+                             0.0)
+            names = "/".join(str(t)[6:] for t in (dx, df, dg))
+            record("fused_lincomb3", f"{list(shape)} x/f/g {names}", dx,
+                   err, ok, "0 (bit for bit)" if dx == torch.float32 else
+                   "2e-2+2e-2|ref|")
+
     # config A serves and trains at batch 4; config B serves at bucket 64
     # and trains at batch 256
     norm_shapes = [(4, 32, 32, 32, 32), (4, 64, 16, 16, 16),
@@ -241,6 +270,18 @@ def phase_kernels():
         shape="x, f [64, 28, 28, 1] float32 (config B, bucket 64)",
         ms=cuda_ms(lambda: fp.fused_axby(x, f, a, b), 200),
         plain_ms=cuda_ms(lambda: fp.fused_axby_plain(x, f, a, b), 200),
+        library_ms=None, bound_ms=bms, bound_by=bby)
+
+    # K7 at config C's largest bucket: reads x, ε and the noise, writes x'
+    x, f, g = (randn((16, 32, 32, 3), torch.float32, gen) for _ in range(3))
+    a, b, c = (randn(16, torch.float32, gen) for _ in range(3))
+    n = x.numel()
+    bms, bby = bound(4 * 4 * n + 3 * 4 * 16, 5 * n, torch.float32)
+    records["fused_lincomb3"] = dict(
+        shape="x, ε, noise [16, 32, 32, 3] float32 (config C, bucket 16)",
+        ms=cuda_ms(lambda: fp.fused_lincomb3(x, f, g, a, b, c), 200),
+        plain_ms=cuda_ms(lambda: fp.fused_lincomb3_plain(x, f, g, a, b, c),
+                         200),
         library_ms=None, bound_ms=bms, bound_by=bby)
 
     shape = (4, 32, 32, 32, 32)
@@ -336,7 +377,7 @@ def phase_kernels():
 
 
 # ---------------------------------------------------------------------------
-# phase 2: card against CPU, end to end
+# phases 2 to 4: card against CPU, end to end
 # ---------------------------------------------------------------------------
 def small_3d_config():
     """Configuration A's shape at a cut width and depth: 3D 32³ input,
@@ -456,26 +497,118 @@ def phase_train_card_vs_cpu():
                              "kernels of a train step were not launched")
 
 
-# ---------------------------------------------------------------------------
-# phases 4 to 7: serving and training at full width
-# ---------------------------------------------------------------------------
-def serve(label, cfg, shape, buckets, requests, same_seed_n):
-    """Drive one configuration through SamplerService; returns the launch
-    counts, the number of bucket runs and the service."""
-    from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
-                                   SamplerService, kernels)
+def small_hfnet(device=None):
+    """Configuration C's family at a cut width and depth: an HFNet with
+    attention in its resampling blocks (8×8 = 64 tokens: plain attention)."""
+    from diffsci_tpu_torch import HFNetUncond
 
-    model = KarrasModel(PUNetG(cfg), KarrasModelConfig.from_edm(),
-                        compute_dtype=torch.bfloat16)
+    return HFNetUncond(block_channels=(32, 64), channels=3, norm_num_groups=8,
+                       attn_up_and_down=True, device=device)
+
+
+def agree_per_step(ours, ref):
+    """max |ours - ref| and whether every step t of the two histories
+    agrees within |Δ| <= 1e-3·|ref| + 1e-3·max(1, max|ref_t|): phase 2's
+    rtol 1e-3 + atol 1e-3, the atol taken relative to the step's scale,
+    since an untrained network's ε̂ does not match x and the DDPM/DDIM
+    loops amplify x by up to ~1e4 (f32 sums in another order then differ
+    by a fixed share of that scale)."""
+    diff = (ours - ref).abs()
+    ok = bool(torch.isfinite(ours).all())
+    for d, r in zip(diff, ref):
+        ok = ok and bool((d <= 1e-3 * r.abs()
+                          + 1e-3 * max(1.0, float(r.abs().max()))).all())
+    return float(diff.max()), ok
+
+
+def phase_ddpm_card_vs_cpu():
+    """The DDPM path on the CPU (plain versions) and on the card (kernels),
+    from the same weights, numpy x and replayed per-step noise, f32 with
+    TF32 off: 25 DDPM and 25 DDIM steps (the classical schedule rebuilt for
+    T = 25; at T ≤ 20 its last β is 1 and the loop divides by 0, as in the
+    JAX package), 25 forward (noising) steps, and loss_fn with its gradient
+    norm. K7 and K1 counts must be exact."""
+    from diffsci_tpu_torch import DDPMModel, DDPMModelConfig, kernels
+
+    nsteps, x_shape = 25, (2, 16, 16, 3)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32))
+    noise_seq = torch.from_numpy(rng.standard_normal(
+        (nsteps,) + x_shape).astype(np.float32))
+    t = torch.tensor([1.0, 400.0], dtype=torch.float32)
+    eps = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32))
+    weights = None
+    failures = []
+    for arm in ("from_ddpm", "from_ddim"):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = DDPMModel(small_hfnet(dev),
+                              getattr(DDPMModelConfig, arm)(), device=dev)
+            if weights is None:
+                weights = {k: v.clone() for k, v in model.init(seed=4).items()}
+            model.net.load_state_dict(weights, strict=True)
+            integ = model.config.integrator
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                back = integ.propagate_backward(
+                    x.to(dev), model.noise_predictor, nsteps=nsteps,
+                    record_history=True, noise_seq=noise_seq).cpu()
+                fwd = integ.propagate_forward(
+                    x.to(dev), nsteps=nsteps, record_history=True,
+                    noise_seq=noise_seq).cpu()
+            seconds = time.perf_counter() - t0
+            counts = dict(kernels.LAUNCHES)
+            loss = model.loss_fn(x.to(dev), t.to(dev), eps=eps.to(dev),
+                                 train=False)
+            loss.backward()
+            norm = float(torch.sqrt(sum((p.grad.float() ** 2).sum()
+                                        for p in model.net.parameters())))
+            runs[dev] = (back, fwd, float(loss.detach()), norm, seconds,
+                         counts)
+        (b_cpu, f_cpu, l_cpu, n_cpu, s_cpu, _), \
+            (b_card, f_card, l_card, n_card, s_card, counts) = \
+            runs["cpu"], runs["cuda"]
+        err_b, ok_b = agree_per_step(b_card, b_cpu)
+        err_f, ok_f = agree_per_step(f_card, f_cpu)
+        ok_l = np.allclose([l_card, n_card], [l_cpu, n_cpu], rtol=1e-3,
+                           atol=0) and np.isfinite([l_card, n_card]).all()
+        expected = dict.fromkeys(counts, 0)
+        expected.update(fused_lincomb3=nsteps, fused_axby=nsteps)
+        ok = ok_b and ok_f and ok_l and counts == expected
+        log(f"[ddpm card-vs-cpu] {arm} HFNet(32, 64) 16x16x3, {nsteps} "
+            f"steps: backward max|card - cpu| {err_b:.3e} (max|cpu| "
+            f"{float(b_cpu.abs().max()):.1f}), forward {err_f:.3e}; loss "
+            f"{l_card:.6f} / {l_cpu:.6f}, grad norm {n_card:.6f} / "
+            f"{n_cpu:.6f} (rtol 1e-3) {'ok' if ok else 'FAIL'}; cpu "
+            f"{s_cpu:.1f} s, card {s_card:.1f} s; launches {counts}")
+        if not ok:
+            failures.append(arm)
+    if failures:
+        raise AssertionError(f"DDPM card and CPU disagree, or the launch "
+                             f"counts are not K7 = K1 = {nsteps}: {failures}")
+
+
+# ---------------------------------------------------------------------------
+# phases 5 to 9: serving and training at full width
+# ---------------------------------------------------------------------------
+def serve(label, model, shape, buckets, requests, same_seed_n, nsteps):
+    """Drive one model (bf16 compute, random weights from seed 0) through
+    SamplerService: warm-up, the timed ``requests``, then (when
+    ``same_seed_n``) one request of ``same_seed_n`` twice from one seed.
+    Returns the launch counts, the number of bucket runs and the
+    service."""
+    from diffsci_tpu_torch import SamplerService, kernels
+
     model.init(seed=0)
     nparams = sum(p.numel() for p in model.net.parameters())
     kernels.reset_launches()
-    svc = SamplerService(model, shape, batch_buckets=buckets, nsteps=NSTEPS,
+    svc = SamplerService(model, shape, batch_buckets=buckets, nsteps=nsteps,
                          seed=0)
     warm = svc.warmup()
     runs = len(buckets)
-    log(f"[{label}] {nparams} parameters; warmup seconds per bucket "
-        f"{ {b: round(s, 3) for b, s in warm.items()} }")
+    log(f"[{label}] {nparams} parameters, {nsteps} steps; warmup seconds "
+        f"per bucket { {b: round(s, 3) for b, s in warm.items()} }")
     for n in requests:
         t0 = time.perf_counter()
         out = svc.sample(n)
@@ -487,16 +620,41 @@ def serve(label, cfg, shape, buckets, requests, same_seed_n):
                                  f"{out.shape} or non-finite values")
         log(f"[{label}] request {n}: {dt:.4f} s, {n / dt:.2f} samples/s, "
             f"{nchunks} chunk(s), std {out.std():.4f}")
-    first = svc.sample(same_seed_n, generator=1234)
-    second = svc.sample(same_seed_n, generator=1234)
-    runs += 2 * -(-same_seed_n // buckets[-1])
-    if not np.array_equal(first, second):
-        raise AssertionError(f"{label}: one seed gave two different sets of "
-                             "samples")
+    if same_seed_n:
+        seeded = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            seeded.append(svc.sample(same_seed_n, generator=1234))
+            dt = time.perf_counter() - t0
+            log(f"[{label}] seeded request {same_seed_n}: {dt:.4f} s, "
+                f"{same_seed_n / dt:.2f} samples/s")
+        runs += 2 * -(-same_seed_n // buckets[-1])
+        if not np.array_equal(*seeded):
+            raise AssertionError(f"{label}: one seed gave two different "
+                                 "sets of samples")
+        log(f"[{label}] same seed, same samples: ok")
     counts = dict(kernels.LAUNCHES)
-    log(f"[{label}] same seed, same samples: ok; stats {svc.stats}; "
-        f"throughput {svc.throughput():.2f} samples/s; launches {counts}")
+    log(f"[{label}] stats {svc.stats}; throughput {svc.throughput():.2f} "
+        f"samples/s; launches {counts}")
     return counts, runs, svc
+
+
+def karras(cfg):
+    from diffsci_tpu_torch import KarrasModel, KarrasModelConfig, PUNetG
+
+    return KarrasModel(PUNetG(cfg), KarrasModelConfig.from_edm(),
+                       compute_dtype=torch.bfloat16)
+
+
+def ddpm_c(arm):
+    """Configuration C: the DDPM CIFAR-10 UNet's widths in HFNet's attention
+    pattern, 32×32×3, bf16 over f32 masters."""
+    from diffsci_tpu_torch import DDPMModel, DDPMModelConfig, HFNetUncond
+
+    return DDPMModel(HFNetUncond(block_channels=(128, 256, 256, 256),
+                                 channels=3, attn_up_and_down=True),
+                     getattr(DDPMModelConfig, arm)(),
+                     compute_dtype=torch.bfloat16)
 
 
 def train(label, cfg, x_shape, steps, per_step, warmup=3):
@@ -616,16 +774,17 @@ def main() -> int:
     records = phase_kernels()
     phase_card_vs_cpu()
     phase_train_card_vs_cpu()
+    phase_ddpm_card_vs_cpu()
     torch.backends.cudnn.allow_tf32 = True     # PyTorch's default again
 
     cfg_a = PUNetGConfig(dimension=3, model_channels=32,
                          channel_expansion=[2], num_heads=2,
                          attn_backend="flash")
-    counts_a, runs_a, svc_a = serve("config A", cfg_a, (32, 32, 32, 1), (1, 4),
-                                (1, 3, 6), 3)
+    counts_a, runs_a, svc_a = serve("config A", karras(cfg_a), (32, 32, 32, 1),
+                                    (1, 4), (1, 3, 6), 3, NSTEPS)
     cfg_b = PUNetGConfig(model_channels=64, channel_expansion=[2, 4])
-    counts_b, runs_b, svc_b = serve("config B", cfg_b, (28, 28, 1), (1, 8, 64),
-                                (1, 64, 70), 8)
+    counts_b, runs_b, svc_b = serve("config B", karras(cfg_b), (28, 28, 1),
+                                    (1, 8, 64), (1, 64, 70), 8, NSTEPS)
 
     # every bucket run is one 18-step Heun sample: 35 network calls, each
     # one combine (K1), two norms per ResnetBlockC (K2: 10 blocks in A,
@@ -651,11 +810,32 @@ def main() -> int:
              flash_attention_dq=1, flash_attention_dkv=1))
     train_b, step_b = train("config B", cfg_b, (256, 28, 28, 1), 20,
                             dict(zero, norm_silu=28, norm_silu_bwd=28))
+
+    # configuration C: every bucket run is one DDPM/DDIM sample of nsteps
+    # steps, each one K7 launch; UNet2D's norms are plain GroupNorm + SiLU
+    # and its largest attention has 256 tokens (below the flash gate). A
+    # 1000-step bucket run takes ~26 s of host dispatch, so the DDPM arm
+    # is one warm-up and one request; the seed check is the DDIM arm's.
+    counts_ddim, runs_ddim, svc_ddim = serve(
+        "config C DDIM", ddpm_c("from_ddim"), (32, 32, 3), (1, 16),
+        (1, 16, 20), 16, DDIM_STEPS)
+    counts_ddpm, runs_ddpm, _ = serve(
+        "config C DDPM", ddpm_c("from_ddpm"), (32, 32, 3), (16,), (16,), 0,
+        DDPM_STEPS)
+    expected_ddim = dict(zero, fused_lincomb3=DDIM_STEPS * runs_ddim)
+    expected_ddpm = dict(zero, fused_lincomb3=DDPM_STEPS * runs_ddpm)
+    if counts_ddim != expected_ddim or counts_ddpm != expected_ddpm:
+        raise AssertionError(f"launch counts {counts_ddim} / {counts_ddpm}, "
+                             f"expected {expected_ddim} / {expected_ddpm}")
+    log(f"[counts] DDIM and DDPM serving went through K7 once per step and "
+        f"no other kernel: {counts_ddim}, {counts_ddpm}")
+
     if "--profile" in sys.argv[1:]:
         profile_call("config A", "request 4", lambda: svc_a.sample(4))
         profile_call("config B", "request 64", lambda: svc_b.sample(64))
         profile_call("train config A", "one train step, batch 4", step_a)
         profile_call("train config B", "one train step, batch 256", step_b)
+        profile_call("config C DDIM", "request 16", lambda: svc_ddim.sample(16))
 
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
@@ -671,6 +851,8 @@ def main() -> int:
         "flash_attention_dkv": (
             "diffsci_tpu_torch/csrc/flash_attention_bwd.cu",
             "diffsci_tpu/kernels/flash_attention.py:188"),
+        "fused_lincomb3": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
+                           "diffsci_tpu/kernels/fused_precondition.py:208"),
     }
     line = []
     for name, (source, replaces) in sources.items():
@@ -678,7 +860,8 @@ def main() -> int:
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(c[name] for c in (counts_a, counts_b, train_a,
-                                           train_b)),
+                                           train_b, counts_ddim,
+                                           counts_ddpm)),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

@@ -1,18 +1,23 @@
 """Convert JAX-package variables into the port's state dicts.
 
-``from_jax_variables`` takes the variables of a ``diffsci_tpu`` PUNetG (or
-of the KarrasNet around one) as nested dicts of numpy arrays
-(``{'params': ..., 'buffers': ...}``) and returns the state dict of the
-port's PUNetG (or KarrasNet), with the torch reference's names:
+``from_jax_variables`` takes the variables of a ``diffsci_tpu`` network as
+nested dicts of numpy arrays (``{'params': ..., 'buffers': ...}``), picks
+the network by its keys and returns the state dict of the port's
+counterpart:
 
-- conv kernels [*k, in, out] -> [out, in, *k]; Dense [in, out] -> [out, in];
-- per-head attention w_q / w_k / w_v [H, C, dh] -> the packed
-  ``in_proj_weight`` [3C, C], w_o -> ``out_proj.weight`` (the inverse of
-  the JAX package's reference-import converter);
-- ``buffers/time_projection/W`` -> ``time_projection.W``.
+- PUNetG, or the KarrasNet around one (scope ``model``), with the torch
+  reference's names: per-head attention w_q / w_k / w_v [H, C, dh] -> the
+  packed ``in_proj_weight`` [3C, C], w_o -> ``out_proj.weight`` (the
+  inverse of the JAX package's reference-import converter), and
+  ``buffers/time_projection/W`` -> ``time_projection.W``;
+- UNet2D, or an HFNet around one (scope ``unet``), with diffusers'
+  ``UNet2DModel`` names (the JAX package's ``diffusers_unet2d_name_map``
+  read backwards);
+- MLPUncond / MLPCond (``Dense_{i}`` -> ``net.{2i}``).
 
-The name map is the port's own copy of the JAX package's
-``extra/converters.py`` reference map, read backwards.
+Everywhere conv kernels [*k, in, out] -> [out, in, *k], Dense kernels
+[in, out] -> [out, in] and norm scales -> ``weight``. The name maps are the
+port's own copies of the JAX package's ``extra/converters.py`` maps.
 """
 
 from __future__ import annotations
@@ -89,10 +94,68 @@ def _punetg_key(path: tuple) -> str:
     raise KeyError(f"no port name for JAX parameter {'/'.join(path)}")
 
 
+_UNET_SCOPE = re.compile(r"^(down|up)_blocks_(\d+)$")
+_UNET_LAYER = re.compile(r"^(resnets|attentions)_(\d+)$")
+
+
+def _unet2d_key(path: tuple) -> str:
+    """JAX leaf path inside UNet2D (without the collection) -> diffusers
+    key."""
+    scope, leaf = path[0], _LEAF[path[-1]]
+    body = list(path[1:-1])
+    if body[-1:] == ["to_out"]:
+        body = body[:-1] + ["to_out", "0"]
+    if scope in ("time_linear_1", "time_linear_2"):
+        prefix = f"time_embedding.linear_{scope[-1]}"
+    elif scope in ("conv_in", "conv_out", "conv_norm_out"):
+        prefix = scope
+    elif scope.startswith("mid_resnet_"):
+        prefix = f"mid_block.resnets.{int(scope[-1]) - 1}"
+    elif scope == "mid_attn":
+        prefix = "mid_block.attentions.0"
+    elif _UNET_SCOPE.match(scope):
+        kind, i = _UNET_SCOPE.match(scope).groups()
+        prefix = f"{kind}_blocks.{i}"
+        if body[0] in ("downsample", "upsample"):
+            body = [f"{body[0]}rs", "0", "conv"]
+        elif _UNET_LAYER.match(body[0]):
+            body = list(_UNET_LAYER.match(body[0]).groups()) + body[1:]
+        else:
+            raise KeyError(f"no port name for JAX parameter {'/'.join(path)}")
+    else:
+        raise KeyError(f"no port name for JAX parameter {'/'.join(path)}")
+    return ".".join([prefix] + body + [leaf])
+
+
+def _unet2d_state(params: dict) -> dict[str, np.ndarray]:
+    return {_unet2d_key(path): _layout(w, path[-1])
+            for path, w in _flatten(params)}
+
+
+def _mlp_state(params: dict) -> dict[str, np.ndarray]:
+    out = {}
+    for path, w in _flatten(params):
+        i = int(path[0].split("_")[1])
+        out[f"net.{2 * i}.{_LEAF[path[-1]]}"] = _layout(w, path[-1])
+    return out
+
+
+def _tensors(state: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    return {prefix + k: torch.from_numpy(np.array(v, copy=True))
+            for k, v in state.items()}
+
+
 def from_jax_variables(variables_np: dict) -> dict[str, torch.Tensor]:
-    """State dict of the port's PUNetG (or KarrasNet, when the variables
-    hold a ``model`` scope) from JAX-package variables."""
+    """State dict of the port's network from JAX-package variables: PUNetG
+    (or KarrasNet, when the variables hold a ``model`` scope), UNet2D (or
+    HFNet, scope ``unet``) or an MLP, told apart by their keys."""
     params = variables_np.get("params", {})
+    if "unet" in params:
+        return _tensors(_unet2d_state(params["unet"]), "unet.")
+    if "conv_in" in params:
+        return _tensors(_unet2d_state(params))
+    if params and all(k.startswith("Dense_") for k in params):
+        return _tensors(_mlp_state(params))
     buffers = variables_np.get("buffers", {})
     wrapped = set(params) == {"model"}
     if wrapped:
@@ -113,6 +176,4 @@ def from_jax_variables(variables_np: dict) -> dict[str, torch.Tensor]:
         if path != ("time_projection", "W"):
             raise KeyError(f"no port name for JAX buffer {'/'.join(path)}")
         out["time_projection.W"] = w
-    prefix = "model." if wrapped else ""
-    return {prefix + k: torch.from_numpy(np.array(v, copy=True))
-            for k, v in out.items()}
+    return _tensors(out, "model." if wrapped else "")

@@ -1,28 +1,37 @@
-"""K1: fused per-batch linear combination, out = a[b]·x + b[b]·f.
+"""K1 and K7: fused per-batch linear combinations,
+out = a[b]·x + b[b]·f (K1) and out = a[b]·x + b[b]·f + c[b]·g (K7).
 
-Kernel note. Replaces ``diffsci_tpu/kernels/fused_precondition.py:
+Kernel note. K1 replaces ``diffsci_tpu/kernels/fused_precondition.py:
 _axby_kernel`` (through ``fused_axby``/``denoise_combine``), the Karras
-denoiser epilogue D = c_skip·x + c_out·F that every sampling step runs.
-Source: ``csrc/fused_precondition.cu`` (CUDA C++; Triton would do for a
-single elementwise pass, but one build route serves all the port's
-kernels).
+denoiser epilogue D = c_skip·x + c_out·F that every EDM sampling step runs.
+K7 replaces ``_lincomb3_kernel`` (through ``fused_lincomb3``), the update
+that every DDPM/DDIM step runs (``models/ddpm.py``): a·x + b·ε + c·noise
+with the step's coefficients folded to [B]. Source:
+``csrc/fused_precondition.cu`` (CUDA C++; Triton would do for a single
+elementwise pass, but one build route serves all the port's kernels).
 
-- What bounds it on the H100: bytes. It reads x and f and writes out once
-  (12 bytes per element in f32) and does 3 flops per element, far below
-  the card's ~295 flops/byte ridge. At the path's sizes (64·784 or
-  4·32768 elements, well under 1 MB) one launch is a few microseconds of
-  latency against a sub-microsecond byte bound.
+- What bounds them on the H100: bytes. K1 reads x and f and writes out
+  once (12 bytes per element in f32) and does 3 flops per element; K7
+  reads three tensors (16 bytes per element) for 5 flops. Both are far
+  below the card's ~295 flops/byte ridge. At the paths' sizes (64·784 or
+  4·32768 elements for K1, 64·3072 for K7, each under 4 MB) one launch is
+  a few microseconds of latency against a byte bound of about a
+  microsecond.
 - What the design does about it: one flat grid-stride pass over [B, N]
   with the per-batch coefficients read from [B] f32 device arrays, so
-  x and f are each read once. The TPU kernel's N % 128 tiling gate and its
-  XLA fallback have no counterpart: the pass takes any N. Products and the
-  sum are rounded separately (no FMA), so on f32 inputs the kernel equals
-  the plain version bit for bit.
-- Gradient: ``FusedAxby``, whose forward is the kernel and whose
-  backward is the plain expression of the JAX package's custom VJP
-  (``fused_precondition.py:159-168``): dx = a·g, df = b·g, and each
-  coefficient's gradient summed against x and f. The JAX package leaves
-  that backward to XLA, so here it is plain PyTorch.
+  every tensor is read once; K7 is K1's pass with a third term, on the
+  same loaders, storers and launch shape. Each of x, f and g may be f32 or
+  bf16 on its own, as the JAX kernels cast each one. The TPU kernels'
+  N % 128 tiling gate and their XLA fallback have no counterpart: the pass
+  takes any N. Products and sums are rounded separately (no FMA), in the
+  plain version's order, so on f32 inputs each kernel equals its plain
+  version bit for bit.
+- Gradient: ``FusedAxby`` and ``FusedLincomb3``, whose forward is the
+  kernel and whose backward is the plain expression of the JAX package's
+  custom VJP (``fused_precondition.py:159-168, 237-249``): each tensor's
+  gradient is its coefficient times the cotangent, and each coefficient's
+  gradient is the cotangent summed against its tensor. The JAX package
+  leaves that backward to XLA, so here it is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -35,10 +44,13 @@ from diffsci_tpu_torch import kernels
 from diffsci_tpu_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURES = {"axby_launch": (ctypes.c_int, [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p])}
+_SIGNATURES = {
+    "axby_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
+    "lincomb3_launch": (ctypes.c_int, [ctypes.c_void_p] * 7 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p])}
 
 
 def _coeff(c, batch: int, device) -> torch.Tensor:
@@ -47,48 +59,55 @@ def _coeff(c, batch: int, device) -> torch.Tensor:
     return c.expand(batch).contiguous()
 
 
-def fused_axby_plain(x, f, a, b):
-    """The plain PyTorch version: f32 math, output in x.dtype."""
+def _combine_plain(tensors, coeffs):
+    """sum_i coeffs[i][batch]·tensors[i], f32 math, summed left to right,
+    output in the first tensor's dtype."""
+    x = tensors[0]
     B = x.shape[0]
     shape = (B,) + (1,) * (x.ndim - 1)
-    a = _coeff(a, B, x.device).view(shape)
-    b = _coeff(b, B, x.device).view(shape)
-    return (a * x.float() + b * f.float()).to(x.dtype)
+    out = None
+    for t, c in zip(tensors, coeffs):
+        term = _coeff(c, B, x.device).view(shape) * t.float()
+        out = term if out is None else out + term
+    return out.to(x.dtype)
 
 
-def fused_axby_fwd(x, f, a, b):
-    """out = a[batch]·x + b[batch]·f, f32 math, output in x.dtype.
-
-    x, f: [B, ...] float32 or bfloat16 of one shape; a, b: scalar, [1] or
-    [B]. On CPU tensors this is the plain version; on CUDA tensors it
-    launches the kernel."""
-    if x.device.type == "cpu":
-        return fused_axby_plain(x, f, a, b)
-    if x.device.type != "cuda" or f.device != x.device:
-        raise ValueError(f"fused_axby: x on {x.device}, f on {f.device}; "
-                         "both must be on one CUDA device")
-    if x.shape != f.shape:
-        raise ValueError(f"fused_axby: shapes {tuple(x.shape)} and "
-                         f"{tuple(f.shape)} differ")
-    if x.dtype not in _DTYPES or f.dtype not in _DTYPES:
-        raise TypeError(f"fused_axby: dtypes {x.dtype}, {f.dtype}; "
+def _check(what, tensors):
+    """The kernels' contract: one CUDA device, one shape, float32 or
+    bfloat16 each, contiguous."""
+    x = tensors[0]
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+        raise ValueError(f"{what}: inputs on {[str(t.device) for t in tensors]}"
+                         "; all must be on one CUDA device")
+    if any(t.shape != x.shape for t in tensors):
+        raise ValueError(f"{what}: shapes {[tuple(t.shape) for t in tensors]}"
+                         " differ")
+    if any(t.dtype not in _DTYPES for t in tensors):
+        raise TypeError(f"{what}: dtypes {[t.dtype for t in tensors]}; "
                         "float32 or bfloat16 only")
-    if not (x.is_contiguous() and f.is_contiguous()):
-        raise ValueError("fused_axby: x and f must be contiguous")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: inputs must be contiguous")
+
+
+def _launch(what, fn, tensors, coeffs):
+    """Check the inputs, fold the coefficients to [B] f32 and launch
+    ``fn`` of the library, counting the launch under ``what``."""
+    _check(what, tensors)
+    x = tensors[0]
     B = x.shape[0]
-    a32 = _coeff(a, B, x.device)
-    b32 = _coeff(b, B, x.device)
+    folded = [_coeff(c, B, x.device) for c in coeffs]
     out = torch.empty_like(x)
     total = x.numel()
     if total == 0:
         return out
     lib = _build.load("fused_precondition", _SIGNATURES)
-    err = lib.axby_launch(
-        x.data_ptr(), f.data_ptr(), a32.data_ptr(), b32.data_ptr(),
-        out.data_ptr(), total // B, total, _DTYPES[x.dtype],
-        _DTYPES[f.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.LAUNCHES["fused_axby"] += 1
-    _build.check(lib, err, "fused_axby")
+    err = getattr(lib, fn)(
+        *(t.data_ptr() for t in tensors), *(c.data_ptr() for c in folded),
+        out.data_ptr(), total // B, total,
+        *(_DTYPES[t.dtype] for t in tensors),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.LAUNCHES[what] += 1
+    _build.check(lib, err, what)
     return out
 
 
@@ -102,6 +121,48 @@ def _coeff_grad(g32, val, coeff, batch: int):
     return d.reshape(coeff.shape).to(coeff.dtype)
 
 
+def _combine_backward(ctx, g):
+    """The JAX package's custom VJP of a per-batch combination, for the
+    tensors and coefficients saved as (t_1, ..., t_n, c_1, ..., c_n)."""
+    saved = ctx.saved_tensors
+    n = len(saved) // 2
+    tensors, coeffs = saved[:n], saved[n:]
+    x = tensors[0]
+    B = x.shape[0]
+    shape = (B,) + (1,) * (x.ndim - 1)
+    g32 = g.float()
+    need = ctx.needs_input_grad
+    dts = [(_coeff(c, B, x.device).view(shape) * g32).to(t.dtype)
+           if need[i] else None for i, (t, c) in enumerate(zip(tensors,
+                                                                coeffs))]
+    dcs = [_coeff_grad(g32, t, c, B) if need[n + i] else None
+           for i, (t, c) in enumerate(zip(tensors, coeffs))]
+    return (*dts, *dcs)
+
+
+def _as_tensor(c, device):
+    return c if torch.is_tensor(c) else torch.tensor(float(c), device=device)
+
+
+# ---------------------------------------------------------------------------
+# K1: a·x + b·f
+# ---------------------------------------------------------------------------
+def fused_axby_plain(x, f, a, b):
+    """The plain PyTorch version: f32 math, output in x.dtype."""
+    return _combine_plain((x, f), (a, b))
+
+
+def fused_axby_fwd(x, f, a, b):
+    """out = a[batch]·x + b[batch]·f, f32 math, output in x.dtype.
+
+    x, f: [B, ...] float32 or bfloat16 of one shape; a, b: scalar, [1] or
+    [B]. On CPU tensors this is the plain version; on CUDA tensors it
+    launches the kernel."""
+    if x.device.type == "cpu":
+        return fused_axby_plain(x, f, a, b)
+    return _launch("fused_axby", "axby_launch", (x, f), (a, b))
+
+
 class FusedAxby(torch.autograd.Function):
     """out = a·x + b·f with K1 as its forward (its plain version on CPU
     tensors) and the plain backward of the JAX package's custom VJP."""
@@ -111,20 +172,7 @@ class FusedAxby(torch.autograd.Function):
         ctx.save_for_backward(x, f, a, b)
         return fused_axby_fwd(x, f, a, b)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, f, a, b = ctx.saved_tensors
-        B = x.shape[0]
-        shape = (B,) + (1,) * (x.ndim - 1)
-        g32 = g.float()
-        need = ctx.needs_input_grad
-        dx = (_coeff(a, B, x.device).view(shape) * g32).to(x.dtype) \
-            if need[0] else None
-        df = (_coeff(b, B, x.device).view(shape) * g32).to(f.dtype) \
-            if need[1] else None
-        da = _coeff_grad(g32, x, a, B) if need[2] else None
-        db = _coeff_grad(g32, f, b, B) if need[3] else None
-        return dx, df, da, db
+    backward = staticmethod(_combine_backward)
 
 
 def fused_axby(x, f, a, b):
@@ -134,12 +182,53 @@ def fused_axby(x, f, a, b):
     without the Function's host time."""
     if not torch.is_grad_enabled():
         return fused_axby_fwd(x, f, a, b)
-    device = x.device
-    a = a if torch.is_tensor(a) else torch.tensor(float(a), device=device)
-    b = b if torch.is_tensor(b) else torch.tensor(float(b), device=device)
-    return FusedAxby.apply(x, f, a, b)
+    return FusedAxby.apply(x, f, _as_tensor(a, x.device),
+                           _as_tensor(b, x.device))
 
 
 def denoise_combine(x, f, c_skip, c_out):
     """D = c_skip·x + c_out·f (the Karras denoiser epilogue)."""
     return fused_axby(x, f, c_skip, c_out)
+
+
+# ---------------------------------------------------------------------------
+# K7: a·x + b·f + c·g
+# ---------------------------------------------------------------------------
+def fused_lincomb3_plain(x, f, g, a, b, c):
+    """The plain PyTorch version: (a·x + b·f) + c·g in f32, output in
+    x.dtype."""
+    return _combine_plain((x, f, g), (a, b, c))
+
+
+def fused_lincomb3_fwd(x, f, g, a, b, c):
+    """out = a[batch]·x + b[batch]·f + c[batch]·g, f32 math, output in
+    x.dtype: the DDPM/DDIM update a·x + b·ε + c·noise.
+
+    x, f, g: [B, ...] of one shape, each float32 or bfloat16; a, b, c:
+    scalar, [1] or [B]. On CPU tensors this is the plain version; on CUDA
+    tensors it launches the kernel."""
+    if x.device.type == "cpu":
+        return fused_lincomb3_plain(x, f, g, a, b, c)
+    return _launch("fused_lincomb3", "lincomb3_launch", (x, f, g), (a, b, c))
+
+
+class FusedLincomb3(torch.autograd.Function):
+    """out = a·x + b·f + c·g with K7 as its forward (its plain version on
+    CPU tensors) and the plain backward of the JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, x, f, g, a, b, c):
+        ctx.save_for_backward(x, f, g, a, b, c)
+        return fused_lincomb3_fwd(x, f, g, a, b, c)
+
+    backward = staticmethod(_combine_backward)
+
+
+def fused_lincomb3(x, f, g, a, b, c):
+    """``fused_lincomb3_fwd``, differentiable in all six arguments
+    (``FusedLincomb3``). Where autograd records nothing (sampling) the
+    forward is called directly, without the Function's host time."""
+    if not torch.is_grad_enabled():
+        return fused_lincomb3_fwd(x, f, g, a, b, c)
+    return FusedLincomb3.apply(x, f, g, *(_as_tensor(v, x.device)
+                                          for v in (a, b, c)))

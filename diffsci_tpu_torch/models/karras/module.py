@@ -17,12 +17,11 @@ axis at the network boundary (a reshape for C = 1).
 
 from __future__ import annotations
 
-import copy
-
 import torch
 import torch.nn as nn
 
 from diffsci_tpu_torch.kernels import fused_precondition
+from diffsci_tpu_torch.models.compute import ComputeDtypeMixin
 from diffsci_tpu_torch.models.nets.layers import init_parameters
 from diffsci_tpu_torch.ops import (losses, noise_samplers, preconditioners,
                                    schedulers)
@@ -79,7 +78,7 @@ def _needs_unsqueeze(y, x) -> bool:
                                         probe.shape[0] != x.shape[0])
 
 
-class KarrasModel:
+class KarrasModel(ComputeDtypeMixin):
     """The denoiser runtime around a score network
     ``net(x, t, y=None)`` on [B, C, *spatial]."""
 
@@ -102,8 +101,7 @@ class KarrasModel:
         self.fused_precondition = fused_precondition
         self.net = KarrasNet(model).to(self.device).eval()
         self._loss_metric = losses.make_loss_metric(config.loss_metric)
-        self._cast_net = None
-        self._cast_key = None
+        self._reset_cast()
 
     def to(self, device) -> "KarrasModel":
         self.device = resolve_device(device)
@@ -121,50 +119,6 @@ class KarrasModel:
         return x
 
     # ------------------------------------------------------------------
-    def _cast_copy(self) -> nn.Module:
-        """A copy of the network with parameters and buffers in
-        ``compute_dtype``, for calls that ask no gradient (sampling). It is
-        rebuilt whenever a master tensor changes (its storage or its
-        in-place version counter, which every optimizer step moves), so a
-        load_state_dict, an init or training is always seen."""
-        tensors = list(self.net.parameters()) + list(self.net.buffers())
-        key = tuple((t.data_ptr(), t._version, t.device) for t in tensors)
-        if key != self._cast_key:
-            # built outside inference mode so that the copy holds ordinary
-            # tensors whichever context first asks for it
-            with torch.inference_mode(False), torch.no_grad():
-                self._cast_net = copy.deepcopy(self.net).to(
-                    self.compute_dtype).requires_grad_(False)
-            self._cast_key = key
-        return self._cast_net
-
-    def _network(self, train: bool, variables=None):
-        """The callable ``net(x, cnoise, y)`` that get_denoiser runs, in
-        training mode when ``train`` (dropout on) and eval mode otherwise.
-
-        With ``compute_dtype``, the parameters go through ``.to(cd)``
-        inside the autograd graph (``functional_call`` over cast tensors)
-        whenever gradients are on, so gradients land on the f32 masters,
-        as autodiff through the JAX package's cast does; calls without
-        gradients use the cached cast copy. ``variables`` (tensors by
-        state-dict name) stand in for the module's own."""
-        cd = self.compute_dtype
-        if variables is None and (cd is None or not torch.is_grad_enabled()):
-            net = self.net if cd is None else self._cast_copy()
-            if net.training != train:
-                net.train(train)
-            return net
-        if self.net.training != train:
-            self.net.train(train)
-        tensors = dict(self.net.named_parameters())
-        tensors.update(self.net.named_buffers())
-        tensors.update(variables or {})
-        if cd is not None:
-            tensors = {k: v.to(cd) if v.is_floating_point() else v
-                       for k, v in tensors.items()}
-        return lambda *args: torch.func.functional_call(self.net, tensors,
-                                                        args)
-
     def get_denoiser(self, x, sigma, y=None, guidance: float = 1.0,
                      train: bool = False, variables=None):
         """D(x; sigma) = c_skip x + c_out F(c_in x, c_noise, y), with

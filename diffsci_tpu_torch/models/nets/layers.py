@@ -31,8 +31,9 @@ def init_parameters(module: nn.Module, seed: int) -> None:
     """Re-draw every parameter and random buffer of ``module`` from
     ``seed``. The draws are made on the CPU and copied, so one seed gives
     the same weights on every device. Convolutions and dense layers take
-    uniform(±1/√fan_in) (PyTorch's default bound); the port's own layers
-    their ``reset_parameters(generator)``."""
+    uniform(±1/√fan_in) (PyTorch's default bound), torch's GroupNorm and
+    LayerNorm ones and zeros (the JAX package's norm init); the port's own
+    layers their ``reset_parameters(generator)``."""
     generator = torch.Generator().manual_seed(seed)
     for m in module.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
@@ -41,6 +42,12 @@ def init_parameters(module: nn.Module, seed: int) -> None:
                 if p is not None:
                     p.copy_((torch.rand(p.shape, generator=generator) * 2
                              - 1) * bound)
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+            # their reset_parameters() takes no generator
+            if m.weight is not None:
+                nn.init.ones_(m.weight)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif hasattr(m, "reset_parameters"):
             m.reset_parameters(generator)
         elif any(True for _ in m.parameters(recurse=False)):

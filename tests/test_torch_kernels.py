@@ -60,6 +60,82 @@ def test_fused_axby_plain_matches_jax(hw, coeff):
 
 
 # ---------------------------------------------------------------------------
+# K7: fused_lincomb3
+# ---------------------------------------------------------------------------
+def _lincomb3_coeffs(coeff, B, rng):
+    return {"scalar": (np.float32(0.7), np.float32(-1.3), np.float32(0.2)),
+            "one": tuple(np.array([v], np.float32) for v in (0.7, -1.3, 0.2)),
+            "batch": tuple(rng.standard_normal(B).astype(np.float32)
+                           for _ in range(3))}[coeff]
+
+
+@pytest.mark.parametrize("shape", [(3, 8, 16), (4, 3), (2, 16, 16, 3)])
+@pytest.mark.parametrize("coeff", ["scalar", "one", "batch"])
+def test_fused_lincomb3_plain_matches_jax(shape, coeff):
+    """K7's plain version against the JAX function, its Pallas kernel in
+    interpret mode where N tiles by 128 ((3, 8, 16)) and its XLA arm
+    elsewhere; rtol 1e-6, atol 1e-6 (tests/test_kernels.py's bound)."""
+    rng = np.random.default_rng(len(shape))
+    x, f, g = (rng.standard_normal(shape).astype(np.float32)
+               for _ in range(3))
+    a, b, c = _lincomb3_coeffs(coeff, shape[0], rng)
+    ref = np.asarray(jfp.fused_lincomb3(*(jnp.asarray(v) for v in
+                                          (x, f, g, a, b, c)), True))
+    out = fp.fused_lincomb3(*(torch.as_tensor(v) for v in (x, f, g, a, b, c)))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("coeff", ["scalar", "one", "batch"])
+def test_fused_lincomb3_grads_match_jax(coeff):
+    """FusedLincomb3's backward (the plain expression of the JAX package's
+    custom VJP) in all six arguments, through tanh as the JAX package's
+    test takes it, f32: rtol 1e-5, atol 1e-6 (tests/test_kernels.py)."""
+    rng = np.random.default_rng(6)
+    shape = (3, 8, 16)
+    x, f, g = (rng.standard_normal(shape).astype(np.float32)
+               for _ in range(3))
+    args = (x, f, g) + _lincomb3_coeffs(coeff, 3, rng)
+
+    def jloss(*a):
+        return jnp.sum(jnp.tanh(jfp.fused_lincomb3(*a, True)))
+    ref = [np.asarray(r) for r in jax.grad(jloss, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in args))]
+    leaves = [torch.from_numpy(np.asarray(a)).requires_grad_() for a in args]
+    torch.tanh(fp.fused_lincomb3(*leaves)).sum().backward()
+    for r, t, name in zip(ref, leaves, "xfgabc"):
+        assert t.grad.shape == r.shape, name
+        np.testing.assert_allclose(t.grad.numpy(), r, rtol=1e-5, atol=1e-6,
+                                   err_msg=f"d{name}")
+
+
+def test_fused_lincomb3_wrapper_graph_and_mixed_dtypes():
+    """In the graph it is FusedLincomb3; where autograd records nothing the
+    forward's own output, bit for bit. Each of x, f and g may be bf16 on
+    its own; the output takes x's dtype, the math stays f32."""
+    gen = torch.Generator().manual_seed(0)
+    x, f, g = (torch.randn(2, 5, 3, generator=gen) for _ in range(3))
+    c = torch.tensor([0.5, 2.0], requires_grad=True)
+    z = fp.fused_lincomb3(x, f, g, c, -1.0, 0.25)
+    assert type(z.grad_fn).__name__ == "FusedLincomb3Backward"
+    z.sum().backward()
+    torch.testing.assert_close(c.grad, x.sum((1, 2)), rtol=1e-6, atol=1e-6)
+    with torch.inference_mode():
+        z = fp.fused_lincomb3(x, f, g, c, -1.0, 0.25)
+        assert z.grad_fn is None
+        torch.testing.assert_close(
+            z, fp.fused_lincomb3_fwd(x, f, g, c, -1.0, 0.25), rtol=0, atol=0)
+        for dx, df, dg in ((torch.float32, torch.bfloat16, torch.float32),
+                           (torch.bfloat16, torch.float32, torch.bfloat16)):
+            xs, fs, gs = x.to(dx), f.to(df), g.to(dg)
+            out = fp.fused_lincomb3(xs, fs, gs, c, -1.0, 0.25)
+            ref = (c.view(2, 1, 1) * xs.float() - fs.float()
+                   + 0.25 * gs.float()).to(dx)
+            assert out.dtype == dx
+            torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
 # K2: norm_silu
 # ---------------------------------------------------------------------------
 _NORM_SHAPES = [(2, 7, 7, 16), (2, 4, 4, 4, 8), (3, 13, 8)]
@@ -353,6 +429,10 @@ def test_kernel_matches_plain_on_card(dtype):
     a = torch.rand(5, generator=gen, device="cuda")
     torch.testing.assert_close(fp.fused_axby(x, f, a, 2.0),
                                fp.fused_axby_plain(x, f, a, 2.0), **tol)
+    g = randn(5, 28, 28, 1)
+    torch.testing.assert_close(fp.fused_lincomb3(x, f, g, a, 2.0, -a),
+                               fp.fused_lincomb3_plain(x, f, g, a, 2.0, -a),
+                               **tol)
     x = randn(2, 8, 9, 10, 11)
     w, b = randn(8), randn(8)
     for kind in ("ln", "rms"):
@@ -367,7 +447,8 @@ def test_kernel_matches_plain_on_card(dtype):
     assert kernels.LAUNCHES == {"fused_axby": 1, "norm_silu": 2,
                                 "norm_silu_bwd": 0, "flash_attention": 1,
                                 "flash_attention_dq": 0,
-                                "flash_attention_dkv": 0}
+                                "flash_attention_dkv": 0,
+                                "fused_lincomb3": 1}
 
 
 @pytest.mark.cuda
@@ -407,3 +488,35 @@ def test_backward_kernels_match_plain_on_card(dtype):
                                                            do)):
             torch.testing.assert_close(o_.float(), r.float(), **tol)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 32, 32, 3), (3, 1001)])
+def test_fused_lincomb3_matches_plain_on_card(shape):
+    """K7 in every dtype combination of x, f and g, at configuration C's
+    sampler shape and a ragged one: bit for bit in f32 (both round
+    (a·x + b·f) + c·g term by term), |Δ| <= 2e-2 + 2e-2·|ref| with bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernels are CUDA only")
+    from diffsci_tpu_torch import kernels
+    gen = torch.Generator("cuda").manual_seed(2)
+    dts = (torch.float32, torch.bfloat16)
+    a, b, c = (torch.randn(shape[0], generator=gen, device="cuda")
+               for _ in range(3))
+    kernels.reset_launches()
+    for dx in dts:
+        for df in dts:
+            for dg in dts:
+                x, f, g = (torch.randn(shape, generator=gen,
+                                       device="cuda").to(dt)
+                           for dt in (dx, df, dg))
+                out = fp.fused_lincomb3(x, f, g, a, b, c)
+                ref = fp.fused_lincomb3_plain(x, f, g, a, b, c)
+                assert out.dtype == dx
+                if dx == df == dg == torch.float32:
+                    assert torch.equal(out, ref)
+                else:
+                    torch.testing.assert_close(out.float(), ref.float(),
+                                               rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_lincomb3"] == 8
