@@ -11,10 +11,15 @@ Phases (any failure raises, so the exit code is non-zero):
    per source, in parallel), check each against its plain PyTorch version
    on the card at the main paths' shapes in float32 and bfloat16 (the
    backward kernels K3, K5 and K6 on the forward kernels' own saved
-   statistics; K7 in every dtype combination of its three inputs, bit for
-   bit in float32), and time the kernel, its plain version, the least time
-   the card could take (``bound_ms``) and, where one PyTorch call computes
-   the same function, that call (``library_ms``).
+   statistics, the flash kernels over a sweep of T and head dims; K7 in
+   every dtype combination of its three inputs, bit for bit in float32),
+   check that the bf16 K4 and K6 hold tensor-core instructions
+   (``cuobjdump -sass``) and that bf16 K6 gives one result twice, and time
+   the kernel, its plain version, the least time the card could take
+   (``bound_ms``) and, where one PyTorch call computes the same function,
+   that call (``library_ms``; for K4-K6 the median of 5 timed loops, SDPA
+   pinned to its flash backend, with the SFU floor of their exponentials
+   printed beside the bound).
 2. Card vs CPU, sampling: a small configuration-A-shaped net (3D 32³,
    flash attention over 4096 tokens) samples a few Heun steps from the
    same weights and the same numpy noise on the CPU (plain versions) and
@@ -57,6 +62,8 @@ time, the device's idle share and the kernels that take the most time.
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -64,12 +71,18 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a
 # kernel is the larger of its bytes over the memory rate and its
 # operations over the peak rate for their type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+# (B, H, T, d) of phase 1's flash checks; the first is config A's
+FLASH_SWEEP = ((4, 2, 4096, 32), (1, 2, 4096, 8), (2, 4, 4096, 16),
+               (1, 2, 4097, 32), (1, 1, 2049, 64), (1, 1, 2111, 128),
+               (2, 1, 2048, 40), (1, 2, 2048, 20))
 
 NSTEPS = 18
 NFE = 2 * NSTEPS - 1       # Heun with the EDM endpoint rule
@@ -102,6 +115,54 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_spread(fn, iters: int, repeats: int = 5):
+    """Median, min and max of ``repeats`` runs of ``cuda_ms``."""
+    runs = sorted(cuda_ms(fn, iters) for _ in range(repeats))
+    return runs[len(runs) // 2], runs[0], runs[-1]
+
+
+def smi(query: str) -> str:
+    """One ``nvidia-smi --query-gpu`` field of card 0."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def sfu_floor_ms(n_exp: float) -> float:
+    """Least time of ``n_exp`` exponentials on the special-function units:
+    16 results per clock per SM (CUDA C Programming Guide, throughput
+    table, compute capability 9.0) at the card's maximum SM clock. Printed
+    beside ``bound_ms``, not folded into it."""
+    mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_exp / (16 * sms * mhz * 1e6) * 1e3
+
+
+def tensor_core_counts() -> dict[str, list[int]]:
+    """HMMA/HGMMA instructions in each instantiation of each kernel of the
+    flash libraries, from ``cuobjdump -sass`` (the toolkit beside nvcc) of
+    the built libraries: {kernel name: [count per instantiation]}."""
+    from diffsci_tpu_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    counts: dict[str, list[int]] = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        n = None
+        for line in sass.splitlines():
+            found = re.search(r"Function : \S*?(flash_[a-z_]+?_kernel)I",
+                              line)
+            if found:
+                n = counts.setdefault(found.group(1), [])
+                n.append(0)
+            elif n is not None and re.search(r"\bHG?MMA\b", line):
+                n[-1] += 1
+    return counts
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -121,6 +182,25 @@ def within(out, ref, dtype, f32_limit):
     if dtype == torch.float32:
         return err, err <= f32_limit
     return err, bool((diff <= 2e-2 + 2e-2 * ref.float().abs()).all())
+
+
+# K4's tolerance on O. With N(0, 1) scores a typical |O| is sqrt(e/T), a few
+# 1e-2 at T = 4096, so an absolute 2e-2 would pass wrong outputs; in bf16
+# each entry gets one bf16 step of itself (2^-7·|ref|: both sides round
+# their f32 result once) plus 2e-3 of the largest entry.
+ATTN_LIMIT = "1e-4 (f32), 2^-7|ref| + 2e-3 max|ref| (bf16)"
+
+
+def within_attention(out, ref, dtype):
+    """K4's O against its plain version: max |out - ref|, the largest
+    |out - ref| / ATTN_LIMIT (inside the limit at <= 1) and
+    max |out - ref| / max |ref|."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    err, top = float(diff.max()), float(ref.abs().max())
+    limit = (1e-4 if dtype == torch.float32
+             else 2 ** -7 * ref.abs() + 2e-3 * top)
+    return err, float((diff / limit).max()), err / top
 
 
 # the backward kernels' tolerance, relative to the largest entry of the
@@ -229,17 +309,20 @@ def phase_kernels():
                        f"max|Δ|/max|ref| {ratio:.1e})", dtype, err, ok,
                        GRAD_LIMIT)
 
-    for shape in ((4, 2, 4096, 32), (2, 4, 4096, 16), (1, 2, 4097, 32)):
+    # K4, and K5/K6 on its own O and lse: config A, the phase 2/3 net's head
+    # dim 8, ragged T, every head-dim template, and head dims that are no
+    # template's (20: rows not 16-byte aligned, the element-load path)
+    for shape in FLASH_SWEEP:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (randn(shape, dtype, gen) for _ in range(3))
             o, lse = fa.flash_attention_fwd(q, k, v)
             ro, rlse = fa.flash_attention_plain(q, k, v)
-            err, ok = within(o, ro, dtype, 1e-4)
+            err, share, ratio = within_attention(o, ro, dtype)
             lerr = float((lse - rlse).abs().max())
-            ok = ok and lerr <= 1e-3
-            record("flash_attention", f"{list(shape)} (lse {lerr:.1e})",
-                   dtype, err, ok,
-                   "1e-4" if dtype == torch.float32 else "2e-2+2e-2|ref|")
+            record("flash_attention", f"{list(shape)} (max|Δ|/max|ref| "
+                   f"{ratio:.1e}, largest |Δ|/limit {share:.2f}; lse "
+                   f"{lerr:.1e}, limit 1e-3)", dtype, err,
+                   share <= 1 and lerr <= 1e-3, ATTN_LIMIT)
             # K5 and K6 on the forward's own O and lse
             do = randn(shape, dtype, gen)
             delta = (do.float() * o.float()).sum(-1)
@@ -249,12 +332,29 @@ def phase_kernels():
             record("flash_attention_dq", f"{list(shape)} (dQ; "
                    f"max|Δ|/max|ref| {ratio:.1e})", dtype, err, ok,
                    GRAD_LIMIT)
+            dkv = fa.flash_attention_dkv(q, k, v, do, lse, delta)
             err, ok, ratio = within_grad(
-                fa.flash_attention_dkv(q, k, v, do, lse, delta),
-                fa.flash_attention_dkv_plain(q, k, v, do, lse, delta), dtype)
+                dkv, fa.flash_attention_dkv_plain(q, k, v, do, lse, delta),
+                dtype)
+            if dtype == torch.bfloat16 and shape == FLASH_SWEEP[0]:
+                # one writer per output tile, no atomics: bit for bit again
+                again = fa.flash_attention_dkv(q, k, v, do, lse, delta)
+                same = all(torch.equal(a, b) for a, b in zip(dkv, again))
+                log(f"[kernels] flash_attention_dkv {list(shape)} bfloat16 "
+                    f"twice: {'bit-identical' if same else 'DIFFERENT'}")
+                ok = ok and same
             record("flash_attention_dkv", f"{list(shape)} (dK, dV; "
                    f"max|Δ|/max|ref| {ratio:.1e})", dtype, err, ok,
                    GRAD_LIMIT)
+
+    # the bf16 K4 and K6 run on the tensor cores
+    counts = tensor_core_counts()
+    for kernel, per_instance in sorted(counts.items()):
+        log(f"[kernels] sass {kernel}: HMMA/HGMMA per instantiation "
+            f"{sorted(per_instance)}")
+    for kernel in ("flash_fwd_mma_kernel", "flash_dkv_mma_kernel"):
+        if min(counts.get(kernel, [0])) == 0:
+            failures.append(f"{kernel}: no tensor-core instructions")
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
 
@@ -301,15 +401,28 @@ def phase_kernels():
     shape = (4, 2, 4096, 32)
     q, k, v = (randn(shape, torch.bfloat16, gen) for _ in range(3))
     BH, T, d = 8, 4096, 32
-    bms, bby = bound(4 * 2 * BH * T * d + 4 * BH * T, 4 * BH * T * T * d,
-                     torch.bfloat16)
-    records["flash_attention"] = dict(
-        shape="q, k, v [4, 2, 4096, 32] bf16 (config A, bucket 4)",
-        ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), 20),
-        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 20),
-        library_ms=cuda_ms(
+    sfu = sfu_floor_ms(BH * T * T)    # K4, K5 and K6 alike
+
+    def flash_record(label, kernel, plain, library, nbytes, flops):
+        """Medians of 5 timed loops, with their ranges, for K4-K6 and their
+        yardstick, which is pinned to SDPA's flash backend so that it
+        cannot change between runs."""
+        ms = cuda_ms_spread(kernel, 20)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            lib = library()
+        bms, bby = bound(nbytes, flops, torch.bfloat16)
+        return dict(shape=label, ms=ms[0], ms_range=ms[1:],
+                    plain_ms=cuda_ms(plain, 20), library_ms=lib[0],
+                    library_range=lib[1:], bound_ms=bms, bound_by=bby,
+                    sfu_ms=sfu)
+
+    records["flash_attention"] = flash_record(
+        "q, k, v [4, 2, 4096, 32] bf16 (config A, bucket 4)",
+        lambda: fa.flash_attention_fwd(q, k, v),
+        lambda: fa.flash_attention_plain(q, k, v),
+        lambda: cuda_ms_spread(
             lambda: F.scaled_dot_product_attention(q, k, v), 20),
-        bound_ms=bms, bound_by=bby)
+        4 * 2 * BH * T * d + 4 * BH * T, 4 * BH * T * T * d)
 
     # K3 at config A's largest norm: reads g, x, the [B, C] statistics, w
     # and b, writes dx, dw and db; ~20 flops per element
@@ -344,35 +457,33 @@ def phase_kernels():
                   for i, t in enumerate((q, k, v))]
         out = F.scaled_dot_product_attention(*leaves)
         inputs = [leaves[i] for i in wrt]
-        return cuda_ms(lambda: torch.autograd.grad(out, inputs, do,
-                                                   retain_graph=True), 20)
+        return cuda_ms_spread(lambda: torch.autograd.grad(
+            out, inputs, do, retain_graph=True), 20)
 
-    bms, bby = bound(reads + 2 * BH * T * d, 6 * BH * T * T * d,
-                     torch.bfloat16)
-    records["flash_attention_dq"] = dict(
-        shape="q, k, v, dO [4, 2, 4096, 32] bf16 (config A, train batch 4)",
-        ms=cuda_ms(lambda: fa.flash_attention_dq(q, k, v, do, lse, delta),
-                   20),
-        plain_ms=cuda_ms(
-            lambda: fa.flash_attention_dq_plain(q, k, v, do, lse, delta), 20),
-        library_ms=sdpa_bwd_ms((0,)), bound_ms=bms, bound_by=bby)
-    bms, bby = bound(reads + 2 * 2 * BH * T * d, 8 * BH * T * T * d,
-                     torch.bfloat16)
-    records["flash_attention_dkv"] = dict(
-        shape="q, k, v, dO [4, 2, 4096, 32] bf16 (config A, train batch 4)",
-        ms=cuda_ms(lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta),
-                   20),
-        plain_ms=cuda_ms(
-            lambda: fa.flash_attention_dkv_plain(q, k, v, do, lse, delta),
-            20),
-        library_ms=sdpa_bwd_ms((1, 2)), bound_ms=bms, bound_by=bby)
+    label = "q, k, v, dO [4, 2, 4096, 32] bf16 (config A, train batch 4)"
+    records["flash_attention_dq"] = flash_record(
+        label, lambda: fa.flash_attention_dq(q, k, v, do, lse, delta),
+        lambda: fa.flash_attention_dq_plain(q, k, v, do, lse, delta),
+        lambda: sdpa_bwd_ms((0,)), reads + 2 * BH * T * d,
+        6 * BH * T * T * d)
+    records["flash_attention_dkv"] = flash_record(
+        label, lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta),
+        lambda: fa.flash_attention_dkv_plain(q, k, v, do, lse, delta),
+        lambda: sdpa_bwd_ms((1, 2)), reads + 2 * 2 * BH * T * d,
+        8 * BH * T * T * d)
     for name, rec in records.items():
         rec["max_abs_err"] = errs[name]
-        lib = ("" if rec["library_ms"] is None
-               else f", library {rec['library_ms']:.4f} ms")
-        log(f"[kernels] time {name} at {rec['shape']}: {rec['ms']:.4f} ms, "
-            f"plain {rec['plain_ms']:.4f} ms{lib}, bound "
-            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        spread = " (median of 5, {:.4f}-{:.4f})"
+        ms = f"{rec['ms']:.4f} ms" + (spread.format(*rec["ms_range"])
+                                      if "ms_range" in rec else "")
+        lib = ("" if rec["library_ms"] is None else
+               f", library {rec['library_ms']:.4f} ms"
+               + spread.format(*rec["library_range"]))
+        sfu = (f", SFU floor {rec['sfu_ms']:.4f} ms" if "sfu_ms" in rec
+               else "")
+        log(f"[kernels] time {name} at {rec['shape']}: {ms}, plain "
+            f"{rec['plain_ms']:.4f} ms{lib}, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}){sfu}")
     return records
 
 
@@ -867,11 +978,7 @@ def main() -> int:
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

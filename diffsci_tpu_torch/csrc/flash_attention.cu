@@ -4,16 +4,40 @@
 // Replaces diffsci_tpu/kernels/flash_attention.py:_fwd_kernel. See
 // diffsci_tpu_torch/kernels/flash_attention.py for the design note.
 //
-// One block per (bh, tile of kBQ query rows); it loops over tiles of kBK
-// keys staged in shared memory and keeps the online-softmax state (running
-// max, running sum, output accumulator) in f32 registers. Four threads share
-// a query row: each scores a quarter of the tile's keys and owns a quarter
-// of the output columns. Ragged T is masked in the kernel, on query rows
-// (never stored) and on keys (score -inf); head dims below the template's D
-// are zero-padded in shared memory only.
+// Bound by operations: 4 T^2 d flops and T^2 exponentials per head against
+// O(T d) bytes. At d = 32 the exponentials, not the matrix rate, set the
+// floor: the special-function unit gives 16 exp2 per clock per SM, which
+// at config A's shape (BH 8, T 4096) is above the tensor cores' time.
 //
-// Tile constants, conversions and dispatch: flash_common.cuh, shared with
-// K5/K6. Plain C interface, built with nvcc and loaded with ctypes.
+// bfloat16 (flash_fwd_mma_kernel): tensor cores. One block of kMmaWarps
+// warps per (bh, tile of kMmaRows query rows); each warp owns 16 query
+// rows, keeps their Q fragments in registers for the whole loop and loops
+// over tiles of kMmaKeys keys. K/V tiles stream through a double-buffered
+// cp.async ring in bf16 shared memory (flash_mma.cuh), so the next tile
+// loads while this one computes. S = Q K^T on mma.sync with f32
+// accumulators; the online softmax (running max and sum, f32) works on the
+// C fragments, with row reductions by quad shuffles and exponentials on
+// the SFU alone (fast_exp2); P is rounded to bf16 in registers and is the
+// A operand of P V, as the Pallas kernel feeds the MXU p.astype(v.dtype)
+// (flash_attention.py:106). The sum l is taken over the f32 P, as there. O (bf16) and lse are written once. Rows that are
+// not 16-byte aligned (head_dim % 8 != 0) are staged by element loads in
+// the same kernel (template flag kAsync). wgmma/TMA and warp
+// specialisation are later work: at d = 32 they would speed up the part
+// that is not the floor.
+//
+// float32 (flash_fwd_kernel): the FP32 pipes, unchanged, so the f32 path
+// keeps full f32 products (TF32 or bf16 tensor cores would not hold the
+// 1e-4 checks against the plain version). One block per (bh, tile of kBQ
+// query rows) loops over tiles of kBK keys staged in shared memory and
+// keeps the online-softmax state in f32 registers; four threads share a
+// query row, each scoring a quarter of the tile's keys and owning a
+// quarter of the output columns.
+//
+// Both mask ragged T in the kernel, on query rows (never stored) and on
+// keys (score -inf); head dims below the template's D are zero-padded in
+// shared memory only. Tile constants, conversions and dispatch:
+// flash_common.cuh (shared with K5/K6), tensor-core pieces: flash_mma.cuh.
+// Plain C interface, built with nvcc and loaded with ctypes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -21,6 +45,7 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -33,10 +58,10 @@ constexpr int smem_floats() {
 
 // Logits are taken in the log2 domain: Q is pre-scaled by
 // log2(e) / sqrt(d), so p = exp2(s - m) and lse = (m + log2 l) * ln 2.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int seq_len, int head_dim,
                      float scale_log2) {
   constexpr int LD = D + 4;
@@ -58,7 +83,7 @@ __global__ void __launch_bounds__(kThreads)
     const int rr = i / D, cc = i % D, qi = q0 + rr;
     float val = 0.f;
     if (qi < seq_len && cc < head_dim)
-      val = to_f32(q[base + (size_t)qi * head_dim + cc]) * scale_log2;
+      val = q[base + (size_t)qi * head_dim + cc] * scale_log2;
     Qs[rr * LD + cc] = val;
   }
 
@@ -74,8 +99,8 @@ __global__ void __launch_bounds__(kThreads)
       float kv = 0.f, vv = 0.f;
       if (kj < seq_len && cc < head_dim) {
         const size_t off = base + (size_t)kj * head_dim + cc;
-        kv = to_f32(k[off]);
-        vv = to_f32(v[off]);
+        kv = k[off];
+        vv = v[off];
       }
       Ks[rr * LD + cc] = kv;
       Vs[rr * LD + cc] = vv;
@@ -153,7 +178,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 4 * (t + kTPR * ch) + e;
-        if (c < head_dim) o[row + c] = from_f32<T>(acc[4 * ch + e] * inv_l);
+        if (c < head_dim) o[row + c] = acc[4 * ch + e] * inv_l;
       }
     }
     if (t == 0)
@@ -162,35 +187,223 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int seq_len, int head_dim,
-                   float scale_log2, cudaStream_t stream) {
+#ifndef FLASH_FWD_KEYS
+#define FLASH_FWD_KEYS 64
+#endif
+constexpr int kMmaKeys = FLASH_FWD_KEYS;  // keys per tile of the bf16 kernel
+
+// Scores stay unscaled in the C fragments; p = exp2(s * scale_log2 - m *
+// scale_log2) with the running max m in score units, so lse = m * scale +
+// ln l.
+template <int D, bool kAsync>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, int seq_len, int head_dim,
+                         float scale_log2) {
+  constexpr int LD = kMmaLd<D>;
+  constexpr int KT = D / 16;         // k16 steps over the head dim
+  constexpr int NT = D / 8;          // n8 tiles of O's columns
+  constexpr int ST = kMmaKeys / 8;   // n8 tiles of a key tile
+  constexpr int TILE = kMmaKeys * LD;
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+  __nv_bfloat16* Ks = Qs + kMmaRows * LD;  // [2][kMmaKeys][LD]
+  __nv_bfloat16* Vs = Ks + 2 * TILE;       // [2][kMmaKeys][LD]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * kMmaRows;
+  const size_t base = (size_t)blockIdx.y * seq_len * head_dim;
+  const int ntiles = (seq_len + kMmaKeys - 1) / kMmaKeys;
+
+  load_tile<kMmaRows, D, kAsync>(Qs, q + base, q0, seq_len, head_dim);
+  load_tile<kMmaKeys, D, kAsync>(Ks, k + base, 0, seq_len, head_dim);
+  load_tile<kMmaKeys, D, kAsync>(Vs, v + base, 0, seq_len, head_dim);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  uint32_t qa[KT][4];
+#pragma unroll
+  for (int ks = 0; ks < KT; ++ks)
+    ldmatrix_x4(qa[ks],
+                Qs + warp * 16 * LD + ks * 16 + a_frag_offset(lane, LD));
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // rows lane / 4 and lane / 4 + 8 of the warp's strip; l is this
+  // thread's share of the row sum until the end
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {  // the buffer that tile t - 1 used
+      const int nb = (t + 1) & 1;
+      load_tile<kMmaKeys, D, kAsync>(Ks + nb * TILE, k + base,
+                                     (t + 1) * kMmaKeys, seq_len, head_dim);
+      load_tile<kMmaKeys, D, kAsync>(Vs + nb * TILE, v + base,
+                                     (t + 1) * kMmaKeys, seq_len, head_dim);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* Kt = Ks + (t & 1) * TILE;
+    const __nv_bfloat16* Vt = Vs + (t & 1) * TILE;
+
+    float s[ST][4];
+#pragma unroll
+    for (int n = 0; n < ST; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KT; ++ks) {
+#pragma unroll
+      for (int np = 0; np < ST / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, Kt + np * 16 * LD + ks * 16 + b_frag_offset(lane, LD));
+        mma_16816(s[2 * np], qa[ks], b[0], b[1]);
+        mma_16816(s[2 * np + 1], qa[ks], b[2], b[3]);
+      }
+    }
+    const int k0 = t * kMmaKeys;
+    if (k0 + kMmaKeys > seq_len) {
+#pragma unroll
+      for (int n = 0; n < ST; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k0 + n * 8 + (lane % 4) * 2 + (i % 2) >= seq_len)
+            s[n][i] = -CUDART_INF_F;
+    }
+
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < ST; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float alpha[2], ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // every tile holds at least one real key, so mx is finite
+      alpha[r] = fast_exp2((m[r] - mx[r]) * scale_log2);
+      m[r] = mx[r];
+      ms[r] = mx[r] * scale_log2;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < ST; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = fast_exp2(fmaf(s[n][i], scale_log2, -ms[i / 2]));
+        l[i / 2] += s[n][i];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P V: P's A fragments from S's C fragments, V through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < ST / 2; ++kk) {
+      uint32_t pa[4];
+      a_from_c(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, Vt + kk * 16 * LD + np * 16 + bt_frag_offset(lane, LD));
+        mma_16816(acc[2 * np], pa, b[0], b[1]);
+        mma_16816(acc[2 * np + 1], pa, b[2], b[3]);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // tile t + 1 landed; tile t no longer read
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qi = q0 + warp * 16 + lane / 4 + 8 * r;
+    if (qi >= seq_len) continue;
+    const float inv_l = 1.f / l[r];
+    const size_t row = base + (size_t)qi * head_dim;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n * 8 + (lane % 4) * 2 + e;
+        if (c < head_dim)
+          o[row + c] = __float2bfloat16(acc[n][2 * r + e] * inv_l);
+      }
+    }
+    if (lane % 4 == 0)
+      lse[(size_t)blockIdx.y * seq_len + qi] =
+          (m[r] * scale_log2 + log2f(l[r])) * 0.69314718055994531f;
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int bh, int seq_len, int head_dim,
+                       float scale_log2, cudaStream_t stream) {
+  auto* kernel = rows_aligned(head_dim, {q, k, v})
+                     ? flash_fwd_mma_kernel<D, true>
+                     : flash_fwd_mma_kernel<D, false>;
+  const int smem =
+      (kMmaRows + 4 * kMmaKeys) * kMmaLd<D> * (int)sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_len + kMmaRows - 1) / kMmaRows, bh);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), seq_len, head_dim, scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int bh, int seq_len, int head_dim,
+                       float scale_log2, cudaStream_t stream) {
   const int smem = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq_len + kBQ - 1) / kBQ, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      seq_len, head_dim, scale_log2);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), seq_len, head_dim, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and o share it); lse is
-// f32 [bh, seq_len]. head_dim <= 128, bh <= 65535. Returns a cudaError_t.
+// dtype codes: 0 = float32 (FP32 kernel), 1 = bfloat16 (tensor-core
+// kernel); q, k, v and o share it; lse is f32 [bh, seq_len].
+// head_dim <= 128, bh <= 65535. Returns a cudaError_t.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int bh, int seq_len,
                                 int head_dim, float scale_log2, int dtype,
                                 void* stream) {
   return (int)dispatch(dtype, head_dim, [&](auto type, auto dim) {
-    return launch<typename decltype(type)::type, decltype(dim)::value>(
-        q, k, v, o, lse, bh, seq_len, head_dim, scale_log2,
-        static_cast<cudaStream_t>(stream));
+    using T = typename decltype(type)::type;
+    constexpr int D = decltype(dim)::value;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      return launch_mma<D>(q, k, v, o, lse, bh, seq_len, head_dim, scale_log2,
+                           st);
+    else
+      return launch_f32<D>(q, k, v, o, lse, bh, seq_len, head_dim,
+                           scale_log2, st);
   });
 }
 

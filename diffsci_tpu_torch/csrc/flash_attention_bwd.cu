@@ -9,25 +9,51 @@
 // _dkv_kernel (K6). See diffsci_tpu_torch/kernels/flash_attention.py for the
 // design note.
 //
-// K5: one block per (bh, tile of kBQ query rows) loops over tiles of kBK
-// keys. K6: one block per (bh, tile of kBK key rows) loops over tiles of
-// kBQ queries. Either way each output tile has one block as its only
-// writer and sums in f32 registers: no atomics. Four threads share a row
-// of the block's own tile; each scores a quarter of the other tile's rows
-// and owns a quarter of the output columns, as in K4. Scores are taken in
-// the log2 domain (one side pre-scaled by log2(e)/sqrt(d), lse by log2(e)).
-// Ragged T is masked in the kernel: rows past T are loaded as zeros, get
-// P = 0 and are never stored. Head dims below the template's D are
-// zero-padded in shared memory only.
+// Both are bound by operations (6 and 8 T^2 d flops and T^2 exponentials
+// per head against O(T d) bytes); at d = 32 the exponentials on the
+// special-function unit set the floor, above the tensor cores' time.
+// K5: one block per (bh, tile of query rows) loops over key tiles. K6: one
+// block per (bh, tile of key rows) loops over query tiles. Either way each
+// output tile has one block as its only writer and sums in f32 registers:
+// no atomics, so one input gives one result.
+//
+// K6 in bfloat16 (flash_dkv_mma_kernel): tensor cores. Each of kMmaWarps
+// warps owns 16 key rows; Q and dO tiles (with their lse and delta) stream
+// through a double-buffered cp.async ring in bf16 shared memory
+// (flash_mma.cuh). Per tile, on mma.sync with f32 accumulators:
+// S^T = K Q^T; P^T = exp2(S^T scale log2(e) - lse log2(e)) in registers
+// (fast_exp2); dV += P^T dO with P^T rounded to bf16 as A fragments and dO
+// through ldmatrix.trans; dP^T = V dO^T; dS^T = P^T (dP^T - delta) rounded
+// to bf16 in registers; dK += dS^T Q with Q through ldmatrix.trans. Q and
+// dO are each read plainly and transposed from one shared tile. The bf16 roundings
+// are the Pallas kernel's (flash_attention.py:209, 211: p and ds cast to
+// the input dtype before the MXU). dK and dV stay in f32 registers; the
+// scale is applied once and each is written once. Padded query rows are
+// zeros with lse = delta = 0, so they add exactly 0. wgmma/TMA and warp
+// specialisation are later work: at d = 32 the exponentials set the floor.
+//
+// K5 (both dtypes) and K6 in float32: the FP32 pipes. Four threads share a
+// row of the block's own tile; each scores a quarter of the other tile's
+// rows and owns a quarter of the output columns, as in K4's f32 kernel.
+// Scores are taken in the log2 domain (one side pre-scaled by
+// log2(e)/sqrt(d), lse by log2(e)). f32 keeps full f32 products: TF32 or
+// bf16 tensor cores would not hold the 1e-4 checks against the plain
+// version.
+//
+// Ragged T is masked in the kernels: rows past T are loaded as zeros, get
+// P = 0 or add 0, and are never stored. Head dims below the template's D
+// are zero-padded in shared memory only.
 //
 // Tile constants, conversions and dispatch: flash_common.cuh, shared with
-// K4. Plain C interface, built with nvcc and loaded with ctypes.
+// K4; tensor-core pieces: flash_mma.cuh. Plain C interface, built with
+// nvcc and loaded with ctypes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -163,15 +189,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K6. Thread (r, t) owns key row r of the block's tile; dk/dv accumulate
-// its columns 4 * (t + kTPR * ch).
-template <typename T, int D>
+// K6 in float32. Thread (r, t) owns key row r of the block's tile; dk/dv
+// accumulate its columns 4 * (t + kTPR * ch).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int seq_len, int head_dim,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int seq_len, int head_dim,
                      float scale) {
   constexpr int LD = D + 4;
   constexpr int CPT = D / (4 * kTPR);
@@ -194,8 +221,8 @@ __global__ void __launch_bounds__(kThreads)
   const size_t bh = blockIdx.y;
   const size_t base = bh * seq_len * head_dim;
 
-  stage<T, D>(Ks, k + base, k0, seq_len, head_dim, kLog2e * scale);
-  stage<T, D>(Vs, v + base, k0, seq_len, head_dim, 1.f);
+  stage<float, D>(Ks, k + base, k0, seq_len, head_dim, kLog2e * scale);
+  stage<float, D>(Vs, v + base, k0, seq_len, head_dim, 1.f);
 
   float dk_acc[4 * CPT], dv_acc[4 * CPT];
 #pragma unroll
@@ -203,8 +230,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int q0 = 0; q0 < seq_len; q0 += kBQ) {
     __syncthreads();  // K, V staged; the previous Q/dO tile no longer read
-    stage<T, D>(Qs, q + base, q0, seq_len, head_dim, 1.f);
-    stage<T, D>(dOs, dout + base, q0, seq_len, head_dim, 1.f);
+    stage<float, D>(Qs, q + base, q0, seq_len, head_dim, 1.f);
+    stage<float, D>(dOs, dout + base, q0, seq_len, head_dim, 1.f);
     if (tid < kBQ) {
       const int qi = q0 + tid;
       lse2s[tid] = qi < seq_len ? lse[bh * seq_len + qi] * kLog2e : 0.f;
@@ -276,16 +303,235 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int c = 4 * (t + kTPR * ch) + e;
         if (c < head_dim) {
-          dk[row + c] = from_f32<T>(dk_acc[4 * ch + e] * scale);
-          dv[row + c] = from_f32<T>(dv_acc[4 * ch + e]);
+          dk[row + c] = dk_acc[4 * ch + e] * scale;
+          dv[row + c] = dv_acc[4 * ch + e];
         }
       }
     }
   }
 }
 
+// K6 in bf16. Query tiles of BQ rows: the two score tiles (16 x BQ) and
+// dK, dV (16 x D) take BQ + D f32 registers a thread: about 160
+// with BQ = 128 at D <= 32, 64 at D = 64 and 32 at D = 128. At D = 32 the
+// larger tile halves the block syncs and fragment loads per query
+// (scripts/torch_flash_variants.py times the alternatives).
+#ifndef FLASH_DKV_BQ32
+#define FLASH_DKV_BQ32 128
+#endif
+template <int D>
+constexpr int kDkvBQ = D <= 32 ? FLASH_DKV_BQ32 : D == 64 ? 64 : 32;
+
+template <int D>
+constexpr int dkv_mma_smem_bytes() {
+  // K, V (own), a ring of two Q and dO tiles, lse and delta per stage
+  return (2 * kMmaRows + 4 * kDkvBQ<D>) * kMmaLd<D> * 2 +
+         4 * kDkvBQ<D> * 4;
+}
+
+template <int D, bool kAsync>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int seq_len,
+                         int head_dim, float scale) {
+  constexpr int LD = kMmaLd<D>;
+  constexpr int BQ = kDkvBQ<D>;
+  constexpr int KT = D / 16;   // k16 steps over the head dim
+  constexpr int NT = D / 8;    // n8 tiles of dK's and dV's columns
+  constexpr int ST = BQ / 8;   // n8 tiles of a query tile
+  constexpr int TILE = BQ * LD;
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+  __nv_bfloat16* Vs = Ks + kMmaRows * LD;
+  __nv_bfloat16* Qs = Vs + kMmaRows * LD;  // [2][BQ][LD]
+  __nv_bfloat16* dOs = Qs + 2 * TILE;      // [2][BQ][LD]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * TILE);  // [2][BQ]
+  float* Ds = Ls + 2 * BQ;                               // [2][BQ]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = blockIdx.x * kMmaRows;
+  const size_t bh = blockIdx.y;
+  const size_t base = bh * seq_len * head_dim;
+  const int ntiles = (seq_len + BQ - 1) / BQ;
+  const float scale_log2 = scale * kLog2e;
+
+  // Q, dO, lse and delta of query tile t into ring stage t & 1
+  auto load_queries = [&](int t) {
+    const int st = t & 1, r0 = t * BQ;
+    load_tile<BQ, D, kAsync>(Qs + st * TILE, q + base, r0, seq_len,
+                             head_dim);
+    load_tile<BQ, D, kAsync>(dOs + st * TILE, dout + base, r0, seq_len,
+                             head_dim);
+    for (int i = threadIdx.x; i < 2 * BQ; i += kMmaThreads) {
+      const int qi = r0 + i % BQ;
+      const bool valid = qi < seq_len;
+      const float* src = i < BQ ? lse : delta;
+      cp_async_4((i < BQ ? Ls : Ds) + st * BQ + i % BQ,
+                 src + (valid ? bh * seq_len + qi : 0), valid);
+    }
+  };
+
+  load_tile<kMmaRows, D, kAsync>(Ks, k + base, k0, seq_len, head_dim);
+  load_tile<kMmaRows, D, kAsync>(Vs, v + base, k0, seq_len, head_dim);
+  load_queries(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  float dk_acc[NT][4], dv_acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
+  const __nv_bfloat16* Kw = Ks + warp * 16 * LD + a_frag_offset(lane, LD);
+  const __nv_bfloat16* Vw = Vs + warp * 16 * LD + a_frag_offset(lane, LD);
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) load_queries(t + 1);  // the stage tile t - 1 used
+    cp_async_commit();
+    const __nv_bfloat16* Qt = Qs + (t & 1) * TILE;
+    const __nv_bfloat16* dOt = dOs + (t & 1) * TILE;
+    const float* Lt = Ls + (t & 1) * BQ;
+    const float* Dt = Ds + (t & 1) * BQ;
+
+    // S^T = K Q^T: rows are this warp's keys, columns the tile's queries
+    float s[ST][4];
+#pragma unroll
+    for (int n = 0; n < ST; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KT; ++ks) {
+      uint32_t ka[4];
+      ldmatrix_x4(ka, Kw + ks * 16);
+#pragma unroll
+      for (int np = 0; np < ST / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, Qt + np * 16 * LD + ks * 16 + b_frag_offset(lane, LD));
+        mma_16816(s[2 * np], ka, b[0], b[1]);
+        mma_16816(s[2 * np + 1], ka, b[2], b[3]);
+      }
+    }
+    // P^T, in place; columns (queries) n * 8 + 2 (lane % 4) + {0, 1}
+#pragma unroll
+    for (int n = 0; n < ST; ++n) {
+      const int c = n * 8 + (lane % 4) * 2;
+      const float l0 = Lt[c] * kLog2e, l1 = Lt[c + 1] * kLog2e;
+      s[n][0] = fast_exp2(fmaf(s[n][0], scale_log2, -l0));
+      s[n][1] = fast_exp2(fmaf(s[n][1], scale_log2, -l1));
+      s[n][2] = fast_exp2(fmaf(s[n][2], scale_log2, -l0));
+      s[n][3] = fast_exp2(fmaf(s[n][3], scale_log2, -l1));
+    }
+    // dV += P^T dO
+#pragma unroll
+    for (int kk = 0; kk < ST / 2; ++kk) {
+      uint32_t pa[4];
+      a_from_c(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, dOt + kk * 16 * LD + np * 16 + bt_frag_offset(lane, LD));
+        mma_16816(dv_acc[2 * np], pa, b[0], b[1]);
+        mma_16816(dv_acc[2 * np + 1], pa, b[2], b[3]);
+      }
+    }
+    // dP^T = V dO^T
+    float dp[ST][4];
+#pragma unroll
+    for (int n = 0; n < ST; ++n)
+      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KT; ++ks) {
+      uint32_t va[4];
+      ldmatrix_x4(va, Vw + ks * 16);
+#pragma unroll
+      for (int np = 0; np < ST / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b,
+                    dOt + np * 16 * LD + ks * 16 + b_frag_offset(lane, LD));
+        mma_16816(dp[2 * np], va, b[0], b[1]);
+        mma_16816(dp[2 * np + 1], va, b[2], b[3]);
+      }
+    }
+    // dS^T = P^T (dP^T - delta), in place of dP^T
+#pragma unroll
+    for (int n = 0; n < ST; ++n) {
+      const int c = n * 8 + (lane % 4) * 2;
+      const float d0 = Dt[c], d1 = Dt[c + 1];
+      dp[n][0] = s[n][0] * (dp[n][0] - d0);
+      dp[n][1] = s[n][1] * (dp[n][1] - d1);
+      dp[n][2] = s[n][2] * (dp[n][2] - d0);
+      dp[n][3] = s[n][3] * (dp[n][3] - d1);
+    }
+    // dK += dS^T Q
+#pragma unroll
+    for (int kk = 0; kk < ST / 2; ++kk) {
+      uint32_t da[4];
+      a_from_c(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, Qt + kk * 16 * LD + np * 16 + bt_frag_offset(lane, LD));
+        mma_16816(dk_acc[2 * np], da, b[0], b[1]);
+        mma_16816(dk_acc[2 * np + 1], da, b[2], b[3]);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // tile t + 1 landed; tile t no longer read
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = k0 + warp * 16 + lane / 4 + 8 * r;
+    if (kj >= seq_len) continue;
+    const size_t row = base + (size_t)kj * head_dim;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n * 8 + (lane % 4) * 2 + e;
+        if (c < head_dim) {
+          dk[row + c] = __float2bfloat16(dk_acc[n][2 * r + e] * scale);
+          dv[row + c] = __float2bfloat16(dv_acc[n][2 * r + e]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dk, void* dv, int bh,
+                           int seq_len, int head_dim, float scale,
+                           cudaStream_t stream) {
+  auto* kernel = rows_aligned(head_dim, {q, k, v, dout})
+                     ? flash_dkv_mma_kernel<D, true>
+                     : flash_dkv_mma_kernel<D, false>;
+  const int smem = dkv_mma_smem_bytes<D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_len + kMmaRows - 1) / kMmaRows, bh);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      seq_len, head_dim, scale);
+  return cudaGetLastError();
+}
+
 // which = 0 launches K5 (out0 = dq), which = 1 launches K6 (out0 = dk,
-// out1 = dv).
+// out1 = dv): the tensor-core kernel in bf16, the FP32 one in f32.
 template <typename T, int D>
 cudaError_t launch(int which, const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
@@ -307,15 +553,18 @@ cudaError_t launch(int which, const void* q, const void* k, const void* v,
     flash_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
         q_, k_, v_, do_, lse_, delta_, static_cast<T*>(out0), seq_len,
         head_dim, scale);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_dkv_mma<D>(q, k, v, dout, lse, delta, out0, out1, bh,
+                             seq_len, head_dim, scale, stream);
   } else {
     const int smem = dkv_smem_floats<D>() * (int)sizeof(float);
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return err;
-    flash_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        q_, k_, v_, do_, lse_, delta_, static_cast<T*>(out0),
-        static_cast<T*>(out1), seq_len, head_dim, scale);
+    flash_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+        q_, k_, v_, do_, lse_, delta_, static_cast<float*>(out0),
+        static_cast<float*>(out1), seq_len, head_dim, scale);
   }
   return cudaGetLastError();
 }
@@ -334,9 +583,10 @@ cudaError_t launch_any(int which, const void* q, const void* k,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, dout and the outputs
-// share it); lse and delta are f32 [bh, seq_len]. head_dim <= 128,
-// bh <= 65535, scale = 1 / sqrt(head_dim). Each returns a cudaError_t.
+// dtype codes: 0 = float32, 1 = bfloat16 (K6 on the tensor cores); q, k,
+// v, dout and the outputs share it; lse and delta are f32 [bh, seq_len].
+// head_dim <= 128, bh <= 65535, scale = 1 / sqrt(head_dim). Each returns
+// a cudaError_t.
 extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, int bh,

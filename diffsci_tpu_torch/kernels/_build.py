@@ -30,7 +30,8 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The CUDA toolkit's nvcc: on the PATH, else under CUDA_HOME."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -61,7 +62,7 @@ def build(names=SOURCES) -> None:
                 continue
             BUILD_DIR.mkdir(exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC_DIR / f"{name}.cu")]
             jobs.append((name, tmp, so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -86,14 +87,20 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     build((name,))
     with _lock:
         if name not in _libs:
-            lib = ctypes.CDLL(str(library_path(name)))
-            for fn, (restype, argtypes) in signatures.items():
-                getattr(lib, fn).restype = restype
-                getattr(lib, fn).argtypes = argtypes
-            lib.error_string.restype = ctypes.c_char_p
-            lib.error_string.argtypes = [ctypes.c_int]
-            _libs[name] = lib
+            _libs[name] = open_library(library_path(name), signatures)
         return _libs[name]
+
+
+def open_library(path, signatures: dict) -> ctypes.CDLL:
+    """Load the built library at ``path`` and declare its functions:
+    ``signatures`` and ``error_string``."""
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in signatures.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    lib.error_string.restype = ctypes.c_char_p
+    lib.error_string.argtypes = [ctypes.c_int]
+    return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

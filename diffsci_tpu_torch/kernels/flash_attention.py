@@ -6,34 +6,53 @@ _fwd_kernel``, K5 ``_dq_kernel`` and K6 ``_dkv_kernel`` (through
 ``flash_attention``, a custom VJP there): the PUNetG bottleneck attention
 with ``attn_backend='flash'`` at T ≥ 2048 tokens (config A: 16³ = 4096
 tokens, head dim 32). Sources: ``csrc/flash_attention.cu`` (K4) and
-``csrc/flash_attention_bwd.cu`` (K5, K6), CUDA C++.
+``csrc/flash_attention_bwd.cu`` (K5, K6), CUDA C++; the tensor-core pieces
+in ``csrc/flash_mma.cuh``, the f32 tile layout and dispatch in
+``csrc/flash_common.cuh``.
 
-- What bounds it on the H100: operations. 4·T²·d flops against
-  (4·T·d + T) elements moved: at T = 4096, d = 32 that is ~1000 flops per
-  byte, above the card's ridge, and it grows with T. The [T, T] score
-  matrix (64 MB per head in f32) never touches device memory.
-- What the design does about it: one block per (batch·head, 64 query rows)
-  loops over 64-key tiles of K and V staged in shared memory (converted to
-  f32), keeps the running max, running sum and output accumulator in f32
-  registers, and writes O and lse once. Scores are taken in the log2
-  domain (Q pre-scaled by log2(e)/√d) so each probability is one exp2.
-  Four threads share a query row; shared-memory rows are padded so their
-  float4 reads are conflict-free. The products run on the FP32 FMA pipes,
-  not on the tensor cores: ``wgmma``/``mma.sync`` tiles, TMA loads and
-  tuning are later work. Ragged T is masked inside the kernel on query
-  rows and keys, with no padding copies; head dims up to 128 are taken by
-  zero-padding in shared memory to the next of 16, 32, 64, 128.
-- K5 and K6 are bound by operations as well: 6·T²·d (K5: S, dP, dQ) and
-  8·T²·d (K6: S, dP, dV, dK) flops per head against O(T·d) bytes. The
-  forward saves O and the natural-log lse; delta = rowsum(dO∘O) is one
-  plain f32 reduction outside the kernels, as in the JAX package. P is
-  recomputed tile by tile from lse, so no [T, T] matrix is stored. The
-  TPU kernels carry their sums across a sequential grid axis; here that
-  axis is a loop inside the block: K5's block owns 64 query rows and
-  loops over key tiles, K6's block owns 64 key rows and loops over query
-  tiles. Each output tile has one writer and no atomics, so one input
-  gives one result. Same thread layout, padding, masking, head-dim
-  templates and FP32 pipes as K4.
+- What bounds them on the H100: operations. K4 does 4·T²·d flops, K5
+  6·T²·d and K6 8·T²·d per head against (4·T·d + T) elements moved: at
+  T = 4096, d = 32 that is ~1000 flops per byte, above the card's ridge.
+  Each also takes T² exponentials on the special-function unit, 16 per
+  clock per SM: at d = 32 that floor (~0.032 ms at config A's shape) lies
+  above the tensor cores' (0.017 ms for K4). The [T, T] score matrix never
+  touches device memory.
+- bfloat16, K4 and K6: tensor cores (``mma.sync`` m16n8k16, f32
+  accumulators). A block of 4 warps owns 64 rows of its own side (K4:
+  queries, K6: keys), 16 per warp, and loops over tiles of the other side
+  that stream through a double-buffered ``cp.async`` ring in bf16 shared
+  memory, so the next tile loads while this one computes. K4 keeps its Q
+  fragments in registers, takes S = Q Kᵀ, runs the online softmax (running
+  max and sum in f32, row reductions by quad shuffles) on the C fragments
+  and feeds P, rounded to bf16 in registers, as the A operand of P V: the
+  FlashAttention-2 repacking, nothing goes through shared memory. K6 takes
+  Sᵀ = K Qᵀ, Pᵀ = exp2(Sᵀ·scale·log2 e − lse·log2 e), dV += Pᵀ dO,
+  dPᵀ = V dOᵀ, dSᵀ = Pᵀ∘(dPᵀ − delta) and dK += dSᵀ Q, reading Q and dO
+  plainly and transposed (``ldmatrix.trans``) from one shared tile; dK and
+  dV stay in f32 registers and are written once. bf16 rounding happens
+  where the Pallas kernels cast before the MXU (P before P·V,
+  ``flash_attention.py:106``; P and dS before dV and dK, ``:209, 211``),
+  so the port now rounds as the JAX reference does. Rows that are not
+  16-byte aligned (d % 8 ≠ 0) are staged by element loads in the same
+  kernels. ``wgmma``/TMA and warp specialisation are later work.
+- float32, and K5 in both dtypes: the FP32 pipes. One block per
+  (batch·head, 64 rows) loops over 64-row tiles of the other side staged
+  in shared memory (converted to f32); four threads share a row, each
+  scoring a quarter of the other tile and owning a quarter of the output
+  columns. f32 stays there so that the f32 path keeps full f32 products:
+  TF32 or bf16 tensor cores would not hold the 1e-4 checks against the
+  plain versions. K5's tensor-core version is the next redesign.
+- Backward: the forward saves O and the natural-log lse; delta =
+  rowsum(dO∘O) is one plain f32 reduction outside the kernels, as in the
+  JAX package. P is recomputed tile by tile from lse, so no [T, T] matrix
+  is stored. The TPU kernels carry their sums across a sequential grid
+  axis; here that axis is a loop inside the block (K5's block owns query
+  rows, K6's key rows). Each output tile has one writer and no atomics,
+  so one input gives one result, bit for bit.
+- All of them mask ragged T inside the kernel (rows past T load as zeros
+  and are never stored; K4's keys past T score −inf) with no padding
+  copies, and take head dims up to 128 by zero-padding in shared memory to
+  the next of 16, 32, 64, 128. Each wrapper call is one kernel launch.
 """
 
 from __future__ import annotations
@@ -53,13 +72,13 @@ MIN_TOKENS = 2048
 MAX_HEAD_DIM = 128
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURES = {"flash_fwd_launch": (ctypes.c_int, [
+SIGNATURES = {"flash_fwd_launch": (ctypes.c_int, [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p])}
 _BWD_TAIL = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
              ctypes.c_int, ctypes.c_void_p]
-_BWD_SIGNATURES = {
+BWD_SIGNATURES = {
     "flash_dq_launch": (ctypes.c_int, [ctypes.c_void_p] * 7 + _BWD_TAIL),
     "flash_dkv_launch": (ctypes.c_int, [ctypes.c_void_p] * 8 + _BWD_TAIL)}
 
@@ -121,7 +140,7 @@ def flash_attention_fwd(q, k, v):
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
-    lib = _build.load("flash_attention", _SIGNATURES)
+    lib = _build.load("flash_attention", SIGNATURES)
     err = lib.flash_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), B * H, T, d, math.log2(math.e) / math.sqrt(d),
@@ -168,7 +187,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do):
 
 def _launch_bwd(fn, name, q, k, v, do, lse, delta, outs):
     B, H, T, d = q.shape
-    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    lib = _build.load("flash_attention_bwd", BWD_SIGNATURES)
     err = getattr(lib, fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),

@@ -1,0 +1,185 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA card. The
+module imports neither JAX nor the JAX package, so it runs on a machine
+that has only the port's dependencies:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_card.py
+
+(``--noconftest`` leaves out ``tests/conftest.py``, which configures JAX.)
+The tolerances are ``chip_smoke.py`` phase 1's.
+"""
+
+import pytest
+import torch
+
+from diffsci_tpu_torch import kernels
+from diffsci_tpu_torch.kernels import flash_attention as fa
+from diffsci_tpu_torch.kernels import fused_norm as fn
+from diffsci_tpu_torch.kernels import fused_precondition as fp
+
+pytestmark = pytest.mark.cuda
+
+# chip_smoke.py phase 1's flash shapes: config A, the phase-2/3 net's head
+# dim 8, ragged T, every head-dim template, head dims that are not a
+# template's (20: rows not 16-byte aligned)
+_FLASH_SWEEP = ((4, 2, 4096, 32), (1, 2, 4096, 8), (2, 4, 4096, 16),
+                (1, 2, 4097, 32), (1, 1, 2049, 64), (1, 1, 2111, 128),
+                (2, 1, 2048, 40), (1, 2, 2048, 20))
+
+
+@pytest.fixture(autouse=True)
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernels are CUDA only")
+
+
+def _assert_attention_close(out, ref):
+    """K4's O: within 1e-4 in f32; in bf16 within one bf16 step of each
+    entry (2^-7·|ref|) plus 2e-3 of the largest entry (a typical |O| is a
+    few 1e-2, so an absolute bound would pass wrong outputs)."""
+    diff = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        limit = 1e-4
+    else:
+        r = ref.float().abs()
+        limit = 2 ** -7 * r + 2e-3 * r.max()
+    assert bool((diff <= limit).all()), float(diff.max())
+
+
+def _assert_grad_close(out, ref):
+    """The backward kernels' bound: max|Δ| within 1e-4 (f32) or 1e-2 (bf16)
+    of max|ref|."""
+    tol = 1e-4 if out.dtype == torch.float32 else 1e-2
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= tol * float(ref.float().abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_card(dtype):
+    dt = getattr(torch, dtype)
+    tol = dict(rtol=0, atol=1e-4) if dt == torch.float32 else \
+        dict(rtol=2e-2, atol=2e-2)
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    kernels.reset_launches()
+    x, f = randn(5, 28, 28, 1), randn(5, 28, 28, 1)
+    a = torch.rand(5, generator=gen, device="cuda")
+    torch.testing.assert_close(fp.fused_axby(x, f, a, 2.0),
+                               fp.fused_axby_plain(x, f, a, 2.0), **tol)
+    g = randn(5, 28, 28, 1)
+    torch.testing.assert_close(fp.fused_lincomb3(x, f, g, a, 2.0, -a),
+                               fp.fused_lincomb3_plain(x, f, g, a, 2.0, -a),
+                               **tol)
+    x = randn(2, 8, 9, 10, 11)
+    w, b = randn(8), randn(8)
+    for kind in ("ln", "rms"):
+        for got, ref in zip(fn.norm_silu_fwd(x, w, b, kind),
+                            fn.norm_silu_plain(x, w, b, kind)):
+            torch.testing.assert_close(got.float(), ref.float(), **tol)
+    q, k, v = randn(1, 2, 333, 40), randn(1, 2, 333, 40), randn(1, 2, 333, 40)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    ro, rlse = fa.flash_attention_plain(q, k, v)
+    _assert_attention_close(o, ro)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-3)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"fused_axby": 1, "norm_silu": 2,
+                                "norm_silu_bwd": 0, "flash_attention": 1,
+                                "flash_attention_dq": 0,
+                                "flash_attention_dkv": 0,
+                                "fused_lincomb3": 1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_match_plain_on_card(dtype):
+    """K3, K5 and K6 against their plain versions on the same saved
+    tensors, with ragged T and head dims that are not a template's."""
+    dt = getattr(torch, dtype)
+    tol = dict(rtol=0, atol=1e-4) if dt == torch.float32 else \
+        dict(rtol=2e-2, atol=2e-2)
+    gen = torch.Generator("cuda").manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    x, g = randn(2, 8, 9, 10, 11), randn(2, 8, 9, 10, 11)
+    w, b = randn(8), randn(8)
+    for kind in ("ln", "rms"):
+        _, mean, rstd = fn.norm_silu_fwd(x, w, b, kind)
+        kernels.reset_launches()
+        got = fn.norm_silu_bwd(g, x, mean, rstd, w, b, kind)
+        assert kernels.LAUNCHES["norm_silu_bwd"] == 1
+        for o, r in zip(got, fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b,
+                                                    kind)):
+            torch.testing.assert_close(o.float(), r.float(), **tol)
+    for shape in ((1, 2, 333, 40), (2, 1, 4097, 16)) + _FLASH_SWEEP:
+        q, k, v, do = (randn(*shape) * 0.5 for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        kernels.reset_launches()
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+        assert kernels.LAUNCHES["flash_attention_dq"] == 1
+        assert kernels.LAUNCHES["flash_attention_dkv"] == 1
+        for o_, r in zip(got, fa.flash_attention_bwd_plain(q, k, v, o, lse,
+                                                           do)):
+            _assert_grad_close(o_, r)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", _FLASH_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_forward_matches_plain_on_card(dtype, shape):
+    """K4 (the tensor-core kernel in bf16, the FP32 one in f32) against its
+    plain version over phase 1's sweep: O within 1e-4 (f32) or
+    2^-7·|ref| + 2e-3·max|ref| (bf16), lse within 1e-3."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator("cuda").manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+               for _ in range(3))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    ro, rlse = fa.flash_attention_plain(q, k, v)
+    _assert_attention_close(o, ro)
+    assert float((lse - rlse).abs().max()) <= 1e-3
+
+
+def test_flash_dkv_is_deterministic_on_card():
+    """K6 in bf16 has one writer per output tile and no atomics: the same
+    inputs give bit-identical dK and dV."""
+    gen = torch.Generator("cuda").manual_seed(4)
+    q, k, v, do = (torch.randn((4, 2, 4096, 32), generator=gen,
+                               device="cuda").bfloat16() for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    first = fa.flash_attention_dkv(q, k, v, do, lse, delta)
+    second = fa.flash_attention_dkv(q, k, v, do, lse, delta)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("shape", [(64, 32, 32, 3), (3, 1001)])
+def test_fused_lincomb3_matches_plain_on_card(shape):
+    """K7 in every dtype combination of x, f and g, at configuration C's
+    sampler shape and a ragged one: bit for bit in f32 (both round
+    (a·x + b·f) + c·g term by term), |Δ| <= 2e-2 + 2e-2·|ref| with bf16."""
+    gen = torch.Generator("cuda").manual_seed(2)
+    dts = (torch.float32, torch.bfloat16)
+    a, b, c = (torch.randn(shape[0], generator=gen, device="cuda")
+               for _ in range(3))
+    kernels.reset_launches()
+    for dx in dts:
+        for df in dts:
+            for dg in dts:
+                x, f, g = (torch.randn(shape, generator=gen,
+                                       device="cuda").to(dt)
+                           for dt in (dx, df, dg))
+                out = fp.fused_lincomb3(x, f, g, a, b, c)
+                ref = fp.fused_lincomb3_plain(x, f, g, a, b, c)
+                assert out.dtype == dx
+                if dx == df == dg == torch.float32:
+                    assert torch.equal(out, ref)
+                else:
+                    torch.testing.assert_close(out.float(), ref.float(),
+                                               rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_lincomb3"] == 8

@@ -1,0 +1,146 @@
+"""Where the bf16 tensor-core flash kernels round, rehearsed on the CPU.
+
+The bf16 K4 and K6 (``diffsci_tpu_torch/csrc/flash_attention.cu``,
+``flash_attention_bwd.cu``) round the probabilities P, and K6 also dS, to
+bf16 in registers before the tensor-core products, with f32 accumulation;
+K4 does so tile by tile against the running max of its online softmax
+(64-key tiles), and K5 keeps dS in f32. ``_emulate_fwd`` and
+``_emulate_bwd`` repeat that arithmetic in PyTorch. They are held against
+the JAX package's flash attention (Pallas in interpret mode, and
+``jax.grad`` through its custom VJP), which casts p and ds to the input
+dtype at the same points (``diffsci_tpu/kernels/flash_attention.py:106,
+179, 209, 211``), and against the port's plain versions within the bf16
+tolerances that ``chip_smoke.py`` applies to the kernels on the card.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from diffsci_tpu.kernels import flash_attention as jfa
+
+from diffsci_tpu_torch.kernels import flash_attention as fa
+
+KEY_TILE = 64           # K4's key tile (kMmaKeys)
+LOG2E = math.log2(math.e)
+
+
+def _emulate_fwd(q, k, v):
+    """K4 in bf16: online softmax over 64-key tiles in the log2 domain, P
+    rounded to bf16 before P·V, l summed over the f32 P; O in bf16 and the
+    natural-log lse in f32."""
+    T, d = q.shape[-2:]
+    sl2 = LOG2E / math.sqrt(d)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:-1], -math.inf)
+    l = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, T, KEY_TILE):
+        s = qf @ kf[..., k0:k0 + KEY_TILE, :].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - m_new) * sl2)
+        p = torch.exp2(s * sl2 - (m_new * sl2)[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + (
+            p.bfloat16().float() @ vf[..., k0:k0 + KEY_TILE, :])
+        m = m_new
+    lse = (m * sl2 + torch.log2(l)) * math.log(2.0)
+    return (acc / l[..., None]).bfloat16(), lse
+
+
+def _emulate_bwd(q, k, v, o, lse, do):
+    """delta = rowsum(dO∘O) in f32; K5: dQ = dS K/√d with dS in f32; K6:
+    dV = bf16(Pᵀ) dO and dK = bf16(dSᵀ) Q/√d, f32 sums; all in bf16."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * o.float()).sum(-1)
+    p = torch.exp2((qf @ kf.transpose(-1, -2)) * scale * LOG2E
+                   - (lse * LOG2E)[..., None])
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    dq = ds @ kf * scale
+    dk = ds.bfloat16().float().transpose(-1, -2) @ qf * scale
+    dv = p.bfloat16().float().transpose(-1, -2) @ dof
+    return tuple(t.bfloat16() for t in (dq, dk, dv))
+
+
+def _inputs(T, d):
+    rng = np.random.default_rng(T * 100 + d)
+    return [torch.from_numpy(rng.standard_normal((1, 2, T, d))
+                             .astype(np.float32)).bfloat16()
+            for _ in range(4)]
+
+
+def _jax(q, k, v, do):
+    """The JAX package's bf16 flash attention in interpret mode: O and the
+    gradients of sum(O·dO) in q, k and v (its custom VJP)."""
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                       for t in (q, k, v, do))
+
+    def fwd(q, k, v):
+        return jfa.flash_attention(q, k, v, interpret=True)
+
+    def loss(q, k, v):
+        return jnp.sum(fwd(q, k, v).astype(jnp.float32)
+                       * jdo.astype(jnp.float32))
+    o = fwd(jq, jk, jv)
+    grads = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    return [torch.from_numpy(np.array(t.astype(jnp.float32)))
+            for t in (o, *grads)]
+
+
+def _rel(out, ref):
+    """max |out - ref| / max |ref|."""
+    return float((out.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+@pytest.mark.parametrize("T", [2048, 2049])
+@pytest.mark.parametrize("d", [8, 32, 40])
+def test_emulated_rounding_matches_jax_flash(T, d):
+    """The emulation against the JAX package's bf16 flash kernels. Both
+    round P (and dS for dK, dV) to bf16 before the products, but against
+    other running maxima (the JAX kernel's key blocks are 1024 or 128
+    keys, not 64) and from their own O and lse, and the JAX dQ rounds dS
+    where K5 does not: O within 1 bf16 step (2^-8 of |O|) plus 2e-3 of
+    max|O|, lse within 1e-5; dQ, dK, dV within 1e-2 of their largest entry,
+    the bound chip_smoke.py holds the bf16 backward kernels to."""
+    q, k, v, do = _inputs(T, d)
+    o, lse = _emulate_fwd(q, k, v)
+    grads = _emulate_bwd(q, k, v, o, lse, do)
+    jo, *jgrads = _jax(q, k, v, do)
+    diff = (o.float() - jo).abs()
+    assert bool((diff <= 2 ** -8 * jo.abs() + 2e-3 * jo.abs().max()).all()), \
+        float(diff.max())
+    s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               rtol=0, atol=1e-5)
+    for got, ref, name in zip(grads, jgrads, ("dq", "dk", "dv")):
+        assert got.dtype == torch.bfloat16
+        assert _rel(got, ref) <= 1e-2, (name, _rel(got, ref))
+
+
+@pytest.mark.parametrize("T", [2048, 2049])
+@pytest.mark.parametrize("d", [8, 32, 40])
+def test_emulated_rounding_within_chip_tolerance_of_plain(T, d):
+    """The emulation against the port's plain versions (f32 math, no bf16
+    rounding inside) within chip_smoke.py's bf16 tolerances: O within
+    2^-7·|ref| + 2e-3·max|ref|, lse within 1e-3; dQ, dK, dV within 1e-2 of
+    their largest entry. This is what phase 1 asks of the kernels on the
+    card."""
+    q, k, v, do = _inputs(T, d)
+    o, lse = _emulate_fwd(q, k, v)
+    ro, rlse = fa.flash_attention_plain(q, k, v)
+    r = ro.float().abs()
+    diff = (o.float() - ro.float()).abs()
+    assert bool((diff <= 2 ** -7 * r + 2e-3 * r.max()).all()), \
+        float(diff.max() / r.max())
+    assert float((lse - rlse).abs().max()) <= 1e-3
+    grads = _emulate_bwd(q, k, v, o, lse, do)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for got, ref, name in zip(grads, refs, ("dq", "dk", "dv")):
+        assert _rel(got, ref) <= 1e-2, (name, _rel(got, ref))

@@ -4,8 +4,8 @@ package.
 On the CPU each kernel wrapper runs its plain PyTorch version; these tests
 hold the plain versions against the JAX functions on the same numpy inputs,
 with the Pallas kernels in interpret mode as ``tests/test_kernels.py`` runs
-them. ``test_kernel_matches_plain_on_card`` holds each CUDA kernel against
-its plain version and needs an NVIDIA card.
+them. ``tests/test_torch_card.py`` holds each CUDA kernel against its
+plain version on an NVIDIA card.
 """
 
 import numpy as np
@@ -405,118 +405,3 @@ def test_kernel_wrappers_call_the_forward_without_autograd(context):
                                rtol=0, atol=0)
     torch.testing.assert_close(z, fp.fused_axby_fwd(x, y, c, 3.0), rtol=0,
                                atol=0)
-
-
-# ---------------------------------------------------------------------------
-# on the card: each kernel against its plain version
-# ---------------------------------------------------------------------------
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_card(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the kernels are CUDA only")
-    from diffsci_tpu_torch import kernels
-    dt = getattr(torch, dtype)
-    tol = dict(rtol=0, atol=1e-4) if dt == torch.float32 else \
-        dict(rtol=2e-2, atol=2e-2)
-    gen = torch.Generator("cuda").manual_seed(0)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(dt)
-
-    kernels.reset_launches()
-    x, f = randn(5, 28, 28, 1), randn(5, 28, 28, 1)
-    a = torch.rand(5, generator=gen, device="cuda")
-    torch.testing.assert_close(fp.fused_axby(x, f, a, 2.0),
-                               fp.fused_axby_plain(x, f, a, 2.0), **tol)
-    g = randn(5, 28, 28, 1)
-    torch.testing.assert_close(fp.fused_lincomb3(x, f, g, a, 2.0, -a),
-                               fp.fused_lincomb3_plain(x, f, g, a, 2.0, -a),
-                               **tol)
-    x = randn(2, 8, 9, 10, 11)
-    w, b = randn(8), randn(8)
-    for kind in ("ln", "rms"):
-        for got, ref in zip(fn.norm_silu_fwd(x, w, b, kind),
-                            fn.norm_silu_plain(x, w, b, kind)):
-            torch.testing.assert_close(got.float(), ref.float(), **tol)
-    q, k, v = randn(1, 2, 333, 40), randn(1, 2, 333, 40), randn(1, 2, 333, 40)
-    for got, ref in zip(fa.flash_attention_fwd(q, k, v),
-                        fa.flash_attention_plain(q, k, v)):
-        torch.testing.assert_close(got.float(), ref.float(), **tol)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"fused_axby": 1, "norm_silu": 2,
-                                "norm_silu_bwd": 0, "flash_attention": 1,
-                                "flash_attention_dq": 0,
-                                "flash_attention_dkv": 0,
-                                "fused_lincomb3": 1}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_backward_kernels_match_plain_on_card(dtype):
-    """K3, K5 and K6 against their plain versions on the same saved
-    tensors, with ragged T and head dims that are not a template's."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the kernels are CUDA only")
-    from diffsci_tpu_torch import kernels
-    dt = getattr(torch, dtype)
-    tol = dict(rtol=0, atol=1e-4) if dt == torch.float32 else \
-        dict(rtol=2e-2, atol=2e-2)
-    gen = torch.Generator("cuda").manual_seed(1)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(dt)
-
-    x, g = randn(2, 8, 9, 10, 11), randn(2, 8, 9, 10, 11)
-    w, b = randn(8), randn(8)
-    for kind in ("ln", "rms"):
-        _, mean, rstd = fn.norm_silu_fwd(x, w, b, kind)
-        kernels.reset_launches()
-        got = fn.norm_silu_bwd(g, x, mean, rstd, w, b, kind)
-        assert kernels.LAUNCHES["norm_silu_bwd"] == 1
-        for o, r in zip(got, fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b,
-                                                    kind)):
-            torch.testing.assert_close(o.float(), r.float(), **tol)
-    for shape in ((1, 2, 333, 40), (2, 1, 4097, 16)):
-        q, k, v, do = (randn(*shape) * 0.5 for _ in range(4))
-        o, lse = fa.flash_attention_fwd(q, k, v)
-        kernels.reset_launches()
-        got = fa.flash_attention_bwd(q, k, v, o, lse, do)
-        assert kernels.LAUNCHES["flash_attention_dq"] == 1
-        assert kernels.LAUNCHES["flash_attention_dkv"] == 1
-        for o_, r in zip(got, fa.flash_attention_bwd_plain(q, k, v, o, lse,
-                                                           do)):
-            torch.testing.assert_close(o_.float(), r.float(), **tol)
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 32, 32, 3), (3, 1001)])
-def test_fused_lincomb3_matches_plain_on_card(shape):
-    """K7 in every dtype combination of x, f and g, at configuration C's
-    sampler shape and a ragged one: bit for bit in f32 (both round
-    (a·x + b·f) + c·g term by term), |Δ| <= 2e-2 + 2e-2·|ref| with bf16."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the kernels are CUDA only")
-    from diffsci_tpu_torch import kernels
-    gen = torch.Generator("cuda").manual_seed(2)
-    dts = (torch.float32, torch.bfloat16)
-    a, b, c = (torch.randn(shape[0], generator=gen, device="cuda")
-               for _ in range(3))
-    kernels.reset_launches()
-    for dx in dts:
-        for df in dts:
-            for dg in dts:
-                x, f, g = (torch.randn(shape, generator=gen,
-                                       device="cuda").to(dt)
-                           for dt in (dx, df, dg))
-                out = fp.fused_lincomb3(x, f, g, a, b, c)
-                ref = fp.fused_lincomb3_plain(x, f, g, a, b, c)
-                assert out.dtype == dx
-                if dx == df == dg == torch.float32:
-                    assert torch.equal(out, ref)
-                else:
-                    torch.testing.assert_close(out.float(), ref.float(),
-                                               rtol=2e-2, atol=2e-2)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["fused_lincomb3"] == 8
