@@ -11,15 +11,20 @@ Phases (any failure raises, so the exit code is non-zero):
    per source, in parallel), check each against its plain PyTorch version
    on the card at the main paths' shapes in float32 and bfloat16 (the
    backward kernels K3, K5 and K6 on the forward kernels' own saved
-   statistics, the flash kernels over a sweep of T and head dims; K7 in
-   every dtype combination of its three inputs, bit for bit in float32),
-   check that the bf16 K4 and K6 hold tensor-core instructions
-   (``cuobjdump -sass``) and that bf16 K6 gives one result twice, and time
-   the kernel, its plain version, the least time the card could take
-   (``bound_ms``) and, where one PyTorch call computes the same function,
-   that call (``library_ms``; for K4-K6 the median of 5 timed loops, SDPA
-   pinned to its flash backend, with the SFU floor of their exponentials
-   printed beside the bound).
+   statistics; the norms also on unaligned rows, an unaligned base,
+   off-centre inputs and rows beyond a cluster's shared memory; the flash
+   kernels over a sweep of T and head dims; K7 in every dtype combination
+   of its three inputs, bit for bit in float32), check that the bf16 K4,
+   K5 and K6 hold tensor-core instructions (``cuobjdump -sass``) and that
+   bf16 K5 and K6 give one result twice, and time the kernel, its plain
+   version, the least time the card could take (``bound_ms``) and, where
+   one PyTorch call computes the same function, that call (``library_ms``;
+   for K4-K6 the median of 5 timed loops, SDPA pinned to its flash
+   backend, with the SFU floor of their exponentials printed beside the
+   bound). K1, K2, K3 and K7 are also timed by their device time alone
+   (torch.profiler), since back to back their time is the host's launch
+   rate; K2 also at configuration A's serving bucket 1, beside
+   ``F.group_norm`` + ``F.silu`` (two calls).
 2. Card vs CPU, sampling: a small configuration-A-shaped net (3D 32³,
    flash attention over 4096 tokens) samples a few Heun steps from the
    same weights and the same numpy noise on the CPU (plain versions) and
@@ -93,6 +98,9 @@ DDPM_STEPS = 1000          # the classical schedule's own T
 FORWARD = ("fused_axby", "norm_silu", "flash_attention")
 TRAIN = ("norm_silu", "norm_silu_bwd", "flash_attention",
          "flash_attention_dq", "flash_attention_dkv")
+# parts of the port's CUDA kernels' names, for the profile's lines
+PORT_KERNELS = ("axby_kernel", "lincomb3_kernel", "norm_silu_",
+                "flash_fwd", "flash_dq", "flash_dkv")
 
 
 def log(msg: str) -> None:
@@ -113,6 +121,44 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_us(evt) -> float:
+    """A profiler event's own device time, in µs."""
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, iters: int, names=None) -> float:
+    """Device time per call: the summed durations of the kernels that
+    ``iters`` calls of ``fn`` launch (those whose names contain one of
+    ``names``; every kernel when None), from torch.profiler, after a
+    warm-up. Unlike ``cuda_ms`` it leaves out the host's time between
+    launches. A trace that holds no device event at all is taken again,
+    three times at most: the tracer has returned one such empty trace
+    among some 60 in one process (scripts/torch_norm_variants.py)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        if events:
+            break
+    total = sum(device_us(e) for e in events
+                if names is None or any(n in e.key for n in names))
+    if total == 0:
+        raise AssertionError(f"the profiler saw no device time of {names}")
+    return total / iters / 1e3
 
 
 def cuda_ms_spread(fn, iters: int, repeats: int = 5):
@@ -276,28 +322,49 @@ def phase_kernels():
                    err, ok, "0 (bit for bit)" if dx == torch.float32 else
                    "2e-2+2e-2|ref|")
 
-    # config A serves and trains at batch 4; config B serves at bucket 64
-    # and trains at batch 256
-    norm_shapes = [(4, 32, 32, 32, 32), (4, 64, 16, 16, 16),
-                   (64, 64, 28, 28), (64, 128, 14, 14), (64, 256, 7, 7),
-                   (256, 64, 28, 28), (256, 128, 14, 14), (256, 256, 7, 7)]
-    for shape in norm_shapes:
+    # config A serves and trains at batch 4 (and serves at bucket 1);
+    # config B serves at bucket 64 and trains at batch 256; rows that are
+    # not 16-byte aligned (S = 49, 1001) and an x whose base is not (a view
+    # at an element offset of 1); off-centre inputs (|μ| = 100σ); rows
+    # beyond a cluster's shared memory (f32 [1, 2, 300000]: the stream
+    # kernel). (shape, scale, shift, offset)
+    norm_cases = [((4, 32, 32, 32, 32), 2.0, 0.3, 0),
+                  ((4, 64, 16, 16, 16), 2.0, 0.3, 0),
+                  ((1, 32, 32, 32, 32), 2.0, 0.3, 0),
+                  ((64, 64, 28, 28), 2.0, 0.3, 0),
+                  ((64, 128, 14, 14), 2.0, 0.3, 0),
+                  ((64, 256, 7, 7), 2.0, 0.3, 0),
+                  ((256, 64, 28, 28), 2.0, 0.3, 0),
+                  ((256, 128, 14, 14), 2.0, 0.3, 0),
+                  ((256, 256, 7, 7), 2.0, 0.3, 0),
+                  ((3, 5, 7, 7), 2.0, 0.3, 0), ((2, 3, 1001), 2.0, 0.3, 0),
+                  ((2, 3, 1001), 2.0, 0.3, 1), ((64, 64, 28, 28), 2.0, 0.3, 1),
+                  ((1, 32, 32, 32, 32), 2.0, 0.3, 1),
+                  ((1, 32, 32, 32, 32), 1.0, 100.0, 0),
+                  ((64, 256, 7, 7), 1.0, 100.0, 0),
+                  ((1, 2, 300000), 2.0, 0.3, 0)]
+    for shape, scale, shift, offset in norm_cases:
         for kind in ("ln", "rms"):
             for dtype in (torch.float32, torch.bfloat16):
                 C = shape[1]
-                x = randn(shape, dtype, gen, 2.0, 0.3)
+                n = int(np.prod(shape))
+                x = randn(n + offset, dtype, gen, scale, shift)[offset:] \
+                    .view(shape)
                 w = randn((C,), dtype, gen, 0.2, 1.0)
                 b = randn((C,), dtype, gen, 0.1)
                 y, mean, rstd = fn.norm_silu_fwd(x, w, b, kind)
                 ry, rmean, rrstd = fn.norm_silu_plain(x, w, b, kind)
                 err, ok = within(y, ry, dtype, 1e-4)
+                # the statistics within 1e-4 relative: the mean to
+                # max(1, |mean|), rstd to itself
                 serr = float(torch.maximum(
-                    (mean - rmean).abs().max(),
+                    ((mean - rmean).abs() / rmean.abs().clamp(min=1)).max(),
                     ((rstd - rrstd).abs() / rrstd).max()))
                 ok = ok and serr <= 1e-4
-                record("norm_silu", f"{list(shape)} {kind} (stats "
-                       f"{serr:.1e})", dtype, err, ok,
-                       "1e-4" if dtype == torch.float32 else
+                label = (f"{list(shape)}{' +1' if offset else ''}"
+                         f"{' shift 100' if shift == 100.0 else ''} {kind}")
+                record("norm_silu", f"{label} (stats {serr:.1e})", dtype,
+                       err, ok, "1e-4" if dtype == torch.float32 else
                        "2e-2+2e-2|ref|")
                 # K3 on the forward's own statistics
                 g = randn(shape, dtype, gen)
@@ -305,7 +372,7 @@ def phase_kernels():
                     fn.norm_silu_bwd(g, x, mean, rstd, w, b, kind),
                     fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b, kind),
                     dtype)
-                record("norm_silu_bwd", f"{list(shape)} {kind} (dx, dw, db; "
+                record("norm_silu_bwd", f"{label} (dx, dw, db; "
                        f"max|Δ|/max|ref| {ratio:.1e})", dtype, err, ok,
                        GRAD_LIMIT)
 
@@ -323,36 +390,39 @@ def phase_kernels():
                    f"{ratio:.1e}, largest |Δ|/limit {share:.2f}; lse "
                    f"{lerr:.1e}, limit 1e-3)", dtype, err,
                    share <= 1 and lerr <= 1e-3, ATTN_LIMIT)
-            # K5 and K6 on the forward's own O and lse
+            # K5 and K6 on the forward's own O and lse; in bf16 at config
+            # A's shape each runs twice and must give the same bits (one
+            # writer per output tile, no atomics)
             do = randn(shape, dtype, gen)
             delta = (do.float() * o.float()).sum(-1)
-            err, ok, ratio = within_grad(
-                [fa.flash_attention_dq(q, k, v, do, lse, delta)],
-                [fa.flash_attention_dq_plain(q, k, v, do, lse, delta)], dtype)
-            record("flash_attention_dq", f"{list(shape)} (dQ; "
-                   f"max|Δ|/max|ref| {ratio:.1e})", dtype, err, ok,
-                   GRAD_LIMIT)
-            dkv = fa.flash_attention_dkv(q, k, v, do, lse, delta)
-            err, ok, ratio = within_grad(
-                dkv, fa.flash_attention_dkv_plain(q, k, v, do, lse, delta),
-                dtype)
-            if dtype == torch.bfloat16 and shape == FLASH_SWEEP[0]:
-                # one writer per output tile, no atomics: bit for bit again
-                again = fa.flash_attention_dkv(q, k, v, do, lse, delta)
-                same = all(torch.equal(a, b) for a, b in zip(dkv, again))
-                log(f"[kernels] flash_attention_dkv {list(shape)} bfloat16 "
-                    f"twice: {'bit-identical' if same else 'DIFFERENT'}")
-                ok = ok and same
-            record("flash_attention_dkv", f"{list(shape)} (dK, dV; "
-                   f"max|Δ|/max|ref| {ratio:.1e})", dtype, err, ok,
-                   GRAD_LIMIT)
+            twice = dtype == torch.bfloat16 and shape == FLASH_SWEEP[0]
+            for name, kernel, plain, what in (
+                    ("flash_attention_dq", fa.flash_attention_dq,
+                     fa.flash_attention_dq_plain, "dQ"),
+                    ("flash_attention_dkv", fa.flash_attention_dkv,
+                     fa.flash_attention_dkv_plain, "dK, dV")):
+                got = kernel(q, k, v, do, lse, delta)
+                got = got if isinstance(got, tuple) else (got,)
+                ref = plain(q, k, v, do, lse, delta)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                err, ok, ratio = within_grad(got, ref, dtype)
+                if twice:
+                    again = kernel(q, k, v, do, lse, delta)
+                    again = again if isinstance(again, tuple) else (again,)
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    log(f"[kernels] {name} {list(shape)} bfloat16 twice: "
+                        f"{'bit-identical' if same else 'DIFFERENT'}")
+                    ok = ok and same
+                record(name, f"{list(shape)} ({what}; max|Δ|/max|ref| "
+                       f"{ratio:.1e})", dtype, err, ok, GRAD_LIMIT)
 
-    # the bf16 K4 and K6 run on the tensor cores
+    # the bf16 K4, K5 and K6 run on the tensor cores
     counts = tensor_core_counts()
     for kernel, per_instance in sorted(counts.items()):
         log(f"[kernels] sass {kernel}: HMMA/HGMMA per instantiation "
             f"{sorted(per_instance)}")
-    for kernel in ("flash_fwd_mma_kernel", "flash_dkv_mma_kernel"):
+    for kernel in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
+                   "flash_dkv_mma_kernel"):
         if min(counts.get(kernel, [0])) == 0:
             failures.append(f"{kernel}: no tensor-core instructions")
     if failures:
@@ -369,6 +439,8 @@ def phase_kernels():
     records["fused_axby"] = dict(
         shape="x, f [64, 28, 28, 1] float32 (config B, bucket 64)",
         ms=cuda_ms(lambda: fp.fused_axby(x, f, a, b), 200),
+        device_ms=device_ms(lambda: fp.fused_axby(x, f, a, b), 200,
+                            ("axby_kernel",)),
         plain_ms=cuda_ms(lambda: fp.fused_axby_plain(x, f, a, b), 200),
         library_ms=None, bound_ms=bms, bound_by=bby)
 
@@ -380,23 +452,43 @@ def phase_kernels():
     records["fused_lincomb3"] = dict(
         shape="x, ε, noise [16, 32, 32, 3] float32 (config C, bucket 16)",
         ms=cuda_ms(lambda: fp.fused_lincomb3(x, f, g, a, b, c), 200),
+        device_ms=device_ms(lambda: fp.fused_lincomb3(x, f, g, a, b, c),
+                            200, ("lincomb3_kernel",)),
         plain_ms=cuda_ms(lambda: fp.fused_lincomb3_plain(x, f, g, a, b, c),
                          200),
         library_ms=None, bound_ms=bms, bound_by=bby)
 
-    shape = (4, 32, 32, 32, 32)
-    x = randn(shape, torch.bfloat16, gen, 2.0, 0.3)
-    w = randn((32,), torch.bfloat16, gen, 0.2, 1.0)
-    b = randn((32,), torch.bfloat16, gen, 0.1)
-    n = x.numel()
-    # 10 flops per element: mean, centred square, normalise, affine, SiLU
-    bms, bby = bound(2 * 2 * n + 2 * 2 * 32 + 2 * 4 * 4 * 32, 10 * n,
-                     torch.float32)
-    records["norm_silu"] = dict(
-        shape="x [4, 32, 32, 32, 32] bf16 'ln' (config A, bucket 4)",
-        ms=cuda_ms(lambda: fn.norm_silu(x, w, b, "ln"), 50),
-        plain_ms=cuda_ms(lambda: fn.norm_silu_plain(x, w, b, "ln"), 50),
-        library_ms=None, bound_ms=bms, bound_by=bby)
+    # K2 at config A's largest norm, and at its serving bucket 1 (32 rows:
+    # the cluster split); GroupNorm + SiLU, two PyTorch calls, beside it
+    k2_names = ("norm_silu_rows", "norm_silu_cluster", "norm_silu_stream")
+    for batch in (4, 1):
+        shape = (batch, 32, 32, 32, 32)
+        x = randn(shape, torch.bfloat16, gen, 2.0, 0.3)
+        w = randn((32,), torch.bfloat16, gen, 0.2, 1.0)
+        b = randn((32,), torch.bfloat16, gen, 0.1)
+        n = x.numel()
+        # 10 flops per element: mean, centred square, normalise, affine,
+        # SiLU
+        bms, bby = bound(2 * 2 * n + 2 * 2 * 32 + 2 * 4 * batch * 32,
+                         10 * n, torch.float32)
+        rec = dict(
+            shape=f"x [{batch}, 32, 32, 32, 32] bf16 'ln' (config A, "
+                  f"bucket {batch})",
+            ms=cuda_ms(lambda: fn.norm_silu(x, w, b, "ln"), 50),
+            device_ms=device_ms(lambda: fn.norm_silu(x, w, b, "ln"), 50,
+                                k2_names),
+            plain_ms=cuda_ms(lambda: fn.norm_silu_plain(x, w, b, "ln"), 50),
+            library_ms=None, bound_ms=bms, bound_by=bby)
+
+        def two_calls():
+            return F.silu(F.group_norm(x, 32, w, b, 1e-5))
+
+        rec["group_norm_silu"] = (cuda_ms(two_calls, 50),
+                                  device_ms(two_calls, 50))
+        if batch == 4:
+            records["norm_silu"] = rec
+        else:
+            bucket1 = rec
 
     shape = (4, 2, 4096, 32)
     q, k, v = (randn(shape, torch.bfloat16, gen) for _ in range(3))
@@ -438,6 +530,9 @@ def phase_kernels():
         shape="g, x [4, 32, 32, 32, 32] bf16 'ln' (config A, train batch 4)",
         ms=cuda_ms(lambda: fn.norm_silu_bwd(g, x, mean, rstd, w, b, "ln"),
                    50),
+        device_ms=device_ms(
+            lambda: fn.norm_silu_bwd(g, x, mean, rstd, w, b, "ln"), 50,
+            ("norm_silu_bwd",)),
         plain_ms=cuda_ms(
             lambda: fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b, "ln"), 50),
         library_ms=None, bound_ms=bms, bound_by=bby)
@@ -471,14 +566,24 @@ def phase_kernels():
         lambda: fa.flash_attention_dkv_plain(q, k, v, do, lse, delta),
         lambda: sdpa_bwd_ms((1, 2)), reads + 2 * 2 * BH * T * d,
         8 * BH * T * T * d)
+    timed = []
     for name, rec in records.items():
+        timed += [(name, rec)] + ([(name, bucket1)] if name == "norm_silu"
+                                  else [])
+    for name, rec in timed:
         rec["max_abs_err"] = errs[name]
         spread = " (median of 5, {:.4f}-{:.4f})"
         ms = f"{rec['ms']:.4f} ms" + (spread.format(*rec["ms_range"])
                                       if "ms_range" in rec else "")
+        if "device_ms" in rec:
+            ms += (f" back to back (the host's launch rate), device "
+                   f"{rec['device_ms']:.4f} ms")
         lib = ("" if rec["library_ms"] is None else
                f", library {rec['library_ms']:.4f} ms"
                + spread.format(*rec["library_range"]))
+        if "group_norm_silu" in rec:
+            lib += (", F.group_norm + F.silu (two calls) {:.4f} ms back to "
+                    "back, device {:.4f} ms").format(*rec["group_norm_silu"])
         sfu = (f", SFU floor {rec['sfu_ms']:.4f} ms" if "sfu_ms" in rec
                else "")
         log(f"[kernels] time {name} at {rec['shape']}: {ms}, plain "
@@ -851,10 +956,6 @@ def profile_call(label, what, fn, top=8):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def device_us(evt):
-        return getattr(evt, "self_device_time_total",
-                       getattr(evt, "self_cuda_time_total", 0.0))
-
     # a range annotated on the device (the optimizer's step) spans kernels
     # that are counted on their own
     kernels = [e for e in prof.key_averages()
@@ -864,9 +965,12 @@ def profile_call(label, what, fn, top=8):
     log(f"[profile {label}] {what}: wall {wall:.4f} s, device kernels "
         f"{busy:.4f} s, idle share {1 - busy / wall:.3f}, "
         f"{sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=device_us, reverse=True)[:top]:
-        log(f"[profile {label}]   {device_us(e) / 1e3:9.3f} ms "
-            f"{device_us(e) / 1e6 / busy:6.1%} x{e.count:<6} {e.key[:90]}")
+    # the heaviest kernels, and the port's own kernels wherever they rank
+    for rank, e in enumerate(sorted(kernels, key=device_us, reverse=True)):
+        if rank < top or any(n in e.key for n in PORT_KERNELS):
+            log(f"[profile {label}] {rank + 1:3d} {device_us(e) / 1e3:9.3f}"
+                f" ms {device_us(e) / 1e6 / busy:6.1%} x{e.count:<6} "
+                f"{e.key[:90]}")
 
 
 def main() -> int:

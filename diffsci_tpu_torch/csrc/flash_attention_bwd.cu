@@ -17,6 +17,20 @@
 // output tile has one block as its only writer and sums in f32 registers:
 // no atomics, so one input gives one result.
 //
+// K5 in bfloat16 (flash_dq_mma_kernel): tensor cores, on K4's pattern.
+// Each of kMmaWarps warps owns 16 query rows and keeps their Q and dO A
+// fragments, lse log2(e) and delta in registers for the whole loop; K and
+// V tiles stream through a double-buffered cp.async ring in bf16 shared
+// memory (flash_mma.cuh). Per tile, on mma.sync with f32 accumulators:
+// S = Q K^T and dP = dO V^T (K and V read as B fragments of their rows);
+// P = exp2(S scale log2(e) - lse log2(e)) in registers (fast_exp2), 0 for
+// keys past T in the last tile only; dS = P (dP - delta) rounded to bf16
+// as A fragments, where the Pallas kernel casts ds to the input dtype
+// (flash_attention.py:179); dQ += dS K with K through ldmatrix.trans. dQ
+// stays in f32 registers; the scale is applied once and it is written
+// once. The key tile shrinks with D (kDqKeys) to keep S, dP, dQ and the
+// fragments in registers.
+//
 // K6 in bfloat16 (flash_dkv_mma_kernel): tensor cores. Each of kMmaWarps
 // warps owns 16 key rows; Q and dO tiles (with their lse and delta) stream
 // through a double-buffered cp.async ring in bf16 shared memory
@@ -25,16 +39,17 @@
 // (fast_exp2); dV += P^T dO with P^T rounded to bf16 as A fragments and dO
 // through ldmatrix.trans; dP^T = V dO^T; dS^T = P^T (dP^T - delta) rounded
 // to bf16 in registers; dK += dS^T Q with Q through ldmatrix.trans. Q and
-// dO are each read plainly and transposed from one shared tile. The bf16 roundings
-// are the Pallas kernel's (flash_attention.py:209, 211: p and ds cast to
+// dO are each read plainly and transposed from one shared tile. The bf16
+// roundings are the Pallas kernel's (flash_attention.py:209, 211: p and ds cast to
 // the input dtype before the MXU). dK and dV stay in f32 registers; the
 // scale is applied once and each is written once. Padded query rows are
 // zeros with lse = delta = 0, so they add exactly 0. wgmma/TMA and warp
-// specialisation are later work: at d = 32 the exponentials set the floor.
+// specialisation are later work for both: at d = 32 the exponentials set
+// the floor.
 //
-// K5 (both dtypes) and K6 in float32: the FP32 pipes. Four threads share a
-// row of the block's own tile; each scores a quarter of the other tile's
-// rows and owns a quarter of the output columns, as in K4's f32 kernel.
+// K5 and K6 in float32: the FP32 pipes. Four threads share a row of the
+// block's own tile; each scores a quarter of the other tile's rows and
+// owns a quarter of the output columns, as in K4's f32 kernel.
 // Scores are taken in the log2 domain (one side pre-scaled by
 // log2(e)/sqrt(d), lse by log2(e)). f32 keeps full f32 products: TF32 or
 // bf16 tensor cores would not hold the 1e-4 checks against the plain
@@ -44,8 +59,8 @@
 // P = 0 or add 0, and are never stored. Head dims below the template's D
 // are zero-padded in shared memory only.
 //
-// Tile constants, conversions and dispatch: flash_common.cuh, shared with
-// K4; tensor-core pieces: flash_mma.cuh. Plain C interface, built with
+// f32 tile constants and dispatch: flash_common.cuh, shared with K4;
+// tensor-core pieces: flash_mma.cuh. Plain C interface, built with
 // nvcc and loaded with ctypes.
 
 #include <cuda_runtime.h>
@@ -62,8 +77,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Stage rows [r0, r0 + kBK) of src [seq_len, head_dim] into dst
 // [kBK][D + 4] as f32 times `mul`; rows past seq_len and columns past
 // head_dim are 0.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void stage(float* dst,
+                                      const float* __restrict__ src,
                                       int r0, int seq_len, int head_dim,
                                       float mul) {
   constexpr int LD = D + 4;
@@ -71,7 +87,7 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
     const int rr = i / D, cc = i % D, ri = r0 + rr;
     float val = 0.f;
     if (ri < seq_len && cc < head_dim)
-      val = to_f32(src[(size_t)ri * head_dim + cc]) * mul;
+      val = src[(size_t)ri * head_dim + cc] * mul;
     dst[rr * LD + cc] = val;
   }
 }
@@ -88,13 +104,15 @@ constexpr int dkv_smem_floats() {
   return (2 * kBK + 2 * kBQ) * (D + 4) + 2 * kBK * kLDP + 2 * kBQ;
 }
 
-// K5. acc[chunk] accumulates row r's dQ over columns 4 * (t + kTPR * ch).
-template <typename T, int D>
+// K5 in float32. acc[chunk] accumulates row r's dQ over columns
+// 4 * (t + kTPR * ch).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int seq_len, int head_dim, float scale) {
   constexpr int LD = D + 4;
   constexpr int CPT = D / (4 * kTPR);  // float4 output chunks per thread
@@ -114,8 +132,8 @@ __global__ void __launch_bounds__(kThreads)
   const size_t bh = blockIdx.y;
   const size_t base = bh * seq_len * head_dim;
 
-  stage<T, D>(Qs, q + base, q0, seq_len, head_dim, kLog2e * scale);
-  stage<T, D>(dOs, dout + base, q0, seq_len, head_dim, 1.f);
+  stage<D>(Qs, q + base, q0, seq_len, head_dim, kLog2e * scale);
+  stage<D>(dOs, dout + base, q0, seq_len, head_dim, 1.f);
   const float lse2 = qi < seq_len ? lse[bh * seq_len + qi] * kLog2e : 0.f;
   const float dl = qi < seq_len ? delta[bh * seq_len + qi] : 0.f;
 
@@ -125,8 +143,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = 0; k0 < seq_len; k0 += kBK) {
     __syncthreads();  // Q, dO staged; the previous K/V tile no longer read
-    stage<T, D>(Ks, k + base, k0, seq_len, head_dim, 1.f);
-    stage<T, D>(Vs, v + base, k0, seq_len, head_dim, 1.f);
+    stage<D>(Ks, k + base, k0, seq_len, head_dim, 1.f);
+    stage<D>(Vs, v + base, k0, seq_len, head_dim, 1.f);
     __syncthreads();
 
     // scores and dP of keys t, t + 4, t + 8, ... of this tile
@@ -183,7 +201,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 4 * (t + kTPR * ch) + e;
-        if (c < head_dim) dq[row + c] = from_f32<T>(acc[4 * ch + e] * scale);
+        if (c < head_dim) dq[row + c] = acc[4 * ch + e] * scale;
       }
     }
   }
@@ -221,8 +239,8 @@ __global__ void __launch_bounds__(kThreads)
   const size_t bh = blockIdx.y;
   const size_t base = bh * seq_len * head_dim;
 
-  stage<float, D>(Ks, k + base, k0, seq_len, head_dim, kLog2e * scale);
-  stage<float, D>(Vs, v + base, k0, seq_len, head_dim, 1.f);
+  stage<D>(Ks, k + base, k0, seq_len, head_dim, kLog2e * scale);
+  stage<D>(Vs, v + base, k0, seq_len, head_dim, 1.f);
 
   float dk_acc[4 * CPT], dv_acc[4 * CPT];
 #pragma unroll
@@ -230,8 +248,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int q0 = 0; q0 < seq_len; q0 += kBQ) {
     __syncthreads();  // K, V staged; the previous Q/dO tile no longer read
-    stage<float, D>(Qs, q + base, q0, seq_len, head_dim, 1.f);
-    stage<float, D>(dOs, dout + base, q0, seq_len, head_dim, 1.f);
+    stage<D>(Qs, q + base, q0, seq_len, head_dim, 1.f);
+    stage<D>(dOs, dout + base, q0, seq_len, head_dim, 1.f);
     if (tid < kBQ) {
       const int qi = q0 + tid;
       lse2s[tid] = qi < seq_len ? lse[bh * seq_len + qi] * kLog2e : 0.f;
@@ -530,43 +548,231 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// K5 in bf16. Key tiles of BK rows: the S and dP tiles (16 x BK each) take
+// BK f32 registers a thread beside dQ (D / 2) and the Q and dO fragments
+// (D / 2): about 128 at D <= 64 with BK = 64, 160 at D = 128 with BK = 32
+// (scripts/torch_flash_variants.py times FLASH_DQ_KEYS).
+#ifndef FLASH_DQ_KEYS
+#define FLASH_DQ_KEYS 64
+#endif
+template <int D>
+constexpr int kDqKeys = D <= 64 ? FLASH_DQ_KEYS : 32;
+
+template <int D>
+constexpr int dq_mma_smem_bytes() {
+  // Q and dO (own, staged once for the fragments), a ring of two K and V
+  // tiles
+  return (2 * kMmaRows + 4 * kDqKeys<D>) * kMmaLd<D> * 2;
+}
+
+template <int D, bool kAsync>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int seq_len,
+                        int head_dim, float scale) {
+  constexpr int LD = kMmaLd<D>;
+  constexpr int BK = kDqKeys<D>;
+  constexpr int KT = D / 16;   // k16 steps over the head dim
+  constexpr int NT = D / 8;    // n8 tiles of dQ's columns
+  constexpr int ST = BK / 8;   // n8 tiles of a key tile
+  constexpr int TILE = BK * LD;
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+  __nv_bfloat16* dOs = Qs + kMmaRows * LD;
+  __nv_bfloat16* Ks = dOs + kMmaRows * LD;  // [2][BK][LD]
+  __nv_bfloat16* Vs = Ks + 2 * TILE;        // [2][BK][LD]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * kMmaRows;
+  const size_t bh = blockIdx.y;
+  const size_t base = bh * seq_len * head_dim;
+  const int ntiles = (seq_len + BK - 1) / BK;
+  const float scale_log2 = scale * kLog2e;
+
+  load_tile<kMmaRows, D, kAsync>(Qs, q + base, q0, seq_len, head_dim);
+  load_tile<kMmaRows, D, kAsync>(dOs, dout + base, q0, seq_len, head_dim);
+  load_tile<BK, D, kAsync>(Ks, k + base, 0, seq_len, head_dim);
+  load_tile<BK, D, kAsync>(Vs, v + base, 0, seq_len, head_dim);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // this warp's 16 query rows: Q and dO A fragments, and lse·log2(e) and
+  // delta of rows lane / 4 and lane / 4 + 8 (0 past T: never stored)
+  uint32_t qa[KT][4], da[KT][4];
+#pragma unroll
+  for (int ks = 0; ks < KT; ++ks) {
+    const int off = warp * 16 * LD + ks * 16 + a_frag_offset(lane, LD);
+    ldmatrix_x4(qa[ks], Qs + off);
+    ldmatrix_x4(da[ks], dOs + off);
+  }
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + lane / 4 + 8 * r;
+    l2[r] = qi < seq_len ? lse[bh * seq_len + qi] * kLog2e : 0.f;
+    dl[r] = qi < seq_len ? delta[bh * seq_len + qi] : 0.f;
+  }
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {  // the buffer that tile t - 1 used
+      const int nb = (t + 1) & 1;
+      load_tile<BK, D, kAsync>(Ks + nb * TILE, k + base, (t + 1) * BK,
+                               seq_len, head_dim);
+      load_tile<BK, D, kAsync>(Vs + nb * TILE, v + base, (t + 1) * BK,
+                               seq_len, head_dim);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* Kt = Ks + (t & 1) * TILE;
+    const __nv_bfloat16* Vt = Vs + (t & 1) * TILE;
+
+    // S = Q K^T and dP = dO V^T: rows are this warp's queries, columns the
+    // tile's keys; K and V are both read as B fragments of their rows
+    float s[ST][4], dp[ST][4];
+#pragma unroll
+    for (int n = 0; n < ST; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KT; ++ks) {
+#pragma unroll
+      for (int np = 0; np < ST / 2; ++np) {
+        const int off = np * 16 * LD + ks * 16 + b_frag_offset(lane, LD);
+        uint32_t b[4];
+        ldmatrix_x4(b, Kt + off);
+        mma_16816(s[2 * np], qa[ks], b[0], b[1]);
+        mma_16816(s[2 * np + 1], qa[ks], b[2], b[3]);
+        ldmatrix_x4(b, Vt + off);
+        mma_16816(dp[2 * np], da[ks], b[0], b[1]);
+        mma_16816(dp[2 * np + 1], da[ks], b[2], b[3]);
+      }
+    }
+    // P = exp2(S scale log2(e) - lse log2(e)), 0 for keys past T (last
+    // tile only); dS = P (dP - delta), in place of dP. Columns (keys)
+    // n * 8 + 2 (lane % 4) + {0, 1}, rows lane / 4 (i < 2) and + 8.
+    const int k0 = t * BK;
+    const bool ragged = k0 + BK > seq_len;
+#pragma unroll
+    for (int n = 0; n < ST; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = fast_exp2(fmaf(s[n][i], scale_log2, -l2[i / 2]));
+        if (ragged && k0 + n * 8 + (lane % 4) * 2 + (i % 2) >= seq_len)
+          p = 0.f;
+        dp[n][i] = p * (dp[n][i] - dl[i / 2]);
+      }
+    }
+    // dQ += dS K: dS rounded to bf16 as A fragments (the Pallas kernel's
+    // cast, flash_attention.py:179), K through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < ST / 2; ++kk) {
+      uint32_t dsa[4];
+      a_from_c(dsa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, Kt + kk * 16 * LD + np * 16 + bt_frag_offset(lane, LD));
+        mma_16816(acc[2 * np], dsa, b[0], b[1]);
+        mma_16816(acc[2 * np + 1], dsa, b[2], b[3]);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // tile t + 1 landed; tile t no longer read
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + lane / 4 + 8 * r;
+    if (qi >= seq_len) continue;
+    const size_t row = base + (size_t)qi * head_dim;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n * 8 + (lane % 4) * 2 + e;
+        if (c < head_dim)
+          dq[row + c] = __float2bfloat16(acc[n][2 * r + e] * scale);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, int bh, int seq_len,
+                          int head_dim, float scale, cudaStream_t stream) {
+  auto* kernel = rows_aligned(head_dim, {q, k, v, dout})
+                     ? flash_dq_mma_kernel<D, true>
+                     : flash_dq_mma_kernel<D, false>;
+  const int smem = dq_mma_smem_bytes<D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_len + kMmaRows - 1) / kMmaRows, bh);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), seq_len, head_dim, scale);
+  return cudaGetLastError();
+}
+
 // which = 0 launches K5 (out0 = dq), which = 1 launches K6 (out0 = dk,
-// out1 = dv): the tensor-core kernel in bf16, the FP32 one in f32.
+// out1 = dv): the tensor-core kernels in bf16, the FP32 ones in f32.
 template <typename T, int D>
 cudaError_t launch(int which, const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* out0, void* out1, int bh, int seq_len, int head_dim,
                    float scale, cudaStream_t stream) {
-  const dim3 grid((seq_len + kBQ - 1) / kBQ, bh);
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* do_ = static_cast<const T*>(dout);
-  const float* lse_ = static_cast<const float*>(lse);
-  const float* delta_ = static_cast<const float*>(delta);
-  if (which == 0) {
-    const int smem = dq_smem_floats<D>() * (int)sizeof(float);
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    flash_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        q_, k_, v_, do_, lse_, delta_, static_cast<T*>(out0), seq_len,
-        head_dim, scale);
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_dkv_mma<D>(q, k, v, dout, lse, delta, out0, out1, bh,
-                             seq_len, head_dim, scale, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return which == 0 ? launch_dq_mma<D>(q, k, v, dout, lse, delta, out0, bh,
+                                         seq_len, head_dim, scale, stream)
+                      : launch_dkv_mma<D>(q, k, v, dout, lse, delta, out0,
+                                          out1, bh, seq_len, head_dim, scale,
+                                          stream);
   } else {
-    const int smem = dkv_smem_floats<D>() * (int)sizeof(float);
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    flash_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
-        q_, k_, v_, do_, lse_, delta_, static_cast<float*>(out0),
-        static_cast<float*>(out1), seq_len, head_dim, scale);
+    const dim3 grid((seq_len + kBQ - 1) / kBQ, bh);
+    const float* q_ = static_cast<const float*>(q);
+    const float* k_ = static_cast<const float*>(k);
+    const float* v_ = static_cast<const float*>(v);
+    const float* do_ = static_cast<const float*>(dout);
+    const float* lse_ = static_cast<const float*>(lse);
+    const float* delta_ = static_cast<const float*>(delta);
+    if (which == 0) {
+      const int smem = dq_smem_floats<D>() * (int)sizeof(float);
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != cudaSuccess) return err;
+      flash_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+          q_, k_, v_, do_, lse_, delta_, static_cast<float*>(out0), seq_len,
+          head_dim, scale);
+    } else {
+      const int smem = dkv_smem_floats<D>() * (int)sizeof(float);
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != cudaSuccess) return err;
+      flash_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+          q_, k_, v_, do_, lse_, delta_, static_cast<float*>(out0),
+          static_cast<float*>(out1), seq_len, head_dim, scale);
+    }
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 cudaError_t launch_any(int which, const void* q, const void* k,
@@ -583,7 +789,7 @@ cudaError_t launch_any(int which, const void* q, const void* k,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (K6 on the tensor cores); q, k,
+// dtype codes: 0 = float32, 1 = bfloat16 (the tensor cores); q, k,
 // v, dout and the outputs share it; lse and delta are f32 [bh, seq_len].
 // head_dim <= 128, bh <= 65535, scale = 1 / sqrt(head_dim). Each returns
 // a cudaError_t.

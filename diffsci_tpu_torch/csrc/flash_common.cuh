@@ -1,8 +1,7 @@
 // Shared by the flash-attention kernels, K4 (flash_attention.cu) and K5/K6
-// (flash_attention_bwd.cu): the tile layout, the f32 <-> storage-type
-// conversions and the dispatch from the dtype code and head dim to the
-// kernels' template arguments. A change to any of these reaches all three
-// kernels.
+// (flash_attention_bwd.cu): the tile layout of their float32 kernels and
+// the dispatch from the dtype code and head dim to the kernels' template
+// arguments. A change to either reaches all three kernels.
 
 #pragma once
 
@@ -23,19 +22,6 @@ constexpr int kThreads = kBQ * kTPR;   // 256
 constexpr int kPT = kBK / kTPR;        // other-tile rows scored per thread
 constexpr int kLDP = kBK + 4;          // row stride of the P / dS tiles
 static_assert(kBQ == kBK, "K5 and K6 share one tile size for both sides");
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 template <typename T>
 struct Type {

@@ -1,11 +1,11 @@
 // Tensor-core building blocks of the bf16 flash-attention kernels, K4
-// (flash_attention.cu) and K6 (flash_attention_bwd.cu); K5's tensor-core
-// version is to reuse them. The f32 kernels and K5 keep flash_common.cuh's
-// FP32 tile layout, which this header does not touch.
+// (flash_attention.cu), K5 and K6 (flash_attention_bwd.cu). The f32
+// kernels keep flash_common.cuh's FP32 tile layout, which this header does
+// not touch.
 //
 // Every product is mma.sync.m16n8k16 with bf16 operands and f32
 // accumulators. A warp owns a strip of 16 rows of the block's own tile
-// (queries in K4, keys in K6); tiles of the other side stream through a
+// (queries in K4 and K5, keys in K6); tiles of the other side stream through a
 // double-buffered ring in shared memory filled by 16-byte cp.async copies.
 // Shared tiles are bf16 [rows][D + 8]: the 16-byte pad puts the eight rows
 // that one ldmatrix phase reads in eight distinct groups of four banks, for
@@ -14,8 +14,8 @@
 // The tile choices are macros with the committed values as defaults, so a
 // variant builds with an nvcc -D flag (scripts/torch_flash_variants.py):
 // FLASH_MMA_WARPS here, FLASH_FWD_KEYS in flash_attention.cu,
-// FLASH_DKV_BQ32 in flash_attention_bwd.cu, and FLASH_EXACT_EXP2, which
-// makes fast_exp2 call exp2f.
+// FLASH_DQ_KEYS and FLASH_DKV_BQ32 in flash_attention_bwd.cu, and
+// FLASH_EXACT_EXP2, which makes fast_exp2 call exp2f.
 
 #pragma once
 

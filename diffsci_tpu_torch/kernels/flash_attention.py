@@ -17,31 +17,35 @@ in ``csrc/flash_mma.cuh``, the f32 tile layout and dispatch in
   clock per SM: at d = 32 that floor (~0.032 ms at config A's shape) lies
   above the tensor cores' (0.017 ms for K4). The [T, T] score matrix never
   touches device memory.
-- bfloat16, K4 and K6: tensor cores (``mma.sync`` m16n8k16, f32
-  accumulators). A block of 4 warps owns 64 rows of its own side (K4:
-  queries, K6: keys), 16 per warp, and loops over tiles of the other side
-  that stream through a double-buffered ``cp.async`` ring in bf16 shared
-  memory, so the next tile loads while this one computes. K4 keeps its Q
-  fragments in registers, takes S = Q Kᵀ, runs the online softmax (running
-  max and sum in f32, row reductions by quad shuffles) on the C fragments
-  and feeds P, rounded to bf16 in registers, as the A operand of P V: the
-  FlashAttention-2 repacking, nothing goes through shared memory. K6 takes
-  Sᵀ = K Qᵀ, Pᵀ = exp2(Sᵀ·scale·log2 e − lse·log2 e), dV += Pᵀ dO,
+- bfloat16, K4, K5 and K6: tensor cores (``mma.sync`` m16n8k16, f32
+  accumulators). A block of 4 warps owns 64 rows of its own side (K4 and
+  K5: queries, K6: keys), 16 per warp, and loops over tiles of the other
+  side that stream through a double-buffered ``cp.async`` ring in bf16
+  shared memory, so the next tile loads while this one computes. K4 keeps
+  its Q fragments in registers, takes S = Q Kᵀ, runs the online softmax
+  (running max and sum in f32, row reductions by quad shuffles) on the C
+  fragments and feeds P, rounded to bf16 in registers, as the A operand
+  of P V: the FlashAttention-2 repacking, nothing goes through shared
+  memory. K5 keeps its Q and dO fragments in registers and takes
+  S = Q Kᵀ, dP = dO Vᵀ, P = exp2(S·scale·log2 e − lse·log2 e),
+  dS = P∘(dP − delta) and dQ += dS K with K through ``ldmatrix.trans``;
+  its key tile shrinks at d = 128 to keep S, dP and dQ in registers. K6
+  takes Sᵀ = K Qᵀ, Pᵀ = exp2(Sᵀ·scale·log2 e − lse·log2 e), dV += Pᵀ dO,
   dPᵀ = V dOᵀ, dSᵀ = Pᵀ∘(dPᵀ − delta) and dK += dSᵀ Q, reading Q and dO
-  plainly and transposed (``ldmatrix.trans``) from one shared tile; dK and
-  dV stay in f32 registers and are written once. bf16 rounding happens
-  where the Pallas kernels cast before the MXU (P before P·V,
-  ``flash_attention.py:106``; P and dS before dV and dK, ``:209, 211``),
-  so the port now rounds as the JAX reference does. Rows that are not
-  16-byte aligned (d % 8 ≠ 0) are staged by element loads in the same
-  kernels. ``wgmma``/TMA and warp specialisation are later work.
-- float32, and K5 in both dtypes: the FP32 pipes. One block per
-  (batch·head, 64 rows) loops over 64-row tiles of the other side staged
-  in shared memory (converted to f32); four threads share a row, each
-  scoring a quarter of the other tile and owning a quarter of the output
-  columns. f32 stays there so that the f32 path keeps full f32 products:
-  TF32 or bf16 tensor cores would not hold the 1e-4 checks against the
-  plain versions. K5's tensor-core version is the next redesign.
+  plainly and transposed (``ldmatrix.trans``) from one shared tile. dQ,
+  dK and dV stay in f32 registers and are written once. bf16 rounding
+  happens where the Pallas kernels cast before the MXU (P before P·V,
+  ``flash_attention.py:106``; dS before dS·K, ``:179``; P and dS before
+  dV and dK, ``:209, 211``), so the port rounds as the JAX reference
+  does. Rows that are not 16-byte aligned (d % 8 ≠ 0) are staged by
+  element loads in the same kernels. ``wgmma``/TMA and warp
+  specialisation are later work.
+- float32: the FP32 pipes. One block per (batch·head, 64 rows) loops over
+  64-row tiles of the other side staged in shared memory; four threads
+  share a row, each scoring a quarter of the other tile and owning a
+  quarter of the output columns. f32 stays there so that the f32 path
+  keeps full f32 products: TF32 or bf16 tensor cores would not hold the
+  1e-4 checks against the plain versions.
 - Backward: the forward saves O and the natural-log lse; delta =
   rowsum(dO∘O) is one plain f32 reduction outside the kernels, as in the
   JAX package. P is recomputed tile by tile from lse, so no [T, T] matrix

@@ -13,16 +13,23 @@ here, so in the port this kernel is the norm on the card.
 - What bounds it on the H100: bytes. Per element it needs one read of x
   and one write of y and does ~10 flops; the statistics are [B, C].
 - What the design does about it: on the port's NC* layout each (b, c) is
-  one contiguous row of length S = prod(spatial), so one block per row
-  streams it with coalesced loads. Pass 1 sums (the mean, 'ln' only),
-  pass 2 sums the centred squares (the two-pass variance of the TPU
-  kernel, which avoids the cancellation of E[x²] - μ²), pass 3 writes y.
-  Passes 2 and 3 re-read a row that the block has just read, which L2
-  (50 MB) serves, so device memory sees about one read and one write.
-  Rows of any length are streamed, so the TPU's 1 MB slab cap has no
-  counterpart (config A's 32³ rows are 32768 long). The block size grows
-  with S, from 32 threads (S = 49) to 1024 (S ≥ 4096). Mean and rstd are
-  written as [B, C] f32 for K3.
+  one contiguous row of length S = prod(spatial). K2 reads each element
+  of x from device memory once: a block copies its segment of x into
+  shared memory (16-byte ``cp.async`` copies, element copies at unaligned
+  ends) and takes the two-pass statistics of the TPU kernel over it (the
+  mean, then the centred sum of squares, which avoids the cancellation of
+  E[x²] - μ² when |μ| ≫ σ), and computes y from there into 16-byte
+  stores. The launch picks the shape from S and the row count: rows of
+  up to 1024 elements (configuration B's 784, 196, 49) take a group of
+  lanes of one warp each (about one 16-byte word a lane: 32 lanes at 784
+  and 196, 8 at 49), several rows a block, with warp-shuffle sums only;
+  longer rows (A's 32³ and 16³) are split over a thread-block cluster of
+  up to 8 CTAs, enough for two waves of the SMs (32 rows of 32768 at A's
+  bucket 1 become 256 CTAs), which add their partial sums through
+  distributed shared memory in one fixed order. Rows beyond a cluster's 1 MB
+  of shared memory (none on the main paths) are streamed by one block
+  each, the re-reads served by L2. Sums run in a fixed order, so one
+  input gives one result. Mean and rstd are written as [B, C] f32 for K3.
 - K3 is bound by bytes too: it reads g and x and writes dx (~20 flops per
   element), and reuses the forward's [B, C] statistics. Same layout: one
   block per row; pass 1 reduces the row's sums of dn, dn·n, gu·n and gu,

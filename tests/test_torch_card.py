@@ -157,6 +157,71 @@ def test_flash_dkv_is_deterministic_on_card():
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("shape", _FLASH_SWEEP)
+def test_flash_dq_tensor_cores_match_plain_on_card(shape):
+    """K5 in bf16 (the tensor-core kernel, dS rounded to bf16 before dS·K)
+    against its plain version over phase 1's sweep, within 1e-2 of
+    max|ref|, and bit-identical when run again (one writer per dQ tile,
+    no atomics)."""
+    gen = torch.Generator("cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(shape, generator=gen,
+                               device="cuda").bfloat16() for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    kernels.reset_launches()
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta)
+    assert kernels.LAUNCHES["flash_attention_dq"] == 1
+    _assert_grad_close(dq, fa.flash_attention_dq_plain(q, k, v, do, lse,
+                                                        delta))
+    assert torch.equal(dq, fa.flash_attention_dq(q, k, v, do, lse, delta))
+
+
+# K2's launch shapes: configuration A's 32³ rows at serving bucket 1 (a
+# cluster of 8 CTAs per row), rows that are not 16-byte aligned (S = 49,
+# 1001), an x whose base is not (element offset 1), off-centre inputs
+# (|μ| = 100σ) and rows beyond a cluster's shared memory (f32, 1.2 MB: the
+# stream kernel). (shape, scale, shift, offset)
+_NORM_CASES = [((1, 32, 32, 32, 32), 2.0, 0.3, 0), ((3, 5, 7, 7), 2.0, 0.3, 0),
+               ((2, 3, 1001), 2.0, 0.3, 1), ((1, 32, 32, 32, 32), 2.0, 0.3, 1),
+               ((1, 32, 32, 32, 32), 1.0, 100.0, 0),
+               ((64, 256, 7, 7), 1.0, 100.0, 0), ((1, 2, 300000), 2.0, 0.3, 0)]
+
+
+@pytest.mark.parametrize("case", _NORM_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_silu_split_rows_match_plain_on_card(dtype, case):
+    """K2 against its plain version on each of its launch shapes: y within
+    1e-4 (f32) or 2e-2 + 2e-2·|ref| (bf16), the mean within 1e-4 of
+    max(1, |mean|) and rstd within 1e-4 relative; the same input gives the
+    same bits again; K3 on its statistics within the backward bound."""
+    dt = getattr(torch, dtype)
+    shape, scale, shift, offset = case
+    gen = torch.Generator("cuda").manual_seed(6)
+    C, n = shape[1], 1
+    for s in shape:
+        n *= s
+    x = (torch.randn(n + offset, generator=gen, device="cuda") * scale
+         + shift).to(dt)[offset:].view(shape)
+    w = (torch.randn(C, generator=gen, device="cuda") * 0.2 + 1).to(dt)
+    b = (torch.randn(C, generator=gen, device="cuda") * 0.1).to(dt)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    for kind in ("ln", "rms"):
+        y, mean, rstd = fn.norm_silu_fwd(x, w, b, kind)
+        ry, rmean, rrstd = fn.norm_silu_plain(x, w, b, kind)
+        tol = dict(rtol=0, atol=1e-4) if dt == torch.float32 else \
+            dict(rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(y.float(), ry.float(), **tol)
+        assert float(((mean - rmean).abs() / rmean.abs().clamp(min=1))
+                     .max()) <= 1e-4
+        assert float(((rstd - rrstd).abs() / rrstd).max()) <= 1e-4
+        assert torch.equal(y, fn.norm_silu_fwd(x, w, b, kind)[0])
+        for o, r in zip(fn.norm_silu_bwd(g, x, mean, rstd, w, b, kind),
+                        fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b,
+                                               kind)):
+            _assert_grad_close(o, r)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("shape", [(64, 32, 32, 3), (3, 1001)])
 def test_fused_lincomb3_matches_plain_on_card(shape):
     """K7 in every dtype combination of x, f and g, at configuration C's
