@@ -16,7 +16,8 @@ Phases (any failure raises, so the exit code is non-zero):
    kernels over a sweep of T and head dims; K7 in every dtype combination
    of its three inputs, bit for bit in float32), check that the bf16 K4,
    K5 and K6 hold tensor-core instructions (``cuobjdump -sass``) and that
-   bf16 K5 and K6 give one result twice, and time the kernel, its plain
+   bf16 K3 (at A's and B's largest train-step norms), K5 and K6 give one
+   result twice, and time the kernel, its plain
    version, the least time the card could take (``bound_ms``) and, where
    one PyTorch call computes the same function, that call (``library_ms``;
    for K4-K6 the median of 5 timed loops, SDPA pinned to its flash
@@ -24,7 +25,8 @@ Phases (any failure raises, so the exit code is non-zero):
    bound). K1, K2, K3 and K7 are also timed by their device time alone
    (torch.profiler), since back to back their time is the host's launch
    rate; K2 also at configuration A's serving bucket 1, beside
-   ``F.group_norm`` + ``F.silu`` (two calls).
+   ``F.group_norm`` + ``F.silu`` (two calls); K3 at A's and B's largest
+   train-step norms, its device time with the inputs in L2 and out of it.
 2. Card vs CPU, sampling: a small configuration-A-shaped net (3D 32³,
    flash attention over 4096 tokens) samples a few Heun steps from the
    same weights and the same numpy noise on the CPU (plain versions) and
@@ -61,7 +63,8 @@ The last line of standard output is
 ``python3 chip_smoke.py --profile`` adds, after phase 9, one profiled
 request per serving configuration (C by DDIM) and one profiled train step
 per training configuration (torch.profiler): wall time, device kernel
-time, the device's idle share and the kernels that take the most time.
+time, the device's idle share, the kernels that take the most time and
+the sums of K2's and K3's kernels.
 """
 
 from __future__ import annotations
@@ -101,6 +104,14 @@ TRAIN = ("norm_silu", "norm_silu_bwd", "flash_attention",
 # parts of the port's CUDA kernels' names, for the profile's lines
 PORT_KERNELS = ("axby_kernel", "lincomb3_kernel", "norm_silu_",
                 "flash_fwd", "flash_dq", "flash_dkv")
+# K2's and K3's kernels (one per launch shape), whose device times the
+# profile also sums
+NORM_KERNELS = {"K2": ("norm_silu_rows", "norm_silu_cluster",
+                       "norm_silu_stream"),
+                "K3": ("norm_silu_bwd_",)}
+# a buffer larger than the H100's 50 MB L2, written between launches to
+# time a kernel with its inputs out of L2
+FLUSH_BYTES = 128 * 2 ** 20
 
 
 def log(msg: str) -> None:
@@ -135,15 +146,16 @@ def device_ms(fn, iters: int, names=None) -> float:
     ``names``; every kernel when None), from torch.profiler, after a
     warm-up. Unlike ``cuda_ms`` it leaves out the host's time between
     launches. A trace that holds no device event at all is taken again,
-    three times at most: the tracer has returned one such empty trace
-    among some 60 in one process (scripts/torch_norm_variants.py)."""
+    five times at most: the tracer has returned one such empty trace
+    among some 60 in one process, and three in a row among some 150
+    (scripts/torch_norm_variants.py)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -159,6 +171,19 @@ def device_ms(fn, iters: int, names=None) -> float:
     if total == 0:
         raise AssertionError(f"the profiler saw no device time of {names}")
     return total / iters / 1e3
+
+
+def cold_device_ms(fn, iters: int, names) -> float:
+    """``device_ms`` of ``fn`` with its inputs out of L2: a buffer larger
+    than L2 is written before each call, and only the kernels whose names
+    contain one of ``names`` are counted."""
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+
+    def cold():
+        flush.zero_()
+        fn()
+
+    return device_ms(cold, iters, names)
 
 
 def cuda_ms_spread(fn, iters: int, repeats: int = 5):
@@ -366,12 +391,23 @@ def phase_kernels():
                 record("norm_silu", f"{label} (stats {serr:.1e})", dtype,
                        err, ok, "1e-4" if dtype == torch.float32 else
                        "2e-2+2e-2|ref|")
-                # K3 on the forward's own statistics
+                # K3 on the forward's own statistics; in bf16 at A's and B's
+                # largest train-step norms it runs twice and must give the
+                # same bits (one writer per output, sums in a fixed order)
                 g = randn(shape, dtype, gen)
+                got = fn.norm_silu_bwd(g, x, mean, rstd, w, b, kind)
                 err, ok, ratio = within_grad(
-                    fn.norm_silu_bwd(g, x, mean, rstd, w, b, kind),
-                    fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b, kind),
+                    got, fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b, kind),
                     dtype)
+                if dtype == torch.bfloat16 and (shape, offset, shift) in (
+                        ((4, 32, 32, 32, 32), 0, 0.3),
+                        ((256, 64, 28, 28), 0, 0.3)):
+                    same = all(torch.equal(a, b_) for a, b_ in zip(
+                        got, fn.norm_silu_bwd(g, x, mean, rstd, w, b, kind)))
+                    log(f"[kernels] norm_silu_bwd {list(shape)} {kind} "
+                        f"bfloat16 twice: "
+                        f"{'bit-identical' if same else 'DIFFERENT'}")
+                    ok = ok and same
                 record("norm_silu_bwd", f"{label} (dx, dw, db; "
                        f"max|Δ|/max|ref| {ratio:.1e})", dtype, err, ok,
                        GRAD_LIMIT)
@@ -460,7 +496,7 @@ def phase_kernels():
 
     # K2 at config A's largest norm, and at its serving bucket 1 (32 rows:
     # the cluster split); GroupNorm + SiLU, two PyTorch calls, beside it
-    k2_names = ("norm_silu_rows", "norm_silu_cluster", "norm_silu_stream")
+    k2_names = NORM_KERNELS["K2"]
     for batch in (4, 1):
         shape = (batch, 32, 32, 32, 32)
         x = randn(shape, torch.bfloat16, gen, 2.0, 0.3)
@@ -516,26 +552,37 @@ def phase_kernels():
             lambda: F.scaled_dot_product_attention(q, k, v), 20),
         4 * 2 * BH * T * d + 4 * BH * T, 4 * BH * T * T * d)
 
-    # K3 at config A's largest norm: reads g, x, the [B, C] statistics, w
-    # and b, writes dx, dw and db; ~20 flops per element
-    shape = (4, 32, 32, 32, 32)
-    x, g = (randn(shape, torch.bfloat16, gen, 2.0, 0.3) for _ in range(2))
-    w = randn((32,), torch.bfloat16, gen, 0.2, 1.0)
-    b = randn((32,), torch.bfloat16, gen, 0.1)
-    _, mean, rstd = fn.norm_silu_fwd(x, w, b, "ln")
-    n = x.numel()
-    bms, bby = bound(3 * 2 * n + 2 * 4 * 4 * 32 + 4 * 2 * 32, 20 * n,
-                     torch.float32)
-    records["norm_silu_bwd"] = dict(
-        shape="g, x [4, 32, 32, 32, 32] bf16 'ln' (config A, train batch 4)",
-        ms=cuda_ms(lambda: fn.norm_silu_bwd(g, x, mean, rstd, w, b, "ln"),
-                   50),
-        device_ms=device_ms(
-            lambda: fn.norm_silu_bwd(g, x, mean, rstd, w, b, "ln"), 50,
-            ("norm_silu_bwd",)),
-        plain_ms=cuda_ms(
-            lambda: fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b, "ln"), 50),
-        library_ms=None, bound_ms=bms, bound_by=bby)
+    # K3 at config A's and config B's largest train-step norms: reads g, x,
+    # the [B, C] statistics, w and b, writes dx and the [B, C] partials of
+    # dw and db; ~25 flops per element. Its device time with the inputs in
+    # L2 and out of it (in a train step x was written by the forward long
+    # before).
+    k3_records = []
+    for shape, label in (((4, 32, 32, 32, 32), "config A, train batch 4"),
+                         ((256, 64, 28, 28), "config B, train batch 256")):
+        B, C = shape[:2]
+        x, g = (randn(shape, torch.bfloat16, gen, 2.0, 0.3)
+                for _ in range(2))
+        w = randn((C,), torch.bfloat16, gen, 0.2, 1.0)
+        b = randn((C,), torch.bfloat16, gen, 0.1)
+        _, mean, rstd = fn.norm_silu_fwd(x, w, b, "ln")
+        n = x.numel()
+        bms, bby = bound(3 * 2 * n + 4 * 4 * B * C + 2 * 2 * C, 25 * n,
+                         torch.float32)
+
+        def k3(g=g, x=x, mean=mean, rstd=rstd, w=w, b=b):
+            return fn.norm_silu_bwd(g, x, mean, rstd, w, b, "ln")
+
+        k3_records.append(dict(
+            shape=f"g, x {list(shape)} bf16 'ln' ({label})",
+            ms=cuda_ms(k3, 50),
+            device_ms=device_ms(k3, 50, NORM_KERNELS["K3"]),
+            cold_device_ms=cold_device_ms(k3, 50, NORM_KERNELS["K3"]),
+            plain_ms=cuda_ms(
+                lambda: fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b, "ln"),
+                50),
+            library_ms=None, bound_ms=bms, bound_by=bby))
+    records["norm_silu_bwd"] = k3_records[0]
 
     # K5 and K6 at config A's bottleneck: each reads q, k, v, dO, lse and
     # delta; K5 writes dQ (S, dP, dQ: 6·BH·T²·d flops), K6 dK and dV
@@ -566,10 +613,11 @@ def phase_kernels():
         lambda: fa.flash_attention_dkv_plain(q, k, v, do, lse, delta),
         lambda: sdpa_bwd_ms((1, 2)), reads + 2 * 2 * BH * T * d,
         8 * BH * T * T * d)
-    timed = []
-    for name, rec in records.items():
-        timed += [(name, rec)] + ([(name, bucket1)] if name == "norm_silu"
-                                  else [])
+    # the records of the kernels line, and after K2's and K3's their second
+    # shapes, which are logged only
+    extra = {"norm_silu": [bucket1], "norm_silu_bwd": k3_records[1:]}
+    timed = [(name, r) for name, rec in records.items()
+             for r in [rec] + extra.get(name, [])]
     for name, rec in timed:
         rec["max_abs_err"] = errs[name]
         spread = " (median of 5, {:.4f}-{:.4f})"
@@ -578,6 +626,8 @@ def phase_kernels():
         if "device_ms" in rec:
             ms += (f" back to back (the host's launch rate), device "
                    f"{rec['device_ms']:.4f} ms")
+        if "cold_device_ms" in rec:
+            ms += f" (L2 warm), {rec['cold_device_ms']:.4f} ms (L2 cold)"
         lib = ("" if rec["library_ms"] is None else
                f", library {rec['library_ms']:.4f} ms"
                + spread.format(*rec["library_range"]))
@@ -971,6 +1021,13 @@ def profile_call(label, what, fn, top=8):
             log(f"[profile {label}] {rank + 1:3d} {device_us(e) / 1e3:9.3f}"
                 f" ms {device_us(e) / 1e6 / busy:6.1%} x{e.count:<6} "
                 f"{e.key[:90]}")
+    # K2 and K3 over all their launch shapes
+    for kernel, names in NORM_KERNELS.items():
+        mine = [e for e in kernels if any(n in e.key for n in names)]
+        if mine:
+            us = sum(device_us(e) for e in mine)
+            log(f"[profile {label}] {kernel} sum {us / 1e3:.3f} ms "
+                f"{us / 1e6 / busy:6.1%} x{sum(e.count for e in mine)}")
 
 
 def main() -> int:

@@ -6,25 +6,33 @@
 // _bwd_kernel (K3). See diffsci_tpu_torch/kernels/fused_norm.py for the
 // design note.
 //
-// K2 is bound by bytes: one read of x and one write of y per element. It
-// holds what it reads in shared memory, so x is read from device memory
-// once, and takes the two-pass variance of the TPU kernel (the mean, then
-// the centred sum of squares) over the values held there. The launch
-// picks one of three shapes from the row length S and the row count:
-// - S <= kWarpRowMax (norm_silu_rows_kernel): a group of lanes of one warp
-//   per row (about a 16-byte word each), several rows a block,
-//   warp-shuffle sums only;
-// - longer rows (norm_silu_cluster_kernel): each row split over a thread
-//   block cluster of up to kMaxCluster CTAs, sized so that rows x CTAs
-//   fills several waves of the SMs; the CTAs exchange their partial sums
-//   through distributed shared memory;
+// Both are bound by bytes: K2 reads x and writes y, K3 reads g and x and
+// writes dx, each element once. A block holds what it reads in shared
+// memory, so each element is read from device memory once, and runs every
+// pass over the values held there: K2 the two-pass variance of the TPU
+// kernel (the mean, then the centred sum of squares) and y; K3 the row's
+// sums of gu and gu * n and then dx (its rows kernel keeps gu as f32 in
+// shared memory between the passes, so the second pass does no SFU work).
+// The launch (`pick_shape`, one rule for both) picks one of three shapes
+// from the row length S, the row count and the bytes a row holds (x; g and
+// x):
+// - S <= kWarpRowMax (the rows kernels): a group of lanes of one warp per
+//   row (a 16-byte word a lane up to 16 lanes, kWordsPerLane words a lane
+//   for longer rows), several rows a block, warp-shuffle sums only;
+// - longer rows (the cluster kernels): one CTA per row up to kBlockRowMax
+//   (a plain launch), else a thread block cluster of up to kMaxCluster
+//   CTAs per row, enough for kFillWaves waves of the SMs; the CTAs exchange
+//   their partial sums through distributed shared memory;
 // - rows longer than a cluster's shared memory holds (kMaxCluster x
-//   kSliceBytes, 1 MB; no main path has one): norm_silu_stream_kernel, one
-//   block per row streaming it three times, the re-reads served by L2.
-// A block's segment of x is copied in with 16-byte cp.async copies where
-// its words line up, element by element at its unaligned ends; y is
-// computed from the values held there and stored likewise. Every sum runs
-// in a fixed order (no float atomics), so one input gives one result.
+//   kSliceBytes, 1 MB over the arrays; no main path has one): the stream
+//   kernels, one block per row streaming it from device memory in each
+//   pass, the re-reads served by L2.
+// A block's segments are copied in with 16-byte cp.async copies where
+// their words line up, element by element at the unaligned ends (and for
+// a g whose words do not line up with x's); outputs are computed from the
+// values held there and stored as 16-byte words where those line up. Every
+// sum runs in a fixed order (no float atomics), so one input gives one
+// result.
 //
 // Plain C interface, built with nvcc and loaded with ctypes.
 
@@ -71,13 +79,37 @@ __device__ float block_sum(float v, float* red) {
   return warp_sum(lane < nwarps ? red[lane] : 0.f);
 }
 
+// Two sums over the block at once, in block_sum's order.
+__device__ float2 block_sum2(float2 v, float2* red) {
+  v.x = warp_sum(v.x);
+  v.y = warp_sum(v.y);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  const int nwarps = blockDim.x >> 5;
+  const float2 t = lane < nwarps ? red[lane] : make_float2(0.f, 0.f);
+  return make_float2(warp_sum(t.x), warp_sum(t.y));
+}
+
 // u·sigmoid(u) on the SFU: __expf is ex2.approx, __fdividef one rcp.approx
 // and a multiply (0 when the denominator overflows, as u/inf is)
 __device__ __forceinline__ float silu(float u) {
   return __fdividef(u, 1.f + __expf(-u));
 }
 
-// ---- K2's segments in shared memory ---------------------------------------
+// K3's per-element term: with p = (mean, rstd, w, b) of the row,
+// n = (x - mean) * rstd, u = n * w + b, returns gu = g * SiLU'(u), where
+// SiLU'(u) = s * (1 + u * (1 - s)), s = sigmoid(u) (on the SFU, as silu).
+__device__ __forceinline__ float grad_u(float xv, float gv, float4 p,
+                                        float& n) {
+  n = (xv - p.x) * p.y;
+  const float u = fmaf(n, p.z, p.w);
+  const float s = __fdividef(1.f, 1.f + __expf(-u));
+  return gv * (s * fmaf(u, 1.f - s, 1.f));
+}
+
+// ---- segments in shared memory ---------------------------------------------
 
 // elements of T in a 16-byte word
 template <typename T>
@@ -201,7 +233,124 @@ __device__ __forceinline__ void words_store(T* __restrict__ dst,
   }
 }
 
-// ---- K2 ---------------------------------------------------------------------
+// K3's copy-in: the 16-byte words c = c0, c0 + step, ... below c_end of
+// buf that hold src[0, n) at buf[mis, mis + n) (buf 16-byte aligned):
+// cp.async for a whole word when src's words line up with buf's
+// (misalign(src) == mis, x's own misalignment), element copies for the
+// words at the two ends and for a g whose words do not line up with x's.
+// The caller waits (cp_async_wait_all).
+template <typename T>
+__device__ __forceinline__ void copy_words(T* buf, const T* __restrict__ src,
+                                           int n, int mis, int c0,
+                                           int c_end, int step) {
+  constexpr int V = kVec<T>;
+  const bool lined = misalign(src) == mis;
+  for (int c = c0; c < c_end; c += step) {
+    const int i0 = c * V - mis;  // src's index of the word's first element
+    if (lined && i0 >= 0 && i0 + V <= n) {
+      cp_async_16(buf + c * V, src + i0);
+    } else {
+      for (int i = max(i0, 0); i < min(i0 + V, n); ++i) buf[mis + i] = src[i];
+    }
+  }
+}
+
+// K3's pass 1 over the segments xb and gb (one layout): this thread's sums
+// of gu and gu * n over [lo, hi), by words_sum's words and order. Where
+// gub is given, gu is also kept there as f32, at the same element
+// positions, for pass 2.
+template <typename T>
+__device__ __forceinline__ float2 grad_sums(const T* xb, const T* gb,
+                                            float* gub, int lo, int hi,
+                                            int t0, int step, float4 p) {
+  constexpr int V = kVec<T>;
+  float2 s = make_float2(0.f, 0.f);
+  const uint4* xw = reinterpret_cast<const uint4*>(xb);
+  const uint4* gw = reinterpret_cast<const uint4*>(gb);
+  for (int c = lo / V + t0; c * V < hi; c += step) {
+    float xv[V], gv[V];
+    unpack(xw[c], xv);
+    unpack(gw[c], gv);
+    if (c * V >= lo && c * V + V <= hi) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        float n;
+        gv[e] = grad_u(xv[e], gv[e], p, n);
+        s.x += gv[e];
+        s.y += gv[e] * n;
+      }
+      if (gub) {
+        float4* out = reinterpret_cast<float4*>(gub + c * V);
+#pragma unroll
+        for (int e = 0; e < V; e += 4)
+          out[e / 4] = make_float4(gv[e], gv[e + 1], gv[e + 2], gv[e + 3]);
+      }
+    } else {  // a word at a row's end, which may hold another row's
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int i = c * V + e;
+        if (i >= lo && i < hi) {
+          float n;
+          const float gu = grad_u(xv[e], gv[e], p, n);
+          s.x += gu;
+          s.y += gu * n;
+          if (gub) gub[i] = gu;
+        }
+      }
+    }
+  }
+  return s;
+}
+
+// K3's pass 2: dst[i - lo] = dx = rstd * (gu * w - m_dn - n * m_dnn) for i
+// in [lo, hi), stored as words_store stores; gu is recomputed from x and g,
+// or read from pass 1's f32 copy gub where it is given (gb unused).
+template <typename T>
+__device__ __forceinline__ void grad_store(T* __restrict__ dst, const T* xb,
+                                           const T* gb, const float* gub,
+                                           int lo, int hi, int t0, int step,
+                                           float4 p, float m_dn,
+                                           float m_dnn) {
+  constexpr int V = kVec<T>;
+  const uint4* xw = reinterpret_cast<const uint4*>(xb);
+  const uint4* gw = reinterpret_cast<const uint4*>(gb);
+  const bool aligned = misalign(dst) == lo % V;
+  const float a = p.y * p.z, bn = -p.y * m_dnn, c0 = -p.y * m_dn;
+  for (int c = lo / V + t0; c * V < hi; c += step) {
+    float v[V], gu[V];
+    unpack(xw[c], v);
+    if (gub) {
+      const float4* in = reinterpret_cast<const float4*>(gub + c * V);
+#pragma unroll
+      for (int e = 0; e < V; e += 4) {
+        const float4 q = in[e / 4];
+        gu[e] = q.x;
+        gu[e + 1] = q.y;
+        gu[e + 2] = q.z;
+        gu[e + 3] = q.w;
+      }
+    } else {
+      unpack(gw[c], gu);
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      float n = (v[e] - p.x) * p.y;
+      if (!gub) gu[e] = grad_u(v[e], gu[e], p, n);
+      v[e] = fmaf(gu[e], a, fmaf(n, bn, c0));
+    }
+    if (aligned && c * V >= lo && c * V + V <= hi) {
+      *reinterpret_cast<uint4*>(dst + (c * V - lo)) = pack(v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int i = c * V + e;
+        if (i >= lo && i < hi) dst[i - lo] = from_f32<T>(v[e]);
+      }
+    }
+  }
+}
+
+// ---- launch choices ----------------------------------------------------------
 
 // The launch's choices are macros with the committed values as defaults,
 // so a variant builds with an nvcc -D flag (scripts/torch_norm_variants.py).
@@ -212,21 +361,27 @@ __device__ __forceinline__ void words_store(T* __restrict__ dst,
 #define NORM_ROWS_BLOCK_BYTES 8192
 #endif
 #ifndef NORM_WORDS_PER_LANE
-#define NORM_WORDS_PER_LANE 1
+#define NORM_WORDS_PER_LANE 2
+#endif
+#ifndef NORM_BLOCK_ROW_MAX
+#define NORM_BLOCK_ROW_MAX 4096
 #endif
 #ifndef NORM_FILL_WAVES
-#define NORM_FILL_WAVES 2
+#define NORM_FILL_WAVES 1
 #endif
 #ifndef NORM_SLICE_THREADS
 #define NORM_SLICE_THREADS 256
 #endif
 constexpr int kWarpRowMax = NORM_WARP_ROW_MAX;  // longest row of a warp
-constexpr int kRowsBlockBytes = NORM_ROWS_BLOCK_BYTES;  // x of a rows block
-constexpr int kWordsPerLane = NORM_WORDS_PER_LANE;  // of a row, at least
+constexpr int kRowsBlockBytes = NORM_ROWS_BLOCK_BYTES;  // of each array
+constexpr int kWordsPerLane = NORM_WORDS_PER_LANE;  // beyond 16 lanes a row
+constexpr int kBlockRowMax = NORM_BLOCK_ROW_MAX;  // longest row of one CTA
 constexpr int kFillWaves = NORM_FILL_WAVES;  // cluster CTAs, in waves of SMs
 constexpr int kSliceThreads = NORM_SLICE_THREADS;
-constexpr int kSliceBytes = 128 * 1024;  // most x bytes a cluster CTA holds
+constexpr int kSliceBytes = 128 * 1024;  // most bytes a cluster CTA holds
 constexpr int kMaxCluster = 8;           // the portable cluster size
+
+// ---- K2 ---------------------------------------------------------------------
 
 // The sum over the `lanes` lanes (a power of two) of this lane's group.
 __device__ __forceinline__ float group_sum(float v, int lanes) {
@@ -237,7 +392,7 @@ __device__ __forceinline__ float group_sum(float v, int lanes) {
 
 // Rows of up to kWarpRowMax elements: the block's rows_per_block rows are
 // one contiguous segment of x, held in shared memory. A row takes a group
-// of `lanes` lanes of one warp (a power of two; about one 16-byte word of
+// of `lanes` lanes of one warp (a power of two; a 16-byte word or a few of
 // the row each), so a warp takes 32 / lanes rows at once: the mean, then
 // the centred sum of squares, each a shuffle sum within the group; y is
 // computed from shared memory and stored to device memory.
@@ -400,69 +555,193 @@ __global__ void norm_silu_stream_kernel(const T* __restrict__ x,
   }
 }
 
-// K3: one block per row, reading the forward's mean and rstd. With
-// n = (x - mean) * rstd, u = n * w + b and gu = g * SiLU'(u), dn = gu * w:
-// pass 1 sums dn, dn * n, gu * n and gu over the row; pass 2 writes
+// ---- K3 ---------------------------------------------------------------------
+//
+// The forward's mean and rstd are read back. With n = (x - mean) * rstd,
+// u = n * w + b, gu = g * SiLU'(u) and dn = gu * w:
 // dx = rstd * (dn - mean(dn) - n * mean(dn * n)) ('rms' drops mean(dn)).
-// The row's sums of gu * n and gu are its partials of dw and db; the sum
-// over the batch is taken outside (one writer per output, no atomics).
+// w is one value per row, so mean(dn) = w * sum(gu) / S and
+// mean(dn * n) = w * sum(gu * n) / S: pass 1 takes the two sums, which are
+// also the row's partials of db and dw (their sum over the batch is taken
+// outside: one writer per output, no atomics); pass 2 writes dx. Both
+// passes run over the segments of x and g held in shared memory.
+
+// Rows of up to kWarpRowMax elements, on K2's rows layout: the block's
+// rows are one contiguous segment of x and one of g, both held at x's
+// misalignment, then pass 1's gu as f32 at the same positions, then the
+// rows' (mean, rstd, w, b). Pass 2 reads gu back (no SFU work again).
 template <typename T>
-__global__ void norm_silu_bwd_kernel(const T* __restrict__ g,
-                                     const T* __restrict__ x,
-                                     const float* __restrict__ mean_in,
-                                     const float* __restrict__ rstd_in,
-                                     const T* __restrict__ w,
-                                     const T* __restrict__ b,
-                                     T* __restrict__ dx,
-                                     float* __restrict__ dw_part,
-                                     float* __restrict__ db_part,
-                                     int channels, int64_t row_len,
-                                     int subtract_mean) {
-  __shared__ float red[32];
+__global__ void norm_silu_bwd_rows_kernel(const T* __restrict__ g,
+                                          const T* __restrict__ x,
+                                          const float* __restrict__ mean_in,
+                                          const float* __restrict__ rstd_in,
+                                          const T* __restrict__ w,
+                                          const T* __restrict__ b,
+                                          T* __restrict__ dx,
+                                          float* __restrict__ dw_part,
+                                          float* __restrict__ db_part,
+                                          int channels, int64_t rows,
+                                          int row_len, int rows_per_block,
+                                          int seg_words, int lanes,
+                                          int subtract_mean) {
+  constexpr int V = kVec<T>;
+  extern __shared__ uint4 seg_u4[];
+  T* xb = reinterpret_cast<T*>(seg_u4);
+  T* gb = reinterpret_cast<T*>(seg_u4 + seg_words);
+  float* gub = reinterpret_cast<float*>(seg_u4 + 2 * seg_words);
+  float4* stats = reinterpret_cast<float4*>(gub + seg_words * V);
+  const int64_t r0 = (int64_t)blockIdx.x * rows_per_block;
+  const int nrows = (int)min((int64_t)rows_per_block, rows - r0);
+  const int n = nrows * row_len;
+  const T* xs = x + r0 * row_len;
+  const int mis = misalign(xs);
+  const int words = (mis + n + V - 1) / V;
+  copy_words(xb, xs, n, mis, threadIdx.x, words, blockDim.x);
+  copy_words(gb, g + r0 * row_len, n, mis, threadIdx.x, words, blockDim.x);
+  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
+    const int c = (int)((r0 + r) % channels);
+    stats[r] = make_float4(mean_in[r0 + r], rstd_in[r0 + r], to_f32(w[c]),
+                           to_f32(b[c]));
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int group = lane / lanes, sub = lane % lanes, per_warp = 32 / lanes;
+  const float inv_n = 1.f / (float)row_len;
+  // uniform across the warp, as in K2's rows kernel; a lane group writes
+  // and reads back only its own row's gu
+  for (int rw = warp * per_warp; rw < nrows;
+       rw += (blockDim.x / 32) * per_warp) {
+    const int r = rw + group;
+    const int lo = mis + min(r, nrows) * row_len;
+    const int hi = r < nrows ? lo + row_len : lo;
+    const float4 p = stats[min(r, nrows - 1)];
+    const float2 s = grad_sums(xb, gb, gub, lo, hi, sub, lanes, p);
+    const float s_gu = group_sum(s.x, lanes);
+    const float s_gun = group_sum(s.y, lanes);
+    if (r >= nrows) continue;
+    const float m_dn = subtract_mean ? p.z * s_gu * inv_n : 0.f;
+    grad_store(dx + (r0 + r) * row_len, xb, gb, gub, lo, hi, sub, lanes, p,
+               m_dn, p.z * s_gun * inv_n);
+    if (sub == 0) {
+      dw_part[r0 + r] = s_gun;
+      db_part[r0 + r] = s_gu;
+    }
+  }
+}
+
+// Longer rows, on K2's cluster layout: CTA `rank` holds the slice
+// [rank * slice, (rank + 1) * slice) of x and of g. The two sums are the
+// block's sums of its slice, then the sums of the cluster's partials read
+// through distributed shared memory in one fixed order.
+template <typename T>
+__global__ void __launch_bounds__(kSliceThreads)
+    norm_silu_bwd_cluster_kernel(const T* __restrict__ g,
+                                 const T* __restrict__ x,
+                                 const float* __restrict__ mean_in,
+                                 const float* __restrict__ rstd_in,
+                                 const T* __restrict__ w,
+                                 const T* __restrict__ b, T* __restrict__ dx,
+                                 float* __restrict__ dw_part,
+                                 float* __restrict__ db_part, int channels,
+                                 int row_len, int slice, int seg_words,
+                                 int subtract_mean) {
+  extern __shared__ uint4 seg_u4[];
+  __shared__ float2 red[32];
+  __shared__ float2 part;
+  T* xb = reinterpret_cast<T*>(seg_u4);
+  T* gb = reinterpret_cast<T*>(seg_u4 + seg_words);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int64_t row = blockIdx.x / cs;
+  const int off = rank * slice;
+  const int n = max(0, min(slice, row_len - off));
+  const T* xs = x + row * row_len + off;
+  const T* gs = g + row * row_len + off;
+  const int mis = misalign(xs);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // each thread copies the words it reads (no barrier before pass 1)
+  constexpr int V = kVec<T>;
+  const int words = (mis + n + V - 1) / V;
+  copy_words(xb, xs, n, mis, tid, words, nt);
+  copy_words(gb, gs, n, mis, tid, words, nt);
+  const int c = (int)(row % channels);
+  const float4 p = make_float4(mean_in[row], rstd_in[row], to_f32(w[c]),
+                               to_f32(b[c]));
+  cp_async_wait_all();
+  float2 s =
+      block_sum2(grad_sums(xb, gb, nullptr, mis, mis + n, tid, nt, p), red);
+  if (tid == 0) part = s;
+  cluster.sync();
+  // lane r of every warp reads rank r's partials, as in K2's cluster kernel
+  const int lane = tid % 32;
+  s = lane < cs ? *cluster.map_shared_rank(&part, lane)
+                : make_float2(0.f, 0.f);
+  const float s_gu = warp_sum(s.x), s_gun = warp_sum(s.y);
+  const float inv_n = 1.f / (float)row_len;
+  const float m_dn = subtract_mean ? p.z * s_gu * inv_n : 0.f;
+  grad_store(dx + row * row_len + off, xb, gb, nullptr, mis, mis + n, tid,
+             nt, p, m_dn, p.z * s_gun * inv_n);
+  if (rank == 0 && tid == 0) {
+    dw_part[row] = s_gun;
+    db_part[row] = s_gu;
+  }
+  cluster.sync();  // no CTA leaves while another may still read its part
+}
+
+// Rows beyond a cluster's shared memory: one block per row, each pass
+// reading g and x from device memory (the second through L2).
+template <typename T>
+__global__ void norm_silu_bwd_stream_kernel(const T* __restrict__ g,
+                                            const T* __restrict__ x,
+                                            const float* __restrict__ mean_in,
+                                            const float* __restrict__ rstd_in,
+                                            const T* __restrict__ w,
+                                            const T* __restrict__ b,
+                                            T* __restrict__ dx,
+                                            float* __restrict__ dw_part,
+                                            float* __restrict__ db_part,
+                                            int channels, int64_t row_len,
+                                            int subtract_mean) {
+  __shared__ float2 red[32];
   const int64_t row = blockIdx.x;
   const T* gr = g + row * row_len;
   const T* xr = x + row * row_len;
   T* dxr = dx + row * row_len;
-  const float inv_n = 1.f / (float)row_len;
-  const float mean = mean_in[row], rstd = rstd_in[row];
   const int c = (int)(row % channels);
-  const float wc = to_f32(w[c]), bc = to_f32(b[c]);
-
-  float s_dn = 0.f, s_dnn = 0.f, s_gun = 0.f, s_gu = 0.f;
+  const float4 p = make_float4(mean_in[row], rstd_in[row], to_f32(w[c]),
+                               to_f32(b[c]));
+  float2 s = make_float2(0.f, 0.f);
   for (int64_t i = threadIdx.x; i < row_len; i += blockDim.x) {
-    const float n = (to_f32(xr[i]) - mean) * rstd;
-    const float u = n * wc + bc;
-    const float sg = 1.f / (1.f + expf(-u));
-    const float gu = to_f32(gr[i]) * (sg * (1.f + u * (1.f - sg)));
-    const float dn = gu * wc;
-    s_dn += dn;
-    s_dnn += dn * n;
-    s_gun += gu * n;
-    s_gu += gu;
+    float n;
+    const float gu = grad_u(to_f32(xr[i]), to_f32(gr[i]), p, n);
+    s.x += gu;
+    s.y += gu * n;
   }
-  const float m_dn = subtract_mean ? block_sum(s_dn, red) * inv_n : 0.f;
-  const float m_dnn = block_sum(s_dnn, red) * inv_n;
-  const float t_gun = block_sum(s_gun, red);
-  const float t_gu = block_sum(s_gu, red);
-
+  s = block_sum2(s, red);
+  const float inv_n = 1.f / (float)row_len;
+  const float m_dn = subtract_mean ? p.z * s.x * inv_n : 0.f;
+  const float a = p.y * p.z, bn = -p.y * p.z * s.y * inv_n, c0 = -p.y * m_dn;
   for (int64_t i = threadIdx.x; i < row_len; i += blockDim.x) {
-    const float n = (to_f32(xr[i]) - mean) * rstd;
-    const float u = n * wc + bc;
-    const float sg = 1.f / (1.f + expf(-u));
-    const float dn = to_f32(gr[i]) * (sg * (1.f + u * (1.f - sg))) * wc;
-    dxr[i] = from_f32<T>(rstd * (dn - m_dn - n * m_dnn));
+    float n;
+    const float gu = grad_u(to_f32(xr[i]), to_f32(gr[i]), p, n);
+    dxr[i] = from_f32<T>(fmaf(gu, a, fmaf(n, bn, c0)));
   }
   if (threadIdx.x == 0) {
-    dw_part[row] = t_gun;
-    db_part[row] = t_gu;
+    dw_part[row] = s.y;
+    db_part[row] = s.x;
   }
 }
 
-// Shared bytes that hold a segment of n elements at any misalignment: the
-// 16-byte words from its first to its last element.
+// ---- launch -----------------------------------------------------------------
+
+// 16-byte words that hold a segment of n elements at any misalignment:
+// those from its first to its last element.
 template <typename T>
-int segment_bytes(int n) {
-  return (n + 2 * kVec<T> - 2) / kVec<T> * 16;
+int segment_words(int n) {
+  return (n + 2 * kVec<T> - 2) / kVec<T>;
 }
 
 int sm_count() {
@@ -475,80 +754,136 @@ int sm_count() {
   return count;
 }
 
-// K2's launch: the kernel and its shape from the row length and count.
-// Rows kernel: a group of lanes per row (a power of two, at least
+enum Kernel { kRows, kCluster, kStream };
+
+struct Shape {
+  Kernel kernel;
+  int64_t blocks;  // blocks, or CTAs of all clusters
+  int threads;
+  int seg_words;   // 16-byte words of shared memory an array's segment takes
+  int lanes, rows_per_block;  // rows kernels
+  int cs, slice;              // cluster kernels
+};
+
+// The launch shape of K2 (arrays = 1: x) or K3 (arrays = 2: g and x), from
+// the row length and count; one rule for both. Rows kernels: a group of
+// lanes per row (a power of two: a word a lane up to 16 lanes, then
 // kWordsPerLane words a lane), up to 8 warps a block (fewer when rows are
 // few, so that blocks spread over the SMs), and rows_per_block a multiple
-// of the rows the warps take at once: about kRowsBlockBytes of x or two
-// waves of blocks, whichever is smaller. Cluster kernel: the fewest CTAs
+// of the rows the warps take at once: about kRowsBlockBytes of each array
+// or two waves of blocks, whichever is smaller. Cluster kernels: the fewest CTAs
 // per row (a power of two up to kMaxCluster) whose slices fit kSliceBytes
-// and give at least kFillWaves waves of CTAs. `threads` sizes the stream
-// kernel's blocks.
+// over the arrays, and, for rows longer than kBlockRowMax, give at least
+// kFillWaves waves of CTAs. Stream kernels: `stream_threads` a block.
 template <typename T>
-cudaError_t launch(const void* x, const void* w, const void* b, void* y,
-                   void* mean, void* rstd, int64_t rows, int channels,
-                   int64_t row_len, int subtract_mean, float eps, int threads,
-                   cudaStream_t stream) {
+Shape pick_shape(int64_t rows, int64_t row_len, int arrays,
+                 int stream_threads) {
   constexpr int V = kVec<T>, size = (int)sizeof(T);
-  const T* x_ = static_cast<const T*>(x);
-  const T* w_ = static_cast<const T*>(w);
-  const T* b_ = static_cast<const T*>(b);
-  T* y_ = static_cast<T*>(y);
-  float* mean_ = static_cast<float*>(mean);
-  float* rstd_ = static_cast<float*>(rstd);
   const int64_t sms = sm_count();
+  Shape s = {};
   if (row_len <= kWarpRowMax) {
     const int len = (int)row_len;
     int lanes = 1;
+    while (lanes < 16 && lanes * V < len) lanes *= 2;
     while (lanes < 32 && lanes * kWordsPerLane * V < len) lanes *= 2;
     const int per_warp = 32 / lanes;
     const int64_t groups = (rows + per_warp - 1) / per_warp;
     const int warps = (int)std::min<int64_t>(
         std::max<int64_t>(groups / (2 * sms), 1), 8);
     const int per_group = (int)std::max<int64_t>(
-        std::min<int64_t>(kRowsBlockBytes / (warps * per_warp * len * size),
-                          groups / (warps * 2 * sms)), 1);
-    const int rows_per_block = warps * per_warp * per_group;
-    const int64_t blocks = (rows + rows_per_block - 1) / rows_per_block;
-    const int smem = segment_bytes<T>(rows_per_block * len);
-    norm_silu_rows_kernel<T><<<(unsigned)blocks, 32 * warps, smem, stream>>>(
-        x_, w_, b_, y_, mean_, rstd_, channels, rows, len, rows_per_block,
-        lanes, subtract_mean, eps);
-    return cudaGetLastError();
+        std::min<int64_t>(
+            kRowsBlockBytes / (warps * per_warp * len * size),
+            groups / (warps * 2 * sms)), 1);
+    s.kernel = kRows;
+    s.lanes = lanes;
+    s.rows_per_block = warps * per_warp * per_group;
+    s.blocks = (rows + s.rows_per_block - 1) / s.rows_per_block;
+    s.threads = 32 * warps;
+    s.seg_words = segment_words<T>(s.rows_per_block * len);
+    return s;
   }
-  const int64_t need = (row_len * size + kSliceBytes - 1) / kSliceBytes;
+  const int64_t need =
+      (arrays * row_len * size + kSliceBytes - 1) / kSliceBytes;
   if (need > kMaxCluster) {
-    norm_silu_stream_kernel<T><<<(unsigned)rows, threads, 0, stream>>>(
-        x_, w_, b_, y_, mean_, rstd_, channels, row_len, subtract_mean, eps);
-    return cudaGetLastError();
+    s.kernel = kStream;
+    s.blocks = rows;
+    s.threads = stream_threads;
+    return s;
   }
-  const int64_t fill = (kFillWaves * sms + rows - 1) / rows;
+  const int64_t fill =
+      row_len <= kBlockRowMax ? 1 : (kFillWaves * sms + rows - 1) / rows;
   int cs = 1;
   while (cs < kMaxCluster && (cs < need || cs < fill)) cs *= 2;
   const int len = (int)row_len;
-  const int slice = ((len + cs - 1) / cs + V - 1) / V * V;
-  const int smem = segment_bytes<T>(slice);
-  const int nt = std::min(kSliceThreads, (slice / V + 1 + 31) / 32 * 32);
-  auto* kernel = norm_silu_cluster_kernel<T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
+  s.kernel = kCluster;
+  s.cs = cs;
+  s.slice = ((len + cs - 1) / cs + V - 1) / V * V;
+  s.blocks = rows * cs;
+  s.threads = std::min(kSliceThreads, (s.slice / V + 1 + 31) / 32 * 32);
+  s.seg_words = segment_words<T>(s.slice);
+  return s;
+}
+
+// Dynamic shared memory above the default 48 KB must be asked for.
+template <typename Kern>
+cudaError_t allow_smem(Kern* kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+}
+
+// A cluster kernel's launch: clusters of s.cs CTAs along x (a plain
+// launch for one CTA a row, whose cluster is the CTA itself: faster).
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), const Shape& s,
+                           int smem, cudaStream_t stream, Args... args) {
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((unsigned)(rows * cs));
-  config.blockDim = dim3(nt);
+  config.gridDim = dim3((unsigned)s.blocks);
+  config.blockDim = dim3(s.threads);
   config.dynamicSmemBytes = smem;
   config.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.x = s.cs;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
-  config.numAttrs = 1;
-  return cudaLaunchKernelEx(&config, kernel, x_, w_, b_, y_, mean_, rstd_,
-                            channels, len, slice, subtract_mean, eps);
+  config.numAttrs = s.cs > 1 ? 1 : 0;  // one CTA a row: a plain launch
+  return cudaLaunchKernelEx(&config, kernel, args...);
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* w, const void* b, void* y,
+                   void* mean, void* rstd, int64_t rows, int channels,
+                   int64_t row_len, int subtract_mean, float eps, int threads,
+                   cudaStream_t stream) {
+  const T* x_ = static_cast<const T*>(x);
+  const T* w_ = static_cast<const T*>(w);
+  const T* b_ = static_cast<const T*>(b);
+  T* y_ = static_cast<T*>(y);
+  float* mean_ = static_cast<float*>(mean);
+  float* rstd_ = static_cast<float*>(rstd);
+  const Shape s = pick_shape<T>(rows, row_len, 1, threads);
+  const int smem = s.seg_words * 16;
+  if (s.kernel == kRows) {
+    const cudaError_t err = allow_smem(norm_silu_rows_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    norm_silu_rows_kernel<T><<<(unsigned)s.blocks, s.threads, smem, stream>>>(
+        x_, w_, b_, y_, mean_, rstd_, channels, rows, (int)row_len,
+        s.rows_per_block, s.lanes, subtract_mean, eps);
+    return cudaGetLastError();
+  }
+  if (s.kernel == kStream) {
+    norm_silu_stream_kernel<T><<<(unsigned)s.blocks, s.threads, 0, stream>>>(
+        x_, w_, b_, y_, mean_, rstd_, channels, row_len, subtract_mean, eps);
+    return cudaGetLastError();
+  }
+  return launch_cluster(norm_silu_cluster_kernel<T>, s, smem, stream, x_, w_,
+                        b_, y_, mean_, rstd_, channels, (int)row_len, s.slice,
+                        subtract_mean, eps);
 }
 
 template <typename T>
@@ -557,13 +892,40 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* mean,
                        void* dx, void* dw_part, void* db_part, int64_t rows,
                        int channels, int64_t row_len, int subtract_mean,
                        int threads, cudaStream_t stream) {
-  norm_silu_bwd_kernel<T><<<(unsigned)rows, threads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x),
-      static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      static_cast<const T*>(w), static_cast<const T*>(b), static_cast<T*>(dx),
-      static_cast<float*>(dw_part), static_cast<float*>(db_part), channels,
-      row_len, subtract_mean);
-  return cudaGetLastError();
+  const T* g_ = static_cast<const T*>(g);
+  const T* x_ = static_cast<const T*>(x);
+  const float* mean_ = static_cast<const float*>(mean);
+  const float* rstd_ = static_cast<const float*>(rstd);
+  const T* w_ = static_cast<const T*>(w);
+  const T* b_ = static_cast<const T*>(b);
+  T* dx_ = static_cast<T*>(dx);
+  float* dw_ = static_cast<float*>(dw_part);
+  float* db_ = static_cast<float*>(db_part);
+  const Shape s = pick_shape<T>(rows, row_len, 2, threads);
+  if (s.kernel == kRows) {
+    // the two segments, gu as f32, then a float4 of statistics per row
+    const int smem = (2 * s.seg_words + s.seg_words * kVec<T> / 4 +
+                      s.rows_per_block) * 16;
+    const cudaError_t err = allow_smem(norm_silu_bwd_rows_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    norm_silu_bwd_rows_kernel<T>
+        <<<(unsigned)s.blocks, s.threads, smem, stream>>>(
+            g_, x_, mean_, rstd_, w_, b_, dx_, dw_, db_, channels, rows,
+            (int)row_len, s.rows_per_block, s.seg_words, s.lanes,
+            subtract_mean);
+    return cudaGetLastError();
+  }
+  if (s.kernel == kStream) {
+    norm_silu_bwd_stream_kernel<T>
+        <<<(unsigned)s.blocks, s.threads, 0, stream>>>(
+            g_, x_, mean_, rstd_, w_, b_, dx_, dw_, db_, channels, row_len,
+            subtract_mean);
+    return cudaGetLastError();
+  }
+  return launch_cluster(norm_silu_bwd_cluster_kernel<T>, s,
+                        2 * s.seg_words * 16, stream, g_, x_, mean_, rstd_,
+                        w_, b_, dx_, dw_, db_, channels, (int)row_len, s.slice,
+                        s.seg_words, subtract_mean);
 }
 
 }  // namespace

@@ -21,23 +21,33 @@ here, so in the port this kernel is the norm on the card.
   E[x²] - μ² when |μ| ≫ σ), and computes y from there into 16-byte
   stores. The launch picks the shape from S and the row count: rows of
   up to 1024 elements (configuration B's 784, 196, 49) take a group of
-  lanes of one warp each (about one 16-byte word a lane: 32 lanes at 784
-  and 196, 8 at 49), several rows a block, with warp-shuffle sums only;
-  longer rows (A's 32³ and 16³) are split over a thread-block cluster of
-  up to 8 CTAs, enough for two waves of the SMs (32 rows of 32768 at A's
-  bucket 1 become 256 CTAs), which add their partial sums through
-  distributed shared memory in one fixed order. Rows beyond a cluster's 1 MB
-  of shared memory (none on the main paths) are streamed by one block
-  each, the re-reads served by L2. Sums run in a fixed order, so one
-  input gives one result. Mean and rstd are written as [B, C] f32 for K3.
-- K3 is bound by bytes too: it reads g and x and writes dx (~20 flops per
-  element), and reuses the forward's [B, C] statistics. Same layout: one
-  block per row; pass 1 reduces the row's sums of dn, dn·n, gu·n and gu,
-  pass 2 (L2 serving the re-read) writes dx. Each block writes its row's
-  partials of dw and db to [B, C] f32; their sum over the batch is a
-  plain ``.sum(0)`` outside the kernel, as the JAX package sums its
-  kernel's partials outside it. One writer per output and no atomics, so
-  one input gives one result.
+  lanes of one warp each (a 16-byte word a lane up to 16 lanes, two
+  words a lane beyond: 32 lanes at 784, 16 at 196, 8 at 49), several
+  rows a block, with warp-shuffle sums only; rows of up to 4096 (A's
+  16³) take one CTA each; longer rows (A's 32³) are split over a
+  thread-block cluster of up to 8 CTAs, enough for two waves of the SMs
+  (32 rows of 32768 at A's bucket 1 become 256 CTAs), which add their
+  partial sums through distributed shared memory in one fixed order.
+  Rows beyond a cluster's 1 MB of shared memory (none on the main paths)
+  are streamed by one block each, the re-reads served by L2. Sums run in
+  a fixed order, so one input gives one result. Mean and rstd are written
+  as [B, C] f32 for K3.
+- K3 is bound by bytes too: it reads g and x and writes dx (~25 flops
+  and 4 SFU operations per element), and reuses the forward's [B, C]
+  statistics. It takes K2's launch shapes by the same rule, counting the
+  bytes of both arrays (a cluster CTA holds at most 64 KB of each), and
+  holds the block's segments of g and x in shared memory at x's
+  misalignment, so each element of g and x is read from device memory
+  once. Since w is one value per row, mean(dn) = w·Σgu/S and
+  mean(dn·n) = w·Σgu·n/S: pass 1 takes the two sums Σgu and Σgu·n (lane
+  group, block and cluster sums in a fixed order) over the held values,
+  pass 2 writes dx from them in 16-byte stores (the rows kernel keeps
+  pass 1's gu as f32 in shared memory; a cluster CTA recomputes it).
+  The two sums are also the row's partials of db and dw, written to
+  [B, C] f32; their sum over the batch is a plain ``.sum(0)`` outside the
+  kernel, as the JAX package sums its kernel's partials outside it. One
+  writer per output and no atomics, so one input gives one result. Rows
+  beyond a cluster stream g and x twice through L2, as K2's do.
 """
 
 from __future__ import annotations

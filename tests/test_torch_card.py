@@ -222,6 +222,39 @@ def test_norm_silu_split_rows_match_plain_on_card(dtype, case):
     torch.cuda.synchronize()
 
 
+# K3's launch shapes at configurations A's and B's train-step norms: A's
+# 32³ rows (a cluster of 2 CTAs per row) and 16³ rows (one CTA per row), B's
+# rows of 784 (a warp each), 196 (16 lanes) and 49 (8 lanes, rows that
+# share 16-byte words)
+_K3_SHAPES = [(4, 32, 32, 32, 32), (4, 64, 16, 16, 16), (256, 64, 28, 28),
+              (256, 128, 14, 14), (256, 256, 7, 7)]
+
+
+@pytest.mark.parametrize("shape", _K3_SHAPES)
+def test_norm_silu_bwd_launch_shapes_on_card(shape):
+    """K3 in bf16 at each of the train steps' launch shapes, on K2's
+    statistics: dx, dw and db within 1e-2 of max|ref| of the plain
+    version, one launch each, and bit-identical when run again (one writer
+    per output, sums in a fixed order)."""
+    gen = torch.Generator("cuda").manual_seed(7)
+    C = shape[1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.3).bfloat16()
+    g = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(C, generator=gen, device="cuda") * 0.2 + 1).bfloat16()
+    b = (torch.randn(C, generator=gen, device="cuda") * 0.1).bfloat16()
+    for kind in ("ln", "rms"):
+        _, mean, rstd = fn.norm_silu_fwd(x, w, b, kind)
+        kernels.reset_launches()
+        got = fn.norm_silu_bwd(g, x, mean, rstd, w, b, kind)
+        assert kernels.LAUNCHES["norm_silu_bwd"] == 1
+        for o, r in zip(got, fn.norm_silu_bwd_plain(g, x, mean, rstd, w, b,
+                                                    kind)):
+            _assert_grad_close(o, r)
+        again = fn.norm_silu_bwd(g, x, mean, rstd, w, b, kind)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("shape", [(64, 32, 32, 3), (3, 1001)])
 def test_fused_lincomb3_matches_plain_on_card(shape):
     """K7 in every dtype combination of x, f and g, at configuration C's
