@@ -13,8 +13,11 @@ Phases (any failure raises, so the exit code is non-zero):
    backward kernels K3, K5 and K6 on the forward kernels' own saved
    statistics; the norms also on unaligned rows, an unaligned base,
    off-centre inputs and rows beyond a cluster's shared memory; the flash
-   kernels over a sweep of T and head dims; K7 in every dtype combination
-   of its three inputs, bit for bit in float32), check that the bf16 K4,
+   kernels over a sweep of T and head dims; K1 and K7 in every dtype
+   combination of their inputs, bit for bit where x is float32, on ragged
+   rows, many short rows, one long row, operands whose base is not
+   16-byte aligned and their byte-bound shapes, each twice for the same
+   bits; ``euler_update`` against its plain form), check that the bf16 K4,
    K5 and K6 hold tensor-core instructions (``cuobjdump -sass``) and that
    bf16 K3 (at A's and B's largest train-step norms), K5 and K6 give one
    result twice, and time the kernel, its plain
@@ -24,7 +27,11 @@ Phases (any failure raises, so the exit code is non-zero):
    backend, with the SFU floor of their exponentials printed beside the
    bound). K1, K2, K3 and K7 are also timed by their device time alone
    (torch.profiler), since back to back their time is the host's launch
-   rate; K2 also at configuration A's serving bucket 1, beside
+   rate; K1 and K7 at every serving bucket of A and B (K1) and C (K7)
+   and at a byte-bound shape each, beside their bound and a PyTorch
+   elementwise pass over the same bytes, and by their host time a call
+   under inference mode beside their plain versions, in two rounds in
+   turn; K2 also at configuration A's serving bucket 1, beside
    ``F.group_norm`` + ``F.silu`` (two calls); K3 at A's and B's largest
    train-step norms, its device time with the inputs in L2 and out of it.
 2. Card vs CPU, sampling: a small configuration-A-shaped net (3D 32³,
@@ -69,6 +76,7 @@ the sums of K2's and K3's kernels.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -86,6 +94,31 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 # operations over the peak rate for their type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+# K1's and K7's checks: the main paths' shapes (B's sampler at bucket 64,
+# A's at bucket 4, C's at 16 and 64), ragged rows, many short rows, one
+# long row, and operands whose base is not 16-byte aligned (contiguous
+# views at a storage offset of 1 element: x alone, f alone, x and f, and
+# for K7 g alone and all three). (shape, the offset operands)
+COMBINE_CASES = (((64, 28, 28, 1), ""), ((4, 32, 32, 32, 1), ""),
+                 ((16, 32, 32, 3), ""), ((64, 32, 32, 3), ""),
+                 ((3, 1001), ""), ((5, 7), ""), ((4096, 3), ""),
+                 ((1, 2 ** 20 + 3), ""), ((64, 28, 28, 1), "x"),
+                 ((64, 28, 28, 1), "f"), ((64, 28, 28, 1), "xf"),
+                 ((4, 32, 32, 32, 1), "xf"), ((16, 32, 32, 3), "g"),
+                 ((16, 32, 32, 3), "xfg"), ((3, 1001), "xfg"))
+# each wrapper's operands, and the shape at which bytes, not a launch's
+# latency, set its time: K1 at a batch of 8 porous-media volumes of 128³
+# (3 × 64 MB), K7 at 64 images of diffusers' google/ddpm-church-256
+# (4 × 50 MB)
+COMBINES = {"fused_axby": ("xf", (8, 1, 128, 128, 128)),
+            "fused_lincomb3": ("xfg", (64, 3, 256, 256))}
+# the main paths' launches of K1 (A's buckets 1 and 4, B's 1, 8 and 64)
+# and K7 (C's buckets 1 and 16), timed by device time
+COMBINE_TIMED = {"fused_axby": ((1, 32, 32, 32, 1), (4, 32, 32, 32, 1),
+                                (1, 28, 28, 1), (8, 28, 28, 1),
+                                (64, 28, 28, 1)),
+                 "fused_lincomb3": ((1, 32, 32, 3), (16, 32, 32, 3))}
 
 # (B, H, T, d) of phase 1's flash checks; the first is config A's
 FLASH_SWEEP = ((4, 2, 4096, 32), (1, 2, 4096, 8), (2, 4, 4096, 16),
@@ -245,6 +278,13 @@ def randn(shape, dtype, gen, scale=1.0, shift=0.0):
             + shift).to(dtype)
 
 
+def offset_randn(shape, dtype, offset, gen, scale=1.0):
+    """``randn`` as a contiguous view at a storage offset of ``offset``
+    elements (1: a base that is not 16-byte aligned)."""
+    n = int(np.prod(shape))
+    return randn(n + offset, dtype, gen, scale)[offset:].view(shape)
+
+
 def within(out, ref, dtype, f32_limit):
     """max |out - ref| and whether it is inside the stated tolerance:
     f32_limit in float32; |Δ| <= 2e-2 + 2e-2·|ref| in bfloat16."""
@@ -298,6 +338,118 @@ def within_grad(outs, refs, dtype):
 # ---------------------------------------------------------------------------
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
+def check_combines(fp, gen, record):
+    """K1 in its 4 dtype combinations of x and f and K7 in its 8 of x, f
+    and g, at every case of COMBINE_CASES and at their byte-bound shapes:
+    bit for bit against the plain version where x is f32 (both round
+    a·x + b·f (+ c·g) term by term), |Δ| <= 2e-2 + 2e-2·|ref| where it is
+    bf16, and the same bits when run again on the same inputs. Then
+    euler_update (one K1 launch) against its plain form
+    x + (t_next − t)/t·(x − D) at configuration B's sampler state, f32,
+    within 1e-5."""
+    dts = (torch.float32, torch.bfloat16)
+    for name, (operands, big) in COMBINES.items():
+        wrapper, plain = getattr(fp, name), getattr(fp, f"{name}_plain")
+        for shape, offsets in COMBINE_CASES + ((big, ""),):
+            if not set(offsets) <= set(operands):
+                continue
+            coeffs = [randn(shape[0], torch.float32, gen) for _ in operands]
+            worst = {}
+            for dtypes in itertools.product(dts, repeat=len(operands)):
+                tensors = [offset_randn(shape, dt, int(o in offsets), gen,
+                                        40.0 if o == "x" else 1.0)
+                           for o, dt in zip(operands, dtypes)]
+                out = wrapper(*tensors, *coeffs)
+                err, ok = within(out, plain(*tensors, *coeffs), dtypes[0],
+                                 0.0)
+                ok = ok and out.dtype == dtypes[0] and torch.equal(
+                    out, wrapper(*tensors, *coeffs))
+                e, o = worst.get(dtypes[0], (0.0, True))
+                worst[dtypes[0]] = (max(e, err), o and ok)
+            label = (f"{list(shape)}{' +1 ' + offsets if offsets else ''} "
+                     f"({2 ** (len(operands) - 1)} combinations of "
+                     f"{'/'.join(operands[1:])} dtypes, twice), x")
+            for dtype, (err, ok) in worst.items():
+                record(name, label, dtype, err, ok,
+                       "0 (bit for bit)" if dtype == torch.float32
+                       else "2e-2+2e-2|ref|")
+
+    x, f = (randn((64, 28, 28, 1), torch.float32, gen) for _ in range(2))
+    c_skip = torch.rand(64, generator=gen, device="cuda")
+    c_out = randn(64, torch.float32, gen)
+    t = torch.rand(64, generator=gen, device="cuda") * 9 + 1
+    t_next = t * (0.5 + 0.4 * torch.rand(64, generator=gen, device="cuda"))
+    rows = (64, 1, 1, 1)
+    d = c_skip.view(rows) * x + c_out.view(rows) * f
+    ref = x + ((t_next - t) / t).view(rows) * (x - d)
+    err, ok = within(fp.euler_update(x, f, c_skip, c_out, t, t_next), ref,
+                     torch.float32, 1e-5)
+    record("fused_axby", "euler_update [64, 28, 28, 1] against "
+           "x + (t_next - t)/t·(x - D)", torch.float32, err, ok, "1e-5")
+
+
+def time_combines(fp, gen):
+    """K1 and K7 timed in float32, the main paths' dtype: by device time
+    (torch.profiler) at each launch shape of COMBINE_TIMED and at their
+    byte-bound shapes, each beside its least time by bytes and beside the
+    device time of a PyTorch elementwise pass over the same bytes
+    (``torch.add(x, f)`` for K1, ``torch.addcmul(x, f, g)`` for K7: not
+    the same function, the card's floor for such a launch); and by the
+    host's time a call, back to back under inference mode as the
+    sampling loops call them, the wrapper and its plain version in two
+    rounds in turn. Returns the records of the kernels line (B's bucket
+    64 for K1, C's bucket 16 for K7)."""
+    floors = {"fused_axby": ("torch.add(x, f)", lambda x, f: torch.add(x, f)),
+              "fused_lincomb3": ("torch.addcmul(x, f, g)",
+                                 lambda x, f, g: torch.addcmul(x, f, g))}
+    kernel_names = {"fused_axby": ("axby_kernel",),
+                    "fused_lincomb3": ("lincomb3_kernel",)}
+    records = {}
+    for name, (operands, big) in COMBINES.items():
+        wrapper, plain = getattr(fp, name), getattr(fp, f"{name}_plain")
+        floor_label, floor = floors[name]
+        k = len(operands)
+        for shape in COMBINE_TIMED[name] + (big,):
+            tensors = [randn(shape, torch.float32, gen) for _ in operands]
+            coeffs = [randn(shape[0], torch.float32, gen) for _ in operands]
+            n = tensors[0].numel()
+            # reads each operand and its coefficients, writes out; k
+            # products and k - 1 sums an element
+            bms, bby = bound(4 * (k + 1) * n + 4 * k * shape[0],
+                             (2 * k - 1) * n, torch.float32)
+            iters = 20 if shape == big else 200
+            dev = device_ms(lambda: wrapper(*tensors, *coeffs), iters,
+                            kernel_names[name])
+            floor_ms = device_ms(lambda: floor(*tensors), iters)
+            log(f"[kernels] device time {name} {list(shape)} float32: "
+                f"{dev:.5f} ms, bound {bms:.5f} ms ({bby}; "
+                f"{bms / dev:.1%} of it), {floor_label} device "
+                f"{floor_ms:.5f} ms")
+            if shape == COMBINE_TIMED[name][-1]:
+                host = {"kernel": [], "plain": []}
+                with torch.inference_mode():
+                    for _ in range(2):
+                        host["kernel"].append(cuda_ms(
+                            lambda: wrapper(*tensors, *coeffs), 200))
+                        host["plain"].append(cuda_ms(
+                            lambda: plain(*tensors, *coeffs), 200))
+                grad_on = cuda_ms(lambda: wrapper(*tensors, *coeffs), 200)
+                log(f"[kernels] host ms a call {name} {list(shape)}, back "
+                    f"to back under inference mode, two rounds in turn: "
+                    f"wrapper {host['kernel'][0]:.4f}, {host['kernel'][1]:.4f}"
+                    f"; plain {host['plain'][0]:.4f}, {host['plain'][1]:.4f}"
+                    f"; wrapper with autograd on (the Function) "
+                    f"{grad_on:.4f}")
+                records[name] = dict(
+                    shape=f"{list(shape)} float32, host ms under inference "
+                          "mode (the better of two rounds)",
+                    ms=min(host["kernel"]), device_ms=dev,
+                    plain_ms=min(host["plain"]), library_ms=None,
+                    bound_ms=bms, bound_by=bby, floor=floor_label,
+                    floor_ms=floor_ms)
+    return records
+
+
 def phase_kernels():
     from diffsci_tpu_torch import kernels
     from diffsci_tpu_torch.kernels import (flash_attention as fa,
@@ -319,33 +471,7 @@ def phase_kernels():
         if not ok:
             failures.append(f"{name} {label} {dtype}")
 
-    for shape in ((64, 28, 28, 1), (4, 32, 32, 32, 1), (3, 1001)):
-        for dtype in (torch.float32, torch.bfloat16):
-            x = randn(shape, dtype, gen, 40.0)
-            f = randn(shape, dtype, gen)
-            a = torch.rand(shape[0], generator=gen, device="cuda")
-            b = randn(shape[0], torch.float32, gen)
-            err, ok = within(fp.fused_axby(x, f, a, b),
-                             fp.fused_axby_plain(x, f, a, b), dtype, 1e-5)
-            record("fused_axby", list(shape), dtype, err, ok,
-                   "1e-5" if dtype == torch.float32 else "2e-2+2e-2|ref|")
-
-    # K7 at config C's sampler state (buckets 1 and 16; 64 as well) and a
-    # ragged shape; f32 bit for bit, and each mixed dtype combination
-    dts = (torch.float32, torch.bfloat16)
-    for shape in ((16, 32, 32, 3), (64, 32, 32, 3), (3, 1001)):
-        a, b, c = (randn(shape[0], torch.float32, gen) for _ in range(3))
-        for dx, df, dg in ((dx, df, dg) for dx in dts for df in dts
-                           for dg in dts):
-            x = randn(shape, dx, gen, 40.0)
-            f, g = randn(shape, df, gen), randn(shape, dg, gen)
-            err, ok = within(fp.fused_lincomb3(x, f, g, a, b, c),
-                             fp.fused_lincomb3_plain(x, f, g, a, b, c), dx,
-                             0.0)
-            names = "/".join(str(t)[6:] for t in (dx, df, dg))
-            record("fused_lincomb3", f"{list(shape)} x/f/g {names}", dx,
-                   err, ok, "0 (bit for bit)" if dx == torch.float32 else
-                   "2e-2+2e-2|ref|")
+    check_combines(fp, gen, record)
 
     # config A serves and trains at batch 4 (and serves at bucket 1);
     # config B serves at bucket 64 and trains at batch 256; rows that are
@@ -465,34 +591,7 @@ def phase_kernels():
         raise AssertionError(f"kernel checks failed: {failures}")
 
     # -- timings at the main path's shapes --------------------------------
-    records = {}
-    x = randn((64, 28, 28, 1), torch.float32, gen, 40.0)
-    f = randn((64, 28, 28, 1), torch.float32, gen)
-    a = torch.rand(64, generator=gen, device="cuda")
-    b = randn(64, torch.float32, gen)
-    n = x.numel()
-    bms, bby = bound(3 * 4 * n + 2 * 4 * 64, 3 * n, torch.float32)
-    records["fused_axby"] = dict(
-        shape="x, f [64, 28, 28, 1] float32 (config B, bucket 64)",
-        ms=cuda_ms(lambda: fp.fused_axby(x, f, a, b), 200),
-        device_ms=device_ms(lambda: fp.fused_axby(x, f, a, b), 200,
-                            ("axby_kernel",)),
-        plain_ms=cuda_ms(lambda: fp.fused_axby_plain(x, f, a, b), 200),
-        library_ms=None, bound_ms=bms, bound_by=bby)
-
-    # K7 at config C's largest bucket: reads x, ε and the noise, writes x'
-    x, f, g = (randn((16, 32, 32, 3), torch.float32, gen) for _ in range(3))
-    a, b, c = (randn(16, torch.float32, gen) for _ in range(3))
-    n = x.numel()
-    bms, bby = bound(4 * 4 * n + 3 * 4 * 16, 5 * n, torch.float32)
-    records["fused_lincomb3"] = dict(
-        shape="x, ε, noise [16, 32, 32, 3] float32 (config C, bucket 16)",
-        ms=cuda_ms(lambda: fp.fused_lincomb3(x, f, g, a, b, c), 200),
-        device_ms=device_ms(lambda: fp.fused_lincomb3(x, f, g, a, b, c),
-                            200, ("lincomb3_kernel",)),
-        plain_ms=cuda_ms(lambda: fp.fused_lincomb3_plain(x, f, g, a, b, c),
-                         200),
-        library_ms=None, bound_ms=bms, bound_by=bby)
+    records = time_combines(fp, gen)
 
     # K2 at config A's largest norm, and at its serving bucket 1 (32 rows:
     # the cluster split); GroupNorm + SiLU, two PyTorch calls, beside it
@@ -631,6 +730,8 @@ def phase_kernels():
         lib = ("" if rec["library_ms"] is None else
                f", library {rec['library_ms']:.4f} ms"
                + spread.format(*rec["library_range"]))
+        if "floor_ms" in rec:
+            lib += f", {rec['floor']} device {rec['floor_ms']:.4f} ms"
         if "group_norm_silu" in rec:
             lib += (", F.group_norm + F.silu (two calls) {:.4f} ms back to "
                     "back, device {:.4f} ms").format(*rec["group_norm_silu"])

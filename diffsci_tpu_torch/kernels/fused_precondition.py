@@ -10,22 +10,43 @@ with the step's coefficients folded to [B]. Source:
 ``csrc/fused_precondition.cu`` (CUDA C++; Triton would do for a single
 elementwise pass, but one build route serves all the port's kernels).
 
-- What bounds them on the H100: bytes. K1 reads x and f and writes out
-  once (12 bytes per element in f32) and does 3 flops per element; K7
-  reads three tensors (16 bytes per element) for 5 flops. Both are far
-  below the card's ~295 flops/byte ridge. At the paths' sizes (64·784 or
-  4·32768 elements for K1, 64·3072 for K7, each under 4 MB) one launch is
-  a few microseconds of latency against a byte bound of about a
-  microsecond.
-- What the design does about it: one flat grid-stride pass over [B, N]
-  with the per-batch coefficients read from [B] f32 device arrays, so
-  every tensor is read once; K7 is K1's pass with a third term, on the
-  same loaders, storers and launch shape. Each of x, f and g may be f32 or
-  bf16 on its own, as the JAX kernels cast each one. The TPU kernels'
-  N % 128 tiling gate and their XLA fallback have no counterpart: the pass
-  takes any N. Products and sums are rounded separately (no FMA), in the
-  plain version's order, so on f32 inputs each kernel equals its plain
+- What bounds them on the H100: at the main paths' sizes, the latency of
+  one launch and the host's cost of issuing it. K1 reads x and f and
+  writes out once (12 bytes an element in f32) for 3 flops, K7 reads
+  three tensors (16 bytes) for 5: far below the card's ~295 flops/byte
+  ridge, so bytes bound them in principle. But the paths' launches are
+  small (K1 at 1–64 rows of 784 or 1–4 rows of 32768 elements, K7 at
+  1–16 rows of 3072), with byte bounds of 0.003–0.47 µs against a
+  measured 1.25–1.40 µs a launch, within 0.17 µs of one PyTorch
+  elementwise launch over the same bytes (PERF.md §6); the host
+  spends 0.015–0.026 ms issuing each one.
+- What the design does about it, on the device: the batch row is the
+  grid's y index and a chunk of the row its x index, so no element's
+  index is divided by N and a thread loads its row's coefficients once,
+  beside its first data loads. A thread combines the elements of one
+  16-byte word of x and out (``PRECOND_X_BYTES``: 4 in f32, 8 in bf16),
+  with word loads and stores of each operand whose row starts on a word
+  boundary (16 bytes; 8 for a bf16 operand beside f32 x), and element by
+  element elsewhere (unaligned views, rows whose bytes are not a
+  multiple of a word, the end of a row). The launch aims at
+  ``PRECOND_CTAS`` (64) CTAs of 64 to ``PRECOND_THREADS`` (512) threads,
+  a row's threads split evenly over its CTAs: at the paths' sizes one
+  wave of 4–64 CTAs in which each thread makes one round of loads
+  (1.6–26 % below the grid-stride pass it replaced), and at large sizes
+  90 % of the byte bound (66.8 µs against 60.1 at [8, 1, 128³] f32). K7
+  is K1's pass with a third term. Each of x, f and g may be f32 or bf16
+  on its own, as the JAX kernels cast each one; the TPU kernels'
+  N % 128 tiling gate and their XLA fallback have no counterpart.
+  Products and sums are rounded separately (no FMA), in the plain
+  version's order, so where x is f32 each kernel equals its plain
   version bit for bit.
+- On the host (``_launch``): one pass checks device, shape, dtype and
+  contiguity; a coefficient that is already a contiguous [B] f32 tensor
+  on x's device (every call site's) is passed as it is; the current
+  stream is PyTorch's raw handle; the library's ``argtypes`` are set
+  once, at load. Sampling calls ``fused_axby_fwd`` or
+  ``fused_lincomb3_fwd`` directly (no autograd Function); a call costs
+  the host 0.31–0.65× of the plain version's.
 - Gradient: ``FusedAxby`` and ``FusedLincomb3``, whose forward is the
   kernel and whose backward is the plain expression of the JAX package's
   custom VJP (``fused_precondition.py:159-168, 237-249``): each tensor's
@@ -54,7 +75,13 @@ _SIGNATURES = {
 
 
 def _coeff(c, batch: int, device) -> torch.Tensor:
-    """Scalar / [1] / [B] / [B, 1, ...] coefficient -> contiguous [B] f32."""
+    """Scalar / [1] / [B] / [B, 1, ...] coefficient -> contiguous [B] f32.
+    A coefficient that is one already (every call site of the sampling
+    loops passes one) is returned as it is, with no tensor operation."""
+    if (type(c) is torch.Tensor and c.dtype == torch.float32
+            and c.shape == (batch,) and c.device == device
+            and c.is_contiguous()):
+        return c
     c = torch.as_tensor(c, dtype=torch.float32, device=device).reshape(-1)
     return c.expand(batch).contiguous()
 
@@ -74,8 +101,17 @@ def _combine_plain(tensors, coeffs):
 
 def _check(what, tensors):
     """The kernels' contract: one CUDA device, one shape, float32 or
-    bfloat16 each, contiguous."""
+    bfloat16 each, contiguous. One pass over the tensors; the message
+    says which part of the contract a call broke."""
     x = tensors[0]
+    device, shape = x.device, x.shape
+    for t in tensors:
+        if (t.device != device or t.shape != shape or t.dtype not in _DTYPES
+                or not t.is_contiguous()):
+            break
+    else:
+        if device.type == "cuda":
+            return
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError(f"{what}: inputs on {[str(t.device) for t in tensors]}"
                          "; all must be on one CUDA device")
@@ -85,17 +121,19 @@ def _check(what, tensors):
     if any(t.dtype not in _DTYPES for t in tensors):
         raise TypeError(f"{what}: dtypes {[t.dtype for t in tensors]}; "
                         "float32 or bfloat16 only")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{what}: inputs must be contiguous")
+    raise ValueError(f"{what}: inputs must be contiguous")
 
 
 def _launch(what, fn, tensors, coeffs):
     """Check the inputs, fold the coefficients to [B] f32 and launch
-    ``fn`` of the library, counting the launch under ``what``."""
+    ``fn`` of the library on the current stream, counting the launch
+    under ``what``. The stream is PyTorch's raw handle of the device's
+    current stream, which builds no ``torch.cuda.Stream`` object."""
     _check(what, tensors)
     x = tensors[0]
+    device = x.device
     B = x.shape[0]
-    folded = [_coeff(c, B, x.device) for c in coeffs]
+    folded = [_coeff(c, B, device) for c in coeffs]
     out = torch.empty_like(x)
     total = x.numel()
     if total == 0:
@@ -105,7 +143,7 @@ def _launch(what, fn, tensors, coeffs):
         *(t.data_ptr() for t in tensors), *(c.data_ptr() for c in folded),
         out.data_ptr(), total // B, total,
         *(_DTYPES[t.dtype] for t in tensors),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        torch._C._cuda_getCurrentRawStream(device.index))
     kernels.LAUNCHES[what] += 1
     _build.check(lib, err, what)
     return out
@@ -189,6 +227,20 @@ def fused_axby(x, f, a, b):
 def denoise_combine(x, f, c_skip, c_out):
     """D = c_skip·x + c_out·f (the Karras denoiser epilogue)."""
     return fused_axby(x, f, c_skip, c_out)
+
+
+def euler_update(x, f, c_skip, c_out, t, t_next):
+    """Fused denoise + Euler ODE step, one K1 launch:
+    x' = x + (t_next − t)/t · (x − D),  D = c_skip·x + c_out·f,
+    folded to a·x + b·f with r = (t_next − t)/t, a = 1 + r(1 − c_skip)
+    and b = −r·c_out. c_skip, c_out, t and t_next: scalars or [B].
+
+    For custom sampling loops that call the raw network and want the
+    whole Karras-ODE Euler step in one pass; the stock integrators
+    (``ops/integrators.py``) are generic over an rhs closure and do not
+    call it, as in the JAX package."""
+    r = (t_next - t) / t
+    return fused_axby(x, f, 1.0 + r * (1.0 - c_skip), -r * c_out)
 
 
 # ---------------------------------------------------------------------------

@@ -58,13 +58,15 @@ K3_SHAPES = ((256, 64, 28, 28), (256, 128, 14, 14), (256, 256, 7, 7),
 ITERS = 50
 
 
-def build(variants: dict) -> dict:
-    """Build every variant {name: (source, defines)}: {name: library}."""
+def build(variants: dict, stem: str, signatures: dict) -> dict:
+    """Build every variant {name: (source, defines)} of the library
+    ``stem``, one nvcc each, all at once, and load it with
+    ``signatures``: {name: library}."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for i, (name, (source, defines)) in enumerate(variants.items()):
-        so = out_dir / f"fused_norm-{i}.so"
+        so = out_dir / f"{stem}-{i}.so"
         verbose = ("-Xptxas", "-v") if name == "committed" else ()
         jobs[name] = (so, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, *defines, *verbose, "-I",
@@ -79,7 +81,7 @@ def build(variants: dict) -> dict:
             print("\n".join(line for line in log.splitlines()
                             if "registers" in line or "spill" in line
                             or "Compiling entry" in line), flush=True)
-        libs[name] = _build.open_library(so, fn._SIGNATURES)
+        libs[name] = _build.open_library(so, signatures)
     return libs
 
 
@@ -95,7 +97,7 @@ def main() -> int:
     variants = {name: (source, d) for name, d in VARIANTS.items()}
     variants = {**{f"parent {pathlib.Path(path).name}": (pathlib.Path(path), ())
                    for path in args.parent}, **variants}
-    libs = build(variants)
+    libs = build(variants, "fused_norm", fn._SIGNATURES)
     print(chip_smoke.smi("name,power.limit,clocks.max.sm"), flush=True)
     gen = torch.Generator("cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream

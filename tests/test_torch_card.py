@@ -281,3 +281,88 @@ def test_fused_lincomb3_matches_plain_on_card(shape):
                                                rtol=2e-2, atol=2e-2)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["fused_lincomb3"] == 8
+
+
+# K1's and K7's cases: the main paths' shapes (B's and A's samplers, C's),
+# ragged rows, many short rows, one long row, and operands whose base is
+# not 16-byte aligned (contiguous views at a storage offset of 1 element:
+# x alone, f alone, f and x, and for K7 g alone and all three). (shape,
+# names of the offset operands)
+_COMBINE_CASES = [((64, 28, 28, 1), ""), ((4, 1, 32, 32, 32), ""),
+                  ((16, 32, 32, 3), ""), ((3, 1001), ""), ((5, 7), ""),
+                  ((4096, 3), ""), ((1, 2 ** 20 + 3), ""),
+                  ((64, 28, 28, 1), "x"), ((64, 28, 28, 1), "f"),
+                  ((64, 28, 28, 1), "xf"), ((4, 1, 32, 32, 32), "xf"),
+                  ((16, 32, 32, 3), "g"), ((16, 32, 32, 3), "xfg"),
+                  ((3, 1001), "xfg")]
+
+
+def _offset_randn(shape, dtype, offset, gen, scale=1.0):
+    n = 1
+    for s in shape:
+        n *= s
+    return (torch.randn(n + offset, generator=gen, device="cuda")
+            * scale).to(dtype)[offset:].view(shape)
+
+
+_OPERANDS = {"fused_axby": "xf", "fused_lincomb3": "xfg"}
+
+
+@pytest.mark.parametrize("kernel,case", [
+    (kernel, case) for kernel, names in _OPERANDS.items()
+    for case in _COMBINE_CASES if set(case[1]) <= set(names)])
+def test_fused_combine_cases_on_card(kernel, case):
+    """K1 in its 4 dtype combinations of x and f, K7 in its 8 of x, f
+    and g: bit for bit against the plain version when x is f32 (the
+    kernels round a·x + b·f (+ c·g) term by term, as it does), within
+    2e-2 + 2e-2·|ref| when it is bf16; the same inputs give the same bits
+    again; one launch a call."""
+    shape, offsets = case
+    names = _OPERANDS[kernel]
+    gen = torch.Generator("cuda").manual_seed(8)
+    coeffs = [torch.randn(shape[0], generator=gen, device="cuda")
+              for _ in names]
+    dts = (torch.float32, torch.bfloat16)
+    combos = [(dx, df) for dx in dts for df in dts] if len(names) == 2 else \
+        [(dx, df, dg) for dx in dts for df in dts for dg in dts]
+    wrapper, plain = getattr(fp, kernel), getattr(fp, kernel + "_plain")
+    kernels.reset_launches()
+    for dtypes in combos:
+        tensors = [_offset_randn(shape, dt, int(nm in offsets), gen,
+                                 40.0 if nm == "x" else 1.0)
+                   for nm, dt in zip(names, dtypes)]
+        assert all(t.is_contiguous() for t in tensors)
+        out = wrapper(*tensors, *coeffs)
+        ref = plain(*tensors, *coeffs)
+        assert out.dtype == dtypes[0]
+        if dtypes[0] == torch.float32:
+            assert torch.equal(out, ref), dtypes
+        else:
+            torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                       atol=2e-2)
+        assert torch.equal(out, wrapper(*tensors, *coeffs))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[kernel] == 2 * len(combos)
+    assert sum(kernels.LAUNCHES.values()) == 2 * len(combos)
+
+
+def test_euler_update_matches_plain_on_card():
+    """euler_update (one K1 launch) against x + (t_next − t)/t·(x − D),
+    D = c_skip·x + c_out·f, at configuration B's sampler state in f32:
+    within 1e-5."""
+    gen = torch.Generator("cuda").manual_seed(9)
+    x, f = (torch.randn((64, 28, 28, 1), generator=gen, device="cuda")
+            for _ in range(2))
+    c_skip = torch.rand(64, generator=gen, device="cuda")
+    c_out = torch.randn(64, generator=gen, device="cuda")
+    t = torch.rand(64, generator=gen, device="cuda") * 9 + 1
+    t_next = t * (0.5 + 0.4 * torch.rand(64, generator=gen, device="cuda"))
+    kernels.reset_launches()
+    out = fp.euler_update(x, f, c_skip, c_out, t, t_next)
+    assert kernels.LAUNCHES["fused_axby"] == 1
+
+    def br(v):
+        return v.view(64, 1, 1, 1)
+    D = br(c_skip) * x + br(c_out) * f
+    ref = x + br((t_next - t) / t) * (x - D)
+    assert float((out - ref).abs().max()) <= 1e-5

@@ -59,6 +59,64 @@ def test_fused_axby_plain_matches_jax(hw, coeff):
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("times", ["batch", "scalar"])
+def test_euler_update_matches_jax(times):
+    """euler_update (one K1 launch with a = 1 + r(1 − c_skip),
+    b = −r·c_out) against the JAX function in interpret mode and against
+    the unfused x + (t_next − t)/t·(x − D), D = c_skip·x + c_out·f, on
+    tests/test_kernels.py's shapes and bound (rtol 1e-5, atol 1e-6), with
+    t and t_next per batch row or one scalar."""
+    rng = np.random.default_rng(6)
+    x, f = (rng.standard_normal((3, 8, 8, 2)).astype(np.float32)
+            for _ in range(2))
+    c_skip = np.array([0.3, 0.5, 0.9], np.float32)
+    c_out = np.array([1.2, 0.4, -0.6], np.float32)
+    t, t_next = ((np.array([10.0, 5.0, 1.0], np.float32),
+                  np.array([7.0, 3.0, 0.5], np.float32)) if times == "batch"
+                 else (np.float32(10.0), np.float32(7.0)))
+    ref = np.asarray(jfp.euler_update(*(jnp.asarray(v) for v in
+                                        (x, f, c_skip, c_out, t, t_next)),
+                                      True))
+    out = fp.euler_update(*(torch.as_tensor(v) for v in
+                            (x, f, c_skip, c_out, t, t_next)))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
+
+    def br(v):
+        return np.reshape(v, np.shape(v) + (1,) * (x.ndim - np.ndim(v)))
+    D = br(c_skip) * x + br(c_out) * f
+    unfused = x + br((t_next - t) / t) * (x - D)
+    np.testing.assert_allclose(out.numpy(), unfused, rtol=1e-5, atol=1e-6)
+
+
+_COEFFS = {
+    "float": lambda B: 0.7,
+    "0-d": lambda B: torch.tensor(-1.3),
+    "[1]": lambda B: torch.tensor([0.25]),
+    "[B]": lambda B: torch.arange(B, dtype=torch.float32) - 1.5,
+    "[B,1,1,1]": lambda B: torch.linspace(-2, 2, B).view(B, 1, 1, 1),
+    "float64": lambda B: torch.linspace(-2, 2, B, dtype=torch.float64),
+    "strided [B]": lambda B: torch.arange(2 * B, dtype=torch.float32)[::2],
+}
+
+
+@pytest.mark.parametrize("kind", list(_COEFFS))
+def test_coefficient_fold(kind):
+    """The launch path's fold of a coefficient gives the [B] f32 values
+    of as_tensor → reshape(-1) → expand(B) → contiguous for every form a
+    caller may pass, and a contiguous [B] f32 tensor on x's device (what
+    every call site passes) is the very same object, with no copy."""
+    B = 4
+    c = _COEFFS[kind](B)
+    got = fp._coeff(c, B, torch.device("cpu"))
+    ref = torch.as_tensor(c, dtype=torch.float32).reshape(-1).expand(B) \
+        .contiguous()
+    assert got.dtype == torch.float32 and got.shape == (B,)
+    assert got.is_contiguous()
+    assert torch.equal(got, ref)
+    assert (got is c) == (kind == "[B]")
+
+
 # ---------------------------------------------------------------------------
 # K7: fused_lincomb3
 # ---------------------------------------------------------------------------
