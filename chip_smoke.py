@@ -36,42 +36,59 @@ Phases (any failure raises, so the exit code is non-zero):
    train-step norms, its device time with the inputs in L2 and out of it.
 2. Card vs CPU, sampling: a small configuration-A-shaped net (3D 32³,
    flash attention over 4096 tokens) samples a few Heun steps from the
-   same weights and the same numpy noise on the CPU (plain versions) and
-   on the card (kernels), TF32 off; the results must agree.
+   same weights on the CPU (plain versions, eager) and on the card
+   (kernels, through the graphed ``KarrasModel.sample``), from the same
+   noise, TF32 off; the results must agree.
 3. Card vs CPU, training: the same net takes three f32 train steps from
-   the same weights, batch and σ/ε draws on both; losses, grad norms,
-   parameters and EMA shadows must agree.
+   the same weights, batch and σ/ε draws on both (the card's through the
+   graphed ``make_train_step``); losses, grad norms, parameters and EMA
+   shadows must agree.
 4. Card vs CPU, DDPM: a small HFNet (configuration C's family) runs 25
-   DDPM and 25 DDIM steps and 25 forward (noising) steps with replayed
-   noise, and loss_fn with its gradient norm, on both; they must agree,
-   with exactly 25 launches of K7 and of K1 per arm.
+   DDPM and 25 DDIM steps (the card's through the graphed
+   ``DDPMModel.sample``, the CPU replaying its noise) and 25 forward
+   (noising) steps with replayed noise, and loss_fn with its gradient
+   norm, on both; they must agree, with exactly 25 launches of K7 and of
+   K1 per arm.
 5. Serving, configuration A (3D 32³ porous-media volume, bf16, flash
-   attention) through ``SamplerService``, kernel launch counts reset
-   before and read after.
+   attention) through ``SamplerService``: the warm-up captures one CUDA
+   graph per bucket (capture seconds and the graph pool printed), then
+   the kernel launch counts are reset before the requests and read after.
 6. Serving, configuration B (MNIST 28x28, bf16) likewise. The counts of
    phases 5 and 6 must be those of 18-step Heun samples.
 7. Training, configuration A (batch 4 of 32³, bf16 over f32 masters,
-   AdamW, power EMA every 4 steps) through ``make_train_step``: warm-up,
-   then timed steps with the counts reset before and read after; the
-   counts must be exactly those of one forward and one backward per step,
-   the loss finite and lower after training on its fixed batch.
+   AdamW, power EMA every 4 steps) through ``make_train_step``: warm-up
+   (the first step eager, then the capture), then timed steps (graph
+   replays) with the counts reset before and read after; the counts must
+   be exactly those of one forward and one backward per step, the loss
+   finite and lower after training on its fixed batch.
 8. Training, configuration B (batch 256 of 28x28) likewise.
 9. Serving, configuration C (HFNet at the DDPM CIFAR-10 UNet's widths,
    32x32x3, bf16) through ``SamplerService``: DDIM at 100 steps (buckets
    1 and 16, with the same-seed check) and ancestral DDPM at 1000 steps
-   (bucket 16, one warm-up and one request); K7 must be launched once per
-   step of every bucket run, and no other kernel.
-10. One JSON line lists every kernel with its launches over phases 5 to
+   (bucket 16, one request); K7 must be launched once per step of every
+   bucket run (a replay of the step's graph), and no other kernel.
+10. Eager against graphed, in one process: A's (4), B's (64) and C's
+    DDIM (16) requests through the service's graphs and through the
+    loops' inner methods from one seed (phases 2 and 4's tolerances, and
+    the same bits twice for the graphed request), and A's and B's train
+    steps eager (``_raw=True``) and graphed from one seed and one set of
+    draws (phase 3's tolerances), each timed on the host clock; A's step
+    graphed under ``remat`` (peak memory, graph pool, time, phase 3's
+    tolerances against the graphed step); ``make_train_scan`` at K = 8
+    against 8 graphed steps, replaying the graph A's state holds; A's
+    graphed sampler after one more replayed train step, against the
+    eager loop on a cast copy built anew (phase 2's tolerance).
+11. One JSON line lists every kernel with its launches over phases 5 to
     9; the card's name and power limit; then the result line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-``python3 chip_smoke.py --profile`` adds, after phase 9, one profiled
-request per serving configuration (C by DDIM) and one profiled train step
-per training configuration (torch.profiler): wall time, device kernel
-time, the device's idle share, the kernels that take the most time and
-the sums of K2's and K3's kernels.
+``python3 chip_smoke.py --profile`` adds to phase 10 one profiled call of
+every arm (torch.profiler), eager and graphed: wall time, device kernel
+time, the device's idle share, kernel launches on the device and launch
+calls of the host, the kernels that take the most time and the sums of
+K2's and K3's kernels.
 """
 
 from __future__ import annotations
@@ -83,6 +100,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -142,6 +160,10 @@ PORT_KERNELS = ("axby_kernel", "lincomb3_kernel", "norm_silu_",
 NORM_KERNELS = {"K2": ("norm_silu_rows", "norm_silu_cluster",
                        "norm_silu_stream"),
                 "K3": ("norm_silu_bwd_",)}
+# the CUDA API calls by which the host launches work (kernels one at a
+# time, a CUDA graph whole), as torch.profiler names them
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 # a buffer larger than the H100's 50 MB L2, written between launches to
 # time a kernel with its inputs out of L2
 FLUSH_BYTES = 128 * 2 ** 20
@@ -770,23 +792,26 @@ def phase_card_vs_cpu():
     state = cpu.init(seed=1)
     gpu = KarrasModel(PUNetG(cfg), KarrasModelConfig.from_edm())
     gpu.net.load_state_dict(state, strict=True)
-    noise = np.random.default_rng(0).standard_normal(
-        (2, 32, 32, 32, 1)).astype(np.float32)
-    nsteps = 3
+    nsteps, shape = 3, (32, 32, 32, 1)
+    # the card's sample is the graphed entry point; its noise, drawn from
+    # the same seed, goes to the CPU's eager loop
+    noise = torch.randn((2,) + shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
     t0 = time.perf_counter()
-    ref = cpu.propagate_white_noise(torch.from_numpy(noise), nsteps=nsteps)
+    ref = cpu.propagate_white_noise(noise.cpu(), nsteps=nsteps)
     t_cpu = time.perf_counter() - t0
+    gpu.compile_sampler(2, shape, nsteps=nsteps)
     kernels.reset_launches()
-    out = gpu.propagate_white_noise(torch.from_numpy(noise).cuda(),
-                                    nsteps=nsteps).cpu()
+    out = gpu.sample(2, shape, torch.Generator("cuda").manual_seed(0),
+                     nsteps=nsteps).cpu()
     counts = dict(kernels.LAUNCHES)
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
     ok = bool(torch.isfinite(out).all()) and np.allclose(
         out.numpy(), ref.numpy(), rtol=1e-3, atol=1e-3)
     log(f"[card-vs-cpu] 3D 32^3 mc=8 flash (4096 tokens, head dim 8), "
-        f"{nsteps} Heun steps: max|card - cpu| {err:.3e} (max|cpu| "
-        f"{scale:.3f}; tolerance rtol 1e-3 + atol 1e-3) "
+        f"{nsteps} Heun steps, card graphed: max|card - cpu| {err:.3e} "
+        f"(max|cpu| {scale:.3f}; tolerance rtol 1e-3 + atol 1e-3) "
         f"{'ok' if ok else 'FAIL'}; cpu {t_cpu:.1f} s; launches {counts}")
     if not ok or min(counts[k] for k in FORWARD) == 0:
         raise AssertionError("card and CPU disagree, or a kernel was not "
@@ -890,11 +915,13 @@ def agree_per_step(ours, ref):
 
 def phase_ddpm_card_vs_cpu():
     """The DDPM path on the CPU (plain versions) and on the card (kernels),
-    from the same weights, numpy x and replayed per-step noise, f32 with
-    TF32 off: 25 DDPM and 25 DDIM steps (the classical schedule rebuilt for
-    T = 25; at T ≤ 20 its last β is 1 and the loop divides by 0, as in the
-    JAX package), 25 forward (noising) steps, and loss_fn with its gradient
-    norm. K7 and K1 counts must be exact."""
+    from the same weights, f32 with TF32 off: 25 DDPM and 25 DDIM steps
+    (the classical schedule rebuilt for T = 25; at T ≤ 20 its last β is 1
+    and the loop divides by 0, as in the JAX package) through the card's
+    graphed ``DDPMModel.sample``, whose noise, drawn again from the same
+    seed, the CPU's loop replays; 25 forward (noising) steps from numpy x
+    and noise, and loss_fn with its gradient norm. K7 and K1 counts must be
+    exact."""
     from diffsci_tpu_torch import DDPMModel, DDPMModelConfig, kernels
 
     nsteps, x_shape = 25, (2, 16, 16, 3)
@@ -902,6 +929,10 @@ def phase_ddpm_card_vs_cpu():
     x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32))
     noise_seq = torch.from_numpy(rng.standard_normal(
         (nsteps,) + x_shape).astype(np.float32))
+    # the graphed sampler's draws: x_T, then one noise a step
+    gen = torch.Generator("cuda").manual_seed(5)
+    sample_draws = [torch.randn(x_shape, device="cuda", generator=gen).cpu()
+                    for _ in range(nsteps + 1)]
     t = torch.tensor([1.0, 400.0], dtype=torch.float32)
     eps = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32))
     weights = None
@@ -915,12 +946,20 @@ def phase_ddpm_card_vs_cpu():
                 weights = {k: v.clone() for k, v in model.init(seed=4).items()}
             model.net.load_state_dict(weights, strict=True)
             integ = model.config.integrator
+            if dev == "cuda":
+                model.compile_sampler(2, x_shape[1:], nsteps=nsteps)
             kernels.reset_launches()
             t0 = time.perf_counter()
             with torch.inference_mode():
-                back = integ.propagate_backward(
-                    x.to(dev), model.noise_predictor, nsteps=nsteps,
-                    record_history=True, noise_seq=noise_seq).cpu()
+                if dev == "cuda":
+                    back = model.sample(
+                        2, x_shape[1:], torch.Generator("cuda").manual_seed(5),
+                        nsteps=nsteps, record_history=True).cpu()
+                else:
+                    back = integ.propagate_backward(
+                        sample_draws[0], model.noise_predictor,
+                        nsteps=nsteps, record_history=True,
+                        noise_seq=torch.stack(sample_draws[1:]))
                 fwd = integ.propagate_forward(
                     x.to(dev), nsteps=nsteps, record_history=True,
                     noise_seq=noise_seq).cpu()
@@ -944,8 +983,9 @@ def phase_ddpm_card_vs_cpu():
         expected.update(fused_lincomb3=nsteps, fused_axby=nsteps)
         ok = ok_b and ok_f and ok_l and counts == expected
         log(f"[ddpm card-vs-cpu] {arm} HFNet(32, 64) 16x16x3, {nsteps} "
-            f"steps: backward max|card - cpu| {err_b:.3e} (max|cpu| "
-            f"{float(b_cpu.abs().max()):.1f}), forward {err_f:.3e}; loss "
+            f"steps: backward (card graphed) max|card - cpu| {err_b:.3e} "
+            f"(max|cpu| {float(b_cpu.abs().max()):.1f}), forward "
+            f"{err_f:.3e}; loss "
             f"{l_card:.6f} / {l_cpu:.6f}, grad norm {n_card:.6f} / "
             f"{n_cpu:.6f} (rtol 1e-3) {'ok' if ok else 'FAIL'}; cpu "
             f"{s_cpu:.1f} s, card {s_card:.1f} s; launches {counts}")
@@ -959,23 +999,47 @@ def phase_ddpm_card_vs_cpu():
 # ---------------------------------------------------------------------------
 # phases 5 to 9: serving and training at full width
 # ---------------------------------------------------------------------------
+def graph_pool_bytes() -> int | None:
+    """Bytes of the device segments that belong to CUDA graphs' private
+    memory pools (None where the allocator's snapshot does not say)."""
+    segments = torch.cuda.memory_snapshot()
+    if segments and "segment_pool_id" not in segments[0]:
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) != (0, 0))
+
+
+def mib(nbytes) -> str:
+    return "not measured" if nbytes is None else f"{nbytes / 2 ** 20:.1f} MiB"
+
+
 def serve(label, model, shape, buckets, requests, same_seed_n, nsteps):
     """Drive one model (bf16 compute, random weights from seed 0) through
-    SamplerService: warm-up, the timed ``requests``, then (when
+    SamplerService: warm-up (one eager run and one graph capture per
+    bucket: the whole loop for EDM, one step for DDPM/DDIM), then, with
+    the launch counts reset, the timed ``requests`` and (when
     ``same_seed_n``) one request of ``same_seed_n`` twice from one seed.
-    Returns the launch counts, the number of bucket runs and the
-    service."""
+    Returns the launch counts, the number of bucket runs (graph replays
+    of a whole sample) and the service."""
     from diffsci_tpu_torch import SamplerService, kernels
 
     model.init(seed=0)
     nparams = sum(p.numel() for p in model.net.parameters())
-    kernels.reset_launches()
     svc = SamplerService(model, shape, batch_buckets=buckets, nsteps=nsteps,
                          seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool0 = graph_pool_bytes()
     warm = svc.warmup()
-    runs = len(buckets)
-    log(f"[{label}] {nparams} parameters, {nsteps} steps; warmup seconds "
-        f"per bucket { {b: round(s, 3) for b, s in warm.items()} }")
+    pool = None if pool0 is None else graph_pool_bytes() - pool0
+    captures = {key[0]: round(g.capture_seconds, 3)
+                for key, g in model._graphs.graphs.items()}
+    log(f"[{label}] {nparams} parameters, {nsteps} steps; warm-up (eager "
+        f"run and capture) seconds per bucket "
+        f"{ {b: round(s, 3) for b, s in warm.items()} }, of which capture "
+        f"{captures}; graph pool {mib(pool)}")
+    kernels.reset_launches()
+    runs = 0
     for n in requests:
         t0 = time.perf_counter()
         out = svc.sample(n)
@@ -1031,7 +1095,7 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3):
     on the loss, the launch counts reset just before and read just after
     (they must be ``per_step`` times ``steps``). A fixed draw of σ and ε
     probes the loss before training and after it: it must go down.
-    Returns the launch counts and a callable that takes one step."""
+    Returns the launch counts."""
     from diffsci_tpu_torch import (EMATracker, KarrasModel, KarrasModelConfig,
                                    PUNetG, create_train_state, kernels,
                                    make_train_step)
@@ -1060,6 +1124,9 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3):
     for _ in range(warmup):
         one_step()
     torch.cuda.synchronize()
+    captures = [round(g.capture_seconds, 3)
+                for g in state.graphs.graphs.values()]
+    log(f"[train {label}] capture seconds (step, EMA update) {captures}")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     losses = []
@@ -1088,7 +1155,235 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3):
     if counts != expected:
         raise AssertionError(f"{label}: launch counts {counts}, expected "
                              f"{expected}")
-    return counts, one_step
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 10: eager against graphed, in one process
+# ---------------------------------------------------------------------------
+def walls(fn, reps: int = 3) -> list[float]:
+    """Host seconds of ``reps`` calls of ``fn``, each ended by a sync."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def fmt(seconds: list[float]) -> str:
+    return "median " + f"{float(np.median(seconds)):.4f} s of " + \
+        ", ".join(f"{v:.4f}" for v in seconds)
+
+
+def graphs_vs_eager_requests(label, svc, n, eager, within):
+    """One request of ``n`` through the service (graph replays) twice
+    from one seed, against ``eager(noise_generator)`` (the loop's inner
+    methods) from the same seed: same bits twice, ``within(graph, eager)``
+    holds, and both timed. Returns (graphed, eager) callables."""
+    graph = svc.sample(n, generator=99)
+    if not np.array_equal(graph, svc.sample(n, generator=99)):
+        raise AssertionError(f"{label}: one seed gave two graphed results")
+    ref = eager(torch.Generator("cuda").manual_seed(99)).cpu().numpy()
+    err, ok = within(torch.from_numpy(graph), torch.from_numpy(ref))
+    same = np.array_equal(graph, ref)
+    log(f"[graphs {label}] request {n}: graphed against eager max|Δ| "
+        f"{err:.3e} ({'bit-identical' if same else 'not bit-identical'}) "
+        f"{'ok' if ok else 'FAIL'}; same seed, same bits: ok")
+    if not ok:
+        raise AssertionError(f"{label}: graphed and eager requests disagree")
+
+    def graphed():
+        return svc.sample(n)
+
+    def eager_call():
+        return eager(svc._generator).cpu()
+
+    log(f"[graphs {label}] request {n} wall: eager "
+        f"{fmt(walls(eager_call))}; graphed {fmt(walls(graphed))}")
+    return graphed, eager_call
+
+
+def within_phase2(out, ref):
+    err = float((out - ref).abs().max())
+    return err, bool(torch.isfinite(out).all()) and bool(
+        torch.allclose(out, ref, rtol=1e-3, atol=1e-3))
+
+
+def within_phase4(out, ref):
+    return agree_per_step(out[None], ref[None])
+
+
+def train_arms(label, cfg, x_shape, lr=1e-3, steps=3, timed=20, remat=False):
+    """Eager (``_raw``) and graphed train steps of one configuration
+    (bf16 over f32 masters, AdamW, power EMA every 4 steps), each from
+    seed 0 with the same draws: ``steps`` steps held to phase 3's
+    tolerances (loss and grad_norm rtol 1e-3; parameters and EMA 99.9 %
+    within 0.05·lr, every entry within 2·k·lr), then ``timed`` steps on
+    the host clock. With ``remat`` a third arm, graphed under remat, is
+    held to the graphed one the same way. Peak memory over the first
+    ``steps`` (the eager warm-up and the capture) above the memory the
+    arm started from, and the graph pool.
+    Returns the arms by name (step, state, model, tx, tracker, take: one
+    step on the fixed batch)."""
+    from diffsci_tpu_torch import (EMATracker, KarrasModel, KarrasModelConfig,
+                                   PUNetG, create_train_state,
+                                   make_train_step)
+
+    x = torch.randn(x_shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    arms = {}
+    for arm in ("eager", "graphed") + (("graphed remat",) if remat else ()):
+        model = KarrasModel(PUNetG(cfg), KarrasModelConfig.from_edm(),
+                            compute_dtype=torch.bfloat16)
+        tracker = EMATracker(ema_type="power", power_function_stds=[0.05],
+                             update_every=4)
+        state, tx = create_train_state(model, x_shape, seed=0, ema=tracker)
+        step = make_train_step(model, tx, ema=tracker,
+                               remat=arm.endswith("remat"),
+                               _raw=arm == "eager")
+        gen = torch.Generator("cuda").manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start, pool0 = torch.cuda.memory_allocated(), graph_pool_bytes()
+        metrics = [step(state, x, generator=gen)[1] for _ in range(steps)]
+        metrics = [(float(m["train_loss"]), float(m["grad_norm"]))
+                   for m in metrics]
+        peak = torch.cuda.max_memory_allocated() - start
+        pool = None if pool0 is None else graph_pool_bytes() - pool0
+        snap = ({k: v.detach().clone() for k, v in state.params.items()},
+                {k: v.clone() for k, v in state.ema.profiles[0].items()})
+
+        def take(step=step, state=state, gen=gen):
+            return step(state, x, generator=gen)[1]["train_loss"]
+
+        seconds = walls(take, timed)
+        arms[arm] = types.SimpleNamespace(
+            metrics=metrics, snap=snap, step=step, state=state, model=model,
+            tx=tx, tracker=tracker, take=take)
+        log(f"[graphs train {label}] {arm}: {timed} steps, "
+            f"{float(np.median(seconds)) * 1e3:.2f} ms/step median "
+            f"(min {min(seconds) * 1e3:.2f}); peak memory over the first "
+            f"{steps} steps {mib(peak)} above the arm's start (weights, "
+            f"AdamW's moments, gradients, activations), graph pool "
+            f"{mib(pool)}")
+    for arm, ref in (("graphed", "eager"), ("graphed remat", "graphed")):
+        if arm not in arms:
+            continue
+        out, base = arms[arm], arms[ref]
+        ok = np.allclose(out.metrics, base.metrics, rtol=1e-3, atol=0) and \
+            np.isfinite(out.metrics).all()
+        same = out.metrics == base.metrics
+        for ours, theirs in zip(out.snap, base.snap):
+            diff = torch.cat([(ours[n] - theirs[n]).abs().flatten()
+                              for n in theirs]).cpu().numpy()
+            ok = ok and float(np.quantile(diff, 0.999)) <= 0.05 * lr and \
+                float(diff.max()) <= 2 * steps * lr
+            same = same and float(diff.max()) == 0.0
+        log(f"[graphs train {label}] {arm} against {ref}, {steps} steps: "
+            f"(loss, grad_norm) {out.metrics} / {base.metrics} "
+            f"({'bit-identical' if same else 'not bit-identical'}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: {arm} and {ref} train steps "
+                                 "disagree")
+    return arms
+
+
+def sample_follows_training(label, arm, shape, nsteps=4):
+    """The graphed sampler over a bf16 model whose graphed train steps
+    update its masters: sample, replay one more train step, sample again
+    from one seed. The second sample must differ from the first and hold
+    to phase 2's tolerance against the eager loop run from a cast copy
+    built anew from the current masters."""
+    model = arm.model
+
+    def graphed():
+        return model.sample(1, shape, torch.Generator("cuda").manual_seed(5),
+                            nsteps=nsteps)
+
+    first = graphed()
+    arm.take()
+    second = graphed()
+    noise = torch.randn((1,) + tuple(shape), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(5))
+    model._reset_cast()              # the next use builds the copy anew
+    ref = model.propagate_white_noise(noise, nsteps=nsteps)
+    err, ok = within_phase2(second, ref)
+    moved = not torch.equal(first, second)
+    log(f"[graphs {label}] sample after a replayed train step: moved "
+        f"{moved}; against the eager loop on a new cast copy max|Δ| "
+        f"{err:.3e} {'ok' if ok and moved else 'FAIL'}")
+    if not (ok and moved):
+        raise AssertionError(f"{label}: the graphed sampler did not follow "
+                             "the replayed train steps")
+
+
+def phase_graphs(svc_a, svc_b, svc_ddim, cfg_a, cfg_b, profile: bool):
+    """Each path eager (the inner methods, ``_raw``) and graphed (the entry
+    points) in one process: agreement at phases 2, 3 and 4's tolerances,
+    same seed same bits for the graphed requests, walls; A's train step
+    under remat; make_train_scan at K = 8 against 8 graphed steps. With
+    ``profile``, one profiled call of each arm."""
+    from diffsci_tpu_torch import make_train_scan
+
+    def edm(svc, n):
+        def eager(gen):
+            noise = torch.randn((n,) + svc.shape, device="cuda",
+                                generator=gen)
+            return svc.model.propagate_white_noise(noise, nsteps=svc.nsteps)
+        return eager
+
+    def ddim(gen):
+        model = svc_ddim.model
+        x = torch.randn((16,) + svc_ddim.shape, device="cuda", generator=gen)
+        with torch.inference_mode():
+            return model.config.integrator.propagate_backward(
+                x, model.noise_predictor, svc_ddim.nsteps, generator=gen)
+
+    calls = {
+        "config A": graphs_vs_eager_requests("config A", svc_a, 4,
+                                             edm(svc_a, 4), within_phase2),
+        "config B": graphs_vs_eager_requests("config B", svc_b, 64,
+                                             edm(svc_b, 64), within_phase2),
+        "config C DDIM": graphs_vs_eager_requests(
+            "config C DDIM", svc_ddim, 16, ddim, within_phase4)}
+    x_a = (4, 32, 32, 32, 1)
+    train_a = train_arms("config A", cfg_a, x_a, remat=True)
+    train_b = train_arms("config B", cfg_b, (256, 28, 28, 1))
+
+    # K = 8 steps a call against 8 calls of the graphed step, on A's
+    # graphed state (the scan replays the graph the state holds)
+    arm = train_a["graphed"]
+    scan = make_train_scan(arm.model, arm.tx, ema=arm.tracker)
+    gen = torch.Generator("cuda").manual_seed(3)
+    xs = torch.randn((8,) + x_a, device="cuda", generator=gen)
+    ngraphs = len(arm.state.graphs.graphs)
+    scan(arm.state, xs, generator=gen)
+    if len(arm.state.graphs.graphs) != ngraphs:
+        raise AssertionError("config A: make_train_scan captured a second "
+                             "graph of the state's step")
+
+    def scan8():
+        return scan(arm.state, xs, generator=gen)[1]["train_loss"]
+
+    def steps8():
+        return [arm.step(arm.state, x, generator=gen) for x in xs]
+
+    log(f"[graphs train config A] make_train_scan K = 8: {fmt(walls(scan8))}"
+        f"; 8 graphed steps: {fmt(walls(steps8))}")
+    sample_follows_training("config A", arm, x_a[1:])
+    if profile:
+        for label, (graphed, eager) in calls.items():
+            profile_call(label, "request, eager", eager)
+            profile_call(label, "request, graphed", graphed)
+        for label, arms in (("train config A", train_a),
+                            ("train config B", train_b)):
+            for name, arm in arms.items():
+                profile_call(label, f"one train step, {name}", arm.take)
 
 
 def profile_call(label, what, fn, top=8):
@@ -1113,9 +1408,13 @@ def profile_call(label, what, fn, top=8):
                if e.device_type == DeviceType.CUDA and device_us(e) > 0
                and not getattr(e, "is_user_annotation", False)]
     busy = sum(device_us(e) for e in kernels) / 1e6
+    # launches the host made: kernels one at a time, graphs whole
+    host = sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU and e.key in HOST_LAUNCHES)
     log(f"[profile {label}] {what}: wall {wall:.4f} s, device kernels "
         f"{busy:.4f} s, idle share {1 - busy / wall:.3f}, "
-        f"{sum(e.count for e in kernels)} kernel launches")
+        f"{sum(e.count for e in kernels)} kernel launches, {host} host "
+        f"launch calls")
     # the heaviest kernels, and the port's own kernels wherever they rank
     for rank, e in enumerate(sorted(kernels, key=device_us, reverse=True)):
         if rank < top or any(n in e.key for n in PORT_KERNELS):
@@ -1177,18 +1476,18 @@ def main() -> int:
     # a train step is one forward and one backward of the network: K2 and
     # K3 once per norm, K4, K5 and K6 once per bottleneck attention (in A)
     # and no K1 (the training combine is the plain expression)
-    train_a, step_a = train(
+    train_a = train(
         "config A", cfg_a, (4, 32, 32, 32, 1), 20,
         dict(zero, norm_silu=20, norm_silu_bwd=20, flash_attention=1,
              flash_attention_dq=1, flash_attention_dkv=1))
-    train_b, step_b = train("config B", cfg_b, (256, 28, 28, 1), 20,
+    train_b = train("config B", cfg_b, (256, 28, 28, 1), 20,
                             dict(zero, norm_silu=28, norm_silu_bwd=28))
 
     # configuration C: every bucket run is one DDPM/DDIM sample of nsteps
-    # steps, each one K7 launch; UNet2D's norms are plain GroupNorm + SiLU
-    # and its largest attention has 256 tokens (below the flash gate). A
-    # 1000-step bucket run takes ~26 s of host dispatch, so the DDPM arm
-    # is one warm-up and one request; the seed check is the DDIM arm's.
+    # steps, each one K7 launch (one replay of the step's graph); UNet2D's
+    # norms are plain GroupNorm + SiLU and its largest attention has 256
+    # tokens (below the flash gate). The DDPM arm is one request; the seed
+    # check is the DDIM arm's.
     counts_ddim, runs_ddim, svc_ddim = serve(
         "config C DDIM", ddpm_c("from_ddim"), (32, 32, 3), (1, 16),
         (1, 16, 20), 16, DDIM_STEPS)
@@ -1203,12 +1502,8 @@ def main() -> int:
     log(f"[counts] DDIM and DDPM serving went through K7 once per step and "
         f"no other kernel: {counts_ddim}, {counts_ddpm}")
 
-    if "--profile" in sys.argv[1:]:
-        profile_call("config A", "request 4", lambda: svc_a.sample(4))
-        profile_call("config B", "request 64", lambda: svc_b.sample(64))
-        profile_call("train config A", "one train step, batch 4", step_a)
-        profile_call("train config B", "one train step, batch 256", step_b)
-        profile_call("config C DDIM", "request 16", lambda: svc_ddim.sample(16))
+    phase_graphs(svc_a, svc_b, svc_ddim, cfg_a, cfg_b,
+                 "--profile" in sys.argv[1:])
 
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",

@@ -5,25 +5,28 @@ The JAX package ``diffsci_tpu`` stays the reference; this package imports
 nothing of it and nothing of JAX. Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``. Ported so far: the EDM main path of
 ``PUNetG`` inside ``KarrasModel``, serving (``SamplerService``, 18-step
-Heun) and training (``create_train_state`` / ``make_train_step``: σ draw,
-Huber loss, backward, NaN guard, clip, AdamW, power EMA); and DDPM/DDIM
+Heun) and training (``create_train_state`` / ``make_train_step`` /
+``make_train_scan``: σ draw, Huber loss, backward, NaN guard, clip, AdamW
+with its schedules, power EMA, ``remat``); and DDPM/DDIM
 serving and loss of the HFNet family (``DDPMModel`` around ``HFNetUncond``,
 ``HFNetCond`` or ``UNet2D``, the diffusers ``UNet2DModel``). Every TPU
 kernel of the JAX package has a hand-written counterpart: the denoiser
 combine and the DDPM/DDIM update, norm + SiLU forward and backward, and
 flash attention forward and backward (``kernels/``, sources in ``csrc/``).
+On the card the sampling loops and the train step run as CUDA graphs,
+captured once per shape and replayed (``utils/graphs.py``).
 """
 
-from diffsci_tpu_torch.models import (DDPMModel, DDPMModelConfig, EMATracker,
-                                      HFNetCond, HFNetUncond, KarrasModel,
-                                      KarrasModelConfig, KarrasNet, PUNetG,
-                                      PUNetGConfig, UNet2D,
-                                      create_train_state, default_optimizer,
-                                      make_eval_step, make_train_step)
+from diffsci_tpu_torch.models import (
+    DDPMModel, DDPMModelConfig, EMATracker, HFNetCond, HFNetUncond,
+    KarrasModel, KarrasModelConfig, KarrasNet, PUNetG, PUNetGConfig, UNet2D,
+    cosine_restarts_schedule, create_train_state, default_optimizer,
+    make_eval_step, make_train_scan, make_train_step, warmup_cosine_schedule)
 from diffsci_tpu_torch.serving import SamplerService
 
 __all__ = ["DDPMModel", "DDPMModelConfig", "EMATracker", "HFNetCond",
            "HFNetUncond", "KarrasModel", "KarrasModelConfig", "KarrasNet",
            "PUNetG", "PUNetGConfig", "SamplerService", "UNet2D",
-           "create_train_state", "default_optimizer", "make_eval_step",
-           "make_train_step"]
+           "cosine_restarts_schedule", "create_train_state",
+           "default_optimizer", "make_eval_step", "make_train_scan",
+           "make_train_step", "warmup_cosine_schedule"]

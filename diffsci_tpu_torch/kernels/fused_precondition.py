@@ -82,6 +82,11 @@ def _coeff(c, batch: int, device) -> torch.Tensor:
             and c.shape == (batch,) and c.device == device
             and c.is_contiguous()):
         return c
+    if isinstance(c, (int, float)):
+        # a fill on the device, not a copy from the host: a CUDA graph's
+        # capture may reach it
+        return torch.full((batch,), float(c), dtype=torch.float32,
+                          device=device)
     c = torch.as_tensor(c, dtype=torch.float32, device=device).reshape(-1)
     return c.expand(batch).contiguous()
 
@@ -179,7 +184,10 @@ def _combine_backward(ctx, g):
 
 
 def _as_tensor(c, device):
-    return c if torch.is_tensor(c) else torch.tensor(float(c), device=device)
+    """A 0-d f32 tensor for a number, by a fill on the device (safe inside
+    a capture); tensors as they are."""
+    return c if torch.is_tensor(c) else torch.full((), float(c),
+                                                   device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ weights (``self.net``) and may run it in a lower ``compute_dtype``
 (bf16). ``ComputeDtypeMixin`` gives both the callable that runs the
 network: the cast inside the autograd graph when gradients are on, so
 they land on the f32 masters as autodiff through the JAX package's cast
-does, and a cached cast copy for calls without gradients (sampling).
+does, and a cast copy for calls without gradients (sampling), which the
+sampler's CUDA graphs read.
 """
 
 from __future__ import annotations
@@ -15,31 +16,73 @@ import copy
 import torch
 import torch.nn as nn
 
+from diffsci_tpu_torch.utils import graphs
+
 
 class ComputeDtypeMixin:
-    """Expects ``self.net`` (an ``nn.Module``) and ``self.compute_dtype``
-    (a torch dtype or None); call ``_reset_cast()`` in ``__init__``."""
+    """Expects ``self.net`` (an ``nn.Module``), ``self.compute_dtype`` (a
+    torch dtype or None) and ``self.device``; call ``_reset_cast()`` in
+    ``__init__``."""
 
     def _reset_cast(self) -> None:
         self._cast_net = None
-        self._cast_key = None
+        self._cast_versions = None
+        self._graphs = None
+        self._graphs_key = None
+
+    def _masters_changed(self) -> None:
+        """The masters were updated where their version counters do not
+        move (a replayed CUDA graph of a train step): the cast copy is
+        refreshed at its next use."""
+        self._cast_versions = None
 
     def _cast_copy(self) -> nn.Module:
-        """A copy of the network with parameters and buffers in
+        """The copy of the network with parameters and buffers in
         ``compute_dtype``, for calls that ask no gradient (sampling). It is
-        rebuilt whenever a master tensor changes (its storage or its
-        in-place version counter, which every optimizer step moves), so a
-        load_state_dict, an init or training is always seen."""
-        tensors = list(self.net.parameters()) + list(self.net.buffers())
-        key = tuple((t.data_ptr(), t._version, t.device) for t in tensors)
-        if key != self._cast_key:
-            # built outside inference mode so that the copy holds ordinary
-            # tensors whichever context first asks for it
-            with torch.inference_mode(False), torch.no_grad():
+        one module for the model's life: whenever a master tensor changed
+        (its storage or its in-place version counter, which an eager
+        optimizer step moves, or ``_masters_changed``) its tensors are
+        refreshed in place, so that a load_state_dict, an init or training
+        is always seen and a captured sampler reads the new values. It is
+        built anew only when the masters' shapes or devices changed."""
+        masters = list(self.net.parameters()) + list(self.net.buffers())
+        versions = tuple((t.data_ptr(), t._version) for t in masters)
+        if versions == self._cast_versions:
+            return self._cast_net
+        # outside inference mode, so that the copy holds ordinary tensors
+        # whichever context first asks for it
+        with torch.inference_mode(False), torch.no_grad():
+            cast = None if self._cast_net is None else \
+                list(self._cast_net.parameters()) + \
+                list(self._cast_net.buffers())
+            if cast is None or len(cast) != len(masters) or any(
+                    c.shape != m.shape or c.device != m.device
+                    for c, m in zip(cast, masters)):
                 self._cast_net = copy.deepcopy(self.net).to(
                     self.compute_dtype).requires_grad_(False)
-            self._cast_key = key
+            else:
+                torch._foreach_copy_(cast, masters)
+        self._cast_versions = versions
         return self._cast_net
+
+    def _inference_net(self) -> nn.Module:
+        """The module a call without gradients runs: the network, or its
+        cast copy under a compute dtype."""
+        return self.net if self.compute_dtype is None else self._cast_copy()
+
+    def _graph_cache(self) -> graphs.GraphCache:
+        """The cache of the sampler's CUDA graphs, after bringing the
+        weights they read up to date. A graph reads the tensors of
+        ``_inference_net()`` as they were at its capture, so the cache is
+        dropped, graphs and pool, when those tensors were replaced (a new
+        device, a cast copy built anew)."""
+        net = self._inference_net()
+        key = tuple(t.data_ptr() for t in
+                    list(net.parameters()) + list(net.buffers()))
+        if self._graphs is None or key != self._graphs_key:
+            self._graphs = graphs.GraphCache(self.device)
+            self._graphs_key = key
+        return self._graphs
 
     def _network(self, train: bool, variables=None):
         """The callable that runs ``self.net``, in training mode when
@@ -53,7 +96,7 @@ class ComputeDtypeMixin:
         state-dict name) stand in for the module's own."""
         cd = self.compute_dtype
         if variables is None and (cd is None or not torch.is_grad_enabled()):
-            net = self.net if cd is None else self._cast_copy()
+            net = self._inference_net()
             if net.training != train:
                 net.train(train)
             return net

@@ -12,6 +12,10 @@ x' = a·x + b·ε + c·noise with kernel K7 (``fused_lincomb3``), each forward
 
 Randomness is an explicit ``torch.Generator``; ``noise_seq`` [T, *x.shape]
 replays fixed per-step draws instead (the cross-framework test hook).
+On a CUDA device ``DDPMModel.sample`` replays one CUDA graph of a backward
+step per t, with t and the step's noise as the graph's static inputs: the
+counterpart of the JAX package's ``lax.scan`` over ``{"t", "noise"}``
+(``diffsci_tpu/models/ddpm.py:138-151``).
 Samples are channels-last, as in the JAX package; ``noise_predictor``
 moves the channel axis at the network boundary (x, and y when it is
 spatial). With ``compute_dtype`` it casts x, t and y to it, as the JAX
@@ -32,7 +36,8 @@ from diffsci_tpu_torch.kernels import fused_precondition as fp
 from diffsci_tpu_torch.models.compute import ComputeDtypeMixin
 from diffsci_tpu_torch.models.nets.layers import init_parameters
 from diffsci_tpu_torch.ops import losses
-from diffsci_tpu_torch.utils import bcast_right, dict_map, resolve_device
+from diffsci_tpu_torch.utils import (bcast_right, dict_map, graphs,
+                                     resolve_device)
 
 
 class DDPMScheduler:
@@ -380,13 +385,69 @@ class DDPMModel(ComputeDtypeMixin):
         """Samples from white noise drawn on the model's device with
         ``generator``, which also draws each step's noise. ``shape`` is
         channels-last without the batch dim, e.g. (32, 32, 3); ``nsteps``
-        defaults to the scheduler's T."""
-        x = torch.randn((nsamples,) + tuple(shape), generator=generator,
-                        device=self.device)
+        defaults to the scheduler's T.
+
+        On a CUDA device each step replays the graph of
+        ``compile_sampler``: before it, t is copied into the graph's input
+        and the step's noise drawn into its own, one draw a step in the
+        eager order, so one seed gives the eager loop's draws. On the CPU
+        the loop runs eagerly."""
+        if self.device.type != "cuda":
+            x = torch.randn((nsamples,) + tuple(shape), generator=generator,
+                            device=self.device)
+
+            def noise_predictor(xx, tt):
+                return self.noise_predictor(xx, tt, y)
+
+            return self.config.integrator.propagate_backward(
+                x, noise_predictor, nsteps, record_history=record_history,
+                generator=generator)
+        graph = self.compile_sampler(nsamples, shape, y, nsteps)
+        x, t, noise, ys = graph.inputs
+        torch.randn(x.shape, generator=generator, out=x)
+        graphs.fill(ys, y)
+        T = self.config.scheduler.T if nsteps is None else nsteps
+        ts = torch.arange(T, 0, -1, dtype=torch.float32, device=self.device)
+        history = [x.clone()] if record_history else None
+        for i in range(T):
+            t.copy_(ts[i])
+            torch.randn(noise.shape, generator=generator, out=noise)
+            graph.replay()
+            if record_history:
+                history.append(x.clone())
+        return torch.stack(history) if record_history else x.clone()
+
+    @torch.inference_mode()
+    def compile_sampler(self, nsamples: int, shape, y=None,
+                        nsteps: int | None = None):
+        """The CUDA graph of one backward step for (nsamples, shape, T, y's
+        shapes), which updates its input x in place from its inputs t and
+        noise: on its first use the step runs once eagerly on the capture
+        stream (the warm-up, which also puts the ᾱ table on the device)
+        and is captured. Returns the ``utils.graphs.Graph``; None on the
+        CPU, where nothing is captured."""
+        if self.device.type != "cuda":
+            return None
+        cache = self._graph_cache()
+        T = self.config.scheduler.T if nsteps is None else nsteps
+        key = (nsamples, tuple(shape), T, graphs.condition_key(y))
+        graph = cache.graphs.get(key)
+        if graph is not None:
+            return graph
+        x = torch.zeros((nsamples,) + tuple(shape), device=self.device)
+        t = torch.full((), float(T), device=self.device)
+        noise = torch.zeros_like(x)
+        ys = graphs.static_like(y, self.device)
+        graphs.fill(ys, y)
 
         def noise_predictor(xx, tt):
-            return self.noise_predictor(xx, tt, y)
+            return self.noise_predictor(xx, tt, ys)
 
-        return self.config.integrator.propagate_backward(
-            x, noise_predictor, nsteps, record_history=record_history,
-            generator=generator)
+        def step():
+            x.copy_(self.config.integrator.step_backward(
+                x, t, noise_predictor, T, noise))
+
+        cache.warmup(step)
+        graph = cache.capture(key, step)
+        graph.inputs = (x, t, noise, ys)
+        return graph

@@ -4,15 +4,14 @@ from diffsci_tpu_torch.models.karras.ema import (EMAState, EMATracker,
 from diffsci_tpu_torch.models.karras.module import (KarrasModel,
                                                     KarrasModelConfig,
                                                     KarrasNet)
-from diffsci_tpu_torch.models.karras.train import (AdamWClip, TrainState,
-                                                   create_train_state,
-                                                   default_optimizer,
-                                                   make_eval_step,
-                                                   make_train_step,
-                                                   nan_to_zero_grads)
+from diffsci_tpu_torch.models.karras.train import (
+    AdamWClip, TrainState, cosine_restarts_schedule, create_train_state,
+    default_optimizer, make_eval_step, make_train_scan, make_train_step,
+    nan_to_zero_grads, warmup_cosine_schedule)
 
 __all__ = ["AdamWClip", "EMAState", "EMATracker", "KarrasModel",
            "KarrasModelConfig", "KarrasNet", "TrainState",
-           "create_train_state", "default_optimizer", "make_eval_step",
+           "cosine_restarts_schedule", "create_train_state",
+           "default_optimizer", "make_eval_step", "make_train_scan",
            "make_train_step", "nan_to_zero_grads", "power_function_beta",
-           "power_function_exp_from_std"]
+           "power_function_exp_from_std", "warmup_cosine_schedule"]

@@ -5,9 +5,11 @@ Port of ``diffsci_tpu/models/karras/ema.py:23-166``. The JAX package keeps
 its shadows in an immutable pytree updated inside the jitted step; here
 the shadows are f32 tensors on the parameters' device, one dict
 ``name -> tensor`` per profile, updated in place under ``torch.no_grad()``
-with ``torch._foreach_*`` (two launches per profile for all tensors).
-The decays are host floats: the update counter lives on the host, so an
-update never waits on the device.
+with ``torch._foreach_*``. The update counter and the decays are computed
+on the host, so an update never waits on the device; the decays reach the
+device as 0-d tensors filled before each update (``set_decays``), which
+the tensor part of the update (``apply``) reads, so a CUDA graph of that
+part replays with each update's decays.
 """
 
 from __future__ import annotations
@@ -40,9 +42,11 @@ def power_function_beta(std: float, next_update: int) -> float:
 
 @dataclasses.dataclass
 class EMAState:
-    """Shadow copies, one ``name -> f32 tensor`` dict per profile, and the
-    number of updates so far."""
+    """Shadow copies, one ``name -> f32 tensor`` dict per profile; per
+    profile the decay β and 1 − β of the update in progress as 0-d f32
+    tensors on the shadows' device; and the number of updates so far."""
     profiles: tuple
+    decays: tuple
     num_updates: int = 0
 
 
@@ -81,7 +85,11 @@ class EMATracker:
             profiles = tuple({k: p.detach().float().clone()
                               for k, p in params.items()}
                              for _ in range(self.num_profiles))
-        return EMAState(profiles=profiles)
+        device = next(iter(params.values())).device if params else None
+        decays = tuple((torch.zeros((), device=device),
+                        torch.zeros((), device=device))
+                       for _ in range(self.num_profiles))
+        return EMAState(profiles=profiles, decays=decays)
 
     def _traditional_beta(self, next_update: int) -> float:
         if self.halflife_steps is None:
@@ -100,7 +108,17 @@ class EMATracker:
 
     def update(self, state: EMAState, params: dict) -> EMAState:
         """shadow <- beta·shadow + (1 - beta)·param for every profile, in
-        place; returns ``state``.
+        place; returns ``state``: ``advance``, then ``set_decays`` and
+        ``apply`` when the shadows move."""
+        betas = self.advance(state)
+        if betas is not None:
+            self.set_decays(state, betas)
+            self.apply(state, params)
+        return state
+
+    def advance(self, state: EMAState) -> list[float] | None:
+        """Count one update. Returns the per-profile decays when the
+        shadows move on it, else None.
 
         With ``update_every = K > 1`` the shadows move only on every K-th
         call, with the K per-step decays folded into one: for the power
@@ -111,24 +129,34 @@ class EMATracker:
         t = state.num_updates
         K = self.update_every
         if t % K:
-            return state
+            return None
         if K == 1:
-            betas = self.betas(t)
-        elif self.ema_type == "power":
-            betas = [(max(t - K, 0) / max(t, 1))
-                     ** (power_function_exp_from_std(s) + 1.0)
-                     for s in self.power_function_stds]
-        else:
-            betas = [math.prod(self.betas(t - (K - 1 - j))[0]
-                               for j in range(K))]
+            return self.betas(t)
+        if self.ema_type == "power":
+            return [(max(t - K, 0) / max(t, 1))
+                    ** (power_function_exp_from_std(s) + 1.0)
+                    for s in self.power_function_stds]
+        return [math.prod(self.betas(t - (K - 1 - j))[0] for j in range(K))]
+
+    @staticmethod
+    def set_decays(state: EMAState, betas: list[float]) -> None:
+        """Fill each profile's β and 1 − β, in float32 as the JAX package
+        computes 1 − β."""
+        for (beta, rest), b in zip(state.decays, betas):
+            b32 = np.float32(b)
+            beta.fill_(float(b32))
+            rest.fill_(float(np.float32(1.0) - b32))
+
+    @staticmethod
+    def apply(state: EMAState, params: dict) -> None:
+        """shadow <- β·shadow + (1 − β)·param with the decays of
+        ``state.decays``: device work only, which a graph can capture."""
         with torch.no_grad():
-            for profile, beta in zip(state.profiles, betas):
+            for profile, (beta, rest) in zip(state.profiles, state.decays):
                 shadows = list(profile.values())
                 torch._foreach_mul_(shadows, beta)
-                torch._foreach_add_(shadows, [params[k].detach().float()
-                                              for k in profile],
-                                    alpha=1.0 - beta)
-        return state
+                torch._foreach_add_(shadows, torch._foreach_mul(
+                    [params[k].detach().float() for k in profile], rest))
 
     def get_params(self, state: EMAState,
                    profile_index: int | None = None) -> dict:

@@ -13,6 +13,12 @@ state dict, e.g. EMA shadows). Randomness is an explicit
 ``torch.Generator``. Sample shapes and samples are channels-last
 ([B, *spatial, C]) as in the JAX package; ``KarrasNet`` moves the channel
 axis at the network boundary (a reshape for C = 1).
+
+On a CUDA device ``sample`` replays one CUDA graph of the whole sampling
+loop per key, as the JAX package runs one jitted program per shape
+(``_jitted_sampler``, ``diffsci_tpu/models/karras/module.py:605-643``).
+The Heun loop bakes its grid into the graph as Python floats (σ, the
+score multiplier and dt), right for a graph keyed on nsteps.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ from diffsci_tpu_torch.models.nets.layers import init_parameters
 from diffsci_tpu_torch.ops import (losses, noise_samplers, preconditioners,
                                    schedulers)
 from diffsci_tpu_torch.utils import (bcast_right, dict_expand_dims, dict_map,
-                                     get_minibatch_sizes, resolve_device)
+                                     get_minibatch_sizes, graphs,
+                                     resolve_device)
 
 
 class KarrasModelConfig:
@@ -204,17 +211,63 @@ class KarrasModel(ComputeDtypeMixin):
                maximum_batch_size: int | None = None):
         """Generate samples from white noise drawn on the model's device
         with ``generator``. ``shape`` is channels-last without the batch
-        dim, e.g. (28, 28, 1)."""
+        dim, e.g. (28, 28, 1).
+
+        On a CUDA device the loop is the graph of ``compile_sampler``: the
+        noise is drawn into its input, ``y`` copied into its static
+        condition, and the graph replayed; the samples are a copy of its
+        output. The loop is deterministic after the draw, so the graph
+        holds no random number. On the CPU the loop runs eagerly."""
         if maximum_batch_size is not None:
             outs = [self.sample(n, shape, generator, y, guidance, nsteps,
                                 record_history)
                     for n in get_minibatch_sizes(nsamples,
                                                  maximum_batch_size)]
             return torch.cat(outs, dim=1 if record_history else 0)
-        x = torch.randn((nsamples,) + tuple(shape), generator=generator,
-                        device=self.device)
-        return self.propagate_white_noise(x, y, guidance, nsteps,
-                                          record_history)
+        if self.device.type != "cuda":
+            x = torch.randn((nsamples,) + tuple(shape), generator=generator,
+                            device=self.device)
+            return self.propagate_white_noise(x, y, guidance, nsteps,
+                                              record_history)
+        graph = self.compile_sampler(nsamples, shape, y, guidance, nsteps,
+                                     record_history)
+        x, ys = graph.inputs
+        torch.randn(x.shape, generator=generator, out=x)
+        graphs.fill(ys, y)
+        graph.replay()
+        return graph.outputs.clone()
+
+    @torch.inference_mode()
+    def compile_sampler(self, nsamples: int, shape, y=None,
+                        guidance: float = 1.0, nsteps: int = 100,
+                        record_history: bool = False):
+        """The CUDA graph of ``sample``'s loop for (nsamples, shape,
+        guidance, nsteps, record_history, y's shapes): on its first use
+        the loop runs once eagerly on the capture stream (the warm-up) and
+        is captured; ``SamplerService.warmup`` calls this for every bucket,
+        as the JAX service compiles one executable per bucket. Returns the
+        ``utils.graphs.Graph``; None on the CPU, where nothing is
+        captured."""
+        if self.device.type != "cuda":
+            return None
+        cache = self._graph_cache()
+        key = (nsamples, tuple(shape), float(guidance), nsteps,
+               record_history, graphs.condition_key(y))
+        graph = cache.graphs.get(key)
+        if graph is not None:
+            return graph
+        x = torch.zeros((nsamples,) + tuple(shape), device=self.device)
+        ys = graphs.static_like(y, self.device)
+        graphs.fill(ys, y)
+
+        def loop():
+            return self.propagate_white_noise(x, ys, guidance, nsteps,
+                                              record_history)
+
+        cache.warmup(loop)
+        graph = cache.capture(key, loop)
+        graph.inputs = (x, ys)
+        return graph
 
     @torch.inference_mode()
     def propagate_white_noise(self, x, y=None, guidance: float = 1.0,

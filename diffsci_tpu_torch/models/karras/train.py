@@ -1,8 +1,9 @@
-"""Training: train state, AdamW with global-norm clipping, the train step
-(σ draw, EDM loss, backward, NaN guard, clip, AdamW, EMA) and the eval
-step.
+"""Training: train state, AdamW with global-norm clipping and its
+learning-rate schedules, the train step (σ draw, EDM loss, backward, NaN
+guard, clip, AdamW, EMA), K steps a call (``make_train_scan``) and the
+eval step.
 
-Port of ``diffsci_tpu/models/karras/train.py:35-258``. The JAX package
+Port of ``diffsci_tpu/models/karras/train.py:35-283``. The JAX package
 builds pure jitted functions over an immutable ``TrainState``; here the
 parameters are the network's own tensors, updated in place by
 ``torch.optim.AdamW``, and ``TrainState`` holds them with the optimizer,
@@ -10,29 +11,49 @@ the EMA state and the step count. The step launches its work on the
 device and returns its metrics as device tensors: nothing in it waits
 for the device.
 
-Not ported yet: ``remat``, ``make_train_scan``, ``freeze_*``,
-``renormalize_mp_weights`` (no magnitude-preserving weights in the ported
-networks), the learning-rate schedules, the schedule-free optimizer and
-``accumulate_gradients``.
+On a CUDA device the step is a CUDA graph per (x's shape and dtype, y's
+and mask's shapes, optimizer, loss), the counterpart of the JAX package's
+one jitted step: the first call of a key takes the step eagerly on the
+capture stream (the warm-up, which also makes AdamW's state) and
+captures it; later calls draw σ and ε into the graph's static inputs in
+the eager order, copy the batch in, fill the learning rate and replay.
+The EMA update is a graph of its own, replayed on the steps where the
+shadows move. The graphs belong to the train state (``state.graphs``),
+whose tensors they update, so every step function over one state, the
+one ``make_train_scan`` builds included, shares them and their memory
+pool, and they go with the state. ``make_train_step(..., _raw=True)``
+returns the eager step, as in the JAX package.
+
+Not ported yet: ``freeze_*``, ``renormalize_mp_weights`` (no
+magnitude-preserving weights in the ported networks), the schedule-free
+optimizer and ``accumulate_gradients``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from diffsci_tpu_torch.models.karras.ema import EMAState, EMATracker
+from diffsci_tpu_torch.utils import graphs
 
 
 @dataclasses.dataclass
 class TrainState:
     """The trained parameters (the network's own tensors, by name), their
-    optimizer, the EMA state (or None) and the number of steps taken."""
+    optimizer, the EMA state (or None), the number of steps taken, and on
+    a CUDA device the CUDA graphs of the steps taken on it (a
+    ``utils.graphs.GraphCache``; capture times, launches)."""
     params: dict
     optimizer: torch.optim.Optimizer
     ema: EMAState | None
     step: int = 0
+    graphs: graphs.GraphCache | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def ema_variables(self, tracker: EMATracker | None) -> dict:
         """The parameters with the EMA shadows of the tracker's profile
@@ -50,8 +71,11 @@ class AdamWClip:
     ``optax.chain(clip_by_global_norm(c), adamw(...))``. torch's AdamW
     update equals optax's (decoupled decay p·(1 - lr·wd), eps outside the
     square root); the clip is optax's g·c/max(‖g‖, c), not
-    ``torch.nn.utils.clip_grad_norm_``, whose +1e-6 changes the numbers."""
-    learning_rate: float
+    ``torch.nn.utils.clip_grad_norm_``, whose +1e-6 changes the numbers.
+    ``learning_rate``: a float, or a schedule ``count -> lr`` (e.g.
+    ``warmup_cosine_schedule``) read at the number of updates before each
+    one, as optax counts."""
+    learning_rate: float | Callable[[int], float]
     weight_decay: float
     b1: float
     b2: float
@@ -59,9 +83,39 @@ class AdamWClip:
     eps: float = 1e-8
 
     def init(self, params) -> torch.optim.AdamW:
-        return torch.optim.AdamW(list(params), lr=self.learning_rate,
-                                 betas=(self.b1, self.b2), eps=self.eps,
-                                 weight_decay=self.weight_decay)
+        """torch's AdamW over ``params``. On CUDA parameters it is
+        capturable (step count and bias corrections on the device, so a
+        graph can replay its step), and under a schedule its learning rate
+        is a 0-d device tensor that ``set_learning_rate`` fills before each
+        step. ``capturable`` is for CUDA parameters only."""
+        params = list(params)
+        cuda = any(p.is_cuda for p in params)
+        lr = self.learning_rate
+        if callable(lr):
+            lr = float(lr(0))
+            if cuda:
+                lr = torch.tensor(lr, device=params[0].device)
+        optimizer = torch.optim.AdamW(params, lr=lr, betas=(self.b1, self.b2),
+                                      eps=self.eps,
+                                      weight_decay=self.weight_decay,
+                                      capturable=cuda)
+        # the first step of each graph runs uncaptured, as its warm-up
+        optimizer._warned_capturable_if_run_uncaptured = True
+        return optimizer
+
+    def set_learning_rate(self, optimizer: torch.optim.Optimizer,
+                          count: int) -> None:
+        """Under a schedule, its rate for the update that follows ``count``
+        updates, into every param group: a host float, or a fill of the
+        device tensor that a replayed graph reads."""
+        if not callable(self.learning_rate):
+            return
+        lr = float(self.learning_rate(count))
+        for group in optimizer.param_groups:
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
 
     def step(self, optimizer: torch.optim.Optimizer, grads: list,
              norm: torch.Tensor) -> None:
@@ -73,12 +127,65 @@ class AdamWClip:
         optimizer.step()
 
 
-def default_optimizer(learning_rate: float = 1e-3, weight_decay: float = 1e-4,
-                      b1: float = 0.9, b2: float = 0.999,
+def default_optimizer(learning_rate: float | Callable[[int], float] = 1e-3,
+                      weight_decay: float = 1e-4, b1: float = 0.9,
+                      b2: float = 0.999,
                       grad_clip: float | None = 0.5) -> AdamWClip:
     """The JAX package's default: AdamW (lr 1e-3, wd 1e-4, betas (0.9,
-    0.999)) after clipping by global norm 0.5."""
+    0.999)) after clipping by global norm 0.5. ``learning_rate``: a float
+    or a schedule (``warmup_cosine_schedule``,
+    ``cosine_restarts_schedule``)."""
     return AdamWClip(learning_rate, weight_decay, b1, b2, grad_clip)
+
+
+def _cosine_decay(init_value: float, decay_steps: int, alpha: float):
+    """optax.cosine_decay_schedule (exponent 1)."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine decay needs positive decay_steps, got "
+                         f"{decay_steps}")
+
+    def schedule(count):
+        count = min(count, decay_steps)
+        decay = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+        return init_value * ((1 - alpha) * decay + alpha)
+
+    return schedule
+
+
+def warmup_cosine_schedule(peak_lr: float, warmup_steps: int,
+                           decay_steps: int, end_factor: float = 0.0):
+    """Linear warmup from 0 to ``peak_lr`` over ``warmup_steps``, then
+    cosine decay to ``end_factor·peak_lr`` at ``decay_steps`` (warmup
+    included): optax's ``warmup_cosine_decay_schedule`` as the JAX
+    package builds it (``diffsci_tpu/models/karras/train.py:261-270``).
+    Pass the result as ``default_optimizer(learning_rate=...)``."""
+    end = end_factor * peak_lr
+    alpha = 0.0 if peak_lr == 0.0 else end / peak_lr
+    decay = _cosine_decay(peak_lr, decay_steps - warmup_steps, alpha)
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:   # optax.linear_schedule(0, peak, warmup)
+            frac = 1 - min(max(count, 0), warmup_steps) / warmup_steps
+            return (0.0 - peak_lr) * frac + peak_lr
+        return decay(count - warmup_steps)
+
+    return schedule
+
+
+def cosine_restarts_schedule(peak_lr: float, period: int,
+                             n_restarts: int = 10, end_factor: float = 0.0):
+    """Cosine annealing with warm restarts (SGDR): ``n_restarts`` equal
+    cycles of ``period`` steps from ``peak_lr`` down to
+    ``end_factor·peak_lr``, holding the end value after the last: optax's
+    ``sgdr_schedule`` as the JAX package builds it
+    (``diffsci_tpu/models/karras/train.py:273-283``)."""
+    cycle = warmup_cosine_schedule(peak_lr, 0, period, end_factor)
+
+    def schedule(count: int) -> float:
+        restart = min(max(count, 0) // period, n_restarts - 1)
+        return cycle(count - restart * period)
+
+    return schedule
 
 
 def nan_to_zero_grads(grads: list) -> None:
@@ -114,23 +221,70 @@ def create_train_state(model, x_shape, seed: int | None = 0,
     return state, tx
 
 
-def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None):
+def _draw(model, x, generator, sigma, eps, out):
+    """σ, then ε, in the eager step's order, each drawn from ``generator``
+    unless replayed (``sigma=``, ``eps=``), into the tensors ``out`` (σ
+    [B], ε of x's shape). Returns ``out``."""
+    sigma_out, eps_out = out
+    if sigma is None:
+        model.config.noisesampler.sample((x.shape[0],), generator,
+                                         out=sigma_out)
+    else:
+        sigma_out.copy_(sigma)
+    if eps is None:
+        torch.randn(x.shape, generator=generator, out=eps_out)
+    else:
+        eps_out.copy_(eps)
+    return out
+
+
+def _step_loss(model, loss_fn, remat: bool):
+    """The step's loss ``(x, sigma, y, mask, eps) -> scalar``: ``loss_fn``
+    or the model's EDM loss in training mode; with ``remat``, under
+    ``torch.utils.checkpoint``, which stores only its inputs and runs the
+    forward again in the backward pass (the kernels' autograd Functions
+    included), as ``jax.checkpoint`` rematerialises. It saves and
+    restores the RNG state, so that dropout draws the same masks again;
+    torch 2.11 captures that into a CUDA graph."""
+    def loss(x, sigma, y, mask, eps):
+        if loss_fn is not None:
+            return loss_fn(x, sigma, y, mask, eps)
+        return model.loss_fn(x, sigma, y, mask, train=True, eps=eps)
+
+    if not remat:
+        return loss
+
+    def remat_loss(x, sigma, y, mask, eps):
+        return checkpoint(loss, x, sigma, y, mask, eps, use_reentrant=False)
+
+    return remat_loss
+
+
+def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
+                    loss_fn: Callable | None = None, remat: bool = False,
+                    _raw: bool = False):
     """The train step ``step(state, x, y=None, mask=None, generator=None,
     sigma=None, eps=None) -> (state, metrics)``: draw σ (log-normal, from
-    ``generator``), EDM loss, backward through the network, NaN→0 guard,
-    global-norm clip, AdamW, EMA. ``sigma`` and ``eps`` replay fixed draws
-    (the cross-framework tests use them). ``metrics`` holds
-    ``train_loss`` and ``grad_norm`` (after the guard, before the clip) as
-    device tensors. ``state`` is updated in place and returned."""
+    ``generator``) and ε, EDM loss, backward through the network, NaN→0
+    guard, global-norm clip, AdamW at the schedule's rate, EMA. ``sigma``
+    and ``eps`` replay fixed draws (the cross-framework tests use them).
+    ``metrics`` holds ``train_loss`` and ``grad_norm`` (after the guard,
+    before the clip) as device tensors. ``state`` is updated in place and
+    returned.
 
-    def train_step(state: TrainState, x, y=None, mask=None, generator=None,
-                   sigma=None, eps=None):
-        if sigma is None:
-            sigma = model.config.noisesampler.sample(
-                (x.shape[0],), generator, x.device)
+    ``loss_fn(x, sigma, y, mask, eps) -> loss`` replaces the model's EDM
+    loss; ``remat=True`` recomputes the loss's forward in the backward
+    pass instead of storing its activations. On a CUDA device the step is
+    captured and replayed as a CUDA graph held by the state (module
+    docstring); ``_raw=True`` returns the eager step."""
+    loss_of = _step_loss(model, loss_fn, remat)
+
+    def update(state, x, y, mask, sigma, eps):
+        """Loss, backward, NaN guard, clip and AdamW from fixed draws:
+        device work only, which the graphed step captures. Returns the
+        loss and the gradients' global norm."""
         state.optimizer.zero_grad(set_to_none=True)
-        loss = model.loss_fn(x, sigma, y, mask, train=True, eps=eps,
-                             generator=generator)
+        loss = loss_of(x, sigma, y, mask, eps)
         loss.backward()
         grads = []
         for p in state.params.values():
@@ -140,12 +294,112 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None):
         nan_to_zero_grads(grads)
         norm = global_norm(grads)
         tx.step(state.optimizer, grads, norm)
+        return loss.detach(), norm
+
+    def raw_step(state: TrainState, x, y=None, mask=None, generator=None,
+                 sigma=None, eps=None):
+        sigma, eps = _draw(model, x, generator, sigma, eps,
+                           (torch.empty(x.shape[0], device=x.device),
+                            torch.empty_like(x)))
+        tx.set_learning_rate(state.optimizer, state.step)
+        loss, norm = update(state, x, y, mask, sigma, eps)
         if ema is not None and state.ema is not None:
             ema.update(state.ema, state.params)
         state.step += 1
-        return state, {"train_loss": loss.detach(), "grad_norm": norm}
+        return state, {"train_loss": loss, "grad_norm": norm}
+
+    if _raw:
+        return raw_step
+
+    def ema_update(cache, ema_state: EMAState, params: dict) -> None:
+        betas = ema.advance(ema_state)
+        if betas is None:
+            return
+        ema.set_decays(ema_state, betas)
+        graph = cache.graphs.get("ema")
+        if graph is not None and graph.inputs is ema_state:
+            graph.replay()
+            return
+
+        def apply():
+            ema.apply(ema_state, params)
+
+        cache.warmup(apply)
+        cache.capture("ema", apply).inputs = ema_state
+
+    def train_step(state: TrainState, x, y=None, mask=None, generator=None,
+                   sigma=None, eps=None):
+        if x.device.type != "cuda":
+            return raw_step(state, x, y, mask, generator, sigma, eps)
+        if state.graphs is None:
+            state.graphs = graphs.GraphCache(x.device)
+        cache = state.graphs
+        key = (tuple(x.shape), x.dtype, graphs.condition_key(y),
+               graphs.condition_key(mask), state.optimizer, tx, loss_fn,
+               remat)
+        graph = cache.graphs.get(key)
+        if graph is None:
+            inputs = (torch.empty_like(x), graphs.static_like(y, x.device),
+                      graphs.static_like(mask, x.device),
+                      torch.empty(x.shape[0], device=x.device),
+                      torch.empty_like(x))
+        else:
+            inputs = graph.inputs
+        xs, ys, masks, sigmas, epss = inputs
+        xs.copy_(x)
+        graphs.fill(ys, y)
+        graphs.fill(masks, mask)
+        _draw(model, x, generator, sigma, eps, (sigmas, epss))
+        tx.set_learning_rate(state.optimizer, state.step)
+        if graph is None:
+            def body():
+                return update(state, *inputs)
+
+            loss, norm = cache.warmup(body)
+            cache.capture(key, body).inputs = inputs
+        else:
+            graph.replay()
+            loss, norm = (t.clone() for t in graph.outputs)
+        # a replay moves no version counter: the sampler's cast copy of
+        # the weights is refreshed at its next use
+        model._masters_changed()
+        if ema is not None and state.ema is not None:
+            ema_update(cache, state.ema, state.params)
+        state.step += 1
+        return state, {"train_loss": loss, "grad_norm": norm}
 
     return train_step
+
+
+def make_train_scan(model, tx: AdamWClip, ema: EMATracker | None = None,
+                    loss_fn: Callable | None = None, remat: bool = False):
+    """K train steps a call: ``scan_steps(state, xs, ys=None,
+    generator=None, sigmas=None, epss=None) -> (state, metrics)`` with xs
+    [K, B, ...] (K batches), ys [K, ...], replayed draws sigmas [K, B] and
+    epss [K, B, ...], and metrics stacked [K]. Exactly K applications of
+    ``make_train_step``'s step (same body, same draws in the same order,
+    the same EMA cadence and learning-rate count), as the JAX package's
+    scan (``diffsci_tpu/models/karras/train.py:209-241``). On a CUDA
+    device each step replays the step's graph, the one any step over the
+    same state and loss replays (``state.graphs``), and nothing waits for
+    the device between the steps."""
+    step = make_train_step(model, tx, ema=ema, loss_fn=loss_fn, remat=remat)
+
+    def scan_steps(state: TrainState, xs, ys=None, generator=None,
+                   sigmas=None, epss=None):
+        metrics = {"train_loss": [], "grad_norm": []}
+        for k in range(xs.shape[0]):
+            state, met = step(state, xs[k], None if ys is None else ys[k],
+                              generator=generator,
+                              sigma=None if sigmas is None else sigmas[k],
+                              eps=None if epss is None else epss[k])
+            for name, value in met.items():
+                metrics[name].append(value)
+        return state, {name: torch.stack(values) if values else
+                       torch.empty(0, device=xs.device)
+                       for name, values in metrics.items()}
+
+    return scan_steps
 
 
 def make_eval_step(model, ema: EMATracker | None = None,

@@ -17,7 +17,7 @@ class NoiseSampler:
     def loss_weighting(self, sigma):
         raise NotImplementedError
 
-    def sample(self, shape, generator=None, device=None):
+    def sample(self, shape, generator=None, device=None, out=None):
         raise NotImplementedError
 
 
@@ -33,11 +33,13 @@ class EDMNoiseSampler(NoiseSampler):
         return (sigma ** 2 + self.sigma_data ** 2) / (
             (sigma * self.sigma_data) ** 2)
 
-    def sample(self, shape, generator=None, device=None):
+    def sample(self, shape, generator=None, device=None, out=None):
         """sigma = exp(N(prior_mean, prior_std^2)) of ``shape``, drawn with
-        ``generator`` on ``device`` (the generator's device by default)."""
-        if device is None and generator is not None:
-            device = generator.device
-        logsigma = torch.randn(shape, generator=generator, device=device) \
-            * self.prior_std + self.prior_mean
-        return torch.exp(logsigma)
+        ``generator`` on ``device`` (the generator's device by default), or
+        into ``out`` (a CUDA graph's static input) with the same numbers."""
+        if out is None:
+            if device is None and generator is not None:
+                device = generator.device
+            out = torch.empty(shape, device=device)
+        torch.randn(shape, generator=generator, out=out)
+        return out.mul_(self.prior_std).add_(self.prior_mean).exp_()

@@ -4,10 +4,12 @@ Port of ``diffsci_tpu/serving.py:SamplerService`` without the
 cross-request dispatcher (``batch_window_ms``), ``mesh``, ``picard``,
 ``from_checkpoint`` and the HTTP server. Requests are padded up to the
 nearest batch bucket and the padding rows dropped; requests above the
-largest bucket are split into chunks. ``warmup()`` runs every bucket once,
-which builds and loads the kernels, so the first request pays no build.
-Requests are served one at a time (a lock), the service being one stream
-on one card.
+largest bucket are split into chunks. On a CUDA device ``warmup()``
+captures one CUDA graph per bucket (``compile_sampler``), as the JAX
+service compiles one executable per bucket into ``self._compiled[b]``
+(``diffsci_tpu/serving.py:157-266``), which also builds and loads the
+kernels; a request then replays its buckets' graphs. Requests are served
+one at a time (a lock), the service being one stream on one card.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from diffsci_tpu_torch.utils import resolve_device
 
 class SamplerService:
     """Front end for a ``KarrasModel``-like runtime with
-    ``.sample(nsamples, shape, generator=..., nsteps=...)``."""
+    ``.sample(nsamples, shape, generator=..., nsteps=...)`` and
+    ``.compile_sampler(nsamples, shape, nsteps=...)``."""
 
     def __init__(self, model, shape: Sequence[int],
                  batch_buckets: Sequence[int] = (1, 8, 64),
@@ -49,14 +52,16 @@ class SamplerService:
         return out
 
     def warmup(self) -> dict[int, float]:
-        """Run every bucket once (discarded, with a generator of its own so
-        the service's stream of noise is untouched). Returns seconds per
-        bucket."""
+        """Capture every bucket's graph (on a CUDA device; nothing is
+        captured on the CPU). Draws no noise, so the service's stream of
+        noise is untouched. Returns seconds per bucket."""
         times = {}
         with self._lock:
             for b in self.batch_buckets:
                 t0 = time.perf_counter()
-                self._run(b, torch.Generator(self.device).manual_seed(0))
+                self.model.compile_sampler(b, self.shape, nsteps=self.nsteps)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
                 times[b] = time.perf_counter() - t0
                 self._warm.add(b)
         return times

@@ -7,13 +7,22 @@ that has only the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_card.py
 
 (``--noconftest`` leaves out ``tests/conftest.py``, which configures JAX.)
-The tolerances are ``chip_smoke.py`` phase 1's.
+The kernels' tolerances are ``chip_smoke.py`` phase 1's; the CUDA
+graphs' (graphed entry points against their eager bodies) phases 2 to 4's.
 """
 
+import gc
+import weakref
+
+import numpy as np
 import pytest
 import torch
 
-from diffsci_tpu_torch import kernels
+from diffsci_tpu_torch import (DDPMModel, DDPMModelConfig, EMATracker,
+                               HFNetUncond, KarrasModel, KarrasModelConfig,
+                               PUNetG, PUNetGConfig, create_train_state,
+                               default_optimizer, kernels, make_train_scan,
+                               make_train_step, warmup_cosine_schedule)
 from diffsci_tpu_torch.kernels import flash_attention as fa
 from diffsci_tpu_torch.kernels import fused_norm as fn
 from diffsci_tpu_torch.kernels import fused_precondition as fp
@@ -366,3 +375,273 @@ def test_euler_update_matches_plain_on_card():
     D = br(c_skip) * x + br(c_out) * f
     ref = x + br((t_next - t) / t) * (x - D)
     assert float((out - ref).abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the graphed entry points against their eager bodies
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def _no_tf32():
+    """Full f32 convolutions and products, so that graph and eager differ
+    only by the order of f32 sums (cuDNN may pick other algorithms for a
+    capture)."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+
+
+def _small_3d():
+    """chip_smoke.py phases 2 and 3's net: configuration A's shape at a cut
+    width (3D 32³, flash attention over 4096 tokens, head dim 8)."""
+    return PUNetGConfig(dimension=3, model_channels=8, channel_expansion=[2],
+                        number_resnet_downward_block=1,
+                        number_resnet_upward_block=1,
+                        number_resnet_attn_block=2,
+                        number_resnet_before_attn_block=1,
+                        number_resnet_after_attn_block=1, num_heads=2,
+                        attn_backend="flash")
+
+
+def _counts():
+    return {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+def test_graphed_sample_matches_eager_on_card(_no_tf32, compute_dtype):
+    """KarrasModel.sample replays one graph of the whole Heun loop per
+    bucket (1 and 3): within rtol 1e-3 + atol 1e-3 of the eager loop on
+    the same noise (phase 2's; graph and eager run the same kernels, in
+    another order of f32 sums only where cuDNN captures another
+    algorithm); a replay launches exactly what the eager loop launches;
+    one seed gives the same bits twice; and a returned sample is a copy
+    (a later call leaves it as it was)."""
+    model = KarrasModel(PUNetG(_small_3d()), KarrasModelConfig.from_edm(),
+                        compute_dtype=compute_dtype)
+    model.init(seed=1)
+    for bucket in (1, 3):
+        shape = (32, 32, 32, 1)
+        first = model.sample(bucket, shape, torch.Generator("cuda")
+                             .manual_seed(7), nsteps=3)
+        kept = first.clone()
+        x = torch.randn((bucket,) + shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(7))
+        kernels.reset_launches()
+        ref = model.propagate_white_noise(x, nsteps=3)
+        eager = _counts()
+        kernels.reset_launches()
+        again = model.sample(bucket, shape, torch.Generator("cuda")
+                             .manual_seed(7), nsteps=3)
+        assert _counts() == eager
+        assert eager["fused_axby"] == eager["flash_attention"] == 5
+        assert torch.equal(first, again)
+        model.sample(bucket, shape, torch.Generator("cuda").manual_seed(8),
+                     nsteps=3)
+        assert torch.equal(first, kept)
+        assert bool(torch.isfinite(first).all())
+        torch.testing.assert_close(first, ref, rtol=1e-3, atol=1e-3)
+
+
+def test_sampler_graph_follows_trained_weights_on_card():
+    """Under a bf16 compute dtype the sampler's graph reads the model's cast
+    copy, which graphed train steps update through ``_masters_changed``
+    (a replay moves no version counter). Sample; train (the warm-up, then
+    a replay); sample; replay one more step; sample again: each sample
+    from one seed differs from the one before, and the last two agree with
+    the eager loop run from a cast copy built anew from the current
+    masters (phase 2's rtol 1e-3 + atol 1e-3)."""
+    model = KarrasModel(PUNetG(_small_3d()), KarrasModelConfig.from_edm(),
+                        compute_dtype=torch.bfloat16)
+    state, tx = create_train_state(model, (2, 32, 32, 32, 1), seed=1)
+    gen = torch.Generator("cuda").manual_seed(3)
+    shape = (32, 32, 32, 1)
+
+    def sample():
+        return model.sample(2, shape, gen.manual_seed(3), nsteps=2)
+
+    def eager_from_fresh_copy():
+        noise = torch.randn((2,) + shape, device="cuda",
+                            generator=gen.manual_seed(3))
+        fresh = KarrasModel(PUNetG(_small_3d()), KarrasModelConfig.from_edm(),
+                            compute_dtype=torch.bfloat16)
+        fresh.net.load_state_dict(model.net.state_dict())
+        return fresh.propagate_white_noise(noise, nsteps=2)
+
+    before = sample()
+    step = make_train_step(model, tx)
+    x = torch.randn((2,) + shape, device="cuda", generator=gen)
+    for _ in range(2):
+        step(state, x, generator=gen)
+    after = sample()
+    assert not torch.equal(before, after)
+    torch.testing.assert_close(after, eager_from_fresh_copy(), rtol=1e-3,
+                               atol=1e-3)
+    step(state, x, generator=gen)             # a replay between two samples
+    later = sample()
+    assert not torch.equal(after, later)
+    torch.testing.assert_close(later, eager_from_fresh_copy(), rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_train_state_holds_its_graphs_on_card():
+    """The graphs of a train step belong to its state: make_train_scan over
+    a state that make_train_step has trained replays the step's graph (no
+    second capture, no second warm-up update), a remat step over the same
+    state captures a graph of its own, and the graphs go with the state."""
+    model = KarrasModel(PUNetG(_small_3d()), KarrasModelConfig.from_edm())
+    state, tx = create_train_state(model, (2, 32, 32, 32, 1), seed=2)
+    gen = torch.Generator("cuda").manual_seed(4)
+    xs = torch.randn((3, 2, 32, 32, 32, 1), device="cuda", generator=gen)
+    make_train_step(model, tx)(state, xs[0], generator=gen)
+    (graph,) = state.graphs.graphs.values()
+    kernels.reset_launches()
+    state, met = make_train_scan(model, tx)(state, xs, generator=gen)
+    assert list(state.graphs.graphs.values()) == [graph]
+    assert _counts() == {k: 3 * n for k, n in graph.launches.items()}
+    assert state.step == 4 and met["train_loss"].shape == (3,)
+    make_train_step(model, tx, remat=True)(state, xs[0], generator=gen)
+    assert len(state.graphs.graphs) == 2
+    held = weakref.ref(state.graphs)
+    del state, graph
+    gc.collect()
+    assert held() is None
+
+
+def _train(graphed, remat, schedule, steps=3):
+    """``steps`` f32 train steps of the small 3D flash net from seed 2,
+    σ and ε replayed, power EMA every 2 steps: (metrics, state, launches
+    of each step)."""
+    model = KarrasModel(PUNetG(_small_3d()), KarrasModelConfig.from_edm())
+    lr = warmup_cosine_schedule(1e-3, 2, 10) if schedule else 1e-3
+    tracker = EMATracker(ema_type="power", power_function_stds=[0.05],
+                         update_every=2)
+    state, tx = create_train_state(model, (2, 32, 32, 32, 1), seed=2,
+                                   optimizer=default_optimizer(lr),
+                                   ema=tracker)
+    step = make_train_step(model, tx, ema=tracker, remat=remat,
+                           _raw=not graphed)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 32, 1))
+                         .astype(np.float32)).cuda()
+    metrics, counts = [], []
+    for _ in range(steps):
+        sigma = np.exp(rng.standard_normal(2) * 1.2 - 1.2).astype(np.float32)
+        eps = rng.standard_normal(x.shape).astype(np.float32)
+        kernels.reset_launches()
+        state, met = step(state, x, sigma=torch.from_numpy(sigma).cuda(),
+                          eps=torch.from_numpy(eps).cuda())
+        counts.append(_counts())
+        metrics.append((float(met["train_loss"]), float(met["grad_norm"])))
+    return metrics, state, counts
+
+
+@pytest.mark.parametrize("remat,schedule", [(False, False), (True, True)])
+def test_graphed_train_steps_match_eager_on_card(_no_tf32, remat, schedule):
+    """make_train_step replays one graph per step after its first (eager,
+    the warm-up): 3 f32 steps against the eager step from the same
+    weights and draws, loss and grad_norm within rtol 1e-3 (phase 3's),
+    parameters and EMA shadows with 99.9% of entries within 0.05·lr and
+    every entry within 2·k·lr; each step launches what an eager step
+    launches (with remat K2 and K4 twice: the forward runs again in the
+    backward pass); a learning-rate schedule and the EMA cadence reach
+    the replays."""
+    m_raw, s_raw, c_raw = _train(False, remat, schedule)
+    m_graph, s_graph, c_graph = _train(True, remat, schedule)
+    assert c_graph == c_raw
+    per_step = c_raw[0]
+    assert per_step["norm_silu"] == per_step["norm_silu_bwd"] * \
+        (2 if remat else 1)
+    assert per_step["flash_attention"] == (2 if remat else 1)
+    np.testing.assert_allclose(m_graph, m_raw, rtol=1e-3)
+    assert s_graph.step == s_raw.step == 3
+    assert s_graph.ema.num_updates == 3
+    for ours, ref in ((s_graph.params, s_raw.params),
+                      (s_graph.ema.profiles[0], s_raw.ema.profiles[0])):
+        diff = torch.cat([(ours[n].detach() - ref[n].detach()).abs()
+                          .flatten() for n in ref]).cpu().numpy()
+        assert np.quantile(diff, 0.999) <= 0.05 * 1e-3
+        assert diff.max() <= 2 * 3 * 1e-3
+
+
+def test_train_scan_matches_steps_on_card(_no_tf32):
+    """make_train_scan at K = 3 against 3 graphed steps from the same
+    weights and generator: the same metrics within rtol 1e-3 (each path
+    captures its own graph), and K2 launched 20 times a step."""
+    out = []
+    for scan in (False, True):
+        model = KarrasModel(PUNetG(_small_3d()), KarrasModelConfig.from_edm())
+        state, tx = create_train_state(model, (2, 32, 32, 32, 1), seed=2)
+        gen = torch.Generator("cuda").manual_seed(4)
+        xs = torch.randn((3, 2, 32, 32, 32, 1), device="cuda", generator=gen)
+        kernels.reset_launches()
+        if scan:
+            state, met = make_train_scan(model, tx)(state, xs, generator=gen)
+            got = torch.stack([met["train_loss"], met["grad_norm"]], 1)
+        else:
+            step = make_train_step(model, tx)
+            got = torch.stack([torch.stack(
+                [m["train_loss"], m["grad_norm"]]) for m in
+                (step(state, x, generator=gen)[1] for x in xs)])
+        out.append((got.cpu().numpy(), _counts()))
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-3)
+    assert out[1][1] == out[0][1]
+
+
+@pytest.mark.parametrize("arm", ["from_ddim", "from_ddpm"])
+def test_graphed_ddpm_matches_eager_on_card(_no_tf32, arm):
+    """DDPMModel.sample replays one graph of a step per t (5 steps, the
+    cosine schedule): each step within |Δ| <= 1e-3·|ref| + 1e-3·max|ref_t|
+    of the eager loop with the same generator (phase 4's), one K7 launch a
+    step and nothing else, one seed the same bits twice."""
+    model = DDPMModel(HFNetUncond(block_channels=(32, 64), channels=3,
+                                  norm_num_groups=8, attn_up_and_down=True),
+                      getattr(DDPMModelConfig, arm)("cosine"))
+    model.init(seed=4)
+
+    def graphed(seed):
+        return model.sample(2, (16, 16, 3), torch.Generator("cuda")
+                            .manual_seed(seed), nsteps=5, record_history=True)
+
+    first = graphed(5)
+    kernels.reset_launches()
+    again = graphed(5)
+    assert _counts() == {"fused_lincomb3": 5}
+    assert torch.equal(first, again)
+    gen = torch.Generator("cuda").manual_seed(5)
+    x = torch.randn((2, 16, 16, 3), device="cuda", generator=gen)
+    with torch.inference_mode():
+        ref = model.config.integrator.propagate_backward(
+            x, model.noise_predictor, 5, record_history=True, generator=gen)
+    assert first.shape == ref.shape == (6, 2, 16, 16, 3)
+    assert bool(torch.isfinite(first).all())
+    for ours, theirs in zip(first, ref):
+        assert bool(((ours - theirs).abs() <= 1e-3 * theirs.abs() + 1e-3
+                     * max(1.0, float(theirs.abs().max()))).all())
+
+
+class _HostSync(torch.nn.Module):
+    """A score network that reads a value back to the host: legal eagerly,
+    refused inside a capture."""
+
+    def __init__(self):
+        super().__init__()
+        self.scale = torch.nn.Parameter(torch.ones(()))
+
+    def forward(self, x, t, y=None):
+        return x * self.scale * float(t.mean())
+
+
+def test_failed_capture_raises_on_card():
+    """A body that synchronises cannot be captured: sample raises instead
+    of running the eager loop, and the card stays usable."""
+    model = KarrasModel(_HostSync(), KarrasModelConfig.from_edm())
+    with pytest.raises(RuntimeError):
+        model.sample(2, (8, 8, 1), torch.Generator("cuda").manual_seed(0),
+                     nsteps=2)
+    torch.cuda.synchronize()
+    out = model.propagate_white_noise(torch.zeros(2, 8, 8, 1,
+                                                  device="cuda"), nsteps=2)
+    assert bool(torch.isfinite(out).all())
