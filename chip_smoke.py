@@ -78,8 +78,28 @@ Phases (any failure raises, so the exit code is non-zero):
     against 8 graphed steps, replaying the graph A's state holds; A's
     graphed sampler after one more replayed train step, against the
     eager loop on a cast copy built anew (phase 2's tolerance).
-11. One JSON line lists every kernel with its launches over phases 5 to
-    9; the card's name and power limit; then the result line.
+11. Stochastic paths, card vs CPU: the net of phase 2 samples by EDM
+    churn, Euler–Maruyama (also gated by ``langevin_interval`` with a
+    ``langevin_scale``), DPM++2M and restart, VP and VE models by Heun and
+    EM, all through the graphed entry points, and inpaints and RePaints
+    eagerly on the card; the CPU replays the card's draws (x_T, then one
+    tensor of the loop's noise), TF32 off; they must agree.
+12. Stochastic serving at full width through
+    ``SamplerService(sample_kwargs=...)``: B by churn, EM and DPM++2M, A by
+    EM, 18 steps, with exact launch counts (churn 35 network calls a
+    sample, EM and DPM++2M 18), the same seed giving the same samples and
+    one profiled request per arm; a γ sweep of ``langevin_scale`` over
+    three values on B's bucket 8 that replays one graph (the cache does
+    not grow) and matches the eager loop at each γ; B's ``sample_restart``
+    with ((0.05, 2.0, 2),), its network calls counted from the snapped
+    grid.
+13. Training under VP (B, batch 256) and VE (A, batch 4) through the
+    graphed ``make_train_step``: exact launch counts, a finite falling
+    loss, seconds per step, peak memory, one profiled step; three f32 VP
+    steps of the small net, card against CPU (phase 3's tolerances).
+14. One JSON line lists every kernel with its launches over phases 5 to
+    9 and 11 to 13; the card's name and power limit; then the result
+    line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -93,6 +113,7 @@ K2's and K3's kernels.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -782,6 +803,14 @@ def small_3d_config():
                         attn_backend="flash")
 
 
+def small_vp_config():
+    """The small net under VP: its Fourier time embedding at scale 0.03 in
+    place of 30, since VP's c_noise = 999·t spans [0, 999] where EDM's
+    log(σ)/4 spans ~[-1.6, 1.1]; at scale 30 one float32 step of c_noise
+    (the card's log against the CPU's) turns the phases by ~1e-2 rad."""
+    return dataclasses.replace(small_3d_config(), time_projection_scale=0.03)
+
+
 def phase_card_vs_cpu():
     from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
                                    kernels)
@@ -818,11 +847,13 @@ def phase_card_vs_cpu():
                              "launched")
 
 
-def phase_train_card_vs_cpu():
+def phase_train_card_vs_cpu(config: str = "edm"):
     """Three f32 train steps of the small 3D flash net on the CPU (plain
     versions) and on the card (kernels), from the same weights, batch and
-    σ/ε draws. Loss and grad_norm within rtol 1e-3 per step (f32 sums in
-    another order, cuDNN's convolutions against the CPU's); parameters and
+    σ/ε draws, under the EDM configuration (phase 3) or the VP one (phase
+    13: σ of the VP noise sampler, and the VP net of phase 11). Loss and
+    grad_norm within rtol 1e-3 per step (f32 sums in another order,
+    cuDNN's convolutions against the CPU's); parameters and
     EMA shadows: AdamW moves an entry by ±lr wherever its gradient is
     clear of rounding noise, and by up to 2·lr per step where rounding
     flips a near-zero gradient, so 99.9% of entries within 0.05·lr and
@@ -832,18 +863,28 @@ def phase_train_card_vs_cpu():
                                    default_optimizer, kernels,
                                    make_train_step)
 
+    from diffsci_tpu_torch.ops import VPSchedulingFunctions
+
     lr, nsteps = 1e-3, 3
     x_shape = (2, 32, 32, 32, 1)
     rng = np.random.default_rng(1)
     x = rng.standard_normal(x_shape).astype(np.float32)
-    draws = [(np.exp(rng.standard_normal(2) * 1.2 - 1.2).astype(np.float32),
-              rng.standard_normal(x_shape).astype(np.float32))
+
+    def sigma_draw():
+        if config == "vp":
+            t = rng.random(2).astype(np.float32) * (1 - 1e-5) + 1e-5
+            return VPSchedulingFunctions().noise(t).astype(np.float32)
+        return np.exp(rng.standard_normal(2) * 1.2 - 1.2).astype(np.float32)
+
+    draws = [(sigma_draw(), rng.standard_normal(x_shape).astype(np.float32))
              for _ in range(nsteps)]
+    net_cfg = small_vp_config() if config == "vp" else small_3d_config()
+    make_config = getattr(KarrasModelConfig, f"from_{config}")
     weights = None
     runs = {}
     for dev in ("cpu", "cuda"):
-        model = KarrasModel(PUNetG(small_3d_config(), device=dev),
-                            KarrasModelConfig.from_edm(), device=dev)
+        model = KarrasModel(PUNetG(net_cfg, device=dev), make_config(),
+                            device=dev)
         if weights is None:
             # copies: the state dict aliases the parameters, which train
             weights = {k: v.clone() for k, v in model.init(seed=2).items()}
@@ -876,10 +917,11 @@ def phase_train_card_vs_cpu():
                                .abs().flatten().numpy() for n in ref])
         q999, worst = float(np.quantile(diff, 0.999)), float(diff.max())
         ok = ok and q999 <= 0.05 * lr and worst <= 2 * nsteps * lr
-        log(f"[train card-vs-cpu] {label}: |card - cpu| 99.9% "
+        log(f"[train card-vs-cpu] {config} {label}: |card - cpu| 99.9% "
             f"{q999:.3e}, max {worst:.3e} (limits {0.05 * lr:.0e}, "
             f"{2 * nsteps * lr:.0e})")
-    log(f"[train card-vs-cpu] 3D 32^3 mc=8 flash, {nsteps} f32 steps: "
+    log(f"[train card-vs-cpu] {config} 3D 32^3 mc=8 flash, {nsteps} f32 "
+        f"steps: "
         f"(loss, grad_norm) card {m_card} cpu {m_cpu} (rtol 1e-3) "
         f"{'ok' if ok else 'FAIL'}; cpu {t_cpu:.1f} s, card {t_card:.1f} s; "
         f"launches {counts}")
@@ -1013,12 +1055,14 @@ def mib(nbytes) -> str:
     return "not measured" if nbytes is None else f"{nbytes / 2 ** 20:.1f} MiB"
 
 
-def serve(label, model, shape, buckets, requests, same_seed_n, nsteps):
+def serve(label, model, shape, buckets, requests, same_seed_n, nsteps,
+          sample_kwargs=None):
     """Drive one model (bf16 compute, random weights from seed 0) through
     SamplerService: warm-up (one eager run and one graph capture per
     bucket: the whole loop for EDM, one step for DDPM/DDIM), then, with
     the launch counts reset, the timed ``requests`` and (when
     ``same_seed_n``) one request of ``same_seed_n`` twice from one seed.
+    ``sample_kwargs`` go to the service (the integrator, ``stochastic``).
     Returns the launch counts, the number of bucket runs (graph replays
     of a whole sample) and the service."""
     from diffsci_tpu_torch import SamplerService, kernels
@@ -1026,7 +1070,7 @@ def serve(label, model, shape, buckets, requests, same_seed_n, nsteps):
     model.init(seed=0)
     nparams = sum(p.numel() for p in model.net.parameters())
     svc = SamplerService(model, shape, batch_buckets=buckets, nsteps=nsteps,
-                         seed=0)
+                         seed=0, sample_kwargs=sample_kwargs)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     pool0 = graph_pool_bytes()
@@ -1088,19 +1132,23 @@ def ddpm_c(arm):
                      compute_dtype=torch.bfloat16)
 
 
-def train(label, cfg, x_shape, steps, per_step, warmup=3):
+def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
+          profiled=False):
     """Train one configuration at full width: bf16 compute over f32 masters,
     AdamW with clip 0.5, power EMA every 4 steps, on one fixed batch.
     ``warmup`` steps, then ``steps`` timed with the host clock and a sync
     on the loss, the launch counts reset just before and read just after
     (they must be ``per_step`` times ``steps``). A fixed draw of σ and ε
     probes the loss before training and after it: it must go down.
+    ``config``: the KarrasModelConfig preset ("edm", "vp", "ve");
+    ``profiled``: one more step under torch.profiler (device time).
     Returns the launch counts."""
     from diffsci_tpu_torch import (EMATracker, KarrasModel, KarrasModelConfig,
                                    PUNetG, create_train_state, kernels,
                                    make_train_step)
 
-    model = KarrasModel(PUNetG(cfg), KarrasModelConfig.from_edm(),
+    model = KarrasModel(PUNetG(cfg),
+                        getattr(KarrasModelConfig, f"from_{config}")(),
                         compute_dtype=torch.bfloat16)
     tracker = EMATracker(ema_type="power", power_function_stds=[0.05],
                          update_every=4)
@@ -1155,6 +1203,8 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3):
     if counts != expected:
         raise AssertionError(f"{label}: launch counts {counts}, expected "
                              f"{expected}")
+    if profiled:
+        profile_call(f"train {label}", "one train step", one_step)
     return counts
 
 
@@ -1430,6 +1480,334 @@ def profile_call(label, what, fn, top=8):
                 f"{us / 1e6 / busy:6.1%} x{sum(e.count for e in mine)}")
 
 
+# ---------------------------------------------------------------------------
+# phases 11 to 13: stochastic samplers, VP and VE
+# ---------------------------------------------------------------------------
+def replayed_draws(n_noise, x_shape, seed):
+    """sample()'s draws from a card generator of ``seed``: x_T, then the
+    [n_noise, *x_shape] noise of the loop (None when n_noise is 0)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn(x_shape, device="cuda", generator=gen)
+    noise = torch.randn((n_noise,) + tuple(x_shape), device="cuda",
+                        generator=gen) if n_noise else None
+    return x, noise
+
+
+def phase_stochastic_card_vs_cpu():
+    """Each new sampling path on the card (the graphed entry point where
+    there is one: ``sample``, ``sample_restart``; ``inpaint`` and
+    ``repaint`` run eagerly on the card, as in the JAX package) and on the
+    CPU (eager, plain versions), from the same weights and the card's
+    draws replayed, f32 with TF32 off: EDM churn, Euler–Maruyama, EM with
+    the Langevin gate (langevin_interval (0.1, 10), langevin_const 3, a
+    langevin_scale of 0.5), DPM++2M and restart; VP and VE under Heun and
+    EM; inpaint and RePaint. EDM arms agree at phase 2's rtol 1e-3 + atol
+    1e-3. An untrained net drives the VP and VE trajectories to 1e2–1e8
+    in three steps, where VE's Heun loop is ill-conditioned: on the CPU
+    its float32 result lay ~1e-2 of its scale from the same loop with the
+    net in float64 (the plain kernels in float32) and the card's ~7e-4, on
+    an H100 host (PERF.md). So the VP and VE arms hold the card to that
+    float64 loop, within 1e-3·|ref| plus the larger of 1e-3 of the state's
+    scale (phase 4's form of phase 2's tolerance) and 4× the CPU float32
+    loop's own distance from it. Returns the card's launch counts."""
+    from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
+                                   kernels, ops)
+
+    torch.backends.cudnn.allow_tf32 = False
+
+    def gated():
+        cfg = KarrasModelConfig.from_edm()
+        cfg.noisescheduler = ops.EDMScheduler(langevin_const=3.0,
+                                              langevin_interval=(0.1, 10.0))
+        return cfg
+
+    shape, nsteps = (32, 32, 32, 1), 3
+    x_shape = (2,) + shape
+    arms = (("EDM churn", KarrasModelConfig.from_edm, {"integrator": "karras"}),
+            ("EDM EM", KarrasModelConfig.from_edm, {"stochastic": True}),
+            ("EDM EM gated", gated, {"stochastic": True,
+                                     "langevin_scale": 0.5}),
+            ("EDM DPM++2M", KarrasModelConfig.from_edm,
+             {"integrator": "dpmpp2m"}),
+            ("VP Heun", KarrasModelConfig.from_vp, {}),
+            ("VP EM", KarrasModelConfig.from_vp, {"stochastic": True}),
+            ("VE Heun", KarrasModelConfig.from_ve, {}),
+            ("VE EM", KarrasModelConfig.from_ve, {"stochastic": True}))
+    weights, models = {}, {}
+
+    def pair(make_config, vp):
+        """CPU and card models of one configuration on the same weights."""
+        net_cfg = small_vp_config() if vp else small_3d_config()
+        out = []
+        for dev in ("cpu", "cuda"):
+            model = KarrasModel(PUNetG(net_cfg, device=dev), make_config(),
+                                device=dev)
+            if vp not in weights:
+                weights[vp] = {k: v.clone()
+                               for k, v in model.init(seed=1).items()}
+            model.net.load_state_dict(weights[vp], strict=True)
+            out.append(model)
+        return out
+
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    failures = []
+
+    def check(label, card, ref, seconds, ref64=None):
+        card = card.cpu()
+        if ref64 is None:
+            err, ok = within_phase2(card, ref)
+            extra = ""
+        else:
+            ref64 = ref64.float()
+            err = float((card - ref64).abs().max())
+            own = float((ref - ref64).abs().max())
+            scale = max(1.0, float(ref64.abs().max()))
+            ok = bool(torch.isfinite(card).all()) and bool(
+                ((card - ref64).abs() <= 1e-3 * ref64.abs()
+                 + max(1e-3 * scale, 4 * own)).all())
+            extra = (f"; against the float64 loop: card {err:.3e}, cpu "
+                     f"float32 {own:.3e}")
+            err = float((card - ref).abs().max())
+        log(f"[stochastic card-vs-cpu] {label}: max|card - cpu| {err:.3e} "
+            f"(max|cpu| {float(ref.abs().max()):.4g}){extra} "
+            f"{'ok' if ok else 'FAIL'}; card {seconds:.3f} s")
+        if not ok:
+            failures.append(label)
+
+    for label, make_config, kw in arms:
+        cpu, card = pair(make_config, label.startswith("VP"))
+        ls = kw.get("langevin_scale")
+        n = cpu.config.noisescheduler.noise_steps(
+            nsteps, kw.get("stochastic", False), kw.get("integrator"))
+        card.compile_sampler(2, shape, nsteps=nsteps, **kw)
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        out = card.sample(2, shape, torch.Generator("cuda").manual_seed(11),
+                          nsteps=nsteps, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for k, v in kernels.LAUNCHES.items():
+            counts[k] += v - before[k]
+        x, noise = replayed_draws(n, x_shape, 11)
+
+        def cpu_loop(dtype):
+            with torch.inference_mode():
+                return cpu._propagate_white_noise(
+                    x.cpu().to(dtype), None, 1.0, nsteps, False,
+                    kw.get("integrator"), kw.get("stochastic", False),
+                    gate_scale=None if ls is None else torch.tensor(ls),
+                    noise_seq=None if noise is None else
+                    noise.cpu().to(dtype))
+
+        ref, ref64 = cpu_loop(torch.float32), None
+        if not label.startswith("EDM"):
+            cpu.net.double()
+            ref64 = cpu_loop(torch.float64)
+        check(label, out, ref, seconds, ref64)
+        if label == "EDM churn":
+            models["EDM"] = (cpu, card)
+
+    cpu, card = models["EDM"]
+    sched = cpu.config.noisescheduler
+    restarts = ((0.3, 2.0, 1),)
+    card.sample_restart(2, shape, torch.Generator("cuda").manual_seed(12),
+                        nsteps=6, restarts=restarts)
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    out = card.sample_restart(2, shape,
+                              torch.Generator("cuda").manual_seed(12),
+                              nsteps=6, restarts=restarts)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for k, v in kernels.LAUNCHES.items():
+        counts[k] += v - before[k]
+    x, noises = replayed_draws(sched.restart_jumps(restarts), x_shape, 12)
+    x = x.cpu()
+    with torch.inference_mode():
+        ref = sched._restart(x * sched.maximum_scale,
+                             cpu._score(None, 1.0, x), 6, restarts, None,
+                             noises.cpu())
+    check("EDM restart ((0.3, 2.0, 1),), 6 steps", out, ref, seconds)
+
+    rng = np.random.default_rng(13)
+    x_orig = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32))
+    mask = torch.from_numpy((rng.random(shape) < 0.5).astype(np.float32))
+    for mode in ("inpaint", "repaint"):
+        steps, rsteps, nres = 4, 2, 1
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        out = card.inpaint(x_orig.cuda(), mask.cuda(), nsteps=steps,
+                           mode=mode, rsteps=rsteps, nresamples=nres,
+                           generator=torch.Generator("cuda").manual_seed(14))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for k, v in kernels.LAUNCHES.items():
+            counts[k] += v - before[k]
+        n_ren = nres * (steps // rsteps - 1) if mode == "repaint" else 0
+        x_t, draws = replayed_draws(steps - 1 + n_ren, x_shape, 14)
+        x_t, draws = x_t.cpu(), draws.cpu()
+        score = cpu._score(None, 1.0, x_orig)
+        with torch.inference_mode():
+            y_noised = sched.propagate_forward(
+                x_orig, score, steps, record_history=True, stochastic=True,
+                noise_seq=draws[:steps - 1]).flip(0)
+            start = x_t * sched.maximum_scale
+            if mode == "inpaint":
+                ref = sched.inpaint(start, y_noised, mask, score, steps)
+            else:
+                ref = sched.repaint(start, y_noised, mask, score, steps,
+                                    rsteps, nres,
+                                    renoise_noises=draws[steps - 1:])
+        check(f"EDM {mode}, {steps} steps (eager on the card)", out, ref,
+              seconds)
+    torch.backends.cudnn.allow_tf32 = True
+    log(f"[stochastic card-vs-cpu] card launches {counts}")
+    if failures or min(counts[k] for k in FORWARD) == 0:
+        raise AssertionError(f"stochastic paths: card and CPU disagree "
+                             f"({failures}), or a kernel was not launched")
+    return counts
+
+
+def restart_nfe(sched, nsteps, restarts):
+    """Network calls of one restart sample: the Heun grid's 2·nsteps - 1,
+    plus two a step for each of an interval's K passes over its snapped
+    width."""
+    sigma = np.asarray(sched.scheduling.noise(sched.create_steps(
+        nsteps + 1)[:-1]), np.float64)
+    nfe = 2 * nsteps - 1
+    for lo, hi, k in restarts:
+        width = int(np.argmin(np.abs(sigma - lo))) - int(
+            np.argmin(np.abs(sigma - hi)))
+        nfe += 2 * k * width
+    return nfe
+
+
+def phase_stochastic_serving(cfg_a, cfg_b, zero):
+    """Full-width stochastic serving through SamplerService(sample_kwargs=)
+    (bf16, random weights from seed 0, 18 steps): B with churn (35 network
+    calls a sample), Euler–Maruyama and DPM++2M (18 each), A with EM;
+    exact launch counts per bucket run (K1 once a call, K2 28 (B) or 20
+    (A), K4 once (A)), one profiled request per arm; a γ sweep of
+    langevin_scale on B's bucket 8 that replays one graph and matches the
+    eager loop at each γ; and B's restart sample with ((0.05, 2.0, 2),),
+    its network calls counted from the snapped grid. Returns the launch
+    counts of every arm."""
+    from diffsci_tpu_torch import kernels
+
+    b_shape, a_shape = (28, 28, 1), (32, 32, 32, 1)
+    arms = (("config B churn", cfg_b, b_shape, (1, 8, 64), (1, 64, 70), 8,
+             {"integrator": "karras"}, NFE),
+            ("config B EM", cfg_b, b_shape, (1, 8, 64), (1, 64, 70), 8,
+             {"stochastic": True}, NSTEPS),
+            ("config B DPM++2M", cfg_b, b_shape, (8, 64), (8, 64), 8,
+             {"integrator": "dpmpp2m"}, NSTEPS),
+            ("config A EM", cfg_a, a_shape, (1, 4), (1, 4, 6), 4,
+             {"stochastic": True}, NSTEPS))
+    all_counts, services = [], {}
+    for label, cfg, shape, buckets, requests, same, kw, nfe in arms:
+        counts, runs, svc = serve(label, karras(cfg), shape, buckets,
+                                  requests, same, NSTEPS, sample_kwargs=kw)
+        a = cfg is cfg_a
+        expected = dict(zero, fused_axby=nfe * runs,
+                        norm_silu=(20 if a else 28) * nfe * runs,
+                        flash_attention=nfe * runs if a else 0)
+        if counts != expected:
+            raise AssertionError(f"{label}: launch counts {counts}, "
+                                 f"expected {expected}")
+        log(f"[counts] {label}: {nfe} network calls a sample, {runs} bucket "
+            f"runs: {counts}")
+        b = buckets[-1]
+        profile_call(label, f"request {b}", lambda svc=svc, b=b: svc.sample(b))
+        all_counts.append(counts)
+        services[label] = svc
+
+    # the γ sweep: one graph of B's EM loop at bucket 8 with a runtime
+    # langevin_scale
+    model = services["config B EM"].model
+    model.compile_sampler(8, b_shape, nsteps=NSTEPS, stochastic=True,
+                          langevin_scale=1.0)
+    ngraphs = len(model._graphs.graphs)
+    for gamma in (0.25, 1.0, 2.5):
+        t0 = time.perf_counter()
+        out = model.sample(8, b_shape, torch.Generator("cuda").manual_seed(21),
+                           nsteps=NSTEPS, stochastic=True,
+                           langevin_scale=gamma)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        x, noise = replayed_draws(NSTEPS, (8,) + b_shape, 21)
+        with torch.inference_mode():
+            ref = model._propagate_white_noise(
+                x, None, 1.0, NSTEPS, False, None, True,
+                gate_scale=torch.tensor(gamma, device="cuda"),
+                noise_seq=noise)
+        err, ok = within_phase2(out, ref)
+        same = bool(torch.equal(out, ref))
+        log(f"[gamma sweep] config B bucket 8, langevin_scale {gamma}: "
+            f"graphed against eager max|Δ| {err:.3e} "
+            f"({'bit-identical' if same else 'not bit-identical'}), "
+            f"{len(model._graphs.graphs)} graphs in the cache; {seconds:.4f} s "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok or len(model._graphs.graphs) != ngraphs:
+            raise AssertionError("gamma sweep: a new graph was captured or "
+                                 "the graphed loop disagrees with the eager "
+                                 "one")
+
+    # restart sampling, one graph of B's bucket 8
+    model = services["config B churn"].model
+    restarts = ((0.05, 2.0, 2),)
+    nfe = restart_nfe(model.config.noisescheduler, NSTEPS, restarts)
+    t0 = time.perf_counter()
+    model.sample_restart(8, b_shape, torch.Generator("cuda").manual_seed(22),
+                         nsteps=NSTEPS, restarts=restarts)
+    torch.cuda.synchronize()
+    log(f"[config B restart] warm-up and capture {time.perf_counter() - t0:.3f}"
+        f" s")
+    kernels.reset_launches()
+    outs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        outs.append(model.sample_restart(
+            8, b_shape, torch.Generator("cuda").manual_seed(22),
+            nsteps=NSTEPS, restarts=restarts))
+        torch.cuda.synchronize()
+        log(f"[config B restart] request 8: {time.perf_counter() - t0:.4f} s")
+    counts = dict(kernels.LAUNCHES)
+    expected = dict(zero, fused_axby=2 * nfe, norm_silu=2 * 28 * nfe)
+    ok = counts == expected and torch.equal(*outs) and bool(
+        torch.isfinite(outs[0]).all())
+    log(f"[config B restart] {restarts}: {nfe} network calls a sample; same "
+        f"seed, same bits {torch.equal(*outs)}; launches {counts} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"restart: counts {counts}, expected {expected}, "
+                             "or two results from one seed")
+    profile_call("config B restart", "request 8", lambda: model.sample_restart(
+        8, b_shape, torch.Generator("cuda").manual_seed(22), nsteps=NSTEPS,
+        restarts=restarts))
+    all_counts.append(counts)
+    return all_counts
+
+
+def phase_train_vp_ve(cfg_a, cfg_b, zero):
+    """Training under VP and VE at full width, graphed: B under from_vp
+    (batch 256), A under from_ve (batch 4), 20 timed steps each with exact
+    launch counts and one profiled step; then three f32 VP steps of the
+    small net, card against CPU (phase 3's tolerances). Returns the launch
+    counts."""
+    counts_b = train("config B VP", cfg_b, (256, 28, 28, 1), 20,
+                     dict(zero, norm_silu=28, norm_silu_bwd=28),
+                     config="vp", profiled=True)
+    counts_a = train("config A VE", cfg_a, (4, 32, 32, 32, 1), 20,
+                     dict(zero, norm_silu=20, norm_silu_bwd=20,
+                          flash_attention=1, flash_attention_dq=1,
+                          flash_attention_dkv=1),
+                     config="ve", profiled=True)
+    torch.backends.cudnn.allow_tf32 = False
+    phase_train_card_vs_cpu("vp")
+    torch.backends.cudnn.allow_tf32 = True
+    return [counts_b, counts_a]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -1505,6 +1883,12 @@ def main() -> int:
     phase_graphs(svc_a, svc_b, svc_ddim, cfg_a, cfg_b,
                  "--profile" in sys.argv[1:])
 
+    # the stochastic samplers, VP and VE (phases 11 to 13)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts_11 = phase_stochastic_card_vs_cpu()
+    counts_12 = phase_stochastic_serving(cfg_a, cfg_b, zero)
+    counts_13 = phase_train_vp_ve(cfg_a, cfg_b, zero)
+
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
                        "diffsci_tpu/kernels/fused_precondition.py:129"),
@@ -1527,9 +1911,10 @@ def main() -> int:
         rec = records[name]
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(c[name] for c in (counts_a, counts_b, train_a,
-                                           train_b, counts_ddim,
-                                           counts_ddpm)),
+            launches=sum(c[name] for c in [counts_a, counts_b, train_a,
+                                           train_b, counts_ddim, counts_ddpm,
+                                           counts_11, *counts_12,
+                                           *counts_13]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

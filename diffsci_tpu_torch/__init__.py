@@ -3,11 +3,14 @@ Hopper card (H100).
 
 The JAX package ``diffsci_tpu`` stays the reference; this package imports
 nothing of it and nothing of JAX. Entry points run on the CUDA card unless
-the caller passes ``device="cpu"``. Ported so far: the EDM main path of
-``PUNetG`` inside ``KarrasModel``, serving (``SamplerService``, 18-step
-Heun) and training (``create_train_state`` / ``make_train_step`` /
+the caller passes ``device="cpu"``. Ported so far: ``PUNetG`` inside
+``KarrasModel`` under the EDM, VP, VE and SR3 configurations, serving
+(``SamplerService`` with ``sample_kwargs``; Heun, Euler, Euler–Maruyama,
+Karras churn, DPM-Solver++(2M), restart, inpaint and RePaint) and
+training (``create_train_state`` / ``make_train_step`` /
 ``make_train_scan``: σ draw, Huber loss, backward, NaN guard, clip, AdamW
-with its schedules, power EMA, ``remat``); and DDPM/DDIM
+with its schedules, power EMA, ``remat``); the analytic toy datasets
+(``data``); and DDPM/DDIM
 serving and loss of the HFNet family (``DDPMModel`` around ``HFNetUncond``,
 ``HFNetCond`` or ``UNet2D``, the diffusers ``UNet2DModel``). Every TPU
 kernel of the JAX package has a hand-written counterpart: the denoiser

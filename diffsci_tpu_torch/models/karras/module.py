@@ -1,24 +1,37 @@
-"""KarrasModel: the EDM denoiser runtime for training and sampling.
+"""KarrasModel: the Karras denoiser runtime for training and sampling.
 
-Port of ``diffsci_tpu/models/karras/module.py``'s EDM path:
-``KarrasModelConfig.from_edm`` (with ``loss_metric``), ``KarrasNet``, and
-``KarrasModel``'s ``init``, ``decode``, ``get_denoiser`` (with
-``compute_dtype``, CFG and the ``fused_precondition`` policy),
-``loss_fn``, ``get_score``, ``sample``, ``propagate_white_noise`` and
-``propagate_toward_sample``.
+Port of ``diffsci_tpu/models/karras/module.py`` without latent models,
+EDM batch norm, the dynamic loss weight, ``IntervalGuidance``,
+interpolation, filtering and parallel-in-time sampling:
+``KarrasModelConfig`` (``from_edm``, ``from_vp``, ``from_ve``,
+``conditional_sr3``, ``loss_metric``, the tag and ``extra_args`` of
+``export_description``), ``KarrasNet``, and ``KarrasModel``'s ``init``,
+``decode``, ``get_denoiser`` (with ``compute_dtype``, CFG and the
+``fused_precondition`` policy), ``loss_fn``, ``get_score``, ``sample``
+(any integrator, stochastic, ``langevin_scale``), ``sample_restart``,
+``propagate_white_noise``, ``propagate_toward_sample``,
+``propagate_partial_toward_sample``, ``propagate_toward_noise``,
+``inpaint`` and ``repaint``.
 
 The network's weights live in the module, so the methods take no
 ``variables`` unless the caller swaps other weights in (``variables=``, a
 state dict, e.g. EMA shadows). Randomness is an explicit
-``torch.Generator``. Sample shapes and samples are channels-last
-([B, *spatial, C]) as in the JAX package; ``KarrasNet`` moves the channel
-axis at the network boundary (a reshape for C = 1).
+``torch.Generator``: a sampler draws x_T, then every later draw of its
+loop in one tensor (``ops.schedulers.draw_noise``), before the loop runs.
+Sample shapes and samples are channels-last ([B, *spatial, C]) as in the
+JAX package; ``KarrasNet`` moves the channel axis at the network boundary
+(a reshape for C = 1).
 
-On a CUDA device ``sample`` replays one CUDA graph of the whole sampling
-loop per key, as the JAX package runs one jitted program per shape
-(``_jitted_sampler``, ``diffsci_tpu/models/karras/module.py:605-643``).
-The Heun loop bakes its grid into the graph as Python floats (σ, the
-score multiplier and dt), right for a graph keyed on nsteps.
+On a CUDA device ``sample`` and ``sample_restart`` replay one CUDA graph
+of the whole sampling loop per key, as the JAX package runs one jitted
+program per key (``_jitted_sampler``,
+``diffsci_tpu/models/karras/module.py:605-643``). The loop bakes its grid
+into the graph as Python floats (σ, the score multiplier, dt, the churn's
+γ), right for a graph keyed on nsteps and the integrator; the draws and
+``langevin_scale`` are static inputs filled before each replay, so a γ
+sweep replays one graph. ``inpaint``, ``repaint``,
+``propagate_toward_noise`` and ``propagate_partial_toward_sample`` run
+eagerly on the card, as the JAX package does not jit them whole.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from diffsci_tpu_torch.models.compute import ComputeDtypeMixin
 from diffsci_tpu_torch.models.nets.layers import init_parameters
 from diffsci_tpu_torch.ops import (losses, noise_samplers, preconditioners,
                                    schedulers)
+from diffsci_tpu_torch.ops.schedulers import draw_noise
 from diffsci_tpu_torch.utils import (bcast_right, dict_expand_dims, dict_map,
                                      get_minibatch_sizes, graphs,
                                      resolve_device)
@@ -39,26 +53,87 @@ from diffsci_tpu_torch.utils import (bcast_right, dict_expand_dims, dict_map,
 class KarrasModelConfig:
     """The math configuration: preconditioner, training noise sampler,
     sampling scheduler and the training loss metric ("huber", "mse" or
-    ``{"huber": {"delta": ...}}``)."""
+    ``{"huber": {"delta": ...}}``), with the preset's ``tag`` and
+    ``extra_args``."""
 
     def __init__(self, preconditioner: preconditioners.KarrasPreconditioner,
                  noisesampler: noise_samplers.NoiseSampler,
                  noisescheduler: schedulers.Scheduler,
-                 loss_metric="huber"):
+                 loss_metric="huber", tag: str = "custom",
+                 extra_args: dict | None = None):
         self.preconditioner = preconditioner
         self.noisesampler = noisesampler
         self.noisescheduler = noisescheduler
         self.loss_metric = loss_metric
+        self.tag = tag
+        self.extra_args = extra_args if extra_args is not None else {}
 
     @classmethod
     def from_edm(cls, sigma_data: float = 0.5, prior_mean: float = -1.2,
-                 prior_std: float = 1.2, loss_metric="huber"):
+                 prior_std: float = 1.2, **kwargs):
+        extra = dict(sigma_data=sigma_data, prior_mean=prior_mean,
+                     prior_std=prior_std, **kwargs)
         return cls(
             preconditioner=preconditioners.EDMPreconditioner(sigma_data),
             noisesampler=noise_samplers.EDMNoiseSampler(
                 sigma_data, prior_mean, prior_std),
             noisescheduler=schedulers.EDMScheduler(),
-            loss_metric=loss_metric)
+            tag="edm", extra_args=extra, **kwargs)
+
+    @classmethod
+    def from_vp(cls, beta_data: float = 19.9, beta_min: float = 0.1,
+                epsilon_min: float = 1e-3, epsilon_sampler: float = 1e-5,
+                M: int = 1000, **kwargs):
+        sched = schedulers.VPScheduler(epsilon_min=epsilon_min,
+                                       beta_data=beta_data,
+                                       beta_min=beta_min)
+        extra = dict(beta_data=beta_data, beta_min=beta_min,
+                     epsilon_min=epsilon_min, epsilon_sampler=epsilon_sampler,
+                     M=M, **kwargs)
+        return cls(
+            preconditioner=preconditioners.VPPreconditioner(
+                scheduling=sched.scheduling, M=M),
+            noisesampler=noise_samplers.VPNoiseSampler(
+                scheduling=sched.scheduling, epsilon=epsilon_sampler),
+            noisescheduler=sched, tag="vp", extra_args=extra, **kwargs)
+
+    @classmethod
+    def from_ve(cls, sigma_min: float = 0.02, sigma_max: float = 100.0,
+                **kwargs):
+        extra = dict(sigma_min=sigma_min, sigma_max=sigma_max, **kwargs)
+        return cls(
+            preconditioner=preconditioners.VEPreconditioner(),
+            noisesampler=noise_samplers.VENoiseSampler(sigma_min, sigma_max),
+            noisescheduler=schedulers.VEScheduler(sigma_min, sigma_max),
+            tag="ve", extra_args=extra, **kwargs)
+
+    @classmethod
+    def conditional_sr3(cls, sigma_min: float = 0.02,
+                        sigma_max: float = 100.0, sigma_data: float = 0.5,
+                        **kwargs):
+        extra = dict(sigma_min=sigma_min, sigma_max=sigma_max,
+                     sigma_data=sigma_data, **kwargs)
+        return cls(
+            preconditioner=preconditioners.SR3Preconditioner(sigma_data),
+            noisesampler=noise_samplers.EDMNoiseSampler(sigma_data),
+            noisescheduler=schedulers.EDMScheduler(sigma_min=sigma_min,
+                                                   sigma_max=sigma_max),
+            tag="conditionalSR3", extra_args=extra, **kwargs)
+
+    def export_description(self) -> dict:
+        return dict(tag=self.tag, extra_args=self.extra_args)
+
+    @classmethod
+    def load_from_description_with_tag(cls, description: dict):
+        tag = description["tag"]
+        if tag == "custom":
+            raise ValueError("Cannot load from a custom tag")
+        factory = {"edm": cls.from_edm, "vp": cls.from_vp,
+                   "ve": cls.from_ve,
+                   "conditionalSR3": cls.conditional_sr3}.get(tag)
+        if factory is None:
+            raise ValueError(f"Unknown tag: {tag}")
+        return factory(**description["extra_args"])
 
 
 class KarrasNet(nn.Module):
@@ -172,7 +247,9 @@ class KarrasModel(ComputeDtypeMixin):
     # ------------------------------------------------------------------
     def loss_fn(self, x, sigma, y=None, mask=None, train: bool = True,
                 eps=None, generator=None, variables=None):
-        """The EDM training loss: mean over elements of
+        """The Karras training loss of the configuration (EDM, VP, VE,
+        SR3: its preconditioner and its noise sampler's λ): mean over
+        elements of
         lambda(sigma) · metric(D(x + sigma·eps; sigma), x), masked elements
         (mask == 1) weighted 0. x is channels-last, sigma [B]. ``eps``
         replays a fixed unit-noise draw in place of one from
@@ -208,86 +285,292 @@ class KarrasModel(ComputeDtypeMixin):
     def sample(self, nsamples: int, shape, generator=None, y=None,
                guidance: float = 1.0, nsteps: int = 100,
                record_history: bool = False,
-               maximum_batch_size: int | None = None):
+               maximum_batch_size: int | None = None, integrator=None,
+               stochastic: bool = False, langevin_scale=None):
         """Generate samples from white noise drawn on the model's device
         with ``generator``. ``shape`` is channels-last without the batch
-        dim, e.g. (28, 28, 1).
+        dim, e.g. (28, 28, 1). ``integrator``: None (the scheduler's, or
+        its stochastic one when ``stochastic``), a name ("euler", "heun",
+        "euler-maruyama", "karras", "dpmpp2m") or an integrator.
+        ``langevin_scale``: a number multiplying the scheduler's Langevin
+        gate (stochastic sampling); with ``langevin_const=1`` it is γ.
 
-        On a CUDA device the loop is the graph of ``compile_sampler``: the
-        noise is drawn into its input, ``y`` copied into its static
-        condition, and the graph replayed; the samples are a copy of its
-        output. The loop is deterministic after the draw, so the graph
-        holds no random number. On the CPU the loop runs eagerly."""
+        The draws: x_T, then the loop's noise, one [n, nsamples, *shape]
+        tensor for its n noisy steps. On a CUDA device the loop is the
+        graph of ``compile_sampler``: the draws go into its static inputs,
+        ``y`` and ``langevin_scale`` too, and the graph is replayed; the
+        samples are a copy of its output. On the CPU the loop runs
+        eagerly on the same draws."""
         if maximum_batch_size is not None:
             outs = [self.sample(n, shape, generator, y, guidance, nsteps,
-                                record_history)
+                                record_history, None, integrator,
+                                stochastic, langevin_scale)
                     for n in get_minibatch_sizes(nsamples,
                                                  maximum_batch_size)]
             return torch.cat(outs, dim=1 if record_history else 0)
         if self.device.type != "cuda":
-            x = torch.randn((nsamples,) + tuple(shape), generator=generator,
-                            device=self.device)
-            return self.propagate_white_noise(x, y, guidance, nsteps,
-                                              record_history)
+            x, noise, gate = self._draw_inputs(
+                self._sampler_inputs(nsamples, shape, nsteps, integrator,
+                                     stochastic, langevin_scale),
+                generator, langevin_scale)
+            return self._propagate_white_noise(
+                x, y, guidance, nsteps, record_history, integrator,
+                stochastic, gate_scale=gate, noise_seq=noise)
         graph = self.compile_sampler(nsamples, shape, y, guidance, nsteps,
-                                     record_history)
-        x, ys = graph.inputs
-        torch.randn(x.shape, generator=generator, out=x)
-        graphs.fill(ys, y)
+                                     record_history, integrator, stochastic,
+                                     langevin_scale)
+        self._draw_inputs(graph.inputs[:3], generator, langevin_scale)
+        graphs.fill(graph.inputs[3], y)
         graph.replay()
         return graph.outputs.clone()
+
+    def _sampler_inputs(self, nsamples, shape, nsteps, integrator,
+                        stochastic, langevin_scale):
+        """(x_T, the loop's noise [n, nsamples, *shape] or None, the
+        Langevin scale as a 0-d tensor or None) on the model's device."""
+        x = torch.zeros((nsamples,) + tuple(shape), device=self.device)
+        n = self.config.noisescheduler.noise_steps(nsteps, stochastic,
+                                                   integrator)
+        noise = torch.zeros((n,) + tuple(x.shape), device=self.device) \
+            if n else None
+        gate = None if langevin_scale is None else torch.zeros(
+            (), device=self.device)
+        return x, noise, gate
+
+    @staticmethod
+    def _draw_inputs(inputs, generator, langevin_scale):
+        """Fill a sampler's inputs in place: x_T, then the loop's noise,
+        from ``generator``, and the Langevin scale. Returns them."""
+        for t in inputs[:2]:
+            if t is not None:
+                torch.randn(t.shape, generator=generator, out=t)
+        if inputs[2] is not None:
+            inputs[2].fill_(float(langevin_scale))
+        return inputs
 
     @torch.inference_mode()
     def compile_sampler(self, nsamples: int, shape, y=None,
                         guidance: float = 1.0, nsteps: int = 100,
-                        record_history: bool = False):
+                        record_history: bool = False, integrator=None,
+                        stochastic: bool = False, langevin_scale=None):
         """The CUDA graph of ``sample``'s loop for (nsamples, shape,
-        guidance, nsteps, record_history, y's shapes): on its first use
-        the loop runs once eagerly on the capture stream (the warm-up) and
-        is captured; ``SamplerService.warmup`` calls this for every bucket,
-        as the JAX service compiles one executable per bucket. Returns the
+        guidance, nsteps, record_history, y's shapes, the integrator,
+        ``stochastic``, whether ``langevin_scale`` is given), as the JAX
+        package's ``_jitted_sampler`` keys its executables; not for
+        ``langevin_scale``'s value, which the graph reads from a 0-d
+        device tensor. Static inputs (``graph.inputs``): x_T, the noise of
+        the noisy steps ([n, nsamples, *shape], None for a deterministic
+        loop), the Langevin scale and y's tensors. On its first use the
+        loop runs once eagerly on the capture stream (the warm-up) and is
+        captured; ``SamplerService.warmup`` calls this for every bucket. A
+        loop that cannot be captured raises. Returns the
         ``utils.graphs.Graph``; None on the CPU, where nothing is
         captured."""
         if self.device.type != "cuda":
             return None
         cache = self._graph_cache()
         key = (nsamples, tuple(shape), float(guidance), nsteps,
-               record_history, graphs.condition_key(y))
+               record_history, graphs.condition_key(y), integrator,
+               stochastic, langevin_scale is not None)
         graph = cache.graphs.get(key)
         if graph is not None:
             return graph
-        x = torch.zeros((nsamples,) + tuple(shape), device=self.device)
+        x, noise, gate = self._sampler_inputs(nsamples, shape, nsteps,
+                                              integrator, stochastic,
+                                              langevin_scale)
         ys = graphs.static_like(y, self.device)
         graphs.fill(ys, y)
 
         def loop():
-            return self.propagate_white_noise(x, ys, guidance, nsteps,
-                                              record_history)
+            return self._propagate_white_noise(
+                x, ys, guidance, nsteps, record_history, integrator,
+                stochastic, gate_scale=gate, noise_seq=noise)
 
         cache.warmup(loop)
         graph = cache.capture(key, loop)
-        graph.inputs = (x, ys)
+        graph.inputs = (x, noise, gate, ys)
         return graph
 
     @torch.inference_mode()
-    def propagate_white_noise(self, x, y=None, guidance: float = 1.0,
-                              nsteps: int = 100,
-                              record_history: bool = False):
-        """x is unit white noise (channels-last); scaled to sigma_max and
-        integrated to a sample."""
-        x = x * self.config.noisescheduler.maximum_scale
-        return self.decode(self.propagate_toward_sample(
-            x, y, guidance, nsteps, record_history))
+    def sample_restart(self, nsamples: int, shape, generator=None, y=None,
+                       guidance: float = 1.0, nsteps: int = 18,
+                       restarts=((0.05, 2.0, 2),)):
+        """Restart sampling (Xu et al., arXiv:2306.14878; see
+        ``Scheduler.restart_propagate_backward``): deterministic ODE
+        segments with K re-noise jumps per ``(sigma_lo, sigma_hi, K)``
+        interval. The draws: x_T, then one [sum K, nsamples, *shape]
+        tensor for the jumps. On a CUDA device one graph per (nsamples,
+        shape, nsteps, restarts, guidance, y's shapes) is replayed with
+        the draws in its static inputs; on the CPU the loop runs eagerly
+        on the same draws."""
+        sched = self.config.noisescheduler
+        restarts = tuple(tuple(r) for r in restarts)
+        x = torch.zeros((nsamples,) + tuple(shape), device=self.device)
+        inputs = (x, torch.zeros((sched.restart_jumps(restarts),)
+                                 + tuple(x.shape), device=self.device), None)
 
-    @torch.inference_mode()
-    def propagate_toward_sample(self, x, y=None, guidance: float = 1.0,
-                                nsteps: int = 100,
-                                record_history: bool = False):
-        """Backward propagation with the learned score."""
+        def loop(x, noises, y):
+            return sched._restart(x * sched.maximum_scale,
+                                  self._score(y, guidance, x), nsteps,
+                                  restarts, None, noises)
+
+        if self.device.type != "cuda":
+            x, noises, _ = self._draw_inputs(inputs, generator, None)
+            return loop(x, noises, y)
+        cache = self._graph_cache()
+        key = ("restart", nsamples, tuple(shape), nsteps, restarts,
+               float(guidance), graphs.condition_key(y))
+        graph = cache.graphs.get(key)
+        if graph is None:
+            ys = graphs.static_like(y, self.device)
+            graphs.fill(ys, y)
+            def body():
+                return loop(*inputs[:2], ys)
+
+            cache.warmup(body)
+            graph = cache.capture(key, body)
+            graph.inputs = inputs[:2] + (None, ys)
+        self._draw_inputs(graph.inputs[:3], generator, None)
+        graphs.fill(graph.inputs[3], y)
+        graph.replay()
+        return graph.outputs.clone()
+
+    def _score(self, y, guidance, x):
+        """The learned score (x, σ) -> ∇log p with y given a batch dim
+        where it has none."""
         y = dict_expand_dims(y, 0) if _needs_unsqueeze(y, x) else y
 
         def score_fn(xx, sigma):
             return self.get_score(xx, sigma, y, guidance)
 
+        return score_fn
+
+    def _propagate_white_noise(self, x, y, guidance, nsteps, record_history,
+                               integrator, stochastic, gate_scale=None,
+                               noise_seq=None, generator=None):
+        x = x * self.config.noisescheduler.maximum_scale
+        return self.decode(self.propagate_toward_sample(
+            x, y, guidance, nsteps, record_history, integrator, stochastic,
+            gate_scale=gate_scale, noise_seq=noise_seq, generator=generator))
+
+    @torch.inference_mode()
+    def propagate_white_noise(self, x, y=None, guidance: float = 1.0,
+                              nsteps: int = 100,
+                              record_history: bool = False, integrator=None,
+                              stochastic: bool = False, noise_seq=None,
+                              generator=None):
+        """x is unit white noise (channels-last); scaled to the scheduler's
+        maximum scale and integrated to a sample. ``noise_seq``
+        ([n, *x.shape], n the noisy steps): the stochastic loop's noise,
+        else drawn from ``generator`` before the loop."""
+        return self._propagate_white_noise(
+            x, y, guidance, nsteps, record_history, integrator, stochastic,
+            noise_seq=noise_seq, generator=generator)
+
+    @torch.inference_mode()
+    def propagate_toward_sample(self, x, y=None, guidance: float = 1.0,
+                                nsteps: int = 100,
+                                record_history: bool = False,
+                                integrator=None, stochastic: bool = False,
+                                gate_scale=None, noise_seq=None,
+                                generator=None):
+        """Backward propagation with the learned score."""
         return self.config.noisescheduler.propagate_backward(
-            x, score_fn, nsteps, record_history=record_history)
+            x, self._score(y, guidance, x), nsteps,
+            record_history=record_history, stochastic=stochastic,
+            integrator=integrator, noise_seq=noise_seq,
+            gate_scale=gate_scale, generator=generator)
+
+    @torch.inference_mode()
+    def propagate_partial_toward_sample(self, x, initial_step: int,
+                                        final_step: int | None = None,
+                                        y=None, nsteps: int = 100,
+                                        record_history: bool = False,
+                                        integrator=None,
+                                        analytical_score=None,
+                                        interp_fn=None,
+                                        guidance: float = 1.0,
+                                        generator=None):
+        """Backward propagation over grid steps [initial_step, final_step),
+        the learned score optionally blended with ``analytical_score`` by
+        ``interp_fn(sigma)`` (1 = learned only)."""
+        if final_step is None:
+            final_step = nsteps
+
+        def score_fn(xx, sigma):
+            trained = self.get_score(xx, sigma, y, guidance)
+            if interp_fn is not None:
+                if analytical_score is None:
+                    raise ValueError("interp_fn needs analytical_score")
+                alpha = bcast_right(interp_fn(sigma), xx)
+                return alpha * trained + (1 - alpha) * analytical_score(
+                    xx, sigma)
+            return trained
+
+        return self.config.noisescheduler.propagate_partial(
+            x, score_fn, nsteps, initial_step, final_step,
+            record_history=record_history, integrator=integrator,
+            generator=generator)
+
+    @torch.inference_mode()
+    def propagate_toward_noise(self, x, y=None, nsteps: int = 100,
+                               record_history: bool = False,
+                               stochastic_integration: bool = False,
+                               generator=None):
+        """Forward (noising) propagation with the learned score."""
+        return self.config.noisescheduler.propagate_forward(
+            x, self._score(y, 1.0, x), nsteps, record_history=record_history,
+            stochastic=stochastic_integration, generator=generator)
+
+    @torch.inference_mode()
+    def inpaint(self, x_orig, mask, y=None, nsteps: int = 100,
+                record_history: bool = False,
+                maximum_batch_size: int | None = None,
+                mode: str = "inpaint", rsteps: int = 10,
+                nresamples: int = 10, generator=None):
+        """Known-region-preserving generation: ``mask == 1`` marks the
+        known region of ``x_orig``. The known image is noised along the
+        grid by a stochastic forward pass, then a backward pass from white
+        noise splices it in after every step ("inpaint") or with RePaint
+        resampling ("repaint", ``rsteps``, ``nresamples``). The draws,
+        before any loop: x_T, then one tensor of the forward pass's
+        nsteps - 1 noisy steps followed by RePaint's re-noise jumps. Runs
+        eagerly on every device."""
+        if maximum_batch_size is not None:
+            outs, start = [], 0
+            for bs in get_minibatch_sizes(x_orig.shape[0],
+                                          maximum_batch_size):
+                outs.append(self.inpaint(
+                    x_orig[start:start + bs], mask, y, nsteps,
+                    record_history, None, mode, rsteps, nresamples,
+                    generator))
+                start += bs
+            return torch.cat(outs, dim=1 if record_history else 0)
+        sched = self.config.noisescheduler
+        noise = torch.randn(x_orig.shape, generator=generator,
+                            dtype=x_orig.dtype, device=x_orig.device)
+        n_fwd = sched.noise_steps(nsteps, stochastic=True, backward=False)
+        n_renoise = nresamples * (nsteps // rsteps - 1) \
+            if mode == "repaint" else 0
+        draws = draw_noise(generator, n_fwd + n_renoise, x_orig)
+        score_fn = self._score(y, 1.0, x_orig)
+        fwd_hist = sched.propagate_forward(
+            x_orig, score_fn, nsteps, record_history=True, stochastic=True,
+            noise_seq=draws[:n_fwd])
+        y_noised = fwd_hist.flip(0)  # index k = backward grid time t[k]
+        noise = noise * sched.maximum_scale
+        if mode == "inpaint":
+            return sched.inpaint(noise, y_noised, mask, score_fn, nsteps,
+                                 record_history=record_history)
+        return sched.repaint(noise, y_noised, mask, score_fn, nsteps, rsteps,
+                             nresamples, record_history=record_history,
+                             renoise_noises=draws[n_fwd:])
+
+    def repaint(self, x_orig, mask, y=None, nsteps: int = 100,
+                record_history: bool = False,
+                maximum_batch_size: int | None = None, rsteps: int = 10,
+                nresamples: int = 10, generator=None):
+        return self.inpaint(x_orig, mask, y, nsteps, record_history,
+                            maximum_batch_size, mode="repaint",
+                            rsteps=rsteps, nresamples=nresamples,
+                            generator=generator)

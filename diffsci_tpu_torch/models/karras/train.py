@@ -1,5 +1,5 @@
 """Training: train state, AdamW with global-norm clipping and its
-learning-rate schedules, the train step (σ draw, EDM loss, backward, NaN
+learning-rate schedules, the train step (σ draw, loss, backward, NaN
 guard, clip, AdamW, EMA), K steps a call (``make_train_scan``) and the
 eval step.
 
@@ -240,7 +240,7 @@ def _draw(model, x, generator, sigma, eps, out):
 
 def _step_loss(model, loss_fn, remat: bool):
     """The step's loss ``(x, sigma, y, mask, eps) -> scalar``: ``loss_fn``
-    or the model's EDM loss in training mode; with ``remat``, under
+    or the model's loss in training mode; with ``remat``, under
     ``torch.utils.checkpoint``, which stores only its inputs and runs the
     forward again in the backward pass (the kernels' autograd Functions
     included), as ``jax.checkpoint`` rematerialises. It saves and
@@ -264,15 +264,17 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
                     loss_fn: Callable | None = None, remat: bool = False,
                     _raw: bool = False):
     """The train step ``step(state, x, y=None, mask=None, generator=None,
-    sigma=None, eps=None) -> (state, metrics)``: draw σ (log-normal, from
-    ``generator``) and ε, EDM loss, backward through the network, NaN→0
+    sigma=None, eps=None) -> (state, metrics)``: draw σ (from
+    ``generator``, by the configuration's noise sampler: log-normal for
+    EDM, σ(t) of a uniform t for VP, log-uniform for VE) and ε, the
+    configuration's loss, backward through the network, NaN→0
     guard, global-norm clip, AdamW at the schedule's rate, EMA. ``sigma``
     and ``eps`` replay fixed draws (the cross-framework tests use them).
     ``metrics`` holds ``train_loss`` and ``grad_norm`` (after the guard,
     before the clip) as device tensors. ``state`` is updated in place and
     returned.
 
-    ``loss_fn(x, sigma, y, mask, eps) -> loss`` replaces the model's EDM
+    ``loss_fn(x, sigma, y, mask, eps) -> loss`` replaces the model's
     loss; ``remat=True`` recomputes the loss's forward in the backward
     pass instead of storing its activations. On a CUDA device the step is
     captured and replayed as a CUDA graph held by the state (module
@@ -405,7 +407,7 @@ def make_train_scan(model, tx: AdamWClip, ema: EMATracker | None = None,
 def make_eval_step(model, ema: EMATracker | None = None,
                    use_ema: bool = False):
     """The validation step ``step(state, x, y=None, mask=None,
-    generator=None, sigma=None, eps=None) -> {"valid_loss"}``: the EDM
+    generator=None, sigma=None, eps=None) -> {"valid_loss"}``: the
     loss without gradients, in eval mode, with the EMA shadows swapped in
     when ``use_ema``."""
 

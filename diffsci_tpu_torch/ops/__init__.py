@@ -1,14 +1,37 @@
 from diffsci_tpu_torch.ops import losses
-from diffsci_tpu_torch.ops.integrators import (EulerIntegrator,
-                                               HeunIntegrator, Integrator)
-from diffsci_tpu_torch.ops.noise_samplers import EDMNoiseSampler, NoiseSampler
+from diffsci_tpu_torch.ops.integrators import (DPMSolverPlusPlus2M,
+                                               EulerIntegrator,
+                                               EulerMaruyamaIntegrator,
+                                               HeunIntegrator, Integrator,
+                                               KarrasIntegrator,
+                                               name_to_integrator)
+from diffsci_tpu_torch.ops.noise_samplers import (EDMNoiseSampler,
+                                                  NoiseSampler,
+                                                  UniformNoiseSampler,
+                                                  VENoiseSampler,
+                                                  VPNoiseSampler)
 from diffsci_tpu_torch.ops.preconditioners import (EDMPreconditioner,
-                                                   KarrasPreconditioner)
-from diffsci_tpu_torch.ops.schedulers import EDMScheduler, Scheduler
+                                                   KarrasPreconditioner,
+                                                   NullPreconditioner,
+                                                   SR3Preconditioner,
+                                                   VEPreconditioner,
+                                                   VPPreconditioner)
+from diffsci_tpu_torch.ops.schedulers import (EDMScheduler, Scheduler,
+                                              VEScheduler, VPScheduler,
+                                              draw_noise)
 from diffsci_tpu_torch.ops.scheduling import (EDMSchedulingFunctions,
-                                              SchedulingFunctions)
+                                              SchedulingFunctions,
+                                              VESchedulingFunctions,
+                                              VPSchedulingFunctions,
+                                              name_to_scheduling_functions)
 
-__all__ = ["EDMNoiseSampler", "EDMPreconditioner", "EDMScheduler",
-           "EDMSchedulingFunctions", "EulerIntegrator", "HeunIntegrator",
-           "Integrator", "KarrasPreconditioner", "NoiseSampler", "Scheduler",
-           "SchedulingFunctions", "losses"]
+__all__ = ["DPMSolverPlusPlus2M", "EDMNoiseSampler", "EDMPreconditioner",
+           "EDMScheduler", "EDMSchedulingFunctions", "EulerIntegrator",
+           "EulerMaruyamaIntegrator", "HeunIntegrator", "Integrator",
+           "KarrasIntegrator", "KarrasPreconditioner", "NoiseSampler",
+           "NullPreconditioner", "SR3Preconditioner", "Scheduler",
+           "SchedulingFunctions", "UniformNoiseSampler", "VENoiseSampler",
+           "VEPreconditioner", "VEScheduler", "VESchedulingFunctions",
+           "VPNoiseSampler", "VPPreconditioner", "VPScheduler",
+           "VPSchedulingFunctions", "draw_noise", "losses",
+           "name_to_integrator", "name_to_scheduling_functions"]

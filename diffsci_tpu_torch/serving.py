@@ -1,14 +1,17 @@
 """Sampling service: shape-bucketed, chunked, one device.
 
-Port of ``diffsci_tpu/serving.py:SamplerService`` without the
-cross-request dispatcher (``batch_window_ms``), ``mesh``, ``picard``,
+Port of ``diffsci_tpu/serving.py:SamplerService`` (with
+``sample_kwargs``: the integrator, ``stochastic``, ``langevin_scale``,
+``guidance``) without the cross-request dispatcher (``batch_window_ms``), ``mesh``, ``picard``,
 ``from_checkpoint`` and the HTTP server. Requests are padded up to the
 nearest batch bucket and the padding rows dropped; requests above the
 largest bucket are split into chunks. On a CUDA device ``warmup()``
 captures one CUDA graph per bucket (``compile_sampler``), as the JAX
 service compiles one executable per bucket into ``self._compiled[b]``
 (``diffsci_tpu/serving.py:157-266``), which also builds and loads the
-kernels; a request then replays its buckets' graphs. Requests are served
+kernels; a request then replays its buckets' graphs, its draws (x_T and,
+for a stochastic integrator, the loop's noise) made from the request's
+generator before each replay. Requests are served
 one at a time (a lock), the service being one stream on one card.
 """
 
@@ -26,14 +29,17 @@ from diffsci_tpu_torch.utils import resolve_device
 
 class SamplerService:
     """Front end for a ``KarrasModel``-like runtime with
-    ``.sample(nsamples, shape, generator=..., nsteps=...)`` and
-    ``.compile_sampler(nsamples, shape, nsteps=...)``."""
+    ``.sample(nsamples, shape, generator=..., nsteps=..., **kw)`` and
+    ``.compile_sampler(nsamples, shape, nsteps=..., **kw)``, where ``kw``
+    is ``sample_kwargs`` (e.g. ``{"integrator": "karras"}``,
+    ``{"stochastic": True}``)."""
 
     def __init__(self, model, shape: Sequence[int],
                  batch_buckets: Sequence[int] = (1, 8, 64),
-                 nsteps: int = 18, seed: int = 0,
+                 nsteps: int = 18, seed: int = 0, sample_kwargs=None,
                  device: torch.device | str | None = None):
         self.device = resolve_device(device)
+        self.sample_kwargs = dict(sample_kwargs or {})
         self.model = model.to(self.device)
         self.shape = tuple(shape)
         self.batch_buckets = tuple(sorted(batch_buckets))
@@ -46,7 +52,7 @@ class SamplerService:
 
     def _run(self, batch: int, generator: torch.Generator) -> torch.Tensor:
         out = self.model.sample(batch, self.shape, generator=generator,
-                                nsteps=self.nsteps)
+                                nsteps=self.nsteps, **self.sample_kwargs)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return out
@@ -59,7 +65,8 @@ class SamplerService:
         with self._lock:
             for b in self.batch_buckets:
                 t0 = time.perf_counter()
-                self.model.compile_sampler(b, self.shape, nsteps=self.nsteps)
+                self.model.compile_sampler(b, self.shape, nsteps=self.nsteps,
+                                           **self.sample_kwargs)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 times[b] = time.perf_counter() - t0

@@ -645,3 +645,135 @@ def test_failed_capture_raises_on_card():
     out = model.propagate_white_noise(torch.zeros(2, 8, 8, 1,
                                                   device="cuda"), nsteps=2)
     assert bool(torch.isfinite(out).all())
+
+
+# ---------------------------------------------------------------------------
+# stochastic samplers as CUDA graphs
+# ---------------------------------------------------------------------------
+def _eager_stochastic(model, bucket, shape, seed, nsteps, integrator=None,
+                      stochastic=False, langevin_scale=None):
+    """The eager loop on sample()'s draws (x_T, then the [n, B, ...] noise
+    of the noisy steps) from ``seed``."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn((bucket,) + shape, device="cuda", generator=gen)
+    n = model.config.noisescheduler.noise_steps(nsteps, stochastic,
+                                                integrator)
+    noise = torch.randn((n, bucket) + shape, device="cuda",
+                        generator=gen) if n else None
+    gate = None if langevin_scale is None else torch.tensor(
+        float(langevin_scale), device="cuda")
+    with torch.inference_mode():
+        return model._propagate_white_noise(
+            x, None, 1.0, nsteps, False, integrator, stochastic,
+            gate_scale=gate, noise_seq=noise)
+
+
+@pytest.mark.parametrize("kwargs", [{"integrator": "karras"},
+                                    {"stochastic": True},
+                                    {"integrator": "dpmpp2m"}])
+def test_graphed_stochastic_sample_matches_eager_on_card(_no_tf32, kwargs):
+    """Churn, Euler–Maruyama and DPM++2M: the graphed sample within phase
+    2's rtol 1e-3 + atol 1e-3 of the eager loop on the same draws, with
+    the eager loop's launches; one seed gives the same bits twice (the
+    DPM++2M carry lives in the graph, not across replays); and a first
+    result stays as it was after a call from another seed (no aliasing of
+    the static output or the noise buffer)."""
+    model = KarrasModel(PUNetG(_small_3d()), KarrasModelConfig.from_edm())
+    model.init(seed=1)
+    shape, nsteps = (32, 32, 32, 1), 4
+    first = model.sample(2, shape, torch.Generator("cuda").manual_seed(7),
+                         nsteps=nsteps, **kwargs)
+    kept = first.clone()
+    kernels.reset_launches()
+    ref = _eager_stochastic(model, 2, shape, 7, nsteps, **kwargs)
+    eager = _counts()
+    kernels.reset_launches()
+    again = model.sample(2, shape, torch.Generator("cuda").manual_seed(7),
+                         nsteps=nsteps, **kwargs)
+    assert _counts() == eager
+    nfe = 2 * nsteps - 1 if kwargs.get("integrator") == "karras" else nsteps
+    assert eager["fused_axby"] == eager["flash_attention"] == nfe
+    assert torch.equal(first, again)
+    other = model.sample(2, shape, torch.Generator("cuda").manual_seed(8),
+                         nsteps=nsteps, **kwargs)
+    assert torch.equal(first, kept) and not torch.equal(first, other)
+    assert bool(torch.isfinite(first).all())
+    torch.testing.assert_close(first, ref, rtol=1e-3, atol=1e-3)
+
+
+def test_langevin_scale_sweep_replays_one_graph_on_card(_no_tf32):
+    """A γ sweep of langevin_scale replays the one graph captured at the
+    first γ (the cache holds one graph throughout) and matches the eager
+    loop at each γ; the γs give different samples."""
+    model = KarrasModel(PUNetG(_small_3d()), KarrasModelConfig.from_edm())
+    model.init(seed=1)
+    shape, outs = (32, 32, 32, 1), []
+    for gamma in (0.25, 1.0, 2.0):
+        out = model.sample(2, shape, torch.Generator("cuda").manual_seed(3),
+                           nsteps=4, stochastic=True, langevin_scale=gamma)
+        assert len(model._graphs.graphs) == 1
+        ref = _eager_stochastic(model, 2, shape, 3, 4, stochastic=True,
+                                langevin_scale=gamma)
+        torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-3)
+        outs.append(out)
+    assert not torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[1], outs[2])
+
+
+def test_graphed_sample_restart_matches_eager_on_card(_no_tf32):
+    """sample_restart replays one graph per key: within phase 2's tolerance
+    of the eager restart loop on the same draws (x_T, then the jumps'),
+    the same bits twice, and nsteps + K·width network calls."""
+    model = KarrasModel(PUNetG(_small_3d()), KarrasModelConfig.from_edm())
+    model.init(seed=1)
+    shape, nsteps, restarts = (32, 32, 32, 1), 6, ((0.3, 2.0, 1),)
+    first = model.sample_restart(2, shape,
+                                 torch.Generator("cuda").manual_seed(5),
+                                 nsteps=nsteps, restarts=restarts)
+    sched = model.config.noisescheduler
+    gen = torch.Generator("cuda").manual_seed(5)
+    x = torch.randn((2,) + shape, device="cuda", generator=gen)
+    noises = torch.randn((1, 2) + shape, device="cuda", generator=gen)
+    kernels.reset_launches()
+    with torch.inference_mode():
+        ref = sched._restart(x * sched.maximum_scale,
+                             model._score(None, 1.0, x), nsteps, restarts,
+                             None, noises)
+    eager = _counts()
+    kernels.reset_launches()
+    again = model.sample_restart(2, shape,
+                                 torch.Generator("cuda").manual_seed(5),
+                                 nsteps=nsteps, restarts=restarts)
+    assert _counts() == eager
+    sigma = sched.create_steps(nsteps + 1)[:-1]
+    i_hi = int(np.argmin(np.abs(sigma - 2.0)))
+    i_lo = int(np.argmin(np.abs(sigma - 0.3)))
+    width = i_lo - i_hi
+    assert eager["fused_axby"] == 2 * nsteps - 1 + 2 * width
+    assert torch.equal(first, again)
+    torch.testing.assert_close(first, ref, rtol=1e-3, atol=1e-3)
+
+
+def test_stochastic_capture_that_draws_raises_on_card():
+    """A stochastic loop without its noise would draw inside the capture:
+    the draw raises instead of capturing a generator, and the card stays
+    usable."""
+    model = KarrasModel(PUNetG(_small_3d()), KarrasModelConfig.from_edm())
+    model.init(seed=1)
+    cache = model._graph_cache()
+    x = torch.zeros((1, 32, 32, 32, 1), device="cuda")
+
+    def loop():
+        return model.propagate_white_noise(
+            x, nsteps=2, stochastic=True,
+            generator=torch.Generator("cuda").manual_seed(0))
+
+    cache.warmup(loop)
+    with pytest.raises(RuntimeError, match="capture"):
+        cache.capture("draws", loop)
+    torch.cuda.synchronize()
+    assert "draws" not in cache.graphs
+    out = model.sample(1, (32, 32, 32, 1),
+                       torch.Generator("cuda").manual_seed(0), nsteps=2,
+                       stochastic=True)
+    assert bool(torch.isfinite(out).all())
