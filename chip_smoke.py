@@ -97,8 +97,33 @@ Phases (any failure raises, so the exit code is non-zero):
     graphed ``make_train_step``: exact launch counts, a finite falling
     loss, seconds per step, peak memory, one profiled step; three f32 VP
     steps of the small net, card against CPU (phase 3's tolerances).
-14. One JSON line lists every kernel with its launches over phases 5 to
-    9 and 11 to 13; the card's name and power limit; then the result
+14. Conditional and magnitude-preserving serving through
+    ``SamplerService``, a graph per bucket: D (configuration A's widths
+    with circular convolutions, a porosity embedding, cond_drop 0.1 and
+    the EDM batch norm; buckets (1, 4), one porosity a request,
+    ``IntervalGuidance(2.0, 0.3, 5.0)``) and E (configuration B's widths
+    with mp convolutions, cosine attention and the dynamic loss weight;
+    buckets (1, 8, 64)), 18 Heun steps: exact launch counts (D's CFG makes
+    70 network calls a sample, so 70 K4 and 1400 K2, and 35 K1, one a
+    denoiser evaluation; E 35 K1 and 980 K2), one seed one result, the
+    graphed request against its eager body, the request's porosity
+    reaching the graph, one profiled request each.
+15. Training D (batch 4: the condition-drop draw, the batch norm) and E
+    (batch 256, ``has_mp_weights``) through the graphed
+    ``make_train_step``: exact launch counts, a finite falling loss,
+    seconds per step, peak memory, one profiled step; D's running
+    statistics after graphed steps equal to eager steps'; E's mp weights
+    at the re-projection's norm within 1e-5 after the steps.
+16. Card vs CPU, f32, TF32 off: D's options at phase 2's cut sample 3
+    guided Heun steps (graphed; the batch norm decoded; phase 2's
+    tolerance, 10 network calls and 5 K1), and three train steps each of
+    D's (batch norm, a replayed keep mask) and E's options (2D 16², mp,
+    cosine, ``has_mp_weights``, the dynamic loss weight) at phase 3's
+    tolerances; a net with GroupPix norms and one with
+    ``affine_norm=False`` launch no K2 or K3 in a forward and backward
+    (the default norms launch one each a norm).
+17. One JSON line lists every kernel with its launches over phases 5 to
+    9 and 11 to 15; the card's name and power limit; then the result
     line.
 
 The last line of standard output is
@@ -848,43 +873,56 @@ def phase_card_vs_cpu():
 
 
 def phase_train_card_vs_cpu(config: str = "edm"):
-    """Three f32 train steps of the small 3D flash net on the CPU (plain
-    versions) and on the card (kernels), from the same weights, batch and
-    σ/ε draws, under the EDM configuration (phase 3) or the VP one (phase
-    13: σ of the VP noise sampler, and the VP net of phase 11). Loss and
-    grad_norm within rtol 1e-3 per step (f32 sums in another order,
-    cuDNN's convolutions against the CPU's); parameters and
-    EMA shadows: AdamW moves an entry by ±lr wherever its gradient is
-    clear of rounding noise, and by up to 2·lr per step where rounding
-    flips a near-zero gradient, so 99.9% of entries within 0.05·lr and
-    every entry within 2·k·lr after k steps."""
-    from diffsci_tpu_torch import (EMATracker, KarrasModel, KarrasModelConfig,
-                                   PUNetG, create_train_state,
-                                   default_optimizer, kernels,
-                                   make_train_step)
-
+    """Three f32 train steps of the small 3D flash net on the CPU and on
+    the card (``train_card_vs_cpu``), under the EDM configuration (phase
+    3) or the VP one (phase 13: σ of the VP noise sampler, and the VP net
+    of phase 11)."""
+    from diffsci_tpu_torch import KarrasModel, KarrasModelConfig, PUNetG
     from diffsci_tpu_torch.ops import VPSchedulingFunctions
 
-    lr, nsteps = 1e-3, 3
-    x_shape = (2, 32, 32, 32, 1)
-    rng = np.random.default_rng(1)
-    x = rng.standard_normal(x_shape).astype(np.float32)
+    net_cfg = small_vp_config() if config == "vp" else small_3d_config()
+    make_config = getattr(KarrasModelConfig, f"from_{config}")
 
-    def sigma_draw():
+    def make_model(dev):
+        return KarrasModel(PUNetG(net_cfg, device=dev), make_config(),
+                           device=dev)
+
+    def sigma_draw(rng):
         if config == "vp":
             t = rng.random(2).astype(np.float32) * (1 - 1e-5) + 1e-5
             return VPSchedulingFunctions().noise(t).astype(np.float32)
         return np.exp(rng.standard_normal(2) * 1.2 - 1.2).astype(np.float32)
 
-    draws = [(sigma_draw(), rng.standard_normal(x_shape).astype(np.float32))
-             for _ in range(nsteps)]
-    net_cfg = small_vp_config() if config == "vp" else small_3d_config()
-    make_config = getattr(KarrasModelConfig, f"from_{config}")
+    train_card_vs_cpu(f"{config} 3D 32^3 mc=8 flash", make_model,
+                      (2, 32, 32, 32, 1), sigma_draw, TRAIN)
+
+
+def train_card_vs_cpu(label, make_model, x_shape, sigma_draw, required,
+                      y=None, has_mp_weights=False, keep=None, lr=1e-3,
+                      nsteps=3):
+    """``nsteps`` f32 train steps of ``make_model(device)`` on the CPU
+    (plain versions) and on the card (kernels, the graphed step), from the
+    same weights, batch, condition ``y`` and σ/ε draws (and condition-drop
+    mask ``keep``, replayed). Loss and grad_norm within rtol 1e-3 per step
+    (f32 sums in another order, cuDNN's convolutions against the CPU's);
+    parameters and EMA shadows: AdamW moves an entry by ±lr wherever its
+    gradient is clear of rounding noise, and by up to 2·lr per step where
+    rounding flips a near-zero gradient, so 99.9% of entries within
+    0.05·lr and every entry within 2·k·lr after k steps; buffers (the
+    batch norm's running statistics) within rtol 1e-5. The ``required``
+    kernels must have been launched, K1 not."""
+    from diffsci_tpu_torch import (EMATracker, create_train_state,
+                                   default_optimizer, kernels,
+                                   make_train_step)
+
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(x_shape).astype(np.float32)
+    draws = [(sigma_draw(rng), rng.standard_normal(x_shape).astype(
+        np.float32)) for _ in range(nsteps)]
     weights = None
     runs = {}
     for dev in ("cpu", "cuda"):
-        model = KarrasModel(PUNetG(net_cfg, device=dev), make_config(),
-                            device=dev)
+        model = make_model(dev)
         if weights is None:
             # copies: the state dict aliases the parameters, which train
             weights = {k: v.clone() for k, v in model.init(seed=2).items()}
@@ -894,41 +932,47 @@ def phase_train_card_vs_cpu(config: str = "edm"):
         state, tx = create_train_state(model, x_shape, seed=None,
                                        optimizer=default_optimizer(lr),
                                        ema=tracker)
-        step = make_train_step(model, tx, ema=tracker)
+        step = make_train_step(model, tx, ema=tracker,
+                               has_mp_weights=has_mp_weights)
+        yd = None if y is None else {k: v.to(dev) for k, v in y.items()}
         kernels.reset_launches()
         t0 = time.perf_counter()
         metrics = []
         for sigma, eps in draws:
-            state, met = step(state, torch.from_numpy(x).to(dev),
+            state, met = step(state, torch.from_numpy(x).to(dev), yd,
                               sigma=torch.from_numpy(sigma).to(dev),
-                              eps=torch.from_numpy(eps).to(dev))
+                              eps=torch.from_numpy(eps).to(dev),
+                              keep=None if keep is None else keep.to(dev))
             metrics.append((float(met["train_loss"]),
                             float(met["grad_norm"])))
         runs[dev] = (metrics, state, time.perf_counter() - t0,
-                     dict(kernels.LAUNCHES))
-    (m_cpu, s_cpu, t_cpu, _), (m_card, s_card, t_card, counts) = \
-        runs["cpu"], runs["cuda"]
+                     dict(kernels.LAUNCHES), dict(model.net.named_buffers()))
+    (m_cpu, s_cpu, t_cpu, _, b_cpu), (m_card, s_card, t_card, counts,
+                                      b_card) = runs["cpu"], runs["cuda"]
     ok = all(np.isfinite(m).all() for m in m_card) and np.allclose(
         m_card, m_cpu, rtol=1e-3, atol=0)
-    for label, ours, ref in (("params", s_card.params, s_cpu.params),
-                             ("ema", s_card.ema.profiles[0],
-                              s_cpu.ema.profiles[0])):
+    for name, ref in b_cpu.items():
+        ok = ok and bool(torch.allclose(b_card[name].cpu(), ref, rtol=1e-5,
+                                        atol=1e-6))
+    for what, ours, ref in (("params", s_card.params, s_cpu.params),
+                            ("ema", s_card.ema.profiles[0],
+                             s_cpu.ema.profiles[0])):
         diff = np.concatenate([(ours[n].detach().cpu() - ref[n].detach())
                                .abs().flatten().numpy() for n in ref])
         q999, worst = float(np.quantile(diff, 0.999)), float(diff.max())
         ok = ok and q999 <= 0.05 * lr and worst <= 2 * nsteps * lr
-        log(f"[train card-vs-cpu] {config} {label}: |card - cpu| 99.9% "
+        log(f"[train card-vs-cpu] {label} {what}: |card - cpu| 99.9% "
             f"{q999:.3e}, max {worst:.3e} (limits {0.05 * lr:.0e}, "
             f"{2 * nsteps * lr:.0e})")
-    log(f"[train card-vs-cpu] {config} 3D 32^3 mc=8 flash, {nsteps} f32 "
-        f"steps: "
+    log(f"[train card-vs-cpu] {label}, {nsteps} f32 steps: "
         f"(loss, grad_norm) card {m_card} cpu {m_cpu} (rtol 1e-3) "
-        f"{'ok' if ok else 'FAIL'}; cpu {t_cpu:.1f} s, card {t_card:.1f} s; "
-        f"launches {counts}")
+        f"{'ok' if ok else 'FAIL'}; buffers {sorted(b_cpu)} within rtol "
+        f"1e-5; cpu {t_cpu:.1f} s, card {t_card:.1f} s; launches {counts}")
     if not ok or counts["fused_axby"] != 0 or \
-            min(counts[k] for k in TRAIN) == 0:
-        raise AssertionError("card and CPU training disagree, or the "
-                             "kernels of a train step were not launched")
+            min(counts[k] for k in required) == 0:
+        raise AssertionError(f"{label}: card and CPU training disagree, or "
+                             "the kernels of a train step were not "
+                             "launched")
 
 
 def small_hfnet(device=None):
@@ -1083,6 +1127,7 @@ def serve(label, model, shape, buckets, requests, same_seed_n, nsteps,
         f"{ {b: round(s, 3) for b, s in warm.items()} }, of which capture "
         f"{captures}; graph pool {mib(pool)}")
     kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     runs = 0
     for n in requests:
         t0 = time.perf_counter()
@@ -1110,7 +1155,9 @@ def serve(label, model, shape, buckets, requests, same_seed_n, nsteps,
         log(f"[{label}] same seed, same samples: ok")
     counts = dict(kernels.LAUNCHES)
     log(f"[{label}] stats {svc.stats}; throughput {svc.throughput():.2f} "
-        f"samples/s; launches {counts}")
+        f"samples/s; peak memory over the requests "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; launches "
+        f"{counts}")
     return counts, runs, svc
 
 
@@ -1133,7 +1180,8 @@ def ddpm_c(arm):
 
 
 def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
-          profiled=False):
+          profiled=False, model=None, y=None, has_mp_weights=False,
+          x=None):
     """Train one configuration at full width: bf16 compute over f32 masters,
     AdamW with clip 0.5, power EMA every 4 steps, on one fixed batch.
     ``warmup`` steps, then ``steps`` timed with the host clock and a sync
@@ -1142,31 +1190,37 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
     probes the loss before training and after it: it must go down.
     ``config``: the KarrasModelConfig preset ("edm", "vp", "ve");
     ``profiled``: one more step under torch.profiler (device time).
-    Returns the launch counts."""
+    ``model`` (a bf16 KarrasModel) replaces the one built from ``cfg`` and
+    ``config``; ``x`` (default: N(0, 1) from the step's generator) and
+    ``y`` are the batch and its condition; ``has_mp_weights`` goes to the
+    step. Returns the launch counts and the model."""
     from diffsci_tpu_torch import (EMATracker, KarrasModel, KarrasModelConfig,
                                    PUNetG, create_train_state, kernels,
                                    make_train_step)
 
-    model = KarrasModel(PUNetG(cfg),
-                        getattr(KarrasModelConfig, f"from_{config}")(),
-                        compute_dtype=torch.bfloat16)
+    if model is None:
+        model = KarrasModel(PUNetG(cfg),
+                            getattr(KarrasModelConfig, f"from_{config}")(),
+                            compute_dtype=torch.bfloat16)
     tracker = EMATracker(ema_type="power", power_function_stds=[0.05],
                          update_every=4)
     state, tx = create_train_state(model, x_shape, seed=0, ema=tracker)
-    step = make_train_step(model, tx, ema=tracker)
+    step = make_train_step(model, tx, ema=tracker,
+                           has_mp_weights=has_mp_weights)
     nparams = sum(p.numel() for p in state.params.values())
     gen = torch.Generator("cuda").manual_seed(0)
-    x = torch.randn(x_shape, generator=gen, device="cuda")
+    if x is None:
+        x = torch.randn(x_shape, generator=gen, device="cuda")
     probe_sigma = model.config.noisesampler.sample((x_shape[0],), gen)
     probe_eps = torch.randn(x_shape, generator=gen, device="cuda")
 
     def probe():
         with torch.no_grad():
-            return float(model.loss_fn(x, probe_sigma, eps=probe_eps,
+            return float(model.loss_fn(x, probe_sigma, y, eps=probe_eps,
                                        train=False))
 
     def one_step():
-        return step(state, x, generator=gen)[1]
+        return step(state, x, y, generator=gen)[1]
 
     before = probe()
     for _ in range(warmup):
@@ -1205,7 +1259,7 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
                              f"{expected}")
     if profiled:
         profile_call(f"train {label}", "one train step", one_step)
-    return counts
+    return counts, model
 
 
 # ---------------------------------------------------------------------------
@@ -1794,18 +1848,321 @@ def phase_train_vp_ve(cfg_a, cfg_b, zero):
     launch counts and one profiled step; then three f32 VP steps of the
     small net, card against CPU (phase 3's tolerances). Returns the launch
     counts."""
-    counts_b = train("config B VP", cfg_b, (256, 28, 28, 1), 20,
-                     dict(zero, norm_silu=28, norm_silu_bwd=28),
-                     config="vp", profiled=True)
-    counts_a = train("config A VE", cfg_a, (4, 32, 32, 32, 1), 20,
-                     dict(zero, norm_silu=20, norm_silu_bwd=20,
-                          flash_attention=1, flash_attention_dq=1,
-                          flash_attention_dkv=1),
-                     config="ve", profiled=True)
+    counts_b, _ = train("config B VP", cfg_b, (256, 28, 28, 1), 20,
+                        dict(zero, norm_silu=28, norm_silu_bwd=28),
+                        config="vp", profiled=True)
+    counts_a, _ = train("config A VE", cfg_a, (4, 32, 32, 32, 1), 20,
+                        dict(zero, norm_silu=20, norm_silu_bwd=20,
+                             flash_attention=1, flash_attention_dq=1,
+                             flash_attention_dkv=1),
+                        config="ve", profiled=True)
     torch.backends.cudnn.allow_tf32 = False
     phase_train_card_vs_cpu("vp")
     torch.backends.cudnn.allow_tf32 = True
     return [counts_b, counts_a]
+
+
+# ---------------------------------------------------------------------------
+# phases 14 to 16: the conditional (D) and magnitude-preserving (E) paths
+# ---------------------------------------------------------------------------
+GUIDANCE = (2.0, 0.3, 5.0)     # D's IntervalGuidance(scale, σ_lo, σ_hi)
+
+
+def model_d(cfg, device=None, dtype=torch.bfloat16):
+    """Configuration D's runtime: a porosity-conditioned PUNetG under EDM
+    with the EDM batch norm, classifier-free guidance by IntervalGuidance
+    at serving."""
+    from diffsci_tpu_torch import KarrasModel, KarrasModelConfig, PUNetG
+    from diffsci_tpu_torch.models.nets import PorosityEmbedder
+
+    return KarrasModel(
+        PUNetG(cfg, conditional_embedding=PorosityEmbedder(
+            cfg.model_channels), device=device),
+        KarrasModelConfig.from_edm(has_edm_batch_norm=True),
+        conditional=True, compute_dtype=dtype, device=device)
+
+
+def model_e(cfg, device=None, dtype=torch.bfloat16, dlw=128):
+    """Configuration E's runtime: a magnitude-preserving PUNetG (mp
+    convolutions and time MLPs, cosine attention) under EDM with the
+    dynamic loss weight."""
+    from diffsci_tpu_torch import KarrasModel, KarrasModelConfig, PUNetG
+
+    return KarrasModel(PUNetG(cfg, device=device),
+                       KarrasModelConfig.from_edm(dynamic_loss_weight=dlw),
+                       compute_dtype=dtype, device=device)
+
+
+def guided_eager(svc, n):
+    """The eager body of a service's request: x_T from the generator, the
+    loop's inner methods on the request's condition (on the card), then
+    decode (the batch norm's inverse)."""
+    from diffsci_tpu_torch.utils import dict_map
+
+    def eager(gen):
+        kw = dict(svc.sample_kwargs)
+        kw["y"] = dict_map(lambda v: v.cuda(), kw.get("y"))
+        noise = torch.randn((n,) + svc.shape, device="cuda", generator=gen)
+        with torch.inference_mode():
+            return svc.model.decode(svc.model.propagate_white_noise(
+                noise, nsteps=svc.nsteps, **kw))
+    return eager
+
+
+def mp_norms(model) -> float:
+    """The largest distance of an mp weight's norm per output unit
+    (times √(units/numel), the re-projection's α) from the
+    re-projection's 1/(1 + 1e-4)."""
+    from diffsci_tpu_torch.models.nets.normed import _MagnitudePreserving
+
+    worst = 0.0
+    for m in model.net.modules():
+        if isinstance(m, _MagnitudePreserving):
+            w = m.weight.detach().float()
+            n = w.flatten(1).norm(dim=1) * (w.shape[0] / w.numel()) ** 0.5
+            worst = max(worst, float((n - 1 / (1 + 1e-4)).abs().max()))
+    return worst
+
+
+def phase_conditional_mp_serving(cfg_d, cfg_e, zero):
+    """Serving D and E through SamplerService (bf16, seed 0, 18 Heun
+    steps), a graph per bucket: exact launch counts (D: CFG makes 70
+    network calls a sample, each 20 K2 and one K4, and 35 K1, one a
+    denoiser evaluation; E: 35 calls of 28 K2 and 35 K1, no K4: its
+    attention is cosine), one seed one result, the graphed request
+    against its eager body, the porosity of a request reaching the
+    graph, one profiled request each. Returns the launch counts and the
+    services."""
+    from diffsci_tpu_torch import IntervalGuidance
+
+    y = {"porosity": torch.tensor([0.3])}
+    kw = {"y": y, "guidance": IntervalGuidance(*GUIDANCE)}
+    counts_d, runs_d, svc_d = serve(
+        "config D", model_d(cfg_d), (32, 32, 32, 1), (1, 4), (1, 4, 6), 4,
+        NSTEPS, sample_kwargs=kw)
+    expected_d = dict(zero, fused_axby=NFE * runs_d,
+                      norm_silu=2 * 20 * NFE * runs_d,
+                      flash_attention=2 * NFE * runs_d)
+    counts_e, runs_e, svc_e = serve(
+        "config E", model_e(cfg_e), (28, 28, 1), (1, 8, 64), (1, 64, 70), 8,
+        NSTEPS)
+    expected_e = dict(zero, fused_axby=NFE * runs_e,
+                      norm_silu=28 * NFE * runs_e)
+    if counts_d != expected_d or counts_e != expected_e:
+        raise AssertionError(f"launch counts {counts_d} / {counts_e}, "
+                             f"expected {expected_d} / {expected_e}")
+    log(f"[counts] config D (CFG, 70 network calls a sample): {counts_d}; "
+        f"config E (35 calls): {counts_e}")
+    graphs_vs_eager_requests("config D", svc_d, 4, guided_eager(svc_d, 4),
+                             within_phase2)
+    graphs_vs_eager_requests("config E", svc_e, 64, guided_eager(svc_e, 64),
+                             within_phase2)
+    # the request's porosity is a static input of the graph: another value
+    # from the same seed gives another sample, and the first value again
+    # the first sample
+    first = svc_d.sample(4, generator=5)
+    y["porosity"].fill_(0.45)
+    other = svc_d.sample(4, generator=5)
+    y["porosity"].fill_(0.3)
+    again = svc_d.sample(4, generator=5)
+    moved = float(np.abs(first - other).max())
+    log(f"[config D] porosity 0.3 -> 0.45 from one seed: max|Δ| {moved:.3e}"
+        f"; back to 0.3: same bits {np.array_equal(first, again)}")
+    if moved == 0.0 or not np.array_equal(first, again):
+        raise AssertionError("config D: the request's porosity does not "
+                             "reach the graph")
+    profile_call("config D", "request 4", lambda: svc_d.sample(4))
+    profile_call("config E", "request 64", lambda: svc_e.sample(64))
+    return [counts_d, counts_e], svc_d, svc_e
+
+
+def bn_graph_matches_eager(cfg_d, steps=3):
+    """D's train step graphed against eager (bf16, seed 0) on one batch
+    whose statistics move the batch norm (x·0.5 + 0.3), σ, ε and the keep
+    mask replayed: after every step the running statistics equal, and the
+    loss within phase 3's rtol 1e-3."""
+    from diffsci_tpu_torch import create_train_state, make_train_step
+
+    gen = torch.Generator("cuda").manual_seed(11)
+    x_shape = (4, 32, 32, 32, 1)
+    x = torch.randn(x_shape, device="cuda", generator=gen) * 0.5 + 0.3
+    y = {"porosity": torch.rand((4, 1), device="cuda", generator=gen)}
+    draws = [(torch.exp(torch.randn(4, device="cuda", generator=gen) * 1.2
+                        - 1.2),
+              torch.randn(x_shape, device="cuda", generator=gen),
+              torch.rand(4, device="cuda", generator=gen) < 0.9)
+             for _ in range(steps)]
+    runs = {}
+    for arm in ("eager", "graphed"):
+        model = model_d(cfg_d)
+        state, tx = create_train_state(model, x_shape, seed=0)
+        step = make_train_step(model, tx, _raw=arm == "eager")
+        stats, losses = [], []
+        for sigma, eps, keep in draws:
+            met = step(state, x, y, sigma=sigma, eps=eps, keep=keep)[1]
+            losses.append(float(met["train_loss"]))
+            stats.append(torch.cat([model.net.bnorm.mean,
+                                    model.net.bnorm.var]).cpu())
+        runs[arm] = (losses, stats)
+    (l_eager, s_eager), (l_graph, s_graph) = runs["eager"], runs["graphed"]
+    same = all(torch.equal(a, b) for a, b in zip(s_eager, s_graph))
+    ok = same and np.allclose(l_graph, l_eager, rtol=1e-3, atol=0)
+    log(f"[train config D] batch norm over {steps} steps, graphed against "
+        f"eager: running (mean, var) {[s.tolist() for s in s_graph]}, equal "
+        f"{same}; losses {l_graph} / {l_eager} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("config D: the graphed step's batch norm "
+                             "statistics differ from the eager steps'")
+
+
+def porous_batch(n, size, gen):
+    """n periodic two-phase volumes of size³ (1 = pore, 0 = solid) and
+    their porosities [n, 1]: N(0, 1) noise low-passed on the torus
+    (a Gaussian of 3 wavenumbers in the Fourier domain), thresholded at a
+    porosity drawn from [0.2, 0.5] per volume. Channels-last."""
+    z = torch.randn((n, size, size, size), device="cuda", generator=gen)
+    k = torch.fft.fftfreq(size, device="cuda") * size
+    k2 = k[:, None, None] ** 2 + k[None, :, None] ** 2 + k[None, None, :] ** 2
+    z = torch.fft.ifftn(torch.fft.fftn(z, dim=(1, 2, 3))
+                        * torch.exp(-k2 / (2 * 3.0 ** 2)), dim=(1, 2, 3)).real
+    phi = 0.2 + 0.3 * torch.rand((n, 1), device="cuda", generator=gen)
+    level = torch.quantile(z.reshape(n, -1), phi[:, 0], dim=1).diagonal()
+    x = (z < level[:, None, None, None]).float()
+    return x[..., None], x.reshape(n, -1).mean(1, keepdim=True)
+
+
+def phase_conditional_mp_training(cfg_d, cfg_e, zero):
+    """Training D (batch 4, the condition-drop draw, the batch norm) and E
+    (batch 256, has_mp_weights, the dynamic loss weight) through the
+    graphed make_train_step: exact launch counts, a finite falling loss,
+    seconds per step, peak memory, one profiled step; D's batch norm
+    statistics against eager steps, E's mp weights on the sphere after
+    the steps. Returns the launch counts."""
+    # D trains on what its users train on: periodic two-phase volumes and
+    # their porosities. (On N(0, 1) data the batch norm makes the data
+    # Gaussian of std σ_data, for which the untrained net's F ≈ 0 is
+    # already the optimal denoiser: the loss starts at its floor.)
+    x, phi = porous_batch(4, 32, torch.Generator("cuda").manual_seed(12))
+    log(f"[train config D] batch: periodic two-phase volumes, porosity "
+        f"{[round(float(p), 4) for p in phi]}")
+    counts_d, _ = train("config D", cfg_d, (4, 32, 32, 32, 1), 20,
+                        dict(zero, norm_silu=20, norm_silu_bwd=20,
+                             flash_attention=1, flash_attention_dq=1,
+                             flash_attention_dkv=1),
+                        profiled=True, model=model_d(cfg_d),
+                        y={"porosity": phi}, x=x)
+    bn_graph_matches_eager(cfg_d)
+    counts_e, model = train("config E", cfg_e, (256, 28, 28, 1), 20,
+                            dict(zero, norm_silu=28, norm_silu_bwd=28),
+                            profiled=True, model=model_e(cfg_e),
+                            has_mp_weights=True)
+    worst = mp_norms(model)
+    log(f"[train config E] mp weights per output unit after the steps: "
+        f"max |α‖w‖ - 1/(1 + 1e-4)| {worst:.3e} (limit 1e-5) "
+        f"{'ok' if worst <= 1e-5 else 'FAIL'}")
+    if worst > 1e-5:
+        raise AssertionError("config E: mp weights left the sphere")
+    return [counts_d, counts_e]
+
+
+def small_d_config():
+    """D's options at phase 2's cut: circular convolutions, cond_drop."""
+    return dataclasses.replace(small_3d_config(),
+                               convolution_type="circular", cond_drop=0.1)
+
+
+def small_e_config():
+    """E's options at a cut width and depth: 2D 16², mp convolutions,
+    cosine attention at the 8² bottleneck."""
+    from diffsci_tpu_torch import PUNetGConfig
+
+    return PUNetGConfig(model_channels=16, channel_expansion=[2],
+                        number_resnet_downward_block=1,
+                        number_resnet_upward_block=1,
+                        number_resnet_before_attn_block=1,
+                        number_resnet_after_attn_block=1,
+                        convolution_type="mp", attn_type="cosine")
+
+
+def phase_conditional_mp_card_vs_cpu():
+    """The small conditional and mp nets in f32, TF32 off, card against
+    CPU: D's (3 guided Heun steps by IntervalGuidance from one noise, the
+    batch norm decoded from non-trivial statistics; card graphed, CPU
+    eager; phase 2's tolerance; 10 network calls, 5 K1) and three f32
+    train steps each (D with the batch norm and a replayed keep mask, E
+    with has_mp_weights and the dynamic loss weight; phase 3's
+    tolerances); K2/K3 routing: GroupPix and affine_norm=False nets
+    launch neither."""
+    from diffsci_tpu_torch import IntervalGuidance, kernels
+
+    cfg = small_d_config()
+    cpu = model_d(cfg, "cpu", None)
+    state = cpu.init(seed=1)
+    state["bnorm.mean"].fill_(0.1)
+    state["bnorm.var"].fill_(2.0)
+    gpu = model_d(cfg, None, None)
+    gpu.net.load_state_dict(state, strict=True)
+    nsteps, shape = 3, (32, 32, 32, 1)
+    kw = dict(y={"porosity": torch.tensor([0.3])},
+              guidance=IntervalGuidance(*GUIDANCE), nsteps=nsteps)
+    noise = torch.randn((2,) + shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    ref = cpu.decode(cpu.propagate_white_noise(noise.cpu(), **kw))
+    gpu.compile_sampler(2, shape, **kw)
+    kernels.reset_launches()
+    out = gpu.sample(2, shape, torch.Generator("cuda").manual_seed(0),
+                     **kw).cpu()
+    counts = dict(kernels.LAUNCHES)
+    err, ok = within_phase2(out, ref)
+    nfe = 2 * nsteps - 1
+    ok = ok and counts["fused_axby"] == nfe and \
+        counts["flash_attention"] == 2 * nfe
+    log(f"[card-vs-cpu] config D's options (3D 32^3 mc=8 flash, circular, "
+        f"porosity, IntervalGuidance{GUIDANCE}, batch norm), {nsteps} Heun "
+        f"steps, card graphed: max|card - cpu| {err:.3e} (max|cpu| "
+        f"{float(ref.abs().max()):.3f}; tolerance rtol 1e-3 + atol 1e-3) "
+        f"{'ok' if ok else 'FAIL'}; launches {counts}")
+    if not ok:
+        raise AssertionError("config D's options: card and CPU disagree, or "
+                             "the launch counts are not CFG's")
+
+    def sigma_draw(rng):
+        return np.exp(rng.standard_normal(2) * 1.2 - 1.2).astype(np.float32)
+
+    train_card_vs_cpu(
+        "config D's options", lambda dev: model_d(cfg, dev, None),
+        (2, 32, 32, 32, 1), sigma_draw, TRAIN,
+        y={"porosity": torch.tensor([[0.2], [0.4]])},
+        keep=torch.tensor([True, False]))
+    train_card_vs_cpu(
+        "config E's options (2D 16^2 mc=16 mp, cosine, dynamic loss weight)",
+        lambda dev: model_e(small_e_config(), dev, None, dlw=16),
+        (2, 16, 16, 1), sigma_draw, ("norm_silu", "norm_silu_bwd"),
+        has_mp_weights=True)
+
+    # the norms K2 and K3 serve: spatial, affine, one group per channel;
+    # GroupPix (per pixel) and affine_norm=False take the plain path
+    from diffsci_tpu_torch import PUNetG
+
+    base = dataclasses.replace(small_e_config(), convolution_type="default",
+                               attn_type="default")
+    x = torch.randn((2, 1, 16, 16), device="cuda")
+    for name, fields, per_norm in (
+            ("GroupLN/GroupRMS", {}, 1),
+            ("GroupPix", dict(first_resblock_norm="GroupPix",
+                              second_resblock_norm="GroupPix"), 0),
+            ("affine_norm=False", dict(affine_norm=False), 0)):
+        net = PUNetG(dataclasses.replace(base, **fields))
+        kernels.reset_launches()
+        net(x, torch.zeros(2, device="cuda")).sum().backward()
+        counts = {k: kernels.LAUNCHES[k] for k in ("norm_silu",
+                                                    "norm_silu_bwd")}
+        expected = dict.fromkeys(counts, 2 * 6 * per_norm)
+        log(f"[norm routing] {name}: forward and backward of a 12-norm net "
+            f"launch {counts} (expected {expected})")
+        if counts != expected:
+            raise AssertionError(f"{name}: K2/K3 launches {counts}, "
+                                 f"expected {expected}")
 
 
 def main() -> int:
@@ -1854,12 +2211,12 @@ def main() -> int:
     # a train step is one forward and one backward of the network: K2 and
     # K3 once per norm, K4, K5 and K6 once per bottleneck attention (in A)
     # and no K1 (the training combine is the plain expression)
-    train_a = train(
+    train_a, _ = train(
         "config A", cfg_a, (4, 32, 32, 32, 1), 20,
         dict(zero, norm_silu=20, norm_silu_bwd=20, flash_attention=1,
              flash_attention_dq=1, flash_attention_dkv=1))
-    train_b = train("config B", cfg_b, (256, 28, 28, 1), 20,
-                            dict(zero, norm_silu=28, norm_silu_bwd=28))
+    train_b, _ = train("config B", cfg_b, (256, 28, 28, 1), 20,
+                       dict(zero, norm_silu=28, norm_silu_bwd=28))
 
     # configuration C: every bucket run is one DDPM/DDIM sample of nsteps
     # steps, each one K7 launch (one replay of the step's graph); UNet2D's
@@ -1889,6 +2246,17 @@ def main() -> int:
     counts_12 = phase_stochastic_serving(cfg_a, cfg_b, zero)
     counts_13 = phase_train_vp_ve(cfg_a, cfg_b, zero)
 
+    # the conditional and magnitude-preserving paths (phases 14 to 16)
+    cfg_d = dataclasses.replace(cfg_a, convolution_type="circular",
+                                cond_drop=0.1)
+    cfg_e = dataclasses.replace(cfg_b, convolution_type="mp",
+                                attn_type="cosine")
+    counts_14, _, _ = phase_conditional_mp_serving(cfg_d, cfg_e, zero)
+    counts_15 = phase_conditional_mp_training(cfg_d, cfg_e, zero)
+    torch.backends.cudnn.allow_tf32 = False
+    phase_conditional_mp_card_vs_cpu()
+    torch.backends.cudnn.allow_tf32 = True
+
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
                        "diffsci_tpu/kernels/fused_precondition.py:129"),
@@ -1914,7 +2282,8 @@ def main() -> int:
             launches=sum(c[name] for c in [counts_a, counts_b, train_a,
                                            train_b, counts_ddim, counts_ddpm,
                                            counts_11, *counts_12,
-                                           *counts_13]),
+                                           *counts_13, *counts_14,
+                                           *counts_15]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

@@ -5,11 +5,18 @@ nested dicts of numpy arrays (``{'params': ..., 'buffers': ...}``), picks
 the network by its keys and returns the state dict of the port's
 counterpart:
 
-- PUNetG, or the KarrasNet around one (scope ``model``), with the torch
-  reference's names: per-head attention w_q / w_k / w_v [H, C, dh] -> the
-  packed ``in_proj_weight`` [3C, C], w_o -> ``out_proj.weight`` (the
-  inverse of the JAX package's reference-import converter), and
-  ``buffers/time_projection/W`` -> ``time_projection.W``;
+- PUNetG or PUNetGCond (scope ``unet``), or the KarrasNet around one
+  (scope ``model``; ``dlw`` and the ``batch_stats`` of ``bnorm`` beside
+  it), with the torch reference's names: per-head default attention w_q /
+  w_k / w_v [H, C, dh] -> the packed ``in_proj_weight`` [3C, C], w_o ->
+  ``out_proj.weight`` (the inverse of the JAX package's reference-import
+  converter); cosine / mp attention's w_* / w_mp_* -> ``*_proj_matrix``
+  as they are; default, circular (``CircularConv_i/Conv_0``) and
+  magnitude-preserving (``w_mp``) convolutions and time-MLP layers alike;
+  the norms by the config's norm kinds; ``buffers`` (the time projection,
+  the Fourier stem) and ``cond_drop/null_embedding`` by name; and the
+  conditional embedders (``embedders.py``, a transformer encoder's flax
+  attention packed as torch's);
 - UNet2D, or an HFNet around one (scope ``unet``), with diffusers'
   ``UNet2DModel`` names (the JAX package's ``diffusers_unet2d_name_map``
   read backwards);
@@ -37,14 +44,16 @@ _SCOPES = [
     (re.compile(r"^downsampler_(\d+)$"), r"downsamplers.\1.conv"),
     (re.compile(r"^upsampler_(\d+)$"), r"upsamplers.\1.conv"),
 ]
-_RESBLOCK = {
-    "GroupLNorm_0": "gnorm1", "GroupRMSNorm_0": "gnorm2",
-    "Conv_0": "conv1", "Conv_1": "conv2",
-    "ResnetTimeBlock_0/Dense_0": "timeblock.net.0",
-    "ResnetTimeBlock_0/Dense_1": "timeblock.net.2",
-    "ResnetTimeBlock_0/Dense_2": "timeblock.net.4",
-}
-_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight"}
+# a convolution's JAX scope by convolution type: 'default' Conv_i, 'mp'
+# MagnitudePreservingConv_i, 'circular' CircularConv_i/Conv_0
+_CONV = re.compile(r"^(?:Conv|MagnitudePreservingConv|CircularConv)_(\d+)"
+                   r"(?:/Conv_0)?$")
+_TIME_DENSE = re.compile(
+    r"^ResnetTimeBlock_0/(?:MagnitudePreserving)?Dense_(\d+)$")
+_NORM_CLASS = {"GroupLN": "GroupLNorm", "GroupRMS": "GroupRMSNorm",
+               "GroupPix": "GroupPixNorm"}
+_LEAF = {"kernel": "weight", "w_mp": "weight", "bias": "bias",
+         "scale": "weight"}
 _ATTN = re.compile(r"^attn_(\d+)$")
 
 
@@ -57,17 +66,26 @@ def _flatten(tree, prefix=()):
 
 
 def _layout(w: np.ndarray, leaf: str) -> np.ndarray:
-    if leaf != "kernel":
+    """Dense [in, out] -> [out, in], conv [*k, in, out] -> [out, in, *k]
+    (``kernel`` and magnitude-preserving ``w_mp`` leaves); others as
+    they are."""
+    if leaf not in ("kernel", "w_mp"):
         return w
-    if w.ndim == 2:                       # Dense [in, out] -> [out, in]
+    if w.ndim == 2:
         return w.T
-    nd = w.ndim - 2                       # conv [*k, in, out] -> [out, in, *k]
+    nd = w.ndim - 2
     return np.transpose(w, (nd + 1, nd) + tuple(range(nd)))
 
 
 def _attention(leaves: dict, prefix: str) -> dict:
-    """Per-head MultiHeadAttention leaves -> torch MultiheadAttention
-    names."""
+    """Per-head MultiHeadAttention leaves -> the port's names: with
+    biases (the 'default' path) torch MultiheadAttention's packed
+    projections; without (cosine / mp, ``w_*`` or ``w_mp_*``) the
+    reference's ``{q,k,v,o}_proj_matrix`` [H, C, dh] as they are."""
+    if "bias_q" not in leaves:
+        return {f"{prefix}.{n}_proj_matrix": leaves[
+            f"w_mp_{n}" if f"w_mp_{n}" in leaves else f"w_{n}"]
+            for n in "qkvo"}
     wq, wk, wv, wo = (leaves[f"w_{n}"] for n in "qkvo")
     H, C, dh = wq.shape
     out = {f"{prefix}.in_proj_weight": np.concatenate(
@@ -79,18 +97,116 @@ def _attention(leaves: dict, prefix: str) -> dict:
     return out
 
 
-def _punetg_key(path: tuple) -> str:
+def _norm_scopes(norms) -> dict:
+    """The JAX auto-names of a ResnetBlockC's two norms (flax numbers them
+    per class) -> gnorm1 / gnorm2."""
+    first, second = (_NORM_CLASS.get(n) for n in norms)
+    out = {}
+    if first is not None:
+        out[f"{first}_0"] = "gnorm1"
+    if second is not None:
+        out[f"{second}_{1 if second == first else 0}"] = "gnorm2"
+    return out
+
+
+def _embedder_state(tree: dict, prefix: str) -> dict[str, np.ndarray]:
+    """An embedder's JAX leaves (``embedders.py``) -> the port's names:
+    GaussianFourierProjection_0 -> gaussian_proj, Dense_i -> net.{2i},
+    the curve embedder inside a transformer -> embedder, CompositeEmbedder's
+    embedders_i -> embedders.i, _TransformerEncoder_0 -> encoder.layers
+    (flax attention q/k/v [E, H, hd] packed into in_proj, LayerNorm_k ->
+    layers.{k//2}.norm{k%2+1}, Dense_k -> layers.{k//2}.linear{k%2+1});
+    a bare Dense or Conv embedding's leaves go directly under
+    ``prefix``."""
+    out, attn = {}, {}
+    for path, w in _flatten(tree):
+        leaf, scopes, names, i = path[-1], path[:-1], [], 0
+        while i < len(scopes):
+            kind, _, idx = scopes[i].rpartition("_")
+            if scopes[i] == "_TransformerEncoder_0":
+                sub, _, k = scopes[i + 1].rpartition("_")
+                k = int(k)
+                if sub == "MultiHeadDotProductAttention":
+                    layer = ".".join(names + [f"encoder.layers.{k}"])
+                    attn.setdefault(layer, {})[(scopes[i + 2], leaf)] = w
+                    break
+                kind = "norm" if sub == "LayerNorm" else "linear"
+                names.append(f"encoder.layers.{k // 2}.{kind}{k % 2 + 1}")
+                i += 1
+            elif kind == "GaussianFourierProjection":
+                names.append("gaussian_proj")
+            elif kind == "Dense":
+                names.append(f"net.{2 * int(idx)}")
+            elif kind in ("TwoPointCorrelationEmbedder",
+                          "PoreSizeDistEmbedder"):
+                names.append("embedder")
+            elif kind == "embedders":
+                names.append(f"embedders.{idx}")
+            else:
+                raise KeyError(f"no port name for JAX embedder scope "
+                               f"{'/'.join(path)}")
+            i += 1
+        else:
+            out[".".join([prefix] + names + [_LEAF.get(leaf, leaf)])] = \
+                _layout(w, leaf)
+    for layer, leaves in attn.items():
+        E = leaves[("query", "kernel")].shape[0]
+        base = f"{prefix}.{layer}.self_attn"
+        out[f"{base}.in_proj_weight"] = np.concatenate(
+            [leaves[(n, "kernel")].reshape(E, E).T
+             for n in ("query", "key", "value")])
+        out[f"{base}.in_proj_bias"] = np.concatenate(
+            [leaves[(n, "bias")].reshape(E) for n in ("query", "key",
+                                                       "value")])
+        out[f"{base}.out_proj.weight"] = \
+            leaves[("out", "kernel")].reshape(E, E).T
+        out[f"{base}.out_proj.bias"] = leaves[("out", "bias")]
+    return out
+
+
+def _punetg_state(params: dict, buffers: dict, norms) -> dict:
+    """A PUNetG's JAX leaves (params and buffers, without the collection)
+    -> the port's state dict (numpy)."""
+    resblock = _norm_scopes(norms)
+    out, attn = {}, {}
+    for coll, tree in (("params", params), ("buffers", buffers)):
+        emb = tree.get("conditional_embedding", {})
+        out.update(_embedder_state(emb, "conditional_embedding"))
+        for path, w in _flatten({k: v for k, v in tree.items()
+                                 if k != "conditional_embedding"}):
+            m = _ATTN.match(path[0])
+            if m and path[1] == "MultiHeadAttention_0":
+                attn.setdefault(f"attn_block.{m.group(1)}.mhattn", {})[
+                    path[-1]] = w
+                continue
+            out[_punetg_key(path, resblock)] = _layout(w, path[-1])
+    for prefix, leaves in attn.items():
+        out.update(_attention(leaves, prefix))
+    return out
+
+
+def _punetg_key(path: tuple, resblock: dict) -> str:
     """JAX leaf path inside PUNetG (without the collection) -> torch key."""
     scope, rest, leaf = path[0], "/".join(path[1:-1]), path[-1]
-    if scope in ("convin", "convout", "conditional_embedding") and not rest:
-        return f"{scope}.{_LEAF[leaf]}"
+    name = _LEAF.get(leaf, leaf)
+    if scope in ("convin", "convout") and (not rest or _CONV.match(rest)):
+        return f"{scope}.{name}"       # a conv, or the Fourier stem's W/bias
+    if path in (("time_projection", "W"), ("cond_drop", "null_embedding")):
+        return ".".join(path)
     for pattern, repl in _SCOPES:
         if pattern.match(scope):
             prefix = pattern.sub(repl, scope)
-            if prefix.endswith(".conv") and rest == "Conv_0":
-                return f"{prefix}.{_LEAF[leaf]}"
-            if rest in _RESBLOCK:
-                return f"{prefix}.{_RESBLOCK[rest]}.{_LEAF[leaf]}"
+            conv = _CONV.match(rest)
+            if prefix.endswith(".conv") and conv and conv.group(1) == "0":
+                return f"{prefix}.{name}"
+            if conv:
+                return f"{prefix}.conv{int(conv.group(1)) + 1}.{name}"
+            dense = _TIME_DENSE.match(rest)
+            if dense:
+                return f"{prefix}.timeblock.net.{2 * int(dense.group(1))}." \
+                       f"{name}"
+            if rest in resblock:
+                return f"{prefix}.{resblock[rest]}.{name}"
     raise KeyError(f"no port name for JAX parameter {'/'.join(path)}")
 
 
@@ -145,35 +261,47 @@ def _tensors(state: dict, prefix: str = "") -> dict[str, torch.Tensor]:
             for k, v in state.items()}
 
 
-def from_jax_variables(variables_np: dict) -> dict[str, torch.Tensor]:
+def from_jax_variables(variables_np: dict,
+                       config=None) -> dict[str, torch.Tensor]:
     """State dict of the port's network from JAX-package variables: PUNetG
-    (or KarrasNet, when the variables hold a ``model`` scope), UNet2D (or
-    HFNet, scope ``unet``) or an MLP, told apart by their keys."""
+    or PUNetGCond (scope ``unet``), or the KarrasNet around one (scope
+    ``model``, with ``dlw`` and the ``batch_stats`` of ``bnorm``), UNet2D
+    (or HFNet, scope ``unet``) or an MLP, told apart by their keys.
+    ``config``: the PUNetG's ``PUNetGConfig``, which names its norms
+    (default GroupLN then GroupRMS)."""
     params = variables_np.get("params", {})
-    if "unet" in params:
+    buffers = variables_np.get("buffers", {})
+    if "unet" in params and "conv_in" in params["unet"]:
         return _tensors(_unet2d_state(params["unet"]), "unet.")
     if "conv_in" in params:
         return _tensors(_unet2d_state(params))
     if params and all(k.startswith("Dense_") for k in params):
         return _tensors(_mlp_state(params))
-    buffers = variables_np.get("buffers", {})
-    wrapped = set(params) == {"model"}
-    if wrapped:
-        params = params["model"]
-        buffers = buffers.get("model", {})
+    norms = (("GroupLN", "GroupRMS") if config is None else
+             (config.first_resblock_norm, config.second_resblock_norm))
+    wrapped = "model" in params
     out = {}
-    attn: dict[str, dict] = {}
-    for path, w in _flatten(params):
-        m = _ATTN.match(path[0])
-        if m and path[1] == "MultiHeadAttention_0":
-            attn.setdefault(f"attn_block.{m.group(1)}.mhattn", {})[
-                path[-1]] = w
-            continue
-        out[_punetg_key(path)] = _layout(w, path[-1])
-    for prefix, leaves in attn.items():
-        out.update(_attention(leaves, prefix))
-    for path, w in _flatten(buffers):
-        if path != ("time_projection", "W"):
-            raise KeyError(f"no port name for JAX buffer {'/'.join(path)}")
-        out["time_projection.W"] = w
-    return _tensors(out, "model." if wrapped else "")
+    if wrapped:
+        dlw_params = params.get("dlw", {})
+        for path, w in _flatten(dlw_params):
+            out[f"dlw.linear.{_LEAF[path[-1]]}"] = _layout(w, path[-1])
+        for path, w in _flatten(buffers.get("dlw", {})):
+            out[f"dlw.{path[-1]}"] = w
+        for path, w in _flatten(variables_np.get("batch_stats", {})):
+            out[".".join(path)] = w
+        params, buffers = params["model"], buffers.get("model", {})
+    if "unet" in params:
+        # PUNetGCond: flax keeps its embedding beside ``unet``, the port's
+        # inner PUNetG holds it
+        def inner(tree):
+            return {**tree.get("unet", {}), **{
+                k: v for k, v in tree.items() if k != "unet"}}
+
+        out.update({f"unet.{k}": v for k, v in _punetg_state(
+            inner(params), inner(buffers), norms).items()})
+    else:
+        out.update(_punetg_state(params, buffers, norms))
+    if wrapped:
+        out = {k if k.startswith(("dlw.", "bnorm.")) else f"model.{k}": v
+               for k, v in out.items()}
+    return _tensors(out)

@@ -1,15 +1,17 @@
 from diffsci_tpu_torch.models.ddpm import DDPMModel, DDPMModelConfig
 from diffsci_tpu_torch.models.karras import (
-    EMATracker, KarrasModel, KarrasModelConfig, KarrasNet,
+    EMATracker, IntervalGuidance, KarrasModel, KarrasModelConfig, KarrasNet,
     cosine_restarts_schedule, create_train_state, default_optimizer,
-    make_eval_step, make_train_scan, make_train_step, warmup_cosine_schedule)
+    make_eval_step, make_train_scan, make_train_step,
+    renormalize_mp_weights, warmup_cosine_schedule)
 from diffsci_tpu_torch.models.nets import (HFNet, HFNetCond, HFNetUncond,
                                            MLPCond, MLPUncond, PUNetG,
-                                           PUNetGConfig, UNet2D)
+                                           PUNetGCond, PUNetGConfig, UNet2D)
 
 __all__ = ["DDPMModel", "DDPMModelConfig", "EMATracker", "HFNet",
-           "HFNetCond", "HFNetUncond", "KarrasModel", "KarrasModelConfig",
-           "KarrasNet", "MLPCond", "MLPUncond", "PUNetG", "PUNetGConfig",
-           "UNet2D", "cosine_restarts_schedule", "create_train_state",
-           "default_optimizer", "make_eval_step", "make_train_scan",
-           "make_train_step", "warmup_cosine_schedule"]
+           "HFNetCond", "HFNetUncond", "IntervalGuidance", "KarrasModel",
+           "KarrasModelConfig", "KarrasNet", "MLPCond", "MLPUncond", "PUNetG",
+           "PUNetGCond", "PUNetGConfig", "UNet2D", "cosine_restarts_schedule",
+           "create_train_state", "default_optimizer", "make_eval_step",
+           "make_train_scan", "make_train_step", "renormalize_mp_weights",
+           "warmup_cosine_schedule"]

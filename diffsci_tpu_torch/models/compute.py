@@ -6,7 +6,10 @@ weights (``self.net``) and may run it in a lower ``compute_dtype``
 network: the cast inside the autograd graph when gradients are on, so
 they land on the f32 masters as autodiff through the JAX package's cast
 does, and a cast copy for calls without gradients (sampling), which the
-sampler's CUDA graphs read.
+sampler's CUDA graphs read. The cast copy's magnitude-preserving layers
+hold their normalized weights (``hoist_from``, ``models/nets/normed.py``),
+taken from the masters whenever they change, so a sampling loop does not
+normalize them on every network call.
 """
 
 from __future__ import annotations
@@ -62,6 +65,9 @@ class ComputeDtypeMixin:
                     self.compute_dtype).requires_grad_(False)
             else:
                 torch._foreach_copy_(cast, masters)
+            for c, m in zip(self._cast_net.modules(), self.net.modules()):
+                if hasattr(c, "hoist_from"):
+                    c.hoist_from(m)
         self._cast_versions = versions
         return self._cast_net
 

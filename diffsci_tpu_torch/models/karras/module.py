@@ -1,26 +1,29 @@
 """KarrasModel: the Karras denoiser runtime for training and sampling.
 
 Port of ``diffsci_tpu/models/karras/module.py`` without latent models,
-EDM batch norm, the dynamic loss weight, ``IntervalGuidance``,
 interpolation, filtering and parallel-in-time sampling:
 ``KarrasModelConfig`` (``from_edm``, ``from_vp``, ``from_ve``,
-``conditional_sr3``, ``loss_metric``, the tag and ``extra_args`` of
-``export_description``), ``KarrasNet``, and ``KarrasModel``'s ``init``,
-``decode``, ``get_denoiser`` (with ``compute_dtype``, CFG and the
-``fused_precondition`` policy), ``loss_fn``, ``get_score``, ``sample``
-(any integrator, stochastic, ``langevin_scale``), ``sample_restart``,
-``propagate_white_noise``, ``propagate_toward_sample``,
-``propagate_partial_toward_sample``, ``propagate_toward_noise``,
-``inpaint`` and ``repaint``.
+``conditional_sr3``, ``loss_metric``, ``has_edm_batch_norm``,
+``dynamic_loss_weight``, ``spatial_shape``/``focus_radius``, the tag and
+``extra_args`` of ``export_description``), ``IntervalGuidance``,
+``DynamicLossWeight``, ``KarrasNet`` (the network, the dynamic loss
+weight and the EDM batch norm), and ``KarrasModel``'s ``init``,
+``encode``/``decode``, ``get_denoiser`` (with ``compute_dtype``, CFG, the
+guidance interval and the ``fused_precondition`` policy), ``loss_fn``,
+``get_score``, ``sample`` (any integrator, stochastic,
+``langevin_scale``), ``sample_restart``, ``propagate_white_noise``,
+``propagate_toward_sample``, ``propagate_partial_toward_sample``,
+``propagate_toward_noise``, ``inpaint`` and ``repaint``.
 
 The network's weights live in the module, so the methods take no
 ``variables`` unless the caller swaps other weights in (``variables=``, a
 state dict, e.g. EMA shadows). Randomness is an explicit
 ``torch.Generator``: a sampler draws x_T, then every later draw of its
-loop in one tensor (``ops.schedulers.draw_noise``), before the loop runs.
-Sample shapes and samples are channels-last ([B, *spatial, C]) as in the
-JAX package; ``KarrasNet`` moves the channel axis at the network boundary
-(a reshape for C = 1).
+loop in one tensor (``ops.schedulers.draw_noise``), before the loop runs;
+the loss draws ε, then the condition-drop mask. Sample shapes and samples
+are channels-last ([B, *spatial, C]) as in the JAX package; ``KarrasNet``
+moves the channel axis of x at the network boundary (a reshape for
+C = 1), and conditions reach the network as given.
 
 On a CUDA device ``sample`` and ``sample_restart`` replay one CUDA graph
 of the whole sampling loop per key, as the JAX package runs one jitted
@@ -29,50 +32,99 @@ program per key (``_jitted_sampler``,
 into the graph as Python floats (σ, the score multiplier, dt, the churn's
 γ), right for a graph keyed on nsteps and the integrator; the draws and
 ``langevin_scale`` are static inputs filled before each replay, so a γ
-sweep replays one graph. ``inpaint``, ``repaint``,
-``propagate_toward_noise`` and ``propagate_partial_toward_sample`` run
-eagerly on the card, as the JAX package does not jit them whole.
+sweep replays one graph. An ``IntervalGuidance`` is part of the key like
+a float guidance; its band test is made per row on the device from σ.
+The EDM batch norm's running statistics are buffers that a graph reads
+in place, so a sampler sees the statistics of the latest train step.
+``inpaint``, ``repaint``, ``propagate_toward_noise`` and
+``propagate_partial_toward_sample`` run eagerly on the card, as the JAX
+package does not jit them whole.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn as nn
 
 from diffsci_tpu_torch.kernels import fused_precondition
 from diffsci_tpu_torch.models.compute import ComputeDtypeMixin
-from diffsci_tpu_torch.models.nets.layers import init_parameters
+from diffsci_tpu_torch.models.nets.layers import ConditionDrop, init_parameters
 from diffsci_tpu_torch.ops import (losses, noise_samplers, preconditioners,
                                    schedulers)
+from diffsci_tpu_torch.ops.batchnorm import DimensionAgnosticBatchNorm
 from diffsci_tpu_torch.ops.schedulers import draw_noise
 from diffsci_tpu_torch.utils import (bcast_right, dict_expand_dims, dict_map,
                                      get_minibatch_sizes, graphs,
                                      resolve_device)
 
 
+@dataclasses.dataclass(frozen=True)
+class IntervalGuidance:
+    """CFG restricted to a noise-level band (Kynkäänniemi et al.,
+    arXiv:2404.07724): pass anywhere a ``guidance`` float goes and the
+    scale applies for σ in [sigma_lo, sigma_hi], 1 elsewhere. Hashable, so
+    a sampler's graph key holds it like a float."""
+    scale: float
+    sigma_lo: float
+    sigma_hi: float
+
+
+def _guidance_key(guidance):
+    return guidance if isinstance(guidance, IntervalGuidance) \
+        else float(guidance)
+
+
+def _extra(kwargs: dict) -> dict:
+    """The keyword arguments a preset records in ``extra_args``."""
+    return {k: v for k, v in kwargs.items()
+            if k in ("loss_metric", "spatial_shape", "focus_radius")}
+
+
 class KarrasModelConfig:
     """The math configuration: preconditioner, training noise sampler,
-    sampling scheduler and the training loss metric ("huber", "mse" or
-    ``{"huber": {"delta": ...}}``), with the preset's ``tag`` and
-    ``extra_args``."""
+    sampling scheduler, the training loss metric ("huber", "mse",
+    "weighted_gaussian", "smoothed_indicator" or a one-key dict such as
+    ``{"huber": {"delta": ...}}``; ``spatial_shape`` and ``focus_radius``
+    for "weighted_gaussian"), the EDM batch norm and the dynamic loss
+    weight's width, with the preset's ``tag`` and ``extra_args``."""
 
     def __init__(self, preconditioner: preconditioners.KarrasPreconditioner,
                  noisesampler: noise_samplers.NoiseSampler,
                  noisescheduler: schedulers.Scheduler,
                  loss_metric="huber", tag: str = "custom",
-                 extra_args: dict | None = None):
+                 has_edm_batch_norm: bool = False,
+                 dynamic_loss_weight: int | None = None,
+                 extra_args: dict | None = None,
+                 spatial_shape: tuple | None = None,
+                 focus_radius: float | None = None):
         self.preconditioner = preconditioner
         self.noisesampler = noisesampler
         self.noisescheduler = noisescheduler
         self.loss_metric = loss_metric
         self.tag = tag
+        self.has_edm_batch_norm = has_edm_batch_norm
+        self.dynamic_loss_weight = dynamic_loss_weight
+        self.spatial_shape = spatial_shape
+        self.focus_radius = focus_radius
         self.extra_args = extra_args if extra_args is not None else {}
+
+    @property
+    def has_dynamic_loss_weight(self) -> bool:
+        return self.dynamic_loss_weight is not None
+
+    def update_loss_metric(self, loss_config) -> None:
+        """Set the loss metric (a model built after this call uses it)."""
+        self.loss_metric = loss_config
+        if "loss_metric" in self.extra_args:
+            self.extra_args["loss_metric"] = loss_config
 
     @classmethod
     def from_edm(cls, sigma_data: float = 0.5, prior_mean: float = -1.2,
                  prior_std: float = 1.2, **kwargs):
         extra = dict(sigma_data=sigma_data, prior_mean=prior_mean,
-                     prior_std=prior_std, **kwargs)
+                     prior_std=prior_std, **_extra(kwargs))
         return cls(
             preconditioner=preconditioners.EDMPreconditioner(sigma_data),
             noisesampler=noise_samplers.EDMNoiseSampler(
@@ -89,7 +141,7 @@ class KarrasModelConfig:
                                        beta_min=beta_min)
         extra = dict(beta_data=beta_data, beta_min=beta_min,
                      epsilon_min=epsilon_min, epsilon_sampler=epsilon_sampler,
-                     M=M, **kwargs)
+                     M=M, **_extra(kwargs))
         return cls(
             preconditioner=preconditioners.VPPreconditioner(
                 scheduling=sched.scheduling, M=M),
@@ -100,7 +152,8 @@ class KarrasModelConfig:
     @classmethod
     def from_ve(cls, sigma_min: float = 0.02, sigma_max: float = 100.0,
                 **kwargs):
-        extra = dict(sigma_min=sigma_min, sigma_max=sigma_max, **kwargs)
+        extra = dict(sigma_min=sigma_min, sigma_max=sigma_max,
+                     **_extra(kwargs))
         return cls(
             preconditioner=preconditioners.VEPreconditioner(),
             noisesampler=noise_samplers.VENoiseSampler(sigma_min, sigma_max),
@@ -112,7 +165,7 @@ class KarrasModelConfig:
                         sigma_max: float = 100.0, sigma_data: float = 0.5,
                         **kwargs):
         extra = dict(sigma_min=sigma_min, sigma_max=sigma_max,
-                     sigma_data=sigma_data, **kwargs)
+                     sigma_data=sigma_data, **_extra(kwargs))
         return cls(
             preconditioner=preconditioners.SR3Preconditioner(sigma_data),
             noisesampler=noise_samplers.EDMNoiseSampler(sigma_data),
@@ -136,16 +189,52 @@ class KarrasModelConfig:
         return factory(**description["extra_args"])
 
 
+class DynamicLossWeight(nn.Module):
+    """EDM2's learned log-weight of the loss by noise level: a linear
+    layer over cos(c_noise · W + b), W normal and b uniform Fourier
+    buffers (``fourier_weights``, ``fourier_bias``) scaled by ``scale``."""
+
+    def __init__(self, nhidden: int, scale: float = 1.0):
+        super().__init__()
+        self.scale = scale
+        self.register_buffer("fourier_weights", torch.empty(nhidden))
+        self.register_buffer("fourier_bias", torch.empty(nhidden))
+        self.linear = nn.Linear(nhidden, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.fourier_weights.copy_(torch.randn(
+            self.fourier_weights.shape, generator=generator) * self.scale)
+        self.fourier_bias.copy_(torch.rand(
+            self.fourier_bias.shape, generator=generator) * self.scale)
+
+    def forward(self, cnoise):
+        h = torch.cos(cnoise[:, None] * self.fourier_weights
+                      + self.fourier_bias)
+        return self.linear(h)[:, 0]
+
+
 class KarrasNet(nn.Module):
     """Wraps the score network (state-dict prefix ``model.``) and moves
-    the channel axis: channels-last in and out, NC* inside."""
+    the channel axis of x: channels-last in and out, NC* inside. Holds the
+    ``DynamicLossWeight`` (``dlw``) and the EDM batch norm (``bnorm``)
+    when the configuration has them, so one module holds every trained
+    tensor."""
 
-    def __init__(self, model: nn.Module):
+    def __init__(self, model: nn.Module,
+                 dynamic_loss_weight: int | None = None,
+                 edm_batch_norm_sigma: float | None = None):
         super().__init__()
         self.model = model
+        if dynamic_loss_weight is not None:
+            self.dlw = DynamicLossWeight(dynamic_loss_weight)
+        if edm_batch_norm_sigma is not None:
+            self.bnorm = DimensionAgnosticBatchNorm(
+                sigma=edm_batch_norm_sigma)
 
-    def forward(self, x, cnoise, y=None):
-        out = self.model(x.movedim(-1, 1), cnoise, y)
+    def forward(self, x, cnoise, y=None, cond_keep=None):
+        x = x.movedim(-1, 1)
+        out = self.model(x, cnoise, y) if cond_keep is None else \
+            self.model(x, cnoise, y, cond_keep=cond_keep)
         return out.movedim(1, -1).contiguous()
 
 
@@ -168,21 +257,34 @@ class KarrasModel(ComputeDtypeMixin):
                  conditional: bool = False,
                  compute_dtype: torch.dtype | None = None,
                  fused_precondition: bool | str = "sample",
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 norm: float = 1.0):
         """``compute_dtype`` (e.g. ``torch.bfloat16``): the network runs
         with its parameters and input cast to this dtype, while the
-        preconditioning, the combine and the sampler state stay float32.
+        preconditioning, the combine, the sampler state, the dynamic loss
+        weight and the batch norm stay float32.
 
         ``fused_precondition``: route the combine D = c_skip·x + c_out·F
         through kernel K1 — "sample" (default) when ``train`` is False,
-        True always, False never."""
+        True always, False never.
+
+        ``norm``: data are divided by it after the batch norm (``encode``)
+        and multiplied back before it (``decode``)."""
         self.device = resolve_device(device)
         self.config = config
         self.conditional = conditional
         self.compute_dtype = compute_dtype
         self.fused_precondition = fused_precondition
-        self.net = KarrasNet(model).to(self.device).eval()
-        self._loss_metric = losses.make_loss_metric(config.loss_metric)
+        self.norm = norm
+        self.net = KarrasNet(
+            model, config.dynamic_loss_weight,
+            config.extra_args.get("sigma_data", 0.5)
+            if config.has_edm_batch_norm else None).to(self.device).eval()
+        self._loss_metric = losses.make_loss_metric(
+            config.loss_metric, config.spatial_shape, config.focus_radius)
+        drops = [m.rate for m in self.net.model.modules()
+                 if isinstance(m, ConditionDrop) and m.rate > 0]
+        self.cond_drop_rate = drops[0] if drops else None
         self._reset_cast()
 
     def to(self, device) -> "KarrasModel":
@@ -196,18 +298,65 @@ class KarrasModel(ComputeDtypeMixin):
         init_parameters(self.net, seed)
         return self.net.state_dict()
 
+    def encode(self, x, y=None, train: bool = False):
+        """Data -> diffusion space: the EDM batch norm (by ``x``'s own
+        statistics when ``train``, else by the running ones), then / norm.
+        Returns (x, y, updates): ``updates`` holds the batch norm's running
+        statistics after this batch, by state-dict name, when ``train``
+        (the train step writes them), else nothing."""
+        updates = {}
+        if self.config.has_edm_batch_norm:
+            bnorm = self.net.bnorm
+            if train:
+                mean, var = bnorm.batch_statistics(x)
+                updates = {f"bnorm.{k}": v for k, v in
+                           bnorm.momentum_update(mean, var).items()}
+                x = bnorm(x, use_running_stats=False)
+            else:
+                x = bnorm(x)
+        if self.norm != 1.0:
+            x = x / self.norm
+        return x, y, updates
+
     def decode(self, x):
-        """Identity: a pixel-space model without EDM batch norm."""
+        """Diffusion space -> data: · norm, then the inverse of the EDM
+        batch norm by its running statistics (the identity for a model
+        without either)."""
+        if self.norm != 1.0:
+            x = x * self.norm
+        if self.config.has_edm_batch_norm:
+            x = self.net.bnorm.unnormalize(x)
         return x
+
+    def draw_cond_keep(self, batch: int, generator=None, out=None):
+        """The condition-drop mask [B] (bool, keep with probability
+        1 - rate) from ``generator``, into ``out`` when given; None when
+        the network drops no condition."""
+        if self.cond_drop_rate is None:
+            return None
+        u = torch.rand(batch, generator=generator, device=self.device)
+        keep = u < 1.0 - self.cond_drop_rate
+        if out is None:
+            return keep
+        out.copy_(keep)
+        return out
 
     # ------------------------------------------------------------------
     def get_denoiser(self, x, sigma, y=None, guidance: float = 1.0,
-                     train: bool = False, variables=None):
+                     train: bool = False, variables=None, cond_keep=None):
         """D(x; sigma) = c_skip x + c_out F(c_in x, c_noise, y), with
-        classifier-free guidance when guidance != 1. x is channels-last,
-        sigma [B]. ``train`` runs the network in training mode (dropout)
-        and takes the plain combine under the default
+        classifier-free guidance when guidance != 1: base =
+        (1 - g)·F(·, None) + g·F(·, y), both network calls made and the
+        combine (K1) run once on the guided base. An ``IntervalGuidance``
+        sets g per row: its scale where σ lies in its band, 1 elsewhere.
+        x is channels-last, sigma [B]. ``train`` runs the network in
+        training mode (dropout, the condition drop by ``cond_keep``) and
+        takes the plain combine under the default
         ``fused_precondition="sample"``. Returns (denoiser, c_noise)."""
+        interval = None
+        if isinstance(guidance, IntervalGuidance):
+            interval = (guidance.sigma_lo, guidance.sigma_hi)
+            guidance = guidance.scale
         pre = self.config.preconditioner
         c_skip_vec = pre.skip_scaling(sigma)
         c_out_vec = pre.output_scaling(sigma)
@@ -225,15 +374,22 @@ class KarrasModel(ComputeDtypeMixin):
         else:
             cnoise_in = cnoise
 
-        def net_fwd(yy):
-            out = net(scaled, cnoise_in, yy)
+        def net_fwd(yy, keep=None):
+            out = net(scaled, cnoise_in, yy, keep)
             return out.float() if cd is not None else out
 
         if self.conditional and guidance != 0.0:
-            base = net_fwd(y)
+            base = net_fwd(y, cond_keep)
             if guidance != 1.0:
                 uncond = net_fwd(None)
-                base = (1.0 - guidance) * uncond + guidance * base
+                if interval is None:
+                    base = (1.0 - guidance) * uncond + guidance * base
+                else:
+                    lo, hi = interval
+                    g = torch.where((sigma >= lo) & (sigma <= hi),
+                                    guidance, 1.0).to(base.dtype)
+                    g = bcast_right(g, base)
+                    base = (1.0 - g) * uncond + g * base
         else:
             base = net_fwd(None)
         use_fused = (self.fused_precondition is True
@@ -246,35 +402,67 @@ class KarrasModel(ComputeDtypeMixin):
 
     # ------------------------------------------------------------------
     def loss_fn(self, x, sigma, y=None, mask=None, train: bool = True,
-                eps=None, generator=None, variables=None):
+                eps=None, generator=None, variables=None, cond_keep=None,
+                return_updates: bool = False):
         """The Karras training loss of the configuration (EDM, VP, VE,
-        SR3: its preconditioner and its noise sampler's λ): mean over
-        elements of
-        lambda(sigma) · metric(D(x + sigma·eps; sigma), x), masked elements
-        (mask == 1) weighted 0. x is channels-last, sigma [B]. ``eps``
-        replays a fixed unit-noise draw in place of one from
-        ``generator`` (the cross-framework tests feed the same noise to
-        both packages). Dropout, when the network has any, draws from
-        torch's default generator of the device. Returns the scalar loss
-        (the JAX package also returns batch-norm updates, which the port's
-        networks do not have)."""
+        SR3: its preconditioner and its noise sampler's λ): with x encoded
+        (``encode``: the EDM batch norm by the batch's statistics when
+        ``train``), the mean over elements of
+        λ(σ)/e^u · metric(D(x + σ·ε; σ), x) + u, masked elements
+        (mask == 1) weighted 0, where u is the dynamic loss weight's
+        log-weight of c_noise (0 without one); a metric that reduces
+        itself gives mean(λ/e^u)·metric + mean(u). x is channels-last,
+        sigma [B]. ``eps`` replays a fixed unit-noise draw in place of one
+        from ``generator``, and ``cond_keep`` ([B] bool) the condition
+        drop's mask, else drawn from ``generator`` after ε in training
+        (the cross-framework tests feed the same draws to both packages).
+        Dropout, when the network has any, draws from torch's default
+        generator of the device. Returns the scalar loss, and with
+        ``return_updates`` (loss, updates): the batch norm's running
+        statistics after this batch, by state-dict name (the JAX
+        package's mutable collection)."""
+        x, y, updates = self.encode(x, y, train=train)
         sigma_b = bcast_right(sigma, x)
         if eps is None:
             eps = torch.randn(x.shape, generator=generator, device=x.device,
                               dtype=x.dtype)
-        denoiser, _ = self.get_denoiser(x + sigma_b * eps, sigma, y,
-                                        train=train, variables=variables)
+        if cond_keep is None and train and self.conditional and y is not None:
+            cond_keep = self.draw_cond_keep(x.shape[0], generator)
+        denoiser, cnoise = self.get_denoiser(
+            x + sigma_b * eps, sigma, y, train=train, variables=variables,
+            cond_keep=cond_keep)
         weight = self.config.noisesampler.loss_weighting(sigma_b)
-        return self._apply_mask_weight(self._loss_metric(denoiser, x),
-                                       weight, mask)
+        bias = torch.zeros_like(weight)
+        if self.config.has_dynamic_loss_weight:
+            modifier = bcast_right(self._loss_weight_modifier(
+                cnoise, variables), x)
+            weight = weight / torch.exp(modifier)
+            bias = bias + modifier
+        raw = self._loss_metric(denoiser, x, mask)
+        if self._loss_metric.reduces_internally or raw.ndim == 0:
+            loss = weight.mean() * raw + bias.mean()
+        else:
+            loss = self._apply_mask_weight(raw, weight, bias, mask)
+        return (loss, updates) if return_updates else loss
+
+    def _loss_weight_modifier(self, cnoise, variables=None):
+        """The dynamic loss weight's log-weight of c_noise, in float32 on
+        the master weights (or on ``variables``' ``dlw.*`` tensors)."""
+        dlw = self.net.dlw
+        if variables is None:
+            return dlw(cnoise)
+        tensors = dict(dlw.named_parameters())
+        tensors.update({k[4:]: v for k, v in variables.items()
+                        if k.startswith("dlw.")})
+        return torch.func.functional_call(dlw, tensors, (cnoise,))
 
     @staticmethod
-    def _apply_mask_weight(loss, weight, mask):
-        """mean(weight · loss) with masked elements zeroed (the JAX
-        package's form without its dynamic-loss-weight bias)."""
+    def _apply_mask_weight(loss, weight, bias, mask):
+        """mean(weight · loss + bias) with masked elements of loss
+        zeroed."""
         if mask is not None:
             loss = loss * (1.0 - mask.expand_as(loss))
-        return (weight * loss).mean()
+        return (weight * loss + bias).mean()
 
     def get_score(self, x, sigma, y=None, guidance: float = 1.0):
         denoiser, _ = self.get_denoiser(x, sigma, y, guidance)
@@ -313,9 +501,9 @@ class KarrasModel(ComputeDtypeMixin):
                 self._sampler_inputs(nsamples, shape, nsteps, integrator,
                                      stochastic, langevin_scale),
                 generator, langevin_scale)
-            return self._propagate_white_noise(
+            return self.decode(self._propagate_white_noise(
                 x, y, guidance, nsteps, record_history, integrator,
-                stochastic, gate_scale=gate, noise_seq=noise)
+                stochastic, gate_scale=gate, noise_seq=noise))
         graph = self.compile_sampler(nsamples, shape, y, guidance, nsteps,
                                      record_history, integrator, stochastic,
                                      langevin_scale)
@@ -369,7 +557,7 @@ class KarrasModel(ComputeDtypeMixin):
         if self.device.type != "cuda":
             return None
         cache = self._graph_cache()
-        key = (nsamples, tuple(shape), float(guidance), nsteps,
+        key = (nsamples, tuple(shape), _guidance_key(guidance), nsteps,
                record_history, graphs.condition_key(y), integrator,
                stochastic, langevin_scale is not None)
         graph = cache.graphs.get(key)
@@ -382,9 +570,9 @@ class KarrasModel(ComputeDtypeMixin):
         graphs.fill(ys, y)
 
         def loop():
-            return self._propagate_white_noise(
+            return self.decode(self._propagate_white_noise(
                 x, ys, guidance, nsteps, record_history, integrator,
-                stochastic, gate_scale=gate, noise_seq=noise)
+                stochastic, gate_scale=gate, noise_seq=noise))
 
         cache.warmup(loop)
         graph = cache.capture(key, loop)
@@ -419,7 +607,7 @@ class KarrasModel(ComputeDtypeMixin):
             return loop(x, noises, y)
         cache = self._graph_cache()
         key = ("restart", nsamples, tuple(shape), nsteps, restarts,
-               float(guidance), graphs.condition_key(y))
+               _guidance_key(guidance), graphs.condition_key(y))
         graph = cache.graphs.get(key)
         if graph is None:
             ys = graphs.static_like(y, self.device)
@@ -449,9 +637,9 @@ class KarrasModel(ComputeDtypeMixin):
                                integrator, stochastic, gate_scale=None,
                                noise_seq=None, generator=None):
         x = x * self.config.noisescheduler.maximum_scale
-        return self.decode(self.propagate_toward_sample(
+        return self.propagate_toward_sample(
             x, y, guidance, nsteps, record_history, integrator, stochastic,
-            gate_scale=gate_scale, noise_seq=noise_seq, generator=generator))
+            gate_scale=gate_scale, noise_seq=noise_seq, generator=generator)
 
     @torch.inference_mode()
     def propagate_white_noise(self, x, y=None, guidance: float = 1.0,
@@ -460,7 +648,9 @@ class KarrasModel(ComputeDtypeMixin):
                               stochastic: bool = False, noise_seq=None,
                               generator=None):
         """x is unit white noise (channels-last); scaled to the scheduler's
-        maximum scale and integrated to a sample. ``noise_seq``
+        maximum scale and integrated to a sample in the diffusion space
+        (not decoded, as in the JAX package: ``decode`` maps it back
+        through the batch norm). ``noise_seq``
         ([n, *x.shape], n the noisy steps): the stochastic loop's noise,
         else drawn from ``generator`` before the loop."""
         return self._propagate_white_noise(

@@ -1,7 +1,8 @@
 """Training: train state, AdamW with global-norm clipping and its
-learning-rate schedules, the train step (σ draw, loss, backward, NaN
-guard, clip, AdamW, EMA), K steps a call (``make_train_scan``) and the
-eval step.
+learning-rate schedules, the train step (σ, ε and condition-drop draws,
+loss, backward, NaN guard, clip, AdamW, the magnitude-preserving
+re-projection, the batch norm's running statistics, EMA), K steps a call
+(``make_train_scan``) and the eval step.
 
 Port of ``diffsci_tpu/models/karras/train.py:35-283``. The JAX package
 builds pure jitted functions over an immutable ``TrainState``; here the
@@ -15,8 +16,10 @@ On a CUDA device the step is a CUDA graph per (x's shape and dtype, y's
 and mask's shapes, optimizer, loss), the counterpart of the JAX package's
 one jitted step: the first call of a key takes the step eagerly on the
 capture stream (the warm-up, which also makes AdamW's state) and
-captures it; later calls draw σ and ε into the graph's static inputs in
-the eager order, copy the batch in, fill the learning rate and replay.
+captures it; later calls draw σ, ε and the condition-drop mask into the
+graph's static inputs in the eager order, copy the batch in, fill the
+learning rate and replay. The magnitude-preserving re-projection and the
+batch norm's buffer writes are part of the captured step.
 The EMA update is a graph of its own, replayed on the steps where the
 shadows move. The graphs belong to the train state (``state.graphs``),
 whose tensors they update, so every step function over one state, the
@@ -24,9 +27,8 @@ one ``make_train_scan`` builds included, shares them and their memory
 pool, and they go with the state. ``make_train_step(..., _raw=True)``
 returns the eager step, as in the JAX package.
 
-Not ported yet: ``freeze_*``, ``renormalize_mp_weights`` (no
-magnitude-preserving weights in the ported networks), the schedule-free
-optimizer and ``accumulate_gradients``.
+Not ported yet: ``freeze_*``, the schedule-free optimizer and
+``accumulate_gradients``.
 """
 
 from __future__ import annotations
@@ -194,6 +196,17 @@ def nan_to_zero_grads(grads: list) -> None:
         torch.nan_to_num_(g, nan=0.0, posinf=0.0, neginf=0.0)
 
 
+@torch.no_grad()
+def renormalize_mp_weights(module: torch.nn.Module, eps: float = 1e-4) -> None:
+    """Re-project every magnitude-preserving weight of ``module`` onto the
+    unit sphere, in place (``diffsci_tpu/models/karras/train.py:86-110``):
+    dense and conv weights per output unit, attention projections
+    [H, C, dh] over the model axis (q, k, v) or over (heads, dhead) (o)."""
+    for m in module.modules():
+        if hasattr(m, "renormalize_"):
+            m.renormalize_(eps)
+
+
 def global_norm(tensors: list) -> torch.Tensor:
     """sqrt of the sum of squares of every entry (optax.global_norm)."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
@@ -206,9 +219,12 @@ def create_train_state(model, x_shape, seed: int | None = 0,
     current weights, e.g. a loaded state dict), the optimizer and the EMA.
     ``x_shape`` is the channels-last batch shape the state will train on;
     it is checked against the network. Returns (state, tx)."""
-    net_cfg = model.net.model.config
-    if len(x_shape) != net_cfg.dimension + 2 or \
-            x_shape[-1] != net_cfg.input_channels:
+    net = model.net.model
+    net_cfg = net.config
+    # PUNetGCond's input_channels count its concatenated conditions too
+    channels_ok = bool(getattr(net, "channel_conditional_items", ())) or \
+        x_shape[-1] == net_cfg.input_channels
+    if len(x_shape) != net_cfg.dimension + 2 or not channels_ok:
         raise ValueError(f"x_shape {tuple(x_shape)} is not [B, *"
                          f"{net_cfg.dimension}D spatial, "
                          f"{net_cfg.input_channels}]")
@@ -221,11 +237,13 @@ def create_train_state(model, x_shape, seed: int | None = 0,
     return state, tx
 
 
-def _draw(model, x, generator, sigma, eps, out):
-    """σ, then ε, in the eager step's order, each drawn from ``generator``
-    unless replayed (``sigma=``, ``eps=``), into the tensors ``out`` (σ
-    [B], ε of x's shape). Returns ``out``."""
-    sigma_out, eps_out = out
+def _draw(model, x, generator, sigma, eps, keep, out):
+    """σ, then ε, then the condition-drop mask (when the network drops
+    conditions), in the eager step's order, each drawn from ``generator``
+    unless replayed (``sigma=``, ``eps=``, ``keep=``), into the tensors
+    ``out`` (σ [B], ε of x's shape, the mask [B] bool or None). Returns
+    ``out``."""
+    sigma_out, eps_out, keep_out = out
     if sigma is None:
         model.config.noisesampler.sample((x.shape[0],), generator,
                                          out=sigma_out)
@@ -235,41 +253,59 @@ def _draw(model, x, generator, sigma, eps, out):
         torch.randn(x.shape, generator=generator, out=eps_out)
     else:
         eps_out.copy_(eps)
+    if keep_out is not None:
+        if keep is None:
+            model.draw_cond_keep(x.shape[0], generator, out=keep_out)
+        else:
+            keep_out.copy_(keep)
     return out
 
 
+def _keep_like(model, x):
+    """The condition-drop mask's tensor for a batch like x, or None."""
+    if getattr(model, "cond_drop_rate", None) is None:
+        return None
+    return torch.empty(x.shape[0], dtype=torch.bool, device=x.device)
+
+
 def _step_loss(model, loss_fn, remat: bool):
-    """The step's loss ``(x, sigma, y, mask, eps) -> scalar``: ``loss_fn``
-    or the model's loss in training mode; with ``remat``, under
+    """The step's loss ``(x, sigma, y, mask, eps, keep) -> (scalar, the
+    batch norm's updated statistics by buffer name)``: ``loss_fn`` (no
+    updates) or the model's loss in training mode; with ``remat``, under
     ``torch.utils.checkpoint``, which stores only its inputs and runs the
     forward again in the backward pass (the kernels' autograd Functions
     included), as ``jax.checkpoint`` rematerialises. It saves and
     restores the RNG state, so that dropout draws the same masks again;
     torch 2.11 captures that into a CUDA graph."""
-    def loss(x, sigma, y, mask, eps):
+    def loss(x, sigma, y, mask, eps, keep):
         if loss_fn is not None:
-            return loss_fn(x, sigma, y, mask, eps)
-        return model.loss_fn(x, sigma, y, mask, train=True, eps=eps)
+            return loss_fn(x, sigma, y, mask, eps), {}
+        return model.loss_fn(x, sigma, y, mask, train=True, eps=eps,
+                             cond_keep=keep, return_updates=True)
 
     if not remat:
         return loss
 
-    def remat_loss(x, sigma, y, mask, eps):
-        return checkpoint(loss, x, sigma, y, mask, eps, use_reentrant=False)
+    def remat_loss(x, sigma, y, mask, eps, keep):
+        return checkpoint(loss, x, sigma, y, mask, eps, keep,
+                          use_reentrant=False)
 
     return remat_loss
 
 
 def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
                     loss_fn: Callable | None = None, remat: bool = False,
-                    _raw: bool = False):
+                    has_mp_weights: bool = False, _raw: bool = False):
     """The train step ``step(state, x, y=None, mask=None, generator=None,
-    sigma=None, eps=None) -> (state, metrics)``: draw σ (from
+    sigma=None, eps=None, keep=None) -> (state, metrics)``: draw σ (from
     ``generator``, by the configuration's noise sampler: log-normal for
-    EDM, σ(t) of a uniform t for VP, log-uniform for VE) and ε, the
-    configuration's loss, backward through the network, NaN→0
-    guard, global-norm clip, AdamW at the schedule's rate, EMA. ``sigma``
-    and ``eps`` replay fixed draws (the cross-framework tests use them).
+    EDM, σ(t) of a uniform t for VP, log-uniform for VE), ε and, when the
+    network drops conditions, the keep mask [B]; the configuration's loss,
+    backward through the network, NaN→0 guard, global-norm clip, AdamW at
+    the schedule's rate, the magnitude-preserving re-projection
+    (``has_mp_weights``), the batch norm's running statistics, EMA.
+    ``sigma``, ``eps`` and ``keep`` replay fixed draws (the
+    cross-framework tests use them).
     ``metrics`` holds ``train_loss`` and ``grad_norm`` (after the guard,
     before the clip) as device tensors. ``state`` is updated in place and
     returned.
@@ -281,12 +317,15 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
     docstring); ``_raw=True`` returns the eager step."""
     loss_of = _step_loss(model, loss_fn, remat)
 
-    def update(state, x, y, mask, sigma, eps):
-        """Loss, backward, NaN guard, clip and AdamW from fixed draws:
-        device work only, which the graphed step captures. Returns the
-        loss and the gradients' global norm."""
+    buffers = dict(model.net.named_buffers())
+
+    def update(state, x, y, mask, sigma, eps, keep):
+        """Loss, backward, NaN guard, clip, AdamW, the mp re-projection
+        and the batch norm's statistics from fixed draws: device work
+        only, which the graphed step captures. Returns the loss and the
+        gradients' global norm."""
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_of(x, sigma, y, mask, eps)
+        loss, updates = loss_of(x, sigma, y, mask, eps, keep)
         loss.backward()
         grads = []
         for p in state.params.values():
@@ -296,15 +335,21 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         nan_to_zero_grads(grads)
         norm = global_norm(grads)
         tx.step(state.optimizer, grads, norm)
+        if has_mp_weights:
+            renormalize_mp_weights(model.net)
+        with torch.no_grad():
+            for name, value in updates.items():
+                buffers[name].copy_(value)
         return loss.detach(), norm
 
     def raw_step(state: TrainState, x, y=None, mask=None, generator=None,
-                 sigma=None, eps=None):
-        sigma, eps = _draw(model, x, generator, sigma, eps,
-                           (torch.empty(x.shape[0], device=x.device),
-                            torch.empty_like(x)))
+                 sigma=None, eps=None, keep=None):
+        sigma, eps, keep = _draw(
+            model, x, generator, sigma, eps, keep,
+            (torch.empty(x.shape[0], device=x.device), torch.empty_like(x),
+             _keep_like(model, x)))
         tx.set_learning_rate(state.optimizer, state.step)
-        loss, norm = update(state, x, y, mask, sigma, eps)
+        loss, norm = update(state, x, y, mask, sigma, eps, keep)
         if ema is not None and state.ema is not None:
             ema.update(state.ema, state.params)
         state.step += 1
@@ -330,28 +375,28 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         cache.capture("ema", apply).inputs = ema_state
 
     def train_step(state: TrainState, x, y=None, mask=None, generator=None,
-                   sigma=None, eps=None):
+                   sigma=None, eps=None, keep=None):
         if x.device.type != "cuda":
-            return raw_step(state, x, y, mask, generator, sigma, eps)
+            return raw_step(state, x, y, mask, generator, sigma, eps, keep)
         if state.graphs is None:
             state.graphs = graphs.GraphCache(x.device)
         cache = state.graphs
         key = (tuple(x.shape), x.dtype, graphs.condition_key(y),
                graphs.condition_key(mask), state.optimizer, tx, loss_fn,
-               remat)
+               remat, has_mp_weights)
         graph = cache.graphs.get(key)
         if graph is None:
             inputs = (torch.empty_like(x), graphs.static_like(y, x.device),
                       graphs.static_like(mask, x.device),
                       torch.empty(x.shape[0], device=x.device),
-                      torch.empty_like(x))
+                      torch.empty_like(x), _keep_like(model, x))
         else:
             inputs = graph.inputs
-        xs, ys, masks, sigmas, epss = inputs
+        xs, ys, masks, sigmas, epss, keeps = inputs
         xs.copy_(x)
         graphs.fill(ys, y)
         graphs.fill(masks, mask)
-        _draw(model, x, generator, sigma, eps, (sigmas, epss))
+        _draw(model, x, generator, sigma, eps, keep, (sigmas, epss, keeps))
         tx.set_learning_rate(state.optimizer, state.step)
         if graph is None:
             def body():
@@ -374,7 +419,8 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
 
 
 def make_train_scan(model, tx: AdamWClip, ema: EMATracker | None = None,
-                    loss_fn: Callable | None = None, remat: bool = False):
+                    loss_fn: Callable | None = None, remat: bool = False,
+                    has_mp_weights: bool = False):
     """K train steps a call: ``scan_steps(state, xs, ys=None,
     generator=None, sigmas=None, epss=None) -> (state, metrics)`` with xs
     [K, B, ...] (K batches), ys [K, ...], replayed draws sigmas [K, B] and
@@ -385,7 +431,8 @@ def make_train_scan(model, tx: AdamWClip, ema: EMATracker | None = None,
     device each step replays the step's graph, the one any step over the
     same state and loss replays (``state.graphs``), and nothing waits for
     the device between the steps."""
-    step = make_train_step(model, tx, ema=ema, loss_fn=loss_fn, remat=remat)
+    step = make_train_step(model, tx, ema=ema, loss_fn=loss_fn, remat=remat,
+                           has_mp_weights=has_mp_weights)
 
     def scan_steps(state: TrainState, xs, ys=None, generator=None,
                    sigmas=None, epss=None):

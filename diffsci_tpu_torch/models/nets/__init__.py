@@ -1,7 +1,19 @@
 from diffsci_tpu_torch.models.nets.ddpm_unet import UNet2D
 from diffsci_tpu_torch.models.nets.hfnet import HFNet, HFNetCond, HFNetUncond
 from diffsci_tpu_torch.models.nets.mlp import MLPCond, MLPUncond
-from diffsci_tpu_torch.models.nets.punetg import PUNetG, PUNetGConfig
+from diffsci_tpu_torch.models.nets.embedders import (
+    CompositeEmbedder, DateGaussianFourierProjection,
+    GeoGaussianFourierProjection, PorosityEmbedder, PoreSizeDistEmbedder,
+    PoreSizeDistTransformer, PositionalEncoding1d,
+    TwoPointCorrelationEmbedder, TwoPointCorrelationTransformer)
+from diffsci_tpu_torch.models.nets.punetg import (PUNetG, PUNetGCond,
+                                                  PUNetGConfig,
+                                                  calculate_receptive_field)
 
-__all__ = ["HFNet", "HFNetCond", "HFNetUncond", "MLPCond", "MLPUncond",
-           "PUNetG", "PUNetGConfig", "UNet2D"]
+__all__ = ["CompositeEmbedder", "DateGaussianFourierProjection",
+           "GeoGaussianFourierProjection", "HFNet", "HFNetCond",
+           "HFNetUncond", "MLPCond", "MLPUncond", "PUNetG", "PUNetGCond",
+           "PUNetGConfig", "PorosityEmbedder", "PoreSizeDistEmbedder",
+           "PoreSizeDistTransformer", "PositionalEncoding1d",
+           "TwoPointCorrelationEmbedder", "TwoPointCorrelationTransformer",
+           "UNet2D", "calculate_receptive_field"]

@@ -1,4 +1,4 @@
-from diffsci_tpu_torch.ops import losses
+from diffsci_tpu_torch.ops import batchnorm, losses
 from diffsci_tpu_torch.ops.integrators import (DPMSolverPlusPlus2M,
                                                EulerIntegrator,
                                                EulerMaruyamaIntegrator,
@@ -33,5 +33,5 @@ __all__ = ["DPMSolverPlusPlus2M", "EDMNoiseSampler", "EDMPreconditioner",
            "SchedulingFunctions", "UniformNoiseSampler", "VENoiseSampler",
            "VEPreconditioner", "VEScheduler", "VESchedulingFunctions",
            "VPNoiseSampler", "VPPreconditioner", "VPScheduler",
-           "VPSchedulingFunctions", "draw_noise", "losses",
+           "VPSchedulingFunctions", "batchnorm", "draw_noise", "losses",
            "name_to_integrator", "name_to_scheduling_functions"]

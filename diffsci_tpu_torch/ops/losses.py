@@ -1,15 +1,19 @@
-"""Elementwise training losses.
+"""Training losses: elementwise metrics, Gaussian-weighted MSE and the
+smooth threshold-indicator loss.
 
-Port of ``diffsci_tpu/ops/losses.py:29-47, 207-232``: ``mse``, ``huber``
-(torch ``HuberLoss(reduction='none')`` semantics), ``masked_mean`` and
-``make_loss_metric`` for "mse", "huber" and ``{"huber": {"delta": ...}}``.
+Port of ``diffsci_tpu/ops/losses.py:29-249`` without the ensemble (CRPS)
+and multi-space losses: ``mse``, ``huber`` (torch
+``HuberLoss(reduction='none')`` semantics), ``masked_mean``,
+``gaussian_window``, ``GaussianWeightedMSELoss``,
+``MultiThresholdSmoothIndicatorLoss`` and ``make_loss_metric``.
 Channels-last, as in the JAX package. The mask convention is the
 reference's: mask == 1 marks excluded elements.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, Sequence
 
 import torch
 
@@ -34,11 +38,120 @@ def masked_mean(loss, mask=None):
     return (loss * keep).sum() / keep.sum().clamp_min(1.0)
 
 
-def make_loss_metric(loss_config: str | dict[str, Any]):
-    """The elementwise loss ``fn(pred, target)`` of a config: "mse",
-    "huber" or a one-key dict such as ``{"huber": {"delta": 0.5}}``. The
-    JAX package's other metrics (some of which reduce internally, hence
-    its extra return flag) raise NotImplementedError."""
+def gaussian_window(shape: Sequence[int], focus_radius: float,
+                    device=None) -> torch.Tensor:
+    """N-dim Gaussian weight over [-1, 1]^N coordinates, shaped
+    [1, *shape, 1] for channels-last broadcasting."""
+    sigma = focus_radius + 1e-8
+    coords = [torch.linspace(-1.0, 1.0, s, device=device) for s in shape]
+    grids = torch.meshgrid(*coords, indexing="ij")
+    dist2 = sum(g ** 2 for g in grids)
+    w = torch.exp(-dist2 / (2 * sigma ** 2))
+    return w.reshape((1,) + tuple(shape) + (1,))
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianWeightedMSELoss:
+    """Centre-focused squared error, elementwise (no reduction)."""
+    shape: tuple
+    focus_radius: float
+    reduces_internally = False
+
+    def __call__(self, pred, target, mask=None):
+        w = gaussian_window(self.shape, self.focus_radius, pred.device)
+        if pred.ndim == len(self.shape) + 3:  # ensemble [B, E, *sp, C]
+            w = w[:, None]
+        return (pred - target) ** 2 * w
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiThresholdSmoothIndicatorLoss:
+    """Smooth exceedance loss over several thresholds: BCE of smooth
+    indicators, a false-positive penalty and an intensity-weighted squared
+    error. Applies the mask itself and returns a scalar."""
+    thresholds: tuple = (0.5,)
+    temperature: float = 10.0
+    loss_type: str = "sigmoid"
+    focus_weights: tuple | float | None = None
+    background_weights: tuple | float | None = None
+    fp_penalty: float = 1.0
+    se_weight: float = 0.1
+    aggregation: str = "mean"
+    reduces_internally = True
+
+    def __post_init__(self):
+        t = self.thresholds
+        object.__setattr__(self, "thresholds",
+                           (float(t),) if isinstance(t, (int, float))
+                           else tuple(t))
+
+    def _weights(self, w, default):
+        n = len(self.thresholds)
+        if w is None:
+            return (default,) * n
+        if isinstance(w, (int, float)):
+            return (float(w),) * n
+        if len(w) != n:
+            raise ValueError(f"{len(w)} weights for {n} thresholds")
+        return tuple(w)
+
+    def smooth_indicator(self, x, threshold):
+        z = self.temperature * (x - threshold)
+        if self.loss_type == "sigmoid":
+            return torch.sigmoid(z)
+        if self.loss_type == "tanh":
+            return 0.5 * (1.0 + torch.tanh(z))
+        if self.loss_type == "gumbel":
+            return torch.softmax(torch.stack([torch.zeros_like(z), z], -1),
+                                 dim=-1)[..., 1]
+        raise ValueError(f"Unknown loss_type: {self.loss_type}")
+
+    def _threshold_loss(self, pred, target, threshold, fw, bw, mask):
+        eps = 1e-8
+        ti = self.smooth_indicator(target, threshold)
+        pi = self.smooth_indicator(pred, threshold)
+        bce = -(ti * torch.log(pi + eps) + (1 - ti) * torch.log(1 - pi + eps))
+        ind = bce + (1 - ti) * pi * (self.fp_penalty - 1.0)
+        wind = fw * ind * ti + bw * ind * (1 - ti)
+        wse = (pred - target) ** 2 * (1.0 + ti)
+        return masked_mean(wind, mask) + self.se_weight * masked_mean(wse,
+                                                                      mask)
+
+    def __call__(self, pred, target, mask=None):
+        if pred.ndim == target.ndim + 1:  # ensemble: mean over members
+            target = target[:, None]
+            if mask is not None and mask.ndim == target.ndim - 1:
+                mask = mask[:, None]
+        fws = self._weights(self.focus_weights, 2.0)
+        bws = self._weights(self.background_weights, 0.1)
+        stack = torch.stack([
+            self._threshold_loss(pred, target, th, fw, bw, mask)
+            for th, fw, bw in zip(self.thresholds, fws, bws)])
+        if self.aggregation == "mean":
+            return stack.mean()
+        if self.aggregation == "sum":
+            return stack.sum()
+        if self.aggregation == "max":
+            return stack.max()
+        raise ValueError(f"Unknown aggregation: {self.aggregation}")
+
+
+def _elementwise(fn):
+    def metric(pred, target, mask=None):
+        return fn(pred, target)
+    metric.reduces_internally = False
+    return metric
+
+
+def make_loss_metric(loss_config: str | dict[str, Any],
+                     spatial_shape=None, focus_radius=None):
+    """The loss ``fn(pred, target, mask=None)`` of a config: "mse",
+    "huber", "weighted_gaussian" (needs ``spatial_shape`` and
+    ``focus_radius``), "smoothed_indicator", or a one-key dict such as
+    ``{"huber": {"delta": 0.5}}``. ``fn.reduces_internally`` is the JAX
+    package's second return value: True when fn applies the mask itself
+    and returns a scalar, False when it returns the elementwise loss.
+    "crps" (ensembles) raises NotImplementedError."""
     if isinstance(loss_config, dict) and "losses" not in loss_config:
         name = next(iter(loss_config))
         params = loss_config[name] or {}
@@ -47,8 +160,15 @@ def make_loss_metric(loss_config: str | dict[str, Any]):
     else:
         raise ValueError(f"unsupported loss config: {loss_config!r}")
     if name == "mse":
-        return mse
+        return _elementwise(mse)
     if name == "huber":
         delta = params.get("delta", 1.0)
-        return lambda p, t: huber(p, t, delta)
+        return _elementwise(lambda p, t: huber(p, t, delta))
+    if name == "weighted_gaussian":
+        if spatial_shape is None or focus_radius is None:
+            raise AttributeError(
+                "config must have spatial_shape and focus_radius")
+        return GaussianWeightedMSELoss(tuple(spatial_shape), focus_radius)
+    if name == "smoothed_indicator":
+        return MultiThresholdSmoothIndicatorLoss(**params)
     raise NotImplementedError(f"loss metric {name!r} is not ported yet")

@@ -1,8 +1,8 @@
 """Broadcasting and condition helpers.
 
 The port's own copy of ``diffsci_tpu/utils/tensor.py``'s ``bcast_right``,
-``dict_map``, ``dict_expand_dims`` and ``get_minibatch_sizes``, on torch
-tensors.
+``dict_map``, ``dict_expand_dims``, ``get_minibatch_sizes``,
+``space_to_depth`` and ``depth_to_space``, on torch tensors.
 """
 
 from __future__ import annotations
@@ -43,3 +43,46 @@ def get_minibatch_sizes(nsamples: int, maximum_batch_size: int) -> list[int]:
     if remainder:
         sizes.append(remainder)
     return sizes
+
+
+def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:
+    """Fold ``block``-sized spatial tiles into channels on the NC* layout:
+    [B, C, *S] -> [B, C·block^d, *S/block]. The folded channel index is
+    the JAX package's (``diffsci_tpu/utils/tensor.py:100-126``, channels
+    last): the tile offsets, first spatial axis slowest, then the channel
+    fastest, so weights carry across unchanged."""
+    if block == 1:
+        return x
+    B, C = x.shape[:2]
+    spatial = tuple(x.shape[2:])
+    d = len(spatial)
+    shape = [B, C]
+    for s in spatial:
+        if s % block != 0:
+            raise ValueError(f"spatial dim {s} not divisible by {block}")
+        shape += [s // block, block]
+    x = x.reshape(shape)
+    # [B, C, s1, b1, s2, b2, ...] -> [B, b1, b2, ..., C, s1, s2, ...]
+    perm = ([0] + [3 + 2 * i for i in range(d)] + [1]
+            + [2 + 2 * i for i in range(d)])
+    return x.permute(perm).reshape(
+        (B, C * block ** d) + tuple(s // block for s in spatial))
+
+
+def depth_to_space(x: torch.Tensor, block: int) -> torch.Tensor:
+    """Inverse of :func:`space_to_depth`."""
+    if block == 1:
+        return x
+    B, C = x.shape[:2]
+    spatial = tuple(x.shape[2:])
+    d = len(spatial)
+    c_out = C // block ** d
+    if c_out * block ** d != C:
+        raise ValueError(f"channels {C} not divisible by {block}^{d}")
+    x = x.reshape((B,) + (block,) * d + (c_out,) + spatial)
+    # [B, b1, ..., bd, C, s1, ..., sd] -> [B, C, s1, b1, s2, b2, ...]
+    perm = [0, 1 + d]
+    for i in range(d):
+        perm += [2 + d + i, 1 + i]
+    return x.permute(perm).reshape(
+        (B, c_out) + tuple(s * block for s in spatial))

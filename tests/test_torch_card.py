@@ -777,3 +777,109 @@ def test_stochastic_capture_that_draws_raises_on_card():
                        torch.Generator("cuda").manual_seed(0), nsteps=2,
                        stochastic=True)
     assert bool(torch.isfinite(out).all())
+
+
+# ---------------------------------------------------------------------------
+# the conditional and magnitude-preserving paths (chip_smoke.py phases
+# 14 to 16)
+# ---------------------------------------------------------------------------
+def _small_d(dtype=None):
+    """Configuration D's options at phase 2's cut: circular convolutions,
+    a porosity embedding with cond_drop, the EDM batch norm."""
+    import dataclasses
+
+    from diffsci_tpu_torch.models.nets import PorosityEmbedder
+
+    cfg = dataclasses.replace(_small_3d(), convolution_type="circular",
+                              cond_drop=0.1)
+    return KarrasModel(PUNetG(cfg, conditional_embedding=PorosityEmbedder(8)),
+                       KarrasModelConfig.from_edm(has_edm_batch_norm=True),
+                       conditional=True, compute_dtype=dtype)
+
+
+def _small_e(dtype=None):
+    """Configuration E's options at a cut: 2D, mp convolutions, cosine
+    attention, the dynamic loss weight."""
+    cfg = PUNetGConfig(model_channels=16, channel_expansion=[2],
+                       number_resnet_downward_block=1,
+                       number_resnet_upward_block=1,
+                       number_resnet_before_attn_block=1,
+                       number_resnet_after_attn_block=1,
+                       convolution_type="mp", attn_type="cosine")
+    return KarrasModel(PUNetG(cfg),
+                       KarrasModelConfig.from_edm(dynamic_loss_weight=16),
+                       compute_dtype=dtype)
+
+
+def test_guided_sample_graph_matches_eager_on_card(_no_tf32):
+    """The graph of a guided loop (IntervalGuidance, one porosity, the
+    batch norm decoded): within phase 2's tolerance of the eager body;
+    CFG's 2·(2n - 1) network calls and 2n - 1 combines; the porosity is a
+    static input (another value, another sample, no new graph)."""
+    from diffsci_tpu_torch import IntervalGuidance
+
+    model = _small_d()
+    state = model.init(seed=1)
+    state["bnorm.mean"].fill_(0.1)
+    state["bnorm.var"].fill_(2.0)
+    shape = (32, 32, 32, 1)
+    kw = dict(guidance=IntervalGuidance(2.0, 0.3, 5.0), nsteps=3)
+
+    def graphed(p):
+        return model.sample(2, shape, torch.Generator("cuda").manual_seed(7),
+                            y={"porosity": torch.tensor([p])}, **kw)
+
+    first = graphed(0.3)
+    kernels.reset_launches()
+    again = graphed(0.3)
+    assert _counts() == {"fused_axby": 5, "norm_silu": 2 * 5 * 12,
+                         "flash_attention": 10}
+    noise = torch.randn((2,) + shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(7))
+    ref = model.decode(model.propagate_white_noise(
+        noise, y={"porosity": torch.tensor([0.3], device="cuda")}, **kw))
+    assert torch.equal(first, again)
+    torch.testing.assert_close(first, ref, rtol=1e-3, atol=1e-3)
+    ngraphs = len(model._graphs.graphs)
+    assert not torch.equal(graphed(0.45), first)
+    assert len(model._graphs.graphs) == ngraphs
+
+
+def test_batch_norm_and_mp_graphed_steps_match_eager_on_card(_no_tf32):
+    """Graphed train steps against eager ones from the same weights and
+    draws: D's (keep mask replayed) leave the same running statistics
+    after every step; E's (has_mp_weights) the same loss within rtol 1e-3
+    and the mp weights re-projected (phase 3's bounds on the
+    parameters)."""
+    gen = torch.Generator("cuda").manual_seed(5)
+    for make, x_shape, kw in ((_small_d, (2, 32, 32, 32, 1),
+                               dict(y={"porosity": torch.tensor(
+                                   [[0.2], [0.4]], device="cuda")})),
+                              (_small_e, (2, 16, 16, 1), {})):
+        x = torch.randn(x_shape, device="cuda", generator=gen) * 0.5 + 0.3
+        draws = [(torch.exp(torch.randn(2, device="cuda", generator=gen)),
+                  torch.randn(x_shape, device="cuda", generator=gen))
+                 for _ in range(3)]
+        runs = []
+        for raw in (True, False):
+            model = make()
+            state, tx = create_train_state(model, x_shape, seed=3)
+            step = make_train_step(model, tx, has_mp_weights=True, _raw=raw)
+            out = []
+            for sigma, eps in draws:
+                met = step(state, x, sigma=sigma, eps=eps,
+                           keep=torch.tensor([True, False], device="cuda"),
+                           **kw)[1]
+                out.append((float(met["train_loss"]), [
+                    b.clone() for b in model.net.buffers()]))
+            runs.append((out, {k: v.detach().clone()
+                               for k, v in state.params.items()}))
+        (eager, p_eager), (graph, p_graph) = runs
+        np.testing.assert_allclose([o[0] for o in graph],
+                                   [o[0] for o in eager], rtol=1e-3)
+        for (_, b_graph), (_, b_eager) in zip(graph, eager):
+            assert all(torch.equal(a, b) for a, b in zip(b_graph, b_eager))
+        diff = torch.cat([(p_graph[n] - p_eager[n]).abs().flatten()
+                          for n in p_eager]).cpu().numpy()
+        assert np.quantile(diff, 0.999) <= 0.05 * 1e-3
+        assert diff.max() <= 2 * 3 * 1e-3

@@ -100,7 +100,19 @@ def test_punetg_reference_fixture(name, attn_blocks):
 
 
 def test_unported_options_raise():
-    for fields in (dict(space_to_depth=2), dict(convolution_type="mp"),
-                   dict(attn_type="cosine")):
-        with pytest.raises(NotImplementedError):
-            PUNetG(PUNetGConfig(**_SMALL, **fields), device="cpu")
+    """Every option of the JAX package's PUNetG is ported
+    (``tests/test_torch_conditional.py`` and ``tests/test_torch_mp.py``
+    hold them against it); what neither package accepts raises: an
+    unknown convolution type, a spatial size that space_to_depth cannot
+    fold, and a spatially-varying condition at another resolution than
+    the folded x."""
+    with pytest.raises(ValueError):
+        PUNetG(PUNetGConfig(**_SMALL, convolution_type="bogus"),
+               device="cpu")
+    net = PUNetG(PUNetGConfig(**_SMALL, channel_expansion=(2,),
+                              space_to_depth=2), device="cpu")
+    with pytest.raises(ValueError):
+        net(torch.zeros(1, 1, 15, 16), torch.zeros(1))
+    with pytest.raises(ValueError):
+        net(torch.zeros(1, 1, 16, 16), torch.zeros(1),
+            torch.zeros(1, 8, 16, 16))
