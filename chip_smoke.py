@@ -122,8 +122,23 @@ Phases (any failure raises, so the exit code is non-zero):
     tolerances; a net with GroupPix norms and one with
     ``affine_norm=False`` launch no K2 or K3 in a forward and backward
     (the default norms launch one each a norm).
-17. One JSON line lists every kernel with its launches over phases 5 to
-    9 and 11 to 15; the card's name and power limit; then the result
+17. The host loop at configuration B's full width: ``fit_karras`` over a
+    memmapped .npy of 6144 random images (batch 256, 2 epochs of 21
+    steps, validation on 10%, power EMA (0.05, 0.1) every 4 steps, cadence
+    and metric saves into a ``CheckpointManager``, steps 20-30 under
+    torch.profiler): 42 steps, the logged rows, a falling loss, exact
+    launch counts (28 K2 and K3 a step; 28 K2 and one K1 an eval batch,
+    whose loss runs with train False), one capture of each graph; its
+    wall per step beside phase 8's bare step, images/s, the idle share,
+    the checkpoint's bytes and save and restore seconds. A checkpoint
+    restored in place under the captured graphs
+    gives the same 5 steps bit for bit; restored into a fresh state, the
+    replayed step equals the eager one; post-hoc EMA on the card within
+    1e-6 of float64; ``SamplerService.from_checkpoint`` through a
+    ``ModelRegistry`` bit for bit against the in-memory EMA profile 0,
+    35 K1 and 980 K2 a sample. Its temporary directory is deleted.
+18. One JSON line lists every kernel with its launches over phases 5 to
+    9, 11 to 15 and 17; the card's name and power limit; then the result
     line.
 
 The last line of standard output is
@@ -1193,7 +1208,8 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
     ``model`` (a bf16 KarrasModel) replaces the one built from ``cfg`` and
     ``config``; ``x`` (default: N(0, 1) from the step's generator) and
     ``y`` are the batch and its condition; ``has_mp_weights`` goes to the
-    step. Returns the launch counts and the model."""
+    step. Returns the launch counts, the model and the milliseconds a
+    timed step took."""
     from diffsci_tpu_torch import (EMATracker, KarrasModel, KarrasModelConfig,
                                    PUNetG, create_train_state, kernels,
                                    make_train_step)
@@ -1259,7 +1275,7 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
                              f"{expected}")
     if profiled:
         profile_call(f"train {label}", "one train step", one_step)
-    return counts, model
+    return counts, model, dt / steps * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -1848,10 +1864,10 @@ def phase_train_vp_ve(cfg_a, cfg_b, zero):
     launch counts and one profiled step; then three f32 VP steps of the
     small net, card against CPU (phase 3's tolerances). Returns the launch
     counts."""
-    counts_b, _ = train("config B VP", cfg_b, (256, 28, 28, 1), 20,
+    counts_b, _, _ = train("config B VP", cfg_b, (256, 28, 28, 1), 20,
                         dict(zero, norm_silu=28, norm_silu_bwd=28),
                         config="vp", profiled=True)
-    counts_a, _ = train("config A VE", cfg_a, (4, 32, 32, 32, 1), 20,
+    counts_a, _, _ = train("config A VE", cfg_a, (4, 32, 32, 32, 1), 20,
                         dict(zero, norm_silu=20, norm_silu_bwd=20,
                              flash_attention=1, flash_attention_dq=1,
                              flash_attention_dkv=1),
@@ -2045,14 +2061,14 @@ def phase_conditional_mp_training(cfg_d, cfg_e, zero):
     x, phi = porous_batch(4, 32, torch.Generator("cuda").manual_seed(12))
     log(f"[train config D] batch: periodic two-phase volumes, porosity "
         f"{[round(float(p), 4) for p in phi]}")
-    counts_d, _ = train("config D", cfg_d, (4, 32, 32, 32, 1), 20,
+    counts_d, _, _ = train("config D", cfg_d, (4, 32, 32, 32, 1), 20,
                         dict(zero, norm_silu=20, norm_silu_bwd=20,
                              flash_attention=1, flash_attention_dq=1,
                              flash_attention_dkv=1),
                         profiled=True, model=model_d(cfg_d),
                         y={"porosity": phi}, x=x)
     bn_graph_matches_eager(cfg_d)
-    counts_e, model = train("config E", cfg_e, (256, 28, 28, 1), 20,
+    counts_e, model, _ = train("config E", cfg_e, (256, 28, 28, 1), 20,
                             dict(zero, norm_silu=28, norm_silu_bwd=28),
                             profiled=True, model=model_e(cfg_e),
                             has_mp_weights=True)
@@ -2165,6 +2181,302 @@ def phase_conditional_mp_card_vs_cpu():
                                  f"expected {expected}")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the training loop, checkpoints and serving a checkpoint
+# ---------------------------------------------------------------------------
+FIT_IMAGES = 6144          # random 28×28×1 f32 images, 19.3 MB on disk
+FIT_STEPS = 2 * ((FIT_IMAGES - FIT_IMAGES // 10) // 256)   # 2 epochs of 21
+
+
+def fit_ema():
+    """The tracker of phase 17's run: power EMA (0.05, 0.1) every 4 steps
+    (``bench.py:107-111``)."""
+    from diffsci_tpu_torch import EMATracker
+
+    return EMATracker(ema_type="power", power_function_stds=[0.05, 0.1],
+                      update_every=4)
+
+
+def state_copy(state) -> dict:
+    from diffsci_tpu_torch.checkpoint import state_tensors
+
+    return {k: t.detach().clone() for k, t in state_tensors(state).items()}
+
+
+def fixed_steps(model, state, x, seed, n=5, raw=False):
+    """``n`` graphed (or eager) B steps from one generator; the tensors
+    after them."""
+    from diffsci_tpu_torch import default_optimizer, make_train_step
+
+    step = make_train_step(model, default_optimizer(), ema=fit_ema(),
+                           _raw=raw)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    for _ in range(n):
+        step(state, x, generator=gen)
+    return state_copy(state)
+
+
+def max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def idle_share(prof, seconds: float) -> tuple[float, float]:
+    """(device busy seconds, idle share) of a finished torch.profiler run
+    over ``seconds`` of host time."""
+    from torch.autograd import DeviceType
+
+    busy = sum(device_us(e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e6
+    return busy, 1 - busy / seconds
+
+
+def phase_fit_checkpoint_serve(cfg_b, zero, bare_step_ms):
+    """Configuration B at full width through the host loop: ``fit_karras``
+    on a memmapped .npy of random images (2 epochs of 21 steps at batch
+    256, validation on 10% of them, power EMA (0.05, 0.1) every 4 steps,
+    cadence and metric saves into a ``CheckpointManager``, steps 31 to 40
+    under torch.profiler), exact launch counts and one capture of each
+    graph; a checkpoint restored in place under the captured graphs gives
+    the same 5 steps bit for bit, and restored into a fresh state in a
+    fresh graph cache the same step as the eager one; post-hoc EMA on the
+    card against float64; ``SamplerService.from_checkpoint`` (through a
+    ``ModelRegistry``) bit for bit against a service over the in-memory
+    EMA profile 0, with exact launch counts. Times beside the card's name
+    and power limit. Returns the launch counts of the fit and of the
+    served request."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from diffsci_tpu_torch import (CheckpointManager, ModelRegistry,
+                                   SamplerService, create_train_state,
+                                   fit_karras, kernels, restore_checkpoint,
+                                   save_checkpoint)
+    from diffsci_tpu_torch.checkpoint import load_description, load_state
+    from diffsci_tpu_torch.models.karras import (
+        karras_model_from_description, solve_posthoc_weights)
+
+    card = smi("name,power.limit")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    try:
+        data = np.random.default_rng(0).standard_normal(
+            (FIT_IMAGES, 28, 28, 1), dtype=np.float32)
+        np.save(tmp / "images.npy", data)
+        images = np.load(tmp / "images.npy", mmap_mode="r")
+        model = karras(cfg_b)
+        mgr = CheckpointManager(tmp / "ckpts", max_to_keep=2, keep_cadence=1)
+        saves = {}                # step -> host seconds of the save call
+        manager_save = mgr.save
+
+        def timed_save(step, *args):
+            t = time.perf_counter()
+            manager_save(step, *args)
+            saves[step] = time.perf_counter() - t
+
+        mgr.save = timed_save
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, trainer = fit_karras(
+            model, images, batch_size=256, max_epochs=2, val_fraction=0.1,
+            ema=fit_ema(), log_dir=tmp / "logs", checkpoint_manager=mgr,
+            save_every_steps=10, log_every=10, profile_dir=tmp / "profile",
+            profile_steps=(30, 39))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+
+        rows = [json.loads(line) for line in
+                (tmp / "logs" / "metrics.jsonl").read_text().splitlines()]
+        train_rows = {r["step"]: r for r in rows if "train_loss" in r}
+        valid = [(r["step"], r["valid_loss"]) for r in rows
+                 if "valid_loss" in r]
+        steps_logged = sorted(train_rows)
+        kinds = sorted(str(k[0]) if isinstance(k, tuple) else k
+                       for k in state.graphs.graphs)
+        captures = {("eval" if k[0] == "eval" else "train") if isinstance(
+            k, tuple) else k: round(g.capture_seconds, 3)
+            for k, g in state.graphs.graphs.items()}
+        # a train step: a forward and a backward (28 K2, 28 K3; its combine
+        # is the plain expression); an eval batch: the loss with train
+        # False, whose combine is K1 (the "sample" policy, as in the JAX
+        # package), and 28 K2
+        n_eval = 2 * ((FIT_IMAGES // 10) // 256)
+        expected = dict(zero, fused_axby=n_eval,
+                        norm_silu=28 * (FIT_STEPS + n_eval),
+                        norm_silu_bwd=28 * FIT_STEPS)
+        # the EMA moves on every 4th step: step 42 holds step 40's shadows
+        at40 = load_state(mgr.step_dir(40))
+        ema_ok = state.ema.num_updates == FIT_STEPS and all(
+            torch.equal(at40[f"ema/{i}/{k}"].cuda(), v)
+            for i, prof in enumerate(state.ema.profiles)
+            for k, v in prof.items())
+        ok = (state.step == FIT_STEPS and ema_ok
+              and steps_logged == [1, 10, 20, 30, 40]
+              and [s for s, _ in valid] == [21, 42]
+              and train_rows[40]["train_loss"] < train_rows[1]["train_loss"]
+              and counts == expected and len(state.graphs.graphs) == 3
+              and np.isfinite([v for _, v in valid]).all())
+        log(f"[fit config B] fit_karras over a memmapped .npy of {FIT_IMAGES}"
+            f" images: {state.step} steps, validations {valid}, train loss "
+            f"step 1 {train_rows[1]['train_loss']:.5f} -> step 40 "
+            f"{train_rows[40]['train_loss']:.5f}; EMA updates "
+            f"{state.ema.num_updates}, step 42 holds step 40's shadows "
+            f"{ema_ok}; logged steps {steps_logged}; graphs {kinds} "
+            f"(capture seconds {captures}); launches {counts}, expected "
+            f"{expected}; retained checkpoints {mgr.all_steps()} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 17: the fit did not take its steps, "
+                                 "log its rows, capture each graph once or "
+                                 "launch exactly the expected kernels")
+        # host seconds since the fit began at each logged step (after its
+        # sync); steps 11-20 hold the cadence save at step 10 and nothing
+        # else but steps
+        elapsed = {s: s * 256 / r["imgs_per_sec"]
+                   for s, r in train_rows.items()}
+        window = (elapsed[20] - elapsed[10]) / 10 * 1e3
+        loop = (elapsed[20] - elapsed[10] - saves[10]) / 10 * 1e3
+        save_copy = mgr.last_save["copy_seconds"]
+        busy, idle = idle_share(trainer.profiler, trainer.profile_seconds)
+        log(f"[fit config B] {card}: fit wall {wall:.3f} s "
+            f"({wall / FIT_STEPS * 1e3:.2f} ms a step over the whole fit: "
+            f"captures, 2 validations, 6 saves, the profiled window and its "
+            f"trace); steps 11-20 {window:.2f} ms a step with the save at "
+            f"step 10, {loop:.2f} ms without it; bare graphed B step of "
+            f"phase 8 {bare_step_ms:.2f} ms (ratios "
+            f"{window / bare_step_ms:.3f}, {loop / bare_step_ms:.3f}); "
+            f"imgs_per_sec at step 40 "
+            f"{train_rows[40]['imgs_per_sec']:.1f} (whole fit), "
+            f"{256e3 / window:.1f} and {256e3 / loop:.1f} (steps 11-20 with "
+            f"and without the save); host seconds of each save call "
+            f"{ {k: round(v, 4) for k, v in saves.items()} }")
+        # steps 31-40 hold no validation, save or log sync (the window
+        # starts after step 30's save has copied to the host; its disk
+        # write on the manager's thread may still run)
+        log(f"[fit config B] {card}: steps 31-40 under torch.profiler "
+            f"(steps only): host {trainer.profile_seconds:.4f} s "
+            f"({trainer.profile_seconds * 100:.3f} ms a step, ratio to the "
+            f"bare step {trainer.profile_seconds * 100 / bare_step_ms:.3f}),"
+            f" device busy {busy:.4f} s, idle share {idle:.3f}; the "
+            f"manager's last save: "
+            f"{mgr.last_save['bytes']} bytes, device-to-host "
+            f"{save_copy:.4f} s, background write "
+            f"{mgr.last_save['write_seconds']:.4f} s")
+
+        # restore in place, under the captured graphs
+        x = torch.from_numpy(data[:256]).cuda()
+        ckpt = tmp / "step42"
+        info = save_checkpoint(ckpt, state, model.export_description())
+        keys = set(state.graphs.graphs)
+        first = fixed_steps(model, state, x, 123)
+        t0 = time.perf_counter()
+        restore_checkpoint(ckpt, state, model)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        again = fixed_steps(model, state, x, 123)
+        same = all(torch.equal(first[k], again[k]) for k in first)
+        log(f"[checkpoint config B] {card}: {info['bytes']} bytes "
+            f"({info['bytes'] / 2 ** 20:.1f} MiB), save: device-to-host "
+            f"{info['copy_seconds']:.4f} s, disk write "
+            f"{info['write_seconds']:.4f} s; restore in place "
+            f"{restore_s:.4f} s; 5 steps after the restore, under the "
+            f"captured graphs, bit for bit the 5 before it (params, AdamW "
+            f"moments, EMA): {same} (max|Δ| {max_diff(first, again):.3e}); "
+            f"no new capture {set(state.graphs.graphs) == keys}")
+        if not same or set(state.graphs.graphs) != keys:
+            raise AssertionError("phase 17: steps after an in-place restore "
+                                 "differ from the same steps before it")
+
+        # a fresh state in a fresh graph cache: a replay after the restore
+        # against the eager step
+        fresh = karras(cfg_b)
+        fresh_state, _ = create_train_state(fresh, x.shape, seed=None,
+                                            ema=fit_ema())
+        restore_checkpoint(ckpt, fresh_state, fresh)
+        fixed_steps(fresh, fresh_state, x, 7, n=1)        # warm-up, capture
+        restore_checkpoint(ckpt, fresh_state, fresh)
+        graphed = fixed_steps(fresh, fresh_state, x, 7, n=1)   # a replay
+        eager_model = karras(cfg_b)
+        eager_state, _ = create_train_state(eager_model, x.shape, seed=None,
+                                            ema=fit_ema())
+        restore_checkpoint(ckpt, eager_state, eager_model)
+        eager = fixed_steps(eager_model, eager_state, x, 7, n=1, raw=True)
+        equal = all(torch.equal(graphed[k], eager[k]) for k in graphed)
+        log(f"[checkpoint config B] restored into a fresh state and graph "
+            f"cache: the replayed step after the restore equals the eager "
+            f"step {equal} (max|Δ| {max_diff(graphed, eager):.3e})")
+        if not equal:
+            raise AssertionError("phase 17: the replayed step of a restored "
+                                 "state differs from the eager step")
+        del fresh, fresh_state, eager_model, eager_state
+
+        # post-hoc EMA on the card against float64
+        restore_checkpoint(ckpt, state, model)
+        t0 = time.perf_counter()
+        synth = mgr.synthesize_posthoc_ema(state, fit_ema(),
+                                           target_std=0.075)
+        torch.cuda.synchronize()
+        synth_s = time.perf_counter() - t0
+        stds = list(fit_ema().power_function_stds)
+        by_t = {(s // 4) * 4: s for s in mgr.all_steps() if s >= 4}
+        ts = [t for t in sorted(by_t) for _ in stds]
+        w = solve_posthoc_weights(ts, stds * len(by_t), max(ts), 0.075)
+        snaps = [load_state(mgr.step_dir(by_t[t])) for t in sorted(by_t)]
+        worst, scale = 0.0, 0.0
+        for name, got in synth.items():
+            ref = sum(float(wi) * snap[f"ema/{i}/{name}"].double().numpy()
+                      for wi, (snap, i) in zip(w, [(s, i) for s in snaps
+                                                   for i in range(len(stds))]))
+            worst = max(worst, float(np.abs(got.double().cpu().numpy()
+                                            - ref).max()))
+            scale = max(scale, float(np.abs(ref).max()))
+        ok = worst <= 1e-6 * scale
+        log(f"[post-hoc EMA config B] target std 0.075 from checkpoints "
+            f"{mgr.all_steps()} dated {sorted(by_t)} (update_every 4), "
+            f"weights {np.round(w, 6).tolist()}: on the card {synth_s:.3f} s,"
+            f" max|card - float64| {worst:.3e} of max {scale:.3f} (limit "
+            f"1e-6 relative) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 17: post-hoc EMA on the card differs "
+                                 "from float64")
+
+        # serve the checkpoint through the registry
+        registry = ModelRegistry(tmp / "models.json")
+        registry.register("mnist-b", str(ckpt), load_description(ckpt))
+        entry = registry.entry("mnist-b")
+        served = SamplerService.from_checkpoint(
+            entry["checkpoint"], (28, 28, 1), batch_buckets=(1, 8, 64))
+        reference = karras_model_from_description(entry["description"])
+        reference.net.load_state_dict({**dict(model.net.named_buffers()),
+                                       **fit_ema().get_params(state.ema, 0)})
+        in_memory = SamplerService(reference, (28, 28, 1),
+                                   batch_buckets=(1, 8, 64))
+        served.warmup()
+        in_memory.warmup()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = served.sample(64, generator=2024)
+        served_s = time.perf_counter() - t0
+        serve_counts = dict(kernels.LAUNCHES)
+        ref = in_memory.sample(64, generator=2024)
+        expected = dict(zero, fused_axby=NFE, norm_silu=28 * NFE)
+        ok = np.array_equal(out, ref) and serve_counts == expected and \
+            np.isfinite(out).all()
+        log(f"[serve checkpoint config B] {card}: from_checkpoint (f32, "
+            f"EMA profile 0) request 64: {served_s:.4f} s, std "
+            f"{out.std():.4f}; bit for bit the in-memory service "
+            f"{np.array_equal(out, ref)}; launches {serve_counts}, expected "
+            f"{expected} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 17: the served checkpoint differs "
+                                 "from the in-memory model, or its launch "
+                                 "counts are not a Heun sample's")
+        return [counts, serve_counts]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -2211,11 +2523,11 @@ def main() -> int:
     # a train step is one forward and one backward of the network: K2 and
     # K3 once per norm, K4, K5 and K6 once per bottleneck attention (in A)
     # and no K1 (the training combine is the plain expression)
-    train_a, _ = train(
+    train_a, _, _ = train(
         "config A", cfg_a, (4, 32, 32, 32, 1), 20,
         dict(zero, norm_silu=20, norm_silu_bwd=20, flash_attention=1,
              flash_attention_dq=1, flash_attention_dkv=1))
-    train_b, _ = train("config B", cfg_b, (256, 28, 28, 1), 20,
+    train_b, _, step_ms_b = train("config B", cfg_b, (256, 28, 28, 1), 20,
                        dict(zero, norm_silu=28, norm_silu_bwd=28))
 
     # configuration C: every bucket run is one DDPM/DDIM sample of nsteps
@@ -2257,6 +2569,9 @@ def main() -> int:
     phase_conditional_mp_card_vs_cpu()
     torch.backends.cudnn.allow_tf32 = True
 
+    # the training loop, checkpoints and a served checkpoint (phase 17)
+    counts_17 = phase_fit_checkpoint_serve(cfg_b, zero, step_ms_b)
+
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
                        "diffsci_tpu/kernels/fused_precondition.py:129"),
@@ -2283,7 +2598,7 @@ def main() -> int:
                                            train_b, counts_ddim, counts_ddpm,
                                            counts_11, *counts_12,
                                            *counts_13, *counts_14,
-                                           *counts_15]),
+                                           *counts_15, *counts_17]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

@@ -23,23 +23,44 @@ serving and loss of the HFNet family (``DDPMModel`` around ``HFNetUncond``,
 kernel of the JAX package has a hand-written counterpart: the denoiser
 combine and the DDPM/DDIM update, norm + SiLU forward and backward, and
 flash attention forward and backward (``kernels/``, sources in ``csrc/``).
-On the card the sampling loops and the train step run as CUDA graphs,
-captured once per shape and replayed (``utils/graphs.py``).
+On the card the sampling loops and the train and eval steps run as CUDA
+graphs, captured once per shape and replayed (``utils/graphs.py``).
+
+The host side of training: ``fit_karras`` and ``Trainer`` (epochs,
+validation, logging, checkpoints, preemption safety, profiling) over
+``ArrayDataLoader`` (arrays, memmaps or CPU tensors; batches copied to the
+card ahead of their step), ``freeze_optimizer`` and
+``accumulate_gradients``; persistence through ``save_checkpoint`` /
+``restore_checkpoint`` (in place, under the captured graphs),
+``CheckpointManager`` (top-k, post-hoc EMA) and ``ModelRegistry``; models
+rebuilt from their JSON description (``karras_model_from_description``,
+the JAX package's format) and served from a checkpoint
+(``SamplerService.from_checkpoint``); a JAX run carried over by
+``convert.from_jax_train_state``.
 """
 
+from diffsci_tpu_torch.checkpoint import (CheckpointManager, ModelRegistry,
+                                          restore_checkpoint, save_checkpoint)
+from diffsci_tpu_torch.data.loading import ArrayDataLoader
 from diffsci_tpu_torch.models import (
     DDPMModel, DDPMModelConfig, EMATracker, HFNetCond, HFNetUncond,
     IntervalGuidance, KarrasModel, KarrasModelConfig, KarrasNet, PUNetG,
-    PUNetGCond, PUNetGConfig, UNet2D, cosine_restarts_schedule,
-    create_train_state, default_optimizer, make_eval_step, make_train_scan,
-    make_train_step, renormalize_mp_weights, warmup_cosine_schedule)
+    PUNetGCond, PUNetGConfig, UNet2D, accumulate_gradients,
+    cosine_restarts_schedule, create_train_state, default_optimizer,
+    freeze_optimizer, karras_model_from_description, make_eval_step,
+    make_train_scan, make_train_step, renormalize_mp_weights,
+    warmup_cosine_schedule)
 from diffsci_tpu_torch.serving import SamplerService
+from diffsci_tpu_torch.trainer import Trainer, fit_karras
 
-__all__ = ["DDPMModel", "DDPMModelConfig", "EMATracker", "HFNetCond",
-           "HFNetUncond", "IntervalGuidance", "KarrasModel",
-           "KarrasModelConfig", "KarrasNet", "PUNetG", "PUNetGCond",
-           "PUNetGConfig", "SamplerService", "UNet2D",
-           "cosine_restarts_schedule", "create_train_state",
-           "default_optimizer", "make_eval_step", "make_train_scan",
-           "make_train_step", "renormalize_mp_weights",
-           "warmup_cosine_schedule"]
+__all__ = ["ArrayDataLoader", "CheckpointManager", "DDPMModel",
+           "DDPMModelConfig", "EMATracker", "HFNetCond", "HFNetUncond",
+           "IntervalGuidance", "KarrasModel", "KarrasModelConfig",
+           "KarrasNet", "ModelRegistry", "PUNetG", "PUNetGCond",
+           "PUNetGConfig", "SamplerService", "Trainer", "UNet2D",
+           "accumulate_gradients", "cosine_restarts_schedule",
+           "create_train_state", "default_optimizer", "fit_karras",
+           "freeze_optimizer", "karras_model_from_description",
+           "make_eval_step", "make_train_scan", "make_train_step",
+           "renormalize_mp_weights", "restore_checkpoint",
+           "save_checkpoint", "warmup_cosine_schedule"]

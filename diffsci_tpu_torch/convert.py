@@ -1,4 +1,4 @@
-"""Convert JAX-package variables into the port's state dicts.
+"""Convert JAX-package variables and train states into the port's.
 
 ``from_jax_variables`` takes the variables of a ``diffsci_tpu`` network as
 nested dicts of numpy arrays (``{'params': ..., 'buffers': ...}``), picks
@@ -261,22 +261,39 @@ def _tensors(state: dict, prefix: str = "") -> dict[str, torch.Tensor]:
             for k, v in state.items()}
 
 
+def _net_state(params: dict, buffers: dict, norms) -> dict:
+    """A bare network's JAX leaves -> the port's state dict (numpy):
+    UNet2D (or HFNet, scope ``unet``), an MLP, PUNetGCond or PUNetG, told
+    apart by their keys."""
+    if "unet" in params and "conv_in" in params["unet"]:
+        return {f"unet.{k}": v
+                for k, v in _unet2d_state(params["unet"]).items()}
+    if "conv_in" in params:
+        return _unet2d_state(params)
+    if params and all(k.startswith("Dense_") for k in params):
+        return _mlp_state(params)
+    if "unet" in params:
+        # PUNetGCond: flax keeps its embedding beside ``unet``, the port's
+        # inner PUNetG holds it
+        def inner(tree):
+            return {**tree.get("unet", {}), **{
+                k: v for k, v in tree.items() if k != "unet"}}
+
+        return {f"unet.{k}": v for k, v in _punetg_state(
+            inner(params), inner(buffers), norms).items()}
+    return _punetg_state(params, buffers, norms)
+
+
 def from_jax_variables(variables_np: dict,
                        config=None) -> dict[str, torch.Tensor]:
     """State dict of the port's network from JAX-package variables: PUNetG
-    or PUNetGCond (scope ``unet``), or the KarrasNet around one (scope
-    ``model``, with ``dlw`` and the ``batch_stats`` of ``bnorm``), UNet2D
-    (or HFNet, scope ``unet``) or an MLP, told apart by their keys.
+    or PUNetGCond (scope ``unet``), UNet2D (or HFNet, scope ``unet``) or an
+    MLP, told apart by their keys, or the KarrasNet around one (scope
+    ``model``, with ``dlw`` and the ``batch_stats`` of ``bnorm``).
     ``config``: the PUNetG's ``PUNetGConfig``, which names its norms
     (default GroupLN then GroupRMS)."""
     params = variables_np.get("params", {})
     buffers = variables_np.get("buffers", {})
-    if "unet" in params and "conv_in" in params["unet"]:
-        return _tensors(_unet2d_state(params["unet"]), "unet.")
-    if "conv_in" in params:
-        return _tensors(_unet2d_state(params))
-    if params and all(k.startswith("Dense_") for k in params):
-        return _tensors(_mlp_state(params))
     norms = (("GroupLN", "GroupRMS") if config is None else
              (config.first_resblock_norm, config.second_resblock_norm))
     wrapped = "model" in params
@@ -290,18 +307,88 @@ def from_jax_variables(variables_np: dict,
         for path, w in _flatten(variables_np.get("batch_stats", {})):
             out[".".join(path)] = w
         params, buffers = params["model"], buffers.get("model", {})
-    if "unet" in params:
-        # PUNetGCond: flax keeps its embedding beside ``unet``, the port's
-        # inner PUNetG holds it
-        def inner(tree):
-            return {**tree.get("unet", {}), **{
-                k: v for k, v in tree.items() if k != "unet"}}
-
-        out.update({f"unet.{k}": v for k, v in _punetg_state(
-            inner(params), inner(buffers), norms).items()})
-    else:
-        out.update(_punetg_state(params, buffers, norms))
-    if wrapped:
-        out = {k if k.startswith(("dlw.", "bnorm.")) else f"model.{k}": v
-               for k, v in out.items()}
+    out.update({f"model.{k}" if wrapped else k: v
+                for k, v in _net_state(params, buffers, norms).items()})
     return _tensors(out)
+
+
+def _field(obj, name):
+    """A field of a JAX-package state read as numpy: a dataclass or
+    NamedTuple attribute, or a dict key (a raw restore)."""
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _find(tree, fields: tuple):
+    """The first node of an optax state (NamedTuples, tuples, dicts) that
+    has every one of ``fields``, or None."""
+    if all(hasattr(tree, f) for f in fields) or (
+            isinstance(tree, dict) and all(f in tree for f in fields)):
+        return tree
+    children = tree.values() if isinstance(tree, dict) else \
+        tree if isinstance(tree, (tuple, list)) else ()
+    for child in children:
+        found = _find(child, fields)
+        if found is not None:
+            return found
+    return None
+
+
+def from_jax_train_state(state_np, model, tx, ema=None):
+    """The port's ``TrainState`` over ``model`` from a JAX-package
+    ``TrainState`` read as numpy (``jax.tree.map(np.asarray, state)``,
+    e.g. after the JAX package's ``restore_checkpoint``), made in place
+    over a fresh state of ``tx`` (the port's optimizer matching the JAX
+    run's) and ``ema`` (its EMA tracker): params and consts through
+    ``from_jax_variables``; optax's ``ScaleByAdamState`` ``count``, ``mu``
+    and ``nu`` to AdamW's ``step``, ``exp_avg`` and ``exp_avg_sq`` by the
+    same names and layouts (and ``MultiSteps``' accumulated gradients and
+    counters under ``accumulate_gradients``); the EMA profiles and their
+    ``num_updates``; the step. This carries a TPU run over to the card."""
+    from diffsci_tpu_torch.models.karras.train import _new_train_state
+
+    config = getattr(model.net.model, "config", None)
+    if not hasattr(config, "first_resblock_norm"):
+        config = None
+
+    def port_params(tree) -> dict[str, torch.Tensor]:
+        return from_jax_variables({"params": tree}, config)
+
+    params = _field(state_np, "params")
+    consts = _field(state_np, "consts") or {}
+    state = _new_train_state(model, tx, ema)
+    with torch.no_grad():
+        model.net.load_state_dict(
+            from_jax_variables({"params": params, **consts}, config),
+            strict=True)
+        opt_state = _field(state_np, "opt_state")
+        adam = _find(opt_state, ("count", "mu", "nu"))
+        if adam is None:
+            raise ValueError("the JAX optimizer state holds no Adam state")
+        moments = {key: port_params(_field(adam, src)) for key, src in
+                   (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}
+        for group in state.optimizer.param_groups:
+            for p in group["params"]:
+                name = next(k for k, q in state.params.items() if q is p)
+                slot = state.optimizer.state[p]
+                slot["step"].fill_(float(np.asarray(_field(adam, "count"))))
+                for key, values in moments.items():
+                    slot[key].copy_(values[name])
+        if state.accum is not None:
+            multi = _find(opt_state, ("mini_step", "gradient_step",
+                                      "acc_grads"))
+            acc = port_params(_field(multi, "acc_grads"))
+            for name, g in state.accum.grads.items():
+                g.copy_(acc[name])
+            state.accum.mini_step = int(_field(multi, "mini_step"))
+            state.accum.gradient_step = int(_field(multi, "gradient_step"))
+        jema = _field(state_np, "ema")
+        if state.ema is not None:
+            for profile, tree in zip(state.ema.profiles,
+                                     _field(jema, "profiles")):
+                shadows = port_params(tree)
+                for name, v in profile.items():
+                    v.copy_(shadows[name])
+            state.ema.num_updates = int(_field(jema, "num_updates"))
+    state.step = int(_field(state_np, "step"))
+    model._masters_changed()
+    return state

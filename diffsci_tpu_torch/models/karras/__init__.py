@@ -1,20 +1,24 @@
-from diffsci_tpu_torch.models.karras.ema import (EMAState, EMATracker,
-                                                 power_function_beta,
-                                                 power_function_exp_from_std)
-from diffsci_tpu_torch.models.karras.module import (DynamicLossWeight,
-                                                    IntervalGuidance,
-                                                    KarrasModel,
-                                                    KarrasModelConfig,
-                                                    KarrasNet)
+from diffsci_tpu_torch.models.karras.ema import (
+    EMAState, EMATracker, power_function_beta, power_function_exp_from_std,
+    solve_posthoc_weights, synthesize_posthoc_ema)
+from diffsci_tpu_torch.models.karras.module import (
+    DynamicLossWeight, IntervalGuidance, KarrasModel, KarrasModelConfig,
+    KarrasNet, karras_model_from_description)
 from diffsci_tpu_torch.models.karras.train import (
-    AdamWClip, TrainState, cosine_restarts_schedule, create_train_state,
-    default_optimizer, make_eval_step, make_train_scan, make_train_step,
-    nan_to_zero_grads, renormalize_mp_weights, warmup_cosine_schedule)
+    AdamWClip, GradAccumulation, TrainState, accumulate_gradients,
+    cosine_restarts_schedule, create_train_state, default_optimizer,
+    freeze_mask, freeze_optimizer, make_eval_step, make_train_scan,
+    make_train_step, nan_to_zero_grads, renormalize_mp_weights,
+    split_variables, warmup_cosine_schedule)
 
 __all__ = ["AdamWClip", "DynamicLossWeight", "EMAState", "EMATracker",
-           "IntervalGuidance", "KarrasModel", "KarrasModelConfig",
-           "KarrasNet", "TrainState", "cosine_restarts_schedule",
-           "create_train_state", "default_optimizer", "make_eval_step",
-           "make_train_scan", "make_train_step", "nan_to_zero_grads",
-           "power_function_beta", "power_function_exp_from_std",
-           "renormalize_mp_weights", "warmup_cosine_schedule"]
+           "GradAccumulation", "IntervalGuidance", "KarrasModel",
+           "KarrasModelConfig", "KarrasNet", "TrainState",
+           "accumulate_gradients", "cosine_restarts_schedule",
+           "create_train_state", "default_optimizer", "freeze_mask",
+           "freeze_optimizer", "karras_model_from_description",
+           "make_eval_step", "make_train_scan", "make_train_step",
+           "nan_to_zero_grads", "power_function_beta",
+           "power_function_exp_from_std", "renormalize_mp_weights",
+           "solve_posthoc_weights", "split_variables",
+           "synthesize_posthoc_ema", "warmup_cosine_schedule"]

@@ -1,7 +1,8 @@
 """EMA weight tracking: traditional decay / half-life and EDM2 power-function
 profiles.
 
-Port of ``diffsci_tpu/models/karras/ema.py:23-166``. The JAX package keeps
+Port of ``diffsci_tpu/models/karras/ema.py``, post-hoc synthesis
+included. The JAX package keeps
 its shadows in an immutable pytree updated inside the jitted step; here
 the shadows are f32 tensors on the parameters' device, one dict
 ``name -> tensor`` per profile, updated in place under ``torch.no_grad()``
@@ -78,6 +79,12 @@ class EMATracker:
     def num_profiles(self) -> int:
         return len(self.power_function_stds) if self.ema_type == "power" \
             else 1
+
+    @property
+    def profile_names(self) -> list[str]:
+        if self.ema_type == "power":
+            return [f"power_std_{s:g}" for s in self.power_function_stds]
+        return ["traditional"]
 
     def init(self, params: dict) -> EMAState:
         """Shadows start as f32 copies of ``params`` (name -> tensor)."""
@@ -163,3 +170,88 @@ class EMATracker:
         """The shadows of the selected profile (clamped to the range)."""
         idx = self.profile_index if profile_index is None else profile_index
         return state.profiles[min(max(idx, 0), self.num_profiles - 1)]
+
+    def export_description(self) -> dict:
+        return dict(ema_type=self.ema_type, decay=self.decay,
+                    halflife_steps=self.halflife_steps,
+                    rampup_ratio=self.rampup_ratio,
+                    power_function_stds=list(self.power_function_stds),
+                    profile_index=self.profile_index,
+                    update_every=self.update_every)
+
+
+# --- post-hoc EMA synthesis (Karras et al., arXiv:2312.02696 §3.3) --------
+#
+# A power-function EMA with exponent γ snapshotted at training time t
+# averages the parameter trajectory with response
+# r(τ) = ((γ+1)/t)·(τ/t)^γ on [0, t]. Any target profile is approximated
+# post hoc by the least-squares combination of stored snapshots, so the
+# EMA length can be chosen after training. The inner products have closed
+# forms: the solve is a small float64 problem on the host, the synthesis
+# one weighted f32 sum of shadows by name.
+
+
+def _power_response_dot(t_a, gamma_a, t_b, gamma_b):
+    """<r_a, r_b> for two power-function responses (closed form):
+    integral_0^min(ta,tb) r_a(tau) r_b(tau) dtau."""
+    t_a = np.asarray(t_a, np.float64)
+    t_b = np.asarray(t_b, np.float64)
+    gamma_a = np.asarray(gamma_a, np.float64)
+    gamma_b = np.asarray(gamma_b, np.float64)
+    t_ratio = t_a / t_b
+    t_exp = np.where(t_a < t_b, gamma_b, -gamma_a)
+    t_max = np.maximum(t_a, t_b)
+    num = (gamma_a + 1.0) * (gamma_b + 1.0) * t_ratio ** t_exp
+    den = (gamma_a + gamma_b + 1.0) * t_max
+    return num / den
+
+
+def solve_posthoc_weights(snap_ts, snap_stds, target_t, target_std):
+    """Least-squares weights over stored snapshots reproducing the target
+    profile: A w = b with A_ij = <r_i, r_j>, b_i = <r_i, r_target>, in
+    float64. ``snap_ts``: the training steps of the snapshots; stds are
+    relative stds (through the same cubic as training's EMA)."""
+    snap_ts = np.asarray(snap_ts, np.float64)
+    gammas = np.array([power_function_exp_from_std(s) for s in snap_stds],
+                      np.float64)
+    tg = float(target_t)
+    gg = power_function_exp_from_std(target_std)
+    A = _power_response_dot(snap_ts[:, None], gammas[:, None],
+                            snap_ts[None, :], gammas[None, :])
+    b = _power_response_dot(snap_ts, gammas, tg, gg)
+    return np.linalg.solve(A, b)
+
+
+def accumulate_weighted(acc: dict | None, weight: float,
+                        shadows: dict) -> dict:
+    """acc + weight·shadows in f32, by name (acc None: weight·shadows),
+    one ``torch._foreach`` call; ``shadows`` on acc's device."""
+    names = list(shadows)
+    values = [shadows[k].float() for k in names]
+    if acc is None:
+        return dict(zip(names, torch._foreach_mul(values, float(
+            np.float32(weight)))))
+    torch._foreach_add_([acc[k] for k in names], values,
+                        alpha=float(np.float32(weight)))
+    return acc
+
+
+def synthesize_posthoc_ema(snapshots, snap_ts, snap_stds, target_std,
+                           target_t=None) -> dict:
+    """Combine stored EMA shadows (``name -> tensor`` dicts, possibly
+    interleaved from several profiles) taken at training steps ``snap_ts``
+    with relative stds ``snap_stds`` into the ``target_std`` profile at
+    ``target_t`` (default: the latest snapshot step). Returns the
+    weighted f32 sum by name, on the snapshots' device."""
+    if not (len(snapshots) == len(snap_ts) == len(snap_stds)):
+        raise ValueError("snapshots/snap_ts/snap_stds length mismatch")
+    if len(snapshots) == 0:
+        raise ValueError("need at least one snapshot")
+    if target_t is None:
+        target_t = max(snap_ts)
+    w = solve_posthoc_weights(snap_ts, snap_stds, target_t, target_std)
+    acc = None
+    with torch.no_grad():
+        for wi, snap in zip(w, snapshots):
+            acc = accumulate_weighted(acc, wi, snap)
+    return acc

@@ -13,7 +13,10 @@ guidance interval and the ``fused_precondition`` policy), ``loss_fn``,
 ``get_score``, ``sample`` (any integrator, stochastic,
 ``langevin_scale``), ``sample_restart``, ``propagate_white_noise``,
 ``propagate_toward_sample``, ``propagate_partial_toward_sample``,
-``propagate_toward_noise``, ``inpaint`` and ``repaint``.
+``propagate_toward_noise``, ``inpaint`` and ``repaint``; and
+``select_batch``, ``export_description`` and
+``karras_model_from_description`` (the JAX package's description,
+key for key).
 
 The network's weights live in the module, so the methods take no
 ``variables`` unless the caller swaps other weights in (``variables=``, a
@@ -258,7 +261,7 @@ class KarrasModel(ComputeDtypeMixin):
                  compute_dtype: torch.dtype | None = None,
                  fused_precondition: bool | str = "sample",
                  device: torch.device | str | None = None,
-                 norm: float = 1.0):
+                 norm: float = 1.0, masked: bool = False):
         """``compute_dtype`` (e.g. ``torch.bfloat16``): the network runs
         with its parameters and input cast to this dtype, while the
         preconditioning, the combine, the sampler state, the dynamic loss
@@ -269,10 +272,13 @@ class KarrasModel(ComputeDtypeMixin):
         True always, False never.
 
         ``norm``: data are divided by it after the batch norm (``encode``)
-        and multiplied back before it (``decode``)."""
+        and multiplied back before it (``decode``).
+
+        ``masked``: training batches carry a loss mask (``select_batch``)."""
         self.device = resolve_device(device)
         self.config = config
         self.conditional = conditional
+        self.masked = masked
         self.compute_dtype = compute_dtype
         self.fused_precondition = fused_precondition
         self.norm = norm
@@ -297,6 +303,32 @@ class KarrasModel(ComputeDtypeMixin):
         the state dict."""
         init_parameters(self.net, seed)
         return self.net.state_dict()
+
+    def select_batch(self, batch):
+        """A loader's batch -> (x, y, mask): (x, y, mask) when conditional
+        and masked, (x, mask) when masked, (x, y) when conditional, else x
+        alone (``diffsci_tpu/models/karras/module.py:862-875``)."""
+        if self.conditional and self.masked:
+            x, y, mask = batch
+        elif self.masked:
+            (x, mask), y = batch, None
+        elif self.conditional:
+            (x, y), mask = batch, None
+        else:
+            x, y, mask = batch, None, None
+        return x, y, mask
+
+    def export_description(self) -> dict:
+        """The model as plain data, key for key the JAX package's
+        (``module.py:876-883``): the configuration's tag, the flags and the
+        network's description. The latent keys are those of a pixel-space
+        model."""
+        net_export = getattr(self.net.model, "export_description", None)
+        return dict(config_description=self.config.export_description(),
+                    conditional=self.conditional, masked=self.masked,
+                    autoencoder=False, autoencoder_conditional=False,
+                    encode_y=False,
+                    net=net_export() if net_export else None)
 
     def encode(self, x, y=None, train: bool = False):
         """Data -> diffusion space: the EDM batch norm (by ``x``'s own
@@ -764,3 +796,48 @@ class KarrasModel(ComputeDtypeMixin):
                             maximum_batch_size, mode="repaint",
                             rsteps=rsteps, nresamples=nresamples,
                             generator=generator)
+
+
+def karras_model_from_description(description: dict,
+                                  conditional_embedding=None,
+                                  device: torch.device | str | None = None,
+                                  **model_kwargs) -> KarrasModel:
+    """Rebuild a ``KarrasModel`` on ``device`` from its description (the
+    port's or the JAX package's ``export_description``, e.g. a
+    checkpoint's ``description.json``): the net by its ``kind``
+    (``models/nets/describe.py``; descriptions without one rebuild as
+    PUNetG), the configuration by its tag. ``model_kwargs`` go to
+    ``KarrasModel`` (e.g. ``compute_dtype``).
+
+    Raises for what a description alone cannot rebuild: no net entry, a
+    conditional embedding (pass the module as ``conditional_embedding``;
+    its config is in ``description['net']['conditional_embedding_args']``)
+    and a latent model (``autoencoder: true``), which the port has no
+    autoencoder for yet."""
+    from diffsci_tpu_torch.models.nets.describe import net_from_description
+
+    device = resolve_device(device)
+    net_desc = description.get("net") or {}
+    if not net_desc.get("config", net_desc):
+        raise ValueError(
+            "description has no net config (checkpoints saved before the "
+            "descriptions became self-contained); rebuild the net "
+            "explicitly or re-export the description")
+    if net_desc.get("has_conditional_embedding") \
+            and conditional_embedding is None:
+        raise ValueError(
+            "checkpoint was trained with a conditional embedding; pass "
+            "the embedding module via conditional_embedding= (its config "
+            "is in description['net']['conditional_embedding_args'])")
+    if description.get("autoencoder"):
+        raise ValueError("checkpoint is a latent-diffusion model; the port "
+                         "has no autoencoder yet")
+    net = net_from_description(net_desc,
+                               conditional_embedding=conditional_embedding,
+                               device=device)
+    config = KarrasModelConfig.load_from_description_with_tag(
+        description["config_description"])
+    return KarrasModel(net, config,
+                       conditional=description.get("conditional", False),
+                       masked=description.get("masked", False),
+                       device=device, **model_kwargs)

@@ -20,20 +20,28 @@ captures it; later calls draw σ, ε and the condition-drop mask into the
 graph's static inputs in the eager order, copy the batch in, fill the
 learning rate and replay. The magnitude-preserving re-projection and the
 batch norm's buffer writes are part of the captured step.
-The EMA update is a graph of its own, replayed on the steps where the
-shadows move. The graphs belong to the train state (``state.graphs``),
-whose tensors they update, so every step function over one state, the
+Under gradient accumulation a key has two graphs, "accumulate" and
+"accumulate, then step", which the host picks by its micro-step counter;
+both read the running mean of the gradients in one device buffer of the
+state. The EMA update is a graph of its own, replayed on the steps where
+the shadows move. The eval step is a graph per key as well, which reads
+the parameters (or the EMA shadows) in place. The graphs belong to the
+train state (``state.graphs``), whose tensors they update, so every step
+function over one state, the
 one ``make_train_scan`` builds included, shares them and their memory
 pool, and they go with the state. ``make_train_step(..., _raw=True)``
 returns the eager step, as in the JAX package.
 
-Not ported yet: ``freeze_*``, the schedule-free optimizer and
-``accumulate_gradients``.
+Not ported yet: ``schedule_free_optimizer`` and
+``schedule_free_eval_params``, and ``default_optimizer(mu_dtype=)``: both
+need an optimizer written for the port (torch's AdamW keeps its moments
+in the parameters' dtype, and torch has no schedule-free AdamW).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import fnmatch
 import math
 from typing import Callable
 
@@ -45,15 +53,33 @@ from diffsci_tpu_torch.utils import graphs
 
 
 @dataclasses.dataclass
+class GradAccumulation:
+    """The state of ``accumulate_gradients`` (optax.MultiSteps): the
+    running mean of this cycle's micro-batch gradients by parameter name
+    (f32 tensors on the parameters' device, updated in place), the
+    micro-batches it holds (``mini_step``), the optimizer updates taken
+    (``gradient_step``), and the divisor of the next micro-batch's term
+    (mini_step + 1) as a 0-d device tensor that the graphs read."""
+    grads: dict
+    count: torch.Tensor
+    mini_step: int = 0
+    gradient_step: int = 0
+
+
+@dataclasses.dataclass
 class TrainState:
     """The trained parameters (the network's own tensors, by name), their
-    optimizer, the EMA state (or None), the number of steps taken, and on
-    a CUDA device the CUDA graphs of the steps taken on it (a
-    ``utils.graphs.GraphCache``; capture times, launches)."""
+    optimizer, the EMA state (or None), the number of steps taken, the
+    network's buffers by name (the JAX package's ``consts``), the
+    gradient accumulation's state (or None), and on a CUDA device the
+    CUDA graphs of the steps taken on it (a ``utils.graphs.GraphCache``;
+    capture times, launches)."""
     params: dict
     optimizer: torch.optim.Optimizer
     ema: EMAState | None
     step: int = 0
+    buffers: dict = dataclasses.field(default_factory=dict)
+    accum: GradAccumulation | None = None
     graphs: graphs.GraphCache | None = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -76,21 +102,35 @@ class AdamWClip:
     ``torch.nn.utils.clip_grad_norm_``, whose +1e-6 changes the numbers.
     ``learning_rate``: a float, or a schedule ``count -> lr`` (e.g.
     ``warmup_cosine_schedule``) read at the number of updates before each
-    one, as optax counts."""
+    one, as optax counts.
+
+    ``frozen`` (``freeze_optimizer``): names of parameters that get no
+    update at all, no AdamW step and no weight decay, and whose gradients
+    the clip's norm leaves out. ``every`` (``accumulate_gradients``): the
+    number of micro-batches whose mean gradient makes one update."""
     learning_rate: float | Callable[[int], float]
     weight_decay: float
     b1: float
     b2: float
     grad_clip: float | None
     eps: float = 1e-8
+    frozen: frozenset = frozenset()
+    every: int = 1
 
-    def init(self, params) -> torch.optim.AdamW:
-        """torch's AdamW over ``params``. On CUDA parameters it is
-        capturable (step count and bias corrections on the device, so a
-        graph can replay its step), and under a schedule its learning rate
-        is a 0-d device tensor that ``set_learning_rate`` fills before each
-        step. ``capturable`` is for CUDA parameters only."""
-        params = list(params)
+    def trainable(self, params: dict) -> dict:
+        """The parameters (by name) that the optimizer updates."""
+        return {k: p for k, p in params.items() if k not in self.frozen}
+
+    def init(self, params: dict) -> torch.optim.AdamW:
+        """torch's AdamW over the trainable ``params`` (name -> tensor),
+        its moments made now (zeros, as its first step would make them),
+        so that a checkpoint of a fresh state holds them too. On CUDA
+        parameters it is capturable (step count and bias corrections on
+        the device, so a graph can replay its step), and under a schedule
+        its learning rate is a 0-d device tensor that
+        ``set_learning_rate`` fills before each step. ``capturable`` is
+        for CUDA parameters only."""
+        params = list(self.trainable(params).values())
         cuda = any(p.is_cuda for p in params)
         lr = self.learning_rate
         if callable(lr):
@@ -103,7 +143,27 @@ class AdamWClip:
                                       capturable=cuda)
         # the first step of each graph runs uncaptured, as its warm-up
         optimizer._warned_capturable_if_run_uncaptured = True
+        for p in params:
+            optimizer.state[p] = {
+                "step": torch.zeros((), device=p.device) if cuda
+                else torch.tensor(0.0),
+                "exp_avg": torch.zeros_like(
+                    p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(
+                    p, memory_format=torch.preserve_format)}
         return optimizer
+
+    def init_accumulation(self, params: dict) -> GradAccumulation | None:
+        """The accumulation's state over the trainable ``params`` (None
+        when ``every`` is 1)."""
+        if self.every == 1:
+            return None
+        trainable = self.trainable(params)
+        device = next(iter(trainable.values())).device
+        return GradAccumulation(
+            grads={k: torch.zeros_like(p, dtype=torch.float32)
+                   for k, p in trainable.items()},
+            count=torch.ones((), device=device))
 
     def set_learning_rate(self, optimizer: torch.optim.Optimizer,
                           count: int) -> None:
@@ -119,14 +179,34 @@ class AdamWClip:
             else:
                 group["lr"] = lr
 
-    def step(self, optimizer: torch.optim.Optimizer, grads: list,
-             norm: torch.Tensor) -> None:
-        """Clip ``grads`` (the optimizer's ``.grad`` tensors, global norm
-        ``norm``) in place, then take the AdamW step."""
+    def update(self, state: "TrainState", norm: torch.Tensor,
+               emit: bool = True) -> None:
+        """From the ``.grad`` of every trainable parameter (``norm``: the
+        global norm of every parameter's gradient): under accumulation,
+        fold them into the running mean (acc + (g − acc)/count, optax's
+        Welford form), and unless ``emit`` stop there; clip by the global
+        norm of what the optimizer steps on (optax's g·c/max(‖g‖, c), the
+        trainable gradients or their mean), take the AdamW step, and under
+        accumulation zero the mean. Device work only."""
+        params = [p for group in state.optimizer.param_groups
+                  for p in group["params"]]
+        grads = [p.grad for p in params]
+        acc = state.accum
+        if acc is not None:
+            mean = list(acc.grads.values())
+            torch._foreach_add_(mean, torch._foreach_div(
+                torch._foreach_sub(grads, mean), acc.count))
+            if not emit:
+                return
+            torch._foreach_copy_(grads, mean)
         if self.grad_clip is not None:
+            if acc is not None or self.frozen:
+                norm = global_norm(grads)
             c = self.grad_clip
             torch._foreach_mul_(grads, c / torch.clamp(norm, min=c))
-        optimizer.step()
+        state.optimizer.step()
+        if acc is not None:
+            torch._foreach_zero_(mean)
 
 
 def default_optimizer(learning_rate: float | Callable[[int], float] = 1e-3,
@@ -138,6 +218,40 @@ def default_optimizer(learning_rate: float | Callable[[int], float] = 1e-3,
     or a schedule (``warmup_cosine_schedule``,
     ``cosine_restarts_schedule``)."""
     return AdamWClip(learning_rate, weight_decay, b1, b2, grad_clip)
+
+
+def split_variables(net: torch.nn.Module) -> tuple[dict, dict]:
+    """A network's tensors as (parameters by name, buffers by name): the
+    JAX package's (params, consts)."""
+    return dict(net.named_parameters()), dict(net.named_buffers())
+
+
+def freeze_mask(params: dict, patterns) -> dict:
+    """name -> True (trainable) or False (frozen): frozen where a glob of
+    ``patterns`` matches the parameter's dotted name (e.g.
+    ``"model.downward_blocks.*"``)."""
+    return {name: not any(fnmatch.fnmatch(name, pat) for pat in patterns)
+            for name in params}
+
+
+def freeze_optimizer(tx: AdamWClip, params: dict, patterns) -> AdamWClip:
+    """``tx`` with the parameters that ``patterns`` match frozen: they get
+    no update, no weight decay, and the clip's norm leaves their gradients
+    out, as ``optax.multi_transform`` with ``set_to_zero`` around
+    ``chain(clip, adamw)`` does."""
+    mask = freeze_mask(params, patterns)
+    return dataclasses.replace(tx, frozen=tx.frozen | frozenset(
+        name for name, trainable in mask.items() if not trainable))
+
+
+def accumulate_gradients(tx: AdamWClip, every: int) -> AdamWClip:
+    """``tx`` taking one update per ``every`` micro-batches, on their mean
+    gradient (optax ``MultiSteps``): the parameters do not move in between,
+    while the state's step count and the EMA advance on every micro-step,
+    as in the JAX package."""
+    if every < 1:
+        raise ValueError(f"every must be >= 1, got {every}")
+    return dataclasses.replace(tx, every=every)
 
 
 def _cosine_decay(init_value: float, decay_steps: int, alpha: float):
@@ -218,23 +332,51 @@ def create_train_state(model, x_shape, seed: int | None = 0,
     """Initialise the weights from ``seed`` (None keeps the network's
     current weights, e.g. a loaded state dict), the optimizer and the EMA.
     ``x_shape`` is the channels-last batch shape the state will train on;
-    it is checked against the network. Returns (state, tx)."""
+    it is checked against a PUNetG's config. Returns (state, tx)."""
     net = model.net.model
-    net_cfg = net.config
+    net_cfg = getattr(net, "config", None)
     # PUNetGCond's input_channels count its concatenated conditions too
-    channels_ok = bool(getattr(net, "channel_conditional_items", ())) or \
-        x_shape[-1] == net_cfg.input_channels
-    if len(x_shape) != net_cfg.dimension + 2 or not channels_ok:
+    if net_cfg is not None and (
+            len(x_shape) != net_cfg.dimension + 2 or not (
+                getattr(net, "channel_conditional_items", ())
+                or x_shape[-1] == net_cfg.input_channels)):
         raise ValueError(f"x_shape {tuple(x_shape)} is not [B, *"
                          f"{net_cfg.dimension}D spatial, "
                          f"{net_cfg.input_channels}]")
     if seed is not None:
         model.init(seed)
     tx = optimizer if optimizer is not None else default_optimizer()
-    params = dict(model.net.named_parameters())
-    state = TrainState(params=params, optimizer=tx.init(params.values()),
-                       ema=ema.init(params) if ema is not None else None)
-    return state, tx
+    return _new_train_state(model, tx, ema), tx
+
+
+def _new_train_state(model, tx: AdamWClip,
+                     ema: EMATracker | None = None) -> TrainState:
+    """A train state over the model's current weights."""
+    params, buffers = split_variables(model.net)
+    return TrainState(params=params, optimizer=tx.init(params),
+                      ema=ema.init(params) if ema is not None else None,
+                      buffers=buffers, accum=tx.init_accumulation(params))
+
+
+def _begin_update(state: TrainState, tx: AdamWClip) -> bool:
+    """Before a step: the schedule's learning rate for the updates taken
+    so far and, under accumulation, the divisor of this micro-batch.
+    Returns whether this step takes the optimizer step."""
+    acc = state.accum
+    tx.set_learning_rate(state.optimizer,
+                         state.step if acc is None else acc.gradient_step)
+    if acc is None:
+        return True
+    acc.count.fill_(acc.mini_step + 1)
+    return acc.mini_step == tx.every - 1
+
+
+def _end_update(state: TrainState, tx: AdamWClip, emit: bool) -> None:
+    acc = state.accum
+    if acc is not None:
+        acc.mini_step = (acc.mini_step + 1) % tx.every
+        acc.gradient_step += emit
+    state.step += 1
 
 
 def _draw(model, x, generator, sigma, eps, keep, out):
@@ -302,7 +444,9 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
     EDM, σ(t) of a uniform t for VP, log-uniform for VE), ε and, when the
     network drops conditions, the keep mask [B]; the configuration's loss,
     backward through the network, NaN→0 guard, global-norm clip, AdamW at
-    the schedule's rate, the magnitude-preserving re-projection
+    the schedule's rate (under ``accumulate_gradients``, on every
+    ``every``-th micro-step, on the mean gradient; frozen parameters get
+    no update), the magnitude-preserving re-projection
     (``has_mp_weights``), the batch norm's running statistics, EMA.
     ``sigma``, ``eps`` and ``keep`` replay fixed draws (the
     cross-framework tests use them).
@@ -319,12 +463,14 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
 
     buffers = dict(model.net.named_buffers())
 
-    def update(state, x, y, mask, sigma, eps, keep):
-        """Loss, backward, NaN guard, clip, AdamW, the mp re-projection
+    def update(state, x, y, mask, sigma, eps, keep, emit=True):
+        """Loss, backward, NaN guard, clip, AdamW (under accumulation: the
+        running mean, and the step when ``emit``), the mp re-projection
         and the batch norm's statistics from fixed draws: device work
         only, which the graphed step captures. Returns the loss and the
         gradients' global norm."""
-        state.optimizer.zero_grad(set_to_none=True)
+        for p in state.params.values():
+            p.grad = None
         loss, updates = loss_of(x, sigma, y, mask, eps, keep)
         loss.backward()
         grads = []
@@ -334,7 +480,7 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
             grads.append(p.grad)
         nan_to_zero_grads(grads)
         norm = global_norm(grads)
-        tx.step(state.optimizer, grads, norm)
+        tx.update(state, norm, emit)
         if has_mp_weights:
             renormalize_mp_weights(model.net)
         with torch.no_grad():
@@ -348,11 +494,11 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
             model, x, generator, sigma, eps, keep,
             (torch.empty(x.shape[0], device=x.device), torch.empty_like(x),
              _keep_like(model, x)))
-        tx.set_learning_rate(state.optimizer, state.step)
-        loss, norm = update(state, x, y, mask, sigma, eps, keep)
+        emit = _begin_update(state, tx)
+        loss, norm = update(state, x, y, mask, sigma, eps, keep, emit)
         if ema is not None and state.ema is not None:
             ema.update(state.ema, state.params)
-        state.step += 1
+        _end_update(state, tx, emit)
         return state, {"train_loss": loss, "grad_norm": norm}
 
     if _raw:
@@ -381,9 +527,10 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         if state.graphs is None:
             state.graphs = graphs.GraphCache(x.device)
         cache = state.graphs
+        emit = _begin_update(state, tx)
         key = (tuple(x.shape), x.dtype, graphs.condition_key(y),
                graphs.condition_key(mask), state.optimizer, tx, loss_fn,
-               remat, has_mp_weights)
+               remat, has_mp_weights, emit)
         graph = cache.graphs.get(key)
         if graph is None:
             inputs = (torch.empty_like(x), graphs.static_like(y, x.device),
@@ -397,10 +544,9 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         graphs.fill(ys, y)
         graphs.fill(masks, mask)
         _draw(model, x, generator, sigma, eps, keep, (sigmas, epss, keeps))
-        tx.set_learning_rate(state.optimizer, state.step)
         if graph is None:
             def body():
-                return update(state, *inputs)
+                return update(state, *inputs, emit)
 
             loss, norm = cache.warmup(body)
             cache.capture(key, body).inputs = inputs
@@ -412,7 +558,7 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         model._masters_changed()
         if ema is not None and state.ema is not None:
             ema_update(cache, state.ema, state.params)
-        state.step += 1
+        _end_update(state, tx, emit)
         return state, {"train_loss": loss, "grad_norm": norm}
 
     return train_step
@@ -452,21 +598,72 @@ def make_train_scan(model, tx: AdamWClip, ema: EMATracker | None = None,
 
 
 def make_eval_step(model, ema: EMATracker | None = None,
-                   use_ema: bool = False):
+                   use_ema: bool = False, _raw: bool = False):
     """The validation step ``step(state, x, y=None, mask=None,
-    generator=None, sigma=None, eps=None) -> {"valid_loss"}``: the
-    loss without gradients, in eval mode, with the EMA shadows swapped in
-    when ``use_ema``."""
+    generator=None, sigma=None, eps=None) -> {"valid_loss"}``: σ, then ε
+    drawn from ``generator`` (unless replayed), and the loss without
+    gradients, in eval mode, on the state's parameters or, when
+    ``use_ema``, the EMA shadows of the tracker's profile. ``valid_loss``
+    is a device tensor.
+
+    On a CUDA device the step is a CUDA graph per (x's shape and dtype, the
+    condition's and mask's shapes, the EMA profile read) held by the
+    state, as the train step is: σ and ε are drawn into its static inputs
+    before each replay, and it reads the parameters, the shadows and the
+    batch norm's buffers in place, so it sees every update.
+    ``_raw=True`` returns the eager step."""
+
+    def loss(state, x, y, mask, sigma, eps):
+        variables = state.ema_variables(ema) if use_ema else \
+            dict(state.params)
+        with torch.no_grad():
+            return model.loss_fn(x, sigma, y, mask, train=False, eps=eps,
+                                 variables=variables)
+
+    def raw_step(state: TrainState, x, y=None, mask=None, generator=None,
+                 sigma=None, eps=None):
+        sigma, eps, _ = _draw(
+            model, x, generator, sigma, eps, None,
+            (torch.empty(x.shape[0], device=x.device), torch.empty_like(x),
+             None))
+        return {"valid_loss": loss(state, x, y, mask, sigma, eps)}
+
+    if _raw:
+        return raw_step
 
     def eval_step(state: TrainState, x, y=None, mask=None, generator=None,
                   sigma=None, eps=None):
-        variables = state.ema_variables(ema) if use_ema else None
-        if sigma is None:
-            sigma = model.config.noisesampler.sample(
-                (x.shape[0],), generator, x.device)
-        with torch.no_grad():
-            loss = model.loss_fn(x, sigma, y, mask, train=False, eps=eps,
-                                 generator=generator, variables=variables)
-        return {"valid_loss": loss}
+        if x.device.type != "cuda":
+            return raw_step(state, x, y, mask, generator, sigma, eps)
+        if state.graphs is None:
+            state.graphs = graphs.GraphCache(x.device)
+        cache = state.graphs
+        # the graph reads the tensors of one EMA profile, or the params
+        profile = ema.profile_index if use_ema and ema is not None else None
+        key = ("eval", tuple(x.shape), x.dtype, graphs.condition_key(y),
+               graphs.condition_key(mask), profile)
+        graph = cache.graphs.get(key)
+        if graph is None:
+            inputs = (torch.empty_like(x), graphs.static_like(y, x.device),
+                      graphs.static_like(mask, x.device),
+                      torch.empty(x.shape[0], device=x.device),
+                      torch.empty_like(x))
+        else:
+            inputs = graph.inputs
+        xs, ys, masks, sigmas, epss = inputs
+        xs.copy_(x)
+        graphs.fill(ys, y)
+        graphs.fill(masks, mask)
+        _draw(model, x, generator, sigma, eps, None, (sigmas, epss, None))
+        if graph is None:
+            def body():
+                return loss(state, *inputs)
+
+            out = cache.warmup(body)
+            cache.capture(key, body).inputs = inputs
+        else:
+            graph.replay()
+            out = graph.outputs.clone()
+        return {"valid_loss": out}
 
     return eval_step

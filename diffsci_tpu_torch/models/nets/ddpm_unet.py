@@ -272,6 +272,14 @@ class UNet2D(nn.Module):
         device = resolve_device(device)
         blocks = tuple(block_out_channels)
         n = len(blocks)
+        # the constructor's arguments, for export_description
+        self.block_out_channels = blocks
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.attn_down, self.attn_up = tuple(attn_down), tuple(attn_up)
+        self.layers_per_block = layers_per_block
+        self.norm_num_groups, self.head_dim = norm_num_groups, head_dim
+        self.norm_eps, self.dropout = norm_eps, dropout
+        self.backend, self.dimension = backend, dimension
         attn_down = tuple(attn_down) or (False,) * n
         attn_up = tuple(attn_up) or (False,) * n
         if len(attn_down) != n or len(attn_up) != n:
@@ -310,6 +318,17 @@ class UNet2D(nn.Module):
         self.conv_out = _CONV[dimension](blocks[0], out_channels, 3,
                                          padding=1)
         self.to(device)
+
+    def export_description(self) -> dict:
+        """``{"kind": "unet2d", "config": ...}`` with the JAX package's
+        fields; ``dimension`` only when it is not 2 (the JAX module infers
+        it from its input)."""
+        from diffsci_tpu_torch.models.nets.describe import \
+            plain_module_description
+        desc = plain_module_description(self, "unet2d")
+        if self.dimension == 2:
+            del desc["config"]["dimension"]
+        return desc
 
     def forward(self, x, t):
         t = torch.as_tensor(t, device=x.device)

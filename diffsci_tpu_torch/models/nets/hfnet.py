@@ -34,6 +34,12 @@ class HFNet(nn.Module):
                  attn_up_and_down: bool = False, attn_backend: str = "xla",
                  device: torch.device | str | None = None):
         super().__init__()
+        # the constructor's arguments, for export_description
+        self.block_channels = tuple(block_channels)
+        self.channels, self.cond_channels = channels, cond_channels
+        self.norm_num_groups, self.dropout = norm_num_groups, dropout
+        self.attn_up_and_down, self.attn_backend = (attn_up_and_down,
+                                                    attn_backend)
         attn_down, attn_up = _attn_flags(len(block_channels),
                                          attn_up_and_down)
         self.unet = UNet2D(
@@ -47,6 +53,14 @@ class HFNet(nn.Module):
         if y is not None:
             x = torch.cat([x, y], dim=1)
         return self.unet(x, t)
+
+    def export_description(self) -> dict:
+        """``{"kind": "hfnet", "config": ...}`` with the JAX package's
+        fields (an ``HFNetUncond`` exports as an ``HFNet`` with no
+        condition channels, as in the JAX package)."""
+        from diffsci_tpu_torch.models.nets.describe import \
+            plain_module_description
+        return plain_module_description(self, "hfnet", HFNet)
 
 
 class HFNetUncond(HFNet):
@@ -77,3 +91,8 @@ class HFNetCond(HFNet):
         if y is None:
             raise ValueError("HFNetCond requires conditioning y")
         return super().forward(x, t, y)
+
+    def export_description(self) -> dict:
+        from diffsci_tpu_torch.models.nets.describe import \
+            plain_module_description
+        return plain_module_description(self, "hfnet_cond", HFNet)

@@ -24,6 +24,7 @@ class _MLP(nn.Module):
     def __init__(self, dim: int, extra: int, hidden_dims: Sequence[int],
                  dropout: float, device):
         super().__init__()
+        self.dim, self.hidden_dims = dim, tuple(hidden_dims)
         widths = [dim + extra] + list(hidden_dims)
         layers = []
         for i, o in zip(widths[:-1], widths[1:]):
@@ -31,6 +32,13 @@ class _MLP(nn.Module):
         self.net = nn.Sequential(*layers, nn.Linear(widths[-1], dim))
         self.dropout = dropout
         self.to(resolve_device(device))
+
+    def export_description(self) -> dict:
+        """``{"kind": "mlp" or "mlp_cond", "config": ...}`` with the JAX
+        package's fields."""
+        from diffsci_tpu_torch.models.nets.describe import \
+            plain_module_description
+        return plain_module_description(self, self.kind)
 
     def _stack(self, h):
         for layer in self.net:
@@ -42,6 +50,7 @@ class _MLP(nn.Module):
 
 class MLPUncond(_MLP):
     """concat(x, t) -> hidden stack -> dim; t defaults to zeros."""
+    kind = "mlp"
 
     def __init__(self, dim: int, hidden_dims: Sequence[int] = (10,),
                  dropout: float = 0.0,
@@ -58,6 +67,7 @@ class MLPCond(_MLP):
     """concat(x, t, y) -> hidden stack -> dim; y [B, ydim] or [1, ydim]
     (broadcast over the batch), a dict holding it under "y", or zeros when
     absent."""
+    kind = "mlp_cond"
 
     def __init__(self, dim: int, ydim: int,
                  hidden_dims: Sequence[int] = (10,), dropout: float = 0.0,

@@ -2,8 +2,9 @@
 
 Port of ``diffsci_tpu/serving.py:SamplerService`` (with
 ``sample_kwargs``: the integrator, ``stochastic``, ``langevin_scale``,
-``guidance``) without the cross-request dispatcher (``batch_window_ms``), ``mesh``, ``picard``,
-``from_checkpoint`` and the HTTP server. Requests are padded up to the
+``guidance``; and ``from_checkpoint``) without the cross-request
+dispatcher (``batch_window_ms``), ``mesh``, ``picard`` and the HTTP
+server. Requests are padded up to the
 nearest batch bucket and the padding rows dropped; requests above the
 largest bucket are split into chunks. On a CUDA device ``warmup()``
 captures one CUDA graph per bucket (``compile_sampler``), as the JAX
@@ -49,6 +50,35 @@ class SamplerService:
         self._warm: set[int] = set()
         self.stats = {"requests": 0, "samples": 0, "padded": 0,
                       "chunks": 0, "wall_seconds": 0.0}
+
+    @classmethod
+    def from_checkpoint(cls, path, shape: Sequence[int],
+                        ema_stds: Sequence[float] = (0.05, 0.1),
+                        ema_profile: int | None = 0,
+                        device: torch.device | str | None = None,
+                        **service_kwargs) -> "SamplerService":
+        """A service for a training checkpoint directory (``state.pt`` and
+        ``description.json``, as ``save_checkpoint`` writes them): the
+        model rebuilt from the description
+        (``karras_model_from_description``), then the weights of EMA
+        profile ``ema_profile`` read from ``state.pt`` into the network,
+        or the raw weights when ``ema_profile`` is None or ``ema_stds`` is
+        empty (the JAX package's signature; the profiles themselves are
+        found in the checkpoint, so any run's checkpoint serves, whatever
+        its optimizer or EMA). The buffers (the batch norm's statistics)
+        are the checkpoint's. On the CUDA card unless ``device`` says
+        otherwise."""
+        from diffsci_tpu_torch.checkpoint import (load_description,
+                                                  restore_weights)
+        from diffsci_tpu_torch.models.karras import \
+            karras_model_from_description
+
+        description = load_description(path)
+        if not description:
+            raise FileNotFoundError(f"no description.json under {path}")
+        model = karras_model_from_description(description, device=device)
+        restore_weights(path, model, ema_profile if ema_stds else None)
+        return cls(model, shape, device=model.device, **service_kwargs)
 
     def _run(self, batch: int, generator: torch.Generator) -> torch.Tensor:
         out = self.model.sample(batch, self.shape, generator=generator,

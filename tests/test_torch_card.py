@@ -883,3 +883,110 @@ def test_batch_norm_and_mp_graphed_steps_match_eager_on_card(_no_tf32):
                           for n in p_eager]).cpu().numpy()
         assert np.quantile(diff, 0.999) <= 0.05 * 1e-3
         assert diff.max() <= 2 * 3 * 1e-3
+
+
+def _small_2d():
+    return PUNetGConfig(model_channels=8, channel_expansion=[2],
+                        number_resnet_downward_block=1,
+                        number_resnet_upward_block=1,
+                        number_resnet_attn_block=1,
+                        number_resnet_before_attn_block=1,
+                        number_resnet_after_attn_block=1, num_heads=2)
+
+
+def test_restore_in_place_under_captured_graphs_on_card(tmp_path):
+    """A checkpoint restored into the live state, under its captured graphs
+    (the two of gradient accumulation and the EMA update's): the same
+    steps from the same generator give the same parameters, AdamW moments,
+    accumulated gradients and EMA shadows bit for bit, and no graph is
+    captured again."""
+    from diffsci_tpu_torch import (accumulate_gradients, restore_checkpoint,
+                                   save_checkpoint)
+    from diffsci_tpu_torch.checkpoint import state_tensors
+
+    model = KarrasModel(PUNetG(_small_2d()), KarrasModelConfig.from_edm(),
+                        compute_dtype=torch.bfloat16)
+    tracker = EMATracker(ema_type="power", power_function_stds=[0.05, 0.1],
+                         update_every=2)
+    state, tx = create_train_state(
+        model, (4, 16, 16, 1), seed=0, ema=tracker,
+        optimizer=accumulate_gradients(default_optimizer(), 2))
+    step = make_train_step(model, tx, ema=tracker)
+    x = torch.randn((4, 16, 16, 1), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1))
+
+    def run(seed, n=3):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        for _ in range(n):
+            step(state, x, generator=gen)
+        return {k: t.clone() for k, t in state_tensors(state).items()}
+
+    run(0, 4)                       # captures both step graphs and the EMA's
+    save_checkpoint(tmp_path / "c", state, model.export_description())
+    keys = set(state.graphs.graphs)
+    first = run(11)
+    restore_checkpoint(tmp_path / "c", state, model)
+    assert state.step == 4
+    again = run(11)
+    assert set(state.graphs.graphs) == keys and len(keys) == 3
+    for k in first:
+        assert torch.equal(first[k], again[k]), k
+
+
+def test_graphed_eval_step_matches_eager_on_card(_no_tf32):
+    """make_eval_step's graph (σ and ε drawn into its static inputs)
+    against the eager step from the same generator, on the parameters and
+    on the EMA shadows, before and after more training (the graph reads
+    both in place): within rtol 1e-5."""
+    from diffsci_tpu_torch import make_eval_step
+
+    model = KarrasModel(PUNetG(_small_2d()), KarrasModelConfig.from_edm())
+    tracker = EMATracker(ema_type="power", power_function_stds=[0.05])
+    state, tx = create_train_state(model, (4, 16, 16, 1), seed=0,
+                                   ema=tracker)
+    step = make_train_step(model, tx, ema=tracker)
+    gen = torch.Generator("cuda").manual_seed(2)
+    x = torch.randn((4, 16, 16, 1), device="cuda", generator=gen)
+    for use_ema in (False, True):
+        graphed = make_eval_step(model, tracker, use_ema=use_ema)
+        eager = make_eval_step(model, tracker, use_ema=use_ema, _raw=True)
+        seen = []
+        for _ in range(3):
+            for _ in range(2):
+                step(state, x, generator=gen)
+            got = graphed(state, x, generator=torch.Generator(
+                "cuda").manual_seed(7))["valid_loss"]
+            ref = eager(state, x, generator=torch.Generator(
+                "cuda").manual_seed(7))["valid_loss"]
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
+            seen.append(float(got))
+        assert len(set(seen)) == 3      # each replay saw the new weights
+    assert sum(k[0] == "eval" for k in state.graphs.graphs
+               if isinstance(k, tuple)) == 2
+
+
+def test_from_checkpoint_serves_like_the_in_memory_model_on_card(tmp_path):
+    """SamplerService.from_checkpoint on the card gives, for one seed, the
+    bits of a service over the in-memory state's EMA profile 0."""
+    from diffsci_tpu_torch import SamplerService, save_checkpoint
+    from diffsci_tpu_torch.models.karras import karras_model_from_description
+
+    model = KarrasModel(PUNetG(_small_2d()), KarrasModelConfig.from_edm(),
+                        compute_dtype=torch.bfloat16)
+    tracker = EMATracker(ema_type="power", power_function_stds=[0.05, 0.1])
+    state, tx = create_train_state(model, (4, 16, 16, 1), seed=0,
+                                   ema=tracker)
+    step = make_train_step(model, tx, ema=tracker)
+    gen = torch.Generator("cuda").manual_seed(3)
+    x = torch.randn((4, 16, 16, 1), device="cuda", generator=gen)
+    for _ in range(3):
+        step(state, x, generator=gen)
+    save_checkpoint(tmp_path / "c", state, model.export_description())
+    kw = dict(batch_buckets=(1, 4), nsteps=3)
+    served = SamplerService.from_checkpoint(tmp_path / "c", (16, 16, 1), **kw)
+    ref = karras_model_from_description(model.export_description())
+    ref.net.load_state_dict({**dict(model.net.named_buffers()),
+                             **tracker.get_params(state.ema, 0)})
+    mine = SamplerService(ref, (16, 16, 1), **kw)
+    assert np.array_equal(served.sample(4, generator=5),
+                          mine.sample(4, generator=5))

@@ -36,14 +36,7 @@ import jax.numpy as jnp
 from diffsci_tpu.kernels import fused_norm as jfn
 
 from diffsci_tpu_torch.kernels import fused_norm as fn
-
-# torch.exp on the CPU calls MKL's vector exp, which sets itself up on its
-# first call. When several of torch's threads make that first call at once
-# (a tensor of 32³ rows), one thread's share has come back off by up to
-# 1.5e-4 relative, in about one process of twelve where XLA's CPU client
-# had run; the emulations' exps are then no longer f32-exact. One small
-# call on one thread first sets it up.
-torch.exp(torch.zeros(1))
+from tests import _torch_warmup  # noqa: F401  (MKL's first exp)
 
 # fused_norm.cu's launch constants
 SMS = 132               # the H100's SMs

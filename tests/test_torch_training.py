@@ -39,18 +39,13 @@ from diffsci_tpu_torch import ops
 from diffsci_tpu_torch.convert import from_jax_variables
 from diffsci_tpu_torch.models.karras import ema
 from diffsci_tpu_torch.ops import losses
+from tests import _torch_warmup  # noqa: F401  (MKL's first exp)
 
 _SMALL = dict(model_channels=8, channel_expansion=(2,),
               number_resnet_downward_block=1, number_resnet_upward_block=1,
               number_resnet_attn_block=1, number_resnet_before_attn_block=1,
               number_resnet_after_attn_block=1, num_heads=2)
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "reference")
-# torch.exp on the CPU calls MKL's vector exp, which sets itself up on its
-# first call; made by several threads at once (the σ draws of 200000
-# samples below), one thread's share has come back off in the last bits
-# (tests/test_torch_norm_numerics.py). One small call on one thread first
-# sets it up, so that one seed gives one draw.
-torch.exp(torch.zeros(1))
 # 3D 32³ input, one downsampling: 16³ = 4096 bottleneck tokens, head dim 8
 _SMALL_3D = dict(_SMALL, dimension=3, attn_backend="flash")
 
