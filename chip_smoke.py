@@ -137,9 +137,50 @@ Phases (any failure raises, so the exit code is non-zero):
     1e-6 of float64; ``SamplerService.from_checkpoint`` through a
     ``ModelRegistry`` bit for bit against the in-memory EMA profile 0,
     35 K1 and 980 K2 a sample. Its temporary directory is deleted.
-18. One JSON line lists every kernel with its launches over phases 5 to
-    9, 11 to 15 and 17; the card's name and power limit; then the result
-    line.
+18. The optimizers written for the port at configuration B's full width
+    (batch 256, bf16 over f32 masters, the graphed step): 20 timed steps
+    each of ``schedule_free_optimizer()`` and ``default_optimizer(
+    mu_dtype=torch.bfloat16)``, exact launch counts (28 K2 and 28 K3 a
+    step), a finite falling loss, one capture of the step, ms a step
+    beside phase 8's AdamW step and the optimizer state's bytes beside
+    AdamW's; ``schedule_free_eval_params`` served through one graphed B
+    request.
+19. The serving stack at B's full width from a checkpoint of phase 18's
+    bf16-moment run (saved into a temporary directory that is deleted;
+    served in f32, after the command line with TF32 off, so that a
+    request batched in one bucket can be held to the same seed alone in
+    another):
+    ``python -m diffsci_tpu_torch info`` and ``sample --grid`` in a
+    subprocess on the card (the .npy bit for bit the in-process
+    ``from_checkpoint`` request, the PNG written without matplotlib);
+    ``build_server`` on port 0 with the dispatcher (``batch_window_ms=5``,
+    buckets (1, 8, 64)) and one at a time, 32 concurrent one-sample HTTP
+    clients with distinct seeds: requests/s, dispatches, exactly 35 K1 and
+    980 K2 a bucket run, each response bit for bit its seed alone in the
+    same bucket and within phase 2's tolerance in bucket 1, and the HTTP
+    overhead of one request; the same in-process under Euler–Maruyama (18
+    network calls a dispatch); Picard (window 8, tol 1e-3 and 0) at B's
+    and A's bucket 1, 18 and 64 steps, f32, against the
+    sequential Euler request (sweeps, wall, one network call's launches a
+    sweep, tol 0 in nsteps sweeps within phase 2's tolerance); 1-NFE
+    serving at bucket 64 (one K1 and 28 K2, equal to ``get_denoiser``),
+    and a cold 1-NFE dispatcher service whose 16 concurrent first
+    requests warm each bucket once and get their rows of
+    ``sample_onestep`` bit for bit; configuration C's DDIM through the
+    dispatcher (one K7 a step a dispatch, each row bit for bit
+    ``DDPMModel.sample`` of its row generator);
+    AnoDDPM and DDAD on 64 images at step 30 of 100, clean against
+    corrupted, ``interpolate_images`` and ``sample_and_filter``, with exact
+    launch counts; one request under torch.profiler, its trace read back
+    by ``python -m diffsci_tpu_torch profile`` (K1's and K2's rows equal
+    to the launch counter, the busy fraction).
+20. Card vs CPU, f32, TF32 off, on phase 2's net: Picard at tol 0, 1e-3
+    and stochastic on the card's draws; the dispatcher's isolation on the
+    card and its row against the CPU; AnoDDPM with replayed draws; three
+    schedule-free and three bf16-moment train steps (phase 3's bounds).
+21. One JSON line lists every kernel with its launches over phases 5 to
+    9, 11 to 15 and 17 to 20; the card's name and power limit; then the
+    result line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -175,12 +216,14 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # K1's and K7's checks: the main paths' shapes (B's sampler at bucket 64,
-# A's at bucket 4, C's at 16 and 64), ragged rows, many short rows, one
+# A's at bucket 4, C's at 16 and 64, A's and B's Picard sweeps at batch
+# 8), ragged rows, many short rows, one
 # long row, and operands whose base is not 16-byte aligned (contiguous
 # views at a storage offset of 1 element: x alone, f alone, x and f, and
 # for K7 g alone and all three). (shape, the offset operands)
 COMBINE_CASES = (((64, 28, 28, 1), ""), ((4, 32, 32, 32, 1), ""),
                  ((16, 32, 32, 3), ""), ((64, 32, 32, 3), ""),
+                 ((8, 32, 32, 32, 1), ""), ((8, 28, 28, 1), ""),
                  ((3, 1001), ""), ((5, 7), ""), ((4096, 3), ""),
                  ((1, 2 ** 20 + 3), ""), ((64, 28, 28, 1), "x"),
                  ((64, 28, 28, 1), "f"), ((64, 28, 28, 1), "xf"),
@@ -199,10 +242,11 @@ COMBINE_TIMED = {"fused_axby": ((1, 32, 32, 32, 1), (4, 32, 32, 32, 1),
                                 (64, 28, 28, 1)),
                  "fused_lincomb3": ((1, 32, 32, 3), (16, 32, 32, 3))}
 
-# (B, H, T, d) of phase 1's flash checks; the first is config A's
+# (B, H, T, d) of phase 1's flash checks; the first is config A's, the
+# last A's Picard sweep (window 8 at bucket 1)
 FLASH_SWEEP = ((4, 2, 4096, 32), (1, 2, 4096, 8), (2, 4, 4096, 16),
                (1, 2, 4097, 32), (1, 1, 2049, 64), (1, 1, 2111, 128),
-               (2, 1, 2048, 40), (1, 2, 2048, 20))
+               (2, 1, 2048, 40), (1, 2, 2048, 20), (8, 2, 4096, 32))
 
 NSTEPS = 18
 NFE = 2 * NSTEPS - 1       # Heun with the EDM endpoint rule
@@ -557,11 +601,12 @@ def phase_kernels():
     check_combines(fp, gen, record)
 
     # config A serves and trains at batch 4 (and serves at bucket 1);
-    # config B serves at bucket 64 and trains at batch 256; rows that are
-    # not 16-byte aligned (S = 49, 1001) and an x whose base is not (a view
-    # at an element offset of 1); off-centre inputs (|μ| = 100σ); rows
-    # beyond a cluster's shared memory (f32 [1, 2, 300000]: the stream
-    # kernel). (shape, scale, shift, offset)
+    # config B serves at bucket 64 and trains at batch 256; A's and B's
+    # Picard sweeps run the net at batch 8 (B also serves bucket 8); rows
+    # that are not 16-byte aligned (S = 49, 1001) and an x whose base is
+    # not (a view at an element offset of 1); off-centre inputs
+    # (|μ| = 100σ); rows beyond a cluster's shared memory (f32
+    # [1, 2, 300000]: the stream kernel). (shape, scale, shift, offset)
     norm_cases = [((4, 32, 32, 32, 32), 2.0, 0.3, 0),
                   ((4, 64, 16, 16, 16), 2.0, 0.3, 0),
                   ((1, 32, 32, 32, 32), 2.0, 0.3, 0),
@@ -571,6 +616,11 @@ def phase_kernels():
                   ((256, 64, 28, 28), 2.0, 0.3, 0),
                   ((256, 128, 14, 14), 2.0, 0.3, 0),
                   ((256, 256, 7, 7), 2.0, 0.3, 0),
+                  ((8, 32, 32, 32, 32), 2.0, 0.3, 0),
+                  ((8, 64, 16, 16, 16), 2.0, 0.3, 0),
+                  ((8, 64, 28, 28), 2.0, 0.3, 0),
+                  ((8, 128, 14, 14), 2.0, 0.3, 0),
+                  ((8, 256, 7, 7), 2.0, 0.3, 0),
                   ((3, 5, 7, 7), 2.0, 0.3, 0), ((2, 3, 1001), 2.0, 0.3, 0),
                   ((2, 3, 1001), 2.0, 0.3, 1), ((64, 64, 28, 28), 2.0, 0.3, 1),
                   ((1, 32, 32, 32, 32), 2.0, 0.3, 1),
@@ -914,7 +964,7 @@ def phase_train_card_vs_cpu(config: str = "edm"):
 
 def train_card_vs_cpu(label, make_model, x_shape, sigma_draw, required,
                       y=None, has_mp_weights=False, keep=None, lr=1e-3,
-                      nsteps=3):
+                      nsteps=3, make_tx=None):
     """``nsteps`` f32 train steps of ``make_model(device)`` on the CPU
     (plain versions) and on the card (kernels, the graphed step), from the
     same weights, batch, condition ``y`` and σ/ε draws (and condition-drop
@@ -925,7 +975,8 @@ def train_card_vs_cpu(label, make_model, x_shape, sigma_draw, required,
     rounding flips a near-zero gradient, so 99.9% of entries within
     0.05·lr and every entry within 2·k·lr after k steps; buffers (the
     batch norm's running statistics) within rtol 1e-5. The ``required``
-    kernels must have been launched, K1 not."""
+    kernels must have been launched, K1 not. ``make_tx(lr)`` replaces
+    ``default_optimizer``."""
     from diffsci_tpu_torch import (EMATracker, create_train_state,
                                    default_optimizer, kernels,
                                    make_train_step)
@@ -945,7 +996,8 @@ def train_card_vs_cpu(label, make_model, x_shape, sigma_draw, required,
             model.net.load_state_dict(weights, strict=True)
         tracker = EMATracker(ema_type="power", power_function_stds=[0.05])
         state, tx = create_train_state(model, x_shape, seed=None,
-                                       optimizer=default_optimizer(lr),
+                                       optimizer=(make_tx or
+                                                  default_optimizer)(lr),
                                        ema=tracker)
         step = make_train_step(model, tx, ema=tracker,
                                has_mp_weights=has_mp_weights)
@@ -1196,7 +1248,7 @@ def ddpm_c(arm):
 
 def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
           profiled=False, model=None, y=None, has_mp_weights=False,
-          x=None):
+          x=None, optimizer=None, keep=None):
     """Train one configuration at full width: bf16 compute over f32 masters,
     AdamW with clip 0.5, power EMA every 4 steps, on one fixed batch.
     ``warmup`` steps, then ``steps`` timed with the host clock and a sync
@@ -1208,8 +1260,9 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
     ``model`` (a bf16 KarrasModel) replaces the one built from ``cfg`` and
     ``config``; ``x`` (default: N(0, 1) from the step's generator) and
     ``y`` are the batch and its condition; ``has_mp_weights`` goes to the
-    step. Returns the launch counts, the model and the milliseconds a
-    timed step took."""
+    step; ``optimizer`` replaces AdamW (clip 0.5); ``keep``, a dict,
+    receives the train state. Returns the launch counts, the model and the
+    milliseconds a timed step took."""
     from diffsci_tpu_torch import (EMATracker, KarrasModel, KarrasModelConfig,
                                    PUNetG, create_train_state, kernels,
                                    make_train_step)
@@ -1220,7 +1273,10 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
                             compute_dtype=torch.bfloat16)
     tracker = EMATracker(ema_type="power", power_function_stds=[0.05],
                          update_every=4)
-    state, tx = create_train_state(model, x_shape, seed=0, ema=tracker)
+    state, tx = create_train_state(model, x_shape, seed=0, ema=tracker,
+                                   optimizer=optimizer)
+    if keep is not None:
+        keep["state"] = state
     step = make_train_step(model, tx, ema=tracker,
                            has_mp_weights=has_mp_weights)
     nparams = sum(p.numel() for p in state.params.values())
@@ -1330,6 +1386,22 @@ def within_phase2(out, ref):
     err = float((out - ref).abs().max())
     return err, bool(torch.isfinite(out).all()) and bool(
         torch.allclose(out, ref, rtol=1e-3, atol=1e-3))
+
+
+def within_float64(card, ref, ref64):
+    """The card's float32 result against the CPU's loop with the net in
+    float64 (phase 11's form of phase 2's tolerance, for ill-conditioned
+    loops): within 1e-3·|ref64| plus the larger of 1e-3 of the state's
+    scale and 4× the CPU float32 loop's own distance from ref64. Returns
+    (max|card − ref64|, max|ref − ref64|, ok)."""
+    ref64 = ref64.float()
+    err = float((card - ref64).abs().max())
+    own = float((ref - ref64).abs().max())
+    scale = max(1.0, float(ref64.abs().max()))
+    ok = bool(torch.isfinite(card).all()) and bool(
+        ((card - ref64).abs() <= 1e-3 * ref64.abs()
+         + max(1e-3 * scale, 4 * own)).all())
+    return err, own, ok
 
 
 def within_phase4(out, ref):
@@ -1628,13 +1700,7 @@ def phase_stochastic_card_vs_cpu():
             err, ok = within_phase2(card, ref)
             extra = ""
         else:
-            ref64 = ref64.float()
-            err = float((card - ref64).abs().max())
-            own = float((ref - ref64).abs().max())
-            scale = max(1.0, float(ref64.abs().max()))
-            ok = bool(torch.isfinite(card).all()) and bool(
-                ((card - ref64).abs() <= 1e-3 * ref64.abs()
-                 + max(1e-3 * scale, 4 * own)).all())
+            err, own, ok = within_float64(card, ref, ref64)
             extra = (f"; against the float64 loop: card {err:.3e}, cpu "
                      f"float32 {own:.3e}")
             err = float((card - ref).abs().max())
@@ -2477,6 +2543,798 @@ def phase_fit_checkpoint_serve(cfg_b, zero, bare_step_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 18 to 20: the optimizers, the serving stack, card against CPU
+# ---------------------------------------------------------------------------
+def optimizer_bytes(state) -> int:
+    """Bytes of an optimizer's state tensors, each tensor counted once."""
+    sizes = {}
+    for slot in state.optimizer.state.values():
+        for t in slot.values():
+            if torch.is_tensor(t):
+                sizes[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(sizes.values())
+
+
+def phase_optimizers(cfg_b, zero, adamw_step_ms):
+    """Configuration B (batch 256, bf16 over f32 masters, the graphed step)
+    under the two optimizers written for the port: 20 timed steps each of
+    ``schedule_free_optimizer()`` and ``default_optimizer(mu_dtype=
+    torch.bfloat16)`` with exact launch counts, a finite falling loss and
+    one capture of the step; ms a step beside phase 8's AdamW step and the
+    optimizer state's bytes beside AdamW's f32 moments; then
+    ``schedule_free_eval_params`` loaded into a B model and served through
+    one graphed request. Returns the launch counts and the bf16-moment
+    run's (model, state)."""
+    from diffsci_tpu_torch import (SamplerService, default_optimizer,
+                                   kernels, schedule_free_eval_params,
+                                   schedule_free_optimizer)
+
+    card = smi("name,power.limit")
+    per_step = dict(zero, norm_silu=28, norm_silu_bwd=28)
+    runs, counts = {}, []
+    for label, tx in (("schedule-free", schedule_free_optimizer()),
+                      ("bf16 moment", default_optimizer(
+                          mu_dtype=torch.bfloat16))):
+        keep = {}
+        c, model, ms = train(f"config B {label}", cfg_b, (256, 28, 28, 1),
+                             20, per_step, optimizer=tx, keep=keep)
+        state = keep["state"]
+        steps = sum(isinstance(k, tuple) for k in state.graphs.graphs)
+        nparams = sum(p.numel() for p in state.params.values())
+        nbytes = optimizer_bytes(state)
+        adamw = 8 * nparams + 4 * len(state.params)
+        log(f"[optimizers config B] {card}: {label}: {ms:.2f} ms a step, "
+            f"phase 8's AdamW step {adamw_step_ms:.2f} ms (ratio "
+            f"{ms / adamw_step_ms:.3f}); optimizer state {nbytes} bytes "
+            f"({nbytes / 1e6:.1f} MB) for {nparams} parameters, AdamW's f32 "
+            f"moments and steps {adamw} bytes (saving {adamw - nbytes} "
+            f"bytes); step graphs captured {steps}")
+        if steps != 1:
+            raise AssertionError(f"phase 18: {label} captured {steps} step "
+                                 "graphs, expected one")
+        counts.append(c)
+        runs[label] = (model, state)
+
+    model, state = runs["schedule-free"]
+    served = karras(cfg_b)
+    served.net.load_state_dict({**dict(model.net.named_buffers()),
+                                **schedule_free_eval_params(state)})
+    svc = SamplerService(served, (28, 28, 1), batch_buckets=(64,))
+    svc.warmup()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = svc.sample(64, generator=5)
+    dt = time.perf_counter() - t0
+    serve_counts = dict(kernels.LAUNCHES)
+    expected = dict(zero, fused_axby=NFE, norm_silu=28 * NFE)
+    ok = serve_counts == expected and np.isfinite(out).all()
+    log(f"[optimizers config B] {card}: schedule_free_eval_params served "
+        f"through one graphed request of 64: {dt:.4f} s, std "
+        f"{out.std():.4f}; launches {serve_counts} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 18: the schedule-free eval weights did "
+                             "not serve, or not through the kernels")
+    return counts + [serve_counts], runs["bf16 moment"]
+
+
+def http_post(url, obj, timeout=60):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def recorded_dispatches(svc) -> list:
+    """Wrap a service's dispatch: the list it returns fills with (bucket,
+    the row seeds of each request) per dispatch."""
+    record, dispatch = [], svc._dispatch
+
+    def recording(batch, total):
+        record.append((svc._bucket(total), [list(r.seeds) for r in batch]))
+        dispatch(batch, total)
+
+    svc._dispatch = recording
+    return record
+
+
+def crowd(fn, seeds) -> tuple[dict, float]:
+    """``fn(seed)`` from one thread per seed, all at once: the results by
+    seed and the wall seconds."""
+    import threading
+
+    results, errors = {}, []
+
+    def client(seed):
+        try:
+            results[seed] = fn(seed)
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(s,)) for s in seeds]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return results, wall
+
+
+def isolation(label, model, shape, results, record, sample_kwargs):
+    """Each crowded one-row request against the same seed served alone
+    through the dispatcher: bit for bit in the bucket its dispatch used,
+    and within phase 2's tolerance in bucket 1."""
+    from diffsci_tpu_torch import SamplerService
+    from diffsci_tpu_torch.serving import row_seeds
+
+    bucket_of = {seeds[0]: b for b, reqs in record for seeds in reqs}
+    alone = {}
+    for b in sorted(set(bucket_of.values()) | {1}):
+        alone[b] = SamplerService(model, shape, batch_buckets=(b,),
+                                  batch_window_ms=1.0,
+                                  sample_kwargs=sample_kwargs)
+    same, close, worst = 0, 0, 0.0
+    for seed, got in results.items():
+        b = bucket_of[row_seeds(seed, 1)[0]]
+        same += np.array_equal(got, alone[b].sample(1, seed))
+        err, ok = within_phase2(torch.from_numpy(got),
+                                torch.from_numpy(alone[1].sample(1, seed)))
+        close += ok
+        worst = max(worst, err)
+    for svc in alone.values():
+        svc.close()
+    ok = same == close == len(results)
+    log(f"[dispatcher {label}] per-row isolation: {same} of {len(results)} "
+        f"crowded requests bit for bit the same seed alone in their "
+        f"bucket; against bucket 1 max|Δ| {worst:.3e}, {close} within "
+        f"phase 2's tolerance {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 19: {label}: a row depended on what it "
+                             "was batched with")
+
+
+def dispatch_rows(record, results, run) -> tuple[int, int]:
+    """Each dispatch of ``record`` run again as ``run(bucket, the rows'
+    generators)``: how many of the crowded one-row requests of
+    ``results`` are bit for bit their row there, and how many there
+    are."""
+    from diffsci_tpu_torch.serving import row_seeds
+
+    by_row = {row_seeds(seed, 1)[0]: got for seed, got in results.items()}
+    same = 0
+    for b, reqs in record:
+        rows = [s for seeds in reqs for s in seeds]
+        gens = [torch.Generator("cuda").manual_seed(s) for s in rows]
+        out = run(b, gens).cpu().numpy()
+        same += sum(np.array_equal(by_row[s], out[i:i + 1])
+                    for i, s in enumerate(rows))
+    return same, len(results)
+
+
+def ddpm_dispatcher_arm(model_c, zero, card) -> dict:
+    """Configuration C (DDIM, 100 steps, bf16) through the dispatcher at
+    buckets (1, 16), over phase 9's model and graphs: 16 concurrent
+    one-sample requests, one K7 a step a dispatch and nothing else, and
+    each request bit for bit its row of ``DDPMModel.sample`` with its
+    dispatch's row generators (x_T and each step's noise from the row's
+    own generator)."""
+    from diffsci_tpu_torch import SamplerService, kernels
+
+    shape = (32, 32, 3)
+    svc = SamplerService(model_c, shape, batch_buckets=(1, 16),
+                         nsteps=DDIM_STEPS, batch_window_ms=5.0)
+    svc.warmup()
+    record = recorded_dispatches(svc)
+    kernels.reset_launches()
+    results, wall = crowd(lambda s: svc.sample(1, s), range(3000, 3016))
+    c = dict(kernels.LAUNCHES)
+    svc.close()
+    expected = dict(zero, fused_lincomb3=DDIM_STEPS * len(record))
+    same, n = dispatch_rows(record, results, lambda b, gens: model_c.sample(
+        b, shape, generator=gens, nsteps=DDIM_STEPS))
+    ok = c == expected and same == n and all(
+        np.isfinite(r).all() and r.shape == (1,) + shape
+        for r in results.values())
+    log(f"[dispatcher config C DDIM] {card}: 16 concurrent one-sample "
+        f"requests in {wall:.4f} s, {len(record)} dispatches (buckets "
+        f"{sorted(b for b, _ in record)}); launches {c}, expected "
+        f"{expected}; {same} of {n} bit for bit their row of "
+        f"DDPMModel.sample with the rows' generators "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 19: DDIM through the dispatcher gave "
+                             "wrong launch counts or rows that are not "
+                             "their generators'")
+    return c
+
+
+def phase_serving_stack(cfg_a, cfg_b, zero, trained, model_c):
+    """The serving stack at configuration B's full width, from a checkpoint
+    of phase 18's bf16-moment run saved into a temporary directory that is
+    deleted at the end: the command line (``info``, ``sample --grid`` in a
+    subprocess, bit for bit the in-process request); ``build_server`` with
+    the dispatcher (``batch_window_ms=5``, buckets (1, 8, 64)) against
+    one-at-a-time serving, 32 concurrent one-sample clients, per-row
+    isolation and exact launches per dispatch; the same with
+    Euler–Maruyama in-process; Picard mode at B's and A's bucket 1, 18 and
+    64 steps; 1-NFE mode at bucket 64, and a cold 1-NFE dispatcher
+    service; configuration C's DDIM through the dispatcher (``model_c``,
+    phase 9's model); AnoDDPM, DDAD, ``interpolate_images``
+    and ``sample_and_filter``; a profiled request read back by
+    ``python -m diffsci_tpu_torch profile``. The command line runs at
+    PyTorch's default TF32 setting, as its process does; the rest with
+    TF32 off, since it holds a request batched in one bucket against the
+    same seed alone in another, where TF32's rounding alone moves a sample
+    by phase 2's tolerance. Returns the launch counts."""
+    import pathlib
+    import shutil
+    import tempfile
+    import threading
+
+    from diffsci_tpu_torch import (SamplerService, kernels, profiling,
+                                   save_checkpoint)
+    from diffsci_tpu_torch.serving import build_server
+
+    card = smi("name,power.limit")
+    root = os.path.dirname(os.path.abspath(__file__))
+    shape = (28, 28, 1)
+    model, state = trained
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    counts = []
+    tf32 = torch.backends.cudnn.allow_tf32
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "diffsci_tpu_torch",
+                              *map(str, args)], cwd=root, capture_output=True,
+                             text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"phase 19: python -m diffsci_tpu_torch "
+                                 f"{args[0]} exited {res.returncode}: "
+                                 f"{res.stderr[-3000:]}")
+        return res.stdout, time.perf_counter() - t0
+
+    try:
+        ckpt = tmp / "ckpt"
+        save_checkpoint(ckpt, state, model.export_description())
+        info, info_s = cli("info", "--ckpt", ckpt)
+        tag = json.loads(info)["config_description"]["tag"]
+        text, sample_s = cli("sample", "--ckpt", ckpt, "--shape", *shape,
+                             "--nsamples", 64, "--seed", 11, "--out",
+                             tmp / "s.npy", "--grid", tmp / "grid.png")
+        from_cli = np.load(tmp / "s.npy")
+        base = SamplerService.from_checkpoint(ckpt, shape, ema_stds=[0.05],
+                                              batch_buckets=(64,))
+        in_process = base.sample(64, generator=11)
+        png = (tmp / "grid.png").read_bytes()
+        same = np.array_equal(from_cli, in_process)
+        ok = (tag == "edm" and same and png[:8] == b"\x89PNG\r\n\x1a\n"
+              and np.isfinite(from_cli).all())
+        log(f"[cli config B] {card}: info {info_s:.1f} s (tag {tag}); "
+            f"sample --nsamples 64 --seed 11 --grid {sample_s:.1f} s in a "
+            f"subprocess on the card ({text.strip().splitlines()[-1]}); the "
+            f".npy bit for bit the in-process from_checkpoint request "
+            f"{same}; PNG {len(png)} bytes written without matplotlib "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 19: the command line's sample "
+                                 "differs from the in-process request")
+        # the rest runs without TF32, in graphs captured without it
+        torch.backends.cudnn.allow_tf32 = False
+        served = SamplerService.from_checkpoint(
+            ckpt, shape, ema_stds=[0.05]).model   # f32, EMA profile 0
+
+        # HTTP: 32 one-sample clients, dispatcher against one at a time
+        per_run = {"fused_axby": NFE, "norm_silu": 28 * NFE}
+        seeds = list(range(1000, 1032))
+        http = {}
+        for window in (5.0, 0.0):
+            svc = SamplerService(served, shape, batch_buckets=(1, 8, 64),
+                                 batch_window_ms=window)
+            svc.warmup()
+            record = recorded_dispatches(svc) if window else None
+            server = build_server(svc, 0, max_nsamples=64)
+            url = f"http://127.0.0.1:{server.server_address[1]}/sample"
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            http_post(url, {"nsamples": 1, "seed": 1})
+            if record is not None:
+                record.clear()
+            kernels.reset_launches()
+            results, wall = crowd(lambda s: np.asarray(http_post(
+                url, {"nsamples": 1, "seed": s})["samples"], np.float32),
+                seeds)
+            c = dict(kernels.LAUNCHES)
+            runs = len(record) if window else len(seeds)
+            dispatches = svc.stats["batched_dispatches"]
+            buckets = sorted(b for b, _ in record) if window else "-"
+            expected = dict(zero, **{k: n * runs for k, n in per_run.items()})
+            t0 = time.perf_counter()
+            http_post(url, {"nsamples": 1, "seed": 7})
+            one_http = time.perf_counter() - t0
+            server.shutdown()
+            server.server_close()
+            t0 = time.perf_counter()
+            svc.sample(1, 7)
+            one_inproc = time.perf_counter() - t0
+            svc.close()
+            http[window] = (results, wall, record, runs)
+            ok = c == expected and all(np.isfinite(r).all() and
+                                       r.shape == (1,) + shape
+                                       for r in results.values())
+            log(f"[http config B] {card}: batch_window_ms {window}: 32 "
+                f"concurrent one-sample clients in {wall:.4f} s, "
+                f"{len(seeds) / wall:.2f} requests/s; {runs} bucket runs "
+                f"(dispatch buckets {buckets}; the service's "
+                f"batched_dispatches {dispatches}, the warm-up request's "
+                f"included); launches {c}, expected "
+                f"{expected}; one request alone over HTTP {one_http:.4f} s, "
+                f"in-process {one_inproc:.4f} s (HTTP overhead "
+                f"{one_http - one_inproc:.4f} s) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("phase 19: HTTP serving gave a wrong "
+                                     "shape, a non-finite value or launch "
+                                     "counts that are not a Heun sample's "
+                                     "per bucket run")
+            counts.append(c)
+        results, wall, record, runs = http[5.0]
+        log(f"[http config B] dispatcher {len(seeds) / wall:.2f} requests/s "
+            f"against one at a time {len(seeds) / http[0.0][1]:.2f} "
+            f"(ratio {http[0.0][1] / wall:.3f}), "
+            f"{runs} dispatches for {len(seeds)} requests")
+        isolation("config B", served, shape, results, record, None)
+
+        # Euler–Maruyama through the dispatcher, in-process
+        sto = {"stochastic": True}
+        svc = SamplerService(served, shape, batch_buckets=(1, 8, 64),
+                             batch_window_ms=5.0, sample_kwargs=sto)
+        svc.warmup()
+        record = recorded_dispatches(svc)
+        kernels.reset_launches()
+        results, wall = crowd(lambda s: svc.sample(1, s), seeds)
+        c = dict(kernels.LAUNCHES)
+        svc.close()
+        expected = dict(zero, fused_axby=NSTEPS * len(record),
+                        norm_silu=28 * NSTEPS * len(record))
+        log(f"[dispatcher config B EM] {card}: 32 concurrent one-sample "
+            f"requests in {wall:.4f} s, {len(record)} dispatches (buckets "
+            f"{sorted(b for b, _ in record)}); launches {c}, expected "
+            f"{expected} {'ok' if c == expected else 'FAIL'}")
+        if c != expected:
+            raise AssertionError("phase 19: stochastic dispatches did not "
+                                 "make 18 network calls each")
+        counts.append(c)
+        isolation("config B EM", served, shape, results, record, sto)
+
+        counts += picard_arms(cfg_a, served, zero, card)
+        counts.append(onestep_arm(model, zero, card))
+        counts.append(ddpm_dispatcher_arm(model_c, zero, card))
+        counts += feature_arms(model, served, zero, card)
+        counts.append(profiled_request(served, zero, card, tmp, cli))
+        return counts
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def picard_arms(cfg_a, model_b, zero, card) -> list:
+    """Picard latency mode (window 8, tol 1e-3) at B's and A's bucket 1,
+    18 and 64 steps, against the sequential Euler request of the same
+    seed: sweeps and wall; tol 0 in exactly nsteps sweeps within phase 2's
+    tolerance of it; one K1 and one network call's K2 (and K4 in A) a
+    sweep. The nets run in f32 with TF32 off (B: the served checkpoint,
+    A: random weights from seed 0), since a Picard sweep runs the network
+    at batch 8 and the sequential sampler at batch 1, where cuDNN may pick
+    other algorithms: with TF32 their rounding alone moves a sample by
+    phase 2's tolerance."""
+    from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
+                                   SamplerService, kernels)
+
+    model_a = KarrasModel(PUNetG(cfg_a), KarrasModelConfig.from_edm())
+    model_a.init(seed=0)
+    counts = []
+    for label, model, shape, per_call in (
+            ("B", model_b, (28, 28, 1), dict(fused_axby=1, norm_silu=28)),
+            ("A", model_a, (32, 32, 32, 1),
+             dict(fused_axby=1, norm_silu=20, flash_attention=1))):
+        for nsteps in (NSTEPS, 64):
+            def service(**kw):
+                svc = SamplerService(model, shape, batch_buckets=(1,),
+                                     nsteps=nsteps, **kw)
+                svc.warmup()
+                return svc
+
+            seq = service(sample_kwargs={"integrator": "euler"})
+            ref = seq.sample(1, 77)
+            seq_wall = walls(lambda: seq.sample(1, 77))
+            arms = {}
+            for tol in (1e-3, 0.0):
+                svc = service(picard={"window": 8, "tol": tol})
+                svc.sample(1, 77)
+                kernels.reset_launches()
+                svc.stats["picard_sweeps"] = 0
+                t0 = time.perf_counter()
+                out = svc.sample(1, 77)
+                wall = time.perf_counter() - t0
+                c = dict(kernels.LAUNCHES)
+                sweeps = svc.stats["picard_sweeps"]
+                err, close = within_phase2(torch.from_numpy(out),
+                                           torch.from_numpy(ref))
+                expected = dict(zero, **{k: n * sweeps
+                                         for k, n in per_call.items()})
+                arms[tol] = (sweeps, wall, err, close, c == expected)
+                counts.append(c)
+            (s3, w3, e3, _, c3), (s0, w0, e0, close0, c0) = \
+                arms[1e-3], arms[0.0]
+            ok = c3 and c0 and close0 and s0 == nsteps and np.isfinite(e3)
+            log(f"[picard config {label}] {card}: f32, bucket 1, {nsteps} "
+                f"steps, window 8 (network batch 8): tol 1e-3 {s3} sweeps in "
+                f"{w3:.4f} s, max|Δ| to sequential Euler {e3:.3e}; tol 0 "
+                f"{s0} sweeps in {w0:.4f} s, max|Δ| {e0:.3e} (within "
+                f"phase 2's tolerance: {close0}); sequential Euler {nsteps} "
+                f"network calls, "
+                f"{fmt(seq_wall)}; launches a sweep as one network call: "
+                f"{c3 and c0} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"phase 19: Picard on config {label} at "
+                                     f"{nsteps} steps: wrong sweeps, launch "
+                                     "counts or result")
+    return counts
+
+
+def onestep_arm(model, zero, card) -> dict:
+    """1-NFE serving at bucket 64: one K1 and 28 K2 a request, equal to
+    ``get_denoiser(σ_max·ε, σ_max)`` on the request's ε. Then a cold
+    dispatcher service at buckets (1, 8), never warmed by hand: 16
+    concurrent first requests warm each bucket once (the callers that
+    arrive meanwhile wait, and the warm-up replays nothing), and each is
+    bit for bit its row of ``sample_onestep`` with its dispatch's row
+    generators."""
+    from diffsci_tpu_torch import SamplerService, kernels
+    from diffsci_tpu_torch.models.karras.distill import sample_onestep
+
+    svc = SamplerService(model, (28, 28, 1), batch_buckets=(64,), nsteps=1)
+    svc.warmup()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = svc.sample(64, 99)
+    wall = time.perf_counter() - t0
+    c = dict(kernels.LAUNCHES)
+    eps = torch.randn((64, 28, 28, 1), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(99))
+    with torch.inference_mode():
+        ref = model.get_denoiser(80.0 * eps, torch.full((64,), 80.0,
+                                                        device="cuda"))[0]
+    err, close = within_phase2(torch.from_numpy(out), ref.cpu())
+    expected = dict(zero, fused_axby=1, norm_silu=28)
+    ok = c == expected and close
+    log(f"[1-NFE config B] {card}: nsteps=1, a request of 64 in "
+        f"{wall:.4f} s; against get_denoiser(80·ε, 80) max|Δ| {err:.3e} "
+        f"(bit for bit {np.array_equal(out, ref.cpu().numpy())}); launches "
+        f"{c}, expected {expected} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 19: 1-NFE serving is not one denoiser "
+                             "call")
+
+    cold = SamplerService(model, (28, 28, 1), batch_buckets=(1, 8),
+                          nsteps=1, batch_window_ms=5.0)
+    compiles, compile_bucket = [], cold._compile
+
+    def counted(b):
+        compiles.append(b)
+        compile_bucket(b)
+
+    cold._compile = counted
+    record = recorded_dispatches(cold)
+    results, wall = crowd(lambda s: cold.sample(1, s), range(2000, 2016))
+    cold.close()
+    same, n = dispatch_rows(record, results, lambda b, gens: sample_onestep(
+        model, b, (28, 28, 1), gens))
+    ok = compiles == [1, 8] and same == n
+    log(f"[1-NFE config B cold dispatcher] {card}: 16 concurrent first "
+        f"requests in {wall:.4f} s (warm-up included), buckets warmed "
+        f"{compiles}, {len(record)} dispatches; {same} of {n} bit for bit "
+        f"their row of sample_onestep with the rows' generators "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 19: a cold 1-NFE dispatcher warmed a "
+                             "bucket twice or mixed up rows")
+    return c
+
+
+def feature_arms(model, served, zero, card) -> list:
+    """AnoDDPM and DDAD on 64 B images at step 30 of 100 (clean: samples of
+    the served model; corrupted: a bright 12×12 patch), their
+    reconstruction errors and walls; ``interpolate_images`` (8 inner
+    points, 18 steps) and ``sample_and_filter`` (128 samples in chunks of
+    64): walls. Exact launch counts, one K1 a network call."""
+    from diffsci_tpu_torch import kernels
+    from diffsci_tpu_torch.features import DDAD, AnoDDPM
+
+    sched = model.config.noisescheduler
+    clean = model.sample(64, (28, 28, 1), torch.Generator("cuda")
+                         .manual_seed(3), nsteps=NSTEPS)
+    corrupt = clean.clone()
+    corrupt[:, 8:20, 8:20, :] += 3.0
+
+    def score(x, sigma):
+        return model.get_score(x, sigma)
+
+    # the guidance term w·(y − x) is stable while w·t·|dt| < 1 on the grid
+    t = sched.create_steps(101)
+    w = float(0.5 / (t[30:100] * np.abs(np.diff(t)[30:100])).max())
+    arms = (("AnoDDPM", AnoDDPM(sched), lambda det, x, g:
+             det.reconstruction_error(x, score, 30, 100, spatial_dims=3,
+                                      generator=g), 70),
+            ("DDAD", DDAD(sched), lambda det, x, g:
+             det.reconstruction_error(x, score, 30, 100, w=w, spatial_dims=3,
+                                      generator=g), 99 + 2 * 70 - 1))
+    counts = []
+    for label, det, run, nfe in arms:
+        kernels.reset_launches()
+        errs, secs = [], []
+        with torch.inference_mode():
+            for x in (clean, corrupt):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                errs.append(run(det, x, torch.Generator("cuda")
+                                .manual_seed(4)))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        c = dict(kernels.LAUNCHES)
+        expected = dict(zero, fused_axby=2 * nfe, norm_silu=56 * nfe)
+        ok = c == expected and all(bool(torch.isfinite(e).all())
+                                   for e in errs)
+        log(f"[{label} config B] {card}: 64 images, step 30 of 100"
+            f"{f', w {w:.4f}' if label == 'DDAD' else ''}: reconstruction "
+            f"error clean {float(errs[0].mean()):.3f}, corrupted "
+            f"{float(errs[1].mean()):.3f} (mean over images); "
+            f"{secs[0]:.3f} s and {secs[1]:.3f} s eager; launches {c}, "
+            f"expected {expected} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"phase 19: {label} launches or errors")
+        counts.append(c)
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = model.interpolate_images(clean[0], clean[1], 8, nsteps=NSTEPS,
+                                    generator=torch.Generator("cuda"))
+    torch.cuda.synchronize()
+    interp_s = time.perf_counter() - t0
+    c_interp = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = model.sample_and_filter(
+        128, (28, 28, 1),
+        lambda enc: (lambda v: v > v.median())(enc.std(dim=(1, 2, 3))),
+        torch.Generator("cuda").manual_seed(6), nsteps=NSTEPS,
+        maximum_batch_size=64)
+    torch.cuda.synchronize()
+    filter_s = time.perf_counter() - t0
+    c_filter = dict(kernels.LAUNCHES)
+    calls = (2 * (NSTEPS - 1)) + NFE
+    ok = (path.shape == (10, 28, 28, 1) and bool(torch.isfinite(path).all())
+          and res["samples"].shape == (128, 28, 28, 1)
+          and c_interp == dict(zero, fused_axby=calls, norm_silu=28 * calls)
+          and c_filter == dict(zero, fused_axby=2 * NFE,
+                               norm_silu=56 * NFE))
+    log(f"[features config B] {card}: interpolate_images (8 inner points, "
+        f"{NSTEPS} steps each way, eager) {interp_s:.3f} s, launches "
+        f"{c_interp}; sample_and_filter 128 in chunks of 64 (graphed; "
+        f"kept: a per-image std above its chunk's median) "
+        f"{filter_s:.3f} s, hit rate {res['hit_rate']:.3f}, launches "
+        f"{c_filter} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 19: interpolation or filtering gave a "
+                             "wrong shape, value or launch count")
+    return counts + [c_interp, c_filter]
+
+
+def profiled_request(served, zero, card, tmp, cli) -> dict:
+    """One served request of 64 under torch.profiler, its Chrome trace read
+    back by ``python -m diffsci_tpu_torch profile``: K1's and K2's rows
+    count what the launch counter counts; the busy fraction printed.
+
+    The tracer drops device records now and then, K2's among them
+    (scripts/torch_profile_completeness.py counts how often), so the
+    request is traced again until two traces hold the same number of
+    kernels. Every trace replays the same graph, so that number is the
+    request's, and the last of the two is the one held to the counter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffsci_tpu_torch import SamplerService, kernels, profiling
+
+    svc = SamplerService(served, (28, 28, 1), batch_buckets=(64,))
+    svc.warmup()
+    svc.sample(64, 1)
+    trace_dir = tmp / "trace"
+    trace_dir.mkdir()
+    path = trace_dir / "serve.pt.trace.json"
+    totals = []
+    for _ in range(6):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            svc.sample(64, 2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        c = dict(kernels.LAUNCHES)
+        prof.export_chrome_trace(str(path))
+        rows = profiling.op_summary(profiling.parse_trace(str(path)), "cuda",
+                                    line=profiling.KERNEL)
+        total = sum(r["count"] for r in rows)
+        if total and total in totals:
+            break
+        totals.append(total)
+    else:
+        raise AssertionError(f"phase 19: no two of six traces of one "
+                             f"request held the same number of kernels: "
+                             f"{totals}")
+    k1 = sum(r["count"] for r in rows if "axby_kernel" in r["name"])
+    k2 = sum(r["count"] for r in rows
+             if any(n in r["name"] for n in NORM_KERNELS["K2"]))
+    text, secs = cli("profile", trace_dir, "--top", 100)
+    busy = profiling.device_busy_fraction(profiling.parse_trace(str(path)))
+    ok = (k1 == c["fused_axby"] == NFE and k2 == c["norm_silu"]
+          and "axby_kernel" in text and "busy fraction (cuda)" in text)
+    log(f"[profile config B] {card}: one request of 64 under torch.profiler"
+        f" in {wall:.4f} s; `python -m diffsci_tpu_torch profile` "
+        f"({secs:.1f} s): K1 rows {k1}, K2 rows {k2}, launch counter "
+        f"{c['fused_axby']}, {c['norm_silu']}; busy fraction {busy:.3f} "
+        f"(kernels a trace {totals + [total]}) {'ok' if ok else 'FAIL'}")
+    for line in text.strip().splitlines()[:16]:
+        log(f"[profile config B]   {line}")
+    if not ok:
+        raise AssertionError("phase 19: the profile's kernel rows differ "
+                             "from the launch counter")
+    return c
+
+
+def phase_serving_card_vs_cpu():
+    """Phase 2's small net (3D 32³, flash), f32, on the CPU (plain, eager)
+    and the card (kernels, graphed) from the same weights and the card's
+    draws: Picard at tol 0 and 1e-3 and stochastic (4 steps, window 2);
+    the dispatcher's per-row isolation on the card and its rows against
+    the CPU; AnoDDPM with replayed draws; three schedule-free and three
+    bf16-moment train steps at phase 3's tolerances. Returns the launch
+    counts."""
+    from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
+                                   SamplerService, default_optimizer,
+                                   kernels, schedule_free_optimizer)
+    from diffsci_tpu_torch.features import AnoDDPM
+    from diffsci_tpu_torch.ops import parallel_sampling as ps
+    from diffsci_tpu_torch.serving import row_seeds
+
+    cfg = small_3d_config()
+    cpu = KarrasModel(PUNetG(cfg, device="cpu"), KarrasModelConfig.from_edm(),
+                      device="cpu")
+    gpu = KarrasModel(PUNetG(cfg), KarrasModelConfig.from_edm())
+    gpu.net.load_state_dict(cpu.init(seed=1), strict=True)
+    shape = (32, 32, 32, 1)
+    counts = []
+    log(f"[phase 20] card against CPU on {smi('name,power.limit')}")
+    kernels.reset_launches()
+    cpu64 = KarrasModel(PUNetG(cfg, device="cpu"),
+                        KarrasModelConfig.from_edm(), device="cpu")
+    cpu64.net.load_state_dict(cpu.net.state_dict(), strict=True)
+    cpu64.net.double()
+
+    def cpu_picard(model, x, noise, tol, stochastic, dtype):
+        x = x.cpu().to(dtype)
+        return ps.picard_window_sample(
+            model.config.noisescheduler, x * 80.0,
+            model._score(None, 1.0, x), nsteps=4, window=2, tol=tol,
+            stochastic=stochastic,
+            noise_seq=None if noise is None else noise.cpu().to(dtype),
+            return_sweeps=True)
+
+    for tol, stochastic in ((0.0, False), (1e-3, False), (1e-3, True)):
+        out, sweeps = gpu.sample_parallel(
+            1, shape, torch.Generator("cuda").manual_seed(3), nsteps=4,
+            window=2, tol=tol, stochastic=stochastic, return_sweeps=True)
+        x, noise = replayed_draws(4 if stochastic else 0, (1,) + shape, 3)
+        with torch.inference_mode():
+            ref, ref_sweeps = cpu_picard(cpu, x, noise, tol, stochastic,
+                                         torch.float32)
+        if stochastic:
+            # Euler–Maruyama's σ-sized injections make the 4-step loop
+            # ill-conditioned: held to the float64 loop, as phase 11 holds
+            # VP and VE
+            with torch.inference_mode():
+                ref64, _ = cpu_picard(cpu64, x, noise, tol, stochastic,
+                                      torch.float64)
+            err, own, ok = within_float64(out.cpu(), ref, ref64)
+            what = (f"against the float64 loop: card {err:.3e}, cpu float32 "
+                    f"{own:.3e} (phase 11's tolerance)")
+        else:
+            err, ok = within_phase2(out.cpu(), ref)
+            what = f"max|card - cpu| {err:.3e} (phase 2's tolerance)"
+        ok = ok and (sweeps == ref_sweeps == 4 if tol == 0 else
+                     abs(sweeps - ref_sweeps) <= 1)
+        log(f"[picard card-vs-cpu] tol {tol} "
+            f"{'Euler–Maruyama' if stochastic else 'pf-ODE'}: sweeps card "
+            f"{sweeps} cpu {ref_sweeps}, {what} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 20: Picard on the card and the CPU "
+                                 "disagree")
+    counts.append(dict(kernels.LAUNCHES))
+
+    svc = SamplerService(gpu, shape, batch_buckets=(2,), nsteps=3,
+                         batch_window_ms=20.0)
+    svc.warmup()
+    kernels.reset_launches()
+    alone = svc.sample(1, 5)
+    other = threading_sample(svc, 1, 6)
+    crowded = svc.sample(1, 5)
+    other.join()
+    svc.close()
+    counts.append(dict(kernels.LAUNCHES))
+    x = torch.randn((1,) + shape, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(row_seeds(5, 1)[0]))
+    ref = cpu.propagate_white_noise(x.cpu(), nsteps=3)
+    err, ok = within_phase2(torch.from_numpy(crowded), ref)
+    ok = ok and np.array_equal(alone, crowded)
+    log(f"[dispatcher card-vs-cpu] a request alone and crowded in bucket 2: "
+        f"bit for bit {np.array_equal(alone, crowded)}; against the CPU on "
+        f"its row's draw max|Δ| {err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 20: dispatcher isolation or card against "
+                             "CPU failed")
+
+    gen = torch.Generator("cuda").manual_seed(8)
+    x0 = torch.randn((1,) + shape, device="cuda", generator=gen)
+    eps = torch.randn((1,) + shape, device="cuda", generator=gen)
+    seq = torch.randn((3, 1) + shape, device="cuda", generator=gen)
+    kernels.reset_launches()
+    outs = []
+    for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        with torch.inference_mode():
+            outs.append(AnoDDPM(model.config.noisescheduler).reconstruct(
+                x0.to(dev), model.get_score, 3, 6, apply_eps=eps.to(dev),
+                noise_seq=seq.to(dev)).cpu())
+    counts.append(dict(kernels.LAUNCHES))
+    err, ok = within_phase2(*outs)
+    log(f"[AnoDDPM card-vs-cpu] step 3 of 6, draws replayed: max|card - "
+        f"cpu| {err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 20: AnoDDPM on the card and the CPU "
+                             "disagree")
+
+    def make_model(dev):
+        return KarrasModel(PUNetG(cfg, device=dev),
+                           KarrasModelConfig.from_edm(), device=dev)
+
+    def sigma_draw(rng):
+        return np.exp(rng.standard_normal(2) * 1.2 - 1.2).astype(np.float32)
+
+    for label, make_tx in (
+            ("schedule-free", lambda lr: schedule_free_optimizer(lr)),
+            ("bf16 moment", lambda lr: default_optimizer(
+                lr, mu_dtype=torch.bfloat16))):
+        kernels.reset_launches()
+        train_card_vs_cpu(f"{label} 3D 32^3 mc=8 flash", make_model,
+                          (2, 32, 32, 32, 1), sigma_draw, TRAIN,
+                          make_tx=make_tx)
+        counts.append(dict(kernels.LAUNCHES))
+    return counts
+
+
+def threading_sample(svc, n, seed):
+    import threading
+
+    t = threading.Thread(target=svc.sample, args=(n, seed))
+    t.start()
+    return t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -2572,6 +3430,14 @@ def main() -> int:
     # the training loop, checkpoints and a served checkpoint (phase 17)
     counts_17 = phase_fit_checkpoint_serve(cfg_b, zero, step_ms_b)
 
+    # the optimizers, the serving stack, card against CPU (phases 18 to 20)
+    counts_18, trained = phase_optimizers(cfg_b, zero, step_ms_b)
+    counts_19 = phase_serving_stack(cfg_a, cfg_b, zero, trained,
+                                    svc_ddim.model)
+    torch.backends.cudnn.allow_tf32 = False
+    counts_20 = phase_serving_card_vs_cpu()
+    torch.backends.cudnn.allow_tf32 = True
+
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
                        "diffsci_tpu/kernels/fused_precondition.py:129"),
@@ -2598,7 +3464,9 @@ def main() -> int:
                                            train_b, counts_ddim, counts_ddpm,
                                            counts_11, *counts_12,
                                            *counts_13, *counts_14,
-                                           *counts_15, *counts_17]),
+                                           *counts_15, *counts_17,
+                                           *counts_18, *counts_19,
+                                           *counts_20]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

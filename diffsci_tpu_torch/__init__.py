@@ -37,6 +37,16 @@ rebuilt from their JSON description (``karras_model_from_description``,
 the JAX package's format) and served from a checkpoint
 (``SamplerService.from_checkpoint``); a JAX run carried over by
 ``convert.from_jax_train_state``.
+
+The serving stack: ``SamplerService``'s cross-request dispatcher
+(``batch_window_ms``), Picard latency mode (``picard=``, over
+``KarrasModel.sample_parallel``) and 1-NFE serving (``nsteps=1``,
+``models/karras/distill.py``); ``serving.build_server`` (HTTP) and the
+command line ``python -m diffsci_tpu_torch info|sample|serve|profile``
+(``cli.py``; ``profiling.py`` reads torch.profiler traces); the
+features AnoDDPM, DDAD and RePaint (``features/``), ``interpolate_images``
+and ``sample_and_filter``; ``schedule_free_optimizer`` and
+``default_optimizer(mu_dtype=)``.
 """
 
 from diffsci_tpu_torch.checkpoint import (CheckpointManager, ModelRegistry,
@@ -49,6 +59,7 @@ from diffsci_tpu_torch.models import (
     cosine_restarts_schedule, create_train_state, default_optimizer,
     freeze_optimizer, karras_model_from_description, make_eval_step,
     make_train_scan, make_train_step, renormalize_mp_weights,
+    schedule_free_eval_params, schedule_free_optimizer,
     warmup_cosine_schedule)
 from diffsci_tpu_torch.serving import SamplerService
 from diffsci_tpu_torch.trainer import Trainer, fit_karras
@@ -63,4 +74,5 @@ __all__ = ["ArrayDataLoader", "CheckpointManager", "DDPMModel",
            "freeze_optimizer", "karras_model_from_description",
            "make_eval_step", "make_train_scan", "make_train_step",
            "renormalize_mp_weights", "restore_checkpoint",
-           "save_checkpoint", "warmup_cosine_schedule"]
+           "save_checkpoint", "schedule_free_eval_params",
+           "schedule_free_optimizer", "warmup_cosine_schedule"]

@@ -333,6 +333,12 @@ def _find(tree, fields: tuple):
     return None
 
 
+def _as_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _as_f32(v) for k, v in tree.items()}
+    return np.asarray(tree, np.float32)
+
+
 def from_jax_train_state(state_np, model, tx, ema=None):
     """The port's ``TrainState`` over ``model`` from a JAX-package
     ``TrainState`` read as numpy (``jax.tree.map(np.asarray, state)``,
@@ -341,8 +347,11 @@ def from_jax_train_state(state_np, model, tx, ema=None):
     run's) and ``ema`` (its EMA tracker): params and consts through
     ``from_jax_variables``; optax's ``ScaleByAdamState`` ``count``, ``mu``
     and ``nu`` to AdamW's ``step``, ``exp_avg`` and ``exp_avg_sq`` by the
-    same names and layouts (and ``MultiSteps``' accumulated gradients and
-    counters under ``accumulate_gradients``); the EMA profiles and their
+    same names and layouts (a bfloat16 ``mu`` too), or a
+    ``ScheduleFreeState``'s ``z``, ``weight_sum``, ``max_lr`` and its RMS
+    ``count`` and ``nu`` to ``ScheduleFreeAdamW``'s state (and
+    ``MultiSteps``' accumulated gradients and counters under
+    ``accumulate_gradients``); the EMA profiles and their
     ``num_updates``; the step. This carries a TPU run over to the card."""
     from diffsci_tpu_torch.models.karras.train import _new_train_state
 
@@ -361,16 +370,29 @@ def from_jax_train_state(state_np, model, tx, ema=None):
             from_jax_variables({"params": params, **consts}, config),
             strict=True)
         opt_state = _field(state_np, "opt_state")
-        adam = _find(opt_state, ("count", "mu", "nu"))
-        if adam is None:
-            raise ValueError("the JAX optimizer state holds no Adam state")
-        moments = {key: port_params(_field(adam, src)) for key, src in
-                   (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}
+        sf = _find(opt_state, ("weight_sum", "max_lr", "z"))
+        if sf is not None:
+            rms = _find(_field(sf, "base_optimizer_state"), ("count", "nu"))
+            scalars = {"step": _field(rms, "count"),
+                       "weight_sum": _field(sf, "weight_sum"),
+                       "max_lr": _field(sf, "max_lr")}
+            sources = (("z", sf, "z"), ("exp_avg_sq", rms, "nu"))
+        else:
+            adam = _find(opt_state, ("count", "mu", "nu"))
+            if adam is None:
+                raise ValueError("the JAX optimizer state holds no Adam "
+                                 "state")
+            scalars = {"step": _field(adam, "count")}
+            sources = (("exp_avg", adam, "mu"), ("exp_avg_sq", adam, "nu"))
+        # a bfloat16 first moment (mu_dtype) passes through float32
+        moments = {key: port_params(_as_f32(_field(node, src)))
+                   for key, node, src in sources}
         for group in state.optimizer.param_groups:
             for p in group["params"]:
                 name = next(k for k, q in state.params.items() if q is p)
                 slot = state.optimizer.state[p]
-                slot["step"].fill_(float(np.asarray(_field(adam, "count"))))
+                for key, value in scalars.items():
+                    slot[key].fill_(float(np.asarray(value)))
                 for key, values in moments.items():
                     slot[key].copy_(values[name])
         if state.accum is not None:

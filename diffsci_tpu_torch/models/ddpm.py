@@ -40,6 +40,19 @@ from diffsci_tpu_torch.utils import (bcast_right, dict_map, graphs,
                                      resolve_device)
 
 
+def _draw(out: torch.Tensor, generator) -> torch.Tensor:
+    """Fill ``out`` ([B, *shape]) from ``generator``, or, given a list of
+    generators (one a row, as the service's dispatcher passes them), row i
+    from the i-th alone and rows past them with zeros. Returns ``out``."""
+    if isinstance(generator, (list, tuple)):
+        out.zero_()
+        for row, g in zip(out, generator):
+            torch.randn(row.shape, generator=g, out=row)
+    else:
+        torch.randn(out.shape, generator=generator, out=out)
+    return out
+
+
 class DDPMScheduler:
     """ᾱ schedule over T discrete steps; t are float32 tensors."""
 
@@ -385,33 +398,41 @@ class DDPMModel(ComputeDtypeMixin):
         """Samples from white noise drawn on the model's device with
         ``generator``, which also draws each step's noise. ``shape`` is
         channels-last without the batch dim, e.g. (32, 32, 3); ``nsteps``
-        defaults to the scheduler's T.
+        defaults to the scheduler's T. ``generator`` may be a list of
+        generators, one a row, as the service's dispatcher passes them:
+        row i's x_T and step noise are then drawn from the i-th alone, in
+        the same order, so a row depends on its own generator only.
 
         On a CUDA device each step replays the graph of
         ``compile_sampler``: before it, t is copied into the graph's input
         and the step's noise drawn into its own, one draw a step in the
         eager order, so one seed gives the eager loop's draws. On the CPU
         the loop runs eagerly."""
+        T = self.config.scheduler.T if nsteps is None else nsteps
+        x_shape = (nsamples,) + tuple(shape)
         if self.device.type != "cuda":
-            x = torch.randn((nsamples,) + tuple(shape), generator=generator,
-                            device=self.device)
+            x = _draw(torch.empty(x_shape, device=self.device), generator)
+            noise_seq = None
+            if isinstance(generator, (list, tuple)):
+                noise_seq = torch.stack([
+                    _draw(torch.empty(x_shape, device=self.device),
+                          generator) for _ in range(T)])
 
             def noise_predictor(xx, tt):
                 return self.noise_predictor(xx, tt, y)
 
             return self.config.integrator.propagate_backward(
                 x, noise_predictor, nsteps, record_history=record_history,
-                generator=generator)
+                noise_seq=noise_seq, generator=generator)
         graph = self.compile_sampler(nsamples, shape, y, nsteps)
         x, t, noise, ys = graph.inputs
-        torch.randn(x.shape, generator=generator, out=x)
+        _draw(x, generator)
         graphs.fill(ys, y)
-        T = self.config.scheduler.T if nsteps is None else nsteps
         ts = torch.arange(T, 0, -1, dtype=torch.float32, device=self.device)
         history = [x.clone()] if record_history else None
         for i in range(T):
             t.copy_(ts[i])
-            torch.randn(noise.shape, generator=generator, out=noise)
+            _draw(noise, generator)
             graph.replay()
             if record_history:
                 history.append(x.clone())

@@ -5,20 +5,26 @@ from diffsci_tpu_torch.models.karras.module import (
     DynamicLossWeight, IntervalGuidance, KarrasModel, KarrasModelConfig,
     KarrasNet, karras_model_from_description)
 from diffsci_tpu_torch.models.karras.train import (
-    AdamWClip, GradAccumulation, TrainState, accumulate_gradients,
-    cosine_restarts_schedule, create_train_state, default_optimizer,
+    AdamWClip, AdamWMu, GradAccumulation, ScheduleFreeAdamW, TrainState,
+    accumulate_gradients, cosine_restarts_schedule, create_train_state,
+    default_optimizer,
     freeze_mask, freeze_optimizer, make_eval_step, make_train_scan,
     make_train_step, nan_to_zero_grads, renormalize_mp_weights,
-    split_variables, warmup_cosine_schedule)
+    schedule_free_eval_params, schedule_free_optimizer, split_variables,
+    warmup_cosine_schedule)
+from diffsci_tpu_torch.models.karras.distill import sample_onestep
 
-__all__ = ["AdamWClip", "DynamicLossWeight", "EMAState", "EMATracker",
-           "GradAccumulation", "IntervalGuidance", "KarrasModel",
-           "KarrasModelConfig", "KarrasNet", "TrainState",
+__all__ = ["AdamWClip", "AdamWMu", "DynamicLossWeight", "EMAState",
+           "EMATracker", "GradAccumulation", "IntervalGuidance",
+           "KarrasModel", "KarrasModelConfig", "KarrasNet",
+           "ScheduleFreeAdamW", "TrainState",
            "accumulate_gradients", "cosine_restarts_schedule",
            "create_train_state", "default_optimizer", "freeze_mask",
            "freeze_optimizer", "karras_model_from_description",
            "make_eval_step", "make_train_scan", "make_train_step",
            "nan_to_zero_grads", "power_function_beta",
            "power_function_exp_from_std", "renormalize_mp_weights",
-           "solve_posthoc_weights", "split_variables",
-           "synthesize_posthoc_ema", "warmup_cosine_schedule"]
+           "sample_onestep", "schedule_free_eval_params",
+           "schedule_free_optimizer", "solve_posthoc_weights",
+           "split_variables", "synthesize_posthoc_ema",
+           "warmup_cosine_schedule"]

@@ -1,7 +1,6 @@
 """KarrasModel: the Karras denoiser runtime for training and sampling.
 
-Port of ``diffsci_tpu/models/karras/module.py`` without latent models,
-interpolation, filtering and parallel-in-time sampling:
+Port of ``diffsci_tpu/models/karras/module.py`` without latent models:
 ``KarrasModelConfig`` (``from_edm``, ``from_vp``, ``from_ve``,
 ``conditional_sr3``, ``loss_metric``, ``has_edm_batch_norm``,
 ``dynamic_loss_weight``, ``spatial_shape``/``focus_radius``, the tag and
@@ -13,8 +12,9 @@ guidance interval and the ``fused_precondition`` policy), ``loss_fn``,
 ``get_score``, ``sample`` (any integrator, stochastic,
 ``langevin_scale``), ``sample_restart``, ``propagate_white_noise``,
 ``propagate_toward_sample``, ``propagate_partial_toward_sample``,
-``propagate_toward_noise``, ``inpaint`` and ``repaint``; and
-``select_batch``, ``export_description`` and
+``propagate_toward_noise``, ``inpaint``, ``repaint``, ``sample_parallel``
+(sliding-window Picard), ``interpolate_images`` and ``sample_and_filter``;
+and ``select_batch``, ``export_description`` and
 ``karras_model_from_description`` (the JAX package's description,
 key for key).
 
@@ -39,8 +39,11 @@ sweep replays one graph. An ``IntervalGuidance`` is part of the key like
 a float guidance; its band test is made per row on the device from σ.
 The EDM batch norm's running statistics are buffers that a graph reads
 in place, so a sampler sees the statistics of the latest train step.
-``inpaint``, ``repaint``, ``propagate_toward_noise`` and
-``propagate_partial_toward_sample`` run eagerly on the card, as the JAX
+``sample_parallel`` replays one graph of a Picard sweep per key and
+reads the frontier between replays (``ops/parallel_sampling.py``).
+``inpaint``, ``repaint``, ``propagate_toward_noise``,
+``propagate_partial_toward_sample``, ``interpolate_images`` and the
+filter of ``sample_and_filter`` run eagerly on the card, as the JAX
 package does not jit them whole.
 """
 
@@ -57,10 +60,11 @@ from diffsci_tpu_torch.models.nets.layers import ConditionDrop, init_parameters
 from diffsci_tpu_torch.ops import (losses, noise_samplers, preconditioners,
                                    schedulers)
 from diffsci_tpu_torch.ops.batchnorm import DimensionAgnosticBatchNorm
-from diffsci_tpu_torch.ops.schedulers import draw_noise
+from diffsci_tpu_torch.ops.parallel_sampling import PicardWindow
+from diffsci_tpu_torch.ops.schedulers import draw_noise, draw_rows
 from diffsci_tpu_torch.utils import (bcast_right, dict_expand_dims, dict_map,
                                      get_minibatch_sizes, graphs,
-                                     resolve_device)
+                                     linear_interpolation, resolve_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -560,10 +564,16 @@ class KarrasModel(ComputeDtypeMixin):
     @staticmethod
     def _draw_inputs(inputs, generator, langevin_scale):
         """Fill a sampler's inputs in place: x_T, then the loop's noise,
-        from ``generator``, and the Langevin scale. Returns them."""
-        for t in inputs[:2]:
-            if t is not None:
-                torch.randn(t.shape, generator=generator, out=t)
+        from ``generator``, and the Langevin scale. Returns them.
+        ``generator`` may be a list of generators, one a row
+        (``ops.schedulers.draw_rows``: row i's x_T and loop noise from the
+        i-th alone), as the service's dispatcher draws."""
+        if isinstance(generator, (list, tuple)):
+            draw_rows(generator, inputs[0], inputs[1])
+        else:
+            for t in inputs[:2]:
+                if t is not None:
+                    torch.randn(t.shape, generator=generator, out=t)
         if inputs[2] is not None:
             inputs[2].fill_(float(langevin_scale))
         return inputs
@@ -609,6 +619,93 @@ class KarrasModel(ComputeDtypeMixin):
         cache.warmup(loop)
         graph = cache.capture(key, loop)
         graph.inputs = (x, noise, gate, ys)
+        return graph
+
+    @torch.inference_mode()
+    def sample_parallel(self, nsamples: int, shape, generator=None, y=None,
+                        guidance: float = 1.0, nsteps: int = 100,
+                        window: int = 16, tol: float = 1e-3,
+                        stochastic: bool = False,
+                        return_sweeps: bool = False):
+        """Parallel-in-time sampling by sliding-window Picard
+        (``ops/parallel_sampling.py``): each sweep is one denoiser call of
+        batch window·nsamples over the steps after the converged frontier,
+        which advances by one or more steps a sweep; ``tol=0`` gives
+        sequential Euler in nsteps sweeps. ``stochastic``: Euler–Maruyama,
+        its noise drawn before the loop. The draws are ``sample``'s: x_T,
+        then (stochastic) the loop's [nsteps, nsamples, *shape] noise, so
+        one seed gives ``sample(..., integrator="euler")`` (or
+        ``stochastic=True`` with "euler-maruyama") at ``tol=0``. As in the
+        JAX package the result is not decoded. On a CUDA device a sweep is
+        one graph (``compile_parallel``), replayed while the host reads
+        the frontier after every replay; on the CPU the same
+        sweep runs eagerly. Returns the samples (and the sweep count if
+        ``return_sweeps``)."""
+        smax = self.config.noisescheduler.maximum_scale
+        if self.device.type != "cuda":
+            pw, inputs = self._picard_state(nsamples, shape, nsteps, window,
+                                            tol, stochastic)
+            x, noise, _ = self._draw_inputs(inputs, generator, None)
+            score = self._score(y, guidance, x)
+            pw.reset(x * smax, noise)
+            sweeps = pw.run(lambda: pw.sweep(score))
+        else:
+            graph = self.compile_parallel(nsamples, shape, y, guidance,
+                                          nsteps, window, tol, stochastic)
+            x, noise, _ = self._draw_inputs(graph.inputs[:3], generator,
+                                            None)
+            graphs.fill(graph.inputs[3], y)
+            pw = graph.picard
+            pw.reset(x * smax, noise)
+            sweeps = pw.run(graph.replay)
+        out = pw.result.clone()
+        return (out, sweeps) if return_sweeps else out
+
+    def _picard_state(self, nsamples, shape, nsteps, window, tol,
+                      stochastic):
+        """A ``PicardWindow`` for the batch and its draws' tensors (x_T,
+        the noise [nsteps, nsamples, *shape] or None, None)."""
+        x_shape = (nsamples,) + tuple(shape)
+        pw = PicardWindow(self.config.noisescheduler, x_shape, nsteps,
+                          window, tol, stochastic, device=self.device)
+        noise = torch.zeros((nsteps,) + x_shape, device=self.device) \
+            if stochastic else None
+        return pw, (torch.zeros(x_shape, device=self.device), noise, None)
+
+    @torch.inference_mode()
+    def compile_parallel(self, nsamples: int, shape, y=None,
+                         guidance: float = 1.0, nsteps: int = 100,
+                         window: int = 16, tol: float = 1e-3,
+                         stochastic: bool = False):
+        """The CUDA graph of one Picard sweep of ``sample_parallel`` for
+        (nsamples, shape, guidance, nsteps, window, tol, ``stochastic``,
+        y's shapes). Static inputs (``graph.inputs``): x_T, the noise (or
+        None), None and y's tensors; ``graph.picard`` is the
+        ``PicardWindow`` whose state the sweep updates in place. None on
+        the CPU."""
+        if self.device.type != "cuda":
+            return None
+        cache = self._graph_cache()
+        key = ("picard", nsamples, tuple(shape), _guidance_key(guidance),
+               nsteps, window, float(tol), stochastic,
+               graphs.condition_key(y))
+        graph = cache.graphs.get(key)
+        if graph is not None:
+            return graph
+        pw, inputs = self._picard_state(nsamples, shape, nsteps, window,
+                                        tol, stochastic)
+        ys = graphs.static_like(y, self.device)
+        graphs.fill(ys, y)
+        score = self._score(ys, guidance, inputs[0])
+        pw.reset(inputs[0], inputs[1])
+
+        def body():
+            pw.sweep(score)
+
+        cache.warmup(body)
+        graph = cache.capture(key, body)
+        graph.inputs = inputs + (ys,)
+        graph.picard = pw
         return graph
 
     @torch.inference_mode()
@@ -796,6 +893,62 @@ class KarrasModel(ComputeDtypeMixin):
                             maximum_batch_size, mode="repaint",
                             rsteps=rsteps, nresamples=nresamples,
                             generator=generator)
+
+    @torch.inference_mode()
+    def interpolate_images(self, x1, x2, ninterp: int,
+                           jitter: float | None = 1e-2, y=None,
+                           nsteps: int = 100, record_history: bool = False,
+                           generator=None):
+        """Interpolate between two images through the noise space: both
+        (jittered by ``jitter``·ε from ``generator``, unless None) are
+        propagated to noise by the learned pf-ODE, joined by
+        ``linear_interpolation`` at ``ninterp`` inner points and
+        propagated back: [ninterp + 2, *x1.shape] (with
+        ``record_history``, the backward history)."""
+        x = torch.stack([x1, x2], dim=0)
+        if jitter is not None:
+            x = x + jitter * torch.randn(x.shape, generator=generator,
+                                         dtype=x.dtype, device=x.device)
+        yb = dict_expand_dims(y, 0) if y is not None else None
+        x_noised = self.propagate_toward_noise(x, yb, nsteps)
+        x_interp = linear_interpolation(x_noised[0], x_noised[1], ninterp)
+        return self.propagate_toward_sample(x_interp, y=yb, nsteps=nsteps,
+                                            record_history=record_history)
+
+    @torch.inference_mode()
+    def sample_and_filter(self, nsamples: int, shape, filter_fn,
+                          generator=None, y=None, guidance: float = 1.0,
+                          nsteps: int = 100,
+                          maximum_batch_size: int | None = None,
+                          integrator=None,
+                          return_only_positives: bool = False) -> dict:
+        """Sample, then keep the verdict of ``filter_fn`` (a predicate on
+        the encoded samples, [B] bool) on each: dict(samples, filter,
+        hit_rate). ``maximum_batch_size`` splits the request by
+        ``get_minibatch_sizes``, ``generator`` threaded through the
+        chunks in turn; ``return_only_positives`` drops the rows that fail
+        the filter."""
+        if maximum_batch_size is not None:
+            samples, filters = [], []
+            for bs in get_minibatch_sizes(nsamples, maximum_batch_size):
+                res = self.sample_and_filter(
+                    bs, shape, filter_fn, generator, y, guidance, nsteps,
+                    None, integrator, return_only_positives)
+                samples.append(res["samples"])
+                filters.append(res["filter"])
+            filt = torch.cat(filters, 0)
+            return dict(samples=torch.cat(samples, 0), filter=filt,
+                        hit_rate=float(filt.sum()) / nsamples)
+        samples = self.sample(nsamples, shape, generator, y=y,
+                              guidance=guidance, nsteps=nsteps,
+                              integrator=integrator)
+        enc, _, _ = self.encode(samples, y)
+        filt = filter_fn(enc)
+        if return_only_positives:
+            samples = samples[filt]
+            filt = filt[filt]
+        return dict(samples=samples, filter=filt,
+                    hit_rate=float(filt.sum()) / nsamples)
 
 
 def karras_model_from_description(description: dict,

@@ -32,10 +32,18 @@ one ``make_train_scan`` builds included, shares them and their memory
 pool, and they go with the state. ``make_train_step(..., _raw=True)``
 returns the eager step, as in the JAX package.
 
-Not ported yet: ``schedule_free_optimizer`` and
-``schedule_free_eval_params``, and ``default_optimizer(mu_dtype=)``: both
-need an optimizer written for the port (torch's AdamW keeps its moments
-in the parameters' dtype, and torch has no schedule-free AdamW).
+The optimizers: torch's AdamW (``default_optimizer()``), and two written
+for the port with ``torch._foreach_*`` and capturable like torch's (step
+counts and sums in 0-d device tensors, no host read):
+``default_optimizer(mu_dtype=torch.bfloat16)`` (``AdamWMu``: the first
+moment stored in ``mu_dtype``, optax's ``adamw(mu_dtype=)``) and
+``schedule_free_optimizer()`` (``ScheduleFreeAdamW``:
+``optax.contrib.schedule_free_adamw``), with
+``schedule_free_eval_params``.
+
+Not ported yet: the data-parallel step over a ``mesh`` and progressive
+distillation's training (``diffsci_tpu/models/karras/distill.py`` beyond
+``sample_onestep``).
 """
 
 from __future__ import annotations
@@ -93,6 +101,133 @@ class TrainState:
         return dict(tracker.get_params(self.ema))
 
 
+def _shared_scalar(value: float, device) -> torch.Tensor:
+    return torch.full((), float(value), dtype=torch.float32, device=device)
+
+
+class AdamWMu(torch.optim.Optimizer):
+    """AdamW with its first moment stored in ``mu_dtype`` and its second
+    in float32, step for step ``optax.adamw(mu_dtype=...)`` under jit: the
+    new first moment (1 − b1)·g + b1·m is computed in float32, with b1
+    rounded to ``mu_dtype`` (JAX makes a Python float a bfloat16 constant
+    against a bfloat16 array, and XLA evaluates the product in float32),
+    the update reads it in float32, and it is rounded to ``mu_dtype`` once
+    when stored. Per parameter, ``state[p]`` holds
+    ``step`` (one 0-d float32 tensor shared by all), ``exp_avg`` and
+    ``exp_avg_sq``. ``lr``: a float or a 0-d device tensor that the caller
+    fills (a schedule). Capturable: the step makes no host read."""
+
+    def __init__(self, params, lr, betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=1e-4, mu_dtype=torch.bfloat16):
+        super().__init__(list(params), dict(lr=lr, betas=betas, eps=eps,
+                                            weight_decay=weight_decay))
+        self.mu_dtype = mu_dtype
+        self._b1_mu = float(torch.tensor(betas[0], dtype=mu_dtype))
+        params = self.param_groups[0]["params"]
+        step = _shared_scalar(0.0, params[0].device)
+        for p in params:
+            self.state[p] = {"step": step,
+                             "exp_avg": torch.zeros_like(p, dtype=mu_dtype),
+                             "exp_avg_sq": torch.zeros_like(p)}
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = group["params"]
+            grads = [p.grad for p in params]
+            mus = [self.state[p]["exp_avg"] for p in params]
+            nus = [self.state[p]["exp_avg_sq"] for p in params]
+            step = self.state[params[0]]["step"]
+            b1, b2 = group["betas"]
+            step.add_(1.0)
+            mu = torch._foreach_mul(grads, 1.0 - b1)
+            torch._foreach_add_(mu, [m.float() for m in mus],
+                                alpha=self._b1_mu)
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1.0 - b2)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, sq)
+            den = torch._foreach_div(nus, 1.0 - torch.pow(b2, step))
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, group["eps"])
+            upd = torch._foreach_div(mu, 1.0 - torch.pow(b1, step))
+            torch._foreach_div_(upd, den)
+            torch._foreach_add_(upd, params, alpha=group["weight_decay"])
+            lr = group["lr"]
+            torch._foreach_mul_(upd, -lr if not torch.is_tensor(lr)
+                                else torch.neg(lr))
+            torch._foreach_add_(params, upd)
+            torch._foreach_copy_(mus, mu)
+
+
+class ScheduleFreeAdamW(torch.optim.Optimizer):
+    """Schedule-free AdamW, step for step
+    ``optax.contrib.schedule_free_adamw`` at its defaults (no warm-up,
+    ``weight_lr_power`` 2): the parameters are the interpolation
+    y = b1·x + (1 − b1)·z; z takes the AdamW step without momentum (RMS
+    scaling with bias correction, decoupled decay on y, −lr); x is the
+    running average of z with weight c = max_lr²/Σ max_lr² (0 where that
+    sum is 0, as optax's ``nan_to_num``). Per parameter, ``state[p]``
+    holds ``z`` and ``exp_avg_sq``, and the 0-d float32 tensors ``step``
+    (the RMS count), ``weight_sum`` and ``max_lr``, shared by all.
+    ``lr`` is a float. Capturable: the step makes no host read."""
+
+    def __init__(self, params, lr: float, b1=0.9, b2=0.999, eps=1e-8,
+                 weight_decay=1e-4):
+        super().__init__(list(params), dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                            weight_decay=weight_decay))
+        params = self.param_groups[0]["params"]
+        device = params[0].device
+        shared = {k: _shared_scalar(0.0, device)
+                  for k in ("step", "weight_sum", "max_lr")}
+        for p in params:
+            self.state[p] = dict(shared, z=p.detach().clone(),
+                                 exp_avg_sq=torch.zeros_like(p))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = group["params"]
+            grads = [p.grad for p in params]
+            first = self.state[params[0]]
+            zs = [self.state[p]["z"] for p in params]
+            nus = [self.state[p]["exp_avg_sq"] for p in params]
+            b1, b2, lr = group["b1"], group["b2"], group["lr"]
+            max_lr = first["max_lr"]
+            max_lr.clamp_(min=lr)
+            weight = max_lr * max_lr
+            total = first["weight_sum"] + weight
+            ck = torch.where(weight.isnan() | total.isnan(),
+                             torch.full_like(weight, float("nan")),
+                             torch.nan_to_num(weight / total, nan=0.0,
+                                              posinf=float("inf")))
+            first["weight_sum"].copy_(total)
+            step = first["step"]
+            step.add_(1.0)
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1.0 - b2)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, sq)
+            den = torch._foreach_div(nus, 1.0 - torch.pow(b2, step))
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, group["eps"])
+            upd = torch._foreach_div(grads, den)
+            torch._foreach_add_(upd, params, alpha=group["weight_decay"])
+            torch._foreach_mul_(upd, -lr)
+            z_new = torch._foreach_add(zs, upd)
+            # x recovered from y and the old z, then averaged toward z
+            x = torch._foreach_mul(zs, -(1.0 - b1))
+            torch._foreach_add_(x, params)
+            torch._foreach_div_(x, b1)
+            torch._foreach_mul_(x, 1.0 - ck)
+            torch._foreach_add_(x, torch._foreach_mul(z_new, ck))
+            y = torch._foreach_mul(x, b1)
+            torch._foreach_add_(y, torch._foreach_mul(z_new, 1.0 - b1))
+            torch._foreach_sub_(y, params)
+            torch._foreach_add_(params, y)
+            torch._foreach_copy_(zs, z_new)
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamWClip:
     """AdamW after clipping the gradients by their global norm, as
@@ -107,7 +242,12 @@ class AdamWClip:
     ``frozen`` (``freeze_optimizer``): names of parameters that get no
     update at all, no AdamW step and no weight decay, and whose gradients
     the clip's norm leaves out. ``every`` (``accumulate_gradients``): the
-    number of micro-batches whose mean gradient makes one update."""
+    number of micro-batches whose mean gradient makes one update.
+
+    ``mu_dtype`` (e.g. ``torch.bfloat16``): AdamW's first moment in that
+    dtype (``AdamWMu``). ``schedule_free``: schedule-free AdamW in place of
+    AdamW (``ScheduleFreeAdamW``; b1 is its interpolation weight, and the
+    learning rate a float)."""
     learning_rate: float | Callable[[int], float]
     weight_decay: float
     b1: float
@@ -116,6 +256,8 @@ class AdamWClip:
     eps: float = 1e-8
     frozen: frozenset = frozenset()
     every: int = 1
+    mu_dtype: torch.dtype | None = None
+    schedule_free: bool = False
 
     def trainable(self, params: dict) -> dict:
         """The parameters (by name) that the optimizer updates."""
@@ -131,12 +273,18 @@ class AdamWClip:
         ``set_learning_rate`` fills before each step. ``capturable`` is
         for CUDA parameters only."""
         params = list(self.trainable(params).values())
+        if self.schedule_free:
+            return ScheduleFreeAdamW(params, self.learning_rate, self.b1,
+                                     self.b2, self.eps, self.weight_decay)
         cuda = any(p.is_cuda for p in params)
         lr = self.learning_rate
         if callable(lr):
             lr = float(lr(0))
             if cuda:
                 lr = torch.tensor(lr, device=params[0].device)
+        if self.mu_dtype is not None:
+            return AdamWMu(params, lr, (self.b1, self.b2), self.eps,
+                           self.weight_decay, self.mu_dtype)
         optimizer = torch.optim.AdamW(params, lr=lr, betas=(self.b1, self.b2),
                                       eps=self.eps,
                                       weight_decay=self.weight_decay,
@@ -212,12 +360,50 @@ class AdamWClip:
 def default_optimizer(learning_rate: float | Callable[[int], float] = 1e-3,
                       weight_decay: float = 1e-4, b1: float = 0.9,
                       b2: float = 0.999,
-                      grad_clip: float | None = 0.5) -> AdamWClip:
+                      grad_clip: float | None = 0.5,
+                      mu_dtype: torch.dtype | None = None) -> AdamWClip:
     """The JAX package's default: AdamW (lr 1e-3, wd 1e-4, betas (0.9,
     0.999)) after clipping by global norm 0.5. ``learning_rate``: a float
     or a schedule (``warmup_cosine_schedule``,
-    ``cosine_restarts_schedule``)."""
-    return AdamWClip(learning_rate, weight_decay, b1, b2, grad_clip)
+    ``cosine_restarts_schedule``). ``mu_dtype`` (e.g. ``torch.bfloat16``):
+    the dtype of AdamW's first moment, which halves its bytes; the second
+    moment stays float32."""
+    return AdamWClip(learning_rate, weight_decay, b1, b2, grad_clip,
+                     mu_dtype=mu_dtype)
+
+
+def schedule_free_optimizer(learning_rate: float = 1e-3, b1: float = 0.9,
+                            weight_decay: float = 1e-4,
+                            grad_clip: float | None = 0.5) -> AdamWClip:
+    """Schedule-free AdamW (``optax.contrib.schedule_free_adamw``: b2
+    0.999, eps 1e-8, ``weight_lr_power`` 2, no warm-up) after clipping by
+    global norm, as the JAX package's ``schedule_free_optimizer``. Train
+    with it; evaluate and serve with ``schedule_free_eval_params``."""
+    if callable(learning_rate):
+        raise ValueError("schedule_free_optimizer takes a constant "
+                         "learning rate")
+    return AdamWClip(learning_rate, weight_decay, b1, 0.999, grad_clip,
+                     schedule_free=True)
+
+
+def schedule_free_eval_params(state: "TrainState") -> dict:
+    """The evaluation-mode parameters of a state trained with
+    ``schedule_free_optimizer``, by name: x = (y − (1 − b1)·z)/b1 for the
+    trained ones (b1 as float32, as optax reads it from its state), the
+    others as they are. Load them with ``load_state_dict(...,
+    strict=False)`` or pass them as ``variables=``."""
+    opt = state.optimizer
+    if not isinstance(opt, ScheduleFreeAdamW):
+        raise ValueError("optimizer state contains no ScheduleFreeState; "
+                         "train with schedule_free_optimizer()")
+    b1 = torch.tensor(opt.param_groups[0]["b1"], dtype=torch.float32)
+    out = {}
+    with torch.no_grad():
+        for name, p in state.params.items():
+            slot = opt.state.get(p)
+            out[name] = p.detach().clone() if slot is None else \
+                (p - (1.0 - b1).to(p.device) * slot["z"]) / b1.to(p.device)
+    return out
 
 
 def split_variables(net: torch.nn.Module) -> tuple[dict, dict]:

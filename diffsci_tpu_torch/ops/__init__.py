@@ -1,4 +1,4 @@
-from diffsci_tpu_torch.ops import batchnorm, losses
+from diffsci_tpu_torch.ops import batchnorm, losses, parallel_sampling
 from diffsci_tpu_torch.ops.integrators import (DPMSolverPlusPlus2M,
                                                EulerIntegrator,
                                                EulerMaruyamaIntegrator,
@@ -18,7 +18,7 @@ from diffsci_tpu_torch.ops.preconditioners import (EDMPreconditioner,
                                                    VPPreconditioner)
 from diffsci_tpu_torch.ops.schedulers import (EDMScheduler, Scheduler,
                                               VEScheduler, VPScheduler,
-                                              draw_noise)
+                                              draw_noise, draw_rows)
 from diffsci_tpu_torch.ops.scheduling import (EDMSchedulingFunctions,
                                               SchedulingFunctions,
                                               VESchedulingFunctions,
@@ -33,5 +33,6 @@ __all__ = ["DPMSolverPlusPlus2M", "EDMNoiseSampler", "EDMPreconditioner",
            "SchedulingFunctions", "UniformNoiseSampler", "VENoiseSampler",
            "VEPreconditioner", "VEScheduler", "VESchedulingFunctions",
            "VPNoiseSampler", "VPPreconditioner", "VPScheduler",
-           "VPSchedulingFunctions", "batchnorm", "draw_noise", "losses",
-           "name_to_integrator", "name_to_scheduling_functions"]
+           "VPSchedulingFunctions", "batchnorm", "draw_noise", "draw_rows",
+           "losses", "name_to_integrator", "name_to_scheduling_functions",
+           "parallel_sampling"]

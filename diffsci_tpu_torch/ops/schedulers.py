@@ -1,11 +1,12 @@
 """Schedulers: time grids and forward/backward ODE-SDE propagation.
 
-Port of ``diffsci_tpu/ops/schedulers.py`` without the parallel-in-time
-(Picard) sampler: the Langevin knobs, ``make_rhs`` (probability flow and
-SDE, constant and scaled schedules), the step engine ``_run_steps``,
-``propagate`` backward, forward and partial, restart sampling, inpaint
-and RePaint, ``renoise``, ``apply_noise`` and the EDM, VP and VE
-schedulers. Grids are built on the host in numpy (float64); each step's
+Port of ``diffsci_tpu/ops/schedulers.py``: the Langevin knobs,
+``make_rhs`` (probability flow and SDE, constant and scaled schedules),
+the step engine ``_run_steps``, ``propagate`` backward, forward and
+partial, restart sampling, inpaint and RePaint, ``renoise``,
+``apply_noise``, the parallel-in-time (Picard) sampler
+(``propagate_backward_parallel``, over ``ops/parallel_sampling.py``) and
+the EDM, VP and VE schedulers. Grids are built on the host in numpy (float64); each step's
 t, dt, Langevin gate and integrator extras are cast to float32 as the JAX
 package's ``pack()`` does. The scan becomes a Python loop over the grid;
 the Heun endpoint step (the grid landing exactly on t = 0) is split off
@@ -51,6 +52,24 @@ def draw_noise(generator, n: int, like: torch.Tensor) -> torch.Tensor:
             "(noise_seq)")
     return torch.randn((n,) + tuple(like.shape), generator=generator,
                        dtype=like.dtype, device=like.device)
+
+
+def draw_rows(generators, x: torch.Tensor,
+              noise: torch.Tensor | None = None) -> None:
+    """Fill a sampler's draws row by row: row i of x ([B, *shape]) and of
+    the loop's noise ([n, B, *shape], or None) come from
+    ``generators[i]`` alone, in one call of [1 + n, *shape] (x_T first,
+    then the loop's n rows), so that a row depends on its own generator
+    only, whatever it is batched with. Rows past the generators are
+    zero."""
+    n = 0 if noise is None else noise.shape[0]
+    rows = torch.zeros((x.shape[0], 1 + n) + tuple(x.shape[1:]),
+                       dtype=x.dtype, device=x.device)
+    for i, generator in enumerate(generators):
+        torch.randn(rows.shape[1:], generator=generator, out=rows[i])
+    x.copy_(rows[:, 0])
+    if noise is not None:
+        noise.copy_(rows[:, 1:].transpose(0, 1))
 
 
 def _round_to_step(step):
@@ -256,6 +275,19 @@ class Scheduler:
                               backward=True, stochastic=stochastic,
                               integrator=integrator, noise_seq=noise_seq,
                               gate_scale=gate_scale, generator=generator)
+
+    def propagate_backward_parallel(self, x, score_fn: ScoreFn,
+                                    nsteps: int = 18,
+                                    iters: int | None = None,
+                                    tol: float | None = None):
+        """Parallel-in-time (Picard) deterministic sampling over the whole
+        trajectory: one network call of batch nsteps·B a sweep;
+        ``iters`` = nsteps reproduces sequential Euler
+        (``ops/parallel_sampling.py``)."""
+        from diffsci_tpu_torch.ops.parallel_sampling import \
+            picard_propagate_backward
+        return picard_propagate_backward(self, x, score_fn, nsteps,
+                                         iters=iters, tol=tol)
 
     def propagate_forward(self, x, score_fn: ScoreFn, nsteps: int = 100,
                           record_history: bool = False,

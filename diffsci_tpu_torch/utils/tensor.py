@@ -1,8 +1,9 @@
 """Broadcasting and condition helpers.
 
 The port's own copy of ``diffsci_tpu/utils/tensor.py``'s ``bcast_right``,
-``dict_map``, ``dict_expand_dims``, ``get_minibatch_sizes``,
-``space_to_depth`` and ``depth_to_space``, on torch tensors.
+``dict_map``, ``dict_expand_dims``, ``linear_interpolation``,
+``get_minibatch_sizes``, ``space_to_depth`` and ``depth_to_space``, on
+torch tensors.
 """
 
 from __future__ import annotations
@@ -34,6 +35,16 @@ def dict_map(fn: Callable[[Any], Any], d: Any) -> Any:
 
 def dict_expand_dims(d: Any, axis: int = 0) -> Any:
     return dict_map(lambda v: v.unsqueeze(axis), d)
+
+
+def linear_interpolation(x1: torch.Tensor, x2: torch.Tensor,
+                         ninterp: int) -> torch.Tensor:
+    """The straight path from ``x1`` to ``x2`` at ``ninterp + 2`` evenly
+    spaced points, both ends included: [ninterp + 2, *x1.shape]."""
+    alphas = torch.linspace(0.0, 1.0, ninterp + 2, dtype=x1.dtype,
+                            device=x1.device)
+    alphas = alphas.reshape((-1,) + (1,) * x1.ndim)
+    return (1.0 - alphas) * x1[None] + alphas * x2[None]
 
 
 def get_minibatch_sizes(nsamples: int, maximum_batch_size: int) -> list[int]:

@@ -510,16 +510,16 @@ def test_train_state_holds_its_graphs_on_card():
     assert held() is None
 
 
-def _train(graphed, remat, schedule, steps=3):
+def _train(graphed, remat, schedule, steps=3, tx=None):
     """``steps`` f32 train steps of the small 3D flash net from seed 2,
-    σ and ε replayed, power EMA every 2 steps: (metrics, state, launches
-    of each step)."""
+    σ and ε replayed, power EMA every 2 steps, under AdamW (or ``tx``):
+    (metrics, state, launches of each step)."""
     model = KarrasModel(PUNetG(_small_3d()), KarrasModelConfig.from_edm())
     lr = warmup_cosine_schedule(1e-3, 2, 10) if schedule else 1e-3
     tracker = EMATracker(ema_type="power", power_function_stds=[0.05],
                          update_every=2)
     state, tx = create_train_state(model, (2, 32, 32, 32, 1), seed=2,
-                                   optimizer=default_optimizer(lr),
+                                   optimizer=tx or default_optimizer(lr),
                                    ema=tracker)
     step = make_train_step(model, tx, ema=tracker, remat=remat,
                            _raw=not graphed)
@@ -990,3 +990,168 @@ def test_from_checkpoint_serves_like_the_in_memory_model_on_card(tmp_path):
     mine = SamplerService(ref, (16, 16, 1), **kw)
     assert np.array_equal(served.sample(4, generator=5),
                           mine.sample(4, generator=5))
+
+
+@pytest.mark.parametrize("tol", [0.0, 1e-3])
+def test_picard_sweep_graph_matches_eager_on_card(_no_tf32, tol):
+    """``sample_parallel`` replays one graph of a Picard sweep: the same
+    sweeps as the eager sweep on the same x_T, the result within phase 2's
+    rtol 1e-3 + atol 1e-3, one K1 and one network call's K2 a sweep; at
+    tol 0 the sequential Euler sample in nsteps sweeps; a second request
+    of the same seed gives the same bits."""
+    from diffsci_tpu_torch.ops import parallel_sampling as ps
+
+    model = KarrasModel(PUNetG(_small_2d()), KarrasModelConfig.from_edm())
+    model.init(seed=1)
+    shape, nsteps = (16, 16, 1), 6
+    kw = dict(nsteps=nsteps, window=4, tol=tol, return_sweeps=True)
+    model.compile_parallel(2, shape, nsteps=nsteps, window=4, tol=tol)
+    kernels.reset_launches()
+    out, sweeps = model.sample_parallel(
+        2, shape, torch.Generator("cuda").manual_seed(3), **kw)
+    counts = _counts()
+    x = torch.randn((2,) + shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    kernels.reset_launches()
+    ref, ref_sweeps = ps.picard_window_sample(
+        model.config.noisescheduler, x * 80.0, model._score(None, 1.0, x),
+        nsteps=nsteps, window=4, tol=tol, return_sweeps=True)
+    assert _counts() == counts and sweeps == ref_sweeps
+    kernels.reset_launches()
+    with torch.inference_mode():
+        model.get_denoiser(x, torch.full((2,), 80.0, device="cuda"))
+    assert counts == {k: n * sweeps for k, n in _counts().items()}
+    assert counts["fused_axby"] == sweeps
+    torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-3)
+    again, _ = model.sample_parallel(
+        2, shape, torch.Generator("cuda").manual_seed(3), **kw)
+    assert torch.equal(out, again)
+    if tol == 0.0:
+        assert sweeps == nsteps
+        seq = model.sample(2, shape, torch.Generator("cuda").manual_seed(3),
+                           nsteps=nsteps, integrator="euler")
+        torch.testing.assert_close(out, seq, rtol=1e-3, atol=1e-3)
+
+
+def test_dispatcher_isolation_on_card():
+    """The dispatcher thread replays the bucket graph that the warm-up
+    captured on the caller's thread: a seeded request gives the same bits
+    alone and crowded in one bucket, and its rows equal a plain request
+    of the rows' generators."""
+    import threading
+
+    from diffsci_tpu_torch import SamplerService
+
+    model = KarrasModel(PUNetG(_small_2d()), KarrasModelConfig.from_edm(),
+                        compute_dtype=torch.bfloat16)
+    model.init(seed=0)
+    svc = SamplerService(model, (16, 16, 1), batch_buckets=(8,), nsteps=3,
+                         batch_window_ms=20.0)
+    svc.warmup()
+    alone = svc.sample(3, 7)
+    threads = [threading.Thread(target=svc.sample, args=(2, 100 + i))
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    crowded = svc.sample(3, 7)
+    for t in threads:
+        t.join(60.0)
+        assert not t.is_alive()
+    svc.close()
+    assert svc.stats["batched_dispatches"] >= 2
+    assert np.array_equal(alone, crowded) and np.isfinite(alone).all()
+
+
+def _crowd_first_rows(svc, seeds):
+    """One one-row request a seed from its own thread, all at once; the
+    results by seed."""
+    import threading
+
+    results = {}
+
+    def client(seed):
+        results[seed] = svc.sample(1, seed)
+
+    threads = [threading.Thread(target=client, args=(s,)) for s in seeds]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120.0)
+        assert not t.is_alive()
+    svc.close()
+    return results
+
+
+def test_cold_onestep_dispatcher_on_card():
+    """A 1-NFE dispatcher service that was never warmed by hand: 8
+    concurrent first requests capture each bucket once (callers arriving
+    during the warm-up wait, and the warm-up replays nothing), and each
+    gets its row of ``sample_onestep`` with its row generator, bit for
+    bit."""
+    from diffsci_tpu_torch import SamplerService
+    from diffsci_tpu_torch.models.karras.distill import sample_onestep
+    from diffsci_tpu_torch.serving import row_seeds
+
+    model = KarrasModel(PUNetG(_small_2d()), KarrasModelConfig.from_edm())
+    model.init(seed=0)
+    svc = SamplerService(model, (16, 16, 1), batch_buckets=(8,), nsteps=1,
+                         batch_window_ms=20.0)
+    compiles, compile_bucket = [], svc._compile
+
+    def counted(b):
+        compiles.append(b)
+        compile_bucket(b)
+
+    svc._compile = counted
+    results = _crowd_first_rows(svc, range(200, 208))
+    assert compiles == [8]
+    for seed, got in results.items():
+        gen = torch.Generator("cuda").manual_seed(row_seeds(seed, 1)[0])
+        ref = sample_onestep(model, 8, (16, 16, 1), [gen])[:1]
+        assert np.array_equal(got, ref.cpu().numpy())
+
+
+def test_ddpm_dispatcher_on_card():
+    """A DDPMModel service through the dispatcher (ancestral DDPM, 5
+    steps, graphed): each concurrent request is bit for bit its row of
+    ``DDPMModel.sample`` with its row generator, which draws the row's x_T
+    and each step's noise."""
+    from diffsci_tpu_torch import SamplerService
+    from diffsci_tpu_torch.serving import row_seeds
+
+    model = DDPMModel(HFNetUncond(block_channels=(32, 64), channels=3,
+                                  norm_num_groups=8, attn_up_and_down=True),
+                      DDPMModelConfig.from_ddpm("cosine"))
+    model.init(seed=4)
+    svc = SamplerService(model, (16, 16, 3), batch_buckets=(4,), nsteps=5,
+                         batch_window_ms=20.0)
+    svc.warmup()
+    results = _crowd_first_rows(svc, range(300, 306))
+    assert svc.stats["batched_dispatches"] >= 2
+    for seed, got in results.items():
+        gen = torch.Generator("cuda").manual_seed(row_seeds(seed, 1)[0])
+        ref = model.sample(4, (16, 16, 3), generator=[gen], nsteps=5)[:1]
+        assert np.isfinite(got).all()
+        assert np.array_equal(got, ref.cpu().numpy())
+
+
+@pytest.mark.parametrize("kind", ["schedule_free", "bf16"])
+def test_graphed_optimizer_steps_match_eager_on_card(_no_tf32, kind):
+    """The two optimizers written for the port under the graphed step: 3
+    f32 steps against the eager step from the same weights and draws
+    (phase 3's bounds), the same launches a step."""
+    from diffsci_tpu_torch import schedule_free_optimizer
+
+    tx = (schedule_free_optimizer(1e-3) if kind == "schedule_free"
+          else default_optimizer(1e-3, mu_dtype=torch.bfloat16))
+    m_raw, s_raw, c_raw = _train(False, False, False, tx=tx)
+    m_graph, s_graph, c_graph = _train(True, False, False, tx=tx)
+    assert c_graph == c_raw
+    np.testing.assert_allclose(m_graph, m_raw, rtol=1e-3)
+    diff = torch.cat([(s_graph.params[n].detach() - p.detach()).abs()
+                      .flatten() for n, p in s_raw.params.items()])
+    assert np.quantile(diff.cpu().numpy(), 0.999) <= 0.05 * 1e-3
+    assert float(diff.max()) <= 2 * 3 * 1e-3
+    if kind == "bf16":
+        assert all(s["exp_avg"].dtype == torch.bfloat16
+                   for s in s_graph.optimizer.state.values())
