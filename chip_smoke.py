@@ -178,8 +178,39 @@ Phases (any failure raises, so the exit code is non-zero):
     and stochastic on the card's draws; the dispatcher's isolation on the
     card and its row against the CPU; AnoDDPM with replayed draws; three
     schedule-free and three bf16-moment train steps (phase 3's bounds).
-21. One JSON line lists every kernel with its launches over phases 5 to
-    9, 11 to 15 and 17 to 20; the card's name and power limit; then the
+21. Card vs CPU, f32, TF32 off, on phase 2's net as a forecaster
+    (PUNetGCond over a 2-frame window, CRPS, 2 horizons, a 3-step in-step
+    sampler): the CRPS ensemble loss (E = 3, masked and not), the
+    autoregressive loss on the card's draws, three graphed
+    ``make_ensemble_train_step`` steps against the CPU's eager ones
+    (phase 3's bounds); a small 3D ``AutoencoderKL``'s encode and decode
+    through ``BoundAutoencoder``, a latent ``loss_fn`` and a graphed
+    latent ``sample`` (phase 2's tolerance, 5 K1), a 2-step
+    ``autoregressive_sample`` (x_T replayed into the CPU's run, 10 K1).
+22. Configuration F, the forecaster, at full width: PUNetGCond at B's
+    widths over 4 latent channels and a 2-frame window (12 in, 4 out,
+    plain attention), CRPS over 4 members, 2 horizons, an 18-step Heun
+    in-step sampler, bf16 over f32 masters, batch 8: 20 graphed
+    ``make_ensemble_train_step`` steps after 3 warm-up steps: s/step,
+    items/s, peak memory, capture seconds, a falling loss, exactly 35 K1,
+    1036 K2 and 56 K3 a step; one profiled step (idle share) and the
+    in-step sampler's share of its device time (the same sample replayed
+    as the model's own sampler graph); three graphed steps against their
+    eager body (phase 3's bounds, bit for bit reported).
+23. Configuration G: ``AutoencoderKL(DDConfig(), embed_dim=4)`` (256² × 1
+    fields to 32² × 4 latents) bound in f32. F's network as a latent
+    ``EnsembleKarrasModel`` rolls out 3 forecast steps of 8 samples from
+    a 2-frame window encoded once and decodes the 24 latents in one call:
+    wall, the device time of encoder, sampler and decoder
+    (torch.profiler), exactly 105 K1 and 2940 K2, each step's graph
+    replay bit for bit its eager body, the decoded shape [3, 8, 256, 256,
+    1]; a latent PUNetG at B's widths trains on 8 fields of 256² a batch
+    through the graphed ``make_train_step``, the encoder inside the step
+    (s/step, peak memory, a falling loss, 28 K2 and 28 K3 a step), then
+    is rebuilt by ``karras_model_from_description(..., autoencoder=)``
+    and samples as the trained model does (phase 2's tolerance).
+24. One JSON line lists every kernel with its launches over phases 5 to
+    9, 11 to 15 and 17 to 23; the card's name and power limit; then the
     result line.
 
 The last line of standard output is
@@ -217,13 +248,15 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # K1's and K7's checks: the main paths' shapes (B's sampler at bucket 64,
 # A's at bucket 4, C's at 16 and 64, A's and B's Picard sweeps at batch
-# 8), ragged rows, many short rows, one
+# 8, F's in-step sampler and G's rollout on 8 latents of 32² × 4), ragged
+# rows, many short rows, one
 # long row, and operands whose base is not 16-byte aligned (contiguous
 # views at a storage offset of 1 element: x alone, f alone, x and f, and
 # for K7 g alone and all three). (shape, the offset operands)
 COMBINE_CASES = (((64, 28, 28, 1), ""), ((4, 32, 32, 32, 1), ""),
                  ((16, 32, 32, 3), ""), ((64, 32, 32, 3), ""),
                  ((8, 32, 32, 32, 1), ""), ((8, 28, 28, 1), ""),
+                 ((8, 32, 32, 4), ""),
                  ((3, 1001), ""), ((5, 7), ""), ((4096, 3), ""),
                  ((1, 2 ** 20 + 3), ""), ((64, 28, 28, 1), "x"),
                  ((64, 28, 28, 1), "f"), ((64, 28, 28, 1), "xf"),
@@ -606,7 +639,9 @@ def phase_kernels():
     # that are not 16-byte aligned (S = 49, 1001) and an x whose base is
     # not (a view at an element offset of 1); off-centre inputs
     # (|μ| = 100σ); rows beyond a cluster's shared memory (f32
-    # [1, 2, 300000]: the stream kernel). (shape, scale, shift, offset)
+    # [1, 2, 300000]: the stream kernel); F's loss at its denoiser batch
+    # 32 and its in-step sampler, G's rollout and latent training at batch
+    # 8, on 32² latents. (shape, scale, shift, offset)
     norm_cases = [((4, 32, 32, 32, 32), 2.0, 0.3, 0),
                   ((4, 64, 16, 16, 16), 2.0, 0.3, 0),
                   ((1, 32, 32, 32, 32), 2.0, 0.3, 0),
@@ -621,6 +656,12 @@ def phase_kernels():
                   ((8, 64, 28, 28), 2.0, 0.3, 0),
                   ((8, 128, 14, 14), 2.0, 0.3, 0),
                   ((8, 256, 7, 7), 2.0, 0.3, 0),
+                  ((32, 64, 32, 32), 2.0, 0.3, 0),
+                  ((32, 128, 16, 16), 2.0, 0.3, 0),
+                  ((32, 256, 8, 8), 2.0, 0.3, 0),
+                  ((8, 64, 32, 32), 2.0, 0.3, 0),
+                  ((8, 128, 16, 16), 2.0, 0.3, 0),
+                  ((8, 256, 8, 8), 2.0, 0.3, 0),
                   ((3, 5, 7, 7), 2.0, 0.3, 0), ((2, 3, 1001), 2.0, 0.3, 0),
                   ((2, 3, 1001), 2.0, 0.3, 1), ((64, 64, 28, 28), 2.0, 0.3, 1),
                   ((1, 32, 32, 32, 32), 2.0, 0.3, 1),
@@ -1284,10 +1325,18 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
     if x is None:
         x = torch.randn(x_shape, generator=gen, device="cuda")
     probe_sigma = model.config.noisesampler.sample((x_shape[0],), gen)
-    probe_eps = torch.randn(x_shape, generator=gen, device="cuda")
+    # a latent model's ε has the latent shape, and it draws its posterior
+    lat = model.latent_shape(x_shape) if getattr(model, "latent_model",
+                                                 False) else x_shape
+    probe_eps = torch.randn(lat, generator=gen, device="cuda")
+    probe_z = torch.randn(lat, generator=gen, device="cuda") \
+        if getattr(model, "latent_model", False) else None
 
     def probe():
         with torch.no_grad():
+            if probe_z is not None:
+                return float(model.loss_fn(x, probe_sigma, y, eps=probe_eps,
+                                           train=False, z_eps=probe_z))
             return float(model.loss_fn(x, probe_sigma, y, eps=probe_eps,
                                        train=False))
 
@@ -3327,6 +3376,585 @@ def phase_serving_card_vs_cpu():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 21 to 23: ensemble/CRPS forecasting, latent diffusion
+# ---------------------------------------------------------------------------
+F_STEPS = 18               # the in-step sampler's Heun steps (35 calls)
+F_HORIZONS = 2
+F_MEMBERS = 4
+G_PIX = 256                # G's fields: 256² × 1 -> 32² × 4 latents
+
+
+def busy_seconds(fn) -> tuple[float, float]:
+    """(wall seconds, device kernel seconds) of one call of ``fn`` under
+    torch.profiler, taken again (five times at most) when the trace holds
+    no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(device_us(e) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)) / 1e6
+        if busy > 0:
+            return wall, busy
+    raise AssertionError("the profiler saw no device time")
+
+
+def params_within(ours: dict, ref: dict, lr: float, k: int) -> tuple:
+    """Phase 3's bound on parameters after k steps: 99.9 % of entries
+    within 0.05·lr, every entry within 2·k·lr. Returns (ok, q999,
+    worst)."""
+    diff = np.concatenate([(ours[n].detach().float().cpu()
+                            - ref[n].detach().float().cpu())
+                           .abs().flatten().numpy() for n in ref])
+    q999, worst = float(np.quantile(diff, 0.999)), float(diff.max())
+    return q999 <= 0.05 * lr and worst <= 2 * k * lr, q999, worst
+
+
+def small_forecaster(dev, dtype=None, **ens_kw):
+    """Phase 2's small 3D net as a forecaster: PUNetGCond over x (1
+    channel) and a window of 2 frames, EDM with CRPS, 2 horizons, a
+    3-step in-step sampler."""
+    from diffsci_tpu_torch import KarrasModelConfig, PUNetGCond
+    from diffsci_tpu_torch.models.karras import ensemble as ens
+
+    net = PUNetGCond(dataclasses.replace(small_3d_config(), input_channels=3,
+                                         output_channels=1),
+                     channel_conditional_items=["y"], device=dev)
+    cfg = ens.EnsembleKarrasModelConfig.from_karras_config(
+        KarrasModelConfig.from_edm(loss_metric="crps",
+                                   autoregressive_loss_steps=F_HORIZONS,
+                                   autoregressive_loss_diffusion_steps=3),
+        **ens_kw)
+    return ens.EnsembleKarrasModel(net, cfg, conditional=True,
+                                   compute_dtype=dtype, device=dev)
+
+
+def small_latent(dev, bound, ens_model=False):
+    """Phase 2's small 3D net in the latent space of a small 3D
+    autoencoder (32³ × 1 -> 16³ × 2): a KarrasModel, or with
+    ``ens_model`` a conditional EnsembleKarrasModel over a 2-frame
+    window."""
+    from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
+                                   PUNetGCond)
+    from diffsci_tpu_torch.models.karras import ensemble as ens
+
+    if ens_model:
+        net = PUNetGCond(dataclasses.replace(small_3d_config(),
+                                             input_channels=6,
+                                             output_channels=2),
+                         channel_conditional_items=["y"], device=dev)
+        return ens.EnsembleKarrasModel(
+            net, ens.EnsembleKarrasModelConfig.from_edm(), conditional=True,
+            autoencoder=bound, device=dev)
+    net = PUNetG(dataclasses.replace(small_3d_config(), input_channels=2,
+                                     output_channels=2), device=dev)
+    return KarrasModel(net, KarrasModelConfig.from_edm(), autoencoder=bound,
+                       device=dev)
+
+
+def small_bound(dev, weights=None):
+    """A small 3D AutoencoderKL (ch 8, two levels, mid attention), bound
+    in f32; returns (bound, its weights)."""
+    from diffsci_tpu_torch.models.nets.vae import AutoencoderKL, DDConfig
+    from diffsci_tpu_torch.models.vae import (BoundAutoencoder, VAEModel,
+                                              VAEModelConfig)
+
+    dd = DDConfig(z_channels=2, resolution=32, ch=8, ch_mult=(1, 2),
+                  num_res_blocks=1, dimension=3)
+    vm = VAEModel(AutoencoderKL(dd, 2, device=dev), VAEModelConfig(),
+                  device=dev)
+    if weights is None:
+        weights = {k: v.clone() for k, v in vm.init(seed=5).items()}
+    else:
+        vm.net.load_state_dict(weights, strict=True)
+    return BoundAutoencoder(vm, scale_factor=0.8), weights
+
+
+def replay_x_T(model, draws):
+    """Make ``model``'s samplers take their x_T from ``draws`` in turn
+    (the card's draws replayed on the CPU)."""
+    it = iter(draws)
+
+    def draw(inputs, generator, langevin_scale):
+        inputs[0].copy_(next(it))
+        return inputs
+
+    model._draw_inputs = draw
+
+
+def phase_forecast_card_vs_cpu(zero):
+    """Phase 21: the ensemble, autoregressive and latent paths on phase
+    2's small net, card against the port's own CPU run in f32, TF32 off,
+    at phases 2 and 3's tolerances."""
+    from diffsci_tpu_torch import (create_train_state, default_optimizer,
+                                   kernels)
+    from diffsci_tpu_torch.models.karras import ensemble as ens
+    from diffsci_tpu_torch.models.karras.autoregressive import \
+        autoregressive_sample
+
+    t_start = time.perf_counter()
+    shape, B, lr = (2, 32, 32, 32, 1), 2, 1e-3
+    gen = torch.Generator("cuda").manual_seed(21)
+    x = torch.randn((B, 32, 32, 32, F_HORIZONS), generator=gen,
+                    device="cuda")
+    y = {"y": torch.randn((B, 2, 32, 32, 32), generator=gen, device="cuda")}
+    mask = (torch.rand(x.shape[:-1] + (1,), generator=gen, device="cuda")
+            < 0.25).float()
+    card = small_forecaster("cuda", ensemble_size_train=3)
+    cpu = small_forecaster("cpu", ensemble_size_train=3)
+    weights = {k: v.clone() for k, v in card.init(seed=2).items()}
+    cpu.net.load_state_dict(weights, strict=True)
+    counts = dict(zero)
+
+    def to_cpu(t):
+        return None if t is None else t.cpu()
+
+    # the CRPS ensemble loss, E = 3, masked and not
+    sigma = card.config.noisesampler.sample((B,), gen)
+    eps = torch.randn((B, 3) + shape[1:], generator=gen, device="cuda")
+    for m in (None, mask):
+        with torch.no_grad():
+            ours = card.loss_fn(x[..., :1], sigma, y, m, train=False,
+                                n_ensemble=3, eps=eps)
+            ref = cpu.loss_fn(x[..., :1].cpu(), sigma.cpu(),
+                              {"y": y["y"].cpu()}, to_cpu(m), train=False,
+                              n_ensemble=3, eps=eps.cpu())
+        ok = bool(torch.isclose(ours.cpu(), ref, rtol=1e-3, atol=0))
+        log(f"[forecast card-vs-cpu] CRPS E=3 {'masked' if m is not None else 'plain'}"
+            f": card {float(ours):.6f} cpu {float(ref):.6f} (rtol 1e-3) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("CRPS ensemble loss: card and CPU differ")
+
+    # the 2-horizon AR loss with its 3-step in-step sampler, replayed
+    draws = card.draw_autoregressive(card.draw_tensors(x, 3), gen)
+    cpu_draws = {k: to_cpu(v) for k, v in draws.items()}
+    with torch.no_grad():
+        ours, _, hs = card.autoregressive_loss_fn(
+            x, y, mask, train=False, n_ensemble=3, draws=draws)
+        ref, _, hs_ref = cpu.autoregressive_loss_fn(
+            x.cpu(), {"y": y["y"].cpu()}, mask.cpu(), train=False,
+            n_ensemble=3, draws=cpu_draws)
+    ok = all(bool(torch.isclose(a.cpu(), b, rtol=1e-3, atol=0))
+             for a, b in zip(hs + [ours], hs_ref + [ref]))
+    log(f"[forecast card-vs-cpu] AR loss, 2 horizons, 3-step in-step "
+        f"sampler: card {[round(float(v), 6) for v in hs]} cpu "
+        f"{[round(float(v), 6) for v in hs_ref]} (rtol 1e-3) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("AR loss: card and CPU differ")
+
+    # three graphed ensemble train steps against the CPU's eager ones
+    step_draws = [card.draw_autoregressive(card.draw_tensors(x, 3), gen)
+                  for _ in range(3)]
+    runs = {}
+    for arm, model in (("cpu", cpu), ("card", card)):
+        dev = model.device
+        model.net.load_state_dict(weights, strict=True)
+        state, tx = create_train_state(model, (B,) + shape[1:-1] + (3,),
+                                       seed=None,
+                                       optimizer=default_optimizer(lr))
+        step = ens.make_ensemble_train_step(model, tx)
+        kernels.reset_launches()
+        mets = []
+        for d in step_draws:
+            if arm == "cpu":
+                d = {k: to_cpu(v) for k, v in d.items()}
+            state, met = step(state, x.to(dev), {"y": y["y"].to(dev)},
+                              mask.to(dev), draws=d)
+            mets.append([float(met[n]) for n in (
+                "train_loss", "ar_loss_horizon_1", "ar_loss_horizon_2")])
+        runs[arm] = (mets, state, dict(kernels.LAUNCHES))
+    (m_cpu, s_cpu, _), (m_card, s_card, c_step) = runs["cpu"], runs["card"]
+    ok_p, q999, worst = params_within(s_card.params, s_cpu.params, lr, 3)
+    ok = ok_p and np.allclose(m_card, m_cpu, rtol=1e-3, atol=0)
+    graphs_n = len(s_card.graphs.graphs)
+    log(f"[forecast card-vs-cpu] 3 graphed ensemble steps (CRPS E=3, 2 "
+        f"horizons): (loss, h1, h2) card {np.round(m_card, 6).tolist()} "
+        f"cpu {np.round(m_cpu, 6).tolist()} (rtol 1e-3); params 99.9% "
+        f"{q999:.3e}, max {worst:.3e} (limits {0.05 * lr:.0e}, "
+        f"{6 * lr:.0e}); {graphs_n} graph(s); launches {c_step} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok or min(c_step[k] for k in ("fused_axby", "norm_silu",
+                                         "norm_silu_bwd")) == 0:
+        raise AssertionError("ensemble train step: card and CPU differ, or "
+                             "a kernel was not launched")
+    counts = {k: counts[k] + c_step[k] for k in counts}
+
+    # a small AutoencoderKL's encode and decode, a latent loss and sample
+    bound_card, ae_w = small_bound("cuda")
+    bound_cpu, _ = small_bound("cpu", ae_w)
+    pix = torch.randn((2, 1, 32, 32, 32), generator=gen, device="cuda")
+    with torch.no_grad():
+        z = bound_card.encode(pix)
+        z_ref = bound_cpu.encode(pix.cpu())
+        dec = bound_card.decode(z)
+        dec_ref = bound_cpu.decode(z_ref)
+    err_z, ok_z = within_phase2(z.cpu(), z_ref)
+    err_d, ok_d = within_phase2(dec.cpu(), dec_ref)
+    log(f"[forecast card-vs-cpu] AutoencoderKL 3D 32^3 -> {tuple(z.shape)}"
+        f": encode |card - cpu| {err_z:.3e}, decode {err_d:.3e} (rtol "
+        f"1e-3, atol 1e-3) {'ok' if ok_z and ok_d else 'FAIL'}")
+    if not (ok_z and ok_d):
+        raise AssertionError("AutoencoderKL: card and CPU differ")
+    lat = {"cpu": small_latent("cpu", bound_cpu),
+           "card": small_latent("cuda", bound_card)}
+    for m in lat.values():
+        m.init(seed=6)
+    x_pix = pix.movedim(1, -1)
+    sig = card.config.noisesampler.sample((2,), gen)
+    e = torch.randn((2, 16, 16, 16, 2), generator=gen, device="cuda")
+    zq = torch.randn((2, 16, 16, 16, 2), generator=gen, device="cuda")
+    with torch.no_grad():
+        ours = lat["card"].loss_fn(x_pix, sig, train=False, eps=e, z_eps=zq)
+        ref = lat["cpu"].loss_fn(x_pix.cpu(), sig.cpu(), train=False,
+                                 eps=e.cpu(), z_eps=zq.cpu())
+    ok = bool(torch.isclose(ours.cpu(), ref, rtol=1e-3, atol=0))
+    x_T = torch.randn((2, 16, 16, 16, 2), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(3))
+    lat["card"].compile_sampler(2, (32, 32, 32, 1), nsteps=3)
+    kernels.reset_launches()
+    out = lat["card"].sample(2, (32, 32, 32, 1),
+                             torch.Generator("cuda").manual_seed(3),
+                             nsteps=3).cpu()
+    c_lat = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        ref_s = lat["cpu"].propagate_white_noise(x_T.cpu(), nsteps=3)
+    err, ok_s = within_phase2(out, ref_s)
+    log(f"[forecast card-vs-cpu] latent loss card {float(ours):.6f} cpu "
+        f"{float(ref):.6f} (rtol 1e-3); latent sample (graphed, decoded "
+        f"{tuple(out.shape)}) |card - cpu| {err:.3e} (phase 2's "
+        f"tolerance); launches {c_lat} {'ok' if ok and ok_s else 'FAIL'}")
+    if not (ok and ok_s) or c_lat["fused_axby"] != 5:
+        raise AssertionError("latent loss or sample: card and CPU differ")
+    counts = {k: counts[k] + c_lat[k] for k in counts}
+
+    # a 2-step autoregressive_sample, x_T replayed into the CPU's run
+    roll = {"cpu": small_latent("cpu", bound_cpu, ens_model=True),
+            "card": small_latent("cuda", bound_card, ens_model=True)}
+    for m in roll.values():
+        m.init(seed=7)
+    window = torch.randn((4, 16, 16, 16), generator=gen, device="cuda")
+    g = torch.Generator("cuda").manual_seed(8)
+    x_Ts = [torch.randn((2, 16, 16, 16, 2), generator=g, device="cuda")
+            .cpu() for _ in range(2)]
+    replay_x_T(roll["cpu"], x_Ts)
+    roll["card"].compile_sampler(
+        2, (16, 16, 16, 2), {"y": window[None].expand((2,) + window.shape)},
+        nsteps=3, is_latent_shape=True, return_in_latent_space=True)
+    kernels.reset_launches()
+    out = autoregressive_sample(roll["card"], 2, (16, 16, 16, 2), 2, 2,
+                                nsteps_diffusion=3, y={"y": window},
+                                y_already_encoded=True,
+                                return_intermediate=True,
+                                generator=torch.Generator("cuda")
+                                .manual_seed(8))
+    c_ar = dict(kernels.LAUNCHES)
+    ref = autoregressive_sample(roll["cpu"], 2, (16, 16, 16, 2), 2, 2,
+                                nsteps_diffusion=3, y={"y": window.cpu()},
+                                y_already_encoded=True,
+                                return_intermediate=True)
+    err_l, ok_l = within_phase2(out["intermediate_latent"].cpu(),
+                                ref["intermediate_latent"])
+    err_p, ok_p = within_phase2(out["forecasts"].cpu(), ref["forecasts"])
+    log(f"[forecast card-vs-cpu] autoregressive_sample, 2 steps of 3: "
+        f"latents |card - cpu| {err_l:.3e}, decoded "
+        f"{tuple(out['forecasts'].shape)} {err_p:.3e} (phase 2's "
+        f"tolerance); launches {c_ar}; phase {time.perf_counter() - t_start:.1f} s "
+        f"{'ok' if ok_l and ok_p else 'FAIL'}")
+    if not (ok_l and ok_p) or c_ar["fused_axby"] != 10:
+        raise AssertionError("autoregressive_sample: card and CPU differ")
+    return [counts, c_ar]
+
+
+def model_f(dev="cuda"):
+    """Configuration F: PUNetGCond at B's widths over 4 latent channels
+    and a 2-frame window (12 in, 4 out, plain attention), EDM, CRPS over
+    4 members, 2 horizons, an 18-step Heun in-step sampler, bf16 over f32
+    masters."""
+    from diffsci_tpu_torch import KarrasModelConfig, PUNetGConfig, PUNetGCond
+    from diffsci_tpu_torch.models.karras import ensemble as ens
+
+    net = PUNetGCond(PUNetGConfig(model_channels=64,
+                                  channel_expansion=[2, 4],
+                                  input_channels=12, output_channels=4,
+                                  attn_backend="xla"),
+                     channel_conditional_items=["y"], device=dev)
+    cfg = ens.EnsembleKarrasModelConfig.from_karras_config(
+        KarrasModelConfig.from_edm(
+            loss_metric="crps", autoregressive_loss_steps=F_HORIZONS,
+            autoregressive_loss_diffusion_steps=F_STEPS),
+        ensemble_size_train=F_MEMBERS)
+    return ens.EnsembleKarrasModel(net, cfg, conditional=True,
+                                   compute_dtype=torch.bfloat16, device=dev)
+
+
+def phase_forecaster(zero, steps=20, warmup=3):
+    """Phase 22: F trained at full width through the graphed
+    ``make_ensemble_train_step``: s/step, items/s, peak memory, capture
+    seconds, idle share, the in-step sampler's share of the step's device
+    time, exact launches, a falling loss, the graphed step against its
+    eager body."""
+    from diffsci_tpu_torch import (EMATracker, create_train_state,
+                                   default_optimizer, kernels)
+    from diffsci_tpu_torch.models.karras import ensemble as ens
+
+    B = 8
+    model = model_f()
+    tracker = EMATracker(ema_type="power", power_function_stds=[0.05],
+                         update_every=4)
+    x_shape = (B, 32, 32, 4 * F_HORIZONS)
+    state, tx = create_train_state(model, x_shape, seed=0, ema=tracker)
+    weights = {k: v.detach().clone() for k, v in state.params.items()}
+    step = ens.make_ensemble_train_step(model, tx, ema=tracker)
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(x_shape, generator=gen, device="cuda")
+    y = {"y": torch.randn((B, 8, 32, 32), generator=gen, device="cuda")}
+    probe = model.draw_autoregressive(model.draw_tensors(x, F_MEMBERS), gen)
+
+    def probe_loss():
+        with torch.no_grad():
+            return float(model.autoregressive_loss_fn(
+                x, y, train=False, n_ensemble=F_MEMBERS, draws=probe)[0])
+
+    before = probe_loss()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        step(state, x, y, generator=gen)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    captures = [round(g.capture_seconds, 3)
+                for g in state.graphs.graphs.values()]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    kernels.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        met = step(state, x, y, generator=gen)[1]
+        losses.append(met["train_loss"])
+    last = float(met["train_loss"])                       # the sync
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = probe_loss()
+    losses = [float(v) for v in losses]
+    # a network call is 28 K2 (14 blocks); a step is the 2 horizons'
+    # forward and backward (56 K2, 56 K3) and 35 network calls and 35
+    # combines (K1) of the in-step sampler
+    per_step = dict(zero, fused_axby=2 * F_STEPS - 1,
+                    norm_silu=28 * (F_HORIZONS + 2 * F_STEPS - 1),
+                    norm_silu_bwd=28 * F_HORIZONS)
+    expected = {k: n * steps for k, n in per_step.items()}
+    log(f"[F] {sum(p.numel() for p in state.params.values())} parameters, "
+        f"x {x_shape}, window {tuple(y['y'].shape)}, E {F_MEMBERS} (denoiser "
+        f"batch {B * F_MEMBERS}), {F_HORIZONS} horizons, {F_STEPS}-step Heun "
+        f"in-step sampler: warm-up {warmup} steps {warm_s:.2f} s, capture "
+        f"seconds (step, EMA) {captures}")
+    log(f"[F] {steps} graphed steps in {dt:.4f} s: {dt / steps:.4f} s/step, "
+        f"{B * steps / dt:.2f} items/s; peak memory {peak:.3f} GiB "
+        f"({peak - base:.3f} GiB above the {base:.3f} GiB held before the "
+        f"steps); loss "
+        f"first {losses[0]:.5f} last {last:.5f}; fixed-draw loss "
+        f"{before:.5f} before, {after:.5f} after; launches {counts}, a step "
+        f"{per_step}")
+    if not (np.isfinite(losses).all() and after < before):
+        raise AssertionError("F: non-finite loss, or the loss did not fall")
+    if counts != expected:
+        raise AssertionError(f"F: launch counts {counts}, expected "
+                             f"{expected}")
+
+    # the idle share of a graphed step, and the in-step sampler's share of
+    # its device time: the same sample (8 items, the window, 18 Heun steps,
+    # bf16) replayed as the model's own sampler graph
+    wall, busy = busy_seconds(lambda: step(state, x, y, generator=gen))
+    sample_shape = (32, 32, 4)
+    model.compile_sampler(B, sample_shape, y, nsteps=F_STEPS)
+    wall_s, busy_s = busy_seconds(lambda: model.sample(
+        B, sample_shape, gen, y=y, nsteps=F_STEPS))
+    log(f"[F] profiled graphed step: wall {wall:.4f} s, device {busy:.4f} s, "
+        f"idle share {1 - busy / wall:.3f}; the in-step sampler alone "
+        f"(graphed sample of {B}): device {busy_s:.4f} s = "
+        f"{busy_s / busy:.1%} of the step's device time")
+
+    # the graphed step against its eager body: three steps each from the
+    # same weights and generator (the graphed arm's first is its warm-up)
+    arms = {}
+    for arm in ("eager", "graphed"):
+        with torch.no_grad():
+            for k, v in state.params.items():
+                v.copy_(weights[k])
+        st, tx2 = create_train_state(model, x_shape, seed=None)
+        fn = ens.make_ensemble_train_step(model, tx2, _raw=arm == "eager")
+        g2 = torch.Generator("cuda").manual_seed(22)
+        mets = [float(fn(st, x, y, generator=g2)[1]["train_loss"])
+                for _ in range(3)]
+        arms[arm] = (mets, {k: v.detach().clone()
+                            for k, v in st.params.items()})
+    (m_e, p_e), (m_g, p_g) = arms["eager"], arms["graphed"]
+    same = all(torch.equal(p_e[k], p_g[k]) for k in p_e) and m_e == m_g
+    ok_p, q999, worst = params_within(p_g, p_e, 1e-3, 3)
+    ok = ok_p and np.allclose(m_g, m_e, rtol=1e-3, atol=0)
+    log(f"[F] graphed against eager, 3 steps from one seed: losses "
+        f"{m_g} / {m_e}; params 99.9% {q999:.3e}, max {worst:.3e} (phase "
+        f"3's limits); bit for bit {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("F: the graphed step differs from its eager "
+                             "body")
+    return counts, model
+
+
+def bound_g():
+    """G's autoencoder: ``AutoencoderKL(DDConfig(), embed_dim=4)`` (256² ×
+    1 fields to 32² × 4 latents), random weights from seed 0, bound in
+    f32."""
+    from diffsci_tpu_torch.models.nets.vae import AutoencoderKL, DDConfig
+    from diffsci_tpu_torch.models.vae import (BoundAutoencoder, VAEModel,
+                                              VAEModelConfig)
+
+    vm = VAEModel(AutoencoderKL(DDConfig(resolution=G_PIX), embed_dim=4),
+                  VAEModelConfig())
+    vm.init(seed=0)
+    return BoundAutoencoder(vm)
+
+
+def phase_latent(zero, f_model):
+    """Phase 23: G. F's network as a latent EnsembleKarrasModel rolls out
+    3 forecast steps of 8 samples from a 2-frame 256² window encoded once,
+    and decodes the 24 latents in one call: wall, device time of encoder,
+    sampler and decoder, exact launches, each step's graph replay against
+    its eager body. Then a latent PUNetG at B's widths trains on 256²
+    pixels through the graphed ``make_train_step``, the encoder inside
+    the step's graph."""
+    from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
+                                   PUNetGConfig, kernels,
+                                   karras_model_from_description)
+    from diffsci_tpu_torch.models.karras import ensemble as ens
+    from diffsci_tpu_torch.models.karras.autoregressive import (
+        autoregressive_sample, frames_to_window, window_to_frames)
+
+    bound = bound_g()
+    nae = sum(p.numel() for p in bound.model.net.parameters())
+    roll = ens.EnsembleKarrasModel(f_model.net.model, f_model.config,
+                                   conditional=True, autoencoder=bound,
+                                   compute_dtype=torch.bfloat16)
+    n, nf, lat_shape = 8, 3, (G_PIX // 8, G_PIX // 8, 4)
+    gen = torch.Generator("cuda").manual_seed(23)
+    frames = torch.randn((2, 1, G_PIX, G_PIX), generator=gen,
+                         device="cuda")
+
+    def encode():
+        return frames_to_window(bound.encode(frames))       # [8, 32, 32]
+
+    def rollout(window, seed, latent=False):
+        return autoregressive_sample(
+            roll, n, lat_shape, nf, 2, nsteps_diffusion=F_STEPS,
+            y={"y": window}, y_already_encoded=True,
+            return_intermediate=True, return_in_latent=latent,
+            generator=torch.Generator("cuda").manual_seed(seed))
+
+    t0 = time.perf_counter()
+    rollout(encode(), 1)                  # the warm-up captures the graph
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    window = encode()
+    out = rollout(window, 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    expected = dict(zero, fused_axby=nf * (2 * F_STEPS - 1),
+                    norm_silu=28 * nf * (2 * F_STEPS - 1))
+    fc = out["forecasts"]
+    log(f"[G] AutoencoderKL {nae} parameters; rollout of {nf} steps x {n} "
+        f"samples, {F_STEPS} Heun steps each: warm-up {warm:.2f} s, wall "
+        f"{wall:.4f} s (encode, 3 graphed samples, one decode of "
+        f"{nf * n} latents); forecasts {tuple(fc.shape)}; launches {counts}")
+    if tuple(fc.shape) != (nf, n, G_PIX, G_PIX, 1) or \
+            not bool(torch.isfinite(fc).all()):
+        raise AssertionError(f"G: forecasts {tuple(fc.shape)} or non-finite")
+    if counts != expected:
+        raise AssertionError(f"G: launch counts {counts}, expected "
+                             f"{expected}")
+    lat = out["intermediate_latent"]
+    _, t_enc = busy_seconds(encode)
+    _, t_smp = busy_seconds(lambda: rollout(window, 2, latent=True))
+
+    def decode():
+        with torch.inference_mode():
+            roll.decode(lat.reshape((nf * n,) + lat_shape))
+
+    _, t_dec = busy_seconds(decode)
+    total = t_enc + t_smp + t_dec
+    log(f"[G] rollout device time: encoder {t_enc:.4f} s ({t_enc / total:.1%}"
+        f"), sampler {t_smp:.4f} s ({t_smp / total:.1%}), decoder "
+        f"{t_dec:.4f} s ({t_dec / total:.1%}) of {total:.4f} s")
+
+    # each forecast step's replay against its eager body, bit for bit
+    g3 = torch.Generator("cuda").manual_seed(2)
+    frames_lat, y_win, same = window_to_frames(window, 2), window, []
+    for k in range(nf):
+        x_T = torch.randn((n,) + lat_shape, generator=g3, device="cuda")
+        yb = {"y": y_win[None].expand((n,) + tuple(y_win.shape))}
+        with torch.inference_mode():
+            eager = roll.propagate_white_noise(x_T, yb, nsteps=F_STEPS,
+                                               return_in_latent_space=True)
+        same.append(bool(torch.equal(eager, lat[k])))
+        frames_lat = torch.cat([frames_lat[1:],
+                                lat[k][0].movedim(-1, 0)[None]])
+        y_win = frames_to_window(frames_lat)
+    log(f"[G] each forecast step's graph replay bit for bit its eager "
+        f"body: {same}")
+    if not all(same):
+        raise AssertionError("G: a forecast step's replay differs from its "
+                             "eager body")
+
+    # latent training: B's widths over the 4 latent channels, 8 fields of
+    # 256² a batch, the encoder (and its posterior draw) in the step
+    model = KarrasModel(PUNetG(PUNetGConfig(model_channels=64,
+                                            channel_expansion=[2, 4],
+                                            input_channels=4,
+                                            output_channels=4)),
+                        KarrasModelConfig.from_edm(), autoencoder=bound,
+                        compute_dtype=torch.bfloat16)
+    c_train, _, _ = train("config G latent", None, (8, G_PIX, G_PIX, 1), 20,
+                          dict(zero, norm_silu=28, norm_silu_bwd=28),
+                          model=model)
+
+    # the trained latent model rebuilt from its description with the
+    # bound autoencoder passed in: the same decoded samples from one seed
+    desc = model.export_description()
+    rebuilt = karras_model_from_description(desc, autoencoder=bound,
+                                            compute_dtype=torch.bfloat16)
+    rebuilt.net.load_state_dict(model.net.state_dict(), strict=True)
+    shape = (G_PIX, G_PIX, 1)
+    kernels.reset_launches()
+    a, b = (m.sample(2, shape, torch.Generator("cuda").manual_seed(5),
+                     nsteps=6) for m in (model, rebuilt))
+    c_desc = dict(kernels.LAUNCHES)
+    err, ok = within_phase2(b.float().cpu(), a.float().cpu())
+    log(f"[G] latent model rebuilt from its description (autoencoder "
+        f"{desc['autoencoder']}): 6-step samples {tuple(a.shape)} |Δ| "
+        f"{err:.3e} (phase 2's tolerance), bit for bit "
+        f"{bool(torch.equal(a, b))}; launches {c_desc} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok or desc["autoencoder"] is not True or \
+            tuple(a.shape) != (2,) + shape:
+        raise AssertionError("G: the model rebuilt from its description "
+                             "samples differently")
+    return [counts, c_train, c_desc]
+
+
 def threading_sample(svc, n, seed):
     import threading
 
@@ -3436,7 +4064,12 @@ def main() -> int:
                                     svc_ddim.model)
     torch.backends.cudnn.allow_tf32 = False
     counts_20 = phase_serving_card_vs_cpu()
+
+    # ensemble/CRPS forecasting and latent diffusion (phases 21 to 23)
+    counts_21 = phase_forecast_card_vs_cpu(zero)
     torch.backends.cudnn.allow_tf32 = True
+    counts_22, f_trained = phase_forecaster(zero)
+    counts_23 = phase_latent(zero, f_trained)
 
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
@@ -3466,7 +4099,8 @@ def main() -> int:
                                            *counts_13, *counts_14,
                                            *counts_15, *counts_17,
                                            *counts_18, *counts_19,
-                                           *counts_20]),
+                                           *counts_20, *counts_21,
+                                           counts_22, *counts_23]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

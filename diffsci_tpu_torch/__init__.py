@@ -47,14 +47,26 @@ command line ``python -m diffsci_tpu_torch info|sample|serve|profile``
 features AnoDDPM, DDAD and RePaint (``features/``), ``interpolate_images``
 and ``sample_and_filter``; ``schedule_free_optimizer`` and
 ``default_optimizer(mu_dtype=)``.
+
+Forecasting and latent diffusion: ``EnsembleKarrasModel`` (CRPS over an
+ensemble in one flattened denoiser call, the autoregressive loss with its
+in-step sampler, replay fine-tuning, L2-SP) and
+``make_ensemble_train_step`` (one CUDA graph per key, the in-step
+sampler inside it); ``autoregressive_sample`` (a latent rollout);
+``KarrasEncoderModel``; the KL autoencoder (``AutoencoderKL``,
+``DDConfig``), ``VAEModel``'s encode and decode and ``BoundAutoencoder``,
+which a latent ``KarrasModel(autoencoder=...)`` takes.
 """
 
 from diffsci_tpu_torch.checkpoint import (CheckpointManager, ModelRegistry,
                                           restore_checkpoint, save_checkpoint)
 from diffsci_tpu_torch.data.loading import ArrayDataLoader
 from diffsci_tpu_torch.models import (
-    DDPMModel, DDPMModelConfig, EMATracker, HFNetCond, HFNetUncond,
-    IntervalGuidance, KarrasModel, KarrasModelConfig, KarrasNet, PUNetG,
+    AutoencoderKL, BoundAutoencoder, DDConfig, DDPMModel, DDPMModelConfig,
+    EMATracker, EnsembleKarrasModel, EnsembleKarrasModelConfig, HFNetCond,
+    HFNetUncond, IntervalGuidance, KarrasEncoderModel, KarrasModel,
+    KarrasModelConfig, KarrasNet, PUNetG, VAEModel, VAEModelConfig,
+    autoregressive_sample, make_ensemble_train_step,
     PUNetGCond, PUNetGConfig, UNet2D, accumulate_gradients,
     cosine_restarts_schedule, create_train_state, default_optimizer,
     freeze_optimizer, karras_model_from_description, make_eval_step,
@@ -64,10 +76,13 @@ from diffsci_tpu_torch.models import (
 from diffsci_tpu_torch.serving import SamplerService
 from diffsci_tpu_torch.trainer import Trainer, fit_karras
 
-__all__ = ["ArrayDataLoader", "CheckpointManager", "DDPMModel",
-           "DDPMModelConfig", "EMATracker", "HFNetCond", "HFNetUncond",
-           "IntervalGuidance", "KarrasModel", "KarrasModelConfig",
-           "KarrasNet", "ModelRegistry", "PUNetG", "PUNetGCond",
+__all__ = ["ArrayDataLoader", "AutoencoderKL", "BoundAutoencoder",
+           "CheckpointManager", "DDConfig", "DDPMModel",
+           "DDPMModelConfig", "EMATracker", "EnsembleKarrasModel",
+           "EnsembleKarrasModelConfig", "HFNetCond", "HFNetUncond",
+           "IntervalGuidance", "KarrasEncoderModel", "KarrasModel",
+           "KarrasModelConfig", "KarrasNet", "VAEModel", "VAEModelConfig",
+           "autoregressive_sample", "make_ensemble_train_step", "ModelRegistry", "PUNetG", "PUNetGCond",
            "PUNetGConfig", "SamplerService", "Trainer", "UNet2D",
            "accumulate_gradients", "cosine_restarts_schedule",
            "create_train_state", "default_optimizer", "fit_karras",

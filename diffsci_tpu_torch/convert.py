@@ -20,7 +20,17 @@ counterpart:
 - UNet2D, or an HFNet around one (scope ``unet``), with diffusers'
   ``UNet2DModel`` names (the JAX package's ``diffusers_unet2d_name_map``
   read backwards);
-- MLPUncond / MLPCond (``Dense_{i}`` -> ``net.{2i}``).
+- MLPUncond / MLPCond (``Dense_{i}`` -> ``net.{2i}``);
+- AutoencoderKL, 2D or 3D (``encoder``/``decoder``/``quant_conv``), with
+  the torch reference's names (``down_{i}_block_{j}`` ->
+  ``down.{i}.block.{j}``, the blocks' GroupNorm_0/Conv_0/GroupNorm_1/
+  Conv_1/Conv_2 -> norm1/conv1/norm2/conv2/nin_shortcut, ``mid_attn``'s
+  Dense_0-3 -> the 1×1 convolutions q/k/v/proj_out, the auto-numbered
+  attention blocks at ``attn_resolutions`` -> ``down.{i}.attn.{j}`` in
+  call order, which needs the ``DDConfig``), or the ``VAEModel`` around
+  one (scope ``autoencoder``, with a trainable ``logvar``);
+- the network of a ``KarrasEncoderModel`` (``encoder_model`` beside
+  ``model``).
 
 Everywhere conv kernels [*k, in, out] -> [out, in, *k], Dense kernels
 [in, out] -> [out, in] and norm scales -> ``weight``. The name maps are the
@@ -243,6 +253,80 @@ def _unet2d_key(path: tuple) -> str:
     return ".".join([prefix] + body + [leaf])
 
 
+_LDM_BLOCK = {"GroupNorm_0": "norm1", "Conv_0": "conv1",
+              "GroupNorm_1": "norm2", "Conv_1": "conv2"}
+_LDM_ATTN = {"GroupNorm_0": "norm", "Dense_0": "q", "Dense_1": "k",
+             "Dense_2": "v", "Dense_3": "proj_out"}
+_LDM_LINEAR_ATTN = {"Dense_0": "to_qkv", "Dense_1": "to_out"}
+
+
+def _attn_slots(config, side: str) -> list[str]:
+    """The port's prefixes of the attention blocks at ``attn_resolutions``
+    of the encoder or decoder, in the order flax numbers them."""
+    n = len(config.ch_mult)
+    if side == "encoder":
+        levels, blocks = range(n), config.num_res_blocks
+        res = [config.resolution // 2 ** i for i in range(n)]
+    else:
+        levels, blocks = reversed(range(n)), config.num_res_blocks + 1
+        res = [config.resolution // 2 ** i for i in range(n)]
+    return [f"down.{i}.attn.{j}" if side == "encoder"
+            else f"up.{i}.attn.{j}"
+            for i in levels if res[i] in config.attn_resolutions
+            for j in range(blocks)]
+
+
+def _conv_leaf(w: np.ndarray, leaf: str, dense_as_conv: int = 0):
+    """A kernel in the port's layout (a Dense kernel as a 1^d conv's when
+    ``dense_as_conv`` = d), or a bias / scale as it is."""
+    if leaf == "kernel" and dense_as_conv and w.ndim == 2:
+        return w.T.reshape(w.shape[1], w.shape[0], *([1] * dense_as_conv))
+    return _layout(w, leaf)
+
+
+def _autoencoder_state(params: dict, config=None) -> dict[str, np.ndarray]:
+    """An AutoencoderKL's JAX leaves -> the port's (the torch reference's)
+    names."""
+    ndim = np.asarray(params["quant_conv"]["kernel"]).ndim - 2
+    out = {}
+    for path, w in _flatten(params):
+        leaf, scopes = path[-1], list(path[:-1])
+        name = _LEAF[leaf]
+        if scopes[0] in ("quant_conv", "post_quant_conv"):
+            out[f"{scopes[0]}.{name}"] = _layout(w, leaf)
+            continue
+        side, scope, rest = scopes[0], scopes[1], scopes[2:]
+        m = re.match(r"^(down|up)_(\d+)_block_(\d+)$", scope)
+        attn = re.match(r"^LDM(Linear)?AttnBlock_(\d+)$", scope)
+        if scope in ("conv_in", "conv_out", "norm_out"):
+            key = scope
+        elif m:
+            sub = _LDM_BLOCK.get(rest[0])
+            if rest[0] == "Conv_2":
+                k = np.asarray(params[side][scope]["Conv_2"]["kernel"])
+                sub = "nin_shortcut" if k.shape[0] == 1 else "conv_shortcut"
+            key = f"{m.group(1)}.{m.group(2)}.block.{m.group(3)}.{sub}"
+        elif re.match(r"^(down|up)_(\d+)_(downsample|upsample)$", scope):
+            kind, i, what = scope.split("_")
+            key = f"{kind}.{i}.{what}.conv"
+        elif scope in ("mid_block_1", "mid_block_2"):
+            key = f"mid.{scope[4:]}.{_LDM_BLOCK[rest[0]]}"
+        elif scope == "mid_attn":
+            key = f"mid.attn_1.{_LDM_ATTN[rest[0]]}"
+        elif attn:
+            if config is None:
+                raise ValueError("attention at attn_resolutions needs the "
+                                 "DDConfig (config=)")
+            slot = _attn_slots(config, side)[int(attn.group(2))]
+            table = _LDM_LINEAR_ATTN if attn.group(1) else _LDM_ATTN
+            key = f"{slot}.{table[rest[0]]}"
+        else:
+            raise KeyError(f"no port name for JAX parameter {'/'.join(path)}")
+        dense = ndim if "Dense" in "/".join(rest) else 0
+        out[f"{side}.{key}.{name}"] = _conv_leaf(w, leaf, dense)
+    return out
+
+
 def _unet2d_state(params: dict) -> dict[str, np.ndarray]:
     return {_unet2d_key(path): _layout(w, path[-1])
             for path, w in _flatten(params)}
@@ -289,13 +373,26 @@ def from_jax_variables(variables_np: dict,
     """State dict of the port's network from JAX-package variables: PUNetG
     or PUNetGCond (scope ``unet``), UNet2D (or HFNet, scope ``unet``) or an
     MLP, told apart by their keys, or the KarrasNet around one (scope
-    ``model``, with ``dlw`` and the ``batch_stats`` of ``bnorm``).
-    ``config``: the PUNetG's ``PUNetGConfig``, which names its norms
-    (default GroupLN then GroupRMS)."""
+    ``model``, with ``dlw``, the ``batch_stats`` of ``bnorm`` and a
+    ``KarrasEncoderModel``'s ``encoder_model``, which covers
+    ``EnsembleKarrasModel`` too); an AutoencoderKL, or a ``VAEModel``'s
+    network (scope ``autoencoder``, ``logvar``). ``config``: the
+    PUNetG's ``PUNetGConfig``, which names its norms (default GroupLN then
+    GroupRMS), or the autoencoder's ``DDConfig`` (needed for attention at
+    ``attn_resolutions``)."""
     params = variables_np.get("params", {})
     buffers = variables_np.get("buffers", {})
-    norms = (("GroupLN", "GroupRMS") if config is None else
-             (config.first_resblock_norm, config.second_resblock_norm))
+    if "quant_conv" in params:
+        return _tensors(_autoencoder_state(params, config))
+    if "autoencoder" in params:
+        out = {f"autoencoder.{k}": v for k, v in _autoencoder_state(
+            params["autoencoder"], config).items()}
+        if "logvar" in params:
+            out["logvar"] = np.asarray(params["logvar"])
+        return _tensors(out)
+    norms = (("GroupLN", "GroupRMS") if getattr(
+        config, "first_resblock_norm", None) is None else
+        (config.first_resblock_norm, config.second_resblock_norm))
     wrapped = "model" in params
     out = {}
     if wrapped:
@@ -306,6 +403,10 @@ def from_jax_variables(variables_np: dict,
             out[f"dlw.{path[-1]}"] = w
         for path, w in _flatten(variables_np.get("batch_stats", {})):
             out[".".join(path)] = w
+        if "encoder_model" in params:
+            out.update({f"encoder_model.{k}": v for k, v in _net_state(
+                params["encoder_model"], buffers.get("encoder_model", {}),
+                norms).items()})
         params, buffers = params["model"], buffers.get("model", {})
     out.update({f"model.{k}" if wrapped else k: v
                 for k, v in _net_state(params, buffers, norms).items()})
@@ -339,7 +440,37 @@ def _as_f32(tree):
     return np.asarray(tree, np.float32)
 
 
-def from_jax_train_state(state_np, model, tx, ema=None):
+def _overlay(full: dict, part, leaf_fn) -> dict:
+    """``full`` with the leaves that ``part`` (a sub-tree) holds replaced
+    by ``leaf_fn`` of ``part``'s."""
+    out = {}
+    for k, v in full.items():
+        if part is None or k not in part:
+            out[k] = v
+        elif isinstance(v, dict):
+            out[k] = _overlay(v, part[k], leaf_fn)
+        else:
+            out[k] = leaf_fn(np.asarray(part[k], np.float32))
+    return out
+
+
+def from_jax_reg_reference(reference_np: dict, params_np: dict,
+                           config=None) -> dict[str, torch.Tensor]:
+    """The port's L2-SP reference (name -> tensor, for
+    ``l2_sp_regularization``) from the JAX package's
+    (``select_regularization_reference``: a sub-tree of the params, read
+    as numpy), completed by ``params_np`` (the full params tree). A port
+    tensor packed from several JAX leaves (attention's in_proj) is in the
+    reference when any of them is, with the others' current values."""
+    ref = from_jax_variables({"params": _overlay(params_np, reference_np,
+                                                  lambda a: a)}, config)
+    marked = from_jax_variables({"params": _overlay(
+        params_np, reference_np, lambda a: np.full_like(a, np.nan))},
+        config)
+    return {k: ref[k] for k, v in marked.items() if bool(v.isnan().any())}
+
+
+def from_jax_train_state(state_np, model, tx, ema=None, reg_reference=None):
     """The port's ``TrainState`` over ``model`` from a JAX-package
     ``TrainState`` read as numpy (``jax.tree.map(np.asarray, state)``,
     e.g. after the JAX package's ``restore_checkpoint``), made in place
@@ -352,7 +483,10 @@ def from_jax_train_state(state_np, model, tx, ema=None):
     ``count`` and ``nu`` to ``ScheduleFreeAdamW``'s state (and
     ``MultiSteps``' accumulated gradients and counters under
     ``accumulate_gradients``); the EMA profiles and their
-    ``num_updates``; the step. This carries a TPU run over to the card."""
+    ``num_updates``; the step. This carries a TPU run over to the card,
+    an ``EnsembleKarrasModel``'s too (its state is a ``KarrasModel``'s);
+    with ``reg_reference`` (the JAX run's L2-SP reference, numpy) it
+    returns (state, the port's reference, ``from_jax_reg_reference``)."""
     from diffsci_tpu_torch.models.karras.train import _new_train_state
 
     config = getattr(model.net.model, "config", None)
@@ -413,4 +547,6 @@ def from_jax_train_state(state_np, model, tx, ema=None):
             state.ema.num_updates = int(_field(jema, "num_updates"))
     state.step = int(_field(state_np, "step"))
     model._masters_changed()
+    if reg_reference is not None:
+        return state, from_jax_reg_reference(reg_reference, params, config)
     return state

@@ -1,22 +1,36 @@
 """KarrasModel: the Karras denoiser runtime for training and sampling.
 
-Port of ``diffsci_tpu/models/karras/module.py`` without latent models:
-``KarrasModelConfig`` (``from_edm``, ``from_vp``, ``from_ve``,
-``conditional_sr3``, ``loss_metric``, ``has_edm_batch_norm``,
-``dynamic_loss_weight``, ``spatial_shape``/``focus_radius``, the tag and
-``extra_args`` of ``export_description``), ``IntervalGuidance``,
+Port of ``diffsci_tpu/models/karras/module.py``: ``KarrasModelConfig``
+(``from_edm``, ``from_vp``, ``from_ve``, ``conditional_sr3``,
+``loss_metric``, ``has_edm_batch_norm``, ``dynamic_loss_weight``,
+``spatial_shape``/``focus_radius``, the six ``autoregressive_loss_*``
+fields of ``models/karras/ensemble.py``, the tag and ``extra_args`` of
+``export_description``), ``IntervalGuidance``,
 ``DynamicLossWeight``, ``KarrasNet`` (the network, the dynamic loss
 weight and the EDM batch norm), and ``KarrasModel``'s ``init``,
 ``encode``/``decode``, ``get_denoiser`` (with ``compute_dtype``, CFG, the
 guidance interval and the ``fused_precondition`` policy), ``loss_fn``,
 ``get_score``, ``sample`` (any integrator, stochastic,
-``langevin_scale``), ``sample_restart``, ``propagate_white_noise``,
+``langevin_scale``, latent shapes), ``sample_restart``, ``propagate_white_noise``,
 ``propagate_toward_sample``, ``propagate_partial_toward_sample``,
 ``propagate_toward_noise``, ``inpaint``, ``repaint``, ``sample_parallel``
 (sliding-window Picard), ``interpolate_images`` and ``sample_and_filter``;
 and ``select_batch``, ``export_description`` and
 ``karras_model_from_description`` (the JAX package's description,
 key for key).
+
+A latent model (``autoencoder=``, e.g. ``models.vae.BoundAutoencoder``)
+diffuses in its autoencoder's latent space: ``encode`` maps data through
+the autoencoder (then the batch norm and / norm), ``decode`` back, the
+loss may be a ``MultiSpaceLoss`` over latent and pixel terms, and
+``sample`` draws x_T in the latent shape and decodes its result unless
+``return_in_latent_space``. The autoencoder takes and returns
+[B, C, *spatial] tensors (``encode(x, y=None, eps=None)``,
+``decode(z, y=None)``); the model moves the channel axis at its boundary
+as ``KarrasNet`` does at the network's, so latents are channels-last
+like every sample. A posterior draw (``eps``, when the autoencoder's
+``sample_posterior`` is set) is made by the model from the caller's
+generator before the loss's ε, and replays as ``z_eps=``.
 
 The network's weights live in the module, so the methods take no
 ``variables`` unless the caller swaps other weights in (``variables=``, a
@@ -83,10 +97,11 @@ def _guidance_key(guidance):
         else float(guidance)
 
 
-def _extra(kwargs: dict) -> dict:
+def _ar_extra(kwargs: dict) -> dict:
     """The keyword arguments a preset records in ``extra_args``."""
     return {k: v for k, v in kwargs.items()
-            if k in ("loss_metric", "spatial_shape", "focus_radius")}
+            if k.startswith("autoregressive_")
+            or k in ("loss_metric", "spatial_shape", "focus_radius")}
 
 
 class KarrasModelConfig:
@@ -94,8 +109,13 @@ class KarrasModelConfig:
     sampling scheduler, the training loss metric ("huber", "mse",
     "weighted_gaussian", "smoothed_indicator" or a one-key dict such as
     ``{"huber": {"delta": ...}}``; ``spatial_shape`` and ``focus_radius``
-    for "weighted_gaussian"), the EDM batch norm and the dynamic loss
-    weight's width, with the preset's ``tag`` and ``extra_args``."""
+    for "weighted_gaussian"; "crps" for ensembles; ``{"losses": [...]}``
+    for a ``MultiSpaceLoss``), the EDM batch norm and the dynamic loss
+    weight's width, with the preset's ``tag`` and ``extra_args``. The
+    ``autoregressive_loss_*`` fields configure
+    ``EnsembleKarrasModel.autoregressive_loss_fn``: the horizons, the
+    in-step sampler's steps, guidance, maximum batch and integrator, and
+    the horizons' weights."""
 
     def __init__(self, preconditioner: preconditioners.KarrasPreconditioner,
                  noisesampler: noise_samplers.NoiseSampler,
@@ -104,6 +124,12 @@ class KarrasModelConfig:
                  has_edm_batch_norm: bool = False,
                  dynamic_loss_weight: int | None = None,
                  extra_args: dict | None = None,
+                 autoregressive_loss_steps: int = 1,
+                 autoregressive_loss_diffusion_steps: int = 100,
+                 autoregressive_loss_guidance: float = 1.0,
+                 autoregressive_loss_weights: list | None = None,
+                 autoregressive_loss_maximum_batch_size: int | None = None,
+                 autoregressive_loss_integrator=None,
                  spatial_shape: tuple | None = None,
                  focus_radius: float | None = None):
         self.preconditioner = preconditioner
@@ -113,6 +139,14 @@ class KarrasModelConfig:
         self.tag = tag
         self.has_edm_batch_norm = has_edm_batch_norm
         self.dynamic_loss_weight = dynamic_loss_weight
+        self.autoregressive_loss_steps = autoregressive_loss_steps
+        self.autoregressive_loss_diffusion_steps = \
+            autoregressive_loss_diffusion_steps
+        self.autoregressive_loss_guidance = autoregressive_loss_guidance
+        self.autoregressive_loss_weights = autoregressive_loss_weights
+        self.autoregressive_loss_maximum_batch_size = \
+            autoregressive_loss_maximum_batch_size
+        self.autoregressive_loss_integrator = autoregressive_loss_integrator
         self.spatial_shape = spatial_shape
         self.focus_radius = focus_radius
         self.extra_args = extra_args if extra_args is not None else {}
@@ -131,7 +165,7 @@ class KarrasModelConfig:
     def from_edm(cls, sigma_data: float = 0.5, prior_mean: float = -1.2,
                  prior_std: float = 1.2, **kwargs):
         extra = dict(sigma_data=sigma_data, prior_mean=prior_mean,
-                     prior_std=prior_std, **_extra(kwargs))
+                     prior_std=prior_std, **_ar_extra(kwargs))
         return cls(
             preconditioner=preconditioners.EDMPreconditioner(sigma_data),
             noisesampler=noise_samplers.EDMNoiseSampler(
@@ -148,7 +182,7 @@ class KarrasModelConfig:
                                        beta_min=beta_min)
         extra = dict(beta_data=beta_data, beta_min=beta_min,
                      epsilon_min=epsilon_min, epsilon_sampler=epsilon_sampler,
-                     M=M, **_extra(kwargs))
+                     M=M, **_ar_extra(kwargs))
         return cls(
             preconditioner=preconditioners.VPPreconditioner(
                 scheduling=sched.scheduling, M=M),
@@ -160,7 +194,7 @@ class KarrasModelConfig:
     def from_ve(cls, sigma_min: float = 0.02, sigma_max: float = 100.0,
                 **kwargs):
         extra = dict(sigma_min=sigma_min, sigma_max=sigma_max,
-                     **_extra(kwargs))
+                     **_ar_extra(kwargs))
         return cls(
             preconditioner=preconditioners.VEPreconditioner(),
             noisesampler=noise_samplers.VENoiseSampler(sigma_min, sigma_max),
@@ -172,7 +206,7 @@ class KarrasModelConfig:
                         sigma_max: float = 100.0, sigma_data: float = 0.5,
                         **kwargs):
         extra = dict(sigma_min=sigma_min, sigma_max=sigma_max,
-                     sigma_data=sigma_data, **_extra(kwargs))
+                     sigma_data=sigma_data, **_ar_extra(kwargs))
         return cls(
             preconditioner=preconditioners.SR3Preconditioner(sigma_data),
             noisesampler=noise_samplers.EDMNoiseSampler(sigma_data),
@@ -265,7 +299,9 @@ class KarrasModel(ComputeDtypeMixin):
                  compute_dtype: torch.dtype | None = None,
                  fused_precondition: bool | str = "sample",
                  device: torch.device | str | None = None,
-                 norm: float = 1.0, masked: bool = False):
+                 norm: float = 1.0, masked: bool = False,
+                 autoencoder=None, autoencoder_conditional: bool = False,
+                 encode_y: bool = False, decode_original_y: bool = False):
         """``compute_dtype`` (e.g. ``torch.bfloat16``): the network runs
         with its parameters and input cast to this dtype, while the
         preconditioning, the combine, the sampler state, the dynamic loss
@@ -278,7 +314,13 @@ class KarrasModel(ComputeDtypeMixin):
         ``norm``: data are divided by it after the batch norm (``encode``)
         and multiplied back before it (``decode``).
 
-        ``masked``: training batches carry a loss mask (``select_batch``)."""
+        ``masked``: training batches carry a loss mask (``select_batch``).
+
+        ``autoencoder``: a latent model's autoencoder (module docstring);
+        ``autoencoder_conditional`` passes y to it, ``encode_y`` takes the
+        encoded y back from its ``encode`` (which then returns (z, y)),
+        ``decode_original_y`` decodes a sample with the caller's y rather
+        than the encoded one."""
         self.device = resolve_device(device)
         self.config = config
         self.conditional = conditional
@@ -286,16 +328,79 @@ class KarrasModel(ComputeDtypeMixin):
         self.compute_dtype = compute_dtype
         self.fused_precondition = fused_precondition
         self.norm = norm
+        self.autoencoder = autoencoder
+        self.autoencoder_conditional = autoencoder_conditional
+        self.encode_y = encode_y
+        self.decode_original_y = decode_original_y
+        self._latent_shapes: dict = {}
         self.net = KarrasNet(
             model, config.dynamic_loss_weight,
             config.extra_args.get("sigma_data", 0.5)
             if config.has_edm_batch_norm else None).to(self.device).eval()
-        self._loss_metric = losses.make_loss_metric(
-            config.loss_metric, config.spatial_shape, config.focus_radius)
+        self._set_loss_metric()
         drops = [m.rate for m in self.net.model.modules()
                  if isinstance(m, ConditionDrop) and m.rate > 0]
         self.cond_drop_rate = drops[0] if drops else None
         self._reset_cast()
+
+    @property
+    def latent_model(self) -> bool:
+        return self.autoencoder is not None
+
+    def _set_loss_metric(self) -> None:
+        """The configuration's metric, or a ``MultiSpaceLoss`` (pixel terms
+        decode through the autoencoder) for a ``{"losses": [...]}``
+        config."""
+        cfg = self.config.loss_metric
+        self._multi_space = None
+        self._loss_metric = None
+        if isinstance(cfg, dict) and "losses" in cfg:
+            self._multi_space = losses.MultiSpaceLoss(
+                cfg, self._ae_decode if self.latent_model else None)
+        else:
+            self._loss_metric = losses.make_loss_metric(
+                cfg, self.config.spatial_shape, self.config.focus_radius)
+
+    def _ae_decode(self, z, y=None):
+        """The autoencoder's decode of channels-last latents, channels-last
+        out."""
+        z = z.movedim(-1, 1)
+        out = self.autoencoder.decode(z, y=y) \
+            if self.autoencoder_conditional else self.autoencoder.decode(z)
+        return out.movedim(1, -1).contiguous()
+
+    def latent_shape(self, x_shape) -> tuple:
+        """The diffusion space's shape of data of ``x_shape`` (with its
+        batch axis, channels-last): ``x_shape`` itself for a pixel model,
+        the autoencoder's latent shape for a latent model (found once per
+        shape by encoding zeros of one item)."""
+        x_shape = tuple(x_shape)
+        if not self.latent_model:
+            return x_shape
+        probe = self._latent_shapes.get(x_shape[1:])
+        if probe is None:
+            x = torch.zeros((1, x_shape[-1]) + x_shape[1:-1],
+                            device=self.device)
+            with torch.no_grad():
+                z = self.autoencoder.encode(x)
+            z = z[0] if isinstance(z, tuple) else z
+            probe = tuple(z.movedim(1, -1).shape[1:])
+            self._latent_shapes[x_shape[1:]] = probe
+        return x_shape[:1] + probe
+
+    def draws_posterior(self) -> bool:
+        """Whether the model draws a posterior sample for its
+        autoencoder's encode."""
+        return self.latent_model and bool(
+            getattr(self.autoencoder, "sample_posterior", False))
+
+    def _draw_posterior(self, x, generator=None):
+        """The posterior draw for encoding x (the latent's shape) from
+        ``generator``, or None when the model draws none."""
+        if not self.draws_posterior():
+            return None
+        return torch.randn(self.latent_shape(x.shape), generator=generator,
+                           device=x.device, dtype=x.dtype)
 
     def to(self, device) -> "KarrasModel":
         self.device = resolve_device(device)
@@ -324,23 +429,37 @@ class KarrasModel(ComputeDtypeMixin):
 
     def export_description(self) -> dict:
         """The model as plain data, key for key the JAX package's
-        (``module.py:876-883``): the configuration's tag, the flags and the
-        network's description. The latent keys are those of a pixel-space
-        model."""
+        (``module.py:876-883``): the configuration's tag, the flags (the
+        autoencoder's presence, not its weights) and the network's
+        description."""
         net_export = getattr(self.net.model, "export_description", None)
         return dict(config_description=self.config.export_description(),
                     conditional=self.conditional, masked=self.masked,
-                    autoencoder=False, autoencoder_conditional=False,
-                    encode_y=False,
+                    autoencoder=self.autoencoder is not None,
+                    autoencoder_conditional=self.autoencoder_conditional,
+                    encode_y=self.encode_y,
                     net=net_export() if net_export else None)
 
-    def encode(self, x, y=None, train: bool = False):
-        """Data -> diffusion space: the EDM batch norm (by ``x``'s own
-        statistics when ``train``, else by the running ones), then / norm.
-        Returns (x, y, updates): ``updates`` holds the batch norm's running
-        statistics after this batch, by state-dict name, when ``train``
-        (the train step writes them), else nothing."""
+    def encode(self, x, y=None, train: bool = False, z_eps=None):
+        """Data -> diffusion space: through the autoencoder of a latent
+        model (a posterior sample with ``z_eps``, a unit draw of the
+        latent's shape, when its ``sample_posterior`` is set; else the
+        mode), the EDM batch norm (by ``x``'s own statistics when
+        ``train``, else by the running ones), then / norm. Returns (x, y,
+        updates): ``updates`` holds the batch norm's running statistics
+        after this batch, by state-dict name, when ``train`` (the train
+        step writes them), else nothing."""
         updates = {}
+        if self.latent_model:
+            xn = x.movedim(-1, 1)
+            eps = None if z_eps is None else z_eps.movedim(-1, 1)
+            if self.autoencoder_conditional:
+                out = self.autoencoder.encode(xn, y=y, eps=eps)
+                if self.encode_y:
+                    out, y = out
+            else:
+                out = self.autoencoder.encode(xn, eps=eps)
+            x = out.movedim(1, -1).contiguous()
         if self.config.has_edm_batch_norm:
             bnorm = self.net.bnorm
             if train:
@@ -354,14 +473,21 @@ class KarrasModel(ComputeDtypeMixin):
             x = x / self.norm
         return x, y, updates
 
-    def decode(self, x):
-        """Diffusion space -> data: · norm, then the inverse of the EDM
-        batch norm by its running statistics (the identity for a model
-        without either)."""
+    def decode(self, x, y=None, record_history: bool = False):
+        """Diffusion space -> data: · norm, the inverse of the EDM batch
+        norm by its running statistics, then the autoencoder's decode of a
+        latent model (the identity for a model without any).
+        ``record_history``: x is a history [T, B, ...], decoded in one
+        call."""
+        if record_history and self.latent_model:
+            flat = self.decode(x.reshape((-1,) + tuple(x.shape[2:])), y)
+            return flat.reshape(tuple(x.shape[:2]) + tuple(flat.shape[1:]))
         if self.norm != 1.0:
             x = x * self.norm
         if self.config.has_edm_batch_norm:
             x = self.net.bnorm.unnormalize(x)
+        if self.latent_model:
+            x = self._ae_decode(x, y)
         return x
 
     def draw_cond_keep(self, batch: int, generator=None, out=None):
@@ -439,7 +565,7 @@ class KarrasModel(ComputeDtypeMixin):
     # ------------------------------------------------------------------
     def loss_fn(self, x, sigma, y=None, mask=None, train: bool = True,
                 eps=None, generator=None, variables=None, cond_keep=None,
-                return_updates: bool = False):
+                return_updates: bool = False, z_eps=None):
         """The Karras training loss of the configuration (EDM, VP, VE,
         SR3: its preconditioner and its noise sampler's λ): with x encoded
         (``encode``: the EDM batch norm by the batch's statistics when
@@ -452,12 +578,20 @@ class KarrasModel(ComputeDtypeMixin):
         from ``generator``, and ``cond_keep`` ([B] bool) the condition
         drop's mask, else drawn from ``generator`` after ε in training
         (the cross-framework tests feed the same draws to both packages).
+        A latent model encodes x first (``z_eps``: its posterior draw,
+        else drawn from ``generator`` before ε when the autoencoder samples
+        its posterior), and a ``MultiSpaceLoss`` compares the denoiser with
+        x in the latent space and, decoded, in the pixel space (the pixel
+        terms against the data x and ``mask``).
         Dropout, when the network has any, draws from torch's default
         generator of the device. Returns the scalar loss, and with
         ``return_updates`` (loss, updates): the batch norm's running
         statistics after this batch, by state-dict name (the JAX
         package's mutable collection)."""
-        x, y, updates = self.encode(x, y, train=train)
+        x_pixel = x
+        if z_eps is None:
+            z_eps = self._draw_posterior(x, generator)
+        x, y, updates = self.encode(x, y, train=train, z_eps=z_eps)
         sigma_b = bcast_right(sigma, x)
         if eps is None:
             eps = torch.randn(x.shape, generator=generator, device=x.device,
@@ -474,8 +608,16 @@ class KarrasModel(ComputeDtypeMixin):
                 cnoise, variables), x)
             weight = weight / torch.exp(modifier)
             bias = bias + modifier
-        raw = self._loss_metric(denoiser, x, mask)
-        if self._loss_metric.reduces_internally or raw.ndim == 0:
+        if self._multi_space is not None:
+            raw = self._multi_space.compute_loss(
+                denoiser_latent=denoiser, target_latent=x,
+                target_pixel=x_pixel, mask_latent=mask,
+                mask_pixel=mask)["total"]
+            reduces = True          # every term is reduced to a scalar
+        else:
+            raw = self._loss_metric(denoiser, x, mask)
+            reduces = self._loss_metric.reduces_internally or raw.ndim == 0
+        if reduces:
             loss = weight.mean() * raw + bias.mean()
         else:
             loss = self._apply_mask_weight(raw, weight, bias, mask)
@@ -500,8 +642,10 @@ class KarrasModel(ComputeDtypeMixin):
             loss = loss * (1.0 - mask.expand_as(loss))
         return (weight * loss + bias).mean()
 
-    def get_score(self, x, sigma, y=None, guidance: float = 1.0):
-        denoiser, _ = self.get_denoiser(x, sigma, y, guidance)
+    def get_score(self, x, sigma, y=None, guidance: float = 1.0,
+                  variables=None):
+        denoiser, _ = self.get_denoiser(x, sigma, y, guidance,
+                                        variables=variables)
         return (denoiser - x) / bcast_right(sigma, x) ** 2
 
     # ------------------------------------------------------------------
@@ -510,7 +654,9 @@ class KarrasModel(ComputeDtypeMixin):
                guidance: float = 1.0, nsteps: int = 100,
                record_history: bool = False,
                maximum_batch_size: int | None = None, integrator=None,
-               stochastic: bool = False, langevin_scale=None):
+               stochastic: bool = False, langevin_scale=None,
+               is_latent_shape: bool = False,
+               return_in_latent_space: bool = False):
         """Generate samples from white noise drawn on the model's device
         with ``generator``. ``shape`` is channels-last without the batch
         dim, e.g. (28, 28, 1). ``integrator``: None (the scheduler's, or
@@ -518,35 +664,81 @@ class KarrasModel(ComputeDtypeMixin):
         "euler-maruyama", "karras", "dpmpp2m") or an integrator.
         ``langevin_scale``: a number multiplying the scheduler's Langevin
         gate (stochastic sampling); with ``langevin_const=1`` it is γ.
+        ``return_in_latent_space``: the loop's result, not decoded.
+
+        A latent model samples in the latent shape of ``shape`` (a data
+        shape; the latent shape itself when ``is_latent_shape``); with
+        ``encode_y`` (and not ``is_latent_shape``) y goes through the
+        autoencoder's encode first, with zeros for the data, and the
+        result is decoded with that y, or with the caller's under
+        ``decode_original_y``.
 
         The draws: x_T, then the loop's noise, one [n, nsamples, *shape]
-        tensor for its n noisy steps. On a CUDA device the loop is the
-        graph of ``compile_sampler``: the draws go into its static inputs,
-        ``y`` and ``langevin_scale`` too, and the graph is replayed; the
-        samples are a copy of its output. On the CPU the loop runs
-        eagerly on the same draws."""
+        tensor for its n noisy steps. On a CUDA device the loop, decode
+        included, is the graph of ``compile_sampler``: the draws go into
+        its static inputs, ``y`` and ``langevin_scale`` too, and the graph
+        is replayed; the samples are a copy of its output. On the CPU the
+        loop runs eagerly on the same draws."""
         if maximum_batch_size is not None:
             outs = [self.sample(n, shape, generator, y, guidance, nsteps,
                                 record_history, None, integrator,
-                                stochastic, langevin_scale)
+                                stochastic, langevin_scale, is_latent_shape,
+                                return_in_latent_space)
                     for n in get_minibatch_sizes(nsamples,
                                                  maximum_batch_size)]
             return torch.cat(outs, dim=1 if record_history else 0)
+        y_loop, y_dec = self._sample_conditions(nsamples, shape, y,
+                                                is_latent_shape)
         if self.device.type != "cuda":
             x, noise, gate = self._draw_inputs(
-                self._sampler_inputs(nsamples, shape, nsteps, integrator,
-                                     stochastic, langevin_scale),
+                self._sampler_inputs(
+                    nsamples, self._sample_shape(shape, is_latent_shape),
+                    nsteps, integrator, stochastic, langevin_scale),
                 generator, langevin_scale)
-            return self.decode(self._propagate_white_noise(
-                x, y, guidance, nsteps, record_history, integrator,
-                stochastic, gate_scale=gate, noise_seq=noise))
+            return self._sample_loop(
+                x, y_loop, y_dec, guidance, nsteps, record_history,
+                integrator, stochastic, gate, noise,
+                not return_in_latent_space)
         graph = self.compile_sampler(nsamples, shape, y, guidance, nsteps,
                                      record_history, integrator, stochastic,
-                                     langevin_scale)
+                                     langevin_scale, is_latent_shape,
+                                     return_in_latent_space)
         self._draw_inputs(graph.inputs[:3], generator, langevin_scale)
-        graphs.fill(graph.inputs[3], y)
+        graphs.fill(graph.inputs[3], y_loop)
+        graphs.fill(graph.inputs[4], y_dec)
         graph.replay()
         return graph.outputs.clone()
+
+    def _sample_shape(self, shape, is_latent_shape: bool) -> tuple:
+        """The shape (no batch) that a sampler's loop runs in."""
+        if is_latent_shape:
+            return tuple(shape)
+        return self.latent_shape((1,) + tuple(shape))[1:]
+
+    def _sample_conditions(self, nsamples, shape, y, is_latent_shape):
+        """(the loop's condition, the decoder's condition or None for the
+        loop's): y, unless a latent model with ``encode_y`` encodes it
+        (``sample``'s docstring)."""
+        if y is None or is_latent_shape or not (
+                self.latent_model and self.encode_y):
+            return y, None
+        x0 = torch.zeros((nsamples,) + tuple(shape), device=self.device)
+        _, y_enc, _ = self.encode(x0, y)
+        y_enc = dict_map(lambda v: v[0] if v.shape[0] == 1 else v, y_enc)
+        return y_enc, (y if self.decode_original_y else None)
+
+    def _sample_loop(self, x, y, y_dec, guidance, nsteps, record_history,
+                     integrator, stochastic, gate, noise, decode: bool,
+                     variables=None):
+        """x_T -> a sample: the loop, then ``decode`` (with ``y_dec`` when
+        given, else y) when asked."""
+        out = self._propagate_white_noise(
+            x, y, guidance, nsteps, record_history, integrator, stochastic,
+            gate_scale=gate, noise_seq=noise, variables=variables)
+        if not decode:
+            return out
+        return self.decode(out, y if y_dec is None else y_dec,
+                           record_history)
 
     def _sampler_inputs(self, nsamples, shape, nsteps, integrator,
                         stochastic, langevin_scale):
@@ -582,43 +774,51 @@ class KarrasModel(ComputeDtypeMixin):
     def compile_sampler(self, nsamples: int, shape, y=None,
                         guidance: float = 1.0, nsteps: int = 100,
                         record_history: bool = False, integrator=None,
-                        stochastic: bool = False, langevin_scale=None):
+                        stochastic: bool = False, langevin_scale=None,
+                        is_latent_shape: bool = False,
+                        return_in_latent_space: bool = False):
         """The CUDA graph of ``sample``'s loop for (nsamples, shape,
         guidance, nsteps, record_history, y's shapes, the integrator,
-        ``stochastic``, whether ``langevin_scale`` is given), as the JAX
+        ``stochastic``, whether ``langevin_scale`` is given,
+        ``is_latent_shape``, ``return_in_latent_space``), as the JAX
         package's ``_jitted_sampler`` keys its executables; not for
         ``langevin_scale``'s value, which the graph reads from a 0-d
         device tensor. Static inputs (``graph.inputs``): x_T, the noise of
         the noisy steps ([n, nsamples, *shape], None for a deterministic
-        loop), the Langevin scale and y's tensors. On its first use the
-        loop runs once eagerly on the capture stream (the warm-up) and is
-        captured; ``SamplerService.warmup`` calls this for every bucket. A
-        loop that cannot be captured raises. Returns the
-        ``utils.graphs.Graph``; None on the CPU, where nothing is
-        captured."""
+        loop), the Langevin scale, the loop's condition and the decoder's
+        (None when it is the loop's). On its first use the loop runs once
+        eagerly on the capture stream (the warm-up) and is captured;
+        ``SamplerService.warmup`` calls this for every bucket. A loop that
+        cannot be captured raises. Returns the ``utils.graphs.Graph``;
+        None on the CPU, where nothing is captured."""
         if self.device.type != "cuda":
             return None
         cache = self._graph_cache()
+        y_loop, y_dec = self._sample_conditions(nsamples, shape, y,
+                                                is_latent_shape)
         key = (nsamples, tuple(shape), _guidance_key(guidance), nsteps,
-               record_history, graphs.condition_key(y), integrator,
-               stochastic, langevin_scale is not None)
+               record_history, graphs.condition_key(y_loop), integrator,
+               stochastic, langevin_scale is not None, is_latent_shape,
+               return_in_latent_space, graphs.condition_key(y_dec))
         graph = cache.graphs.get(key)
         if graph is not None:
             return graph
-        x, noise, gate = self._sampler_inputs(nsamples, shape, nsteps,
-                                              integrator, stochastic,
-                                              langevin_scale)
-        ys = graphs.static_like(y, self.device)
-        graphs.fill(ys, y)
+        x, noise, gate = self._sampler_inputs(
+            nsamples, self._sample_shape(shape, is_latent_shape), nsteps,
+            integrator, stochastic, langevin_scale)
+        ys = graphs.static_like(y_loop, self.device)
+        yd = graphs.static_like(y_dec, self.device)
+        graphs.fill(ys, y_loop)
+        graphs.fill(yd, y_dec)
 
         def loop():
-            return self.decode(self._propagate_white_noise(
-                x, ys, guidance, nsteps, record_history, integrator,
-                stochastic, gate_scale=gate, noise_seq=noise))
+            return self._sample_loop(x, ys, yd, guidance, nsteps,
+                                     record_history, integrator, stochastic,
+                                     gate, noise, not return_in_latent_space)
 
         cache.warmup(loop)
         graph = cache.capture(key, loop)
-        graph.inputs = (x, noise, gate, ys)
+        graph.inputs = (x, noise, gate, ys, yd)
         return graph
 
     @torch.inference_mode()
@@ -641,6 +841,10 @@ class KarrasModel(ComputeDtypeMixin):
         the frontier after every replay; on the CPU the same
         sweep runs eagerly. Returns the samples (and the sweep count if
         ``return_sweeps``)."""
+        if self.latent_model:
+            raise NotImplementedError(
+                "sample_parallel operates in the diffusion space; "
+                "latent models need sample()")
         smax = self.config.noisescheduler.maximum_scale
         if self.device.type != "cuda":
             pw, inputs = self._picard_state(nsamples, shape, nsteps, window,
@@ -720,6 +924,10 @@ class KarrasModel(ComputeDtypeMixin):
         shape, nsteps, restarts, guidance, y's shapes) is replayed with
         the draws in its static inputs; on the CPU the loop runs eagerly
         on the same draws."""
+        if self.latent_model:
+            raise NotImplementedError(
+                "sample_restart operates in the diffusion space; latent "
+                "models need sample()")
         sched = self.config.noisescheduler
         restarts = tuple(tuple(r) for r in restarts)
         x = torch.zeros((nsamples,) + tuple(shape), device=self.device)
@@ -752,39 +960,49 @@ class KarrasModel(ComputeDtypeMixin):
         graph.replay()
         return graph.outputs.clone()
 
-    def _score(self, y, guidance, x):
+    def _score(self, y, guidance, x, variables=None):
         """The learned score (x, σ) -> ∇log p with y given a batch dim
-        where it has none."""
+        where it has none (``variables``: other weights, by name)."""
         y = dict_expand_dims(y, 0) if _needs_unsqueeze(y, x) else y
 
         def score_fn(xx, sigma):
-            return self.get_score(xx, sigma, y, guidance)
+            return self.get_score(xx, sigma, y, guidance, variables)
 
         return score_fn
 
     def _propagate_white_noise(self, x, y, guidance, nsteps, record_history,
                                integrator, stochastic, gate_scale=None,
-                               noise_seq=None, generator=None):
+                               noise_seq=None, generator=None,
+                               variables=None):
+        """The sampling loop from unit noise x (``propagate_toward_sample``
+        without its inference mode, so that a train step can run it)."""
         x = x * self.config.noisescheduler.maximum_scale
-        return self.propagate_toward_sample(
-            x, y, guidance, nsteps, record_history, integrator, stochastic,
-            gate_scale=gate_scale, noise_seq=noise_seq, generator=generator)
+        return self.config.noisescheduler.propagate_backward(
+            x, self._score(y, guidance, x, variables), nsteps,
+            record_history=record_history, stochastic=stochastic,
+            integrator=integrator, noise_seq=noise_seq,
+            gate_scale=gate_scale, generator=generator)
 
     @torch.inference_mode()
     def propagate_white_noise(self, x, y=None, guidance: float = 1.0,
                               nsteps: int = 100,
                               record_history: bool = False, integrator=None,
                               stochastic: bool = False, noise_seq=None,
-                              generator=None):
+                              generator=None,
+                              return_in_latent_space: bool = False):
         """x is unit white noise (channels-last); scaled to the scheduler's
-        maximum scale and integrated to a sample in the diffusion space
-        (not decoded, as in the JAX package: ``decode`` maps it back
-        through the batch norm). ``noise_seq``
+        maximum scale and integrated to a sample in the diffusion space.
+        A pixel model's result is not decoded, as in the JAX package
+        (``decode`` maps it back through the batch norm); a latent model's
+        is, unless ``return_in_latent_space``. ``noise_seq``
         ([n, *x.shape], n the noisy steps): the stochastic loop's noise,
         else drawn from ``generator`` before the loop."""
-        return self._propagate_white_noise(
+        out = self._propagate_white_noise(
             x, y, guidance, nsteps, record_history, integrator, stochastic,
             noise_seq=noise_seq, generator=generator)
+        if return_in_latent_space or not self.latent_model:
+            return out
+        return self.decode(out, y, record_history)
 
     @torch.inference_mode()
     def propagate_toward_sample(self, x, y=None, guidance: float = 1.0,
@@ -953,6 +1171,7 @@ class KarrasModel(ComputeDtypeMixin):
 
 def karras_model_from_description(description: dict,
                                   conditional_embedding=None,
+                                  autoencoder=None,
                                   device: torch.device | str | None = None,
                                   **model_kwargs) -> KarrasModel:
     """Rebuild a ``KarrasModel`` on ``device`` from its description (the
@@ -965,8 +1184,9 @@ def karras_model_from_description(description: dict,
     Raises for what a description alone cannot rebuild: no net entry, a
     conditional embedding (pass the module as ``conditional_embedding``;
     its config is in ``description['net']['conditional_embedding_args']``)
-    and a latent model (``autoencoder: true``), which the port has no
-    autoencoder for yet."""
+    and a latent model's autoencoder (``autoencoder: true``: pass the
+    bound autoencoder as ``autoencoder``; its weights are not part of the
+    diffusion model's state)."""
     from diffsci_tpu_torch.models.nets.describe import net_from_description
 
     device = resolve_device(device)
@@ -982,9 +1202,11 @@ def karras_model_from_description(description: dict,
             "checkpoint was trained with a conditional embedding; pass "
             "the embedding module via conditional_embedding= (its config "
             "is in description['net']['conditional_embedding_args'])")
-    if description.get("autoencoder"):
-        raise ValueError("checkpoint is a latent-diffusion model; the port "
-                         "has no autoencoder yet")
+    if description.get("autoencoder") and autoencoder is None:
+        raise ValueError(
+            "checkpoint is a latent-diffusion model; pass the bound "
+            "autoencoder via autoencoder= (its weights are not part of "
+            "the diffusion TrainState)")
     net = net_from_description(net_desc,
                                conditional_embedding=conditional_embedding,
                                device=device)
@@ -993,4 +1215,6 @@ def karras_model_from_description(description: dict,
     return KarrasModel(net, config,
                        conditional=description.get("conditional", False),
                        masked=description.get("masked", False),
+                       encode_y=description.get("encode_y", False),
+                       autoencoder=autoencoder,
                        device=device, **model_kwargs)

@@ -518,15 +518,19 @@ def create_train_state(model, x_shape, seed: int | None = 0,
     """Initialise the weights from ``seed`` (None keeps the network's
     current weights, e.g. a loaded state dict), the optimizer and the EMA.
     ``x_shape`` is the channels-last batch shape the state will train on;
-    it is checked against a PUNetG's config. Returns (state, tx)."""
+    it is checked against a PUNetG's config (a latent model's latent
+    shape). Returns (state, tx)."""
     net = model.net.model
     net_cfg = getattr(net, "config", None)
+    # a latent model's network sees the autoencoder's latents
+    shape = model.latent_shape(x_shape) if getattr(
+        model, "latent_model", False) else tuple(x_shape)
     # PUNetGCond's input_channels count its concatenated conditions too
     if net_cfg is not None and (
-            len(x_shape) != net_cfg.dimension + 2 or not (
+            len(shape) != net_cfg.dimension + 2 or not (
                 getattr(net, "channel_conditional_items", ())
-                or x_shape[-1] == net_cfg.input_channels)):
-        raise ValueError(f"x_shape {tuple(x_shape)} is not [B, *"
+                or shape[-1] == net_cfg.input_channels)):
+        raise ValueError(f"x_shape {tuple(shape)} is not [B, *"
                          f"{net_cfg.dimension}D spatial, "
                          f"{net_cfg.input_channels}]")
     if seed is not None:
@@ -565,20 +569,28 @@ def _end_update(state: TrainState, tx: AdamWClip, emit: bool) -> None:
     state.step += 1
 
 
-def _draw(model, x, generator, sigma, eps, keep, out):
-    """σ, then ε, then the condition-drop mask (when the network drops
-    conditions), in the eager step's order, each drawn from ``generator``
-    unless replayed (``sigma=``, ``eps=``, ``keep=``), into the tensors
-    ``out`` (σ [B], ε of x's shape, the mask [B] bool or None). Returns
-    ``out``."""
-    sigma_out, eps_out, keep_out = out
+def _draw(model, x, generator, sigma, eps, keep, out, z_eps=None):
+    """σ, then a latent model's posterior draw (when its autoencoder
+    samples one), then ε, then the condition-drop mask (when the network
+    drops conditions), in the eager step's order, each drawn from
+    ``generator`` unless replayed (``sigma=``, ``z_eps=``, ``eps=``,
+    ``keep=``), into the tensors ``out`` (σ [B], ε of the diffusion
+    space's shape, the mask [B] bool or None, the posterior draw of that
+    shape or None). Returns ``out``."""
+    sigma_out, eps_out, keep_out = out[:3]
+    z_out = out[3] if len(out) > 3 else None
     if sigma is None:
         model.config.noisesampler.sample((x.shape[0],), generator,
                                          out=sigma_out)
     else:
         sigma_out.copy_(sigma)
+    if z_out is not None:
+        if z_eps is None:
+            torch.randn(z_out.shape, generator=generator, out=z_out)
+        else:
+            z_out.copy_(z_eps)
     if eps is None:
-        torch.randn(x.shape, generator=generator, out=eps_out)
+        torch.randn(eps_out.shape, generator=generator, out=eps_out)
     else:
         eps_out.copy_(eps)
     if keep_out is not None:
@@ -596,6 +608,18 @@ def _keep_like(model, x):
     return torch.empty(x.shape[0], dtype=torch.bool, device=x.device)
 
 
+def _draw_tensors(model, x, posterior: bool = True) -> tuple:
+    """Empty tensors for a step's draws over the batch x: σ [B], ε of
+    the diffusion space's shape (a latent model's latent shape), the
+    condition-drop mask (or None) and the posterior draw (or None)."""
+    shape = model.latent_shape(x.shape)
+    z = torch.empty(shape, dtype=x.dtype, device=x.device) \
+        if posterior and model.draws_posterior() else None
+    return (torch.empty(x.shape[0], device=x.device),
+            torch.empty(shape, dtype=x.dtype, device=x.device),
+            _keep_like(model, x), z)
+
+
 def _step_loss(model, loss_fn, remat: bool):
     """The step's loss ``(x, sigma, y, mask, eps, keep) -> (scalar, the
     batch norm's updated statistics by buffer name)``: ``loss_fn`` (no
@@ -605,17 +629,18 @@ def _step_loss(model, loss_fn, remat: bool):
     included), as ``jax.checkpoint`` rematerialises. It saves and
     restores the RNG state, so that dropout draws the same masks again;
     torch 2.11 captures that into a CUDA graph."""
-    def loss(x, sigma, y, mask, eps, keep):
+    def loss(x, sigma, y, mask, eps, keep, z_eps=None):
         if loss_fn is not None:
             return loss_fn(x, sigma, y, mask, eps), {}
         return model.loss_fn(x, sigma, y, mask, train=True, eps=eps,
-                             cond_keep=keep, return_updates=True)
+                             cond_keep=keep, return_updates=True,
+                             z_eps=z_eps)
 
     if not remat:
         return loss
 
-    def remat_loss(x, sigma, y, mask, eps, keep):
-        return checkpoint(loss, x, sigma, y, mask, eps, keep,
+    def remat_loss(x, sigma, y, mask, eps, keep, z_eps=None):
+        return checkpoint(loss, x, sigma, y, mask, eps, keep, z_eps,
                           use_reentrant=False)
 
     return remat_loss
@@ -649,7 +674,7 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
 
     buffers = dict(model.net.named_buffers())
 
-    def update(state, x, y, mask, sigma, eps, keep, emit=True):
+    def update(state, x, y, mask, sigma, eps, keep, z_eps=None, emit=True):
         """Loss, backward, NaN guard, clip, AdamW (under accumulation: the
         running mean, and the step when ``emit``), the mp re-projection
         and the batch norm's statistics from fixed draws: device work
@@ -657,7 +682,7 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         gradients' global norm."""
         for p in state.params.values():
             p.grad = None
-        loss, updates = loss_of(x, sigma, y, mask, eps, keep)
+        loss, updates = loss_of(x, sigma, y, mask, eps, keep, z_eps)
         loss.backward()
         grads = []
         for p in state.params.values():
@@ -674,14 +699,16 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
                 buffers[name].copy_(value)
         return loss.detach(), norm
 
+    posterior = loss_fn is None
+
     def raw_step(state: TrainState, x, y=None, mask=None, generator=None,
-                 sigma=None, eps=None, keep=None):
-        sigma, eps, keep = _draw(
+                 sigma=None, eps=None, keep=None, z_eps=None):
+        sigma, eps, keep, z_eps = _draw(
             model, x, generator, sigma, eps, keep,
-            (torch.empty(x.shape[0], device=x.device), torch.empty_like(x),
-             _keep_like(model, x)))
+            _draw_tensors(model, x, posterior), z_eps)
         emit = _begin_update(state, tx)
-        loss, norm = update(state, x, y, mask, sigma, eps, keep, emit)
+        loss, norm = update(state, x, y, mask, sigma, eps, keep, z_eps,
+                            emit)
         if ema is not None and state.ema is not None:
             ema.update(state.ema, state.params)
         _end_update(state, tx, emit)
@@ -690,26 +717,11 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
     if _raw:
         return raw_step
 
-    def ema_update(cache, ema_state: EMAState, params: dict) -> None:
-        betas = ema.advance(ema_state)
-        if betas is None:
-            return
-        ema.set_decays(ema_state, betas)
-        graph = cache.graphs.get("ema")
-        if graph is not None and graph.inputs is ema_state:
-            graph.replay()
-            return
-
-        def apply():
-            ema.apply(ema_state, params)
-
-        cache.warmup(apply)
-        cache.capture("ema", apply).inputs = ema_state
-
     def train_step(state: TrainState, x, y=None, mask=None, generator=None,
-                   sigma=None, eps=None, keep=None):
+                   sigma=None, eps=None, keep=None, z_eps=None):
         if x.device.type != "cuda":
-            return raw_step(state, x, y, mask, generator, sigma, eps, keep)
+            return raw_step(state, x, y, mask, generator, sigma, eps, keep,
+                            z_eps)
         if state.graphs is None:
             state.graphs = graphs.GraphCache(x.device)
         cache = state.graphs
@@ -720,19 +732,18 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         graph = cache.graphs.get(key)
         if graph is None:
             inputs = (torch.empty_like(x), graphs.static_like(y, x.device),
-                      graphs.static_like(mask, x.device),
-                      torch.empty(x.shape[0], device=x.device),
-                      torch.empty_like(x), _keep_like(model, x))
+                      graphs.static_like(mask, x.device)) \
+                + _draw_tensors(model, x, posterior)
         else:
             inputs = graph.inputs
-        xs, ys, masks, sigmas, epss, keeps = inputs
+        xs, ys, masks = inputs[:3]
         xs.copy_(x)
         graphs.fill(ys, y)
         graphs.fill(masks, mask)
-        _draw(model, x, generator, sigma, eps, keep, (sigmas, epss, keeps))
+        _draw(model, x, generator, sigma, eps, keep, inputs[3:], z_eps)
         if graph is None:
             def body():
-                return update(state, *inputs, emit)
+                return update(state, *inputs, emit=emit)
 
             loss, norm = cache.warmup(body)
             cache.capture(key, body).inputs = inputs
@@ -743,11 +754,32 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         # the weights is refreshed at its next use
         model._masters_changed()
         if ema is not None and state.ema is not None:
-            ema_update(cache, state.ema, state.params)
+            _ema_graph_update(ema, cache, state.ema, state.params)
         _end_update(state, tx, emit)
         return state, {"train_loss": loss, "grad_norm": norm}
 
     return train_step
+
+
+def _ema_graph_update(ema: EMATracker, cache, ema_state: EMAState,
+                      params: dict) -> None:
+    """Advance the EMA and, on the steps where the shadows move, replay
+    the cache's EMA graph (captured at its first use) with the new
+    decays."""
+    betas = ema.advance(ema_state)
+    if betas is None:
+        return
+    ema.set_decays(ema_state, betas)
+    graph = cache.graphs.get("ema")
+    if graph is not None and graph.inputs is ema_state:
+        graph.replay()
+        return
+
+    def apply():
+        ema.apply(ema_state, params)
+
+    cache.warmup(apply)
+    cache.capture("ema", apply).inputs = ema_state
 
 
 def make_train_scan(model, tx: AdamWClip, ema: EMATracker | None = None,
@@ -799,20 +831,22 @@ def make_eval_step(model, ema: EMATracker | None = None,
     batch norm's buffers in place, so it sees every update.
     ``_raw=True`` returns the eager step."""
 
-    def loss(state, x, y, mask, sigma, eps):
+    def loss(state, x, y, mask, sigma, eps, z_eps=None):
         variables = state.ema_variables(ema) if use_ema else \
             dict(state.params)
         with torch.no_grad():
             return model.loss_fn(x, sigma, y, mask, train=False, eps=eps,
-                                 variables=variables)
+                                 variables=variables, z_eps=z_eps)
+
+    def draw_tensors(x):
+        sigma, eps, _, z = _draw_tensors(model, x)
+        return sigma, eps, None, z
 
     def raw_step(state: TrainState, x, y=None, mask=None, generator=None,
                  sigma=None, eps=None):
-        sigma, eps, _ = _draw(
-            model, x, generator, sigma, eps, None,
-            (torch.empty(x.shape[0], device=x.device), torch.empty_like(x),
-             None))
-        return {"valid_loss": loss(state, x, y, mask, sigma, eps)}
+        sigma, eps, _, z_eps = _draw(model, x, generator, sigma, eps, None,
+                                     draw_tensors(x))
+        return {"valid_loss": loss(state, x, y, mask, sigma, eps, z_eps)}
 
     if _raw:
         return raw_step
@@ -831,19 +865,17 @@ def make_eval_step(model, ema: EMATracker | None = None,
         graph = cache.graphs.get(key)
         if graph is None:
             inputs = (torch.empty_like(x), graphs.static_like(y, x.device),
-                      graphs.static_like(mask, x.device),
-                      torch.empty(x.shape[0], device=x.device),
-                      torch.empty_like(x))
+                      graphs.static_like(mask, x.device)) + draw_tensors(x)
         else:
             inputs = graph.inputs
-        xs, ys, masks, sigmas, epss = inputs
+        xs, ys, masks, sigmas, epss, _, zs = inputs
         xs.copy_(x)
         graphs.fill(ys, y)
         graphs.fill(masks, mask)
-        _draw(model, x, generator, sigma, eps, None, (sigmas, epss, None))
+        _draw(model, x, generator, sigma, eps, None, inputs[3:])
         if graph is None:
             def body():
-                return loss(state, *inputs)
+                return loss(state, xs, ys, masks, sigmas, epss, zs)
 
             out = cache.warmup(body)
             cache.capture(key, body).inputs = inputs

@@ -1,19 +1,23 @@
-"""Training losses: elementwise metrics, Gaussian-weighted MSE and the
-smooth threshold-indicator loss.
+"""Training losses: elementwise metrics, Gaussian-weighted MSE, the
+smooth threshold-indicator loss, the ensemble CRPS and the multi-space
+loss.
 
-Port of ``diffsci_tpu/ops/losses.py:29-249`` without the ensemble (CRPS)
-and multi-space losses: ``mse``, ``huber`` (torch
+Port of ``diffsci_tpu/ops/losses.py``: ``mse``, ``huber`` (torch
 ``HuberLoss(reduction='none')`` semantics), ``masked_mean``,
 ``gaussian_window``, ``GaussianWeightedMSELoss``,
-``MultiThresholdSmoothIndicatorLoss`` and ``make_loss_metric``.
-Channels-last, as in the JAX package. The mask convention is the
-reference's: mask == 1 marks excluded elements.
+``MultiThresholdSmoothIndicatorLoss``, ``crps_ensemble``, the
+ensemble-aware scalar wrapper ``elementwise_to_scalar``,
+``make_loss_metric`` and ``MultiSpaceLoss``. Channels-last, as in the JAX
+package; an ensemble prediction carries its members on axis 1,
+[B, E, *spatial, C]. The mask convention is the reference's: mask == 1
+marks excluded elements.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+import math
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -136,6 +140,51 @@ class MultiThresholdSmoothIndicatorLoss:
         raise ValueError(f"Unknown aggregation: {self.aggregation}")
 
 
+def crps_ensemble(pred, target, mask=None):
+    """CRPS = mean|pred - target| - 0.5·mean_{i<j}|pred_i - pred_j|, per
+    item, averaged over the batch. pred [B, E, *spatial, C] (or without
+    E, one member), target [B, *spatial, C]. The pairwise term is one
+    broadcast [B, E, E, F] difference. With a mask each item's CRPS is
+    scaled by its fraction of kept elements. Returns a scalar."""
+    if pred.ndim == target.ndim:
+        pred = pred[:, None]
+    B, E = pred.shape[:2]
+    mae = (pred - target[:, None]).abs().mean(
+        dim=tuple(range(2, pred.ndim))).mean(dim=1)            # [B]
+    if E == 1:
+        pairwise = torch.zeros(B, dtype=pred.dtype, device=pred.device)
+    else:
+        flat = pred.reshape(B, E, -1)
+        pmean = (flat[:, :, None] - flat[:, None, :]).abs().mean(dim=3)
+        i, j = torch.triu_indices(E, E, offset=1, device=pred.device)
+        pairwise = pmean[:, i, j].sum(dim=1) / max(E * (E - 1) / 2, 1)
+    crps = mae - 0.5 * pairwise
+    if mask is not None:
+        numel = math.prod(target.shape[1:])
+        keep = (1.0 - mask).expand_as(target)
+        valid = keep.sum(dim=tuple(range(1, target.ndim))).clamp_min(1.0)
+        crps = crps * (valid / numel)
+    return crps.mean()
+
+
+crps_ensemble.reduces_internally = True
+
+
+def elementwise_to_scalar(fn: Callable):
+    """An elementwise loss as a mask-aware scalar: ``masked_mean`` of
+    fn(pred, target), where an ensemble prediction [B, E, ...] meets its
+    target [B, ...] (and a batched mask) through a new axis 1."""
+    def wrapped(pred, target, mask=None):
+        if pred.ndim == target.ndim + 1:
+            target = target[:, None]
+            if mask is not None and mask.ndim >= 1 \
+                    and mask.shape[0] == pred.shape[0]:
+                mask = mask[:, None]
+        return masked_mean(fn(pred, target), mask)
+    wrapped.reduces_internally = True
+    return wrapped
+
+
 def _elementwise(fn):
     def metric(pred, target, mask=None):
         return fn(pred, target)
@@ -143,22 +192,27 @@ def _elementwise(fn):
     return metric
 
 
+def _parse(loss_config):
+    if isinstance(loss_config, dict) and "losses" not in loss_config:
+        name = next(iter(loss_config))
+        return name, loss_config[name] or {}
+    if isinstance(loss_config, str):
+        return loss_config, {}
+    raise ValueError(f"unsupported loss config: {loss_config!r}")
+
+
 def make_loss_metric(loss_config: str | dict[str, Any],
                      spatial_shape=None, focus_radius=None):
     """The loss ``fn(pred, target, mask=None)`` of a config: "mse",
     "huber", "weighted_gaussian" (needs ``spatial_shape`` and
-    ``focus_radius``), "smoothed_indicator", or a one-key dict such as
+    ``focus_radius``), "smoothed_indicator", "crps" (ensembles, see
+    ``crps_ensemble``), or a one-key dict such as
     ``{"huber": {"delta": 0.5}}``. ``fn.reduces_internally`` is the JAX
     package's second return value: True when fn applies the mask itself
-    and returns a scalar, False when it returns the elementwise loss.
-    "crps" (ensembles) raises NotImplementedError."""
-    if isinstance(loss_config, dict) and "losses" not in loss_config:
-        name = next(iter(loss_config))
-        params = loss_config[name] or {}
-    elif isinstance(loss_config, str):
-        name, params = loss_config, {}
-    else:
-        raise ValueError(f"unsupported loss config: {loss_config!r}")
+    and returns a scalar, False when it returns the elementwise loss. A
+    multi-space config (``{"losses": [...]}``) is ``MultiSpaceLoss``'s and
+    raises here."""
+    name, params = _parse(loss_config)
     if name == "mse":
         return _elementwise(mse)
     if name == "huber":
@@ -171,4 +225,54 @@ def make_loss_metric(loss_config: str | dict[str, Any],
         return GaussianWeightedMSELoss(tuple(spatial_shape), focus_radius)
     if name == "smoothed_indicator":
         return MultiThresholdSmoothIndicatorLoss(**params)
-    raise NotImplementedError(f"loss metric {name!r} is not ported yet")
+    if name == "crps":
+        return crps_ensemble
+    raise ValueError(f"loss_type {name} not recognized")
+
+
+class MultiSpaceLoss:
+    """A weighted sum of losses in the latent and/or the pixel space.
+    ``loss_config["losses"]``: a list of {"name", "type", "params",
+    "space" ("latent" or "pixel"), "weight" (1), "use_mask" (True)};
+    ``decode_fn`` maps a latent (channels-last) to pixels (channels-last),
+    needed by pixel-space terms."""
+
+    def __init__(self, loss_config: dict[str, Any],
+                 decode_fn: Callable | None = None):
+        self.decode_fn = decode_fn
+        self.losses = []
+        for spec in loss_config["losses"]:
+            fn = make_loss_metric({spec["type"]: spec.get("params", {})})
+            self.losses.append(dict(
+                name=spec["name"], fn=fn, space=spec["space"],
+                weight=spec.get("weight", 1.0),
+                use_mask=spec.get("use_mask", True)))
+
+    def compute_loss(self, denoiser_latent, target_latent,
+                     target_pixel=None, mask_latent=None, mask_pixel=None):
+        """Every term's value by name and their weighted ``total``."""
+        denoiser_pixel = None
+        if any(s["space"] == "pixel" for s in self.losses):
+            if self.decode_fn is None:
+                raise ValueError("decode_fn required for pixel space losses")
+            denoiser_pixel = self.decode_fn(denoiser_latent)
+            if target_pixel is None:
+                target_pixel = self.decode_fn(target_latent)
+        values = {}
+        total = 0.0
+        for spec in self.losses:
+            if spec["space"] == "latent":
+                pred, target, mask = denoiser_latent, target_latent, \
+                    mask_latent
+            elif spec["space"] == "pixel":
+                pred, target, mask = denoiser_pixel, target_pixel, mask_pixel
+            else:
+                raise ValueError(f"Unknown space: {spec['space']}")
+            mask = mask if spec["use_mask"] else None
+            val = spec["fn"](pred, target, mask)
+            if not spec["fn"].reduces_internally:
+                val = masked_mean(val, mask)
+            values[spec["name"]] = val
+            total = total + spec["weight"] * val
+        values["total"] = total
+        return values

@@ -130,8 +130,10 @@ def test_make_loss_metric_configs():
     torch.testing.assert_close(
         losses.make_loss_metric({"huber": {"delta": 2.0}})(p, t),
         torch.tensor([0.125, 4.0]))
-    with pytest.raises(NotImplementedError):
-        losses.make_loss_metric("crps")
+    crps = losses.make_loss_metric("crps")
+    assert crps is losses.crps_ensemble and crps.reduces_internally
+    with pytest.raises(ValueError, match="not recognized"):
+        losses.make_loss_metric("nope")
     with pytest.raises(ValueError):
         losses.make_loss_metric({"losses": []})
 
