@@ -209,8 +209,32 @@ Phases (any failure raises, so the exit code is non-zero):
     (s/step, peak memory, a falling loss, 28 K2 and 28 K3 a step), then
     is rebuilt by ``karras_model_from_description(..., autoencoder=)``
     and samples as the trained model does (phase 2's tolerance).
-24. One JSON line lists every kernel with its launches over phases 5 to
-    9, 11 to 15 and 17 to 23; the card's name and power limit; then the
+24. Card vs CPU, f32, TF32 off, flash attention engaged below its token
+    gate: the forward of every network of the zoo's rest at small widths
+    (ADM 2D with one 256-channel head, so the wide f32 K4; ADM 3D, mp and
+    decoder type 2; DiT; MoE-DiT with a dropping capacity; ConVit softmax
+    and linear with learned resampling; PUNetGDeterministic, the encoder
+    with its projection, the decoder, PUNetV with slice embeddings;
+    MinimalResNet; DASC in all-videos mode) at phase 2's tolerance, and a
+    graphed 3-step ``KarrasModel`` sample each of a DiT and an ADM against
+    the CPU's eager loop (5 K1, K4 launched).
+25. Configuration H: ``DiffusionTransformer`` at DiT-B's widths (768, 12
+    heads, 12 blocks) on 256² × 1 fields at patch 4 (4096 tokens, head dim
+    64), flash attention, bf16 over f32 masters: a graphed bucket-4 request
+    through ``SamplerService`` (buckets 1 and 4: wall, device time, idle
+    share, K4's share, exactly 35 K1 and 420 K4) and 20 graphed train
+    steps at batch 8 after 3 warm-up steps (s/step, items/s, peak memory,
+    capture seconds, one profiled step with the K4-K6 share, exactly 12
+    K4, K5 and K6 a step, a falling loss), three graphed steps against
+    their eager body (phase 3's bounds); then its MoE twin (4 experts in
+    every second block, capacity factor 2): one bucket-4 request and 5
+    steps with the same counts, and the dropped fractions.
+26. Configuration I: ``ADM`` at ``ADMConfig``'s defaults on 256² × 1 with
+    flash attention (the middle block attends over 4096 tokens with one
+    head of 256: the wide kernels), the same report as H's: exactly 35 K1
+    and 35 K4 a request, one K4, K5 and K6 a step.
+27. One JSON line lists every kernel with its launches over phases 5 to
+    9, 11 to 15 and 17 to 26; the card's name and power limit; then the
     result line.
 
 The last line of standard output is
@@ -275,11 +299,22 @@ COMBINE_TIMED = {"fused_axby": ((1, 32, 32, 32, 1), (4, 32, 32, 32, 1),
                                 (64, 28, 28, 1)),
                  "fused_lincomb3": ((1, 32, 32, 3), (16, 32, 32, 3))}
 
-# (B, H, T, d) of phase 1's flash checks; the first is config A's, the
-# last A's Picard sweep (window 8 at bucket 1)
+# (B, H, T, d) of phase 1's flash checks; the first is config A's, then
+# A's Picard sweep (window 8 at bucket 1), H's (DiT-B: 12 heads of 64) and
+# I's (ADM: one head of 256) bucket-4 attentions and a head dim of 512
+# (ADM at model_channels 128), the last two through the wide kernels
 FLASH_SWEEP = ((4, 2, 4096, 32), (1, 2, 4096, 8), (2, 4, 4096, 16),
                (1, 2, 4097, 32), (1, 1, 2049, 64), (1, 1, 2111, 128),
-               (2, 1, 2048, 40), (1, 2, 2048, 20), (8, 2, 4096, 32))
+               (2, 1, 2048, 40), (1, 2, 2048, 20), (8, 2, 4096, 32),
+               (4, 12, 4096, 64), (4, 1, 4096, 256), (1, 2, 2048, 512))
+# K4-K6 timed beside SDPA at the new routes: H's and I's serving (bucket 4)
+# and training (batch 8) shapes, and head dim 512 (no SDPA there: its flash
+# backend takes head dims up to 256)
+FLASH_TIMED = (((4, 12, 4096, 64), "H, bucket 4"),
+               ((8, 12, 4096, 64), "H, train batch 8"),
+               ((4, 1, 4096, 256), "I, bucket 4"),
+               ((8, 1, 4096, 256), "I, train batch 8"),
+               ((1, 2, 2048, 512), "head dim 512"))
 
 NSTEPS = 18
 NFE = 2 * NSTEPS - 1       # Heun with the EDM endpoint rule
@@ -417,8 +452,8 @@ def tensor_core_counts() -> dict[str, list[int]]:
                               check=True).stdout
         n = None
         for line in sass.splitlines():
-            found = re.search(r"Function : \S*?(flash_[a-z_]+?_kernel)I",
-                              line)
+            found = re.search(
+                r"Function : \S*?(flash_[a-z_]+?_kernel)[IE]", line)
             if found:
                 n = counts.setdefault(found.group(1), [])
                 n.append(0)
@@ -610,6 +645,51 @@ def time_combines(fp, gen):
     return records
 
 
+def time_flash_routes(fa, gen):
+    """K4, K5 and K6 in bf16 at ``FLASH_TIMED`` (medians of 5 timed
+    loops) beside SDPA's flash backend (forward, and the backward asked
+    for dQ or dK, dV) where it takes the head dim, with each kernel's
+    bound and the SFU floor of its T² exponentials a head; logged only."""
+    for shape, label in FLASH_TIMED:
+        B, H, T, d = shape
+        BH = B * H
+        q, k, v, do = (randn(shape, torch.bfloat16, gen) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        delta = (do.float() * o.float()).sum(-1)
+        reads = 4 * 2 * BH * T * d + 2 * 4 * BH * T
+        sfu = sfu_floor_ms(BH * T * T)
+        lib = {}
+        if d <= 256:
+            def sdpa_bwd(wrt):
+                leaves = [t.detach().requires_grad_(i in wrt)
+                          for i, t in enumerate((q, k, v))]
+                out = F.scaled_dot_product_attention(*leaves)
+                inputs = [leaves[i] for i in wrt]
+                return cuda_ms_spread(lambda: torch.autograd.grad(
+                    out, inputs, do, retain_graph=True), 10)
+
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                lib = {"K4": cuda_ms_spread(
+                    lambda: F.scaled_dot_product_attention(q, k, v), 10),
+                    "K5": sdpa_bwd((0,)), "K6": sdpa_bwd((1, 2))}
+        for name, fn, nbytes, flops in (
+                ("K4", lambda: fa.flash_attention_fwd(q, k, v),
+                 4 * 2 * BH * T * d + 4 * BH * T, 4 * BH * T * T * d),
+                ("K5", lambda: fa.flash_attention_dq(q, k, v, do, lse,
+                                                     delta),
+                 reads + 2 * BH * T * d, 6 * BH * T * T * d),
+                ("K6", lambda: fa.flash_attention_dkv(q, k, v, do, lse,
+                                                      delta),
+                 reads + 2 * 2 * BH * T * d, 8 * BH * T * T * d)):
+            ms = cuda_ms_spread(fn, 10)
+            bms, bby = bound(nbytes, flops, torch.bfloat16)
+            sdpa = (f"SDPA {lib[name][0]:.4f} ms ({lib[name][1]:.4f}-"
+                    f"{lib[name][2]:.4f})" if name in lib else "no SDPA")
+            log(f"[kernels] time {name} {list(shape)} bf16 ({label}): "
+                f"{ms[0]:.4f} ms ({ms[1]:.4f}-{ms[2]:.4f}), {sdpa}, bound "
+                f"{bms:.4f} ms ({bby}), SFU floor {sfu:.4f} ms")
+
+
 def phase_kernels():
     from diffsci_tpu_torch import kernels
     from diffsci_tpu_torch.kernels import (flash_attention as fa,
@@ -758,7 +838,8 @@ def phase_kernels():
         log(f"[kernels] sass {kernel}: HMMA/HGMMA per instantiation "
             f"{sorted(per_instance)}")
     for kernel in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
-                   "flash_dkv_mma_kernel"):
+                   "flash_dkv_mma_kernel", "flash_fwd_wide_mma_kernel",
+                   "flash_dq_wide_mma_kernel", "flash_dkv_wide_mma_kernel"):
         if min(counts.get(kernel, [0])) == 0:
             failures.append(f"{kernel}: no tensor-core instructions")
     if failures:
@@ -886,6 +967,7 @@ def phase_kernels():
         lambda: fa.flash_attention_dkv_plain(q, k, v, do, lse, delta),
         lambda: sdpa_bwd_ms((1, 2)), reads + 2 * 2 * BH * T * d,
         8 * BH * T * T * d)
+    time_flash_routes(fa, gen)
     # the records of the kernels line, and after K2's and K3's their second
     # shapes, which are logged only
     extra = {"norm_silu": [bucket1], "norm_silu_bwd": k3_records[1:]}
@@ -3387,25 +3469,8 @@ G_PIX = 256                # G's fields: 256² × 1 -> 32² × 4 latents
 
 def busy_seconds(fn) -> tuple[float, float]:
     """(wall seconds, device kernel seconds) of one call of ``fn`` under
-    torch.profiler, taken again (five times at most) when the trace holds
-    no device event."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        busy = sum(device_us(e) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)) / 1e6
-        if busy > 0:
-            return wall, busy
-    raise AssertionError("the profiler saw no device time")
+    torch.profiler (``profiled_shares``)."""
+    return profiled_shares(fn)[:2]
 
 
 def params_within(ours: dict, ref: dict, lr: float, k: int) -> tuple:
@@ -3955,6 +4020,436 @@ def phase_latent(zero, f_model):
     return [counts, c_train, c_desc]
 
 
+# ---------------------------------------------------------------------------
+# phases 24 to 26: the rest of the score-network zoo; H (DiT-B) and I (ADM)
+# ---------------------------------------------------------------------------
+H_WIDTHS = dict(nembed=768, nheads=12, nblocks=12, mlp_factor=4,
+                patch_size=4, nchannels=1)
+HI_SHAPE = (256, 256, 1)   # H's and I's fields
+HI_BATCH = 8               # their train batch
+FLASH_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def perturbed_copy(make, seed):
+    """(the module on the CPU, the same weights on the card): weights from
+    ``init_parameters(seed)``, each then moved by N(0, 0.05²) so that no
+    zero-initialized bias or gate hides a path."""
+    from diffsci_tpu_torch.models.nets.layers import init_parameters
+
+    cpu = make("cpu")
+    init_parameters(cpu, seed)
+    gen = torch.Generator().manual_seed(seed + 100)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.05)
+    card = make("cuda")
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    return cpu.eval(), card.eval()
+
+
+def zoo_nets():
+    """Phase 24's networks at small widths: (label, a function that makes
+    the net on a device, the inputs on the CPU: a tuple of arguments, and
+    a function of the output that picks the tensors to compare)."""
+    from diffsci_tpu_torch.models.nets import (
+        ADM, ADMConfig, ConVit, ConVitConfig, DASC, DASCConfig,
+        DiffusionTransformer, MinimalResNet, MoEDiffusionTransformer,
+        PUNetGConfig, PUNetGDecoder, PUNetGDeterministic, PUNetGEncoder,
+        PUNetV, PUNetVConfig)
+
+    g = torch.Generator().manual_seed(24)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g)
+
+    t2 = torch.tensor([0.3, -1.1])
+    adm_small = dict(model_channels=8, channel_expansion=[2],
+                     number_resnet_downward_block=1,
+                     number_resnet_upward_block=1, number_resnet_attn_block=2,
+                     number_resnet_before_attn_block=1,
+                     number_resnet_after_attn_block=1, attn_heads=2,
+                     attn_backend="flash")
+    pu = dict(model_channels=8, channel_expansion=[2],
+              number_resnet_downward_block=1, number_resnet_upward_block=1,
+              number_resnet_attn_block=2, number_resnet_before_attn_block=1,
+              number_resnet_after_attn_block=1, num_heads=2)
+    same = (lambda out: out)
+    return [
+        # one 256-channel head at the middle: the wide f32 K4
+        ("ADM 2D mc=64 x4, one head of 256", lambda d: ADM(ADMConfig(
+            **dict(adm_small, model_channels=64, channel_expansion=[4],
+                   attn_heads=1)), device=d), (rn(2, 1, 16, 16), t2), same),
+        ("ADM 3D", lambda d: ADM(ADMConfig(**dict(adm_small, dimension=3)),
+                                 device=d), (rn(2, 1, 8, 8, 8), t2), same),
+        ("ADM mp", lambda d: ADM(ADMConfig(**dict(
+            adm_small, convolution_type="mp")), device=d),
+         (rn(2, 1, 16, 16), t2), same),
+        ("ADM decoder 2", lambda d: ADM(ADMConfig(**dict(
+            adm_small, decoder_type=2, number_resnet_upward_block=2)),
+            device=d), (rn(2, 1, 16, 16), t2), same),
+        ("DiT flash", lambda d: DiffusionTransformer(
+            nembed=64, nheads=2, nblocks=2, patch_size=4,
+            attn_backend="flash", device=d), (rn(2, 1, 32, 32), t2), same),
+        ("MoE-DiT dropping", lambda d: MoEDiffusionTransformer(
+            nembed=64, nheads=2, nblocks=2, patch_size=4, n_experts=4,
+            moe_every=1, capacity_factor=0.5, attn_backend="flash",
+            device=d), (rn(2, 1, 32, 32), t2), same),
+        ("ConVit softmax", lambda d: ConVit(ConVitConfig(
+            embed_dim=16, num_layers=2, num_heads=2,
+            has_time_embedding=True), device=d),
+         (rn(2, 1, 16, 16), t2), same),
+        ("ConVit linear", lambda d: ConVit(ConVitConfig(
+            embed_dim=16, num_layers=2, num_heads=2, linear_attention=True,
+            with_conv_on_upsample=True, with_conv_on_downsample=True,
+            has_time_embedding=True), device=d),
+         (rn(2, 1, 16, 16), t2), same),
+        ("PUNetGDeterministic", lambda d: PUNetGDeterministic(
+            PUNetGConfig(**pu), device=d), (rn(2, 1, 16, 16),), same),
+        ("PUNetGEncoder", lambda d: PUNetGEncoder(
+            PUNetGConfig(**pu), use_time_embedding=True, output_channels=6,
+            device=d), (rn(2, 1, 16, 16), t2), same),
+        ("PUNetGDecoder", lambda d: PUNetGDecoder(
+            PUNetGConfig(**pu), use_time_embedding=True, device=d),
+         (rn(2, 16, 8, 8), t2), same),
+        ("PUNetV slices", lambda d: PUNetV(PUNetVConfig(
+            **dict(pu, slice_embed_channels=4)), device=d),
+         (rn(2, 1, 16, 16), t2, {"yb": rn(2, 3, 4, 16, 16),
+                                 "temporal_mask": torch.tensor(
+                                     [[1.0, 1.0, 0.0], [1.0, 0.0, 0.0]])}),
+         same),
+        ("MinimalResNet", lambda d: MinimalResNet(
+            in_channels=1, out_classes=3, model_channels=16, n_layers=2,
+            device=d), (rn(2, 1, 16, 16),), same),
+        ("DASC", lambda d: DASC(DASCConfig(
+            in_channels=1, frame_height=16, frame_width=16,
+            frames_per_video=3, latent_dim=16, num_videos=4,
+            encoder_channels=(8, 16)), device=d),
+         (rn(4, 3, 1, 16, 16), True),
+         lambda out: torch.cat([out["reconstructed"].flatten(),
+                                out["self_represented_features"].flatten(),
+                                out["coefficient_matrix"].flatten()])),
+    ]
+
+
+def to_card(args):
+    if isinstance(args, dict):
+        return {k: to_card(v) for k, v in args.items()}
+    if isinstance(args, (tuple, list)):
+        return type(args)(to_card(a) for a in args)
+    return args.cuda() if torch.is_tensor(args) else args
+
+
+def graphed_sample_card_vs_cpu(label, make_net, shape, seed):
+    """A graphed ``KarrasModel.sample`` (3 Heun steps) on the card against
+    the CPU's eager loop on the card's noise (phase 2's form). Returns the
+    launch counts of the card's sample."""
+    from diffsci_tpu_torch import KarrasModel, KarrasModelConfig, kernels
+
+    cpu = KarrasModel(make_net("cpu"), KarrasModelConfig.from_edm(),
+                      device="cpu")
+    state = cpu.init(seed=seed)
+    gpu = KarrasModel(make_net("cuda"), KarrasModelConfig.from_edm())
+    gpu.net.load_state_dict(state, strict=True)
+    noise = torch.randn((2,) + shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+    ref = cpu.propagate_white_noise(noise.cpu(), nsteps=3)
+    gpu.compile_sampler(2, shape, nsteps=3)
+    kernels.reset_launches()
+    out = gpu.sample(2, shape, torch.Generator("cuda").manual_seed(seed),
+                     nsteps=3).cpu()
+    counts = dict(kernels.LAUNCHES)
+    err, ok = within_phase2(out, ref)
+    log(f"[zoo] graphed sample {label}, 3 Heun steps: max|card - cpu| "
+        f"{err:.3e} (max|cpu| {float(ref.abs().max()):.3f}; rtol 1e-3 + "
+        f"atol 1e-3) {'ok' if ok else 'FAIL'}; launches {counts}")
+    if not ok or counts["flash_attention"] == 0 or counts["fused_axby"] != 5:
+        raise AssertionError(f"zoo: the graphed {label} sample disagrees "
+                             "or missed K1/K4")
+    return counts
+
+
+def phase_zoo_card_vs_cpu():
+    """Phase 24: every network of this slice at small widths, the card's
+    forward against the port's own CPU run in f32 with TF32 off, at phase
+    2's tolerance (rtol 1e-3, atol 1e-3), flash attention engaged below
+    its token gate; then one graphed DiT sample and one graphed ADM sample
+    against the CPU's eager loop. Returns each part's launch counts."""
+    from diffsci_tpu_torch import kernels
+    from diffsci_tpu_torch.kernels import flash_attention as fa
+    from diffsci_tpu_torch.models.nets import (
+        ADM, ADMConfig, DiffusionTransformer)
+
+    gate = fa.MIN_TOKENS
+    fa.MIN_TOKENS = 1
+    all_counts = []
+    try:
+        for i, (label, make, args, pick) in enumerate(zoo_nets()):
+            cpu, card = perturbed_copy(make, 240 + i)
+            with torch.no_grad():
+                ref = pick(cpu(*args))
+                kernels.reset_launches()
+                out = pick(card(*to_card(args)))
+                torch.cuda.synchronize()
+            counts = dict(kernels.LAUNCHES)
+            all_counts.append(counts)
+            err, ok = within_phase2(out.cpu(), ref)
+            used = {k: n for k, n in counts.items() if n}
+            log(f"[zoo] {label}: max|card - cpu| {err:.3e} (max|cpu| "
+                f"{float(ref.abs().max()):.3f}; rtol 1e-3 + atol 1e-3) "
+                f"{'ok' if ok else 'FAIL'}; kernels {used}")
+            if not ok:
+                raise AssertionError(f"zoo: {label} card and CPU disagree")
+            if ("flash" in label or "ADM" in label) and \
+                    not counts["flash_attention"]:
+                raise AssertionError(f"zoo: {label} did not launch K4")
+        all_counts.append(graphed_sample_card_vs_cpu(
+            "DiT (nembed 64, 2 heads, 64 tokens)",
+            lambda d: DiffusionTransformer(nembed=64, nheads=2, nblocks=2,
+                                           attn_backend="flash", device=d),
+            (32, 32, 1), 7))
+        all_counts.append(graphed_sample_card_vs_cpu(
+            "ADM (mc 8, 2 heads)",
+            lambda d: ADM(ADMConfig(model_channels=8, channel_expansion=[2],
+                                    attn_heads=2, attn_backend="flash"),
+                          device=d), (16, 16, 1), 8))
+    finally:
+        fa.MIN_TOKENS = gate
+    return all_counts
+
+
+def profiled_shares(fn) -> tuple[float, float, float]:
+    """(wall seconds, device kernel seconds, seconds in K4-K6) of one call
+    of ``fn`` under torch.profiler (taken again when the trace holds no
+    device event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        busy = sum(device_us(e) for e in events) / 1e6
+        if busy > 0:
+            flash = sum(device_us(e) for e in events
+                        if any(n in e.key for n in FLASH_NAMES)) / 1e6
+            return wall, busy, flash
+    raise AssertionError("the profiler saw no device time")
+
+
+def full_width(label, make_model, zero, per_request, per_step, steps=20,
+               warmup=3, buckets=(1, 4), eager_check=True):
+    """Serve and train one configuration at full width (bf16 over f32
+    masters, random weights from seed 0): a graphed bucket-4 request
+    through ``SamplerService`` (wall and device time, idle share, the
+    share of K4-K6, exact launches ``per_request``) and ``steps`` graphed
+    ``make_train_step`` steps at batch 8 after ``warmup`` (s/step,
+    items/s, peak memory, capture seconds, one profiled step, exact
+    launches ``per_step`` a step, a falling loss), and with
+    ``eager_check`` three graphed steps against their eager body. Returns
+    (the request's counts, the steps' counts, the model)."""
+    import gc
+
+    from diffsci_tpu_torch import (EMATracker, SamplerService,
+                                   create_train_state, kernels,
+                                   make_train_step)
+
+    model = make_model()
+    model.init(seed=0)
+    nparams = sum(p.numel() for p in model.net.parameters())
+    svc = SamplerService(model, HI_SHAPE, batch_buckets=buckets,
+                         nsteps=NSTEPS, seed=0)
+    torch.cuda.synchronize()
+    warm = svc.warmup()
+    captures = {key[0]: round(g.capture_seconds, 3)
+                for key, g in model._graphs.graphs.items()}
+    n = buckets[-1]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = svc.sample(n)
+    wall = time.perf_counter() - t0
+    req_counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if out.shape != (n,) + HI_SHAPE or not np.isfinite(out).all():
+        raise AssertionError(f"{label}: request gave shape {out.shape} or "
+                             "non-finite values")
+    pwall, busy, flash = profiled_shares(lambda: svc.sample(n))
+    log(f"[{label}] {nparams} parameters; warm-up seconds per bucket "
+        f"{ {b: round(s, 3) for b, s in warm.items()} }, capture {captures}")
+    log(f"[{label}] graphed request of {n} ({NSTEPS}-step Heun, {NFE} "
+        f"network calls): wall {wall:.4f} s, {n / wall:.2f} samples/s, "
+        f"peak memory {peak:.3f} GiB; profiled: wall {pwall:.4f} s, device "
+        f"{busy:.4f} s, idle share {1 - busy / pwall:.3f}, K4 "
+        f"{flash:.4f} s = {flash / busy:.1%} of device time; launches "
+        f"{req_counts}")
+    expected = dict(zero, **per_request)
+    if req_counts != expected:
+        raise AssertionError(f"{label}: request launches {req_counts}, "
+                             f"expected {expected}")
+    del svc, out
+    model._reset_cast()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    x_shape = (HI_BATCH,) + HI_SHAPE
+    tracker = EMATracker(ema_type="power", power_function_stds=[0.05],
+                         update_every=4)
+    # the served weights (seed 0) are the first step's
+    state, tx = create_train_state(model, x_shape, seed=None, ema=tracker)
+    weights = {k: v.detach().clone() for k, v in state.params.items()}
+    step = make_train_step(model, tx, ema=tracker)
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(x_shape, generator=gen, device="cuda")
+    probe_sigma = model.config.noisesampler.sample((HI_BATCH,), gen)
+    probe_eps = torch.randn(x_shape, generator=gen, device="cuda")
+
+    def probe():
+        with torch.no_grad():
+            return float(model.loss_fn(x, probe_sigma, eps=probe_eps,
+                                       train=False))
+
+    before = probe()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        step(state, x, generator=gen)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    captures = [round(g.capture_seconds, 3)
+                for g in state.graphs.graphs.values()]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        met = step(state, x, generator=gen)[1]
+        losses.append(met["train_loss"])
+    last = float(met["train_loss"])                       # the sync
+    dt = time.perf_counter() - t0
+    step_counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = probe()
+    losses = [float(v) for v in losses]
+    swall, sbusy, sflash = profiled_shares(
+        lambda: step(state, x, generator=gen))
+    log(f"[{label}] train batch {x_shape}: warm-up {warmup} steps "
+        f"{warm_s:.2f} s, capture seconds (step, EMA) {captures}; {steps} "
+        f"graphed steps in {dt:.4f} s: {dt / steps:.4f} s/step, "
+        f"{HI_BATCH * steps / dt:.2f} items/s; peak memory {peak:.3f} GiB; "
+        f"loss first {losses[0]:.5f} last {last:.5f}; fixed-draw loss "
+        f"{before:.5f} before, {after:.5f} after; launches {step_counts}")
+    log(f"[{label}] profiled graphed step: wall {swall:.4f} s, device "
+        f"{sbusy:.4f} s, idle share {1 - sbusy / swall:.3f}, K4-K6 "
+        f"{sflash:.4f} s = {sflash / sbusy:.1%} of device time")
+    expected = {k: v * steps for k, v in dict(zero, **per_step).items()}
+    if not (np.isfinite(losses).all() and after < before):
+        raise AssertionError(f"{label}: non-finite loss, or the loss did "
+                             "not fall")
+    if step_counts != expected:
+        raise AssertionError(f"{label}: step launches {step_counts}, "
+                             f"expected {expected}")
+    if eager_check:
+        # three steps each from the same weights and generator (the graphed
+        # arm's first is its warm-up)
+        arms = {}
+        for arm in ("eager", "graphed"):
+            with torch.no_grad():
+                for k, v in state.params.items():
+                    v.copy_(weights[k])
+            st, tx2 = create_train_state(model, x_shape, seed=None)
+            fn = make_train_step(model, tx2, _raw=arm == "eager")
+            g2 = torch.Generator("cuda").manual_seed(25)
+            mets = [float(fn(st, x, generator=g2)[1]["train_loss"])
+                    for _ in range(3)]
+            arms[arm] = (mets, {k: v.detach().clone()
+                                for k, v in st.params.items()})
+            del st, fn
+        (m_e, p_e), (m_g, p_g) = arms["eager"], arms["graphed"]
+        same = all(torch.equal(p_e[k], p_g[k]) for k in p_e) and m_e == m_g
+        ok_p, q999, worst = params_within(p_g, p_e, 1e-3, 3)
+        ok = ok_p and np.allclose(m_g, m_e, rtol=1e-3, atol=0)
+        log(f"[{label}] graphed against eager, 3 steps from one seed: "
+            f"losses {m_g} / {m_e}; params 99.9% {q999:.3e}, max "
+            f"{worst:.3e} (phase 3's limits); bit for bit {same} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: the graphed step differs from "
+                                 "its eager body")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return req_counts, step_counts, model
+
+
+def model_h(moe: bool = False):
+    """Configuration H: DiT at DiT-B's widths on 256² × 1 fields (patch 4:
+    4096 tokens, 12 heads of 64), flash attention, EDM, bf16 over f32
+    masters; ``moe``: its MoE twin (4 experts in every second block,
+    capacity factor 2)."""
+    from diffsci_tpu_torch import KarrasModel, KarrasModelConfig
+    from diffsci_tpu_torch.models.nets import (DiffusionTransformer,
+                                               MoEDiffusionTransformer)
+
+    net = (MoEDiffusionTransformer(n_experts=4, moe_every=2,
+                                   capacity_factor=2.0, attn_backend="flash",
+                                   **H_WIDTHS) if moe else
+           DiffusionTransformer(attn_backend="flash", **H_WIDTHS))
+    return KarrasModel(net, KarrasModelConfig.from_edm(),
+                       compute_dtype=torch.bfloat16)
+
+
+def model_i():
+    """Configuration I: ADM at ``ADMConfig``'s defaults (2D, 64 channels,
+    expansion (2, 4), one 256-channel head in the middle) on 256² × 1
+    fields, flash attention (4096 tokens at head dim 256), EDM, bf16 over
+    f32 masters."""
+    from diffsci_tpu_torch import KarrasModel, KarrasModelConfig
+    from diffsci_tpu_torch.models.nets import ADM, ADMConfig
+
+    return KarrasModel(ADM(ADMConfig(attn_backend="flash")),
+                       KarrasModelConfig.from_edm(),
+                       compute_dtype=torch.bfloat16)
+
+
+def phase_h(zero):
+    """Phase 25: H served and trained at full width, then its MoE twin
+    (one bucket-4 request, 5 graphed steps, the dropped fraction). A
+    request is 35 network calls, each a combine (K1) and 12 attentions
+    (K4); a step a forward and backward of the 12 blocks (K4, K5, K6 12
+    each; the training combine is the plain expression)."""
+    from diffsci_tpu_torch.models.nets import MoEFeedForward
+
+    nb = H_WIDTHS["nblocks"]
+    per_request = dict(fused_axby=NFE, flash_attention=nb * NFE)
+    per_step = dict(flash_attention=nb, flash_attention_dq=nb,
+                    flash_attention_dkv=nb)
+    counts = list(full_width("H", model_h, zero, per_request, per_step)[:2])
+    req, steps, moe = full_width("H MoE", lambda: model_h(moe=True), zero,
+                                 per_request, per_step, steps=5, warmup=2,
+                                 buckets=(4,), eager_check=False)
+    dropped = [float(m.dropped_fraction) for m in moe.net.modules()
+               if isinstance(m, MoEFeedForward)]
+    log(f"[H MoE] dropped fraction of the last train step, per MoE block "
+        f"{[round(f, 4) for f in dropped]}")
+    return counts + [req, steps]
+
+
+def phase_i(zero):
+    """Phase 26: I served and trained at full width. A request is 35
+    network calls, each a combine (K1) and the middle attention (K4); a
+    step one K4, K5 and K6; ADM's norms (one group) take no kernel."""
+    per_request = dict(fused_axby=NFE, flash_attention=NFE)
+    per_step = dict(flash_attention=1, flash_attention_dq=1,
+                    flash_attention_dkv=1)
+    return list(full_width("I", model_i, zero, per_request, per_step)[:2])
+
+
 def threading_sample(svc, n, seed):
     import threading
 
@@ -3976,11 +4471,17 @@ def main() -> int:
     # the float32 checks of phases 1 to 3 compare full-f32 arithmetic
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    def elapsed(phases):
+        log(f"[time] phases {phases} done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
     records = phase_kernels()
+    elapsed("1")
     phase_card_vs_cpu()
     phase_train_card_vs_cpu()
     phase_ddpm_card_vs_cpu()
     torch.backends.cudnn.allow_tf32 = True     # PyTorch's default again
+    elapsed("2-4")
 
     cfg_a = PUNetGConfig(dimension=3, model_channels=32,
                          channel_expansion=[2], num_heads=2,
@@ -4035,6 +4536,7 @@ def main() -> int:
     log(f"[counts] DDIM and DDPM serving went through K7 once per step and "
         f"no other kernel: {counts_ddim}, {counts_ddpm}")
 
+    elapsed("5-9")
     phase_graphs(svc_a, svc_b, svc_ddim, cfg_a, cfg_b,
                  "--profile" in sys.argv[1:])
 
@@ -4043,6 +4545,7 @@ def main() -> int:
     counts_11 = phase_stochastic_card_vs_cpu()
     counts_12 = phase_stochastic_serving(cfg_a, cfg_b, zero)
     counts_13 = phase_train_vp_ve(cfg_a, cfg_b, zero)
+    elapsed("10-13")
 
     # the conditional and magnitude-preserving paths (phases 14 to 16)
     cfg_d = dataclasses.replace(cfg_a, convolution_type="circular",
@@ -4056,6 +4559,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = True
 
     # the training loop, checkpoints and a served checkpoint (phase 17)
+    elapsed("14-16")
     counts_17 = phase_fit_checkpoint_serve(cfg_b, zero, step_ms_b)
 
     # the optimizers, the serving stack, card against CPU (phases 18 to 20)
@@ -4064,12 +4568,26 @@ def main() -> int:
                                     svc_ddim.model)
     torch.backends.cudnn.allow_tf32 = False
     counts_20 = phase_serving_card_vs_cpu()
+    elapsed("17-20")
 
     # ensemble/CRPS forecasting and latent diffusion (phases 21 to 23)
     counts_21 = phase_forecast_card_vs_cpu(zero)
     torch.backends.cudnn.allow_tf32 = True
     counts_22, f_trained = phase_forecaster(zero)
     counts_23 = phase_latent(zero, f_trained)
+    del f_trained
+    elapsed("21-23")
+
+    # the rest of the score-network zoo, and H (DiT-B) and I (ADM) at full
+    # width (phases 24 to 26)
+    torch.backends.cudnn.allow_tf32 = False
+    counts_24 = phase_zoo_card_vs_cpu()
+    torch.backends.cudnn.allow_tf32 = True
+    elapsed("24")
+    counts_25 = phase_h(zero)
+    elapsed("25")
+    counts_26 = phase_i(zero)
+    elapsed("26")
 
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
@@ -4100,7 +4618,9 @@ def main() -> int:
                                            *counts_15, *counts_17,
                                            *counts_18, *counts_19,
                                            *counts_20, *counts_21,
-                                           counts_22, *counts_23]),
+                                           counts_22, *counts_23,
+                                           *counts_24, *counts_25,
+                                           *counts_26]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

@@ -30,7 +30,27 @@ counterpart:
   call order, which needs the ``DDConfig``), or the ``VAEModel`` around
   one (scope ``autoencoder``, with a trainable ``logvar``);
 - the network of a ``KarrasEncoderModel`` (``encoder_model`` beside
-  ``model``).
+  ``model``);
+- ADM, 2D or 3D, default or mp convolutions (``time_embedding``,
+  ``input_layer``, ``enc_{i}_block_{j}`` / ``mid_block_{j}`` /
+  ``dec_{i}_block_{j}`` -> ``encoder.layers.{i}.input_blocks.{j}`` /
+  ``middle_block.middle_blocks.{j}`` / ``decoder.layers...``, a block's
+  convs -> conv1, conv2, convresidual, its Dense -> embed_linear, its
+  norms by the config's kinds -> norm1, norm2, its attention packed);
+- DiT and MoE-DiT (``Dense_0-4`` -> time_mlp_in/mid/out, token_embed,
+  token_head, ``block_{i}`` / ``moe_block_{i}`` -> ``blocks.{i}``: Dense_0
+  adaln, LayerNorm_0/1 norm1/2, the attention packed, Dense_1/2
+  mlp_in/out, ``moe`` as it is);
+- ConVit (the torch reference's names; a transposed convolution's flax
+  kernel [*k, I, O] is spatially flipped back into torch's [I, O, *k];
+  the attention's ``scale`` buffer √dh is added);
+- the PUNetG variants: PUNetGDeterministic (scope ``unet``), the encoder
+  (bottleneck -> ``bottom_blocks.{0-3}``, ``projection``), the decoder,
+  PUNetV (``slice_embedding``'s GroupNorm_i / Conv_i -> norm{i+1} /
+  conv{i+1});
+- MinimalResNet (``block_{i}`` -> ``res_blocks.{i}``) and DASC (the
+  reference's Sequential indices; ``_TorchConvTranspose`` kernels
+  flipped back, ``srm/A`` -> ``srm.self_repr.weight``).
 
 Everywhere conv kernels [*k, in, out] -> [out, in, *k], Dense kernels
 [in, out] -> [out, in] and norm scales -> ``weight``. The name maps are the
@@ -65,6 +85,7 @@ _NORM_CLASS = {"GroupLN": "GroupLNorm", "GroupRMS": "GroupRMSNorm",
 _LEAF = {"kernel": "weight", "w_mp": "weight", "bias": "bias",
          "scale": "weight"}
 _ATTN = re.compile(r"^attn_(\d+)$")
+_SLICE = re.compile(r"^slice_embedding/(Conv|GroupNorm)_(\d+)$")
 
 
 def _flatten(tree, prefix=()):
@@ -203,6 +224,8 @@ def _punetg_key(path: tuple, resblock: dict) -> str:
         return f"{scope}.{name}"       # a conv, or the Fourier stem's W/bias
     if path in (("time_projection", "W"), ("cond_drop", "null_embedding")):
         return ".".join(path)
+    if scope == "projection":          # PUNetGEncoder's EncoderFlattener
+        return f"projection.linear.{name}"
     for pattern, repl in _SCOPES:
         if pattern.match(scope):
             prefix = pattern.sub(repl, scope)
@@ -211,6 +234,11 @@ def _punetg_key(path: tuple, resblock: dict) -> str:
                 return f"{prefix}.{name}"
             if conv:
                 return f"{prefix}.conv{int(conv.group(1)) + 1}.{name}"
+            sl = _SLICE.match(rest)
+            if sl:
+                kind = "norm" if sl.group(1) == "GroupNorm" else "conv"
+                return f"{prefix}.slice_embedding.{kind}" \
+                       f"{int(sl.group(2)) + 1}.{name}"
             dense = _TIME_DENSE.match(rest)
             if dense:
                 return f"{prefix}.timeblock.net.{2 * int(dense.group(1))}." \
@@ -340,15 +368,247 @@ def _mlp_state(params: dict) -> dict[str, np.ndarray]:
     return out
 
 
+def _flip_transposed(w: np.ndarray) -> np.ndarray:
+    """A flax transposed-convolution kernel [*k, I, O], spatially flipped
+    against torch's (lax.conv_transpose, the JAX DASC's
+    ``_TorchConvTranspose``) -> torch's [I, O, *k]."""
+    nd = w.ndim - 2
+    w = w[tuple(slice(None, None, -1) for _ in range(nd))]
+    return np.ascontiguousarray(
+        np.transpose(w, (nd, nd + 1) + tuple(range(nd))))
+
+
+def _leaf_key(prefix: str, leaf: str) -> str:
+    return f"{prefix}.{_LEAF.get(leaf, leaf)}"
+
+
+def _embedding_leaves(params: dict, buffers: dict) -> dict:
+    """A net's ``conditional_embedding`` scope, params and buffers."""
+    out = _embedder_state(params.get("conditional_embedding", {}),
+                          "conditional_embedding")
+    out.update(_embedder_state(buffers.get("conditional_embedding", {}),
+                               "conditional_embedding"))
+    return out
+
+
+_ADM_SCOPE = [
+    (re.compile(r"^enc_(\d+)_block_(\d+)$"),
+     r"encoder.layers.\1.input_blocks.\2"),
+    (re.compile(r"^dec_(\d+)_block_(\d+)$"),
+     r"decoder.layers.\1.input_blocks.\2"),
+    (re.compile(r"^mid_block_(\d+)$"), r"middle_block.middle_blocks.\1"),
+]
+_ADM_CONV = ("conv1", "conv2", "convresidual")
+
+
+def _adm_state(params: dict, buffers: dict, norms) -> dict:
+    """An ADM's JAX leaves -> the torch reference's names."""
+    norm_names = {k: v.replace("gnorm", "norm")
+                  for k, v in _norm_scopes(norms).items()}
+    out, attn = _embedding_leaves(params, buffers), {}
+    for path, w in _flatten({k: v for k, v in params.items()
+                             if k != "conditional_embedding"}):
+        scope, rest, leaf = path[0], "/".join(path[1:-1]), path[-1]
+        if scope == "time_embedding":
+            idx = int(rest.split("_")[-1])
+            out[_leaf_key(f"time_embedding.mlp.{2 * idx}", leaf)] = \
+                _layout(w, leaf)
+            continue
+        if scope in ("input_layer", "output_layer"):
+            out[_leaf_key(scope, leaf)] = _layout(w, leaf)
+            continue
+        prefix = next(p.sub(r, scope) for p, r in _ADM_SCOPE
+                      if p.match(scope))
+        if rest.startswith("SpatialSelfAttention_0/"):
+            attn.setdefault(f"{prefix}.attn.mhattn", {})[leaf] = w
+            continue
+        conv = _CONV.match(rest)
+        if conv:
+            sub = _ADM_CONV[int(conv.group(1))]
+        elif rest == "Dense_0":
+            sub = "embed_linear"
+        else:
+            sub = norm_names[rest]
+        out[_leaf_key(f"{prefix}.{sub}", leaf)] = _layout(w, leaf)
+    for path, w in _flatten(buffers.get("time_embedding", {})):
+        out["time_embedding.projection.W"] = w
+    for prefix, leaves in attn.items():
+        out.update(_attention(leaves, prefix))
+    return out
+
+
+_DIT_TOP = {"Dense_0": "time_mlp_in", "Dense_1": "time_mlp_mid",
+            "Dense_2": "time_mlp_out", "Dense_3": "token_embed",
+            "Dense_4": "token_head"}
+_DIT_BLOCK = {"Dense_0": "adaln", "LayerNorm_0": "norm1",
+              "LayerNorm_1": "norm2", "Dense_1": "mlp_in",
+              "Dense_2": "mlp_out"}
+_DIT_BLOCK_SCOPE = re.compile(r"^(?:moe_)?block_(\d+)$")
+
+
+def _dit_state(params: dict, buffers: dict) -> dict:
+    """A DiT's or MoE-DiT's JAX leaves -> the port's names."""
+    out, attn = {}, {}
+    for path, w in _flatten(params):
+        scope, leaf = path[0], path[-1]
+        if scope in _DIT_TOP:
+            out[_leaf_key(_DIT_TOP[scope], leaf)] = _layout(w, leaf)
+            continue
+        prefix = f"blocks.{_DIT_BLOCK_SCOPE.match(scope).group(1)}"
+        sub = path[1]
+        if sub == "MultiHeadAttention_0":
+            attn.setdefault(f"{prefix}.attn", {})[leaf] = w
+        elif sub == "moe":
+            out[f"{prefix}.moe.{leaf}"] = w
+        else:
+            out[_leaf_key(f"{prefix}.{_DIT_BLOCK[sub]}", leaf)] = \
+                _layout(w, leaf)
+    for path, w in _flatten(buffers.get("GaussianFourierProjection_0", {})):
+        out["time_proj.W"] = w
+    for prefix, leaves in attn.items():
+        out.update(_attention(leaves, prefix))
+    return out
+
+
+_SWIGLU = ("linear_in", "linear_gate", "linear_out")
+
+
+def _convit_state(params: dict, buffers: dict, batch_stats: dict) -> dict:
+    """A ConVit's JAX leaves -> the torch reference's names."""
+    out = _embedding_leaves(params, buffers)
+    for path, w in _flatten({k: v for k, v in params.items()
+                             if k != "conditional_embedding"}):
+        scope, leaf = path[0], path[-1]
+        if scope in ("convin", "convout", "normout"):
+            out[_leaf_key(scope, leaf)] = _layout(w, leaf)
+            continue
+        if scope == "BatchNorm_0":
+            out[_leaf_key("input_batch_norm", leaf)] = w
+            continue
+        prefix = f"blocks.{scope.split('_')[1]}"
+        sub = path[1]
+        if sub == "fusion_weight":
+            out[f"{prefix}.fusion_weight"] = w
+        elif sub == "_SwiGLU_0":
+            name = ("rms" if path[2] == "RMSNorm_0" else
+                    _SWIGLU[int(path[2].split("_")[1])])
+            out[_leaf_key(f"{prefix}.embedding_projection.{name}", leaf)] = \
+                _layout(w, leaf)
+        elif sub.startswith("ChannelRMSNorm_"):
+            out[f"{prefix}.norm_{int(sub.split('_')[1]) + 1}.weight"] = w
+        elif sub == "ConVitAttention_0":
+            if path[2] == "rope":
+                out[f"{prefix}.attention.rope_layer.angles"] = w
+            else:
+                name = "out" if leaf == "o" else leaf
+                out[f"{prefix}.attention.{name}_proj_tensor"] = w
+                if leaf == "q":
+                    out[f"{prefix}.attention.scale"] = np.asarray(
+                        np.sqrt(w.shape[1]), np.float32)
+        elif sub == "ConvSwiGLU_0":
+            name = _SWIGLU[int(path[2].split("_")[1])]
+            out[_leaf_key(f"{prefix}.ffn.{name}", leaf)] = _layout(w, leaf)
+        elif sub == "ConvTranspose_0":
+            out[_leaf_key(f"{prefix}.upsample.conv", leaf)] = (
+                _flip_transposed(w) if leaf == "kernel" else w)
+        else:                     # Conv_i: [downsample,] depthwise, 1×1
+            shift = 0 if "Conv_2" in params[scope] else 1
+            name = ("downsample.conv", "depthwise_conv",
+                    "pointwise_conv")[int(sub.split("_")[1]) + shift]
+            out[_leaf_key(f"{prefix}.{name}", leaf)] = _layout(w, leaf)
+    if "GaussianFourierProjection_0" in buffers:
+        out["time_embedding.W"] = buffers["GaussianFourierProjection_0"]["W"]
+    for path, w in _flatten(batch_stats.get("BatchNorm_0", {})):
+        out[f"input_batch_norm.running_{path[-1]}"] = w
+    return out
+
+
+def _classifier_state(params: dict) -> dict:
+    """MinimalResNet's JAX leaves -> the torch reference's names."""
+    out = {}
+    for path, w in _flatten(params):
+        scope, leaf = path[0], path[-1]
+        if scope in ("in_conv", "out"):
+            out[_leaf_key(scope, leaf)] = _layout(w, leaf)
+            continue
+        kind, i = path[1].split("_")
+        sub = f"{'norm' if kind == 'GroupNorm' else 'conv'}{int(i) + 1}"
+        out[_leaf_key(f"res_blocks.{scope.split('_')[1]}.{sub}", leaf)] = \
+            _layout(w, leaf)
+    return out
+
+
+def _dasc_state(params: dict) -> dict:
+    """DASC's JAX leaves -> the torch reference's (Sequential) names."""
+    ae = params["auto_encoder"]
+    n = sum(1 for k in ae if k.startswith("enc_conv_"))
+    seq = {"enc_out": f"encoder.{2 * n + 2}", "dec_in": "decoder.0",
+           "dec_out": f"decoder.{2 * n + 1}"}
+    seq.update({f"enc_conv_{i}": f"encoder.{2 * i}" for i in range(n)})
+    seq.update({f"dec_conv_{i}": f"decoder.{3 + 2 * i}"
+                for i in range(n - 1)})
+    out = {}
+    for path, w in _flatten(ae):
+        scope, leaf = path[0], path[-1]
+        transposed = scope.startswith("dec_") and scope != "dec_in"
+        out[_leaf_key(f"auto_encoder.{seq[scope]}", leaf)] = (
+            _flip_transposed(w) if transposed and leaf == "kernel"
+            else _layout(w, leaf))
+    for path, w in _flatten(params["vmm"]):
+        if path[0] == "query":
+            out["vmm.query"] = w
+        else:
+            i = path[0].split("_")[-1]
+            out[_leaf_key(f"vmm.attention_layers.{i}", path[-1])] = \
+                _layout(w, path[-1])
+    out["srm.self_repr.weight"] = np.asarray(params["srm"]["A"])
+    for path, w in _flatten(params.get("frm_transform", {})):
+        out[_leaf_key("frm_transform", path[-1])] = _layout(w, path[-1])
+    return out
+
+
+_BOTTOM = {"before_block": "bottom_blocks.0",
+           "attn_resnet_block": "bottom_blocks.1",
+           "attn_block": "bottom_blocks.2", "after_block": "bottom_blocks.3"}
+
+
+def _encoder_state(params: dict, buffers: dict, norms) -> dict:
+    """PUNetGEncoder: PUNetG's names with the bottleneck's lists under
+    ``bottom_blocks``."""
+    out = {}
+    for k, v in _punetg_state(params, buffers, norms).items():
+        head, _, rest = k.partition(".")
+        out[f"{_BOTTOM[head]}.{rest}" if head in _BOTTOM else k] = v
+    return out
+
+
 def _tensors(state: dict, prefix: str = "") -> dict[str, torch.Tensor]:
     return {prefix + k: torch.from_numpy(np.array(v, copy=True))
             for k, v in state.items()}
 
 
-def _net_state(params: dict, buffers: dict, norms) -> dict:
+def _net_state(params: dict, buffers: dict, norms,
+               batch_stats: dict | None = None) -> dict:
     """A bare network's JAX leaves -> the port's state dict (numpy):
-    UNet2D (or HFNet, scope ``unet``), an MLP, PUNetGCond or PUNetG, told
-    apart by their keys."""
+    UNet2D (or HFNet, scope ``unet``), an MLP, DASC, MinimalResNet, ADM,
+    ConVit, DiT / MoE-DiT, PUNetG's encoder or decoder half, PUNetGCond
+    (or PUNetGDeterministic) or PUNetG (or PUNetV), told apart by their
+    keys."""
+    if "auto_encoder" in params and "srm" in params:
+        return _dasc_state(params)
+    if "in_conv" in params and "out" in params:
+        return _classifier_state(params)
+    if "input_layer" in params and "time_embedding" in params:
+        return _adm_state(params, buffers, norms)
+    if "normout" in params:
+        return _convit_state(params, buffers, batch_stats or {})
+    if "Dense_3" in params and any(map(_DIT_BLOCK_SCOPE.match, params)):
+        return _dit_state(params, buffers)
+    if "convin" in params and "convout" not in params:
+        return _encoder_state(params, buffers, norms)
+    if "convout" in params and "convin" not in params and \
+            "unet" not in params:
+        return _punetg_state(params, buffers, norms)
     if "unet" in params and "conv_in" in params["unet"]:
         return {f"unet.{k}": v
                 for k, v in _unet2d_state(params["unet"]).items()}
@@ -372,14 +632,15 @@ def from_jax_variables(variables_np: dict,
                        config=None) -> dict[str, torch.Tensor]:
     """State dict of the port's network from JAX-package variables: PUNetG
     or PUNetGCond (scope ``unet``), UNet2D (or HFNet, scope ``unet``) or an
-    MLP, told apart by their keys, or the KarrasNet around one (scope
+    MLP, ADM, DiT or MoE-DiT, ConVit, a PUNetG variant, MinimalResNet or
+    DASC, told apart by their keys, or the KarrasNet around one (scope
     ``model``, with ``dlw``, the ``batch_stats`` of ``bnorm`` and a
     ``KarrasEncoderModel``'s ``encoder_model``, which covers
     ``EnsembleKarrasModel`` too); an AutoencoderKL, or a ``VAEModel``'s
     network (scope ``autoencoder``, ``logvar``). ``config``: the
-    PUNetG's ``PUNetGConfig``, which names its norms (default GroupLN then
-    GroupRMS), or the autoencoder's ``DDConfig`` (needed for attention at
-    ``attn_resolutions``)."""
+    PUNetG's (or ADM's, PUNetV's) config, which names its norms (default
+    GroupLN then GroupRMS), or the autoencoder's ``DDConfig`` (needed for
+    attention at ``attn_resolutions``)."""
     params = variables_np.get("params", {})
     buffers = variables_np.get("buffers", {})
     if "quant_conv" in params:
@@ -408,8 +669,11 @@ def from_jax_variables(variables_np: dict,
                 params["encoder_model"], buffers.get("encoder_model", {}),
                 norms).items()})
         params, buffers = params["model"], buffers.get("model", {})
+    stats = variables_np.get("batch_stats", {})
     out.update({f"model.{k}" if wrapped else k: v
-                for k, v in _net_state(params, buffers, norms).items()})
+                for k, v in _net_state(params, buffers, norms,
+                                       stats.get("model", {}) if wrapped
+                                       else stats).items()})
     return _tensors(out)
 
 

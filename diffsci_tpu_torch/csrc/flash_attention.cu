@@ -35,7 +35,9 @@
 //
 // Both mask ragged T in the kernel, on query rows (never stored) and on
 // keys (score -inf); head dims below the template's D are zero-padded in
-// shared memory only. Tile constants, conversions and dispatch:
+// shared memory only. Head dims above 128 go to flash_fwd_wide_mma_kernel
+// (bf16) and flash_fwd_wide_kernel (f32), which stage d in 128-column
+// chunks (flash_common.cuh) and take any head_dim. Tile constants, conversions and dispatch:
 // flash_common.cuh (shared with K5/K6), tensor-core pieces: flash_mma.cuh.
 // Plain C interface, built with nvcc and loaded with ctypes.
 
@@ -348,6 +350,309 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// ---- head dims above 128 (flash_common.cuh: any head_dim) -------------
+
+// bf16: one block of kMmaWarps warps per (bh, tile of kMmaRows query rows,
+// kWideCols-column chunk c0 of O). Per tile of kWideKeys keys, S = Q K^T
+// is summed over d in chunks of kWideCols columns, each chunk of Q and K
+// staged in shared memory (Q's A fragments read from there: they would not
+// fit in registers); the online softmax is K4's; O's chunk += P V[:, c0:]
+// with P rounded to bf16 in registers, as in K4. Every chunk block of a
+// row computes the same S, m and l; the c0 = 0 block writes lse.
+template <bool kAsync>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_wide_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              __nv_bfloat16* __restrict__ o,
+                              float* __restrict__ lse, int seq_len,
+                              int head_dim, float scale_log2) {
+  constexpr int LD = kMmaLd<kWideCols>;
+  constexpr int KT = kWideCols / 16;  // k16 steps over a chunk of d
+  constexpr int NT = kWideCols / 8;   // n8 tiles of O's chunk
+  constexpr int ST = kWideKeys / 8;   // n8 tiles of a key tile
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+  __nv_bfloat16* Ks = Qs + kMmaRows * LD;   // [kWideKeys][LD]
+  __nv_bfloat16* Vs = Ks + kWideKeys * LD;  // [kWideKeys][LD], chunk c0
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * kMmaRows, c0 = blockIdx.z * kWideCols;
+  const size_t base = (size_t)blockIdx.y * seq_len * head_dim;
+  const int ntiles = (seq_len + kWideKeys - 1) / kWideKeys;
+  const int nch = (head_dim + kWideCols - 1) / kWideCols;
+  const __nv_bfloat16* Qw = Qs + warp * 16 * LD + a_frag_offset(lane, LD);
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * kWideKeys;
+    float s[ST][4];
+#pragma unroll
+    for (int n = 0; n < ST; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      __syncthreads();  // the previous chunk (and tile) no longer read
+      load_block<kMmaRows, kWideCols, kAsync>(Qs, q + base, q0,
+                                              ch * kWideCols, seq_len,
+                                              head_dim);
+      load_block<kWideKeys, kWideCols, kAsync>(Ks, k + base, k0,
+                                               ch * kWideCols, seq_len,
+                                               head_dim);
+      if (ch == 0)
+        load_block<kWideKeys, kWideCols, kAsync>(Vs, v + base, k0, c0,
+                                                 seq_len, head_dim);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll
+      for (int ks = 0; ks < KT; ++ks) {
+        uint32_t qa[4];
+        ldmatrix_x4(qa, Qw + ks * 16);
+#pragma unroll
+        for (int np = 0; np < ST / 2; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4(b, Ks + np * 16 * LD + ks * 16 + b_frag_offset(lane, LD));
+          mma_16816(s[2 * np], qa, b[0], b[1]);
+          mma_16816(s[2 * np + 1], qa, b[2], b[3]);
+        }
+      }
+    }
+    if (k0 + kWideKeys > seq_len) {
+#pragma unroll
+      for (int n = 0; n < ST; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k0 + n * 8 + (lane % 4) * 2 + (i % 2) >= seq_len)
+            s[n][i] = -CUDART_INF_F;
+    }
+
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < ST; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float alpha[2], ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = fast_exp2((m[r] - mx[r]) * scale_log2);
+      m[r] = mx[r];
+      ms[r] = mx[r] * scale_log2;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < ST; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = fast_exp2(fmaf(s[n][i], scale_log2, -ms[i / 2]));
+        l[i / 2] += s[n][i];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < ST / 2; ++kk) {
+      uint32_t pa[4];
+      a_from_c(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, Vs + kk * 16 * LD + np * 16 + bt_frag_offset(lane, LD));
+        mma_16816(acc[2 * np], pa, b[0], b[1]);
+        mma_16816(acc[2 * np + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qi = q0 + warp * 16 + lane / 4 + 8 * r;
+    if (qi >= seq_len) continue;
+    const float inv_l = 1.f / l[r];
+    const size_t row = base + (size_t)qi * head_dim;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + n * 8 + (lane % 4) * 2 + e;
+        if (c < head_dim)
+          o[row + c] = __float2bfloat16(acc[n][2 * r + e] * inv_l);
+      }
+    }
+    if (lane % 4 == 0 && blockIdx.z == 0)
+      lse[(size_t)blockIdx.y * seq_len + qi] =
+          (m[r] * scale_log2 + log2f(l[r])) * 0.69314718055994531f;
+  }
+}
+
+// f32: flash_fwd_kernel's layout (kTPR threads a query row, kBK-key
+// tiles) with S summed over staged kWideCols-column chunks of Q (pre-scaled
+// as there) and K, and O's chunk c0 in registers.
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_wide_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int seq_len, int head_dim,
+                          float scale_log2) {
+  constexpr int LD = kWideLdF;
+  constexpr int CPT = kWideCols / (4 * kTPR);  // float4 chunks per thread
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* Qs = smem;             // [kBQ][LD]
+  float* Ks = Qs + kBQ * LD;    // [kBK][LD]
+  float* Vs = Ks + kBK * LD;    // [kBK][LD], chunk c0
+  float* Ps = Vs + kBK * LD;    // [kBQ][kLDP]
+
+  const int tid = threadIdx.x;
+  const int r = tid / kTPR, t = tid % kTPR;
+  const int q0 = blockIdx.x * kBQ, c0 = blockIdx.z * kWideCols;
+  const size_t base = (size_t)blockIdx.y * seq_len * head_dim;
+  const int nch = (head_dim + kWideCols - 1) / kWideCols;
+
+  float m = -CUDART_INF_F, l = 0.f;
+  float acc[4 * CPT];
+#pragma unroll
+  for (int i = 0; i < 4 * CPT; ++i) acc[i] = 0.f;
+
+  for (int k0 = 0; k0 < seq_len; k0 += kBK) {
+    float s[kPT];
+#pragma unroll
+    for (int jj = 0; jj < kPT; ++jj) s[jj] = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      __syncthreads();  // the previous chunk (and tile) no longer read
+      stage_cols(Qs, q + base, q0, ch * kWideCols, seq_len, head_dim,
+                 scale_log2);
+      stage_cols(Ks, k + base, k0, ch * kWideCols, seq_len, head_dim, 1.f);
+      if (ch == 0)
+        stage_cols(Vs, v + base, k0, c0, seq_len, head_dim, 1.f);
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < kWideCols; c += 4) {
+        const float4 qv = *reinterpret_cast<const float4*>(Qs + r * LD + c);
+#pragma unroll
+        for (int jj = 0; jj < kPT; ++jj) {
+          const float4 kv = *reinterpret_cast<const float4*>(
+              Ks + (t + kTPR * jj) * LD + c);
+          s[jj] += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
+        }
+      }
+    }
+    float tile_max = -CUDART_INF_F;
+#pragma unroll
+    for (int jj = 0; jj < kPT; ++jj) {
+      if (k0 + t + kTPR * jj >= seq_len) s[jj] = -CUDART_INF_F;
+      tile_max = fmaxf(tile_max, s[jj]);
+    }
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+    const float m_new = fmaxf(m, tile_max);
+    const float alpha = exp2f(m - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kPT; ++jj) {
+      const float p = exp2f(s[jj] - m_new);
+      Ps[r * kLDP + t + kTPR * jj] = p;
+      psum += p;
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    l = l * alpha + psum;
+    m = m_new;
+#pragma unroll
+    for (int i = 0; i < 4 * CPT; ++i) acc[i] *= alpha;
+    __syncwarp();  // the row's four threads wrote its P entries
+
+#pragma unroll 2
+    for (int j = 0; j < kBK; j += 4) {
+      const float4 pv = *reinterpret_cast<const float4*>(Ps + r * kLDP + j);
+      const float pj[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* vrow = Vs + (j + u) * LD;
+#pragma unroll
+        for (int cq = 0; cq < CPT; ++cq) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(vrow + 4 * (t + kTPR * cq));
+          acc[4 * cq + 0] += pj[u] * vv.x;
+          acc[4 * cq + 1] += pj[u] * vv.y;
+          acc[4 * cq + 2] += pj[u] * vv.z;
+          acc[4 * cq + 3] += pj[u] * vv.w;
+        }
+      }
+    }
+    __syncwarp();  // P row read before the next tile overwrites it
+  }
+
+  const int qi = q0 + r;
+  if (qi < seq_len) {
+    const float inv_l = 1.f / l;
+    const size_t row = base + (size_t)qi * head_dim;
+#pragma unroll
+    for (int cq = 0; cq < CPT; ++cq) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 4 * (t + kTPR * cq) + e;
+        if (c < head_dim) o[row + c] = acc[4 * cq + e] * inv_l;
+      }
+    }
+    if (t == 0 && blockIdx.z == 0)
+      lse[(size_t)blockIdx.y * seq_len + qi] =
+          (m + log2f(l)) * 0.69314718055994531f;
+  }
+}
+
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int bh, int seq_len, int head_dim,
+                        float scale_log2, int dtype, cudaStream_t stream) {
+  cudaError_t err;
+  if (dtype == 1) {
+    auto* kernel = rows_aligned(head_dim, {q, k, v})
+                       ? flash_fwd_wide_mma_kernel<true>
+                       : flash_fwd_wide_mma_kernel<false>;
+    const int smem = (kMmaRows + 2 * kWideKeys) * kMmaLd<kWideCols> *
+                     (int)sizeof(__nv_bfloat16);
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((seq_len + kMmaRows - 1) / kMmaRows, bh,
+                    wide_chunks(head_dim));
+    kernel<<<grid, kMmaThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+        static_cast<float*>(lse), seq_len, head_dim, scale_log2);
+  } else if (dtype == 0) {
+    const int smem =
+        ((kBQ + 2 * kBK) * kWideLdF + kBQ * kLDP) * (int)sizeof(float);
+    err = cudaFuncSetAttribute(flash_fwd_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((seq_len + kBQ - 1) / kBQ, bh, wide_chunks(head_dim));
+    flash_fwd_wide_kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o),
+        static_cast<float*>(lse), seq_len, head_dim, scale_log2);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int seq_len, int head_dim,
@@ -389,11 +694,16 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // dtype codes: 0 = float32 (FP32 kernel), 1 = bfloat16 (tensor-core
 // kernel); q, k, v and o share it; lse is f32 [bh, seq_len].
-// head_dim <= 128, bh <= 65535. Returns a cudaError_t.
+// Any head_dim (above 128: the wide kernels), bh <= 65535. Returns a
+// cudaError_t.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int bh, int seq_len,
                                 int head_dim, float scale_log2, int dtype,
                                 void* stream) {
+  if (head_dim > 128)
+    return (int)launch_wide(q, k, v, o, lse, bh, seq_len, head_dim,
+                            scale_log2, dtype,
+                            static_cast<cudaStream_t>(stream));
   return (int)dispatch(dtype, head_dim, [&](auto type, auto dim) {
     using T = typename decltype(type)::type;
     constexpr int D = decltype(dim)::value;

@@ -57,7 +57,9 @@
 //
 // Ragged T is masked in the kernels: rows past T are loaded as zeros, get
 // P = 0 or add 0, and are never stored. Head dims below the template's D
-// are zero-padded in shared memory only.
+// are zero-padded in shared memory only. Head dims above 128 go to the
+// wide kernels (flash_dq_wide_*, flash_dkv_wide_*), which stage d in
+// 128-column chunks (flash_common.cuh) and take any head_dim.
 //
 // f32 tile constants and dispatch: flash_common.cuh, shared with K4;
 // tensor-core pieces: flash_mma.cuh. Plain C interface, built with
@@ -731,6 +733,597 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- head dims above 128 (flash_common.cuh: any head_dim) -------------
+
+// K5 in bf16, wide: one block per (bh, tile of kMmaRows query rows,
+// kWideCols-column chunk c0 of dQ). Per tile of kWideKeys keys, S = Q K^T
+// and dP = dO V^T are summed over staged kWideCols-column chunks of Q, dO,
+// K and V (the A fragments read from shared memory); P and dS as in K5;
+// then K's chunk c0 is staged and dQ's chunk += bf16(dS) K[:, c0:].
+template <bool kAsync>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dq_wide_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq, int seq_len,
+                             int head_dim, float scale) {
+  constexpr int LD = kMmaLd<kWideCols>;
+  constexpr int BK = kWideKeys;
+  constexpr int KT = kWideCols / 16;
+  constexpr int NT = kWideCols / 8;
+  constexpr int ST = BK / 8;
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+  __nv_bfloat16* dOs = Qs + kMmaRows * LD;
+  __nv_bfloat16* Ks = dOs + kMmaRows * LD;  // [BK][LD]
+  __nv_bfloat16* Vs = Ks + BK * LD;         // [BK][LD]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * kMmaRows, c0 = blockIdx.z * kWideCols;
+  const size_t bh = blockIdx.y;
+  const size_t base = bh * seq_len * head_dim;
+  const int ntiles = (seq_len + BK - 1) / BK;
+  const int nch = (head_dim + kWideCols - 1) / kWideCols;
+  const float scale_log2 = scale * kLog2e;
+  const int aoff = warp * 16 * LD + a_frag_offset(lane, LD);
+
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + lane / 4 + 8 * r;
+    l2[r] = qi < seq_len ? lse[bh * seq_len + qi] * kLog2e : 0.f;
+    dl[r] = qi < seq_len ? delta[bh * seq_len + qi] : 0.f;
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * BK;
+    float s[ST][4], dp[ST][4];
+#pragma unroll
+    for (int n = 0; n < ST; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int cc = ch * kWideCols;
+      __syncthreads();  // the previous chunk (and tile) no longer read
+      load_block<kMmaRows, kWideCols, kAsync>(Qs, q + base, q0, cc, seq_len,
+                                              head_dim);
+      load_block<kMmaRows, kWideCols, kAsync>(dOs, dout + base, q0, cc,
+                                              seq_len, head_dim);
+      load_block<BK, kWideCols, kAsync>(Ks, k + base, k0, cc, seq_len,
+                                        head_dim);
+      load_block<BK, kWideCols, kAsync>(Vs, v + base, k0, cc, seq_len,
+                                        head_dim);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll
+      for (int ks = 0; ks < KT; ++ks) {
+        uint32_t qa[4], da[4];
+        ldmatrix_x4(qa, Qs + aoff + ks * 16);
+        ldmatrix_x4(da, dOs + aoff + ks * 16);
+#pragma unroll
+        for (int np = 0; np < ST / 2; ++np) {
+          const int off = np * 16 * LD + ks * 16 + b_frag_offset(lane, LD);
+          uint32_t b[4];
+          ldmatrix_x4(b, Ks + off);
+          mma_16816(s[2 * np], qa, b[0], b[1]);
+          mma_16816(s[2 * np + 1], qa, b[2], b[3]);
+          ldmatrix_x4(b, Vs + off);
+          mma_16816(dp[2 * np], da, b[0], b[1]);
+          mma_16816(dp[2 * np + 1], da, b[2], b[3]);
+        }
+      }
+    }
+    const bool ragged = k0 + BK > seq_len;
+#pragma unroll
+    for (int n = 0; n < ST; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = fast_exp2(fmaf(s[n][i], scale_log2, -l2[i / 2]));
+        if (ragged && k0 + n * 8 + (lane % 4) * 2 + (i % 2) >= seq_len)
+          p = 0.f;
+        dp[n][i] = p * (dp[n][i] - dl[i / 2]);
+      }
+    }
+    __syncthreads();  // K's last chunk no longer read
+    load_block<BK, kWideCols, kAsync>(Ks, k + base, k0, c0, seq_len,
+                                      head_dim);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < ST / 2; ++kk) {
+      uint32_t dsa[4];
+      a_from_c(dsa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, Ks + kk * 16 * LD + np * 16 + bt_frag_offset(lane, LD));
+        mma_16816(acc[2 * np], dsa, b[0], b[1]);
+        mma_16816(acc[2 * np + 1], dsa, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + lane / 4 + 8 * r;
+    if (qi >= seq_len) continue;
+    const size_t row = base + (size_t)qi * head_dim;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + n * 8 + (lane % 4) * 2 + e;
+        if (c < head_dim)
+          dq[row + c] = __float2bfloat16(acc[n][2 * r + e] * scale);
+      }
+    }
+  }
+}
+
+// K6 in bf16, wide: one block per (bh, tile of kMmaRows key rows,
+// kWideCols-column chunk c0 of dK and dV). Per tile of kWideKeys queries,
+// S^T = K Q^T and dP^T = V dO^T are summed over staged chunks of K, V, Q
+// and dO; P^T and dS^T as in K6; then Q's and dO's chunk c0 are staged and
+// dV's chunk += bf16(P^T) dO[:, c0:], dK's chunk += bf16(dS^T) Q[:, c0:].
+template <bool kAsync>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dkv_wide_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, int seq_len,
+                              int head_dim, float scale) {
+  constexpr int LD = kMmaLd<kWideCols>;
+  constexpr int BQ = kWideKeys;
+  constexpr int KT = kWideCols / 16;
+  constexpr int NT = kWideCols / 8;
+  constexpr int ST = BQ / 8;
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+  __nv_bfloat16* Vs = Ks + kMmaRows * LD;
+  __nv_bfloat16* Qs = Vs + kMmaRows * LD;  // [BQ][LD]
+  __nv_bfloat16* dOs = Qs + BQ * LD;       // [BQ][LD]
+  float* Ls = reinterpret_cast<float*>(dOs + BQ * LD);  // [BQ]
+  float* Ds = Ls + BQ;                                  // [BQ]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = blockIdx.x * kMmaRows, c0 = blockIdx.z * kWideCols;
+  const size_t bh = blockIdx.y;
+  const size_t base = bh * seq_len * head_dim;
+  const int ntiles = (seq_len + BQ - 1) / BQ;
+  const int nch = (head_dim + kWideCols - 1) / kWideCols;
+  const float scale_log2 = scale * kLog2e;
+  const int aoff = warp * 16 * LD + a_frag_offset(lane, LD);
+
+  float dk_acc[NT][4], dv_acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int r0 = t * BQ;
+    float s[ST][4], dp[ST][4];
+#pragma unroll
+    for (int n = 0; n < ST; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int cc = ch * kWideCols;
+      __syncthreads();  // the previous chunk (and tile) no longer read
+      load_block<kMmaRows, kWideCols, kAsync>(Ks, k + base, k0, cc, seq_len,
+                                              head_dim);
+      load_block<kMmaRows, kWideCols, kAsync>(Vs, v + base, k0, cc, seq_len,
+                                              head_dim);
+      load_block<BQ, kWideCols, kAsync>(Qs, q + base, r0, cc, seq_len,
+                                        head_dim);
+      load_block<BQ, kWideCols, kAsync>(dOs, dout + base, r0, cc, seq_len,
+                                        head_dim);
+      if (ch == 0) {
+        for (int i = threadIdx.x; i < 2 * BQ; i += kMmaThreads) {
+          const int qi = r0 + i % BQ;
+          const bool valid = qi < seq_len;
+          const float* src = i < BQ ? lse : delta;
+          cp_async_4((i < BQ ? Ls : Ds) + i % BQ,
+                     src + (valid ? bh * seq_len + qi : 0), valid);
+        }
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll
+      for (int ks = 0; ks < KT; ++ks) {
+        uint32_t ka[4], va[4];
+        ldmatrix_x4(ka, Ks + aoff + ks * 16);
+        ldmatrix_x4(va, Vs + aoff + ks * 16);
+#pragma unroll
+        for (int np = 0; np < ST / 2; ++np) {
+          const int off = np * 16 * LD + ks * 16 + b_frag_offset(lane, LD);
+          uint32_t b[4];
+          ldmatrix_x4(b, Qs + off);
+          mma_16816(s[2 * np], ka, b[0], b[1]);
+          mma_16816(s[2 * np + 1], ka, b[2], b[3]);
+          ldmatrix_x4(b, dOs + off);
+          mma_16816(dp[2 * np], va, b[0], b[1]);
+          mma_16816(dp[2 * np + 1], va, b[2], b[3]);
+        }
+      }
+    }
+    // P^T in place of S^T, dS^T in place of dP^T; columns (queries)
+    // n * 8 + 2 (lane % 4) + {0, 1}. Padded queries have lse = delta = 0
+    // and zero rows, so they add exactly 0.
+#pragma unroll
+    for (int n = 0; n < ST; ++n) {
+      const int c = n * 8 + (lane % 4) * 2;
+      const float l0 = Ls[c] * kLog2e, l1 = Ls[c + 1] * kLog2e;
+      const float d0 = Ds[c], d1 = Ds[c + 1];
+      s[n][0] = fast_exp2(fmaf(s[n][0], scale_log2, -l0));
+      s[n][1] = fast_exp2(fmaf(s[n][1], scale_log2, -l1));
+      s[n][2] = fast_exp2(fmaf(s[n][2], scale_log2, -l0));
+      s[n][3] = fast_exp2(fmaf(s[n][3], scale_log2, -l1));
+      dp[n][0] = s[n][0] * (dp[n][0] - d0);
+      dp[n][1] = s[n][1] * (dp[n][1] - d1);
+      dp[n][2] = s[n][2] * (dp[n][2] - d0);
+      dp[n][3] = s[n][3] * (dp[n][3] - d1);
+    }
+    __syncthreads();  // the last chunk's Q and dO no longer read
+    load_block<BQ, kWideCols, kAsync>(Qs, q + base, r0, c0, seq_len,
+                                      head_dim);
+    load_block<BQ, kWideCols, kAsync>(dOs, dout + base, r0, c0, seq_len,
+                                      head_dim);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < ST / 2; ++kk) {
+      uint32_t pa[4], da[4];
+      a_from_c(pa, s[2 * kk], s[2 * kk + 1]);
+      a_from_c(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        const int off = kk * 16 * LD + np * 16 + bt_frag_offset(lane, LD);
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, dOs + off);
+        mma_16816(dv_acc[2 * np], pa, b[0], b[1]);
+        mma_16816(dv_acc[2 * np + 1], pa, b[2], b[3]);
+        ldmatrix_x4_trans(b, Qs + off);
+        mma_16816(dk_acc[2 * np], da, b[0], b[1]);
+        mma_16816(dk_acc[2 * np + 1], da, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = k0 + warp * 16 + lane / 4 + 8 * r;
+    if (kj >= seq_len) continue;
+    const size_t row = base + (size_t)kj * head_dim;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + n * 8 + (lane % 4) * 2 + e;
+        if (c < head_dim) {
+          dk[row + c] = __float2bfloat16(dk_acc[n][2 * r + e] * scale);
+          dv[row + c] = __float2bfloat16(dv_acc[n][2 * r + e]);
+        }
+      }
+    }
+  }
+}
+
+// K5 in f32, wide: flash_dq_kernel's layout with S and dP summed over
+// staged kWideCols-column chunks, then K's chunk c0 staged for dQ's.
+__global__ void __launch_bounds__(kThreads)
+    flash_dq_wide_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, int seq_len, int head_dim,
+                         float scale) {
+  constexpr int LD = kWideLdF;
+  constexpr int CPT = kWideCols / (4 * kTPR);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* Qs = smem;              // [kBQ][LD], times log2(e) * scale
+  float* dOs = Qs + kBQ * LD;    // [kBQ][LD]
+  float* Ks = dOs + kBQ * LD;    // [kBK][LD]
+  float* Vs = Ks + kBK * LD;     // [kBK][LD]
+  float* dSs = Vs + kBK * LD;    // [kBQ][kLDP]
+
+  const int tid = threadIdx.x;
+  const int r = tid / kTPR, t = tid % kTPR;
+  const int q0 = blockIdx.x * kBQ, qi = q0 + r, c0 = blockIdx.z * kWideCols;
+  const size_t bh = blockIdx.y;
+  const size_t base = bh * seq_len * head_dim;
+  const int nch = (head_dim + kWideCols - 1) / kWideCols;
+  const float lse2 = qi < seq_len ? lse[bh * seq_len + qi] * kLog2e : 0.f;
+  const float dl = qi < seq_len ? delta[bh * seq_len + qi] : 0.f;
+
+  float acc[4 * CPT];
+#pragma unroll
+  for (int i = 0; i < 4 * CPT; ++i) acc[i] = 0.f;
+
+  for (int k0 = 0; k0 < seq_len; k0 += kBK) {
+    float s[kPT], dp[kPT];
+#pragma unroll
+    for (int jj = 0; jj < kPT; ++jj) s[jj] = dp[jj] = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int cc = ch * kWideCols;
+      __syncthreads();  // the previous chunk (and tile) no longer read
+      stage_cols(Qs, q + base, q0, cc, seq_len, head_dim, kLog2e * scale);
+      stage_cols(dOs, dout + base, q0, cc, seq_len, head_dim, 1.f);
+      stage_cols(Ks, k + base, k0, cc, seq_len, head_dim, 1.f);
+      stage_cols(Vs, v + base, k0, cc, seq_len, head_dim, 1.f);
+      __syncthreads();
+#pragma unroll 2
+      for (int c = 0; c < kWideCols; c += 4) {
+        const float4 qv = *reinterpret_cast<const float4*>(Qs + r * LD + c);
+        const float4 ov = *reinterpret_cast<const float4*>(dOs + r * LD + c);
+#pragma unroll
+        for (int jj = 0; jj < kPT; ++jj) {
+          const int j = t + kTPR * jj;
+          const float4 kv = *reinterpret_cast<const float4*>(Ks + j * LD + c);
+          const float4 vv = *reinterpret_cast<const float4*>(Vs + j * LD + c);
+          s[jj] += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
+          dp[jj] += ov.x * vv.x + ov.y * vv.y + ov.z * vv.z + ov.w * vv.w;
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kPT; ++jj) {
+      const int j = t + kTPR * jj;
+      const float p = k0 + j < seq_len ? exp2f(s[jj] - lse2) : 0.f;
+      dSs[r * kLDP + j] = p * (dp[jj] - dl);
+    }
+    __syncthreads();  // K's last chunk no longer read; dS written
+    stage_cols(Ks, k + base, k0, c0, seq_len, head_dim, 1.f);
+    __syncthreads();
+
+#pragma unroll 2
+    for (int j = 0; j < kBK; j += 4) {
+      const float4 sv = *reinterpret_cast<const float4*>(dSs + r * kLDP + j);
+      const float sj[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* krow = Ks + (j + u) * LD;
+#pragma unroll
+        for (int cq = 0; cq < CPT; ++cq) {
+          const float4 kv =
+              *reinterpret_cast<const float4*>(krow + 4 * (t + kTPR * cq));
+          acc[4 * cq + 0] += sj[u] * kv.x;
+          acc[4 * cq + 1] += sj[u] * kv.y;
+          acc[4 * cq + 2] += sj[u] * kv.z;
+          acc[4 * cq + 3] += sj[u] * kv.w;
+        }
+      }
+    }
+  }
+
+  if (qi < seq_len) {
+    const size_t row = base + (size_t)qi * head_dim;
+#pragma unroll
+    for (int cq = 0; cq < CPT; ++cq) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 4 * (t + kTPR * cq) + e;
+        if (c < head_dim) dq[row + c] = acc[4 * cq + e] * scale;
+      }
+    }
+  }
+}
+
+// K6 in f32, wide: flash_dkv_kernel's layout with S^T and dP^T summed over
+// staged kWideCols-column chunks, then Q's and dO's chunk c0 staged for
+// dK's and dV's.
+__global__ void __launch_bounds__(kThreads)
+    flash_dkv_wide_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int seq_len, int head_dim, float scale) {
+  constexpr int LD = kWideLdF;
+  constexpr int CPT = kWideCols / (4 * kTPR);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* Ks = smem;              // [kBK][LD], times log2(e) * scale
+  float* Vs = Ks + kBK * LD;     // [kBK][LD]
+  float* Qs = Vs + kBK * LD;     // [kBQ][LD]
+  float* dOs = Qs + kBQ * LD;    // [kBQ][LD]
+  float* Ps = dOs + kBQ * LD;    // [kBK][kLDP]: P[i][key r] at Ps[r][i]
+  float* dSs = Ps + kBK * kLDP;  // [kBK][kLDP]
+  float* lse2s = dSs + kBK * kLDP;  // [kBQ], lse * log2(e)
+  float* dls = lse2s + kBQ;         // [kBQ]
+
+  const int tid = threadIdx.x;
+  const int r = tid / kTPR, t = tid % kTPR;
+  const int k0 = blockIdx.x * kBK, kj = k0 + r, c0 = blockIdx.z * kWideCols;
+  const size_t bh = blockIdx.y;
+  const size_t base = bh * seq_len * head_dim;
+  const int nch = (head_dim + kWideCols - 1) / kWideCols;
+
+  float dk_acc[4 * CPT], dv_acc[4 * CPT];
+#pragma unroll
+  for (int i = 0; i < 4 * CPT; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int q0 = 0; q0 < seq_len; q0 += kBQ) {
+    float s[kPT], dp[kPT];
+#pragma unroll
+    for (int ii = 0; ii < kPT; ++ii) s[ii] = dp[ii] = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int cc = ch * kWideCols;
+      __syncthreads();  // the previous chunk (and tile) no longer read
+      stage_cols(Ks, k + base, k0, cc, seq_len, head_dim, kLog2e * scale);
+      stage_cols(Vs, v + base, k0, cc, seq_len, head_dim, 1.f);
+      stage_cols(Qs, q + base, q0, cc, seq_len, head_dim, 1.f);
+      stage_cols(dOs, dout + base, q0, cc, seq_len, head_dim, 1.f);
+      if (ch == 0 && tid < kBQ) {
+        const int qi = q0 + tid;
+        lse2s[tid] = qi < seq_len ? lse[bh * seq_len + qi] * kLog2e : 0.f;
+        dls[tid] = qi < seq_len ? delta[bh * seq_len + qi] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 2
+      for (int c = 0; c < kWideCols; c += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(Ks + r * LD + c);
+        const float4 vv = *reinterpret_cast<const float4*>(Vs + r * LD + c);
+#pragma unroll
+        for (int ii = 0; ii < kPT; ++ii) {
+          const int i = t + kTPR * ii;
+          const float4 qv = *reinterpret_cast<const float4*>(Qs + i * LD + c);
+          const float4 ov = *reinterpret_cast<const float4*>(dOs + i * LD + c);
+          s[ii] += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
+          dp[ii] += ov.x * vv.x + ov.y * vv.y + ov.z * vv.z + ov.w * vv.w;
+        }
+      }
+    }
+#pragma unroll
+    for (int ii = 0; ii < kPT; ++ii) {
+      const int i = t + kTPR * ii;
+      const float p = q0 + i < seq_len ? exp2f(s[ii] - lse2s[i]) : 0.f;
+      Ps[r * kLDP + i] = p;
+      dSs[r * kLDP + i] = p * (dp[ii] - dls[i]);
+    }
+    __syncthreads();  // the last chunk's Q and dO no longer read
+    stage_cols(Qs, q + base, q0, c0, seq_len, head_dim, 1.f);
+    stage_cols(dOs, dout + base, q0, c0, seq_len, head_dim, 1.f);
+    __syncthreads();
+
+#pragma unroll 2
+    for (int i = 0; i < kBQ; i += 4) {
+      const float4 pv = *reinterpret_cast<const float4*>(Ps + r * kLDP + i);
+      const float4 sv = *reinterpret_cast<const float4*>(dSs + r * kLDP + i);
+      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
+      const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* orow = dOs + (i + u) * LD;
+        const float* qrow = Qs + (i + u) * LD;
+#pragma unroll
+        for (int cq = 0; cq < CPT; ++cq) {
+          const int col = 4 * (t + kTPR * cq);
+          const float4 ov = *reinterpret_cast<const float4*>(orow + col);
+          const float4 qv = *reinterpret_cast<const float4*>(qrow + col);
+          dv_acc[4 * cq + 0] += pa[u] * ov.x;
+          dv_acc[4 * cq + 1] += pa[u] * ov.y;
+          dv_acc[4 * cq + 2] += pa[u] * ov.z;
+          dv_acc[4 * cq + 3] += pa[u] * ov.w;
+          dk_acc[4 * cq + 0] += sa[u] * qv.x;
+          dk_acc[4 * cq + 1] += sa[u] * qv.y;
+          dk_acc[4 * cq + 2] += sa[u] * qv.z;
+          dk_acc[4 * cq + 3] += sa[u] * qv.w;
+        }
+      }
+    }
+  }
+
+  if (kj < seq_len) {
+    const size_t row = base + (size_t)kj * head_dim;
+#pragma unroll
+    for (int cq = 0; cq < CPT; ++cq) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 4 * (t + kTPR * cq) + e;
+        if (c < head_dim) {
+          dk[row + c] = dk_acc[4 * cq + e] * scale;
+          dv[row + c] = dv_acc[4 * cq + e];
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch_wide(int which, const void* q, const void* k,
+                        const void* v, const void* dout, const void* lse,
+                        const void* delta, void* out0, void* out1, int bh,
+                        int seq_len, int head_dim, float scale, int dtype,
+                        cudaStream_t stream) {
+  const int nch = wide_chunks(head_dim);
+  const float* lse_ = static_cast<const float*>(lse);
+  const float* delta_ = static_cast<const float*>(delta);
+  cudaError_t err;
+  if (dtype == 1) {
+    using bf = __nv_bfloat16;
+    const bf* q_ = static_cast<const bf*>(q);
+    const bf* k_ = static_cast<const bf*>(k);
+    const bf* v_ = static_cast<const bf*>(v);
+    const bf* do_ = static_cast<const bf*>(dout);
+    const bool aligned = rows_aligned(head_dim, {q, k, v, dout});
+    const dim3 grid((seq_len + kMmaRows - 1) / kMmaRows, bh, nch);
+    const int smem = (2 * kMmaRows + 2 * kWideKeys) * kMmaLd<kWideCols> *
+                         (int)sizeof(bf) +
+                     (which == 0 ? 0 : 2 * kWideKeys * (int)sizeof(float));
+    if (which == 0) {
+      auto* kernel = aligned ? flash_dq_wide_mma_kernel<true>
+                             : flash_dq_wide_mma_kernel<false>;
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kMmaThreads, smem, stream>>>(
+          q_, k_, v_, do_, lse_, delta_, static_cast<bf*>(out0), seq_len,
+          head_dim, scale);
+    } else {
+      auto* kernel = aligned ? flash_dkv_wide_mma_kernel<true>
+                             : flash_dkv_wide_mma_kernel<false>;
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kMmaThreads, smem, stream>>>(
+          q_, k_, v_, do_, lse_, delta_, static_cast<bf*>(out0),
+          static_cast<bf*>(out1), seq_len, head_dim, scale);
+    }
+  } else if (dtype == 0) {
+    const float* q_ = static_cast<const float*>(q);
+    const float* k_ = static_cast<const float*>(k);
+    const float* v_ = static_cast<const float*>(v);
+    const float* do_ = static_cast<const float*>(dout);
+    const dim3 grid((seq_len + kBQ - 1) / kBQ, bh, nch);
+    if (which == 0) {
+      const int smem =
+          ((2 * kBQ + 2 * kBK) * kWideLdF + kBQ * kLDP) * (int)sizeof(float);
+      err = cudaFuncSetAttribute(flash_dq_wide_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return err;
+      flash_dq_wide_kernel<<<grid, kThreads, smem, stream>>>(
+          q_, k_, v_, do_, lse_, delta_, static_cast<float*>(out0), seq_len,
+          head_dim, scale);
+    } else {
+      const int smem = ((2 * kBK + 2 * kBQ) * kWideLdF + 2 * kBK * kLDP +
+                        2 * kBQ) *
+                       (int)sizeof(float);
+      err = cudaFuncSetAttribute(flash_dkv_wide_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return err;
+      flash_dkv_wide_kernel<<<grid, kThreads, smem, stream>>>(
+          q_, k_, v_, do_, lse_, delta_, static_cast<float*>(out0),
+          static_cast<float*>(out1), seq_len, head_dim, scale);
+    }
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 // which = 0 launches K5 (out0 = dq), which = 1 launches K6 (out0 = dk,
 // out1 = dv): the tensor-core kernels in bf16, the FP32 ones in f32.
 template <typename T, int D>
@@ -780,6 +1373,10 @@ cudaError_t launch_any(int which, const void* q, const void* k,
                        const void* delta, void* out0, void* out1, int bh,
                        int seq_len, int head_dim, float scale, int dtype,
                        void* stream) {
+  if (head_dim > 128)
+    return launch_wide(which, q, k, v, dout, lse, delta, out0, out1, bh,
+                       seq_len, head_dim, scale, dtype,
+                       static_cast<cudaStream_t>(stream));
   return dispatch(dtype, head_dim, [&](auto type, auto dim) {
     return launch<typename decltype(type)::type, decltype(dim)::value>(
         which, q, k, v, dout, lse, delta, out0, out1, bh, seq_len, head_dim,
@@ -791,8 +1388,8 @@ cudaError_t launch_any(int which, const void* q, const void* k,
 
 // dtype codes: 0 = float32, 1 = bfloat16 (the tensor cores); q, k,
 // v, dout and the outputs share it; lse and delta are f32 [bh, seq_len].
-// head_dim <= 128, bh <= 65535, scale = 1 / sqrt(head_dim). Each returns
-// a cudaError_t.
+// Any head_dim (above 128: the wide kernels), bh <= 65535, scale =
+// 1 / sqrt(head_dim). Each returns a cudaError_t.
 extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, int bh,

@@ -9,7 +9,8 @@
 // double-buffered ring in shared memory filled by 16-byte cp.async copies.
 // Shared tiles are bf16 [rows][D + 8]: the 16-byte pad puts the eight rows
 // that one ldmatrix phase reads in eight distinct groups of four banks, for
-// every D of 16, 32, 64 and 128.
+// every D of 16, 32, 64 and 128 (and the 128-column chunks of the wide
+// kernels, flash_common.cuh).
 //
 // The tile choices are macros with the committed values as defaults, so a
 // variant builds with an nvcc -D flag (scripts/torch_flash_variants.py):
@@ -178,20 +179,22 @@ __device__ __forceinline__ void a_from_c(uint32_t (&a)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// Stage rows [r0, r0 + ROWS) of src [seq_len, head_dim] (bf16, row-major)
-// into dst [ROWS][D + 8]; rows past seq_len and columns past head_dim are
-// zero. kAsync: 16-byte cp.async copies, for rows that are 16-byte aligned
-// (head_dim % 8 == 0, aligned base); otherwise element loads and one
-// 16-byte shared store per chunk, finished when the call returns.
-template <int ROWS, int D, bool kAsync>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* __restrict__ src,
-                                          int r0, int seq_len,
-                                          int head_dim) {
-  constexpr int kChunks = D / 8;
+// Stage rows [r0, r0 + ROWS) and columns [c0, c0 + COLS) of src
+// [seq_len, head_dim] (bf16, row-major) into dst [ROWS][COLS + 8]; rows
+// past seq_len and columns past head_dim are zero. kAsync: 16-byte cp.async
+// copies, for rows that are 16-byte aligned (head_dim % 8 == 0, aligned
+// base, c0 % 8 == 0); otherwise element loads and one 16-byte shared store
+// per chunk, finished when the call returns.
+template <int ROWS, int COLS, bool kAsync>
+__device__ __forceinline__ void load_block(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* __restrict__ src,
+                                           int r0, int c0, int seq_len,
+                                           int head_dim) {
+  constexpr int kChunks = COLS / 8;
   for (int i = threadIdx.x; i < ROWS * kChunks; i += kMmaThreads) {
-    const int rr = i / kChunks, c = (i % kChunks) * 8, row = r0 + rr;
-    __nv_bfloat16* out = dst + rr * kMmaLd<D> + c;
+    const int rr = i / kChunks, cl = (i % kChunks) * 8, row = r0 + rr;
+    const int c = c0 + cl;
+    __nv_bfloat16* out = dst + rr * kMmaLd<COLS> + cl;
     if constexpr (kAsync) {
       const bool valid = row < seq_len && c < head_dim;
       cp_async_16(out, valid ? src + (size_t)row * head_dim + c : src, valid);
@@ -209,6 +212,15 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
       *reinterpret_cast<uint4*>(out) = make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
+}
+
+// All of a row's head_dim columns, padded to D: dst [ROWS][D + 8].
+template <int ROWS, int D, bool kAsync>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* __restrict__ src,
+                                          int r0, int seq_len,
+                                          int head_dim) {
+  load_block<ROWS, D, kAsync>(dst, src, r0, 0, seq_len, head_dim);
 }
 
 }  // namespace

@@ -57,6 +57,17 @@ in ``csrc/flash_mma.cuh``, the f32 tile layout and dispatch in
   and are never stored; K4's keys past T score −inf) with no padding
   copies, and take head dims up to 128 by zero-padding in shared memory to
   the next of 16, 32, 64, 128. Each wrapper call is one kernel launch.
+- Head dims above 128 (ADM's single 256-channel head, any d the JAX
+  kernel takes): the wide kernels, one per K4, K5, K6 and dtype, in the
+  same sources. A block owns one 128-column chunk of the output (grid z)
+  and sums S = Q Kᵀ (and dP = dO Vᵀ) over 128-column chunks of d staged
+  one at a time in shared memory, so neither shared memory nor registers
+  grow with d; bf16 on the tensor cores with 32-row tiles of the other
+  side and the A fragments read from shared memory, f32 on the FP32
+  pipes in the layout above. Each chunk's block recomputes its rows'
+  scores, so the score work is ⌈d/128⌉ times the minimum: a simple kernel
+  that is right, not yet a fast one. The bf16 roundings are the same (P
+  before P·V and dV, dS before dQ and dK).
 """
 
 from __future__ import annotations
@@ -73,7 +84,6 @@ from diffsci_tpu_torch.kernels import _build
 # take the same path for the same shapes. Below it, attention is the plain
 # PyTorch ``dot_product_attention``.
 MIN_TOKENS = 2048
-MAX_HEAD_DIM = 128
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SIGNATURES = {"flash_fwd_launch": (ctypes.c_int, [
@@ -105,7 +115,7 @@ def flash_attention_plain(q, k, v):
 
 def _check(what, q, *others):
     """The kernels' contract: one CUDA device, one [B, H, T, d] shape with
-    d ≤ 128 and B·H ≤ 65535, float32 or bfloat16, contiguous."""
+    B·H ≤ 65535 (any d), float32 or bfloat16, contiguous."""
     tensors = (q,) + others
     if q.device.type != "cuda" or any(t.device != q.device
                                        for t in others):
@@ -114,9 +124,9 @@ def _check(what, q, *others):
         raise ValueError(f"{what}: inputs must share one [B, H, T, d] "
                          f"shape, got {[tuple(t.shape) for t in tensors]}")
     B, H, T, d = q.shape
-    if d > MAX_HEAD_DIM or B * H > 65535:
-        raise ValueError(f"{what}: head dim {d} (max {MAX_HEAD_DIM}) or "
-                         f"B*H {B * H} (max 65535) out of range")
+    if B * H > 65535:
+        raise ValueError(f"{what}: B*H {B * H} exceeds the kernels' grid "
+                         "limit of 65535")
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in others):
         raise TypeError(f"{what}: dtypes {[t.dtype for t in tensors]}; one "
                         "of float32 or bfloat16")

@@ -525,8 +525,10 @@ def create_train_state(model, x_shape, seed: int | None = 0,
     # a latent model's network sees the autoencoder's latents
     shape = model.latent_shape(x_shape) if getattr(
         model, "latent_model", False) else tuple(x_shape)
-    # PUNetGCond's input_channels count its concatenated conditions too
-    if net_cfg is not None and (
+    # PUNetGCond's input_channels count its concatenated conditions too;
+    # configs without these fields (ConVit's) are not checked
+    if hasattr(net_cfg, "dimension") and hasattr(
+            net_cfg, "input_channels") and (
             len(shape) != net_cfg.dimension + 2 or not (
                 getattr(net, "channel_conditional_items", ())
                 or shape[-1] == net_cfg.input_channels)):

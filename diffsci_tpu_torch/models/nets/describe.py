@@ -6,11 +6,10 @@ Port of ``diffsci_tpu/models/nets/describe.py``. Each net family exports
 so a description written by either package rebuilds in the other;
 ``net_from_description`` rebuilds it from whitelisted constructors only.
 Descriptions written before ``kind`` existed carry a PUNetG config dict
-and no ``kind`` key; they rebuild as PUNetG.
-
-The kinds of the JAX package that the port has no network for yet
-(``dit``, ``moe_dit``, ``convit``, ``adm``) raise a ``ValueError`` that
-says so.
+and no ``kind`` key; they rebuild as PUNetG. Every kind of the JAX
+package rebuilds here: ``punetg``, ``punetg_cond``, ``hfnet``,
+``hfnet_cond``, ``unet2d``, ``mlp``, ``mlp_cond``, ``dit``, ``moe_dit``,
+``convit`` and ``adm``.
 """
 
 from __future__ import annotations
@@ -23,7 +22,6 @@ __all__ = ["plain_module_description", "net_from_description",
 
 # kind -> builder(config_kwargs, conditional_embedding, device) -> nn.Module
 NET_KINDS: dict[str, Callable[..., Any]] = {}
-NOT_PORTED = ("dit", "moe_dit", "convit", "adm")
 
 
 def register_net_kind(kind: str):
@@ -93,6 +91,34 @@ _builder("mlp", _mlp("MLPUncond"), tuples=("hidden_dims",))
 _builder("mlp_cond", _mlp("MLPCond"), tuples=("hidden_dims",))
 
 
+def _dit():
+    from diffsci_tpu_torch.models.nets.dit import DiffusionTransformer
+    return DiffusionTransformer
+
+
+def _moe_dit():
+    from diffsci_tpu_torch.models.nets.moe import MoEDiffusionTransformer
+    return MoEDiffusionTransformer
+
+
+_builder("dit", _dit)
+_builder("moe_dit", _moe_dit)
+
+
+@register_net_kind("convit")
+def _build_convit(config: dict, conditional_embedding=None, device=None):
+    from diffsci_tpu_torch.models.nets.convit import ConVit, ConVitConfig
+    return ConVit(ConVitConfig(**config),
+                  conditional_embedding=conditional_embedding, device=device)
+
+
+@register_net_kind("adm")
+def _build_adm(config: dict, conditional_embedding=None, device=None):
+    from diffsci_tpu_torch.models.nets.adm import ADM, ADMConfig
+    return ADM(ADMConfig.from_description(config),
+               conditional_embedding=conditional_embedding, device=device)
+
+
 @register_net_kind("punetg")
 def _build_punetg(config: dict, conditional_embedding=None, device=None):
     from diffsci_tpu_torch.models.nets.punetg import PUNetG, PUNetGConfig
@@ -135,8 +161,6 @@ def net_from_description(net_desc: dict, conditional_embedding=None,
         config = dict(config,
                       channel_conditional_items=net_desc[
                           "channel_conditional_items"])
-    if kind in NOT_PORTED:
-        raise ValueError(f"net kind {kind!r} is not ported yet")
     builder = NET_KINDS.get(kind)
     if builder is None:
         raise ValueError(

@@ -7,7 +7,8 @@ Port of ``diffsci_tpu/models/nets/layers.py``: ``conv_layer`` ('default',
 ``ConvolutionalFourierProjection``), the group norms (``GroupLNorm``,
 ``GroupRMSNorm``, ``GroupPixNorm``, the identity) with ``fuse_silu``,
 ``ResnetTimeBlock`` (plain or magnitude-preserving), ``ResnetBlockC``,
-``BatchDropout``, ``ConditionDrop`` and ``SwiGLU``. Module and parameter
+``BatchDropout``, ``ConditionDrop`` and ``SwiGLU``, and ``linear_resize``
+(``jax.image.resize``'s 'linear'). Module and parameter
 names are the original torch reference's (``gnorm1.weight``,
 ``timeblock.net.0.weight``, ...), so its state dicts load with
 ``load_state_dict(strict=True)``.
@@ -39,19 +40,24 @@ _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 def init_parameters(module: nn.Module, seed: int) -> None:
     """Re-draw every parameter and random buffer of ``module`` from
     ``seed``. The draws are made on the CPU and copied, so one seed gives
-    the same weights on every device. Convolutions and dense layers take
-    uniform(±1/√fan_in) (PyTorch's default bound), torch's GroupNorm and
-    LayerNorm ones and zeros (the JAX package's norm init); the port's own
-    layers their ``reset_parameters(generator)``."""
+    the same weights on every device. Convolutions (transposed too) and
+    dense layers take uniform(±1/√fan_in) (PyTorch's default bound),
+    torch's GroupNorm, LayerNorm, RMSNorm and BatchNorm ones and zeros (the
+    JAX package's norm init); the port's own layers their
+    ``reset_parameters(generator)``."""
     generator = torch.Generator().manual_seed(seed)
     for m in module.modules():
-        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear,
+                          nn.ConvTranspose1d, nn.ConvTranspose2d,
+                          nn.ConvTranspose3d)):
             uniform_fan_in_(m, generator)
-        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.reset_parameters()
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm, nn.RMSNorm)):
             # their reset_parameters() takes no generator
             if m.weight is not None:
                 nn.init.ones_(m.weight)
-            if m.bias is not None:
+            if getattr(m, "bias", None) is not None:
                 nn.init.zeros_(m.bias)
         elif hasattr(m, "reset_parameters"):
             m.reset_parameters(generator)
@@ -66,6 +72,16 @@ def uniform_fan_in_(m: nn.Module, generator: torch.Generator) -> None:
         if p is not None:
             p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1)
                     * bound)
+
+
+def holder(**children) -> nn.Module:
+    """A module that only holds ``children`` under their names, so that a
+    torch reference's nesting (``encoder.layers.0.input_blocks.1``) keeps
+    its state-dict keys."""
+    module = nn.Module()
+    for name, child in children.items():
+        setattr(module, name, child)
+    return module
 
 
 def conv_layer(convolution_type: str, dimension: int, in_channels: int,
@@ -87,6 +103,31 @@ def conv_layer(convolution_type: str, dimension: int, in_channels: int,
         return MagnitudePreservingConv(dimension, in_channels, out_channels,
                                        kernel_size, use_bias)
     raise ValueError(f"Invalid convolution type: {convolution_type}")
+
+
+def linear_resize(x, size):
+    """[B, C, *spatial] resized to ``size`` as ``jax.image.resize(...,
+    method='linear')`` does: a triangle filter per axis on half-pixel
+    centres, widened by the inverse scale when downsampling (antialias),
+    its weights renormalized at the borders."""
+    for axis, (n_in, n_out) in enumerate(zip(x.shape[2:], size)):
+        if n_in == n_out:
+            continue
+        inv = n_in / n_out
+        kernel_scale = max(inv, 1.0)
+        sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+        dist = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[
+            :, None]).abs() / kernel_scale
+        w = (1.0 - dist).clamp_min(0.0)                   # [in, out]
+        total = w.sum(0, keepdim=True)
+        w = torch.where(total.abs() > 1000 * torch.finfo(torch.float32).eps,
+                        w / torch.where(total != 0, total, 1.0), 0.0)
+        inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+        w = torch.where(inside[None, :], w, 0.0)
+        x = torch.movedim(torch.tensordot(
+            x, w.to(x.dtype).to(x.device), dims=([axis + 2], [0])), -1,
+            axis + 2)
+    return x
 
 
 class CircularConv(nn.Module):

@@ -1,0 +1,167 @@
+"""Mixture-of-Experts FFN and MoE-DiT on [B, C, H, W].
+
+Port of ``diffsci_tpu/models/nets/moe.py``: ``MoEFeedForward`` (top-1
+routing with a fixed per-expert capacity), ``MoEDiTBlock``,
+``MoEDiffusionTransformer`` and ``moe_aux_loss``. The result is the JAX
+package's: the router in f32, top-1 by argmax (first of equal gates),
+capacity ``round_up(max(int(cf·S/E), 1), 8)`` slots an expert, slots
+given in the flattened (b, t) order by a cumulative sum, and tokens past
+capacity dropped (their FFN output is 0, so the block's residual carries
+them unchanged).
+
+The JAX package dispatches with a dense one-hot [S, E, C] tensor and
+einsums, which at DiT-B widths (S = 32768, E = 4, C = 16384) would hold
+2·10⁹ elements. Here each kept token is copied into its slot of an
+[E·C, d] buffer (``index_copy``; a dropped token goes to one spare row
+that is never read) and each token reads its expert's output row back
+(``index_select``): the same sums, since a slot holds one token. The
+experts' FFNs run on the whole [E, C, d] buffer as two batched matrix
+products, as the JAX einsums do.
+
+Where JAX sows ``moe_aux_loss`` and ``moe_dropped_fraction``, each
+``MoEFeedForward`` keeps them as the attributes ``aux_loss`` and
+``dropped_fraction`` (0-d f32 tensors of its last call, on its device);
+``moe_aux_loss(net)`` reads them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from diffsci_tpu_torch.models.nets.dit import DiffusionTransformer, DiTBlock
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+class MoEFeedForward(nn.Module):
+    """Top-1-routed expert FFN over tokens [B, T, d] -> [B, T, d]:
+    ``router`` [d, E], ``experts_w1`` [E, d, f], ``experts_b1`` [E, f],
+    ``experts_w2`` [E, f, d], ``experts_b2`` [E, d] with f =
+    mlp_factor·d (the JAX package's names and layouts)."""
+
+    def __init__(self, nembed: int, n_experts: int, mlp_factor: int = 4,
+                 capacity_factor: float = 2.0):
+        super().__init__()
+        d, E, f = nembed, n_experts, mlp_factor * nembed
+        self.n_experts = n_experts
+        self.capacity_factor = capacity_factor
+        self.router = nn.Parameter(torch.empty(d, E))
+        self.experts_w1 = nn.Parameter(torch.empty(E, d, f))
+        self.experts_b1 = nn.Parameter(torch.zeros(E, f))
+        self.experts_w2 = nn.Parameter(torch.empty(E, f, d))
+        self.experts_b2 = nn.Parameter(torch.zeros(E, d))
+        self.aux_loss = None
+        self.dropped_fraction = None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Weights from normal(0, 1/fan_in) over their input axis, biases
+        0."""
+        for w in (self.router, self.experts_w1, self.experts_w2):
+            w.copy_(torch.randn(w.shape, generator=generator)
+                    / math.sqrt(w.shape[-2]))
+        nn.init.zeros_(self.experts_b1)
+        nn.init.zeros_(self.experts_b2)
+
+    def capacity(self, tokens: int) -> int:
+        """Slots an expert for ``tokens`` (= B·T) tokens."""
+        return _round_up(max(int(self.capacity_factor * tokens
+                                 / self.n_experts), 1), 8)
+
+    def forward(self, x):
+        B, T, d = x.shape
+        E, S = self.n_experts, B * T
+        C = self.capacity(S)
+        tokens = x.reshape(S, d)
+        gates = torch.softmax(tokens.float() @ self.router.float(), dim=-1)
+        expert = torch.argmax(gates, dim=-1)                       # [S]
+        gate = gates.gather(1, expert[:, None])[:, 0]
+        sel = (expert[:, None] == torch.arange(E, device=x.device)).long()
+        # each token's place in its expert's queue, in (b, t) order
+        slot = torch.cumsum(sel, dim=0).gather(1, expert[:, None])[:, 0] - 1
+        keep = slot < C
+        dest = torch.where(keep, expert * C + slot, E * C)
+        expert_in = x.new_zeros((E * C + 1, d)).index_copy(0, dest, tokens)
+        h = F.silu(torch.baddbmm(self.experts_b1[:, None].to(x.dtype),
+                                 expert_in[:E * C].view(E, C, d),
+                                 self.experts_w1.to(x.dtype)))
+        out = torch.baddbmm(self.experts_b2[:, None].to(x.dtype), h,
+                            self.experts_w2.to(x.dtype)).view(E * C, d)
+        y = out.index_select(0, torch.where(keep, dest, 0))
+        y = torch.where(keep[:, None], y * gate.to(x.dtype)[:, None],
+                        torch.zeros((), dtype=x.dtype, device=x.device))
+        frac = sel.float().mean(0)
+        self.aux_loss = E * torch.sum(frac * gates.mean(0))
+        self.dropped_fraction = 1.0 - keep.float().sum() / S
+        return y.reshape(B, T, d)
+
+
+class MoEDiTBlock(DiTBlock):
+    """``DiTBlock`` with its MLP replaced by a top-1 ``MoEFeedForward``
+    (``moe``)."""
+
+    def __init__(self, nembed: int, nheads: int, mlp_factor: int = 4,
+                 attn_backend: str = "xla", n_experts: int = 4,
+                 capacity_factor: float = 2.0):
+        self._moe_args = (n_experts, capacity_factor)
+        super().__init__(nembed, nheads, mlp_factor, attn_backend)
+
+    def _build_mlp(self, nembed: int, mlp_factor: int) -> None:
+        n_experts, capacity_factor = self._moe_args
+        self.moe = MoEFeedForward(nembed, n_experts, mlp_factor,
+                                  capacity_factor)
+
+    def mlp(self, h):
+        return self.moe(h)
+
+
+class MoEDiffusionTransformer(DiffusionTransformer):
+    """DiT with every ``moe_every``-th block (blocks moe_every - 1,
+    2·moe_every - 1, ...) a ``MoEDiTBlock``; the rest are ``DiTBlock``s.
+    Same call as ``DiffusionTransformer``."""
+
+    def __init__(self, *, n_experts: int = 4, capacity_factor: float = 2.0,
+                 moe_every: int = 2, **kwargs):
+        self.n_experts = n_experts
+        self.capacity_factor = capacity_factor
+        self.moe_every = moe_every
+        super().__init__(**kwargs)
+
+    def _blocks(self) -> list:
+        return [MoEDiTBlock(self.nembed, self.nheads, self.mlp_factor,
+                            self.attn_backend, self.n_experts,
+                            self.capacity_factor)
+                if i % self.moe_every == self.moe_every - 1 else
+                DiTBlock(self.nembed, self.nheads, self.mlp_factor,
+                         self.attn_backend)
+                for i in range(self.nblocks)]
+
+    def export_description(self) -> dict[str, Any]:
+        desc = super().export_description()
+        desc["kind"] = "moe_dit"
+        desc["config"].update(n_experts=self.n_experts,
+                              capacity_factor=self.capacity_factor,
+                              moe_every=self.moe_every)
+        return desc
+
+
+def moe_aux_loss(net: nn.Module, weight: float = 1e-2):
+    """weight·(mean over MoE blocks of their last call's ``aux_loss`` − 1):
+    0 at perfectly balanced routing (the JAX package's ``moe_aux_loss``
+    over the sown values). 0 when ``net`` has no MoE block, or none has
+    run."""
+    values = [m.aux_loss for m in net.modules()
+              if isinstance(m, MoEFeedForward) and m.aux_loss is not None]
+    if not values:
+        return torch.zeros(())
+    return weight * (torch.stack(values).mean() - 1.0)
+
+
+__all__ = ["MoEDiTBlock", "MoEDiffusionTransformer", "MoEFeedForward",
+           "moe_aux_loss"]

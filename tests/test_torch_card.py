@@ -153,6 +153,32 @@ def test_flash_forward_matches_plain_on_card(dtype, shape):
     assert float((lse - rlse).abs().max()) <= 1e-3
 
 
+@pytest.mark.parametrize("shape", [(1, 1, 2048, 256), (1, 2, 2049, 512),
+                                   (2, 1, 2048, 200)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_take_wide_head_dims_on_card(dtype, shape):
+    """Head dims above 128 (ADM's one 256-channel head; a head dim that is
+    no multiple of 128): K4, K5 and K6 launch once each through their
+    wide kernels and hold their plain versions' bounds, the fixed fault
+    that raised there while the JAX package took them."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator("cuda").manual_seed(4)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for _ in range(4))
+    kernels.reset_launches()
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert kernels.LAUNCHES["flash_attention"] == 1
+    assert kernels.LAUNCHES["flash_attention_dq"] == 1
+    assert kernels.LAUNCHES["flash_attention_dkv"] == 1
+    ro, rlse = fa.flash_attention_plain(q, k, v)
+    _assert_attention_close(o, ro)
+    assert float((lse - rlse).abs().max()) <= 1e-3
+    for o_, r in zip(got, fa.flash_attention_bwd_plain(q, k, v, o, lse, do)):
+        _assert_grad_close(o_, r)
+    torch.cuda.synchronize()
+
+
 def test_flash_dkv_is_deterministic_on_card():
     """K6 in bf16 has one writer per output tile and no atomics: the same
     inputs give bit-identical dK and dV."""

@@ -142,7 +142,11 @@ def _cond_model(steps, **kw):
     net = PUNetGCond(PUNetGConfig(**_SMALL, input_channels=3,
                                   output_channels=1),
                      channel_conditional_items=["y"], device="cpu")
-    return ens.EnsembleKarrasModel(net, cfg, conditional=True, device="cpu")
+    model = ens.EnsembleKarrasModel(net, cfg, conditional=True, device="cpu")
+    # drawn weights: the attention projection and the Fourier buffer are
+    # uninitialized memory until init, which could hold NaN
+    model.init(seed=0)
+    return model
 
 
 def test_window_slides_split_and_weights(monkeypatch):

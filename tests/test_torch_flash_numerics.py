@@ -30,24 +30,25 @@ KEY_TILE = 64           # K4's key tile (kMmaKeys)
 LOG2E = math.log2(math.e)
 
 
-def _emulate_fwd(q, k, v):
-    """K4 in bf16: online softmax over 64-key tiles in the log2 domain, P
-    rounded to bf16 before P·V, l summed over the f32 P; O in bf16 and the
-    natural-log lse in f32."""
+def _emulate_fwd(q, k, v, key_tile=KEY_TILE):
+    """K4 in bf16: online softmax over 64-key tiles (32 in the wide kernel
+    of head dims above 128) in the log2 domain, P rounded to bf16 before
+    P·V, l summed over the f32 P; O in bf16 and the natural-log lse in
+    f32."""
     T, d = q.shape[-2:]
     sl2 = LOG2E / math.sqrt(d)
     qf, kf, vf = q.float(), k.float(), v.float()
     m = torch.full(q.shape[:-1], -math.inf)
     l = torch.zeros(q.shape[:-1])
     acc = torch.zeros(q.shape)
-    for k0 in range(0, T, KEY_TILE):
-        s = qf @ kf[..., k0:k0 + KEY_TILE, :].transpose(-1, -2)
+    for k0 in range(0, T, key_tile):
+        s = qf @ kf[..., k0:k0 + key_tile, :].transpose(-1, -2)
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp2((m - m_new) * sl2)
         p = torch.exp2(s * sl2 - (m_new * sl2)[..., None])
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + (
-            p.bfloat16().float() @ vf[..., k0:k0 + KEY_TILE, :])
+            p.bfloat16().float() @ vf[..., k0:k0 + key_tile, :])
         m = m_new
     lse = (m * sl2 + torch.log2(l)) * math.log(2.0)
     return (acc / l[..., None]).bfloat16(), lse
@@ -145,4 +146,45 @@ def test_emulated_rounding_within_chip_tolerance_of_plain(T, d):
     grads = _emulate_bwd(q, k, v, o, lse, do)
     refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
     for got, ref, name in zip(grads, refs, ("dq", "dk", "dv")):
+        assert _rel(got, ref) <= 1e-2, (name, _rel(got, ref))
+
+
+
+@pytest.mark.parametrize("d", [256, 512])
+def test_wide_head_dims_against_jax_flash(d):
+    """Head dims above 128 (ADM's one 256-channel head; 512 at
+    model_channels=128), which K4-K6 take through their wide kernels
+    (32-key tiles in K4). Against the JAX package's bf16 flash kernels in
+    interpret mode: the emulation of the wide K4 and of K5/K6 at
+    ``test_emulated_rounding_matches_jax_flash``'s bounds, with O's "one
+    bf16 step" taken as the step at each entry's magnitude (2^-7 of the
+    power of two below it): 2^-8·|ref| undercounts it in the lower half of
+    a binade, where these cases' million outputs (16 times d = 40's) put
+    a few one-step differences of opposite roundings; and the plain
+    versions, which the kernels are held to on the card, at
+    ``test_emulated_rounding_within_chip_tolerance_of_plain``'s bounds (O
+    within 2^-7·|ref| + 2e-3·max|ref|, lse within 1e-3, dQ, dK, dV within
+    1e-2 of their largest entry)."""
+    q, k, v, do = _inputs(2048, d)
+    jo, *jgrads = _jax(q, k, v, do)
+    r = jo.abs()
+    o, lse = _emulate_fwd(q, k, v, key_tile=32)
+    diff = (o.float() - jo).abs()
+    step = torch.exp2(torch.floor(torch.log2(r.clamp_min(1e-30))) - 7)
+    assert bool((diff <= step + 2e-3 * r.max()).all()), float(diff.max())
+    s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               rtol=0, atol=1e-5)
+    for got, ref, name in zip(_emulate_bwd(q, k, v, o, lse, do), jgrads,
+                              ("dq", "dk", "dv")):
+        assert _rel(got, ref) <= 1e-2, (name, _rel(got, ref))
+
+    po, plse = fa.flash_attention_plain(q, k, v)
+    diff = (po.float() - jo).abs()
+    assert bool((diff <= 2 ** -7 * r + 2e-3 * r.max()).all()), \
+        float(diff.max())
+    assert float((plse - lse).abs().max()) <= 1e-3
+    for got, ref, name in zip(fa.flash_attention_bwd_plain(
+            q, k, v, po, plse, do), jgrads, ("dq", "dk", "dv")):
+        assert got.dtype == torch.bfloat16
         assert _rel(got, ref) <= 1e-2, (name, _rel(got, ref))
