@@ -302,14 +302,20 @@ COMBINE_TIMED = {"fused_axby": ((1, 32, 32, 32, 1), (4, 32, 32, 32, 1),
 # (B, H, T, d) of phase 1's flash checks; the first is config A's, then
 # A's Picard sweep (window 8 at bucket 1), H's (DiT-B: 12 heads of 64) and
 # I's (ADM: one head of 256) bucket-4 attentions and a head dim of 512
-# (ADM at model_channels 128), the last two through the wide kernels
+# (ADM at model_channels 128), then head dims above 128 at ragged T: 136
+# and 192 (one pass of the wgmma kernels), 320 (two 192-column chunks),
+# 200 (aligned rows, zero-padded columns) and 260 (rows not 16-byte
+# aligned: the mma.sync wide kernels)
 FLASH_SWEEP = ((4, 2, 4096, 32), (1, 2, 4096, 8), (2, 4, 4096, 16),
                (1, 2, 4097, 32), (1, 1, 2049, 64), (1, 1, 2111, 128),
                (2, 1, 2048, 40), (1, 2, 2048, 20), (8, 2, 4096, 32),
-               (4, 12, 4096, 64), (4, 1, 4096, 256), (1, 2, 2048, 512))
+               (4, 12, 4096, 64), (4, 1, 4096, 256), (1, 2, 2048, 512),
+               (1, 1, 2049, 136), (1, 1, 2111, 192), (1, 2, 2049, 320),
+               (2, 1, 2111, 200), (1, 1, 2049, 260))
 # K4-K6 timed beside SDPA at the new routes: H's and I's serving (bucket 4)
-# and training (batch 8) shapes, and head dim 512 (no SDPA there: its flash
-# backend takes head dims up to 256)
+# and training (batch 8) shapes, and head dim 512 (beside SDPA's
+# memory-efficient backend where it takes the shape: its flash backend
+# takes head dims up to 256)
 FLASH_TIMED = (((4, 12, 4096, 64), "H, bucket 4"),
                ((8, 12, 4096, 64), "H, train batch 8"),
                ((4, 1, 4096, 256), "I, bucket 4"),
@@ -438,14 +444,15 @@ def sfu_floor_ms(n_exp: float) -> float:
     return n_exp / (16 * sms * mhz * 1e6) * 1e3
 
 
-def tensor_core_counts() -> dict[str, list[int]]:
-    """HMMA/HGMMA instructions in each instantiation of each kernel of the
-    flash libraries, from ``cuobjdump -sass`` (the toolkit beside nvcc) of
-    the built libraries: {kernel name: [count per instantiation]}."""
+def tensor_core_counts() -> dict[str, list[list[int]]]:
+    """HMMA (``mma.sync``) and HGMMA (``wgmma``) instructions in each
+    instantiation of each kernel of the flash libraries, from ``cuobjdump
+    -sass`` (the toolkit beside nvcc) of the built libraries: {kernel
+    name: [[HMMA, HGMMA] per instantiation]}."""
     from diffsci_tpu_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    counts: dict[str, list[int]] = {}
+    counts: dict[str, list[list[int]]] = {}
     for name in ("flash_attention", "flash_attention_bwd"):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                               capture_output=True, text=True,
@@ -456,9 +463,10 @@ def tensor_core_counts() -> dict[str, list[int]]:
                 r"Function : \S*?(flash_[a-z_]+?_kernel)[IE]", line)
             if found:
                 n = counts.setdefault(found.group(1), [])
-                n.append(0)
-            elif n is not None and re.search(r"\bHG?MMA\b", line):
-                n[-1] += 1
+                n.append([0, 0])
+            elif n is not None:
+                n[-1][0] += bool(re.search(r"\bHMMA\b", line))
+                n[-1][1] += bool(re.search(r"\bHGMMA\b", line))
     return counts
 
 
@@ -647,9 +655,11 @@ def time_combines(fp, gen):
 
 def time_flash_routes(fa, gen):
     """K4, K5 and K6 in bf16 at ``FLASH_TIMED`` (medians of 5 timed
-    loops) beside SDPA's flash backend (forward, and the backward asked
-    for dQ or dK, dV) where it takes the head dim, with each kernel's
-    bound and the SFU floor of its T² exponentials a head; logged only."""
+    loops) beside SDPA (forward, and the backward asked for dQ or dK, dV)
+    on its flash backend where it takes the head dim, else on its
+    memory-efficient backend where that takes the shape, with each
+    kernel's bound, its time as a share of the bound and the SFU floor of
+    its T² exponentials a head; logged only."""
     for shape, label in FLASH_TIMED:
         B, H, T, d = shape
         BH = B * H
@@ -658,20 +668,29 @@ def time_flash_routes(fa, gen):
         delta = (do.float() * o.float()).sum(-1)
         reads = 4 * 2 * BH * T * d + 2 * 4 * BH * T
         sfu = sfu_floor_ms(BH * T * T)
-        lib = {}
-        if d <= 256:
-            def sdpa_bwd(wrt):
-                leaves = [t.detach().requires_grad_(i in wrt)
-                          for i, t in enumerate((q, k, v))]
-                out = F.scaled_dot_product_attention(*leaves)
-                inputs = [leaves[i] for i in wrt]
-                return cuda_ms_spread(lambda: torch.autograd.grad(
-                    out, inputs, do, retain_graph=True), 10)
 
-            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-                lib = {"K4": cuda_ms_spread(
-                    lambda: F.scaled_dot_product_attention(q, k, v), 10),
-                    "K5": sdpa_bwd((0,)), "K6": sdpa_bwd((1, 2))}
+        def sdpa_bwd(wrt):
+            leaves = [t.detach().requires_grad_(i in wrt)
+                      for i, t in enumerate((q, k, v))]
+            out = F.scaled_dot_product_attention(*leaves)
+            inputs = [leaves[i] for i in wrt]
+            return cuda_ms_spread(lambda: torch.autograd.grad(
+                out, inputs, do, retain_graph=True), 10)
+
+        backend = (SDPBackend.FLASH_ATTENTION if d <= 256
+                   else SDPBackend.EFFICIENT_ATTENTION)
+        lib = {}
+        for name, fn in (
+                ("K4", lambda: cuda_ms_spread(
+                    lambda: F.scaled_dot_product_attention(q, k, v), 10)),
+                ("K5", lambda: sdpa_bwd((0,))),
+                ("K6", lambda: sdpa_bwd((1, 2)))):
+            try:  # a yardstick only: "none" where SDPA refuses the shape
+                with sdpa_kernel(backend):
+                    lib[name] = fn()
+            except RuntimeError:
+                pass
+        which = "SDPA" if d <= 256 else "SDPA (memory-efficient)"
         for name, fn, nbytes, flops in (
                 ("K4", lambda: fa.flash_attention_fwd(q, k, v),
                  4 * 2 * BH * T * d + 4 * BH * T, 4 * BH * T * T * d),
@@ -683,10 +702,11 @@ def time_flash_routes(fa, gen):
                  reads + 2 * 2 * BH * T * d, 8 * BH * T * T * d)):
             ms = cuda_ms_spread(fn, 10)
             bms, bby = bound(nbytes, flops, torch.bfloat16)
-            sdpa = (f"SDPA {lib[name][0]:.4f} ms ({lib[name][1]:.4f}-"
-                    f"{lib[name][2]:.4f})" if name in lib else "no SDPA")
+            sdpa = (f"{which} {lib[name][0]:.4f} ms ({lib[name][1]:.4f}-"
+                    f"{lib[name][2]:.4f})" if name in lib else "SDPA none")
             log(f"[kernels] time {name} {list(shape)} bf16 ({label}): "
-                f"{ms[0]:.4f} ms ({ms[1]:.4f}-{ms[2]:.4f}), {sdpa}, bound "
+                f"{ms[0]:.4f} ms ({ms[1]:.4f}-{ms[2]:.4f}), "
+                f"{100 * bms / ms[0]:.1f} % of bound, {sdpa}, bound "
                 f"{bms:.4f} ms ({bby}), SFU floor {sfu:.4f} ms")
 
 
@@ -807,11 +827,19 @@ def phase_kernels():
                    f"{lerr:.1e}, limit 1e-3)", dtype, err,
                    share <= 1 and lerr <= 1e-3, ATTN_LIMIT)
             # K5 and K6 on the forward's own O and lse; in bf16 at config
-            # A's shape each runs twice and must give the same bits (one
-            # writer per output tile, no atomics)
+            # A's shape and at every head dim above 128, K4, K5 and K6 each
+            # run twice and must give the same bits (one writer per output
+            # tile, no atomics)
+            twice = dtype == torch.bfloat16 and (shape == FLASH_SWEEP[0]
+                                                 or shape[-1] > 128)
+            if twice:
+                same = torch.equal(o, fa.flash_attention_fwd(q, k, v)[0])
+                log(f"[kernels] flash_attention {list(shape)} bfloat16 "
+                    f"twice: {'bit-identical' if same else 'DIFFERENT'}")
+                if not same:
+                    failures.append(f"flash_attention {shape} twice")
             do = randn(shape, dtype, gen)
             delta = (do.float() * o.float()).sum(-1)
-            twice = dtype == torch.bfloat16 and shape == FLASH_SWEEP[0]
             for name, kernel, plain, what in (
                     ("flash_attention_dq", fa.flash_attention_dq,
                      fa.flash_attention_dq_plain, "dQ"),
@@ -832,16 +860,23 @@ def phase_kernels():
                 record(name, f"{list(shape)} ({what}; max|Δ|/max|ref| "
                        f"{ratio:.1e})", dtype, err, ok, GRAD_LIMIT)
 
-    # the bf16 K4, K5 and K6 run on the tensor cores
+    # the bf16 K4, K5 and K6 run on the tensor cores: mma.sync (HMMA), and
+    # wgmma (HGMMA) in the wide K4 and K6 of aligned rows
     counts = tensor_core_counts()
     for kernel, per_instance in sorted(counts.items()):
-        log(f"[kernels] sass {kernel}: HMMA/HGMMA per instantiation "
+        log(f"[kernels] sass {kernel}: [HMMA, HGMMA] per instantiation "
             f"{sorted(per_instance)}")
-    for kernel in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
-                   "flash_dkv_mma_kernel", "flash_fwd_wide_mma_kernel",
-                   "flash_dq_wide_mma_kernel", "flash_dkv_wide_mma_kernel"):
-        if min(counts.get(kernel, [0])) == 0:
-            failures.append(f"{kernel}: no tensor-core instructions")
+    for kernel, kind in (("flash_fwd_mma_kernel", 0),
+                         ("flash_dq_mma_kernel", 0),
+                         ("flash_dkv_mma_kernel", 0),
+                         ("flash_fwd_wide_mma_kernel", 0),
+                         ("flash_dq_wide_mma_kernel", 0),
+                         ("flash_dkv_wide_mma_kernel", 0),
+                         ("flash_fwd_wgmma_kernel", 1),
+                         ("flash_dkv_wgmma_kernel", 1)):
+        if min(c[kind] for c in counts.get(kernel, [[0, 0]])) == 0:
+            failures.append(f"{kernel}: no {('HMMA', 'HGMMA')[kind]} "
+                            "instructions")
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
 
@@ -4217,10 +4252,10 @@ def phase_zoo_card_vs_cpu():
     return all_counts
 
 
-def profiled_shares(fn) -> tuple[float, float, float]:
-    """(wall seconds, device kernel seconds, seconds in K4-K6) of one call
-    of ``fn`` under torch.profiler (taken again when the trace holds no
-    device event)."""
+def profiled_shares(fn) -> tuple[float, float, float, str]:
+    """(wall seconds, device kernel seconds, seconds in K4-K6, each flash
+    kernel's launches and device ms a launch) of one call of ``fn`` under
+    torch.profiler (taken again when the trace holds no device event)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4237,9 +4272,13 @@ def profiled_shares(fn) -> tuple[float, float, float]:
                   and not getattr(e, "is_user_annotation", False)]
         busy = sum(device_us(e) for e in events) / 1e6
         if busy > 0:
-            flash = sum(device_us(e) for e in events
-                        if any(n in e.key for n in FLASH_NAMES)) / 1e6
-            return wall, busy, flash
+            flash = [e for e in events
+                     if any(n in e.key for n in FLASH_NAMES)]
+            each = ", ".join(
+                f"{re.search(r'flash_[a-z_]+_kernel', e.key).group(0)} "
+                f"{e.count} x {device_us(e) / e.count / 1e3:.4f} ms"
+                for e in flash)
+            return wall, busy, sum(device_us(e) for e in flash) / 1e6, each
     raise AssertionError("the profiler saw no device time")
 
 
@@ -4280,15 +4319,15 @@ def full_width(label, make_model, zero, per_request, per_step, steps=20,
     if out.shape != (n,) + HI_SHAPE or not np.isfinite(out).all():
         raise AssertionError(f"{label}: request gave shape {out.shape} or "
                              "non-finite values")
-    pwall, busy, flash = profiled_shares(lambda: svc.sample(n))
+    pwall, busy, flash, each = profiled_shares(lambda: svc.sample(n))
     log(f"[{label}] {nparams} parameters; warm-up seconds per bucket "
         f"{ {b: round(s, 3) for b, s in warm.items()} }, capture {captures}")
     log(f"[{label}] graphed request of {n} ({NSTEPS}-step Heun, {NFE} "
         f"network calls): wall {wall:.4f} s, {n / wall:.2f} samples/s, "
         f"peak memory {peak:.3f} GiB; profiled: wall {pwall:.4f} s, device "
         f"{busy:.4f} s, idle share {1 - busy / pwall:.3f}, K4 "
-        f"{flash:.4f} s = {flash / busy:.1%} of device time; launches "
-        f"{req_counts}")
+        f"{flash:.4f} s = {flash / busy:.1%} of device time ({each}); "
+        f"launches {req_counts}")
     expected = dict(zero, **per_request)
     if req_counts != expected:
         raise AssertionError(f"{label}: request launches {req_counts}, "
@@ -4336,7 +4375,7 @@ def full_width(label, make_model, zero, per_request, per_step, steps=20,
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     after = probe()
     losses = [float(v) for v in losses]
-    swall, sbusy, sflash = profiled_shares(
+    swall, sbusy, sflash, each = profiled_shares(
         lambda: step(state, x, generator=gen))
     log(f"[{label}] train batch {x_shape}: warm-up {warmup} steps "
         f"{warm_s:.2f} s, capture seconds (step, EMA) {captures}; {steps} "
@@ -4346,7 +4385,7 @@ def full_width(label, make_model, zero, per_request, per_step, steps=20,
         f"{before:.5f} before, {after:.5f} after; launches {step_counts}")
     log(f"[{label}] profiled graphed step: wall {swall:.4f} s, device "
         f"{sbusy:.4f} s, idle share {1 - sbusy / swall:.3f}, K4-K6 "
-        f"{sflash:.4f} s = {sflash / sbusy:.1%} of device time")
+        f"{sflash:.4f} s = {sflash / sbusy:.1%} of device time ({each})")
     expected = {k: v * steps for k, v in dict(zero, **per_step).items()}
     if not (np.isfinite(losses).all() and after < before):
         raise AssertionError(f"{label}: non-finite loss, or the loss did "

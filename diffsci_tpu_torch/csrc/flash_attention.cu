@@ -19,11 +19,12 @@
 // C fragments, with row reductions by quad shuffles and exponentials on
 // the SFU alone (fast_exp2); P is rounded to bf16 in registers and is the
 // A operand of P V, as the Pallas kernel feeds the MXU p.astype(v.dtype)
-// (flash_attention.py:106). The sum l is taken over the f32 P, as there. O (bf16) and lse are written once. Rows that are
-// not 16-byte aligned (head_dim % 8 != 0) are staged by element loads in
-// the same kernel (template flag kAsync). wgmma/TMA and warp
-// specialisation are later work: at d = 32 they would speed up the part
-// that is not the floor.
+// (flash_attention.py:106). The sum l is taken over the f32 P, as there.
+// O (bf16) and lse are written once. Rows that are not 16-byte aligned
+// (head_dim % 8 != 0) are staged by element loads in the same kernel
+// (template flag kAsync). wgmma/TMA and warp specialisation serve the
+// wide route below; at d = 32 the exponentials, not the products, set the
+// floor.
 //
 // float32 (flash_fwd_kernel): the FP32 pipes, unchanged, so the f32 path
 // keeps full f32 products (TF32 or bf16 tensor cores would not hold the
@@ -35,10 +36,16 @@
 //
 // Both mask ragged T in the kernel, on query rows (never stored) and on
 // keys (score -inf); head dims below the template's D are zero-padded in
-// shared memory only. Head dims above 128 go to flash_fwd_wide_mma_kernel
-// (bf16) and flash_fwd_wide_kernel (f32), which stage d in 128-column
-// chunks (flash_common.cuh) and take any head_dim. Tile constants, conversions and dispatch:
-// flash_common.cuh (shared with K5/K6), tensor-core pieces: flash_mma.cuh.
+// shared memory only. Head dims above 128: in bf16, rows that TMA can read
+// up to d 512 go to flash_fwd_wgmma_kernel (warp-specialised: TMA into a
+// ring of shared-memory stages, S = Q K^T once per key tile over all of d
+// on wgmma, O in 256-column chunks above d 256; flash_wgmma.cuh); the rest
+// (f32, unaligned rows, d > 512) to flash_fwd_wide_mma_kernel (bf16) and
+// flash_fwd_wide_kernel (f32), which stage d in 128-column chunks
+// (flash_common.cuh) and take any head_dim. Either way a call is one
+// launch. Tile constants, conversions and dispatch: flash_common.cuh
+// (shared with K5/K6); tensor-core pieces: flash_mma.cuh (mma.sync) and
+// flash_wgmma.cuh (wgmma, TMA, mbarriers).
 // Plain C interface, built with nvcc and loaded with ctypes.
 
 #include <cuda_runtime.h>
@@ -48,6 +55,7 @@
 
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -615,11 +623,238 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// bf16, wgmma route (flash_wgmma.cuh: d in (128, 512], 16-byte aligned
+// rows): one block per (bh, 128 query rows, DC-column chunk c0 of O;
+// DC = 64 NB). Warpgroups 0 and 1 consume, 64 query rows each; warpgroup
+// 2 produces: one thread issues every TMA copy. Q's ns 64-column slices
+// are staged once; per 64-key tile, K's ns slices stream through a ring of
+// `rk` 8 KB stages and V's NB chunk slices through a ring of two tiles,
+// each stage with a full and an empty mbarrier (the empty ones take one
+// arrival from each of the 8 consumer warps). S = Q K^T is computed once
+// per key tile over all of d (wgmma, both operands in shared memory), the
+// online softmax is K4's on the accumulator, P is rounded to bf16 in
+// registers and O += P V (V transposed by the descriptor) into NB
+// accumulators of 64 columns. O (bf16) and, from chunk 0, lse are written
+// once; rows past T are not stored and keys past T score -inf.
+template <int NB>
+__global__ void __launch_bounds__(3 * kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int seq_len, int head_dim,
+                           float scale_log2, int ns, int rk) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t Qs = base;                             // [ns][2] slices
+  const uint32_t Ks = Qs + ns * 2 * kSliceBytes;        // [rk] slices
+  const uint32_t Vs = Ks + rk * kSliceBytes;            // [2][NB] slices
+  const uint32_t bars = Vs + 2 * NB * kSliceBytes;
+  const uint32_t q_full = bars;
+  const uint32_t k_full = bars + 8, k_empty = k_full + 8 * rk;
+  const uint32_t v_full = k_empty + 8 * rk, v_empty = v_full + 16;
+
+  const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * 128, bh = blockIdx.y;
+  const int c0 = blockIdx.z * NB * kSlice;
+  const int ntiles = (seq_len + kSlice - 1) / kSlice;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < rk; ++i) {
+      mbar_init(k_full + 8 * i, 1);
+      mbar_init(k_empty + 8 * i, 8);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(v_full + 8 * i, 1);
+      mbar_init(v_empty + 8 * i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    reg_dealloc<24>();
+    if (tid != 0) return;
+    mbar_expect(q_full, ns * 2 * kSliceBytes);
+    for (int s = 0; s < ns; ++s)
+      for (int h = 0; h < 2; ++h)
+        tma_slice(Qs + (2 * s + h) * kSliceBytes, &tq, s * kSlice,
+                  q0 + h * kSlice, bh, q_full);
+    int ki = 0;
+    for (int j = 0; j < ntiles; ++j) {
+      for (int s = 0; s < ns; ++s, ++ki) {
+        const int st = ki % rk;
+        mbar_wait(k_empty + 8 * st, ((ki / rk) & 1) ^ 1);
+        mbar_expect(k_full + 8 * st, kSliceBytes);
+        tma_slice(Ks + st * kSliceBytes, &tk, s * kSlice, j * kSlice, bh,
+                  k_full + 8 * st);
+      }
+      const int vs = j & 1;
+      mbar_wait(v_empty + 8 * vs, ((j >> 1) & 1) ^ 1);
+      mbar_expect(v_full + 8 * vs, NB * kSliceBytes);
+      for (int b = 0; b < NB; ++b)
+        tma_slice(Vs + (vs * NB + b) * kSliceBytes, &tv, c0 + b * kSlice,
+                  j * kSlice, bh, v_full + 8 * vs);
+    }
+    return;
+  }
+
+  // consumers: rows q0 + 64 wg + 16 warp + lane / 4 (+ 8)
+  reg_alloc<240>();
+  float acc[NB][32];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[b][i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  const uint32_t q_own = Qs + wg * kSliceBytes;
+  mbar_wait(q_full, 0);
+
+  int ki = 0;
+  for (int j = 0; j < ntiles; ++j) {
+    // S = Q K^T over the ns slices of d; each K stage is released once
+    // the product that read it has completed
+    float s[32];
+    wgmma_fence();
+    for (int sl = 0; sl < ns; ++sl, ++ki) {
+      const int st = ki % rk;
+      mbar_wait(k_full + 8 * st, (ki / rk) & 1);
+      const uint64_t da = desc_sw128(q_own + 2 * sl * kSliceBytes);
+      const uint64_t db = desc_sw128(Ks + st * kSliceBytes);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(s, da + kk * kStepK, db + kk * kStepK, sl | kk);
+      wgmma_commit();
+      if (sl > 0) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(k_empty + 8 * ((ki - 1) % rk));
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(k_empty + 8 * ((ki - 1) % rk));
+
+    const int k0 = j * kSlice;
+    if (k0 + kSlice > seq_len) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (k0 + (i / 4) * 8 + (lane % 4) * 2 + (i % 2) >= seq_len)
+          s[i] = -CUDART_INF_F;
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+    float alpha[2], ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // every tile holds at least one real key, so mx is finite
+      alpha[r] = fast_exp2((m[r] - mx[r]) * scale_log2);
+      m[r] = mx[r];
+      ms[r] = mx[r] * scale_log2;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      s[i] = fast_exp2(fmaf(s[i], scale_log2, -ms[r]));
+      l[r] += s[i];
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[b][i] *= alpha[(i / 2) % 2];
+    uint32_t pa[4][4];
+    a_from_acc(pa, s);
+
+    // O += P V[:, c0:c0 + DC]
+    const int vs = j & 1;
+    mbar_wait(v_full + 8 * vs, (j >> 1) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const uint64_t dv = desc_sw128(Vs + (vs * NB + b) * kSliceBytes);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_t(acc[b], pa[kk], dv + kk * kStepMN);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+    if (lane == 0) mbar_arrive(v_empty + 8 * vs);
+  }
+
+  const size_t head = (size_t)bh * seq_len;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qi = q0 + wg * kSlice + warp * 16 + lane / 4 + 8 * r;
+    if (qi >= seq_len) continue;
+    const float inv_l = 1.f / l[r];
+    __nv_bfloat16* row = o + (head + qi) * head_dim;
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int c = c0 + b * kSlice + i * 8 + (lane % 4) * 2;
+        if (c < head_dim)
+          *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(
+              acc[b][4 * i + 2 * r] * inv_l, acc[b][4 * i + 2 * r + 1] * inv_l);
+      }
+    if (lane % 4 == 0 && blockIdx.z == 0)
+      lse[head + qi] = (m[r] * scale_log2 + log2f(l[r])) * 0.69314718055994531f;
+  }
+}
+
+// Shared memory of flash_fwd_wgmma_kernel<NB> with `rk` K stages: the
+// 1024-byte alignment slack, Q, the K and V rings and the barriers.
+inline int fwd_wgmma_smem(int ns, int nb, int rk) {
+  return 1024 + (2 * ns + rk + 2 * nb) * kSliceBytes + 8 * (1 + 2 * rk + 4);
+}
+
+template <int NB>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int bh, int seq_len,
+                             int head_dim, float scale_log2,
+                             cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = encode_rows(&tq, q, bh, seq_len, head_dim)) != cudaSuccess ||
+      (err = encode_rows(&tk, k, bh, seq_len, head_dim)) != cudaSuccess ||
+      (err = encode_rows(&tv, v, bh, seq_len, head_dim)) != cudaSuccess)
+    return err;
+  const int ns = (head_dim + kSlice - 1) / kSlice;
+  int rk = 8;
+  while (rk > 2 && fwd_wgmma_smem(ns, NB, rk) > kMaxSmem) --rk;
+  const int smem = fwd_wgmma_smem(ns, NB, rk);
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<NB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_len + 127) / 128, bh, wgmma_chunks(head_dim));
+  flash_fwd_wgmma_kernel<NB><<<grid, 3 * kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      seq_len, head_dim, scale_log2, ns, rk);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
                         void* lse, int bh, int seq_len, int head_dim,
                         float scale_log2, int dtype, cudaStream_t stream) {
   cudaError_t err;
-  if (dtype == 1) {
+  if (dtype == 1 && wgmma_route(head_dim, {q, k, v})) {
+    if (wgmma_boxes(head_dim) == 3)
+      return launch_fwd_wgmma<3>(q, k, v, o, lse, bh, seq_len, head_dim,
+                                 scale_log2, stream);
+    return launch_fwd_wgmma<4>(q, k, v, o, lse, bh, seq_len, head_dim,
+                               scale_log2, stream);
+  } else if (dtype == 1) {
     auto* kernel = rows_aligned(head_dim, {q, k, v})
                        ? flash_fwd_wide_mma_kernel<true>
                        : flash_fwd_wide_mma_kernel<false>;

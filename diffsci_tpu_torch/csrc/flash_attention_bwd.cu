@@ -40,12 +40,12 @@
 // through ldmatrix.trans; dP^T = V dO^T; dS^T = P^T (dP^T - delta) rounded
 // to bf16 in registers; dK += dS^T Q with Q through ldmatrix.trans. Q and
 // dO are each read plainly and transposed from one shared tile. The bf16
-// roundings are the Pallas kernel's (flash_attention.py:209, 211: p and ds cast to
-// the input dtype before the MXU). dK and dV stay in f32 registers; the
-// scale is applied once and each is written once. Padded query rows are
-// zeros with lse = delta = 0, so they add exactly 0. wgmma/TMA and warp
-// specialisation are later work for both: at d = 32 the exponentials set
-// the floor.
+// roundings are the Pallas kernel's (flash_attention.py:209, 211: p and ds
+// cast to the input dtype before the MXU). dK and dV stay in f32
+// registers; the scale is applied once and each is written once. Padded
+// query rows are zeros with lse = delta = 0, so they add exactly 0. At
+// d <= 128 both stay on mma.sync: at d = 32 the exponentials set the
+// floor. The wide K6 of TMA-readable rows is on wgmma (below).
 //
 // K5 and K6 in float32: the FP32 pipes. Four threads share a row of the
 // block's own tile; each scores a quarter of the other tile's rows and
@@ -57,9 +57,15 @@
 //
 // Ragged T is masked in the kernels: rows past T are loaded as zeros, get
 // P = 0 or add 0, and are never stored. Head dims below the template's D
-// are zero-padded in shared memory only. Head dims above 128 go to the
-// wide kernels (flash_dq_wide_*, flash_dkv_wide_*), which stage d in
-// 128-column chunks (flash_common.cuh) and take any head_dim.
+// are zero-padded in shared memory only. Head dims above 128: K6 in bf16,
+// on rows that TMA can read up to d 512, goes to flash_dkv_wgmma_kernel
+// (warp-specialised: TMA into a ring of shared-memory stages, S^T and dP^T
+// once per (key tile, query tile) over all of d on wgmma, dK and dV in
+// 256-column chunks above d 256; flash_wgmma.cuh). The rest (K5 at every
+// d, f32, unaligned rows, d > 512) goes to the wide kernels
+// (flash_dq_wide_*, flash_dkv_wide_*), which stage d in 128-column chunks
+// (flash_common.cuh) and take any head_dim. Either way a call is one
+// launch.
 //
 // f32 tile constants and dispatch: flash_common.cuh, shared with K4;
 // tensor-core pieces: flash_mma.cuh. Plain C interface, built with
@@ -71,6 +77,7 @@
 
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -1251,6 +1258,271 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K6 in bf16, wgmma route (flash_wgmma.cuh: d in (128, 512], 16-byte
+// aligned rows): one block per (bh, 64 key rows, DC-column chunk c0 of dK
+// and dV; DC = 64 NB). K's and V's ns 64-column slices are staged once.
+// Per 64-query tile the producer (warpgroup 2, one thread issuing TMA)
+// streams Q and dO slices through a ring of `rq` 16 KB stages (a Q slice
+// and the dO slice of the same columns), first the slices of d outside
+// the chunk, then the NB chunk slices, with the tile's lse log2(e) and
+// delta (zero past T) written beside its first stage. Warpgroup 0:
+// S^T = K Q^T over all of d, P^T = exp2(S^T scale log2(e) - lse log2(e))
+// (f32), handed to warpgroup 1 through shared memory, then dV += bf16(P^T)
+// dO[:, c0:]. Warpgroup 1: dP^T = V dO^T over all of d, dS^T = P^T (dP^T -
+// delta) with the f32 P^T, then dK += bf16(dS^T) Q[:, c0:]. So the scores
+// are computed once per (key tile, query tile), the roundings are the
+// Pallas kernel's (flash_attention.py:209, 211), and a stage is released
+// (one arrival from each of the 8 consumer warps) once the products that
+// read it have completed: slices outside the chunk after S^T / dP^T, the
+// chunk's after dV / dK. Padded queries have zero rows and lse = delta =
+// 0, so they add exactly 0. dK (times the scale, applied once) and dV are
+// written once; rows past T are not stored.
+template <int NB>
+__global__ void __launch_bounds__(3 * kWgThreads, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int seq_len,
+                           int head_dim, float scale, int ns, int rq) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const gbase = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  const uint32_t base = smem_u32(gbase);
+  const uint32_t Ks = base;                          // [ns] slices
+  const uint32_t Vs = Ks + ns * kSliceBytes;         // [ns] slices
+  const uint32_t Rs = Vs + ns * kSliceBytes;         // [rq] stages: Q, dO
+  const int p_off = (2 * ns + 2 * rq) * kSliceBytes;
+  float4* const Ps = reinterpret_cast<float4*>(gbase + p_off);  // [8][128]
+  float* const Ls = reinterpret_cast<float*>(gbase + p_off + 16 * 1024);
+  // Ls: [rq][128], lse log2(e) of the tile's 64 queries, then delta
+  const uint32_t bars = smem_u32(Ls + rq * 128);
+  const uint32_t kv_full = bars;
+  const uint32_t full = bars + 8, empty = full + 8 * rq;
+
+  const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
+  const int k0 = blockIdx.x * kSlice, bh = blockIdx.y;
+  const int cs = blockIdx.z * NB;  // the chunk's first slice
+  const int c0 = cs * kSlice;
+  const int ntiles = (seq_len + kSlice - 1) / kSlice;
+  // slices a query tile streams: those of d outside the chunk, then the
+  // chunk's NB
+  const int n_out = cs + max(0, ns - cs - NB);
+  const int n_tile = n_out + NB;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int i = 0; i < rq; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: warp 0 (lane 0 issues the copies)
+    reg_dealloc<24>();
+    if (warp != 0) return;
+    if (lane == 0) {
+      mbar_expect(kv_full, 2 * ns * kSliceBytes);
+      for (int s = 0; s < ns; ++s) {
+        tma_slice(Ks + s * kSliceBytes, &tk, s * kSlice, k0, bh, kv_full);
+        tma_slice(Vs + s * kSliceBytes, &tv, s * kSlice, k0, bh, kv_full);
+      }
+    }
+    const size_t head = (size_t)bh * seq_len;
+    int ri = 0;
+    for (int t = 0; t < ntiles; ++t) {
+      const int r0 = t * kSlice;
+      for (int idx = 0; idx < n_tile; ++idx, ++ri) {
+        const int sl = idx < cs ? idx : idx < n_out ? idx + NB
+                                                    : cs + idx - n_out;
+        const int st = ri % rq;
+        mbar_wait(empty + 8 * st, ((ri / rq) & 1) ^ 1);
+        if (idx == 0) {
+          float* ld = Ls + st * 128;
+          for (int i = lane; i < kSlice; i += 32) {
+            const int qi = r0 + i;
+            ld[i] = qi < seq_len ? lse[head + qi] * kLog2e : 0.f;
+            ld[kSlice + i] = qi < seq_len ? delta[head + qi] : 0.f;
+          }
+          __syncwarp();
+        }
+        if (lane == 0) {
+          const uint32_t stage = Rs + st * 2 * kSliceBytes;
+          mbar_expect(full + 8 * st, 2 * kSliceBytes);
+          tma_slice(stage, &tq, sl * kSlice, r0, bh, full + 8 * st);
+          tma_slice(stage + kSliceBytes, &tdo, sl * kSlice, r0, bh,
+                    full + 8 * st);
+        }
+        __syncwarp();
+      }
+    }
+    return;
+  }
+
+  // consumers: key rows k0 + 16 warp + lane / 4 (+ 8); accumulator columns
+  // (queries of the tile) 8 i + 2 (lane % 4) (+ 1)
+  reg_alloc<240>();
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t own = wg == 0 ? Ks : Vs;  // K for S^T, V for dP^T
+  const uint32_t other = wg == 0 ? 0 : kSliceBytes;  // Q or dO in a stage
+  const uint32_t chunk_op = wg == 0 ? kSliceBytes : 0;  // dO or Q
+  float acc[NB][32];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[b][i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  int ri = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    float s[32];  // S^T (warpgroup 0) or dP^T (warpgroup 1)
+    float2 rows[8];  // lse log2(e) or delta of columns 8 i + 2 (lane % 4)
+    const int first = ri;
+    wgmma_fence();
+    for (int idx = 0; idx < n_tile; ++idx, ++ri) {
+      const int sl = idx < cs ? idx : idx < n_out ? idx + NB
+                                                  : cs + idx - n_out;
+      const int st = ri % rq;
+      mbar_wait(full + 8 * st, (ri / rq) & 1);
+      if (idx == 0) {
+        const float* ld = Ls + st * 128 + (wg == 0 ? 0 : kSlice);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          rows[i] = *reinterpret_cast<const float2*>(ld + 8 * i +
+                                                     2 * (lane % 4));
+      }
+      if (sl < ns) {
+        const uint64_t da = desc_sw128(own + sl * kSliceBytes);
+        const uint64_t db =
+            desc_sw128(Rs + st * 2 * kSliceBytes + other);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(s, da + kk * kStepK, db + kk * kStepK, idx | kk);
+        wgmma_commit();
+      }
+      if (idx < n_out) {  // a slice outside the chunk: done with it
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(empty + 8 * st);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    uint32_t a[4][4];
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float2 lr = rows[i / 4];
+        s[i] = fast_exp2(fmaf(s[i], scale_log2, -(i % 2 ? lr.y : lr.x)));
+      }
+      if (t > 0) named_sync(2);  // warpgroup 1 has read the last P^T
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        Ps[j * kWgThreads + tid] =
+            make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      named_arrive(1);
+      a_from_acc(a, s);
+    } else {
+      named_sync(1);  // P^T of this tile written
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 p = Ps[j * kWgThreads + tid];
+        const float2 dl = rows[j];
+        s[4 * j + 0] = p.x * (s[4 * j + 0] - dl.x);
+        s[4 * j + 1] = p.y * (s[4 * j + 1] - dl.y);
+        s[4 * j + 2] = p.z * (s[4 * j + 2] - dl.x);
+        s[4 * j + 3] = p.w * (s[4 * j + 3] - dl.y);
+      }
+      if (t + 1 < ntiles) named_arrive(2);
+      a_from_acc(a, s);
+    }
+
+    // dV += bf16(P^T) dO[:, c0:] or dK += bf16(dS^T) Q[:, c0:], over the
+    // chunk's slices (the tile's last NB stages)
+    wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int st = (first + n_out + b) % rq;
+      const uint64_t db = desc_sw128(Rs + st * 2 * kSliceBytes + chunk_op);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_t(acc[b], a[kk], db + kk * kStepMN);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+    if (lane == 0)
+      for (int b = 0; b < NB; ++b)
+        mbar_arrive(empty + 8 * ((first + n_out + b) % rq));
+  }
+
+  __nv_bfloat16* const out = wg == 0 ? dv : dk;
+  const float mul = wg == 0 ? 1.f : scale;
+  const size_t head = (size_t)bh * seq_len;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = k0 + warp * 16 + lane / 4 + 8 * r;
+    if (kj >= seq_len) continue;
+    __nv_bfloat16* row = out + (head + kj) * head_dim;
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int c = c0 + b * kSlice + i * 8 + (lane % 4) * 2;
+        if (c < head_dim)
+          *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(
+              acc[b][4 * i + 2 * r] * mul, acc[b][4 * i + 2 * r + 1] * mul);
+      }
+  }
+}
+
+// Shared memory of flash_dkv_wgmma_kernel<NB> with `rq` stages: the
+// 1024-byte alignment slack, K and V, the ring, P^T, the rows of lse and
+// delta and the barriers.
+inline int dkv_wgmma_smem(int ns, int rq) {
+  return 1024 + (2 * ns + 2 * rq) * kSliceBytes + 16 * 1024 + rq * 512 +
+         8 * (1 + 2 * rq);
+}
+
+template <int NB>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv, int bh,
+                             int seq_len, int head_dim, float scale,
+                             cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = encode_rows(&tq, q, bh, seq_len, head_dim)) != cudaSuccess ||
+      (err = encode_rows(&tk, k, bh, seq_len, head_dim)) != cudaSuccess ||
+      (err = encode_rows(&tv, v, bh, seq_len, head_dim)) != cudaSuccess ||
+      (err = encode_rows(&tdo, dout, bh, seq_len, head_dim)) != cudaSuccess)
+    return err;
+  const int ns = (head_dim + kSlice - 1) / kSlice;
+  // the ring holds the chunk's NB slices of a tile at once, and at most
+  // two tiles' worth
+  int rq = 8;
+  while (rq > NB && dkv_wgmma_smem(ns, rq) > kMaxSmem) --rq;
+  const int smem = dkv_wgmma_smem(ns, rq);
+  if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(flash_dkv_wgmma_kernel<NB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_len + kSlice - 1) / kSlice, bh,
+                  wgmma_chunks(head_dim));
+  flash_dkv_wgmma_kernel<NB><<<grid, 3 * kWgThreads, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), seq_len, head_dim, scale, ns, rq);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_wide(int which, const void* q, const void* k,
                         const void* v, const void* dout, const void* lse,
                         const void* delta, void* out0, void* out1, int bh,
@@ -1260,7 +1532,13 @@ cudaError_t launch_wide(int which, const void* q, const void* k,
   const float* lse_ = static_cast<const float*>(lse);
   const float* delta_ = static_cast<const float*>(delta);
   cudaError_t err;
-  if (dtype == 1) {
+  if (dtype == 1 && which == 1 && wgmma_route(head_dim, {q, k, v, dout})) {
+    if (wgmma_boxes(head_dim) == 3)
+      return launch_dkv_wgmma<3>(q, k, v, dout, lse, delta, out0, out1, bh,
+                                 seq_len, head_dim, scale, stream);
+    return launch_dkv_wgmma<4>(q, k, v, dout, lse, delta, out0, out1, bh,
+                               seq_len, head_dim, scale, stream);
+  } else if (dtype == 1) {
     using bf = __nv_bfloat16;
     const bf* q_ = static_cast<const bf*>(q);
     const bf* k_ = static_cast<const bf*>(k);

@@ -6,9 +6,10 @@ _fwd_kernel``, K5 ``_dq_kernel`` and K6 ``_dkv_kernel`` (through
 ``flash_attention``, a custom VJP there): the PUNetG bottleneck attention
 with ``attn_backend='flash'`` at T ≥ 2048 tokens (config A: 16³ = 4096
 tokens, head dim 32). Sources: ``csrc/flash_attention.cu`` (K4) and
-``csrc/flash_attention_bwd.cu`` (K5, K6), CUDA C++; the tensor-core pieces
-in ``csrc/flash_mma.cuh``, the f32 tile layout and dispatch in
-``csrc/flash_common.cuh``.
+``csrc/flash_attention_bwd.cu`` (K5, K6), CUDA C++; the ``mma.sync``
+pieces in ``csrc/flash_mma.cuh``, the ``wgmma``/TMA pieces of the wide
+K4 and K6 in ``csrc/flash_wgmma.cuh``, the f32 tile layout and dispatch
+in ``csrc/flash_common.cuh``.
 
 - What bounds them on the H100: operations. K4 does 4·T²·d flops, K5
   6·T²·d and K6 8·T²·d per head against (4·T·d + T) elements moved: at
@@ -38,8 +39,9 @@ in ``csrc/flash_mma.cuh``, the f32 tile layout and dispatch in
   ``flash_attention.py:106``; dS before dS·K, ``:179``; P and dS before
   dV and dK, ``:209, 211``), so the port rounds as the JAX reference
   does. Rows that are not 16-byte aligned (d % 8 ≠ 0) are staged by
-  element loads in the same kernels. ``wgmma``/TMA and warp
-  specialisation are later work.
+  element loads in the same kernels. At d ≤ 128 they stay on
+  ``mma.sync``: at d = 32 the exponentials, not the products, set the
+  floor.
 - float32: the FP32 pipes. One block per (batch·head, 64 rows) loops over
   64-row tiles of the other side staged in shared memory; four threads
   share a row, each scoring a quarter of the other tile and owning a
@@ -58,16 +60,35 @@ in ``csrc/flash_mma.cuh``, the f32 tile layout and dispatch in
   copies, and take head dims up to 128 by zero-padding in shared memory to
   the next of 16, 32, 64, 128. Each wrapper call is one kernel launch.
 - Head dims above 128 (ADM's single 256-channel head, any d the JAX
-  kernel takes): the wide kernels, one per K4, K5, K6 and dtype, in the
-  same sources. A block owns one 128-column chunk of the output (grid z)
-  and sums S = Q Kᵀ (and dP = dO Vᵀ) over 128-column chunks of d staged
-  one at a time in shared memory, so neither shared memory nor registers
-  grow with d; bf16 on the tensor cores with 32-row tiles of the other
-  side and the A fragments read from shared memory, f32 on the FP32
-  pipes in the layout above. Each chunk's block recomputes its rows'
-  scores, so the score work is ⌈d/128⌉ times the minimum: a simple kernel
-  that is right, not yet a fast one. The bf16 roundings are the same (P
-  before P·V and dV, dS before dQ and dK).
+  kernel takes), the wide kernels, in the same sources; the launcher
+  picks one by a shape rule, and a call is one launch either way:
+  - bf16 K4 and K6 on rows that TMA can read (d % 8 = 0, 16-byte aligned
+    bases) up to d 512: warp-specialised ``wgmma`` kernels, as the TPU
+    kernel takes the full head dim per block. One producer warpgroup
+    issues TMA copies of 64 × 64 slices (128-byte swizzle; rows past T
+    and columns past d read as zeros) into a ring of shared-memory
+    stages with full/empty mbarriers; two consumer warpgroups of 64 rows
+    each (K4: 128 query rows a block, Q staged once; K6: one 64-key
+    block, K and V staged once) compute the scores once per tile over
+    all of d on ``wgmma`` m64n64k16 and keep the output in f32
+    registers (``setmaxnreg`` 240). Above d 256 the output is split
+    into 192- or 256-column chunks (grid z), so the score work is at
+    most twice the minimum at d 512. K4's online softmax is the
+    ``mma.sync`` kernel's, on the ``wgmma`` accumulator (the same row
+    layout), with P rounded to bf16 in registers as the A operand of
+    P·V. In K6 one warpgroup takes Sᵀ = K Qᵀ, Pᵀ and dV += bf16(Pᵀ) dO,
+    the other dPᵀ = V dOᵀ, dSᵀ = Pᵀ∘(dPᵀ − delta) with the f32 Pᵀ handed
+    over through shared memory, and dK += bf16(dSᵀ) Q.
+  - Everything else above 128 (f32, unaligned bf16 rows such as d 260,
+    d > 512, and K5 at every d): one kernel per K4, K5, K6 and dtype. A
+    block owns one 128-column chunk of the output (grid z) and sums
+    S = Q Kᵀ (and dP = dO Vᵀ) over 128-column chunks of d staged one at a
+    time in shared memory, so neither shared memory nor registers grow
+    with d; bf16 on ``mma.sync`` with 32-row tiles of the other side, f32
+    on the FP32 pipes in the layout above. Each chunk's block recomputes
+    its rows' scores: ⌈d/128⌉ times the minimum score work.
+  The bf16 roundings are the same on both routes (P before P·V and dV,
+  dS before dQ and dK).
 """
 
 from __future__ import annotations

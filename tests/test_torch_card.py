@@ -153,14 +153,23 @@ def test_flash_forward_matches_plain_on_card(dtype, shape):
     assert float((lse - rlse).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 2048, 256), (1, 2, 2049, 512),
-                                   (2, 1, 2048, 200)])
+# head dims above 128 at ragged T: in bf16, 136, 192 and 256 take one pass
+# of the wgmma K4 and K6, 320 and 512 their 192- and 256-column chunks,
+# 200 zero-padded columns of aligned rows; 260 (520-byte rows, which TMA
+# cannot read) the mma.sync wide kernels, as f32 does at every one
+_WIDE = ((1, 1, 2048, 256), (1, 2, 2049, 512), (2, 1, 2048, 200),
+         (1, 1, 2049, 136), (1, 1, 2111, 192), (2, 1, 2111, 256),
+         (1, 2, 2049, 320), (1, 1, 2111, 512), (1, 1, 2049, 260))
+
+
+@pytest.mark.parametrize("shape", _WIDE)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernels_take_wide_head_dims_on_card(dtype, shape):
-    """Head dims above 128 (ADM's one 256-channel head; a head dim that is
-    no multiple of 128): K4, K5 and K6 launch once each through their
-    wide kernels and hold their plain versions' bounds, the fixed fault
-    that raised there while the JAX package took them."""
+    """Head dims above 128 (ADM's one 256-channel head; head dims that are
+    no multiple of 128, on both wide routes): K4, K5 and K6 launch once
+    each through their wide kernels and hold their plain versions'
+    bounds, the fixed fault that raised there while the JAX package took
+    them."""
     dt = getattr(torch, dtype)
     gen = torch.Generator("cuda").manual_seed(4)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -177,6 +186,24 @@ def test_flash_kernels_take_wide_head_dims_on_card(dtype, shape):
     for o_, r in zip(got, fa.flash_attention_bwd_plain(q, k, v, o, lse, do)):
         _assert_grad_close(o_, r)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 2049, 256), (1, 2, 2111, 512),
+                                   (1, 1, 2049, 260)])
+def test_flash_wide_kernels_are_deterministic_on_card(shape):
+    """The wide bf16 K4 and K6 (wgmma at d 256 and 512, mma.sync at 260)
+    have one writer per output element and no atomics: the same inputs
+    give bit-identical O, lse, dK and dV."""
+    gen = torch.Generator("cuda").manual_seed(6)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    delta = (do.float() * o.float()).sum(-1)
+    first = fa.flash_attention_dkv(q, k, v, do, lse, delta)
+    second = fa.flash_attention_dkv(q, k, v, do, lse, delta)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_flash_dkv_is_deterministic_on_card():

@@ -4,7 +4,9 @@ The bf16 K4, K5 and K6 (``diffsci_tpu_torch/csrc/flash_attention.cu``,
 ``flash_attention_bwd.cu``) round the probabilities P (K4, K6) and dS (K5,
 K6) to bf16 in registers before the tensor-core products, with f32
 accumulation; K4 does so tile by tile against the running max of its
-online softmax (64-key tiles). ``_emulate_fwd`` and
+online softmax (64-key tiles; 32 in the ``mma.sync`` wide kernel that
+rows of head dims above 128 take when TMA cannot read them).
+``_emulate_fwd`` and
 ``_emulate_bwd`` repeat that arithmetic in PyTorch. They are held against
 the JAX package's flash attention (Pallas in interpret mode, and
 ``jax.grad`` through its custom VJP), which casts p and ds to the input
@@ -26,13 +28,21 @@ from diffsci_tpu.kernels import flash_attention as jfa
 
 from diffsci_tpu_torch.kernels import flash_attention as fa
 
-KEY_TILE = 64           # K4's key tile (kMmaKeys)
+KEY_TILE = 64           # K4's key tile (kMmaKeys; the wgmma kernel's too)
 LOG2E = math.log2(math.e)
 
 
+def _wide_key_tile(d):
+    """K4's key tile at a head dim above 128, by the launcher's shape rule
+    (``wgmma_route`` in ``csrc/flash_wgmma.cuh``): 64 in the wgmma kernel
+    (bf16 rows of d ≤ 512 that are 16-byte aligned, d % 8 == 0), 32 in
+    the mma.sync wide kernel (``kWideKeys``) otherwise."""
+    return KEY_TILE if d <= 512 and d % 8 == 0 else 32
+
+
 def _emulate_fwd(q, k, v, key_tile=KEY_TILE):
-    """K4 in bf16: online softmax over 64-key tiles (32 in the wide kernel
-    of head dims above 128) in the log2 domain, P rounded to bf16 before
+    """K4 in bf16: online softmax over ``key_tile``-key tiles (64; 32 in
+    the mma.sync wide kernel, ``_wide_key_tile``) in the log2 domain, P rounded to bf16 before
     P·V, l summed over the f32 P; O in bf16 and the natural-log lse in
     f32."""
     T, d = q.shape[-2:]
@@ -150,11 +160,13 @@ def test_emulated_rounding_within_chip_tolerance_of_plain(T, d):
 
 
 
-@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("d", [136, 256, 260, 320, 512])
 def test_wide_head_dims_against_jax_flash(d):
     """Head dims above 128 (ADM's one 256-channel head; 512 at
-    model_channels=128), which K4-K6 take through their wide kernels
-    (32-key tiles in K4). Against the JAX package's bf16 flash kernels in
+    model_channels=128; 136 and 320, one pass and two chunks of the wgmma
+    kernels; 260, rows that only the mma.sync wide kernels read), which
+    K4-K6 take through their wide kernels (K4's key tile by the route,
+    ``_wide_key_tile``). Against the JAX package's bf16 flash kernels in
     interpret mode: the emulation of the wide K4 and of K5/K6 at
     ``test_emulated_rounding_matches_jax_flash``'s bounds, with O's "one
     bf16 step" taken as the step at each entry's magnitude (2^-7 of the
@@ -168,7 +180,7 @@ def test_wide_head_dims_against_jax_flash(d):
     q, k, v, do = _inputs(2048, d)
     jo, *jgrads = _jax(q, k, v, do)
     r = jo.abs()
-    o, lse = _emulate_fwd(q, k, v, key_tile=32)
+    o, lse = _emulate_fwd(q, k, v, key_tile=_wide_key_tile(d))
     diff = (o.float() - jo).abs()
     step = torch.exp2(torch.floor(torch.log2(r.clamp_min(1e-30))) - 7)
     assert bool((diff <= step + 2e-3 * r.max()).all()), float(diff.max())
