@@ -861,7 +861,7 @@ def phase_kernels():
                        f"{ratio:.1e})", dtype, err, ok, GRAD_LIMIT)
 
     # the bf16 K4, K5 and K6 run on the tensor cores: mma.sync (HMMA), and
-    # wgmma (HGMMA) in the wide K4 and K6 of aligned rows
+    # wgmma (HGMMA) in the wide K4, K5 and K6 of aligned rows
     counts = tensor_core_counts()
     for kernel, per_instance in sorted(counts.items()):
         log(f"[kernels] sass {kernel}: [HMMA, HGMMA] per instantiation "
@@ -873,6 +873,8 @@ def phase_kernels():
                          ("flash_dq_wide_mma_kernel", 0),
                          ("flash_dkv_wide_mma_kernel", 0),
                          ("flash_fwd_wgmma_kernel", 1),
+                         ("flash_dq_wgmma_kernel", 1),
+                         ("flash_dq_wgmma_pair_kernel", 1),
                          ("flash_dkv_wgmma_kernel", 1)):
         if min(c[kind] for c in counts.get(kernel, [[0, 0]])) == 0:
             failures.append(f"{kernel}: no {('HMMA', 'HGMMA')[kind]} "

@@ -45,7 +45,7 @@
 // registers; the scale is applied once and each is written once. Padded
 // query rows are zeros with lse = delta = 0, so they add exactly 0. At
 // d <= 128 both stay on mma.sync: at d = 32 the exponentials set the
-// floor. The wide K6 of TMA-readable rows is on wgmma (below).
+// floor. The wide K5 and K6 of TMA-readable rows are on wgmma (below).
 //
 // K5 and K6 in float32: the FP32 pipes. Four threads share a row of the
 // block's own tile; each scores a quarter of the other tile's rows and
@@ -57,12 +57,14 @@
 //
 // Ragged T is masked in the kernels: rows past T are loaded as zeros, get
 // P = 0 or add 0, and are never stored. Head dims below the template's D
-// are zero-padded in shared memory only. Head dims above 128: K6 in bf16,
-// on rows that TMA can read up to d 512, goes to flash_dkv_wgmma_kernel
-// (warp-specialised: TMA into a ring of shared-memory stages, S^T and dP^T
-// once per (key tile, query tile) over all of d on wgmma, dK and dV in
-// 256-column chunks above d 256; flash_wgmma.cuh). The rest (K5 at every
-// d, f32, unaligned rows, d > 512) goes to the wide kernels
+// are zero-padded in shared memory only. Head dims above 128: K5 and K6
+// in bf16, on rows that TMA can read up to d 512, go to warp-specialised
+// wgmma kernels (TMA into rings of shared-memory stages, the scores once
+// per (query tile, key tile) over all of d, twice at most above d 256;
+// flash_wgmma.cuh): K5 to flash_dq_wgmma_kernel up to d 256 and to
+// flash_dq_wgmma_pair_kernel above (dQ in 256-column chunks), K6 to
+// flash_dkv_wgmma_kernel (dK and dV in 256-column chunks above d 256). The
+// rest (f32, unaligned rows, d > 512) goes to the wide kernels
 // (flash_dq_wide_*, flash_dkv_wide_*), which stage d in 128-column chunks
 // (flash_common.cuh) and take any head_dim. Either way a call is one
 // launch.
@@ -742,11 +744,14 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
 
 // ---- head dims above 128 (flash_common.cuh: any head_dim) -------------
 
-// K5 in bf16, wide: one block per (bh, tile of kMmaRows query rows,
-// kWideCols-column chunk c0 of dQ). Per tile of kWideKeys keys, S = Q K^T
-// and dP = dO V^T are summed over staged kWideCols-column chunks of Q, dO,
-// K and V (the A fragments read from shared memory); P and dS as in K5;
-// then K's chunk c0 is staged and dQ's chunk += bf16(dS) K[:, c0:].
+// K5 in bf16, wide, for rows that TMA cannot read (d % 8 != 0, unaligned
+// bases), d > 512 and builds with -DFLASH_WGMMA_MAX_DIM=128; the rest of
+// bf16 above d 128 takes the wgmma kernels further down (launch_wide).
+// One block per (bh, tile of kMmaRows query rows, kWideCols-column chunk
+// c0 of dQ). Per tile of kWideKeys keys, S = Q K^T and dP = dO V^T are
+// summed over staged kWideCols-column chunks of Q, dO, K and V (the A
+// fragments read from shared memory); P and dS as in K5; then K's chunk
+// c0 is staged and dQ's chunk += bf16(dS) K[:, c0:].
 template <bool kAsync>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_dq_wide_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -1523,6 +1528,517 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// K5 in bf16, wgmma route (flash_wgmma.cuh: 16-byte aligned rows), d in
+// (128, 256] (FLASH_DQ_WGMMA_ROWS 128, the default): K4's layout. One
+// block per (bh, 128 query rows); warpgroups 0 and 1 consume, 64 query
+// rows each, with no handoff; warpgroup 2 produces (one thread issues
+// every TMA copy). Q's and dO's NB 64-column slices of the block's rows
+// are staged once; per 64-key tile the NB K slices stream through a ring
+// of `rk` 8 KB stages and the NB V slices through a ring of `rv`. Each
+// consumer warpgroup takes S = Q K^T and dP = dO V^T over all of d (both
+// on wgmma from shared memory, issued together), releases the V stages,
+// forms P = exp2(S scale log2(e) - lse log2(e)) (keys past T: P = 0, their
+// rows read as zeros and would score 0, not -inf) and dS = P (dP - delta)
+// in f32 registers, rounds dS to bf16 as the A operand, where the Pallas
+// kernel rounds it (flash_attention.py:179), and takes dQ += bf16(dS) K
+// over its NB accumulators (K transposed by the descriptor, as K4's P V
+// takes V), then releases the K stages. So the scores are computed once
+// per (query tile, key tile), and the two warpgroups run apart: one's
+// exponentials overlap the other's products. Registers a thread: dQ
+// 32 NB, S and dP 32 each. Padded query rows are zeros with lse = delta =
+// 0 and are not stored; dQ (times the scale, applied once) is written
+// once, one writer an element. Shared memory (dq_wgmma_smem): 1 KB slack,
+// Q and dO 4 NB 8 KB, the rings (rk + rv) 8 KB, barriers 8 (1 + 2 rk +
+// 2 rv) bytes: at d 256 (NB 4, rk 8, rv 4) 230,600 of 232,448 bytes.
+template <int NB>
+__global__ void __launch_bounds__(3 * kWgThreads, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int seq_len,
+                          int head_dim, float scale, int rk, int rv) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t Qs = base;                      // [NB][2] slices
+  const uint32_t dOs = Qs + NB * 2 * kSliceBytes;  // [NB][2] slices
+  const uint32_t Ks = dOs + NB * 2 * kSliceBytes;  // [rk] slices
+  const uint32_t Vs = Ks + rk * kSliceBytes;       // [rv] slices
+  const uint32_t bars = Vs + rv * kSliceBytes;
+  const uint32_t qd_full = bars;
+  const uint32_t k_full = bars + 8, k_empty = k_full + 8 * rk;
+  const uint32_t v_full = k_empty + 8 * rk, v_empty = v_full + 8 * rv;
+
+  const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * 128, bh = blockIdx.y;
+  const int ntiles = (seq_len + kSlice - 1) / kSlice;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int i = 0; i < rk; ++i) {
+      mbar_init(k_full + 8 * i, 1);
+      mbar_init(k_empty + 8 * i, 8);
+    }
+    for (int i = 0; i < rv; ++i) {
+      mbar_init(v_full + 8 * i, 1);
+      mbar_init(v_empty + 8 * i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    reg_dealloc<24>();
+    if (tid != 0) return;
+    mbar_expect(qd_full, NB * 4 * kSliceBytes);
+    for (int s = 0; s < NB; ++s)
+      for (int h = 0; h < 2; ++h) {
+        tma_slice(Qs + (2 * s + h) * kSliceBytes, &tq, s * kSlice,
+                  q0 + h * kSlice, bh, qd_full);
+        tma_slice(dOs + (2 * s + h) * kSliceBytes, &tdo, s * kSlice,
+                  q0 + h * kSlice, bh, qd_full);
+      }
+    int ki = 0, vi = 0;
+    for (int t = 0; t < ntiles; ++t) {
+      for (int s = 0; s < NB; ++s, ++ki) {
+        const int st = ki % rk;
+        mbar_wait(k_empty + 8 * st, ((ki / rk) & 1) ^ 1);
+        mbar_expect(k_full + 8 * st, kSliceBytes);
+        tma_slice(Ks + st * kSliceBytes, &tk, s * kSlice, t * kSlice, bh,
+                  k_full + 8 * st);
+      }
+      for (int s = 0; s < NB; ++s, ++vi) {
+        const int st = vi % rv;
+        mbar_wait(v_empty + 8 * st, ((vi / rv) & 1) ^ 1);
+        mbar_expect(v_full + 8 * st, kSliceBytes);
+        tma_slice(Vs + st * kSliceBytes, &tv, s * kSlice, t * kSlice, bh,
+                  v_full + 8 * st);
+      }
+    }
+    return;
+  }
+
+  // consumers: rows q0 + 64 wg + 16 warp + lane / 4 (+ 8)
+  reg_alloc<240>();
+  const float scale_log2 = scale * kLog2e;
+  const size_t head = (size_t)bh * seq_len;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + wg * kSlice + warp * 16 + lane / 4 + 8 * r;
+    l2[r] = qi < seq_len ? lse[head + qi] * kLog2e : 0.f;
+    dl[r] = qi < seq_len ? delta[head + qi] : 0.f;
+  }
+  float acc[NB][32];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[b][i] = 0.f;
+  const uint32_t q_own = Qs + wg * kSliceBytes;
+  const uint32_t do_own = dOs + wg * kSliceBytes;
+  mbar_wait(qd_full, 0);
+
+  int ki = 0, vi = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    // S = Q K^T and dP = dO V^T over the NB slices of d
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int sl = 0; sl < NB; ++sl) {
+      const int st = (ki + sl) % rk;
+      mbar_wait(k_full + 8 * st, ((ki + sl) / rk) & 1);
+      const uint64_t da = desc_sw128(q_own + 2 * sl * kSliceBytes);
+      const uint64_t db = desc_sw128(Ks + st * kSliceBytes);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(s, da + kk * kStepK, db + kk * kStepK, sl | kk);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int sl = 0; sl < NB; ++sl) {
+      const int st = (vi + sl) % rv;
+      mbar_wait(v_full + 8 * st, ((vi + sl) / rv) & 1);
+      const uint64_t da = desc_sw128(do_own + 2 * sl * kSliceBytes);
+      const uint64_t db = desc_sw128(Vs + st * kSliceBytes);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(dp, da + kk * kStepK, db + kk * kStepK, sl | kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    if (lane == 0)
+      for (int sl = 0; sl < NB; ++sl)
+        mbar_arrive(v_empty + 8 * ((vi + sl) % rv));
+    vi += NB;
+
+    const int k0 = t * kSlice;
+    const bool ragged = k0 + kSlice > seq_len;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      float p = fast_exp2(fmaf(s[i], scale_log2, -l2[r]));
+      if (ragged && k0 + (i / 4) * 8 + (lane % 4) * 2 + (i % 2) >= seq_len)
+        p = 0.f;
+      dp[i] = p * (dp[i] - dl[r]);
+    }
+    uint32_t a[4][4];
+    a_from_acc(a, dp);
+
+    // dQ += bf16(dS) K, K transposed by the descriptor
+    wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const uint64_t db = desc_sw128(Ks + ((ki + b) % rk) * kSliceBytes);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_t(acc[b], a[kk], db + kk * kStepMN);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+    if (lane == 0)
+      for (int b = 0; b < NB; ++b) mbar_arrive(k_empty + 8 * ((ki + b) % rk));
+    ki += NB;
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + wg * kSlice + warp * 16 + lane / 4 + 8 * r;
+    if (qi >= seq_len) continue;
+    __nv_bfloat16* out = dq + (head + qi) * head_dim;
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int c = b * kSlice + i * 8 + (lane % 4) * 2;
+        if (c < head_dim)
+          *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(
+              acc[b][4 * i + 2 * r] * scale, acc[b][4 * i + 2 * r + 1] * scale);
+      }
+  }
+}
+
+// Shared memory of flash_dq_wgmma_kernel<NB> with `rk` K and `rv` V
+// stages: the alignment slack, Q and dO, the rings and the barriers.
+inline int dq_wgmma_smem(int nb, int rk, int rv) {
+  return 1024 + (4 * nb + rk + rv) * kSliceBytes + 8 * (1 + 2 * rk + 2 * rv);
+}
+
+template <int NB>
+cudaError_t launch_dq_rows(const CUtensorMap (&maps)[4], const void* lse,
+                           const void* delta, void* dq, int bh, int seq_len,
+                           int head_dim, float scale, cudaStream_t stream) {
+  int rk = 2 * NB, rv = NB;
+  while (rk > NB && dq_wgmma_smem(NB, rk, rv) > kMaxSmem) --rk;
+  const int smem = dq_wgmma_smem(NB, rk, rv);
+  if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dq_wgmma_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_len + 127) / 128, bh);
+  flash_dq_wgmma_kernel<NB><<<grid, 3 * kWgThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
+      seq_len, head_dim, scale, rk, rv);
+  return cudaGetLastError();
+}
+
+// K5 in bf16, wgmma route above d 256 (at every d of the route when
+// FLASH_DQ_WGMMA_ROWS is 64), where Q and dO of 128 rows would not fit:
+// one block per (bh, 64 query rows, DC-column chunk c0 of dQ; DC = 64
+// NB). Q's and dO's ns 64-column slices are staged once. Per 64-key tile
+// the producer (warpgroup 2, one thread issuing TMA) streams K and V
+// slices through a ring of `rk` 16 KB stages (a K slice and the V slice of
+// the same columns), first the slices of d outside the chunk, then the NB
+// chunk slices. Warpgroup 0: S = Q K^T over all of d,
+// P = exp2(S scale log2(e) - lse log2(e)) in f32 (keys past T: P = 0,
+// their rows read as zeros and would score 0, not -inf), handed to
+// warpgroup 1 through shared memory. Warpgroup 1: dP = dO V^T over all of
+// d, dS = P (dP - delta) with the f32 P, rounded to bf16 where the Pallas
+// kernel rounds it (flash_attention.py:179) and handed back as the A
+// fragments of the next product (the two warpgroups' accumulators share
+// one layout, so a thread reads what the same thread of the other wrote).
+// Then both: dQ[:, their half of the chunk] += bf16(dS) K[:, half]
+// (warpgroup 0 the first NH = ceil(NB / 2) slices, warpgroup 1 the rest),
+// K transposed by the descriptor, as K4's P V takes V. So the scores are
+// computed once per (query tile, key tile) up to d 256 and twice at d 512.
+// A stage is released (one arrival from each of the 8 consumer warps)
+// once the products that read it have completed: slices outside the chunk
+// after S / dP, the chunk's after both dQ products. Handoffs: named
+// barriers 1 (P written), 2 (P read), 3 (dS written), 4 (dS read).
+// Padded query rows are zeros with lse = delta = 0 and are not stored. dQ
+// (times the scale, applied once) is written once, one writer an element.
+// Shared memory (dq_pair_smem): 1 KB alignment slack, Q and dO 2 ns 8 KB,
+// the ring rk 16 KB, P 16 KB, bf16(dS) 8 KB, barriers 8 (1 + 2 rk) bytes:
+// d 256 (ns 4, rk 8) 222,344 bytes; d 512 (ns 8, two 256-column chunks,
+// rk 4 = NB: the ring holds one tile's chunk slices) 222,280 bytes, of
+// 232,448.
+template <int NB>
+__global__ void __launch_bounds__(3 * kWgThreads, 1)
+    flash_dq_wgmma_pair_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dq, int seq_len,
+                               int head_dim, float scale, int ns, int rk) {
+  constexpr int NH = (NB + 1) / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const gbase = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  const uint32_t base = smem_u32(gbase);
+  const uint32_t Qs = base;                          // [ns] slices
+  const uint32_t dOs = Qs + ns * kSliceBytes;        // [ns] slices
+  const uint32_t Rs = dOs + ns * kSliceBytes;        // [rk] stages: K, V
+  const int p_off = (2 * ns + 2 * rk) * kSliceBytes;
+  float4* const Ps = reinterpret_cast<float4*>(gbase + p_off);  // [8][128]
+  uint4* const dSs =
+      reinterpret_cast<uint4*>(gbase + p_off + 16 * 1024);      // [4][128]
+  const uint32_t bars = smem_u32(dSs + 4 * kWgThreads);
+  const uint32_t qd_full = bars;
+  const uint32_t full = bars + 8, empty = full + 8 * rk;
+
+  const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * kSlice, bh = blockIdx.y;
+  const int cs = blockIdx.z * NB;  // the chunk's first slice
+  const int c0 = cs * kSlice;
+  const int ntiles = (seq_len + kSlice - 1) / kSlice;
+  // slices a key tile streams: those of d outside the chunk, then the
+  // chunk's NB
+  const int n_out = cs + max(0, ns - cs - NB);
+  const int n_tile = n_out + NB;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int i = 0; i < rk; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    reg_dealloc<24>();
+    if (tid != 0) return;
+    mbar_expect(qd_full, 2 * ns * kSliceBytes);
+    for (int s = 0; s < ns; ++s) {
+      tma_slice(Qs + s * kSliceBytes, &tq, s * kSlice, q0, bh, qd_full);
+      tma_slice(dOs + s * kSliceBytes, &tdo, s * kSlice, q0, bh, qd_full);
+    }
+    int ri = 0;
+    for (int t = 0; t < ntiles; ++t) {
+      for (int idx = 0; idx < n_tile; ++idx, ++ri) {
+        const int sl = idx < cs ? idx : idx < n_out ? idx + NB
+                                                    : cs + idx - n_out;
+        const int st = ri % rk;
+        const uint32_t stage = Rs + st * 2 * kSliceBytes;
+        mbar_wait(empty + 8 * st, ((ri / rk) & 1) ^ 1);
+        mbar_expect(full + 8 * st, 2 * kSliceBytes);
+        tma_slice(stage, &tk, sl * kSlice, t * kSlice, bh, full + 8 * st);
+        tma_slice(stage + kSliceBytes, &tv, sl * kSlice, t * kSlice, bh,
+                  full + 8 * st);
+      }
+    }
+    return;
+  }
+
+  // consumers: query rows q0 + 16 warp + lane / 4 (+ 8); accumulator
+  // columns (keys of the tile, then dQ's) 8 i + 2 (lane % 4) (+ 1)
+  reg_alloc<240>();
+  const float scale_log2 = scale * kLog2e;
+  const size_t head = (size_t)bh * seq_len;
+  float row[2];  // lse log2(e) (warpgroup 0) or delta (warpgroup 1)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + lane / 4 + 8 * r;
+    row[r] = qi >= seq_len ? 0.f
+             : wg == 0     ? lse[head + qi] * kLog2e
+                           : delta[head + qi];
+  }
+  const uint32_t own = wg == 0 ? Qs : dOs;           // Q for S, dO for dP
+  const uint32_t other = wg == 0 ? 0 : kSliceBytes;  // K or V in a stage
+  // dQ's chunk slices b0 + b, b < nw: the first NH in warpgroup 0
+  const int b0 = wg == 0 ? 0 : NH, nw = wg == 0 ? NH : NB - NH;
+  float acc[NH][32];
+#pragma unroll
+  for (int b = 0; b < NH; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[b][i] = 0.f;
+  mbar_wait(qd_full, 0);
+
+  int ri = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    float s[32];  // S (warpgroup 0) or dP (warpgroup 1)
+    const int first = ri;
+    wgmma_fence();
+    for (int idx = 0; idx < n_tile; ++idx, ++ri) {
+      const int sl = idx < cs ? idx : idx < n_out ? idx + NB
+                                                  : cs + idx - n_out;
+      const int st = ri % rk;
+      mbar_wait(full + 8 * st, (ri / rk) & 1);
+      if (sl < ns) {
+        const uint64_t da = desc_sw128(own + sl * kSliceBytes);
+        const uint64_t db = desc_sw128(Rs + st * 2 * kSliceBytes + other);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(s, da + kk * kStepK, db + kk * kStepK, idx | kk);
+        wgmma_commit();
+      }
+      if (idx < n_out) {  // a slice outside the chunk: done with it
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(empty + 8 * st);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    uint32_t a[4][4];  // bf16(dS), the A operand of dQ's product
+    if (wg == 0) {
+      const int k0 = t * kSlice;
+      const bool ragged = k0 + kSlice > seq_len;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = fast_exp2(fmaf(s[i], scale_log2, -row[(i / 2) % 2]));
+        if (ragged && k0 + (i / 4) * 8 + (lane % 4) * 2 + (i % 2) >= seq_len)
+          s[i] = 0.f;
+      }
+      if (t > 0) named_sync(2);  // warpgroup 1 has read the last P
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        Ps[j * kWgThreads + tid] =
+            make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      named_arrive(1);
+      named_sync(3);  // bf16(dS) of this tile written
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint4 w = dSs[kk * kWgThreads + tid];
+        a[kk][0] = w.x;
+        a[kk][1] = w.y;
+        a[kk][2] = w.z;
+        a[kk][3] = w.w;
+      }
+      if (t + 1 < ntiles) named_arrive(4);
+    } else {
+      named_sync(1);  // P of this tile written
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 p = Ps[j * kWgThreads + tid];
+        s[4 * j + 0] = p.x * (s[4 * j + 0] - row[0]);
+        s[4 * j + 1] = p.y * (s[4 * j + 1] - row[0]);
+        s[4 * j + 2] = p.z * (s[4 * j + 2] - row[1]);
+        s[4 * j + 3] = p.w * (s[4 * j + 3] - row[1]);
+      }
+      if (t + 1 < ntiles) named_arrive(2);
+      a_from_acc(a, s);
+      if (t > 0) named_sync(4);  // warpgroup 0 has read the last dS
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        dSs[kk * kWgThreads + tid] =
+            make_uint4(a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
+      named_arrive(3);
+    }
+
+    // dQ[:, own slices] += bf16(dS) K[:, own slices]: K transposed by the
+    // descriptor, a k16 step is 16 keys. Outside the branches above, so
+    // that ptxas keeps the products asynchronous; at NB = 3 warpgroup 1's
+    // second product repeats its one slice and is not stored.
+    wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < NH; ++b) {
+      const int st = (first + n_out + min(b0 + b, NB - 1)) % rk;
+      const uint64_t db = desc_sw128(Rs + st * 2 * kSliceBytes);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_t(acc[b], a[kk], db + kk * kStepMN);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < NH; ++b) fence_regs(acc[b]);
+    if (lane == 0)
+      for (int b = 0; b < NB; ++b)
+        mbar_arrive(empty + 8 * ((first + n_out + b) % rk));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + lane / 4 + 8 * r;
+    if (qi >= seq_len) continue;
+    __nv_bfloat16* out = dq + (head + qi) * head_dim;
+#pragma unroll
+    for (int b = 0; b < NH; ++b)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int c = c0 + (b0 + b) * kSlice + i * 8 + (lane % 4) * 2;
+        if (b < nw && c < head_dim)
+          *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(
+              acc[b][4 * i + 2 * r] * scale, acc[b][4 * i + 2 * r + 1] * scale);
+      }
+  }
+}
+
+// Shared memory of flash_dq_wgmma_pair_kernel with `rk` stages: the
+// 1024-byte alignment slack, Q and dO, the ring, P, bf16(dS) and the
+// barriers.
+inline int dq_pair_smem(int ns, int rk) {
+  return 1024 + (2 * ns + 2 * rk) * kSliceBytes + 16 * 1024 + 8 * 1024 +
+         8 * (1 + 2 * rk);
+}
+
+// The layout of the wgmma K5 up to d 256: 128 query rows a block, one
+// warpgroup each 64 (flash_dq_wgmma_kernel), or 64 a block shared by the
+// two warpgroups through the P and dS handoffs (64:
+// flash_dq_wgmma_pair_kernel, which takes d above 256 either way).
+// scripts/torch_flash_wide.py times both: at I's d 256 the first took
+// 0.32 ms and the second 0.57 ms at [8, 1, 4096, 256] on the H100.
+#ifndef FLASH_DQ_WGMMA_ROWS
+#define FLASH_DQ_WGMMA_ROWS 128
+#endif
+
+template <int NB>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int bh, int seq_len,
+                            int head_dim, float scale, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, dout};
+  cudaError_t err;
+  for (int i = 0; i < 4; ++i)
+    if ((err = encode_rows(&maps[i], ptrs[i], bh, seq_len, head_dim)) !=
+        cudaSuccess)
+      return err;
+  if (FLASH_DQ_WGMMA_ROWS == 128 && head_dim <= 256)
+    return launch_dq_rows<NB>(maps, lse, delta, dq, bh, seq_len, head_dim,
+                              scale, stream);
+  const int ns = (head_dim + kSlice - 1) / kSlice;
+  // the ring holds the chunk's NB slices of a tile at once, and at most
+  // two tiles' worth
+  int rk = 8;
+  while (rk > NB && dq_pair_smem(ns, rk) > kMaxSmem) --rk;
+  const int smem = dq_pair_smem(ns, rk);
+  if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(flash_dq_wgmma_pair_kernel<NB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_len + kSlice - 1) / kSlice, bh,
+                  wgmma_chunks(head_dim));
+  flash_dq_wgmma_pair_kernel<NB><<<grid, 3 * kWgThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
+      seq_len, head_dim, scale, ns, rk);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_wide(int which, const void* q, const void* k,
                         const void* v, const void* dout, const void* lse,
                         const void* delta, void* out0, void* out1, int bh,
@@ -1532,12 +2048,17 @@ cudaError_t launch_wide(int which, const void* q, const void* k,
   const float* lse_ = static_cast<const float*>(lse);
   const float* delta_ = static_cast<const float*>(delta);
   cudaError_t err;
-  if (dtype == 1 && which == 1 && wgmma_route(head_dim, {q, k, v, dout})) {
-    if (wgmma_boxes(head_dim) == 3)
-      return launch_dkv_wgmma<3>(q, k, v, dout, lse, delta, out0, out1, bh,
-                                 seq_len, head_dim, scale, stream);
-    return launch_dkv_wgmma<4>(q, k, v, dout, lse, delta, out0, out1, bh,
-                               seq_len, head_dim, scale, stream);
+  if (dtype == 1 && wgmma_route(head_dim, {q, k, v, dout})) {
+    const bool three = wgmma_boxes(head_dim) == 3;
+    if (which == 0)
+      return three ? launch_dq_wgmma<3>(q, k, v, dout, lse, delta, out0, bh,
+                                        seq_len, head_dim, scale, stream)
+                   : launch_dq_wgmma<4>(q, k, v, dout, lse, delta, out0, bh,
+                                        seq_len, head_dim, scale, stream);
+    return three ? launch_dkv_wgmma<3>(q, k, v, dout, lse, delta, out0, out1,
+                                       bh, seq_len, head_dim, scale, stream)
+                 : launch_dkv_wgmma<4>(q, k, v, dout, lse, delta, out0, out1,
+                                       bh, seq_len, head_dim, scale, stream);
   } else if (dtype == 1) {
     using bf = __nv_bfloat16;
     const bf* q_ = static_cast<const bf*>(q);

@@ -25,14 +25,14 @@ constexpr int kLDP = kBK + 4;          // row stride of the P / dS tiles
 static_assert(kBQ == kBK, "K5 and K6 share one tile size for both sides");
 
 // Head dims above 128 go to the wide kernels. In bf16, rows that TMA can
-// read (d % 8 == 0, 16-byte aligned bases) up to d 512 take K4's and K6's
-// wgmma kernels (flash_wgmma.cuh): the scores once per tile up to d 256,
-// twice at most above. Everything else above 128 (f32, unaligned bf16
-// rows, d > 512, and K5 at every d) takes the kernels chunked here, one
-// per K4, K5, K6 and dtype, which take any head_dim: a block owns one
-// kWideCols-column chunk of the output (blockIdx.z), and S = Q K^T (and
-// dP = dO V^T) are summed over chunks of kWideCols columns of d staged one
-// at a time, so shared memory and registers do not grow with d. Each
+// read (d % 8 == 0, 16-byte aligned bases) up to d 512 take K4's, K5's
+// and K6's wgmma kernels (flash_wgmma.cuh): the scores once per tile up to
+// d 256, twice at most above. Everything else above 128 (f32, unaligned
+// bf16 rows, d > 512) takes the kernels chunked here, one per K4, K5, K6
+// and dtype, which take any head_dim: a block owns one kWideCols-column
+// chunk of the output (blockIdx.z), and S = Q K^T (and dP = dO V^T) are
+// summed over chunks of kWideCols columns of d staged one at a time, so
+// shared memory and registers do not grow with d. Each
 // block recomputes the full scores of its rows, so the score work grows
 // with the number of chunks (⌈d/128⌉ times). The bf16 ones stream
 // kWideKeys rows of the other side a step; the f32 ones keep kBQ / kBK.

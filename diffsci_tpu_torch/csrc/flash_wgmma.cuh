@@ -1,21 +1,22 @@
 // Hopper building blocks of the wide bf16 flash-attention kernels (head
-// dims above 128): K4's flash_fwd_wgmma_kernel (flash_attention.cu) and
-// K6's flash_dkv_wgmma_kernel (flash_attention_bwd.cu). They need sm_90a:
-// TMA copies completing on mbarriers, wgmma on the warpgroup's tensor
-// cores and setmaxnreg.
+// dims above 128): K4's flash_fwd_wgmma_kernel (flash_attention.cu), K5's
+// flash_dq_wgmma_kernel and flash_dq_wgmma_pair_kernel and K6's
+// flash_dkv_wgmma_kernel (flash_attention_bwd.cu). They need sm_90a: TMA
+// copies completing on mbarriers, wgmma on the warpgroup's tensor cores
+// and setmaxnreg.
 //
-// Layout shared by both kernels. Every operand tile in shared memory is a
+// Layout shared by all of them. Every operand tile in shared memory is a
 // "slice": 64 rows of one tensor (queries or keys) by 64 columns of d,
 // 128 bytes a row, written by one TMA box of a 3-D tensor map [BH, T, d]
 // with the 128-byte swizzle, so 8 KB, 1024-byte aligned. Rows past T and
 // columns past d come in as zeros (the map's bounds), never from the next
 // head. wgmma reads a slice in two ways:
-// - K-major (the contraction runs along d: Q K^T, K Q^T, V dO^T): the
-//   descriptor's start moves 32 bytes a k16 step inside the swizzled row;
-//   8-row groups lie 1024 bytes apart (SBO).
-// - MN-major (the contraction runs along the rows: P V, P^T dO, dS^T Q):
-//   the B operand is transposed by the descriptor (imm-trans-b); a k16
-//   step is 16 rows, 2048 bytes; the 64 columns of the slice are N.
+// - K-major (the contraction runs along d: Q K^T, dO V^T, K Q^T, V dO^T):
+//   the descriptor's start moves 32 bytes a k16 step inside the swizzled
+//   row; 8-row groups lie 1024 bytes apart (SBO).
+// - MN-major (the contraction runs along the rows: P V, dS K, P^T dO,
+//   dS^T Q): the B operand is transposed by the descriptor (imm-trans-b);
+//   a k16 step is 16 rows, 2048 bytes; the 64 columns of the slice are N.
 // Every product is wgmma m64n64k16 with f32 accumulators: a warpgroup owns
 // 64 rows of its own side, and an output of DC columns is DC / 64
 // accumulators of 32 registers a thread. In the accumulator of
@@ -41,10 +42,11 @@ namespace {
 constexpr int kSlice = 64;             // rows and columns of a slice
 constexpr int kSliceBytes = 64 * 128;  // 8 KB
 constexpr int kWgThreads = 128;        // a warpgroup
-// The largest head dim of the wgmma route: Q (K4) or K and V (K6) stay in
-// shared memory over the whole d. Above it the mma.sync wide kernels. A
-// build with -DFLASH_WGMMA_MAX_DIM=128 sends every head dim to those
-// (scripts/torch_flash_wide.py times the two routes side by side).
+// The largest head dim of the wgmma route: Q (K4), Q and dO (K5) or K and
+// V (K6) stay in shared memory over the whole d. Above it the mma.sync
+// wide kernels. A build with -DFLASH_WGMMA_MAX_DIM=128 sends every head
+// dim to those (scripts/torch_flash_wide.py times the two routes side by
+// side).
 #ifndef FLASH_WGMMA_MAX_DIM
 #define FLASH_WGMMA_MAX_DIM 512
 #endif

@@ -8,7 +8,7 @@ with ``attn_backend='flash'`` at T ≥ 2048 tokens (config A: 16³ = 4096
 tokens, head dim 32). Sources: ``csrc/flash_attention.cu`` (K4) and
 ``csrc/flash_attention_bwd.cu`` (K5, K6), CUDA C++; the ``mma.sync``
 pieces in ``csrc/flash_mma.cuh``, the ``wgmma``/TMA pieces of the wide
-K4 and K6 in ``csrc/flash_wgmma.cuh``, the f32 tile layout and dispatch
+K4, K5 and K6 in ``csrc/flash_wgmma.cuh``, the f32 tile layout and dispatch
 in ``csrc/flash_common.cuh``.
 
 - What bounds them on the H100: operations. K4 does 4·T²·d flops, K5
@@ -62,25 +62,35 @@ in ``csrc/flash_common.cuh``.
 - Head dims above 128 (ADM's single 256-channel head, any d the JAX
   kernel takes), the wide kernels, in the same sources; the launcher
   picks one by a shape rule, and a call is one launch either way:
-  - bf16 K4 and K6 on rows that TMA can read (d % 8 = 0, 16-byte aligned
-    bases) up to d 512: warp-specialised ``wgmma`` kernels, as the TPU
-    kernel takes the full head dim per block. One producer warpgroup
-    issues TMA copies of 64 × 64 slices (128-byte swizzle; rows past T
-    and columns past d read as zeros) into a ring of shared-memory
-    stages with full/empty mbarriers; two consumer warpgroups of 64 rows
-    each (K4: 128 query rows a block, Q staged once; K6: one 64-key
-    block, K and V staged once) compute the scores once per tile over
-    all of d on ``wgmma`` m64n64k16 and keep the output in f32
-    registers (``setmaxnreg`` 240). Above d 256 the output is split
-    into 192- or 256-column chunks (grid z), so the score work is at
-    most twice the minimum at d 512. K4's online softmax is the
+  - bf16 K4, K5 and K6 on rows that TMA can read (d % 8 = 0, 16-byte
+    aligned bases) up to d 512: warp-specialised ``wgmma`` kernels, as
+    the TPU kernel takes the full head dim per block. One producer
+    warpgroup issues TMA copies of 64 × 64 slices (128-byte swizzle; rows
+    past T and columns past d read as zeros) into rings of shared-memory
+    stages with full/empty mbarriers; two consumer warpgroups compute the
+    scores once per tile over all of d on ``wgmma`` m64n64k16 and keep
+    the output in f32 registers (``setmaxnreg`` 240). Above d 256 the
+    output is split into 192- or 256-column chunks (grid z), so the
+    score work is at most twice the minimum at d 512. K4: 128 query rows
+    a block, 64 a warpgroup, Q staged once; its online softmax is the
     ``mma.sync`` kernel's, on the ``wgmma`` accumulator (the same row
     layout), with P rounded to bf16 in registers as the A operand of
-    P·V. In K6 one warpgroup takes Sᵀ = K Qᵀ, Pᵀ and dV += bf16(Pᵀ) dO,
-    the other dPᵀ = V dOᵀ, dSᵀ = Pᵀ∘(dPᵀ − delta) with the f32 Pᵀ handed
-    over through shared memory, and dK += bf16(dSᵀ) Q.
+    P·V. K5 up to d 256 (``flash_dq_wgmma_kernel``): K4's layout,
+    Q and dO staged once, K and V slices streamed; each warpgroup takes
+    S = Q Kᵀ and dP = dO Vᵀ, P, dS = P∘(dP − delta) in f32 and
+    dQ += bf16(dS) K (K transposed by the descriptor) for its own 64
+    rows with no handoff, so one warpgroup's exponentials overlap the
+    other's products. K5 above d 256 (``flash_dq_wgmma_pair_kernel``: Q
+    and dO of 128 rows would not fit): 64 query rows a block, one warpgroup
+    takes S and P, the other dP and dS with the f32 P handed over
+    through shared memory, bf16(dS) goes back the same way, and each
+    takes half of the chunk's dQ columns. K6: one 64-key block, K and V
+    staged once; one warpgroup takes Sᵀ = K Qᵀ, Pᵀ and
+    dV += bf16(Pᵀ) dO, the other dPᵀ = V dOᵀ, dSᵀ = Pᵀ∘(dPᵀ − delta)
+    with the f32 Pᵀ handed over through shared memory, and
+    dK += bf16(dSᵀ) Q.
   - Everything else above 128 (f32, unaligned bf16 rows such as d 260,
-    d > 512, and K5 at every d): one kernel per K4, K5, K6 and dtype. A
+    d > 512): one kernel per K4, K5, K6 and dtype. A
     block owns one 128-column chunk of the output (grid z) and sums
     S = Q Kᵀ (and dP = dO Vᵀ) over 128-column chunks of d staged one at a
     time in shared memory, so neither shared memory nor registers grow

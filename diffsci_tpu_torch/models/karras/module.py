@@ -78,7 +78,8 @@ from diffsci_tpu_torch.ops.parallel_sampling import PicardWindow
 from diffsci_tpu_torch.ops.schedulers import draw_noise, draw_rows
 from diffsci_tpu_torch.utils import (bcast_right, dict_expand_dims, dict_map,
                                      get_minibatch_sizes, graphs,
-                                     linear_interpolation, resolve_device)
+                                     linear_interpolation, resolve_device,
+                                     unset)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,8 +239,8 @@ class DynamicLossWeight(nn.Module):
     def __init__(self, nhidden: int, scale: float = 1.0):
         super().__init__()
         self.scale = scale
-        self.register_buffer("fourier_weights", torch.empty(nhidden))
-        self.register_buffer("fourier_bias", torch.empty(nhidden))
+        self.register_buffer("fourier_weights", unset(nhidden))
+        self.register_buffer("fourier_bias", unset(nhidden))
         self.linear = nn.Linear(nhidden, 1)
 
     def reset_parameters(self, generator: torch.Generator) -> None:

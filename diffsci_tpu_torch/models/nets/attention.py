@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from diffsci_tpu_torch.kernels import flash_attention
 from diffsci_tpu_torch.kernels.flash_attention import dot_product_attention
 from diffsci_tpu_torch.models.nets.normed import normalize
+from diffsci_tpu_torch.utils import unset
 
 _BACKENDS = ("xla", "flash")
 
@@ -63,8 +64,7 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"attention backend must be one of {_BACKENDS}")
         self.num_heads = num_heads
         self.backend = backend
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
-                                                       embed_dim))
+        self.in_proj_weight = nn.Parameter(unset(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
@@ -123,7 +123,7 @@ class EinsumMultiHeadAttention(nn.Module):
         shape = (num_heads, embed_dim, embed_dim // num_heads)
         for n in "qkvo":
             setattr(self, f"{n}_proj_matrix",
-                    nn.Parameter(torch.empty(shape)))
+                    nn.Parameter(unset(*shape)))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """normal(1) when magnitude preserving, else Glorot uniform over

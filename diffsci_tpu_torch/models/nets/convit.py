@@ -31,7 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffsci_tpu_torch.models.nets import layers
-from diffsci_tpu_torch.utils import resolve_device
+from diffsci_tpu_torch.utils import resolve_device, unset
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 _CONV_T = {1: nn.ConvTranspose1d, 2: nn.ConvTranspose2d,
@@ -119,7 +119,7 @@ class LearnedRoPE(nn.Module):
         super().__init__()
         self.base_freq = base_freq
         self.relative_positioning = relative_positioning
-        self.angles = nn.Parameter(torch.empty(num_pos_dims, embed_dim // 2))
+        self.angles = nn.Parameter(unset(num_pos_dims, embed_dim // 2))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.angles.copy_(torch.randn(self.angles.shape, generator=generator)
@@ -155,7 +155,7 @@ class ConVitAttention(nn.Module):
         self.linear_attention = linear_attention
         for n in ("q", "k", "v", "out"):
             setattr(self, f"{n}_proj_tensor",
-                    nn.Parameter(torch.empty(d, dh, h)))
+                    nn.Parameter(unset(d, dh, h)))
         self.register_buffer("scale", torch.tensor(math.sqrt(dh)))
         self.rope_layer = LearnedRoPE(dh, num_pos_dims, rope_freq,
                                       relative_positioning)

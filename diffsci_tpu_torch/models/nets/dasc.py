@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 
 from diffsci_tpu_torch.models.nets.layers import linear_resize
-from diffsci_tpu_torch.utils import resolve_device
+from diffsci_tpu_torch.utils import resolve_device, unset
 
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
 _CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
@@ -124,7 +124,7 @@ class VideoModelingModule(nn.Module):
     def __init__(self, config: DASCConfig):
         super().__init__()
         d = config.latent_dim
-        self.query = nn.Parameter(torch.empty(1, d))
+        self.query = nn.Parameter(unset(1, d))
         self.attention_layers = nn.ModuleList([
             nn.Linear(d, d) for _ in range(config.vmm_num_layers - 1)])
 

@@ -31,6 +31,7 @@ from diffsci_tpu_torch.kernels import fused_norm
 from diffsci_tpu_torch.models.nets.normed import _CONV as _CONV_FN
 from diffsci_tpu_torch.models.nets.normed import (MagnitudePreservingConv,
                                                   MagnitudePreservingDense)
+from diffsci_tpu_torch.utils import unset
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
@@ -143,8 +144,8 @@ class CircularConv(nn.Module):
         self.pad = kernel_size // 2
         self.circular = (set(range(dimension)) if circular_dims is None
                          else set(circular_dims))
-        self.weight = nn.Parameter(torch.empty(
-            (out_channels, in_channels) + (kernel_size,) * dimension))
+        self.weight = nn.Parameter(unset(
+            out_channels, in_channels, *(kernel_size,) * dimension))
         self.bias = nn.Parameter(torch.zeros(out_channels)) \
             if use_bias else None
 
@@ -220,7 +221,7 @@ class GaussianFourierProjection(nn.Module):
     def __init__(self, embed_dim: int, scale: float = 30.0):
         super().__init__()
         self.scale = scale
-        self.register_buffer("W", torch.empty(embed_dim // 2))
+        self.register_buffer("W", unset(embed_dim // 2))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.W.copy_(torch.randn(self.W.shape, generator=generator)
@@ -237,7 +238,7 @@ class GaussianFourierProjectionVector(nn.Module):
     def __init__(self, input_dim: int, embed_dim: int, scale: float = 30.0):
         super().__init__()
         self.scale = scale
-        self.register_buffer("W", torch.empty(input_dim, embed_dim // 2))
+        self.register_buffer("W", unset(input_dim, embed_dim // 2))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.W.copy_(torch.randn(self.W.shape, generator=generator)
@@ -257,9 +258,9 @@ class ConvolutionalFourierProjection(nn.Module):
                  use_bias: bool = True):
         super().__init__()
         self.scale = scale
-        self.register_buffer("W", torch.empty(input_dim, embed_dim // 2))
+        self.register_buffer("W", unset(input_dim, embed_dim // 2))
         if use_bias:
-            self.register_buffer("bias", torch.empty(embed_dim // 2))
+            self.register_buffer("bias", unset(embed_dim // 2))
         else:
             self.bias = None
 
@@ -488,7 +489,7 @@ class ConditionDrop(nn.Module):
         super().__init__()
         self.rate = rate
         if null_is_learnable:
-            self.null_embedding = nn.Parameter(torch.empty(1, hidden_dim))
+            self.null_embedding = nn.Parameter(unset(1, hidden_dim))
         else:
             self.register_buffer("null_embedding",
                                  torch.zeros(1, hidden_dim),

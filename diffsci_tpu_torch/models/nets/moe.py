@@ -34,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffsci_tpu_torch.models.nets.dit import DiffusionTransformer, DiTBlock
+from diffsci_tpu_torch.utils import unset
 
 
 def _round_up(n: int, m: int) -> int:
@@ -52,10 +53,10 @@ class MoEFeedForward(nn.Module):
         d, E, f = nembed, n_experts, mlp_factor * nembed
         self.n_experts = n_experts
         self.capacity_factor = capacity_factor
-        self.router = nn.Parameter(torch.empty(d, E))
-        self.experts_w1 = nn.Parameter(torch.empty(E, d, f))
+        self.router = nn.Parameter(unset(d, E))
+        self.experts_w1 = nn.Parameter(unset(E, d, f))
         self.experts_b1 = nn.Parameter(torch.zeros(E, f))
-        self.experts_w2 = nn.Parameter(torch.empty(E, f, d))
+        self.experts_w2 = nn.Parameter(unset(E, f, d))
         self.experts_b2 = nn.Parameter(torch.zeros(E, d))
         self.aux_loss = None
         self.dropped_fraction = None

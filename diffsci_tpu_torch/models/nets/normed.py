@@ -26,6 +26,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from diffsci_tpu_torch.utils import unset
+
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
@@ -46,7 +48,7 @@ class _MagnitudePreserving(nn.Module):
     hoisted = False
 
     def _init_weight(self, shape, use_bias: bool) -> None:
-        self.weight = nn.Parameter(torch.empty(shape))
+        self.weight = nn.Parameter(unset(*shape))
         self.bias = nn.Parameter(torch.zeros(shape[0])) if use_bias else None
         self.fan_in = self.weight[0].numel()
 

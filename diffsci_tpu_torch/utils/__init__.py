@@ -4,9 +4,9 @@ from diffsci_tpu_torch.utils.tensor import (bcast_right, depth_to_space,
                                             dict_expand_dims, dict_map,
                                             get_minibatch_sizes,
                                             linear_interpolation,
-                                            space_to_depth)
+                                            space_to_depth, unset)
 
 __all__ = ["bcast_right", "depth_to_space", "dict_expand_dims", "dict_map",
            "get_minibatch_sizes", "linear_interpolation",
            "make_image_grid", "resolve_device", "save_image_grid",
-           "space_to_depth"]
+           "space_to_depth", "unset"]

@@ -23,6 +23,14 @@ def bcast_right(a: torch.Tensor, target: torch.Tensor | int) -> torch.Tensor:
     return a.reshape(tuple(a.shape) + (1,) * (ndim - a.ndim))
 
 
+def unset(*shape: int) -> torch.Tensor:
+    """A parameter's or buffer's storage before ``init``: NaN, so that a
+    module used without ``init`` (``init_parameters``,
+    ``KarrasModel.init``) or a loaded state dict gives NaN on every run,
+    not whatever memory ``torch.empty`` held."""
+    return torch.full(shape, float("nan"))
+
+
 def dict_map(fn: Callable[[Any], Any], d: Any) -> Any:
     """Apply ``fn`` to a condition: ``None``, one tensor, or a flat dict of
     tensors."""

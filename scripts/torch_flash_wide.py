@@ -5,22 +5,27 @@ Run from the repository root, with one NVIDIA Hopper card (H100):
 
     python3 scripts/torch_flash_wide.py [--quick]
 
-Builds the flash sources of ``diffsci_tpu_torch/csrc`` twice more with
-``-Xptxas -v`` under ``diffsci_tpu_torch/_build/wide/``: as committed, and
-with ``-DFLASH_WGMMA_MAX_DIM=128``, which sends every head dim above 128
-to the ``mma.sync`` wide kernels (the route that unaligned rows and
-float32 keep). Prints the registers and spills of the wide kernels and
-every line in which ptxas reports serialised ``wgmma``; holds K4, K5 and
-K6 in float32 and bfloat16 against their plain versions
-(``chip_smoke.py``'s tolerances) at small shapes first, then at head dims
-136, 192, 200, 256, 260, 320 and 512 with ragged T and at a few d ≤ 128
-shapes, each bf16 result twice for the same bits; then times K4, K5 and
-K6 in bf16 on both routes side by side (medians of 5 timed loops, each
-beside its bound) with SDPA's flash backend where it takes the head dim,
-at configuration I's shapes (ADM: one head of 256, bucket 4 and train
-batch 8), a head dim of 512, and H's and A's (d ≤ 128, unchanged). The
-card's name and power limit come last. ``--quick`` stops after the small
-shapes. Exits 1 if a check fails.
+Builds the flash sources of ``diffsci_tpu_torch/csrc`` three times more
+with ``-Xptxas -v`` under ``diffsci_tpu_torch/_build/wide/``: as
+committed; with ``-DFLASH_WGMMA_MAX_DIM=128``, which sends every head dim
+above 128 to the ``mma.sync`` wide kernels (the route that unaligned rows
+and float32 keep); and with ``-DFLASH_DQ_WGMMA_ROWS=64``, which gives
+K5 up to d 256 the 64-row ``flash_dq_wgmma_pair_kernel`` (two warpgroups
+sharing one query tile through handoffs) in place of the 128-row
+``flash_dq_wgmma_kernel``. Prints the registers and spills of the
+wide kernels and every line in which ptxas reports serialised ``wgmma``
+or injected warpgroup arrivals; holds K4, K5 and K6 in float32 and
+bfloat16 against their plain versions (``chip_smoke.py``'s tolerances)
+at small shapes first, then at head dims 136, 192, 200, 256, 260, 320
+and 512 with ragged T and at a few d ≤ 128 shapes, each bf16 result
+twice for the same bits; then times K4, K5 and K6 in bf16 on the three
+builds side by side (medians of 5 timed loops, each beside its bound)
+with SDPA's flash backend where it takes the head dim (the forward
+beside K4, its backward asked for dQ alone beside K5), at configuration
+I's shapes (ADM: one head of 256, bucket 4 and train batch 8), a head
+dim of 512, and H's and A's (d ≤ 128, unchanged). The card's name and
+power limit come last. ``--quick`` stops after the small shapes. Exits 1
+if a check fails.
 """
 
 from __future__ import annotations
@@ -51,7 +56,8 @@ TIMED = ((4, 1, 4096, 256), (8, 1, 4096, 256), (1, 2, 2048, 512),
          (4, 12, 4096, 64), (4, 2, 4096, 32))
 LIBS = {"flash_attention": fa.SIGNATURES,
         "flash_attention_bwd": fa.BWD_SIGNATURES}
-ROUTES = {"wgmma": (), "mma.sync": ("-DFLASH_WGMMA_MAX_DIM=128",)}
+ROUTES = {"wgmma": (), "mma.sync": ("-DFLASH_WGMMA_MAX_DIM=128",),
+          "wgmma, K5 handoff": ("-DFLASH_DQ_WGMMA_ROWS=64",)}
 
 
 def build_routes() -> dict:
@@ -61,9 +67,9 @@ def build_routes() -> dict:
     out_dir = _build.BUILD_DIR / "wide"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for route, defines in ROUTES.items():
+    for i, (route, defines) in enumerate(ROUTES.items()):
         for lib in LIBS:
-            so = out_dir / f"{lib}-{route}.so"
+            so = out_dir / f"{lib}-{i}.so"
             jobs[(route, lib)] = (so, subprocess.Popen(
                 [_build.nvcc(), *_build.NVCC_FLAGS, *defines, "-Xptxas",
                  "-v", "-o", str(so), str(_build.CSRC_DIR / f"{lib}.cu")],
@@ -79,7 +85,8 @@ def build_routes() -> dict:
             continue
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "wgmma" in line and "Compiling entry" not in line:
+            if ("wgmma" in line or "warpgroup" in line) and \
+                    "Compiling entry" not in line:
                 print("ptxas:", line.strip())
             if "Compiling entry" in line and ("wide" in line
                                               or "wgmma" in line):
@@ -171,18 +178,24 @@ def time_routes(gen, built) -> None:
             for fn in fns.values():
                 fn()
         torch.cuda.synchronize()
-        (_, a), (_, b) = calls.values()
+        outs = [out for _, out in calls.values()]
         agree = max(float((x.float() - y.float()).abs().max()
-                          / y.float().abs().max()) for x, y in zip(a, b))
+                          / y.float().abs().max())
+                    for other in outs[1:] for x, y in zip(other, outs[0]))
         sdpa = {}
         if d <= 256:
             with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
                 sdpa["K4"] = chip_smoke.cuda_ms_spread(
                     lambda: F.scaled_dot_product_attention(q, k, v), 10)[0]
+                leaf = q.detach().requires_grad_()
+                out = F.scaled_dot_product_attention(leaf, k, v)
+                sdpa["K5"] = chip_smoke.cuda_ms_spread(
+                    lambda: torch.autograd.grad(out, leaf, do,
+                                                retain_graph=True), 10)[0]
         for name in ("K4", "K5", "K6"):
             bms, _ = chip_smoke.bound(*work[name], torch.bfloat16)
             times = []
-            for rnd in range(2):  # wgmma, mma.sync, mma.sync, wgmma
+            for rnd in range(2):  # the routes in turn, then backwards
                 order = list(ROUTES) if rnd == 0 else list(ROUTES)[::-1]
                 for route in order:
                     times.append((route, chip_smoke.cuda_ms_spread(

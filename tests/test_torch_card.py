@@ -154,7 +154,7 @@ def test_flash_forward_matches_plain_on_card(dtype, shape):
 
 
 # head dims above 128 at ragged T: in bf16, 136, 192 and 256 take one pass
-# of the wgmma K4 and K6, 320 and 512 their 192- and 256-column chunks,
+# of the wgmma K4, K5 and K6, 320 and 512 their 192- and 256-column chunks,
 # 200 zero-padded columns of aligned rows; 260 (520-byte rows, which TMA
 # cannot read) the mma.sync wide kernels, as f32 does at every one
 _WIDE = ((1, 1, 2048, 256), (1, 2, 2049, 512), (2, 1, 2048, 200),
@@ -191,9 +191,9 @@ def test_flash_kernels_take_wide_head_dims_on_card(dtype, shape):
 @pytest.mark.parametrize("shape", [(2, 1, 2049, 256), (1, 2, 2111, 512),
                                    (1, 1, 2049, 260)])
 def test_flash_wide_kernels_are_deterministic_on_card(shape):
-    """The wide bf16 K4 and K6 (wgmma at d 256 and 512, mma.sync at 260)
-    have one writer per output element and no atomics: the same inputs
-    give bit-identical O, lse, dK and dV."""
+    """The wide bf16 K4, K5 and K6 (wgmma at d 256 and 512, mma.sync at
+    260) have one writer per output element and no atomics: the same
+    inputs give bit-identical O, lse, dQ, dK and dV."""
     gen = torch.Generator("cuda").manual_seed(6)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                    .bfloat16() for _ in range(4))
@@ -201,6 +201,8 @@ def test_flash_wide_kernels_are_deterministic_on_card(shape):
     o2, lse2 = fa.flash_attention_fwd(q, k, v)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     delta = (do.float() * o.float()).sum(-1)
+    assert torch.equal(fa.flash_attention_dq(q, k, v, do, lse, delta),
+                       fa.flash_attention_dq(q, k, v, do, lse, delta))
     first = fa.flash_attention_dkv(q, k, v, do, lse, delta)
     second = fa.flash_attention_dkv(q, k, v, do, lse, delta)
     assert all(torch.equal(a, b) for a, b in zip(first, second))

@@ -79,6 +79,25 @@ def _emulate_bwd(q, k, v, o, lse, do):
     return tuple(t.bfloat16() for t in (dq, dk, dv))
 
 
+def _emulate_dq_tiles(q, k, v, lse, delta, do, key_tile=KEY_TILE):
+    """K5 on the ``wgmma`` route (``flash_dq_wgmma_kernel`` and
+    ``flash_dq_wgmma_pair_kernel``, head dims above 128): dQ summed in f32 over ``key_tile``-key tiles in key order,
+    P = exp2(S·scale·log2 e − lse·log2 e) and dS = P∘(dP − delta) in f32
+    per tile, dS rounded to bf16 before dS·K, the scale applied once at
+    the end; dQ in bf16."""
+    T, d = q.shape[-2:]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    l2 = (lse * LOG2E)[..., None]
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, T, key_tile):
+        kt, vt = kf[..., k0:k0 + key_tile, :], vf[..., k0:k0 + key_tile, :]
+        p = torch.exp2((qf @ kt.transpose(-1, -2)) * (scale * LOG2E) - l2)
+        ds = p * (dof @ vt.transpose(-1, -2) - delta[..., None])
+        acc = acc + ds.bfloat16().float() @ kt
+    return (acc * scale).bfloat16()
+
+
 def _inputs(T, d):
     rng = np.random.default_rng(T * 100 + d)
     return [torch.from_numpy(rng.standard_normal((1, 2, T, d))
@@ -200,3 +219,20 @@ def test_wide_head_dims_against_jax_flash(d):
             q, k, v, po, plse, do), jgrads, ("dq", "dk", "dv")):
         assert got.dtype == torch.bfloat16
         assert _rel(got, ref) <= 1e-2, (name, _rel(got, ref))
+
+
+@pytest.mark.parametrize("d", [256, 512])
+def test_wgmma_dq_tiles_against_jax_flash(d):
+    """The ``wgmma`` K5's dQ (64-key tiles in key order, dS rounded to
+    bf16 a tile, f32 sums; ``_emulate_dq_tiles``) on the emulated
+    forward's O and lse, against the JAX package's bf16 flash dQ in
+    interpret mode within ``test_emulated_rounding_matches_jax_flash``'s
+    bound: 1e-2 of the largest entry. At ragged T: the last tile holds
+    one key."""
+    q, k, v, do = _inputs(2049, d)
+    jdq = _jax(q, k, v, do)[1]
+    o, lse = _emulate_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = _emulate_dq_tiles(q, k, v, lse, delta, do)
+    assert dq.dtype == torch.bfloat16
+    assert _rel(dq, jdq) <= 1e-2, _rel(dq, jdq)

@@ -311,6 +311,7 @@ def test_window_frames_round_trip_and_encoded_window():
         net, ens.EnsembleKarrasModelConfig.from_edm(), conditional=True,
         autoencoder=HalvingAE(), autoencoder_conditional=True,
         encode_y=True, device="cpu")
+    model.init(0)
     out = ar.autoregressive_sample(
         model, 2, (4, 4, 1), 2, 2, nsteps_diffusion=2,
         y={"y": torch.randn(2, 8, 8)},
