@@ -233,8 +233,36 @@ Phases (any failure raises, so the exit code is non-zero):
     flash attention (the middle block attends over 4096 tokens with one
     head of 256: the wide kernels), the same report as H's: exactly 35 K1
     and 35 K4 a request, one K4, K5 and K6 a step.
-27. One JSON line lists every kernel with its launches over phases 5 to
-    9, 11 to 15 and 17 to 26; the card's name and power limit; then the
+27. J, progressive distillation of B (full width, bf16 over f32 masters,
+    batch 256 of random data, the teacher B after 200 train steps on the
+    batch): the graphed distill step against its
+    eager body bit for bit, before and after the teacher is reloaded in
+    place; a phase-0 step (17 student steps, Heun teacher) timed over 20
+    graphed steps after 3 warm-up steps (s/step, items/s, one profiled
+    step, peak memory, capture seconds, exactly 4 K1, 140 K2 and 28 K3 a
+    step); the chain 17 -> 9 -> 5 -> 3 -> 2 -> 1 through
+    ``distill_progressive`` (20 steps a phase, one graph a phase, finite
+    losses, phase 0's last five below its first five, exact launches);
+    the 2-step student sampled by ``sample(nsteps=2,
+    integrator="euler")`` and the 1-NFE student served through
+    ``SamplerService(nsteps=1)``, finite.
+28. J-A: one f32 distill step of A (the 3D flash PUNetG, 32³, batch 4),
+    card (graphed) against CPU from the same weights and replayed draws
+    (phase 3's bounds), launching K1-K6 (4 K1, 100 K2, 20 K3, 5 K4, one
+    K5 and K6). K-CPU: two f32 VAE steps of a small VAENet with an
+    ``NLayerDiscriminator``, card against CPU, the second step gated:
+    every metric, both networks' parameters and both optimizers' moments.
+29. K, G's autoencoder trained (``AutoencoderKL(DDConfig(),
+    embed_dim=4)``, f32, ``VAEModelConfig()``'s defaults,
+    ``NLayerDiscriminator(ndf=64, n_layers=3)``, batch 8 of 256²): 20
+    graphed steps after 3 warm-up steps (a falling loss, s/step, items/s,
+    peak memory, one profiled step, no kernel of the port), and 3 steps
+    graphed against eager bit for bit, the second gated.
+30. K-P, the porous-media ``VAENet()`` (3D 64³, batch 2, edge loss in 3D,
+    total variation 0.1) over two epochs of 3 graphed steps with
+    ``KLAnnealing``: the loss follows the new KL weight.
+31. One JSON line lists every kernel with its launches over phases 5 to
+    9, 11 to 15 and 17 to 30; the card's name and power limit; then the
     result line.
 
 The last line of standard output is
@@ -4499,6 +4527,537 @@ def threading_sample(svc, n, seed):
     return t
 
 
+# ---------------------------------------------------------------------------
+# phases 27 to 31: progressive distillation (J, J-A) and VAE training (K,
+# K-P, K-CPU)
+# ---------------------------------------------------------------------------
+J_BATCH = 256              # B's train batch (bench.py:112)
+J_STEPS = 20               # distill steps a phase
+J_CHAIN = (17, 1)          # 17 -> 9 -> 5 -> 3 -> 2 -> 1
+J_TEACHER_STEPS = 200      # B's train steps that make J's teacher
+J_LR = 1e-4                # distill_progressive's default learning rate
+K_BATCH = 8                # G's autoencoder trained at batch 8
+KP_BATCH = 2               # VAENet 64³ at batch 2
+NORMS_B, NORMS_A = 28, 20  # K2 a network call (B, A)
+
+
+def distill_per_step(heun: bool, norms: int, flash: bool = False) -> dict:
+    """The launches of one distill step: the teacher's denoiser calls (4
+    under Heun sub-steps, 2 under Euler; each one K1 and a forward), the
+    student's forward and backward (its combine is the plain training
+    expression)."""
+    calls = 4 if heun else 2
+    out = dict(fused_axby=calls, norm_silu=norms * (calls + 1),
+               norm_silu_bwd=norms)
+    if flash:
+        out.update(flash_attention=calls + 1, flash_attention_dq=1,
+                   flash_attention_dkv=1)
+    return out
+
+
+def state_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[n], b[n]) for n in a)
+
+
+def phase_distill_b(zero):
+    """J: progressive distillation of B (MNIST PUNetG at full width, bf16
+    over f32 masters, random weights from seed 0) at batch 256 of random
+    data, graphed. The teacher is B after 200 of its train steps on the
+    batch. First the graph against the eager step, bit for bit, before
+    and after the teacher is reloaded in place (with seed 1's weights);
+    one phase-0 step (17 student steps, Heun teacher) timed over 20 steps
+    after 3 warm-up steps with exact launches and one profiled step; then
+    the whole chain 17 -> 9 -> 5 -> 3 -> 2 -> 1 through
+    ``distill_progressive`` (20 steps a phase, lr 1e-4): finite losses,
+    phase 0's last five below its first five, exact launches; the 2-step
+    student sampled by ``sample(nsteps=2, integrator="euler")`` and the
+    1-NFE student served through ``SamplerService(nsteps=1)``."""
+    from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
+                                   PUNetGConfig, SamplerService,
+                                   create_train_state, default_optimizer,
+                                   kernels, make_train_step)
+    from diffsci_tpu_torch.models.karras import distill
+    from diffsci_tpu_torch.models.karras.train import _new_train_state
+
+    cfg_b = PUNetGConfig(model_channels=64, channel_expansion=[2, 4])
+    shape = (28, 28, 1)
+
+    def model_b():
+        return KarrasModel(PUNetG(cfg_b), KarrasModelConfig.from_edm(),
+                           compute_dtype=torch.bfloat16)
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn((J_BATCH,) + shape, generator=gen, device="cuda")
+    # the teacher: B trained on the batch (an untrained teacher's targets
+    # make Adam's first distill steps overshoot at any learning rate)
+    trained = model_b()
+    state, tx = create_train_state(trained, (J_BATCH,) + shape, seed=0)
+    train_step = make_train_step(trained, tx)
+    for _ in range(J_TEACHER_STEPS):
+        train_step(state, x, generator=gen)
+    teacher_sd = {k: v.detach().clone()
+                  for k, v in trained.net.state_dict().items()}
+    other_sd = {k: v.clone() for k, v in model_b().init(seed=1).items()}
+    del trained, state, train_step
+
+    # graph against eager, bit for bit, before and after a teacher swap
+    arms = {}
+    for graphed in (False, True):
+        model = model_b()
+        model.net.load_state_dict(teacher_sd)
+        teacher = distill._teacher_like(model)
+        tx = default_optimizer(J_LR)
+        state = _new_train_state(model, tx)
+        arms[graphed] = (teacher, state, distill.make_distill_step(
+            model, tx, J_CHAIN[0], _raw=not graphed))
+    same = []
+    for k in range(3):
+        if k == 2:
+            for teacher, _, _ in arms.values():
+                teacher.net.load_state_dict(other_sd)
+        idx = torch.randint(0, J_CHAIN[0], (J_BATCH,), generator=gen,
+                            device="cuda")
+        eps = torch.randn(x.shape, generator=gen, device="cuda")
+        mets = {g: step(state, teacher, x, idx=idx, eps=eps)[1]
+                for g, (teacher, state, step) in arms.items()}
+        same.append(all(torch.equal(mets[True][n], mets[False][n])
+                        for n in mets[True])
+                    and state_equal(arms[True][1].params,
+                                    arms[False][1].params))
+    log(f"[J distill B] graph against eager, bit for bit: steps 1-2 "
+        f"{same[:2]}, after the teacher reloaded in place {same[2]}")
+    if not all(same):
+        raise AssertionError("J: the graphed distill step differs from the "
+                             "eager one")
+    del arms
+
+    # the timed phase-0 step
+    model = model_b()
+    model.net.load_state_dict(teacher_sd)
+    teacher = distill._teacher_like(model)
+    tx = default_optimizer(J_LR)
+    state = _new_train_state(model, tx)
+    step = distill.make_distill_step(model, tx, J_CHAIN[0])
+
+    def one_step():
+        return step(state, teacher, x, generator=gen)[1]
+
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    capture = [round(g.capture_seconds, 3)
+               for g in state.graphs.graphs.values()]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(J_STEPS):
+        met = one_step()
+    float(met["distill_loss"])
+    dt = (time.perf_counter() - t0) / J_STEPS
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = distill_per_step(True, NORMS_B)
+    expected = dict(zero, **{k: v * J_STEPS for k, v in per_step.items()})
+    wall, busy = busy_seconds(one_step)
+    log(f"[J distill B] phase-0 step (17 student steps, Heun teacher), "
+        f"batch {J_BATCH}: {dt:.4f} s/step, {J_BATCH / dt:.2f} items/s; "
+        f"one profiled step wall {wall:.4f} s, device {busy:.4f} s; peak "
+        f"memory {peak:.3f} GiB; capture {capture} s; launches a step "
+        f"{ {k: v // J_STEPS for k, v in counts.items() if v} }")
+    if counts != expected:
+        raise AssertionError(f"J: launch counts {counts}, expected "
+                             f"{expected}")
+    del state, step, teacher
+
+    # the whole chain
+    model = model_b()
+    snapshots = {}
+
+    def batches():
+        while True:
+            yield x
+
+    def keep(nsteps, variables, losses):
+        if nsteps == 2:
+            snapshots[2] = variables
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    final, history = distill.distill_progressive(
+        model, teacher_sd, batches(), gen, start_nsteps=J_CHAIN[0],
+        final_nsteps=J_CHAIN[1], steps_per_phase=J_STEPS,
+        learning_rate=J_LR, callback=keep)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    chain_counts = dict(kernels.LAUNCHES)
+    expected = dict(zero)
+    for i, h in enumerate(history):
+        for k, v in distill_per_step(i == 0, NORMS_B).items():
+            expected[k] += v * J_STEPS
+    schedule = [h["nsteps"] for h in history]
+    for h in history:
+        log(f"[J distill B] phase {h['nsteps']:2d} steps: loss first "
+            f"{h['losses'][0]:.5f} last {h['losses'][-1]:.5f}; graphs "
+            f"{h['graphs']}, capture {h['capture_seconds']:.3f} s")
+    first, last = (np.mean(history[0]["losses"][s]) for s in
+                   (slice(0, 5), slice(-5, None)))
+    log(f"[J distill B] chain {schedule} in {chain_s:.2f} s; phase 0 mean "
+        f"loss first five {first:.5f}, last five {last:.5f}; launches "
+        f"{chain_counts}")
+    if schedule != [17, 9, 5, 3, 2, 1] or not all(
+            np.isfinite(h["losses"]).all() for h in history) \
+            or not last < first or chain_counts != expected \
+            or any(h["graphs"] != 1 for h in history):
+        raise AssertionError(f"J: the chain failed (schedule {schedule}, "
+                             f"phase 0 {first} -> {last}, launches "
+                             f"{chain_counts}, expected {expected})")
+
+    # the 2-step student sampled, the 1-NFE student served
+    two = model_b()
+    two.net.load_state_dict(snapshots[2])
+    two.compile_sampler(8, shape, nsteps=2, integrator="euler")
+    kernels.reset_launches()
+    s2 = two.sample(8, shape, torch.Generator("cuda").manual_seed(1),
+                    nsteps=2, integrator="euler")
+    c2 = dict(kernels.LAUNCHES)
+    svc = SamplerService(model, shape, batch_buckets=(8,), nsteps=1)
+    svc.warmup()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    s1 = svc.sample(8, 3)
+    t1 = time.perf_counter() - t0
+    c1 = dict(kernels.LAUNCHES)
+    log(f"[J distill B] 2-step student: 8 samples std "
+        f"{float(s2.std()):.4f}, launches {c2}; 1-NFE student through "
+        f"SamplerService(nsteps=1): 8 samples in {t1:.4f} s, std "
+        f"{float(np.std(s1)):.4f}, launches {c1}")
+    if not (torch.isfinite(s2).all() and np.isfinite(s1).all()
+            and c2["fused_axby"] == 2 and c1["fused_axby"] == 1):
+        raise AssertionError("J: a distilled student sampled a non-finite "
+                             "value or skipped the combine kernel")
+    return [counts, chain_counts, c2, c1]
+
+
+def phase_distill_a_card_vs_cpu(zero):
+    """J-A: one distill step of A (the 3D flash PUNetG at full width, 32³,
+    batch 4, f32, TF32 off) on the CPU and the card (graphed: its first
+    call is the eager warm-up, then the capture) from the same weights
+    and replayed interval and ε draws, a teacher of other weights:
+    phase 3's bounds (loss and grad_norm rtol 1e-3, parameters 99.9 %
+    within 0.05·lr, all within 2·lr); the card's step launches K1-K6."""
+    from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
+                                   PUNetGConfig, default_optimizer, kernels)
+    from diffsci_tpu_torch.models.karras import distill
+    from diffsci_tpu_torch.models.karras.train import _new_train_state
+
+    cfg_a = PUNetGConfig(dimension=3, model_channels=32,
+                         channel_expansion=[2], num_heads=2,
+                         attn_backend="flash")
+    x_shape, n, lr = (4, 32, 32, 32, 1), 17, 1e-3
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(x_shape).astype(np.float32)
+    idx = rng.integers(0, n, x_shape[0])
+    eps = rng.standard_normal(x_shape).astype(np.float32)
+    weights = teacher_w = None
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = KarrasModel(PUNetG(cfg_a, device=dev),
+                            KarrasModelConfig.from_edm(), device=dev)
+        teacher = distill._teacher_like(model)
+        if weights is None:
+            weights = {k: v.clone() for k, v in model.init(seed=0).items()}
+            teacher_w = {k: v.clone() for k, v in
+                         teacher.init(seed=1).items()}
+        model.net.load_state_dict(weights)
+        teacher.net.load_state_dict(teacher_w)
+        tx = default_optimizer(lr)
+        state = _new_train_state(model, tx)
+        step = distill.make_distill_step(model, tx, n)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        _, met = step(state, teacher, torch.from_numpy(x).to(dev),
+                      idx=torch.from_numpy(idx).to(dev),
+                      eps=torch.from_numpy(eps).to(dev))
+        m = (float(met["distill_loss"]), float(met["grad_norm"]))
+        runs[dev] = (m, state, time.perf_counter() - t0,
+                     dict(kernels.LAUNCHES))
+    (m_cpu, s_cpu, t_cpu, _), (m_card, s_card, t_card, counts) = \
+        runs["cpu"], runs["cuda"]
+    ok_p, q999, worst = params_within(s_card.params, s_cpu.params, lr, 1)
+    ok = ok_p and np.isfinite(m_card).all() and np.allclose(
+        m_card, m_cpu, rtol=1e-3, atol=0)
+    expected = dict(zero, **distill_per_step(True, NORMS_A, flash=True))
+    log(f"[J-A distill A card-vs-cpu] one f32 step (17 student steps, "
+        f"Heun teacher), batch 4 of 32^3: (loss, grad_norm) card {m_card} "
+        f"cpu {m_cpu} (rtol 1e-3); params |card - cpu| 99.9% {q999:.3e}, "
+        f"max {worst:.3e} (limits {0.05 * lr:.0e}, {2 * lr:.0e}) "
+        f"{'ok' if ok else 'FAIL'}; cpu {t_cpu:.1f} s, card {t_card:.1f} "
+        f"s (warm-up and capture); launches a step {counts}")
+    if not ok or counts != expected:
+        raise AssertionError(f"J-A: card and CPU disagree, or launches "
+                             f"{counts} are not {expected}")
+    return [counts]
+
+
+def vae_step_counts(zero, counts: dict, label: str) -> None:
+    """VAE training runs no kernel of the port (plain GroupNorm, plain
+    attention, as in the JAX package)."""
+    if counts != zero:
+        raise AssertionError(f"{label}: VAE training launched {counts}")
+
+
+def train_vae(label, model, x, steps, warmup=3, eps_seed=0):
+    """``warmup`` graphed steps, then ``steps`` timed (host clock ended by a
+    sync); a fixed z-noise probes the loss before and after. Returns
+    (metrics of the last step, s/step, peak GiB, capture seconds, loss
+    before, after, the launch counts, the state)."""
+    from diffsci_tpu_torch import (create_vae_train_state, kernels,
+                                   make_vae_train_step)
+
+    state, tx, dtx = create_vae_train_state(model, tuple(x.shape), seed=0)
+    step = make_vae_train_step(model, tx, dtx)
+    gen = torch.Generator("cuda").manual_seed(eps_seed)
+    probe_eps = torch.randn(model.latent_shape(x.shape), generator=gen,
+                            device="cuda")
+
+    def probe():
+        with torch.no_grad():
+            return float(model.loss_fn(x, train=False, eps=probe_eps)[0])
+
+    before = probe()
+    for _ in range(warmup):
+        step(state, x, generator=gen)
+    torch.cuda.synchronize()
+    capture = [round(g.capture_seconds, 3)
+               for g in state.graphs.graphs.values()]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        _, met = step(state, x, generator=gen)
+    float(met["train_loss"])
+    dt = (time.perf_counter() - t0) / steps
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return met, dt, peak, capture, before, probe(), counts, state, step
+
+
+def phase_vae_g(zero):
+    """K: G's autoencoder trained (``AutoencoderKL(DDConfig(),
+    embed_dim=4)``, 256² × 1 -> 32² × 4, f32, ``VAEModelConfig()``'s
+    defaults: Huber, KL 1e-3, adversarial 0.01, threshold 0.85) with
+    ``NLayerDiscriminator(ndf=64, n_layers=3)``, batch 8: 20 graphed steps
+    after 3 warm-up steps (finite, falling fixed-noise loss; s/step,
+    items/s, peak memory, one profiled step), and the graph against the
+    eager step bit for bit over 3 steps of a twin with
+    ``discriminator_frequency=2`` (the second step gated), on cuDNN's
+    deterministic algorithms."""
+    from diffsci_tpu_torch import (AutoencoderKL, DDConfig,
+                                   NLayerDiscriminator, VAEModel,
+                                   VAEModelConfig, create_vae_train_state,
+                                   make_vae_train_step)
+
+    def model_g(**kw):
+        return VAEModel(AutoencoderKL(DDConfig(), embed_dim=4),
+                        VAEModelConfig(**kw),
+                        discriminator=NLayerDiscriminator(ndf=64,
+                                                          n_layers=3))
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(K_BATCH, 1, G_PIX, G_PIX, generator=gen, device="cuda")
+    model = model_g()
+    met, dt, peak, capture, before, after, counts, state, step = train_vae(
+        "K", model, x, 20)
+    vae_step_counts(zero, counts, "K")
+    nparams = sum(p.numel() for p in state.params.values())
+    nd = sum(p.numel() for p in state.disc_params.values())
+    wall, busy = busy_seconds(lambda: step(state, x, generator=gen))
+    log(f"[K VAE G] AutoencoderKL {nparams} parameters + discriminator "
+        f"{nd}, batch {K_BATCH} of {G_PIX}^2: {dt:.4f} s/step, "
+        f"{K_BATCH / dt:.2f} items/s; one profiled step wall {wall:.4f} s, "
+        f"device {busy:.4f} s; peak memory {peak:.3f} GiB; capture "
+        f"{capture} s; fixed-noise loss {before:.5f} before, {after:.5f} "
+        f"after; last step loss {float(met['train_loss']):.5f}, "
+        f"d_accuracy {float(met['d_accuracy']):.4f}, disc_updated "
+        f"{float(met['disc_updated']):.0f}")
+    if not (np.isfinite(float(met["train_loss"])) and after < before):
+        raise AssertionError("K: the loss is not finite or did not fall")
+    del state, step, model
+
+    # some of cuDNN's backward algorithms for these f32 convolutions
+    # accumulate with atomics (two eager steps differ in their last bits),
+    # so the comparison runs on its deterministic ones
+    torch.backends.cudnn.deterministic = True
+    arms = {}
+    latent = None
+    for graphed in (False, True):
+        twin = model_g(discriminator_frequency=2)
+        latent = twin.latent_shape(x.shape)
+        st, tx, dtx = create_vae_train_state(twin, tuple(x.shape), seed=0)
+        arms[graphed] = (st, make_vae_train_step(twin, tx, dtx,
+                                                 _raw=not graphed))
+    same, gates = [], []
+    for k in range(3):
+        eps = torch.randn(latent, generator=gen, device="cuda")
+        mets = {g: s(st, x, eps=eps)[1] for g, (st, s) in arms.items()}
+        gates.append(float(mets[True]["disc_updated"]))
+        same.append(all(torch.equal(mets[True][n], mets[False][n])
+                        for n in mets[True])
+                    and state_equal(arms[True][0].params,
+                                    arms[False][0].params)
+                    and state_equal(arms[True][0].disc_params,
+                                    arms[False][0].disc_params))
+    torch.backends.cudnn.deterministic = False
+    log(f"[K VAE G] graph against eager (cuDNN deterministic), bit for bit "
+        f"over 3 steps: {same}; gates {gates}")
+    if not all(same) or gates[1] != 0.0:
+        raise AssertionError("K: the graphed VAE step differs from the "
+                             "eager one, or the frequency gate did not "
+                             "close")
+    return [counts]
+
+
+def phase_vae_porous(zero):
+    """K-P: the porous-media VAENet at ``VAENetConfig()``'s defaults (3D,
+    64³ × 1, ch 32, mult (1, 2, 4), two blocks a level, middle attention
+    over 4096 tokens), batch 2, f32, ``loss_preprocessor='edges'`` in 3D,
+    total variation 0.1, no discriminator, KL annealed 0 -> 1e-3 across
+    two epochs of 3 graphed steps: finite losses, the KL weight changed
+    between the epochs and each step's main loss its nll + kl_weight·kl
+    (rtol 1e-5); s/step and peak memory."""
+    from diffsci_tpu_torch import (KLAnnealing, VAEModel, VAEModelConfig,
+                                   VAENet, VAENetConfig,
+                                   create_vae_train_state, kernels,
+                                   make_vae_train_step)
+
+    cfg = VAENetConfig()
+    conf = VAEModelConfig(loss_preprocessor="edges",
+                          loss_preprocessor_dim=3,
+                          total_variation_weight=0.1)
+    model = VAEModel(VAENet(cfg), conf)
+    annealing = KLAnnealing(conf, 0.0, 1e-3, 1)
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(KP_BATCH, 1, 64, 64, 64, generator=gen, device="cuda")
+    state, tx, _ = create_vae_train_state(model, tuple(x.shape), seed=0)
+    step = make_vae_train_step(model, tx)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    rows, times = [], []
+    for epoch in range(2):
+        weight = annealing.on_epoch(epoch)
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, met = step(state, x, generator=gen)
+            rows.append((weight, *(float(met[k]) for k in
+                                   ("main_loss", "nll_loss", "kl_loss",
+                                    "tv_loss", "train_loss"))))
+            times.append(time.perf_counter() - t0)
+    counts = dict(kernels.LAUNCHES)
+    vae_step_counts(zero, counts, "K-P")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    follows = all(np.isclose(main, nll + w * kl, rtol=1e-5, atol=0)
+                  for w, main, nll, kl, _, _ in rows)
+    nparams = sum(p.numel() for p in state.params.values())
+    log(f"[K-P VAENet] {nparams} parameters, batch {KP_BATCH} of 64^3, "
+        f"edges 3D + TV 0.1: s/step (3 graphed after the first) "
+        f"{np.mean(times[3:]):.4f}; peak memory {peak:.3f} GiB; graphs "
+        f"{len(state.graphs.graphs)}")
+    for w, main, nll, kl, tv, total in rows:
+        log(f"[K-P VAENet] kl_weight {w:.0e}: loss {total:.5f} (main "
+            f"{main:.5f} = nll {nll:.5f} + {w:.0e} x kl {kl:.3f}; tv "
+            f"{tv:.5f})")
+    if not (follows and rows[0][0] != rows[-1][0] and all(
+            np.isfinite(r[1:]).all() for r in rows)
+            and len(state.graphs.graphs) == 1):
+        raise AssertionError("K-P: a loss was not finite, or it did not "
+                             "follow the annealed KL weight")
+    return [counts]
+
+
+def phase_vae_card_vs_cpu():
+    """K-CPU: a small VAENet (the reference fixtures' widths, 16²) with an
+    ``NLayerDiscriminator(ndf=16, n_layers=2)``, f32, TF32 off: two steps
+    on the CPU and the card (graphed) from the same weights and replayed
+    z-noise, the accuracy gate open (threshold 1.01) and
+    ``discriminator_frequency=2``, so the first step updates the
+    discriminator and the second is gated: every metric within rtol 1e-3,
+    both networks' parameters within phase 3's bounds, both optimizers'
+    Adam moments within 1e-3 (first) and 2e-3 (second) of their largest
+    entry, the same counts; the gated step leaves the discriminator's
+    weights where they were on both."""
+    from diffsci_tpu_torch import (NLayerDiscriminator, VAEModel,
+                                   VAEModelConfig, VAENet, VAENetConfig,
+                                   create_vae_train_state,
+                                   make_vae_train_step)
+
+    cfg = VAENetConfig(dimension=2, in_channels=1, out_channels=1,
+                       z_channels=3, z_dim=3, ch=8, ch_mult=[1, 2],
+                       num_res_blocks=1, resolution=16, num_groups=1)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 1, 16, 16)).astype(np.float32)
+    epss = [rng.standard_normal((2, 3, 8, 8)).astype(np.float32)
+            for _ in range(2)]
+    lr = 1e-4
+    runs, weights = {}, None
+    for dev in ("cpu", "cuda"):
+        model = VAEModel(VAENet(cfg, device=dev), VAEModelConfig(
+            discriminator_frequency=2, discriminator_threshold=1.01,
+            adversarial_weight=0.05), discriminator=NLayerDiscriminator(
+                ndf=16, n_layers=2, device=dev), device=dev)
+        state, tx, dtx = create_vae_train_state(model, x.shape, seed=0)
+        if weights is None:
+            weights = ({k: v.clone() for k, v in model.net.state_dict()
+                        .items()}, {k: v.clone() for k, v in
+                                    model.discriminator.state_dict()
+                                    .items()})
+        model.net.load_state_dict(weights[0])
+        model.discriminator.load_state_dict(weights[1])
+        step = make_vae_train_step(model, tx, dtx)
+        mets, gated_same = [], None
+        for k, eps in enumerate(epss):
+            before = {n: p.detach().clone()
+                      for n, p in state.disc_params.items()}
+            _, met = step(state, torch.from_numpy(x).to(dev),
+                          eps=torch.from_numpy(eps).to(dev))
+            mets.append({n: float(v) for n, v in met.items()})
+            if k == 1:
+                gated_same = state_equal(state.disc_params, before)
+        runs[dev] = (mets, state, gated_same)
+    (m_cpu, s_cpu, g_cpu), (m_card, s_card, g_card) = runs["cpu"], \
+        runs["cuda"]
+    ok = g_cpu and g_card and [m["disc_updated"] for m in m_card] == \
+        [1.0, 0.0] and all(np.isclose(mc[n], mr[n], rtol=1e-3, atol=1e-7)
+                           for mc, mr in zip(m_card, m_cpu) for n in mr)
+    lines = []
+    for what in ("params", "disc_params"):
+        ok_p, q999, worst = params_within(getattr(s_card, what),
+                                          getattr(s_cpu, what), lr, 2)
+        ok = ok and ok_p
+        lines.append(f"{what} 99.9% {q999:.3e} max {worst:.3e}")
+    for opt, params in (("optimizer", "params"),
+                        ("disc_optimizer", "disc_params")):
+        oc, orf = getattr(s_card, opt), getattr(s_cpu, opt)
+        names = list(getattr(s_cpu, params))
+        for key, bound in (("exp_avg", 1e-3), ("exp_avg_sq", 2e-3)):
+            ref = [orf.state[getattr(s_cpu, params)[n]][key] for n in names]
+            got = [oc.state[getattr(s_card, params)[n]][key].cpu()
+                   for n in names]
+            scale = max(float(r.abs().max()) for r in ref)
+            err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            ok = ok and err <= bound * scale
+            lines.append(f"{opt} {key} {err / scale:.2e} of max")
+        ok = ok and all(float(oc.state[p]["step"]) == 2
+                        for p in oc.param_groups[0]["params"])
+    log(f"[K-CPU VAE card-vs-cpu] 2 f32 steps (updated, then gated): "
+        f"losses card {[round(m['train_loss'], 6) for m in m_card]} cpu "
+        f"{[round(m['train_loss'], 6) for m in m_cpu]}; "
+        f"{'; '.join(lines)}; gated step left the discriminator: cpu "
+        f"{g_cpu}, card {g_card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K-CPU: the card's VAE steps disagree with "
+                             "the CPU's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -4630,6 +5189,18 @@ def main() -> int:
     counts_26 = phase_i(zero)
     elapsed("26")
 
+    # progressive distillation and VAE training (phases 27 to 30)
+    counts_27 = phase_distill_b(zero)
+    elapsed("27")
+    torch.backends.cudnn.allow_tf32 = False
+    counts_28 = phase_distill_a_card_vs_cpu(zero)
+    phase_vae_card_vs_cpu()
+    torch.backends.cudnn.allow_tf32 = True
+    elapsed("28")
+    counts_29 = phase_vae_g(zero)
+    counts_30 = phase_vae_porous(zero)
+    elapsed("29-30")
+
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
                        "diffsci_tpu/kernels/fused_precondition.py:129"),
@@ -4661,7 +5232,9 @@ def main() -> int:
                                            *counts_20, *counts_21,
                                            counts_22, *counts_23,
                                            *counts_24, *counts_25,
-                                           *counts_26]),
+                                           *counts_26, *counts_27,
+                                           *counts_28, *counts_29,
+                                           *counts_30]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

@@ -56,6 +56,16 @@ sampler inside it); ``autoregressive_sample`` (a latent rollout);
 ``KarrasEncoderModel``; the KL autoencoder (``AutoencoderKL``,
 ``DDConfig``), ``VAEModel``'s encode and decode and ``BoundAutoencoder``,
 which a latent ``KarrasModel(autoencoder=...)`` takes.
+
+Distillation and VAE training: progressive distillation
+(``make_distill_step``, one CUDA graph per key with the teacher's calls
+inside it, and ``distill_progressive``, the halving chain down to a
+1-NFE student) and the minimal ``EDMModel``; VAE training
+(``create_vae_train_state`` / ``make_vae_train_step``: the autoencoder's
+and the PatchGAN ``NLayerDiscriminator``'s updates in one graphed step,
+the discriminator's gates as device values; ``KLAnnealing``), the
+porous-media ``VAENet`` (1D, 2D, 3D) and the edge loss preprocessor
+(``ops.EdgeDetectionPreprocessor``).
 """
 
 from diffsci_tpu_torch.checkpoint import (CheckpointManager, ModelRegistry,
@@ -72,13 +82,21 @@ from diffsci_tpu_torch.models import (
     freeze_optimizer, karras_model_from_description, make_eval_step,
     make_train_scan, make_train_step, renormalize_mp_weights,
     schedule_free_eval_params, schedule_free_optimizer,
-    warmup_cosine_schedule)
+    warmup_cosine_schedule, EDMModel, EDMModelConfig, KLAnnealing,
+    NLayerDiscriminator, VAENet, VAENetConfig, VAETrainState,
+    create_vae_train_state, default_vae_optimizer, distill_progressive,
+    make_distill_step, make_vae_train_step)
 from diffsci_tpu_torch.serving import SamplerService
 from diffsci_tpu_torch.trainer import Trainer, fit_karras
 
 __all__ = ["ArrayDataLoader", "AutoencoderKL", "BoundAutoencoder",
            "CheckpointManager", "DDConfig", "DDPMModel",
-           "DDPMModelConfig", "EMATracker", "EnsembleKarrasModel",
+           "DDPMModelConfig", "EDMModel", "EDMModelConfig", "EMATracker",
+           "EnsembleKarrasModel", "KLAnnealing", "NLayerDiscriminator",
+           "VAENet", "VAENetConfig", "VAETrainState",
+           "create_vae_train_state", "default_vae_optimizer",
+           "distill_progressive", "make_distill_step",
+           "make_vae_train_step",
            "EnsembleKarrasModelConfig", "HFNetCond", "HFNetUncond",
            "IntervalGuidance", "KarrasEncoderModel", "KarrasModel",
            "KarrasModelConfig", "KarrasNet", "VAEModel", "VAEModelConfig",

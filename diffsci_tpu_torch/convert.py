@@ -29,6 +29,15 @@ counterpart:
   attention blocks at ``attn_resolutions`` -> ``down.{i}.attn.{j}`` in
   call order, which needs the ``DDConfig``), or the ``VAEModel`` around
   one (scope ``autoencoder``, with a trainable ``logvar``);
+- VAENet, 1D, 2D or 3D (``encoder``/``decoder``, each with its
+  ``quant_conv``), with the torch reference's names: the blocks flax
+  numbers in call order (``_StdResBlock_k`` or ``MinimalResnetBlock_k``)
+  -> ``down.{i}.block.{j}``, ``mid.block_{1,2}``, ``up.{i}.block.{j}``, a
+  block's Conv_0/Dense_0/Conv_1/Conv_2 -> conv1.conv/temb_proj/conv2.conv
+  (the gate's ``gate.conv`` in a minimal block)/nin_shortcut.conv, the
+  resamplers, ``mid_attn`` and ``time_embed``; or the ``VAEModel`` around
+  one; and the ``NLayerDiscriminator`` (Conv_i / GroupNorm_i -> convs.i /
+  norms.i);
 - the network of a ``KarrasEncoderModel`` (``encoder_model`` beside
   ``model``);
 - ADM, 2D or 3D, default or mp convolutions (``time_embedding``,
@@ -355,6 +364,130 @@ def _autoencoder_state(params: dict, config=None) -> dict[str, np.ndarray]:
     return out
 
 
+# VAENet's blocks (flax numbers _StdResBlock_k / MinimalResnetBlock_k in
+# call order) -> the reference's names
+_VAENET_BLOCK = {
+    "_StdResBlock": {"GroupNorm_0": "norm1", "Conv_0": "conv1.conv",
+                     "Dense_0": "temb_proj", "GroupNorm_1": "norm2",
+                     "Conv_1": "conv2.conv", "Conv_2": "nin_shortcut.conv"},
+    "MinimalResnetBlock": {"GroupNorm_0": "norm1", "Conv_0": "conv1.conv",
+                           "Dense_0": "temb_proj", "Conv_1": "gate.conv",
+                           "Conv_2": "nin_shortcut.conv"}}
+_VAENET_ATTN = {"GroupNorm_0": "norm", "Dense_0": "q.conv",
+                "Dense_1": "k.conv", "Dense_2": "v.conv",
+                "Dense_3": "proj_out.conv"}
+_VAENET_TOP = {"conv_in": "conv_in.conv", "conv_out": "conv_out.conv",
+               "quant_conv": "quant_conv.conv",
+               "post_quant_conv": "post_quant_conv.conv",
+               "GroupNorm_0": "norm_out"}
+_TIME_EMBED = {"GaussianFourierProjection_0": "fourier",
+               "Dense_0": "linear_1", "Dense_1": "linear_2"}
+
+
+def _vaenet_slots(side: dict, encoder: bool, config=None) -> dict:
+    """The flax scopes of one side of a VAENet's blocks and resamplers ->
+    the port's prefixes. The levels are the config's or, without one, one
+    more than the resamplers (which hold weights with
+    ``resamp_with_conv``); the blocks a level are those beyond the
+    middle's two over the levels."""
+    blocks = sorted((s for s in side if re.match(
+        r"^(_StdResBlock|MinimalResnetBlock)_\d+$", s)),
+        key=lambda s: int(s.rsplit("_", 1)[1]))
+    n = config.num_resolutions if config is not None else 1 + sum(
+        1 for s in side if re.match(r"^LDM(Down|Up)sample_\d+$", s))
+    per_level = (len(blocks) - 2) // n
+    if encoder:
+        order = [f"down.{i}.block.{j}" for i in range(n)
+                 for j in range(per_level)] + ["mid.block_1", "mid.block_2"]
+    else:
+        order = ["mid.block_1", "mid.block_2"] + [
+            f"up.{i}.block.{j}" for i in reversed(range(n))
+            for j in range(per_level)]
+    out = dict(zip(blocks, order))
+    for k in range(n - 1):
+        if encoder:
+            out[f"LDMDownsample_{k}"] = f"down.{k}.downsample.conv"
+        else:
+            out[f"LDMUpsample_{k}"] = f"up.{n - 1 - k}.upsample.conv.conv"
+    return out
+
+
+def _vaenet_state(params: dict, buffers: dict,
+                  config=None) -> dict[str, np.ndarray]:
+    """A VAENet's JAX leaves -> the port's (the torch reference's) names.
+    Attention at ``attn_resolutions`` needs the ``VAENetConfig``
+    (``config=``) to place its blocks."""
+    ndim = np.asarray(params["encoder"]["quant_conv"]["kernel"]).ndim - 2
+    out = {}
+    for side_name in ("encoder", "decoder"):
+        side = params[side_name]
+        slots = _vaenet_slots(side, side_name == "encoder", config)
+        attns = sorted((s for s in side if re.match(
+            r"^LDM(Linear)?AttnBlock_\d+$", s)),
+            key=lambda s: int(s.rsplit("_", 1)[1]))
+        if attns:
+            if config is None:
+                raise ValueError("attention at attn_resolutions needs the "
+                                 "VAENetConfig (config=)")
+            # the same levels and counts as AutoencoderKL's
+            slots.update(zip(attns, _attn_slots(config, side_name)))
+        tree = {"params": side, "buffers": buffers.get(side_name, {})}
+        for coll, sub in tree.items():
+            for path, w in _flatten(sub):
+                leaf, scope, rest = path[-1], path[0], list(path[1:-1])
+                if scope == "time_embed":
+                    key = f"time_embed.{_TIME_EMBED[rest[0]]}"
+                    name = leaf if coll == "buffers" else _LEAF[leaf]
+                    out[f"{side_name}.{key}.{name}"] = _layout(w, leaf)
+                    continue
+                name = _LEAF[leaf]
+                dense = 0
+                if scope in _VAENET_TOP:
+                    key = _VAENET_TOP[scope]
+                elif scope == "mid_attn":
+                    key = f"mid.attn_1.{_VAENET_ATTN[rest[0]]}"
+                    dense = ndim
+                elif re.match(r"^LDMAttnBlock_\d+$", scope):
+                    key = f"{slots[scope]}.{_VAENET_ATTN[rest[0]]}"
+                    dense = ndim
+                elif re.match(r"^LDMLinearAttnBlock_\d+$", scope):
+                    key = f"{slots[scope]}.{_LDM_LINEAR_ATTN[rest[0]]}"
+                    dense = ndim
+                elif re.match(r"^LDM(Down|Up)sample_\d+$", scope):
+                    key = slots[scope]
+                elif scope in slots:
+                    kind = scope.rsplit("_", 1)[0]
+                    sub_name = _VAENET_BLOCK[kind][rest[0]]
+                    key = f"{slots[scope]}.{sub_name}"
+                else:
+                    raise KeyError("no port name for JAX parameter "
+                                   f"{side_name}/{'/'.join(path)}")
+                out[f"{side_name}.{key}.{name}"] = _conv_leaf(w, leaf, dense)
+    return out
+
+
+def _discriminator_state(params: dict) -> dict[str, np.ndarray]:
+    """An NLayerDiscriminator's Conv_i / GroupNorm_i -> convs.i /
+    norms.i."""
+    out = {}
+    for path, w in _flatten(params):
+        kind, i = path[0].rsplit("_", 1)
+        out[f"{'convs' if kind == 'Conv' else 'norms'}.{i}."
+            f"{_LEAF[path[-1]]}"] = _layout(w, path[-1])
+    return out
+
+
+def _is_discriminator(params: dict) -> bool:
+    return "Conv_0" in params and all(
+        re.match(r"^(Conv|GroupNorm)_\d+$", k) for k in params) and \
+        np.asarray(params["Conv_0"]["kernel"]).ndim >= 3
+
+
+def _is_vaenet(params: dict) -> bool:
+    return "encoder" in params and "decoder" in params and \
+        "quant_conv" in params["encoder"]
+
+
 def _unet2d_state(params: dict) -> dict[str, np.ndarray]:
     return {_unet2d_key(path): _layout(w, path[-1])
             for path, w in _flatten(params)}
@@ -645,9 +778,16 @@ def from_jax_variables(variables_np: dict,
     buffers = variables_np.get("buffers", {})
     if "quant_conv" in params:
         return _tensors(_autoencoder_state(params, config))
+    if _is_vaenet(params):
+        return _tensors(_vaenet_state(params, buffers, config))
+    if _is_discriminator(params):
+        return _tensors(_discriminator_state(params))
     if "autoencoder" in params:
-        out = {f"autoencoder.{k}": v for k, v in _autoencoder_state(
-            params["autoencoder"], config).items()}
+        inner = params["autoencoder"]
+        out = {f"autoencoder.{k}": v for k, v in (
+            _vaenet_state(inner, buffers.get("autoencoder", {}), config)
+            if _is_vaenet(inner) else
+            _autoencoder_state(inner, config)).items()}
         if "logvar" in params:
             out["logvar"] = np.asarray(params["logvar"])
         return _tensors(out)
@@ -734,7 +874,77 @@ def from_jax_reg_reference(reference_np: dict, params_np: dict,
     return {k: ref[k] for k, v in marked.items() if bool(v.isnan().any())}
 
 
-def from_jax_train_state(state_np, model, tx, ema=None, reg_reference=None):
+def _has_field(obj, name) -> bool:
+    return name in obj if isinstance(obj, dict) else hasattr(obj, name)
+
+
+def _load_optimizer(optimizer, params: dict, opt_state,
+                    port_params) -> None:
+    """An optax state read as numpy into the port's optimizer over
+    ``params`` (name -> tensor): a ``ScaleByAdamState``'s ``count``, ``mu``
+    and ``nu`` to AdamW's ``step``, ``exp_avg`` and ``exp_avg_sq`` (a
+    bfloat16 ``mu`` too), or a ``ScheduleFreeState``'s ``z``,
+    ``weight_sum``, ``max_lr`` and its RMS ``count`` and ``nu`` to
+    ``ScheduleFreeAdamW``'s state. ``port_params`` maps a JAX params tree
+    to the port's names."""
+    sf = _find(opt_state, ("weight_sum", "max_lr", "z"))
+    if sf is not None:
+        rms = _find(_field(sf, "base_optimizer_state"), ("count", "nu"))
+        scalars = {"step": _field(rms, "count"),
+                   "weight_sum": _field(sf, "weight_sum"),
+                   "max_lr": _field(sf, "max_lr")}
+        sources = (("z", sf, "z"), ("exp_avg_sq", rms, "nu"))
+    else:
+        adam = _find(opt_state, ("count", "mu", "nu"))
+        if adam is None:
+            raise ValueError("the JAX optimizer state holds no Adam state")
+        scalars = {"step": _field(adam, "count")}
+        sources = (("exp_avg", adam, "mu"), ("exp_avg_sq", adam, "nu"))
+    # a bfloat16 first moment (mu_dtype) passes through float32
+    moments = {key: port_params(_as_f32(_field(node, src)))
+               for key, node, src in sources}
+    names = {id(p): k for k, p in params.items()}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            slot = optimizer.state[p]
+            for key, value in scalars.items():
+                slot[key].fill_(float(np.asarray(value)))
+            for key, values in moments.items():
+                slot[key].copy_(values[names[id(p)]])
+
+
+def _vae_train_state(state_np, model, tx, dtx):
+    """A JAX ``VAETrainState`` (read as numpy) -> the port's, made in place
+    over a fresh state of ``tx`` and ``dtx``."""
+    from diffsci_tpu_torch.models.vae.module import create_vae_train_state
+
+    config = getattr(model.net.autoencoder, "config", None)
+    params = _field(state_np, "params")
+    consts = _field(state_np, "consts") or {}
+    state, _, _ = create_vae_train_state(model, seed=None, optimizer=tx,
+                                         disc_optimizer=dtx)
+    with torch.no_grad():
+        model.net.load_state_dict(from_jax_variables(
+            {"params": params, **consts}, config), strict=True)
+        _load_optimizer(state.optimizer, state.params,
+                        _field(state_np, "opt_state"),
+                        lambda tree: from_jax_variables({"params": tree},
+                                                        config))
+        disc = _field(state_np, "disc_params")
+        if model.is_adversarial and disc is not None:
+            model.discriminator.load_state_dict(
+                from_jax_variables({"params": disc}), strict=True)
+            _load_optimizer(state.disc_optimizer, state.disc_params,
+                            _field(state_np, "disc_opt_state"),
+                            lambda tree: from_jax_variables({"params": tree}))
+        step = int(np.asarray(_field(state_np, "step")))
+        state.counter.fill_(step)
+    state.step = step
+    return state
+
+
+def from_jax_train_state(state_np, model, tx, ema=None, reg_reference=None,
+                         dtx=None):
     """The port's ``TrainState`` over ``model`` from a JAX-package
     ``TrainState`` read as numpy (``jax.tree.map(np.asarray, state)``,
     e.g. after the JAX package's ``restore_checkpoint``), made in place
@@ -750,9 +960,18 @@ def from_jax_train_state(state_np, model, tx, ema=None, reg_reference=None):
     ``num_updates``; the step. This carries a TPU run over to the card,
     an ``EnsembleKarrasModel``'s too (its state is a ``KarrasModel``'s);
     with ``reg_reference`` (the JAX run's L2-SP reference, numpy) it
-    returns (state, the port's reference, ``from_jax_reg_reference``)."""
+    returns (state, the port's reference, ``from_jax_reg_reference``).
+
+    A JAX ``VAETrainState`` (it has ``disc_params``) gives the port's
+    ``VAETrainState`` over a ``VAEModel``: the autoencoder's params and
+    consts, the discriminator's params, both AdamW states (``tx`` the
+    autoencoder's optimizer, ``dtx`` the discriminator's), and the step,
+    also into the device counter the frequency gate reads; so a VAE
+    trained by the JAX package resumes on the card."""
     from diffsci_tpu_torch.models.karras.train import _new_train_state
 
+    if _has_field(state_np, "disc_params"):
+        return _vae_train_state(state_np, model, tx, dtx)
     config = getattr(model.net.model, "config", None)
     if not hasattr(config, "first_resblock_norm"):
         config = None
@@ -768,31 +987,8 @@ def from_jax_train_state(state_np, model, tx, ema=None, reg_reference=None):
             from_jax_variables({"params": params, **consts}, config),
             strict=True)
         opt_state = _field(state_np, "opt_state")
-        sf = _find(opt_state, ("weight_sum", "max_lr", "z"))
-        if sf is not None:
-            rms = _find(_field(sf, "base_optimizer_state"), ("count", "nu"))
-            scalars = {"step": _field(rms, "count"),
-                       "weight_sum": _field(sf, "weight_sum"),
-                       "max_lr": _field(sf, "max_lr")}
-            sources = (("z", sf, "z"), ("exp_avg_sq", rms, "nu"))
-        else:
-            adam = _find(opt_state, ("count", "mu", "nu"))
-            if adam is None:
-                raise ValueError("the JAX optimizer state holds no Adam "
-                                 "state")
-            scalars = {"step": _field(adam, "count")}
-            sources = (("exp_avg", adam, "mu"), ("exp_avg_sq", adam, "nu"))
-        # a bfloat16 first moment (mu_dtype) passes through float32
-        moments = {key: port_params(_as_f32(_field(node, src)))
-                   for key, node, src in sources}
-        for group in state.optimizer.param_groups:
-            for p in group["params"]:
-                name = next(k for k, q in state.params.items() if q is p)
-                slot = state.optimizer.state[p]
-                for key, value in scalars.items():
-                    slot[key].fill_(float(np.asarray(value)))
-                for key, values in moments.items():
-                    slot[key].copy_(values[name])
+        _load_optimizer(state.optimizer, state.params, opt_state,
+                        port_params)
         if state.accum is not None:
             multi = _find(opt_state, ("mini_step", "gradient_step",
                                       "acc_grads"))

@@ -12,11 +12,21 @@ from diffsci_tpu_torch.models.nets import (AutoencoderKL, DDConfig, HFNet,
                                            HFNetCond, HFNetUncond, MLPCond,
                                            MLPUncond, PUNetG, PUNetGCond,
                                            PUNetGConfig, UNet2D)
-from diffsci_tpu_torch.models.vae import BoundAutoencoder, VAEModel, \
-    VAEModelConfig
+from diffsci_tpu_torch.models.karras import (
+    EDMModel, EDMModelConfig, distill_progressive, make_distill_step)
+from diffsci_tpu_torch.models.nets import VAENet, VAENetConfig
+from diffsci_tpu_torch.models.vae import (
+    BoundAutoencoder, KLAnnealing, NLayerDiscriminator, VAEModel,
+    VAEModelConfig, VAETrainState, create_vae_train_state,
+    default_vae_optimizer, make_vae_train_step)
 
 __all__ = ["AutoencoderKL", "BoundAutoencoder", "DDConfig", "DDPMModel",
-           "DDPMModelConfig", "EMATracker", "EnsembleKarrasModel",
+           "DDPMModelConfig", "EDMModel", "EDMModelConfig", "EMATracker",
+           "EnsembleKarrasModel", "KLAnnealing", "NLayerDiscriminator",
+           "VAENet", "VAENetConfig", "VAETrainState",
+           "create_vae_train_state", "default_vae_optimizer",
+           "distill_progressive", "make_distill_step",
+           "make_vae_train_step",
            "EnsembleKarrasModelConfig", "HFNet",
            "HFNetCond", "HFNetUncond", "IntervalGuidance",
            "KarrasEncoderModel", "KarrasModel",

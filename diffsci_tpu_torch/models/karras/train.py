@@ -41,9 +41,8 @@ moment stored in ``mu_dtype``, optax's ``adamw(mu_dtype=)``) and
 ``optax.contrib.schedule_free_adamw``), with
 ``schedule_free_eval_params``.
 
-Not ported yet: the data-parallel step over a ``mesh`` and progressive
-distillation's training (``diffsci_tpu/models/karras/distill.py`` beyond
-``sample_onestep``).
+Not ported yet: the data-parallel step over a ``mesh``. Progressive
+distillation's step is ``models/karras/distill.py:make_distill_step``.
 """
 
 from __future__ import annotations

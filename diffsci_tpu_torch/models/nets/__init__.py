@@ -24,6 +24,9 @@ from diffsci_tpu_torch.models.nets.punetg_variants import (
     PUNetGDecoder, PUNetGDeterministic, PUNetGEncoder, PUNetV, PUNetVConfig)
 from diffsci_tpu_torch.models.nets.vae import (AutoencoderKL, DDConfig,
                                                DiagonalGaussianDistribution)
+from diffsci_tpu_torch.models.nets.vaenet import (MinimalResnetBlock, VAENet,
+                                                  VAENetConfig, divide_dims,
+                                                  patched_conv)
 
 __all__ = ["ADM", "ADMBlock", "ADMConfig", "ADMTimeEmbedding",
            "AutoencoderKL", "ChannelAdapterWrapper", "ClassifierResBlock",
@@ -38,5 +41,6 @@ __all__ = ["ADM", "ADMBlock", "ADMConfig", "ADMTimeEmbedding",
            "PorosityEmbedder", "PoreSizeDistEmbedder",
            "PoreSizeDistTransformer", "PositionalEncoding1d",
            "TwoPointCorrelationEmbedder", "TwoPointCorrelationTransformer",
-           "UNet2D", "calculate_receptive_field", "dasc_loss",
-           "load_autoencoder", "moe_aux_loss"]
+           "UNet2D", "VAENet", "VAENetConfig", "MinimalResnetBlock",
+           "calculate_receptive_field", "dasc_loss", "divide_dims",
+           "load_autoencoder", "moe_aux_loss", "patched_conv"]

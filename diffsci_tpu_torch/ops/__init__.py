@@ -16,6 +16,8 @@ from diffsci_tpu_torch.ops.preconditioners import (EDMPreconditioner,
                                                    SR3Preconditioner,
                                                    VEPreconditioner,
                                                    VPPreconditioner)
+from diffsci_tpu_torch.ops.preprocessors import (EdgeDetectionPreprocessor,
+                                                 make_loss_preprocessor)
 from diffsci_tpu_torch.ops.schedulers import (EDMScheduler, Scheduler,
                                               VEScheduler, VPScheduler,
                                               draw_noise, draw_rows)
@@ -25,7 +27,8 @@ from diffsci_tpu_torch.ops.scheduling import (EDMSchedulingFunctions,
                                               VPSchedulingFunctions,
                                               name_to_scheduling_functions)
 
-__all__ = ["DPMSolverPlusPlus2M", "EDMNoiseSampler", "EDMPreconditioner",
+__all__ = ["DPMSolverPlusPlus2M", "EDMNoiseSampler",
+           "EdgeDetectionPreprocessor", "EDMPreconditioner",
            "EDMScheduler", "EDMSchedulingFunctions", "EulerIntegrator",
            "EulerMaruyamaIntegrator", "HeunIntegrator", "Integrator",
            "KarrasIntegrator", "KarrasPreconditioner", "NoiseSampler",
@@ -34,5 +37,5 @@ __all__ = ["DPMSolverPlusPlus2M", "EDMNoiseSampler", "EDMPreconditioner",
            "VEPreconditioner", "VEScheduler", "VESchedulingFunctions",
            "VPNoiseSampler", "VPPreconditioner", "VPScheduler",
            "VPSchedulingFunctions", "batchnorm", "draw_noise", "draw_rows",
-           "losses", "name_to_integrator", "name_to_scheduling_functions",
+           "losses", "make_loss_preprocessor", "name_to_integrator", "name_to_scheduling_functions",
            "parallel_sampling"]

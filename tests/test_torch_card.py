@@ -1210,3 +1210,137 @@ def test_graphed_optimizer_steps_match_eager_on_card(_no_tf32, kind):
     if kind == "bf16":
         assert all(s["exp_avg"].dtype == torch.bfloat16
                    for s in s_graph.optimizer.state.values())
+
+
+def _distill_pair(dtype):
+    """A small student and a teacher of other weights (seeds 0 and 1)."""
+    from diffsci_tpu_torch.models.karras import distill
+
+    model = KarrasModel(PUNetG(_small_2d()), KarrasModelConfig.from_edm(),
+                        compute_dtype=dtype)
+    model.init(seed=0)
+    teacher = distill._teacher_like(model)
+    teacher.init(seed=1)
+    return model, teacher
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_graphed_distill_step_matches_eager_on_card(_no_tf32, dtype):
+    """``make_distill_step``'s graph against its eager body from the same
+    weights and replayed draws (f32, and bf16 over f32 masters, where the
+    teacher's cast copy is made in the graph): three steps bit for bit
+    (losses, grad norms, parameters), then the teacher reloaded in place
+    with other weights, and two more steps of the same graph against the
+    eager step with the new teacher, bit for bit; one graph in all, with
+    the teacher's and the student's launches in it."""
+    from diffsci_tpu_torch.models.karras import distill
+    from diffsci_tpu_torch.models.karras.train import _new_train_state
+
+    arms = {}
+    for graphed in (False, True):
+        model, teacher = _distill_pair(dtype)
+        tx = default_optimizer(1e-3)
+        state = _new_train_state(model, tx)
+        step = distill.make_distill_step(model, tx, 3, _raw=not graphed)
+        arms[graphed] = (model, teacher, state, step)
+    gen = torch.Generator("cuda").manual_seed(3)
+    x = torch.randn(4, 16, 16, 1, generator=gen, device="cuda")
+    new_teacher = None
+    for k in range(5):
+        if k == 3:
+            new_teacher = {n: v.clone() for n, v in
+                           _distill_pair(dtype)[0].init(seed=7).items()}
+            for model, teacher, _, _ in arms.values():
+                teacher.net.load_state_dict(new_teacher)
+        idx = torch.randint(0, 3, (4,), generator=gen, device="cuda")
+        eps = torch.randn(x.shape, generator=gen, device="cuda")
+        mets = {}
+        for graphed, (model, teacher, state, step) in arms.items():
+            _, mets[graphed] = step(state, teacher, x, idx=idx, eps=eps)
+        for name in ("distill_loss", "grad_norm"):
+            assert torch.equal(mets[True][name], mets[False][name]), (k, name)
+        for n, p in arms[False][2].params.items():
+            assert torch.equal(arms[True][2].params[n], p), (k, n)
+    graphs = arms[True][2].graphs.graphs
+    assert len(graphs) == 1
+    launches = next(iter(graphs.values())).launches
+    # four teacher denoiser calls (Heun) a step, each one K1
+    assert launches["fused_axby"] == 4, launches
+
+
+def _vae_models(seed=0):
+    from diffsci_tpu_torch import (NLayerDiscriminator, VAEModel,
+                                   VAEModelConfig, VAENet, VAENetConfig)
+
+    cfg = VAENetConfig(dimension=2, ch=8, ch_mult=(1, 2), num_res_blocks=1,
+                       resolution=16, num_groups=4)
+    model = VAEModel(VAENet(cfg), VAEModelConfig(
+        adversarial_weight=0.05, discriminator_frequency=2,
+        loss_preprocessor="edges", total_variation_weight=0.1),
+        discriminator=NLayerDiscriminator(ndf=8, n_layers=2))
+    return model
+
+
+@pytest.fixture
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms: some of its backward algorithms
+    for f32 convolutions accumulate with atomics, so two eager steps
+    differ in their last bits without it."""
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = flag
+
+
+def test_graphed_vae_step_matches_eager_on_card(_no_tf32,
+                                                _deterministic_cudnn):
+    """``make_vae_train_step``'s graph against its eager body from the same
+    weights and z-noise: four steps bit for bit (every metric, both
+    networks' parameters and Adam moments), the second with the
+    frequency gate at 0 (the discriminator's weights stay, its moments
+    move); a KL weight set between steps reaches the graph (one graph in
+    all)."""
+    from diffsci_tpu_torch import (KLAnnealing, create_vae_train_state,
+                                   make_vae_train_step)
+
+    arms = {}
+    for graphed in (False, True):
+        model = _vae_models()
+        state, tx, dtx = create_vae_train_state(model, (2, 1, 16, 16),
+                                                seed=0)
+        arms[graphed] = (model, state,
+                         make_vae_train_step(model, tx, dtx,
+                                             _raw=not graphed))
+    gen = torch.Generator("cuda").manual_seed(2)
+    x = torch.randn(2, 1, 16, 16, generator=gen, device="cuda")
+    for k in range(4):
+        if k == 3:
+            for model, _, _ in arms.values():
+                KLAnnealing(model.config, 1e-3, 0.5, 2).on_epoch(2)
+        eps = torch.randn(2, 4, 8, 8, generator=gen, device="cuda")
+        before = {n: p.detach().clone()
+                  for n, p in arms[True][1].disc_params.items()}
+        mets = {}
+        for graphed, (model, state, step) in arms.items():
+            _, mets[graphed] = step(state, x, eps=eps)
+        assert mets[True].keys() == mets[False].keys()
+        for name, v in mets[False].items():
+            assert torch.equal(mets[True][name], v), (k, name)
+        for attr in ("params", "disc_params"):
+            for n, p in getattr(arms[False][1], attr).items():
+                assert torch.equal(getattr(arms[True][1], attr)[n], p), \
+                    (k, n)
+        for opt in ("optimizer", "disc_optimizer"):
+            eager = getattr(arms[False][1], opt)
+            graph = getattr(arms[True][1], opt)
+            for pe, pg in zip(eager.param_groups[0]["params"],
+                              graph.param_groups[0]["params"]):
+                for key in ("exp_avg", "exp_avg_sq", "step"):
+                    assert torch.equal(graph.state[pg][key],
+                                       eager.state[pe][key]), (k, key)
+        if k == 1:
+            assert float(mets[True]["disc_updated"]) == 0.0
+            for n, p in arms[True][1].disc_params.items():
+                assert torch.equal(p, before[n]), n
+    assert float(mets[True]["kl_loss"]) > 0
+    assert len(arms[True][1].graphs.graphs) == 1

@@ -303,16 +303,20 @@ def test_load_autoencoder_and_training_refusals():
         autoencoders.load_autoencoder("nope")
     model = vae_module.VAEModel(ae, vae_module.VAEModelConfig(),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.loss_fn(None, None)
-    for fn in (vae_module.NLayerDiscriminator, vae_module.KLAnnealing,
-               vae_module.create_vae_train_state,
-               vae_module.make_vae_train_step):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            fn()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # the training half is ported (tests/test_torch_vae_training.py): the
+    # loss runs, and the refusals left are the configuration's own
+    loss, logs = model.loss_fn(torch.zeros(1, 1, 16, 16),
+                               generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(loss) and logs["x_recon"].shape == (1, 1, 16, 16)
+    with pytest.raises(ValueError, match="not supported"):
         vae_module.VAEModel(ae, vae_module.VAEModelConfig(
-            loss_preprocessor="edges"), device="cpu")
+            loss_preprocessor="blur"), device="cpu")
+    with pytest.raises(ValueError, match="teaching_mode"):
+        vae_module.VAEModelConfig(teaching_mode="nope")
+    edges = vae_module.VAEModel(ae, vae_module.VAEModelConfig(
+        loss_preprocessor="edges"), device="cpu")
+    assert torch.isfinite(edges.loss_fn(
+        torch.zeros(1, 1, 16, 16), eps=torch.zeros(1, 3, 8, 8))[0])
     # init draws every weight from the seed, the same on every call
     a = {k: v.clone() for k, v in model.init(4).items()}
     b = model.init(4)
