@@ -261,8 +261,41 @@ Phases (any failure raises, so the exit code is non-zero):
 30. K-P, the porous-media ``VAENet()`` (3D 64³, batch 2, edge loss in 3D,
     total variation 0.1) over two epochs of 3 graphed steps with
     ``KLAnnealing``: the loss follows the new KL weight.
-31. One JSON line lists every kernel with its launches over phases 5 to
-    9, 11 to 15 and 17 to 30; the card's name and power limit; then the
+31. Card vs CPU, f32, TF32 off, the other runtimes at small sizes from
+    the same weights and replayed draws: L (``SIModel`` around phase 2's
+    net) samples 4 Heun steps on the linear and the "edm" path (graphed),
+    runs 4 Euler–Maruyama steps and one graphed train step with the
+    running initial norm; M (``SDEModel`` at B's depth, 8 channels) runs
+    10 Euler–Maruyama and 5 Heun probability-flow steps and one train
+    step; N (``DDPMModuleV1`` around phase 4's HFNet, T 25) runs its DDPM
+    and DDIM reverse processes (graphed) and one step under
+    ``default_v1_optimizer``; O (``ForecastModel`` over a small 2D
+    autoencoder) its loss, prediction and one step: phase 2's tolerance
+    and phase 3's bounds.
+32. Configuration L, flow matching of porous volumes: ``SIModel`` around
+    A's PUNetG (bf16 over f32 masters) served through ``SamplerService``
+    at 30 steps, buckets (1, 4), requests (1, 3, 6) (57 network calls a
+    bucket run: exactly 57 × 20 K2 and 57 K4), and by the "edm" path and
+    Euler–Maruyama (29 calls) at bucket 4, with wall and device time a
+    bucket; per-row isolation through the dispatcher; the graphed Heun
+    and EM requests bit for bit their eager loops at 6 steps; 20 graphed
+    train steps at batch 4 (20 K2 and K3, one K4, K5 and K6 a step, no
+    K1; a falling loss; s/step, items/s, peak memory, capture seconds,
+    one profiled step), 3 of them bit for bit eager; one ``inpaint`` of
+    a 32³ volume (falloff 2, one resampling round), its known region
+    exact.
+33. M, N and O at full width: ``SDEModel`` around B's PUNetG (f32, VP
+    linear), bucket 64, ``sde_sampler`` at 1000 steps and Heun
+    probability flow at 500 (one graph of a step, replayed a step; 28 K2
+    a network call), 20 graphed steps at batch 256 (28 K2 and K3 a step);
+    ``DDPMModuleV1`` around C's HFNet (f32, T 1000) by DDPM and DDIM at
+    bucket 16 and 20 steps at batch 128 under ``default_v1_optimizer``;
+    ``ForecastModel`` over G's autoencoder with a two-convolution head
+    (64 channels), 20 steps at batch 8 and a chunked sample of 8: walls,
+    device time a step, the samplers graphed against eager at 20 steps
+    bit for bit, no kernel of the port in N or O.
+34. One JSON line lists every kernel with its launches over phases 5 to
+    9, 11 to 15 and 17 to 33; the card's name and power limit; then the
     result line.
 
 The last line of standard output is
@@ -5058,6 +5091,714 @@ def phase_vae_card_vs_cpu():
                              "the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# phases 31 to 33: the other runtimes (L: flow matching of porous volumes,
+# M: the SDE stack, N: DDPM v1, O: the deterministic forecaster)
+# ---------------------------------------------------------------------------
+SI_STEPS = 30              # SIModel.sample's default grid
+SI_NFE = 2 * SI_STEPS - 3  # Heun over 28 intervals, then one Euler step
+SI_EM_NFE = SI_STEPS - 1   # Euler–Maruyama: one call an interval
+M_EM_STEPS = 1000          # sde_sampler's default
+M_PF_STEPS = 500           # Heun: 1000 network calls (cut for time)
+M_BATCH, N_BATCH, O_BATCH = 256, 128, 8
+SHORT_STEPS = 20           # graphed against eager (an eager call ~18 ms)
+
+
+class ForecastHead(torch.nn.Module):
+    """O's network: two 3×3 convolutions with a SiLU between (the head of
+    ``tests/test_remaining_components.py``'s forecaster), from the
+    conditioning window's latents to the next latent frame."""
+
+    def __init__(self, channels=4, width=64):
+        super().__init__()
+        self.conv0 = torch.nn.Conv2d(channels, width, 3, padding=1)
+        self.conv1 = torch.nn.Conv2d(width, channels, 3, padding=1)
+
+    def forward(self, yc, y=None):
+        return self.conv1(F.silu(self.conv0(yc)))
+
+
+def within_scale(out, ref):
+    """Phase 2's rtol 1e-3 + atol 1e-3, the atol taken relative to the
+    result's scale (an untrained network's loop amplifies x)."""
+    out, ref = out.float().cpu(), ref.float().cpu()
+    err = float((out - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    return err, bool(torch.isfinite(out).all()) and bool(
+        ((out - ref).abs() <= 1e-3 * ref.abs() + 1e-3 * scale).all())
+
+
+def model_l(dev="cuda", cfg=None, dtype=torch.bfloat16, **si):
+    """Configuration L: an ``SIModel`` around A's PUNetG (3D 32³, flash
+    attention over the 4096-token bottleneck), the linear path and the
+    Huber loss unless ``si`` says otherwise, bf16 over f32 masters."""
+    from diffsci_tpu_torch import PUNetG, PUNetGConfig, SIModel, SIModelConfig
+
+    cfg = cfg or PUNetGConfig(dimension=3, model_channels=32,
+                              channel_expansion=[2], num_heads=2,
+                              attn_backend="flash")
+    return SIModel(PUNetG(cfg, device=dev), SIModelConfig(
+        **dict(dict(scheduler="linear", loss_metric="huber"), **si)),
+        compute_dtype=dtype, device=dev)
+
+
+def small_b_config():
+    """B's depth at 8 channels: 28 norms a network call (K2), plain
+    attention."""
+    from diffsci_tpu_torch import PUNetGConfig
+
+    return PUNetGConfig(model_channels=8, channel_expansion=[2, 4])
+
+
+def small_runtimes(dev):
+    """Phase 31's nets, f32, weights from fixed seeds (device-independent):
+    L at phase 2's cut (with the running initial norm), M at B's depth cut
+    to 8 channels, N around phase 4's small HFNet (T 25), and O over a
+    small 2D autoencoder (16² fields to 8² × 4 latents)."""
+    from diffsci_tpu_torch import (DDPMModuleV1, DDPMSchedulerV1,
+                                   ForecastModel, ForecastModelConfig, PUNetG,
+                                   SDEModel)
+    from diffsci_tpu_torch.models import sde
+    from diffsci_tpu_torch.models.nets.vae import AutoencoderKL, DDConfig
+    from diffsci_tpu_torch.models.vae import (BoundAutoencoder, VAEModel,
+                                              VAEModelConfig)
+
+    out = {"L": model_l(dev, small_3d_config(), None, initial_norm=True),
+           "L-edm": model_l(dev, small_3d_config(), None, scheduler="edm",
+                            precondition_fn="edm"),
+           "M": SDEModel(PUNetG(small_b_config(), device=dev),
+                         sde.VPSchedulerLinear(coef=19.9), device=dev),
+           "N": DDPMModuleV1(small_hfnet(dev), DDPMSchedulerV1(T=25),
+                             device=dev)}
+    vm = VAEModel(AutoencoderKL(DDConfig(resolution=16, ch=8,
+                                         ch_mult=(1, 2), num_res_blocks=1),
+                                embed_dim=4, device=dev),
+                  VAEModelConfig(), device=dev)
+    vm.init(seed=7)
+    out["O"] = ForecastModel(ForecastHead(4, 8), ForecastModelConfig(
+        loss_metric="huber"), autoencoder=BoundAutoencoder(vm), device=dev)
+    for seed, model in enumerate(out.values()):
+        model.init(seed=seed)
+    return out
+
+
+def one_train_step(model, x, y, t, eps, loss_fn=None, optimizer=None):
+    """One train step (graphed on the card: its warm-up) from replayed t
+    and ε; returns ((loss, grad_norm), the state)."""
+    from diffsci_tpu_torch import create_train_state, make_train_step
+
+    state, tx = create_train_state(model, x.shape, seed=None,
+                                   optimizer=optimizer)
+    step = make_train_step(model, tx, loss_fn=loss_fn)
+    _, met = step(state, x, y, sigma=t, eps=eps)
+    return (float(met["train_loss"]), float(met["grad_norm"])), state
+
+
+def phase_runtimes_card_vs_cpu():
+    """Phase 31: L, M, N and O at small sizes, f32 with TF32 off, on the
+    CPU (plain versions, eager) and the card (kernels, graphed entry
+    points) from the same weights and replayed draws: L's Heun sample
+    (graphed, 4 steps) on the linear and the "edm" path, its
+    Euler–Maruyama loop with replayed noise and one train step with the
+    running initial norm; M's Euler–Maruyama (10 steps) and Heun
+    probability-flow (5 steps) loops and one step of its loss; N's DDPM
+    and DDIM reverse processes (25 steps, the card's graphed) and one
+    step under ``default_v1_optimizer``; O's loss, prediction and one
+    step. Results within phase 2's tolerance (its atol relative to the
+    loop's scale), train steps within phase 3's bounds (loss and
+    grad_norm rtol 1e-3, parameters 99.9 % within 0.05·lr, all within
+    2·lr), the running statistics within 1e-5. Returns the card's launch
+    counts."""
+    from diffsci_tpu_torch import default_v1_optimizer, kernels
+    from diffsci_tpu_torch.models import sde
+
+    rng = np.random.default_rng(31)
+
+    def draw(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    shape_l, shape_m, shape_n = (2, 32, 32, 32, 1), (4, 28, 28, 1), \
+        (4, 32, 32, 3)
+    inputs = dict(
+        l_x=draw(*shape_l), l_noise=draw(3, *shape_l), l_eps=draw(*shape_l),
+        l_data=draw(*shape_l, scale=2.0) + 0.5,
+        l_t=rng.uniform(0.05, 0.95, 2).astype(np.float32),
+        m_x=draw(*shape_m), m_noise=draw(10, *shape_m),
+        m_data=draw(*shape_m), m_eps=draw(*shape_m),
+        m_t=rng.uniform(1e-3, 1.0, 4).astype(np.float32),
+        n_x=draw(*shape_n), n_noise=draw(25, *shape_n),
+        n_data=draw(*shape_n), n_eps=draw(*shape_n),
+        n_t=rng.integers(1, 26, 4).astype(np.float32),
+        o_x=draw(2, 16, 16, 1), o_y=draw(2, 8, 8, 4), o_z=draw(2, 8, 8, 4))
+    lr = 1e-3
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        def t(name):
+            return torch.from_numpy(inputs[name]).to(dev)
+
+        models = small_runtimes(dev)
+        L, Le, M, N, O = (models[k] for k in ("L", "L-edm", "M", "N", "O"))
+        kernels.reset_launches()
+        r = {}
+        r["L heun"] = L.sample(2, shape_l[1:], nsteps=4,
+                               orig_noise=t("l_x")).cpu()
+        r["L edm heun"] = Le.sample(2, shape_l[1:], nsteps=4,
+                                    orig_noise=t("l_x")).cpu()
+        with torch.no_grad():
+            r["L euler-maruyama"] = L.integrate_flow_field(
+                t("l_x"), 4, noise_injection=True,
+                noise_seq=t("l_noise")).cpu()
+        r["L step"] = one_train_step(L, t("l_data"), None, t("l_t"),
+                                     t("l_eps"))
+        with torch.no_grad():
+            x_T = M.scheduler.prior_scale(t("m_x")) * t("m_x")
+            r["M euler-maruyama"] = sde.sde_sampler(
+                M.scheduler, M.noise_predictor, 4, shape_m[1:], nsteps=10,
+                noise_seq=t("m_noise"), x_T=x_T).cpu()
+            r["M pf heun"] = sde.pf_sampler(
+                M.scheduler, M.noise_predictor, 4, shape_m[1:], nsteps=5,
+                x0=x_T).cpu()
+        r["M step"] = one_train_step(
+            M, t("m_data"), None, t("m_t"), t("m_eps"),
+            loss_fn=lambda x, tt, y, mask, eps, M=M: M.loss_fn(
+                x, y, t=tt, eps=eps))
+        for sampler in ("ddpm", "ddim"):
+            r[f"N {sampler}"] = N.backward(t("n_x"), sampler=sampler,
+                                           noise_seq=t("n_noise")).cpu()
+        r["N step"] = one_train_step(
+            N, t("n_data"), None, t("n_t"), t("n_eps"),
+            loss_fn=lambda x, tt, y, mask, eps, N=N: N.loss_fn(
+                x, tt, y, noise=eps), optimizer=default_v1_optimizer())
+        y_o = {"y": t("o_y")}
+        with torch.no_grad():
+            r["O loss"] = O.loss_fn(t("o_x"), y_o, train=False,
+                                    z_eps=t("o_z")).cpu()[None]
+        r["O predict"] = O.predict(y_o).cpu()
+        r["O step"] = one_train_step(
+            O, t("o_x"), y_o, torch.zeros(2, device=dev), t("o_z"),
+            loss_fn=lambda x, s, y, mask, eps, O=O: O.loss_fn(
+                x, y, mask, z_eps=eps))
+        runs[dev] = (r, dict(kernels.LAUNCHES))
+    (cpu, _), (card, counts) = runs["cpu"], runs["cuda"]
+    ok, lines = True, []
+    for name, ref in cpu.items():
+        got = card[name]
+        if name.endswith("step"):
+            (m_cpu, s_cpu), (m_card, s_card) = ref, got
+            ok_p, q999, worst = params_within(s_card.params, s_cpu.params,
+                                              lr, 1)
+            good = ok_p and np.isfinite(m_card).all() and np.allclose(
+                m_card, m_cpu, rtol=1e-3, atol=0)
+            for k, v in s_cpu.buffers.items():
+                if "initial_norm" in k:
+                    good = good and np.allclose(
+                        s_card.buffers[k].cpu().numpy(), v.numpy(),
+                        rtol=1e-5, atol=1e-7)
+            lines.append(f"{name} (loss, grad_norm) card {m_card} cpu "
+                         f"{m_cpu}, params 99.9% {q999:.2e} max "
+                         f"{worst:.2e}{' ok' if good else ' FAIL'}")
+        else:
+            err, good = within_scale(got, ref)
+            lines.append(f"{name} max|Δ| {err:.3e}"
+                         f"{' ok' if good else ' FAIL'}")
+        ok = ok and good
+    log("[31 runtimes card-vs-cpu] " + "; ".join(lines))
+    log(f"[31 runtimes card-vs-cpu] launches on the card {counts}")
+    if not ok or not (counts["norm_silu"] and counts["norm_silu_bwd"]
+                      and counts["flash_attention"]
+                      and counts["flash_attention_dq"]):
+        raise AssertionError("phase 31: the card disagrees with the CPU, "
+                             "or a kernel of L's and M's path was not "
+                             f"launched ({counts})")
+    return [counts]
+
+
+def request_device_time(label, fn, n):
+    """A graphed request of ``n`` samples: its wall and, profiled, its
+    device time and idle share."""
+    pwall, busy, _, _ = profiled_shares(fn)
+    log(f"[{label}] profiled request of {n}: wall {pwall:.4f} s, device "
+        f"{busy:.4f} s, idle share {1 - busy / pwall:.3f}")
+
+
+def si_isolation(label, model, shape, kw, nsteps):
+    """One-row requests from 6 threads at once through a dispatcher
+    service (buckets (1, 4)): each row bit for bit ``SIModel.sample`` of
+    its row generator alone in the bucket its dispatch used. Its distance
+    from the same row alone in bucket 1 is printed, not held: under bf16
+    cuDNN picks its algorithms by the batch, and 29 Euler–Maruyama steps
+    carry the rounding (phase 19 holds that bound on an f32 model)."""
+    from diffsci_tpu_torch import SamplerService
+    from diffsci_tpu_torch.serving import row_seeds
+
+    svc = SamplerService(model, shape, batch_buckets=(1, 4), nsteps=nsteps,
+                         sample_kwargs=kw, batch_window_ms=20.0)
+    svc.warmup()
+    record = recorded_dispatches(svc)
+    results, wall = crowd(lambda s: svc.sample(1, s), range(500, 506))
+    svc.close()
+    bucket_of = {seeds[0]: b for b, reqs in record for seeds in reqs}
+    same, worst, scale = 0, 0.0, 0.0
+    for seed, got in results.items():
+        row = row_seeds(seed, 1)[0]
+
+        def alone(b):
+            gen = torch.Generator("cuda").manual_seed(row)
+            return model.sample(b, shape, [gen], nsteps=nsteps,
+                                **kw)[:1].cpu().numpy()
+
+        same += np.array_equal(got, alone(bucket_of[row]))
+        worst = max(worst, float(np.abs(got - alone(1)).max()))
+        scale = max(scale, float(np.abs(got).max()))
+    ok = same == len(results)
+    log(f"[{label}] dispatcher: 6 crowded one-row requests in {wall:.3f} "
+        f"s, {len(record)} dispatches, buckets "
+        f"{sorted(b for b, _ in record)}; {same} bit for bit their row "
+        f"alone in their bucket {'ok' if ok else 'FAIL'}; against bucket "
+        f"1 max|Δ| {worst:.3e} (max|x| {scale:.3f})")
+    if not ok:
+        raise AssertionError(f"{label}: a row depended on what it was "
+                             "batched with")
+
+
+def si_graph_vs_eager(label, model, shape, kw, nsteps=6, n=4):
+    """A graphed request (its own service, bucket ``n``) against
+    ``integrate_flow_field`` on the card from the same seed's draws: bit
+    for bit, and the same bits twice."""
+    from diffsci_tpu_torch import SamplerService
+
+    svc = SamplerService(model, shape, batch_buckets=(n,), nsteps=nsteps,
+                         sample_kwargs=kw)
+    graph = svc.sample(n, generator=99)
+    again = svc.sample(n, generator=99)
+    g = torch.Generator("cuda").manual_seed(99)
+    x = torch.randn((n,) + tuple(shape), generator=g, device="cuda")
+    seq = torch.randn((nsteps - 1, n) + tuple(shape), generator=g,
+                      device="cuda") if kw.get("noise_injection") else None
+    with torch.no_grad():
+        ref = model.integrate_flow_field(
+            x * model._sigma_init(), nsteps, noise_seq=seq, **kw).cpu()
+    same = np.array_equal(graph, ref.numpy())
+    ok = same and np.array_equal(graph, again)
+    log(f"[{label}] graphed request of {n} at nsteps {nsteps} against the "
+        f"eager loop on its draws: bit for bit {same}, same seed same bits "
+        f"{np.array_equal(graph, again)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the graphed request differs from "
+                             "its eager body")
+
+
+def train_graph_vs_eager(label, model, x_shape, weights, steps=3,
+                         loss_fn=None, optimizer=None, y=None, seed=25):
+    """``steps`` train steps eager (``_raw``) and graphed from the same
+    weights and generator, under deterministic cuDNN: losses and
+    parameters bit for bit."""
+    from diffsci_tpu_torch import create_train_state, make_train_step
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    arms = {}
+    for arm in ("eager", "graphed"):
+        with torch.no_grad():
+            for k, v in model.net.state_dict().items():
+                v.copy_(weights[k])
+        st, tx = create_train_state(model, x_shape, seed=None,
+                                    optimizer=optimizer)
+        fn = make_train_step(model, tx, loss_fn=loss_fn,
+                             _raw=arm == "eager")
+        g = torch.Generator("cuda").manual_seed(seed)
+        x = torch.randn(x_shape, generator=g, device="cuda")
+        mets = [float(fn(st, x, y, generator=g)[1]["train_loss"])
+                for _ in range(steps)]
+        arms[arm] = (mets, {k: v.detach().clone()
+                            for k, v in st.params.items()})
+        del st, fn
+    torch.backends.cudnn.deterministic = det
+    (m_e, p_e), (m_g, p_g) = arms["eager"], arms["graphed"]
+    same = state_equal(p_e, p_g) and m_e == m_g
+    log(f"[{label}] {steps} train steps graphed against eager from one "
+        f"seed: losses {m_g} / {m_e}, bit for bit {same} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{label}: the graphed step differs from its "
+                             "eager body")
+
+
+def phase_l(zero):
+    """Phase 32: L at full width (A's PUNetG, 32³, bf16 over f32 masters).
+    Served through ``SamplerService`` at nsteps 30, buckets (1, 4),
+    requests (1, 3, 6) and one seed twice (57 network calls a bucket run:
+    57 × 20 K2 and 57 K4), then by the "edm" path and by Euler–Maruyama
+    (29 calls) at bucket 4; each bucket's request timed by wall and
+    device time; per-row isolation through the dispatcher (EM); the
+    graphed Heun and EM requests against their eager loops at nsteps 6,
+    bit for bit; 20 graphed train steps at batch 4 (20 K2, 20 K3, one K4,
+    K5 and K6 a step, no K1; a falling loss) and 3 steps graphed against
+    eager bit for bit; one ``inpaint`` of a 32³ volume (falloff 2, one
+    resampling round: 58 network calls), its known region exact."""
+    import gc
+
+    from diffsci_tpu_torch import kernels
+
+    shape = (32, 32, 32, 1)
+    per_call = dict(norm_silu=NORMS_A, flash_attention=1)
+
+    def calls(n):
+        return dict(zero, **{k: v * n for k, v in per_call.items()})
+
+    counts = []
+    c, runs, svc = serve("config L", model_l(), shape, (1, 4), (1, 3, 6), 3,
+                         SI_STEPS)
+    if c != calls(SI_NFE * runs):
+        raise AssertionError(f"L: launches {c}, expected "
+                             f"{calls(SI_NFE * runs)}")
+    counts.append(c)
+    for b in (1, 4):
+        request_device_time(f"config L bucket {b}",
+                            lambda b=b: svc.sample(b), b)
+    model = svc.model
+    si_graph_vs_eager("config L", model, shape, {})
+    del svc
+    for label, make, kw, nfe in (
+            ("config L edm", lambda: model_l(scheduler="edm",
+                                             precondition_fn="edm"), {},
+             SI_NFE),
+            ("config L EM", model_l, {"noise_injection": True},
+             SI_EM_NFE)):
+        c, runs, svc = serve(label, make(), shape, (4,), (4,), 0, SI_STEPS,
+                             sample_kwargs=kw)
+        if c != calls(nfe * runs):
+            raise AssertionError(f"{label}: launches {c}, expected "
+                                 f"{calls(nfe * runs)}")
+        counts.append(c)
+        request_device_time(f"{label} bucket 4", lambda: svc.sample(4), 4)
+        if kw:
+            si_graph_vs_eager(label, svc.model, shape, kw)
+            si_isolation(label, svc.model, shape, kw, SI_STEPS)
+        del svc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    per_step = dict(zero, norm_silu=NORMS_A, norm_silu_bwd=NORMS_A,
+                    flash_attention=1, flash_attention_dq=1,
+                    flash_attention_dkv=1)
+    weights = {k: v.detach().clone()
+               for k, v in model.net.state_dict().items()}
+    c, model, _ = train("config L", None, (4,) + shape, 20, per_step,
+                        model=model, profiled=True)
+    counts.append(c)
+    train_graph_vs_eager("config L", model, (4,) + shape, weights)
+
+    gen = torch.Generator("cuda").manual_seed(32)
+    x_orig = porous_batch(1, 32, gen)[0][0]
+    mask = torch.zeros(shape, device="cuda")
+    mask[:16] = 1.0
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.inpaint(x_orig, mask, nsamples=4, generator=gen,
+                        nsteps=SI_STEPS, mask_falloff=2, resample_steps=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = dict(kernels.LAUNCHES)
+    soft = model.create_soft_mask(mask, 2)
+    known = (soft == 1.0).expand_as(out)
+    exact = bool(torch.equal(out[known], x_orig.expand_as(out)[known]))
+    ok = exact and bool(torch.isfinite(out).all()) and \
+        c == calls(2 * SI_EM_NFE)
+    log(f"[config L inpaint] 4 samples of 32³, half known, falloff 2, one "
+        f"resampling round, {SI_STEPS} steps: wall {wall:.3f} s; known "
+        f"region ({int(known.sum()) // 4} voxels a sample) exactly x_orig "
+        f"{exact}; launches {c} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("L: inpaint's known region, values or launches "
+                             "are wrong")
+    counts.append(c)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def timed_steps(label, state, one, batch, per_step, zero, probe=None,
+                steps=20, warmup=3):
+    """``warmup`` graphed steps of ``one()`` (the first eager, then the
+    capture), then ``steps`` timed by the host clock ended by a sync on
+    the loss, the launch counts reset just before and read just after
+    (``per_step`` each); one profiled step (device time, idle share).
+    ``probe()``, a fixed-draw loss, is logged before and after. Returns the
+    counts."""
+    from diffsci_tpu_torch import kernels
+
+    before = probe() if probe else None
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        one()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    captures = [round(g.capture_seconds, 3)
+                for g in state.graphs.graphs.values()]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        met = one()
+        losses.append(met["train_loss"])
+    last = float(met["train_loss"])                       # the sync
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    after = probe() if probe else None
+    swall, sbusy = busy_seconds(one)
+    log(f"[train {label}] batch {batch}: warm-up {warmup} steps "
+        f"{warm:.2f} s, capture seconds {captures}; {steps} graphed steps "
+        f"in {dt:.4f} s: {dt / steps:.4f} s/step, {batch * steps / dt:.2f} "
+        f"items/s; peak memory {peak:.3f} GiB; loss first {losses[0]:.5f} "
+        f"last {last:.5f}; fixed-draw loss {before} before, {after} after; "
+        f"profiled step wall {swall:.4f} s, device {sbusy:.4f} s, idle "
+        f"share {1 - sbusy / swall:.3f}; launches {counts}")
+    expected = {k: v * steps for k, v in dict(zero, **per_step).items()}
+    if not np.isfinite(losses).all() or counts != expected:
+        raise AssertionError(f"{label}: non-finite loss, or launches "
+                             f"{counts} are not {expected}")
+    return counts
+
+
+def step_graph_device_ms(label, graph, n=20):
+    """Device time a step of a per-step sampler graph: ``n`` replays
+    under torch.profiler."""
+    def replays():
+        for _ in range(n):
+            graph.replay()
+
+    wall, busy = busy_seconds(replays)
+    log(f"[{label}] {n} replays of the step's graph: device "
+        f"{busy / n * 1e3:.3f} ms a step, idle share {1 - busy / wall:.3f}")
+    return busy / n
+
+
+def timed_request(label, fn, n, steps):
+    """One request: its wall (host clock ended by a sync), finite."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: non-finite samples")
+    log(f"[{label}] request of {n}, {steps} step(s): wall {wall:.3f} s, "
+        f"{n / wall:.2f} samples/s, {wall / steps * 1e3:.3f} ms a step, "
+        f"std {float(out.std()):.4f}")
+    return out
+
+
+def phase_m(zero):
+    """M: ``SDEModel`` around B's PUNetG (28² × 1, f32), VP linear (coef
+    19.9), bucket 64: ``sde_sampler`` at 1000 steps and the Heun
+    probability flow at 500 (1000 network calls), each step a replay of
+    the step's graph (28 K2 a network call); device time a step from 20
+    replays; both samplers graphed against eager at 20 steps, bit for
+    bit; 20 graphed train steps at batch 256 through
+    ``make_train_step(loss_fn=...)`` (28 K2 and 28 K3 a step)."""
+    from diffsci_tpu_torch import (SDEModel, create_train_state, kernels,
+                                   make_train_step)
+    from diffsci_tpu_torch.models import sde
+
+    model = SDEModel(punetg_b(), sde.VPSchedulerLinear(coef=19.9))
+    model.init(seed=0)
+    shape, n = (28, 28, 1), 64
+    counts = []
+    for pf, nsteps, nfe in ((False, M_EM_STEPS, M_EM_STEPS),
+                            (True, M_PF_STEPS, 2 * M_PF_STEPS)):
+        label = f"config M {'pf heun' if pf else 'euler-maruyama'}"
+        t0 = time.perf_counter()
+        graph = model.compile_sampler(n, shape, probability_flow=pf)
+        torch.cuda.synchronize()
+        log(f"[{label}] warm-up and capture of the step's graph "
+            f"{time.perf_counter() - t0:.3f} s (capture "
+            f"{graph.capture_seconds:.3f} s)")
+        kernels.reset_launches()
+        timed_request(label, lambda: model.sample(
+            n, shape, torch.Generator("cuda").manual_seed(1), nsteps=nsteps,
+            probability_flow=pf), n, nsteps)
+        c = dict(kernels.LAUNCHES)
+        if c != dict(zero, norm_silu=NORMS_B * nfe):
+            raise AssertionError(f"{label}: launches {c}")
+        counts.append(c)
+        step_graph_device_ms(label, graph)
+        out = model.sample(n, shape, torch.Generator("cuda").manual_seed(9),
+                           nsteps=SHORT_STEPS, probability_flow=pf)
+        g = torch.Generator("cuda").manual_seed(9)
+        x = torch.randn((n,) + shape, generator=g, device="cuda")
+        x = model.scheduler.prior_scale(x) * x
+        with torch.no_grad():
+            ref = (sde.pf_sampler(model.scheduler, model.noise_predictor, n,
+                                  shape, nsteps=SHORT_STEPS, x0=x) if pf else
+                   sde.sde_sampler(model.scheduler, model.noise_predictor,
+                                   n, shape, nsteps=SHORT_STEPS, generator=g,
+                                   x_T=x))
+        same = torch.equal(out, ref)
+        log(f"[{label}] graphed against eager at {SHORT_STEPS} steps: bit "
+            f"for bit {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"{label}: graph and eager differ")
+    state, tx = create_train_state(model, (M_BATCH,) + shape, seed=None)
+    step = make_train_step(model, tx, loss_fn=lambda x, t, y, mask, eps:
+                           model.loss_fn(x, y, t=t, eps=eps))
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn((M_BATCH,) + shape, generator=gen, device="cuda")
+    pt = model.scheduler.sample((M_BATCH,), gen)
+    pe = torch.randn(x.shape, generator=gen, device="cuda")
+
+    def probe():
+        with torch.no_grad():
+            return round(float(model.loss_fn(x, t=pt, eps=pe, train=False)),
+                         5)
+
+    counts.append(timed_steps(
+        "config M", state, lambda: step(state, x, generator=gen)[1],
+        M_BATCH, dict(norm_silu=NORMS_B, norm_silu_bwd=NORMS_B), zero,
+        probe))
+    return counts
+
+
+def punetg_b():
+    """B's PUNetG (28² × 1, 64 channels, expansion (2, 4))."""
+    from diffsci_tpu_torch import PUNetG, PUNetGConfig
+
+    return PUNetG(PUNetGConfig(model_channels=64, channel_expansion=[2, 4]))
+
+
+def phase_n(zero):
+    """N: ``DDPMModuleV1`` around C's HFNet (32² × 3, f32), T 1000: one
+    DDPM and one DDIM request at bucket 16 (each step a replay of the
+    step's graph; no kernel of the port), device time a step from 20
+    replays; both graphed against the eager step loop at T 20 (the same
+    network), bit for bit; 20 graphed train steps at batch 128 under
+    ``default_v1_optimizer``."""
+    from diffsci_tpu_torch import (DDPMModuleV1, DDPMSchedulerV1, HFNetUncond,
+                                   create_train_state, default_v1_optimizer,
+                                   kernels, make_train_step)
+
+    net = HFNetUncond(block_channels=(128, 256, 256, 256), channels=3,
+                      attn_up_and_down=True)
+    model = DDPMModuleV1(net, DDPMSchedulerV1(T=1000))
+    model.init(seed=0)
+    nparams = sum(p.numel() for p in model.net.parameters())
+    shape, n = (32, 32, 3), 16
+    counts = []
+    for sampler in ("ddpm", "ddim"):
+        label = f"config N {sampler}"
+        t0 = time.perf_counter()
+        graph = model.compile_sampler(n, shape, sampler=sampler)
+        torch.cuda.synchronize()
+        log(f"[{label}] {nparams} parameters; warm-up and capture of the "
+            f"step's graph {time.perf_counter() - t0:.3f} s (capture "
+            f"{graph.capture_seconds:.3f} s)")
+        kernels.reset_launches()
+        timed_request(label, lambda: model.sample(
+            n, shape, torch.Generator("cuda").manual_seed(1),
+            sampler=sampler), n, model.scheduler.T)
+        c = dict(kernels.LAUNCHES)
+        if c != zero:
+            raise AssertionError(f"{label}: launches {c}")
+        counts.append(c)
+        step_graph_device_ms(label, graph)
+        short = DDPMModuleV1(net, DDPMSchedulerV1(T=SHORT_STEPS))
+        out = short.sample(n, shape, torch.Generator("cuda").manual_seed(9),
+                           sampler=sampler)
+        g = torch.Generator("cuda").manual_seed(9)
+        x = torch.randn((n,) + shape, generator=g, device="cuda")
+        nt = 0 if sampler == "ddim" else 1
+        with torch.no_grad():
+            for t in range(SHORT_STEPS, 0, -1):
+                noise = torch.randn(x.shape, generator=g, device="cuda")
+                x = short.step(x, torch.tensor(float(t), device="cuda"),
+                               noise, sampler=sampler, noise_type=nt)
+        same = torch.equal(out, x)
+        log(f"[{label}] graphed against eager at T {SHORT_STEPS}: bit for "
+            f"bit {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"{label}: graph and eager differ")
+        del short
+    state, tx = create_train_state(model, (N_BATCH,) + shape, seed=None,
+                                   optimizer=default_v1_optimizer())
+    step = make_train_step(model, tx, loss_fn=lambda x, t, y, mask, eps:
+                           model.loss_fn(x, t, y, noise=eps))
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn((N_BATCH,) + shape, generator=gen, device="cuda")
+    pt = model.scheduler.sample((N_BATCH,), gen)
+    pe = torch.randn(x.shape, generator=gen, device="cuda")
+
+    def probe():
+        with torch.no_grad():
+            return round(float(model.loss_fn(x, pt, noise=pe)), 5)
+
+    counts.append(timed_steps(
+        "config N", state, lambda: step(state, x, generator=gen)[1],
+        N_BATCH, {}, zero, probe))
+    return counts
+
+
+def phase_o(zero):
+    """O: ``ForecastModel`` over G's autoencoder (256² × 1 fields ↔ 32² × 4
+    latents, f32) with ``ForecastHead`` at 64 channels, Huber loss, batch
+    8 with a one-frame latent window: 20 graphed train steps (the encoder
+    inside the step) and one ``sample(maximum_batch_size=4)`` of 8 (two
+    chunks, each decoded), timed by wall and device time; no kernel of
+    the port."""
+    from diffsci_tpu_torch import (ForecastModel, ForecastModelConfig,
+                                   create_train_state, kernels,
+                                   make_train_step)
+
+    model = ForecastModel(ForecastHead(4, 64), ForecastModelConfig(
+        loss_metric="huber"), autoencoder=bound_g())
+    model.init(seed=0)
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn((O_BATCH, G_PIX, G_PIX, 1), generator=gen, device="cuda")
+    # the window: one latent frame [8, 32, 32, 4]
+    y = {"y": torch.randn(model.latent_shape(x.shape), generator=gen,
+                          device="cuda")}
+    state, tx = create_train_state(model, x.shape, seed=None)
+    # the ε slot (the latent's shape) carries the posterior's draw
+    step = make_train_step(model, tx, loss_fn=lambda xx, s, yy, mask, eps:
+                           model.loss_fn(xx, yy, mask, z_eps=eps))
+    pz = torch.randn(model.latent_shape(x.shape), generator=gen,
+                     device="cuda")
+
+    def probe():
+        with torch.no_grad():
+            return round(float(model.loss_fn(x, y, train=False, z_eps=pz)),
+                         5)
+
+    counts = [timed_steps("config O", state,
+                          lambda: step(state, x, y, generator=gen)[1],
+                          O_BATCH, {}, zero, probe)]
+    kernels.reset_launches()
+    out = timed_request("config O sample", lambda: model.sample(
+        y, maximum_batch_size=4), O_BATCH, 1)
+    request_device_time("config O sample", lambda: model.sample(
+        y, maximum_batch_size=4), O_BATCH)
+    c = dict(kernels.LAUNCHES)
+    # chunks of 4 against one call of 8 in f32: with TF32 cuDNN's
+    # algorithms differ by the batch (9.3e-3 apart through G's decoder)
+    torch.backends.cudnn.allow_tf32 = False
+    chunked, whole = (model.sample(y, maximum_batch_size=m).cpu()
+                      for m in (4, None))
+    torch.backends.cudnn.allow_tf32 = True
+    err, ok = within_phase2(chunked, whole)
+    ok = ok and out.shape == (O_BATCH, G_PIX, G_PIX, 1) and c == zero
+    log(f"[config O sample] chunked (4 + 4) against one call of 8, TF32 "
+        f"off: max|Δ| {err:.3e} (phase 2's tolerance), shape "
+        f"{tuple(out.shape)}, launches {c} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("O: the chunked sample is wrong")
+    return counts + [c]
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -5201,6 +5942,17 @@ def main() -> int:
     counts_30 = phase_vae_porous(zero)
     elapsed("29-30")
 
+    # the other runtimes: flow matching (L), the SDE stack (M), DDPM v1 (N)
+    # and the deterministic forecaster (O) (phases 31 to 33)
+    torch.backends.cudnn.allow_tf32 = False
+    counts_31 = phase_runtimes_card_vs_cpu()
+    torch.backends.cudnn.allow_tf32 = True
+    elapsed("31")
+    counts_32 = phase_l(zero)
+    elapsed("32")
+    counts_33 = phase_m(zero) + phase_n(zero) + phase_o(zero)
+    elapsed("33")
+
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
                        "diffsci_tpu/kernels/fused_precondition.py:129"),
@@ -5234,7 +5986,8 @@ def main() -> int:
                                            *counts_24, *counts_25,
                                            *counts_26, *counts_27,
                                            *counts_28, *counts_29,
-                                           *counts_30]),
+                                           *counts_30, *counts_31,
+                                           *counts_32, *counts_33]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

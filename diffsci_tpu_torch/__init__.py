@@ -66,6 +66,14 @@ and the PatchGAN ``NLayerDiscriminator``'s updates in one graphed step,
 the discriminator's gates as device values; ``KLAnnealing``), the
 porous-media ``VAENet`` (1D, 2D, 3D) and the edge loss preprocessor
 (``ops.EdgeDetectionPreprocessor``).
+
+The other runtimes: stochastic interpolants and flow matching
+(``SIModel``: the paths, the flow loss, Heun and Euler–Maruyama
+integration, one CUDA graph a request, so ``SamplerService`` serves it,
+soft-mask inpainting; ``make_train_step`` trains it), the Song-style SDE
+stack (``models.sde``: VP, subVP and VE, ``SDEModel``), DDPM v1
+(``DDPMModuleV1``, ``default_v1_optimizer``) and the deterministic
+forecaster (``ForecastModel``).
 """
 
 from diffsci_tpu_torch.checkpoint import (CheckpointManager, ModelRegistry,
@@ -85,13 +93,17 @@ from diffsci_tpu_torch.models import (
     warmup_cosine_schedule, EDMModel, EDMModelConfig, KLAnnealing,
     NLayerDiscriminator, VAENet, VAENetConfig, VAETrainState,
     create_vae_train_state, default_vae_optimizer, distill_progressive,
-    make_distill_step, make_vae_train_step)
+    make_distill_step, make_vae_train_step, DDPMModuleV1, DDPMSchedulerV1,
+    ForecastModel, ForecastModelConfig, SDEModel, SIModel, SIModelConfig,
+    SIScheduler, default_v1_optimizer)
 from diffsci_tpu_torch.serving import SamplerService
 from diffsci_tpu_torch.trainer import Trainer, fit_karras
 
 __all__ = ["ArrayDataLoader", "AutoencoderKL", "BoundAutoencoder",
            "CheckpointManager", "DDConfig", "DDPMModel",
-           "DDPMModelConfig", "EDMModel", "EDMModelConfig", "EMATracker",
+           "DDPMModelConfig", "DDPMModuleV1", "DDPMSchedulerV1",
+           "ForecastModel", "ForecastModelConfig", "SDEModel", "SIModel",
+           "SIModelConfig", "SIScheduler", "default_v1_optimizer", "EDMModel", "EDMModelConfig", "EMATracker",
            "EnsembleKarrasModel", "KLAnnealing", "NLayerDiscriminator",
            "VAENet", "VAENetConfig", "VAETrainState",
            "create_vae_train_state", "default_vae_optimizer",

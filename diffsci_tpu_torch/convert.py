@@ -770,12 +770,25 @@ def from_jax_variables(variables_np: dict,
     ``model``, with ``dlw``, the ``batch_stats`` of ``bnorm`` and a
     ``KarrasEncoderModel``'s ``encoder_model``, which covers
     ``EnsembleKarrasModel`` too); an AutoencoderKL, or a ``VAEModel``'s
-    network (scope ``autoencoder``, ``logvar``). ``config``: the
+    network (scope ``autoencoder``, ``logvar``); an ``SIModel``'s with its
+    running initial norm (``batch_stats/initial_norm``: the network at
+    scope ``model`` and ``initial_norm.mean``/``.var``, the names of its
+    ``RuntimeNet``; without that norm an ``SIModel``'s variables are its
+    network's, which load into ``model.net.model``). ``config``: the
     PUNetG's (or ADM's, PUNetV's) config, which names its norms (default
     GroupLN then GroupRMS), or the autoencoder's ``DDConfig`` (needed for
     attention at ``attn_resolutions``)."""
     params = variables_np.get("params", {})
     buffers = variables_np.get("buffers", {})
+    stats = variables_np.get("batch_stats", {})
+    if "initial_norm" in stats:
+        # an SIModel's running initial norm beside its bare network
+        out = {f"model.{k}": v for k, v in from_jax_variables(
+            dict(variables_np, batch_stats={
+                k: v for k, v in stats.items() if k != "initial_norm"}),
+            config).items()}
+        out.update(_tensors(stats["initial_norm"], "initial_norm."))
+        return out
     if "quant_conv" in params:
         return _tensors(_autoencoder_state(params, config))
     if _is_vaenet(params):
@@ -809,7 +822,6 @@ def from_jax_variables(variables_np: dict,
                 params["encoder_model"], buffers.get("encoder_model", {}),
                 norms).items()})
         params, buffers = params["model"], buffers.get("model", {})
-    stats = variables_np.get("batch_stats", {})
     out.update({f"model.{k}" if wrapped else k: v
                 for k, v in _net_state(params, buffers, norms,
                                        stats.get("model", {}) if wrapped
@@ -969,6 +981,7 @@ def from_jax_train_state(state_np, model, tx, ema=None, reg_reference=None,
     also into the device counter the frequency gate reads; so a VAE
     trained by the JAX package resumes on the card."""
     from diffsci_tpu_torch.models.karras.train import _new_train_state
+    from diffsci_tpu_torch.models.runtime import RuntimeNet
 
     if _has_field(state_np, "disc_params"):
         return _vae_train_state(state_np, model, tx, dtx)
@@ -976,16 +989,24 @@ def from_jax_train_state(state_np, model, tx, ema=None, reg_reference=None,
     if not hasattr(config, "first_resblock_norm"):
         config = None
 
+    def port_variables(tree) -> dict[str, torch.Tensor]:
+        out = from_jax_variables(tree, config)
+        # the JAX variables of the runtimes held as a RuntimeNet (SIModel,
+        # ...) are their bare network's
+        if isinstance(model.net, RuntimeNet) and \
+                "initial_norm" not in tree.get("batch_stats", {}):
+            out = {f"model.{k}": v for k, v in out.items()}
+        return out
+
     def port_params(tree) -> dict[str, torch.Tensor]:
-        return from_jax_variables({"params": tree}, config)
+        return port_variables({"params": tree})
 
     params = _field(state_np, "params")
     consts = _field(state_np, "consts") or {}
     state = _new_train_state(model, tx, ema)
     with torch.no_grad():
         model.net.load_state_dict(
-            from_jax_variables({"params": params, **consts}, config),
-            strict=True)
+            port_variables({"params": params, **consts}), strict=True)
         opt_state = _field(state_np, "opt_state")
         _load_optimizer(state.optimizer, state.params, opt_state,
                         port_params)

@@ -15,13 +15,23 @@ from diffsci_tpu_torch.models.nets import (AutoencoderKL, DDConfig, HFNet,
 from diffsci_tpu_torch.models.karras import (
     EDMModel, EDMModelConfig, distill_progressive, make_distill_step)
 from diffsci_tpu_torch.models.nets import VAENet, VAENetConfig
+from diffsci_tpu_torch.models import ddpm_v1, regression, sde, si
+from diffsci_tpu_torch.models.ddpm_v1 import (DDPMModuleV1, DDPMSchedulerV1,
+                                              default_v1_optimizer)
+from diffsci_tpu_torch.models.regression import (ForecastModel,
+                                                 ForecastModelConfig)
+from diffsci_tpu_torch.models.sde import SDEModel
+from diffsci_tpu_torch.models.si import SIModel, SIModelConfig, SIScheduler
 from diffsci_tpu_torch.models.vae import (
     BoundAutoencoder, KLAnnealing, NLayerDiscriminator, VAEModel,
     VAEModelConfig, VAETrainState, create_vae_train_state,
     default_vae_optimizer, make_vae_train_step)
 
 __all__ = ["AutoencoderKL", "BoundAutoencoder", "DDConfig", "DDPMModel",
-           "DDPMModelConfig", "EDMModel", "EDMModelConfig", "EMATracker",
+           "DDPMModelConfig", "DDPMModuleV1", "DDPMSchedulerV1",
+           "ForecastModel", "ForecastModelConfig", "SDEModel", "SIModel",
+           "SIModelConfig", "SIScheduler", "ddpm_v1",
+           "default_v1_optimizer", "regression", "sde", "si", "EDMModel", "EDMModelConfig", "EMATracker",
            "EnsembleKarrasModel", "KLAnnealing", "NLayerDiscriminator",
            "VAENet", "VAENetConfig", "VAETrainState",
            "create_vae_train_state", "default_vae_optimizer",

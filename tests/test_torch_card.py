@@ -1344,3 +1344,105 @@ def test_graphed_vae_step_matches_eager_on_card(_no_tf32,
                 assert torch.equal(p, before[n]), n
     assert float(mets[True]["kl_loss"]) > 0
     assert len(arms[True][1].graphs.graphs) == 1
+
+
+def test_graphed_si_sample_matches_eager_on_card(_no_tf32):
+    """``SIModel.sample`` replays one graph of the whole loop per key:
+    Heun (6 steps: 9 network calls) and Euler–Maruyama (5 calls, the
+    loop's noise a static input) bit for bit the eager
+    ``integrate_flow_field`` on the same draws, launches included; one
+    seed gives the same bits twice; the running norm's statistics are
+    read in place (a change reaches the next replay)."""
+    from diffsci_tpu_torch import SIModel, SIModelConfig
+
+    model = SIModel(PUNetG(_small_3d()), SIModelConfig(initial_norm=True))
+    model.init(seed=1)
+    shape = (32, 32, 32, 1)
+    for kw in ({}, {"noise_injection": True}):
+        n_noise = 5 if kw else 0
+        out = model.sample(2, shape, torch.Generator("cuda").manual_seed(7),
+                           nsteps=6, **kw)
+        g = torch.Generator("cuda").manual_seed(7)
+        x = torch.randn((2,) + shape, generator=g, device="cuda")
+        seq = torch.randn((n_noise, 2) + shape, generator=g, device="cuda") \
+            if kw else None
+        kernels.reset_launches()
+        with torch.no_grad():
+            ref = model.integrate_flow_field(x * model._sigma_init(), 6,
+                                             noise_seq=seq, **kw)
+        eager = _counts()
+        kernels.reset_launches()
+        again = model.sample(2, shape, torch.Generator("cuda").manual_seed(7),
+                             nsteps=6, **kw)
+        assert _counts() == eager
+        assert eager["flash_attention"] == (5 if kw else 9)
+        assert torch.equal(out, again) and torch.equal(out, ref)
+    with torch.no_grad():
+        model.net.initial_norm.mean.fill_(0.5)
+    moved = model.sample(2, shape, torch.Generator("cuda").manual_seed(7),
+                         nsteps=6, noise_injection=True)
+    assert torch.equal(moved, out + 0.5)
+
+
+def test_si_dispatcher_on_card():
+    """``SamplerService`` serves an ``SIModel`` (bf16, Euler–Maruyama)
+    through its dispatcher: each concurrent request is bit for bit its row
+    of ``SIModel.sample`` with its row generator, which draws the row's
+    x_T and loop noise."""
+    from diffsci_tpu_torch import SamplerService, SIModel, SIModelConfig
+    from diffsci_tpu_torch.serving import row_seeds
+
+    model = SIModel(PUNetG(_small_2d()), SIModelConfig(),
+                    compute_dtype=torch.bfloat16)
+    model.init(seed=4)
+    kw = {"noise_injection": True}
+    svc = SamplerService(model, (16, 16, 1), batch_buckets=(4,), nsteps=5,
+                         sample_kwargs=kw, batch_window_ms=20.0)
+    svc.warmup()
+    results = _crowd_first_rows(svc, range(400, 406))
+    assert svc.stats["batched_dispatches"] >= 2
+    for seed, got in results.items():
+        gen = torch.Generator("cuda").manual_seed(row_seeds(seed, 1)[0])
+        ref = model.sample(4, (16, 16, 1), [gen], nsteps=5, **kw)[:1]
+        assert np.isfinite(got).all()
+        assert np.array_equal(got, ref.cpu().numpy())
+
+
+@pytest.mark.parametrize("probability_flow", [False, True])
+def test_graphed_sde_and_v1_steps_match_eager_on_card(_no_tf32,
+                                                      probability_flow):
+    """``SDEModel.sample`` (one graph of a step, replayed per step) bit for
+    bit the eager ``sde_sampler``/``pf_sampler`` on the same draws, 8
+    steps; and ``DDPMModuleV1.sample`` (DDIM, noise type 2, T 8) bit for
+    bit its eager ``step`` loop on the same draws."""
+    from diffsci_tpu_torch import DDPMModuleV1, DDPMSchedulerV1, SDEModel
+    from diffsci_tpu_torch.models import sde
+
+    model = SDEModel(PUNetG(_small_2d()), sde.VPSchedulerLinear(coef=19.9))
+    model.init(seed=2)
+    shape = (16, 16, 1)
+    out = model.sample(3, shape, torch.Generator("cuda").manual_seed(5),
+                       nsteps=8, probability_flow=probability_flow)
+    g = torch.Generator("cuda").manual_seed(5)
+    x = torch.randn((3,) + shape, generator=g, device="cuda")
+    x = model.scheduler.prior_scale(x) * x
+    with torch.no_grad():
+        if probability_flow:
+            ref = sde.pf_sampler(model.scheduler, model.noise_predictor, 3,
+                                 shape, nsteps=8, x0=x)
+        else:
+            ref = sde.sde_sampler(model.scheduler, model.noise_predictor, 3,
+                                  shape, nsteps=8, generator=g, x_T=x)
+    assert torch.equal(out, ref)
+    v1 = DDPMModuleV1(PUNetG(_small_2d()), DDPMSchedulerV1(T=8))
+    v1.init(seed=3)
+    out = v1.sample(3, shape, torch.Generator("cuda").manual_seed(6),
+                    sampler="ddim", noise_type=2)
+    g = torch.Generator("cuda").manual_seed(6)
+    x = torch.randn((3,) + shape, generator=g, device="cuda")
+    with torch.no_grad():
+        for t in range(8, 0, -1):
+            noise = torch.randn(x.shape, generator=g, device="cuda")
+            x = v1.step(x, torch.tensor(float(t), device="cuda"), noise,
+                        sampler="ddim", noise_type=2)
+    assert torch.equal(out, x) and bool(torch.isfinite(out).all())
