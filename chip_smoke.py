@@ -294,8 +294,37 @@ Phases (any failure raises, so the exit code is non-zero):
     (64 channels), 20 steps at batch 8 and a chunked sample of 8: walls,
     device time a step, the samplers graphed against eager at 20 steps
     bit for bit, no kernel of the port in N or O.
-34. One JSON line lists every kernel with its launches over phases 5 to
-    9, 11 to 15 and 17 to 33; the card's name and power limit; then the
+34. Card vs CPU, f32, TF32 off, the metrics and the extras at small
+    sizes: the pytorch-fid InceptionV3 on a 2-image batch at 75² (same
+    synthetic weights) and its 299² resize from 28² and 512²; FLD (d 64)
+    and its 2048-d distances with the TF32 flag on (a float64 product
+    rounded to f32, within 1e-5 of float64); ``sample_grid_volume`` with
+    a small porosity-conditioned ``SIModel`` from one replayed noise
+    cube, plain and periodic (the
+    corner cube at phase 2's tolerance, every known region exact);
+    ``tiled_decode`` of a norm-free local decoder against the one-shot
+    decode of the periodically padded latent.
+35. Configuration Q, porous volumes at A's widths (``SIModel`` around A's
+    PUNetG with a ``PorosityEmbedder(32)``, bf16 over f32 masters, 30
+    steps, per-cube porosities from ``matern_grid_sample``): two 64³
+    ``sample_grid_volume`` runs of a (2, 2, 2) grid of 32³ cubes, overlap
+    8, plain (36³ cubes) and periodic (40³): exactly 260 network calls
+    (5200 K2, 260 K4) a volume, the known regions exact, the periodic
+    seams as continuous as interior slices; ``sample_sequential_z`` (3
+    blocks of 32³, overlap 8: 87 calls); the ``DiffusionPeriodizer`` (pad
+    and blend 8) around the flow field at 32³ (one call at 48³); the
+    ``tiled_decode`` of a 128² × 4 latent through G's decoder without mid
+    attention (no kernel; max|Δ| from the one-shot decode reported, peak
+    memory of both): walls, device times, peak memory.
+36. Configuration P, sample-quality evaluation at pytorch-fid's widths:
+    2048 "real", 2048 generated and 1024 test images from B's
+    ``KarrasModel`` (bucket 64, exact launches), a noised "far" set; the
+    InceptionV3's pool3 features at batch 64 (images/s), FID, KID, FLD
+    and the generalization gap at d 2048 (host sqrtm seconds, the FLD
+    fit's): FID and KID of a set with itself ~0, generated closer than
+    far by FID, KID and FLD.
+37. One JSON line lists every kernel with its launches over phases 5 to
+    9, 11 to 15 and 17 to 36; the card's name and power limit; then the
     result line.
 
 The last line of standard output is
@@ -310,6 +339,7 @@ K2's and K3's kernels.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import itertools
 import json
@@ -366,13 +396,15 @@ COMBINE_TIMED = {"fused_axby": ((1, 32, 32, 32, 1), (4, 32, 32, 32, 1),
 # (ADM at model_channels 128), then head dims above 128 at ragged T: 136
 # and 192 (one pass of the wgmma kernels), 320 (two 192-column chunks),
 # 200 (aligned rows, zero-padded columns) and 260 (rows not 16-byte
-# aligned: the mma.sync wide kernels)
+# aligned: the mma.sync wide kernels); then Q's bottleneck attentions at
+# ragged T: 36³ and 40³ cubes (18³, 20³ tokens) and the periodizer's 48³
 FLASH_SWEEP = ((4, 2, 4096, 32), (1, 2, 4096, 8), (2, 4, 4096, 16),
                (1, 2, 4097, 32), (1, 1, 2049, 64), (1, 1, 2111, 128),
                (2, 1, 2048, 40), (1, 2, 2048, 20), (8, 2, 4096, 32),
                (4, 12, 4096, 64), (4, 1, 4096, 256), (1, 2, 2048, 512),
                (1, 1, 2049, 136), (1, 1, 2111, 192), (1, 2, 2049, 320),
-               (2, 1, 2111, 200), (1, 1, 2049, 260))
+               (2, 1, 2111, 200), (1, 1, 2049, 260),
+               (1, 2, 5832, 32), (1, 2, 8000, 32), (1, 2, 13824, 32))
 # K4-K6 timed beside SDPA at the new routes: H's and I's serving (bucket 4)
 # and training (batch 8) shapes, and head dim 512 (beside SDPA's
 # memory-efficient backend where it takes the shape: its flash backend
@@ -4315,17 +4347,21 @@ def phase_zoo_card_vs_cpu():
     return all_counts
 
 
-def profiled_shares(fn) -> tuple[float, float, float, str]:
+def profiled_shares(fn, host: bool = True) -> tuple[float, float, float,
+                                                   str]:
     """(wall seconds, device kernel seconds, seconds in K4-K6, each flash
     kernel's launches and device ms a launch) of one call of ``fn`` under
-    torch.profiler (taken again when the trace holds no device event)."""
+    torch.profiler (taken again when the trace holds no device event).
+    ``host=False`` traces the card alone: an eager path's tens of
+    thousands of host operations make a trace with host events slow to
+    read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     for _ in range(5):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU] * host
+                     + [ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -5799,6 +5835,581 @@ def phase_o(zero):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 34 to 36: the porous-media extras (Q) and the metrics (P)
+# ---------------------------------------------------------------------------
+Q_BASE = (32, 32, 32, 1)   # a cube of the grid, a block of the stack
+Q_GRID = (2, 2, 2)         # 64³ volumes: cubes of 36³ plain, 40³ periodic
+Q_OVERLAP = 8
+Q_BLOCKS = 3               # the sequential stack: 32 × 32 × 96
+Q_PAD = 8                  # the periodizer's pad and blend width (48³)
+Q_LATENT, Q_CHUNK = 128, 32    # the tiled decode: 128² × 4 -> 1024² × 1
+Q_DECODER = dict(has_mid_attn=False)   # G's DDConfig without mid attention
+Q_MATERN = {"sigma_sq": 1.0, "nu": 1.5, "length_scale": 32.0}
+# in a periodic (2, 2, 2) grid each of the 7 inpainted cubes' windows wraps
+# on all 3 axes (the lower one before 0, the upper one past the end)
+WRAPS_2X2X2 = 7 * 3
+P_N, P_TEST, P_BATCH = 2048, 1024, 64
+P_FLD_ITERS = 200
+
+
+def model_q(dev="cuda", cfg=None, dtype=torch.bfloat16):
+    """Configuration Q: an ``SIModel`` (linear path, Huber) around A's
+    PUNetG with D's porosity conditioning (``PorosityEmbedder`` of the
+    model's width) and default convolutions, bf16 over f32 masters."""
+    from diffsci_tpu_torch import PUNetG, PUNetGConfig, SIModel, SIModelConfig
+    from diffsci_tpu_torch.models.nets import PorosityEmbedder
+
+    cfg = cfg or PUNetGConfig(dimension=3, model_channels=32,
+                              channel_expansion=[2], num_heads=2,
+                              attn_backend="flash")
+    return SIModel(PUNetG(cfg, conditional_embedding=PorosityEmbedder(
+        cfg.model_channels), device=dev), SIModelConfig(
+            scheduler="linear", loss_metric="huber"),
+        compute_dtype=dtype, device=dev)
+
+
+class Recorded:
+    """An ``SIModel`` whose samples and inpaints are kept, with each
+    inpaint's x_orig and mask, for the known-region check after a run."""
+
+    def __init__(self, model):
+        self.model, self.device, self.calls = model, model.device, []
+
+    def sample(self, *args, **kw):
+        out = self.model.sample(*args, **kw)
+        self.calls.append(("sample", kw.get("orig_noise"), None, out))
+        return out
+
+    def inpaint(self, x_orig, mask, **kw):
+        out = self.model.inpaint(x_orig, mask, **kw)
+        self.calls.append(("inpaint", x_orig, mask, out))
+        return out
+
+    def known_exact(self) -> tuple[int, bool]:
+        """(inpaints, whether each left its known region, mask 1 with
+        falloff 0, as its x_orig and its values finite)."""
+        n, ok = 0, True
+        for kind, x_orig, mask, out in self.calls:
+            if kind == "inpaint":
+                known = mask == 1.0
+                ok = ok and bool(known.any()) and bool(torch.equal(
+                    out[0][known], x_orig[known])) and bool(
+                        torch.isfinite(out).all())
+                n += 1
+        return n, ok
+
+    def windows_exact(self, vol, grid_map, base, overlap, periodicity):
+        """(the cube windows that wrap an axis, whether each inpaint of the
+        first run read as its known region what the finished volume
+        ``vol`` holds there). Each window is gathered here from the grid by
+        modular indices, apart from ``get_cube_spatial_bounds`` and the
+        periodic getitem/setitem, so a wrap that goes wrong on the read or
+        the write shows; a later cube rewrites a known region unchanged,
+        so the first value written is what stays."""
+        from diffsci_tpu_torch.extra import get_grid_generation_order
+
+        order, corners = get_grid_generation_order(grid_map)
+        todo = order[corners:]
+        inpaints = [c for c in self.calls if c[0] == "inpaint"][:len(todo)]
+        final = [b * g for b, g in zip(base, grid_map)]
+        wraps, ok = 0, len(inpaints) == len(todo)
+        for pos, (_, x_orig, mask, _) in zip(todo, inpaints):
+            window = vol[0]
+            for a, (p, b, n, per) in enumerate(zip(pos, base, final,
+                                                   periodicity)):
+                ids = np.arange(p * b - overlap // 2,
+                                (p + 1) * b + overlap // 2)
+                if per:
+                    wraps += int(ids[0] < 0 or ids[-1] >= n)
+                    ids = ids % n
+                else:
+                    ids = ids[(ids >= 0) & (ids < n)]
+                window = window.index_select(a, torch.as_tensor(
+                    ids, device=vol.device))
+            known = mask == 1.0
+            ok = ok and window.shape == x_orig.shape and bool(
+                torch.equal(window[known], x_orig[known]))
+        return wraps, ok
+
+
+def within_rel(out, ref):
+    """Phase 2's rtol 1e-3 with its atol 1e-3 taken of the result's
+    largest entry (the features of synthetic weights are ~1e-3)."""
+    out, ref = out.float().cpu(), ref.float().cpu()
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    return err, bool(torch.isfinite(out).all()) and bool(
+        ((out - ref).abs() <= 1e-3 * ref.abs() + 1e-3 * scale).all())
+
+
+class LocalDecoder(torch.nn.Module):
+    """A norm-free local decoder (``tests/test_extra.py``'s: conv, SiLU,
+    2× nearest upsample, conv; receptive radius 1 + 1/2 latent units, so
+    halo 2 is exact), [B, 4, H, W] -> [B, 1, 2H, 2W]."""
+
+    def __init__(self, dev):
+        super().__init__()
+        g = torch.Generator().manual_seed(3)
+        self.w1 = torch.randn((16, 4, 3, 3), generator=g).to(dev) * 0.3
+        self.w2 = torch.randn((1, 16, 3, 3), generator=g).to(dev) * 0.3
+
+    def forward(self, z):
+        h = F.silu(F.conv2d(z, self.w1, padding=1))
+        h = h.repeat_interleave(2, 2).repeat_interleave(2, 3)
+        return F.conv2d(h, self.w2, padding=1)
+
+
+def periodic_pad(z, halo):
+    """z [B, C, *spatial] padded by ``halo`` on every spatial side with its
+    periodic continuation."""
+    for d in range(2, z.ndim):
+        ids = torch.arange(-halo, z.shape[d] + halo, device=z.device)
+        z = z.index_select(d, ids % z.shape[d])
+    return z
+
+
+def mark_memory() -> int:
+    """Reset the peak-memory counter; returns the bytes allocated now (what
+    earlier phases and the phase's models hold), for ``peak_above``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_above(base: int) -> str:
+    """The peak device memory since ``mark_memory`` above its ``base``."""
+    return f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.3f} GiB"
+
+
+def seam_and_interior(vol, i) -> tuple[float, float]:
+    """The total over spatial dims of the MSE between a channels-last
+    volume's opposite faces (``measure_periodicity_error``) and between the
+    adjacent interior slices i - 1 and i."""
+    from diffsci_tpu_torch.extra import measure_periodicity_error
+
+    seam = measure_periodicity_error(vol, dimension=3)["total_mse"]
+    interior = sum(float(((vol.select(a, i - 1) - vol.select(a, i)) ** 2)
+                         .mean()) for a in (1, 2, 3))
+    return seam, interior
+
+
+def phase_extras_card_vs_cpu():
+    """Phase 34: the metrics and the extras at small sizes, card against
+    CPU, f32 with TF32 off (phase 2's bounds, the atol of the result's
+    scale): the InceptionV3 on a 2-image batch at 75² from the same
+    synthetic weights and the 299² resize from 28² and from 512²; FLD
+    (d 64) with TF32 on, and its distances of 2048-d features against
+    float64 (within 1e-5 of their scale, where TF32 is ~1e-3 off); the
+    grid orchestrator with a small porosity-conditioned SIModel (phase 2's
+    net) from one replayed noise cube, plain and periodic: the corner cube
+    (deterministic Heun, the card's graphed sampler) agrees and every
+    inpainted cube keeps its known region on both, each read where the
+    finished volume holds it (21 wrapped windows in the periodic grid);
+    the tiled decode with
+    a norm-free local decoder on the card equals the one-shot decode of
+    the periodically padded latent. Returns the card's launch counts."""
+    from diffsci_tpu_torch import kernels, metrics
+    from diffsci_tpu_torch.extra import matern_grid_sample, sample_grid_volume
+    from diffsci_tpu_torch.extra import tiled_decode
+    from diffsci_tpu_torch.metrics_inception import InceptionV3FID
+
+    fails = []
+
+    def report(label, err, ok, extra=""):
+        log(f"[extras card-vs-cpu] {label}: max|Δ| {err:.3e}{extra} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(label)
+
+    gen = torch.Generator().manual_seed(34)
+    x = torch.rand((2, 3, 75, 75), generator=gen) * 2 - 1
+    with torch.no_grad():
+        ref = InceptionV3FID(device="cpu").init(0)(x)
+        out = InceptionV3FID(device="cuda").init(0)(x.to("cuda"))
+    report(f"InceptionV3 75², batch 2 (max|ref| "
+           f"{float(ref.abs().max()):.3e})", *within_rel(out, ref))
+    for size in (28, 512):
+        img = torch.rand((2, 3, size, size), generator=gen)
+        kw = dict(size=(299, 299), mode="bilinear", align_corners=False,
+                  antialias=False)
+        report(f"resize {size} -> 299", *within_rel(
+            F.interpolate(img.to("cuda"), **kw), F.interpolate(img, **kw)))
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        a = torch.randn((256, 2048), generator=gen)
+        b = torch.randn((256, 2048), generator=gen)
+        ac, bc = a.to("cuda"), b.to("cuda")
+        d2 = metrics._pairwise_sq_dists(ac, bc).cpu().double()
+        ref64 = torch.cdist(a.double(), b.double()) ** 2
+        # the same expression as one product under the TF32 flag
+        tf32 = ((ac * ac).sum(1)[:, None] + (bc * bc).sum(1)[None]
+                - 2 * ac @ bc.T).cpu().double()
+        err = float((d2 - ref64).abs().max())
+        report("FLD distances, 2048-d, TF32 flag on", err,
+               err <= 1e-5 * float(ref64.max()),
+               f" (limit 1e-5 × {float(ref64.max()):.0f}; a TF32 product: "
+               f"{float((tf32 - ref64).abs().max()):.3e})")
+        train, test = torch.randn((512, 64), generator=gen), torch.randn(
+            (256, 64), generator=gen)
+        fake = torch.randn((256, 64), generator=gen) + 0.3
+        kw = dict(n_iters=50, seed=0)
+        card = metrics.fld(train, test, fake, **kw)
+        cpu = metrics.fld(train, test, fake, device="cpu", **kw)
+        report(f"FLD d 64, 50 steps, TF32 flag on ({card:.4f} against "
+               f"{cpu:.4f})", abs(card - cpu),
+               abs(card - cpu) <= 1e-3 * max(1.0, abs(cpu)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    counts = []
+    noise = torch.randn((1, 16, 16, 16, 1), generator=gen)
+    for label, per in (("plain", (False,) * 3), ("periodic", (True,) * 3)):
+        vols, recs = {}, {}
+        for dev in ("cuda", "cpu"):
+            model = model_q(dev, small_3d_config(), None)
+            model.init(seed=1)
+            conds = matern_grid_sample((16,) * 3, (2, 2, 2), 0.0, Q_MATERN,
+                                       as_condition=True, seed=0,
+                                       device=dev)[0]
+            recs[dev] = Recorded(model)
+            kernels.reset_launches()
+            vols[dev] = sample_grid_volume(
+                recs[dev], torch.Generator(dev).manual_seed(5), (2, 2, 2),
+                (8, 8, 8, 1), 4, y=conds, nsteps=4, periodicity=per,
+                noise_cube=noise).cpu()
+            if dev == "cuda":
+                counts.append(dict(kernels.LAUNCHES))
+        corner = {d: r.calls[0][3].cpu() for d, r in recs.items()}
+        err, ok = within_scale(corner["cuda"], corner["cpu"])
+        known = {d: r.known_exact() for d, r in recs.items()}
+        windows = {d: r.windows_exact(vols[d].to(d), (2, 2, 2), (8, 8, 8), 4,
+                                      per) for d, r in recs.items()}
+        ok = ok and all(k == (7, True) for k in known.values()) and all(
+            w == (WRAPS_2X2X2 if per[0] else 0, True)
+            for w in windows.values()) and bool(
+            torch.isfinite(vols["cuda"]).all())
+        report(f"grid volume {label} (2, 2, 2) of 8³, 4 steps: corner cube "
+               f"{tuple(corner['cpu'].shape)} (max|ref| "
+               f"{float(corner['cpu'].abs().max()):.3f}); inpaints and "
+               f"known regions exact {known}; (wrapped windows, known "
+               f"regions as the volume holds them) {windows}", err, ok)
+
+    dec = LocalDecoder("cuda")
+    z = torch.randn((1, 4, 32, 32), generator=gen).to("cuda")
+    with torch.no_grad():
+        tiled = tiled_decode(dec, z, (8, 8), halo=2, upscale=2)
+        full = dec(periodic_pad(z, 2))[:, :, 4:-4, 4:-4]
+    report("tiled decode (32² in 8² tiles, halo 2) against the one-shot "
+           "decode of the periodic padding", *within_rel(tiled, full),
+           f", shape {tuple(tiled.shape)} on the host")
+    if fails:
+        raise AssertionError(f"phase 34: {fails}")
+    return counts
+
+
+def phase_q(zero):
+    """Phase 35: Q at full width (A's PUNetG with a porosity embedding, 30
+    steps, bf16 over f32 masters). Two 64³ grid volumes (grid (2, 2, 2) of
+    32³ cubes, overlap 8; per-cube porosities from a Matern field over
+    the grid), plain (36³ cubes) and periodic (40³): the corner cube one
+    graphed Heun sample (57 network calls), then 7 eager inpaints of 29
+    Euler–Maruyama calls, so 260 calls (5200 K2 and 260 K4) a volume;
+    each inpainted cube's known region exact and equal to what the
+    finished volume holds at the cube's window, gathered by modular
+    indices (the periodic volume's 21 wrapped windows among them); the
+    seams' and interior slices' MSE reported. The sequential
+    stack (3 blocks of 32³, overlap 8, cosine blend, porosity 0.3 to 0.4):
+    3 × 29 calls. The periodizer (pad and blend 8) around the flow field
+    at 32³: one call at 48³; the periodicity error before and after. The
+    tiled decode of a 128² × 4 latent through G's decoder without mid
+    attention in 32² tiles (halo ``decoder_halo_radius``): no kernel of
+    the port, its max|Δ| from the one-shot decode of the periodically
+    padded latent reported (G's GroupNorms make it tile-dependent). Each
+    timed by the host clock and the device time; peak memory."""
+    from diffsci_tpu_torch import kernels
+    from diffsci_tpu_torch.extra import (DiffusionPeriodizer,
+                                         decoder_halo_radius,
+                                         make_vertical_porosity_map,
+                                         matern_grid_sample,
+                                         measure_periodicity_error,
+                                         sample_grid_volume,
+                                         sample_sequential_z, tiled_decode,
+                                         upscale_factor)
+    from diffsci_tpu_torch.models.nets.layers import init_parameters
+    from diffsci_tpu_torch.models.nets.vae import AutoencoderKL, DDConfig
+
+    per_call = dict(norm_silu=NORMS_A, flash_attention=1)
+
+    def calls(n):
+        return dict(zero, **{k: v * n for k, v in per_call.items()})
+
+    def timed(label, fn, expected):
+        """One run with the counts reset just before and read just after
+        (host clock ended by a sync); then its device time: one more run
+        under the profiler."""
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        busy = profiled_shares(fn, host=False)[1]
+        log(f"[config Q {label}] wall {wall:.3f} s, device {busy:.4f} s, "
+            f"idle share {1 - busy / wall:.3f} (measured in "
+            f"{time.perf_counter() - t0:.1f} s); launches {c}")
+        if c != expected:
+            raise AssertionError(f"Q {label}: launches {c}, expected "
+                                 f"{expected}")
+        return out, c
+
+    model = model_q()
+    model.init(seed=0)
+    final = tuple(b * g for b, g in zip(Q_BASE, Q_GRID))
+    conds = matern_grid_sample(final, Q_GRID, 0.0, Q_MATERN,
+                               as_condition=True, seed=0)[0]
+    log(f"[config Q] porosities of the grid "
+        f"{[round(float(conds[p]['porosity']), 4) for p in np.ndindex(*Q_GRID)]}")
+    base = mark_memory()
+    counts = []
+    for label, per in (("plain", (False,) * 3), ("periodic", (True,) * 3)):
+        ext = (Q_BASE[0] + (Q_OVERLAP if per[0] else Q_OVERLAP // 2),) * 3
+        graph = model.compile_sampler(1, ext + (1,), y=conds[0, 0, 0],
+                                      nsteps=SI_STEPS, is_latent_shape=True,
+                                      return_latents=True)
+        log(f"[config Q {label}] corner cube {ext}: capture "
+            f"{graph.capture_seconds:.3f} s")
+        rec = Recorded(model)
+        gen = torch.Generator("cuda").manual_seed(35)
+        vol, c = timed(f"grid volume {label}", lambda: sample_grid_volume(
+            rec, gen, Q_GRID, Q_BASE, Q_OVERLAP, y=conds, nsteps=SI_STEPS,
+            periodicity=per), calls(SI_NFE + 7 * SI_EM_NFE))
+        counts.append(c)
+        # the timed run and the profiled one
+        n, exact = rec.known_exact()
+        wraps, held = rec.windows_exact(vol, Q_GRID, Q_BASE[:3], Q_OVERLAP,
+                                        per)
+        # slices inside the first cube's base, away from its seams
+        seam, interior = seam_and_interior(vol, Q_BASE[0] // 2)
+        ok = exact and n == 14 and held and wraps == (
+            WRAPS_2X2X2 if per[0] else 0) and vol.shape == (
+                1,) + final + (1,) and bool(torch.isfinite(vol).all())
+        log(f"[config Q {label}] volume {tuple(vol.shape)}, std "
+            f"{float(vol.std()):.4f}; {n} inpaints (the timed run's and "
+            f"the profiled one's), known regions exact {exact}; {wraps} wrapped cube windows, every known "
+            f"region as the finished volume holds it {held}; opposite "
+            f"faces' MSE {seam:.4f} against adjacent interior slices' "
+            f"{interior:.4f} (over {seam / interior:.3f}; the untrained "
+            f"net's adjacent slices are no closer than any two) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"Q {label}: the volume, its known "
+                                 "regions or its wrap are wrong")
+
+    ymap = list(make_vertical_porosity_map([0.3, 0.4], grid_size=(1, 1))[0,
+                                                                         0])
+    first = (Q_BASE[0], Q_BASE[1], Q_BASE[2] + Q_OVERLAP // 2, 1)
+    graph = model.compile_sampler(1, first, y=ymap[0], nsteps=SI_STEPS,
+                                  is_latent_shape=True, noise_injection=True,
+                                  return_latents=True)
+    log(f"[config Q sequential] first block {first[:3]} (Euler–Maruyama): "
+        f"capture {graph.capture_seconds:.3f} s")
+    rec = Recorded(model)
+    gen = torch.Generator("cuda").manual_seed(36)
+    vol, c = timed("sequential stack", lambda: sample_sequential_z(
+        rec, gen, Q_BLOCKS, Q_BASE, Q_OVERLAP, y=ymap, nsteps=SI_STEPS),
+        calls(Q_BLOCKS * SI_EM_NFE))
+    counts.append(c)
+    n, exact = rec.known_exact()
+    # the timed run and the profiled one
+    ok = exact and n == 2 * (Q_BLOCKS - 1) and vol.shape == (
+        1, Q_BASE[0], Q_BASE[1], Q_BLOCKS * Q_BASE[2], 1) and bool(
+            torch.isfinite(vol).all())
+    log(f"[config Q sequential] stack {tuple(vol.shape)}, std "
+        f"{float(vol.std()):.4f}; known regions exact over {n} inpaints "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("Q: the sequential stack is wrong")
+
+    x = torch.randn((1,) + Q_BASE, generator=gen, device="cuda")
+    t = torch.full((1,), 0.5, device="cuda")
+    y = conds[0, 0, 0]
+
+    def flow(xx):
+        with torch.inference_mode():
+            return model.get_flow_field(xx, t, y)
+
+    periodizer = DiffusionPeriodizer(flow, pad=Q_PAD, blend_width=Q_PAD)
+    raw = flow(x)
+    periodizer(x)       # cuDNN's first calls at the expanded shape
+    out, c = timed("periodizer", lambda: periodizer(x), calls(1))
+    counts.append(c)
+    before = measure_periodicity_error(raw)["total_mse"]
+    after = measure_periodicity_error(out)["total_mse"]
+    ok = out.shape == x.shape and bool(torch.isfinite(out).all())
+    log(f"[config Q periodizer] flow field at {Q_BASE[0]}³ through the net "
+        f"at {Q_BASE[0] + 2 * Q_PAD}³: opposite faces' MSE {before:.4f} raw, "
+        f"{after:.4f} periodized {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("Q: the periodizer's output is wrong")
+    captured = model._graph_cache().graphs.values()
+    log(f"[config Q] {len(captured)} graphs captured (one a cube or block "
+        f"shape that is sampled), "
+        f"{sum(g.capture_seconds for g in captured):.3f} s of capture; peak "
+        f"memory of the volumes, the stack and the periodizer "
+        f"{peak_above(base)} above the model")
+    del model, rec
+    torch.cuda.empty_cache()
+
+    cfg = DDConfig(**Q_DECODER)
+    ae = AutoencoderKL(cfg, embed_dim=4)
+    init_parameters(ae, 0)
+    halo, up = decoder_halo_radius(cfg), upscale_factor(cfg)
+    z = torch.randn((1, 4, Q_LATENT, Q_LATENT), generator=gen, device="cuda")
+    with torch.inference_mode():
+        # cuDNN's first calls at the tile's shape (every tile has one)
+        ae.decode(z[:, :, :Q_CHUNK + 2 * halo, :Q_CHUNK + 2 * halo])
+        base = mark_memory()
+        tiled, c = timed(f"tiled decode (halo {halo}, x{up})",
+                         lambda: tiled_decode(ae.decode, z, (Q_CHUNK,) * 2,
+                                              halo, up), zero)
+        counts.append(c)
+        peak_tiled = peak_above(base)
+        base = mark_memory()
+        t0 = time.perf_counter()
+        full = ae.decode(periodic_pad(z, halo))
+        full = full[:, :, halo * up:-halo * up, halo * up:-halo * up].cpu()
+        wall = time.perf_counter() - t0
+        peak_full = peak_above(base)
+    err = float((tiled - full).abs().max())
+    ok = tiled.shape == (1, 1, Q_LATENT * up, Q_LATENT * up) and bool(
+        torch.isfinite(tiled).all())
+    log(f"[config Q tiled decode] {Q_LATENT}² × 4 -> {tuple(tiled.shape)} "
+        f"in {Q_CHUNK}² tiles: peak memory {peak_tiled} above the latent "
+        f"and the decoder against {peak_full} one-shot ({wall:.3f} s); "
+        f"max|Δ| from the one-shot decode {err:.3e} (max|ref| "
+        f"{float(full.abs().max()):.3f}; GroupNorm over each tile) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("Q: the tiled decode is wrong")
+    return counts
+
+
+def phase_p(zero):
+    """Phase 36: P at pytorch-fid's widths. B's ``KarrasModel`` (28² × 1,
+    bf16, random weights from seed 0) samples 2048 "real", 2048
+    "generated" and 1024 test images at bucket 64 (18-step Heun, seeds 1,
+    2, 3: exactly 35 K1 and 980 K2 a bucket run), mapped by x·0.5 + 0.5
+    (``scripts/eval_fid.py``); a "far" set is the generated one plus
+    N(0, 0.3²), clipped to [0, 1]. The pytorch-fid InceptionV3 (synthetic
+    weights, seed 0, f32) takes their pool3 features at batch 64 through
+    the 299² resize (images/s; no kernel of the port); then FID and KID
+    (host float64), FLD and its generalization gap at d 2048 (train the
+    real set, test the 1024, gen the first 1024, 200 Adam steps on the
+    card). Gates: finite [N, 2048] features; FID and KID of the real set
+    with itself ~0; generated closer to real than far by FID, KID and
+    FLD. Returns the launch counts."""
+    from diffsci_tpu_torch import PUNetGConfig, kernels, metrics
+    from diffsci_tpu_torch.metrics_inception import (InceptionV3FID,
+                                                     inception_fid_features)
+
+    model = karras(PUNetGConfig(model_channels=64, channel_expansion=[2, 4]))
+    model.init(seed=0)
+    shape = (28, 28, 1)
+    model.compile_sampler(P_BATCH, shape, nsteps=NSTEPS)
+
+    def draw(n, seed):
+        g = torch.Generator("cuda").manual_seed(seed)
+        out = torch.cat([model.sample(P_BATCH, shape, g, nsteps=NSTEPS)
+                         for _ in range(n // P_BATCH)])
+        return out * 0.5 + 0.5
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    real, fake, test = draw(P_N, 1), draw(P_N, 2), draw(P_TEST, 3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sampled = dict(kernels.LAUNCHES)
+    runs = (2 * P_N + P_TEST) // P_BATCH
+    expected = dict(zero, fused_axby=NFE * runs,
+                    norm_silu=NORMS_B * NFE * runs)
+    log(f"[config P] B's samples: {runs} bucket runs of {P_BATCH} in "
+        f"{wall:.3f} s; x·0.5 + 0.5 in [{float(real.min()):.3f}, "
+        f"{float(real.max()):.3f}]; launches {sampled}")
+    if sampled != expected:
+        raise AssertionError(f"P: launches {sampled}, expected {expected}")
+    g = torch.Generator("cuda").manual_seed(4)
+    far = (fake + 0.3 * torch.randn(fake.shape, generator=g, device="cuda")
+           ).clamp(0, 1)
+    del model
+    torch.cuda.empty_cache()
+
+    net = InceptionV3FID().init(0)
+    inception_fid_features(net, real[:P_BATCH])     # cuDNN's first calls
+    kernels.reset_launches()
+    base = mark_memory()
+    t0 = time.perf_counter()
+    f_real = inception_fid_features(net, real, P_BATCH)
+    f_fake = inception_fid_features(net, fake, P_BATCH)
+    wall = time.perf_counter() - t0
+    f_far = inception_fid_features(net, far, P_BATCH)
+    f_test = inception_fid_features(net, test, P_BATCH)
+    pwall, busy = busy_seconds(lambda: inception_fid_features(
+        net, real[:P_TEST], P_BATCH))
+    c = dict(kernels.LAUNCHES)
+    feats = (f_real, f_fake, f_far, f_test)
+    ok = all(f.shape == (len(x), 2048) and np.isfinite(f).all()
+             for f, x in zip(feats, (real, fake, far, test))) and c == zero
+    log(f"[config P features] 2 × {P_N} images through the 299² resize: "
+        f"{wall:.3f} s, {2 * P_N / wall:.1f} images/s; {P_TEST} profiled: "
+        f"device {busy:.4f} s ({P_TEST / busy:.1f} images/s), idle share "
+        f"{1 - busy / pwall:.3f}; peak memory {peak_above(base)} above the "
+        f"images and the net; feature "
+        f"scale {float(np.abs(f_real).max()):.3e}; launches {c} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("P: the features are wrong")
+    del net
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fid_rg = metrics.fid(f_real, f_fake)
+    t_fid = time.perf_counter() - t0
+    # the other two host square roots side by side (LAPACK frees the GIL)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        fid_self, fid_rf = pool.map(metrics.fid, (f_real, f_real),
+                                    (f_real, f_far))
+    t0 = time.perf_counter()
+    kid_rg = metrics.kid(f_real, f_fake)
+    t_kid = time.perf_counter() - t0
+    kid_self, kid_rf = metrics.kid(f_real, f_real), metrics.kid(f_real, f_far)
+    kw = dict(n_iters=P_FLD_ITERS, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fld_rg = metrics.fld(f_real, f_test, f_fake[:P_TEST], **kw)
+    t_fld = time.perf_counter() - t0
+    fld_rf = metrics.fld(f_real, f_test, f_far[:P_TEST], **kw)
+    gap_rg = metrics.fld_generalization_gap(f_real, f_fake[:P_TEST], **kw)
+    gap_rf = metrics.fld_generalization_gap(f_real, f_far[:P_TEST], **kw)
+    ok = (abs(fid_self) <= 1e-3 * fid_rf and abs(kid_self) <= 5e-2 * kid_rf
+          and fid_rg < fid_rf and kid_rg < kid_rf and fld_rg < fld_rf)
+    log(f"[config P metrics] FID real/real {fid_self:.4e}, real/generated "
+        f"{fid_rg:.6e}, real/far {fid_rf:.6e} (host sqrtm of 2048²: "
+        f"{t_fid:.3f} s a FID); KID {kid_self:.4e}, {kid_rg:.6e}, "
+        f"{kid_rf:.6e} ({t_kid:.3f} s); FLD generated {fld_rg:.4f}, far "
+        f"{fld_rf:.4f} ({t_fld:.3f} s a FLD: two fits of {P_FLD_ITERS} "
+        f"steps on the card); generalization gap {gap_rg:.4f}, "
+        f"{gap_rf:.4f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("P: the metrics do not order real, generated "
+                             "and far, or a set is not ~0 from itself")
+    return [sampled, c]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -5953,6 +6564,16 @@ def main() -> int:
     counts_33 = phase_m(zero) + phase_n(zero) + phase_o(zero)
     elapsed("33")
 
+    # the porous-media extras (Q) and the metrics (P) (phases 34 to 36)
+    torch.backends.cudnn.allow_tf32 = False
+    counts_34 = phase_extras_card_vs_cpu()
+    torch.backends.cudnn.allow_tf32 = True
+    elapsed("34")
+    counts_35 = phase_q(zero)
+    elapsed("35")
+    counts_36 = phase_p(zero)
+    elapsed("36")
+
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
                        "diffsci_tpu/kernels/fused_precondition.py:129"),
@@ -5987,7 +6608,9 @@ def main() -> int:
                                            *counts_26, *counts_27,
                                            *counts_28, *counts_29,
                                            *counts_30, *counts_31,
-                                           *counts_32, *counts_33]),
+                                           *counts_32, *counts_33,
+                                           *counts_34, *counts_35,
+                                           *counts_36]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

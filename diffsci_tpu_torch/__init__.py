@@ -74,6 +74,13 @@ soft-mask inpainting; ``make_train_step`` trains it), the Song-style SDE
 stack (``models.sde``: VP, subVP and VE, ``SDEModel``), DDPM v1
 (``DDPMModuleV1``, ``default_v1_optimizer``) and the deterministic
 forecaster (``ForecastModel``).
+
+The metrics and the extras, submodules as in the JAX package:
+``metrics`` (FID, KID and sample statistics on the host; FLD's mixture
+fit on the card) and ``metrics_inception`` (the pytorch-fid InceptionV3
+and its features); ``extra`` (grid and sequential volume synthesis around
+an ``SIModel``, the periodizer, porosity maps, the tiled decode,
+conv-to-circular surgery) and ``utils.periodic``.
 """
 
 from diffsci_tpu_torch.checkpoint import (CheckpointManager, ModelRegistry,

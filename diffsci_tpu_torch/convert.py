@@ -59,7 +59,11 @@ counterpart:
   conv{i+1});
 - MinimalResNet (``block_{i}`` -> ``res_blocks.{i}``) and DASC (the
   reference's Sequential indices; ``_TorchConvTranspose`` kernels
-  flipped back, ``srm/A`` -> ``srm.self_repr.weight``).
+  flipped back, ``srm/A`` -> ``srm.self_repr.weight``);
+- the pytorch-fid ``InceptionV3FID`` (``metrics_inception.py``): its
+  scopes are pytorch-fid's names already; each BatchNorm's ``scale`` /
+  ``bias`` and ``batch_stats`` ``mean`` / ``var`` -> ``weight`` /
+  ``bias`` / ``running_mean`` / ``running_var``.
 
 Everywhere conv kernels [*k, in, out] -> [out, in, *k], Dense kernels
 [in, out] -> [out, in] and norm scales -> ``weight``. The name maps are the
@@ -700,6 +704,20 @@ def _dasc_state(params: dict) -> dict:
     return out
 
 
+def _inception_state(params: dict, batch_stats: dict) -> dict:
+    """InceptionV3FID's JAX leaves -> pytorch-fid's names: each
+    BasicConv2d's ``conv/kernel`` [kh, kw, I, O] -> ``conv.weight`` [O, I,
+    kh, kw], ``bn/scale``, ``bn/bias`` -> ``bn.weight``, ``bn.bias`` and the
+    ``batch_stats`` ``bn/mean``, ``bn/var`` -> ``bn.running_mean``,
+    ``bn.running_var``."""
+    out = {}
+    for path, w in _flatten(params):
+        out[_leaf_key(".".join(path[:-1]), path[-1])] = _layout(w, path[-1])
+    for path, w in _flatten(batch_stats):
+        out[f"{'.'.join(path[:-1])}.running_{path[-1]}"] = w
+    return out
+
+
 _BOTTOM = {"before_block": "bottom_blocks.0",
            "attn_resnet_block": "bottom_blocks.1",
            "attn_block": "bottom_blocks.2", "after_block": "bottom_blocks.3"}
@@ -774,7 +792,8 @@ def from_jax_variables(variables_np: dict,
     running initial norm (``batch_stats/initial_norm``: the network at
     scope ``model`` and ``initial_norm.mean``/``.var``, the names of its
     ``RuntimeNet``; without that norm an ``SIModel``'s variables are its
-    network's, which load into ``model.net.model``). ``config``: the
+    network's, which load into ``model.net.model``); the pytorch-fid
+    ``InceptionV3FID`` (its ``params`` and ``batch_stats``). ``config``: the
     PUNetG's (or ADM's, PUNetV's) config, which names its norms (default
     GroupLN then GroupRMS), or the autoencoder's ``DDConfig`` (needed for
     attention at ``attn_resolutions``)."""
@@ -789,6 +808,8 @@ def from_jax_variables(variables_np: dict,
             config).items()}
         out.update(_tensors(stats["initial_norm"], "initial_norm."))
         return out
+    if "Conv2d_1a_3x3" in params:
+        return _tensors(_inception_state(params, stats))
     if "quant_conv" in params:
         return _tensors(_autoencoder_state(params, config))
     if _is_vaenet(params):

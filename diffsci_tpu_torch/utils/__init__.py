@@ -1,5 +1,8 @@
 from diffsci_tpu_torch.utils.device import resolve_device
 from diffsci_tpu_torch.utils.images import make_image_grid, save_image_grid
+from diffsci_tpu_torch.utils.periodic import (periodic_getitem,
+                                              periodic_getitem_extended,
+                                              periodic_setitem)
 from diffsci_tpu_torch.utils.tensor import (bcast_right, depth_to_space,
                                             dict_expand_dims, dict_map,
                                             get_minibatch_sizes,
@@ -8,5 +11,7 @@ from diffsci_tpu_torch.utils.tensor import (bcast_right, depth_to_space,
 
 __all__ = ["bcast_right", "depth_to_space", "dict_expand_dims", "dict_map",
            "get_minibatch_sizes", "linear_interpolation",
-           "make_image_grid", "resolve_device", "save_image_grid",
+           "make_image_grid", "periodic_getitem",
+           "periodic_getitem_extended", "periodic_setitem",
+           "resolve_device", "save_image_grid",
            "space_to_depth", "unset"]

@@ -1,4 +1,4 @@
-"""Rehearse phases 31 to 33 of ``chip_smoke.py`` on the CPU, at cut widths,
+"""Rehearse phases 31 to 36 of ``chip_smoke.py`` on the CPU, at cut widths,
 before spending card time on them.
 
     python3 scripts/torch_rehearse_phases.py OUT_DIR [phase ...] [--si-steps N]
@@ -20,10 +20,14 @@ copy so that the card's paths run on the CPU:
 - L runs at phase 2's cut width (12 K2 a network call), M at B's depth
   cut to 8 channels, N around phase 4's small HFNet, O over a 32² field
   (4² latents); SI's grid at ``--si-steps`` (6), M at 12 and 6 steps, the
-  train batches 8 and 4.
+  train batches 8 and 4;
+- Q at phase 2's cut width with the flash gate lowered to one token
+  (every attention counted as K4), 16³ cubes with overlap 4, a 32²
+  latent through a decoder of 8 channels; P with B's depth at 8 channels
+  in f32, 64 images a set and 20 FLD steps.
 
-Then runs the named phases (default: all of 31 to 33) and prints each
-one's seconds. The numbers mean nothing; control flow, shapes, draw
+Then runs the named phases (default: 34 to 36) and prints each one's
+seconds. The numbers mean nothing; control flow, shapes, draw
 order, graph keys and launch counts do.
 """
 
@@ -34,8 +38,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = ["phase_runtimes_card_vs_cpu", "phase_l", "phase_m", "phase_n",
-          "phase_o"]
+PHASES = ["phase_extras_card_vs_cpu", "phase_q", "phase_p"]
+NO_ZERO = {"phase_runtimes_card_vs_cpu", "phase_extras_card_vs_cpu"}
 
 
 def _sub(path, old, new):
@@ -73,6 +77,13 @@ def make_copy(out: str) -> None:
     for name, plain in (("norm_silu", "norm_silu_plain("),
                         ("norm_silu_bwd", "norm_silu_bwd_plain(")):
         _sub(fn, f'''    if x.device.type == "cpu":
+        return {plain}''', f'''    if x.device.type == "cpu":
+        kernels.LAUNCHES["{name}"] += 1
+        return {plain}''')
+    fp = os.path.join(pkg, "kernels/fused_precondition.py")
+    for name, plain in (("fused_axby", "fused_axby_plain("),
+                        ("fused_lincomb3", "fused_lincomb3_plain(")):
+        _sub(fp, f'''    if x.device.type == "cpu":
         return {plain}''', f'''    if x.device.type == "cpu":
         kernels.LAUNCHES["{name}"] += 1
         return {plain}''')
@@ -120,6 +131,7 @@ def rehearse(out: str, names, si_steps: int) -> None:
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         setattr(torch.cuda, name, lambda *a, **k: None)
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    torch.cuda.memory_allocated = lambda *a, **k: 0
     torch.cuda.memory_snapshot = lambda *a, **k: []
     import chip_smoke as cs
     import diffsci_tpu_torch as d
@@ -127,7 +139,7 @@ def rehearse(out: str, names, si_steps: int) -> None:
     from diffsci_tpu_torch.models.vae import (BoundAutoencoder, VAEModel,
                                               VAEModelConfig)
 
-    def profiled(fn):
+    def profiled(fn, host=True):
         t0 = time.perf_counter()
         fn()
         wall = time.perf_counter() - t0
@@ -141,12 +153,23 @@ def rehearse(out: str, names, si_steps: int) -> None:
         vm.init(seed=0)
         return BoundAutoencoder(vm)
 
-    model_l = cs.model_l
+    model_l, model_q = cs.model_l, cs.model_q
     cs.profiled_shares = profiled
     cs.profile_call = lambda *a, **k: None
     cs.smi = lambda query: "CPU rehearsal"
     cs.model_l = lambda dev="cpu", cfg=None, dtype=None, **si: model_l(
         dev, cfg or cs.small_3d_config(), None, **si)
+    cs.model_q = lambda dev="cpu", cfg=None, dtype=None: model_q(
+        dev, cfg or cs.small_3d_config(), None)
+    d.kernels.flash_attention.MIN_TOKENS = 1
+    cs.Q_BASE, cs.Q_OVERLAP, cs.Q_PAD = (16, 16, 16, 1), 4, 4
+    cs.Q_LATENT, cs.Q_CHUNK = 32, 16
+    cs.Q_DECODER = dict(has_mid_attn=False, ch=8, ch_mult=(1, 2),
+                        num_res_blocks=1)
+    cs.P_N, cs.P_TEST, cs.P_FLD_ITERS = 64, 64, 20
+    cs.karras = lambda cfg: d.KarrasModel(
+        d.PUNetG(cs.small_b_config(), device="cpu"),
+        d.KarrasModelConfig.from_edm(), device="cpu")
     cs.NORMS_A = 12
     cs.SI_STEPS, cs.SI_NFE, cs.SI_EM_NFE = si_steps, 2 * si_steps - 3, \
         si_steps - 1
@@ -161,7 +184,7 @@ def rehearse(out: str, names, si_steps: int) -> None:
     for name in names:
         t0 = time.perf_counter()
         fn = getattr(cs, name)
-        fn() if name == "phase_runtimes_card_vs_cpu" else fn(zero)
+        fn() if name in NO_ZERO else fn(zero)
         print(f"{name} ok {time.perf_counter() - t0:.1f} s", flush=True)
 
 

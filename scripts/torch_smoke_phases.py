@@ -1,13 +1,15 @@
 """Run chosen phases of ``chip_smoke.py`` alone on the card, after building
 the kernels: a development runner that saves the whole script's minutes.
 
-    python3 scripts/torch_smoke_phases.py                     # 31 to 33
+    python3 scripts/torch_smoke_phases.py                     # 34 to 36
     python3 scripts/torch_smoke_phases.py phase_l phase_m     # by name
 
-Phases 31 to 33 (``phase_runtimes_card_vs_cpu``, ``phase_l``,
-``phase_m``, ``phase_n``, ``phase_o``) run under the flags the whole
-script gives them (TF32 off for the card-against-CPU phase). Prints the
-card's name and power limit last.
+Phases 34 to 36 (``phase_extras_card_vs_cpu``, ``phase_q``, ``phase_p``)
+by default; any phase by its function's name (31 to 33:
+``phase_runtimes_card_vs_cpu``, ``phase_l``, ``phase_m``, ``phase_n``,
+``phase_o``). Each runs under the flags the whole script gives it (TF32
+off for the card-against-CPU phases). Prints the card's name and power
+limit last.
 """
 
 import os
@@ -24,9 +26,10 @@ from diffsci_tpu_torch import kernels  # noqa: E402
 
 # phases that compare the card with the CPU run with TF32 off
 NO_TF32 = {"phase_runtimes_card_vs_cpu", "phase_vae_card_vs_cpu",
-           "phase_distill_a_card_vs_cpu"}
+           "phase_distill_a_card_vs_cpu", "phase_extras_card_vs_cpu"}
 # phases that take no launch-count template
-NO_ZERO = {"phase_runtimes_card_vs_cpu", "phase_vae_card_vs_cpu"}
+NO_ZERO = {"phase_runtimes_card_vs_cpu", "phase_vae_card_vs_cpu",
+           "phase_extras_card_vs_cpu"}
 
 
 def main() -> int:
@@ -38,8 +41,8 @@ def main() -> int:
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     zero = dict.fromkeys(kernels.LAUNCHES, 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    names = sys.argv[1:] or ["phase_runtimes_card_vs_cpu", "phase_l",
-                             "phase_m", "phase_n", "phase_o"]
+    names = sys.argv[1:] or ["phase_extras_card_vs_cpu", "phase_q",
+                             "phase_p"]
     for name in names:
         t = time.perf_counter()
         torch.backends.cudnn.allow_tf32 = name not in NO_TF32

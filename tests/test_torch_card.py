@@ -11,6 +11,7 @@ The kernels' tolerances are ``chip_smoke.py`` phase 1's; the CUDA
 graphs' (graphed entry points against their eager bodies) phases 2 to 4's.
 """
 
+import dataclasses
 import gc
 import weakref
 
@@ -1446,3 +1447,86 @@ def test_graphed_sde_and_v1_steps_match_eager_on_card(_no_tf32,
             x = v1.step(x, torch.tensor(float(t), device="cuda"), noise,
                         sampler="ddim", noise_type=2)
     assert torch.equal(out, x) and bool(torch.isfinite(out).all())
+
+
+def test_inception_features_card_against_cpu(_no_tf32):
+    """The pytorch-fid InceptionV3 (synthetic weights, seed 0) on the card
+    against the CPU, f32 with TF32 off: ``inception_fid_features`` of 5
+    grayscale 28² images at batch 2 (the resize, the RGB repeat and the
+    net) within 1e-4 of the features' scale, shape [5, 2048]."""
+    from diffsci_tpu_torch import metrics_inception as mi
+
+    x = np.random.default_rng(0).uniform(size=(5, 28, 28, 1)).astype(
+        np.float32)
+    card = mi.inception_fid_features(mi.InceptionV3FID().init(0), x,
+                                     batch_size=2)
+    cpu = mi.inception_fid_features(mi.InceptionV3FID(device="cpu").init(0),
+                                    x, batch_size=2)
+    assert card.shape == cpu.shape == (5, 2048)
+    np.testing.assert_allclose(card, cpu, rtol=0,
+                               atol=1e-4 * float(np.abs(cpu).max()))
+
+
+def test_fld_distances_in_full_f32_with_tf32_on():
+    """With the global TF32 flag on, FLD's squared distances of
+    standardized 2048-d features (norms ~2048) stay full-precision
+    products (float64, rounded to f32): within 1e-6 relative of float64
+    at their ~4096 scale, where TF32 would be off by ~1; ``fld`` on the
+    card equals the CPU's within 1e-3 of
+    max(1, |FLD|); the flag is as it was after."""
+    from diffsci_tpu_torch import metrics
+
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((300, 2048)).astype(np.float32)
+    b = rng.standard_normal((200, 2048)).astype(np.float32)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        d2 = metrics._pairwise_sq_dists(torch.from_numpy(a).cuda(), b)
+        assert torch.backends.cuda.matmul.allow_tf32
+        ref = ((a[:, None, :].astype(np.float64) - b[None]) ** 2).sum(-1)
+        err = float(np.abs(d2.cpu().numpy() - ref).max())
+        assert err < 1e-6 * float(ref.max()), err
+        kw = dict(n_iters=50, lr=0.1, seed=0)
+        card = metrics.fld(a, a[:100] + 0.1, b, **kw)
+        cpu = metrics.fld(a, a[:100] + 0.1, b, device="cpu", **kw)
+        assert abs(card - cpu) <= 1e-3 * max(1.0, abs(cpu)), (card, cpu)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_grid_volume_card_against_cpu(_no_tf32):
+    """``sample_grid_volume`` with a small SIModel (a 3D PUNetG of 8
+    channels) at grid (2, 2, 2), 8³ cubes, overlap 4, on the card and the
+    CPU from one replayed noise cube: the corner cube (deterministic Heun,
+    the card's graphed sampler) agrees within 1e-3 of its scale, and every
+    inpainted cube keeps its known region exactly on the card."""
+    from diffsci_tpu_torch import SIModel, SIModelConfig, extra
+
+    cfg = dataclasses.replace(_small_3d(), attn_backend="xla")
+    noise = torch.randn((1, 16, 16, 16, 1),
+                        generator=torch.Generator().manual_seed(0))
+    vols, corners = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = SIModel(PUNetG(cfg, device=dev), SIModelConfig(),
+                        device=dev)
+        model.init(seed=1)
+        inner = model.inpaint
+        known = []
+
+        def inpaint(x_orig, mask, _inner=inner, _known=known, **kw):
+            out = _inner(x_orig, mask, **kw)
+            k = mask == 1.0
+            _known.append(bool(torch.equal(out[0][k], x_orig[k])))
+            return out
+
+        model.inpaint = inpaint
+        vols[dev] = extra.sample_grid_volume(
+            model, torch.Generator(dev).manual_seed(2), [2, 2, 2],
+            (8, 8, 8, 1), 4, nsteps=4, noise_cube=noise).cpu()
+        assert known == [True] * 7, known
+        corners[dev] = vols[dev][0, :10, :10, :10]
+    scale = max(1.0, float(corners["cpu"].abs().max()))
+    err = float((corners["cuda"] - corners["cpu"]).abs().max())
+    assert err <= 1e-3 * scale, err
+    assert bool(torch.isfinite(vols["cuda"]).all())
