@@ -323,8 +323,24 @@ Phases (any failure raises, so the exit code is non-zero):
     and the generalization gap at d 2048 (host sqrtm seconds, the FLD
     fit's): FID and KID of a set with itself ~0, generated closer than
     far by FID, KID and FLD.
-37. One JSON line lists every kernel with its launches over phases 5 to
-    9, 11 to 15 and 17 to 36; the card's name and power limit; then the
+37. The parallel modes over ``torch.distributed``. (a) One NCCL rank at
+    full width: B's data-parallel train step (``replicate``,
+    ``shard_batch``, the gradient all-reduce captured in the step's
+    graph) against the plain graphed step of phase 8, bit for bit over 3
+    steps from copies of one state and one set of draws (cuDNN's
+    deterministic algorithms in both), each timed (host and device), the
+    NCCL kernels of one profiled step listed; B's FSDP step against the
+    plain one within phase 3's bounds; A's bucket-4 request through
+    ``KarrasModel.sample(mesh=...)`` bit for bit against the request
+    without a mesh; H's MoE twin under dp × ep and DiT-B's blocks
+    through ``make_dit_pipeline`` at one stage, each against the plain
+    forward (phase 2's tolerance); exact launch counts. (b) Two spawned
+    ranks share the card over gloo: each collective probed on CUDA
+    tensors, then every mode whose collectives gloo carries run at small
+    sizes against the same rank's single-process result at the CPU
+    tests' bounds; the modes run and those not run are printed.
+38. One JSON line lists every kernel with its launches over phases 5 to
+    9, 11 to 15 and 17 to 37; the card's name and power limit; then the
     result line.
 
 The last line of standard output is
@@ -6410,6 +6426,532 @@ def phase_p(zero):
     return [sampled, c]
 
 
+# ---------------------------------------------------------------------------
+# phase 37: the parallel modes (torch.distributed)
+# ---------------------------------------------------------------------------
+PAR_BACKEND = "nccl"       # part (a)'s process group
+PAR_STEPS = 3              # steps held bit for bit (or to phase 3's bounds)
+PAR_TIMED = 20             # steps timed on the host clock
+PAR_B_BATCH = 256          # B's train batch (phase 8's)
+PAR_H_SIDE = 256           # H's fields
+PAR_WORLD = 2              # part (b): ranks sharing the one card over gloo
+PAR_TIMEOUT = 120          # seconds a group of part (b) may take
+# the collectives of each mode of part (b), and the probes that carry them
+PAR_MODES = {
+    "dp_step": ("broadcast", "all_reduce"),
+    "bnorm_step": ("broadcast", "all_reduce"),
+    "fsdp_step": ("broadcast", "all_reduce", "all_gather",
+                  "reduce_scatter"),
+    "tp_step": ("broadcast", "all_reduce", "all_gather"),
+    "dp_sampling": ("all_gather",),
+    "ep_forward": ("all_gather", "all_to_all_single", "all_reduce"),
+    "pipeline": ("all_reduce", "broadcast", "batch_isend_irecv"),
+    "halo_decode": ("batch_isend_irecv", "all_gather"),
+}
+
+
+def par_arm(label, cfg, x, mesh, arm):
+    """B's train step (bf16 over f32 masters, AdamW, power EMA every 4
+    steps, seed 0, draws from seed 1) as the plain graphed step of phase
+    8 (``arm`` "plain"), over a state ``replicate`` placed ("dp", x cut
+    by ``shard_batch``) or one ``shard_state_fsdp`` placed ("fsdp"):
+    ``PAR_STEPS`` steps with the counts reset before and read after,
+    then ``PAR_TIMED`` timed ones."""
+    from diffsci_tpu_torch import (EMATracker, create_train_state, kernels,
+                                   make_train_step)
+    from diffsci_tpu_torch.parallel import (replicate, shard_batch,
+                                            shard_state_fsdp)
+
+    model = karras(cfg)
+    tracker = EMATracker(ema_type="power", power_function_stds=[0.05],
+                         update_every=4)
+    state, tx = create_train_state(model, x.shape, seed=0, ema=tracker)
+    xb = x
+    if arm == "dp":
+        replicate(state, mesh)
+        xb = shard_batch(x, mesh)
+    elif arm == "fsdp":
+        shard_state_fsdp(state, mesh)
+        xb = shard_batch(x, mesh)
+    step = make_train_step(model, tx, ema=tracker)
+    gen = torch.Generator("cuda").manual_seed(1)
+    kernels.reset_launches()
+    metrics = [step(state, xb, generator=gen)[1] for _ in range(PAR_STEPS)]
+    metrics = [(float(m["train_loss"]), float(m["grad_norm"]))
+               for m in metrics]
+    counts = dict(kernels.LAUNCHES)
+    snap = ({k: v.detach().clone() for k, v in state.params.items()},
+            {k: v.clone() for k, v in state.ema.profiles[0].items()})
+
+    def take():
+        return step(state, xb, generator=gen)[1]["train_loss"]
+
+    seconds = walls(take, PAR_TIMED)
+    dev = device_ms(take, 5)
+    log(f"[parallel {label}] {arm}: {PAR_STEPS} steps (loss, grad_norm) "
+        f"{metrics}; {PAR_TIMED} steps {float(np.median(seconds)) * 1e3:.3f}"
+        f" ms/step median (min {min(seconds) * 1e3:.3f}), device "
+        f"{dev:.3f} ms/step; launches {counts}")
+    return types.SimpleNamespace(metrics=metrics, snap=snap, counts=counts,
+                                 take=take, state=state, dev=dev,
+                                 ms=float(np.median(seconds)) * 1e3)
+
+
+def nccl_kernels(fn) -> list:
+    """The NCCL kernels torch.profiler sees in one call of ``fn`` (after
+    one to warm up), with their device microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key[:80], e.count, round(device_us(e), 2))
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()]
+
+
+def phase_parallel_world1(zero):
+    """Phase 37 (a): one rank over NCCL at full width."""
+    from diffsci_tpu_torch import PUNetGConfig, kernels
+    from diffsci_tpu_torch.models.nets import MoEFeedForward
+    from diffsci_tpu_torch.parallel import (initialize_distributed,
+                                            make_mesh, gather_batch,
+                                            shard_batch,
+                                            shard_params_expert_parallel)
+    from diffsci_tpu_torch.parallel.pipeline import (make_dit_pipeline,
+                                                     split_dit_variables)
+    import torch.distributed as dist
+
+    initialize_distributed(device_type="cuda")
+    if dist.get_backend() != PAR_BACKEND or dist.get_world_size() != 1:
+        raise AssertionError(f"phase 37 (a) wants one {PAR_BACKEND} rank, got "
+                             f"{dist.get_backend()} x "
+                             f"{dist.get_world_size()}")
+    mesh = make_mesh(device_type="cuda")
+    counts = []
+
+    # B's data-parallel step against phase 8's graphed step, bit for bit
+    # (cuDNN's deterministic algorithms, so that each capture picks the
+    # same ones)
+    cfg_b = PUNetGConfig(model_channels=64, channel_expansion=[2, 4])
+    x = torch.randn((PAR_B_BATCH, 28, 28, 1), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    torch.backends.cudnn.deterministic = True
+    arms = {arm: par_arm("B", cfg_b, x, mesh, arm)
+            for arm in ("plain", "dp", "fsdp")}
+    torch.backends.cudnn.deterministic = False
+    per_step = dict(zero, norm_silu=NORMS_B, norm_silu_bwd=NORMS_B)
+    for arm in arms.values():
+        if arm.counts != {k: PAR_STEPS * n for k, n in per_step.items()}:
+            raise AssertionError(f"phase 37: B's step launches {arm.counts}")
+        counts.append(arm.counts)
+    plain, dp, fsdp = arms["plain"], arms["dp"], arms["fsdp"]
+    same = dp.metrics == plain.metrics and all(
+        float(max((a[n] - b[n]).abs().max() for n in b)) == 0.0
+        for a, b in zip(dp.snap, plain.snap))
+    log(f"[parallel B] data-parallel step against the plain graphed step, "
+        f"{PAR_STEPS} steps: {'bit for bit' if same else 'DIFFERENT'}; "
+        f"{dp.ms:.3f} against {plain.ms:.3f} ms/step "
+        f"({dp.ms / plain.ms:.4f}x), device {dp.dev:.3f} against "
+        f"{plain.dev:.3f} ms ({dp.dev / plain.dev:.4f}x)")
+    if not same:
+        raise AssertionError("phase 37: the DP step at world 1 is not the "
+                             "plain step bit for bit")
+    log(f"[parallel B] NCCL kernels in one profiled DP step: "
+        f"{nccl_kernels(dp.take)}")
+    lr = 1e-3
+    ok = np.allclose(fsdp.metrics, plain.metrics, rtol=1e-3, atol=0) and \
+        np.isfinite(fsdp.metrics).all()
+    for ours, theirs in zip(fsdp.snap, plain.snap):
+        diff = torch.cat([(ours[n] - theirs[n]).abs().flatten()
+                          for n in theirs]).cpu().numpy()
+        q999, worst = float(np.quantile(diff, 0.999)), float(diff.max())
+        ok = ok and q999 <= 0.05 * lr and worst <= 2 * PAR_STEPS * lr
+        log(f"[parallel B] FSDP against plain: |Δ| 99.9% {q999:.3e}, max "
+            f"{worst:.3e}")
+    blocks = fsdp.state.placement.fsdp.blocks
+    log(f"[parallel B] FSDP (graphed, world 1): {len(blocks)} of "
+        f"{len(fsdp.state.params)} tensors sharded, (loss, grad_norm) "
+        f"{fsdp.metrics} against {plain.metrics} "
+        f"{'ok' if ok else 'FAIL'}; {fsdp.ms:.3f} ms/step, device "
+        f"{fsdp.dev:.3f} ms")
+    if not ok:
+        raise AssertionError("phase 37: FSDP and plain steps disagree")
+    del arms, plain, dp, fsdp
+    torch.cuda.empty_cache()
+
+    # A's bucket-4 request through sample(mesh=...), bit for bit
+    cfg_a = PUNetGConfig(dimension=3, model_channels=32,
+                         channel_expansion=[2], num_heads=2,
+                         attn_backend="flash")
+    model = karras(cfg_a)
+    model.init(seed=0)
+    alone = model.sample(4, (32, 32, 32, 1),
+                         torch.Generator("cuda").manual_seed(7),
+                         nsteps=NSTEPS)
+    kernels.reset_launches()
+    on_mesh = model.sample(4, (32, 32, 32, 1),
+                           torch.Generator("cuda").manual_seed(7),
+                           nsteps=NSTEPS, mesh=mesh)
+    torch.cuda.synchronize()
+    c = dict(kernels.LAUNCHES)
+    want = dict(zero, fused_axby=NFE, norm_silu=NORMS_A * NFE,
+                flash_attention=NFE)
+    log(f"[parallel A] bucket-4 request through sample(mesh=...): "
+        f"{'bit for bit' if torch.equal(alone, on_mesh) else 'DIFFERENT'} "
+        f"against the request without a mesh; launches {c}")
+    if not torch.equal(alone, on_mesh) or c != want:
+        raise AssertionError("phase 37: A's sample(mesh=...) differs")
+    counts.append(c)
+    del model
+    torch.cuda.empty_cache()
+
+    # H's MoE twin under dp x ep, and DiT-B's blocks on a 1-stage pipeline
+    gen = torch.Generator("cuda").manual_seed(3)
+    xh = torch.randn((4, 1, PAR_H_SIDE, PAR_H_SIDE), device="cuda",
+                     generator=gen)
+    th = torch.rand((4,), device="cuda", generator=gen)
+    for label, moe in (("H MoE dp x ep", True), ("H pipeline", False)):
+        net = model_h(moe=moe).net.model
+        from diffsci_tpu_torch.models.nets.layers import init_parameters
+        init_parameters(net, 0)
+        net.eval()
+        with torch.no_grad():
+            ref = net(xh, th)
+            if moe:
+                m = make_mesh(axes=("data", "expert"), shape=(1, 1),
+                              device_type="cuda")
+                shard_params_expert_parallel(net, m)
+                kernels.reset_launches()
+                out = gather_batch(net(shard_batch(xh, m, ("data", "expert")),
+                                       shard_batch(th, m,
+                                                   ("data", "expert"))),
+                                   m, ("data", "expert"))
+            else:
+                m = make_mesh(axes=("stage",), device_type="cuda")
+                forward, _ = make_dit_pipeline(net, m, n_micro=2)
+                tensors = dict(net.named_parameters())
+                tensors.update(net.named_buffers())
+                rest, stacked, _ = split_dit_variables(tensors, net.nblocks)
+                kernels.reset_launches()
+                out = forward(rest, stacked, xh, th)
+            torch.cuda.synchronize()
+        c = dict(kernels.LAUNCHES)
+        err, ok = within_phase2(out, ref)
+        extra = ""
+        if moe:
+            extra = ", dropped fractions " + str([
+                round(float(f.dropped_fraction), 4) for f in net.modules()
+                if isinstance(f, MoEFeedForward)])
+        log(f"[parallel {label}] forward at batch 4 against the plain "
+            f"forward: max|Δ| {err:.3e} {'ok' if ok else 'FAIL'}; launches "
+            f"{c}{extra}")
+        if not ok or c["flash_attention"] != H_WIDTHS["nblocks"] * (
+                1 if moe else 2):
+            raise AssertionError(f"phase 37: {label} disagrees")
+        counts.append(c)
+        del net
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return counts
+
+
+def _par_probe(name, rank, world, dev):
+    """One collective of gloo on CUDA tensors, checked; raises if gloo
+    refuses it or it gives a wrong value."""
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(rank + 1), device=dev)
+    if name == "all_reduce":
+        dist.all_reduce(x)
+        ok = torch.equal(x.cpu(), torch.full((4,), world * (world + 1) / 2))
+    elif name == "broadcast":
+        dist.broadcast(x, src=0)
+        ok = torch.equal(x.cpu(), torch.ones(4))
+    elif name == "all_gather":
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        ok = all(float(p[0]) == i + 1 for i, p in enumerate(parts))
+    elif name == "reduce_scatter":
+        out = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(out, torch.arange(
+            2.0 * world, device=dev) + rank)
+        ok = torch.equal(out.cpu(), torch.arange(
+            2.0 * rank, 2.0 * rank + 2) * world + world * (world - 1) / 2)
+    elif name == "all_to_all_single":
+        out = torch.empty(world, device=dev)
+        dist.all_to_all_single(out, x[:world] * 10 + torch.arange(
+            world, device=dev, dtype=x.dtype))
+        ok = all(float(out[i]) == (i + 1) * 10 + rank for i in range(world))
+    else:
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, (rank + 1) % world),
+               dist.P2POp(dist.irecv, out, (rank - 1) % world)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        ok = float(out[0]) == (rank - 1) % world + 1
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    if not ok:
+        raise AssertionError(f"{name} gave a wrong value")
+
+
+def _par_mode(name, rank, world, dev):
+    """One mode of part (b) at small sizes, f32, against the single-process
+    result of the same rank on the card, at the CPU tests' bounds.
+    Returns its max relative error."""
+    from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig,
+                                   create_train_state, make_train_step)
+    from diffsci_tpu_torch.models.nets.mlp import MLPUncond
+    from diffsci_tpu_torch.parallel import (gather_batch, make_mesh,
+                                            replicate, shard_batch,
+                                            shard_params_expert_parallel,
+                                            shard_state_fsdp,
+                                            shard_state_tensor_parallel)
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((32, 2)).astype(np.float32))
+    sigma = torch.from_numpy(np.exp(rng.standard_normal(32) * 1.2 - 1.2)
+                             .astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((32, 2)).astype(np.float32))
+    x, sigma, eps = x.to(dev), sigma.to(dev), eps.to(dev)
+
+    def close(a, b, rtol, atol):
+        a, b = np.asarray(a), np.asarray(b)
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
+        return float(np.max(np.abs(a - b) / (atol + rtol * np.abs(b))))
+
+    if name.endswith("_step"):
+        hidden = {"dp_step": [16], "bnorm_step": [16], "fsdp_step": [64],
+                  "tp_step": [64, 64]}[name]
+        xs = x + torch.repeat_interleave(torch.arange(
+            8.0, device=dev), 4)[:, None] if name == "bnorm_step" else x
+
+        def arm(placed):
+            model = KarrasModel(
+                MLPUncond(2, hidden, device=dev),
+                KarrasModelConfig.from_edm(
+                    loss_metric="mse",
+                    has_edm_batch_norm=name == "bnorm_step"), device=dev)
+            state, tx = create_train_state(model, (32, 2), seed=0)
+            xb = xs
+            if placed:
+                if name == "tp_step":
+                    mesh = make_mesh(axes=("data", "tensor"),
+                                     shape=(world // 2, 2),
+                                     device_type="cuda")
+                    shard_state_tensor_parallel(state, mesh, min_size=32)
+                else:
+                    mesh = make_mesh(device_type="cuda")
+                    if name == "fsdp_step":
+                        shard_state_fsdp(state, mesh, min_elements=64)
+                    else:
+                        replicate(state, mesh)
+                xb = shard_batch(xs, mesh)
+            step = make_train_step(model, tx)
+            state, met = step(state, xb, sigma=sigma, eps=eps)
+            params = {}
+            for k, p in state.params.items():
+                p = p.detach()
+                for d, a in enumerate(getattr(state.placement, "specs",
+                                              {}).get(k, ())):
+                    if a is not None:
+                        p = gather_batch(p.contiguous(),
+                                         state.placement.mesh, a, dim=d)
+                params[k] = p.cpu().numpy()
+            return float(met["train_loss"]), params
+
+        (l0, p0), (l1, p1) = arm(False), arm(True)
+        err = close(l1, l0, 1e-5, 0.0)
+        for k in p0:
+            err = max(err, close(p1[k], p0[k], 1e-4, 1e-6))
+        return err
+    if name == "dp_sampling":
+        mesh = make_mesh(device_type="cuda")
+        model = KarrasModel(MLPUncond(3, hidden_dims=(16,), device=dev),
+                            KarrasModelConfig.from_edm(), device=dev)
+        model.init(0)
+        single = model.sample(16, (3,), torch.Generator(dev).manual_seed(5),
+                              nsteps=8)
+        sharded = model.sample(16, (3,),
+                               torch.Generator(dev).manual_seed(5),
+                               nsteps=8, mesh=mesh)
+        return close(sharded.cpu(), single.cpu(), 1e-5, 1e-6)
+    if name == "ep_forward":
+        from diffsci_tpu_torch.models.nets import MoEDiffusionTransformer
+        from diffsci_tpu_torch.models.nets.layers import init_parameters
+        mesh = make_mesh(axes=("data", "expert"), shape=(world // 2, 2),
+                         device_type="cuda")
+        net = MoEDiffusionTransformer(nembed=16, nheads=2, nblocks=2,
+                                      patch_size=2, nchannels=1, n_experts=4,
+                                      moe_every=2, capacity_factor=0.5,
+                                      device=dev)
+        init_parameters(net, 0)
+        xm = torch.randn((8, 1, 8, 8), device=dev,
+                         generator=torch.Generator(dev).manual_seed(1))
+        tm = torch.linspace(0.1, 1.0, 8, device=dev)
+        axes = ("data", "expert")
+        with torch.no_grad():
+            ref = net(xm, tm)
+            shard_params_expert_parallel(net, mesh)
+            out = gather_batch(net(shard_batch(xm, mesh, axes),
+                                   shard_batch(tm, mesh, axes)), mesh, axes)
+        return close(out.cpu(), ref.cpu(), 2e-5, 1e-5)
+    if name == "pipeline":
+        from diffsci_tpu_torch.models.nets import DiffusionTransformer
+        from diffsci_tpu_torch.models.nets.layers import init_parameters
+        from diffsci_tpu_torch.parallel.pipeline import (
+            make_dit_pipeline, shard_stacked_params, split_dit_variables)
+        mesh = make_mesh(axes=("stage",), device_type="cuda")
+        net = DiffusionTransformer(nembed=32, nheads=2, nblocks=4,
+                                   patch_size=4, nchannels=1, device=dev)
+        init_parameters(net, 0)
+        xd = torch.randn((8, 1, 16, 16), device=dev,
+                         generator=torch.Generator(dev).manual_seed(2))
+        td = torch.linspace(0.1, 1.0, 8, device=dev)
+        forward, _ = make_dit_pipeline(net, mesh, n_micro=4)
+        tensors = dict(net.named_parameters())
+        tensors.update(net.named_buffers())
+        rest, stacked, _ = split_dit_variables(
+            {k: v.detach() for k, v in tensors.items()}, 4)
+        with torch.no_grad():
+            out = forward(rest, shard_stacked_params(stacked, mesh), xd, td)
+            ref = net(xd, td)
+        return close(out.cpu(), ref.cpu(), 2e-5, 2e-6)
+    from diffsci_tpu_torch.extra.chunk_decode import halo_shard_decode
+    mesh = make_mesh(axes=("spatial",), device_type="cuda")
+    g = torch.Generator(dev).manual_seed(4)
+    w1 = torch.randn((8, 2, 3, 3), device=dev, generator=g) * 0.3
+    w2 = torch.randn((1, 8, 3, 3), device=dev, generator=g) * 0.3
+    z = torch.randn((1, 2, 32, 16), device=dev, generator=g)
+
+    def decode(zz):
+        h = F.silu(F.conv2d(zz, w1, padding=1))
+        h = h.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        return F.conv2d(h, w2, padding=1)
+
+    with torch.no_grad():
+        out = halo_shard_decode(decode, z, mesh, "spatial", halo=2,
+                                upscale=2)
+        ids = torch.arange(-2, 34, device=dev) % 32
+        ref = decode(z.index_select(2, ids))[:, :, 4:-4]
+    return close(out.cpu(), ref.cpu(), 1e-4, 1e-5)
+
+
+def _par_rank(rank, world, port, out_dir, what):
+    """A rank of part (b): gloo over CUDA tensors on device 0. ``what``
+    is "probe" (each collective, its result written as it finishes) or a
+    list of modes to run."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    if dev.type != "cpu":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    names = PAR_PROBES if what == "probe" else what
+    path = os.path.join(out_dir, f"{what if what == 'probe' else 'modes'}"
+                                 f".{rank}.json")
+    done = {}
+    for name in names:
+        done[name] = "started"
+        with open(path, "w") as f:
+            json.dump(done, f)
+        try:
+            if what == "probe":
+                _par_probe(name, rank, world, dev)
+                done[name] = True
+            else:
+                done[name] = _par_mode(name, rank, world, dev)
+        except Exception as e:   # recorded; the parent decides
+            done[name] = f"{type(e).__name__}: {str(e)[:300]}"
+        with open(path, "w") as f:
+            json.dump(done, f)
+    dist.destroy_process_group()
+
+
+PAR_PROBES = ("all_reduce", "broadcast", "all_gather", "reduce_scatter",
+              "all_to_all_single", "batch_isend_irecv")
+
+
+def par_group(what, out_dir) -> list:
+    """Run ``_par_rank`` in PAR_WORLD spawned processes; every rank's
+    record (what it finished, and how), after the group ends or is
+    stopped at PAR_TIMEOUT."""
+    import socket
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(_par_rank, args=(PAR_WORLD, port, out_dir,
+                                              what),
+                             nprocs=PAR_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + PAR_TIMEOUT
+    try:
+        while time.monotonic() < deadline:
+            if ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+                break
+    except ProcessException as e:      # a rank died
+        log(f"[parallel world {PAR_WORLD}] a rank of the {what} group "
+            f"ended: {str(e)[:200]}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    records = []
+    for rank in range(PAR_WORLD):
+        name = f"{what if what == 'probe' else 'modes'}.{rank}.json"
+        try:
+            with open(os.path.join(out_dir, name)) as f:
+                records.append(json.load(f))
+        except (OSError, ValueError):
+            records.append({})
+    return records
+
+
+def phase_parallel_world2():
+    """Phase 37 (b): PAR_WORLD ranks on the one card over gloo."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        probes = par_group("probe", out_dir)
+        carried = {name for name in PAR_PROBES
+                   if all(r.get(name) is True for r in probes)}
+        log(f"[parallel world {PAR_WORLD}] gloo on CUDA tensors: "
+            f"{ {n: probes[0].get(n, 'not reached') for n in PAR_PROBES} }")
+        modes = [m for m, needs in PAR_MODES.items()
+                 if set(needs) <= carried]
+        skipped = {m: sorted(set(needs) - carried)
+                   for m, needs in PAR_MODES.items() if m not in modes}
+        ran = par_group(modes, out_dir) if modes else [{}] * PAR_WORLD
+    failed = {m: [r.get(m) for r in ran] for m in modes
+              if not all(isinstance(r.get(m), float) and r.get(m) <= 1.0
+                         for r in ran)}
+    log(f"[parallel world {PAR_WORLD}] modes run (max error over the "
+        f"bound, per rank): { {m: [r.get(m) for r in ran] for m in modes} }")
+    log(f"[parallel world {PAR_WORLD}] modes not run (the collectives gloo "
+        f"did not carry for CUDA tensors): {skipped}")
+    if failed or not modes:
+        raise AssertionError(f"phase 37 (b): modes failed {failed}")
+
+
+def phase_parallel(zero):
+    """Phase 37: (a) then (b)."""
+    counts = phase_parallel_world1(zero)
+    phase_parallel_world2()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -6574,6 +7116,10 @@ def main() -> int:
     counts_36 = phase_p(zero)
     elapsed("36")
 
+    # the parallel modes over torch.distributed (phase 37)
+    counts_37 = phase_parallel(zero)
+    elapsed("37")
+
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
                        "diffsci_tpu/kernels/fused_precondition.py:129"),
@@ -6610,7 +7156,7 @@ def main() -> int:
                                            *counts_30, *counts_31,
                                            *counts_32, *counts_33,
                                            *counts_34, *counts_35,
-                                           *counts_36]),
+                                           *counts_36, *counts_37]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

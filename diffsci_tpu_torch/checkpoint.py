@@ -15,6 +15,12 @@ Port of ``diffsci_tpu/checkpoint.py``. A checkpoint is a directory with
 - ``ema/<profile>/<name>`` and ``ema/num_updates``: the EMA shadows;
 - ``step``.
 
+A state that a mesh shards (``parallel``: FSDP, tensor or expert
+parallelism) is saved whole: every rank calls, the shards are
+all-gathered (``gather_state``) and rank 0 writes; restoring it into a
+placed template keeps each rank's block of every saved tensor. So a
+checkpoint reads back at any world size, one process included.
+
 Saving copies the state to pinned host memory on the caller's stream and
 waits for that copy, so the graphs that update the state in place can go
 on; only the write to disk may run on a background thread (the
@@ -38,6 +44,7 @@ import torch
 
 from diffsci_tpu_torch.models.karras.ema import (accumulate_weighted,
                                                  solve_posthoc_weights)
+from diffsci_tpu_torch.parallel.placement import block
 
 STATE_FILE = "state.pt"
 DESCRIPTION_FILE = "description.json"
@@ -46,12 +53,15 @@ INDEX_FILE = "checkpoints.json"
 
 def state_tensors(state) -> dict[str, torch.Tensor]:
     """The tensors of a train state by checkpoint name (the live tensors,
-    not copies); a dict of tensors is taken as it is."""
+    not copies: over a mesh, this rank's shards); a dict of tensors is
+    taken as it is."""
     if isinstance(state, dict):
         return dict(state)
     out = {f"params/{k}": p.detach() for k, p in state.params.items()}
     out.update({f"buffers/{k}": b for k, b in state.buffers.items()})
-    names = {id(p): k for k, p in state.params.items()}
+    stepped = state.step_params() if hasattr(state, "step_params") \
+        else state.params
+    names = {id(p): k for k, p in stepped.items()}
     for group in state.optimizer.param_groups:
         for p in group["params"]:
             for key, t in state.optimizer.state[p].items():
@@ -62,6 +72,48 @@ def state_tensors(state) -> dict[str, torch.Tensor]:
         for i, profile in enumerate(state.ema.profiles):
             out.update({f"ema/{i}/{k}": v for k, v in profile.items()})
     return out
+
+
+def _param_name(name: str) -> str | None:
+    """The parameter a checkpoint name belongs to, or None (a buffer)."""
+    parts = name.split("/")
+    if parts[0] in ("params", "optimizer", "accum"):
+        return parts[1]
+    if parts[0] == "ema":
+        return parts[2]
+    return None
+
+
+def _shards(state, tensors: dict) -> dict:
+    """Checkpoint name -> spec of each of ``tensors`` (``state``'s) that
+    is this rank's block of a whole tensor: under FSDP the blocks' moments
+    and shadows, under TP and EP the sharded parameters and theirs; {}
+    for a state that no mesh shards."""
+    placement = getattr(state, "placement", None)
+    if placement is None:
+        return {}
+    specs, local = placement.shard_specs(), state.step_params()
+    out = {}
+    for name, t in tensors.items():
+        key = _param_name(name)
+        spec = specs.get(key, ()) if key is not None else ()
+        if spec and t.ndim and t.shape == local[key].shape:
+            out[name] = spec
+    return out
+
+
+def gather_state(state) -> dict[str, torch.Tensor]:
+    """A train state's checkpoint as one dict: its tensors by checkpoint
+    name, each that a mesh shards made whole (all-gathered: every rank of
+    the mesh calls), and its counters as int64 tensors. A dict of tensors
+    is taken as it is. Saving the dict writes what saving the state
+    writes."""
+    tensors = state_tensors(state)
+    for name, spec in _shards(state, tensors).items():
+        tensors[name] = state.placement.whole(tensors[name], spec)
+    for name, value in _counters(state).items():
+        tensors[name] = torch.tensor(value, dtype=torch.int64)
+    return tensors
 
 
 def _counters(state) -> dict[str, int]:
@@ -89,12 +141,12 @@ def _set_counters(state, saved: dict) -> None:
 
 
 def snapshot(state) -> tuple[dict[str, torch.Tensor], float]:
-    """Host copies of a train state's tensors and counters: device tensors
-    into pinned buffers on the caller's stream, then one wait for those
-    copies. Returns (the dict to save, the seconds of the copy)."""
+    """Host copies of ``gather_state(state)``: device tensors into pinned
+    buffers on the caller's stream, then one wait for those copies.
+    Returns (the dict to save, the seconds of the copy)."""
     t0 = time.perf_counter()
     out, streams = {}, set()
-    for name, t in state_tensors(state).items():
+    for name, t in gather_state(state).items():
         if t.is_cuda:
             buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             buf.copy_(t, non_blocking=True)
@@ -104,8 +156,6 @@ def snapshot(state) -> tuple[dict[str, torch.Tensor], float]:
         out[name] = buf
     for stream in streams:
         stream.synchronize()
-    for name, value in _counters(state).items():
-        out[name] = torch.tensor(value, dtype=torch.int64)
     return out, time.perf_counter() - t0
 
 
@@ -140,12 +190,16 @@ def save_checkpoint(path: str | pathlib.Path, state,
     ``path``, with the description (``model.export_description()``)
     beside it. ``overwrite=True`` replaces a checkpoint at the same path.
     Returns the saved bytes and the seconds of the device-to-host copy
-    and of the disk write."""
+    and of the disk write. A state over a mesh: every rank calls, and
+    rank 0 writes."""
     path = pathlib.Path(path).absolute()
     if not overwrite and (path / STATE_FILE).exists():
         raise FileExistsError(f"a checkpoint exists at {path}")
     snap, copy_seconds = snapshot(state)
-    write_seconds = write_snapshot(path, snap, description)
+    write_seconds = 0.0
+    if getattr(state, "placement", None) is None or \
+            torch.distributed.get_rank() == 0:
+        write_seconds = write_snapshot(path, snap, description)
     return {"bytes": _nbytes(snap), "copy_seconds": copy_seconds,
             "write_seconds": write_seconds}
 
@@ -187,8 +241,10 @@ def restore_checkpoint(path: str | pathlib.Path, state_template,
     tensor is copied into the template's own (``torch._foreach_copy_``),
     so CUDA graphs captured over the template go on reading the restored
     values, and the counters are set. The names and shapes must match
-    the saved ones exactly. ``model``: the ``KarrasModel`` whose weights
-    these are, whose cast copy is then refreshed. Returns the template."""
+    the saved ones exactly. A template over a mesh takes its block of
+    each tensor that the mesh shards (every rank reads the file).
+    ``model``: the ``KarrasModel`` whose weights these are, whose cast
+    copy is then refreshed. Returns the template."""
     saved = load_state(path)
     tensors, counters = state_tensors(state_template), \
         _counters(state_template)
@@ -197,8 +253,14 @@ def restore_checkpoint(path: str | pathlib.Path, state_template,
     if missing or extra:
         raise KeyError(f"checkpoint {path} does not match the template: "
                        f"missing {missing[:5]}, unexpected {extra[:5]}")
+    placement = getattr(state_template, "placement", None)
+    for name, spec in _shards(state_template, tensors).items():
+        saved[name] = block(saved[name], spec, placement.mesh)
     _copy_into(tensors, saved, path)
     _set_counters(state_template, saved)
+    if getattr(placement, "fsdp", None) is not None:
+        # the blocks the optimizer steps, from the restored parameters
+        placement.fsdp.scatter(state_template.params, placement.mesh)
     if model is not None:
         model._masters_changed()
     return state_template

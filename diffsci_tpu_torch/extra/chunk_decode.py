@@ -14,8 +14,10 @@ resolutions. A GroupNorm that reduces over the whole tile makes the result
 depend on the tiling, in the reference and in the JAX package too; a
 decoder without such norms tiles exactly.
 
-``halo_shard_decode`` (the JAX package's decode sharded over a device
-mesh) is not ported yet: it waits for the port's parallel modes.
+``halo_shard_decode`` is the decode sharded over a mesh axis, one
+process a rank: each rank decodes its block of the latent's first
+spatial axis with halos taken from its neighbours around the ring, so
+the result is periodic along that axis, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -102,11 +104,45 @@ def tiled_decode(decode_fn: Callable, z: torch.Tensor, chunk: Sequence[int],
 
 def halo_shard_decode(decode_fn: Callable, z, mesh, axis_name: str = "spatial",
                       halo: int = 8, upscale: int = 4):
-    """The decode sharded over a device mesh with halo exchange: not
-    ported yet (it waits for the port's parallel modes)."""
-    raise NotImplementedError(
-        "halo_shard_decode (a device mesh) is not ported yet; use "
-        "tiled_decode on one card")
+    """Decode z = [B, C, H, *rest] sharded over the mesh axis
+    ``axis_name`` (every rank of it calls, with the whole z): rank i
+    takes rows [i·H/n, (i+1)·H/n) of H, receives ``halo`` rows from each
+    neighbour around the ring (``batch_isend_irecv``; the ring wraps, so
+    the boundary is periodic), decodes the padded block, crops
+    ``halo·upscale`` rows off each side, and the blocks are all-gathered
+    in rank order. Returns [B, C_out, H·upscale, *rest·upscale] on every
+    rank."""
+    import torch.distributed as dist
+
+    from diffsci_tpu_torch.parallel.mesh import axis_size, gather_batch
+    n = axis_size(mesh, axis_name)
+    H = z.shape[2]
+    if H % n:
+        raise ValueError(f"H={H} must divide the mesh axis ({n})")
+    if H // n < halo:
+        raise ValueError("shard smaller than halo")
+    i = mesh.get_local_rank(axis_name)
+    block = z[:, :, i * (H // n):(i + 1) * (H // n)].contiguous()
+    if n == 1:
+        top, bottom = block[:, :, -halo:], block[:, :, :halo]
+    else:
+        group = mesh.get_group(axis_name)
+        nxt = dist.get_global_rank(group, (i + 1) % n)
+        prv = dist.get_global_rank(group, (i - 1) % n)
+        top = torch.empty_like(block[:, :, :halo])
+        bottom = torch.empty_like(top)
+        ops = [dist.P2POp(dist.isend, block[:, :, -halo:].contiguous(), nxt,
+                          group),
+               dist.P2POp(dist.irecv, top, prv, group),
+               dist.P2POp(dist.isend, block[:, :, :halo].contiguous(), prv,
+                          group),
+               dist.P2POp(dist.irecv, bottom, nxt, group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    decoded = decode_fn(torch.cat([top, block, bottom], dim=2))
+    crop = halo * upscale
+    out = decoded[:, :, crop:decoded.shape[2] - crop]
+    return gather_batch(out, mesh, axis_name, dim=2)
 
 
 __all__ = ["decoder_halo_radius", "halo_shard_decode", "tiled_decode",

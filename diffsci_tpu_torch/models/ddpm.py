@@ -20,8 +20,7 @@ Samples are channels-last, as in the JAX package; ``noise_predictor``
 moves the channel axis at the network boundary (x, and y when it is
 spatial). With ``compute_dtype`` it casts x, t and y to it, as the JAX
 package does: bf16 rounds t (999 becomes 1000, 501 becomes 500).
-
-Not ported yet: ``sample(mesh=...)`` (with ``parallel/``).
+``sample(mesh=...)`` samples data-parallel, one process a rank.
 """
 
 from __future__ import annotations
@@ -394,7 +393,8 @@ class DDPMModel(ComputeDtypeMixin):
 
     @torch.inference_mode()
     def sample(self, nsamples: int, shape, generator=None, y=None,
-               nsteps: int | None = None, record_history: bool = False):
+               nsteps: int | None = None, record_history: bool = False,
+               mesh=None):
         """Samples from white noise drawn on the model's device with
         ``generator``, which also draws each step's noise. ``shape`` is
         channels-last without the batch dim, e.g. (32, 32, 3); ``nsteps``
@@ -407,9 +407,18 @@ class DDPMModel(ComputeDtypeMixin):
         ``compile_sampler``: before it, t is copied into the graph's input
         and the step's noise drawn into its own, one draw a step in the
         eager order, so one seed gives the eager loop's draws. On the CPU
-        the loop runs eagerly."""
+        the loop runs eagerly.
+
+        ``mesh`` (a ``DeviceMesh`` with a ``data`` axis; every rank calls):
+        data-parallel sampling, as ``KarrasModel.sample(mesh=...)``: each
+        rank draws the whole batch's x_T and step noise, runs its rows,
+        and the rows are all-gathered in rank order; ``nsamples`` must
+        divide the axis."""
         T = self.config.scheduler.T if nsteps is None else nsteps
         x_shape = (nsamples,) + tuple(shape)
+        if mesh is not None:
+            return self._sample_on_mesh(mesh, nsamples, shape, generator, y,
+                                        nsteps, T, record_history)
         if self.device.type != "cuda":
             x = _draw(torch.empty(x_shape, device=self.device), generator)
             noise_seq = None
@@ -437,6 +446,44 @@ class DDPMModel(ComputeDtypeMixin):
             if record_history:
                 history.append(x.clone())
         return torch.stack(history) if record_history else x.clone()
+
+    def _sample_on_mesh(self, mesh, nsamples, shape, generator, y, nsteps,
+                        T, record_history):
+        """``sample(mesh=...)``'s body."""
+        from diffsci_tpu_torch.parallel.mesh import (data_rows, gather_batch,
+                                                     rows_of)
+        rows = data_rows(mesh, nsamples)
+        x_shape = (nsamples,) + tuple(shape)
+        x = _draw(torch.empty(x_shape, device=self.device), generator)[rows]
+        y = rows_of(y, rows, nsamples)
+        if self.device.type != "cuda":
+            noise_seq = torch.stack([
+                _draw(torch.empty(x_shape, device=self.device),
+                      generator)[rows] for _ in range(T)])
+
+            def noise_predictor(xx, tt):
+                return self.noise_predictor(xx, tt, y)
+
+            out = self.config.integrator.propagate_backward(
+                x, noise_predictor, nsteps, record_history=record_history,
+                noise_seq=noise_seq)
+        else:
+            graph = self.compile_sampler(x.shape[0], shape, y, nsteps)
+            xs, t, noise, ys = graph.inputs
+            xs.copy_(x)
+            graphs.fill(ys, y)
+            every = torch.empty(x_shape, device=self.device)
+            ts = torch.arange(T, 0, -1, dtype=torch.float32,
+                              device=self.device)
+            history = [xs.clone()] if record_history else None
+            for i in range(T):
+                t.copy_(ts[i])
+                noise.copy_(_draw(every, generator)[rows])
+                graph.replay()
+                if record_history:
+                    history.append(xs.clone())
+            out = torch.stack(history) if record_history else xs.clone()
+        return gather_batch(out, mesh, dim=1 if record_history else 0)
 
     @torch.inference_mode()
     def compile_sampler(self, nsamples: int, shape, y=None,

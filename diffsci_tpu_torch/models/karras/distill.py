@@ -510,13 +510,33 @@ def compile_onestep(model, nsamples: int, shape, y=None):
 
 
 @torch.inference_mode()
-def sample_onestep(model, nsamples: int, shape, generator=None, y=None):
+def sample_onestep(model, nsamples: int, shape, generator=None, y=None,
+                   mesh=None):
     """1-NFE generation: ε drawn from ``generator`` (or one generator a
     row, as the service's dispatcher passes them), then
     D(σ_max·ε, σ_max): one network call and one combine (K1). On a CUDA
     device the call replays ``compile_onestep``'s graph, ε its static
     input; on the CPU it runs eagerly. Returns the samples,
-    channels-last, not decoded (as the JAX package)."""
+    channels-last, not decoded (as the JAX package). ``mesh``:
+    data-parallel, as ``KarrasModel.sample(mesh=...)``: the whole
+    batch's ε drawn on every rank, its rows denoised, the rows
+    all-gathered in rank order."""
+    if mesh is not None:
+        from diffsci_tpu_torch.parallel.mesh import (data_rows, gather_batch,
+                                                     rows_of)
+        rows = data_rows(mesh, nsamples)
+        eps = torch.zeros((nsamples,) + tuple(shape), device=model.device)
+        model._draw_inputs((eps, None, None), generator, None)
+        eps, y = eps[rows], rows_of(y, rows, nsamples)
+        graph = compile_onestep(model, eps.shape[0], shape, y)
+        if graph is None:
+            out = _onestep_body(model, eps.shape[0])(eps, y)
+        else:
+            graph.inputs[0].copy_(eps)
+            graphs.fill(graph.inputs[3], y)
+            graph.replay()
+            out = graph.outputs.clone()
+        return gather_batch(out, mesh)
     graph = compile_onestep(model, nsamples, shape, y)
     if graph is None:
         eps = torch.zeros((nsamples,) + tuple(shape), device=model.device)

@@ -657,7 +657,7 @@ class KarrasModel(ComputeDtypeMixin):
                maximum_batch_size: int | None = None, integrator=None,
                stochastic: bool = False, langevin_scale=None,
                is_latent_shape: bool = False,
-               return_in_latent_space: bool = False):
+               return_in_latent_space: bool = False, mesh=None):
         """Generate samples from white noise drawn on the model's device
         with ``generator``. ``shape`` is channels-last without the batch
         dim, e.g. (28, 28, 1). ``integrator``: None (the scheduler's, or
@@ -679,17 +679,31 @@ class KarrasModel(ComputeDtypeMixin):
         included, is the graph of ``compile_sampler``: the draws go into
         its static inputs, ``y`` and ``langevin_scale`` too, and the graph
         is replayed; the samples are a copy of its output. On the CPU the
-        loop runs eagerly on the same draws."""
+        loop runs eagerly on the same draws.
+
+        ``mesh`` (a ``DeviceMesh`` with a ``data`` axis; every rank calls):
+        data-parallel sampling. Each rank draws the whole batch's x_T and
+        noise, as one process does, runs the loop (its graph) on its rows,
+        and the rows are all-gathered in rank order, so every rank returns
+        the single-process samples; ``nsamples`` must divide the axis."""
+        if mesh is not None:
+            from diffsci_tpu_torch.parallel.mesh import data_rows
+            data_rows(mesh, nsamples)
         if maximum_batch_size is not None:
             outs = [self.sample(n, shape, generator, y, guidance, nsteps,
                                 record_history, None, integrator,
                                 stochastic, langevin_scale, is_latent_shape,
-                                return_in_latent_space)
+                                return_in_latent_space, mesh)
                     for n in get_minibatch_sizes(nsamples,
                                                  maximum_batch_size)]
             return torch.cat(outs, dim=1 if record_history else 0)
         y_loop, y_dec = self._sample_conditions(nsamples, shape, y,
                                                 is_latent_shape)
+        if mesh is not None:
+            return self._sample_on_mesh(
+                mesh, nsamples, shape, generator, y_loop, y_dec, guidance,
+                nsteps, record_history, integrator, stochastic,
+                langevin_scale, is_latent_shape, return_in_latent_space)
         if self.device.type != "cuda":
             x, noise, gate = self._draw_inputs(
                 self._sampler_inputs(
@@ -709,6 +723,47 @@ class KarrasModel(ComputeDtypeMixin):
         graphs.fill(graph.inputs[4], y_dec)
         graph.replay()
         return graph.outputs.clone()
+
+    def _sample_on_mesh(self, mesh, nsamples, shape, generator, y_loop,
+                        y_dec, guidance, nsteps, record_history, integrator,
+                        stochastic, langevin_scale, is_latent_shape,
+                        return_in_latent_space):
+        """``sample(mesh=...)``'s body: the whole batch's draws, this
+        rank's rows through the loop (its CUDA graph on the card), the
+        rows gathered."""
+        from diffsci_tpu_torch.parallel.mesh import (data_rows, gather_batch,
+                                                     rows_of)
+        rows = data_rows(mesh, nsamples)
+        k = rows.stop - rows.start
+        x, noise, gate = self._draw_inputs(
+            self._sampler_inputs(
+                nsamples, self._sample_shape(shape, is_latent_shape),
+                nsteps, integrator, stochastic, langevin_scale),
+            generator, langevin_scale)
+        x = x[rows]
+        noise = None if noise is None else noise[:, rows]
+        y_loop = rows_of(y_loop, rows, nsamples)
+        y_dec = rows_of(y_dec, rows, nsamples)
+        if self.device.type != "cuda":
+            out = self._sample_loop(
+                x, y_loop, y_dec, guidance, nsteps, record_history,
+                integrator, stochastic, gate, noise,
+                not return_in_latent_space)
+        else:
+            graph = self._compile_loop(
+                k, shape, y_loop, y_dec, guidance, nsteps, record_history,
+                integrator, stochastic, langevin_scale, is_latent_shape,
+                return_in_latent_space)
+            for static, value in zip(graph.inputs[:2], (x, noise)):
+                if static is not None:
+                    static.copy_(value)
+            if gate is not None:
+                graph.inputs[2].copy_(gate)
+            graphs.fill(graph.inputs[3], y_loop)
+            graphs.fill(graph.inputs[4], y_dec)
+            graph.replay()
+            out = graph.outputs.clone()
+        return gather_batch(out, mesh, dim=1 if record_history else 0)
 
     def _sample_shape(self, shape, is_latent_shape: bool) -> tuple:
         """The shape (no batch) that a sampler's loop runs in."""
@@ -794,9 +849,20 @@ class KarrasModel(ComputeDtypeMixin):
         None on the CPU, where nothing is captured."""
         if self.device.type != "cuda":
             return None
-        cache = self._graph_cache()
         y_loop, y_dec = self._sample_conditions(nsamples, shape, y,
                                                 is_latent_shape)
+        return self._compile_loop(
+            nsamples, shape, y_loop, y_dec, guidance, nsteps, record_history,
+            integrator, stochastic, langevin_scale, is_latent_shape,
+            return_in_latent_space)
+
+    def _compile_loop(self, nsamples, shape, y_loop, y_dec, guidance,
+                      nsteps, record_history, integrator, stochastic,
+                      langevin_scale, is_latent_shape,
+                      return_in_latent_space):
+        """``compile_sampler`` on the loop's and the decoder's conditions
+        (``_sample_conditions``)."""
+        cache = self._graph_cache()
         key = (nsamples, tuple(shape), _guidance_key(guidance), nsteps,
                record_history, graphs.condition_key(y_loop), integrator,
                stochastic, langevin_scale is not None, is_latent_shape,

@@ -41,7 +41,15 @@ moment stored in ``mu_dtype``, optax's ``adamw(mu_dtype=)``) and
 ``optax.contrib.schedule_free_adamw``), with
 ``schedule_free_eval_params``.
 
-Not ported yet: the data-parallel step over a ``mesh``. Progressive
+Over a mesh (a state that ``parallel.replicate``, ``shard_state_fsdp``,
+``shard_state_tensor_parallel`` or ``shard_state_expert_parallel`` placed:
+``state.placement``) the same step is the parallel step, one process a
+rank: x is this rank's rows, the draws are the global batch's of which
+it keeps its rows, the EDM batch norm's statistics are the global
+batch's, and the gradients are averaged over the ranks before the NaN
+guard, the clip and AdamW (``parallel/placement.py``); on the card the
+NCCL collectives are captured in the step's graph (over gloo, which
+carries CUDA tensors too, the step runs eagerly). Progressive
 distillation's step is ``models/karras/distill.py:make_distill_step``.
 """
 
@@ -78,9 +86,11 @@ class TrainState:
     """The trained parameters (the network's own tensors, by name), their
     optimizer, the EMA state (or None), the number of steps taken, the
     network's buffers by name (the JAX package's ``consts``), the
-    gradient accumulation's state (or None), and on a CUDA device the
+    gradient accumulation's state (or None), on a CUDA device the
     CUDA graphs of the steps taken on it (a ``utils.graphs.GraphCache``;
-    capture times, launches)."""
+    capture times, launches), the network the parameters belong to
+    (``module``), and its layout over a mesh (``placement``: a
+    ``parallel.placement.Placement``, or None on one process)."""
     params: dict
     optimizer: torch.optim.Optimizer
     ema: EMAState | None
@@ -89,15 +99,32 @@ class TrainState:
     accum: GradAccumulation | None = None
     graphs: graphs.GraphCache | None = dataclasses.field(
         default=None, repr=False, compare=False)
+    module: torch.nn.Module | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    placement: object = dataclasses.field(default=None, repr=False,
+                                          compare=False)
+
+    def step_params(self) -> dict:
+        """name -> the tensor the optimizer and the EMA move: the
+        parameter, or under FSDP its block."""
+        fsdp = getattr(self.placement, "fsdp", None)
+        return self.params if fsdp is None else \
+            fsdp.step_params(self.params)
 
     def ema_variables(self, tracker: EMATracker | None) -> dict:
         """The parameters with the EMA shadows of the tracker's profile
         swapped in, by name: pass as ``variables=`` to
         ``KarrasModel.loss_fn`` or ``get_denoiser``, or load into a network
-        with ``load_state_dict(..., strict=False)``."""
+        with ``load_state_dict(..., strict=False)``. Under FSDP the
+        shadows of the blocks are all-gathered whole (every rank calls)."""
         if self.ema is None or tracker is None:
             return dict(self.params)
-        return dict(tracker.get_params(self.ema))
+        shadows = dict(tracker.get_params(self.ema))
+        fsdp = getattr(self.placement, "fsdp", None)
+        if fsdp is not None:
+            for k, spec in fsdp.specs.items():
+                shadows[k] = self.placement.whole(shadows[k], spec)
+        return shadows
 
 
 def _shared_scalar(value: float, device) -> torch.Tensor:
@@ -348,7 +375,7 @@ class AdamWClip:
             torch._foreach_copy_(grads, mean)
         if self.grad_clip is not None:
             if acc is not None or self.frozen:
-                norm = global_norm(grads)
+                norm = _norm(state, params)
             c = self.grad_clip
             torch._foreach_mul_(grads, c / torch.clamp(norm, min=c))
         state.optimizer.step()
@@ -507,8 +534,21 @@ def renormalize_mp_weights(module: torch.nn.Module, eps: float = 1e-4) -> None:
 
 
 def global_norm(tensors: list) -> torch.Tensor:
-    """sqrt of the sum of squares of every entry (optax.global_norm)."""
+    """sqrt of the sum of squares of every entry (optax.global_norm) of
+    local tensors; a state over a mesh takes its norm from its placement,
+    which sums a sharded gradient's squares over its shards."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def _norm(state: TrainState, params: list) -> torch.Tensor:
+    """The global norm of the gradients of ``params`` (tensors that the
+    optimizer steps) of ``state``."""
+    grads = [p.grad for p in params]
+    if state.placement is None:
+        return global_norm(grads)
+    names = {id(p): k for k, p in state.step_params().items()}
+    return state.placement.global_norm(
+        {names[id(p)]: p.grad for p in params})
 
 
 def create_train_state(model, x_shape, seed: int | None = 0,
@@ -546,7 +586,8 @@ def _new_train_state(model, tx: AdamWClip,
     params, buffers = split_variables(model.net)
     return TrainState(params=params, optimizer=tx.init(params),
                       ema=ema.init(params) if ema is not None else None,
-                      buffers=buffers, accum=tx.init_accumulation(params))
+                      buffers=buffers, accum=tx.init_accumulation(params),
+                      module=model.net)
 
 
 def _begin_update(state: TrainState, tx: AdamWClip) -> bool:
@@ -570,14 +611,26 @@ def _end_update(state: TrainState, tx: AdamWClip, emit: bool) -> None:
     state.step += 1
 
 
-def _draw(model, x, generator, sigma, eps, keep, out, z_eps=None):
+def _draw(model, x, generator, sigma, eps, keep, out, z_eps=None,
+          rows: tuple = (1, 0)):
     """σ, then a latent model's posterior draw (when its autoencoder
     samples one), then ε, then the condition-drop mask (when the network
     drops conditions), in the eager step's order, each drawn from
     ``generator`` unless replayed (``sigma=``, ``z_eps=``, ``eps=``,
     ``keep=``), into the tensors ``out`` (σ [B], ε of the diffusion
     space's shape, the mask [B] bool or None, the posterior draw of that
-    shape or None). Returns ``out``."""
+    shape or None). ``rows`` = (n, i): x is the i-th of n equal blocks of
+    rows of a global batch; the draws (and the replayed ones) are the
+    global batch's, and ``out`` takes block i. Returns ``out``."""
+    n, i = rows
+    if n > 1:
+        every = tuple(None if t is None else t.new_empty(
+            (t.shape[0] * n,) + tuple(t.shape[1:])) for t in out)
+        _draw(model, every[0], generator, sigma, eps, keep, every, z_eps)
+        for t, g in zip(out, every):
+            if t is not None:
+                t.copy_(g[i * t.shape[0]:(i + 1) * t.shape[0]])
+        return out
     sigma_out, eps_out, keep_out = out[:3]
     z_out = out[3] if len(out) > 3 else None
     if sigma is None:
@@ -647,6 +700,19 @@ def _step_loss(model, loss_fn, remat: bool):
     return remat_loss
 
 
+def _capturable(state: TrainState) -> bool:
+    """Whether a CUDA graph can capture the state's step: no placement, or
+    one over NCCL (a step over gloo runs eagerly)."""
+    return state.placement is None or state.placement.capturable
+
+
+def _rows(state: TrainState) -> tuple:
+    """(the distinct batch shards, this rank's) of a state's step."""
+    if state.placement is None:
+        return (1, 0)
+    return state.placement.batch_shards()
+
+
 def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
                     loss_fn: Callable | None = None, remat: bool = False,
                     has_mp_weights: bool = False, _raw: bool = False):
@@ -681,6 +747,7 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         and the batch norm's statistics from fixed draws: device work
         only, which the graphed step captures. Returns the loss and the
         gradients' global norm."""
+        placed = state.placement
         for p in state.params.values():
             p.grad = None
         loss, updates = loss_of(x, sigma, y, mask, eps, keep, z_eps)
@@ -690,11 +757,23 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
             if p.grad is None:          # unused by this loss: a zero grad
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
-        nan_to_zero_grads(grads)
-        norm = global_norm(grads)
+        if placed is None:
+            nan_to_zero_grads(grads)
+            norm = global_norm(grads)
+        else:
+            # the global batch's mean gradient before the guard and clip
+            placed.sync_grads(state.params)
+            stepped = {k: p.grad for k, p in state.step_params().items()}
+            nan_to_zero_grads(list(stepped.values()))
+            norm = placed.global_norm(stepped)
+            loss = placed.mean_over_ranks(loss.detach())
         tx.update(state, norm, emit)
+        if placed is not None and placed.fsdp is not None:
+            placed.fsdp.gather(state.params, placed.mesh)
         if has_mp_weights:
             renormalize_mp_weights(model.net)
+            if placed is not None and placed.fsdp is not None:
+                placed.fsdp.scatter(state.params, placed.mesh)
         with torch.no_grad():
             for name, value in updates.items():
                 buffers[name].copy_(value)
@@ -706,12 +785,12 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
                  sigma=None, eps=None, keep=None, z_eps=None):
         sigma, eps, keep, z_eps = _draw(
             model, x, generator, sigma, eps, keep,
-            _draw_tensors(model, x, posterior), z_eps)
+            _draw_tensors(model, x, posterior), z_eps, _rows(state))
         emit = _begin_update(state, tx)
         loss, norm = update(state, x, y, mask, sigma, eps, keep, z_eps,
                             emit)
         if ema is not None and state.ema is not None:
-            ema.update(state.ema, state.params)
+            ema.update(state.ema, state.step_params())
         _end_update(state, tx, emit)
         return state, {"train_loss": loss, "grad_norm": norm}
 
@@ -720,7 +799,7 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
 
     def train_step(state: TrainState, x, y=None, mask=None, generator=None,
                    sigma=None, eps=None, keep=None, z_eps=None):
-        if x.device.type != "cuda":
+        if x.device.type != "cuda" or not _capturable(state):
             return raw_step(state, x, y, mask, generator, sigma, eps, keep,
                             z_eps)
         if state.graphs is None:
@@ -729,7 +808,7 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         emit = _begin_update(state, tx)
         key = (tuple(x.shape), x.dtype, graphs.condition_key(y),
                graphs.condition_key(mask), state.optimizer, tx, loss_fn,
-               remat, has_mp_weights, emit)
+               remat, has_mp_weights, emit, state.placement)
         graph = cache.graphs.get(key)
         if graph is None:
             inputs = (torch.empty_like(x), graphs.static_like(y, x.device),
@@ -741,7 +820,8 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         xs.copy_(x)
         graphs.fill(ys, y)
         graphs.fill(masks, mask)
-        _draw(model, x, generator, sigma, eps, keep, inputs[3:], z_eps)
+        _draw(model, x, generator, sigma, eps, keep, inputs[3:], z_eps,
+              _rows(state))
         if graph is None:
             def body():
                 return update(state, *inputs, emit=emit)
@@ -755,7 +835,7 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         # the weights is refreshed at its next use
         model._masters_changed()
         if ema is not None and state.ema is not None:
-            _ema_graph_update(ema, cache, state.ema, state.params)
+            _ema_graph_update(ema, cache, state.ema, state.step_params())
         _end_update(state, tx, emit)
         return state, {"train_loss": loss, "grad_norm": norm}
 
@@ -836,8 +916,11 @@ def make_eval_step(model, ema: EMATracker | None = None,
         variables = state.ema_variables(ema) if use_ema else \
             dict(state.params)
         with torch.no_grad():
-            return model.loss_fn(x, sigma, y, mask, train=False, eps=eps,
-                                 variables=variables, z_eps=z_eps)
+            out = model.loss_fn(x, sigma, y, mask, train=False, eps=eps,
+                                variables=variables, z_eps=z_eps)
+        if state.placement is not None:
+            out = state.placement.mean_over_ranks(out)
+        return out
 
     def draw_tensors(x):
         sigma, eps, _, z = _draw_tensors(model, x)
@@ -846,7 +929,7 @@ def make_eval_step(model, ema: EMATracker | None = None,
     def raw_step(state: TrainState, x, y=None, mask=None, generator=None,
                  sigma=None, eps=None):
         sigma, eps, _, z_eps = _draw(model, x, generator, sigma, eps, None,
-                                     draw_tensors(x))
+                                     draw_tensors(x), rows=_rows(state))
         return {"valid_loss": loss(state, x, y, mask, sigma, eps, z_eps)}
 
     if _raw:
@@ -854,7 +937,7 @@ def make_eval_step(model, ema: EMATracker | None = None,
 
     def eval_step(state: TrainState, x, y=None, mask=None, generator=None,
                   sigma=None, eps=None):
-        if x.device.type != "cuda":
+        if x.device.type != "cuda" or not _capturable(state):
             return raw_step(state, x, y, mask, generator, sigma, eps)
         if state.graphs is None:
             state.graphs = graphs.GraphCache(x.device)
@@ -862,7 +945,7 @@ def make_eval_step(model, ema: EMATracker | None = None,
         # the graph reads the tensors of one EMA profile, or the params
         profile = ema.profile_index if use_ema and ema is not None else None
         key = ("eval", tuple(x.shape), x.dtype, graphs.condition_key(y),
-               graphs.condition_key(mask), profile)
+               graphs.condition_key(mask), profile, state.placement)
         graph = cache.graphs.get(key)
         if graph is None:
             inputs = (torch.empty_like(x), graphs.static_like(y, x.device),
@@ -873,7 +956,8 @@ def make_eval_step(model, ema: EMATracker | None = None,
         xs.copy_(x)
         graphs.fill(ys, y)
         graphs.fill(masks, mask)
-        _draw(model, x, generator, sigma, eps, None, inputs[3:])
+        _draw(model, x, generator, sigma, eps, None, inputs[3:],
+              rows=_rows(state))
         if graph is None:
             def body():
                 return loss(state, xs, ys, masks, sigmas, epss, zs)

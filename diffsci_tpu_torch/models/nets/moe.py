@@ -22,6 +22,11 @@ Where JAX sows ``moe_aux_loss`` and ``moe_dropped_fraction``, each
 ``MoEFeedForward`` keeps them as the attributes ``aux_loss`` and
 ``dropped_fraction`` (0-d f32 tensors of its last call, on its device);
 ``moe_aux_loss(net)`` reads them.
+
+Under expert parallelism a module's ``routing`` (set by
+``parallel.expert_parallel.shard_params_expert_parallel``) takes the
+routing's counts over the global batch and moves the kept tokens to the
+rank of their expert and back (``Routing.dispatch``).
 """
 
 from __future__ import annotations
@@ -60,6 +65,9 @@ class MoEFeedForward(nn.Module):
         self.experts_b2 = nn.Parameter(torch.zeros(E, d))
         self.aux_loss = None
         self.dropped_fraction = None
+        # expert parallelism's routing over a mesh
+        # (``parallel.expert_parallel``), or None
+        self.routing = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Weights from normal(0, 1/fan_in) over their input axis, biases
@@ -75,32 +83,76 @@ class MoEFeedForward(nn.Module):
         return _round_up(max(int(self.capacity_factor * tokens
                                  / self.n_experts), 1), 8)
 
-    def forward(self, x):
-        B, T, d = x.shape
-        E, S = self.n_experts, B * T
-        C = self.capacity(S)
-        tokens = x.reshape(S, d)
+    def route(self, tokens):
+        """Top-1 routing of tokens [S, d]: (each token's expert, its gate,
+        its slot in its expert's queue, whether it is kept, the capacity
+        C); sets ``aux_loss`` and ``dropped_fraction``. Under expert
+        parallelism (``routing``) the tokens are this rank's of a global
+        batch: C comes from the global token count, the slots from a
+        cumulative count over the global tokens in rank order, and the
+        two statistics are the global batch's."""
+        r = self.routing or _ONE_RANK
+        E, S = self.n_experts, tokens.shape[0]
+        S_all = S * r.n_tok
+        C = self.capacity(S_all)
         gates = torch.softmax(tokens.float() @ self.router.float(), dim=-1)
         expert = torch.argmax(gates, dim=-1)                       # [S]
         gate = gates.gather(1, expert[:, None])[:, 0]
-        sel = (expert[:, None] == torch.arange(E, device=x.device)).long()
+        sel = (expert[:, None] == torch.arange(E, device=tokens.device)
+               ).long()
+        before, total = r.counts(sel.sum(0))
         # each token's place in its expert's queue, in (b, t) order
-        slot = torch.cumsum(sel, dim=0).gather(1, expert[:, None])[:, 0] - 1
+        slot = (torch.cumsum(sel, dim=0) + before).gather(
+            1, expert[:, None])[:, 0] - 1
         keep = slot < C
-        dest = torch.where(keep, expert * C + slot, E * C)
-        expert_in = x.new_zeros((E * C + 1, d)).index_copy(0, dest, tokens)
-        h = F.silu(torch.baddbmm(self.experts_b1[:, None].to(x.dtype),
-                                 expert_in[:E * C].view(E, C, d),
-                                 self.experts_w1.to(x.dtype)))
-        out = torch.baddbmm(self.experts_b2[:, None].to(x.dtype), h,
-                            self.experts_w2.to(x.dtype)).view(E * C, d)
-        y = out.index_select(0, torch.where(keep, dest, 0))
+        self.aux_loss = E * torch.sum(total.float() / S_all
+                                      * r.token_sum(gates.sum(0)) / S_all)
+        self.dropped_fraction = 1.0 - r.token_sum(keep.float().sum()) / S_all
+        return expert, gate, slot, keep, C
+
+    def experts(self, buf):
+        """Every expert's FFN on its slots: buf [E', C, d] (E' of this
+        module's experts) -> [E'·C, d]."""
+        h = F.silu(torch.baddbmm(self.experts_b1[:, None].to(buf.dtype), buf,
+                                 self.experts_w1.to(buf.dtype)))
+        return torch.baddbmm(self.experts_b2[:, None].to(buf.dtype), h,
+                             self.experts_w2.to(buf.dtype)).flatten(0, 1)
+
+    def forward(self, x):
+        B, T, d = x.shape
+        E = self.n_experts
+        tokens = x.reshape(B * T, d)
+        expert, gate, slot, keep, C = self.route(tokens)
+        if self.routing is None:
+            dest = torch.where(keep, expert * C + slot, E * C)
+            expert_in = x.new_zeros((E * C + 1, d)).index_copy(0, dest,
+                                                               tokens)
+            out = self.experts(expert_in[:E * C].view(E, C, d))
+            y = out.index_select(0, torch.where(keep, dest, 0))
+        else:
+            y = self.routing.dispatch(self, tokens, expert, slot, keep, C)
         y = torch.where(keep[:, None], y * gate.to(x.dtype)[:, None],
                         torch.zeros((), dtype=x.dtype, device=x.device))
-        frac = sel.float().mean(0)
-        self.aux_loss = E * torch.sum(frac * gates.mean(0))
-        self.dropped_fraction = 1.0 - keep.float().sum() / S
         return y.reshape(B, T, d)
+
+
+class _OneRank:
+    """The routing of a module that holds all its experts and all the
+    tokens: no exchange."""
+    n_tok = 1
+
+    @staticmethod
+    def counts(counts):
+        """(the tokens a rank before this one gave each expert, the
+        tokens every rank gave each)."""
+        return 0, counts
+
+    @staticmethod
+    def token_sum(t):
+        return t
+
+
+_ONE_RANK = _OneRank()
 
 
 class MoEDiTBlock(DiTBlock):

@@ -39,7 +39,8 @@ fixed by its nsteps, so each step's t is a constant of the graph; x_T,
 the loop's noise and y are static inputs filled before each replay, and
 the running norm's statistics are buffers it reads in place. So
 ``SamplerService`` serves an ``SIModel`` unchanged. ``inpaint`` runs
-eagerly, as in the JAX package. Not ported yet: ``sample(mesh=...)``.
+eagerly, as in the JAX package. ``sample(mesh=...)`` samples
+data-parallel, one process a rank.
 """
 
 from __future__ import annotations
@@ -566,10 +567,18 @@ class SIModel(RuntimeMixin):
         service's dispatcher passes them: row i's x_T and loop noise then
         come from the i-th alone. On a CUDA device the loop, decode
         included, is the graph of ``compile_sampler``; on the CPU it runs
-        eagerly on the same draws."""
+        eagerly on the same draws.
+
+        ``mesh`` (a ``DeviceMesh`` with a ``data`` axis; every rank calls):
+        data-parallel sampling, as ``KarrasModel.sample(mesh=...)``: each
+        rank draws the whole batch's x_T (or takes ``orig_noise``'s) and
+        loop noise, runs its rows, and the rows are all-gathered in rank
+        order; ``nsamples`` must divide the axis."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data-parallel sampling) is not ported yet")
+            return self._sample_on_mesh(
+                mesh, nsamples, shape, generator, y, guidance, nsteps,
+                is_latent_shape, integrate_on_sigma, noise_injection,
+                return_latents, orig_noise)
         if self.device.type != "cuda":
             inputs = self._draw_inputs(self._sampler_inputs(
                 nsamples, self._sample_shape(shape, is_latent_shape),
@@ -584,6 +593,35 @@ class SIModel(RuntimeMixin):
         graphs.fill(graph.inputs[2], y)
         graph.replay()
         return graph.outputs.clone()
+
+    def _sample_on_mesh(self, mesh, nsamples, shape, generator, y, guidance,
+                        nsteps, is_latent_shape, integrate_on_sigma,
+                        noise_injection, return_latents, orig_noise):
+        """``sample(mesh=...)``'s body."""
+        from diffsci_tpu_torch.parallel.mesh import (data_rows, gather_batch,
+                                                     rows_of)
+        rows = data_rows(mesh, nsamples)
+        x, noise = self._draw_inputs(self._sampler_inputs(
+            nsamples, self._sample_shape(shape, is_latent_shape), nsteps,
+            noise_injection), generator, orig_noise)
+        x = x[rows]
+        noise = None if noise is None else noise[:, rows]
+        y = rows_of(y, rows, nsamples)
+        if self.device.type != "cuda":
+            out = self._sample_loop(x, noise, y, guidance, nsteps,
+                                    integrate_on_sigma, noise_injection,
+                                    not return_latents)
+        else:
+            graph = self.compile_sampler(
+                x.shape[0], shape, y, guidance, nsteps, is_latent_shape,
+                integrate_on_sigma, noise_injection, return_latents)
+            graph.inputs[0].copy_(x)
+            if noise is not None:
+                graph.inputs[1].copy_(noise)
+            graphs.fill(graph.inputs[2], y)
+            graph.replay()
+            out = graph.outputs.clone()
+        return gather_batch(out, mesh)
 
     @torch.inference_mode()
     def compile_sampler(self, nsamples: int, shape, y=None,

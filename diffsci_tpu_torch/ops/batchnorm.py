@@ -7,13 +7,18 @@ Port of ``diffsci_tpu/ops/batchnorm.py:16-84``. Data are channels-last
 mutable collection; here ``batch_statistics`` and ``momentum_update``
 compute it and the caller writes it into the buffers (the train step does,
 after the backward pass), so a loss that runs twice (``remat``) updates
-them once.
+them once. Over a mesh (``batch_ranks`` > 1, which ``parallel.replicate``
+sets on the network of the train state it places) the batch statistics
+are summed over the ranks of the default process group.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
+
 
 
 class DimensionAgnosticBatchNorm(nn.Module):
@@ -30,6 +35,8 @@ class DimensionAgnosticBatchNorm(nn.Module):
         self.affine = affine
         self.momentum = momentum
         self.sigma = sigma
+        # the ranks whose rows make one batch (``parallel.replicate``)
+        self.batch_ranks = 1
         self.register_buffer("mean", torch.zeros(nc))
         self.register_buffer("var", torch.ones(nc))
         if affine:
@@ -46,13 +53,25 @@ class DimensionAgnosticBatchNorm(nn.Module):
     def batch_statistics(self, x):
         """Mean and population variance of ``x`` (``jnp.var``: divided by
         the count, not count - 1), over every axis but the channels (the
-        last) or over all of them, each of shape [num_channels or 1]."""
+        last) or over all of them, each of shape [num_channels or 1].
+        Over ``batch_ranks`` > 1 ranks, over every rank's rows (a rank
+        whose rows repeat another's adds a copy of its terms to both sums
+        and to the count)."""
         dims = tuple(range(x.ndim - 1)) if self.num_channels is not None \
             else tuple(range(x.ndim))
         nc = self.mean.shape[0]
-        mean = x.mean(dim=dims).reshape(-1).expand(nc)
-        var = x.var(dim=dims, unbiased=False).reshape(-1).expand(nc)
-        return mean, var
+        if self.batch_ranks == 1:
+            mean = x.mean(dim=dims)
+            var = x.var(dim=dims, unbiased=False)
+        else:
+            # x is one rank's rows, and the statistics are the global
+            # batch's (two-pass, as jnp.var)
+            from torch.distributed.nn.functional import all_reduce
+            count = self.batch_ranks * (x.numel() // math.prod(
+                x.shape[d] for d in range(x.ndim) if d not in dims))
+            mean = all_reduce(x.sum(dim=dims)) / count
+            var = all_reduce(((x - mean) ** 2).sum(dim=dims)) / count
+        return mean.reshape(-1).expand(nc), var.reshape(-1).expand(nc)
 
     def momentum_update(self, mean, var) -> dict:
         """The running statistics after one batch's ``mean`` and ``var``,

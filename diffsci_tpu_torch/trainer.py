@@ -21,6 +21,7 @@ from typing import Any, Callable, Iterable, Optional
 
 import torch
 
+from diffsci_tpu_torch.checkpoint import gather_state
 from diffsci_tpu_torch.data.loading import (ArrayDataLoader,
                                             prefetch_to_device,
                                             split_indices, tree_leaves)
@@ -68,7 +69,18 @@ class Trainer:
     package restarts its key).
 
     ``device``: where the batches go, the CUDA card unless ``"cpu"`` is
-    given. ``mesh`` (data parallelism) is not ported yet."""
+    given.
+
+    ``mesh`` (a ``DeviceMesh`` with a ``data`` axis; every rank runs the
+    same ``fit``): data parallelism over a state that
+    ``parallel.replicate`` (or a ``shard_state_*``) placed. A loader that
+    yields whole batches (``process_count`` 1) has each batch cut to this
+    rank's rows (``shard_batch``); one that yields this rank's rows
+    already (``ArrayDataLoader`` under a process group) is taken as it
+    is. Rank 0 alone writes the metric log and the checkpoints, which
+    hold whole tensors: every rank gathers the shards of an FSDP, tensor-
+    or expert-parallel state before rank 0 saves, so a checkpoint
+    restores at any world size."""
 
     def __init__(self,
                  max_epochs: int = 1,
@@ -87,8 +99,7 @@ class Trainer:
                  prefetch: int = 2,
                  val_loaders: "dict[str, Iterable] | list | None" = None,
                  device: torch.device | str | None = None):
-        if mesh is not None:
-            raise NotImplementedError("Trainer(mesh=...) is not ported yet")
+        self.mesh = mesh
         self.max_epochs = max_epochs
         self.max_steps = max_steps
         self.seed = seed
@@ -100,7 +111,7 @@ class Trainer:
         self.save_every_steps = save_every_steps
         self.save_last = save_last
         self._last_saved_step = -1
-        self.logger = MetricLogger(log_dir)
+        self.logger = MetricLogger(log_dir if self._writes else None)
         self.select_batch = select_batch or (lambda b: (b, None, None))
         self.profile_dir = profile_dir
         self.profile_steps = profile_steps
@@ -115,11 +126,21 @@ class Trainer:
         self.val_loaders = val_loaders
         self.device = device
 
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes logs and checkpoints (rank 0 of a
+        mesh, or no mesh)."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
     def _batches(self, loader, device):
         """(x, y, mask) tuples of tensors on ``device``, ``prefetch`` of
-        them copied ahead."""
-        return prefetch_to_device((self.select_batch(b) for b in loader),
-                                  self.prefetch, device)
+        them copied ahead; over a mesh, this rank's rows."""
+        batches = (self.select_batch(b) for b in loader)
+        if self.mesh is not None and getattr(loader, "process_count",
+                                             1) == 1:
+            from diffsci_tpu_torch.parallel.mesh import shard_batch
+            batches = (shard_batch(b, self.mesh) for b in batches)
+        return prefetch_to_device(batches, self.prefetch, device)
 
     def fit(self, state, step_fn, train_loader: Iterable,
             eval_fn: Optional[Callable] = None,
@@ -156,17 +177,24 @@ class Trainer:
             self.logger.log(step, {"preempted_by_signal": preempted[0]})
         if (self.checkpoint_manager is not None and self.save_last
                 and step > 0 and step != self._last_saved_step):
-            self.checkpoint_manager.save(step, state)
-            self._last_saved_step = step
+            self._save(step, state)
         if self.checkpoint_manager is not None:
-            # the writes finish before fit returns
-            self.checkpoint_manager.wait_until_finished()
+            # the writes finish before fit returns, on every rank
+            if self._writes:
+                self.checkpoint_manager.wait_until_finished()
+            if self.mesh is not None:
+                torch.distributed.barrier()
         return state
 
     def _save(self, step, state, metrics=None) -> None:
-        if self.checkpoint_manager is not None:
+        if self.checkpoint_manager is None:
+            return
+        if self.mesh is not None:
+            # every rank: the tensors the mesh shards gathered whole
+            state = gather_state(state)
+        if self._writes:
             self.checkpoint_manager.save(step, state, metrics)
-            self._last_saved_step = step
+        self._last_saved_step = step
 
     def _fit_loop(self, state, step_fn, train_loader, eval_fn, val_loader,
                   generator, step, device, preempted):
@@ -283,14 +311,17 @@ def fit_karras(model, dataset, *, batch_size=32, max_epochs=1,
     ``resume_from``: a checkpoint directory (``save_checkpoint``'s, or a
     ``CheckpointManager`` step directory); the fresh state is the restore
     template, so the optimizer and EMA must match the saved run's.
+    ``mesh`` (a ``DeviceMesh`` with a ``data`` axis; every rank calls):
+    data parallelism, as the JAX package's: the state is replicated from
+    rank 0 (``parallel.replicate``), each rank loads its rows of every
+    global batch of ``batch_size`` (the loaders' per-process shards), and
+    the step averages the gradients over the ranks.
     Returns (state, trainer)."""
     from diffsci_tpu_torch.checkpoint import restore_checkpoint
     from diffsci_tpu_torch.models.karras.train import (create_train_state,
                                                        make_eval_step,
                                                        make_train_step)
 
-    if mesh is not None:
-        raise NotImplementedError("fit_karras(mesh=...) is not ported yet")
     device = resolve_device(device)
     model.to(device)
     if x_shape is None:
@@ -300,6 +331,9 @@ def fit_karras(model, dataset, *, batch_size=32, max_epochs=1,
                                    optimizer=optimizer, ema=ema)
     if resume_from is not None:
         restore_checkpoint(resume_from, state, model)
+    if mesh is not None:
+        from diffsci_tpu_torch.parallel.mesh import replicate
+        replicate(state, mesh)
     step_fn = make_train_step(model, tx, ema=ema)
     eval_fn = val_loader = train_idx = None
     if val_fraction > 0:
@@ -310,7 +344,8 @@ def fit_karras(model, dataset, *, batch_size=32, max_epochs=1,
         eval_fn = make_eval_step(model, ema=ema)
     train_loader = ArrayDataLoader(dataset, batch_size, seed=seed,
                                    indices=train_idx)
-    trainer = Trainer(max_epochs=max_epochs, max_steps=max_steps, seed=seed,
+    trainer = Trainer(max_epochs=max_epochs, max_steps=max_steps, mesh=mesh,
+                      seed=seed,
                       log_every=log_every, log_dir=log_dir,
                       checkpoint_manager=checkpoint_manager,
                       save_every_steps=save_every_steps,

@@ -1,4 +1,4 @@
-"""Rehearse phases 31 to 36 of ``chip_smoke.py`` on the CPU, at cut widths,
+"""Rehearse phases 31 to 37 of ``chip_smoke.py`` on the CPU, at cut widths,
 before spending card time on them.
 
     python3 scripts/torch_rehearse_phases.py OUT_DIR [phase ...] [--si-steps N]
@@ -24,7 +24,10 @@ copy so that the card's paths run on the CPU:
 - Q at phase 2's cut width with the flash gate lowered to one token
   (every attention counted as K4), 16³ cubes with overlap 4, a 32²
   latent through a decoder of 8 channels; P with B's depth at 8 channels
-  in f32, 64 images a set and 20 FLD steps.
+  in f32, 64 images a set and 20 FLD steps;
+- 37 (``phase_parallel``) over gloo on the CPU: part (a)'s one rank (B
+  at batch 16, 2 timed steps, A at phase 2's cut width, H at 2 blocks of
+  32 on 32² fields), part (b)'s two spawned ranks as they are.
 
 Then runs the named phases (default: 34 to 36) and prints each one's
 seconds. The numbers mean nothing; control flow, shapes, draw
@@ -168,8 +171,22 @@ def rehearse(out: str, names, si_steps: int) -> None:
                         num_res_blocks=1)
     cs.P_N, cs.P_TEST, cs.P_FLD_ITERS = 64, 64, 20
     cs.karras = lambda cfg: d.KarrasModel(
-        d.PUNetG(cs.small_b_config(), device="cpu"),
+        d.PUNetG(cs.small_3d_config() if cfg.dimension == 3
+                 else cs.small_b_config(), device="cpu"),
         d.KarrasModelConfig.from_edm(), device="cpu")
+    cs.PAR_BACKEND, cs.PAR_B_BATCH, cs.PAR_TIMED = "gloo", 16, 2
+    cs.PAR_H_SIDE = 32
+    cs.H_WIDTHS = dict(nembed=32, nheads=2, nblocks=2, mlp_factor=4,
+                       patch_size=4, nchannels=1)
+    cs.nccl_kernels = lambda fn: []
+
+    def device_ms(fn, iters, names=None):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return 0.5 * (time.perf_counter() - t0) / iters * 1e3
+
+    cs.device_ms = device_ms
     cs.NORMS_A = 12
     cs.SI_STEPS, cs.SI_NFE, cs.SI_EM_NFE = si_steps, 2 * si_steps - 3, \
         si_steps - 1

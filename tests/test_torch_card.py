@@ -27,6 +27,7 @@ from diffsci_tpu_torch import (DDPMModel, DDPMModelConfig, EMATracker,
 from diffsci_tpu_torch.kernels import flash_attention as fa
 from diffsci_tpu_torch.kernels import fused_norm as fn
 from diffsci_tpu_torch.kernels import fused_precondition as fp
+import _torch_warmup  # noqa: F401  (CPU threads; tests/ is on the path)
 
 pytestmark = pytest.mark.cuda
 
@@ -1530,3 +1531,93 @@ def test_grid_volume_card_against_cpu(_no_tf32):
     err = float((corners["cuda"] - corners["cpu"]).abs().max())
     assert err <= 1e-3 * scale, err
     assert bool(torch.isfinite(vols["cuda"]).all())
+
+
+@pytest.fixture
+def _nccl_mesh():
+    """A one-rank NCCL process group (a free localhost port) and its
+    ``data`` mesh; the group is left as the test found it."""
+    import torch.distributed as dist
+
+    from diffsci_tpu_torch.parallel import initialize_distributed, make_mesh
+    fresh = not dist.is_initialized()
+    initialize_distributed(device_type="cuda")
+    assert dist.get_backend() == "nccl"
+    yield make_mesh(device_type="cuda")
+    if fresh:
+        dist.destroy_process_group()
+
+
+@pytest.fixture
+def _deterministic():
+    """cuDNN's deterministic algorithms, so that two captures of one step
+    pick the same ones."""
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = flag
+
+
+def test_world1_nccl_dp_step_is_the_plain_step_on_card(_no_tf32,
+                                                       _deterministic,
+                                                       _nccl_mesh):
+    """The data-parallel train step over one NCCL rank (the gradient
+    all-reduce captured in the step's graph) gives the plain graphed
+    step's numbers bit for bit, over 3 steps from copies of one state
+    and one set of draws (chip_smoke.py phase 37 (a) at a cut width; the
+    plain attention, whose backward has no split sums)."""
+    from diffsci_tpu_torch.parallel import replicate, shard_batch
+
+    cfg = dataclasses.replace(_small_3d(), attn_backend="xla")
+    x = torch.randn((4, 32, 32, 32, 1), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    runs = []
+    for placed in (False, True):
+        model = KarrasModel(PUNetG(cfg), KarrasModelConfig.from_edm())
+        tracker = EMATracker(ema_type="power", power_function_stds=[0.05])
+        state, tx = create_train_state(model, x.shape, seed=0, ema=tracker)
+        xb = x
+        if placed:
+            replicate(state, _nccl_mesh)
+            xb = shard_batch(x, _nccl_mesh)
+        step = make_train_step(model, tx, ema=tracker)
+        gen = torch.Generator("cuda").manual_seed(1)
+        metrics = [step(state, xb, generator=gen)[1] for _ in range(3)]
+        runs.append(([(float(m["train_loss"]), float(m["grad_norm"]))
+                      for m in metrics],
+                     {k: v.detach().clone() for k, v in state.params.items()},
+                     state))
+    (m0, p0, _), (m1, p1, s1) = runs
+    assert s1.graphs is not None and s1.graphs.graphs
+    assert m0 == m1
+    for name in p0:
+        assert torch.equal(p0[name], p1[name]), name
+
+
+def test_sample_on_a_one_rank_mesh_is_the_plain_sample_on_card(_nccl_mesh):
+    """``KarrasModel.sample(mesh=...)``, ``DDPMModel.sample(mesh=...)`` and
+    ``sample_onestep(mesh=...)`` over one NCCL rank: the requests without
+    a mesh, bit for bit; an indivisible batch raises on a larger mesh's
+    contract (``data_rows``)."""
+    from diffsci_tpu_torch.models.karras.distill import sample_onestep
+    from diffsci_tpu_torch.parallel.mesh import data_rows
+
+    model = KarrasModel(PUNetG(_small_3d()), KarrasModelConfig.from_edm())
+    model.init(seed=0)
+    for fn in (lambda **kw: model.sample(4, (32, 32, 32, 1),
+                                         torch.Generator("cuda")
+                                         .manual_seed(7), nsteps=4, **kw),
+               lambda **kw: sample_onestep(model, 4, (32, 32, 32, 1),
+                                           torch.Generator("cuda")
+                                           .manual_seed(7), **kw)):
+        assert torch.equal(fn(), fn(mesh=_nccl_mesh))
+    ddpm = DDPMModel(HFNetUncond(block_channels=(32, 64), channels=3,
+                                 norm_num_groups=8, attn_up_and_down=True),
+                     DDPMModelConfig.from_ddim("cosine"))
+    ddpm.init(seed=4)
+    a = ddpm.sample(2, (16, 16, 3), torch.Generator("cuda").manual_seed(3),
+                    nsteps=5)
+    b = ddpm.sample(2, (16, 16, 3), torch.Generator("cuda").manual_seed(3),
+                    nsteps=5, mesh=_nccl_mesh)
+    assert torch.equal(a, b)
+    assert data_rows(_nccl_mesh, 3) == slice(0, 3)

@@ -47,6 +47,7 @@ from diffsci_tpu_torch.kernels import fused_norm
 from diffsci_tpu_torch.models.nets import (MLPCond, calculate_receptive_field,
                                            embedders, layers)
 from diffsci_tpu_torch.ops import losses
+from tests import _torch_warmup  # noqa: F401  (MKL's first exp, CPU threads)
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "reference")
 _SMALL = dict(model_channels=8, channel_expansion=(2,),

@@ -28,6 +28,7 @@ from diffsci_tpu_torch import (DDPMModel, DDPMModelConfig, HFNetCond,
 from diffsci_tpu_torch.convert import from_jax_variables
 from diffsci_tpu_torch.models import ddpm as dd
 from diffsci_tpu_torch.models.nets import MLPCond, MLPUncond
+from tests import _torch_warmup  # noqa: F401  (MKL's first exp, CPU threads)
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "reference")
 _HF = dict(block_channels=(8, 16), channels=3, norm_num_groups=4,

@@ -29,6 +29,7 @@ from diffsci_tpu_torch.convert import from_jax_variables
 from diffsci_tpu_torch.kernels import flash_attention as fa
 from diffsci_tpu_torch.models.nets import MLPCond, MLPUncond, ddpm_unet
 from diffsci_tpu_torch.models.nets.layers import init_parameters
+from tests import _torch_warmup  # noqa: F401  (MKL's first exp, CPU threads)
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "reference")
 TOL = dict(rtol=2e-4, atol=2e-5)

@@ -26,6 +26,7 @@ from diffsci_tpu import ops as jops
 
 from diffsci_tpu_torch import ops
 from diffsci_tpu_torch.ops import schedulers as schedulers_mod
+from tests import _torch_warmup  # noqa: F401  (MKL's first exp, CPU threads)
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "reference")
 LIVE = dict(rtol=1e-5, atol=1e-5)

@@ -21,6 +21,8 @@ The JAX side's networks are initialised once per module.
 
 import os
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -403,8 +405,16 @@ def test_decoder_halo_radius_rejects_attention():
     with pytest.raises(NotImplementedError):
         extra.decoder_halo_radius(DDConfig(has_mid_attn=False,
                                            attn_resolutions=(32,)))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        extra.halo_shard_decode(lambda z: z, torch.zeros(1, 2, 8, 8), None)
+    # halo_shard_decode (ported; tests/test_torch_parallel.py holds it in
+    # gloo ranks) checks its shards before any exchange
+    line = types.SimpleNamespace(mesh_dim_names=("spatial",),
+                                 size=lambda dim: 4,
+                                 get_local_rank=lambda axis: 0)
+    with pytest.raises(ValueError, match="must divide"):
+        extra.halo_shard_decode(lambda z: z, torch.zeros(1, 2, 6, 8), line)
+    with pytest.raises(ValueError, match="smaller than halo"):
+        extra.halo_shard_decode(lambda z: z, torch.zeros(1, 2, 8, 8), line,
+                                halo=4)
 
 
 def _local_decoder(rng):

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 from diffsci_tpu.kernels import flash_attention as jfa
 
 from diffsci_tpu_torch.kernels import flash_attention as fa
+from tests import _torch_warmup  # noqa: F401  (MKL's first exp, CPU threads)
 
 KEY_TILE = 64           # K4's key tile (kMmaKeys; the wgmma kernel's too)
 LOG2E = math.log2(math.e)

@@ -9,6 +9,7 @@ import pathlib
 import re
 import subprocess
 import sys
+from tests import _torch_warmup  # noqa: F401  (MKL's first exp, CPU threads)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "diffsci_tpu_torch"

@@ -24,6 +24,7 @@ from diffsci_tpu_torch.kernels import flash_attention as fa
 from diffsci_tpu_torch.kernels import fused_norm as fn
 from diffsci_tpu_torch.kernels import fused_precondition as fp
 from diffsci_tpu_torch.models.nets import layers
+from tests import _torch_warmup  # noqa: F401  (MKL's first exp, CPU threads)
 
 
 def _nc(a):

@@ -36,6 +36,7 @@ from diffsci_tpu_torch import (EMATracker, KarrasModel, KarrasModelConfig,
                                renormalize_mp_weights)
 from diffsci_tpu_torch.convert import from_jax_variables
 from diffsci_tpu_torch.models.nets import attention, normed
+from tests import _torch_warmup  # noqa: F401  (MKL's first exp, CPU threads)
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "reference")
 _SMALL = dict(model_channels=8, channel_expansion=(2,),

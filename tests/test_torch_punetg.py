@@ -23,6 +23,7 @@ from diffsci_tpu.models import PUNetGConfig as JPUNetGConfig
 
 from diffsci_tpu_torch import PUNetG, PUNetGConfig
 from diffsci_tpu_torch.convert import from_jax_variables
+from tests import _torch_warmup  # noqa: F401  (MKL's first exp, CPU threads)
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "reference")
 

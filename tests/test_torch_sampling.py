@@ -22,6 +22,7 @@ from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
                                PUNetGConfig, SamplerService)
 from diffsci_tpu_torch import ops
 from diffsci_tpu_torch.convert import from_jax_variables
+from tests import _torch_warmup  # noqa: F401  (MKL's first exp, CPU threads)
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "reference")
 

@@ -432,8 +432,24 @@ def test_service_serves_si_model_row_by_row():
                                    atol=1e-6)
 
 
+class _DataLine:
+    """A stand-in for a ``DeviceMesh`` with a ``data`` axis of 2 ranks
+    (the divisibility check runs before any collective)."""
+    mesh_dim_names = ("data",)
+
+    def size(self, dim):
+        return 2
+
+    def get_local_rank(self, axis):
+        return 0
+
+
 def test_mesh_is_not_ported():
+    """``sample(mesh=...)`` is ported (``tests/test_torch_parallel.py``
+    holds it against the JAX package in gloo ranks); here its contract
+    that the batch divides the mesh's ``data`` axis, checked before any
+    collective."""
     model = SIModel(MLPUncond(2, device="cpu"), SIModelConfig(),
                     device="cpu")
-    with pytest.raises(NotImplementedError):
-        model.sample(2, (2,), mesh=object())
+    with pytest.raises(ValueError, match="not divisible"):
+        model.sample(3, (2,), mesh=_DataLine())

@@ -38,6 +38,7 @@ from diffsci_tpu_torch import (EMATracker, KarrasModel, KarrasModelConfig,
                                make_eval_step, make_train_step)
 from diffsci_tpu_torch import data, ops
 from diffsci_tpu_torch.convert import from_jax_variables
+from tests import _torch_warmup  # noqa: F401  (MKL's first exp, CPU threads)
 
 _SMALL = dict(model_channels=8, channel_expansion=(2,),
               number_resnet_downward_block=1, number_resnet_upward_block=1,
