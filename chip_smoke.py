@@ -34,6 +34,14 @@ Phases (any failure raises, so the exit code is non-zero):
    turn; K2 also at configuration A's serving bucket 1, beside
    ``F.group_norm`` + ``F.silu`` (two calls); K3 at A's and B's largest
    train-step norms, its device time with the inputs in L2 and out of it.
+   K2·S and K3·S (K2 and K3 split around the spatial mesh's all-reduce:
+   ``norm_silu_stats``, ``norm_silu_apply``, ``norm_silu_bwd_partials``,
+   ``norm_silu_bwd_dx``) against their plain versions at A's slabs over
+   2 ranks ([4, 32, 16, 32, 32], the bottleneck's [4, 64, 8, 16, 16]), a
+   B-width slab ([256, 64, 14, 28]), an unaligned row and base and rows
+   beyond a cluster, f32 and bf16, 'ln' and 'rms', within K2's and K3's
+   bounds; each timed at A's 32³ slab (device time, byte bound; the sums
+   beside ``torch.sum``).
 2. Card vs CPU, sampling: a small configuration-A-shaped net (3D 32³,
    flash attention over 4096 tokens) samples a few Heun steps from the
    same weights on the CPU (plain versions, eager) and on the card
@@ -339,8 +347,30 @@ Phases (any failure raises, so the exit code is non-zero):
     tensors, then every mode whose collectives gloo carries run at small
     sizes against the same rank's single-process result at the CPU
     tests' bounds; the modes run and those not run are printed.
-38. One JSON line lists every kernel with its launches over phases 5 to
-    9, 11 to 15 and 17 to 37; the card's name and power limit; then the
+38. Data-parallel serving, the dp × spatial step and the placed steps.
+    (a) One NCCL rank at full width: A's bucket-4 request through
+    ``SamplerService(mesh=)`` and over its HTTP server bit for bit the
+    service without a mesh on the same model (35 K1, 700 K2, 35 K4; the
+    request's wall beside the plain service's); F's ensemble, J's
+    distill and K's VAE steps on ``replicate``d states, and A's train
+    step on a (1, 1) data × spatial mesh (``shard_state_spatial``), each
+    bit for bit the unplaced graphed step over 3 steps (cuDNN's
+    deterministic algorithms). (b) Two spawned ranks on the one card
+    over gloo: A's mesh service in f32 (rank 0 serves, rank 1 follows)
+    against the single-process card service at batch 4 (rtol 1e-4, atol
+    1e-5: each rank runs the network at batch 2, where cuDNN may take
+    other f32 algorithms; the witness, the single-process sampler graph
+    at batch 2 on each half's x_T, shows that gap) and against the
+    witness within the CPU tests' bounds; A's full-width step on spatial =
+    2 (32³ as two 16 × 32 × 32 slabs, batch 4) in f32 against the
+    single-process step on the same weights and draws within the CPU
+    tests' bounds, and in bf16 timed (eager, beside the single-process
+    eager step), its launches a step exact (30 K2·S sums, 20 applies, 20
+    K3·S partials and dx, one K4, K5, K6) and each rank's peak memory
+    below the single-process step's; F's ensemble step at DP world 2 in
+    f32 against the single-process step within the CPU tests' bounds.
+39. One JSON line lists every kernel with its launches over phases 5 to
+    9, 11 to 15 and 17 to 38; the card's name and power limit; then the
     result line.
 
 The last line of standard output is
@@ -442,7 +472,21 @@ TRAIN = ("norm_silu", "norm_silu_bwd", "flash_attention",
          "flash_attention_dq", "flash_attention_dkv")
 # parts of the port's CUDA kernels' names, for the profile's lines
 PORT_KERNELS = ("axby_kernel", "lincomb3_kernel", "norm_silu_",
-                "flash_fwd", "flash_dq", "flash_dkv")
+                "norm_split_", "flash_fwd", "flash_dq", "flash_dkv")
+# K2·S and K3·S: the wrapper (its LAUNCHES key), its kernels' names in a
+# profile, and the Pallas kernel it replaces half of
+SPLIT_NORMS = {
+    "norm_silu_stats": ("norm_split_sums", "fused_norm.py:140"),
+    "norm_silu_apply": ("norm_split_store", "fused_norm.py:140"),
+    "norm_silu_bwd_partials": ("norm_split_sums", "fused_norm.py:191"),
+    "norm_silu_bwd_dx": ("norm_split_store", "fused_norm.py:191")}
+# their checks: A's slabs over 2 ranks (the full-width spatial step's 32³
+# and bottleneck norms), B's train-batch norm split over 2 (28 -> 14 rows
+# of 28), an unaligned row and base, and rows beyond a cluster; (shape,
+# element offset of x's base)
+SPLIT_CASES = (((4, 32, 16, 32, 32), 0), ((4, 64, 8, 16, 16), 0),
+               ((256, 64, 14, 28), 0), ((2, 3, 1001), 1),
+               ((1, 2, 300000), 0))
 # K2's and K3's kernels (one per launch shape), whose device times the
 # profile also sums
 NORM_KERNELS = {"K2": ("norm_silu_rows", "norm_silu_cluster",
@@ -841,6 +885,7 @@ def phase_kernels():
             failures.append(f"{name} {label} {dtype}")
 
     check_combines(fp, gen, record)
+    check_split_norms(fn, gen, record)
 
     # config A serves and trains at batch 4 (and serves at bucket 1);
     # config B serves at bucket 64 and trains at batch 256; A's and B's
@@ -1114,6 +1159,7 @@ def phase_kernels():
         lambda: sdpa_bwd_ms((1, 2)), reads + 2 * 2 * BH * T * d,
         8 * BH * T * T * d)
     time_flash_routes(fa, gen)
+    records.update(time_split_norms(fn, gen))
     # the records of the kernels line, and after K2's and K3's their second
     # shapes, which are logged only
     extra = {"norm_silu": [bucket1], "norm_silu_bwd": k3_records[1:]}
@@ -1131,7 +1177,8 @@ def phase_kernels():
             ms += f" (L2 warm), {rec['cold_device_ms']:.4f} ms (L2 cold)"
         lib = ("" if rec["library_ms"] is None else
                f", library {rec['library_ms']:.4f} ms"
-               + spread.format(*rec["library_range"]))
+               + (spread.format(*rec["library_range"])
+                  if "library_range" in rec else ""))
         if "floor_ms" in rec:
             lib += f", {rec['floor']} device {rec['floor_ms']:.4f} ms"
         if "group_norm_silu" in rec:
@@ -1142,6 +1189,103 @@ def phase_kernels():
         log(f"[kernels] time {name} at {rec['shape']}: {ms}, plain "
             f"{rec['plain_ms']:.4f} ms{lib}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}){sfu}")
+    return records
+
+
+def check_split_norms(fn, gen, record):
+    """K2·S (stats, apply) and K3·S (partials, dx) against their plain
+    versions on the same slabs, f32 and bf16, 'ln' and 'rms', at
+    SPLIT_CASES, within K2's and K3's bounds: the sums within 1e-4 of
+    max(1, |ref|), y as K2's (``within``), the partials and dx as K3's
+    (``within_grad``)."""
+    for shape, offset in SPLIT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind in ("ln", "rms"):
+                C, n = shape[1], int(np.prod(shape))
+                x = randn(n + offset, dtype, gen, 2.0, 0.3)[offset:] \
+                    .view(shape)
+                g = randn(shape, dtype, gen)
+                w = randn((C,), dtype, gen, 0.2, 1.0)
+                b = randn((C,), dtype, gen, 0.1)
+                _, mean, rstd = fn.norm_silu_plain(x, w, b, kind)
+                label = f"{list(shape)}{' +1' if offset else ''} {kind}"
+                err = 0.0
+                for square, center in ((False, None), (True, mean),
+                                       (True, None)):
+                    got = fn.norm_silu_stats(x, center, square)
+                    ref = fn.norm_silu_stats_plain(x, center, square)
+                    err = max(err, float(((got - ref).abs()
+                                          / ref.abs().clamp(min=1)).max()))
+                record("norm_silu_stats", f"{label} (sums / max(1, |ref|))",
+                       dtype, err, err <= 1e-4, "1e-4")
+                y = fn.norm_silu_apply(x, mean, rstd, w, b)
+                err, ok = within(y, fn.norm_silu_apply_plain(
+                    x, mean, rstd, w, b), dtype, 1e-4)
+                record("norm_silu_apply", label, dtype, err, ok,
+                       "1e-4" if dtype == torch.float32 else
+                       "2e-2+2e-2|ref|")
+                parts = fn.norm_silu_bwd_partials(g, x, mean, rstd, w, b)
+                ref = fn.norm_silu_bwd_partials_plain(g, x, mean, rstd, w, b)
+                err, ok, ratio = within_grad(parts, ref, dtype)
+                record("norm_silu_bwd_partials", f"{label} (max|Δ|/max|ref| "
+                       f"{ratio:.1e})", dtype, err, ok, GRAD_LIMIT)
+                count = n // (shape[0] * C)
+                dx = fn.norm_silu_bwd_dx(g, x, mean, rstd, w, b, *ref, count,
+                                         kind)
+                err, ok, ratio = within_grad(
+                    [dx], [fn.norm_silu_bwd_dx_plain(g, x, mean, rstd, w, b,
+                                                     *ref, count, kind)],
+                    dtype)
+                record("norm_silu_bwd_dx", f"{label} (max|Δ|/max|ref| "
+                       f"{ratio:.1e})", dtype, err, ok, GRAD_LIMIT)
+
+
+def time_split_norms(fn, gen) -> dict:
+    """K2·S and K3·S timed at A's 32³ slab over 2 ranks (bf16 'ln', x
+    [4, 32, 16, 32, 32]): each launch back to back and by device time,
+    its plain version, its byte bound (it reads x, or g and x, and writes
+    y or dx, or the [B, C] f32 sums), and for the sums the one PyTorch
+    call that computes them (``torch.sum`` to f32)."""
+    shape = (4, 32, 16, 32, 32)
+    B, C = shape[:2]
+    x, g = (randn(shape, torch.bfloat16, gen, 2.0, 0.3) for _ in range(2))
+    w = randn((C,), torch.bfloat16, gen, 0.2, 1.0)
+    b = randn((C,), torch.bfloat16, gen, 0.1)
+    _, mean, rstd = fn.norm_silu_plain(x, w, b, "ln")
+    s_gu, s_gun = fn.norm_silu_bwd_partials_plain(g, x, mean, rstd, w, b)
+    n, count = x.numel(), x.numel() // (B * C)
+    rows, stats = 4 * B * C, 2 * 4 * B * C
+    calls = {
+        "norm_silu_stats": (lambda: fn.norm_silu_stats(x),
+                            lambda: fn.norm_silu_stats_plain(x),
+                            lambda: torch.sum(x, dim=(2, 3, 4),
+                                              dtype=torch.float32),
+                            2 * n + rows, 1 * n),
+        "norm_silu_apply": (lambda: fn.norm_silu_apply(x, mean, rstd, w, b),
+                            lambda: fn.norm_silu_apply_plain(x, mean, rstd,
+                                                             w, b),
+                            None, 2 * 2 * n + stats, 8 * n),
+        "norm_silu_bwd_partials": (
+            lambda: fn.norm_silu_bwd_partials(g, x, mean, rstd, w, b),
+            lambda: fn.norm_silu_bwd_partials_plain(g, x, mean, rstd, w, b),
+            None, 2 * 2 * n + 2 * stats, 16 * n),
+        "norm_silu_bwd_dx": (
+            lambda: fn.norm_silu_bwd_dx(g, x, mean, rstd, w, b, s_gu, s_gun,
+                                        count),
+            lambda: fn.norm_silu_bwd_dx_plain(g, x, mean, rstd, w, b, s_gu,
+                                              s_gun, count),
+            None, 3 * 2 * n + 2 * stats + 2 * rows, 22 * n)}
+    records = {}
+    for name, (kernel, plain, library, nbytes, flops) in calls.items():
+        bms, bby = bound(nbytes, flops, torch.float32)
+        records[name] = dict(
+            shape=f"{'g, ' if 'bwd' in name else ''}x {list(shape)} bf16 "
+                  "'ln' (A's 32³ slab over 2 ranks)",
+            ms=cuda_ms(kernel, 50),
+            device_ms=device_ms(kernel, 50, (SPLIT_NORMS[name][0],)),
+            plain_ms=cuda_ms(plain, 50),
+            library_ms=None if library is None else cuda_ms(library, 50),
+            bound_ms=bms, bound_by=bby)
     return records
 
 
@@ -6952,6 +7096,510 @@ def phase_parallel(zero):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 38: data-parallel serving, the dp × spatial step, the placed steps
+# ---------------------------------------------------------------------------
+SP_STEPS = 3               # steps held bit for bit at one rank
+SP_TIMED = 5               # spatial steps timed in part (b)
+SP_TIMEOUT = 300           # seconds part (b)'s group may take
+SP_SHAPE = (4, 32, 32, 32, 1)   # A's train batch: 32³ over 2 slabs of 16
+# the two-rank f32 mesh service against the single-process service at
+# batch 4 (rtol, atol): a few times the gap of the batch-2 witness
+SVC_BOUNDS = (1e-4, 1e-5)
+A_WIDTH = 32               # A's model_channels
+# one A spatial step at 2 ranks: 10 GroupLN (two K2·S sums each) and 10
+# GroupRMS (one) norms; K3·S's two halves a norm; the gathered attention
+SP_PER_STEP = dict(norm_silu_stats=30, norm_silu_apply=20,
+                   norm_silu_bwd_partials=20, norm_silu_bwd_dx=20,
+                   flash_attention=1, flash_attention_dq=1,
+                   flash_attention_dkv=1)
+
+
+def cfg_a():
+    from diffsci_tpu_torch import PUNetGConfig
+    return PUNetGConfig(dimension=3, model_channels=A_WIDTH,
+                        channel_expansion=[2], num_heads=2,
+                        attn_backend="flash")
+
+
+def vae_k():
+    """K: G's autoencoder with ``NLayerDiscriminator(ndf=64, n_layers=3)``
+    and ``VAEModelConfig()``'s defaults."""
+    from diffsci_tpu_torch import (AutoencoderKL, DDConfig,
+                                   NLayerDiscriminator, VAEModel,
+                                   VAEModelConfig)
+    return VAEModel(AutoencoderKL(DDConfig(), embed_dim=4), VAEModelConfig(),
+                    discriminator=NLayerDiscriminator(ndf=64, n_layers=3))
+
+
+def karras_f32(cfg):
+    """``karras`` in f32 (no compute dtype)."""
+    from diffsci_tpu_torch import KarrasModel, KarrasModelConfig, PUNetG
+
+    return KarrasModel(PUNetG(cfg), KarrasModelConfig.from_edm())
+
+
+def pin_optimizer():
+    """The default AdamW and clip with eps 1e-4, as the CPU pins take it
+    (tests/_torch_steps.py): Adam's first step lr·g/(|g| + eps) at eps
+    1e-8 turns a rounding-level gradient into ±lr."""
+    from diffsci_tpu_torch.models.karras.train import AdamWClip
+    return AdamWClip(1e-3, 1e-4, 0.9, 0.999, 0.5, eps=1e-4)
+
+
+def step_snapshot(state) -> dict:
+    return {k: v.detach().clone() for k, v in state.params.items()}
+
+
+def placed_vs_plain(label, make, steps=SP_STEPS):
+    """``make(placed)`` -> (state, one(state) -> metrics); the placed arm
+    (a one-rank NCCL placement) and the plain arm from the same weights
+    and draws, ``steps`` graphed steps each; whether the losses and
+    parameters are bit for bit equal, with the placed arm's launches."""
+    from diffsci_tpu_torch import kernels
+
+    arms = {}
+    for placed in (False, True):
+        state, one = make(placed)
+        kernels.reset_launches()
+        losses = [float(one(state)) for _ in range(steps)]
+        torch.cuda.synchronize()
+        arms[placed] = (losses, step_snapshot(state), dict(kernels.LAUNCHES))
+        del state, one
+        torch.cuda.empty_cache()
+    (l0, p0, _), (l1, p1, c1) = arms[False], arms[True]
+    same = l0 == l1 and all(torch.equal(p0[k], p1[k]) for k in p0)
+    log(f"[spatial (a) {label}] placed on one rank against the plain step, "
+        f"{steps} graphed steps: {'bit for bit' if same else 'DIFFERENT'} "
+        f"(losses {l1} / {l0}); launches {c1}")
+    if not same:
+        raise AssertionError(f"phase 38: {label} placed differs from plain")
+    return c1
+
+
+def phase_spatial_world1(zero):
+    """Phase 38 (a): one NCCL rank at full width."""
+    import threading
+
+    import torch.distributed as dist
+
+    from diffsci_tpu_torch import (EMATracker, create_train_state,
+                                   create_vae_train_state, default_optimizer,
+                                   kernels, make_train_step,
+                                   make_vae_train_step)
+    from diffsci_tpu_torch.models.karras import distill
+    from diffsci_tpu_torch.models.karras import ensemble as ens
+    from diffsci_tpu_torch.models.karras.train import _new_train_state
+    from diffsci_tpu_torch.parallel import (initialize_distributed,
+                                            make_mesh, replicate,
+                                            shard_batch, shard_state_spatial)
+    from diffsci_tpu_torch.serving import SamplerService, build_server
+
+    initialize_distributed(device_type="cuda")
+    if dist.get_backend() != PAR_BACKEND or dist.get_world_size() != 1:
+        raise AssertionError("phase 38 (a) wants one NCCL rank")
+    mesh = make_mesh(device_type="cuda")
+    counts = []
+
+    # A's bucket-4 request through SamplerService(mesh=), HTTP too, against
+    # the service without a mesh on the same model (bit for bit)
+    model = karras(cfg_a())
+    model.init(seed=0)
+    plain = SamplerService(model, (32, 32, 32, 1), batch_buckets=(4,),
+                           nsteps=NSTEPS)
+    meshed = SamplerService(model, (32, 32, 32, 1), batch_buckets=(4,),
+                            nsteps=NSTEPS, mesh=mesh)
+    plain.warmup()
+    meshed.warmup()
+    ref = plain.sample(4, 7)
+    kernels.reset_launches()
+    out = meshed.sample(4, 7)
+    c = dict(kernels.LAUNCHES)
+    want = dict(zero, fused_axby=NFE, norm_silu=NORMS_A * NFE,
+                flash_attention=NFE)
+    server = build_server(meshed, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    reply = http_post(f"http://127.0.0.1:{server.server_address[1]}/sample",
+                      {"nsamples": 4, "seed": 7})
+    server.shutdown()
+    via_http = np.asarray(reply["samples"], np.float32)
+    walls_plain, walls_mesh = [], []
+    for _ in range(3):
+        walls_plain += walls(lambda: plain.sample(4, 7), 3)
+        walls_mesh += walls(lambda: meshed.sample(4, 7), 3)
+    meshed.close()
+    ok = np.array_equal(out, ref) and np.array_equal(via_http, ref) \
+        and c == want
+    log(f"[spatial (a) A] bucket-4 request through SamplerService(mesh=) "
+        f"{'bit for bit' if np.array_equal(out, ref) else 'DIFFERENT'}, "
+        f"over HTTP {'bit for bit' if np.array_equal(via_http, ref) else 'DIFFERENT'}; "
+        f"launches {c}; request {fmt(walls_mesh)} against {fmt(walls_plain)} "
+        f"without a mesh (median ratio "
+        f"{float(np.median(walls_mesh) / np.median(walls_plain)):.4f})")
+    if not ok:
+        raise AssertionError("phase 38: A's mesh service differs")
+    counts.append(c)
+    del model, plain, meshed
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        # F's ensemble step
+        gen = torch.Generator("cuda").manual_seed(0)
+        fx = torch.randn((8, 32, 32, 4 * F_HORIZONS), generator=gen,
+                         device="cuda")
+        fy = {"y": torch.randn((8, 8, 32, 32), generator=gen,
+                               device="cuda")}
+
+        def make_f(placed):
+            m = model_f()
+            state, tx = create_train_state(m, fx.shape, seed=0)
+            x = fx
+            if placed:
+                replicate(state, mesh)
+                x = shard_batch(fx, mesh)
+            step = ens.make_ensemble_train_step(m, tx)
+            g = torch.Generator("cuda").manual_seed(1)
+            return state, lambda s: step(s, x, fy, generator=g)[1][
+                "train_loss"]
+        counts.append(placed_vs_plain("F ensemble", make_f))
+
+        # J's distill step (B's student of a copy of itself, batch 256)
+        from diffsci_tpu_torch import PUNetGConfig
+        cfg_b = PUNetGConfig(model_channels=64, channel_expansion=[2, 4])
+        jx = torch.randn((J_BATCH, 28, 28, 1), generator=gen, device="cuda")
+
+        def make_j(placed):
+            m = karras(cfg_b)
+            m.init(seed=0)
+            teacher = distill._teacher_like(m)
+            tx = default_optimizer(J_LR)
+            state = _new_train_state(m, tx)
+            x = jx
+            if placed:
+                replicate(state, mesh)
+                x = shard_batch(jx, mesh)
+            step = distill.make_distill_step(m, tx, 17)
+            g = torch.Generator("cuda").manual_seed(2)
+            return state, lambda s: step(s, teacher, x, generator=g)[1][
+                "distill_loss"]
+        counts.append(placed_vs_plain("J distill", make_j))
+
+        # K's VAE step (G's autoencoder, the discriminator on)
+        kx = torch.randn((K_BATCH, 1, G_PIX, G_PIX), generator=gen,
+                         device="cuda")
+
+        def make_k(placed):
+            m = vae_k()
+            state, tx, dtx = create_vae_train_state(m, kx.shape, seed=0)
+            x = kx
+            if placed:
+                replicate(state, mesh)
+                x = shard_batch(kx, mesh)
+            step = make_vae_train_step(m, tx, dtx)
+            g = torch.Generator("cuda").manual_seed(3)
+            return state, lambda s: step(s, x, generator=g)[1]["train_loss"]
+        counts.append(placed_vs_plain("K VAE", make_k))
+
+        # A's train step on a (1, 1) data × spatial mesh
+        ax = torch.randn(SP_SHAPE, generator=gen, device="cuda")
+        sp_mesh = make_mesh(axes=("data", "spatial"), shape=(1, 1),
+                            device_type="cuda")
+
+        def make_a(placed):
+            m = karras(cfg_a())
+            tracker = EMATracker(ema_type="power",
+                                 power_function_stds=[0.05], update_every=4)
+            state, tx = create_train_state(m, SP_SHAPE, seed=0, ema=tracker)
+            x = ax
+            if placed:
+                shard_state_spatial(state, sp_mesh, SP_SHAPE)
+                x = shard_batch(ax, sp_mesh)
+            step = make_train_step(m, tx, ema=tracker)
+            g = torch.Generator("cuda").manual_seed(4)
+            return state, lambda s: step(s, x, generator=g)[1]["train_loss"]
+        counts.append(placed_vs_plain("A on a (1, 1) data x spatial mesh",
+                                      make_a))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    dist.destroy_process_group()
+    return counts
+
+
+@torch.inference_mode()
+def halves_at_batch(model, shape, n, seed):
+    """The samples of an n-row request from ``seed`` as two ranks of a
+    mesh service compute them, in one process: the whole request's x_T
+    drawn, each half through the sampler's graph at batch n / 2."""
+    inputs = model._sampler_inputs(n, model._sample_shape(shape, False),
+                                   NSTEPS, None, False, None)
+    x, noise, _ = model._draw_inputs(
+        inputs, torch.Generator("cuda").manual_seed(seed), None)
+    if noise is not None:
+        raise AssertionError("the witness replays a deterministic sampler")
+    graph = model.compile_sampler(n // 2, shape, nsteps=NSTEPS)
+    out = []
+    for rows in (slice(0, n // 2), slice(n // 2, n)):
+        graph.inputs[0].copy_(x[rows])
+        graph.replay()
+        out.append(graph.outputs.clone())
+    return torch.cat(out).cpu().numpy()
+
+
+def _sp_rank(rank, world, port, out_dir, names):
+    """A rank of part (b): gloo over CUDA tensors on device 0. Writes its
+    record (each arm's result, or the error that ended it) to out_dir."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from diffsci_tpu_torch import (create_train_state, kernels,
+                                   make_train_step)
+    from diffsci_tpu_torch.models.karras import ensemble as ens
+    from diffsci_tpu_torch.parallel import (make_mesh, replicate,
+                                            shard_batch, shard_state_spatial)
+    from diffsci_tpu_torch.serving import SamplerService
+
+    card = torch.cuda.is_available()    # False in a CPU rehearsal
+    if card:
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    if card:
+        kernels.load_all()
+    zero = dict.fromkeys(names, 0)
+    record = {}
+    path = os.path.join(out_dir, f"spatial.{rank}.json")
+
+    def close(a, b, rtol, atol):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.max(np.abs(a - b) / (atol + rtol * np.abs(b))))
+
+    def arm(name, fn):
+        record[name] = "started"
+        with open(path, "w") as f:
+            json.dump(record, f)
+        try:
+            record[name] = fn()
+        except Exception:     # recorded; the parent decides
+            record[name] = "ERROR " + traceback.format_exc()[-1500:]
+        with open(path, "w") as f:
+            json.dump(record, f)
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(SP_SHAPE, generator=gen, device="cuda")
+    sigma = torch.exp(torch.randn(SP_SHAPE[0], generator=gen,
+                                  device="cuda") * 1.2 - 1.2)
+    eps = torch.randn(SP_SHAPE, generator=gen, device="cuda")
+
+    def service():
+        # A in f32: rank 0 serves bucket 4, rank 1 follows; rank 0 holds
+        # the samples against the single-process card service, and against
+        # the witness: the single-process sampler graph at batch 2 on each
+        # half of the same x_T (the rows and batch each rank runs)
+        mesh = make_mesh(device_type="cpu")
+        model = karras_f32(cfg_a())
+        model.init(seed=0)
+        svc = SamplerService(model, (32, 32, 32, 1), batch_buckets=(4,),
+                             nsteps=NSTEPS, mesh=mesh)
+        if rank:
+            svc.follow()
+            return dict(ok=True)
+        svc.warmup()
+        out = svc.sample(4, 7)
+        svc.close()
+        ref = SamplerService(model, (32, 32, 32, 1), batch_buckets=(4,),
+                             nsteps=NSTEPS).sample(4, 7)
+        halves = halves_at_batch(model, (32, 32, 32, 1), 4, 7)
+        res = dict(err=float(np.max(np.abs(out - ref))),
+                   ratio=close(out, ref, *SVC_BOUNDS),
+                   cpu_bound_ratio=close(out, ref, 1e-5, 1e-6),
+                   witness_err=float(np.max(np.abs(halves - ref))),
+                   witness_cpu_bound_ratio=close(halves, ref, 1e-5, 1e-6),
+                   halves_err=float(np.max(np.abs(out - halves))),
+                   halves_ratio=close(out, halves, 1e-5, 1e-6))
+        res["ok"] = bool(np.isfinite(out).all()) and res["ratio"] <= 1.0 \
+            and res["halves_ratio"] <= 1.0
+        return res
+
+    def spatial_f32():
+        # A in f32: the spatial step against the single-process step on
+        # the same weights and replayed draws (eager, the pins' AdamW)
+        out = {}
+        for spatial in (False, True):
+            model = karras_f32(cfg_a())
+            model.init(seed=0)
+            state, tx = create_train_state(model, SP_SHAPE, seed=None,
+                                           optimizer=pin_optimizer())
+            xb = x
+            if spatial:
+                sp_mesh = make_mesh(axes=("spatial",), device_type="cpu")
+                shard_state_spatial(state, sp_mesh, SP_SHAPE)
+                xb = shard_batch(x, sp_mesh)
+            met = make_train_step(model, tx)(state, xb, sigma=sigma,
+                                             eps=eps)[1]
+            out[spatial] = (float(met["train_loss"]), step_snapshot(state))
+        err = close(out[True][0], out[False][0], 1e-5, 0.0)
+        for k, v in out[False][1].items():
+            err = max(err, close(out[True][1][k].cpu(), v.cpu(), 1e-4, 1e-6))
+        return err
+
+    def spatial_bf16():
+        # A at its bf16 compute: one step's launches, SP_TIMED timed
+        # steps, the peak memory against the single-process step's
+        res = {}
+        for spatial in (False, True):
+            if card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            model = karras(cfg_a())
+            state, tx = create_train_state(model, SP_SHAPE, seed=0)
+            xb = x
+            if spatial:
+                sp_mesh = make_mesh(axes=("spatial",), device_type="cpu")
+                shard_state_spatial(state, sp_mesh, SP_SHAPE)
+                xb = shard_batch(x, sp_mesh)
+            # eager in both arms (the spatial step over gloo is)
+            step = make_train_step(model, tx, _raw=True)
+            g = torch.Generator("cuda").manual_seed(1)
+            kernels.reset_launches()
+            loss = float(step(state, xb, generator=g)[1]["train_loss"])
+            c = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            seconds = []
+            for _ in range(SP_TIMED):     # float() of the loss syncs
+                t0 = time.perf_counter()
+                float(step(state, xb, generator=g)[1]["train_loss"])
+                seconds.append(time.perf_counter() - t0)
+            res["spatial" if spatial else "single"] = dict(
+                loss=loss, counts=c, ms=float(np.median(seconds)) * 1e3,
+                peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                          if card else float(not spatial)),
+                slab=list(xb.shape))
+            del model, state, step
+        want = {k: v for k, v in dict(zero, **SP_PER_STEP).items() if v}
+        res["counts_ok"] = res["spatial"]["counts"] == want
+        return res
+
+    def ensemble_dp():
+        # F in f32 at DP world 2 against the single-process step on the
+        # same weights and replayed draws
+        out = {}
+        fg = torch.Generator("cuda").manual_seed(5)
+        fx = torch.randn((8, 32, 32, 4 * F_HORIZONS), generator=fg,
+                         device="cuda")
+        fy = {"y": torch.randn((8, 8, 32, 32), generator=fg, device="cuda")}
+        for placed in (False, True):
+            model = model_f()
+            model.compute_dtype = None
+            state, tx = create_train_state(model, fx.shape, seed=0,
+                                           optimizer=pin_optimizer())
+            draws = model.draw_autoregressive(
+                model.draw_tensors(fx, F_MEMBERS),
+                torch.Generator("cuda").manual_seed(6))
+            xb, yb = fx, fy
+            if placed:
+                mesh = make_mesh(device_type="cpu")
+                replicate(state, mesh)
+                xb, yb = shard_batch(fx, mesh), shard_batch(fy, mesh)
+            met = ens.make_ensemble_train_step(model, tx)(
+                state, xb, yb, draws=draws)[1]
+            out[placed] = (float(met["train_loss"]), step_snapshot(state))
+        err = close(out[True][0], out[False][0], 1e-5, 0.0)
+        for k, v in out[False][1].items():
+            err = max(err, close(out[True][1][k].cpu(), v.cpu(), 1e-4, 1e-6))
+        return err
+
+    for name, fn in (("service", service), ("spatial_f32", spatial_f32),
+                     ("spatial_bf16", spatial_bf16),
+                     ("ensemble_dp", ensemble_dp)):
+        arm(name, fn)
+    dist.destroy_process_group()
+
+
+def phase_spatial_world2(zero):
+    """Phase 38 (b): two gloo ranks on the one card."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ctx = mp.start_processes(_sp_rank, args=(PAR_WORLD, port, out_dir,
+                                                 list(zero)),
+                                 nprocs=PAR_WORLD, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + SP_TIMEOUT
+        try:
+            while time.monotonic() < deadline:
+                if ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+                    break
+        except ProcessException as e:
+            log(f"[spatial (b)] a rank ended: {str(e)[:300]}")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        records = []
+        for rank in range(PAR_WORLD):
+            try:
+                with open(os.path.join(out_dir, f"spatial.{rank}.json")) as f:
+                    records.append(json.load(f))
+            except (OSError, ValueError):
+                records.append({})
+    for rank, rec in enumerate(records):
+        log(f"[spatial (b) rank {rank}] {json.dumps(rec)[:3000]}")
+    failed = []
+    for rank, rec in enumerate(records):
+        for name in ("spatial_f32", "ensemble_dp"):
+            if not (isinstance(rec.get(name), float) and rec[name] <= 1.0):
+                failed.append((rank, name, str(rec.get(name))[:300]))
+        if not (isinstance(rec.get("service"), dict)
+                and rec["service"]["ok"]):
+            failed.append((rank, "service", str(rec.get("service"))[:300]))
+        bf16 = rec.get("spatial_bf16")
+        if not (isinstance(bf16, dict) and bf16["counts_ok"]
+                and bf16["spatial"]["peak_gib"] < bf16["single"]["peak_gib"]
+                and np.isfinite(bf16["spatial"]["loss"])):
+            failed.append((rank, "spatial_bf16", str(bf16)[:300]))
+    if failed:
+        raise AssertionError(f"phase 38 (b) failed: {failed}")
+    bf16 = records[0]["spatial_bf16"]
+    log(f"[spatial (b)] A's full-width step on spatial = {PAR_WORLD} (slab "
+        f"{bf16['spatial']['slab']}), bf16, eager over gloo: "
+        f"{bf16['spatial']['ms']:.3f} ms/step against the single-process "
+        f"eager step's {bf16['single']['ms']:.3f} ms; peak memory a rank "
+        f"{bf16['spatial']['peak_gib']:.3f} GiB against "
+        f"{bf16['single']['peak_gib']:.3f} GiB; launches a step "
+        f"{bf16['spatial']['counts']}; f32 step against the single-process "
+        f"step {records[0]['spatial_f32']:.3f} of the CPU bounds; F's DP "
+        f"step {records[0]['ensemble_dp']:.3f}")
+    svc = records[0]["service"]
+    log(f"[spatial (b)] the mesh service against the single-process "
+        f"service at batch 4: max|Δ| {svc['err']:.3e}, {svc['ratio']:.3f} of "
+        f"rtol/atol {SVC_BOUNDS}, {svc['cpu_bound_ratio']:.3f} of the CPU "
+        f"bounds; the witness (the single-process graph at batch 2 on each "
+        f"half's x_T) against batch 4: max|Δ| {svc['witness_err']:.3e}, "
+        f"{svc['witness_cpu_bound_ratio']:.3f} of the CPU bounds; the mesh "
+        f"service against the witness: max|Δ| {svc['halves_err']:.3e}, "
+        f"{svc['halves_ratio']:.3f} of the CPU bounds")
+    return [dict(zero, **bf16["spatial"]["counts"])]
+
+
+def phase_spatial(zero):
+    """Phase 38: (a) then (b)."""
+    counts = phase_spatial_world1(zero)
+    return counts + phase_spatial_world2(zero)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -7119,6 +7767,10 @@ def main() -> int:
     # the parallel modes over torch.distributed (phase 37)
     counts_37 = phase_parallel(zero)
     elapsed("37")
+    # data-parallel serving, the dp × spatial step, the placed ensemble,
+    # distill and VAE steps (phase 38)
+    counts_38 = phase_spatial(zero)
+    elapsed("38")
 
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
@@ -7136,6 +7788,9 @@ def main() -> int:
             "diffsci_tpu/kernels/flash_attention.py:188"),
         "fused_lincomb3": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
                            "diffsci_tpu/kernels/fused_precondition.py:208"),
+        **{name: ("diffsci_tpu_torch/csrc/fused_norm.cu",
+                  f"diffsci_tpu/kernels/{replaces}")
+           for name, (_, replaces) in SPLIT_NORMS.items()},
     }
     line = []
     for name, (source, replaces) in sources.items():
@@ -7156,7 +7811,8 @@ def main() -> int:
                                            *counts_30, *counts_31,
                                            *counts_32, *counts_33,
                                            *counts_34, *counts_35,
-                                           *counts_36, *counts_37]),
+                                           *counts_36, *counts_37,
+                                           *counts_38]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

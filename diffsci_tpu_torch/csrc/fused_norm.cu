@@ -34,6 +34,10 @@
 // sum runs in a fixed order (no float atomics), so one input gives one
 // result.
 //
+// K2·S and K3·S (below K3) are K2 and K3 split in two halves each around
+// an all-reduce of [rows] partial sums, for rows that lie across the ranks
+// of a spatial mesh; they take the same launch rule and word paths.
+//
 // Plain C interface, built with nvcc and loaded with ctypes.
 
 #include <cuda_runtime.h>
@@ -735,6 +739,229 @@ __global__ void norm_silu_bwd_stream_kernel(const T* __restrict__ g,
   }
 }
 
+// ---- K2·S and K3·S: K2 and K3 split around an all-reduce --------------------
+//
+// Under a spatial mesh each (b, c) row lies across the ranks of the spatial
+// group, a slab of it on each. K2·S is K2 in two halves: (a)
+// norm_silu_stats takes each row's Σx over the slab, or its Σ(x − c)²
+// about a given centre c (0 for 'rms'), and the caller all-reduces the
+// [rows] partials over the ranks between the passes ('ln' runs (a) twice:
+// the mean, then the centred squares about the global mean, so every
+// rank centres on the same mean); (b) norm_silu_apply writes
+// y = SiLU((x − mean) · rstd · w + b) from the global mean and rstd. K3·S
+// is K3 in two halves: (a) norm_silu_bwd_partials takes each row's Σgu and
+// Σgu·n over the slab (the local partials of db and dw); (b)
+// norm_silu_bwd_dx writes dx from their all-reduced sums over the whole
+// row of N elements: dx = rstd·(gu·w − w·Σgu/N − n·w·Σgu·n/N) ('rms' drops
+// the Σgu term).
+//
+// Each launch reads a row once, so nothing is staged in shared memory: the
+// kernels read the 16-byte words of the row straight from device memory
+// (the words_sum / words_store / grad_sums / grad_store paths over the
+// row's word-aligned base, a word's elements outside the row masked as at
+// a segment's ends) and take K2's and K3's launch shapes (pick_shape):
+// lane groups of one warp for rows of up to kWarpRowMax, else a cluster of
+// CTAs a row whose partial sums meet in distributed shared memory in one
+// fixed order (one CTA a row for rows beyond a cluster). g must share x's
+// misalignment (the wrapper copies it to do so when it does not).
+
+// The per-row terms of a split launch.
+enum SplitOp { kSum = 0, kSquares = 1, kGrad = 2 };
+
+// This thread's sums over elements [lo, hi) of the word-aligned bases xb
+// (and gb) by the words t0, t0 + step, ...: Σx, Σ(x − c)², or (Σgu, Σgu·n)
+// with p = (mean, rstd, w, b).
+template <typename T, int kOp>
+__device__ __forceinline__ float2 split_terms(const T* xb, const T* gb,
+                                              int lo, int hi, int t0,
+                                              int step, float4 p, float c) {
+  if constexpr (kOp == kGrad) {
+    return grad_sums(xb, gb, nullptr, lo, hi, t0, step, p);
+  } else if constexpr (kOp == kSum) {
+    return make_float2(
+        words_sum(xb, lo, hi, t0, step, [](float v) { return v; }), 0.f);
+  } else {
+    return make_float2(words_sum(xb, lo, hi, t0, step,
+                                 [=](float v) {
+                                   const float d = v - c;
+                                   return d * d;
+                                 }),
+                       0.f);
+  }
+}
+
+// A row's (mean, rstd, w, b); zeros where the op reads none.
+template <typename T>
+__device__ __forceinline__ float4 row_params(const float* mean,
+                                             const float* rstd, const T* w,
+                                             const T* b, int64_t row,
+                                             int channels) {
+  if (rstd == nullptr) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const int c = (int)(row % channels);
+  return make_float4(mean ? mean[row] : 0.f, rstd[row], to_f32(w[c]),
+                     to_f32(b[c]));
+}
+
+template <typename T>
+__device__ __forceinline__ const T* word_base(const T* p) {
+  return p == nullptr ? nullptr : p - misalign(p);
+}
+
+// (a) halves, rows of up to kWarpRowMax: K2's rows layout (a lane group a
+// row, several rows a block); out0 = Σx, Σ(x − c)² or Σgu, out1 = Σgu·n.
+template <typename T, int kOp>
+__global__ void norm_split_sums_rows_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ rstd,
+    const T* __restrict__ w, const T* __restrict__ b,
+    float* __restrict__ out0, float* __restrict__ out1, int channels,
+    int64_t rows, int row_len, int rows_per_block, int lanes) {
+  const int64_t r0 = (int64_t)blockIdx.x * rows_per_block;
+  const int nrows = (int)min((int64_t)rows_per_block, rows - r0);
+  const T* xs = x + r0 * row_len;
+  const int mis = misalign(xs);
+  const T* xb = xs - mis;
+  const T* gb = g ? g + r0 * row_len - mis : nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int group = lane / lanes, sub = lane % lanes, per_warp = 32 / lanes;
+  for (int rw = warp * per_warp; rw < nrows;
+       rw += (blockDim.x / 32) * per_warp) {
+    const int r = rw + group;
+    const int lo = mis + min(r, nrows) * row_len;
+    const int hi = r < nrows ? lo + row_len : lo;
+    const int64_t row = r0 + min(r, nrows - 1);
+    const float4 p = row_params(kOp == kGrad ? mean : nullptr,
+                                kOp == kGrad ? rstd : nullptr, w, b, row,
+                                channels);
+    const float c = (kOp == kSquares && mean) ? mean[row] : 0.f;
+    float2 s = split_terms<T, kOp>(xb, gb, lo, hi, sub, lanes, p, c);
+    s.x = group_sum(s.x, lanes);
+    if (kOp == kGrad) s.y = group_sum(s.y, lanes);
+    if (r >= nrows) continue;
+    if (sub == 0) {
+      out0[r0 + r] = s.x;
+      if (kOp == kGrad) out1[r0 + r] = s.y;
+    }
+  }
+}
+
+// (a) halves, longer rows: K2's cluster layout, CTA `rank` of a row taking
+// the slice [rank * slice, (rank + 1) * slice); block sums, then the
+// cluster's partials read through distributed shared memory in one fixed
+// order (a plain launch of one CTA a row, and one CTA a row of any length
+// for rows beyond a cluster).
+template <typename T, int kOp>
+__global__ void __launch_bounds__(1024) norm_split_sums_slices_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ rstd,
+    const T* __restrict__ w, const T* __restrict__ b,
+    float* __restrict__ out0, float* __restrict__ out1, int channels,
+    int row_len, int slice) {
+  __shared__ float2 red[32];
+  __shared__ float2 part;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int64_t row = blockIdx.x / cs;
+  const int off = rank * slice;
+  const int n = max(0, min(slice, row_len - off));
+  const T* xs = x + row * row_len + off;
+  const int mis = misalign(xs);
+  const float4 p = row_params(kOp == kGrad ? mean : nullptr,
+                              kOp == kGrad ? rstd : nullptr, w, b, row,
+                              channels);
+  const float c = (kOp == kSquares && mean) ? mean[row] : 0.f;
+  float2 s = block_sum2(
+      split_terms<T, kOp>(xs - mis,
+                          g ? word_base(g + row * row_len + off) : nullptr,
+                          mis, mis + n, threadIdx.x, blockDim.x, p, c),
+      red);
+  if (cs > 1) {
+    if (threadIdx.x == 0) part = s;
+    cluster.sync();
+    const int lane = threadIdx.x % 32;
+    s = lane < cs ? *cluster.map_shared_rank(&part, lane)
+                  : make_float2(0.f, 0.f);
+    s = make_float2(warp_sum(s.x), warp_sum(s.y));
+  }
+  if (rank == 0 && threadIdx.x == 0) {
+    out0[row] = s.x;
+    if (kOp == kGrad) out1[row] = s.y;
+  }
+  if (cs > 1) cluster.sync();  // no CTA leaves while another reads its part
+}
+
+// The (b) halves' per-row store over [lo, hi) of the word-aligned bases:
+// y (kOp kSum) or dx (kGrad) from the row's global statistics (and sums).
+template <typename T, int kOp>
+__device__ __forceinline__ void split_store(T* dst, const T* xb,
+                                            const T* gb, int lo, int hi,
+                                            int t0, int step, float4 p,
+                                            float s_gu, float s_gun,
+                                            float inv_n, int subtract_mean) {
+  if constexpr (kOp == kGrad) {
+    grad_store(dst, xb, gb, nullptr, lo, hi, t0, step, p,
+               subtract_mean ? p.z * s_gu * inv_n : 0.f,
+               p.z * s_gun * inv_n);
+  } else {
+    const float scale = p.y * p.z, mu = p.x, bc = p.w;
+    words_store(dst, xb, lo, hi, t0, step,
+                [=](float v) { return silu(fmaf(v - mu, scale, bc)); });
+  }
+}
+
+// (b) halves, rows of up to kWarpRowMax, on K2's rows layout.
+template <typename T, int kOp>
+__global__ void norm_split_store_rows_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ rstd,
+    const T* __restrict__ w, const T* __restrict__ b,
+    const float* __restrict__ s_gu, const float* __restrict__ s_gun,
+    T* __restrict__ out, int channels, int64_t rows, int row_len,
+    int rows_per_block, int lanes, float inv_n, int subtract_mean) {
+  const int64_t r0 = (int64_t)blockIdx.x * rows_per_block;
+  const int nrows = (int)min((int64_t)rows_per_block, rows - r0);
+  const T* xs = x + r0 * row_len;
+  const int mis = misalign(xs);
+  const T* gb = g ? g + r0 * row_len - mis : nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int group = lane / lanes, sub = lane % lanes, per_warp = 32 / lanes;
+  for (int r = warp * per_warp + group; r < nrows;
+       r += (blockDim.x / 32) * per_warp) {
+    const int64_t row = r0 + r;
+    const int lo = mis + r * row_len;
+    split_store<T, kOp>(out + row * row_len, xs - mis, gb, lo, lo + row_len,
+                        sub, lanes,
+                        row_params(mean, rstd, w, b, row, channels),
+                        kOp == kGrad ? s_gu[row] : 0.f,
+                        kOp == kGrad ? s_gun[row] : 0.f, inv_n,
+                        subtract_mean);
+  }
+}
+
+// (b) halves, longer rows: cs blocks a row, block `rank` storing the slice
+// [rank * slice, (rank + 1) * slice) (a plain launch: nothing is summed).
+template <typename T, int kOp>
+__global__ void __launch_bounds__(1024) norm_split_store_slices_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ rstd,
+    const T* __restrict__ w, const T* __restrict__ b,
+    const float* __restrict__ s_gu, const float* __restrict__ s_gun,
+    T* __restrict__ out, int channels, int row_len, int slice, int cs,
+    float inv_n, int subtract_mean) {
+  const int64_t row = blockIdx.x / cs;
+  const int off = (int)(blockIdx.x % cs) * slice;
+  const int n = max(0, min(slice, row_len - off));
+  const T* xs = x + row * row_len + off;
+  const int mis = misalign(xs);
+  split_store<T, kOp>(out + row * row_len + off, xs - mis,
+                      g ? word_base(g + row * row_len + off) : nullptr, mis,
+                      mis + n, threadIdx.x, blockDim.x,
+                      row_params(mean, rstd, w, b, row, channels),
+                      kOp == kGrad ? s_gu[row] : 0.f,
+                      kOp == kGrad ? s_gun[row] : 0.f, inv_n, subtract_mean);
+}
+
 // ---- launch -----------------------------------------------------------------
 
 // 16-byte words that hold a segment of n elements at any misalignment:
@@ -928,6 +1155,93 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* mean,
                         s.seg_words, subtract_mean);
 }
 
+// Whether g (when given) sits at x's offset within a 16-byte word: the
+// split K3's word paths read g's words beside x's. (A host function:
+// misalign() is device code.)
+template <typename T>
+bool same_word_offset(const T* g, const T* x) {
+  return g == nullptr || ((reinterpret_cast<uintptr_t>(g) ^
+                           reinterpret_cast<uintptr_t>(x)) & 15) == 0;
+}
+
+// A split launch's shape: K2's (arrays = 1) or K3's (arrays = 2) rule; rows
+// beyond a cluster take one block a row of `threads` (a slice of the whole
+// row).
+template <typename T>
+Shape split_shape(int64_t rows, int64_t row_len, int arrays, int threads) {
+  Shape s = pick_shape<T>(rows, row_len, arrays, threads);
+  if (s.kernel == kStream) {
+    s.cs = 1;
+    s.slice = (int)row_len;
+  }
+  return s;
+}
+
+// The (a) halves: out0 (and out1) f32 [rows].
+template <typename T, int kOp>
+cudaError_t launch_split_sums(const void* x, const void* g, const void* mean,
+                              const void* rstd, const void* w, const void* b,
+                              void* out0, void* out1, int64_t rows,
+                              int channels, int64_t row_len, int threads,
+                              cudaStream_t stream) {
+  const T* x_ = static_cast<const T*>(x);
+  const T* g_ = static_cast<const T*>(g);
+  const float* mean_ = static_cast<const float*>(mean);
+  const float* rstd_ = static_cast<const float*>(rstd);
+  const T* w_ = static_cast<const T*>(w);
+  const T* b_ = static_cast<const T*>(b);
+  float* o0 = static_cast<float*>(out0);
+  float* o1 = static_cast<float*>(out1);
+  if (!same_word_offset(g_, x_)) return cudaErrorInvalidValue;
+  const Shape s = split_shape<T>(rows, row_len, kOp == kGrad ? 2 : 1,
+                                 threads);
+  if (s.kernel == kRows) {
+    norm_split_sums_rows_kernel<T, kOp>
+        <<<(unsigned)s.blocks, s.threads, 0, stream>>>(
+            x_, g_, mean_, rstd_, w_, b_, o0, o1, channels, rows,
+            (int)row_len, s.rows_per_block, s.lanes);
+    return cudaGetLastError();
+  }
+  return launch_cluster(norm_split_sums_slices_kernel<T, kOp>, s, 0, stream,
+                        x_, g_, mean_, rstd_, w_, b_, o0, o1, channels,
+                        (int)row_len, s.slice);
+}
+
+// The (b) halves: y (kSum) or dx (kGrad) into out.
+template <typename T, int kOp>
+cudaError_t launch_split_store(const void* x, const void* g,
+                               const void* mean, const void* rstd,
+                               const void* w, const void* b,
+                               const void* s_gu, const void* s_gun, void* out,
+                               int64_t rows, int channels, int64_t row_len,
+                               float inv_n, int subtract_mean, int threads,
+                               cudaStream_t stream) {
+  const T* x_ = static_cast<const T*>(x);
+  const T* g_ = static_cast<const T*>(g);
+  const float* mean_ = static_cast<const float*>(mean);
+  const float* rstd_ = static_cast<const float*>(rstd);
+  const T* w_ = static_cast<const T*>(w);
+  const T* b_ = static_cast<const T*>(b);
+  const float* sg = static_cast<const float*>(s_gu);
+  const float* sgn = static_cast<const float*>(s_gun);
+  T* out_ = static_cast<T*>(out);
+  if (!same_word_offset(g_, x_)) return cudaErrorInvalidValue;
+  const Shape s = split_shape<T>(rows, row_len, kOp == kGrad ? 2 : 1,
+                                 threads);
+  if (s.kernel == kRows) {
+    norm_split_store_rows_kernel<T, kOp>
+        <<<(unsigned)s.blocks, s.threads, 0, stream>>>(
+            x_, g_, mean_, rstd_, w_, b_, sg, sgn, out_, channels, rows,
+            (int)row_len, s.rows_per_block, s.lanes, inv_n, subtract_mean);
+    return cudaGetLastError();
+  }
+  norm_split_store_slices_kernel<T, kOp>
+      <<<(unsigned)s.blocks, s.threads, 0, stream>>>(
+          x_, g_, mean_, rstd_, w_, b_, sg, sgn, out_, channels,
+          (int)row_len, s.slice, s.cs, inv_n, subtract_mean);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (x, w, b and y share it).
@@ -971,6 +1285,100 @@ extern "C" int norm_silu_bwd_launch(const void* g, const void* x,
     return launch_bwd<__nv_bfloat16>(g, x, mean, rstd, w, b, dx, dw_part,
                                      db_part, rows, channels, row_len,
                                      subtract_mean, threads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split launches' common checks: a block size for rows beyond a
+// cluster (a multiple of 32 in [32, 1024]) and rows an int indexes.
+static bool split_args_ok(int threads, long long row_len) {
+  return threads >= 32 && threads <= 1024 && threads % 32 == 0 &&
+         row_len > 0 && row_len < (1LL << 31);
+}
+
+// K2·S (a): out[r] = Σ x over row r ('square' 0), or Σ (x − center[r])²
+// ('square' 1; center f32 [rows] or null for 0). Returns a cudaError_t.
+extern "C" int norm_silu_stats_launch(const void* x, const void* center,
+                                      void* out, long long rows,
+                                      long long row_len, int square,
+                                      int dtype, int threads, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!split_args_ok(threads, row_len)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return square ? launch_split_sums<float, kSquares>(
+                        x, nullptr, center, nullptr, nullptr, nullptr, out,
+                        nullptr, rows, 1, row_len, threads, s)
+                  : launch_split_sums<float, kSum>(
+                        x, nullptr, nullptr, nullptr, nullptr, nullptr, out,
+                        nullptr, rows, 1, row_len, threads, s);
+  if (dtype == 1)
+    return square ? launch_split_sums<__nv_bfloat16, kSquares>(
+                        x, nullptr, center, nullptr, nullptr, nullptr, out,
+                        nullptr, rows, 1, row_len, threads, s)
+                  : launch_split_sums<__nv_bfloat16, kSum>(
+                        x, nullptr, nullptr, nullptr, nullptr, nullptr, out,
+                        nullptr, rows, 1, row_len, threads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2·S (b): y = SiLU((x − mean[r]) · rstd[r] · w[c] + b[c]); mean and rstd
+// f32 [rows]. Returns a cudaError_t.
+extern "C" int norm_silu_apply_launch(const void* x, const void* mean,
+                                      const void* rstd, const void* w,
+                                      const void* b, void* y, long long rows,
+                                      int channels, long long row_len,
+                                      int dtype, int threads, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!split_args_ok(threads, row_len)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_split_store<float, kSum>(x, nullptr, mean, rstd, w, b,
+                                           nullptr, nullptr, y, rows,
+                                           channels, row_len, 0.f, 0,
+                                           threads, s);
+  if (dtype == 1)
+    return launch_split_store<__nv_bfloat16, kSum>(
+        x, nullptr, mean, rstd, w, b, nullptr, nullptr, y, rows, channels,
+        row_len, 0.f, 0, threads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3·S (a): s_gu[r] = Σ gu and s_gun[r] = Σ gu·n over row r (f32 [rows]);
+// g shares x's misalignment. Returns a cudaError_t.
+extern "C" int norm_silu_bwd_partials_launch(
+    const void* g, const void* x, const void* mean, const void* rstd,
+    const void* w, const void* b, void* s_gu, void* s_gun, long long rows,
+    int channels, long long row_len, int dtype, int threads, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!split_args_ok(threads, row_len)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_split_sums<float, kGrad>(x, g, mean, rstd, w, b, s_gu,
+                                           s_gun, rows, channels, row_len,
+                                           threads, s);
+  if (dtype == 1)
+    return launch_split_sums<__nv_bfloat16, kGrad>(
+        x, g, mean, rstd, w, b, s_gu, s_gun, rows, channels, row_len,
+        threads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3·S (b): dx from the sums of gu and gu·n over the whole row (f32
+// [rows], all-reduced), inv_n = 1 / the whole row's length; g shares x's
+// misalignment. Returns a cudaError_t.
+extern "C" int norm_silu_bwd_dx_launch(
+    const void* g, const void* x, const void* mean, const void* rstd,
+    const void* w, const void* b, const void* s_gu, const void* s_gun,
+    void* dx, long long rows, int channels, long long row_len, float inv_n,
+    int subtract_mean, int dtype, int threads, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!split_args_ok(threads, row_len)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_split_store<float, kGrad>(x, g, mean, rstd, w, b, s_gu,
+                                            s_gun, dx, rows, channels,
+                                            row_len, inv_n, subtract_mean,
+                                            threads, s);
+  if (dtype == 1)
+    return launch_split_store<__nv_bfloat16, kGrad>(
+        x, g, mean, rstd, w, b, s_gu, s_gun, dx, rows, channels, row_len,
+        inv_n, subtract_mean, threads, s);
   return (int)cudaErrorInvalidValue;
 }
 

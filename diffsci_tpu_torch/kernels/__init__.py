@@ -20,7 +20,9 @@ from diffsci_tpu_torch.kernels._build import SOURCES, build
 
 LAUNCHES = {"fused_axby": 0, "norm_silu": 0, "norm_silu_bwd": 0,
             "flash_attention": 0, "flash_attention_dq": 0,
-            "flash_attention_dkv": 0, "fused_lincomb3": 0}
+            "flash_attention_dkv": 0, "fused_lincomb3": 0,
+            "norm_silu_stats": 0, "norm_silu_apply": 0,
+            "norm_silu_bwd_partials": 0, "norm_silu_bwd_dx": 0}
 
 
 def reset_launches() -> None:

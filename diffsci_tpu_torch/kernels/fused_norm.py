@@ -69,7 +69,20 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_void_p]),
     "norm_silu_bwd_launch": (ctypes.c_int, [ctypes.c_void_p] * 9 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    # K2·S and K3·S
+    "norm_silu_stats_launch": (ctypes.c_int, [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]),
+    "norm_silu_apply_launch": (ctypes.c_int, [ctypes.c_void_p] * 6 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]),
+    "norm_silu_bwd_partials_launch": (ctypes.c_int, [ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]),
+    "norm_silu_bwd_dx_launch": (ctypes.c_int, [ctypes.c_void_p] * 9 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
 _KINDS = ("ln", "rms")
 
 
@@ -239,3 +252,272 @@ def norm_silu(x, w, b, kind: str = "ln", eps: float = 1e-5):
     if not torch.is_grad_enabled():
         return norm_silu_fwd(x, w, b, kind, eps)[0]
     return NormSiLU.apply(x, w, b, kind, eps)
+
+
+# ---------------------------------------------------------------------------
+# K2·S and K3·S: K2 and K3 split around an all-reduce (the spatial mesh)
+# ---------------------------------------------------------------------------
+# Under a spatial mesh (``parallel/spatial.py``) each (b, c) row lies
+# across the ranks of the spatial group, a slab on each, and its statistics
+# are the whole row's. K2 and K3 each become two launches with an
+# all-reduce of [B, C] f32 partials between them (``NormSiLUSplit``):
+# - K2·S: (a) ``norm_silu_stats``: the slab's Σx, all-reduced to the mean,
+#   then the slab's Σ(x − mean)², all-reduced to rstd ('ln': two passes,
+#   so every rank centres on the same mean and the statistics do not
+#   depend on the split beyond rounding; 'rms': Σx² once); (b)
+#   ``norm_silu_apply``: y = SiLU((x − mean)·rstd·w + b).
+# - K3·S: (a) ``norm_silu_bwd_partials``: the slab's Σgu and Σgu·n, the
+#   local partials of db and dw; (b) ``norm_silu_bwd_dx``: dx from their
+#   sums over the ranks, dx = rstd·(gu·w − w·Σgu/N − n·w·Σgu·n/N) ('rms'
+#   drops the Σgu term), N the whole row's length. dw and db come from the
+#   local partials: the train step sums every gradient over the ranks
+#   afterwards, so the all-reduced sums would count each S times.
+# Source: ``csrc/fused_norm.cu`` beside K2 and K3, whose launch rule and
+# 16-byte word paths they take; each row is read once a launch, straight
+# from device memory. Bound by bytes: (a) reads x (g and x), (b) reads x
+# (g and x) and writes y (dx). On CPU tensors each wrapper is its plain
+# version.
+
+
+def _row_len(x) -> int:
+    return x.numel() // max(x.shape[0] * x.shape[1], 1)
+
+
+def _stats_shape(x) -> tuple:
+    return tuple(x.shape[:2]) + (1,) * (x.ndim - 2)
+
+
+def norm_silu_stats_plain(x, center=None, square: bool = False):
+    """K2·S (a)'s plain version: per (b, c), f32 [B, C], Σx over the slab
+    (``square`` False), or Σ(x − center)² (``center`` [B, C] f32, or 0
+    when None)."""
+    dims = tuple(range(2, x.ndim))
+    xf = x.float()
+    if not square:
+        return xf.sum(dim=dims)
+    if center is not None:
+        xf = xf - center.view(_stats_shape(x))
+    return (xf * xf).sum(dim=dims)
+
+
+def _check_split(what, x, *stats, g=None):
+    if x.device.type != "cuda" or x.ndim < 3:
+        raise ValueError(f"{what}: x must be a CUDA [B, C, *spatial] tensor")
+    if x.dtype not in _DTYPES or (g is not None and (
+            g.dtype != x.dtype or g.shape != x.shape)):
+        raise TypeError(f"{what}: x (and g) float32 or bfloat16, one shape")
+    rows = x.shape[0] * x.shape[1]
+    if any(t is not None and (t.dtype != torch.float32 or t.numel() != rows
+                              or not t.is_contiguous()
+                              or t.device != x.device) for t in stats):
+        raise ValueError(f"{what}: statistics must be contiguous float32 "
+                         f"[{x.shape[0]}, {x.shape[1]}] on {x.device}")
+    if not x.is_contiguous() or (g is not None and not g.is_contiguous()):
+        raise ValueError(f"{what}: x (and g) must be contiguous")
+
+
+def _like_x(g, x):
+    """g, or a copy of it at x's offset within a 16-byte word (the split
+    K3's word paths read g's words beside x's)."""
+    size = x.element_size()
+    mis = x.data_ptr() % 16 // size
+    if g.data_ptr() % 16 // size == mis:
+        return g
+    buf = torch.empty(g.numel() + 16 // size, dtype=g.dtype, device=g.device)
+    k = (mis - buf.data_ptr() % 16 // size) % (16 // size)
+    return buf[k:k + g.numel()].view_as(g).copy_(g)
+
+
+def norm_silu_stats(x, center=None, square: bool = False):
+    """K2·S (a): ``norm_silu_stats_plain`` on CPU tensors; on CUDA tensors
+    one launch of the kernel."""
+    if x.device.type == "cpu":
+        return norm_silu_stats_plain(x, center, square)
+    _check_split("norm_silu_stats", x, center)
+    out = torch.empty(x.shape[:2], dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return out.zero_()
+    row_len = _row_len(x)
+    lib = _build.load("fused_norm", _SIGNATURES)
+    err = lib.norm_silu_stats_launch(
+        x.data_ptr(), None if center is None else center.data_ptr(),
+        out.data_ptr(), out.numel(), row_len, int(square), _DTYPES[x.dtype],
+        _threads(row_len), torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.LAUNCHES["norm_silu_stats"] += 1
+    _build.check(lib, err, "norm_silu_stats")
+    return out
+
+
+def norm_silu_apply_plain(x, mean, rstd, w, b):
+    """K2·S (b)'s plain version: SiLU((x − mean)·rstd·w + b) from the
+    [B, C] f32 statistics, in x.dtype (``norm_silu_plain``'s
+    arithmetic)."""
+    stat = _stats_shape(x)
+    shape = (1, x.shape[1]) + (1,) * (x.ndim - 2)
+    xc = x.float() - mean.view(stat)
+    u = xc * rstd.view(stat) * w.float().view(shape) + b.float().view(shape)
+    return F.silu(u).to(x.dtype)
+
+
+def norm_silu_apply(x, mean, rstd, w, b):
+    """K2·S (b): ``norm_silu_apply_plain`` on CPU tensors; on CUDA tensors
+    one launch of the kernel."""
+    if x.device.type == "cpu":
+        return norm_silu_apply_plain(x, mean, rstd, w, b)
+    _check_split("norm_silu_apply", x, mean, rstd)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    row_len = _row_len(x)
+    lib = _build.load("fused_norm", _SIGNATURES)
+    err = lib.norm_silu_apply_launch(
+        x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), w.data_ptr(),
+        b.data_ptr(), y.data_ptr(), mean.numel(), x.shape[1], row_len,
+        _DTYPES[x.dtype], _threads(row_len),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.LAUNCHES["norm_silu_apply"] += 1
+    _build.check(lib, err, "norm_silu_apply")
+    return y
+
+
+def _grad_terms(g, x, mean, rstd, w, b):
+    """n, gu = g·SiLU'(n·w + b), f32, as ``norm_silu_bwd_plain``."""
+    stat = _stats_shape(x)
+    shape = (1, x.shape[1]) + (1,) * (x.ndim - 2)
+    n = (x.float() - mean.view(stat)) * rstd.view(stat)
+    u = n * w.float().view(shape) + b.float().view(shape)
+    s = torch.sigmoid(u)
+    return n, g.float() * (s * (1.0 + u * (1.0 - s)))
+
+
+def norm_silu_bwd_partials_plain(g, x, mean, rstd, w, b):
+    """K3·S (a)'s plain version: per (b, c), f32 [B, C], (Σgu, Σgu·n) over
+    the slab."""
+    n, gu = _grad_terms(g, x, mean, rstd, w, b)
+    dims = tuple(range(2, x.ndim))
+    return gu.sum(dim=dims), (gu * n).sum(dim=dims)
+
+
+def norm_silu_bwd_partials(g, x, mean, rstd, w, b):
+    """K3·S (a): ``norm_silu_bwd_partials_plain`` on CPU tensors; on CUDA
+    tensors one launch of the kernel."""
+    if x.device.type == "cpu":
+        return norm_silu_bwd_partials_plain(g, x, mean, rstd, w, b)
+    _check_split("norm_silu_bwd_partials", x, mean, rstd, g=g)
+    s_gu, s_gun = (torch.empty(x.shape[:2], dtype=torch.float32,
+                               device=x.device) for _ in range(2))
+    if x.numel() == 0:
+        return s_gu.zero_(), s_gun.zero_()
+    g = _like_x(g, x)
+    row_len = _row_len(x)
+    lib = _build.load("fused_norm", _SIGNATURES)
+    err = lib.norm_silu_bwd_partials_launch(
+        g.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        w.data_ptr(), b.data_ptr(), s_gu.data_ptr(), s_gun.data_ptr(),
+        s_gu.numel(), x.shape[1], row_len, _DTYPES[x.dtype],
+        _threads(row_len), torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.LAUNCHES["norm_silu_bwd_partials"] += 1
+    _build.check(lib, err, "norm_silu_bwd_partials")
+    return s_gu, s_gun
+
+
+def norm_silu_bwd_dx_plain(g, x, mean, rstd, w, b, s_gu, s_gun, count: int,
+                           kind: str = "ln"):
+    """K3·S (b)'s plain version: dx in x.dtype from the whole row's sums
+    ``s_gu`` and ``s_gun`` ([B, C] f32) over ``count`` elements."""
+    stat = _stats_shape(x)
+    wf = w.float().view((1, x.shape[1]) + (1,) * (x.ndim - 2))
+    n, gu = _grad_terms(g, x, mean, rstd, w, b)
+    dx = gu * wf - n * (wf * s_gun.view(stat) / count)
+    if kind == "ln":
+        dx = dx - wf * s_gu.view(stat) / count
+    return (rstd.view(stat) * dx).to(x.dtype)
+
+
+def norm_silu_bwd_dx(g, x, mean, rstd, w, b, s_gu, s_gun, count: int,
+                     kind: str = "ln"):
+    """K3·S (b): ``norm_silu_bwd_dx_plain`` on CPU tensors; on CUDA
+    tensors one launch of the kernel."""
+    if x.device.type == "cpu":
+        return norm_silu_bwd_dx_plain(g, x, mean, rstd, w, b, s_gu, s_gun,
+                                      count, kind)
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
+    _check_split("norm_silu_bwd_dx", x, mean, rstd, s_gu, s_gun, g=g)
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    g = _like_x(g, x)
+    row_len = _row_len(x)
+    lib = _build.load("fused_norm", _SIGNATURES)
+    err = lib.norm_silu_bwd_dx_launch(
+        g.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        w.data_ptr(), b.data_ptr(), s_gu.data_ptr(), s_gun.data_ptr(),
+        dx.data_ptr(), mean.numel(), x.shape[1], row_len, 1.0 / count,
+        int(kind == "ln"), _DTYPES[x.dtype], _threads(row_len),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.LAUNCHES["norm_silu_bwd_dx"] += 1
+    _build.check(lib, err, "norm_silu_bwd_dx")
+    return dx
+
+
+def norm_silu_split_fwd(x, w, b, kind, eps, reduce, count: int):
+    """K2·S: (y, mean, rstd) of a slab x whose rows continue on other ranks;
+    ``reduce(t)`` sums a [B, C] f32 tensor over them in place, ``count``
+    is the whole row's length."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
+    if kind == "ln":
+        total = norm_silu_stats(x)
+        reduce(total)
+        mean = total / count
+    else:
+        mean = torch.zeros(x.shape[:2], dtype=torch.float32,
+                           device=x.device)
+    squares = norm_silu_stats(x, mean if kind == "ln" else None, True)
+    reduce(squares)
+    rstd = torch.rsqrt(squares / count + eps)
+    return norm_silu_apply(x, mean, rstd, w, b), mean, rstd
+
+
+def norm_silu_split_bwd(g, x, mean, rstd, w, b, kind, reduce, count: int):
+    """K3·S: (dx, dw, db) of ``norm_silu_split_fwd``; dw and db are this
+    slab's partials (the train step sums gradients over the ranks)."""
+    s_gu, s_gun = norm_silu_bwd_partials(g, x, mean, rstd, w, b)
+    sums = torch.stack([s_gu, s_gun])
+    dw, db = s_gun.sum(0).to(w.dtype), s_gu.sum(0).to(b.dtype)
+    reduce(sums)
+    dx = norm_silu_bwd_dx(g, x, mean, rstd, w, b, sums[0], sums[1], count,
+                          kind)
+    return dx, dw, db
+
+
+class NormSiLUSplit(torch.autograd.Function):
+    """SiLU(norm(x)·w + b) over rows split across ranks: K2·S forward,
+    K3·S backward (their plain versions on CPU tensors), an all-reduce
+    (``reduce``) between each pair of halves, in one order on every
+    rank."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, kind, eps, reduce, count):
+        y, mean, rstd = norm_silu_split_fwd(x, w, b, kind, eps, reduce,
+                                            count)
+        ctx.save_for_backward(x, mean, rstd, w, b)
+        ctx.kind, ctx.reduce, ctx.count = kind, reduce, count
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd, w, b = ctx.saved_tensors
+        dx, dw, db = norm_silu_split_bwd(g.contiguous(), x, mean, rstd, w, b,
+                                         ctx.kind, ctx.reduce, ctx.count)
+        return dx, dw, db, None, None, None, None
+
+
+def norm_silu_split(x, w, b, kind: str, eps: float, reduce, count: int):
+    """``norm_silu`` of a slab whose rows continue on other ranks
+    (``NormSiLUSplit``); the forward alone where autograd records
+    nothing."""
+    if not torch.is_grad_enabled():
+        return norm_silu_split_fwd(x, w, b, kind, eps, reduce, count)[0]
+    return NormSiLUSplit.apply(x, w, b, kind, eps, reduce, count)

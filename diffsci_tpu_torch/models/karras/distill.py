@@ -45,9 +45,9 @@ import torch
 
 from diffsci_tpu_torch.models.karras.ema import EMATracker
 from diffsci_tpu_torch.models.karras.train import (
-    AdamWClip, TrainState, _ema_graph_update, _new_train_state,
-    default_optimizer, global_norm, nan_to_zero_grads,
-    renormalize_mp_weights)
+    AdamWClip, TrainState, _capturable, _ema_graph_update, _new_train_state,
+    _rows, batch_like, check_placement, default_optimizer, finish_update,
+    keep_rows, synced_norm)
 from diffsci_tpu_torch.utils import bcast_right, graphs
 
 
@@ -172,10 +172,24 @@ def distill_targets(teacher, x0, eps, interval_idx, student_nsteps: int,
                     teacher_guidance, teacher_heun)
 
 
-def _draw(model, x, generator, student_nsteps, idx, eps, out):
+def _draw(model, x, generator, student_nsteps, idx, eps, out,
+          rows: tuple = (1, 0)):
     """The interval index [B], then ε, each from ``generator`` unless
     replayed, then (when the network drops conditions and y is given) the
-    keep mask [B] from ``generator``, into ``out``. Returns ``out``."""
+    keep mask [B] from ``generator``, into ``out``. ``rows`` = (n, i): x
+    is block i of n of a global batch's rows; the draws (and the replayed
+    ones) are the global batch's, and ``out`` takes block i. Returns
+    ``out``."""
+    n, i = rows
+    if n > 1:
+        whole = batch_like(x, n)
+        every = tuple(None if t is None else t.new_empty(
+            (t.shape[0] * n,) + tuple(t.shape[1:])) for t in out)
+        _draw(model, whole, generator, student_nsteps, idx, eps, every)
+        for t, g in zip(out, every):
+            if t is not None:
+                keep_rows(t, g, i)
+        return out
     idx_out, eps_out, keep_out = out
     if idx is None:
         torch.randint(0, student_nsteps, idx_out.shape, generator=generator,
@@ -225,9 +239,14 @@ def make_distill_step(model, tx: AdamWClip, student_nsteps: int, *,
     arXiv:2210.03142). ``teacher_model``: a model of another architecture
     or preconditioner to distill from; it must share the student's noise
     grid. ``teacher_heun``: False when the teacher is a distilled student.
+    Over a mesh (a state placed by ``parallel.replicate`` and the others)
+    x is this rank's rows, the draws are the global batch's of which it
+    keeps its rows, and the gradients are the global batch's mean before
+    the guard and clip, as ``make_train_step``'s; ``distill_loss`` is the
+    mean over the ranks. A spatially sharded state raises.
     On a CUDA device the step is captured and replayed as a CUDA graph
-    held by the state (module docstring); ``_raw=True`` returns the eager
-    step."""
+    held by the state (module docstring; eager over gloo); ``_raw=True``
+    returns the eager step."""
     _check_distillable(model, student_nsteps)
     if tx.every != 1:
         raise ValueError("the distill step takes one update a step")
@@ -272,28 +291,25 @@ def make_distill_step(model, tx: AdamWClip, student_nsteps: int, *,
         w = bcast_right(grid[3][idx], x_t)
         loss = torch.mean(w * (D_s - D_tgt) ** 2)
         loss.backward()
-        grads = []
-        for p in state.params.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        if nan_guard:
-            nan_to_zero_grads(grads)
-        norm = global_norm(grads)
+        placed = state.placement
+        norm = synced_norm(placed, state.params, state.step_params(),
+                           nan_guard)
         tx.update(state, norm)
-        if has_mp_weights:
-            renormalize_mp_weights(model.net)
-        return loss.detach(), norm
+        finish_update(state, model.net, has_mp_weights)
+        loss = loss.detach()
+        return (loss if placed is None else placed.mean_over_ranks(loss),
+                norm)
 
     def raw_step(state: TrainState, teacher, x, y=None, generator=None,
                  idx=None, eps=None):
         teacher = teacher_of(teacher)
+        check_placement(state, "make_distill_step")
         idx, eps, keep = _draw(model, x, generator, student_nsteps, idx,
-                               eps, _draw_tensors(model, x, y))
+                               eps, _draw_tensors(model, x, y), _rows(state))
         tx.set_learning_rate(state.optimizer, state.step)
         loss, norm = update(state, teacher, x, y, idx, eps, keep)
         if ema is not None and state.ema is not None:
-            ema.update(state.ema, state.params)
+            ema.update(state.ema, state.step_params())
         state.step += 1
         return state, {"distill_loss": loss, "grad_norm": norm}
 
@@ -302,9 +318,10 @@ def make_distill_step(model, tx: AdamWClip, student_nsteps: int, *,
 
     def step(state: TrainState, teacher, x, y=None, generator=None,
              idx=None, eps=None):
-        if x.device.type != "cuda":
+        if x.device.type != "cuda" or not _capturable(state):
             return raw_step(state, teacher, x, y, generator, idx, eps)
         teacher = teacher_of(teacher)
+        check_placement(state, "make_distill_step")
         if state.graphs is None:
             state.graphs = graphs.GraphCache(x.device)
         cache = state.graphs
@@ -312,7 +329,7 @@ def make_distill_step(model, tx: AdamWClip, student_nsteps: int, *,
         key = ("distill", tuple(x.shape), x.dtype, graphs.condition_key(y),
                student_nsteps, teacher_heun, teacher_guidance, id(teacher),
                teacher.compute_dtype, state.optimizer, tx, nan_guard,
-               has_mp_weights)
+               has_mp_weights, state.placement)
         graph = cache.graphs.get(key)
         if graph is None:
             inputs = (torch.empty_like(x), graphs.static_like(y, x.device)) \
@@ -322,7 +339,8 @@ def make_distill_step(model, tx: AdamWClip, student_nsteps: int, *,
         xs, ys = inputs[:2]
         xs.copy_(x)
         graphs.fill(ys, y)
-        _draw(model, x, generator, student_nsteps, idx, eps, inputs[2:])
+        _draw(model, x, generator, student_nsteps, idx, eps, inputs[2:],
+              _rows(state))
         if graph is None:
             def body():
                 return update(state, teacher, *inputs)
@@ -336,7 +354,7 @@ def make_distill_step(model, tx: AdamWClip, student_nsteps: int, *,
         # the weights is refreshed at its next use
         model._masters_changed()
         if ema is not None and state.ema is not None:
-            _ema_graph_update(ema, cache, state.ema, state.params)
+            _ema_graph_update(ema, cache, state.ema, state.step_params())
         state.step += 1
         return state, {"distill_loss": loss, "grad_norm": norm}
 

@@ -34,6 +34,7 @@ step.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import fnmatch
 import math
@@ -44,8 +45,9 @@ import torch
 from diffsci_tpu_torch.models.karras.module import (KarrasModel,
                                                     KarrasModelConfig)
 from diffsci_tpu_torch.models.karras.train import (
-    AdamWClip, TrainState, _begin_update, _ema_graph_update, _end_update,
-    global_norm, nan_to_zero_grads, renormalize_mp_weights)
+    AdamWClip, TrainState, _begin_update, _capturable, _ema_graph_update,
+    _end_update, _rows, batch_like, check_placement, finish_update,
+    keep_rows, synced_norm)
 from diffsci_tpu_torch.models.karras.ema import EMATracker
 from diffsci_tpu_torch.utils import bcast_right, dict_map, graphs
 
@@ -163,6 +165,26 @@ def select_regularization_reference(params: dict, include_patterns=("*",),
 
 class EnsembleKarrasModel(KarrasModel):
     """``KarrasModel`` with the ensemble and autoregressive losses."""
+    # the placement whose global batch the loss's batch means take (set by
+    # the ensemble step over a mesh), or None
+    _placement = None
+
+    @contextlib.contextmanager
+    def over_ranks(self, placement):
+        """Within: the ensemble loss's batch mean of the loss weight is the
+        global batch's (``placement``: a state's placement, or None). The
+        loss is mean(λ)·metric, a product of batch means, so each rank's
+        own mean would not give the global batch's gradient."""
+        old, self._placement = self._placement, placement
+        try:
+            yield
+        finally:
+            self._placement = old
+
+    def _batch_mean(self, t):
+        m = t.mean()
+        placed = self._placement
+        return m if placed is None else placed.batch_mean(m)
 
     # ------------------------------------------------------------------
     def loss_fn(self, x, sigma, y=None, mask=None, train: bool = True,
@@ -225,7 +247,7 @@ class EnsembleKarrasModel(KarrasModel):
                 raw = (per_b / count).mean()
             else:
                 raw = raw.mean()
-        loss = weight.mean() * raw + bias.mean()
+        loss = self._batch_mean(weight) * raw + bias.mean()
         return (loss, updates) if return_updates else loss
 
     # ------------------------------------------------------------------
@@ -519,19 +541,40 @@ class _Batch:
     y: object
     mask: object
     draws: dict
+    n_ensemble: int = 1
 
     @classmethod
     def like(cls, model, x, y, mask, n_ensemble):
         return cls(torch.empty_like(x), graphs.static_like(y, x.device),
                    graphs.static_like(mask, x.device),
-                   model.draw_tensors(x, n_ensemble, None if
-                                      model.has_autoregressive_loss() else 1))
+                   model.draw_tensors(x, n_ensemble, cls._steps(model)),
+                   n_ensemble)
 
-    def fill(self, model, x, y, mask, generator, draws=None) -> None:
+    @staticmethod
+    def _steps(model):
+        return None if model.has_autoregressive_loss() else 1
+
+    def fill(self, model, x, y, mask, generator, draws=None,
+             rows: tuple = (1, 0)) -> None:
+        """Copy the batch in and make its draws (``draws``: filled
+        ``draw_tensors`` replayed instead). ``rows`` = (n, i): x is block
+        i of n of a global batch's rows; the draws (and the replayed ones)
+        are the global batch's, of which this batch keeps block i."""
         self.x.copy_(x)
         graphs.fill(self.y, y)
         graphs.fill(self.mask, mask)
-        if draws is None:
+        n, i = rows
+        if n > 1:
+            whole = draws
+            if whole is None:
+                whole = model.draw_autoregressive(model.draw_tensors(
+                    batch_like(x, n), self.n_ensemble, self._steps(model)),
+                    generator)
+            for k, v in self.draws.items():
+                if v is not None:
+                    # the batch dim: 1 ([S, B, ...]); the loop noise's 2
+                    keep_rows(v, whole[k], i, 2 if k == "noise" else 1)
+        elif draws is None:
             model.draw_autoregressive(self.draws, generator)
         else:
             for k, v in self.draws.items():
@@ -569,9 +612,17 @@ def make_ensemble_train_step(model: EnsembleKarrasModel, tx: AdamWClip,
     replay losses and the weight; l2_sp) as device tensors. Plugs into
     ``Trainer.fit`` as ``step_fn``.
 
+    Over a mesh (a state placed by ``parallel.replicate`` and the
+    others) x is this rank's rows; every draw is the global batch's, of
+    which the step keeps its rows, and the gradients are the global
+    batch's mean before the guard and clip, as ``make_train_step``'s
+    (the logged losses are the mean over the ranks). A spatially sharded
+    state raises.
+
     On a CUDA device the step is a CUDA graph per (the batches' shapes,
-    optimizer, accumulation phase) held by the state, the in-step
-    sampler inside it; ``_raw=True`` returns the eager step."""
+    optimizer, accumulation phase, placement) held by the state, the
+    in-step sampler inside it (eager over gloo); ``_raw=True`` returns
+    the eager step."""
     cfg = model.config
     reg_cfg = getattr(cfg, "pretrained_weight_regularization", None)
     if reg_cfg is True:
@@ -592,11 +643,13 @@ def make_ensemble_train_step(model: EnsembleKarrasModel, tx: AdamWClip,
         batch norm's statistics from static draws: device work only."""
         for p in state.params.values():
             p.grad = None
-        loss, upd, aux = model._training_loss(
-            main.x, main.y, main.mask, E, True, draws=main.draws)
+        with model.over_ranks(state.placement):
+            loss, upd, aux = model._training_loss(
+                main.x, main.y, main.mask, E, True, draws=main.draws)
+            if rep is not None:
+                loss_r, upd_r, _ = model._training_loss(
+                    rep.x, rep.y, rep.mask, E, True, draws=rep.draws)
         if rep is not None:
-            loss_r, upd_r, _ = model._training_loss(
-                rep.x, rep.y, rep.mask, E, True, draws=rep.draws)
             aux = {"train_loss_finetune": loss, "train_loss_replay": loss_r,
                    "train_replay_loss_weight": w}
             loss = loss + w * loss_r
@@ -609,22 +662,20 @@ def make_ensemble_train_step(model: EnsembleKarrasModel, tx: AdamWClip,
             loss = loss + reg
             aux["l2_sp"] = reg
         loss.backward()
-        grads = []
-        for p in state.params.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        if nan_guard:
-            nan_to_zero_grads(grads)
-        norm = global_norm(grads)
+        placed = state.placement
+        norm = synced_norm(placed, state.params, state.step_params(),
+                           nan_guard)
         tx.update(state, norm, emit)
-        if has_mp_weights:
-            renormalize_mp_weights(model.net)
+        finish_update(state, model.net, has_mp_weights)
         with torch.no_grad():
             for name, value in (upd or {}).items():
                 buffers[name].copy_(value)
-        return loss.detach(), norm, {k: v.detach() if torch.is_tensor(v)
-                                     else v for k, v in aux.items()}
+
+        def logged(v):
+            v = v.detach()
+            return v if placed is None else placed.mean_over_ranks(v)
+        return logged(loss), norm, {k: logged(v) if torch.is_tensor(v)
+                                    else v for k, v in aux.items()}
 
     def batches(x, y, mask, replay):
         main = _Batch.like(model, x, y, mask, E)
@@ -636,23 +687,28 @@ def make_ensemble_train_step(model: EnsembleKarrasModel, tx: AdamWClip,
             rep = _Batch.like(model, xr, yr, mr, E)
         return main, rep
 
-    def fill(main, rep, x, y, mask, replay, generator, draws, replay_draws):
-        main.fill(model, x, y, mask, generator, draws)
+    def fill(state, main, rep, x, y, mask, replay, generator, draws,
+             replay_draws):
+        rows = _rows(state)
+        main.fill(model, x, y, mask, generator, draws, rows)
         if rep is not None:
-            rep.fill(model, *_split_batch(replay), generator, replay_draws)
+            rep.fill(model, *_split_batch(replay), generator, replay_draws,
+                     rows)
 
     def metrics(loss, norm, aux):
         return {"train_loss": loss, "grad_norm": norm, **aux}
 
     def raw_step(state: TrainState, x, y=None, mask=None, generator=None,
                  replay=None, draws=None, replay_draws=None):
+        check_placement(state, "make_ensemble_train_step")
         main, rep = batches(x, y, mask, replay)
-        fill(main, rep, x, y, mask, replay, generator, draws, replay_draws)
+        fill(state, main, rep, x, y, mask, replay, generator, draws,
+             replay_draws)
         w = replay_weight(state, x.device) if rep is not None else None
         emit = _begin_update(state, tx)
         out = update(state, main, rep, w, emit)
         if ema is not None and state.ema is not None:
-            ema.update(state.ema, state.params)
+            ema.update(state.ema, state.step_params())
         _end_update(state, tx, emit)
         return state, metrics(*out)
 
@@ -661,9 +717,10 @@ def make_ensemble_train_step(model: EnsembleKarrasModel, tx: AdamWClip,
 
     def train_step(state: TrainState, x, y=None, mask=None, generator=None,
                    replay=None, draws=None, replay_draws=None):
-        if x.device.type != "cuda":
+        if x.device.type != "cuda" or not _capturable(state):
             return raw_step(state, x, y, mask, generator, replay, draws,
                             replay_draws)
+        check_placement(state, "make_ensemble_train_step")
         if state.graphs is None:
             state.graphs = graphs.GraphCache(x.device)
         cache = state.graphs
@@ -672,14 +729,16 @@ def make_ensemble_train_step(model: EnsembleKarrasModel, tx: AdamWClip,
             None if t is None else graphs.condition_key(t)
             for t in _split_batch(replay))
         key = ("ensemble", tuple(x.shape), x.dtype, graphs.condition_key(y),
-               graphs.condition_key(mask), rkey, state.optimizer, tx, emit)
+               graphs.condition_key(mask), rkey, state.optimizer, tx, emit,
+               state.placement)
         graph = cache.graphs.get(key)
         if graph is None:
             main, rep = batches(x, y, mask, replay)
             w = torch.zeros((), device=x.device) if rep is not None else None
         else:
             main, rep, w = graph.inputs
-        fill(main, rep, x, y, mask, replay, generator, draws, replay_draws)
+        fill(state, main, rep, x, y, mask, replay, generator, draws,
+             replay_draws)
         if w is not None:
             w.copy_(replay_weight(state, x.device))
         if graph is None:
@@ -695,7 +754,7 @@ def make_ensemble_train_step(model: EnsembleKarrasModel, tx: AdamWClip,
                    {k: v.clone() for k, v in aux.items()})
         model._masters_changed()
         if ema is not None and state.ema is not None:
-            _ema_graph_update(ema, cache, state.ema, state.params)
+            _ema_graph_update(ema, cache, state.ema, state.step_params())
         _end_update(state, tx, emit)
         return state, metrics(*out)
 

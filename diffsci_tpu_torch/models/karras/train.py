@@ -49,7 +49,10 @@ it keeps its rows, the EDM batch norm's statistics are the global
 batch's, and the gradients are averaged over the ranks before the NaN
 guard, the clip and AdamW (``parallel/placement.py``); on the card the
 NCCL collectives are captured in the step's graph (over gloo, which
-carries CUDA tensors too, the step runs eagerly). Progressive
+carries CUDA tensors too, the step runs eagerly). Over a data × spatial
+mesh (``parallel.spatial.shard_state_spatial``) x is also a slab of its
+first spatial axis, and ε is drawn a row at a time, each rank keeping its
+slab (``_draw_slab``). Progressive
 distillation's step is ``models/karras/distill.py:make_distill_step``.
 """
 
@@ -612,7 +615,7 @@ def _end_update(state: TrainState, tx: AdamWClip, emit: bool) -> None:
 
 
 def _draw(model, x, generator, sigma, eps, keep, out, z_eps=None,
-          rows: tuple = (1, 0)):
+          rows: tuple = (1, 0), slab=None):
     """σ, then a latent model's posterior draw (when its autoencoder
     samples one), then ε, then the condition-drop mask (when the network
     drops conditions), in the eager step's order, each drawn from
@@ -621,8 +624,13 @@ def _draw(model, x, generator, sigma, eps, keep, out, z_eps=None,
     space's shape, the mask [B] bool or None, the posterior draw of that
     shape or None). ``rows`` = (n, i): x is the i-th of n equal blocks of
     rows of a global batch; the draws (and the replayed ones) are the
-    global batch's, and ``out`` takes block i. Returns ``out``."""
+    global batch's, and ``out`` takes block i. ``slab`` (a spatial
+    placement's ``SpatialLayout``, or None): x is also one of its slabs
+    along dim 1 (``_draw_slab``). Returns ``out``."""
     n, i = rows
+    if slab is not None and slab.n > 1:
+        return _draw_slab(model, x, generator, sigma, eps, keep, out, z_eps,
+                          rows, slab)
     if n > 1:
         every = tuple(None if t is None else t.new_empty(
             (t.shape[0] * n,) + tuple(t.shape[1:])) for t in out)
@@ -652,6 +660,48 @@ def _draw(model, x, generator, sigma, eps, keep, out, z_eps=None,
             model.draw_cond_keep(x.shape[0], generator, out=keep_out)
         else:
             keep_out.copy_(keep)
+    return out
+
+
+def _draw_slab(model, x, generator, sigma, eps, keep, out, z_eps, rows,
+               slab):
+    """``_draw`` for a slab of a dp × spatial mesh: σ and the keep mask of
+    the global batch, of which ``out`` takes its rows; ε in the global
+    order, one row [1, *spatial, C] a draw, of which this rank keeps the
+    slab of its rows (no rank holds the whole global ε; on the CPU, whose
+    generator fills a tensor in blocks of 16 values, the rows give the
+    single draw's values when a row's size divides by 16). A replayed ε is
+    the global batch's. A latent model's posterior draw raises."""
+    sigma_out, eps_out, keep_out = out[:3]
+    if len(out) > 3 and out[3] is not None:
+        raise NotImplementedError("a latent model is not ported to a "
+                                  "spatial mesh")
+    n, i = rows
+    B, L, j = x.shape[0], eps_out.shape[slab.dim], slab.index
+    whole = torch.empty(B * n, device=sigma_out.device)
+    if sigma is None:
+        model.config.noisesampler.sample((B * n,), generator, out=whole)
+    else:
+        whole.copy_(sigma)
+    keep_rows(sigma_out, whole, i)
+    if eps is None:
+        row = eps_out.new_empty((1,) + tuple(eps_out.shape[1:slab.dim])
+                                + (L * slab.n,)
+                                + tuple(eps_out.shape[slab.dim + 1:]))
+        for r in range(B * n):
+            torch.randn(row.shape, generator=generator, out=row)
+            if i * B <= r < (i + 1) * B:
+                keep_rows(eps_out[r - i * B:r - i * B + 1], row, j,
+                          slab.dim)
+    else:
+        keep_rows(eps_out, eps[i * B:(i + 1) * B], j, slab.dim)
+    if keep_out is not None:
+        mask = torch.empty(B * n, dtype=torch.bool, device=keep_out.device)
+        if keep is None:
+            model.draw_cond_keep(B * n, generator, out=mask)
+        else:
+            mask.copy_(keep)
+        keep_rows(keep_out, mask, i)
     return out
 
 
@@ -700,6 +750,72 @@ def _step_loss(model, loss_fn, remat: bool):
     return remat_loss
 
 
+def synced_norm(placed, params: dict, stepped: dict | None = None,
+                nan_guard: bool = True) -> torch.Tensor:
+    """After the backward: a zero ``.grad`` for every parameter of
+    ``params`` the loss left without one; under a placement (``placed``,
+    or None) the gradients made the global batch's mean
+    (``Placement.sync_grads``) before the NaN→0 guard (``nan_guard``).
+    Returns the global norm of the gradients the optimizer steps
+    (``stepped``: the FSDP blocks; default ``params``)."""
+    grads = []
+    for p in params.values():
+        if p.grad is None:          # unused by this loss: a zero grad
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    if placed is None:
+        if nan_guard:
+            nan_to_zero_grads(grads)
+        return global_norm(grads)
+    # the global batch's mean gradient before the guard and clip
+    placed.sync_grads(params)
+    stepped = {k: p.grad for k, p in (stepped or params).items()}
+    if nan_guard:
+        nan_to_zero_grads(list(stepped.values()))
+    return placed.global_norm(stepped)
+
+
+def finish_update(state: TrainState, net: torch.nn.Module,
+                  has_mp_weights: bool) -> None:
+    """After the optimizer step: under FSDP the working copies gathered
+    from the stepped blocks, then the mp re-projection
+    (``has_mp_weights``), scattered back into the blocks."""
+    fsdp = getattr(state.placement, "fsdp", None)
+    if fsdp is not None:
+        fsdp.gather(state.params, state.placement.mesh)
+    if has_mp_weights:
+        renormalize_mp_weights(net)
+        if fsdp is not None:
+            fsdp.scatter(state.params, state.placement.mesh)
+
+
+def check_placement(state, what: str) -> None:
+    """Raise when ``state``'s placement is one the step ``what`` cannot
+    honour: a spatial mesh (its draws and layers are the Karras train
+    step's only)."""
+    placed = getattr(state, "placement", None)
+    if placed is not None and placed.spatial is not None:
+        raise NotImplementedError(
+            f"{what} does not take a spatially sharded state (only "
+            "make_train_step does)")
+
+
+def batch_like(x: torch.Tensor, n: int) -> torch.Tensor:
+    """A stand-in for the global batch of ``n`` blocks of x's rows: its
+    shape and device, one stored element (the draws' allocations read no
+    more of a batch)."""
+    return torch.empty((), dtype=x.dtype, device=x.device).expand(
+        (x.shape[0] * n,) + tuple(x.shape[1:]))
+
+
+def keep_rows(local: torch.Tensor, whole: torch.Tensor, i: int,
+              dim: int = 0) -> torch.Tensor:
+    """``local`` filled with block i of ``whole`` along ``dim`` (blocks of
+    ``local``'s size): a rank's part of a global batch's draw."""
+    k = local.shape[dim]
+    return local.copy_(whole.narrow(dim, i * k, k))
+
+
 def _capturable(state: TrainState) -> bool:
     """Whether a CUDA graph can capture the state's step: no placement, or
     one over NCCL (a step over gloo runs eagerly)."""
@@ -711,6 +827,11 @@ def _rows(state: TrainState) -> tuple:
     if state.placement is None:
         return (1, 0)
     return state.placement.batch_shards()
+
+
+def _slab(state: TrainState):
+    """A spatially sharded state's ``SpatialLayout``, or None."""
+    return getattr(state.placement, "spatial", None)
 
 
 def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
@@ -752,28 +873,11 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
             p.grad = None
         loss, updates = loss_of(x, sigma, y, mask, eps, keep, z_eps)
         loss.backward()
-        grads = []
-        for p in state.params.values():
-            if p.grad is None:          # unused by this loss: a zero grad
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        if placed is None:
-            nan_to_zero_grads(grads)
-            norm = global_norm(grads)
-        else:
-            # the global batch's mean gradient before the guard and clip
-            placed.sync_grads(state.params)
-            stepped = {k: p.grad for k, p in state.step_params().items()}
-            nan_to_zero_grads(list(stepped.values()))
-            norm = placed.global_norm(stepped)
+        norm = synced_norm(placed, state.params, state.step_params())
+        if placed is not None:
             loss = placed.mean_over_ranks(loss.detach())
         tx.update(state, norm, emit)
-        if placed is not None and placed.fsdp is not None:
-            placed.fsdp.gather(state.params, placed.mesh)
-        if has_mp_weights:
-            renormalize_mp_weights(model.net)
-            if placed is not None and placed.fsdp is not None:
-                placed.fsdp.scatter(state.params, placed.mesh)
+        finish_update(state, model.net, has_mp_weights)
         with torch.no_grad():
             for name, value in updates.items():
                 buffers[name].copy_(value)
@@ -785,7 +889,8 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
                  sigma=None, eps=None, keep=None, z_eps=None):
         sigma, eps, keep, z_eps = _draw(
             model, x, generator, sigma, eps, keep,
-            _draw_tensors(model, x, posterior), z_eps, _rows(state))
+            _draw_tensors(model, x, posterior), z_eps, _rows(state),
+            _slab(state))
         emit = _begin_update(state, tx)
         loss, norm = update(state, x, y, mask, sigma, eps, keep, z_eps,
                             emit)
@@ -821,7 +926,7 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         graphs.fill(ys, y)
         graphs.fill(masks, mask)
         _draw(model, x, generator, sigma, eps, keep, inputs[3:], z_eps,
-              _rows(state))
+              _rows(state), _slab(state))
         if graph is None:
             def body():
                 return update(state, *inputs, emit=emit)
@@ -929,7 +1034,8 @@ def make_eval_step(model, ema: EMATracker | None = None,
     def raw_step(state: TrainState, x, y=None, mask=None, generator=None,
                  sigma=None, eps=None):
         sigma, eps, _, z_eps = _draw(model, x, generator, sigma, eps, None,
-                                     draw_tensors(x), rows=_rows(state))
+                                     draw_tensors(x), rows=_rows(state),
+                                     slab=_slab(state))
         return {"valid_loss": loss(state, x, y, mask, sigma, eps, z_eps)}
 
     if _raw:
@@ -957,7 +1063,7 @@ def make_eval_step(model, ema: EMATracker | None = None,
         graphs.fill(ys, y)
         graphs.fill(masks, mask)
         _draw(model, x, generator, sigma, eps, None, inputs[3:],
-              rows=_rows(state))
+              rows=_rows(state), slab=_slab(state))
         if graph is None:
             def body():
                 return loss(state, xs, ys, masks, sigmas, epss, zs)

@@ -38,8 +38,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffsci_tpu_torch.models.karras.train import (AdamWClip, global_norm,
-                                                   nan_to_zero_grads)
+from diffsci_tpu_torch.models.karras.train import (AdamWClip, _capturable,
+                                                   batch_like,
+                                                   check_placement,
+                                                   keep_rows, synced_norm)
 from diffsci_tpu_torch.models.nets.layers import init_parameters
 from diffsci_tpu_torch.models.nets.vae import DiagonalGaussianDistribution
 from diffsci_tpu_torch.ops.losses import huber as huber_loss
@@ -413,7 +415,9 @@ class VAETrainState:
     optimizer, the discriminator's (or None), the steps taken (on the
     host, and as ``counter``, a 0-d device tensor the frequency gate
     reads), the network's buffers by name, and on a CUDA device the step's
-    CUDA graphs (a ``utils.graphs.GraphCache``)."""
+    CUDA graphs (a ``utils.graphs.GraphCache``), and its layout over a mesh
+    (``placement``, set by ``parallel.replicate``; None on one
+    process)."""
     params: dict
     optimizer: torch.optim.Optimizer
     disc_params: dict | None
@@ -423,6 +427,8 @@ class VAETrainState:
     buffers: dict = dataclasses.field(default_factory=dict)
     graphs: graphs.GraphCache | None = dataclasses.field(
         default=None, repr=False, compare=False)
+    placement: object = dataclasses.field(default=None, repr=False,
+                                          compare=False)
 
 
 # what AdamWClip.update reads of a state
@@ -500,16 +506,6 @@ def create_vae_train_state(model: VAEModel, x_shape=None,
     return state, tx, dtx
 
 
-def _zero_grads(params: dict) -> list:
-    """The ``.grad`` of every parameter, zeros where the loss left none."""
-    grads = []
-    for p in params.values():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-        grads.append(p.grad)
-    return grads
-
-
 def _config_key(cfg: VAEModelConfig) -> tuple:
     """The configuration's numbers a captured step bakes in: all but the
     KL weight, which the step reads from a device tensor."""
@@ -533,7 +529,14 @@ def make_vae_train_step(model: VAEModel, tx: AdamWClip,
     ``gen_adversarial_loss``, ``discriminator_loss``, ``d_accuracy`` and
     ``disc_updated`` (the gate, 0 or 1), all device tensors. ``state`` is
     updated in place and returned. ``_raw=True`` returns the eager
-    step."""
+    step.
+
+    Over a mesh (a state ``parallel.replicate`` placed) x is this rank's
+    rows, ε is the global batch's of which it keeps its rows, both
+    networks' gradients are the global batch's mean before the guard and
+    clip, the discriminator's gate reads the global accuracy, and the
+    metrics are the mean over the ranks. A spatially sharded state
+    raises. The step is a CUDA graph on the card, eager over gloo."""
     cfg = model.config
     adversarial = model.is_adversarial
     if adversarial and dtx is None:
@@ -558,42 +561,62 @@ def make_vae_train_step(model: VAEModel, tx: AdamWClip,
             loss = loss + cfg.adversarial_weight * g_adv
             logs["gen_adversarial_loss"] = g_adv
         loss.backward()
-        grads = _zero_grads(state.params)
-        nan_to_zero_grads(grads)
-        tx.update(_Update(state.optimizer, None), global_norm(grads))
+        placed = state.placement
+        tx.update(_Update(state.optimizer, None),
+                  synced_norm(placed, state.params))
+
+        def logged(v):
+            v = v.detach()
+            return v if placed is None or v.numel() != 1 else \
+                placed.mean_over_ranks(v)
         if adversarial:
             for p in state.disc_params.values():
                 p.grad = None
             d_loss, d_acc = discriminator_loss(disc, x, x_recon.detach(),
                                                y_disc, cfg.label_smoothing)
             d_loss.backward()
+            # the gate reads the global batch's accuracy
+            d_acc = logged(d_acc)
             gate = ((d_acc < cfg.discriminator_threshold)
                     & (state.counter % cfg.discriminator_frequency == 0))
             dparams = list(state.disc_params.values())
             with torch.no_grad():
                 before = [p.detach().clone() for p in dparams]
-                dgrads = _zero_grads(state.disc_params)
                 dtx.update(_Update(state.disc_optimizer, None),
-                           global_norm(dgrads))
+                           synced_norm(placed, state.disc_params,
+                                       nan_guard=False))
                 for p, old in zip(dparams, before):
                     p.copy_(torch.where(gate, p, old))
             logs.update({"discriminator_loss": d_loss.detach(),
                          "d_accuracy": d_acc, "disc_updated": gate.float()})
         with torch.no_grad():
             state.counter.add_(1)
-        return {"train_loss": loss.detach(),
-                **{k: v.detach() for k, v in logs.items()}}
+        return {"train_loss": logged(loss),
+                **{k: logged(v) for k, v in logs.items()}}
 
     def begin(state: VAETrainState) -> None:
         tx.set_learning_rate(state.optimizer, state.step)
         if adversarial:
             dtx.set_learning_rate(state.disc_optimizer, state.step)
 
-    def raw_step(state: VAETrainState, x, y=None, generator=None, eps=None):
+    def draw(state, x, generator, eps, out):
+        """The z-noise into ``out`` (the global batch's over a mesh, of
+        which ``out`` takes this rank's rows), drawn or replayed."""
+        n, i = (1, 0) if state.placement is None else \
+            state.placement.batch_shards()
+        whole = out if n == 1 else torch.empty(
+            model.latent_shape(batch_like(x, n).shape), dtype=out.dtype,
+            device=out.device)
         if eps is None:
-            eps = torch.randn(model.latent_shape(x.shape),
-                              generator=generator, dtype=x.dtype,
-                              device=x.device)
+            torch.randn(whole.shape, generator=generator, out=whole)
+        else:
+            whole.copy_(eps)
+        return out if n == 1 else keep_rows(out, whole, i)
+
+    def raw_step(state: VAETrainState, x, y=None, generator=None, eps=None):
+        check_placement(state, "make_vae_train_step")
+        eps = draw(state, x, generator, eps, torch.empty(
+            model.latent_shape(x.shape), dtype=x.dtype, device=x.device))
         begin(state)
         metrics = update(state, x, y, eps, None)
         state.step += 1
@@ -604,15 +627,16 @@ def make_vae_train_step(model: VAEModel, tx: AdamWClip,
 
     def train_step(state: VAETrainState, x, y=None, generator=None,
                    eps=None):
-        if x.device.type != "cuda":
+        if x.device.type != "cuda" or not _capturable(state):
             return raw_step(state, x, y, generator, eps)
+        check_placement(state, "make_vae_train_step")
         if state.graphs is None:
             state.graphs = graphs.GraphCache(x.device)
         cache = state.graphs
         begin(state)
         key = ("vae", tuple(x.shape), x.dtype, graphs.condition_key(y),
                state.optimizer, state.disc_optimizer, tx, dtx,
-               _config_key(cfg))
+               _config_key(cfg), state.placement)
         graph = cache.graphs.get(key)
         if graph is None:
             inputs = (torch.empty_like(x), graphs.static_like(y, x.device),
@@ -624,10 +648,7 @@ def make_vae_train_step(model: VAEModel, tx: AdamWClip,
         xs, ys, epss, kl_w = inputs
         xs.copy_(x)
         graphs.fill(ys, y)
-        if eps is None:
-            torch.randn(epss.shape, generator=generator, out=epss)
-        else:
-            epss.copy_(eps)
+        draw(state, x, generator, eps, epss)
         kl_w.fill_(float(cfg.kl_weight))
         if graph is None:
             def body():

@@ -1,6 +1,7 @@
 """Parallelism over ``torch.distributed``: meshes, data, FSDP, tensor,
-expert and pipeline parallelism, halo exchange (``extra.chunk_decode``)
-and the multi-process dry run (``parallel.mp_dryrun``).
+expert and pipeline parallelism, the dp × spatial train step
+(``parallel.spatial``), halo exchange (``extra.chunk_decode``) and the
+multi-process dry run (``parallel.mp_dryrun``).
 
 Port of ``diffsci_tpu/parallel/``, with the same names. One process a
 card: NCCL on the card, gloo on the CPU (``parallel/mesh.py``).
@@ -39,6 +40,8 @@ from diffsci_tpu_torch.parallel.expert_parallel import (
     shard_state_expert_parallel,
 )
 
+from diffsci_tpu_torch.parallel.spatial import shard_state_spatial
+
 from diffsci_tpu_torch.parallel.pipeline import (
     STAGE_AXIS,
     stack_block_params,
@@ -57,5 +60,5 @@ __all__ = [
     "shard_state_expert_parallel",
     "STAGE_AXIS", "stack_block_params", "unstack_block_params",
     "shard_stacked_params", "pipeline_apply", "make_dit_pipeline",
-    "gather_batch",
+    "gather_batch", "shard_state_spatial",
 ]

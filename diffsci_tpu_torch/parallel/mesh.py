@@ -28,7 +28,7 @@ import torch.distributed as dist
 from diffsci_tpu_torch.data.loading import tree_map
 
 DATA_AXIS = "data"
-SPATIAL_AXIS = "spatial"  # the halo-sharded decode's axis
+SPATIAL_AXIS = "spatial"  # the spatial step's and the halo decode's axis
 TENSOR_AXIS = "tensor"
 EXPERT_AXIS = "expert"
 STAGE_AXIS = "stage"
@@ -173,10 +173,27 @@ def shard_batch(batch: Any, mesh, axis: str | Sequence[str] = DATA_AXIS):
     """This rank's rows of every array in ``batch`` (a global batch):
     the ``index``-th of ``n`` equal blocks along the leading dim, ``n``
     the ranks along ``axis`` (a name, or a tuple of names taken
-    row-major). Arrays keep their type and device. A per-process loader
-    (``ArrayDataLoader`` under a process group) already yields this
-    rank's rows: pass those to the step as they are."""
-    return tree_map(lambda x: x[data_rows(mesh, x.shape[0], axis)], batch)
+    row-major). On a mesh with a ``spatial`` axis (not in ``axis``),
+    arrays of three or more dims, channels-last [B, *spatial, C], are also
+    cut into that axis's slabs along their first spatial axis (dim 1), of
+    which this rank keeps its own (``parallel/spatial.py``). Arrays keep
+    their type and device. A per-process loader (``ArrayDataLoader``
+    under a process group) already yields this rank's rows: pass those to
+    the step as they are."""
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
+    cut = SPATIAL_AXIS in mesh.mesh_dim_names and SPATIAL_AXIS not in names
+
+    def take(x):
+        x = x[data_rows(mesh, x.shape[0], axis)]
+        if cut and x.ndim >= 3:
+            n, k = axis_size(mesh, SPATIAL_AXIS), x.shape[1]
+            if k % n:
+                raise ValueError(f"spatial axis {k} not divisible by mesh "
+                                 f"'{SPATIAL_AXIS}' axis size {n}")
+            i = axis_index(mesh, SPATIAL_AXIS)
+            x = x[:, i * (k // n):(i + 1) * (k // n)]
+        return x
+    return tree_map(take, batch)
 
 
 def constrain_batch(x, mesh, axis: str = DATA_AXIS):
@@ -222,8 +239,16 @@ def _tensors(tree) -> list:
     """The tensors of a module, a train state, or a tuple / list / dict
     structure."""
     from diffsci_tpu_torch.models.karras.train import TrainState
+    from diffsci_tpu_torch.models.vae.module import VAETrainState
     if isinstance(tree, torch.nn.Module):
         return list(tree.parameters()) + list(tree.buffers())
+    if isinstance(tree, VAETrainState):
+        out = list(tree.params.values()) + list(tree.buffers.values()) + \
+            list((tree.disc_params or {}).values()) + [tree.counter]
+        for opt in (tree.optimizer, tree.disc_optimizer):
+            for slot in (opt.state.values() if opt is not None else ()):
+                out += [v for v in slot.values() if torch.is_tensor(v)]
+        return out
     if isinstance(tree, TrainState):
         out = list(tree.params.values()) + list(tree.buffers.values())
         for slot in tree.optimizer.state.values():
@@ -241,17 +266,22 @@ def _tensors(tree) -> list:
 def replicate(tree: Any, mesh) -> Any:
     """Every rank's copy of ``tree`` (a train state, a module, or a
     structure of tensors) made rank 0's, in place (a broadcast from rank
-    0 over the mesh's group), and returned. A ``TrainState`` then carries
-    its placement (``state.placement``), and the train step over it is
-    the data-parallel step: the batch is each rank's rows over the mesh's
-    ``data`` axis, the gradients are averaged over the ranks, and the
-    EDM batch norms of its network take their statistics over every
-    rank's rows."""
+    0 over the mesh's group), and returned. A ``TrainState`` (or a
+    ``VAETrainState``) then carries its placement (``state.placement``),
+    and the train step over it (``make_train_step``,
+    ``make_ensemble_train_step``, ``make_distill_step``,
+    ``make_vae_train_step``) is the data-parallel step: the batch is each
+    rank's rows over the mesh's ``data`` axis, the gradients are averaged
+    over the ranks, and the EDM batch norms of its network take their
+    statistics over every rank's rows."""
     from diffsci_tpu_torch.models.karras.train import TrainState
+    from diffsci_tpu_torch.models.vae.module import VAETrainState
     from diffsci_tpu_torch.ops.batchnorm import DimensionAgnosticBatchNorm
     from diffsci_tpu_torch.parallel.placement import Placement
     for t in _tensors(tree):
         dist.broadcast(t, src=0)
+    if isinstance(tree, VAETrainState):
+        tree.placement = Placement(mesh, batch_axes=(DATA_AXIS,))
     if isinstance(tree, TrainState):
         tree.placement = Placement(mesh, batch_axes=(DATA_AXIS,))
         for m in tree.module.modules() if tree.module is not None else ():

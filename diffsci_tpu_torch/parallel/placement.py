@@ -60,6 +60,8 @@ class Placement:
         self.batch_axes = tuple(a for a in batch_axes if a in names)
         self.specs = dict(specs or {})
         self.fsdp = fsdp
+        # the dp × spatial step's layout (``parallel/spatial.py``), or None
+        self.spatial = None
         self.world = dist.get_world_size()
         # a CUDA graph captures NCCL's collectives; gloo's (which also
         # carry CUDA tensors) synchronise with the host, so a step over
@@ -167,6 +169,16 @@ class Placement:
             dist.all_reduce(part, group=group)
             sq = sq + part[0]
         return torch.sqrt(sq)
+
+    def batch_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """A scalar's mean over the batch shards (the ranks along
+        ``batch_axes``), differentiable: each rank's gradient is the mean
+        of theirs."""
+        from torch.distributed.nn.functional import all_reduce
+        group = self._group(self.batch_axes)
+        if group == "none":
+            return x
+        return all_reduce(x, group=group) / self.batch_shards()[0]
 
     def mean_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
         """A scalar's mean over the world (a rank that repeats another's

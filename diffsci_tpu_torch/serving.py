@@ -1,10 +1,11 @@
-"""Sampling service: shape-bucketed, chunked, one device; a cross-request
-dispatcher, a Picard latency mode, 1-NFE serving, and an HTTP server.
+"""Sampling service: shape-bucketed, chunked, one device or data-parallel
+over a mesh; a cross-request dispatcher, a Picard latency mode, 1-NFE
+serving, and an HTTP server.
 
 Port of ``diffsci_tpu/serving.py`` (``SamplerService`` with
-``sample_kwargs``, ``batch_window_ms``, ``picard`` and ``from_checkpoint``;
-``build_server``) without ``mesh`` (data-parallel serving is not ported
-yet). Requests are padded up to the nearest batch bucket and the padding
+``sample_kwargs``, ``batch_window_ms``, ``mesh``, ``picard`` and
+``from_checkpoint``; ``build_server``). Requests are padded up to the
+nearest batch bucket and the padding
 rows dropped; requests above the largest bucket are split into chunks.
 On a CUDA device ``warmup()`` captures one CUDA graph per bucket, as the
 JAX service compiles one executable per bucket
@@ -30,6 +31,25 @@ Three modes:
 
 ``nsteps=1`` on a model with ``get_denoiser`` serves a distilled 1-NFE
 student through ``sample_onestep``, in plain and dispatcher mode.
+
+``mesh=`` (a ``DeviceMesh`` with a ``data`` axis): data-parallel serving,
+one process a card where the JAX service is one process over the mesh.
+Every rank builds the service with the same arguments (checked: a rank
+whose arguments differ raises on every rank). Rank 0 is the front end:
+``sample()``, the dispatcher and ``build_server`` run there, and
+``sample()`` on another rank raises. The other ranks call ``follow()``,
+which serves rank 0's bucket runs until rank 0's ``close()`` releases
+them. For each bucket run (and each bucket's warm-up) rank 0 broadcasts
+a header (the operation, the bucket, what the payload holds, the
+service's key) and its payload (the generator's state, or the rows'
+seeds under the dispatcher); every rank then runs the model's
+``sample(mesh=...)`` (``sample_onestep(mesh=...)`` at ``nsteps=1``) on
+its rows of the bucket, whose result ``gather_batch`` gives back, so a
+seed gives the samples of the service without a mesh. Every collective
+of rank 0 comes from one thread at a time, in one order (a lock around
+each message and its run): the caller's under the plain mode, the
+dispatcher's under ``batch_window_ms``. ``svc.stats`` and the padded
+rows are counted on rank 0.
 """
 
 from __future__ import annotations
@@ -37,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import zlib
 from typing import Sequence
 
 import numpy as np
@@ -53,6 +74,10 @@ class _PendingRequest:
     event: threading.Event
     result: np.ndarray | None = None
     error: BaseException | None = None
+
+
+# the operations of a mesh service's messages
+_STOP, _RUN, _WARM = 0, 1, 2
 
 
 def row_seeds(seed: int, n: int) -> list[int]:
@@ -79,11 +104,10 @@ class SamplerService:
         docstring). ``picard``: ``KarrasModel.sample_parallel``'s knobs
         (e.g. ``{"window": 8, "tol": 1e-3}``), the latency mode; it cannot
         co-batch (``batch_window_ms`` must be 0) and needs nsteps ≥ 2.
-        ``nsteps=1``: 1-NFE serving of a distilled student. ``mesh``:
-        not ported yet, raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data-parallel serving) is not ported yet")
+        ``nsteps=1``: 1-NFE serving of a distilled student. ``mesh``: a
+        ``DeviceMesh`` with a ``data`` axis, data-parallel serving (module
+        docstring); every bucket must divide the axis, and ``picard``
+        cannot take a mesh."""
         self.device = resolve_device(device)
         self.sample_kwargs = dict(sample_kwargs or {})
         self.model = model.to(self.device)
@@ -95,6 +119,18 @@ class SamplerService:
         if self.picard is not None and self.batch_window_ms > 0:
             raise ValueError("picard mode cannot co-batch requests "
                              "(shared noise draw); use batch_window_ms=0")
+        if self.picard is not None and mesh is not None:
+            raise ValueError("picard mode is single-device (latency "
+                             "path); drop mesh=")
+        self.mesh = mesh
+        if mesh is not None:
+            from diffsci_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
+            self._data = axis_size(mesh, DATA_AXIS)
+            bad = [b for b in self.batch_buckets if b % self._data]
+            if bad:
+                raise ValueError(
+                    f"batch_buckets {bad} not divisible by the mesh data "
+                    f"axis size {self._data}")
         self.onestep = nsteps == 1 and hasattr(model, "get_denoiser")
         if self.onestep and self.picard is not None:
             raise ValueError("picard mode needs nsteps >= 2; a 1-NFE "
@@ -117,6 +153,8 @@ class SamplerService:
                       "chunks": 0, "wall_seconds": 0.0,
                       "batched_requests": 0, "batched_dispatches": 0,
                       "picard_sweeps": 0}
+        if mesh is not None:
+            self._join_mesh(mesh, model)
 
     @classmethod
     def from_checkpoint(cls, path, shape: Sequence[int],
@@ -148,12 +186,109 @@ class SamplerService:
         return cls(model, shape, device=model.device, **service_kwargs)
 
     # ------------------------------------------------------------------
+    # data-parallel serving: rank 0's messages, the other ranks' loop
+    # ------------------------------------------------------------------
+    def _join_mesh(self, mesh, model) -> None:
+        """Every rank's service: its rank, the messages' device, and the
+        service's key (its arguments), held equal on every rank."""
+        import torch.distributed as dist
+
+        from diffsci_tpu_torch.parallel.mesh import mesh_device
+        self._rank = dist.get_rank()
+        self._comm = mesh_device(mesh)
+        self._comm_lock = threading.Lock()
+        self._released = False
+        desc = repr((type(model).__name__, self.shape, self.batch_buckets,
+                     self.nsteps, sorted(self.sample_kwargs.items()),
+                     self.onestep, self.batch_window_ms > 0))
+        self._key = zlib.crc32(desc.encode())
+        keys = [torch.zeros(1, dtype=torch.int64, device=self._comm)
+                for _ in range(dist.get_world_size())]
+        dist.all_gather(keys, torch.full((1,), self._key, dtype=torch.int64,
+                                         device=self._comm))
+        if any(int(k) != self._key for k in keys):
+            raise ValueError("the ranks built SamplerService(mesh=) with "
+                             "other arguments: every rank must pass the "
+                             "same ones")
+
+    def _send(self, op: int, batch: int = 0, generator=None) -> None:
+        """Rank 0: broadcast a run's header and payload (the caller holds
+        ``_comm_lock``)."""
+        import torch.distributed as dist
+        kind, total, payload = 0, 0, torch.zeros(0, dtype=torch.int64)
+        if isinstance(generator, (list, tuple)):
+            kind, total = 1, len(generator)
+            payload = torch.tensor([g.initial_seed() for g in generator],
+                                   dtype=torch.int64)
+        elif generator is not None:
+            payload = generator.get_state().to(torch.int64)
+        head = torch.tensor([op, batch, kind, payload.numel(), self._key,
+                             total], dtype=torch.int64, device=self._comm)
+        dist.broadcast(head, src=0)
+        if payload.numel():
+            dist.broadcast(payload.to(self._comm), src=0)
+
+    def _receive(self):
+        """Another rank: the next header and payload from rank 0, as
+        (op, bucket, the run's generator or generators)."""
+        import torch.distributed as dist
+        head = torch.zeros(6, dtype=torch.int64, device=self._comm)
+        dist.broadcast(head, src=0)
+        op, batch, kind, n, key, total = (int(v) for v in head.cpu())
+        if key != self._key:
+            raise RuntimeError("rank 0's service is not this rank's")
+        payload = torch.zeros(n, dtype=torch.int64, device=self._comm)
+        if n:
+            dist.broadcast(payload, src=0)
+        payload = payload.cpu()
+        if op != _RUN:
+            return op, batch, None
+        if kind == 1:
+            gens = self._row_generators[:total]
+            for g, seed in zip(gens, payload.tolist()):
+                g.manual_seed(seed)
+            return op, batch, gens
+        self._generator.set_state(payload.to(torch.uint8))
+        return op, batch, self._generator
+
+    def follow(self) -> None:
+        """On a rank other than 0 of a mesh service: run rank 0's bucket
+        runs and warm-ups, in its order, until rank 0's ``close()``."""
+        if self.mesh is None or self._rank == 0:
+            raise RuntimeError("follow() is for the ranks other than 0 of "
+                               "a SamplerService(mesh=...)")
+        while True:
+            op, batch, generator = self._receive()
+            if op == _STOP:
+                return
+            if op == _WARM:
+                self._warm_bucket(batch)
+            else:
+                self._bucket_run(batch, generator)
+
+    def _front_end(self, what: str) -> None:
+        if self.mesh is not None and self._rank != 0:
+            raise RuntimeError(f"{what} runs on rank 0 of a mesh service; "
+                               "the other ranks call follow()")
+
     def _run(self, batch: int, generator) -> torch.Tensor:
-        """One bucket run from ``generator`` (or one generator a row)."""
+        """One bucket run from ``generator`` (or one generator a row); over
+        a mesh, announced to the other ranks first."""
+        if self.mesh is None:
+            return self._bucket_run(batch, generator)
+        with self._comm_lock:
+            self._send(_RUN, batch, generator)
+            return self._bucket_run(batch, generator)
+
+    def _bucket_run(self, batch: int, generator) -> torch.Tensor:
+        """The bucket run itself (over a mesh: this rank's rows, the rows
+        gathered)."""
+        mesh = {} if self.mesh is None else {"mesh": self.mesh}
         if self.onestep:
             from diffsci_tpu_torch.models.karras.distill import \
                 sample_onestep
-            out = sample_onestep(self.model, batch, self.shape, generator)
+            out = sample_onestep(self.model, batch, self.shape, generator,
+                                 **mesh)
         elif self.picard is not None:
             out, sweeps = self.model.sample_parallel(
                 batch, self.shape, generator, nsteps=self.nsteps,
@@ -161,12 +296,17 @@ class SamplerService:
             self.stats["picard_sweeps"] += sweeps
         else:
             out = self.model.sample(batch, self.shape, generator=generator,
-                                    nsteps=self.nsteps, **self.sample_kwargs)
+                                    nsteps=self.nsteps, **self.sample_kwargs,
+                                    **mesh)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return out
 
     def _compile(self, batch: int) -> None:
+        """Capture the graph of a bucket (over a mesh, of its rows on this
+        rank)."""
+        if self.mesh is not None:
+            batch //= self._data
         if self.onestep:
             from diffsci_tpu_torch.models.karras.distill import \
                 compile_onestep
@@ -185,18 +325,28 @@ class SamplerService:
         dispatcher serving meanwhile is not disturbed; callers that arrive
         during a warm-up wait for it and then find their buckets warm.
         Returns seconds per bucket captured by this call."""
+        self._front_end("warmup()")
         times = {}
         with self._warm_lock, self._lock:
             for b in self.batch_buckets:
                 if b in self._warm:
                     continue
                 t0 = time.perf_counter()
-                self._compile(b)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                if self.mesh is None:
+                    self._warm_bucket(b)
+                else:
+                    # every rank captures the same buckets in one order
+                    with self._comm_lock:
+                        self._send(_WARM, b)
+                        self._warm_bucket(b)
                 times[b] = time.perf_counter() - t0
-                self._warm.add(b)
         return times
+
+    def _warm_bucket(self, b: int) -> None:
+        self._compile(b)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._warm.add(b)
 
     def _ensure_warm(self) -> None:
         if self._warm != set(self.batch_buckets):
@@ -228,12 +378,18 @@ class SamplerService:
                 self._dispatcher.start()
 
     def close(self) -> None:
-        """Stop the dispatcher thread (a no-op without batching)."""
+        """Stop the dispatcher thread (a no-op without batching); on rank
+        0 of a mesh service, then release the other ranks' ``follow()``
+        (once; a later call sends nothing)."""
         with self._queue_signal:
             self._shutdown = True
             self._queue_signal.notify_all()
         if self._dispatcher is not None:
             self._dispatcher.join(timeout=5)
+        if self.mesh is not None and self._rank == 0 and not self._released:
+            with self._comm_lock:
+                self._send(_STOP)
+                self._released = True
 
     def _dispatch_loop(self) -> None:
         """The dispatcher thread: on the service's device and its creator's
@@ -351,7 +507,9 @@ class SamplerService:
         generator. With ``batch_window_ms`` > 0 the request goes through
         the dispatcher: its rows' generators are seeded from the seed
         (``row_seeds``), so a seed gives the same samples whatever the
-        request is batched with."""
+        request is batched with. Over a mesh, rank 0 alone takes
+        requests."""
+        self._front_end("sample()")
         if self.batch_window_ms > 0:
             return self._sample_batched(nsamples, generator)
         self._ensure_warm()

@@ -27,7 +27,12 @@ copy so that the card's paths run on the CPU:
   in f32, 64 images a set and 20 FLD steps;
 - 37 (``phase_parallel``) over gloo on the CPU: part (a)'s one rank (B
   at batch 16, 2 timed steps, A at phase 2's cut width, H at 2 blocks of
-  32 on 32² fields), part (b)'s two spawned ranks as they are.
+  32 on 32² fields), part (b)'s two spawned ranks as they are;
+- 38 (``phase_spatial``) over gloo on the CPU: part (a)'s one rank (A and
+  B at phase 2's and 8 channels' widths, F at 8 channels, J at batch 16,
+  K's autoencoder on 32² at 8 channels), part (b)'s two ranks at A's
+  depth with 8 channels on 16³ in f32, F at 8 channels (the copy's
+  source is cut, since spawned ranks import it afresh).
 
 Then runs the named phases (default: 34 to 36) and prints each one's
 seconds. The numbers mean nothing; control flow, shapes, draw
@@ -78,7 +83,12 @@ def make_copy(out: str) -> None:
         return flash_attention_bwd_plain(''')
     fn = os.path.join(pkg, "kernels/fused_norm.py")
     for name, plain in (("norm_silu", "norm_silu_plain("),
-                        ("norm_silu_bwd", "norm_silu_bwd_plain(")):
+                        ("norm_silu_bwd", "norm_silu_bwd_plain("),
+                        ("norm_silu_stats", "norm_silu_stats_plain("),
+                        ("norm_silu_apply", "norm_silu_apply_plain("),
+                        ("norm_silu_bwd_partials",
+                         "norm_silu_bwd_partials_plain("),
+                        ("norm_silu_bwd_dx", "norm_silu_bwd_dx_plain(")):
         _sub(fn, f'''    if x.device.type == "cpu":
         return {plain}''', f'''    if x.device.type == "cpu":
         kernels.LAUNCHES["{name}"] += 1
@@ -125,6 +135,23 @@ def make_copy(out: str) -> None:
         return torch.device("cpu")
         if not''')
     _sub(os.path.join(out, "chip_smoke.py"), '"cuda"', '"cpu"')
+    # phase 38 (b)'s spawned ranks import the copy afresh: cut them there
+    # (A at 8 channels on 16³, f32; F at 8 channels; every attention
+    # through the kernels' path)
+    cs = os.path.join(out, "chip_smoke.py")
+    _sub(cs, "A_WIDTH = 32 ", "A_WIDTH = 8 ")
+    _sub(cs, "NSTEPS = 18\n", "NSTEPS = 3\n")
+    _sub(cs, "SP_SHAPE = (4, 32, 32, 32, 1)", "SP_SHAPE = (2, 16, 16, 16, 1)")
+    _sub(cs, """    return KarrasModel(PUNetG(cfg), KarrasModelConfig.from_edm(),
+                       compute_dtype=torch.bfloat16)""",
+         """    return KarrasModel(PUNetG(cfg), KarrasModelConfig.from_edm())""")
+    _sub(cs, """    net = PUNetGCond(PUNetGConfig(model_channels=64,""",
+         """    net = PUNetGCond(PUNetGConfig(model_channels=8,""")
+    _sub(cs, """    return ens.EnsembleKarrasModel(net, cfg, conditional=True,
+                                   compute_dtype=torch.bfloat16, device=dev)""",
+         """    return ens.EnsembleKarrasModel(net, cfg, conditional=True,
+                                   device=dev)""")
+    _sub(fa, "MIN_TOKENS = 2048", "MIN_TOKENS = 1")
 
 
 def rehearse(out: str, names, si_steps: int) -> None:
@@ -176,6 +203,16 @@ def rehearse(out: str, names, si_steps: int) -> None:
         d.KarrasModelConfig.from_edm(), device="cpu")
     cs.PAR_BACKEND, cs.PAR_B_BATCH, cs.PAR_TIMED = "gloo", 16, 2
     cs.PAR_H_SIDE = 32
+    cs.J_BATCH = 16
+
+    def vae_k():
+        return d.VAEModel(d.AutoencoderKL(
+            DDConfig(resolution=32, ch=8, ch_mult=(1, 2), num_res_blocks=1),
+            embed_dim=4, device="cpu"), d.VAEModelConfig(),
+            discriminator=d.NLayerDiscriminator(ndf=8, n_layers=2,
+                                                device="cpu"),
+            device="cpu")
+    cs.vae_k = vae_k
     cs.H_WIDTHS = dict(nembed=32, nheads=2, nblocks=2, mlp_factor=4,
                        patch_size=4, nchannels=1)
     cs.nccl_kernels = lambda fn: []
@@ -187,6 +224,13 @@ def rehearse(out: str, names, si_steps: int) -> None:
         return 0.5 * (time.perf_counter() - t0) / iters * 1e3
 
     cs.device_ms = device_ms
+
+    def walls(fn, reps=3):
+        t0 = time.perf_counter()
+        fn()
+        return [time.perf_counter() - t0]
+
+    cs.walls = walls
     cs.NORMS_A = 12
     cs.SI_STEPS, cs.SI_NFE, cs.SI_EM_NFE = si_steps, 2 * si_steps - 3, \
         si_steps - 1

@@ -433,5 +433,185 @@ CASES = {"mesh": case_mesh, "dp_step": case_dp_step,
          "halo": case_halo, "fit": case_fit}
 
 
+# ---------------------------------------------------------------------------
+# every train step synced through its state's placement
+# ---------------------------------------------------------------------------
+def case_ensemble_step(rank, world, p):
+    """F's ensemble/AR step (CRPS over E members, horizon 2, the in-step
+    sampler) on a replicated state, on this rank's rows of the replayed
+    global draws."""
+    from tests._torch_steps import ensemble_step
+    mesh = make_mesh(device_type="cpu")
+    return ensemble_step(p["ens"], lambda s: replicate(s, mesh),
+                         lambda a: shard_batch(a, mesh))
+
+
+def case_distill_step(rank, world, p):
+    from tests._torch_steps import distill_step
+    mesh = make_mesh(device_type="cpu")
+    return distill_step(p["distill"], lambda s: replicate(s, mesh),
+                        lambda a: shard_batch(a, mesh))
+
+
+def case_vae_step(rank, world, p):
+    from tests._torch_steps import vae_step
+    mesh = make_mesh(device_type="cpu")
+    return vae_step(p["vae"], lambda s: replicate(s, mesh),
+                    lambda a: shard_batch(a, mesh))
+
+
+# ---------------------------------------------------------------------------
+# SamplerService(mesh=...)
+# ---------------------------------------------------------------------------
+def case_mesh_service(rank, world, p):
+    """Rank 0 serves, the others follow: plain, dispatcher, 1-NFE, DDPM,
+    HTTP, and the JAX service's x_T replayed; the contract's errors."""
+    import json
+    import threading
+    import urllib.request
+
+    from diffsci_tpu_torch.serving import SamplerService, build_server
+    from tests._torch_steps import service_models
+    mesh = make_mesh(device_type="cpu")
+    out = {}
+    for label, (model, kw, requests) in service_models(p["svc"]).items():
+        svc = SamplerService(model, kw.pop("shape"), mesh=mesh,
+                             device="cpu", **kw)
+        if rank:
+            try:
+                svc.sample(2, 1)
+            except RuntimeError:
+                out["follower_raises"] = True
+            svc.follow()
+            continue
+        svc.warmup()
+        out[label] = [svc.sample(n, seed) for n, seed in requests]
+        out[label + "_stats"] = dict(svc.stats)
+        if label == "plain":
+            server = build_server(svc, port=0)
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.server_address[1]}/sample",
+                data=json.dumps({"nsamples": 3, "seed": 5}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                out["http"] = np.asarray(json.loads(r.read())["samples"],
+                                         np.float32)
+            server.shutdown()
+        svc.close()
+    # the JAX service's model and x_T (test_serving.py:243-259)
+    twin = KarrasModel(MLPUncond(2, hidden_dims=(8,), device="cpu"),
+                       KarrasModelConfig.from_edm(), device="cpu")
+    twin.net.load_state_dict({k: _t(v) for k, v in p["svc"]["jax"].items()})
+    _replay(twin, p["svc"]["jax_xT"])
+    svc = SamplerService(twin, (2,), batch_buckets=(8,), nsteps=3, mesh=mesh,
+                         device="cpu")
+    if rank:
+        svc.follow()
+    else:
+        out["jax"] = svc.sample(8, 11)
+        svc.close()
+    for kw in ({"batch_buckets": (3, 4)}, {"picard": {"window": 2}}):
+        try:
+            SamplerService(twin, (2,), nsteps=3, mesh=mesh, device="cpu",
+                           **kw)
+        except ValueError:
+            out[f"raises {sorted(kw)[0]}"] = True
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the dp × spatial train step
+# ---------------------------------------------------------------------------
+def _spatial_case(p, axes, shape):
+    from tests._torch_steps import spatial_step
+    mesh = make_mesh(axes=axes, shape=shape, device_type="cpu")
+    return spatial_step(p, mesh)
+
+
+def case_spatial_2d(rank, world, p):
+    """The JAX test's net (test_parallel.py:170-180) on a (world / 2, 2)
+    data × spatial mesh."""
+    return _spatial_case(p["sp2d"], ("data", "spatial"), (world // 2, 2))
+
+
+def case_spatial_attention(rank, world, p):
+    """A 3D PUNetG with bottleneck attention on a spatial mesh of every
+    rank; then the gathered attention through the flash kernels' path."""
+    out = _spatial_case(p["sp3d"], ("spatial",), (world,))
+    from tests._torch_steps import gathered_attention_check
+    out["flash_path"] = gathered_attention_check(
+        make_mesh(axes=("spatial",), device_type="cpu"))
+    return out
+
+
+def case_spatial_circular(rank, world, p):
+    """The same 3D net with circular convolutions (the halos wrap)."""
+    return _spatial_case(p["sp3dc"], ("spatial",), (world,))
+
+
+def case_spatial_plain_norms(rank, world, p):
+    """The plain group-norm path and GroupPix on slabs against the whole
+    tensor, forward and backward."""
+    from tests._torch_steps import plain_norms_check
+    return plain_norms_check(make_mesh(axes=("spatial",),
+                                       device_type="cpu"))
+
+
+def case_spatial_raises(rank, world, p):
+    """What a spatial mesh cannot take raises at placement, or in a step
+    other than ``make_train_step``: PUNetGCond (channels-first
+    conditions), an extra residual module, a slab that the network's
+    levels do not pool whole, and the distill step on a spatial state."""
+    from diffsci_tpu_torch import PUNetG, PUNetGCond, PUNetGConfig
+    from diffsci_tpu_torch.models.karras import distill
+    from diffsci_tpu_torch.parallel import shard_state_spatial
+    mesh = make_mesh(axes=("spatial",), device_type="cpu")
+    cfg = dict(model_channels=8, channel_expansion=[2])
+    shape = (2, 4 * world, 8, 1)
+
+    def state_of(net):
+        model = KarrasModel(net, KarrasModelConfig.from_edm(), device="cpu")
+        return model, create_train_state(model, shape, seed=0)
+
+    nets = {"cond": PUNetGCond(PUNetGConfig(input_channels=2, **cfg),
+                               channel_conditional_items=("c",),
+                               device="cpu"),
+            "residual": PUNetG(PUNetGConfig(**cfg),
+                               extra_residual=nn.Identity(), device="cpu")}
+    out = {}
+    for name, net in nets.items():
+        _, (state, _) = state_of(net)
+        try:
+            shard_state_spatial(state, mesh, shape)
+        except NotImplementedError:
+            out[name] = True
+    model, (state, tx) = state_of(PUNetG(PUNetGConfig(**cfg), device="cpu"))
+    try:
+        shard_state_spatial(state, mesh, (2, world, 8, 1))
+    except ValueError:
+        out["slab"] = True
+    shard_state_spatial(state, mesh, shape)
+    x = shard_batch(torch.randn(shape), mesh)
+    try:
+        distill.make_distill_step(model, tx, 2)(
+            state, distill._teacher_like(model), x)
+    except NotImplementedError:
+        out["distill"] = True
+    return out
+
+
+CASES.update({"ensemble_step": case_ensemble_step,
+              "distill_step": case_distill_step,
+              "vae_step": case_vae_step, "mesh_service": case_mesh_service,
+              "spatial_2d": case_spatial_2d,
+              "spatial_attention": case_spatial_attention,
+              "spatial_circular": case_spatial_circular,
+              "spatial_plain_norms": case_spatial_plain_norms,
+              "spatial_raises": case_spatial_raises})
+
+
 def run(rank, world, payload):
     return cases(CASES, rank, world, payload)

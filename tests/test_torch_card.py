@@ -101,7 +101,10 @@ def test_kernel_matches_plain_on_card(dtype):
                                 "norm_silu_bwd": 0, "flash_attention": 1,
                                 "flash_attention_dq": 0,
                                 "flash_attention_dkv": 0,
-                                "fused_lincomb3": 1}
+                                "fused_lincomb3": 1, "norm_silu_stats": 0,
+                                "norm_silu_apply": 0,
+                                "norm_silu_bwd_partials": 0,
+                                "norm_silu_bwd_dx": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

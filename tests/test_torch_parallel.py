@@ -24,7 +24,28 @@ mode gives the single-device result, within the JAX test's own bound:
 - ``Trainer(mesh=...)`` over an FSDP and a TP state: its losses, the
   EMA's validation loss, and checkpoints of whole tensors restored at
   world size N and 1, against one process at the DP bounds;
-- ``fit_karras(mesh=...)`` against the single-process loop.
+- ``fit_karras(mesh=...)`` against the single-process loop;
+- the ensemble/AR (F's: CRPS over E, horizon 2, the in-step sampler),
+  distill and VAE (discriminator on) steps on a replicated state, against
+  the single-process step on the whole batch with the same replayed draws
+  at the DP bounds; the ensemble step also against the JAX package's
+  single-device ``make_ensemble_train_step``;
+- ``SamplerService(mesh=...)`` (rank 0 serves, the others follow), plain,
+  through the dispatcher, 1-NFE, DDIM and over HTTP, against the
+  single-process service at the same seeds (1e-5 / 1e-6), and the JAX
+  ``SamplerService(mesh=make_mesh())`` on its x_T replayed (at the
+  port's Heun-against-JAX bound, rtol 1e-3 atol 1e-4); its bad buckets
+  and ``picard=`` raise, as the JAX service's;
+- the dp × spatial step (``shard_state_spatial``) against the JAX
+  package's single-device ``make_train_step`` on the same weights with σ
+  and ε replayed (loss rtol 1e-5, parameters rtol 1e-4 atol 1e-6): the JAX
+  test's 2D net (``test_parallel.py:170-180``) on a (world / 2, 2) mesh, a
+  3D PUNetG with bottleneck attention and the same net with circular
+  convolutions on a spatial mesh of every rank; a second step from a
+  generator against the single-process port's. The steps of these pins
+  take AdamW with eps 1e-4 in both packages (``tests/_torch_steps.py``:
+  at eps 1e-8 Adam's first step turns a rounding-level gradient into
+  ±lr).
 """
 
 import numpy as np
@@ -56,9 +77,16 @@ from diffsci_tpu.parallel import fsdp_specs as jfsdp_specs
 from diffsci_tpu.parallel import make_mesh as jmake_mesh
 from diffsci_tpu.parallel import replicate as jreplicate
 from diffsci_tpu.parallel import shard_batch as jshard_batch
+from diffsci_tpu.models.karras import ensemble as jens
+from diffsci_tpu.models.nets.punetg import PUNetG as JPUNetG
+from diffsci_tpu.models.nets.punetg import PUNetGCond as JPUNetGCond
+from diffsci_tpu.models.nets.punetg import PUNetGConfig as JPUNetGConfig
+from diffsci_tpu.serving import SamplerService as JSamplerService
+import optax
 
 from diffsci_tpu_torch.convert import from_jax_variables
 from tests import _torch_warmup  # noqa: F401  (MKL's first exp)
+from tests import _torch_steps as steps
 from tests._torch_ranks import result, run_ranks
 
 B = 32
@@ -80,16 +108,26 @@ class _JitInit:
         return jax.jit(self.model.init, static_argnums=1)(key, x_shape)
 
 
-def _jax_step(hidden, x, sigma, eps, bnorm=False, mesh=None, net=None):
-    """One JAX train step (default AdamW + clip) of an MLP of ``hidden``
-    widths (or of ``net``) from the init of key 0, with σ and ε replayed;
-    returns (the init's state dict, loss, norm, the stepped state
-    dict)."""
+def _pin_optimizer():
+    """``tests/_torch_steps.py:pin_optimizer`` in optax: the default clip
+    and AdamW with eps 1e-4."""
+    return optax.chain(optax.clip_by_global_norm(0.5),
+                       optax.adamw(1e-3, b1=0.9, b2=0.999,
+                                   eps=steps.PIN_ADAM_EPS, weight_decay=1e-4))
+
+
+def _jax_step(hidden, x, sigma, eps, bnorm=False, mesh=None, net=None,
+              optimizer=None):
+    """One JAX train step (default AdamW + clip, or ``optimizer``) of an
+    MLP of ``hidden`` widths (or of ``net``) from the init of key 0, with σ
+    and ε replayed; returns (the init's state dict, loss, norm, the
+    stepped state dict)."""
     jmodel = JKarrasModel(net or JMLPUncond(dim=2, hidden_dims=hidden),
                           JKarrasModelConfig.from_edm(
                               loss_metric="mse", has_edm_batch_norm=bnorm))
     jstate, jtx = jcreate_train_state(_JitInit(jmodel), jax.random.PRNGKey(0),
-                                      (8,) + x.shape[1:])
+                                      (8,) + x.shape[1:],
+                                      optimizer=optimizer)
     init = _sd(jstate.variables())
 
     def jloss(variables, key, xx, y, replay, train=True):
@@ -266,7 +304,131 @@ def jax_side():
         upscale=2)).transpose(0, 3, 1, 2)
 
     payload["fit_data"] = rng.standard_normal((64, 2)).astype(np.float32)
+    _spatial_pins(rng, payload, ref)
+    _ensemble_pin(rng, payload, ref)
+    _service_pin(payload, ref)
+    payload.update(_port_step_payloads(rng))
     return payload, ref
+
+
+SP_2D = dict(model_channels=8, channel_expansion=(2,),
+             number_resnet_downward_block=1, number_resnet_upward_block=1,
+             number_resnet_attn_block=1, number_resnet_before_attn_block=1,
+             number_resnet_after_attn_block=1)
+SP_3D = dict(SP_2D, dimension=3, number_resnet_attn_block=2, num_heads=2,
+             attn_backend="flash")
+
+
+def _spatial_pins(rng, payload, ref):
+    """The JAX single-device step of each spatial pin's net: the JAX
+    test's 2D PUNetG at batch 8 on 16² (test_parallel.py:170-180), a 3D
+    one with bottleneck attention at batch 2 on 8³, and that net with
+    circular convolutions."""
+    for name, cfg, shape in (
+            ("sp2d", SP_2D, (8, 16, 16, 1)), ("sp3d", SP_3D, (2, 8, 8, 8, 1)),
+            ("sp3dc", dict(SP_3D, convolution_type="circular"),
+             (2, 8, 8, 8, 1))):
+        x = rng.standard_normal(shape).astype(np.float32)
+        sigma = np.exp(rng.standard_normal(shape[0]) - 1.0).astype(
+            np.float32)
+        eps = rng.standard_normal(shape).astype(np.float32)
+        jcfg = JPUNetGConfig(**dict(cfg, channel_expansion=list(
+            cfg["channel_expansion"])))
+        sd, *ref[name] = _jax_step(None, x, sigma, eps, net=JPUNetG(jcfg),
+                                   optimizer=_pin_optimizer())
+        payload[name] = dict(cfg=cfg, sd=sd, x=x, sigma=sigma, eps=eps)
+
+
+def _ensemble_pin(rng, payload, ref):
+    """One JAX ``make_ensemble_train_step`` (F's small configuration in
+    ``tests/_torch_steps.py``) on replayed σ, ε and in-step x_T, as
+    tests/test_torch_ensemble.py replays them."""
+    B, H, S, E = 4, 8, 2, 2
+    jcfg = jens.EnsembleKarrasModelConfig.from_karras_config(
+        JKarrasModelConfig.from_edm(loss_metric="crps",
+                                    autoregressive_loss_steps=S,
+                                    autoregressive_loss_diffusion_steps=2),
+        ensemble_size_train=E)
+    jnet = JPUNetGCond(JPUNetGConfig(**dict(
+        steps.ENS_CFG, channel_expansion=[2])),
+        channel_conditional_items=["y"])
+    jmodel = jens.EnsembleKarrasModel(jnet, jcfg, conditional=True)
+    x = rng.normal(size=(B, H, H, S)).astype(np.float32)
+    ywin = rng.normal(size=(B, H, H, 2)).astype(np.float32)
+    sig = np.exp(rng.normal(size=(S, B)) * 1.2 - 1.2).astype(np.float32)
+    eps = rng.normal(size=(S, B, E, H, H, 1)).astype(np.float32)
+    x_T = rng.normal(size=(S - 1, B, H, H, 1)).astype(np.float32)
+    jstate, jtx = jcreate_train_state(jmodel, jax.random.PRNGKey(0),
+                                      (B, H, H, 1),
+                                      y={"y": jnp.asarray(ywin)},
+                                      optimizer=_pin_optimizer())
+    orig = jmodel.autoregressive_loss_fn
+
+    def replayed(variables, key, batch, n_ensemble=1, train=True):
+        bx, by = batch
+        calls = []
+
+        def sampler_fn(target, y):
+            s = len(calls)
+            calls.append(s)
+            return jax.lax.stop_gradient(jmodel.propagate_white_noise(
+                variables, key, jnp.asarray(x_T)[s], y, nsteps=2))
+
+        loss, upd, step_losses = orig(
+            variables, key, bx, by, None, train=train,
+            n_ensemble=n_ensemble, sigma_seq=jnp.asarray(sig),
+            eps_seq=[jnp.asarray(eps)[s] for s in range(S)],
+            sampler_fn=sampler_fn)
+        return loss, upd, {f"ar_loss_horizon_{k + 1}": v
+                           for k, v in enumerate(step_losses)}
+
+    jmodel.training_loss = replayed
+    payload["ens"] = dict(sd=_sd(jstate.variables()), x=x,
+                          ywin=np.moveaxis(ywin, -1, 1).copy(), sigma=sig,
+                          eps=eps, x_T=x_T)
+    jstate, met = jens.make_ensemble_train_step(jmodel, jtx)(
+        jstate, jax.random.PRNGKey(0),
+        (jnp.asarray(x), {"y": jnp.asarray(ywin)}))
+    ref["ens"] = (float(met["train_loss"]), None, _sd(jstate.variables()))
+
+
+def _service_pin(payload, ref):
+    """The JAX ``SamplerService(mesh=make_mesh())`` of its own test
+    (tests/test_serving.py:243-259) at key 11, and the x_T its bucket run
+    draws (the chunk's key, then the sampler's first split)."""
+    jmodel = JKarrasModel(JMLPUncond(dim=2, hidden_dims=(8,)),
+                          JKarrasModelConfig.from_edm())
+    vs = _JitInit(jmodel).init(jax.random.PRNGKey(0), (4, 2))
+    svc = JSamplerService(jmodel, vs, shape=(2,), batch_buckets=(8,),
+                          nsteps=3, mesh=jmake_mesh())
+    key = jax.random.PRNGKey(11)
+    ref["svc"] = np.asarray(svc.sample(8, key=key))
+    chunk = jax.random.split(key, 1)[0]
+    payload["svc"] = dict(jax=_sd(vs), jax_xT=np.asarray(jax.random.normal(
+        jax.random.split(chunk, 3)[0], (8, 2))))
+
+
+def _port_step_payloads(rng) -> dict:
+    """The distill and VAE cases' weights and draws (the port's own init:
+    these pins are the single-process port step)."""
+    from diffsci_tpu_torch import KarrasModel, KarrasModelConfig
+    from diffsci_tpu_torch.models.nets.mlp import MLPUncond
+    model = KarrasModel(MLPUncond(2, (16,), device="cpu"),
+                        KarrasModelConfig.from_edm(), device="cpu")
+
+    def weights(seed):
+        model.init(seed)
+        return {k: v.numpy().copy() for k, v in
+                model.net.state_dict().items()}
+    vae = steps.vae_model()
+    x_vae = rng.standard_normal((4, 1, 16, 16)).astype(np.float32)
+    return {
+        "distill": dict(sd=weights(1), teacher=weights(2),
+                        x=rng.standard_normal((8, 2)).astype(np.float32),
+                        idx=rng.integers(0, 3, 8),
+                        eps=rng.standard_normal((8, 2)).astype(np.float32)),
+        "vae": dict(x=x_vae, eps=rng.standard_normal(tuple(
+            vae.latent_shape(x_vae.shape))).astype(np.float32))}
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
@@ -280,7 +442,8 @@ def ranks(request, jax_side, tmp_path_factory):
 def _close_step(out, ref):
     loss, norm, params = ref
     np.testing.assert_allclose(out["loss"], loss, rtol=1e-5)
-    np.testing.assert_allclose(out["norm"], norm, rtol=1e-4)
+    if norm is not None:      # the JAX ensemble step logs no norm
+        np.testing.assert_allclose(out["norm"], norm, rtol=1e-4)
     assert set(out["params"]) <= set(params)
     for name, value in out["params"].items():
         np.testing.assert_allclose(value, params[name], rtol=1e-4,
@@ -459,3 +622,129 @@ def test_fit_karras_on_a_mesh_matches_one_process(ranks):
     for rank in range(world):
         np.testing.assert_allclose(result(res, "fit", rank), single,
                                    rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# every train step synced through its state's placement
+# ---------------------------------------------------------------------------
+def _single(fn, q):
+    return fn(q, lambda state: state, lambda a: a)
+
+
+@pytest.mark.parametrize("name", ["ensemble_step", "distill_step",
+                                  "vae_step"])
+def test_placed_steps_match_the_single_process_step(ranks, name):
+    """A replicated state stepped on each rank's rows: the single-process
+    step on the whole batch, at the DP bounds, on every rank (their
+    replicas no longer drift apart)."""
+    world, res, payload, _ = ranks
+    key = {"ensemble_step": "ens", "distill_step": "distill",
+           "vae_step": "vae"}[name]
+    ref = _single(getattr(steps, name), payload[key])
+    for rank in range(world):
+        out = result(res, name, rank)
+        np.testing.assert_allclose(out["loss"], ref["loss"], rtol=1e-5)
+        groups = ("params", "disc_params") if name == "vae_step" else \
+            ("params",)
+        for group in groups:
+            assert set(out[group]) == set(ref[group])
+            for k, v in out[group].items():
+                np.testing.assert_allclose(v, ref[group][k], rtol=1e-4,
+                                           atol=1e-6, err_msg=k)
+        if name == "vae_step":
+            assert out["gate"] == ref["gate"] == 1.0
+            np.testing.assert_allclose(out["disc_loss"], ref["disc_loss"],
+                                       rtol=1e-5)
+        else:
+            np.testing.assert_allclose(out["norm"], ref["norm"], rtol=1e-4)
+
+
+def test_placed_ensemble_step_matches_jax(ranks):
+    world, res, _, ref = ranks
+    for rank in range(world):
+        _close_step(result(res, "ensemble_step", rank), ref["ens"])
+
+
+# ---------------------------------------------------------------------------
+# SamplerService(mesh=...)
+# ---------------------------------------------------------------------------
+def test_mesh_service_matches_the_single_process_service(ranks):
+    """Rank 0's samples through the plain service (a request of two
+    chunks too), the dispatcher, 1-NFE, DDIM and HTTP are the
+    single-process service's at the same seeds, and its stats count once;
+    the followers refuse ``sample()``."""
+    from diffsci_tpu_torch.serving import SamplerService
+    world, res, payload, _ = ranks
+    out = result(res, "mesh_service")
+    for label, (model, kw, requests) in steps.service_models(
+            payload["svc"]).items():
+        svc = SamplerService(model, kw.pop("shape"), device="cpu", **kw)
+        single = [svc.sample(n, seed) for n, seed in requests]
+        for got, want in zip(out[label], single, strict=True):
+            assert got.shape == want.shape
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6,
+                                       err_msg=label)
+        for k in ("requests", "samples", "padded", "chunks",
+                  "batched_requests", "batched_dispatches"):
+            assert out[label + "_stats"][k] == svc.stats[k], (label, k)
+        if label == "plain":
+            np.testing.assert_allclose(out["http"], svc.sample(3, 5),
+                                       rtol=1e-5, atol=1e-6)
+        svc.close()
+    for rank in range(1, world):
+        assert result(res, "mesh_service", rank)["follower_raises"]
+
+
+def test_mesh_service_matches_jax_and_raises_as_jax(ranks):
+    """The JAX ``SamplerService(mesh=make_mesh())`` on its x_T, at the
+    bound of the port's Heun trajectories against the JAX package's
+    (tests/test_torch_sampling.py: rtol 1e-3, atol 1e-4; its 3 steps from
+    σ 80 leave the two packages' float32 ~3e-5 apart); a bucket that the
+    data axis does not divide and ``picard=`` raise."""
+    world, res, _, ref = ranks
+    out = result(res, "mesh_service")
+    np.testing.assert_allclose(out["jax"], ref["svc"], rtol=1e-3, atol=1e-4)
+    assert out["raises batch_buckets"] and out["raises picard"]
+
+
+# ---------------------------------------------------------------------------
+# the dp × spatial step
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("case,name", [("spatial_2d", "sp2d"),
+                                       ("spatial_attention", "sp3d"),
+                                       ("spatial_circular", "sp3dc")])
+def test_spatial_step_matches_jax(ranks, case, name):
+    """The dp × spatial step against the JAX package's single-device step
+    on the same weights and replayed draws; its second step, from a
+    generator (σ and the rows of ε drawn in the global order), against
+    the single-process port's."""
+    world, res, payload, ref = ranks
+    single = steps.spatial_step(payload[name])
+    for rank in range(world):
+        out = result(res, case, rank)
+        _close_step(out, ref[name])
+        _close_step({"loss": out["gen_loss"], "norm": 0.0,
+                     "params": out["gen_params"]},
+                    (single["gen_loss"], 0.0, single["gen_params"]))
+
+
+def test_spatial_mesh_raises_for_what_it_cannot_take(ranks):
+    """PUNetGCond, an extra residual module, a slab the levels do not
+    pool whole and the distill step on a spatial state raise; nothing
+    trains per slab in their place."""
+    world, res, _, _ = ranks
+    for rank in range(world):
+        assert result(res, "spatial_raises", rank) == dict.fromkeys(
+            ("cond", "residual", "slab", "distill"), True)
+
+
+def test_spatial_layers_match_the_whole_tensor(ranks):
+    """The gathered attention on the flash kernels' path (K4, K5/K6's
+    plain versions) and the plain group norms on slabs: their outputs and
+    gradients against the whole tensor's, within 1e-5 of the scale."""
+    world, res, _, _ = ranks
+    for rank in range(world):
+        assert result(res, "spatial_attention", rank)["flash_path"] <= 1e-5
+        errs = result(res, "spatial_plain_norms", rank)
+        assert set(errs) == {"ln", "rms", "ln_plain", "pix"}
+        assert max(errs.values()) <= 1e-5, errs

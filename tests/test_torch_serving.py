@@ -16,6 +16,7 @@ Euler service at ``tests/test_serving.py``'s rtol 1e-3, atol 1e-4.
 import struct
 import threading
 import time
+import types
 import zlib
 
 import jax.numpy as jnp
@@ -205,8 +206,10 @@ def test_dispatcher_death_reaches_waiters():
 def test_picard_mode_and_rejected_modes():
     """``picard=`` serves through ``sample_parallel``: one seed one result,
     tol 0 equals the sequential Euler service from the seed in nsteps
-    sweeps a bucket run; the JAX service's ValueErrors, and ``mesh=``
-    raising."""
+    sweeps a bucket run; the JAX service's ValueErrors, those of
+    ``mesh=`` too (``picard=`` with a mesh, a bucket that the ``data``
+    axis does not divide), before the service touches the process
+    group. The mesh service itself is tests/test_torch_parallel.py's."""
     model = _model()
     svc = SamplerService(model, (2,), batch_buckets=(4,), nsteps=6,
                          picard={"window": 4, "tol": 0.0}, device="cpu")
@@ -225,8 +228,14 @@ def test_picard_mode_and_rejected_modes():
     with pytest.raises(ValueError, match="nsteps >= 2"):
         SamplerService(model, (2,), nsteps=1, picard={"window": 4},
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        SamplerService(model, (2,), mesh=object(), device="cpu")
+    data2 = types.SimpleNamespace(mesh_dim_names=("data",),
+                                  size=lambda dim: 2)
+    with pytest.raises(ValueError, match="single-device"):
+        SamplerService(model, (2,), picard={"window": 4}, mesh=data2,
+                       device="cpu")
+    with pytest.raises(ValueError, match="not divisible"):
+        SamplerService(model, (2,), batch_buckets=(1, 8), mesh=data2,
+                       device="cpu")
 
 
 def test_onestep_plain_and_windowed():
