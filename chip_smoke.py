@@ -369,8 +369,35 @@ Phases (any failure raises, so the exit code is non-zero):
     K3·S partials and dx, one K4, K5, K6) and each rank's peak memory
     below the single-process step's; F's ensemble step at DP world 2 in
     f32 against the single-process step within the CPU tests' bounds.
-39. One JSON line lists every kernel with its launches over phases 5 to
-    9, 11 to 15 and 17 to 38; the card's name and power limit; then the
+39. FSDP with each layer's weights gathered as it runs (ZeRO 3) and
+    composed with tensor parallelism, and the dp × spatial step of D and
+    E. (a) One NCCL rank, graphed, at full width: B's FSDP step and its
+    FSDP∘TP step on a (1, 1) data × tensor mesh, each bit for bit the
+    plain graphed step over 3 steps (cuDNN's deterministic algorithms),
+    timed beside phase 37's DP arm; a 64-image Heun sample from the
+    FSDP-placed B bit for bit the unplaced model's (35 K1, 980 K2). (b)
+    Two gloo ranks on the one card, eager, f32: B's FSDP step over 3
+    steps against the single-process step within the CPU tests' bounds,
+    the bytes its network's parameters hold between steps exactly the
+    blocks and the unsharded tensors (a count), each rank's state bytes
+    and peak memory beside the DP step's; as a reading, H's DiT-B at one
+    bf16 step (DP against FSDP). (c) Four gloo ranks: B's FSDP∘TP step on
+    a (2, 2) data × tensor mesh, f32, against the single-process step
+    within the CPU tests' bounds. (d) Two gloo ranks, spatial = 2: D at
+    full width (32³ × 1, batch 4, ``PorosityEmbedder(32)``, the EDM batch
+    norm, circular convolutions, flash bottleneck) in f32 against the
+    single-process step on the same weights and replayed draws (the
+    running ``mean``/``var`` too) within the CPU tests' bounds, and in
+    bf16 timed with its launches a step exact (30 K2·S sums, 20 applies,
+    20 K3·S partials and dx, one K4, K5, K6) and its peak memory a rank;
+    E's widths on 32² (28² does not split into two slabs that pool
+    twice: mp convolutions, cosine attention) in f32: the loss within its
+    CPU bound, the parameters within phase 3's bound (E's f32 rounding at
+    full width lies above the CPU tests' parameter bound on one process
+    too; ``scripts/torch_spatial_rounding.py``), the CPU-bound ratio
+    printed.
+40. One JSON line lists every kernel with its launches over phases 5 to
+    9, 11 to 15 and 17 to 39; the card's name and power limit; then the
     result line.
 
 The last line of standard output is
@@ -386,6 +413,7 @@ K2's and K3's kernels.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -6580,6 +6608,8 @@ PAR_B_BATCH = 256          # B's train batch (phase 8's)
 PAR_H_SIDE = 256           # H's fields
 PAR_WORLD = 2              # part (b): ranks sharing the one card over gloo
 PAR_TIMEOUT = 120          # seconds a group of part (b) may take
+# phase 37 (a)'s DP arm (ms a step, device ms), which phase 39 reports
+PAR_DP_TIMES: dict = {}
 # the collectives of each mode of part (b), and the probes that carry them
 PAR_MODES = {
     "dp_step": ("broadcast", "all_reduce"),
@@ -6598,9 +6628,10 @@ def par_arm(label, cfg, x, mesh, arm):
     """B's train step (bf16 over f32 masters, AdamW, power EMA every 4
     steps, seed 0, draws from seed 1) as the plain graphed step of phase
     8 (``arm`` "plain"), over a state ``replicate`` placed ("dp", x cut
-    by ``shard_batch``) or one ``shard_state_fsdp`` placed ("fsdp"):
-    ``PAR_STEPS`` steps with the counts reset before and read after,
-    then ``PAR_TIMED`` timed ones."""
+    by ``shard_batch``), one ``shard_state_fsdp`` placed ("fsdp") or one
+    placed by FSDP composed with tensor parallelism on a data × tensor
+    ``mesh`` ("fsdp_tp"): ``PAR_STEPS`` steps with the counts reset
+    before and read after, then ``PAR_TIMED`` timed ones."""
     from diffsci_tpu_torch import (EMATracker, create_train_state, kernels,
                                    make_train_step)
     from diffsci_tpu_torch.parallel import (replicate, shard_batch,
@@ -6616,6 +6647,9 @@ def par_arm(label, cfg, x, mesh, arm):
         xb = shard_batch(x, mesh)
     elif arm == "fsdp":
         shard_state_fsdp(state, mesh)
+        xb = shard_batch(x, mesh)
+    elif arm == "fsdp_tp":
+        shard_state_fsdp(state, mesh, tensor_axis="tensor")
         xb = shard_batch(x, mesh)
     step = make_train_step(model, tx, ema=tracker)
     gen = torch.Generator("cuda").manual_seed(1)
@@ -6638,7 +6672,8 @@ def par_arm(label, cfg, x, mesh, arm):
         f"{dev:.3f} ms/step; launches {counts}")
     return types.SimpleNamespace(metrics=metrics, snap=snap, counts=counts,
                                  take=take, state=state, dev=dev,
-                                 ms=float(np.median(seconds)) * 1e3)
+                                 ms=float(np.median(seconds)) * 1e3,
+                                 model=model)
 
 
 def nccl_kernels(fn) -> list:
@@ -6717,14 +6752,21 @@ def phase_parallel_world1(zero):
         ok = ok and q999 <= 0.05 * lr and worst <= 2 * PAR_STEPS * lr
         log(f"[parallel B] FSDP against plain: |Δ| 99.9% {q999:.3e}, max "
             f"{worst:.3e}")
-    blocks = fsdp.state.placement.fsdp.blocks
-    log(f"[parallel B] FSDP (graphed, world 1): {len(blocks)} of "
-        f"{len(fsdp.state.params)} tensors sharded, (loss, grad_norm) "
-        f"{fsdp.metrics} against {plain.metrics} "
-        f"{'ok' if ok else 'FAIL'}; {fsdp.ms:.3f} ms/step, device "
-        f"{fsdp.dev:.3f} ms")
+    blocks = [k for k, spec in fsdp.state.placement.specs.items()
+              if "data" in spec]
+    exact = fsdp.metrics == plain.metrics and all(
+        float(max((a[n] - b[n]).abs().max() for n in b)) == 0.0
+        for a, b in zip(fsdp.snap, plain.snap))
+    log(f"[parallel B] FSDP (graphed, world 1, weights gathered layer by "
+        f"layer): {len(blocks)} of {len(fsdp.state.params)} tensors "
+        f"sharded, (loss, grad_norm) {fsdp.metrics} against "
+        f"{plain.metrics} {'ok' if ok else 'FAIL'} "
+        f"({'bit for bit' if exact else 'not bit for bit'}); "
+        f"{fsdp.ms:.3f} ms/step, device {fsdp.dev:.3f} ms")
     if not ok:
         raise AssertionError("phase 37: FSDP and plain steps disagree")
+    PAR_DP_TIMES.update(ms=dp.ms, dev=dp.dev, plain_ms=plain.ms,
+                        plain_dev=plain.dev)
     del arms, plain, dp, fsdp
     torch.cuda.empty_cache()
 
@@ -7600,6 +7642,621 @@ def phase_spatial(zero):
     return counts + phase_spatial_world2(zero)
 
 
+# ---------------------------------------------------------------------------
+# phase 39: FSDP with each layer's weights gathered as it runs, FSDP
+# composed with tensor parallelism, and the dp × spatial step of D and E
+# ---------------------------------------------------------------------------
+FS_STEPS = 3               # steps held against the plain / single step
+FS_SAMPLE = 64             # the Heun sample from the FSDP-placed B
+FS_TIMEOUT = 300           # seconds a group of parts (b) to (d) may take
+FS_D_SHAPE = (4, 32, 32, 32, 1)   # D's train batch over 2 slabs of 16
+# E's widths on 32²: its pools make 28 -> 14 -> 7, and 28 does not split
+# into 2 slabs that each pool twice (a slab must divide by 4)
+FS_E_SHAPE = (8, 32, 32, 1)
+FS_TIMED = 3               # D's bf16 spatial steps timed
+FS_H_SHAPE = (8, 256, 256, 1)     # H's train batch
+# E's spatial f32 step: its gaps to the float64 witness at most this
+# multiple of the single-process f32 step's own
+E_WITNESS = 1.5
+
+
+def cfg_b():
+    from diffsci_tpu_torch import PUNetGConfig
+    return PUNetGConfig(model_channels=64, channel_expansion=[2, 4])
+
+
+def cfg_d():
+    return dataclasses.replace(cfg_a(), convolution_type="circular",
+                               cond_drop=0.1)
+
+
+def cfg_e():
+    return dataclasses.replace(cfg_b(), convolution_type="mp",
+                               attn_type="cosine")
+
+
+def held_bytes(net) -> int:
+    """The bytes a network's parameters hold."""
+    return sum(p.numel() * p.element_size() for p in net.parameters())
+
+
+def state_bytes(state) -> int:
+    """The bytes a train state holds between steps: its parameters, their
+    gradients, AdamW's moments and the EMA shadows."""
+    tensors = list(state.params.values()) + [
+        p.grad for p in state.params.values() if p.grad is not None]
+    for slot in state.optimizer.state.values():
+        tensors += [t for t in slot.values() if torch.is_tensor(t) and t.ndim]
+    if state.ema is not None:
+        for profile in state.ema.profiles:
+            tensors += list(profile.values())
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def witness_gaps(params: dict, ref: dict, grads: dict, ref_grads: dict
+                 ) -> tuple:
+    """(the parameters' largest gap to the witness ``ref`` in the CPU
+    tests' bound, rtol 1e-4 atol 1e-6; the gradients' largest gap to
+    ``ref_grads`` over the tensor's largest entry), at the worst tensor."""
+    p_gap = max(float(((params[k].detach().cpu().double() - v).abs()
+                       / (1e-6 + 1e-4 * v.abs())).max())
+                for k, v in ref.items())
+    g_gap = max(float((grads[k] - v).abs().max()
+                      / (v.abs().max() + 1e-30))
+                for k, v in ref_grads.items())
+    return p_gap, g_gap
+
+
+def phase_fsdp_world1(zero):
+    """Phase 39 (a): one NCCL rank, graphed, at full width."""
+    import torch.distributed as dist
+
+    from diffsci_tpu_torch import create_train_state, kernels
+    from diffsci_tpu_torch.parallel import (initialize_distributed,
+                                            make_mesh, shard_state_fsdp)
+
+    initialize_distributed(device_type="cuda")
+    if dist.get_backend() != PAR_BACKEND or dist.get_world_size() != 1:
+        raise AssertionError("phase 39 (a) wants one NCCL rank")
+    mesh = make_mesh(device_type="cuda")
+    tp_mesh = make_mesh(axes=("data", "tensor"), shape=(1, 1),
+                        device_type="cuda")
+    x = torch.randn((PAR_B_BATCH, 28, 28, 1), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    torch.backends.cudnn.deterministic = True
+    try:
+        arms = {"plain": par_arm("B", cfg_b(), x, mesh, "plain"),
+                "fsdp": par_arm("B", cfg_b(), x, mesh, "fsdp"),
+                "fsdp_tp": par_arm("B", cfg_b(), x, tp_mesh, "fsdp_tp")}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    per_step = dict(zero, norm_silu=NORMS_B, norm_silu_bwd=NORMS_B)
+    counts = []
+    for arm in arms.values():
+        if arm.counts != {k: PAR_STEPS * n for k, n in per_step.items()}:
+            raise AssertionError(f"phase 39: B's step launches {arm.counts}")
+        counts.append(arm.counts)
+    plain = arms["plain"]
+    dp = PAR_DP_TIMES
+    for name in ("fsdp", "fsdp_tp"):
+        arm = arms[name]
+        same = arm.metrics == plain.metrics and all(
+            float(max((a[n] - b[n]).abs().max() for n in b)) == 0.0
+            for a, b in zip(arm.snap, plain.snap))
+        specs = arm.state.placement.specs
+        log(f"[fsdp (a) B] {name} (graphed, world 1, "
+            f"{sum('data' in s for s in specs.values())} of "
+            f"{len(arm.state.params)} tensors in blocks, "
+            f"{sum('tensor' in s for s in specs.values())} column-parallel) "
+            f"against the plain graphed step, {PAR_STEPS} steps: "
+            f"{'bit for bit' if same else 'DIFFERENT'}; {arm.ms:.3f} ms/step"
+            f", device {arm.dev:.3f} ms, against the plain step's "
+            f"{plain.ms:.3f} / {plain.dev:.3f} ms and phase 37's DP arm's "
+            f"{dp.get('ms', float('nan')):.3f} / "
+            f"{dp.get('dev', float('nan')):.3f} ms")
+        if not same:
+            raise AssertionError(f"phase 39: B's {name} step differs")
+    del arms, plain, arm
+    torch.cuda.empty_cache()
+
+    # a Heun sample of 64 from the FSDP-placed B: the cast copy's blocks
+    # gathered layer by layer inside the sampler's graph
+    out, c, seconds = {}, None, {}
+    for placed in (False, True):
+        model = karras(cfg_b())
+        model.init(seed=0)
+        if placed:
+            state, _ = create_train_state(model, x.shape, seed=None)
+            shard_state_fsdp(state, mesh)
+        model.sample(FS_SAMPLE, (28, 28, 1),
+                     torch.Generator("cuda").manual_seed(7), nsteps=NSTEPS)
+        kernels.reset_launches()
+        out[placed] = model.sample(FS_SAMPLE, (28, 28, 1),
+                                   torch.Generator("cuda").manual_seed(7),
+                                   nsteps=NSTEPS)
+        torch.cuda.synchronize()
+        if placed:
+            c = dict(kernels.LAUNCHES)
+        seconds[placed] = walls(lambda: model.sample(
+            FS_SAMPLE, (28, 28, 1), torch.Generator("cuda").manual_seed(7),
+            nsteps=NSTEPS), 3)
+        del model
+    want = dict(zero, fused_axby=NFE, norm_silu=NORMS_B * NFE)
+    same = torch.equal(out[True], out[False])
+    log(f"[fsdp (a) B] {FS_SAMPLE}-image Heun sample from the FSDP-placed "
+        f"model: {'bit for bit' if same else 'DIFFERENT'} against the "
+        f"unplaced model's; launches {c}; {fmt(seconds[True])} against "
+        f"{fmt(seconds[False])}")
+    if not same or c != want:
+        raise AssertionError("phase 39: the FSDP-placed sample differs")
+    counts.append(c)
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return counts
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Inside it, the calls of each ``torch.distributed`` collective the
+    port makes, by name (a dict filled as they come)."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather", "all_gather_into_tensor",
+             "reduce_scatter_tensor", "broadcast")
+    real = {n: getattr(dist, n) for n in names}
+    counts = dict.fromkeys(names, 0)
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+    for n in names:
+        setattr(dist, n, wrap(n))
+    try:
+        yield counts
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+
+
+def _fs_rank(rank, world, port, out_dir, names):
+    """A rank of parts (b) to (d): gloo over CUDA tensors on device 0.
+    Writes its record (each arm's result, or the error that ended it)."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from diffsci_tpu_torch import create_train_state, kernels, make_train_step
+    from diffsci_tpu_torch.checkpoint import gather_state
+    from diffsci_tpu_torch.parallel import (make_mesh, replicate,
+                                            shard_batch, shard_state_fsdp,
+                                            shard_state_spatial)
+
+    card = torch.cuda.is_available()    # False in a CPU rehearsal
+    if card:
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    if card:
+        kernels.load_all()
+    record = {}
+    path = os.path.join(out_dir, f"fsdp.{world}.{rank}.json")
+
+    def close(a, b, rtol, atol):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.max(np.abs(a - b) / (atol + rtol * np.abs(b))))
+
+    def params_err(ours, ref):
+        return max(close(ours[k].cpu(), v.cpu(), 1e-4, 1e-6)
+                   for k, v in ref.items())
+
+    def whole(state):
+        return {k[len("params/"):]: v for k, v in gather_state(state).items()
+                if k.startswith("params/")}
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30 if card else 0.0
+
+    def reset_peak():
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def arm(name, fn):
+        record[name] = "started"
+        with open(path, "w") as f:
+            json.dump(record, f)
+        try:
+            record[name] = fn()
+        except Exception:     # recorded; the parent decides
+            record[name] = "ERROR " + traceback.format_exc()[-1500:]
+        with open(path, "w") as f:
+            json.dump(record, f)
+
+    def b_arms(place, batch=PAR_B_BATCH):
+        """B in f32 (the pins' AdamW), FS_STEPS eager steps on replayed
+        draws, for each (mode, place(state) -> batch shard); a mode named
+        ``*_remat`` steps with ``remat=True``. The single-process arm runs
+        eagerly too (a CUDA graph's replay allocates from its own pool,
+        which ``max_memory_allocated`` after a reset does not see)."""
+        gen = torch.Generator("cuda").manual_seed(11)
+        x = torch.randn((batch, 28, 28, 1), generator=gen, device="cuda")
+        draws = [(torch.exp(torch.randn(batch, generator=gen,
+                                        device="cuda") * 1.2 - 1.2),
+                  torch.randn(x.shape, generator=gen, device="cuda"))
+                 for _ in range(FS_STEPS)]
+        out = {}
+        for mode, placer in place.items():
+            reset_peak()
+            model = karras_f32(cfg_b())
+            state, tx = create_train_state(model, x.shape, seed=0,
+                                           optimizer=pin_optimizer())
+            shard = placer(state)
+            step = make_train_step(model, tx, remat=mode.endswith("_remat"),
+                                   _raw=mode == "single")
+            losses, ms = [], 0.0
+            for k, (sigma, eps) in enumerate(draws):
+                last = k == FS_STEPS - 1
+                calls = counted_collectives() if last \
+                    else contextlib.nullcontext({})
+                if last and card:      # the peak over one step
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                with calls as collectives:
+                    t0 = time.perf_counter()
+                    losses.append(float(step(state, shard(x), sigma=sigma,
+                                             eps=eps)[1]["train_loss"]))
+                    ms = (time.perf_counter() - t0) * 1e3
+            specs = state.placement.specs if state.placement else {}
+            out[mode] = dict(losses=losses, params=whole(state),
+                             held=held_bytes(model.net),
+                             state=state_bytes(state), peak=peak_gib(),
+                             ms=ms, specs=specs,
+                             collectives=dict(collectives))
+            del model, state, step
+        single = out.pop("single")
+        res = {}
+        for mode, o in out.items():
+            res[mode] = dict(
+                err=max(close(o["losses"], single["losses"], 1e-5, 0.0),
+                        params_err(o["params"], single["params"])),
+                held=o["held"], state=o["state"], peak_gib=o["peak"],
+                ms=o["ms"], losses=o["losses"],
+                collectives=o["collectives"])
+            blocks = {k for k, s in o["specs"].items() if "data" in s}
+            sizes = {k: v.numel() * v.element_size()
+                     for k, v in single["params"].items()}
+            # a block is 1/2 of its tensor along each axis (2 ranks each)
+            res[mode]["want_held"] = sum(
+                b // 2 ** len([a for a in o["specs"].get(k, ()) if a])
+                for k, b in sizes.items())
+            res[mode]["blocks"] = len(blocks)
+        res["single"] = dict(held=single["held"], state=single["state"],
+                             peak_gib=single["peak"], ms=single["ms"],
+                             losses=single["losses"])
+        return res
+
+    def b_fsdp():
+        # part (b): B's FSDP step (and DP's) at world 2
+        mesh = make_mesh(device_type="cpu")
+
+        def dp(state):
+            replicate(state, mesh)
+            return lambda a: shard_batch(a, mesh)
+
+        def fsdp(state):
+            shard_state_fsdp(state, mesh)
+            return lambda a: shard_batch(a, mesh)
+        return b_arms({"single": lambda s: (lambda a: a), "dp": dp,
+                       "fsdp": fsdp, "dp_remat": dp, "fsdp_remat": fsdp})
+
+    def c_fsdp_tp():
+        # part (c): B's FSDP∘TP step on a (2, 2) data × tensor mesh
+        mesh = make_mesh(axes=("data", "tensor"), shape=(2, 2),
+                         device_type="cpu")
+
+        def fsdp_tp(state):
+            shard_state_fsdp(state, mesh, tensor_axis="tensor")
+            return lambda a: shard_batch(a, mesh)
+        return b_arms({"single": lambda s: (lambda a: a),
+                       "fsdp_tp": fsdp_tp})
+
+    def h_memory():
+        # a reading: H's DiT-B, one bf16 step, DP against FSDP
+        res = {}
+        gen = torch.Generator("cuda").manual_seed(12)
+        x = torch.randn(FS_H_SHAPE, generator=gen, device="cuda")
+        for mode in ("dp", "fsdp"):
+            reset_peak()
+            model = model_h()
+            state, tx = create_train_state(model, FS_H_SHAPE, seed=0)
+            mesh = make_mesh(device_type="cpu")
+            (replicate if mode == "dp" else shard_state_fsdp)(state, mesh)
+            before = state_bytes(state)
+            step = make_train_step(model, tx)
+            t0 = time.perf_counter()
+            loss = float(step(state, shard_batch(x, mesh),
+                              generator=torch.Generator("cuda").manual_seed(
+                                  13))[1]["train_loss"])
+            res[mode] = dict(loss=loss, state_before=before,
+                             state_after=state_bytes(state),
+                             held=held_bytes(model.net), peak_gib=peak_gib(),
+                             ms=(time.perf_counter() - t0) * 1e3)
+            del model, state, step
+        return res
+
+    def spatial_f32(make, shape, cond, has_mp, witness=None):
+        # D's or E's spatial step in f32 against the single-process step
+        # on the same weights and replayed draws; ``witness`` (E): the
+        # same single-process step in float64 on the CPU, from the card's
+        # initial weights, which both f32 steps' gaps are read against
+        gen = torch.Generator("cuda").manual_seed(14)
+        if cond:
+            x, phi = porous_batch(shape[0], shape[1], gen)
+            y = {"porosity": phi}
+        else:
+            x, y = torch.randn(shape, generator=gen, device="cuda"), None
+        sigma = torch.exp(torch.randn(shape[0], generator=gen,
+                                      device="cuda") * 1.2 - 1.2)
+        eps = torch.randn(shape, generator=gen, device="cuda")
+        keep = torch.rand(shape[0], generator=gen, device="cuda") > 0.1 \
+            if cond else None
+        out = {}
+        for spatial in (False, True):
+            model = make()
+            state, tx = create_train_state(model, shape, seed=0,
+                                           optimizer=pin_optimizer())
+            xb, yb = x, y
+            if spatial:
+                mesh = make_mesh(axes=("data", "spatial"), shape=(1, 2),
+                                 device_type="cpu")
+                shard_state_spatial(state, mesh, shape)
+                xb = shard_batch(x, mesh)
+                yb = None if y is None else shard_batch(y, mesh)
+            if not spatial:
+                init = {k: v.detach().cpu().clone()
+                        for k, v in model.net.state_dict().items()}
+            # eager on one process too: the gradients stay readable
+            step = make_train_step(model, tx, has_mp_weights=has_mp,
+                                   _raw=not spatial)
+            met = step(state, xb, yb, sigma=sigma, eps=eps, keep=keep)[1]
+            out[spatial] = (float(met["train_loss"]), step_snapshot(state),
+                            {k: v.detach().clone() for k, v in
+                             model.net.named_buffers()},
+                            {k: v.grad.detach().cpu().double()
+                             for k, v in state.params.items()})
+            del model, state, step
+        loss_err = close(out[True][0], out[False][0], 1e-5, 0.0)
+        err = max(loss_err, params_err(out[True][1], out[False][1]))
+        for k, v in out[False][2].items():
+            err = max(err, close(out[True][2][k].cpu(), v.cpu(), 1e-5, 1e-6))
+        _, q999, worst = params_within(out[True][1], out[False][1], 1e-3, 1)
+        res = dict(err=err, loss_err=loss_err, q999=q999,
+                   worst=worst, buffers=sorted(out[False][2]),
+                   loss=out[True][0])
+        if witness is not None:
+            model = witness()
+            model.net.to(torch.float64)
+            model.net.load_state_dict(init)
+            state, tx = create_train_state(model, shape, seed=None,
+                                           optimizer=pin_optimizer())
+            met = make_train_step(model, tx, has_mp_weights=has_mp)(
+                state, x.cpu().double(), None, sigma=sigma.cpu().double(),
+                eps=eps.cpu().double())[1]
+            p64 = {k: v.detach() for k, v in state.params.items()}
+            g64 = {k: v.grad for k, v in state.params.items()}
+            for arm, key in ((True, "spatial"), (False, "single")):
+                p_gap, g_gap = witness_gaps(out[arm][1], p64, out[arm][3],
+                                            g64)
+                res[key] = dict(params=p_gap, grads=g_gap,
+                                loss=close(out[arm][0],
+                                           float(met["train_loss"]),
+                                           1e-5, 0.0))
+        return res
+
+    def d_f32():
+        return spatial_f32(lambda: model_d(cfg_d(), dtype=None),
+                           FS_D_SHAPE, True, False)
+
+    def e_f32():
+        return spatial_f32(lambda: model_e(cfg_e(), dtype=None),
+                           FS_E_SHAPE, False, True,
+                           lambda: model_e(cfg_e(), device="cpu", dtype=None))
+
+    def d_bf16():
+        # D at its bf16 compute on spatial = 2: one step's launches,
+        # FS_TIMED timed steps, the peak memory a rank
+        reset_peak()
+        gen = torch.Generator("cuda").manual_seed(15)
+        x, phi = porous_batch(FS_D_SHAPE[0], FS_D_SHAPE[1], gen)
+        model = model_d(cfg_d())
+        state, tx = create_train_state(model, FS_D_SHAPE, seed=0)
+        mesh = make_mesh(axes=("data", "spatial"), shape=(1, 2),
+                         device_type="cpu")
+        shard_state_spatial(state, mesh, FS_D_SHAPE)
+        xb, yb = shard_batch(x, mesh), shard_batch({"porosity": phi}, mesh)
+        step = make_train_step(model, tx)
+        g = torch.Generator("cuda").manual_seed(16)
+        kernels.reset_launches()
+        loss = float(step(state, xb, yb, generator=g)[1]["train_loss"])
+        c = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        seconds = []
+        for _ in range(FS_TIMED):        # float() of the loss syncs
+            t0 = time.perf_counter()
+            float(step(state, xb, yb, generator=g)[1]["train_loss"])
+            seconds.append(time.perf_counter() - t0)
+        return dict(loss=loss, counts=c, ms=float(np.median(seconds)) * 1e3,
+                    peak_gib=peak_gib(), slab=list(xb.shape),
+                    counts_ok=c == {k: v for k, v in SP_PER_STEP.items()
+                                    if v})
+
+    table = {"b_fsdp": b_fsdp, "c_fsdp_tp": c_fsdp_tp,
+             "h_memory": h_memory, "d_f32": d_f32, "d_bf16": d_bf16,
+             "e_f32": e_f32}
+    for name in names:
+        arm(name, table[name])
+    dist.destroy_process_group()
+
+
+def fs_group(world, names, out_dir) -> list:
+    """``_fs_rank`` in ``world`` spawned processes; every rank's record,
+    after the group ends or is stopped at FS_TIMEOUT."""
+    import socket
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.start_processes(_fs_rank, args=(world, port, out_dir, names),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + FS_TIMEOUT
+    try:
+        while time.monotonic() < deadline:
+            if ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+                break
+    except ProcessException as e:
+        log(f"[fsdp world {world}] a rank ended: {str(e)[:300]}")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    records = []
+    for rank in range(world):
+        try:
+            with open(os.path.join(out_dir, f"fsdp.{world}.{rank}.json")) as f:
+                records.append(json.load(f))
+        except (OSError, ValueError):
+            records.append({})
+    for rank, rec in enumerate(records):
+        log(f"[fsdp world {world} rank {rank}] {json.dumps(rec)[:3000]}")
+    return records
+
+
+def phase_fsdp_spatial(zero):
+    """Phase 39: (a) one NCCL rank; (b) and (d) two gloo ranks on the one
+    card; (c) four."""
+    import tempfile
+
+    counts = phase_fsdp_world1(zero)
+    with tempfile.TemporaryDirectory() as out_dir:
+        two = fs_group(2, ["b_fsdp", "d_f32", "e_f32", "d_bf16",
+                           "h_memory"], out_dir)
+        four = fs_group(4, ["c_fsdp_tp"], out_dir)
+    failed = []
+    for records, gated in ((two, ("b_fsdp", "d_f32", "e_f32", "d_bf16",
+                                  "h_memory")),
+                           (four, ("c_fsdp_tp",))):
+        for rank, rec in enumerate(records):
+            for name in gated:
+                r = rec.get(name)
+                if not isinstance(r, dict):
+                    failed.append((len(records), rank, name, str(r)[:300]))
+                elif name in ("b_fsdp", "c_fsdp_tp"):
+                    for mode, m in r.items():
+                        if mode == "single":
+                            continue
+                        if not m["err"] <= 1.0 or (
+                                not mode.startswith("dp")
+                                and m["held"] != m["want_held"]):
+                            failed.append((len(records), rank, name, mode,
+                                           m["err"], m["held"],
+                                           m["want_held"]))
+                elif name == "d_bf16":
+                    if not (r["counts_ok"] and np.isfinite(r["loss"])):
+                        failed.append((2, rank, name, r["counts"]))
+                elif name == "h_memory":
+                    # H's bytes and times are a reading; its steps ran
+                    if not all(np.isfinite(r[m]["loss"])
+                               for m in ("dp", "fsdp")):
+                        failed.append((2, rank, name, r))
+                elif name == "e_f32":
+                    # E's f32 rounding at full width lies above the CPU
+                    # tests' parameter bound on one process too
+                    # (scripts/torch_spatial_rounding.py): the spatial
+                    # step's gaps to the float64 witness, parameters and
+                    # gradients at the worst tensor, within E_WITNESS of
+                    # the single-process f32 step's own, and its loss
+                    # within the CPU bound of the single-process loss
+                    sp, one = r["spatial"], r["single"]
+                    if not (r["loss_err"] <= 1.0
+                            and sp["params"] <= E_WITNESS * one["params"]
+                            and sp["grads"] <= E_WITNESS * one["grads"]):
+                        failed.append((2, rank, name, r["loss_err"], sp,
+                                       one))
+                elif not r["err"] <= 1.0:
+                    failed.append((2, rank, name, r["err"]))
+    if failed:
+        raise AssertionError(f"phase 39 (b)-(d) failed: {failed}")
+    b, c = two[0]["b_fsdp"], four[0]["c_fsdp_tp"]
+    gib = 2 ** 30
+    log(f"[fsdp (b) B] two gloo ranks, f32, {FS_STEPS} eager steps: FSDP "
+        f"against the single-process step {b['fsdp']['err']:.3f} of the CPU "
+        f"bounds (DP {b['dp']['err']:.3f}); the network's parameters hold "
+        f"{b['fsdp']['held'] / 2 ** 20:.3f} MiB a rank between steps, the "
+        f"blocks and unsharded tensors exactly ({b['fsdp']['blocks']} "
+        f"blocks; DP {b['dp']['held'] / 2 ** 20:.3f} MiB); the state "
+        f"(parameters, gradients, moments) {b['fsdp']['state'] / gib:.4f} "
+        f"GiB a rank against DP's {b['dp']['state'] / gib:.4f} and one "
+        f"process's {b['single']['state'] / gib:.4f}; peak over a step "
+        f"{b['fsdp']['peak_gib']:.3f} against {b['dp']['peak_gib']:.3f} "
+        f"(DP) and {b['single']['peak_gib']:.3f} GiB; last step "
+        f"{b['fsdp']['ms']:.1f} ms against {b['dp']['ms']:.1f} (DP) and "
+        f"{b['single']['ms']:.1f} ms (eager); collectives a step "
+        f"{b['fsdp']['collectives']} against DP's {b['dp']['collectives']}")
+    log(f"[fsdp (b) B] with remat: FSDP {b['fsdp_remat']['err']:.3f} of the "
+        f"CPU bounds (DP {b['dp_remat']['err']:.3f}); peak over a step "
+        f"{b['fsdp_remat']['peak_gib']:.3f} against DP's "
+        f"{b['dp_remat']['peak_gib']:.3f} GiB; last step "
+        f"{b['fsdp_remat']['ms']:.1f} against {b['dp_remat']['ms']:.1f} ms; "
+        f"collectives a step {b['fsdp_remat']['collectives']}")
+    h = two[0]["h_memory"]
+    log(f"[fsdp (b) H] reading, DiT-B one bf16 step at world 2 (losses "
+        f"{h['fsdp']['loss']:.6f} FSDP, {h['dp']['loss']:.6f} DP): state "
+        f"{h['fsdp']['state_before'] / gib:.4f} GiB a rank before the "
+        f"step, {h['fsdp']['state_after'] / gib:.4f} after (DP "
+        f"{h['dp']['state_before'] / gib:.4f}, "
+        f"{h['dp']['state_after'] / gib:.4f}); parameters "
+        f"{h['fsdp']['held'] / gib:.4f} against "
+        f"{h['dp']['held'] / gib:.4f} GiB; peak {h['fsdp']['peak_gib']:.3f}"
+        f" against {h['dp']['peak_gib']:.3f} GiB; the step "
+        f"{h['fsdp']['ms']:.1f} against {h['dp']['ms']:.1f} ms")
+    log(f"[fsdp (c) B] four gloo ranks, FSDP∘TP on a (2, 2) data × tensor "
+        f"mesh, f32: {c['fsdp_tp']['err']:.3f} of the CPU bounds; "
+        f"parameters {c['fsdp_tp']['held'] / 2 ** 20:.3f} MiB a rank "
+        f"(exactly its blocks), state {c['fsdp_tp']['state'] / gib:.4f} GiB "
+        f"against one process's {c['single']['state'] / gib:.4f}; last step "
+        f"{c['fsdp_tp']['ms']:.1f} ms; collectives a step "
+        f"{c['fsdp_tp']['collectives']}")
+    d, e = two[0]["d_bf16"], two[0]["e_f32"]
+    log(f"[fsdp (d)] D's full-width step on spatial = 2 (slab {d['slab']}),"
+        f" f32 against the single-process step "
+        f"{two[0]['d_f32']['err']:.3f} of the CPU bounds (the batch norm's "
+        f"{two[0]['d_f32']['buffers']} too); E's widths on 32² (mp, cosine):"
+        f" loss {e['loss_err']:.3f} of its CPU bound, parameters |Δ| 99.9% "
+        f"{e['q999']:.3e}, max {e['worst']:.3e}, {e['err']:.3f} of the CPU "
+        f"bounds; against the float64 witness, parameters "
+        f"{e['spatial']['params']:.4f} of the CPU bound (one process's f32 "
+        f"step {e['single']['params']:.4f}, ratio "
+        f"{e['spatial']['params'] / e['single']['params']:.4f}), gradients "
+        f"{e['spatial']['grads']:.3e} of the tensor's largest (one process "
+        f"{e['single']['grads']:.3e}, ratio "
+        f"{e['spatial']['grads'] / e['single']['grads']:.4f}; gate "
+        f"{E_WITNESS}), losses {e['spatial']['loss']:.3f} and "
+        f"{e['single']['loss']:.3f} of the CPU bound; D in bf16, eager over "
+        f"gloo: "
+        f"{d['ms']:.3f} ms/step, peak {d['peak_gib']:.3f} GiB a rank, "
+        f"launches a step {d['counts']}")
+    return counts + [dict(zero, **d["counts"])]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -7771,6 +8428,10 @@ def main() -> int:
     # distill and VAE steps (phase 38)
     counts_38 = phase_spatial(zero)
     elapsed("38")
+    # FSDP gathered layer by layer, FSDP∘TP, D's and E's spatial steps
+    # (phase 39)
+    counts_39 = phase_fsdp_spatial(zero)
+    elapsed("39")
 
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
@@ -7812,7 +8473,7 @@ def main() -> int:
                                            *counts_32, *counts_33,
                                            *counts_34, *counts_35,
                                            *counts_36, *counts_37,
-                                           *counts_38]),
+                                           *counts_38, *counts_39]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

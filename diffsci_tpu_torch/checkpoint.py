@@ -59,9 +59,7 @@ def state_tensors(state) -> dict[str, torch.Tensor]:
         return dict(state)
     out = {f"params/{k}": p.detach() for k, p in state.params.items()}
     out.update({f"buffers/{k}": b for k, b in state.buffers.items()})
-    stepped = state.step_params() if hasattr(state, "step_params") \
-        else state.params
-    names = {id(p): k for k, p in stepped.items()}
+    names = {id(p): k for k, p in state.params.items()}
     for group in state.optimizer.param_groups:
         for p in group["params"]:
             for key, t in state.optimizer.state[p].items():
@@ -86,13 +84,13 @@ def _param_name(name: str) -> str | None:
 
 def _shards(state, tensors: dict) -> dict:
     """Checkpoint name -> spec of each of ``tensors`` (``state``'s) that
-    is this rank's block of a whole tensor: under FSDP the blocks' moments
-    and shadows, under TP and EP the sharded parameters and theirs; {}
-    for a state that no mesh shards."""
+    is this rank's block of a whole tensor: under FSDP, TP and EP the
+    sharded parameters, their moments and shadows; {} for a state that no
+    mesh shards."""
     placement = getattr(state, "placement", None)
     if placement is None:
         return {}
-    specs, local = placement.shard_specs(), state.step_params()
+    specs, local = placement.specs, state.params
     out = {}
     for name, t in tensors.items():
         key = _param_name(name)
@@ -258,9 +256,6 @@ def restore_checkpoint(path: str | pathlib.Path, state_template,
         saved[name] = block(saved[name], spec, placement.mesh)
     _copy_into(tensors, saved, path)
     _set_counters(state_template, saved)
-    if getattr(placement, "fsdp", None) is not None:
-        # the blocks the optimizer steps, from the restored parameters
-        placement.fsdp.scatter(state_template.params, placement.mesh)
     if model is not None:
         model._masters_changed()
     return state_template

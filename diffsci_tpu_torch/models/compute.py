@@ -9,17 +9,28 @@ does, and a cast copy for calls without gradients (sampling), which the
 sampler's CUDA graphs read. The cast copy's magnitude-preserving layers
 hold their normalized weights (``hoist_from``, ``models/nets/normed.py``),
 taken from the masters whenever they change, so a sampling loop does not
-normalize them on every network call.
+normalize them on every network call. A network may name, in its
+``read_cast``, parameters that it casts itself as it reads them (FSDP's
+blocks, ``parallel/fsdp.py``, whose reads gather them): those stay
+float32 on the way in and are read in ``READ_DTYPE``, so that their
+gradients are reduced in float32. The cast copy of an FSDP network holds
+the blocks in the compute dtype and gathers each layer's as it runs.
 """
 
 from __future__ import annotations
 
+import contextvars
 import copy
 
 import torch
 import torch.nn as nn
 
 from diffsci_tpu_torch.utils import graphs
+
+# the dtype a network's ``read_cast`` parameters are read in; None: their
+# own
+READ_DTYPE: contextvars.ContextVar = contextvars.ContextVar(
+    "read_dtype", default=None)
 
 
 class ComputeDtypeMixin:
@@ -111,8 +122,17 @@ class ComputeDtypeMixin:
         tensors = dict(self.net.named_parameters())
         tensors.update(self.net.named_buffers())
         tensors.update(variables or {})
-        if cd is not None:
-            tensors = {k: v.to(cd) if v.is_floating_point() else v
-                       for k, v in tensors.items()}
-        return lambda *args: torch.func.functional_call(self.net, tensors,
-                                                        args)
+        if cd is None:
+            return lambda *args: torch.func.functional_call(self.net,
+                                                            tensors, args)
+        own = getattr(self.net, "read_cast", ())
+        tensors = {k: v.to(cd) if v.is_floating_point() and k not in own
+                   else v for k, v in tensors.items()}
+
+        def call(*args):
+            token = READ_DTYPE.set(cd)
+            try:
+                return torch.func.functional_call(self.net, tensors, args)
+            finally:
+                READ_DTYPE.reset(token)
+        return call

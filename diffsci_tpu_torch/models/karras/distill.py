@@ -46,8 +46,8 @@ import torch
 from diffsci_tpu_torch.models.karras.ema import EMATracker
 from diffsci_tpu_torch.models.karras.train import (
     AdamWClip, TrainState, _capturable, _ema_graph_update, _new_train_state,
-    _rows, batch_like, check_placement, default_optimizer, finish_update,
-    keep_rows, synced_norm)
+    _rows, batch_like, check_placement, default_optimizer, keep_rows,
+    renormalize_mp_weights, synced_norm)
 from diffsci_tpu_torch.utils import bcast_right, graphs
 
 
@@ -292,10 +292,10 @@ def make_distill_step(model, tx: AdamWClip, student_nsteps: int, *,
         loss = torch.mean(w * (D_s - D_tgt) ** 2)
         loss.backward()
         placed = state.placement
-        norm = synced_norm(placed, state.params, state.step_params(),
-                           nan_guard)
+        norm = synced_norm(placed, state.params, nan_guard)
         tx.update(state, norm)
-        finish_update(state, model.net, has_mp_weights)
+        if has_mp_weights:
+            renormalize_mp_weights(model.net)
         loss = loss.detach()
         return (loss if placed is None else placed.mean_over_ranks(loss),
                 norm)
@@ -309,7 +309,7 @@ def make_distill_step(model, tx: AdamWClip, student_nsteps: int, *,
         tx.set_learning_rate(state.optimizer, state.step)
         loss, norm = update(state, teacher, x, y, idx, eps, keep)
         if ema is not None and state.ema is not None:
-            ema.update(state.ema, state.step_params())
+            ema.update(state.ema, state.params)
         state.step += 1
         return state, {"distill_loss": loss, "grad_norm": norm}
 
@@ -354,7 +354,7 @@ def make_distill_step(model, tx: AdamWClip, student_nsteps: int, *,
         # the weights is refreshed at its next use
         model._masters_changed()
         if ema is not None and state.ema is not None:
-            _ema_graph_update(ema, cache, state.ema, state.step_params())
+            _ema_graph_update(ema, cache, state.ema, state.params)
         state.step += 1
         return state, {"distill_loss": loss, "grad_norm": norm}
 

@@ -46,8 +46,8 @@ from diffsci_tpu_torch.models.karras.module import (KarrasModel,
                                                     KarrasModelConfig)
 from diffsci_tpu_torch.models.karras.train import (
     AdamWClip, TrainState, _begin_update, _capturable, _ema_graph_update,
-    _end_update, _rows, batch_like, check_placement, finish_update,
-    keep_rows, synced_norm)
+    _end_update, _rows, batch_like, check_placement, keep_rows,
+    renormalize_mp_weights, synced_norm)
 from diffsci_tpu_torch.models.karras.ema import EMATracker
 from diffsci_tpu_torch.utils import bcast_right, dict_map, graphs
 
@@ -663,10 +663,10 @@ def make_ensemble_train_step(model: EnsembleKarrasModel, tx: AdamWClip,
             aux["l2_sp"] = reg
         loss.backward()
         placed = state.placement
-        norm = synced_norm(placed, state.params, state.step_params(),
-                           nan_guard)
+        norm = synced_norm(placed, state.params, nan_guard)
         tx.update(state, norm, emit)
-        finish_update(state, model.net, has_mp_weights)
+        if has_mp_weights:
+            renormalize_mp_weights(model.net)
         with torch.no_grad():
             for name, value in (upd or {}).items():
                 buffers[name].copy_(value)
@@ -708,7 +708,7 @@ def make_ensemble_train_step(model: EnsembleKarrasModel, tx: AdamWClip,
         emit = _begin_update(state, tx)
         out = update(state, main, rep, w, emit)
         if ema is not None and state.ema is not None:
-            ema.update(state.ema, state.step_params())
+            ema.update(state.ema, state.params)
         _end_update(state, tx, emit)
         return state, metrics(*out)
 
@@ -754,7 +754,7 @@ def make_ensemble_train_step(model: EnsembleKarrasModel, tx: AdamWClip,
                    {k: v.clone() for k, v in aux.items()})
         model._masters_changed()
         if ema is not None and state.ema is not None:
-            _ema_graph_update(ema, cache, state.ema, state.step_params())
+            _ema_graph_update(ema, cache, state.ema, state.params)
         _end_update(state, tx, emit)
         return state, metrics(*out)
 

@@ -47,7 +47,8 @@ Over a mesh (a state that ``parallel.replicate``, ``shard_state_fsdp``,
 rank: x is this rank's rows, the draws are the global batch's of which
 it keeps its rows, the EDM batch norm's statistics are the global
 batch's, and the gradients are averaged over the ranks before the NaN
-guard, the clip and AdamW (``parallel/placement.py``); on the card the
+guard, the clip and AdamW (``parallel/placement.py``; FSDP's blocks by
+the backward's reduce-scatters, ``parallel/fsdp.py``); on the card the
 NCCL collectives are captured in the step's graph (over gloo, which
 carries CUDA tensors too, the step runs eagerly). Over a data × spatial
 mesh (``parallel.spatial.shard_state_spatial``) x is also a slab of its
@@ -107,27 +108,17 @@ class TrainState:
     placement: object = dataclasses.field(default=None, repr=False,
                                           compare=False)
 
-    def step_params(self) -> dict:
-        """name -> the tensor the optimizer and the EMA move: the
-        parameter, or under FSDP its block."""
-        fsdp = getattr(self.placement, "fsdp", None)
-        return self.params if fsdp is None else \
-            fsdp.step_params(self.params)
-
     def ema_variables(self, tracker: EMATracker | None) -> dict:
         """The parameters with the EMA shadows of the tracker's profile
         swapped in, by name: pass as ``variables=`` to
         ``KarrasModel.loss_fn`` or ``get_denoiser``, or load into a network
         with ``load_state_dict(..., strict=False)``. Under FSDP the
-        shadows of the blocks are all-gathered whole (every rank calls)."""
+        shadows are blocks, as the parameters are (``variables=`` of the
+        placed network takes them; ``checkpoint.gather_state`` makes them
+        whole)."""
         if self.ema is None or tracker is None:
             return dict(self.params)
-        shadows = dict(tracker.get_params(self.ema))
-        fsdp = getattr(self.placement, "fsdp", None)
-        if fsdp is not None:
-            for k, spec in fsdp.specs.items():
-                shadows[k] = self.placement.whole(shadows[k], spec)
-        return shadows
+        return dict(tracker.get_params(self.ema))
 
 
 def _shared_scalar(value: float, device) -> torch.Tensor:
@@ -549,7 +540,7 @@ def _norm(state: TrainState, params: list) -> torch.Tensor:
     grads = [p.grad for p in params]
     if state.placement is None:
         return global_norm(grads)
-    names = {id(p): k for k, p in state.step_params().items()}
+    names = {id(p): k for k, p in state.params.items()}
     return state.placement.global_norm(
         {names[id(p)]: p.grad for p in params})
 
@@ -750,14 +741,13 @@ def _step_loss(model, loss_fn, remat: bool):
     return remat_loss
 
 
-def synced_norm(placed, params: dict, stepped: dict | None = None,
-                nan_guard: bool = True) -> torch.Tensor:
+def synced_norm(placed, params: dict, nan_guard: bool = True
+                ) -> torch.Tensor:
     """After the backward: a zero ``.grad`` for every parameter of
     ``params`` the loss left without one; under a placement (``placed``,
     or None) the gradients made the global batch's mean
     (``Placement.sync_grads``) before the NaN→0 guard (``nan_guard``).
-    Returns the global norm of the gradients the optimizer steps
-    (``stepped``: the FSDP blocks; default ``params``)."""
+    Returns the global norm of the gradients."""
     grads = []
     for p in params.values():
         if p.grad is None:          # unused by this loss: a zero grad
@@ -769,24 +759,9 @@ def synced_norm(placed, params: dict, stepped: dict | None = None,
         return global_norm(grads)
     # the global batch's mean gradient before the guard and clip
     placed.sync_grads(params)
-    stepped = {k: p.grad for k, p in (stepped or params).items()}
     if nan_guard:
-        nan_to_zero_grads(list(stepped.values()))
-    return placed.global_norm(stepped)
-
-
-def finish_update(state: TrainState, net: torch.nn.Module,
-                  has_mp_weights: bool) -> None:
-    """After the optimizer step: under FSDP the working copies gathered
-    from the stepped blocks, then the mp re-projection
-    (``has_mp_weights``), scattered back into the blocks."""
-    fsdp = getattr(state.placement, "fsdp", None)
-    if fsdp is not None:
-        fsdp.gather(state.params, state.placement.mesh)
-    if has_mp_weights:
-        renormalize_mp_weights(net)
-        if fsdp is not None:
-            fsdp.scatter(state.params, state.placement.mesh)
+        nan_to_zero_grads(grads)
+    return placed.global_norm({k: p.grad for k, p in params.items()})
 
 
 def check_placement(state, what: str) -> None:
@@ -873,11 +848,12 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
             p.grad = None
         loss, updates = loss_of(x, sigma, y, mask, eps, keep, z_eps)
         loss.backward()
-        norm = synced_norm(placed, state.params, state.step_params())
+        norm = synced_norm(placed, state.params)
         if placed is not None:
             loss = placed.mean_over_ranks(loss.detach())
         tx.update(state, norm, emit)
-        finish_update(state, model.net, has_mp_weights)
+        if has_mp_weights:
+            renormalize_mp_weights(model.net)
         with torch.no_grad():
             for name, value in updates.items():
                 buffers[name].copy_(value)
@@ -895,7 +871,7 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         loss, norm = update(state, x, y, mask, sigma, eps, keep, z_eps,
                             emit)
         if ema is not None and state.ema is not None:
-            ema.update(state.ema, state.step_params())
+            ema.update(state.ema, state.params)
         _end_update(state, tx, emit)
         return state, {"train_loss": loss, "grad_norm": norm}
 
@@ -940,7 +916,7 @@ def make_train_step(model, tx: AdamWClip, ema: EMATracker | None = None,
         # the weights is refreshed at its next use
         model._masters_changed()
         if ema is not None and state.ema is not None:
-            _ema_graph_update(ema, cache, state.ema, state.step_params())
+            _ema_graph_update(ema, cache, state.ema, state.params)
         _end_update(state, tx, emit)
         return state, {"train_loss": loss, "grad_norm": norm}
 

@@ -30,16 +30,20 @@ import torch.nn.functional as F
 
 from diffsci_tpu_torch.kernels import flash_attention
 from diffsci_tpu_torch.kernels.flash_attention import dot_product_attention
-from diffsci_tpu_torch.models.nets.normed import normalize
+from diffsci_tpu_torch.models.nets.normed import normalize, stored
 from diffsci_tpu_torch.utils import unset
 
 _BACKENDS = ("xla", "flash")
 
 
-def _norm_weight(w, kind: str, eps: float = 1e-4):
+def _norm_dims(kind: str) -> tuple:
+    return (1,) if kind in ("q", "k", "v") else (0, 2)
+
+
+def _norm_weight(w, kind: str, eps: float = 1e-4, reduce=None):
     """Magnitude-preserving projection normalization of w [H, C, dh]: q, k
     and v over the model axis (1), o over (heads, dhead)."""
-    return normalize(w, eps, dim=(1,) if kind in ("q", "k", "v") else (0, 2))
+    return normalize(w, eps, dim=_norm_dims(kind), reduce=reduce)
 
 
 def cosine_attention(q, k, v, eps: float = 1e-8):
@@ -90,7 +94,7 @@ class MultiHeadAttention(nn.Module):
         else:
             o = dot_product_attention(q, k, v)
         o = o.transpose(1, 2).reshape(B, T, C)
-        return F.linear(o, self.out_proj.weight, self.out_proj.bias)
+        return self.out_proj(o)
 
 
 class EinsumMultiHeadAttention(nn.Module):
@@ -116,6 +120,7 @@ class EinsumMultiHeadAttention(nn.Module):
             raise ValueError(f"attn_type must be 'dot' or 'cosine', got "
                              f"{attn_type!r}")
         self.num_heads = num_heads
+        self.embed_dim = embed_dim
         self.attn_type = attn_type
         self.magnitude_preserving = magnitude_preserving
         self.scaled = fan_in_scaled or magnitude_preserving
@@ -139,23 +144,33 @@ class EinsumMultiHeadAttention(nn.Module):
                 w.copy_((torch.rand(w.shape, generator=generator) * 2 - 1)
                         * bound)
 
+    def unit_dims(self) -> dict:
+        """name -> the dims a unit's norm sums over (``_norm_weight``)."""
+        return {f"{n}_proj_matrix": _norm_dims(n) for n in "qkvo"}
+
     def projections(self) -> list:
         """The effective q, k, v, o projection tensors."""
         ws = [getattr(self, f"{n}_proj_matrix") for n in "qkvo"]
-        if self.hoisted:
-            return ws
+        return ws if self.hoisted else self._effective(ws, (None,) * 4)
+
+    def _effective(self, ws, reduces) -> list:
+        """The effective projections of the raw ``ws`` (``reduces``: of
+        blocks split across their units, ``stored``)."""
         if self.magnitude_preserving:
-            ws = [_norm_weight(w, n) for w, n in zip(ws, "qkvo")]
+            ws = [_norm_weight(w, n, reduce=r)
+                  for w, n, r in zip(ws, "qkvo", reduces)]
         if self.scaled:
-            H, C, dh = ws[0].shape
+            H, C = self.num_heads, self.embed_dim
             ws = [w / math.sqrt(C) for w in ws[:3]] + \
-                [ws[3] / math.sqrt(H * dh)]
-        return ws
+                [ws[3] / math.sqrt(H * (C // H))]
+        return list(ws)
 
     @torch.no_grad()
     def hoist_from(self, master: "EinsumMultiHeadAttention") -> None:
-        for n, w in zip("qkvo", master.projections()):
-            getattr(self, f"{n}_proj_matrix").copy_(w)
+        ws, reduces = zip(*(stored(master, f"{n}_proj_matrix")
+                            for n in "qkvo"))
+        for n, w in zip("qkvo", master._effective(ws, reduces)):
+            self._parameters[f"{n}_proj_matrix"].copy_(w)
         self.hoisted = True
 
     @torch.no_grad()
@@ -163,8 +178,8 @@ class EinsumMultiHeadAttention(nn.Module):
         """Re-project magnitude-preserving projections onto the sphere."""
         if self.magnitude_preserving:
             for n in "qkvo":
-                w = getattr(self, f"{n}_proj_matrix")
-                w.copy_(_norm_weight(w, n, eps))
+                w, reduce = stored(self, f"{n}_proj_matrix")
+                w.copy_(_norm_weight(w, n, eps, reduce))
 
     def forward(self, x):
         # x: [B, T, C]

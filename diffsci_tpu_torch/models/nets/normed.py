@@ -31,15 +31,30 @@ from diffsci_tpu_torch.utils import unset
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
-def normalize(w: torch.Tensor, eps: float = 1e-4, dim=None) -> torch.Tensor:
+def normalize(w: torch.Tensor, eps: float = 1e-4, dim=None,
+              reduce=None) -> torch.Tensor:
     """Per-output-unit normalization: divide by the vector norm over ``dim``
     (default: every axis but the first, the output axis) with
-    alpha = sqrt(n_units / numel)."""
+    alpha = sqrt(n_units / numel). ``reduce`` (a block of a tensor split
+    across its units, ``stored``): the sums of squares -> (their sums over
+    the blocks, the number of blocks)."""
     if dim is None:
         dim = tuple(range(1, w.ndim))
-    n = torch.sqrt(torch.sum(w * w, dim=dim, keepdim=True))
-    alpha = math.sqrt(n.numel() / w.numel())
+    sq, ranks = torch.sum(w * w, dim=dim, keepdim=True), 1
+    if reduce is not None:
+        sq, ranks = reduce(sq)
+    n = torch.sqrt(sq)
+    alpha = math.sqrt(n.numel() / (w.numel() * ranks))
     return w / (eps + alpha * n)
+
+
+def stored(module: nn.Module, name: str) -> tuple:
+    """(the tensor ``module`` stores as ``name``, the ``reduce`` that
+    ``normalize`` over its ``unit_dims()`` takes for it, or None). A
+    layout that stores a block of it split across its units registers that
+    reduce in ``module.unit_sums`` (FSDP, ``parallel/fsdp.py``)."""
+    return (module._parameters[name],
+            getattr(module, "unit_sums", {}).get(name))
 
 
 class _MagnitudePreserving(nn.Module):
@@ -62,17 +77,25 @@ class _MagnitudePreserving(nn.Module):
             return self.weight
         return normalize(self.weight) / math.sqrt(self.fan_in)
 
+    def unit_dims(self) -> dict:
+        """name -> the dims a unit's norm sums over: the weight's all but
+        the output axis."""
+        return {"weight": tuple(range(1, self._parameters["weight"].ndim))}
+
     @torch.no_grad()
     def hoist_from(self, master: "_MagnitudePreserving") -> None:
         """Store ``master``'s effective weight (in this copy's dtype) and
         use it as it is from now on."""
-        self.weight.copy_(master.effective_weight())
+        w, reduce = stored(master, "weight")
+        self._parameters["weight"].copy_(
+            normalize(w, reduce=reduce) / math.sqrt(self.fan_in))
         self.hoisted = True
 
     @torch.no_grad()
     def renormalize_(self, eps: float = 1e-4) -> None:
         """Re-project the stored weight onto the unit sphere."""
-        self.weight.copy_(normalize(self.weight, eps))
+        w, reduce = stored(self, "weight")
+        w.copy_(normalize(w, eps, reduce=reduce))
 
 
 class MagnitudePreservingDense(_MagnitudePreserving):

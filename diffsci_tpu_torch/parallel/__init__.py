@@ -4,7 +4,11 @@ expert and pipeline parallelism, the dp × spatial train step
 multi-process dry run (``parallel.mp_dryrun``).
 
 Port of ``diffsci_tpu/parallel/``, with the same names. One process a
-card: NCCL on the card, gloo on the CPU (``parallel/mesh.py``).
+card: NCCL on the card, gloo on the CPU (``parallel/mesh.py``). FSDP
+gathers each layer's weights as it runs and composes with tensor
+parallelism (``shard_state_fsdp(..., tensor_axis=)``, ``fsdp_specs(...,
+existing_specs=)``); the spatial step takes PUNetG and PUNetGCond
+(``parallel/spatial.py``).
 """
 
 from diffsci_tpu_torch.parallel.mesh import (

@@ -169,29 +169,36 @@ def data_rows(mesh, nsamples: int,
     return slice(i * k, (i + 1) * k)
 
 
-def shard_batch(batch: Any, mesh, axis: str | Sequence[str] = DATA_AXIS):
+def shard_batch(batch: Any, mesh, axis: str | Sequence[str] = DATA_AXIS,
+                channels_first: bool = False):
     """This rank's rows of every array in ``batch`` (a global batch):
     the ``index``-th of ``n`` equal blocks along the leading dim, ``n``
     the ranks along ``axis`` (a name, or a tuple of names taken
     row-major). On a mesh with a ``spatial`` axis (not in ``axis``),
     arrays of three or more dims, channels-last [B, *spatial, C], are also
     cut into that axis's slabs along their first spatial axis (dim 1), of
-    which this rank keeps its own (``parallel/spatial.py``). Arrays keep
-    their type and device. A per-process loader (``ArrayDataLoader``
-    under a process group) already yields this rank's rows: pass those to
-    the step as they are."""
+    which this rank keeps its own (``parallel/spatial.py``).
+    ``channels_first``: the arrays are [B or 1, C, *spatial] (PUNetGCond's
+    channel conditions, in the network's layout): the slabs are cut along
+    dim 2, and an array of one row, broadcast over the batch, keeps it.
+    Arrays keep their type and device. A per-process loader
+    (``ArrayDataLoader`` under a process group) already yields this rank's
+    rows: pass those to the step as they are."""
     names = (axis,) if isinstance(axis, str) else tuple(axis)
     cut = SPATIAL_AXIS in mesh.mesh_dim_names and SPATIAL_AXIS not in names
+    dim = 2 if channels_first else 1
 
     def take(x):
-        x = x[data_rows(mesh, x.shape[0], axis)]
-        if cut and x.ndim >= 3:
-            n, k = axis_size(mesh, SPATIAL_AXIS), x.shape[1]
+        if not (channels_first and x.shape[0] == 1):
+            x = x[data_rows(mesh, x.shape[0], axis)]
+        if cut and x.ndim >= dim + 2:
+            n, k = axis_size(mesh, SPATIAL_AXIS), x.shape[dim]
             if k % n:
                 raise ValueError(f"spatial axis {k} not divisible by mesh "
                                  f"'{SPATIAL_AXIS}' axis size {n}")
             i = axis_index(mesh, SPATIAL_AXIS)
-            x = x[:, i * (k // n):(i + 1) * (k // n)]
+            x = x[(slice(None),) * dim
+                  + (slice(i * (k // n), (i + 1) * (k // n)),)]
         return x
     return tree_map(take, batch)
 

@@ -9,8 +9,8 @@ step reads it:
   draw is the global batch's, of which the step keeps its rows, so a
   step at world size N draws what the single-process step draws;
 - the gradients are summed over the ranks that hold the same tensor (one
-  flat all-reduce a group of such ranks; under FSDP a sharded tensor's
-  are reduce-scattered into the blocks) and divided by the number of
+  flat all-reduce a group of such ranks; FSDP's blocks are
+  reduce-scattered by the backward itself) and divided by the number of
   distinct batch shards they cover, so they are the global batch's mean
   gradient before the NaN guard, the clip and AdamW, as JAX's are;
 - the global norm sums the squares of a sharded tensor over its shards;
@@ -48,18 +48,19 @@ def block(tensor: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 
 class Placement:
     """A train state's layout over ``mesh``: the axes its batch rows are
-    split over, and the spec of every sharded parameter by name (the rest
-    are replicated): the network's own tensors, which under TP and EP
-    are this rank's shards. ``fsdp``: the FSDP blocks
-    (``parallel.fsdp``), whose network tensors are whole, or None."""
+    split over, and one spec for every sharded parameter by name (the
+    rest are replicated): the network's own tensors, which under TP, EP
+    and FSDP are this rank's shards, and under FSDP composed with TP may
+    be sharded over both axes. ``fsdp_axis``: the axis whose blocks FSDP
+    gathers layer by layer (``parallel/fsdp.py``), or None."""
 
     def __init__(self, mesh, batch_axes: Sequence[str], specs: dict | None =
-                 None, fsdp=None):
+                 None, fsdp_axis: str | None = None):
         self.mesh = mesh
         names = mesh.mesh_dim_names
         self.batch_axes = tuple(a for a in batch_axes if a in names)
         self.specs = dict(specs or {})
-        self.fsdp = fsdp
+        self.fsdp_axis = fsdp_axis
         # the dp × spatial step's layout (``parallel/spatial.py``), or None
         self.spatial = None
         self.world = dist.get_world_size()
@@ -73,12 +74,6 @@ class Placement:
         """(the number of distinct batch shards, this rank's index)."""
         return (axis_size(self.mesh, self.batch_axes),
                 axis_index(self.mesh, self.batch_axes))
-
-    def shard_specs(self) -> dict:
-        """name -> spec of the tensors that the optimizer steps and that
-        are this rank's shards: the FSDP blocks, or under TP and EP the
-        network's parameters."""
-        return self.fsdp.specs if self.fsdp is not None else self.specs
 
     def whole(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
         """The whole tensor of which ``t`` is this rank's block under
@@ -116,24 +111,21 @@ class Placement:
 
     # -- the step's collectives -------------------------------------------
     def sync_grads(self, params: dict) -> None:
-        """The gradient of each tensor the optimizer steps made the global
-        batch's mean: under FSDP a sharded parameter's reduce-scattered
-        into its block's, every other one all-reduced in place (one flat
-        all-reduce a (group, divisor)). ``params``: the state's
-        parameters by name."""
-        named = {k: p.grad for k, p in params.items()}
-        if self.fsdp is not None:
-            self.fsdp.reduce_scatter(params, self.mesh, float(
-                axis_size(self.mesh, self.fsdp.axis)))
-            named = {k: g for k, g in named.items()
-                     if k not in self.fsdp.blocks}
+        """The gradient of each parameter made the global batch's mean:
+        every one all-reduced in place (one flat all-reduce a (group,
+        divisor)), but for FSDP's blocks, whose gradients the backward
+        already reduce-scattered. ``params``: the state's parameters by
+        name."""
         buckets: dict = {}
-        for name, g in named.items():
+        for name, p in params.items():
+            if self.fsdp_axis is not None and \
+                    self.fsdp_axis in self.specs.get(name, ()):
+                continue
             group, divisor = self._grad_rule(name)
             if group == "none":
                 continue
             buckets.setdefault((id(group), divisor), (group, divisor, []))[
-                2].append(g)
+                2].append(p.grad)
         for group, divisor, grads in buckets.values():
             flat = torch.cat([g.reshape(-1) for g in grads])
             dist.all_reduce(flat, group=group)
@@ -144,15 +136,17 @@ class Placement:
 
     def global_norm(self, named: dict) -> torch.Tensor:
         """sqrt of the sum of squares of the full tensors whose local
-        parts are ``named`` (the tensors the optimizer steps: under FSDP
-        the blocks): a sharded tensor's squares summed over its shards, a
-        replicated one's counted once."""
+        parts are ``named``: a sharded tensor's squares summed over its
+        shards (over the world for one sharded over two axes), a
+        replicated one's counted once. At world size 1, the
+        single-process norm."""
         from diffsci_tpu_torch.models.karras.train import global_norm
-        specs = self.fsdp.specs if self.fsdp is not None else self.specs
+        if self.world == 1:
+            return global_norm(list(named.values()))
         by_group: dict = {}
         whole = []
         for name, t in named.items():
-            axes = spec_axes(specs.get(name, ()))
+            axes = spec_axes(self.specs.get(name, ()))
             if axes:
                 group = self._group(axes)
                 by_group.setdefault(id(group), (group, []))[1].append(t)

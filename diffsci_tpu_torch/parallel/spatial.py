@@ -4,18 +4,22 @@ and on its first spatial axis over ``spatial``.
 The JAX package feeds ``P("data", "spatial")`` batches to its ordinary
 train step and lets GSPMD add the convolutions' halos and the sharded
 reductions (``tests/test_parallel.py:163-188``). Here, one process a card,
-``shard_state_spatial`` swaps PUNetG's modules for spatial ones in place
-(the way ``tensor_parallel.py`` swaps its layers; parameters and names
-stay), and ``make_train_step`` is used unchanged from the caller's side on
-``shard_batch``'s slabs (channels-last [B, *spatial, C]: the rows of this
-rank's ``data`` index, the slab of its ``spatial`` index along the first
-spatial axis, H in 2D and D in 3D; dim 2 of the network's [B, C, *spatial]).
-It exists for 3D porous volumes, whose activations outgrow one card before
-the weights do.
+``shard_state_spatial`` swaps the spatial modules of a PUNetG or
+PUNetGCond for slab ones in place (the way ``tensor_parallel.py`` swaps
+its layers; parameters and names stay), and ``make_train_step`` is used
+unchanged from the caller's side on ``shard_batch``'s slabs
+(channels-last [B, *spatial, C]: the rows of this rank's ``data`` index,
+the slab of its ``spatial`` index along the first spatial axis, H in 2D
+and D in 3D; dim 2 of the network's [B, C, *spatial]; PUNetGCond's
+channels-first conditions [B or 1, c, *spatial] through
+``shard_batch(..., channels_first=True)``, cut along dim 2, a broadcast
+row kept). It exists for 3D porous volumes (configurations A and D),
+whose activations outgrow one card before the weights do.
 
 What each layer does on a slab of S ranks:
-- **Convolutions** (``conv_layer``'s zero-padded ones and ``CircularConv``,
-  inside ``ResnetBlockC``, ``DownSampler``, ``UpSampler``, ``convin``,
+- **Convolutions** (``conv_layer``'s zero-padded ones, ``CircularConv``
+  and ``MagnitudePreservingConv``, by its normalized weight; inside
+  ``ResnetBlockC``, ``DownSampler``, ``UpSampler``, ``convin``,
   ``convout``): a k×k convolution pads its slab with k//2 planes of each
   neighbour (``_Halo``): every rank all-gathers the boundary planes of
   every rank over the ``spatial`` group, not send/recv (gloo on CUDA
@@ -31,15 +35,22 @@ What each layer does on a slab of S ranks:
   whole row from all-reduced [B, C] partials); the plain group-norm path
   all-reduces its local partial sums (mean, then the centred squares);
   GroupPix is per pixel and stays local.
-- **Bottleneck attention** (``MultiHeadAttention`` and the dot
-  ``EinsumMultiHeadAttention``): q, k and v all-gathered over
-  ``spatial`` (this rank's tokens are one contiguous block of the
-  flattened volume), attention on the whole token set (K4 past the same
-  2048-token gate as the unsharded net, plain below it), this rank's rows
-  of O kept; the backward all-gathers dO, runs K5/K6 (or the plain
-  backward) on the whole and keeps this rank's slab of dq, dk and dv, the
-  same full gradient on every rank, so nothing is reduced. The
-  attention's work is repeated on each spatial rank.
+- **The EDM batch norm** of the data takes its statistics over every
+  rank's rows and slabs: ``replicate`` sets its ``batch_ranks`` to the
+  world, and its sums over the ranks count each element once.
+- **Bottleneck attention** (``MultiHeadAttention`` and
+  ``EinsumMultiHeadAttention``: dot or cosine, magnitude-preserving or
+  not, its projections as the module makes them): q, k and v
+  all-gathered over ``spatial`` (this rank's tokens are one contiguous
+  block of the flattened volume), attention on the whole token set (dot:
+  K4 past the same 2048-token gate as the unsharded net, plain below it;
+  cosine: plain, as in both packages), this rank's rows of O kept; the
+  backward all-gathers dO, runs K5/K6 (or the plain backward) on the
+  whole and keeps this rank's slab of dq, dk and dv, the same full
+  gradient on every rank, so nothing is reduced. The attention's work is
+  repeated on each spatial rank.
+- Everything per row (the time and porosity embeddings, the dynamic loss
+  weight, the condition drop) or per element is local.
 
 The loss is each rank's mean over its rows and slab; the gradients are
 summed over every rank and divided by their number (``Placement``: the
@@ -50,12 +61,11 @@ other ranks' terms through the halos, the statistics and the attention.
 one row at a time and each rank keeps its slab of its rows, so no rank
 holds the whole global ε (``models/karras/train.py:_draw``).
 
-What raises under a spatial mesh: a network other than ``PUNetG``
-(``PUNetGCond`` too: ``shard_batch`` would cut its channels-first
-conditions as channels-last), an extra residual module, the EDM batch
-norm, magnitude-preserving convolutions and attention, cosine attention,
-a latent model, and the ensemble, distill and VAE steps. At one spatial rank the layers stay as
-they are (the unsplit K2/K3, no exchange).
+What still raises under a spatial mesh: an extra residual module, a
+network other than PUNetG and PUNetGCond, a latent model, the ensemble,
+distill and VAE steps, and an FSDP state. Attention over local queries
+only and a spatial sampler are not ported. At one spatial rank the
+layers stay as they are (the unsplit K2/K3, no exchange).
 """
 
 from __future__ import annotations
@@ -143,6 +153,15 @@ def _conv_forward(module, x):
                                 padding=(0,) + tuple(module.padding[1:]))
 
 
+def _mp_conv_forward(module, x):
+    """``MagnitudePreservingConv`` on a slab: the halo along dim 2, zeros
+    along the others, by its effective (normalized) weight."""
+    p = module.padding
+    x = _halo(x, p, module._spatial, False) if p else x
+    return _CONV_FN[x.ndim - 2](x, module.effective_weight(), module.bias,
+                                padding=(0,) + (p,) * (x.ndim - 3))
+
+
 def _circular_forward(module, x):
     """``CircularConv`` on a slab: the halo along dim 2 (the ring's wrap
     when that axis is circular), then the layer's own padding of the
@@ -216,26 +235,31 @@ def _norm_forward(module, x):
 
 
 class _GatheredAttention(torch.autograd.Function):
-    """softmax(q kᵀ/√d) v for this rank's block of the tokens: q, k and v
+    """Attention for this rank's block of the tokens: q, k and v
     [B, H, T, d] all-gathered over the line (one call), attention over the
-    whole token set (K4 when ``flash`` and the whole set passes the
-    kernel's gate, else the plain attention), this rank's rows of O kept.
-    Backward: dO all-gathered, K5/K6 (or the plain backward) on the
-    whole, this rank's rows of dq, dk and dv kept (every rank holds the
-    same full gradient)."""
+    whole token set, this rank's rows of O kept. The core: softmax(q kᵀ/√d)
+    v (K4 when ``flash`` and the whole set passes the kernel's gate, else
+    the plain attention), or cosine attention (``cosine``; plain, as in
+    both packages). Backward: dO all-gathered, K5/K6 (or the plain
+    backward) on the whole, this rank's rows of dq, dk and dv kept (every
+    rank holds the same full gradient)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, line, flash):
+    def forward(ctx, q, k, v, line, flash, cosine=False):
+        from diffsci_tpu_torch.models.nets.attention import cosine_attention
         T = q.shape[2]
         qkv = torch.cat(_gather(torch.stack([q, k, v]), line), dim=3)
         qf, kf, vf = (t.contiguous() for t in qkv.unbind(0))
         ctx.line, ctx.T = line, T
-        ctx.flash = flash and qf.shape[2] >= flash_attention.MIN_TOKENS
+        ctx.flash = flash and not cosine and \
+            qf.shape[2] >= flash_attention.MIN_TOKENS
+        ctx.core = cosine_attention if cosine else \
+            flash_attention.dot_product_attention
         if ctx.flash:
             o, lse = flash_attention.flash_attention_fwd(qf, kf, vf)
             ctx.save_for_backward(qf, kf, vf, o, lse)
         else:
-            o = flash_attention.dot_product_attention(qf, kf, vf)
+            o = ctx.core(qf, kf, vf)
             ctx.save_for_backward(qf, kf, vf)
         return o.narrow(2, line.rank * T, T).contiguous()
 
@@ -250,15 +274,16 @@ class _GatheredAttention(torch.autograd.Function):
             with torch.enable_grad():
                 leaves = [t.detach().requires_grad_() for t in
                           ctx.saved_tensors]
-                o = flash_attention.dot_product_attention(*leaves)
+                o = ctx.core(*leaves)
                 grads = torch.autograd.grad(o, leaves, dof)
         return tuple(g.narrow(2, line.rank * T, T).contiguous()
-                     for g in grads) + (None, None)
+                     for g in grads) + (None, None, None)
 
 
 def _attention(module, q, k, v):
-    return _GatheredAttention.apply(q, k, v, module._spatial,
-                                    module.backend == "flash")
+    return _GatheredAttention.apply(
+        q, k, v, module._spatial, module.backend == "flash",
+        getattr(module, "attn_type", "dot") == "cosine")
 
 
 def _mha_forward(module, x):
@@ -269,11 +294,13 @@ def _mha_forward(module, x):
     qkv = qkv.view(B, T, 3, H, C // H).permute(2, 0, 3, 1, 4)
     o = _attention(module, qkv[0], qkv[1], qkv[2])
     o = o.transpose(1, 2).reshape(B, T, C)
-    return F.linear(o, module.out_proj.weight, module.out_proj.bias)
+    return module.out_proj(o)
 
 
 def _einsum_forward(module, x):
-    """The dot ``EinsumMultiHeadAttention`` on this rank's tokens."""
+    """``EinsumMultiHeadAttention`` (dot or cosine, magnitude-preserving
+    or not: its projections as the module makes them) on this rank's
+    tokens."""
     wq, wk, wv, wo = module.projections()
     q, k, v = (torch.einsum("btc,hcd->bhtd", x, w) for w in (wq, wk, wv))
     return torch.einsum("bhtd,hcd->btc", _attention(module, q, k, v), wo)
@@ -288,35 +315,19 @@ def _levels(net) -> int:
 
 
 def _check_net(net: nn.Module) -> nn.Module:
-    """The PUNetG of a ``KarrasNet`` (or the network itself), or raise
-    for what a spatial mesh cannot take. ``PUNetGCond`` raises: its
-    channel conditions are channels-first [B or 1, c, *spatial], and
-    ``shard_batch`` cuts a batch's arrays as channels-last."""
-    from diffsci_tpu_torch.models.nets.attention import (
-        EinsumMultiHeadAttention)
-    from diffsci_tpu_torch.models.nets.normed import (
-        MagnitudePreservingConv, MagnitudePreservingDense)
-    from diffsci_tpu_torch.ops.batchnorm import DimensionAgnosticBatchNorm
-    from diffsci_tpu_torch.models.nets.punetg import PUNetG
+    """The PUNetG or PUNetGCond of a ``KarrasNet`` (or the network
+    itself), or raise for what a spatial mesh cannot take."""
+    from diffsci_tpu_torch.models.nets.punetg import PUNetG, PUNetGCond
     inner = getattr(net, "model", net)
-    if type(inner) is not PUNetG:
+    if type(inner) not in (PUNetG, PUNetGCond):
         raise NotImplementedError(
-            f"a spatial mesh takes PUNetG, not {type(inner).__name__}")
+            f"a spatial mesh takes PUNetG and PUNetGCond, not "
+            f"{type(inner).__name__}")
     if inner.config.dimension not in _CONV:
         raise NotImplementedError("a spatial mesh takes 2D and 3D PUNetG")
     for m in net.modules():
         if getattr(m, "extra_residual", None) is not None:
             raise NotImplementedError("an extra residual module is not "
-                                      "ported to a spatial mesh")
-        if isinstance(m, DimensionAgnosticBatchNorm):
-            raise NotImplementedError("the EDM batch norm is not ported to "
-                                      "a spatial mesh")
-        if isinstance(m, (MagnitudePreservingConv, MagnitudePreservingDense)):
-            raise NotImplementedError("magnitude-preserving layers are not "
-                                      "ported to a spatial mesh")
-        if isinstance(m, EinsumMultiHeadAttention) and (
-                m.attn_type != "dot" or m.magnitude_preserving):
-            raise NotImplementedError(f"{m.attn_type} attention is not "
                                       "ported to a spatial mesh")
     return inner
 
@@ -330,6 +341,7 @@ def _spatial_parallel(net: nn.Module, mesh) -> None:
     from diffsci_tpu_torch.models.nets.layers import (CircularConv,
                                                       DownSampler,
                                                       _GroupNormBase)
+    from diffsci_tpu_torch.models.nets.normed import MagnitudePreservingConv
     if axis_size(mesh, SPATIAL_AXIS) == 1:
         return
     line = Line(mesh, SPATIAL_AXIS)
@@ -337,7 +349,8 @@ def _spatial_parallel(net: nn.Module, mesh) -> None:
                                                  _norm_forward),
              (DownSampler, _down_forward), (MultiHeadAttention,
                                             _mha_forward),
-             (EinsumMultiHeadAttention, _einsum_forward))
+             (EinsumMultiHeadAttention, _einsum_forward),
+             (MagnitudePreservingConv, _mp_conv_forward))
     for m in net.modules():
         forward = None
         if type(m) in (nn.Conv2d, nn.Conv3d):
@@ -369,13 +382,18 @@ class SpatialLayout:
 @torch.no_grad()
 def shard_state_spatial(state, mesh, x_shape):
     """Place a train state over a data × spatial mesh, in place: every
-    rank's copy made rank 0's (``replicate``), the network's layers
-    swapped for their slab forms, and its step's
-    batch the rows of this rank's ``data`` index and the slab of its
-    ``spatial`` index (``shard_batch``). ``x_shape``: the global batch's
+    rank's copy made rank 0's (``replicate``, which also gives the EDM
+    batch norm the world's statistics), the network's layers swapped for
+    their slab forms, and its step's batch the rows of this rank's
+    ``data`` index and the slab of its ``spatial`` index
+    (``shard_batch``; PUNetGCond's channel conditions with
+    ``channels_first=True``). ``x_shape``: the global batch's
     channels-last shape, whose first spatial axis must divide into slabs
     that every level of the network pools whole. Returns the state."""
     from diffsci_tpu_torch.parallel.mesh import replicate
+    if getattr(state.placement, "fsdp_axis", None) is not None:
+        raise NotImplementedError("a spatial mesh does not take an FSDP "
+                                  "state")
     net = state.module
     inner = _check_net(net)
     n = axis_size(mesh, SPATIAL_AXIS)

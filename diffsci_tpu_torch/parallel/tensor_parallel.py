@@ -150,10 +150,13 @@ def shard_params_tensor_parallel(net: nn.Module, mesh,
     """Make the layers that ``tensor_parallel_specs`` shards
     column-parallel over ``axis``, in place: each keeps its rows of the
     weight (a new parameter under the same name) and gathers its output.
-    Returns the specs."""
+    At one rank along ``axis`` the layers stay as they are. Returns the
+    specs."""
     specs = tensor_parallel_specs(net, mesh, axis, min_size)
     line = Line(mesh, axis)
     n, rank = line.n, line.rank
+    if n == 1:
+        return specs
     for mname, module in net.named_modules():
         name = f"{mname}.weight" if mname else "weight"
         if not specs.get(name):
@@ -177,7 +180,10 @@ def shard_state_tensor_parallel(state, mesh, axis: str = TENSOR_AXIS,
     ``axis``, their AdamW moments and EMA
     shadows cut to the same rows (by name, where the JAX package matches
     them by shape); everything else replicated (made rank 0's). The
-    batch is each rank's rows over ``data_axis``. Returns the state."""
+    batch is each rank's rows over ``data_axis``. Its
+    ``state.placement.specs`` are what ``fsdp_specs(...,
+    existing_specs=)`` composes with (``shard_state_fsdp(...,
+    tensor_axis=)`` places both). Returns the state."""
     from diffsci_tpu_torch.models.karras.train import split_variables
     from diffsci_tpu_torch.parallel.fsdp import reshard_state
     from diffsci_tpu_torch.parallel.mesh import replicate

@@ -1,4 +1,4 @@
-"""Rehearse phases 31 to 37 of ``chip_smoke.py`` on the CPU, at cut widths,
+"""Rehearse phases 31 to 39 of ``chip_smoke.py`` on the CPU, at cut widths,
 before spending card time on them.
 
     python3 scripts/torch_rehearse_phases.py OUT_DIR [phase ...] [--si-steps N]
@@ -32,7 +32,11 @@ copy so that the card's paths run on the CPU:
   B at phase 2's and 8 channels' widths, F at 8 channels, J at batch 16,
   K's autoencoder on 32² at 8 channels), part (b)'s two ranks at A's
   depth with 8 channels on 16³ in f32, F at 8 channels (the copy's
-  source is cut, since spawned ranks import it afresh).
+  source is cut, since spawned ranks import it afresh);
+- 39 (``phase_fsdp_spatial``) over gloo on the CPU: part (a)'s one rank
+  as 37's, its ranks' B at 8 channels and batch 16, D at A's cut on 16³
+  at batch 2, E's widths at 8 channels on 16², H at 2 blocks of 32 on
+  32², all in f32 (cut in the copy's source).
 
 Then runs the named phases (default: 34 to 36) and prints each one's
 seconds. The numbers mean nothing; control flow, shapes, draw
@@ -152,6 +156,27 @@ def make_copy(out: str) -> None:
          """    return ens.EnsembleKarrasModel(net, cfg, conditional=True,
                                    device=dev)""")
     _sub(fa, "MIN_TOKENS = 2048", "MIN_TOKENS = 1")
+    # phase 39's spawned ranks: B at 8 channels and batch 16, D at A's cut
+    # on 16³, E's widths cut on 16², H at 2 blocks of 32 on 32², f32
+    _sub(cs, """    return PUNetGConfig(model_channels=64, channel_expansion=[2, 4])
+""", """    return PUNetGConfig(model_channels=8, channel_expansion=[2, 4])
+""")
+    _sub(cs, "PAR_B_BATCH = 256 ", "PAR_B_BATCH = 16 ")
+    _sub(cs, "FS_D_SHAPE = (4, 32, 32, 32, 1)", "FS_D_SHAPE = (2, 16, 16, 16, 1)")
+    _sub(cs, "FS_E_SHAPE = (8, 32, 32, 1)", "FS_E_SHAPE = (4, 16, 16, 1)")
+    _sub(cs, "FS_H_SHAPE = (8, 256, 256, 1)", "FS_H_SHAPE = (4, 32, 32, 1)")
+    _sub(cs, "H_WIDTHS = dict(nembed=768, nheads=12, nblocks=12,",
+         "H_WIDTHS = dict(nembed=32, nheads=2, nblocks=2,")
+    _sub(cs, "def model_d(cfg, device=None, dtype=torch.bfloat16):",
+         "def model_d(cfg, device=None, dtype=None):")
+    _sub(cs, """    return KarrasModel(net, KarrasModelConfig.from_edm(),
+                       compute_dtype=torch.bfloat16)
+
+
+def model_i():""", """    return KarrasModel(net, KarrasModelConfig.from_edm())
+
+
+def model_i():""")
 
 
 def rehearse(out: str, names, si_steps: int) -> None:

@@ -137,11 +137,12 @@ def case_fsdp_step(rank, world, p):
     state, tx = create_train_state(model, (32, 2), seed=None)
     specs = fsdp_specs(state.params, mesh, min_elements=64)
     state = shard_state_fsdp(state, mesh, min_elements=64)
-    blocks = state.placement.fsdp.blocks
+    blocks = {k: state.params[k] for k, s in state.placement.specs.items()
+              if "data" in s}
     moment = state.optimizer.state[blocks["model.net.0.weight"]]["exp_avg"]
     assert moment.shape == blocks["model.net.0.weight"].shape
     state, out = _one_step(model, state, tx, p, mesh)
-    out["params"] = _numpy(state.params)
+    out["params"] = _whole(state)
     out["specs"] = specs
     out["block_shapes"] = {k: tuple(v.shape) for k, v in blocks.items()}
     return out
@@ -562,10 +563,12 @@ def case_spatial_plain_norms(rank, world, p):
 
 def case_spatial_raises(rank, world, p):
     """What a spatial mesh cannot take raises at placement, or in a step
-    other than ``make_train_step``: PUNetGCond (channels-first
-    conditions), an extra residual module, a slab that the network's
-    levels do not pool whole, and the distill step on a spatial state."""
-    from diffsci_tpu_torch import PUNetG, PUNetGCond, PUNetGConfig
+    other than ``make_train_step``: a network other than PUNetG and
+    PUNetGCond (a DiT), an extra residual module, a slab that the
+    network's levels do not pool whole, and the distill step on a spatial
+    state."""
+    from diffsci_tpu_torch import PUNetG, PUNetGConfig
+    from diffsci_tpu_torch.models.nets import DiffusionTransformer
     from diffsci_tpu_torch.models.karras import distill
     from diffsci_tpu_torch.parallel import shard_state_spatial
     mesh = make_mesh(axes=("spatial",), device_type="cpu")
@@ -576,9 +579,8 @@ def case_spatial_raises(rank, world, p):
         model = KarrasModel(net, KarrasModelConfig.from_edm(), device="cpu")
         return model, create_train_state(model, shape, seed=0)
 
-    nets = {"cond": PUNetGCond(PUNetGConfig(input_channels=2, **cfg),
-                               channel_conditional_items=("c",),
-                               device="cpu"),
+    nets = {"dit": DiffusionTransformer(nembed=16, nheads=2, nblocks=1,
+                                        patch_size=2, device="cpu"),
             "residual": PUNetG(PUNetGConfig(**cfg),
                                extra_residual=nn.Identity(), device="cpu")}
     out = {}

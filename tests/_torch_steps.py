@@ -49,6 +49,15 @@ def _numpy(d: dict) -> dict:
     return {k: v.detach().numpy().copy() for k, v in d.items()}
 
 
+def _whole(state) -> dict:
+    """A train state's parameters, made whole where a mesh shards them
+    (every rank calls)."""
+    from diffsci_tpu_torch.checkpoint import gather_state
+    return {k[len("params/"):]: v.numpy().copy()
+            for k, v in gather_state(state).items()
+            if k.startswith("params/")}
+
+
 def ensemble_model():
     """F's ensemble/AR configuration at small widths: PUNetGCond, CRPS over
     E = 2 members, two horizons, a 2-step Heun in-step sampler."""
@@ -83,7 +92,7 @@ def ensemble_step(q, place, shard) -> dict:
     return {"loss": float(met["train_loss"]),
             "horizons": [float(met[f"ar_loss_horizon_{i}"])
                          for i in (1, 2)],
-            "norm": float(met["grad_norm"]), "params": _numpy(state.params)}
+            "norm": float(met["grad_norm"]), "params": _whole(state)}
 
 
 def distill_step(q, place, shard) -> dict:
@@ -103,7 +112,7 @@ def distill_step(q, place, shard) -> dict:
     state, met = step(state, teacher, shard(_t(q["x"])), idx=_t(q["idx"]),
                       eps=_t(q["eps"]))
     return {"loss": float(met["distill_loss"]),
-            "norm": float(met["grad_norm"]), "params": _numpy(state.params)}
+            "norm": float(met["grad_norm"]), "params": _whole(state)}
 
 
 def vae_model():

@@ -729,13 +729,14 @@ def test_spatial_step_matches_jax(ranks, case, name):
 
 
 def test_spatial_mesh_raises_for_what_it_cannot_take(ranks):
-    """PUNetGCond, an extra residual module, a slab the levels do not
-    pool whole and the distill step on a spatial state raise; nothing
-    trains per slab in their place."""
+    """A network other than PUNetG and PUNetGCond (a DiT), an extra
+    residual module, a slab the levels do not pool whole and the distill
+    step on a spatial state raise; nothing trains per slab in their
+    place."""
     world, res, _, _ = ranks
     for rank in range(world):
         assert result(res, "spatial_raises", rank) == dict.fromkeys(
-            ("cond", "residual", "slab", "distill"), True)
+            ("dit", "residual", "slab", "distill"), True)
 
 
 def test_spatial_layers_match_the_whole_tensor(ranks):
