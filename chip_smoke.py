@@ -396,8 +396,21 @@ Phases (any failure raises, so the exit code is non-zero):
     full width lies above the CPU tests' parameter bound on one process
     too; ``scripts/torch_spatial_rounding.py``), the CPU-bound ratio
     printed.
-40. One JSON line lists every kernel with its launches over phases 5 to
-    9, 11 to 15 and 17 to 39; the card's name and power limit; then the
+40. The scripts on the card: each script of ``diffsci_tpu_torch/scripts``
+    calls its ``main()`` in-process with ``sys.argv`` set, ``--device
+    cuda``. ``train_diffusion_mnist`` at its full defaults (64 channels,
+    [2, 4], batch 256, the synthetic blobs, power EMA every 4 steps) for
+    90 steps: the loss of step 50 below step 1's, exactly 28 K2 and 28 K3
+    a train step and 35 K1 and 980 K2 a run of the 16-sample Heun grid
+    (its warm-up and its replay), the checkpoint restored (through
+    ``eval_fid``'s restore) bit for bit and its EMA sampling
+    ``samples.npy`` again bit for bit; ``eval_fid`` on that checkpoint
+    (200 samples at batch 100, FLD too) with exact K1 and K2 counts; every
+    other script once at its test sizes, its output files asserted. Each
+    script's wall and steps a second are printed beside the card's name
+    and power limit.
+41. One JSON line lists every kernel with its launches over phases 5 to
+    9, 11 to 15 and 17 to 40; the card's name and power limit; then the
     result line.
 
 The last line of standard output is
@@ -8257,6 +8270,206 @@ def phase_fsdp_spatial(zero):
     return counts + [dict(zero, **d["counts"])]
 
 
+# phase 40: the scripts. train_diffusion_mnist at its full defaults for
+# 90 steps (--steps 100 gives 6 epochs of 15 batches of 256, the JAX
+# script's epoch rule), then eval_fid on its checkpoint
+SCRIPT_MNIST = ["--steps", "100"]
+SCRIPT_EVAL = ["--nsamples", "200", "--batch", "100", "--fld"]
+B_NORMS = 28               # B's norms a network call (14 ResnetBlockCs)
+SCRIPT_NFE = 2 * 18 - 1    # the scripts' 18-step Heun samples
+# every other script once, at tests/test_scripts.py's sizes (the rest
+# cut alike): flags with OUT for the run's directory, and the files
+# it must write there
+SCRIPT_SMOKE = {
+    "train_diffusion_toy": (["--steps", "20", "--batch", "16"], []),
+    "train_diffusion_cifar10": (
+        ["--steps", "20", "--batch", "8", "--channels", "8", "--outdir",
+         "OUT"], ["ckpt/description.json", "metrics.jsonl", "samples.npy",
+                  "samples.png"]),
+    "train_diffusion_shapes": (
+        ["--steps", "20", "--batch", "8", "--channels", "8", "--size", "32",
+         "--num-samples", "64", "--outdir", "OUT"],
+        ["ckpt/description.json", "morph.png", "samples.png"]),
+    "train_diffusion_conditional": (
+        ["--steps", "20", "--batch", "8", "--channels", "8", "--nsamples",
+         "4", "--outdir", "OUT"], ["conditional_samples.png"]),
+    "train_super_resolution": (
+        ["--steps", "20", "--batch", "8", "--channels", "8", "--nsamples",
+         "4", "--ndraws", "2", "--outdir", "OUT"], ["sr3.png"]),
+    "train_ensemble_forecast": (
+        ["--steps", "20", "--batch", "8", "--channels", "8", "--ensemble",
+         "2", "--eval-ensemble", "2", "--size", "16", "--outdir", "OUT"],
+        ["forecast.png"]),
+    "train_vae": (["--steps", "20", "--batch", "4", "--resolution", "16",
+                   "--outdir", "OUT"], ["ckpt/state.pt"]),
+    "sampler_comparison": (
+        ["--steps", "20", "--size", "32", "--num-data", "64", "--nsamples",
+         "16", "--model-channels", "8", "--batch-size", "8", "--log-dir",
+         "OUT/log", "--out", "OUT/out.json"], ["out.json"]),
+    "anomaly_detection": (
+        ["--steps", "20", "--batch", "8", "--channels", "8", "--neval", "8",
+         "--outdir", "OUT"], ["anomaly.png"]),
+    "inpainting_demo": (
+        ["--steps", "20", "--batch", "8", "--channels", "8", "--neval", "8",
+         "--nsteps", "20", "--mode", "repaint", "--outdir", "OUT"],
+        ["repaint.png"]),
+    "distill_study": (
+        ["--steps", "20", "--phase-steps", "4", "--size", "32",
+         "--num-data", "64", "--nsamples", "16", "--model-channels", "8",
+         "--batch-size", "8", "--start-nsteps", "3", "--log-dir", "OUT/log",
+         "--out", "OUT/out.json"], ["out.json"]),
+    "entropy_time_profile": (
+        ["--train-steps", "60", "--snapshot-every", "20", "--nsamples",
+         "400", "--nsteps", "12", "--ngamma", "3", "--datasize", "200",
+         "--batch", "64", "--out", "OUT/etp.json"], ["etp.json"]),
+    "correlation_thresholds": (
+        ["--input", "OUT/../entropy_time_profile/etp.json",
+         "--epoch-threshold", "0", "--nsteps", "12", "--initial-range",
+         "0.3", "0.9", "3", "--final-range", "0.05", "0.4", "3",
+         "--late-range", "0.01", "0.2", "3", "--out", "OUT/corr.csv"],
+        ["corr.csv"]),
+}
+
+
+def run_script(name: str, args: list) -> tuple[float, str, object]:
+    """A port script's ``main()`` in-process with ``sys.argv`` set (and
+    ``--device cuda``), its standard output captured: (the wall seconds
+    to a synchronize, the output, what ``main`` returned)."""
+    import importlib
+    import io
+    module = importlib.import_module(f"diffsci_tpu_torch.scripts.{name}")
+    argv, out = sys.argv, io.StringIO()
+    sys.argv = [f"{name}.py"] + [str(a) for a in args] + ["--device",
+                                                          "cuda"]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            ret = module.main()
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = argv
+    return time.perf_counter() - t0, out.getvalue(), ret
+
+
+def flag(args: list, name: str, default):
+    return type(default)(args[args.index(name) + 1]) if name in args \
+        else default
+
+
+def phase_scripts(zero):
+    """Phase 40: the scripts on the card (module docstring). Returns the
+    launch counts of the mnist run and of the eval."""
+    import argparse
+    import pathlib
+    import shutil
+    import tempfile
+
+    from diffsci_tpu_torch import kernels
+    from diffsci_tpu_torch.checkpoint import load_state, state_tensors
+    from diffsci_tpu_torch.data.loading import split_indices
+    from diffsci_tpu_torch.scripts import eval_fid
+
+    card = smi("name,power.limit")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_scripts_"))
+    try:
+        out = tmp / "mnist"
+        kernels.reset_launches()
+        wall, text, _ = run_script("train_diffusion_mnist",
+                                   SCRIPT_MNIST + ["--outdir", out])
+        counts_mnist = dict(kernels.LAUNCHES)
+        saved = load_state(out / "ckpt")
+        steps = int(saved["step"])
+        batch = flag(SCRIPT_MNIST, "--batch", 256)
+        n_eval = len(split_indices(4096, 0.05, 0)[1]) // batch
+        # a train step: 28 K2 and 28 K3; an eval batch: 1 K1 and 28 K2;
+        # the 16-sample grid: its sampler graph's warm-up and one replay
+        expected = dict(zero, fused_axby=n_eval + 2 * SCRIPT_NFE,
+                        norm_silu=B_NORMS * (steps + n_eval
+                                             + 2 * SCRIPT_NFE),
+                        norm_silu_bwd=B_NORMS * steps)
+        rows = [json.loads(r) for r in
+                (out / "metrics.jsonl").read_text().splitlines()]
+        losses = {r["step"]: r["train_loss"] for r in rows
+                  if "train_loss" in r}
+        rate = next(r["imgs_per_sec"] for r in reversed(rows)
+                    if "imgs_per_sec" in r)
+        samples = np.load(out / "samples.npy")
+        ns = argparse.Namespace(ckpt=str(out / "ckpt"),
+                                channels=flag(SCRIPT_MNIST, "--channels",
+                                              64),
+                                ema_stds=[0.05, 0.1], no_ema=False)
+        model, state, _ = eval_fid.restore(ns, torch.device("cuda"))
+        # every tensor as saved, the parameters holding EMA profile 0
+        live = state_tensors(state)
+        restored = all(torch.equal(live[k].cpu(), saved[
+            "ema/0/" + k[len("params/"):] if k.startswith("params/")
+            else k]) for k in live)
+        again = model.sample(16, (28, 28, 1),
+                             torch.Generator("cuda").manual_seed(0),
+                             nsteps=18).cpu().numpy()
+        ok = (counts_mnist == expected and restored
+              and np.array_equal(again, samples)
+              and samples.shape == (16, 28, 28, 1)
+              and np.isfinite(samples).all()
+              and 50 in losses and losses[50] < losses[1])
+        log(f"[scripts] train_diffusion_mnist ({ns.channels} channels, "
+            f"batch {batch}): "
+            f"{steps} steps, {wall:.2f} s wall ({steps / wall:.2f} steps/s "
+            f"over the script; {rate / batch:.2f} steps/s, {rate:.0f} "
+            f"images/s in the loop's log), train_loss {losses[1]:.4f} -> "
+            f"{losses.get(50, float('nan')):.4f}, checkpoint restored bit "
+            f"for bit {restored}, its EMA samples again bit for bit "
+            f"{np.array_equal(again, samples)}, launches {counts_mnist} "
+            f"(expected {expected}) [{card}]")
+        if not ok:
+            raise AssertionError(f"train_diffusion_mnist on the card: "
+                                 f"counts {counts_mnist} (expected "
+                                 f"{expected}), restored {restored}, "
+                                 f"losses {losses}")
+
+        kernels.reset_launches()
+        wall, text, _ = run_script("eval_fid", ["--ckpt", out / "ckpt"]
+                                   + SCRIPT_EVAL)
+        counts_eval = dict(kernels.LAUNCHES)
+        result = json.loads(text.strip().splitlines()[-1])
+        n = flag(SCRIPT_EVAL, "--nsamples", 500)
+        b = flag(SCRIPT_EVAL, "--batch", 100)
+        sizes = [min(b, n - i) for i in range(0, n, b)]
+        # each batch size's sampler graph: a warm-up, then every batch of
+        # it a replay
+        runs = len(sizes) + len(set(sizes))
+        expected_eval = dict(zero, fused_axby=SCRIPT_NFE * runs,
+                             norm_silu=B_NORMS * SCRIPT_NFE * runs)
+        finite = all(np.isfinite(result[k]) for k in ("fid", "kid", "fld",
+                                                      "fld_gen_gap"))
+        log(f"[scripts] eval_fid ({n} samples at batch {b}, pixel FID, "
+            f"FLD): {wall:.2f} s wall ({n / wall:.1f} samples/s), fid "
+            f"{result['fid']:.2f} kid {result['kid']:.4f} fld "
+            f"{result['fld']:.2f}, launches {counts_eval} (expected "
+            f"{expected_eval}) [{card}]")
+        if counts_eval != expected_eval or not finite or \
+                result["nsamples"] != n:
+            raise AssertionError(f"eval_fid on the card: {counts_eval} "
+                                 f"(expected {expected_eval}), {result}")
+
+        for name, (args, files) in SCRIPT_SMOKE.items():
+            where = tmp / name
+            where.mkdir()
+            args = [a.replace("OUT", str(where)) for a in args]
+            wall, text, _ = run_script(name, args)
+            missing = [f for f in files if not (where / f).is_file()]
+            steps = flag(args, "--steps", flag(args, "--train-steps", 0))
+            rate = f"{steps / wall:.2f} steps/s" if steps else "no steps"
+            log(f"[scripts] {name}: {wall:.2f} s wall ({rate}); "
+                f"{text.strip().splitlines()[-1][:160]} [{card}]")
+            if missing:
+                raise AssertionError(f"{name} on the card wrote no "
+                                     f"{missing}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [counts_mnist, counts_eval]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -8432,6 +8645,9 @@ def main() -> int:
     # (phase 39)
     counts_39 = phase_fsdp_spatial(zero)
     elapsed("39")
+    # the scripts on the card (phase 40)
+    counts_40 = phase_scripts(zero)
+    elapsed("40")
 
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
@@ -8473,7 +8689,8 @@ def main() -> int:
                                            *counts_32, *counts_33,
                                            *counts_34, *counts_35,
                                            *counts_36, *counts_37,
-                                           *counts_38, *counts_39]),
+                                           *counts_38, *counts_39,
+                                           *counts_40]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

@@ -81,6 +81,11 @@ fit on the card) and ``metrics_inception`` (the pytorch-fid InceptionV3
 and its features); ``extra`` (grid and sequential volume synthesis around
 an ``SIModel``, the periodizer, porosity maps, the tiled decode,
 conv-to-circular surgery) and ``utils.periodic``.
+
+The user recipes: ``diffsci_tpu_torch.scripts``, one module per script of
+the JAX package (``python -m diffsci_tpu_torch.scripts.train_diffusion_mnist``,
+``eval_fid``, ...), with the JAX scripts' flags and outputs and a
+``--device`` flag.
 """
 
 from diffsci_tpu_torch.checkpoint import (CheckpointManager, ModelRegistry,

@@ -51,19 +51,32 @@ DESCRIPTION_FILE = "description.json"
 INDEX_FILE = "checkpoints.json"
 
 
+def _optimizer_tensors(prefix: str, optimizer, params: dict) -> dict:
+    names = {id(p): k for k, p in params.items()}
+    return {f"{prefix}/{names[id(p)]}/{key}": t
+            for group in optimizer.param_groups for p in group["params"]
+            for key, t in optimizer.state[p].items()}
+
+
 def state_tensors(state) -> dict[str, torch.Tensor]:
     """The tensors of a train state by checkpoint name (the live tensors,
     not copies: over a mesh, this rank's shards); a dict of tensors is
-    taken as it is."""
+    taken as it is. A ``VAETrainState`` adds its discriminator's
+    parameters and optimizer (``disc_params/``, ``disc_optimizer/``) and
+    its step counter."""
     if isinstance(state, dict):
         return dict(state)
     out = {f"params/{k}": p.detach() for k, p in state.params.items()}
     out.update({f"buffers/{k}": b for k, b in state.buffers.items()})
-    names = {id(p): k for k, p in state.params.items()}
-    for group in state.optimizer.param_groups:
-        for p in group["params"]:
-            for key, t in state.optimizer.state[p].items():
-                out[f"optimizer/{names[id(p)]}/{key}"] = t
+    out.update(_optimizer_tensors("optimizer", state.optimizer,
+                                  state.params))
+    if getattr(state, "disc_params", None) is not None:
+        out.update({f"disc_params/{k}": p.detach()
+                    for k, p in state.disc_params.items()})
+        out.update(_optimizer_tensors("disc_optimizer", state.disc_optimizer,
+                                      state.disc_params))
+    if hasattr(state, "counter"):
+        out["counter"] = state.counter
     if state.accum is not None:
         out.update({f"accum/{k}": g for k, g in state.accum.grads.items()})
     if state.ema is not None:

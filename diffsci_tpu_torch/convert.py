@@ -95,8 +95,9 @@ _TIME_DENSE = re.compile(
     r"^ResnetTimeBlock_0/(?:MagnitudePreserving)?Dense_(\d+)$")
 _NORM_CLASS = {"GroupLN": "GroupLNorm", "GroupRMS": "GroupRMSNorm",
                "GroupPix": "GroupPixNorm"}
+# flax's nn.Embed table [num, features] is torch's nn.Embedding weight
 _LEAF = {"kernel": "weight", "w_mp": "weight", "bias": "bias",
-         "scale": "weight"}
+         "scale": "weight", "embedding": "weight"}
 _ATTN = re.compile(r"^attn_(\d+)$")
 _SLICE = re.compile(r"^slice_embedding/(Conv|GroupNorm)_(\d+)$")
 

@@ -26,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from diffsci_tpu_torch.models.nets.layers import linear_resize
+from diffsci_tpu_torch.parallel.tensor_parallel import whole_weight
 from diffsci_tpu_torch.utils import resolve_device, unset
 
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
@@ -145,8 +146,9 @@ class VideoModelingModule(nn.Module):
 
 
 class SelfRepresentationModule(nn.Module):
-    """A = W − diag(W) of ``self_repr``'s weight [n, n]; returns (Aᵀ O,
-    A)."""
+    """A = W − diag(W) of ``self_repr``'s weight [n, n] (whole under
+    tensor parallelism: ``parallel.tensor_parallel.whole_weight``);
+    returns (Aᵀ O, A)."""
 
     def __init__(self, config: DASCConfig):
         super().__init__()
@@ -160,7 +162,7 @@ class SelfRepresentationModule(nn.Module):
             (torch.rand((n, n), generator=generator) * 2 - 1) * bound)
 
     def forward(self, O):
-        W = self.self_repr.weight
+        W = whole_weight(self.self_repr)
         A = W - torch.diag(torch.diagonal(W))
         return A.T @ O, A
 

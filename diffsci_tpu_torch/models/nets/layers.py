@@ -44,7 +44,8 @@ def init_parameters(module: nn.Module, seed: int) -> None:
     the same weights on every device. Convolutions (transposed too) and
     dense layers take uniform(±1/√fan_in) (PyTorch's default bound),
     torch's GroupNorm, LayerNorm, RMSNorm and BatchNorm ones and zeros (the
-    JAX package's norm init); the port's own layers their
+    JAX package's norm init), an ``nn.Embedding`` (flax's ``nn.Embed``, a
+    class embedding) torch's N(0, 1); the port's own layers their
     ``reset_parameters(generator)``."""
     generator = torch.Generator().manual_seed(seed)
     for m in module.modules():
@@ -54,6 +55,8 @@ def init_parameters(module: nn.Module, seed: int) -> None:
             uniform_fan_in_(m, generator)
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()
+        elif isinstance(m, nn.Embedding):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
         elif isinstance(m, (nn.GroupNorm, nn.LayerNorm, nn.RMSNorm)):
             # their reset_parameters() takes no generator
             if m.weight is not None:

@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from diffsci_tpu_torch.parallel.tensor_parallel import as_linear
 from diffsci_tpu_torch.utils import resolve_device
 
 
@@ -91,8 +92,11 @@ def _untokens(h, like):
 
 
 def _linear(conv: nn.Module, h, bias: bool = True):
-    """A 1×1 convolution as a matrix product over tokens [B, N, C]."""
-    return F.linear(h, conv.weight.flatten(1), conv.bias if bias else None)
+    """A 1×1 convolution (or ``VAENet``'s wrapper of one, whose layer is
+    ``conv``) as a matrix product over tokens [B, N, C]; under tensor
+    parallelism the whole product (``parallel.tensor_parallel.as_linear``).
+    """
+    return as_linear(getattr(conv, "conv", conv), h, bias)
 
 
 class LDMResnetBlock(nn.Module):

@@ -134,22 +134,14 @@ class VAENetConfig:
 
 class _Conv(nn.Module):
     """A size-keeping k^d convolution held as ``conv``, the name the torch
-    reference's patched-convolution wrapper gives its layer; ``weight``
-    and ``bias`` are the layer's (``LDMAttnBlock`` reads them)."""
+    reference's patched-convolution wrapper gives its layer
+    (``LDMAttnBlock`` applies a 1×1 one to tokens through its ``conv``)."""
 
     def __init__(self, dimension: int, cin: int, cout: int, k: int,
                  bias: bool = True):
         super().__init__()
         self.conv = _CONVS[dimension - 1](cin, cout, k, padding=k // 2,
                                           bias=bias)
-
-    @property
-    def weight(self):
-        return self.conv.weight
-
-    @property
-    def bias(self):
-        return self.conv.bias
 
     def forward(self, x):
         return self.conv(x)

@@ -415,9 +415,10 @@ class VAETrainState:
     optimizer, the discriminator's (or None), the steps taken (on the
     host, and as ``counter``, a 0-d device tensor the frequency gate
     reads), the network's buffers by name, and on a CUDA device the step's
-    CUDA graphs (a ``utils.graphs.GraphCache``), and its layout over a mesh
-    (``placement``, set by ``parallel.replicate``; None on one
-    process)."""
+    CUDA graphs (a ``utils.graphs.GraphCache``), the autoencoder's network
+    the parameters belong to (``module``), and its layout over a mesh
+    (``placement``, set by ``parallel.replicate`` or
+    ``parallel.shard_state_tensor_parallel``; None on one process)."""
     params: dict
     optimizer: torch.optim.Optimizer
     disc_params: dict | None
@@ -427,8 +428,13 @@ class VAETrainState:
     buffers: dict = dataclasses.field(default_factory=dict)
     graphs: graphs.GraphCache | None = dataclasses.field(
         default=None, repr=False, compare=False)
+    module: nn.Module | None = dataclasses.field(default=None, repr=False,
+                                                 compare=False)
     placement: object = dataclasses.field(default=None, repr=False,
                                           compare=False)
+    # read as a Karras TrainState's by the placement and checkpoint code
+    ema = None
+    accum = None
 
 
 # what AdamWClip.update reads of a state
@@ -502,7 +508,7 @@ def create_vae_train_state(model: VAEModel, x_shape=None,
         params=params, optimizer=tx.init(params), disc_params=disc_params,
         disc_optimizer=disc_opt,
         counter=torch.zeros((), dtype=torch.int64, device=model.device),
-        buffers=dict(model.net.named_buffers()))
+        buffers=dict(model.net.named_buffers()), module=model.net)
     return state, tx, dtx
 
 

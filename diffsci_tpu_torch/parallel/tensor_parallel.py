@@ -19,6 +19,12 @@ of a ``ConvTranspose*d``'s. Biases and every other tensor stay
 replicated, as 1-d tensors do in the JAX package; so do grouped
 convolutions, and weights that other modules hold (the JAX package's
 rule shards any ≥2-d leaf by its last axis: placement, not numbers).
+
+A module that reads a layer's weight instead of calling the layer goes
+through ``as_linear`` (a ``Linear`` or 1×1 convolution applied to tokens:
+this rank's features, gathered whole) or ``whole_weight`` (the weight
+all-gathered with autograd), so it sees the whole product under tensor
+parallelism as GSPMD gives it in the JAX package.
 """
 
 from __future__ import annotations
@@ -119,21 +125,46 @@ class Line:
 def _tp_forward(module, x):
     """A column-parallel layer's forward: this rank's output features,
     gathered whole, then the (whole, replicated) bias."""
-    line = module._tp
-    group, n, rank = line.group, line.n, line.rank
-    x = _ToLine.apply(x, group)
     if isinstance(module, nn.Linear):
-        y, dim = F.linear(x, module.weight), -1
-    elif isinstance(module, _CONV):
-        y, dim = module._conv_forward(x, module.weight, None), 1
+        return as_linear(module, x)
+    line = module._tp
+    x = _ToLine.apply(x, line.group)
+    if isinstance(module, _CONV):
+        y = module._conv_forward(x, module.weight, None)
     else:
-        y, dim = _conv_t(module, x), 1
-    y = _GatherLine.apply(y, dim % y.ndim, group, n, rank)
+        y = _conv_t(module, x)
+    y = _GatherLine.apply(y, 1, line.group, line.n, line.rank)
     if module.bias is not None:
-        shape = [1] * y.ndim
-        shape[dim] = -1
-        y = y + module.bias.view(shape)
+        y = y + module.bias.view([1, -1] + [1] * (y.ndim - 2))
     return y
+
+
+def as_linear(layer: nn.Module, h, bias: bool = True):
+    """``layer`` (a ``Linear`` or a 1×1 ``Conv*d``) as a matrix product
+    over the last dim of ``h`` ([..., in] -> [..., out]), with its bias
+    unless ``bias`` is False. A column-parallel layer computes this
+    rank's output features and gathers them whole, as its own forward
+    does."""
+    w = layer.weight.flatten(1)
+    b = layer.bias if bias else None
+    line = getattr(layer, "_tp", None)
+    if line is None:
+        return F.linear(h, w, b)
+    y = F.linear(_ToLine.apply(h, line.group), w)
+    y = _GatherLine.apply(y, y.ndim - 1, line.group, line.n, line.rank)
+    return y if b is None else y + b
+
+
+def whole_weight(layer: nn.Module) -> torch.Tensor:
+    """``layer``'s whole weight: a column-parallel layer's rows
+    all-gathered over its line, differentiably (every rank of the line
+    computes the same gradient of the whole, and keeps its rows'); a
+    plain layer's own."""
+    line = getattr(layer, "_tp", None)
+    if line is None:
+        return layer.weight
+    return _GatherLine.apply(layer.weight, _feature_dim(layer), line.group,
+                             line.n, line.rank)
 
 
 def _conv_t(module, x):
@@ -213,5 +244,6 @@ def _prefix(net: nn.Module, params: dict) -> str:
     raise ValueError("the state's parameters are not the network's")
 
 
-__all__ = ["shard_params_tensor_parallel", "shard_state_tensor_parallel",
-           "tensor_parallel_specs"]
+__all__ = ["as_linear", "shard_params_tensor_parallel",
+           "shard_state_tensor_parallel", "tensor_parallel_specs",
+           "whole_weight"]

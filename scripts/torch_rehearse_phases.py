@@ -36,7 +36,10 @@ copy so that the card's paths run on the CPU:
 - 39 (``phase_fsdp_spatial``) over gloo on the CPU: part (a)'s one rank
   as 37's, its ranks' B at 8 channels and batch 16, D at A's cut on 16³
   at batch 2, E's widths at 8 channels on 16², H at 2 blocks of 32 on
-  32², all in f32 (cut in the copy's source).
+  32², all in f32 (cut in the copy's source);
+- 40 (``phase_scripts``): ``train_diffusion_mnist`` at 8 channels and
+  batch 16 for 60 steps (12 eval batches a validation), ``eval_fid`` at
+  20 samples in batches of 8, the other scripts at the phase's sizes.
 
 Then runs the named phases (default: 34 to 36) and prints each one's
 seconds. The numbers mean nothing; control flow, shapes, draw
@@ -167,6 +170,12 @@ def make_copy(out: str) -> None:
     _sub(cs, "FS_H_SHAPE = (8, 256, 256, 1)", "FS_H_SHAPE = (4, 32, 32, 1)")
     _sub(cs, "H_WIDTHS = dict(nembed=768, nheads=12, nblocks=12,",
          "H_WIDTHS = dict(nembed=32, nheads=2, nblocks=2,")
+    # phase 40: mnist at 8 channels and batch 16 (12 eval batches), the
+    # eval at 20 samples in batches of 8
+    _sub(cs, 'SCRIPT_MNIST = ["--steps", "100"]',
+         'SCRIPT_MNIST = ["--steps", "60", "--batch", "16", "--channels", "8"]')
+    _sub(cs, 'SCRIPT_EVAL = ["--nsamples", "200", "--batch", "100", "--fld"]',
+         'SCRIPT_EVAL = ["--nsamples", "20", "--batch", "8", "--fld"]')
     _sub(cs, "def model_d(cfg, device=None, dtype=torch.bfloat16):",
          "def model_d(cfg, device=None, dtype=None):")
     _sub(cs, """    return KarrasModel(net, KarrasModelConfig.from_edm(),

@@ -7,7 +7,7 @@ the kernels: a development runner that saves the whole script's minutes.
 Phases 34 to 36 (``phase_extras_card_vs_cpu``, ``phase_q``, ``phase_p``)
 by default; any phase by its function's name (31 to 33:
 ``phase_runtimes_card_vs_cpu``, ``phase_l``, ``phase_m``, ``phase_n``,
-``phase_o``). Each runs under the flags the whole script gives it (TF32
+``phase_o``; 40, the scripts: ``phase_scripts``). Each runs under the flags the whole script gives it (TF32
 off for the card-against-CPU phases). Prints the card's name and power
 limit last.
 """
