@@ -158,8 +158,8 @@ Phases (any failure raises, so the exit code is non-zero):
     served in f32, after the command line with TF32 off, so that a
     request batched in one bucket can be held to the same seed alone in
     another):
-    ``python -m diffsci_tpu_torch info`` and ``sample --grid`` in a
-    subprocess on the card (the .npy bit for bit the in-process
+    ``python -m diffsci_tpu_torch info`` and ``sample --grid``, each a
+    subprocess on the card, side by side (the .npy bit for bit the in-process
     ``from_checkpoint`` request, the PNG written without matplotlib);
     ``build_server`` on port 0 with the dispatcher (``batch_window_ms=5``,
     buckets (1, 8, 64)) and one at a time, 32 concurrent one-sample HTTP
@@ -189,8 +189,9 @@ Phases (any failure raises, so the exit code is non-zero):
 21. Card vs CPU, f32, TF32 off, on phase 2's net as a forecaster
     (PUNetGCond over a 2-frame window, CRPS, 2 horizons, a 3-step in-step
     sampler): the CRPS ensemble loss (E = 3, masked and not), the
-    autoregressive loss on the card's draws, three graphed
-    ``make_ensemble_train_step`` steps against the CPU's eager ones
+    autoregressive loss on the card's draws, two graphed
+    ``make_ensemble_train_step`` steps (the first the warm-up, the second
+    the captured graph's replay) against the CPU's eager ones
     (phase 3's bounds); a small 3D ``AutoencoderKL``'s encode and decode
     through ``BoundAutoencoder``, a latent ``loss_fn`` and a graphed
     latent ``sample`` (phase 2's tolerance, 5 K1), a 2-step
@@ -323,14 +324,15 @@ Phases (any failure raises, so the exit code is non-zero):
     and blend 8) around the flow field at 32³ (one call at 48³); the
     ``tiled_decode`` of a 128² × 4 latent through G's decoder without mid
     attention (no kernel; max|Δ| from the one-shot decode reported, peak
-    memory of both): walls, device times, peak memory.
+    memory of both): walls, the periodizer's and the decode's device
+    times (the volumes and the stack run once, unprofiled), peak memory.
 36. Configuration P, sample-quality evaluation at pytorch-fid's widths:
     2048 "real", 2048 generated and 1024 test images from B's
     ``KarrasModel`` (bucket 64, exact launches), a noised "far" set; the
     InceptionV3's pool3 features at batch 64 (images/s), FID, KID, FLD
-    and the generalization gap at d 2048 (host sqrtm seconds, the FLD
-    fit's): FID and KID of a set with itself ~0, generated closer than
-    far by FID, KID and FLD.
+    and the generalization gap at d 2048 (the three FIDs' host sqrtm
+    side by side, their seconds; the FLD fit's): FID and KID of a set
+    with itself ~0, generated closer than far by FID, KID and FLD.
 37. The parallel modes over ``torch.distributed``. (a) One NCCL rank at
     full width: B's data-parallel train step (``replicate``,
     ``shard_batch``, the gradient all-reduce captured in the step's
@@ -383,7 +385,8 @@ Phases (any failure raises, so the exit code is non-zero):
     and peak memory beside the DP step's; as a reading, H's DiT-B at one
     bf16 step (DP against FSDP). (c) Four gloo ranks: B's FSDP∘TP step on
     a (2, 2) data × tensor mesh, f32, against the single-process step
-    within the CPU tests' bounds. (d) Two gloo ranks, spatial = 2: D at
+    within the CPU tests' bounds (the group also runs phase 41's FSDP∘EP
+    arm). (d) Two gloo ranks, spatial = 2: D at
     full width (32³ × 1, batch 4, ``PorosityEmbedder(32)``, the EDM batch
     norm, circular convolutions, flash bottleneck) in f32 against the
     single-process step on the same weights and replayed draws (the
@@ -409,8 +412,37 @@ Phases (any failure raises, so the exit code is non-zero):
     other script once at its test sizes, its output files asserted. Each
     script's wall and steps a second are printed beside the card's name
     and power limit.
-41. One JSON line lists every kernel with its launches over phases 5 to
-    9, 11 to 15 and 17 to 40; the card's name and power limit; then the
+41. The last four scripts, the sampler graphs keyed on the scheduler, and
+    FSDP over an expert-parallel state. ``stochasticity_sweep`` at its
+    widths (32 channels, [2], 28²), γ 0.0, 0.5, 1.0 of 250 samples and
+    100 steps, sequential and with ``--processes 2``: the two JSONs equal
+    bit for bit, the FIDs finite and not all equal, the sequential run's
+    K1 and K2 exact (each γ's graph warmed up and replayed once: 2 × 199
+    Heun calls and 2 × 2 × 100 Euler–Maruyama calls, 20 K2 a call) and
+    the parent of the workers launching nothing. The repair: one model
+    sampled at γ 0.5, its ``config.noisescheduler`` swapped to γ 3.0, the
+    next sample bit for bit a fresh model's γ 3.0 sample and unlike the
+    γ 0.5 one. ``stochasticity_study`` at its widths (32 channels, [2, 4],
+    32², batch 128) for 100 steps, 256 samples at 18 NFE a γ over γ 0.01,
+    1.0, 5.0: exact launches, which hold one sampler graph (a warm-up and
+    three replays). ``picard_restart_trained`` at its widths for 100
+    steps, its FID tier at 128 samples: every sampler call's K1 its
+    network calls (Picard's the sweeps it reports, a capture's warm-up
+    one more), K2 28 a K1, Picard at 18 steps matching Euler's sample,
+    Picard at 100 steps in fewer than 100 sweeps; the arms' walls
+    printed. ``repro_reference_fid --smoke``, then at 128 channels for 30
+    steps (100 samples at 18 NFE a target): three finite FIDs a run, a
+    ``--ckpt`` rerun of each the same FIDs bit for bit, train and sample
+    launches exact. Four gloo ranks on the card (data 2 × expert 2;
+    phase 39's group of four, which ran the arm):
+    H's MoE twin cut to 2 blocks (768 wide, 12 heads of 64, 4 experts in
+    the second block, 256² × 1 at patch 4, flash) in f32 at batch 8, one
+    step of FSDP over dp × ep and of dp × ep against one process's step
+    within the CPU tests' bounds, the parameters a rank holds under FSDP
+    exactly its blocks and fewer than under dp × ep, K4, K5 and K6 twice
+    a step on every rank. Every file goes to a temporary directory.
+42. One JSON line lists every kernel with its launches over phases 5 to
+    9, 11 to 15 and 17 to 41; the card's name and power limit; then the
     result line.
 
 The last line of standard output is
@@ -3251,25 +3283,41 @@ def phase_serving_stack(cfg_a, cfg_b, zero, trained, model_c):
     counts = []
     tf32 = torch.backends.cudnn.allow_tf32
 
-    def cli(*args):
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", "diffsci_tpu_torch",
-                              *map(str, args)], cwd=root, capture_output=True,
-                             text=True, timeout=600)
-        if res.returncode != 0:
+    procs = []
+
+    def cli_start(*args):
+        """``python -m diffsci_tpu_torch *args`` started: (its start,
+        the process)."""
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "diffsci_tpu_torch", *map(str, args)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+        return args[0], time.perf_counter(), procs[-1]
+
+    def cli_end(started):
+        """A started command's output and seconds, once it has ended."""
+        name, t0, proc = started
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
             raise AssertionError(f"phase 19: python -m diffsci_tpu_torch "
-                                 f"{args[0]} exited {res.returncode}: "
-                                 f"{res.stderr[-3000:]}")
-        return res.stdout, time.perf_counter() - t0
+                                 f"{name} exited {proc.returncode}: "
+                                 f"{err[-3000:]}")
+        return out, time.perf_counter() - t0
+
+    def cli(*args):
+        return cli_end(cli_start(*args))
 
     try:
         ckpt = tmp / "ckpt"
         save_checkpoint(ckpt, state, model.export_description())
-        info, info_s = cli("info", "--ckpt", ckpt)
-        tag = json.loads(info)["config_description"]["tag"]
-        text, sample_s = cli("sample", "--ckpt", ckpt, "--shape", *shape,
+        # `info` and `sample` side by side, each its own process
+        info_p = cli_start("info", "--ckpt", ckpt)
+        sample_p = cli_start("sample", "--ckpt", ckpt, "--shape", *shape,
                              "--nsamples", 64, "--seed", 11, "--out",
                              tmp / "s.npy", "--grid", tmp / "grid.png")
+        info, info_s = cli_end(info_p)
+        text, sample_s = cli_end(sample_p)
+        tag = json.loads(info)["config_description"]["tag"]
         from_cli = np.load(tmp / "s.npy")
         base = SamplerService.from_checkpoint(ckpt, shape, ema_stds=[0.05],
                                               batch_buckets=(64,))
@@ -3380,6 +3428,10 @@ def phase_serving_stack(cfg_a, cfg_b, zero, trained, model_c):
         counts.append(profiled_request(served, zero, card, tmp, cli))
         return counts
     finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         torch.backends.cudnn.allow_tf32 = tf32
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3949,9 +4001,10 @@ def phase_forecast_card_vs_cpu(zero):
     if not ok:
         raise AssertionError("AR loss: card and CPU differ")
 
-    # three graphed ensemble train steps against the CPU's eager ones
+    # two graphed ensemble train steps (a warm-up, then the graph's
+    # replay) against the CPU's eager ones
     step_draws = [card.draw_autoregressive(card.draw_tensors(x, 3), gen)
-                  for _ in range(3)]
+                  for _ in range(2)]
     runs = {}
     for arm, model in (("cpu", cpu), ("card", card)):
         dev = model.device
@@ -3971,14 +4024,17 @@ def phase_forecast_card_vs_cpu(zero):
                 "train_loss", "ar_loss_horizon_1", "ar_loss_horizon_2")])
         runs[arm] = (mets, state, dict(kernels.LAUNCHES))
     (m_cpu, s_cpu, _), (m_card, s_card, c_step) = runs["cpu"], runs["card"]
-    ok_p, q999, worst = params_within(s_card.params, s_cpu.params, lr, 3)
+    ok_p, q999, worst = params_within(s_card.params, s_cpu.params, lr,
+                                      len(step_draws))
     ok = ok_p and np.allclose(m_card, m_cpu, rtol=1e-3, atol=0)
     graphs_n = len(s_card.graphs.graphs)
-    log(f"[forecast card-vs-cpu] 3 graphed ensemble steps (CRPS E=3, 2 "
+    log(f"[forecast card-vs-cpu] {len(step_draws)} graphed ensemble steps "
+        f"(CRPS E=3, 2 "
         f"horizons): (loss, h1, h2) card {np.round(m_card, 6).tolist()} "
         f"cpu {np.round(m_cpu, 6).tolist()} (rtol 1e-3); params 99.9% "
         f"{q999:.3e}, max {worst:.3e} (limits {0.05 * lr:.0e}, "
-        f"{6 * lr:.0e}); {graphs_n} graph(s); launches {c_step} "
+        f"{2 * len(step_draws) * lr:.0e}); {graphs_n} graph(s); launches "
+        f"{c_step} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok or min(c_step[k] for k in ("fused_axby", "norm_silu",
                                          "norm_silu_bwd")) == 0:
@@ -4741,6 +4797,18 @@ def model_h(moe: bool = False):
            DiffusionTransformer(attn_backend="flash", **H_WIDTHS))
     return KarrasModel(net, KarrasModelConfig.from_edm(),
                        compute_dtype=torch.bfloat16)
+
+
+def model_h_moe_f32(nblocks: int = 2):
+    """H's MoE twin at H's widths cut to ``nblocks`` blocks (4 experts in
+    every second block), flash attention, EDM, in float32."""
+    from diffsci_tpu_torch import KarrasModel, KarrasModelConfig
+    from diffsci_tpu_torch.models.nets import MoEDiffusionTransformer
+
+    net = MoEDiffusionTransformer(n_experts=4, moe_every=2,
+                                  capacity_factor=2.0, attn_backend="flash",
+                                  **dict(H_WIDTHS, nblocks=nblocks))
+    return KarrasModel(net, KarrasModelConfig.from_edm())
 
 
 def model_i():
@@ -6328,7 +6396,8 @@ def phase_q(zero):
     attention in 32² tiles (halo ``decoder_halo_radius``): no kernel of
     the port, its max|Δ| from the one-shot decode of the periodically
     padded latent reported (G's GroupNorms make it tile-dependent). Each
-    timed by the host clock and the device time; peak memory."""
+    timed by the host clock, the periodizer and the decode by their
+    device time too (a profiled rerun); peak memory."""
     from diffsci_tpu_torch import kernels
     from diffsci_tpu_torch.extra import (DiffusionPeriodizer,
                                          decoder_halo_radius,
@@ -6346,10 +6415,10 @@ def phase_q(zero):
     def calls(n):
         return dict(zero, **{k: v * n for k, v in per_call.items()})
 
-    def timed(label, fn, expected):
+    def timed(label, fn, expected, profile=True):
         """One run with the counts reset just before and read just after
-        (host clock ended by a sync); then its device time: one more run
-        under the profiler."""
+        (host clock ended by a sync); then, with ``profile``, its device
+        time: one more run under the profiler."""
         kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6358,10 +6427,14 @@ def phase_q(zero):
         wall = time.perf_counter() - t0
         c = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
-        busy = profiled_shares(fn, host=False)[1]
-        log(f"[config Q {label}] wall {wall:.3f} s, device {busy:.4f} s, "
-            f"idle share {1 - busy / wall:.3f} (measured in "
-            f"{time.perf_counter() - t0:.1f} s); launches {c}")
+        if profile:
+            busy = profiled_shares(fn, host=False)[1]
+            log(f"[config Q {label}] wall {wall:.3f} s, device {busy:.4f} "
+                f"s, idle share {1 - busy / wall:.3f} (measured in "
+                f"{time.perf_counter() - t0:.1f} s); launches {c}")
+        else:
+            log(f"[config Q {label}] wall {wall:.3f} s, device time not "
+                f"measured (no profiled rerun); launches {c}")
         if c != expected:
             raise AssertionError(f"Q {label}: launches {c}, expected "
                                  f"{expected}")
@@ -6376,6 +6449,8 @@ def phase_q(zero):
         f"{[round(float(conds[p]['porosity']), 4) for p in np.ndindex(*Q_GRID)]}")
     base = mark_memory()
     counts = []
+    # the volumes and the stack run once, unprofiled; the periodizer and
+    # the decode are profiled
     for label, per in (("plain", (False,) * 3), ("periodic", (True,) * 3)):
         ext = (Q_BASE[0] + (Q_OVERLAP if per[0] else Q_OVERLAP // 2),) * 3
         graph = model.compile_sampler(1, ext + (1,), y=conds[0, 0, 0],
@@ -6387,20 +6462,19 @@ def phase_q(zero):
         gen = torch.Generator("cuda").manual_seed(35)
         vol, c = timed(f"grid volume {label}", lambda: sample_grid_volume(
             rec, gen, Q_GRID, Q_BASE, Q_OVERLAP, y=conds, nsteps=SI_STEPS,
-            periodicity=per), calls(SI_NFE + 7 * SI_EM_NFE))
+            periodicity=per), calls(SI_NFE + 7 * SI_EM_NFE), profile=False)
         counts.append(c)
-        # the timed run and the profiled one
         n, exact = rec.known_exact()
         wraps, held = rec.windows_exact(vol, Q_GRID, Q_BASE[:3], Q_OVERLAP,
                                         per)
         # slices inside the first cube's base, away from its seams
         seam, interior = seam_and_interior(vol, Q_BASE[0] // 2)
-        ok = exact and n == 14 and held and wraps == (
+        ok = exact and n == 7 and held and wraps == (
             WRAPS_2X2X2 if per[0] else 0) and vol.shape == (
                 1,) + final + (1,) and bool(torch.isfinite(vol).all())
         log(f"[config Q {label}] volume {tuple(vol.shape)}, std "
-            f"{float(vol.std()):.4f}; {n} inpaints (the timed run's and "
-            f"the profiled one's), known regions exact {exact}; {wraps} wrapped cube windows, every known "
+            f"{float(vol.std()):.4f}; {n} inpaints, known regions exact "
+            f"{exact}; {wraps} wrapped cube windows, every known "
             f"region as the finished volume holds it {held}; opposite "
             f"faces' MSE {seam:.4f} against adjacent interior slices' "
             f"{interior:.4f} (over {seam / interior:.3f}; the untrained "
@@ -6422,11 +6496,10 @@ def phase_q(zero):
     gen = torch.Generator("cuda").manual_seed(36)
     vol, c = timed("sequential stack", lambda: sample_sequential_z(
         rec, gen, Q_BLOCKS, Q_BASE, Q_OVERLAP, y=ymap, nsteps=SI_STEPS),
-        calls(Q_BLOCKS * SI_EM_NFE))
+        calls(Q_BLOCKS * SI_EM_NFE), profile=False)
     counts.append(c)
     n, exact = rec.known_exact()
-    # the timed run and the profiled one
-    ok = exact and n == 2 * (Q_BLOCKS - 1) and vol.shape == (
+    ok = exact and n == Q_BLOCKS - 1 and vol.shape == (
         1, Q_BASE[0], Q_BASE[1], Q_BLOCKS * Q_BASE[2], 1) and bool(
             torch.isfinite(vol).all())
     log(f"[config Q sequential] stack {tuple(vol.shape)}, std "
@@ -6577,13 +6650,12 @@ def phase_p(zero):
     del net
     torch.cuda.empty_cache()
 
+    # the three host square roots side by side (LAPACK frees the GIL)
     t0 = time.perf_counter()
-    fid_rg = metrics.fid(f_real, f_fake)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        fid_rg, fid_self, fid_rf = pool.map(
+            metrics.fid, (f_real, f_real, f_real), (f_fake, f_real, f_far))
     t_fid = time.perf_counter() - t0
-    # the other two host square roots side by side (LAPACK frees the GIL)
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        fid_self, fid_rf = pool.map(metrics.fid, (f_real, f_real),
-                                    (f_real, f_far))
     t0 = time.perf_counter()
     kid_rg = metrics.kid(f_real, f_fake)
     t_kid = time.perf_counter() - t0
@@ -6600,7 +6672,8 @@ def phase_p(zero):
           and fid_rg < fid_rf and kid_rg < kid_rf and fld_rg < fld_rf)
     log(f"[config P metrics] FID real/real {fid_self:.4e}, real/generated "
         f"{fid_rg:.6e}, real/far {fid_rf:.6e} (host sqrtm of 2048²: "
-        f"{t_fid:.3f} s a FID); KID {kid_self:.4e}, {kid_rg:.6e}, "
+        f"{t_fid:.3f} s for the three side by side); KID "
+        f"{kid_self:.4e}, {kid_rg:.6e}, "
         f"{kid_rf:.6e} ({t_kid:.3f} s); FLD generated {fld_rg:.4f}, far "
         f"{fld_rf:.4f} ({t_fld:.3f} s a FLD: two fits of {P_FLD_ITERS} "
         f"steps on the card); generalization gap {gap_rg:.4f}, "
@@ -8108,9 +8181,74 @@ def _fs_rank(rank, world, port, out_dir, names):
                     counts_ok=c == {k: v for k, v in SP_PER_STEP.items()
                                     if v})
 
+    def h_fsdp_ep():
+        # phase 41: H's MoE twin cut to 2 blocks, f32, one step of one
+        # process, of dp × ep and of FSDP over dp × ep on a (2, 2) data ×
+        # expert mesh; the launches of each step
+        from diffsci_tpu_torch.parallel import shard_state_expert_parallel
+        gen = torch.Generator("cuda").manual_seed(17)
+        x = torch.randn(FS_H_SHAPE, generator=gen, device="cuda")
+        sigma = torch.exp(torch.randn(FS_H_SHAPE[0], generator=gen,
+                                      device="cuda") * 1.2 - 1.2)
+        eps = torch.randn(FS_H_SHAPE, generator=gen, device="cuda")
+        mesh = make_mesh(axes=("data", "expert"), shape=(2, 2),
+                         device_type="cpu")
+        axes = ("data", "expert")
+
+        def place(mode, state):
+            if mode == "single":
+                return lambda a: a
+            shard_state_expert_parallel(state, mesh)
+            if mode == "fsdp_ep":
+                shard_state_fsdp(state, mesh,
+                                 existing_specs=state.placement.specs)
+            return lambda a: shard_batch(a, mesh, axes)
+
+        out = {}
+        for mode in ("single", "ep", "fsdp_ep"):
+            reset_peak()
+            model = model_h_moe_f32()
+            state, tx = create_train_state(model, FS_H_SHAPE, seed=0,
+                                           optimizer=pin_optimizer())
+            shard = place(mode, state)
+            step = make_train_step(model, tx, _raw=mode == "single")
+            xs = shard(x)
+            if card:
+                torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            loss = float(step(state, xs, sigma=sigma, eps=eps)[1][
+                "train_loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            specs = state.placement.specs if state.placement else {}
+            out[mode] = dict(loss=loss, params=whole(state),
+                             held=held_bytes(model.net),
+                             state=state_bytes(state), peak_gib=peak_gib(),
+                             ms=ms, specs=specs,
+                             counts={k: v for k, v in
+                                     kernels.LAUNCHES.items() if v})
+            del model, state, step
+        single = out["single"]
+        sizes = {k: v.numel() * v.element_size()
+                 for k, v in single["params"].items()}
+        res = {}
+        for mode, o in out.items():
+            res[mode] = {k: o[k] for k in ("loss", "held", "state",
+                                           "peak_gib", "ms", "counts")}
+            if mode == "single":
+                continue
+            res[mode]["err"] = max(
+                close(o["loss"], single["loss"], 1e-5, 0.0),
+                params_err(o["params"], single["params"]))
+            # a block is 1/2 of its tensor along each axis (2 ranks each)
+            res[mode]["want_held"] = sum(
+                b // 2 ** len([a for a in o["specs"].get(k, ()) if a])
+                for k, b in sizes.items())
+        return res
+
     table = {"b_fsdp": b_fsdp, "c_fsdp_tp": c_fsdp_tp,
              "h_memory": h_memory, "d_f32": d_f32, "d_bf16": d_bf16,
-             "e_f32": e_f32}
+             "e_f32": e_f32, "h_fsdp_ep": h_fsdp_ep}
     for name in names:
         arm(name, table[name])
     dist.destroy_process_group()
@@ -8155,14 +8293,16 @@ def fs_group(world, names, out_dir) -> list:
 
 def phase_fsdp_spatial(zero):
     """Phase 39: (a) one NCCL rank; (b) and (d) two gloo ranks on the one
-    card; (c) four."""
+    card; (c) four, whose group also runs phase 41's FSDP∘EP arm (one
+    start-up for both). Returns the launch counts and the four ranks'
+    records."""
     import tempfile
 
     counts = phase_fsdp_world1(zero)
     with tempfile.TemporaryDirectory() as out_dir:
         two = fs_group(2, ["b_fsdp", "d_f32", "e_f32", "d_bf16",
                            "h_memory"], out_dir)
-        four = fs_group(4, ["c_fsdp_tp"], out_dir)
+        four = fs_group(4, ["c_fsdp_tp", "h_fsdp_ep"], out_dir)
     failed = []
     for records, gated in ((two, ("b_fsdp", "d_f32", "e_f32", "d_bf16",
                                   "h_memory")),
@@ -8267,7 +8407,7 @@ def phase_fsdp_spatial(zero):
         f"gloo: "
         f"{d['ms']:.3f} ms/step, peak {d['peak_gib']:.3f} GiB a rank, "
         f"launches a step {d['counts']}")
-    return counts + [dict(zero, **d["counts"])]
+    return counts + [dict(zero, **d["counts"])], four
 
 
 # phase 40: the scripts. train_diffusion_mnist at its full defaults for
@@ -8470,6 +8610,352 @@ def phase_scripts(zero):
     return [counts_mnist, counts_eval]
 
 
+# ---------------------------------------------------------------------------
+# phase 41: the last four scripts, the sampler graphs keyed on the
+# scheduler, FSDP over an expert-parallel state
+# ---------------------------------------------------------------------------
+# the sweep at _build_state's widths (PUNetG 32 channels, expansion [2]:
+# 20 norms a network call) with 250 samples of 100 steps a γ, sequential
+# and over 2 worker processes
+SWEEP = ["--gammas", "0.0", "0.5", "1.0", "--nsamples", "250", "--nsteps",
+         "100"]
+SWEEP_NORMS = 20
+# the study, Picard/restart and the repro at their default widths
+# (expansion [2, 4]: B_NORMS a call), cut in steps and samples
+STUDY = ["--steps", "100", "--nsamples", "256", "--nfe", "18", "--gammas",
+         "0.01", "1.0", "5.0"]
+PICARD = ["--train-steps", "100", "--nsamples-fid", "128"]
+REPRO_FULL = ["--channels", "128", "--steps", "30", "--nsamples", "100",
+              "--nfe", "18"]
+REPRO_FILES = ["ckpt/state.pt", "ckpt/description.json", "fid_results.json",
+               "metrics.jsonl"]
+
+
+def heun_calls(nsteps: int) -> int:
+    """Network calls of an nsteps Heun sample (the last step is Euler)."""
+    return 2 * nsteps - 1
+
+
+def restart_calls(nsteps: int, restarts) -> int:
+    """Network calls of ``sample_restart``: the Heun grid, then each
+    interval's K jumps back over its width of the grid
+    (``tests/test_torch_card.py``'s rule)."""
+    from diffsci_tpu_torch.ops import EDMScheduler
+    sigma = EDMScheduler().create_steps(nsteps + 1)[:-1]
+    calls = heun_calls(nsteps)
+    for lo, hi, k in restarts:
+        width = int(np.argmin(np.abs(sigma - lo))) - int(
+            np.argmin(np.abs(sigma - hi)))
+        calls += 2 * k * width
+    return calls
+
+
+def eval_batches(batch: int, n: int, log_dir, frac: float = 0.05) -> int:
+    """The eval batches of a ``fit_karras`` run over ``n`` rows at
+    ``batch``: its validations (one an epoch, each a row of the log in
+    ``log_dir`` with a ``valid_loss``) times the batches of one pass."""
+    import pathlib
+
+    from diffsci_tpu_torch.data.loading import split_indices
+    log_file = pathlib.Path(log_dir) / "metrics.jsonl"
+    rows = [json.loads(r) for r in log_file.read_text().splitlines()]
+    passes = sum("valid_loss" in r for r in rows)
+    return passes * (len(split_indices(n, frac, 0)[1]) // batch)
+
+
+@contextlib.contextmanager
+def recorded_samplers():
+    """Inside it, every call of ``KarrasModel.sample``, ``sample_parallel``
+    and ``sample_restart``: (method, its arguments, the K1 and K2 it
+    launched, whether it captured a graph, Picard's sweeps). Picard's
+    calls are made with ``return_sweeps=True`` and return what was
+    asked. A chunked ``sample`` (``maximum_batch_size``) would record
+    each chunk inside its own call: the recorded scripts make none."""
+    from diffsci_tpu_torch import KarrasModel, kernels
+    calls = []
+    real = {n: getattr(KarrasModel, n) for n in
+            ("sample", "sample_parallel", "sample_restart")}
+
+    def wrap(name):
+        return lambda self, *args, **kwargs: record(name, self, args,
+                                                    kwargs)
+
+    def record(name, self, args, kwargs):
+        before = dict(kernels.LAUNCHES)
+        graphs_before = len(self._graphs.graphs) if self._graphs else 0
+        sweeps = None
+        if name == "sample_parallel":
+            want = kwargs.pop("return_sweeps", False)
+            out, sweeps = real[name](self, *args, return_sweeps=True,
+                                     **kwargs)
+            result = (out, sweeps) if want else out
+        else:
+            result = real[name](self, *args, **kwargs)
+        after = dict(kernels.LAUNCHES)
+        graphs_after = len(self._graphs.graphs) if self._graphs else 0
+        calls.append(dict(
+            name=name, args=args, kwargs=kwargs, sweeps=sweeps,
+            k1=after["fused_axby"] - before["fused_axby"],
+            k2=after["norm_silu"] - before["norm_silu"],
+            captured=graphs_after - graphs_before))
+        return result
+    for n in real:
+        setattr(KarrasModel, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in real.items():
+            setattr(KarrasModel, n, fn)
+
+
+def expected_k1(call: dict) -> int:
+    """K1 a recorded sampler call launches: its network calls a run,
+    twice when it captured its graph (the eager warm-up, then the
+    replay; a Picard capture's warm-up is one sweep)."""
+    kw = call["kwargs"]
+    nsteps = kw.get("nsteps", 100)
+    if call["name"] == "sample_parallel":
+        return call["sweeps"] + (1 if call["captured"] else 0)
+    if call["name"] == "sample_restart":
+        per = restart_calls(nsteps, kw.get("restarts", ((0.05, 2.0, 2),)))
+    elif kw.get("integrator") == "euler" or kw.get("stochastic"):
+        per = nsteps
+    else:
+        per = heun_calls(nsteps)
+    return per * (1 + call["captured"])
+
+
+def phase_scripts_last(zero, four=None):
+    """Phase 41: the last four scripts on the card (module docstring), the
+    repair witness of the scheduler-keyed graphs and FSDP over an
+    expert-parallel state, whose arm ran in phase 39's four ranks
+    (``four``, their records; None: a group of four started here).
+    Returns the launch counts."""
+    import argparse
+    import pathlib
+    import shutil
+    import tempfile
+
+    from diffsci_tpu_torch import kernels
+    from diffsci_tpu_torch.ops import EDMScheduler
+    from diffsci_tpu_torch.scripts import stochasticity_sweep
+
+    card = smi("name,power.limit")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_last_"))
+    counts = []
+    # the scripts run at PyTorch's default precision flags, which the
+    # sweep's workers take from the task file
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        # --- the sweep: sequential (counted), then over 2 processes ----
+        out = {}
+        walls = {}
+        for label, extra in (("sequential", []),
+                             ("processes", ["--processes", "2"])):
+            kernels.reset_launches()
+            walls[label], _, _ = run_script(
+                "stochasticity_sweep",
+                SWEEP + ["--out", tmp / f"sweep_{label}.json"] + extra)
+            counts.append(dict(kernels.LAUNCHES))
+            out[label] = (tmp / f"sweep_{label}.json").read_text()
+        gammas = [float(g) for g in SWEEP[1:SWEEP.index("--nsamples")]]
+        nsteps = flag(SWEEP, "--nsteps", 100)
+        calls = 2 * sum(heun_calls(nsteps) if g == 0 else nsteps
+                        for g in gammas)
+        want = dict(zero, fused_axby=calls, norm_silu=SWEEP_NORMS * calls)
+        scores = json.loads(out["sequential"])
+        same = out["sequential"] == out["processes"]
+        ok = (same and counts[0] == want and counts[1] == zero
+              and all(np.isfinite(v) for v in scores.values())
+              and len(set(scores.values())) == len(gammas))
+        log(f"[scripts 41 sweep] {len(gammas)} γ × "
+            f"{flag(SWEEP, '--nsamples', 500)} samples of {nsteps} steps: "
+            f"sequential {walls['sequential']:.2f} s, --processes 2 "
+            f"{walls['processes']:.2f} s; FIDs {scores}; the two JSONs "
+            f"equal bit for bit {same}; launches {counts[0]} (expected "
+            f"{want}), the parent of the workers {counts[1]} [{card}]")
+        if not ok:
+            raise AssertionError(f"stochasticity_sweep on the card: same "
+                                 f"{same}, {out}, counts {counts[:2]} "
+                                 f"(expected {want})")
+
+        # --- the repair: a swapped scheduler gets its own graph ---------
+        ns = argparse.Namespace(ckpt=None)
+        device = torch.device("cuda")
+
+        def draw(m, gamma):
+            m.config.noisescheduler = EDMScheduler(langevin_const=gamma)
+            return m.sample(16, (28, 28, 1),
+                            torch.Generator("cuda").manual_seed(5),
+                            nsteps=18, stochastic=True).cpu()
+
+        model, _ = stochasticity_sweep.build_state(ns, device)
+        at_half = draw(model, 0.5)
+        swapped = draw(model, 3.0)
+        fresh = draw(stochasticity_sweep.build_state(ns, device)[0], 3.0)
+        ok = torch.equal(swapped, fresh) and not torch.equal(swapped,
+                                                             at_half)
+        log(f"[scripts 41 repair] one model sampled at γ 0.5, then its "
+            f"scheduler swapped to γ 3.0: bit for bit a fresh model's γ 3.0 "
+            f"sample {torch.equal(swapped, fresh)}, max|Δ| from the γ 0.5 "
+            f"sample {float((swapped - at_half).abs().max()):.4f}; "
+            f"{len(model._graphs.graphs)} graphs captured "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("a swapped scheduler replayed the old "
+                                 "scheduler's graph")
+        del model
+
+        # --- the study: one sampler graph for the γ sweep ---------------
+        kernels.reset_launches()
+        wall, text, _ = run_script("stochasticity_study", STUDY + [
+            "--log-dir", tmp / "study", "--out", tmp / "study.json"])
+        c = dict(kernels.LAUNCHES)
+        counts.append(c)
+        art = json.loads((tmp / "study.json").read_text())
+        steps, nfe = art["train_steps"], art["nfe"]
+        n_eval = eval_batches(flag(STUDY, "--batch-size", 128),
+                              flag(STUDY, "--num-data", 4096), tmp / "study")
+        # one graph: its warm-up, then a replay a γ (EM: nfe calls a run)
+        runs = 1 + len(art["sweep"])
+        want = dict(zero, fused_axby=n_eval + runs * nfe,
+                    norm_silu=B_NORMS * (steps + n_eval + runs * nfe),
+                    norm_silu_bwd=B_NORMS * steps)
+        fids = [r["fid"] for r in art["sweep"]]
+        ok = c == want and all(np.isfinite(fids)) and steps == flag(
+            STUDY, "--steps", 1500)
+        log(f"[scripts 41 study] {steps} steps, {art['nsamples']} samples "
+            f"a γ at {nfe} NFE: {wall:.2f} s wall; FID {fids} at γ "
+            f"{[r['gamma'] for r in art['sweep']]}, shape_ok "
+            f"{art['shape_ok']}; launches {c} (expected {want}: one "
+            f"sampler graph for the {len(fids)} γ) [{card}]")
+        if not ok:
+            raise AssertionError(f"stochasticity_study on the card: {c} "
+                                 f"(expected {want}), FIDs {fids}")
+
+        # --- Picard and restart on the trained model ---------------------
+        kernels.reset_launches()
+        with recorded_samplers() as calls:
+            wall, text, art = run_script("picard_restart_trained", PICARD + [
+                "--log-dir", tmp / "picard", "--out", tmp / "picard.json"])
+        c = dict(kernels.LAUNCHES)
+        counts.append(c)
+        steps = art["train_steps"]
+        sampled = sum(r["k1"] for r in calls)
+        bad = [(r["name"], r["kwargs"], r["k1"], expected_k1(r), r["k2"])
+               for r in calls if r["k1"] != expected_k1(r)
+               or r["k2"] != B_NORMS * r["k1"]]
+        n_eval = eval_batches(flag(PICARD, "--batch-size", 128),
+                              flag(PICARD, "--num-data", 4096),
+                              tmp / "picard")
+        want = dict(zero, fused_axby=n_eval + sampled,
+                    norm_silu=B_NORMS * (steps + n_eval + sampled),
+                    norm_silu_bwd=B_NORMS * steps)
+        arms, claims = art["arms"], art["claims"]
+        ok = (not bad and c == want and claims["picard18_matches_euler18"]
+              and arms["picard@100_w16"]["sweeps"] < 100
+              and all(np.isfinite(a["pixel_fid"]) for a in arms.values()
+                      if "pixel_fid" in a))
+        log(f"[scripts 41 picard] {steps} steps, {len(calls)} sampler "
+            f"calls, each's K1 its network calls (sweeps for Picard) "
+            f"{not bad}; {wall:.2f} s wall; device {art['device']}")
+        for label, row in arms.items():
+            log(f"[scripts 41 picard]   {label}: {row}")
+        log(f"[scripts 41 picard] claims {claims}; launches {c} (expected "
+            f"{want}) [{card}]")
+        if not ok:
+            raise AssertionError(f"picard_restart_trained on the card: "
+                                 f"calls off {bad}, {c} (expected {want}), "
+                                 f"claims {claims}")
+
+        # --- the repro: --smoke, then the full width and a --ckpt rerun --
+        for label, args in (("smoke", ["--smoke"]), ("full", REPRO_FULL)):
+            outdir = tmp / f"repro_{label}"
+            kernels.reset_launches()
+            wall, text, first = run_script(
+                "repro_reference_fid", args + ["--outdir", outdir])
+            c = dict(kernels.LAUNCHES)
+            kernels.reset_launches()
+            wall2, _, again = run_script(
+                "repro_reference_fid", args + ["--outdir", tmp / (
+                    f"repro_{label}_again"), "--ckpt", outdir / "ckpt"])
+            c2 = dict(kernels.LAUNCHES)
+            counts += [c, c2]
+            saved = json.loads((outdir / "fid_results.json").read_text())
+            steps, nfe = saved["steps_trained"], saved["nfe"]
+            # the ODE target's Heun graph and the two SDE targets' EM
+            # graphs (a model each): each warmed up, then replayed once
+            calls = 2 * (heun_calls(nfe) + 2 * nfe)
+            want = dict(zero, fused_axby=calls,
+                        norm_silu=B_NORMS * (steps + calls),
+                        norm_silu_bwd=B_NORMS * steps)
+            want2 = dict(zero, fused_axby=calls, norm_silu=B_NORMS * calls)
+            missing = [f for f in REPRO_FILES
+                       if not (outdir / f).is_file()]
+            ok = (c == want and c2 == want2 and again == first
+                  and len(first) == 3 and not missing
+                  and all(np.isfinite(v) for v in first.values()))
+            log(f"[scripts 41 repro {label}] {steps} steps at "
+                f"{flag(args, '--channels', 128) if label == 'full' else 8}"
+                f" channels, {saved['nsamples']} samples at {nfe} NFE: "
+                f"{wall:.2f} s wall, the --ckpt rerun {wall2:.2f} s; FIDs "
+                f"{first} (the rerun bit for bit {again == first}; "
+                f"{saved['feature_space']}); launches {c} and {c2} "
+                f"(expected {want}, {want2}) [{card}]")
+            if not ok:
+                raise AssertionError(f"repro_reference_fid {label} on the "
+                                     f"card: {c} / {c2} (expected {want} / "
+                                     f"{want2}), {first} / {again}, "
+                                     f"missing {missing}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # --- FSDP over dp × ep: H's MoE twin on four gloo ranks -------------
+    if four is None:
+        with tempfile.TemporaryDirectory() as out_dir:
+            four = fs_group(4, ["h_fsdp_ep"], out_dir)
+    want = {"flash_attention": 2, "flash_attention_dq": 2,
+            "flash_attention_dkv": 2}
+    failed = []
+    for rank, rec in enumerate(four):
+        r = rec.get("h_fsdp_ep")
+        if not isinstance(r, dict):
+            failed.append((rank, str(r)[:600]))
+            continue
+        for mode, m in r.items():
+            if m["counts"] != want or (mode != "single" and (
+                    not m["err"] <= 1.0
+                    or (mode == "fsdp_ep" and m["held"] != m["want_held"]))):
+                failed.append((rank, mode, m["err"] if mode != "single"
+                               else None, m["held"], m.get("want_held"),
+                               m["counts"]))
+        if not r["fsdp_ep"]["held"] < r["ep"]["held"]:
+            failed.append((rank, "held", r["fsdp_ep"]["held"],
+                           r["ep"]["held"]))
+    if failed:
+        raise AssertionError(f"phase 41 FSDP∘EP failed: {failed}")
+    r = four[0]["h_fsdp_ep"]
+    mib = 2 ** 20
+    log(f"[scripts 41 fsdp∘ep] H's MoE twin (2 blocks, 4 experts in the "
+        f"second) f32 on a (2, 2) data × expert mesh of four gloo ranks, one "
+        f"step at batch {FS_H_SHAPE[0]}: FSDP∘EP {r['fsdp_ep']['err']:.3f} "
+        f"and dp × ep {r['ep']['err']:.3f} of the CPU bounds against one "
+        f"process; parameters {r['fsdp_ep']['held'] / mib:.3f} MiB a rank "
+        f"(its blocks exactly) against dp × ep's "
+        f"{r['ep']['held'] / mib:.3f} and one process's "
+        f"{r['single']['held'] / mib:.3f}; state "
+        f"{r['fsdp_ep']['state'] / mib:.3f} against "
+        f"{r['ep']['state'] / mib:.3f} and {r['single']['state'] / mib:.3f}"
+        f" MiB; peak {r['fsdp_ep']['peak_gib']:.3f} against "
+        f"{r['ep']['peak_gib']:.3f} and {r['single']['peak_gib']:.3f} GiB; "
+        f"the step {r['fsdp_ep']['ms']:.1f} against {r['ep']['ms']:.1f} and "
+        f"{r['single']['ms']:.1f} ms (eager); launches a rank's step "
+        f"{r['fsdp_ep']['counts']} [{card}]")
+    counts.append(dict(zero, **r["fsdp_ep"]["counts"]))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -8643,11 +9129,14 @@ def main() -> int:
     elapsed("38")
     # FSDP gathered layer by layer, FSDP∘TP, D's and E's spatial steps
     # (phase 39)
-    counts_39 = phase_fsdp_spatial(zero)
+    counts_39, four = phase_fsdp_spatial(zero)
     elapsed("39")
     # the scripts on the card (phase 40)
     counts_40 = phase_scripts(zero)
     elapsed("40")
+    # the last four scripts, the scheduler-keyed graphs, FSDP∘EP (phase 41)
+    counts_41 = phase_scripts_last(zero, four)
+    elapsed("41")
 
     sources = {
         "fused_axby": ("diffsci_tpu_torch/csrc/fused_precondition.cu",
@@ -8690,7 +9179,7 @@ def main() -> int:
                                            *counts_34, *counts_35,
                                            *counts_36, *counts_37,
                                            *counts_38, *counts_39,
-                                           *counts_40]),
+                                           *counts_40, *counts_41]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

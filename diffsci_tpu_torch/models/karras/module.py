@@ -47,10 +47,13 @@ of the whole sampling loop per key, as the JAX package runs one jitted
 program per key (``_jitted_sampler``,
 ``diffsci_tpu/models/karras/module.py:605-643``). The loop bakes its grid
 into the graph as Python floats (σ, the score multiplier, dt, the churn's
-γ), right for a graph keyed on nsteps and the integrator; the draws and
+γ), right for a graph keyed on nsteps, the integrator and the scheduler
+(``Scheduler.graph_key``: a swapped ``config.noisescheduler`` with
+another ``langevin_const`` gets its own graph); the draws and
 ``langevin_scale`` are static inputs filled before each replay, so a γ
-sweep replays one graph. An ``IntervalGuidance`` is part of the key like
-a float guidance; its band test is made per row on the device from σ.
+sweep by ``langevin_scale`` replays one graph. An ``IntervalGuidance``
+is part of the key like a float guidance; its band test is made per row
+on the device from σ.
 The EDM batch norm's running statistics are buffers that a graph reads
 in place, so a sampler sees the statistics of the latest train step.
 ``sample_parallel`` replays one graph of a Picard sweep per key and
@@ -836,9 +839,10 @@ class KarrasModel(ComputeDtypeMixin):
         """The CUDA graph of ``sample``'s loop for (nsamples, shape,
         guidance, nsteps, record_history, y's shapes, the integrator,
         ``stochastic``, whether ``langevin_scale`` is given,
-        ``is_latent_shape``, ``return_in_latent_space``), as the JAX
-        package's ``_jitted_sampler`` keys its executables; not for
-        ``langevin_scale``'s value, which the graph reads from a 0-d
+        ``is_latent_shape``, ``return_in_latent_space``, the scheduler's
+        ``graph_key()``), as the JAX package's ``_jitted_sampler`` keys
+        its executables; not for ``langevin_scale``'s value, which the
+        graph reads from a 0-d
         device tensor. Static inputs (``graph.inputs``): x_T, the noise of
         the noisy steps ([n, nsamples, *shape], None for a deterministic
         loop), the Langevin scale, the loop's condition and the decoder's
@@ -866,7 +870,8 @@ class KarrasModel(ComputeDtypeMixin):
         key = (nsamples, tuple(shape), _guidance_key(guidance), nsteps,
                record_history, graphs.condition_key(y_loop), integrator,
                stochastic, langevin_scale is not None, is_latent_shape,
-               return_in_latent_space, graphs.condition_key(y_dec))
+               return_in_latent_space, graphs.condition_key(y_dec),
+               self.config.noisescheduler.graph_key())
         graph = cache.graphs.get(key)
         if graph is not None:
             return graph
@@ -950,16 +955,17 @@ class KarrasModel(ComputeDtypeMixin):
                          stochastic: bool = False):
         """The CUDA graph of one Picard sweep of ``sample_parallel`` for
         (nsamples, shape, guidance, nsteps, window, tol, ``stochastic``,
-        y's shapes). Static inputs (``graph.inputs``): x_T, the noise (or
-        None), None and y's tensors; ``graph.picard`` is the
-        ``PicardWindow`` whose state the sweep updates in place. None on
-        the CPU."""
+        y's shapes, the scheduler's ``graph_key()``). Static inputs
+        (``graph.inputs``): x_T, the noise (or None), None and y's
+        tensors; ``graph.picard`` is the ``PicardWindow`` whose state the
+        sweep updates in place. None on the CPU."""
         if self.device.type != "cuda":
             return None
         cache = self._graph_cache()
         key = ("picard", nsamples, tuple(shape), _guidance_key(guidance),
                nsteps, window, float(tol), stochastic,
-               graphs.condition_key(y))
+               graphs.condition_key(y),
+               self.config.noisescheduler.graph_key())
         graph = cache.graphs.get(key)
         if graph is not None:
             return graph
@@ -988,9 +994,9 @@ class KarrasModel(ComputeDtypeMixin):
         segments with K re-noise jumps per ``(sigma_lo, sigma_hi, K)``
         interval. The draws: x_T, then one [sum K, nsamples, *shape]
         tensor for the jumps. On a CUDA device one graph per (nsamples,
-        shape, nsteps, restarts, guidance, y's shapes) is replayed with
-        the draws in its static inputs; on the CPU the loop runs eagerly
-        on the same draws."""
+        shape, nsteps, restarts, guidance, y's shapes, the scheduler's
+        ``graph_key()``) is replayed with the draws in its static inputs;
+        on the CPU the loop runs eagerly on the same draws."""
         if self.latent_model:
             raise NotImplementedError(
                 "sample_restart operates in the diffusion space; latent "
@@ -1011,7 +1017,8 @@ class KarrasModel(ComputeDtypeMixin):
             return loop(x, noises, y)
         cache = self._graph_cache()
         key = ("restart", nsamples, tuple(shape), nsteps, restarts,
-               _guidance_key(guidance), graphs.condition_key(y))
+               _guidance_key(guidance), graphs.condition_key(y),
+               sched.graph_key())
         graph = cache.graphs.get(key)
         if graph is None:
             ys = graphs.static_like(y, self.device)

@@ -108,17 +108,19 @@ class TrainState:
     placement: object = dataclasses.field(default=None, repr=False,
                                           compare=False)
 
-    def ema_variables(self, tracker: EMATracker | None) -> dict:
+    def ema_variables(self, tracker: EMATracker | None,
+                      profile_index: int | None = None) -> dict:
         """The parameters with the EMA shadows of the tracker's profile
-        swapped in, by name: pass as ``variables=`` to
-        ``KarrasModel.loss_fn`` or ``get_denoiser``, or load into a network
-        with ``load_state_dict(..., strict=False)``. Under FSDP the
+        (``profile_index``, or the tracker's own) swapped in, by name:
+        pass as ``variables=`` to ``KarrasModel.loss_fn`` or
+        ``get_denoiser``, or load into a network with
+        ``load_state_dict(..., strict=False)``. Under FSDP the
         shadows are blocks, as the parameters are (``variables=`` of the
         placed network takes them; ``checkpoint.gather_state`` makes them
         whole)."""
         if self.ema is None or tracker is None:
             return dict(self.params)
-        return dict(tracker.get_params(self.ema))
+        return dict(tracker.get_params(self.ema, profile_index))
 
 
 def _shared_scalar(value: float, device) -> torch.Tensor:

@@ -100,6 +100,17 @@ class Scheduler:
         self.langevin_const = langevin_const
         self.langevin_interval = langevin_interval
 
+    def graph_key(self) -> tuple:
+        """What a sampler's CUDA graph bakes in of this scheduler: its type
+        and every field (the scheduling functions, the integrators, the
+        maximum scale, the Langevin constant and interval, the grid's
+        parameters). Equal schedulers give equal keys, so a new object
+        equal to the old one reuses a graph, and one with another
+        ``langevin_const`` does not."""
+        return (type(self),) + tuple(
+            (k, tuple(v) if isinstance(v, list) else v)
+            for k, v in sorted(vars(self).items()))
+
     # -- grids (host-side, static) --------------------------------------
     def create_steps(self, n: int) -> np.ndarray:
         raise NotImplementedError

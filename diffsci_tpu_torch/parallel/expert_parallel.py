@@ -179,7 +179,8 @@ def shard_state_expert_parallel(state, mesh, axis: str = EXPERT_AXIS,
     new = {k: params[k[len(prefix):]] for k in old}
     reshard_state(state, old, new, specs, mesh)
     state.params = new
-    state.placement = Placement(mesh, batch_axes=token_axes, specs=specs)
+    state.placement = Placement(mesh, batch_axes=token_axes, specs=specs,
+                                expert_axis=axis)
     return state
 
 

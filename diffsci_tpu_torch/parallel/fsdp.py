@@ -1,6 +1,6 @@
 """FSDP: a train state's parameters, their AdamW moments and EMA shadows
 sharded over the data axis, each layer's weights gathered as it runs
-(ZeRO stage 3), composable with tensor parallelism.
+(ZeRO stage 3), composable with tensor and expert parallelism.
 
 Port of ``diffsci_tpu/parallel/fsdp.py``. The JAX package puts
 NamedShardings on the state and GSPMD gathers a layer's weights as the
@@ -41,7 +41,17 @@ gathers each layer as the masters do; the spec rule reads torch's layouts
 (a convolution's weight is [out, in, *k] where JAX's is [*k, in, out], so
 on ties the two packages may pick different dims: placement, not
 numbers); the VAE step does not take an FSDP state, and FSDP does not
-compose with the spatial mesh or expert parallelism (both raise).
+compose with the spatial mesh (both raise).
+
+Over an expert-parallel state (``shard_state_expert_parallel`` on a
+data × expert mesh, then ``shard_state_fsdp``): each ``experts_*``
+tensor keeps its leading dim over the expert axis and is blocked over
+the data axis along another dim, the dense remainder over the data axis
+alone. A layer gathers its blocks over the data axis only (this rank's
+experts, whole), ``Routing`` moves the tokens over the expert axis as
+before, and after the backward's reduce-scatter over the data axis a
+dense block's gradient is all-reduced over the expert axis, whose ranks
+hold other rows (``Placement._fsdp_rule``).
 """
 
 from __future__ import annotations
@@ -287,7 +297,8 @@ def _existing(state, existing_specs) -> dict:
         if given != {k: tuple(s) for k, s in placed.items()}:
             raise ValueError(
                 "existing_specs must be the specs the state is placed by "
-                "(shard_state_tensor_parallel's state.placement.specs); "
+                "(shard_state_tensor_parallel's or "
+                "shard_state_expert_parallel's state.placement.specs); "
                 "pass tensor_axis= to place the tensor-parallel layers "
                 "first")
     return dict(placed)
@@ -309,11 +320,15 @@ def shard_state_fsdp(state, mesh, axis: str = DATA_AXIS,
     ``tensor_axis``: data × tensor parallelism on a 2D mesh: the wide
     layers first made column-parallel over it
     (``shard_state_tensor_parallel`` at ``tensor_min_size``), then each
-    tensor blocked along a dim that tensor parallelism did not take.
-    ``existing_specs``: kept for the JAX signature, and only checked: the
-    specs always come from the state's placement (a state that
-    ``shard_state_tensor_parallel`` placed), and a value other than its
-    ``placement.specs`` raises. Returns the state."""
+    tensor blocked along a dim that tensor parallelism did not take. A
+    state that ``shard_state_expert_parallel`` placed keeps its experts
+    over the expert axis and its batch over data × expert, and FSDP
+    blocks every tensor over ``axis`` along another dim (module
+    docstring). ``existing_specs``: kept for the JAX signature, and only
+    checked: the specs always come from the state's placement (a state
+    that ``shard_state_tensor_parallel`` or ``shard_state_expert_parallel``
+    placed), and a value other than its ``placement.specs`` raises.
+    Returns the state."""
     from diffsci_tpu_torch.models.vae.module import VAETrainState
     from diffsci_tpu_torch.parallel.tensor_parallel import (
         Line, _prefix, shard_state_tensor_parallel)
@@ -332,10 +347,12 @@ def shard_state_fsdp(state, mesh, axis: str = DATA_AXIS,
     elif placed is None:
         replicate(state, mesh)
     prior = _existing(state, existing_specs)
-    if any(a not in (axis, tensor_axis) for s in prior.values()
-           for a in s if a is not None):
-        raise NotImplementedError("FSDP composes with tensor parallelism "
-                                  "only")
+    expert_axis = state.placement.expert_axis
+    if any(a not in (axis, tensor_axis, expert_axis)
+           for s in prior.values() for a in s if a is not None):
+        raise NotImplementedError("FSDP composes with tensor and expert "
+                                  "parallelism only")
+    batch_axes = state.placement.batch_axes if expert_axis else (axis,)
     specs = {k: s for k, s in fsdp_specs(state.params, mesh, axis,
                                          min_elements, prior).items() if s}
     net = state.module
@@ -365,8 +382,8 @@ def shard_state_fsdp(state, mesh, axis: str = DATA_AXIS,
         own[name] = tuple(axis if i == d else None for i in range(p.ndim))
     reshard_state(state, state.params, new, own, mesh)
     state.params = new
-    state.placement = Placement(mesh, batch_axes=(axis,), specs=specs,
-                                fsdp_axis=axis)
+    state.placement = Placement(mesh, batch_axes=batch_axes, specs=specs,
+                                fsdp_axis=axis, expert_axis=expert_axis)
     if "_fsdp_forward" not in net.__dict__:
         net._fsdp_forward = net.forward
         net.forward = types.MethodType(_hooked_forward, net)

@@ -52,15 +52,19 @@ class Placement:
     rest are replicated): the network's own tensors, which under TP, EP
     and FSDP are this rank's shards, and under FSDP composed with TP may
     be sharded over both axes. ``fsdp_axis``: the axis whose blocks FSDP
-    gathers layer by layer (``parallel/fsdp.py``), or None."""
+    gathers layer by layer (``parallel/fsdp.py``), or None;
+    ``expert_axis``: the axis expert parallelism shards the experts over
+    (``parallel/expert_parallel.py``), or None."""
 
     def __init__(self, mesh, batch_axes: Sequence[str], specs: dict | None =
-                 None, fsdp_axis: str | None = None):
+                 None, fsdp_axis: str | None = None,
+                 expert_axis: str | None = None):
         self.mesh = mesh
         names = mesh.mesh_dim_names
         self.batch_axes = tuple(a for a in batch_axes if a in names)
         self.specs = dict(specs or {})
         self.fsdp_axis = fsdp_axis
+        self.expert_axis = expert_axis
         # the dp × spatial step's layout (``parallel/spatial.py``), or None
         self.spatial = None
         self.world = dist.get_world_size()
@@ -109,20 +113,36 @@ class Placement:
                               if a not in self.batch_axes]))
         return self._group(rest), float(self.batch_shards()[0] * copies)
 
+    def _fsdp_rule(self, spec: tuple):
+        """(the group, the divisor) that finish an FSDP block's gradient,
+        which the backward's reduce-scatter made the mean over the FSDP
+        axis's batch shards: summed over the other batch axes that the
+        tensor is not sharded over, and divided by the shards of every
+        other batch axis (along one that it is sharded over, expert
+        parallelism's, the backward's all-to-alls summed the shards')."""
+        rest = tuple(a for a in self.batch_axes if a != self.fsdp_axis)
+        divisor = float(axis_size(self.mesh, rest)) if rest else 1.0
+        return self._group([a for a in rest if a not in spec]), divisor
+
     # -- the step's collectives -------------------------------------------
     def sync_grads(self, params: dict) -> None:
         """The gradient of each parameter made the global batch's mean:
         every one all-reduced in place (one flat all-reduce a (group,
-        divisor)), but for FSDP's blocks, whose gradients the backward
-        already reduce-scattered. ``params``: the state's parameters by
-        name."""
+        divisor)); FSDP's blocks, whose gradients the backward already
+        reduce-scattered over the FSDP axis, over the other batch axes
+        only (``_fsdp_rule``: none but under expert parallelism). A
+        tensor that no other rank holds is only divided. ``params``: the
+        state's parameters by name."""
         buckets: dict = {}
         for name, p in params.items():
-            if self.fsdp_axis is not None and \
-                    self.fsdp_axis in self.specs.get(name, ()):
-                continue
-            group, divisor = self._grad_rule(name)
+            spec = self.specs.get(name, ())
+            if self.fsdp_axis is not None and self.fsdp_axis in spec:
+                group, divisor = self._fsdp_rule(spec)
+            else:
+                group, divisor = self._grad_rule(name)
             if group == "none":
+                if divisor != 1.0:
+                    p.grad.div_(divisor)
                 continue
             buckets.setdefault((id(group), divisor), (group, divisor, []))[
                 2].append(p.grad)

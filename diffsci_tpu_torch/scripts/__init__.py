@@ -16,5 +16,10 @@ Ported: ``train_diffusion_mnist``, ``eval_fid``, ``train_diffusion_toy``,
 ``train_diffusion_conditional``, ``train_super_resolution``,
 ``train_ensemble_forecast``, ``train_vae``, ``sampler_comparison``,
 ``anomaly_detection``, ``inpainting_demo``, ``distill_study``,
-``entropy_time_profile`` and ``correlation_thresholds``.
+``entropy_time_profile``, ``correlation_thresholds``,
+``stochasticity_sweep`` (``--processes N``: the γ grid over worker
+processes, their output the sequential run's bit for bit),
+``stochasticity_study``, ``picard_restart_trained`` and
+``repro_reference_fid``: every script of the JAX package that does not
+time Pallas, read XLA traces or run the original torch reference.
 """

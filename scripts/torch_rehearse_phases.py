@@ -1,4 +1,4 @@
-"""Rehearse phases 31 to 39 of ``chip_smoke.py`` on the CPU, at cut widths,
+"""Rehearse phases 31 to 41 of ``chip_smoke.py`` on the CPU, at cut widths,
 before spending card time on them.
 
     python3 scripts/torch_rehearse_phases.py OUT_DIR [phase ...] [--si-steps N]
@@ -39,7 +39,11 @@ copy so that the card's paths run on the CPU:
   32², all in f32 (cut in the copy's source);
 - 40 (``phase_scripts``): ``train_diffusion_mnist`` at 8 channels and
   batch 16 for 60 steps (12 eval batches a validation), ``eval_fid`` at
-  20 samples in batches of 8, the other scripts at the phase's sizes.
+  20 samples in batches of 8, the other scripts at the phase's sizes;
+- 41 (``phase_scripts_last``): the sweep at 8 samples of 4 steps (its
+  workers run the copy), the study and Picard at 8 channels on 20² for 4
+  steps, the repro's full run at 8 channels for 4 steps; H's MoE twin in
+  the four gloo ranks at the cut H widths on 32² fields, batch 4.
 
 Then runs the named phases (default: 34 to 36) and prints each one's
 seconds. The numbers mean nothing; control flow, shapes, draw
@@ -176,16 +180,33 @@ def make_copy(out: str) -> None:
          'SCRIPT_MNIST = ["--steps", "60", "--batch", "16", "--channels", "8"]')
     _sub(cs, 'SCRIPT_EVAL = ["--nsamples", "200", "--batch", "100", "--fld"]',
          'SCRIPT_EVAL = ["--nsamples", "20", "--batch", "8", "--fld"]')
+    # phase 41: the sweep at 8 samples of 4 steps; the study, Picard and
+    # the repro's full run at 8 channels, a few steps and samples
+    _sub(cs, '''"--nsamples", "250", "--nsteps",
+         "100"]''', '''"--nsamples", "8", "--nsteps", "4"]''')
+    _sub(cs, '''STUDY = ["--steps", "100", "--nsamples", "256", "--nfe", "18",''',
+         '''STUDY = ["--steps", "4", "--nsamples", "16", "--nfe", "4",
+         "--model-channels", "8", "--batch-size", "16", "--num-data",
+         "256", "--size", "20",''')
+    _sub(cs, '''PICARD = ["--train-steps", "100", "--nsamples-fid", "128"]''',
+         '''PICARD = ["--train-steps", "4", "--nsamples-fid", "4",
+          "--latency-batch", "2", "--model-channels", "8", "--batch-size",
+          "16", "--num-data", "256", "--size", "20"]''')
+    _sub(cs, '''REPRO_FULL = ["--channels", "128", "--steps", "30",''',
+         '''REPRO_FULL = ["--channels", "8", "--steps", "4",''')
+    _sub(cs, '''"--nsamples", "100",
+              "--nfe", "18"]''', '''"--nsamples", "8",
+              "--nfe", "4"]''')
     _sub(cs, "def model_d(cfg, device=None, dtype=torch.bfloat16):",
          "def model_d(cfg, device=None, dtype=None):")
     _sub(cs, """    return KarrasModel(net, KarrasModelConfig.from_edm(),
                        compute_dtype=torch.bfloat16)
 
 
-def model_i():""", """    return KarrasModel(net, KarrasModelConfig.from_edm())
+def model_h_moe_f32(""", """    return KarrasModel(net, KarrasModelConfig.from_edm())
 
 
-def model_i():""")
+def model_h_moe_f32(""")
 
 
 def rehearse(out: str, names, si_steps: int) -> None:

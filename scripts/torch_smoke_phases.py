@@ -7,9 +7,10 @@ the kernels: a development runner that saves the whole script's minutes.
 Phases 34 to 36 (``phase_extras_card_vs_cpu``, ``phase_q``, ``phase_p``)
 by default; any phase by its function's name (31 to 33:
 ``phase_runtimes_card_vs_cpu``, ``phase_l``, ``phase_m``, ``phase_n``,
-``phase_o``; 40, the scripts: ``phase_scripts``). Each runs under the flags the whole script gives it (TF32
-off for the card-against-CPU phases). Prints the card's name and power
-limit last.
+``phase_o``; 40, the scripts: ``phase_scripts``; 41, the last four
+scripts, the scheduler-keyed graphs and FSDP∘EP: ``phase_scripts_last``).
+Each runs under the flags the whole script gives it (TF32 off for the
+card-against-CPU phases). Prints the card's name and power limit last.
 """
 
 import os
@@ -26,7 +27,8 @@ from diffsci_tpu_torch import kernels  # noqa: E402
 
 # phases that compare the card with the CPU run with TF32 off
 NO_TF32 = {"phase_runtimes_card_vs_cpu", "phase_vae_card_vs_cpu",
-           "phase_distill_a_card_vs_cpu", "phase_extras_card_vs_cpu"}
+           "phase_distill_a_card_vs_cpu", "phase_extras_card_vs_cpu",
+           "phase_forecast_card_vs_cpu"}
 # phases that take no launch-count template
 NO_ZERO = {"phase_runtimes_card_vs_cpu", "phase_vae_card_vs_cpu",
            "phase_extras_card_vs_cpu"}

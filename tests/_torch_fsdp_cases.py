@@ -10,6 +10,7 @@ import contextlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from diffsci_tpu_torch import (KarrasModel, KarrasModelConfig, PUNetG,
@@ -254,6 +255,47 @@ def checkpoint_run(q, mesh, directory) -> tuple:
     return state, trainer.logger.history, fresh()[2]
 
 
+# a small MoE-DiT (4 experts in its second block): experts_w1 [4, 32, 128]
+# and experts_w2 [4, 128, 32] over (expert, data), its dense layers over
+# data alone
+MOE = dict(nembed=32, nheads=2, nblocks=2, patch_size=2, nchannels=1,
+           n_experts=4, moe_every=2)
+TOKENS = ("data", "expert")
+
+
+def moe_model(sd):
+    from diffsci_tpu_torch.models.nets.moe import MoEDiffusionTransformer
+    model = KarrasModel(MoEDiffusionTransformer(**MOE, device="cpu"),
+                        KarrasModelConfig.from_edm(loss_metric="mse"),
+                        device="cpu")
+    model.net.load_state_dict({k: _t(v) for k, v in sd.items()})
+    return model
+
+
+def moe_step(q, place, shard) -> dict:
+    """One step of the small MoE-DiT (f32, the pins' AdamW) on q's batch
+    and replayed draws; the bytes the network's parameters and AdamW's
+    moments hold on this rank after it."""
+    from tests._torch_steps import pin_optimizer
+    model = moe_model(q["moe"])
+    state, tx = create_train_state(model, q["mx"].shape, seed=None,
+                                   optimizer=pin_optimizer())
+    state = place(state)
+    state, met = make_train_step(model, tx)(
+        state, shard(_t(q["mx"])), sigma=_t(q["msigma"]),
+        eps=_t(q["meps"]))
+    held = sum(p.numel() * p.element_size()
+               for p in model.net.parameters())
+    moments = sum(t.numel() * t.element_size()
+                  for slot in state.optimizer.state.values()
+                  for t in slot.values() if t.ndim)
+    specs = state.placement.specs if state.placement is not None else {}
+    return {"loss": float(met["train_loss"]),
+            "norm": float(met["grad_norm"]), "params": whole_params(state),
+            "held": held, "moments": moments, "specs": dict(specs),
+            "state": state}
+
+
 # ---------------------------------------------------------------------------
 # the cases
 # ---------------------------------------------------------------------------
@@ -384,7 +426,58 @@ def case_placed_steps(rank, world, p):
     return out
 
 
-CASES = {"fsdp_tp": case_fsdp_tp, "punet": case_punet,
+def case_fsdp_ep(rank, world, p):
+    """FSDP over an expert-parallel state on a (world / 2, 2) data × expert
+    mesh, beside dp × ep alone and ep alone (a 1D expert mesh of the
+    world): one step of the small MoE-DiT each; the FSDP∘EP state's
+    checkpoint (whole tensors); FSDP over a state placed on an axis it
+    does not compose with raises."""
+    import os
+
+    from diffsci_tpu_torch.checkpoint import load_state, save_checkpoint
+    from diffsci_tpu_torch.parallel import (shard_state_expert_parallel,
+                                            shard_state_tensor_parallel)
+    mesh = make_mesh(axes=TOKENS, shape=(world // 2, 2), device_type="cpu")
+    ep_mesh = make_mesh(axes=("expert",), device_type="cpu")
+
+    def fsdp_ep(state):
+        shard_state_expert_parallel(state, mesh)
+        return shard_state_fsdp(state, mesh, min_elements=MIN,
+                                existing_specs=state.placement.specs)
+
+    out = {}
+    for label, place, m in (
+            ("fsdp_ep", fsdp_ep, mesh),
+            ("ep", lambda s: shard_state_expert_parallel(s, mesh), mesh),
+            ("ep_1d", lambda s: shard_state_expert_parallel(
+                s, ep_mesh, data_axis=None), ep_mesh)):
+        axes = tuple(a for a in TOKENS if a in m.mesh_dim_names)
+        out[label] = moe_step(p, place, lambda a: shard_batch(a, m, axes))
+    state = out["fsdp_ep"].pop("state")
+    out["fsdp_ep"]["local"] = {k: tuple(v.shape)
+                               for k, v in state.params.items()}
+    directory = os.path.join(p["ckpt_dir"], f"moe{world}")
+    save_checkpoint(directory, state)
+    dist.barrier()
+    out["fsdp_ep"]["saved"] = {k[len("params/"):]: v.numpy()
+                               for k, v in load_state(directory).items()
+                               if k.startswith("params/")}
+    for label in ("ep", "ep_1d"):
+        del out[label]["state"]
+    tp_mesh = make_mesh(axes=("data", "tensor"), shape=(world // 2, 2),
+                        device_type="cpu")
+    model = mlp_model(p["mlp128"], [128, 128])
+    tp_state, _ = create_train_state(model, (32, 2), seed=None)
+    shard_state_tensor_parallel(tp_state, tp_mesh, "tensor", min_size=64)
+    try:
+        shard_state_fsdp(tp_state, tp_mesh, min_elements=MIN)
+    except NotImplementedError as e:
+        out["raises"] = str(e)
+    return out
+
+
+CASES = {"fsdp_tp": case_fsdp_tp, "fsdp_ep": case_fsdp_ep,
+         "punet": case_punet,
          "punet_tp": case_punet_tp, "order": case_order,
          "sample": case_sample, "mp": case_mp, "mp_renorm": case_mp_renorm,
          "checkpoint": case_checkpoint, "placed_steps": case_placed_steps,

@@ -1,5 +1,5 @@
-"""What the script tests share (torch only, no JAX): the 15 scripts of the
-port's slice, a script's argparse parser captured without running it,
+"""What the script tests share (torch only, no JAX): the 19 scripts of the
+port, a script's argparse parser captured without running it,
 and a script's ``main()`` run in-process under a given ``sys.argv``."""
 
 from __future__ import annotations
@@ -16,7 +16,9 @@ NAMES = ("train_diffusion_mnist", "eval_fid", "train_diffusion_toy",
          "train_diffusion_conditional", "train_super_resolution",
          "train_ensemble_forecast", "train_vae", "sampler_comparison",
          "anomaly_detection", "inpainting_demo", "distill_study",
-         "entropy_time_profile", "correlation_thresholds")
+         "entropy_time_profile", "correlation_thresholds",
+         "stochasticity_sweep", "stochasticity_study",
+         "picard_restart_trained", "repro_reference_fid")
 
 
 def port(name: str):

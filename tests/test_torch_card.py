@@ -780,6 +780,52 @@ def test_langevin_scale_sweep_replays_one_graph_on_card(_no_tf32):
     assert not torch.equal(outs[1], outs[2])
 
 
+def test_sampler_graphs_follow_a_swapped_scheduler_on_card(_no_tf32):
+    """``sample`` (Euler–Maruyama), ``sample_parallel`` (stochastic Picard)
+    and ``sample_restart`` keep their graphs keyed on the scheduler
+    (``Scheduler.graph_key``): after ``config.noisescheduler`` is swapped
+    for one with another ``langevin_const`` and σ_max, each replays a
+    graph of the new scheduler, bit for bit a fresh model's at it, and
+    differs from its sample at the old one; an equal new scheduler
+    object captures nothing."""
+    from diffsci_tpu_torch.ops import EDMScheduler
+
+    def model_at(sched):
+        m = KarrasModel(PUNetG(_small_3d()), KarrasModelConfig.from_edm())
+        m.init(seed=1)
+        m.config.noisescheduler = sched
+        return m
+
+    shape = (32, 32, 32, 1)
+
+    def gen():
+        return torch.Generator("cuda").manual_seed(7)
+
+    calls = {
+        "sample": lambda m: m.sample(2, shape, gen(), nsteps=6,
+                                     stochastic=True),
+        "picard": lambda m: m.sample_parallel(2, shape, gen(), nsteps=6,
+                                              window=4, tol=0.0,
+                                              stochastic=True),
+        "restart": lambda m: m.sample_restart(2, shape, gen(), nsteps=6)}
+    old = EDMScheduler(langevin_const=0.5)
+    model = model_at(old)
+    before = {k: fn(model) for k, fn in calls.items()}
+    model.config.noisescheduler = EDMScheduler(langevin_const=3.0,
+                                               sigma_max=40.0)
+    after = {k: fn(model) for k, fn in calls.items()}
+    fresh = model_at(EDMScheduler(langevin_const=3.0, sigma_max=40.0))
+    for name, fn in calls.items():
+        assert torch.equal(after[name], fn(fresh)), name
+        assert not torch.equal(after[name], before[name]), name
+    held = len(model._graphs.graphs)
+    model.config.noisescheduler = EDMScheduler(langevin_const=3.0,
+                                               sigma_max=40.0)
+    for fn in calls.values():
+        fn(model)
+    assert len(model._graphs.graphs) == held == 6
+
+
 def test_graphed_sample_restart_matches_eager_on_card(_no_tf32):
     """sample_restart replays one graph per key: within phase 2's tolerance
     of the eager restart loop on the same draws (x_T, then the jumps'),

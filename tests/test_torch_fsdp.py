@@ -32,7 +32,15 @@ atol 1e-6):
 - ``Trainer(mesh=)`` over FSDP∘TP: its log, and checkpoints of whole
   tensors restored at world N (bit for bit) and at world 1;
 - the ensemble and distill steps on an FSDP state; the VAE state refuses
-  FSDP.
+  FSDP;
+- FSDP over an expert-parallel state (``shard_state_expert_parallel``
+  then ``shard_state_fsdp(..., existing_specs=state.placement.specs)``)
+  on a (world / 2, 2) data × expert mesh of a small MoE-DiT (4 experts):
+  its specs those of JAX's ``fsdp_specs(existing_specs=
+  expert_parallel_specs(...))`` under the converter's names, one step
+  against the single-process step and JAX's single-device step, dp × ep
+  and ep alone beside it, a checkpoint of whole tensors, and FSDP over
+  an axis it does not compose with raising.
 """
 
 import numpy as np
@@ -40,12 +48,18 @@ import pytest
 
 import jax
 import jax.numpy as jnp
+import optax
 
 from diffsci_tpu.models import KarrasModel as JKarrasModel
 from diffsci_tpu.models import KarrasModelConfig as JKarrasModelConfig
 from diffsci_tpu.models import MLPUncond as JMLPUncond
 from diffsci_tpu.models import create_train_state as jcreate_train_state
 from diffsci_tpu.models import make_train_step as jmake_train_step
+from diffsci_tpu.models.nets.moe import \
+    MoEDiffusionTransformer as JMoEDiffusionTransformer
+from diffsci_tpu.parallel import expert_parallel_specs as jep_specs
+from diffsci_tpu.parallel import fsdp_specs as jfsdp_specs
+from diffsci_tpu.parallel import make_mesh as jmake_mesh
 
 from diffsci_tpu_torch.convert import from_jax_variables
 from tests import _torch_warmup  # noqa: F401  (MKL's first exp)
@@ -92,6 +106,58 @@ def _jax_mlp_step(hidden, x, sigma, eps):
                      _sd(jstate.variables()))
 
 
+def _jax_moe(x, sigma, eps):
+    """JAX's side of the FSDP∘EP cases: the small MoE-DiT's init (key 0),
+    one single-device step of it (the pins' AdamW in optax, σ and ε
+    replayed) and, for each world size, the specs of
+    ``fsdp_specs(existing_specs=expert_parallel_specs(...))`` on a
+    (world / 2, 2) data × expert mesh, by the port's names of the leaves
+    the converter maps one to one (the attention's packed projections
+    have no JAX leaf of their own). Returns (the init's state dict, the
+    reference step, world -> name -> (spec, JAX shape))."""
+    jmodel = JKarrasModel(JMoEDiffusionTransformer(**fc.MOE),
+                          JKarrasModelConfig.from_edm(loss_metric="mse"))
+    opt = optax.chain(optax.clip_by_global_norm(0.5),
+                      optax.adamw(1e-3, b1=0.9, b2=0.999,
+                                  eps=steps.PIN_ADAM_EPS, weight_decay=1e-4))
+    jstate, jtx = jcreate_train_state(_JitInit(jmodel), jax.random.PRNGKey(0),
+                                      x.shape, optimizer=opt)
+    variables = jax.tree.map(np.asarray, jstate.variables())
+    weights = _sd(variables)
+
+    def jloss(v, key, xx, y, replay, train=True):
+        return jmodel.loss_fn(v, key, xx, replay["sigma"], train=train,
+                              eps=replay["eps"])
+
+    stepped, met = jmake_train_step(jmodel, jtx, loss_fn=jloss)(
+        jstate, jax.random.PRNGKey(2), jnp.asarray(x), None,
+        {"sigma": jnp.asarray(sigma), "eps": jnp.asarray(eps)})
+    ref = (float(met["train_loss"]), float(met["grad_norm"]),
+           _sd(stepped.variables()))
+    # which JAX leaf each port tensor is: every leaf filled with its index
+    params = variables["params"]
+    leaves, tree = jax.tree_util.tree_flatten(params)
+    marked = jax.tree_util.tree_unflatten(
+        tree, [np.full(a.shape, i, np.float32) for i, a in enumerate(leaves)])
+    owner = {}
+    for name, t in from_jax_variables({**variables,
+                                       "params": marked}).items():
+        ids = np.unique(t.numpy())
+        if len(ids) == 1 and sorted(t.shape) == sorted(
+                leaves[int(ids[0])].shape):
+            owner[name] = int(ids[0])
+    specs = {}
+    for world in (2, 4):
+        mesh = jmake_mesh(world, axes=fc.TOKENS, shape=(world // 2, 2))
+        flat = jax.tree_util.tree_leaves(
+            jfsdp_specs(params, mesh, min_elements=fc.MIN,
+                        existing_specs=jep_specs(params, mesh)),
+            is_leaf=lambda a: isinstance(a, jax.sharding.PartitionSpec))
+        specs[world] = {name: (tuple(flat[i]), leaves[i].shape)
+                        for name, i in owner.items()}
+    return weights, ref, specs
+
+
 def _port_weights(make, seed):
     model = make()
     model.init(seed)
@@ -124,6 +190,12 @@ def payloads():
             np.float32),
         eps=rng.normal(size=(S, 4, E, H, H, 1)).astype(np.float32),
         x_T=rng.normal(size=(S - 1, 4, H, H, 1)).astype(np.float32))
+    p["mx"] = rng.standard_normal((8, 8, 8, 1)).astype(np.float32)
+    p["msigma"] = np.exp(rng.standard_normal(8) * 1.2 - 1.2).astype(
+        np.float32)
+    p["meps"] = rng.standard_normal((8, 8, 8, 1)).astype(np.float32)
+    p["moe"], ref["moe"], ref["moe_specs"] = _jax_moe(p["mx"], p["msigma"],
+                                                      p["meps"])
     distill = lambda: _bare_mlp([16])  # noqa: E731
     p["distill"] = dict(sd=_port_weights(distill, 1),
                         teacher=_port_weights(distill, 2),
@@ -317,3 +389,59 @@ def test_placed_steps_take_an_fsdp_state(ranks, name):
         out = result(res, "placed_steps", rank)
         assert out["vae_raises"]
         _close(out[name], (ref["loss"], ref["norm"], ref["params"]), name)
+
+
+def _axis_sizes(spec, shape) -> dict:
+    """axis -> the whole size of the dim a spec shards over it."""
+    return {a: shape[d] for d, a in enumerate(spec) if a is not None}
+
+
+def test_fsdp_over_expert_parallelism_matches_jax(ranks):
+    """FSDP∘EP on a (world / 2, 2) data × expert mesh. Specs: for every
+    tensor that the converter maps from one JAX leaf, each axis shards a
+    dim of the same size as in JAX's specs (the layouts differ, and on
+    ties the packages may take either of two equal dims: ``fsdp.py``'s
+    docstring); every expert tensor over both axes. Steps (bounds of
+    ``test_fsdp_train_step_matches_jax``: loss rtol 1e-5, norm rtol
+    1e-4, parameters rtol 1e-4 atol 1e-6): FSDP∘EP, dp × ep and ep on a
+    1D expert mesh against the single-process port step and JAX's
+    single-device step. An FSDP∘EP rank holds its blocks of the
+    parameters and moments (at world 4 fewer bytes than dp × ep); its
+    checkpoint holds whole tensors."""
+    world, res, p, ref = ranks
+    single = fc.moe_step(p, _identity, _same)
+    jspecs = ref["moe_specs"][world]
+    assert len(jspecs) >= 10
+    for rank in range(world):
+        out = result(res, "fsdp_ep", rank)
+        specs = out["fsdp_ep"]["specs"]
+        experts = [k for k in specs if ".experts_" in k]
+        assert len(experts) == 4
+        for name in experts:
+            assert set(specs[name]) - {None} == {"data", "expert"}, name
+        for name, (jspec, jshape) in jspecs.items():
+            shape = single["params"][name].shape
+            assert _axis_sizes(specs.get(name, ()), shape) == \
+                _axis_sizes(jspec, jshape), (name, specs.get(name), jspec)
+        for label in ("fsdp_ep", "ep", "ep_1d"):
+            _close(out[label], (single["loss"], single["norm"],
+                                single["params"]), label)
+            _close(out[label], ref["moe"], label + " jax")
+        # a rank holds each tensor's block: its whole bytes over the
+        # ranks of the axes its spec takes
+        sizes = {"data": world // 2, "expert": 2}
+        want = sum(v.nbytes // int(np.prod(
+            [sizes[a] for a in specs.get(k, ()) if a]))
+            for k, v in single["params"].items())
+        assert out["fsdp_ep"]["held"] == want
+        assert out["fsdp_ep"]["moments"] == 2 * want
+        if world == 4:
+            assert want < out["ep"]["held"]
+        name = experts[0]
+        assert out["fsdp_ep"]["local"][name][0] == 2
+        saved = out["fsdp_ep"]["saved"]
+        assert set(saved) == set(single["params"])
+        for k, v in saved.items():
+            np.testing.assert_array_equal(v, out["fsdp_ep"]["params"][k],
+                                          err_msg=k)
+        assert "compose" in out["raises"]

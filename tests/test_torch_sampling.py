@@ -4,6 +4,7 @@ SamplerService's bucket / pad / chunk behaviour on the CPU.
 """
 
 import os
+import types
 
 import numpy as np
 import pytest
@@ -263,3 +264,64 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
         SamplerService(model, (8, 8, 1))
     with pytest.raises(RuntimeError, match="CUDA"):
         KarrasModel(net, KarrasModelConfig.from_edm(), device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the sampler graphs' key follows the scheduler
+# ---------------------------------------------------------------------------
+class _KeyRecorder:
+    """A stand-in for a model's ``GraphCache``: it records the keys of the
+    graphs it is asked to capture and runs nothing."""
+
+    def __init__(self):
+        self.graphs = {}
+
+    def warmup(self, fn):
+        pass
+
+    def capture(self, key, fn):
+        self.graphs[key] = types.SimpleNamespace()
+        return self.graphs[key]
+
+
+def _small_b(sched):
+    model = KarrasModel(PUNetG(PUNetGConfig(**_SMALL), device="cpu"),
+                        KarrasModelConfig.from_edm(), device="cpu")
+    model.init(0)
+    model.config.noisescheduler = sched
+    return model
+
+
+def test_swapped_scheduler_samples_as_a_fresh_model():
+    """After ``config.noisescheduler`` is swapped for one with another
+    ``langevin_const``, ``sample`` gives (bit for bit) the sample of a
+    fresh model built at the new scheduler, not the old one's; and the
+    key of ``sample``'s graph (``compile_sampler``, taken here with a
+    recording cache on the CPU) changes with ``langevin_const``, while a
+    new scheduler equal to the old one keeps it. The card's replay of
+    all three graphed samplers: ``tests/test_torch_card.py::
+    test_sampler_graphs_follow_a_swapped_scheduler_on_card``."""
+    def draw(m):
+        return m.sample(2, (16, 16, 1), torch.Generator().manual_seed(3),
+                        nsteps=5, stochastic=True)
+
+    model = _small_b(ops.EDMScheduler(langevin_const=0.5))
+    first = draw(model)
+    model.config.noisescheduler = ops.EDMScheduler(langevin_const=3.0)
+    swapped = draw(model)
+    fresh = draw(_small_b(ops.EDMScheduler(langevin_const=3.0)))
+    assert torch.equal(swapped, fresh)
+    assert not torch.equal(swapped, first)
+
+    cache = _KeyRecorder()
+    model._graph_cache = lambda: cache
+    for const in (0.5, 3.0, 3.0, 0.5):
+        model.config.noisescheduler = ops.EDMScheduler(langevin_const=const)
+        model._compile_loop(2, (16, 16, 1), None, None, 1.0, 5, False, None,
+                            True, None, False, False)
+    assert len(cache.graphs) == 2
+    keys = [ops.EDMScheduler(**kw).graph_key() for kw in (
+        {}, {"langevin_const": 2.0}, {"langevin_interval": (0.1, 1.0)},
+        {"sigma_max": 40.0}, {"scheduling": "VE"})]
+    assert len(set(keys)) == len(keys)
+    assert ops.EDMScheduler().graph_key() == ops.EDMScheduler().graph_key()
