@@ -524,11 +524,12 @@ FLASH_SWEEP = ((4, 2, 4096, 32), (1, 2, 4096, 8), (2, 4, 4096, 16),
                (1, 1, 2049, 136), (1, 1, 2111, 192), (1, 2, 2049, 320),
                (2, 1, 2111, 200), (1, 1, 2049, 260),
                (1, 2, 5832, 32), (1, 2, 8000, 32), (1, 2, 13824, 32))
-# K4-K6 timed beside SDPA at the new routes: H's and I's serving (bucket 4)
-# and training (batch 8) shapes, and head dim 512 (beside SDPA's
-# memory-efficient backend where it takes the shape: its flash backend
-# takes head dims up to 256)
-FLASH_TIMED = (((4, 12, 4096, 64), "H, bucket 4"),
+# K4-K6 timed beside SDPA at the wgmma routes: A's serving bucket 4 and
+# train batch (d 32), H's and I's serving (bucket 4) and training (batch
+# 8) shapes, and head dim 512 (beside SDPA's memory-efficient backend where
+# it takes the shape: its flash backend takes head dims up to 256)
+FLASH_TIMED = (((4, 2, 4096, 32), "A, bucket 4 and train batch 4"),
+               ((4, 12, 4096, 64), "H, bucket 4"),
                ((8, 12, 4096, 64), "H, train batch 8"),
                ((4, 1, 4096, 256), "I, bucket 4"),
                ((8, 1, 4096, 256), "I, train batch 8"),
@@ -1054,11 +1055,13 @@ def phase_kernels():
                    f"{lerr:.1e}, limit 1e-3)", dtype, err,
                    share <= 1 and lerr <= 1e-3, ATTN_LIMIT)
             # K5 and K6 on the forward's own O and lse; in bf16 at config
-            # A's shape and at every head dim above 128, K4, K5 and K6 each
-            # run twice and must give the same bits (one writer per output
-            # tile, no atomics)
-            twice = dtype == torch.bfloat16 and (shape == FLASH_SWEEP[0]
-                                                 or shape[-1] > 128)
+            # A's shape and at every head dim of a wgmma route (the narrow
+            # one's 32, 64 and 128, the wide one's above 128), K4, K5 and
+            # K6 each run twice and must give the same bits (one writer
+            # per output tile, no atomics)
+            twice = dtype == torch.bfloat16 and (
+                shape == FLASH_SWEEP[0] or shape[-1] > 128
+                or shape[-1] in (32, 64, 128))
             if twice:
                 same = torch.equal(o, fa.flash_attention_fwd(q, k, v)[0])
                 log(f"[kernels] flash_attention {list(shape)} bfloat16 "
@@ -1087,8 +1090,10 @@ def phase_kernels():
                 record(name, f"{list(shape)} ({what}; max|Δ|/max|ref| "
                        f"{ratio:.1e})", dtype, err, ok, GRAD_LIMIT)
 
-    # the bf16 K4, K5 and K6 run on the tensor cores: mma.sync (HMMA), and
-    # wgmma (HGMMA) in the wide K4, K5 and K6 of aligned rows
+    # the bf16 K4, K5 and K6 run on the tensor cores: wgmma (HGMMA) in the
+    # narrow K4 and K6 (d 32 and 64, K4 also 128) and the wide K4, K5 and
+    # K6 (d above 128) of aligned rows, mma.sync (HMMA) at the other head
+    # dims
     counts = tensor_core_counts()
     for kernel, per_instance in sorted(counts.items()):
         log(f"[kernels] sass {kernel}: [HMMA, HGMMA] per instantiation "
@@ -1099,6 +1104,8 @@ def phase_kernels():
                          ("flash_fwd_wide_mma_kernel", 0),
                          ("flash_dq_wide_mma_kernel", 0),
                          ("flash_dkv_wide_mma_kernel", 0),
+                         ("flash_fwd_narrow_kernel", 1),
+                         ("flash_dkv_narrow_kernel", 1),
                          ("flash_fwd_wgmma_kernel", 1),
                          ("flash_dq_wgmma_kernel", 1),
                          ("flash_dq_wgmma_pair_kernel", 1),
@@ -1732,6 +1739,32 @@ def ddpm_c(arm):
                      compute_dtype=torch.bfloat16)
 
 
+@contextlib.contextmanager
+def batch_statistics_of(model, x):
+    """Within the block, the EDM batch norm of ``model`` (when it has one
+    and is no latent model) normalises by the batch ``x``'s own mean and
+    variance, as a train step does; its running statistics are restored
+    after. A probe outside training normalises by the running statistics,
+    which training moves from their initial 0 and 1 toward the batch's:
+    without this, the probes before and after training would score the
+    denoiser against two different targets (configuration D's {0, 1}
+    volumes against their standardised values)."""
+    if not getattr(model.config, "has_edm_batch_norm", False) or getattr(
+            model, "latent_model", False):
+        yield
+        return
+    bnorm = model.net.bnorm
+    saved = bnorm.mean.clone(), bnorm.var.clone()
+    mean, var = bnorm.batch_statistics(x)
+    bnorm.mean.copy_(mean)
+    bnorm.var.copy_(var)
+    try:
+        yield
+    finally:
+        bnorm.mean.copy_(saved[0])
+        bnorm.var.copy_(saved[1])
+
+
 def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
           profiled=False, model=None, y=None, has_mp_weights=False,
           x=None, optimizer=None, keep=None):
@@ -1740,7 +1773,10 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
     ``warmup`` steps, then ``steps`` timed with the host clock and a sync
     on the loss, the launch counts reset just before and read just after
     (they must be ``per_step`` times ``steps``). A fixed draw of σ and ε
-    probes the loss before training and after it: it must go down.
+    probes the loss before training and after it, with an EDM batch norm
+    normalising x by the batch's own statistics both times
+    (``batch_statistics_of``): it must go down, and the log prints by how
+    much (the margin a rounding change could eat).
     ``config``: the KarrasModelConfig preset ("edm", "vp", "ve");
     ``profiled``: one more step under torch.profiler (device time).
     ``model`` (a bf16 KarrasModel) replaces the one built from ``cfg`` and
@@ -1778,7 +1814,7 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
         if getattr(model, "latent_model", False) else None
 
     def probe():
-        with torch.no_grad():
+        with torch.no_grad(), batch_statistics_of(model, x):
             if probe_z is not None:
                 return float(model.loss_fn(x, probe_sigma, y, eps=probe_eps,
                                            train=False, z_eps=probe_z))
@@ -1814,7 +1850,9 @@ def train(label, cfg, x_shape, steps, per_step, warmup=3, config="edm",
         f"{x_shape[0] * steps / dt:.2f} items/s; peak memory {peak:.3f} GiB")
     log(f"[train {label}] loss first {losses[0]:.5f} last {last:.5f}, "
         f"grad_norm {norm:.4f}; fixed-draw loss {before:.5f} before "
-        f"training, {after:.5f} after; launches {counts}")
+        f"training, {after:.5f} after (margin {before - after:.5f}, "
+        f"{100 * (before - after) / before:.2f} % of before); launches "
+        f"{counts}")
     expected = {k: n * steps for k, n in per_step.items()}
     if not (np.isfinite(losses).all() and np.isfinite(norm)
             and after < before):

@@ -5,9 +5,24 @@
 // diffsci_tpu_torch/kernels/flash_attention.py for the design note.
 //
 // Bound by operations: 4 T^2 d flops and T^2 exponentials per head against
-// O(T d) bytes. At d = 32 the exponentials, not the matrix rate, set the
-// floor: the special-function unit gives 16 exp2 per clock per SM, which
-// at config A's shape (BH 8, T 4096) is above the tensor cores' time.
+// O(T d) bytes. The special-function unit gives 16 exp2 per clock per SM:
+// at d 64 its floor and the tensor cores' are about equal (configuration
+// H's shape on the H100: 0.193 against 0.209 ms), at d 32 the
+// exponentials' lies above (A's: 0.032 against 0.017 ms). The narrow
+// kernel below runs at about twice the higher of the two
+// (scripts/torch_flash_variants.py --set narrow), so neither floor sets
+// its time yet.
+//
+// Routes, by a shape rule in flash_fwd_launch; a call is one launch:
+// - bf16, d 32, 64 or 128, rows that TMA can read (16-byte aligned rows
+//   and bases): flash_fwd_narrow_kernel, warp-specialised on wgmma/TMA
+//   (below): a producer warp streams 128-key K and V tiles through an
+//   mbarrier ring; consumer warpgroups own 64 query rows each and overlap
+//   their softmax with the products in flight.
+// - bf16 at the other d <= 128 or on unaligned rows: flash_fwd_mma_kernel
+//   on mma.sync (below).
+// - f32 at d <= 128: flash_fwd_kernel on the FP32 pipes (below).
+// - d above 128: the wide kernels (below).
 //
 // bfloat16 (flash_fwd_mma_kernel): tensor cores. One block of kMmaWarps
 // warps per (bh, tile of kMmaRows query rows); each warp owns 16 query
@@ -22,9 +37,7 @@
 // (flash_attention.py:106). The sum l is taken over the f32 P, as there.
 // O (bf16) and lse are written once. Rows that are not 16-byte aligned
 // (head_dim % 8 != 0) are staged by element loads in the same kernel
-// (template flag kAsync). wgmma/TMA and warp specialisation serve the
-// wide route below; at d = 32 the exponentials, not the products, set the
-// floor.
+// (template flag kAsync).
 //
 // float32 (flash_fwd_kernel): the FP32 pipes, unchanged, so the f32 path
 // keeps full f32 products (TF32 or bf16 tensor cores would not hold the
@@ -34,9 +47,9 @@
 // query row, each scoring a quarter of the tile's keys and owning a
 // quarter of the output columns.
 //
-// Both mask ragged T in the kernel, on query rows (never stored) and on
-// keys (score -inf); head dims below the template's D are zero-padded in
-// shared memory only. Head dims above 128: in bf16, rows that TMA can read
+// All of them mask ragged T in the kernel, on query rows (never stored)
+// and on keys (score -inf); head dims below the template's D are
+// zero-padded in shared memory only. Head dims above 128: in bf16, rows that TMA can read
 // up to d 512 go to flash_fwd_wgmma_kernel (warp-specialised: TMA into a
 // ring of shared-memory stages, S = Q K^T once per key tile over all of d
 // on wgmma, O in 256-column chunks above d 256; flash_wgmma.cuh); the rest
@@ -844,6 +857,301 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- head dims 32 and 64 (and 128) in bf16: the narrow wgmma route --------
+
+// The narrow K4's tile choices; a variant builds with an nvcc -D flag
+// (scripts/torch_flash_variants.py --set narrow): consumer warpgroups a
+// block at d 32, 64 and 128 (64 query rows each; with one, two blocks
+// share an SM) and the depth of the K and V rings. A tile holds 128 keys.
+#ifndef FLASH_NARROW_WGS32
+#define FLASH_NARROW_WGS32 1
+#endif
+#ifndef FLASH_NARROW_WGS64
+#define FLASH_NARROW_WGS64 3
+#endif
+#ifndef FLASH_NARROW_WGS128
+#define FLASH_NARROW_WGS128 2
+#endif
+#ifndef FLASH_NARROW_STAGES
+#define FLASH_NARROW_STAGES 3
+#endif
+constexpr int kNarrowKeys = 128;
+template <int D>
+constexpr int kNarrowWgs = D == 32   ? FLASH_NARROW_WGS32
+                           : D == 64 ? FLASH_NARROW_WGS64
+                                     : FLASH_NARROW_WGS128;
+// Blocks an SM holds, and the registers a consumer thread takes once the
+// producer warpgroup has given back all but 24 of its own: the launch
+// bound leaves 65536 / (blocks x threads) a thread (rounded down to 8).
+template <int NWG>
+constexpr int kNarrowBlocks = NWG == 1 ? 2 : 1;
+template <int NWG>
+constexpr int kNarrowRegs = NWG == 1 ? 232 : NWG == 2 ? 240 : 160;
+static_assert(kNarrowWgs<32> >= 1 && kNarrowWgs<32> <= 3 &&
+                  kNarrowWgs<64> >= 1 && kNarrowWgs<64> <= 3 &&
+                  kNarrowWgs<128> >= 1 && kNarrowWgs<128> <= 3,
+              "one to three consumer warpgroups");
+
+// Shared memory of flash_fwd_narrow_kernel<D, NWG> with R ring stages: the
+// 1024-byte alignment slack, Q, the K and V rings and the barriers.
+template <int D, int NWG>
+constexpr int fwd_narrow_smem(int stages) {
+  return 1024 + D * 2 * (NWG * 64 + 2 * stages * kNarrowKeys) +
+         8 * (1 + 4 * stages);
+}
+// The deepest ring up to FLASH_NARROW_STAGES that fits the block's share
+// of the SM (1 KB of it reserved a block).
+template <int D, int NWG>
+constexpr int fwd_narrow_stages() {
+  int r = FLASH_NARROW_STAGES;
+  while (r > 2 && fwd_narrow_smem<D, NWG>(r) >
+                      kMaxSmem / kNarrowBlocks<NWG> -
+                          1024 * (kNarrowBlocks<NWG> - 1))
+    --r;
+  return r;
+}
+// (a variable template: nvcc takes no call of a host function in device
+// code, constexpr or not)
+template <int D, int NWG>
+constexpr int kFwdNarrowStages = fwd_narrow_stages<D, NWG>();
+
+// bf16, narrow route (d 32, 64 or 128, 16-byte aligned rows): one block per
+// (bh, 64 NWG query rows). Warpgroups 0 .. NWG - 1 consume, 64 query rows
+// each, kept for the whole loop; warpgroup NWG produces: one thread issues
+// every TMA copy. Q is staged once; per tile of BK keys, K and V stream
+// through a ring of R stages, each with full and empty mbarriers for K and
+// for V (the empty ones take one arrival from each consumer warp). A
+// consumer overlaps its own exponentials with the tensor cores: S_j =
+// Q K_j^T and O += P_{j-1} V_{j-1} are issued together (wgmma, S from
+// shared memory, P from registers, V transposed by the descriptor), the
+// online softmax of S_j runs while P_{j-1} V_{j-1} is in flight, and O is
+// rescaled once that product has landed. Across warpgroups the scheduler
+// interleaves one's softmax with another's products. The softmax
+// is the mma.sync kernel's (running max and sum in f32, quad shuffles,
+// fast_exp2) and P is rounded to bf16 in registers as the A operand of
+// P V, as the Pallas kernel feeds the MXU p.astype(v.dtype); l is summed
+// over the f32 P. O (bf16) and lse are written once; rows past T are not
+// stored and keys past T score -inf.
+template <int D, int NWG>
+__global__ void __launch_bounds__((NWG + 1) * kWgThreads, kNarrowBlocks<NWG>)
+    flash_fwd_narrow_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int seq_len,
+                            float scale_log2) {
+  constexpr int SC = kNarrowCols<D>, NS = kNarrowSlices<D>;
+  constexpr int RB = 2 * SC;                // bytes of a slice's row
+  constexpr int BK = kNarrowKeys;
+  constexpr int R = kFwdNarrowStages<D, NWG>;
+  constexpr int QS = NWG * 64 * RB;         // a slice of Q
+  constexpr int KS = BK * RB;               // a slice of a K or V tile
+  constexpr int KT = SC / 16;               // k16 steps a slice of d
+  constexpr int PT = BK / 16;               // k16 steps of P V
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t Qs = base;                 // [NS] slices
+  const uint32_t Ks = Qs + NS * QS;         // [R][NS] slices
+  const uint32_t Vs = Ks + R * NS * KS;     // [R][NS] slices
+  const uint32_t q_full = Vs + R * NS * KS;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * R;
+  const uint32_t k_empty = v_full + 8 * R, v_empty = k_empty + 8 * R;
+
+  const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * NWG * 64, bh = blockIdx.y;
+  const int ntiles = (seq_len + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < R; ++i) {
+      mbar_init(k_full + 8 * i, 1);
+      mbar_init(v_full + 8 * i, 1);
+      mbar_init(k_empty + 8 * i, 4 * NWG);
+      mbar_init(v_empty + 8 * i, 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {  // producer
+    reg_dealloc<24>();
+    if (tid != 0) return;
+    mbar_expect(q_full, NS * QS);
+    for (int s = 0; s < NS; ++s)
+      tma_slice(Qs + s * QS, &tq, s * SC, q0, bh, q_full);
+    for (int j = 0; j < ntiles; ++j) {
+      const int st = j % R;
+      const uint32_t par = ((j / R) & 1) ^ 1;  // the stage's last use done
+      mbar_wait(k_empty + 8 * st, par);
+      mbar_expect(k_full + 8 * st, NS * KS);
+      for (int s = 0; s < NS; ++s)
+        tma_slice(Ks + (st * NS + s) * KS, &tk, s * SC, j * BK, bh,
+                  k_full + 8 * st);
+      mbar_wait(v_empty + 8 * st, par);
+      mbar_expect(v_full + 8 * st, NS * KS);
+      for (int s = 0; s < NS; ++s)
+        tma_slice(Vs + (st * NS + s) * KS, &tv, s * SC, j * BK, bh,
+                  v_full + 8 * st);
+    }
+    return;
+  }
+
+  // consumers: rows q0 + 64 wg + 16 warp + lane / 4 (+ 8)
+  reg_alloc<kNarrowRegs<NWG>>();
+  float acc[NS][SC / 2];
+#pragma unroll
+  for (int b = 0; b < NS; ++b)
+#pragma unroll
+    for (int i = 0; i < SC / 2; ++i) acc[b][i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  float s[BK / 2];      // S_j, then P_j in f32
+  uint32_t pa[PT][4];   // P_j in bf16, the A operand of P_j V_j
+  float alpha[2];
+  const uint32_t q_own = Qs + wg * 64 * RB;
+
+  // S = Q K_j^T over the NS slices of d, committed as one group
+  auto issue_s = [&](int j) {
+    const int st = j % R;
+    mbar_wait(k_full + 8 * st, (j / R) & 1);
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      const uint64_t da = desc_rows<RB>(q_own + sl * QS);
+      const uint64_t db = desc_rows<RB>(Ks + (st * NS + sl) * KS);
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+        wgmma_ss(s, da + kk * kStepK, db + kk * kStepK, sl | kk);
+    }
+    wgmma_commit();
+  };
+  // O += P_j V_j into the NS output slices, committed as one group
+  auto issue_pv = [&](int j) {
+    const int st = j % R;
+    mbar_wait(v_full + 8 * st, (j / R) & 1);
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      const uint64_t dv = desc_rows<RB>(Vs + (st * NS + sl) * KS);
+#pragma unroll
+      for (int kk = 0; kk < PT; ++kk)
+        wgmma_rs_t(acc[sl], pa[kk], dv + kk * RB);
+    }
+    wgmma_commit();
+  };
+  // the online softmax of S_j in place: alpha rescales the earlier O and l
+  auto softmax = [&](int j) {
+    const int k0 = j * BK;
+    if (k0 + BK > seq_len) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        if (k0 + (i / 4) * 8 + (lane % 4) * 2 + (i % 2) >= seq_len)
+          s[i] = -CUDART_INF_F;
+    }
+    float mx[2] = {m[0], m[1]}, ms[2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // every tile holds at least one real key, so mx is finite
+      alpha[r] = fast_exp2((m[r] - mx[r]) * scale_log2);
+      m[r] = mx[r];
+      ms[r] = mx[r] * scale_log2;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i / 2) % 2;
+      s[i] = fast_exp2(fmaf(s[i], scale_log2, -ms[r]));
+      l[r] += s[i];
+    }
+  };
+  auto release = [&](uint32_t empty, int j) {
+    if (lane == 0) mbar_arrive(empty + 8 * (j % R));
+  };
+  mbar_wait(q_full, 0);
+  wgmma_fence();
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  release(k_empty, 0);
+  softmax(0);
+  a_from_acc(pa, s);
+  for (int j = 1; j < ntiles; ++j) {
+    wgmma_fence();
+    issue_s(j);
+    issue_pv(j - 1);
+    wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
+    fence_regs(s);
+    release(k_empty, j);
+    softmax(j);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < NS; ++b) fence_regs(acc[b]);
+    release(v_empty, j - 1);
+#pragma unroll
+    for (int b = 0; b < NS; ++b)
+#pragma unroll
+      for (int i = 0; i < SC / 2; ++i) acc[b][i] *= alpha[(i / 2) % 2];
+    a_from_acc(pa, s);
+  }
+  wgmma_fence();
+  issue_pv(ntiles - 1);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int b = 0; b < NS; ++b) fence_regs(acc[b]);
+  release(v_empty, ntiles - 1);
+
+  const size_t head = (size_t)bh * seq_len;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qi = q0 + wg * 64 + warp * 16 + lane / 4 + 8 * r;
+    if (qi >= seq_len) continue;
+    const float inv_l = 1.f / l[r];
+    __nv_bfloat16* row = o + (head + qi) * D;
+#pragma unroll
+    for (int b = 0; b < NS; ++b)
+#pragma unroll
+      for (int i = 0; i < SC / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(row + b * SC + i * 8 +
+                                           (lane % 4) * 2) =
+            __floats2bfloat162_rn(acc[b][4 * i + 2 * r] * inv_l,
+                                  acc[b][4 * i + 2 * r + 1] * inv_l);
+    if (lane % 4 == 0)
+      lse[head + qi] = (m[r] * scale_log2 + log2f(l[r])) * 0.69314718055994531f;
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_narrow(const void* q, const void* k, const void* v,
+                              void* o, void* lse, int bh, int seq_len,
+                              float scale_log2, cudaStream_t stream) {
+  constexpr int NWG = kNarrowWgs<D>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = encode_box(&tq, q, bh, seq_len, D, kNarrowCols<D>, NWG * 64)) !=
+          cudaSuccess ||
+      (err = encode_box(&tk, k, bh, seq_len, D, kNarrowCols<D>,
+                        kNarrowKeys)) != cudaSuccess ||
+      (err = encode_box(&tv, v, bh, seq_len, D, kNarrowCols<D>,
+                        kNarrowKeys)) != cudaSuccess)
+    return err;
+  const int smem = fwd_narrow_smem<D, NWG>(kFwdNarrowStages<D, NWG>);
+  err = cudaFuncSetAttribute(flash_fwd_narrow_kernel<D, NWG>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_len + NWG * 64 - 1) / (NWG * 64), bh);
+  flash_fwd_narrow_kernel<D, NWG><<<grid, (NWG + 1) * kWgThreads, smem,
+                                    stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      seq_len, scale_log2);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
                         void* lse, int bh, int seq_len, int head_dim,
                         float scale_log2, int dtype, cudaStream_t stream) {
@@ -935,14 +1243,23 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int bh, int seq_len,
                                 int head_dim, float scale_log2, int dtype,
                                 void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim > 128)
     return (int)launch_wide(q, k, v, o, lse, bh, seq_len, head_dim,
-                            scale_log2, dtype,
-                            static_cast<cudaStream_t>(stream));
+                            scale_log2, dtype, st);
+  if (dtype == 1 && narrow_route(head_dim, 128, {q, k, v})) {
+    if (head_dim == 32)
+      return (int)launch_fwd_narrow<32>(q, k, v, o, lse, bh, seq_len,
+                                        scale_log2, st);
+    if (head_dim == 64)
+      return (int)launch_fwd_narrow<64>(q, k, v, o, lse, bh, seq_len,
+                                        scale_log2, st);
+    return (int)launch_fwd_narrow<128>(q, k, v, o, lse, bh, seq_len,
+                                       scale_log2, st);
+  }
   return (int)dispatch(dtype, head_dim, [&](auto type, auto dim) {
     using T = typename decltype(type)::type;
     constexpr int D = decltype(dim)::value;
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if constexpr (std::is_same<T, __nv_bfloat16>::value)
       return launch_mma<D>(q, k, v, o, lse, bh, seq_len, head_dim, scale_log2,
                            st);

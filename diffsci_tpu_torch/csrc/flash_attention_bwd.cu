@@ -10,12 +10,19 @@
 // design note.
 //
 // Both are bound by operations (6 and 8 T^2 d flops and T^2 exponentials
-// per head against O(T d) bytes); at d = 32 the exponentials on the
-// special-function unit set the floor, above the tensor cores' time.
-// K5: one block per (bh, tile of query rows) loops over key tiles. K6: one
-// block per (bh, tile of key rows) loops over query tiles. Either way each
-// output tile has one block as its only writer and sums in f32 registers:
-// no atomics, so one input gives one result.
+// per head against O(T d) bytes); at d 32 the exponentials' floor on the
+// special-function unit (16 a clock per SM) lies near the tensor cores'
+// (A's shape on the H100: 0.032 against 0.026 ms for K5, 0.035 for K6),
+// at d 64 below it. K5: one block per (bh, tile of query rows) loops over
+// key tiles. K6: one block per (bh, tile of key rows) loops over query
+// tiles. Either way each output tile has one block as its only writer and
+// sums in f32 registers: no atomics, so one input gives one result.
+//
+// Routes, by a shape rule in launch_any; a call is one launch: bf16 K6 at
+// d 32 and 64 on rows that TMA can read, flash_dkv_narrow_kernel on
+// wgmma/TMA (below); bf16 K5 at every d <= 128 and K6 at the other d <=
+// 128 or on unaligned rows, the mma.sync kernels; f32, the FP32 pipes;
+// above d 128, the wide kernels.
 //
 // K5 in bfloat16 (flash_dq_mma_kernel): tensor cores, on K4's pattern.
 // Each of kMmaWarps warps owns 16 query rows and keeps their Q and dO A
@@ -43,9 +50,14 @@
 // roundings are the Pallas kernel's (flash_attention.py:209, 211: p and ds
 // cast to the input dtype before the MXU). dK and dV stay in f32
 // registers; the scale is applied once and each is written once. Padded
-// query rows are zeros with lse = delta = 0, so they add exactly 0. At
-// d <= 128 both stay on mma.sync: at d = 32 the exponentials set the
-// floor. The wide K5 and K6 of TMA-readable rows are on wgmma (below).
+// query rows are zeros with lse = delta = 0, so they add exactly 0.
+//
+// K6 in bfloat16 at d 32 and 64 (flash_dkv_narrow_kernel): the roundings
+// above on wgmma, warp-specialised. A producer warp streams 64-query
+// tiles of Q and dO, with their lse log2(e) and delta, through an mbarrier
+// ring by TMA; each of two consumer warpgroups owns 64 keys end to end
+// (all four accumulators fit its registers, so nothing passes between
+// them), and one warpgroup's exponentials overlap the other's products.
 //
 // K5 and K6 in float32: the FP32 pipes. Four threads share a row of the
 // block's own tile; each scores a quarter of the other tile's rows and
@@ -70,8 +82,9 @@
 // launch.
 //
 // f32 tile constants and dispatch: flash_common.cuh, shared with K4;
-// tensor-core pieces: flash_mma.cuh. Plain C interface, built with
-// nvcc and loaded with ctypes.
+// tensor-core pieces: flash_mma.cuh (mma.sync) and flash_wgmma.cuh (wgmma,
+// TMA, mbarriers). Plain C interface, built with nvcc and loaded with
+// ctypes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -1528,6 +1541,246 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// K6 in bf16, narrow route (d 32 or 64, 16-byte aligned rows): one block
+// per (bh, 128 key rows). Warpgroups 0 and 1 consume, 64 keys each, and
+// each owns its keys end to end: no handoff between them. Warpgroup 2
+// produces (warp 0: lane 0 issues the TMA copies). The block's K and V are
+// staged once; per tile of 64 queries the producer streams Q and dO
+// through a ring of R stages, writing the tile's lse log2(e) and delta
+// (zero past T) beside them. A consumer takes S^T = K Q^T and dP^T = V dO^T
+// (wgmma from shared memory, committed together), then in f32 registers
+// P^T = exp2(S^T scale log2(e) - lse log2(e)) and dS^T = P^T (dP^T -
+// delta), and dV += bf16(P^T) dO and dK += bf16(dS^T) Q with P^T and dS^T
+// as the register A operands and dO and Q transposed by the descriptor:
+// the Pallas kernel's roundings (flash_attention.py:209, 211). The two
+// warpgroups run apart, so the scheduler interleaves one's exponentials
+// with the other's products. Registers a thread at d 64: S^T and dP^T 32
+// each, dK and dV 32 each. Each key row has one writer and no atomics, so
+// a repeat gives the same bits. Padded queries have zero rows and lse =
+// delta = 0, so they add exactly 0; dK (times the scale, applied once)
+// and dV are written once; rows past T are not stored.
+#ifndef FLASH_DKV_NARROW_STAGES
+#define FLASH_DKV_NARROW_STAGES 4
+#endif
+constexpr int kDkvNarrowQ = 64;  // queries a tile
+
+template <int D>
+__global__ void __launch_bounds__(3 * kWgThreads, 1)
+    flash_dkv_narrow_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int seq_len,
+                            float scale) {
+  constexpr int SC = kNarrowCols<D>, NS = kNarrowSlices<D>;
+  constexpr int RB = 2 * SC;                 // bytes of a slice's row
+  constexpr int BQ = kDkvNarrowQ;
+  constexpr int R = FLASH_DKV_NARROW_STAGES;
+  constexpr int KVS = 128 * RB;              // a slice of the block's K or V
+  constexpr int QS = BQ * RB;                // a slice of a tile's Q or dO
+  constexpr int KT = SC / 16;                // k16 steps a slice of d
+  constexpr int PT = BQ / 16;                // k16 steps of dV and dK
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const gbase =
+      smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  const uint32_t base = smem_u32(gbase);
+  const uint32_t Ks = base;                  // [NS] slices
+  const uint32_t Vs = Ks + NS * KVS;         // [NS] slices
+  const uint32_t Rs = Vs + NS * KVS;         // [R] stages: [NS] Q, [NS] dO
+  const int rows_off = 2 * NS * KVS + R * 2 * NS * QS;
+  float* const Ls = reinterpret_cast<float*>(gbase + rows_off);
+  // Ls: [R][2 BQ], lse log2(e) of the tile's queries, then delta
+  const uint32_t kv_full = base + rows_off + R * 2 * BQ * 4;
+  const uint32_t full = kv_full + 8, empty = full + 8 * R;
+
+  const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
+  const int k0 = blockIdx.x * 128, bh = blockIdx.y;
+  const int ntiles = (seq_len + BQ - 1) / BQ;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int i = 0; i < R; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: warp 0 (lane 0 issues the copies)
+    reg_dealloc<24>();
+    if (warp != 0) return;
+    if (lane == 0) {
+      mbar_expect(kv_full, 2 * NS * KVS);
+      for (int s = 0; s < NS; ++s) {
+        tma_slice(Ks + s * KVS, &tk, s * SC, k0, bh, kv_full);
+        tma_slice(Vs + s * KVS, &tv, s * SC, k0, bh, kv_full);
+      }
+    }
+    const size_t head = (size_t)bh * seq_len;
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % R, r0 = t * BQ;
+      mbar_wait(empty + 8 * st, ((t / R) & 1) ^ 1);
+      float* ld = Ls + st * 2 * BQ;
+      for (int i = lane; i < BQ; i += 32) {
+        const int qi = r0 + i;
+        ld[i] = qi < seq_len ? lse[head + qi] * kLog2e : 0.f;
+        ld[BQ + i] = qi < seq_len ? delta[head + qi] : 0.f;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        const uint32_t stage = Rs + st * 2 * NS * QS;
+        mbar_expect(full + 8 * st, 2 * NS * QS);
+        for (int s = 0; s < NS; ++s) {
+          tma_slice(stage + s * QS, &tq, s * SC, r0, bh, full + 8 * st);
+          tma_slice(stage + (NS + s) * QS, &tdo, s * SC, r0, bh,
+                    full + 8 * st);
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // consumers: key rows k0 + 64 wg + 16 warp + lane / 4 (+ 8); the S^T
+  // and dP^T accumulators' columns (queries of the tile) 8 i + 2 (lane %
+  // 4) (+ 1)
+  reg_alloc<240>();
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t k_own = Ks + wg * 64 * RB, v_own = Vs + wg * 64 * RB;
+  float dka[NS][SC / 2], dva[NS][SC / 2];
+#pragma unroll
+  for (int b = 0; b < NS; ++b)
+#pragma unroll
+    for (int i = 0; i < SC / 2; ++i) dka[b][i] = dva[b][i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % R;
+    const uint32_t stage = Rs + st * 2 * NS * QS;
+    mbar_wait(full + 8 * st, (t / R) & 1);
+    float s[BQ / 2], dp[BQ / 2];  // S^T, dP^T
+    wgmma_fence();
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      const uint64_t da = desc_rows<RB>(k_own + sl * KVS);
+      const uint64_t db = desc_rows<RB>(stage + sl * QS);
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+        wgmma_ss(s, da + kk * kStepK, db + kk * kStepK, sl | kk);
+    }
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      const uint64_t da = desc_rows<RB>(v_own + sl * KVS);
+      const uint64_t db = desc_rows<RB>(stage + (NS + sl) * QS);
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+        wgmma_ss(dp, da + kk * kStepK, db + kk * kStepK, sl | kk);
+    }
+    wgmma_commit();
+    const float* ld = Ls + st * 2 * BQ + 2 * (lane % 4);
+    float2 lr[BQ / 8], dl[BQ / 8];
+#pragma unroll
+    for (int i = 0; i < BQ / 8; ++i) {
+      lr[i] = *reinterpret_cast<const float2*>(ld + 8 * i);
+      dl[i] = *reinterpret_cast<const float2*>(ld + BQ + 8 * i);
+    }
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const float l2 = i % 2 ? lr[i / 4].y : lr[i / 4].x;
+      const float dt = i % 2 ? dl[i / 4].y : dl[i / 4].x;
+      s[i] = fast_exp2(fmaf(s[i], scale_log2, -l2));
+      dp[i] = s[i] * (dp[i] - dt);
+    }
+    uint32_t pa[PT][4], dsa[PT][4];  // bf16 P^T and dS^T
+    a_from_acc(pa, s);
+    a_from_acc(dsa, dp);
+    wgmma_fence();
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      const uint64_t d_do = desc_rows<RB>(stage + (NS + sl) * QS);
+      const uint64_t d_q = desc_rows<RB>(stage + sl * QS);
+#pragma unroll
+      for (int kk = 0; kk < PT; ++kk) {
+        wgmma_rs_t(dva[sl], pa[kk], d_do + kk * RB);
+        wgmma_rs_t(dka[sl], dsa[kk], d_q + kk * RB);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < NS; ++b) {
+      fence_regs(dva[b]);
+      fence_regs(dka[b]);
+    }
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  }
+
+  const size_t head = (size_t)bh * seq_len;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = k0 + wg * 64 + warp * 16 + lane / 4 + 8 * r;
+    if (kj >= seq_len) continue;
+    __nv_bfloat16* rk = dk + (head + kj) * D;
+    __nv_bfloat16* rv = dv + (head + kj) * D;
+#pragma unroll
+    for (int b = 0; b < NS; ++b)
+#pragma unroll
+      for (int i = 0; i < SC / 8; ++i) {
+        const int c = b * SC + i * 8 + (lane % 4) * 2;
+        *reinterpret_cast<__nv_bfloat162*>(rk + c) = __floats2bfloat162_rn(
+            dka[b][4 * i + 2 * r] * scale, dka[b][4 * i + 2 * r + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(rv + c) = __floats2bfloat162_rn(
+            dva[b][4 * i + 2 * r], dva[b][4 * i + 2 * r + 1]);
+      }
+  }
+}
+
+// Shared memory of flash_dkv_narrow_kernel<D>: the 1024-byte alignment
+// slack, K and V, the ring, the rows of lse and delta and the barriers.
+template <int D>
+constexpr int dkv_narrow_smem() {
+  return 1024 + D * 2 * (2 * 128 + 2 * FLASH_DKV_NARROW_STAGES * kDkvNarrowQ) +
+         FLASH_DKV_NARROW_STAGES * 2 * kDkvNarrowQ * 4 +
+         8 * (1 + 2 * FLASH_DKV_NARROW_STAGES);
+}
+static_assert(dkv_narrow_smem<64>() <= kMaxSmem, "K6's narrow ring fits");
+
+template <int D>
+cudaError_t launch_dkv_narrow(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* delta, void* dk, void* dv, int bh,
+                              int seq_len, float scale, cudaStream_t stream) {
+  constexpr int SC = kNarrowCols<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = encode_box(&tq, q, bh, seq_len, D, SC, kDkvNarrowQ)) !=
+          cudaSuccess ||
+      (err = encode_box(&tk, k, bh, seq_len, D, SC, 128)) != cudaSuccess ||
+      (err = encode_box(&tv, v, bh, seq_len, D, SC, 128)) != cudaSuccess ||
+      (err = encode_box(&tdo, dout, bh, seq_len, D, SC, kDkvNarrowQ)) !=
+          cudaSuccess)
+    return err;
+  const int smem = dkv_narrow_smem<D>();
+  err = cudaFuncSetAttribute(flash_dkv_narrow_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_len + 127) / 128, bh);
+  flash_dkv_narrow_kernel<D><<<grid, 3 * kWgThreads, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), seq_len, scale);
+  return cudaGetLastError();
+}
+
 // K5 in bf16, wgmma route (flash_wgmma.cuh: 16-byte aligned rows), d in
 // (128, 256] (FLASH_DQ_WGMMA_ROWS 128, the default): K4's layout. One
 // block per (bh, 128 query rows); warpgroups 0 and 1 consume, 64 query
@@ -2176,6 +2429,14 @@ cudaError_t launch_any(int which, const void* q, const void* k,
     return launch_wide(which, q, k, v, dout, lse, delta, out0, out1, bh,
                        seq_len, head_dim, scale, dtype,
                        static_cast<cudaStream_t>(stream));
+  if (which == 1 && dtype == 1 && narrow_route(head_dim, 64, {q, k, v, dout}))
+    return head_dim == 32
+               ? launch_dkv_narrow<32>(q, k, v, dout, lse, delta, out0, out1,
+                                       bh, seq_len, scale,
+                                       static_cast<cudaStream_t>(stream))
+               : launch_dkv_narrow<64>(q, k, v, dout, lse, delta, out0, out1,
+                                       bh, seq_len, scale,
+                                       static_cast<cudaStream_t>(stream));
   return dispatch(dtype, head_dim, [&](auto type, auto dim) {
     return launch<typename decltype(type)::type, decltype(dim)::value>(
         which, q, k, v, dout, lse, delta, out0, out1, bh, seq_len, head_dim,

@@ -5,20 +5,47 @@ Kernel note. K4 replaces ``diffsci_tpu/kernels/flash_attention.py:
 _fwd_kernel``, K5 ``_dq_kernel`` and K6 ``_dkv_kernel`` (through
 ``flash_attention``, a custom VJP there): the PUNetG bottleneck attention
 with ``attn_backend='flash'`` at T ≥ 2048 tokens (config A: 16³ = 4096
-tokens, head dim 32). Sources: ``csrc/flash_attention.cu`` (K4) and
-``csrc/flash_attention_bwd.cu`` (K5, K6), CUDA C++; the ``mma.sync``
-pieces in ``csrc/flash_mma.cuh``, the ``wgmma``/TMA pieces of the wide
-K4, K5 and K6 in ``csrc/flash_wgmma.cuh``, the f32 tile layout and dispatch
-in ``csrc/flash_common.cuh``.
+tokens, head dim 32; DiT-B's 12 heads of 64, configuration H). Sources:
+``csrc/flash_attention.cu`` (K4) and ``csrc/flash_attention_bwd.cu`` (K5,
+K6), CUDA C++; the ``mma.sync`` pieces in ``csrc/flash_mma.cuh``, the
+``wgmma``/TMA pieces of the narrow and wide routes in
+``csrc/flash_wgmma.cuh``, the f32 tile layout and dispatch in
+``csrc/flash_common.cuh``.
 
 - What bounds them on the H100: operations. K4 does 4·T²·d flops, K5
   6·T²·d and K6 8·T²·d per head against (4·T·d + T) elements moved: at
   T = 4096, d = 32 that is ~1000 flops per byte, above the card's ridge.
   Each also takes T² exponentials on the special-function unit, 16 per
   clock per SM: at d = 32 that floor (~0.032 ms at config A's shape) lies
-  above the tensor cores' (0.017 ms for K4). The [T, T] score matrix never
+  above the tensor cores' (0.017 ms for K4), at d = 64 the two are about
+  equal (0.193 against 0.209 ms at H's). The [T, T] score matrix never
   touches device memory.
-- bfloat16, K4, K5 and K6: tensor cores (``mma.sync`` m16n8k16, f32
+- Routes, by a shape rule in the launchers (a call is one launch either
+  way): bf16 K4 at d 32, 64 and 128 and bf16 K6 at d 32 and 64, on rows
+  that TMA can read (d % 8 = 0, 16-byte aligned bases), take the narrow
+  ``wgmma`` kernels; bf16 K5 at every d ≤ 128 and bf16 K4 and K6 at the
+  other d ≤ 128 or on unaligned bases take the ``mma.sync`` kernels; f32
+  the FP32 pipes; d above 128 the wide kernels. A build with
+  ``-DFLASH_WGMMA_MIN_DIM=129`` sends every d ≤ 128 to ``mma.sync``
+  (``scripts/torch_flash_variants.py --set narrow`` times the two routes
+  side by side).
+- bfloat16, the narrow route: warp-specialised, as the wide route below.
+  K4 (``flash_fwd_narrow_kernel``): a producer warp issues TMA copies of
+  128-key K and V tiles (one box a tile: 64-column rows with the 128-byte
+  swizzle, 32-column rows with the 64-byte swizzle at d 32) into a ring
+  of three stages with full and empty mbarriers; each consumer warpgroup
+  owns 64 query rows for the whole loop (three warpgroups a block at d
+  64, one at d 32, where two blocks share an SM; two at d 128), with Q
+  staged once and ``setmaxnreg`` giving it the producer's registers. It
+  issues S_j = Q K_jᵀ (``wgmma`` m64n128k16) and O += P_{j−1} V_{j−1}
+  (P from registers, V transposed by the descriptor) together and runs
+  the online softmax of S_j while P_{j−1} V_{j−1} is in flight, so its
+  exponentials overlap the tensor cores. K6 (``flash_dkv_narrow_kernel``):
+  one block of 128 keys, K and V staged once, Q and dO streamed in
+  64-query tiles with their lse and delta; each of two consumer
+  warpgroups owns 64 keys end to end (Sᵀ, dPᵀ, dK and dV all fit its
+  registers), so nothing passes between them.
+- bfloat16, K4, K5 and K6 on ``mma.sync`` (m16n8k16, f32
   accumulators). A block of 4 warps owns 64 rows of its own side (K4 and
   K5: queries, K6: keys), 16 per warp, and loops over tiles of the other
   side that stream through a double-buffered ``cp.async`` ring in bf16
@@ -39,9 +66,8 @@ in ``csrc/flash_common.cuh``.
   ``flash_attention.py:106``; dS before dS·K, ``:179``; P and dS before
   dV and dK, ``:209, 211``), so the port rounds as the JAX reference
   does. Rows that are not 16-byte aligned (d % 8 ≠ 0) are staged by
-  element loads in the same kernels. At d ≤ 128 they stay on
-  ``mma.sync``: at d = 32 the exponentials, not the products, set the
-  floor.
+  element loads in the same kernels. The narrow route rounds at the same
+  points.
 - float32: the FP32 pipes. One block per (batch·head, 64 rows) loops over
   64-row tiles of the other side staged in shared memory; four threads
   share a row, each scoring a quarter of the other tile and owning a

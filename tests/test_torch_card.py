@@ -213,17 +213,94 @@ def test_flash_wide_kernels_are_deterministic_on_card(shape):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-def test_flash_dkv_is_deterministic_on_card():
+@pytest.mark.parametrize("shape", [(4, 2, 4096, 32), (4, 12, 4096, 64)])
+def test_flash_dkv_is_deterministic_on_card(shape):
     """K6 in bf16 has one writer per output tile and no atomics: the same
-    inputs give bit-identical dK and dV."""
+    inputs give bit-identical dK and dV (A's head dim 32 and H's 64, both
+    on the narrow wgmma route)."""
     gen = torch.Generator("cuda").manual_seed(4)
-    q, k, v, do = (torch.randn((4, 2, 4096, 32), generator=gen,
+    q, k, v, do = (torch.randn(shape, generator=gen,
                                device="cuda").bfloat16() for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v)
     delta = (do.float() * o.float()).sum(-1)
     first = fa.flash_attention_dkv(q, k, v, do, lse, delta)
     second = fa.flash_attention_dkv(q, k, v, do, lse, delta)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# the narrow wgmma route (bf16 K4 at d 32, 64 and 128, K6 at d 32 and 64,
+# rows that TMA can read): A's buckets 4 and 1 and its Picard sweep's
+# batch 8, H's bucket 4, FLASH_SWEEP's (1, 1, 2049, 64), ragged T at 2049
+# and 4097, and d 128 (K4 only)
+_NARROW = ((4, 2, 4096, 32), (1, 2, 4096, 32), (8, 2, 4096, 32),
+           (4, 12, 4096, 64), (1, 1, 2049, 64), (2, 1, 2049, 32),
+           (1, 2, 4097, 32), (1, 1, 4097, 64), (1, 1, 2049, 128))
+
+
+def _kernel_names(fn, reps=3):
+    """Names of the CUDA kernels that ``fn`` launches, from torch.profiler
+    over ``reps`` calls (a trace may drop a device record)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
+def _flash_route_case(shape, offset, seed):
+    """bf16 K4, K5 and K6 at ``shape`` on inputs whose base is ``offset``
+    elements into their storage, against their plain versions (each
+    launched once, each repeat bit-identical); returns the kernels that
+    K4 and K6 launched."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    q, k, v, do = (_offset_randn(shape, torch.bfloat16, offset, gen)
+                   for _ in range(4))
+    kernels.reset_launches()
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert kernels.LAUNCHES["flash_attention"] == 1
+    assert kernels.LAUNCHES["flash_attention_dq"] == 1
+    assert kernels.LAUNCHES["flash_attention_dkv"] == 1
+    ro, rlse = fa.flash_attention_plain(q, k, v)
+    _assert_attention_close(o, ro)
+    assert float((lse - rlse).abs().max()) <= 1e-3
+    for o_, r in zip(got, fa.flash_attention_bwd_plain(q, k, v, o, lse, do)):
+        _assert_grad_close(o_, r)
+    assert torch.equal(o, fa.flash_attention_fwd(q, k, v)[0])
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, fa.flash_attention_bwd(q, k, v, o, lse, do)))
+    delta = (do.float() * o.float()).sum(-1)
+    fwd = _kernel_names(lambda: fa.flash_attention_fwd(q, k, v))
+    dkv = _kernel_names(lambda: fa.flash_attention_dkv(q, k, v, do, lse,
+                                                       delta))
+    return fwd, dkv
+
+
+@pytest.mark.parametrize("shape", _NARROW)
+def test_flash_narrow_route_matches_plain_on_card(shape):
+    """The narrow wgmma K4 (d 32, 64, 128) and K6 (d 32, 64) at the main
+    paths' shapes and ragged T: within phase 1's bounds of the plain
+    versions (O 2^-7·|ref| + 2e-3·max|ref|, lse 1e-3, dQ, dK, dV 1e-2 of
+    max|ref|), bit-identical on a repeat, and launched by the shape
+    rule."""
+    fwd, dkv = _flash_route_case(shape, 0, 7)
+    assert any("flash_fwd_narrow_kernel" in n for n in fwd), fwd
+    narrow_dkv = any("flash_dkv_narrow_kernel" in n for n in dkv)
+    assert narrow_dkv == (shape[-1] <= 64), dkv
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 2049, 64), (4, 12, 4096, 64),
+                                   (1, 2, 4096, 32)])
+def test_flash_unaligned_base_takes_mma_sync_on_card(shape):
+    """Inputs whose base is one element off 16 bytes (TMA cannot read
+    them): the shape rule sends K4 and K6 to the mma.sync kernels, which
+    hold the same bounds."""
+    fwd, dkv = _flash_route_case(shape, 1, 8)
+    assert any("flash_fwd_mma_kernel" in n for n in fwd), fwd
+    assert any("flash_dkv_mma_kernel" in n for n in dkv), dkv
+    assert not any("narrow" in n for n in fwd | dkv)
 
 
 @pytest.mark.parametrize("shape", _FLASH_SWEEP)
