@@ -399,6 +399,14 @@ Phases (any failure raises, so the exit code is non-zero):
     full width lies above the CPU tests' parameter bound on one process
     too; ``scripts/torch_spatial_rounding.py``), the CPU-bound ratio
     printed.
+    Phases 27 to 40 run on up to three sides at once: the gloo groups of
+    37 (b), 38 (b) and 39 (b) to (d), one after another, in a thread
+    that waits on their ranks, from the start of phase 27; 31 to 36 in a
+    process of their own (``chip_smoke.py --phases-31-36 OUT``, started
+    by the script after phase 30); 27 to 30, then 37 (a), 38 (a), 39 (a)
+    and 40 in the main thread. Each wall, rate or device time of those
+    phases is taken with the other sides on the host and the card. The
+    block's and the groups' lines print when they end, before phase 41.
 40. The scripts on the card: each script of ``diffsci_tpu_torch/scripts``
     calls its ``main()`` in-process with ``sys.argv`` set, ``--device
     cuda``. ``train_diffusion_mnist`` at its full defaults (64 channels,
@@ -414,19 +422,19 @@ Phases (any failure raises, so the exit code is non-zero):
     and power limit.
 41. The last four scripts, the sampler graphs keyed on the scheduler, and
     FSDP over an expert-parallel state. ``stochasticity_sweep`` at its
-    widths (32 channels, [2], 28²), γ 0.0, 0.5, 1.0 of 250 samples and
-    100 steps, sequential and with ``--processes 2``: the two JSONs equal
+    widths (32 channels, [2], 28²), γ 0.0, 0.5, 1.0 of 100 samples and
+    50 steps, sequential and with ``--processes 2``: the two JSONs equal
     bit for bit, the FIDs finite and not all equal, the sequential run's
-    K1 and K2 exact (each γ's graph warmed up and replayed once: 2 × 199
-    Heun calls and 2 × 2 × 100 Euler–Maruyama calls, 20 K2 a call) and
+    K1 and K2 exact (each γ's graph warmed up and replayed once: 2 × 99
+    Heun calls and 2 × 2 × 50 Euler–Maruyama calls, 20 K2 a call) and
     the parent of the workers launching nothing. The repair: one model
     sampled at γ 0.5, its ``config.noisescheduler`` swapped to γ 3.0, the
     next sample bit for bit a fresh model's γ 3.0 sample and unlike the
     γ 0.5 one. ``stochasticity_study`` at its widths (32 channels, [2, 4],
-    32², batch 128) for 100 steps, 256 samples at 18 NFE a γ over γ 0.01,
+    32², batch 128) for 50 steps, 128 samples at 18 NFE a γ over γ 0.01,
     1.0, 5.0: exact launches, which hold one sampler graph (a warm-up and
     three replays). ``picard_restart_trained`` at its widths for 100
-    steps, its FID tier at 128 samples: every sampler call's K1 its
+    steps, its FID tier at 64 samples: every sampler call's K1 its
     network calls (Picard's the sweeps it reports, a capture's warm-up
     one more), K2 28 a K1, Picard at 18 steps matching Euler's sample,
     Picard at 100 steps in fewer than 100 sweeps; the arms' walls
@@ -466,6 +474,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -575,8 +584,83 @@ HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 FLUSH_BYTES = 128 * 2 ** 20
 
 
+_LOG_HELD = threading.local()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print a line; a ``Beside`` thread's lines are held for its end."""
+    held = getattr(_LOG_HELD, "lines", None)
+    if held is None:
+        print(msg, flush=True)
+    else:
+        held.append(msg)
+
+
+class Beside:
+    """``fn()`` in a thread beside the main one, its log lines held back.
+    ``result()`` waits for it, prints its lines and its seconds, and
+    returns its value or raises its exception. For work that is mostly
+    waiting on processes of its own (the gloo groups)."""
+
+    def __init__(self, label: str, fn):
+        self.label, self._out = label, {"lines": []}
+
+        def run():
+            _LOG_HELD.lines = self._out["lines"]
+            t0 = time.perf_counter()
+            try:
+                self._out["value"] = fn()
+            except BaseException as e:      # re-raised by result()
+                self._out["error"] = e
+            self._out["seconds"] = time.perf_counter() - t0
+
+        self._thread = threading.Thread(target=run, name=label)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Wait for the thread and print its lines, once."""
+        self._thread.join()
+        held = self._out.pop("lines", None)
+        if held is None:
+            return
+        for line in held:
+            log(line)
+        log(f"[time] {self.label}: {self._out['seconds']:.1f} s beside the "
+            f"main thread")
+
+    def result(self):
+        self.wait()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+@contextlib.contextmanager
+def host_processes(fn, calls: list):
+    """``fn(*args)`` for each ``args`` of ``calls``, each in a spawned
+    process of its own (for host work that holds the GIL), started with
+    its share of the host's cores for its BLAS and OpenMP threads. Yields
+    the futures; the block runs while they do."""
+    import multiprocessing
+
+    n = len(calls)
+    names = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in names}
+    pool = concurrent.futures.ProcessPoolExecutor(
+        n, mp_context=multiprocessing.get_context("spawn"))
+    os.environ.update(dict.fromkeys(names, str(max(
+        1, (os.cpu_count() or n) // n))))
+    try:
+        # a submit starts its worker, under the split
+        futures = [pool.submit(fn, *args) for args in calls]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with pool:
+        yield futures
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1091,7 +1175,7 @@ def phase_kernels():
                        f"{ratio:.1e})", dtype, err, ok, GRAD_LIMIT)
 
     # the bf16 K4, K5 and K6 run on the tensor cores: wgmma (HGMMA) in the
-    # narrow K4 and K6 (d 32 and 64, K4 also 128) and the wide K4, K5 and
+    # narrow K4, K5 and K6 (d 32 and 64, K4 also 128) and the wide K4, K5 and
     # K6 (d above 128) of aligned rows, mma.sync (HMMA) at the other head
     # dims
     counts = tensor_core_counts()
@@ -1105,6 +1189,7 @@ def phase_kernels():
                          ("flash_dq_wide_mma_kernel", 0),
                          ("flash_dkv_wide_mma_kernel", 0),
                          ("flash_fwd_narrow_kernel", 1),
+                         ("flash_dq_narrow_kernel", 1),
                          ("flash_dkv_narrow_kernel", 1),
                          ("flash_fwd_wgmma_kernel", 1),
                          ("flash_dq_wgmma_kernel", 1),
@@ -2645,6 +2730,39 @@ def porous_batch(n, size, gen):
     return x[..., None], x.reshape(n, -1).mean(1, keepdim=True)
 
 
+def porous_volumes(n, size, seed):
+    """``porous_batch``'s volumes and porosities drawn with numpy from
+    ``seed``, so that the card and the CPU train on the same data
+    (float32 numpy arrays, channels-last)."""
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((n, size, size, size))
+    k = np.fft.fftfreq(size) * size
+    k2 = k[:, None, None] ** 2 + k[None, :, None] ** 2 + k[None, None, :] ** 2
+    z = np.fft.ifftn(np.fft.fftn(z, axes=(1, 2, 3))
+                     * np.exp(-k2 / (2 * 3.0 ** 2)), axes=(1, 2, 3)).real
+    phi = 0.2 + 0.3 * rng.random(n)
+    level = np.array([np.quantile(z[i], phi[i]) for i in range(n)])
+    x = (z < level[:, None, None, None]).astype(np.float32)
+    return x[..., None], x.reshape(n, -1).mean(1, keepdims=True)
+
+
+def d_draws(seed, steps, n=4, size=32, cond_drop=0.1):
+    """Configuration D's training draws for ``steps`` steps from ``seed``
+    with numpy: a probe's (σ, ε), then each step's σ (EDM: log σ ~
+    N(-1.2, 1.2²)), ε and condition-keep mask (kept with probability
+    1 - ``cond_drop``)."""
+    rng = np.random.default_rng(10_000 + seed)
+    shape = (n, size, size, size, 1)
+
+    def sigma():
+        return np.exp(rng.standard_normal(n) * 1.2 - 1.2).astype(np.float32)
+
+    probe = (sigma(), rng.standard_normal(shape).astype(np.float32))
+    steps_ = [(sigma(), rng.standard_normal(shape).astype(np.float32),
+               rng.random(n) >= cond_drop) for _ in range(steps)]
+    return probe, steps_
+
+
 def phase_conditional_mp_training(cfg_d, cfg_e, zero):
     """Training D (batch 4, the condition-drop draw, the batch norm) and E
     (batch 256, has_mp_weights, the dynamic loss weight) through the
@@ -3342,9 +3460,6 @@ def phase_serving_stack(cfg_a, cfg_b, zero, trained, model_c):
                                  f"{err[-3000:]}")
         return out, time.perf_counter() - t0
 
-    def cli(*args):
-        return cli_end(cli_start(*args))
-
     try:
         ckpt = tmp / "ckpt"
         save_checkpoint(ckpt, state, model.export_description())
@@ -3353,30 +3468,18 @@ def phase_serving_stack(cfg_a, cfg_b, zero, trained, model_c):
         sample_p = cli_start("sample", "--ckpt", ckpt, "--shape", *shape,
                              "--nsamples", 64, "--seed", 11, "--out",
                              tmp / "s.npy", "--grid", tmp / "grid.png")
-        info, info_s = cli_end(info_p)
-        text, sample_s = cli_end(sample_p)
-        tag = json.loads(info)["config_description"]["tag"]
-        from_cli = np.load(tmp / "s.npy")
         base = SamplerService.from_checkpoint(ckpt, shape, ema_stds=[0.05],
                                               batch_buckets=(64,))
         in_process = base.sample(64, generator=11)
-        png = (tmp / "grid.png").read_bytes()
-        same = np.array_equal(from_cli, in_process)
-        ok = (tag == "edm" and same and png[:8] == b"\x89PNG\r\n\x1a\n"
-              and np.isfinite(from_cli).all())
-        log(f"[cli config B] {card}: info {info_s:.1f} s (tag {tag}); "
-            f"sample --nsamples 64 --seed 11 --grid {sample_s:.1f} s in a "
-            f"subprocess on the card ({text.strip().splitlines()[-1]}); the "
-            f".npy bit for bit the in-process from_checkpoint request "
-            f"{same}; PNG {len(png)} bytes written without matplotlib "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("phase 19: the command line's sample "
-                                 "differs from the in-process request")
-        # the rest runs without TF32, in graphs captured without it
+        del base
+        # the rest runs without TF32, in graphs captured without it, while
+        # the two commands run; the profiled request's trace first, so that
+        # `profile` reads it back meanwhile too
         torch.backends.cudnn.allow_tf32 = False
         served = SamplerService.from_checkpoint(
             ckpt, shape, ema_stds=[0.05]).model   # f32, EMA profile 0
+        profile_end = profiled_request(served, zero, card, tmp, cli_start,
+                                       cli_end)
 
         # HTTP: 32 one-sample clients, dispatcher against one at a time
         per_run = {"fused_axby": NFE, "norm_silu": 28 * NFE}
@@ -3463,7 +3566,26 @@ def phase_serving_stack(cfg_a, cfg_b, zero, trained, model_c):
         counts.append(onestep_arm(model, zero, card))
         counts.append(ddpm_dispatcher_arm(model_c, zero, card))
         counts += feature_arms(model, served, zero, card)
-        counts.append(profiled_request(served, zero, card, tmp, cli))
+        counts.append(profile_end())
+
+        info, info_s = cli_end(info_p)
+        text, sample_s = cli_end(sample_p)
+        tag = json.loads(info)["config_description"]["tag"]
+        from_cli = np.load(tmp / "s.npy")
+        png = (tmp / "grid.png").read_bytes()
+        same = np.array_equal(from_cli, in_process)
+        ok = (tag == "edm" and same and png[:8] == b"\x89PNG\r\n\x1a\n"
+              and np.isfinite(from_cli).all())
+        log(f"[cli config B] {card}: info (tag {tag}) and sample "
+            f"--nsamples 64 --seed 11 --grid in a subprocess on the card "
+            f"({text.strip().splitlines()[-1]}), both beside the phase's "
+            f"other arms and collected {info_s:.1f} and {sample_s:.1f} s "
+            f"after their start; the .npy bit for bit the in-process "
+            f"from_checkpoint request {same}; PNG {len(png)} bytes written "
+            f"without matplotlib {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 19: the command line's sample "
+                                 "differs from the in-process request")
         return counts
     finally:
         for proc in procs:
@@ -3688,10 +3810,12 @@ def feature_arms(model, served, zero, card) -> list:
     return counts + [c_interp, c_filter]
 
 
-def profiled_request(served, zero, card, tmp, cli) -> dict:
+def profiled_request(served, zero, card, tmp, cli_start, cli_end):
     """One served request of 64 under torch.profiler, its Chrome trace read
     back by ``python -m diffsci_tpu_torch profile``: K1's and K2's rows
-    count what the launch counter counts; the busy fraction printed.
+    count what the launch counter counts; the busy fraction printed. The
+    command is started here; the returned call waits for it, checks and
+    returns the request's launch counts.
 
     The tracer drops device records now and then, K2's among them
     (scripts/torch_profile_completeness.py counts how often), so the
@@ -3733,21 +3857,28 @@ def profiled_request(served, zero, card, tmp, cli) -> dict:
     k1 = sum(r["count"] for r in rows if "axby_kernel" in r["name"])
     k2 = sum(r["count"] for r in rows
              if any(n in r["name"] for n in NORM_KERNELS["K2"]))
-    text, secs = cli("profile", trace_dir, "--top", 100)
+    started = cli_start("profile", trace_dir, "--top", 100)
     busy = profiling.device_busy_fraction(profiling.parse_trace(str(path)))
-    ok = (k1 == c["fused_axby"] == NFE and k2 == c["norm_silu"]
-          and "axby_kernel" in text and "busy fraction (cuda)" in text)
-    log(f"[profile config B] {card}: one request of 64 under torch.profiler"
-        f" in {wall:.4f} s; `python -m diffsci_tpu_torch profile` "
-        f"({secs:.1f} s): K1 rows {k1}, K2 rows {k2}, launch counter "
-        f"{c['fused_axby']}, {c['norm_silu']}; busy fraction {busy:.3f} "
-        f"(kernels a trace {totals + [total]}) {'ok' if ok else 'FAIL'}")
-    for line in text.strip().splitlines()[:16]:
-        log(f"[profile config B]   {line}")
-    if not ok:
-        raise AssertionError("phase 19: the profile's kernel rows differ "
-                             "from the launch counter")
-    return c
+
+    def end() -> dict:
+        text, secs = cli_end(started)
+        ok = (k1 == c["fused_axby"] == NFE and k2 == c["norm_silu"]
+              and "axby_kernel" in text and "busy fraction (cuda)" in text)
+        log(f"[profile config B] {card}: one request of 64 under "
+            f"torch.profiler in {wall:.4f} s; `python -m diffsci_tpu_torch "
+            f"profile` (beside the phase's other arms, collected {secs:.1f} "
+            f"s after its start): K1 "
+            f"rows {k1}, K2 rows {k2}, launch counter {c['fused_axby']}, "
+            f"{c['norm_silu']}; busy fraction {busy:.3f} (kernels a trace "
+            f"{totals + [total]}) {'ok' if ok else 'FAIL'}")
+        for line in text.strip().splitlines()[:16]:
+            log(f"[profile config B]   {line}")
+        if not ok:
+            raise AssertionError("phase 19: the profile's kernel rows "
+                                 "differ from the launch counter")
+        return c
+
+    return end
 
 
 def phase_serving_card_vs_cpu():
@@ -6688,29 +6819,35 @@ def phase_p(zero):
     del net
     torch.cuda.empty_cache()
 
-    # the three host square roots side by side (LAPACK frees the GIL)
+    # the three host square roots side by side, a process each (scipy's
+    # sqrtm holds the GIL, so threads would take turns), while KID and
+    # FLD run here
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        fid_rg, fid_self, fid_rf = pool.map(
-            metrics.fid, (f_real, f_real, f_real), (f_fake, f_real, f_far))
+    with host_processes(metrics.fid, [(f_real, f) for f in (
+            f_fake, f_real, f_far)]) as fids:
+        t1 = time.perf_counter()
+        kid_rg = metrics.kid(f_real, f_fake)
+        t_kid = time.perf_counter() - t1
+        kid_self = metrics.kid(f_real, f_real)
+        kid_rf = metrics.kid(f_real, f_far)
+        kw = dict(n_iters=P_FLD_ITERS, seed=0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fld_rg = metrics.fld(f_real, f_test, f_fake[:P_TEST], **kw)
+        t_fld = time.perf_counter() - t1
+        fld_rf = metrics.fld(f_real, f_test, f_far[:P_TEST], **kw)
+        gap_rg = metrics.fld_generalization_gap(f_real, f_fake[:P_TEST],
+                                                **kw)
+        gap_rf = metrics.fld_generalization_gap(f_real, f_far[:P_TEST],
+                                                **kw)
+        fid_rg, fid_self, fid_rf = (f.result() for f in fids)
     t_fid = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    kid_rg = metrics.kid(f_real, f_fake)
-    t_kid = time.perf_counter() - t0
-    kid_self, kid_rf = metrics.kid(f_real, f_real), metrics.kid(f_real, f_far)
-    kw = dict(n_iters=P_FLD_ITERS, seed=0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fld_rg = metrics.fld(f_real, f_test, f_fake[:P_TEST], **kw)
-    t_fld = time.perf_counter() - t0
-    fld_rf = metrics.fld(f_real, f_test, f_far[:P_TEST], **kw)
-    gap_rg = metrics.fld_generalization_gap(f_real, f_fake[:P_TEST], **kw)
-    gap_rf = metrics.fld_generalization_gap(f_real, f_far[:P_TEST], **kw)
     ok = (abs(fid_self) <= 1e-3 * fid_rf and abs(kid_self) <= 5e-2 * kid_rf
           and fid_rg < fid_rf and kid_rg < kid_rf and fld_rg < fld_rf)
     log(f"[config P metrics] FID real/real {fid_self:.4e}, real/generated "
         f"{fid_rg:.6e}, real/far {fid_rf:.6e} (host sqrtm of 2048²: "
-        f"{t_fid:.3f} s for the three side by side); KID "
+        f"{t_fid:.3f} s to the three processes' results, KID and FLD "
+        f"meanwhile); KID "
         f"{kid_self:.4e}, {kid_rg:.6e}, "
         f"{kid_rf:.6e} ({t_kid:.3f} s); FLD generated {fld_rg:.4f}, far "
         f"{fld_rf:.4f} ({t_fld:.3f} s a FLD: two fits of {P_FLD_ITERS} "
@@ -8330,13 +8467,20 @@ def fs_group(world, names, out_dir) -> list:
 
 
 def phase_fsdp_spatial(zero):
-    """Phase 39: (a) one NCCL rank; (b) and (d) two gloo ranks on the one
-    card; (c) four, whose group also runs phase 41's FSDP∘EP arm (one
-    start-up for both). Returns the launch counts and the four ranks'
+    """Phase 39: (a) one NCCL rank; (b) to (d), ``phase_fsdp_groups``.
+    Returns the launch counts and the four ranks' records."""
+    counts = phase_fsdp_world1(zero)
+    counts_groups, four = phase_fsdp_groups(zero)
+    return counts + counts_groups, four
+
+
+def phase_fsdp_groups(zero):
+    """Phase 39 (b) and (d): two gloo ranks on the one card; (c) four,
+    whose group also runs phase 41's FSDP∘EP arm (one start-up for both).
+    Returns the launch counts of (d)'s bf16 step and the four ranks'
     records."""
     import tempfile
 
-    counts = phase_fsdp_world1(zero)
     with tempfile.TemporaryDirectory() as out_dir:
         two = fs_group(2, ["b_fsdp", "d_f32", "e_f32", "d_bf16",
                            "h_memory"], out_dir)
@@ -8445,7 +8589,7 @@ def phase_fsdp_spatial(zero):
         f"gloo: "
         f"{d['ms']:.3f} ms/step, peak {d['peak_gib']:.3f} GiB a rank, "
         f"launches a step {d['counts']}")
-    return counts + [dict(zero, **d["counts"])], four
+    return [dict(zero, **d["counts"])], four
 
 
 # phase 40: the scripts. train_diffusion_mnist at its full defaults for
@@ -8653,16 +8797,16 @@ def phase_scripts(zero):
 # scheduler, FSDP over an expert-parallel state
 # ---------------------------------------------------------------------------
 # the sweep at _build_state's widths (PUNetG 32 channels, expansion [2]:
-# 20 norms a network call) with 250 samples of 100 steps a γ, sequential
+# 20 norms a network call) with 100 samples of 50 steps a γ, sequential
 # and over 2 worker processes
-SWEEP = ["--gammas", "0.0", "0.5", "1.0", "--nsamples", "250", "--nsteps",
-         "100"]
+SWEEP = ["--gammas", "0.0", "0.5", "1.0", "--nsamples", "100", "--nsteps",
+         "50"]
 SWEEP_NORMS = 20
 # the study, Picard/restart and the repro at their default widths
 # (expansion [2, 4]: B_NORMS a call), cut in steps and samples
-STUDY = ["--steps", "100", "--nsamples", "256", "--nfe", "18", "--gammas",
+STUDY = ["--steps", "50", "--nsamples", "128", "--nfe", "18", "--gammas",
          "0.01", "1.0", "5.0"]
-PICARD = ["--train-steps", "100", "--nsamples-fid", "128"]
+PICARD = ["--train-steps", "100", "--nsamples-fid", "64"]
 REPRO_FULL = ["--channels", "128", "--steps", "30", "--nsamples", "100",
               "--nfe", "18"]
 REPRO_FILES = ["ckpt/state.pt", "ckpt/description.json", "fid_results.json",
@@ -8994,6 +9138,108 @@ def phase_scripts_last(zero, four=None):
     return counts
 
 
+def log_elapsed(phases: str, t_start: float) -> None:
+    log(f"[time] phases {phases} done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+
+def phases_31_to_36(zero) -> list:
+    """The other runtimes: flow matching (L), the SDE stack (M), DDPM v1
+    (N) and the deterministic forecaster (O) (phases 31 to 33); the
+    porous-media extras (Q) and the metrics (P) (phases 34 to 36). Their
+    launch counts, one list."""
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counts = phase_runtimes_card_vs_cpu()
+    torch.backends.cudnn.allow_tf32 = True
+    log_elapsed("31 (in the block)", t_start)
+    counts += phase_l(zero)
+    log_elapsed("32 (in the block)", t_start)
+    counts += phase_m(zero)
+    log_elapsed("33 M (in the block)", t_start)
+    counts += phase_n(zero)
+    log_elapsed("33 N (in the block)", t_start)
+    counts += phase_o(zero)
+    log_elapsed("33 O (in the block)", t_start)
+    torch.backends.cudnn.allow_tf32 = False
+    counts += phase_extras_card_vs_cpu()
+    torch.backends.cudnn.allow_tf32 = True
+    log_elapsed("34 (in the block)", t_start)
+    counts += phase_q(zero)
+    log_elapsed("35 (in the block)", t_start)
+    counts += phase_p(zero)
+    log_elapsed("36 (in the block)", t_start)
+    return counts
+
+
+BLOCK_FLAG = "--phases-31-36"
+BLOCK_TIMEOUT = 900        # seconds the block may take
+
+
+def block_main(out: str) -> int:
+    """``chip_smoke.py --phases-31-36 OUT``: phases 31 to 36 in this
+    process (the kernels built by the parent), their launch counts
+    written to OUT as JSON."""
+    from diffsci_tpu_torch import kernels
+
+    counts = phases_31_to_36(dict.fromkeys(kernels.LAUNCHES, 0))
+    with open(out, "w") as f:
+        json.dump(counts, f, default=int)
+    return 0
+
+
+class Block:
+    """Phases 31 to 36 in a process of their own (``block_main``), its
+    standard output held in a file and printed by ``result()``, which
+    waits for it and returns its launch counts, or raises if it failed or
+    outlasted BLOCK_TIMEOUT; ``stop()`` ends it. The process's standard
+    error is this one's."""
+
+    def __init__(self):
+        import tempfile
+
+        self._dir = tempfile.mkdtemp(prefix="chip_smoke_block_")
+        self._log = open(os.path.join(self._dir, "log"), "w+")
+        self._out = os.path.join(self._dir, "counts.json")
+        self._t0 = time.perf_counter()
+        self._proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), BLOCK_FLAG,
+             self._out], stdout=self._log,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def stop(self) -> None:
+        import shutil
+
+        if self._proc.poll() is None:
+            self._proc.kill()
+        self._proc.wait()
+        self._log.close()
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+    def result(self) -> list:
+        left = BLOCK_TIMEOUT - (time.perf_counter() - self._t0)
+        try:
+            rc = self._proc.wait(timeout=max(0.0, left))
+        except subprocess.TimeoutExpired:
+            rc = f"stopped after {BLOCK_TIMEOUT} s"
+        seconds = time.perf_counter() - self._t0
+        self._log.seek(0)
+        for line in self._log.read().splitlines():
+            log(line)
+        log(f"[time] phases 31-36: {seconds:.1f} s in a process beside the "
+            f"main one")
+        counts = None
+        if rc == 0:
+            with open(self._out) as f:
+                counts = json.load(f)
+        self.stop()
+        if counts is None:
+            raise AssertionError(f"phases 31 to 36 failed (exit {rc}); "
+                                 f"their lines and error are above")
+        return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -9001,6 +9247,8 @@ def main() -> int:
         return 2
     from diffsci_tpu_torch import PUNetGConfig
 
+    if BLOCK_FLAG in sys.argv:
+        return block_main(sys.argv[sys.argv.index(BLOCK_FLAG) + 1])
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
@@ -9008,16 +9256,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     def elapsed(phases):
-        log(f"[time] phases {phases} done at "
-            f"{time.perf_counter() - t_start:.1f} s")
+        log_elapsed(phases, t_start)
 
     records = phase_kernels()
     elapsed("1")
     phase_card_vs_cpu()
+    elapsed("2")
     phase_train_card_vs_cpu()
+    elapsed("3")
     phase_ddpm_card_vs_cpu()
     torch.backends.cudnn.allow_tf32 = True     # PyTorch's default again
-    elapsed("2-4")
+    elapsed("4")
 
     cfg_a = PUNetGConfig(dimension=3, model_channels=32,
                          channel_expansion=[2], num_heads=2,
@@ -9075,13 +9324,16 @@ def main() -> int:
     elapsed("5-9")
     phase_graphs(svc_a, svc_b, svc_ddim, cfg_a, cfg_b,
                  "--profile" in sys.argv[1:])
+    elapsed("10")
 
     # the stochastic samplers, VP and VE (phases 11 to 13)
     torch.backends.cuda.matmul.allow_tf32 = False
     counts_11 = phase_stochastic_card_vs_cpu()
+    elapsed("11")
     counts_12 = phase_stochastic_serving(cfg_a, cfg_b, zero)
+    elapsed("12")
     counts_13 = phase_train_vp_ve(cfg_a, cfg_b, zero)
-    elapsed("10-13")
+    elapsed("13")
 
     # the conditional and magnitude-preserving paths (phases 14 to 16)
     cfg_d = dataclasses.replace(cfg_a, convolution_type="circular",
@@ -9089,30 +9341,37 @@ def main() -> int:
     cfg_e = dataclasses.replace(cfg_b, convolution_type="mp",
                                 attn_type="cosine")
     counts_14, _, _ = phase_conditional_mp_serving(cfg_d, cfg_e, zero)
+    elapsed("14")
     counts_15 = phase_conditional_mp_training(cfg_d, cfg_e, zero)
+    elapsed("15")
     torch.backends.cudnn.allow_tf32 = False
     phase_conditional_mp_card_vs_cpu()
     torch.backends.cudnn.allow_tf32 = True
+    elapsed("16")
 
     # the training loop, checkpoints and a served checkpoint (phase 17)
-    elapsed("14-16")
     counts_17 = phase_fit_checkpoint_serve(cfg_b, zero, step_ms_b)
+    elapsed("17")
 
     # the optimizers, the serving stack, card against CPU (phases 18 to 20)
     counts_18, trained = phase_optimizers(cfg_b, zero, step_ms_b)
+    elapsed("18")
     counts_19 = phase_serving_stack(cfg_a, cfg_b, zero, trained,
                                     svc_ddim.model)
+    elapsed("19")
     torch.backends.cudnn.allow_tf32 = False
     counts_20 = phase_serving_card_vs_cpu()
-    elapsed("17-20")
+    elapsed("20")
 
     # ensemble/CRPS forecasting and latent diffusion (phases 21 to 23)
     counts_21 = phase_forecast_card_vs_cpu(zero)
+    elapsed("21")
     torch.backends.cudnn.allow_tf32 = True
     counts_22, f_trained = phase_forecaster(zero)
+    elapsed("22")
     counts_23 = phase_latent(zero, f_trained)
     del f_trained
-    elapsed("21-23")
+    elapsed("23")
 
     # the rest of the score-network zoo, and H (DiT-B) and I (ADM) at full
     # width (phases 24 to 26)
@@ -9125,53 +9384,65 @@ def main() -> int:
     counts_26 = phase_i(zero)
     elapsed("26")
 
-    # progressive distillation and VAE training (phases 27 to 30)
-    counts_27 = phase_distill_b(zero)
-    elapsed("27")
-    torch.backends.cudnn.allow_tf32 = False
-    counts_28 = phase_distill_a_card_vs_cpu(zero)
-    phase_vae_card_vs_cpu()
-    torch.backends.cudnn.allow_tf32 = True
-    elapsed("28")
-    counts_29 = phase_vae_g(zero)
-    counts_30 = phase_vae_porous(zero)
-    elapsed("29-30")
+    # From phase 27 to the end of phase 40 things run side by side: the
+    # gloo groups of phases 37 (b), 38 (b) and 39 (b)-(d) (the parallel
+    # modes, the dp × spatial step, FSDP over two and four ranks), one
+    # after another, in a thread that only waits on their ranks'
+    # processes, from here; phases 31 to 36 in a process of their own
+    # (``Block``) from the end of phase 30; and here, phases 27 to 30,
+    # then the one-rank parts of phases 37 to 39 and the scripts of phase
+    # 40. Every wall or device time these phases print is taken with the
+    # others on the host and the card.
+    groups = Beside("the gloo groups of phases 37 (b), 38 (b), 39 (b)-(d)",
+                    lambda: (phase_parallel_world2(),
+                             phase_spatial_world2(zero),
+                             phase_fsdp_groups(zero)))
+    block = None
+    try:
+        # progressive distillation and VAE training (phases 27 to 30)
+        counts_27 = phase_distill_b(zero)
+        elapsed("27")
+        torch.backends.cudnn.allow_tf32 = False
+        counts_28 = phase_distill_a_card_vs_cpu(zero)
+        phase_vae_card_vs_cpu()
+        torch.backends.cudnn.allow_tf32 = True
+        elapsed("28")
+        counts_29 = phase_vae_g(zero)
+        elapsed("29")
+        counts_30 = phase_vae_porous(zero)
+        elapsed("30")
+        block = Block()
 
-    # the other runtimes: flow matching (L), the SDE stack (M), DDPM v1 (N)
-    # and the deterministic forecaster (O) (phases 31 to 33)
-    torch.backends.cudnn.allow_tf32 = False
-    counts_31 = phase_runtimes_card_vs_cpu()
-    torch.backends.cudnn.allow_tf32 = True
-    elapsed("31")
-    counts_32 = phase_l(zero)
-    elapsed("32")
-    counts_33 = phase_m(zero) + phase_n(zero) + phase_o(zero)
-    elapsed("33")
-
-    # the porous-media extras (Q) and the metrics (P) (phases 34 to 36)
-    torch.backends.cudnn.allow_tf32 = False
-    counts_34 = phase_extras_card_vs_cpu()
-    torch.backends.cudnn.allow_tf32 = True
-    elapsed("34")
-    counts_35 = phase_q(zero)
-    elapsed("35")
-    counts_36 = phase_p(zero)
-    elapsed("36")
-
-    # the parallel modes over torch.distributed (phase 37)
-    counts_37 = phase_parallel(zero)
-    elapsed("37")
-    # data-parallel serving, the dp × spatial step, the placed ensemble,
-    # distill and VAE steps (phase 38)
-    counts_38 = phase_spatial(zero)
-    elapsed("38")
-    # FSDP gathered layer by layer, FSDP∘TP, D's and E's spatial steps
-    # (phase 39)
-    counts_39, four = phase_fsdp_spatial(zero)
-    elapsed("39")
-    # the scripts on the card (phase 40)
-    counts_40 = phase_scripts(zero)
-    elapsed("40")
+        # the one-rank parts of the parallel modes over torch.distributed
+        # (phase 37), of data-parallel serving, the dp × spatial step, the
+        # placed ensemble, distill and VAE steps (phase 38) and of FSDP
+        # gathered layer by layer and FSDP∘TP (phase 39)
+        counts_37 = phase_parallel_world1(zero)
+        elapsed("37 (a)")
+        counts_38 = phase_spatial_world1(zero)
+        elapsed("38 (a)")
+        counts_39 = phase_fsdp_world1(zero)
+        elapsed("39 (a)")
+        # the scripts on the card (phase 40)
+        counts_40 = phase_scripts(zero)
+        elapsed("40")
+    except BaseException:
+        # a failure here stops the block, still waits for the groups
+        # (each stops its processes at its time limit) and is the error
+        # shown
+        if block is not None:
+            block.stop()
+        groups.wait()
+        raise
+    try:
+        counts_31_36 = block.result()
+    except BaseException:
+        groups.wait()
+        raise
+    _, counts_38b, (counts_39b, four) = groups.result()
+    counts_38 += counts_38b
+    counts_39 += counts_39b
+    elapsed("31-40, beside them 27-40's groups")
     # the last four scripts, the scheduler-keyed graphs, FSDP∘EP (phase 41)
     counts_41 = phase_scripts_last(zero, four)
     elapsed("41")
@@ -9212,10 +9483,8 @@ def main() -> int:
                                            *counts_24, *counts_25,
                                            *counts_26, *counts_27,
                                            *counts_28, *counts_29,
-                                           *counts_30, *counts_31,
-                                           *counts_32, *counts_33,
-                                           *counts_34, *counts_35,
-                                           *counts_36, *counts_37,
+                                           *counts_30, *counts_31_36,
+                                           *counts_37,
                                            *counts_38, *counts_39,
                                            *counts_40, *counts_41]),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],

@@ -880,13 +880,6 @@ template <int D>
 constexpr int kNarrowWgs = D == 32   ? FLASH_NARROW_WGS32
                            : D == 64 ? FLASH_NARROW_WGS64
                                      : FLASH_NARROW_WGS128;
-// Blocks an SM holds, and the registers a consumer thread takes once the
-// producer warpgroup has given back all but 24 of its own: the launch
-// bound leaves 65536 / (blocks x threads) a thread (rounded down to 8).
-template <int NWG>
-constexpr int kNarrowBlocks = NWG == 1 ? 2 : 1;
-template <int NWG>
-constexpr int kNarrowRegs = NWG == 1 ? 232 : NWG == 2 ? 240 : 160;
 static_assert(kNarrowWgs<32> >= 1 && kNarrowWgs<32> <= 3 &&
                   kNarrowWgs<64> >= 1 && kNarrowWgs<64> <= 3 &&
                   kNarrowWgs<128> >= 1 && kNarrowWgs<128> <= 3,

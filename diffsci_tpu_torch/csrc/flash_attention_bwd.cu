@@ -18,13 +18,22 @@
 // tiles. Either way each output tile has one block as its only writer and
 // sums in f32 registers: no atomics, so one input gives one result.
 //
-// Routes, by a shape rule in launch_any; a call is one launch: bf16 K6 at
-// d 32 and 64 on rows that TMA can read, flash_dkv_narrow_kernel on
-// wgmma/TMA (below); bf16 K5 at every d <= 128 and K6 at the other d <=
-// 128 or on unaligned rows, the mma.sync kernels; f32, the FP32 pipes;
-// above d 128, the wide kernels.
+// Routes, by a shape rule in launch_any; a call is one launch: bf16 K5
+// and K6 at d 32 and 64 on rows that TMA can read, flash_dq_narrow_kernel
+// and flash_dkv_narrow_kernel on wgmma/TMA (below); bf16 K5 and K6 at the
+// other d <= 128 (d 128 among them) or on unaligned rows, and every d <=
+// 128 in a build with -DFLASH_WGMMA_MIN_DIM=129, the mma.sync kernels;
+// f32, the FP32 pipes; above d 128, the wide kernels.
 //
-// K5 in bfloat16 (flash_dq_mma_kernel): tensor cores, on K4's pattern.
+// K5 in bfloat16 at d 32 and 64 (flash_dq_narrow_kernel): the roundings
+// below on wgmma, warp-specialised. A producer warp streams 128-key tiles
+// of K and V by TMA through an mbarrier ring; each consumer warpgroup owns
+// 64 query rows end to end (Q, dO, lse and delta staged once), issues the
+// next tile's S and dP on wgmma before this tile's exponentials and
+// overlaps them with its own dQ product in flight.
+//
+// K5 in bfloat16 on mma.sync (flash_dq_mma_kernel): tensor cores, on K4's
+// pattern.
 // Each of kMmaWarps warps owns 16 query rows and keeps their Q and dO A
 // fragments, lse log2(e) and delta in registers for the whole loop; K and
 // V tiles stream through a double-buffered cp.async ring in bf16 shared
@@ -1781,6 +1790,303 @@ cudaError_t launch_dkv_narrow(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// K5 in bf16 at d 32 and 64, narrow wgmma route (flash_wgmma.cuh: rows
+// that TMA can read): flash_dq_narrow_kernel<D, NWG>. One block per (bh,
+// 64 NWG query rows); warpgroups 0 .. NWG - 1 consume, 64 query rows each,
+// end to end with no handoff; warpgroup NWG produces (one thread issues
+// every TMA copy). Q and dO of the block's rows are staged once (a box of
+// 64 NWG rows a slice); per tile of 128 keys, K and V stream through a
+// ring of R stages with full and empty mbarriers for each (the empty ones
+// take one arrival from each consumer warp). Per tile a consumer issues
+// S_j = Q K_j^T and dP_j = dO V_j^T (wgmma m64n128k16, both from shared
+// memory) and dQ += bf16(dS_{j-1}) K_{j-1} (dS from registers, K
+// transposed by the descriptor, as K4's P V takes V) as two groups, and
+// forms P_j = exp2(S_j scale log2(e) - lse log2(e)) (keys past T: P = 0,
+// their rows read as zeros) and dS_j = P_j (dP_j - delta) in f32 while
+// the dQ product is in flight: its exponentials overlap the tensor cores,
+// as flash_fwd_narrow_kernel's softmax does. dS is rounded to bf16 as the
+// A operand, where the Pallas kernel rounds it (flash_attention.py:179).
+// lse log2(e) and delta of a thread's two rows stay in registers. V's
+// stage is released once S and dP have landed, K's once the dQ product
+// that read it has. Registers a consumer thread: S 64, dP 64, bf16(dS)
+// 32, dQ D / 2. Padded query rows are zeros with lse = delta = 0 and are
+// not stored; dQ (times the scale, applied once) is written once, one
+// writer an element, no atomics.
+//
+// Consumer warpgroups a block (a variant builds with an nvcc -D flag,
+// scripts/torch_flash_variants.py --set narrow): one at d 32, where two
+// blocks share an SM (232 registers a consumer thread), two at d 64 (240);
+// three would leave 160, below the ~200 that S, dP, bf16(dS) and dQ hold
+// live at once. The ring holds FLASH_DQ_NARROW_STAGES tiles at most, fewer
+// where the block's share of the SM is smaller.
+#ifndef FLASH_DQ_NARROW_WGS32
+#define FLASH_DQ_NARROW_WGS32 1
+#endif
+#ifndef FLASH_DQ_NARROW_WGS64
+#define FLASH_DQ_NARROW_WGS64 2
+#endif
+#ifndef FLASH_DQ_NARROW_STAGES
+#define FLASH_DQ_NARROW_STAGES 4
+#endif
+constexpr int kDqNarrowKeys = 128;
+template <int D>
+constexpr int kDqNarrowWgs =
+    D == 32 ? FLASH_DQ_NARROW_WGS32 : FLASH_DQ_NARROW_WGS64;
+static_assert(kDqNarrowWgs<32> >= 1 && kDqNarrowWgs<32> <= 3 &&
+                  kDqNarrowWgs<64> >= 1 && kDqNarrowWgs<64> <= 3,
+              "one to three consumer warpgroups");
+
+// Shared memory of flash_dq_narrow_kernel<D, NWG> with R ring stages: the
+// 1024-byte alignment slack, Q and dO, the K and V rings and the barriers.
+template <int D, int NWG>
+constexpr int dq_narrow_smem(int stages) {
+  return 1024 + D * 2 * (2 * NWG * 64 + 2 * stages * kDqNarrowKeys) +
+         8 * (1 + 4 * stages);
+}
+// The deepest ring up to FLASH_DQ_NARROW_STAGES that fits the block's
+// share of the SM (1 KB of it reserved a block).
+template <int D, int NWG>
+constexpr int dq_narrow_stages() {
+  int r = FLASH_DQ_NARROW_STAGES;
+  while (r > 2 && dq_narrow_smem<D, NWG>(r) >
+                      kMaxSmem / kNarrowBlocks<NWG> -
+                          1024 * (kNarrowBlocks<NWG> - 1))
+    --r;
+  return r;
+}
+// (a variable template: nvcc takes no call of a host function in device
+// code, constexpr or not)
+template <int D, int NWG>
+constexpr int kDqNarrowStages = dq_narrow_stages<D, NWG>();
+
+template <int D, int NWG>
+__global__ void __launch_bounds__((NWG + 1) * kWgThreads, kNarrowBlocks<NWG>)
+    flash_dq_narrow_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dq, int seq_len,
+                           float scale) {
+  constexpr int SC = kNarrowCols<D>, NS = kNarrowSlices<D>;
+  constexpr int RB = 2 * SC;                // bytes of a slice's row
+  constexpr int BK = kDqNarrowKeys;
+  constexpr int R = kDqNarrowStages<D, NWG>;
+  constexpr int QS = NWG * 64 * RB;         // a slice of Q or dO
+  constexpr int KS = BK * RB;               // a slice of a K or V tile
+  constexpr int KT = SC / 16;               // k16 steps a slice of d
+  constexpr int PT = BK / 16;               // k16 steps of dS K
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t Qs = base;                 // [NS] slices
+  const uint32_t dOs = Qs + NS * QS;        // [NS] slices
+  const uint32_t Ks = dOs + NS * QS;        // [R][NS] slices
+  const uint32_t Vs = Ks + R * NS * KS;     // [R][NS] slices
+  const uint32_t qd_full = Vs + R * NS * KS;
+  const uint32_t k_full = qd_full + 8, v_full = k_full + 8 * R;
+  const uint32_t k_empty = v_full + 8 * R, v_empty = k_empty + 8 * R;
+
+  const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * NWG * 64, bh = blockIdx.y;
+  const int ntiles = (seq_len + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int i = 0; i < R; ++i) {
+      mbar_init(k_full + 8 * i, 1);
+      mbar_init(v_full + 8 * i, 1);
+      mbar_init(k_empty + 8 * i, 4 * NWG);
+      mbar_init(v_empty + 8 * i, 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {  // producer
+    reg_dealloc<24>();
+    if (tid != 0) return;
+    mbar_expect(qd_full, 2 * NS * QS);
+    for (int s = 0; s < NS; ++s) {
+      tma_slice(Qs + s * QS, &tq, s * SC, q0, bh, qd_full);
+      tma_slice(dOs + s * QS, &tdo, s * SC, q0, bh, qd_full);
+    }
+    for (int j = 0; j < ntiles; ++j) {
+      const int st = j % R;
+      const uint32_t par = ((j / R) & 1) ^ 1;  // the stage's last use done
+      mbar_wait(k_empty + 8 * st, par);
+      mbar_expect(k_full + 8 * st, NS * KS);
+      for (int s = 0; s < NS; ++s)
+        tma_slice(Ks + (st * NS + s) * KS, &tk, s * SC, j * BK, bh,
+                  k_full + 8 * st);
+      mbar_wait(v_empty + 8 * st, par);
+      mbar_expect(v_full + 8 * st, NS * KS);
+      for (int s = 0; s < NS; ++s)
+        tma_slice(Vs + (st * NS + s) * KS, &tv, s * SC, j * BK, bh,
+                  v_full + 8 * st);
+    }
+    return;
+  }
+
+  // consumers: rows q0 + 64 wg + 16 warp + lane / 4 (+ 8); the S and dP
+  // accumulators' columns (keys of the tile) 8 i + 2 (lane % 4) (+ 1)
+  reg_alloc<kNarrowRegs<NWG>>();
+  const float scale_log2 = scale * kLog2e;
+  const size_t head = (size_t)bh * seq_len;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + wg * 64 + warp * 16 + lane / 4 + 8 * r;
+    l2[r] = qi < seq_len ? lse[head + qi] * kLog2e : 0.f;
+    dl[r] = qi < seq_len ? delta[head + qi] : 0.f;
+  }
+  float acc[NS][SC / 2];
+#pragma unroll
+  for (int b = 0; b < NS; ++b)
+#pragma unroll
+    for (int i = 0; i < SC / 2; ++i) acc[b][i] = 0.f;
+  float s[BK / 2], dp[BK / 2];  // S_j, then P_j; dP_j, then dS_j (f32)
+  uint32_t dsa[PT][4];          // bf16(dS_j), the A operand of dS_j K_j
+  const uint32_t q_own = Qs + wg * 64 * RB, do_own = dOs + wg * 64 * RB;
+
+  // S = Q K_j^T and dP = dO V_j^T over the NS slices of d, one group
+  auto issue_sdp = [&](int j) {
+    const int st = j % R;
+    mbar_wait(k_full + 8 * st, (j / R) & 1);
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      const uint64_t da = desc_rows<RB>(q_own + sl * QS);
+      const uint64_t db = desc_rows<RB>(Ks + (st * NS + sl) * KS);
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+        wgmma_ss(s, da + kk * kStepK, db + kk * kStepK, sl | kk);
+    }
+    mbar_wait(v_full + 8 * st, (j / R) & 1);
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      const uint64_t da = desc_rows<RB>(do_own + sl * QS);
+      const uint64_t db = desc_rows<RB>(Vs + (st * NS + sl) * KS);
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+        wgmma_ss(dp, da + kk * kStepK, db + kk * kStepK, sl | kk);
+    }
+    wgmma_commit();
+  };
+  // dQ += bf16(dS_j) K_j into the NS output slices, one group
+  auto issue_dq = [&](int j) {
+    const int st = j % R;
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      const uint64_t dk = desc_rows<RB>(Ks + (st * NS + sl) * KS);
+#pragma unroll
+      for (int kk = 0; kk < PT; ++kk)
+        wgmma_rs_t(acc[sl], dsa[kk], dk + kk * RB);
+    }
+    wgmma_commit();
+  };
+  // P and dS of tile j, dS in place of dP, in f32
+  auto grads = [&](int j) {
+    const int k0 = j * BK;
+    const bool ragged = k0 + BK > seq_len;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i / 2) % 2;
+      float p = fast_exp2(fmaf(s[i], scale_log2, -l2[r]));
+      if (ragged && k0 + (i / 4) * 8 + (lane % 4) * 2 + (i % 2) >= seq_len)
+        p = 0.f;
+      dp[i] = p * (dp[i] - dl[r]);
+    }
+  };
+  auto release = [&](uint32_t empty, int j) {
+    if (lane == 0) mbar_arrive(empty + 8 * (j % R));
+  };
+  mbar_wait(qd_full, 0);
+  wgmma_fence();
+  issue_sdp(0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+  release(v_empty, 0);
+  grads(0);
+  a_from_acc(dsa, dp);
+  for (int j = 1; j < ntiles; ++j) {
+    wgmma_fence();
+    issue_sdp(j);
+    issue_dq(j - 1);
+    wgmma_wait<1>();  // S_j and dP_j have landed; dS_{j-1} K_{j-1} may run
+    fence_regs(s);
+    fence_regs(dp);
+    release(v_empty, j);
+    grads(j);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < NS; ++b) fence_regs(acc[b]);
+    release(k_empty, j - 1);
+    a_from_acc(dsa, dp);
+  }
+  wgmma_fence();
+  issue_dq(ntiles - 1);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int b = 0; b < NS; ++b) fence_regs(acc[b]);
+  release(k_empty, ntiles - 1);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + wg * 64 + warp * 16 + lane / 4 + 8 * r;
+    if (qi >= seq_len) continue;
+    __nv_bfloat16* row = dq + (head + qi) * D;
+#pragma unroll
+    for (int b = 0; b < NS; ++b)
+#pragma unroll
+      for (int i = 0; i < SC / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(row + b * SC + i * 8 +
+                                           (lane % 4) * 2) =
+            __floats2bfloat162_rn(acc[b][4 * i + 2 * r] * scale,
+                                  acc[b][4 * i + 2 * r + 1] * scale);
+  }
+}
+static_assert(dq_narrow_smem<64, kDqNarrowWgs<64>>(
+                  kDqNarrowStages<64, kDqNarrowWgs<64>>) <=
+                  kMaxSmem / kNarrowBlocks<kDqNarrowWgs<64>>,
+              "K5's narrow ring fits at d 64");
+static_assert(dq_narrow_smem<32, kDqNarrowWgs<32>>(
+                  kDqNarrowStages<32, kDqNarrowWgs<32>>) <=
+                  kMaxSmem / kNarrowBlocks<kDqNarrowWgs<32>>,
+              "K5's narrow ring fits at d 32");
+
+template <int D>
+cudaError_t launch_dq_narrow(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dq, int bh,
+                             int seq_len, float scale, cudaStream_t stream) {
+  constexpr int NWG = kDqNarrowWgs<D>, SC = kNarrowCols<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = encode_box(&tq, q, bh, seq_len, D, SC, NWG * 64)) !=
+          cudaSuccess ||
+      (err = encode_box(&tk, k, bh, seq_len, D, SC, kDqNarrowKeys)) !=
+          cudaSuccess ||
+      (err = encode_box(&tv, v, bh, seq_len, D, SC, kDqNarrowKeys)) !=
+          cudaSuccess ||
+      (err = encode_box(&tdo, dout, bh, seq_len, D, SC, NWG * 64)) !=
+          cudaSuccess)
+    return err;
+  const int smem = dq_narrow_smem<D, NWG>(kDqNarrowStages<D, NWG>);
+  err = cudaFuncSetAttribute(flash_dq_narrow_kernel<D, NWG>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_len + NWG * 64 - 1) / (NWG * 64), bh);
+  flash_dq_narrow_kernel<D, NWG><<<grid, (NWG + 1) * kWgThreads, smem,
+                                   stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
+      seq_len, scale);
+  return cudaGetLastError();
+}
+
 // K5 in bf16, wgmma route (flash_wgmma.cuh: 16-byte aligned rows), d in
 // (128, 256] (FLASH_DQ_WGMMA_ROWS 128, the default): K4's layout. One
 // block per (bh, 128 query rows); warpgroups 0 and 1 consume, 64 query
@@ -2429,6 +2735,14 @@ cudaError_t launch_any(int which, const void* q, const void* k,
     return launch_wide(which, q, k, v, dout, lse, delta, out0, out1, bh,
                        seq_len, head_dim, scale, dtype,
                        static_cast<cudaStream_t>(stream));
+  if (which == 0 && dtype == 1 && narrow_route(head_dim, 64, {q, k, v, dout}))
+    return head_dim == 32
+               ? launch_dq_narrow<32>(q, k, v, dout, lse, delta, out0, bh,
+                                      seq_len, scale,
+                                      static_cast<cudaStream_t>(stream))
+               : launch_dq_narrow<64>(q, k, v, dout, lse, delta, out0, bh,
+                                      seq_len, scale,
+                                      static_cast<cudaStream_t>(stream));
   if (which == 1 && dtype == 1 && narrow_route(head_dim, 64, {q, k, v, dout}))
     return head_dim == 32
                ? launch_dkv_narrow<32>(q, k, v, dout, lse, delta, out0, out1,

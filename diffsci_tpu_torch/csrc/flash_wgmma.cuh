@@ -1,7 +1,8 @@
 // Hopper building blocks of the bf16 flash-attention kernels on wgmma:
 // the narrow route (head dims 32 and 64, K4 also 128): K4's
-// flash_fwd_narrow_kernel (flash_attention.cu) and K6's
-// flash_dkv_narrow_kernel (flash_attention_bwd.cu); and the wide route
+// flash_fwd_narrow_kernel (flash_attention.cu), K5's
+// flash_dq_narrow_kernel and K6's flash_dkv_narrow_kernel
+// (flash_attention_bwd.cu); and the wide route
 // (head dims above 128): K4's flash_fwd_wgmma_kernel, K5's
 // flash_dq_wgmma_kernel and flash_dq_wgmma_pair_kernel and K6's
 // flash_dkv_wgmma_kernel. They need sm_90a: TMA copies completing on
@@ -66,11 +67,12 @@ inline bool wgmma_route(int head_dim,
          rows_aligned(head_dim, ptrs);
 }
 
-// The narrow route: bf16 rows of head_dim 32 or 64 (K4: also 128) that
-// TMA can read; every other head dim up to 128 stays on the mma.sync
-// kernels. A build with -DFLASH_WGMMA_MIN_DIM=129 sends every head dim up
-// to 128 to those (scripts/torch_flash_variants.py --set narrow times
-// the two routes side by side).
+// The narrow route: bf16 rows of head_dim 32 or 64 (K4: also 128; K5 and
+// K6 ask with max_dim 64) that TMA can read; every other head dim up to
+// 128 stays on the mma.sync kernels. A build with
+// -DFLASH_WGMMA_MIN_DIM=129 sends every head dim up to 128 to those
+// (scripts/torch_flash_variants.py --set narrow times the two routes side
+// by side).
 #ifndef FLASH_WGMMA_MIN_DIM
 #define FLASH_WGMMA_MIN_DIM 32
 #endif
@@ -87,6 +89,14 @@ template <int D>
 constexpr int kNarrowCols = D == 32 ? 32 : 64;
 template <int D>
 constexpr int kNarrowSlices = D / kNarrowCols<D>;
+// A narrow kernel with NWG consumer warpgroups and one producer: the
+// blocks an SM holds (two at NWG 1), and the registers a consumer thread
+// takes once the producer warpgroup has given back all but 24 of its own
+// (65536 / (blocks x threads) a thread on average, rounded down to 8).
+template <int NWG>
+constexpr int kNarrowBlocks = NWG == 1 ? 2 : 1;
+template <int NWG>
+constexpr int kNarrowRegs = NWG == 1 ? 232 : NWG == 2 ? 240 : 160;
 
 // Chunks of the output's columns: one pass (one chunk) up to d 256,
 // otherwise ceil(d / 256) chunks (grid z) of DC = 64 * boxes columns.

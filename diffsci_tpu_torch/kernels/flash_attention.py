@@ -21,11 +21,12 @@ K6), CUDA C++; the ``mma.sync`` pieces in ``csrc/flash_mma.cuh``, the
   equal (0.193 against 0.209 ms at H's). The [T, T] score matrix never
   touches device memory.
 - Routes, by a shape rule in the launchers (a call is one launch either
-  way): bf16 K4 at d 32, 64 and 128 and bf16 K6 at d 32 and 64, on rows
-  that TMA can read (d % 8 = 0, 16-byte aligned bases), take the narrow
-  ``wgmma`` kernels; bf16 K5 at every d ≤ 128 and bf16 K4 and K6 at the
-  other d ≤ 128 or on unaligned bases take the ``mma.sync`` kernels; f32
-  the FP32 pipes; d above 128 the wide kernels. A build with
+  way): bf16 K4 at d 32, 64 and 128 and bf16 K5 and K6 at d 32 and 64, on
+  rows that TMA can read (d % 8 = 0, 16-byte aligned bases), take the
+  narrow ``wgmma`` kernels; bf16 K4, K5 and K6 at the other d ≤ 128 (K5
+  and K6 at d 128 among them) or on unaligned bases take the
+  ``mma.sync`` kernels; f32 the FP32 pipes; d above 128 the wide
+  kernels. A build with
   ``-DFLASH_WGMMA_MIN_DIM=129`` sends every d ≤ 128 to ``mma.sync``
   (``scripts/torch_flash_variants.py --set narrow`` times the two routes
   side by side).
@@ -40,7 +41,15 @@ K6), CUDA C++; the ``mma.sync`` pieces in ``csrc/flash_mma.cuh``, the
   issues S_j = Q K_jᵀ (``wgmma`` m64n128k16) and O += P_{j−1} V_{j−1}
   (P from registers, V transposed by the descriptor) together and runs
   the online softmax of S_j while P_{j−1} V_{j−1} is in flight, so its
-  exponentials overlap the tensor cores. K6 (``flash_dkv_narrow_kernel``):
+  exponentials overlap the tensor cores. K5 (``flash_dq_narrow_kernel``):
+  the same producer and ring for K and V; each consumer warpgroup owns 64
+  query rows end to end (one a block at d 32, two blocks an SM; two at d
+  64), Q and dO staged once and its rows' lse·log2 e and delta in
+  registers. It issues S_j = Q K_jᵀ and dP_j = dO V_jᵀ (``wgmma``
+  m64n128k16, both from shared memory) together with dQ +=
+  bf16(dS_{j−1}) K_{j−1} (dS from registers, K transposed by the
+  descriptor) and forms P_j and dS_j = P_j∘(dP_j − delta) in f32 while
+  that product is in flight. K6 (``flash_dkv_narrow_kernel``):
   one block of 128 keys, K and V staged once, Q and dO streamed in
   64-query tiles with their lse and delta; each of two consumer
   warpgroups owns 64 keys end to end (Sᵀ, dPᵀ, dK and dV all fit its

@@ -32,6 +32,11 @@ from diffsci_tpu_torch.parallel.tensor_parallel import as_linear
 from diffsci_tpu_torch.utils import resolve_device
 
 
+def swish(x):
+    """x · sigmoid(x), the blocks' activation (``F.silu`` in them)."""
+    return x * torch.sigmoid(x)
+
+
 @dataclasses.dataclass(frozen=True)
 class DDConfig:
     """The autoencoder's shape (the reference's ``autoencoderldm2d.py``

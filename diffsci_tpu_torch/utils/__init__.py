@@ -6,11 +6,12 @@ from diffsci_tpu_torch.utils.periodic import (periodic_getitem,
 from diffsci_tpu_torch.utils.tensor import (bcast_right, depth_to_space,
                                             dict_expand_dims, dict_map,
                                             get_minibatch_sizes,
+                                            inverse_cdf_histogram,
                                             linear_interpolation,
                                             space_to_depth, unset)
 
 __all__ = ["bcast_right", "cap_cpu_threads", "depth_to_space", "dict_expand_dims", "dict_map",
-           "get_minibatch_sizes", "linear_interpolation",
+           "get_minibatch_sizes", "inverse_cdf_histogram", "linear_interpolation",
            "make_image_grid", "periodic_getitem",
            "periodic_getitem_extended", "periodic_setitem",
            "resolve_device", "save_image_grid",

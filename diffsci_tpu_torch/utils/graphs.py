@@ -24,6 +24,7 @@ body.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable
 
@@ -82,13 +83,22 @@ class GraphCache:
 
     def capture(self, key, fn: Callable) -> Graph:
         """Capture ``fn`` (warmed up before) into the cache under ``key``.
-        The body runs once as Python, enqueueing into the graph."""
+        The body runs once as Python, enqueueing into the graph. Python's
+        cyclic collector is paused meanwhile: a ``CUDAGraph`` it frees
+        there (an earlier cache's, left in a reference cycle) destroys its
+        graph inside the capture, which invalidates the capture."""
         stream = self._side_stream()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with kernels.counting_capture() as launches:
-            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
-                outputs = fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with kernels.counting_capture() as launches:
+                with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+                    outputs = fn()
+        finally:
+            if collecting:
+                gc.enable()
         self.graphs[key] = Graph(graph, outputs, launches,
                                  time.perf_counter() - t0)
         return self.graphs[key]

@@ -3,7 +3,8 @@
 The port's own copy of ``diffsci_tpu/utils/tensor.py``'s ``bcast_right``,
 ``dict_map``, ``dict_expand_dims``, ``linear_interpolation``,
 ``get_minibatch_sizes``, ``space_to_depth`` and ``depth_to_space``, on
-torch tensors.
+torch tensors, and of its host-side ``inverse_cdf_histogram`` (numpy and
+scipy).
 """
 
 from __future__ import annotations
@@ -62,6 +63,21 @@ def get_minibatch_sizes(nsamples: int, maximum_batch_size: int) -> list[int]:
     if remainder:
         sizes.append(remainder)
     return sizes
+
+
+def inverse_cdf_histogram(z):
+    """Empirical inverse CDF of a sample through a density histogram
+    (``bins="auto"``): a callable ``ppf(q)``. Host-side numpy and scipy,
+    for histogram-matched noise shaping in analysis scripts; ``z`` may be
+    a tensor or an array."""
+    import numpy as np
+    import scipy.stats
+
+    if isinstance(z, torch.Tensor):
+        z = z.detach().cpu().numpy()
+    histogram, bin_edges = np.histogram(np.asarray(z), bins="auto",
+                                        density=True)
+    return scipy.stats.rv_histogram((histogram, bin_edges)).ppf
 
 
 def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:

@@ -82,17 +82,22 @@ SETS = {
         builds={"narrow": (), "mma.sync": MMA_ROUTE},
         variants={"d 64 2 WGs": ("-DFLASH_NARROW_WGS64=2",),
                   "d 32 2 WGs": ("-DFLASH_NARROW_WGS32=2",),
+                  "K5 d 64 1 WG": ("-DFLASH_DQ_NARROW_WGS64=1",),
+                  "K5 d 64 3 WGs": ("-DFLASH_DQ_NARROW_WGS64=3",),
+                  "K5 d 32 2 WGs": ("-DFLASH_DQ_NARROW_WGS32=2",),
                   "rings of 2": ("-DFLASH_NARROW_STAGES=2",
-                                 "-DFLASH_DKV_NARROW_STAGES=2"),
+                                 "-DFLASH_DKV_NARROW_STAGES=2",
+                                 "-DFLASH_DQ_NARROW_STAGES=2"),
                   "rings of 4 and 6": ("-DFLASH_NARROW_STAGES=4",
-                                       "-DFLASH_DKV_NARROW_STAGES=6")},
+                                       "-DFLASH_DKV_NARROW_STAGES=6",
+                                       "-DFLASH_DQ_NARROW_STAGES=6")},
         shapes=(((4, 12, 4096, 64), "H, bucket 4"),
                 ((8, 12, 4096, 64), "H, train batch 8"),
                 ((4, 2, 4096, 32), "A, bucket 4"),
                 ((1, 2, 4096, 32), "A, bucket 1"),
                 ((8, 2, 4096, 32), "A, Picard sweep"),
                 ((2, 4, 4096, 128), "head dim 128")),
-        kernels=r"(flash_(?:fwd|dkv)_narrow_kernelILi\d+E(?:Li\d+E)?)"),
+        kernels=r"(flash_(?:fwd|dq|dkv)_narrow_kernelILi\d+E(?:Li\d+E)?)"),
 }
 # the macros that reach one library alone
 ONE_LIB = (("flash_attention", ("-DFLASH_NARROW_", "-DFLASH_FWD_")),

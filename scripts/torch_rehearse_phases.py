@@ -135,9 +135,15 @@ def make_copy(out: str) -> None:
     _sub(gr, '''        stream = self._side_stream()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with kernels.counting_capture() as launches:
-            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
-                outputs = fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with kernels.counting_capture() as launches:
+                with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+                    outputs = fn()
+        finally:
+            if collecting:
+                gc.enable()
         self.graphs[key] = Graph(graph, outputs, launches,
                                  time.perf_counter() - t0)''', '''        self.graphs[key] = Graph(fn, None, {}, 0.0)
         self.graphs[key].inference = torch.is_inference_mode_enabled()''')
@@ -182,13 +188,13 @@ def make_copy(out: str) -> None:
          'SCRIPT_EVAL = ["--nsamples", "20", "--batch", "8", "--fld"]')
     # phase 41: the sweep at 8 samples of 4 steps; the study, Picard and
     # the repro's full run at 8 channels, a few steps and samples
-    _sub(cs, '''"--nsamples", "250", "--nsteps",
-         "100"]''', '''"--nsamples", "8", "--nsteps", "4"]''')
-    _sub(cs, '''STUDY = ["--steps", "100", "--nsamples", "256", "--nfe", "18",''',
+    _sub(cs, '''"--nsamples", "100", "--nsteps",
+         "50"]''', '''"--nsamples", "8", "--nsteps", "4"]''')
+    _sub(cs, '''STUDY = ["--steps", "50", "--nsamples", "128", "--nfe", "18",''',
          '''STUDY = ["--steps", "4", "--nsamples", "16", "--nfe", "4",
          "--model-channels", "8", "--batch-size", "16", "--num-data",
          "256", "--size", "20",''')
-    _sub(cs, '''PICARD = ["--train-steps", "100", "--nsamples-fid", "128"]''',
+    _sub(cs, '''PICARD = ["--train-steps", "100", "--nsamples-fid", "64"]''',
          '''PICARD = ["--train-steps", "4", "--nsamples-fid", "4",
           "--latency-batch", "2", "--model-channels", "8", "--batch-size",
           "16", "--num-data", "256", "--size", "20"]''')

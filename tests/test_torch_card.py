@@ -253,7 +253,7 @@ def _flash_route_case(shape, offset, seed):
     """bf16 K4, K5 and K6 at ``shape`` on inputs whose base is ``offset``
     elements into their storage, against their plain versions (each
     launched once, each repeat bit-identical); returns the kernels that
-    K4 and K6 launched."""
+    K4, K5 and K6 launched."""
     gen = torch.Generator("cuda").manual_seed(seed)
     q, k, v, do = (_offset_randn(shape, torch.bfloat16, offset, gen)
                    for _ in range(4))
@@ -273,34 +273,57 @@ def _flash_route_case(shape, offset, seed):
         got, fa.flash_attention_bwd(q, k, v, o, lse, do)))
     delta = (do.float() * o.float()).sum(-1)
     fwd = _kernel_names(lambda: fa.flash_attention_fwd(q, k, v))
+    dq = _kernel_names(lambda: fa.flash_attention_dq(q, k, v, do, lse,
+                                                     delta))
     dkv = _kernel_names(lambda: fa.flash_attention_dkv(q, k, v, do, lse,
                                                        delta))
-    return fwd, dkv
+    return fwd, dq, dkv
 
 
 @pytest.mark.parametrize("shape", _NARROW)
 def test_flash_narrow_route_matches_plain_on_card(shape):
-    """The narrow wgmma K4 (d 32, 64, 128) and K6 (d 32, 64) at the main
-    paths' shapes and ragged T: within phase 1's bounds of the plain
+    """The narrow wgmma K4 (d 32, 64, 128), K5 and K6 (d 32, 64) at the
+    main paths' shapes and ragged T: within phase 1's bounds of the plain
     versions (O 2^-7·|ref| + 2e-3·max|ref|, lse 1e-3, dQ, dK, dV 1e-2 of
     max|ref|), bit-identical on a repeat, and launched by the shape
     rule."""
-    fwd, dkv = _flash_route_case(shape, 0, 7)
+    fwd, dq, dkv = _flash_route_case(shape, 0, 7)
     assert any("flash_fwd_narrow_kernel" in n for n in fwd), fwd
+    narrow_dq = any("flash_dq_narrow_kernel" in n for n in dq)
+    assert narrow_dq == (shape[-1] <= 64), dq
     narrow_dkv = any("flash_dkv_narrow_kernel" in n for n in dkv)
     assert narrow_dkv == (shape[-1] <= 64), dkv
+
+
+@pytest.mark.parametrize("shape", [(4, 2, 4096, 32), (4, 12, 4096, 64)])
+def test_flash_narrow_dq_is_deterministic_on_card(shape):
+    """The narrow K5 at A's d 32 and H's d 64 (train batch 4 and bucket
+    4): one writer per dQ element and no atomics, so three calls give the
+    same bits."""
+    gen = torch.Generator("cuda").manual_seed(11)
+    q, k, v, do = (torch.randn(shape, generator=gen,
+                               device="cuda").bfloat16() for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    first = fa.flash_attention_dq(q, k, v, do, lse, delta)
+    assert any("flash_dq_narrow_kernel" in n for n in _kernel_names(
+        lambda: fa.flash_attention_dq(q, k, v, do, lse, delta), 1))
+    for _ in range(2):
+        assert torch.equal(first, fa.flash_attention_dq(q, k, v, do, lse,
+                                                        delta))
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 2049, 64), (4, 12, 4096, 64),
                                    (1, 2, 4096, 32)])
 def test_flash_unaligned_base_takes_mma_sync_on_card(shape):
     """Inputs whose base is one element off 16 bytes (TMA cannot read
-    them): the shape rule sends K4 and K6 to the mma.sync kernels, which
-    hold the same bounds."""
-    fwd, dkv = _flash_route_case(shape, 1, 8)
+    them): the shape rule sends K4, K5 and K6 to the mma.sync kernels,
+    which hold the same bounds."""
+    fwd, dq, dkv = _flash_route_case(shape, 1, 8)
     assert any("flash_fwd_mma_kernel" in n for n in fwd), fwd
+    assert any("flash_dq_mma_kernel" in n for n in dq), dq
     assert any("flash_dkv_mma_kernel" in n for n in dkv), dkv
-    assert not any("narrow" in n for n in fwd | dkv)
+    assert not any("narrow" in n for n in fwd | dq | dkv)
 
 
 @pytest.mark.parametrize("shape", _FLASH_SWEEP)

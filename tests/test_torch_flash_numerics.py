@@ -89,9 +89,20 @@ def _emulate_bwd(q, k, v, o, lse, do):
     return tuple(t.bfloat16() for t in (dq, dk, dv))
 
 
+def _dq_key_tile(d):
+    """K5's key tile on a ``wgmma`` route at head dim d (bf16, 16-byte
+    aligned bases): 128 on the narrow route (d 32 and 64,
+    ``flash_dq_narrow_kernel``, ``kDqNarrowKeys``), 64 on the wide one
+    (d above 128, ``flash_dq_wgmma_kernel`` and
+    ``flash_dq_wgmma_pair_kernel``)."""
+    return NARROW_KEY_TILE if d in (32, 64) else KEY_TILE
+
+
 def _emulate_dq_tiles(q, k, v, lse, delta, do, key_tile=KEY_TILE):
-    """K5 on the ``wgmma`` route (``flash_dq_wgmma_kernel`` and
-    ``flash_dq_wgmma_pair_kernel``, head dims above 128): dQ summed in f32 over ``key_tile``-key tiles in key order,
+    """K5 on a ``wgmma`` route, its key tile by ``_dq_key_tile``: 128 keys
+    for the narrow ``flash_dq_narrow_kernel`` (d 32 and 64), 64 for the
+    wide ``flash_dq_wgmma_kernel`` and ``flash_dq_wgmma_pair_kernel`` (d
+    above 128). dQ summed in f32 over ``key_tile``-key tiles in key order,
     P = exp2(S·scale·log2 e − lse·log2 e) and dS = P∘(dP − delta) in f32
     per tile, dS rounded to bf16 before dS·K, the scale applied once at
     the end; dQ in bf16."""
@@ -258,10 +269,11 @@ def test_wide_head_dims_against_jax_flash(d):
     _against_jax(2048, d)
 
 
-@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("d", [32, 64, 256, 512])
 def test_wgmma_dq_tiles_against_jax_flash(d):
-    """The ``wgmma`` K5's dQ (64-key tiles in key order, dS rounded to
-    bf16 a tile, f32 sums; ``_emulate_dq_tiles``) on the emulated
+    """The ``wgmma`` K5's dQ (key tiles in key order by the route,
+    ``_dq_key_tile``: 128 keys at d 32 and 64, 64 above 128; dS rounded
+    to bf16 a tile, f32 sums; ``_emulate_dq_tiles``) on the emulated
     forward's O and lse, against the JAX package's bf16 flash dQ in
     interpret mode within ``test_emulated_rounding_matches_jax_flash``'s
     bound: 1e-2 of the largest entry. At ragged T: the last tile holds
@@ -270,6 +282,6 @@ def test_wgmma_dq_tiles_against_jax_flash(d):
     jdq = _jax(q, k, v, do)[1]
     o, lse = _emulate_fwd(q, k, v, key_tile=_key_tile(d))
     delta = (do.float() * o.float()).sum(-1)
-    dq = _emulate_dq_tiles(q, k, v, lse, delta, do)
+    dq = _emulate_dq_tiles(q, k, v, lse, delta, do, _dq_key_tile(d))
     assert dq.dtype == torch.bfloat16
     assert _rel(dq, jdq) <= 1e-2, _rel(dq, jdq)
